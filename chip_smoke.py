@@ -1,0 +1,558 @@
+#!/usr/bin/env python3
+"""GPU smoke test of the PyTorch/CUDA port (``osqp_solver_tpu_torch``).
+
+Run it from the repository root on a machine with one NVIDIA Hopper GPU:
+
+    python3 chip_smoke.py
+
+It builds the three hand-written kernels from ``osqp_solver_tpu_torch/csrc``
+(two layout signatures, all compilers started together), holds each kernel
+against its plain PyTorch version on the card at the main path's shape
+(honest GOMP class, W=100, N=6, B=1024, float32), times both, then drives the
+port's entry point ``solve_batched_lane`` on a 1024-problem honest batch, a
+256-problem batch with stock settings (ρ adaptation refactors) and a
+box-only batch (second layout signature), checking statuses, ADMM iteration
+counts, OSQP's residual criterion recomputed in float64 on the host, and
+that every kernel was really launched by the solve.  One JSON line per
+phase; the last three lines are the kernel table, the card's name and power
+limit, and the verdict.  Exits non-zero without a CUDA device or when any
+phase fails.  ``--phases build,kernels`` runs a subset; ``--out FILE`` also
+writes every phase's record to a JSON file.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+from osqp_solver_tpu_torch import _build
+from osqp_solver_tpu_torch.gomp.honest_batch import (
+    build_box_batch,
+    build_honest_batch,
+)
+from osqp_solver_tpu_torch.gomp.trajectory_qp_lane import _ARRAY_FIELDS
+from osqp_solver_tpu_torch.ops import admm_fused, admm_lane, kkt_factor
+from osqp_solver_tpu_torch.ops import ruiz_kernel
+from osqp_solver_tpu_torch.ops.admm import Settings, _rho_vec
+from osqp_solver_tpu_torch.ops.residuals import _ACC
+from osqp_solver_tpu_torch.ops.status import ExitCode
+
+W, N, BATCH = 100, 6, 1024
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+BENCH = dict(rho=0.04, check_termination=2, adaptive_rho_interval=45,
+             scaling=3, alpha=1.6, factor_form="hrec", termination_warmup=21)
+TOL_RUIZ, TOL_FACTOR, TOL_CHUNK = 1e-5, 1e-4, 1e-3
+RECORDS = {}
+
+
+def emit(phase, **fields):
+    RECORDS[phase] = fields
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def fail(msg):
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def nvidia_smi():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps=7, warm=2):
+    """Median device time of ``fn`` in ms (CUDA events, warmed)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def rel_err(got, ref, scale=None):
+    """(max abs error, that error over ``scale`` — by default max |ref|);
+    infinities must agree."""
+    inf = torch.isinf(ref)
+    if not torch.equal(inf, torch.isinf(got)) or not torch.equal(
+            got[inf], ref[inf]):
+        return float("inf"), float("inf")
+    if not torch.isfinite(got[~inf]).all():
+        return float("nan"), float("nan")
+    err = (got[~inf] - ref[~inf]).abs().max().item() if (~inf).any() else 0.0
+    if scale is None:
+        scale = ref[~inf].abs().max().item() if (~inf).any() else 1.0
+    return err, err / max(scale, 1e-30)
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+# ----------------------------------------------------------- operation counts
+# Counted from the kernels' loops for this run's shapes; a multiply, add,
+# max/min, compare, divide or square root each count as one operation.
+
+
+def ops_tri_solves(B2):
+    """One lower + one upper substitution with a packed 2N x 2N factor."""
+    return 2 * sum(2 * i + 1 for i in range(B2))
+
+
+def ops_factor(W, N, NX, B):
+    B2 = 2 * N
+    dense = NX * (N + 2 * N * (N + 1) // 2)
+    stencil = N * 40
+    schur = sum(2 * (B2 - i) + 1 for i in range(B2) for _ in range(i + 1))
+    chol = sum(2 * jj + 2 + (B2 - jj - 1) * (2 * jj + 1) for jj in range(B2))
+    gain = sum(2 * (j - i) + 1 for i in range(B2) for j in range(i, B2))
+    return W * B * (dense + stencil + schur + chol + gain)
+
+
+def ops_ruiz(W, N, NX, B, iters):
+    R = 4 * N + NX
+    per_wp = N * (51 + 3 * NX) + 3 * NX * N + 5 * R + 20 * N
+    return iters * W * B * per_wp
+
+
+def ops_chunk(W, N, NX, B, n_iter, emit_term):
+    B2, R = 2 * N, 4 * N + NX
+    Rp = -(-R // 8) * 8
+    a_rows = 5 * N + N + N + 3 * N + 2 * N * NX
+    fwd = 2 * R + N * (2 * (3 + NX) + 3) + N * 11 + 6 * N + 5 * N
+    fwd += ops_tri_solves(B2)
+    bwd = 5 * N + 6 * N + ops_tri_solves(B2) + B2 + 5 * B2 + a_rows + 10 * Rp
+    term = 2 * a_rows + 30 * Rp + 4 * N + 2 * B2 + 4 * N + 14 * B2 + 5 * B2
+    term += 2 * N * (5 + 2 * NX) + 2 * 5 * N + 6 * N
+    return W * B * (n_iter * (fwd + bwd) + (term if emit_term else 0))
+
+
+def bound(bytes_moved, ops):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# -------------------------------------------------------------------- phases
+
+
+def phase_device():
+    emit("device", nvidia_smi=nvidia_smi(), torch=torch.__version__,
+         cuda=torch.version.cuda, python=sys.version.split()[0],
+         device_name=torch.cuda.get_device_name(0),
+         device_count=torch.cuda.device_count())
+
+
+def phase_build(signatures):
+    t0 = time.time()
+    built = _build.build_all(signatures)
+    seconds = time.time() - t0
+    report = {}
+    for (name, sig), path in built.items():
+        tag = name + ":" + ",".join(f"{k}={v}" for k, v in sig)
+        info = _build.ptxas_report(path)
+        report[tag] = {
+            "so": str(path.relative_to(_build.build_dir().parent.parent))
+            if path.is_relative_to(_build.build_dir().parent.parent)
+            else str(path),
+            **{k[:48]: v for k, v in info.items()},
+        }
+    emit("build", seconds=round(seconds, 2), libraries=report)
+
+
+def main_path_problem(batch):
+    """Honest batch, equilibrated by the kernel, with the main path's packs."""
+    settings = dataclasses.replace(Settings(), **BENCH)
+    base = build_honest_batch(batch, W, N, torch.float32, "cuda")
+    scaled, scaling = admm_lane.ruiz_equilibrate_lane(base, settings.scaling)
+    packs = admm_lane.build_const_packs(scaled, scaling)
+    rb = torch.full((batch,), settings.rho, dtype=torch.float32, device="cuda")
+    rho_vec = _rho_vec(rb, scaled.l, scaled.u)
+    return settings, base, scaled, scaling, packs, rho_vec
+
+
+def check_ruiz(base, iters, batch):
+    Dk, Ek, ck = ruiz_kernel.ruiz_scalings_kernel(base, iters)
+    Dp, Ep, cp = ruiz_kernel._ruiz_scalings_plain(base, iters)
+    torch.cuda.synchronize()
+    errs = [rel_err(a / b, torch.ones_like(b))
+            for a, b in ((Dk, Dp), (Ek, Ep), (ck, cp))]
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def phase_kernels():
+    settings, base, scaled, scaling, packs, rho_vec = main_path_problem(BATCH)
+    sig = admm_fused.layout_signature(scaled)
+    NX = sig["NX"]
+    B = BATCH
+    out = []
+
+    # ---- Ruiz: D, E, c elementwise relative to the plain version.
+    abs_err, r_err = check_ruiz(base, settings.scaling, B)
+    odd = build_honest_batch(200, W, N, torch.float32, "cuda")
+    odd_err = check_ruiz(odd, settings.scaling, 200)[1]
+    k_ms = time_ms(lambda: ruiz_kernel.ruiz_scalings_kernel(base, settings.scaling))
+    p_ms = time_ms(lambda: ruiz_kernel._ruiz_scalings_plain(base, settings.scaling))
+    rp = ruiz_kernel._ruiz_kernel_packs(base)
+    b_ms, b_by = bound(
+        nbytes(*rp[:4]) + nbytes(rp[4][0], rp[5][0], rp[6]),
+        ops_ruiz(W, N, NX, B, settings.scaling))
+    out.append(dict(
+        name="ruiz", max_abs_err=abs_err, max_rel_err=r_err,
+        odd_batch_rel_err=odd_err, tol=TOL_RUIZ,
+        tol_note="D, E, c elementwise relative to the plain version",
+        ok=bool(r_err <= TOL_RUIZ and odd_err <= TOL_RUIZ),
+        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, shape=f"W={W} N={N} B={B} iters={settings.scaling}"))
+
+    # ---- KKT factor: packed chol against kkt_blocks -> tridiag -> pack.
+    coef = packs["coef"]
+    ck, _ = kkt_factor.factor_packed_lane(scaled, rho_vec, settings.sigma, coef=coef)
+    cp, _ = kkt_factor.factor_packed_lane_plain(scaled, rho_vec, settings.sigma)
+    c64, _ = kkt_factor.factor_packed_lane_plain(
+        cast(scaled, torch.float64), rho_vec.double(), settings.sigma)
+    torch.cuda.synchronize()
+    abs_err, r_err = rel_err(ck, cp)
+    odd_s, odd_sc = admm_lane.ruiz_equilibrate_lane(odd, settings.scaling)
+    odd_rho = _rho_vec(torch.full((200,), settings.rho, device="cuda"),
+                       odd_s.l, odd_s.u)
+    odd_err = rel_err(
+        kkt_factor.factor_packed_lane(odd_s, odd_rho, settings.sigma)[0],
+        kkt_factor.factor_packed_lane_plain(odd_s, odd_rho, settings.sigma)[0],
+    )[1]
+    k_ms = time_ms(lambda: kkt_factor.factor_packed_lane(
+        scaled, rho_vec, settings.sigma, coef=coef))
+    p_ms = time_ms(lambda: kkt_factor.factor_packed_lane_plain(
+        scaled, rho_vec, settings.sigma), reps=5, warm=1)
+    Pd, Pl = kkt_factor.build_p_vel_packs(scaled)
+    b_ms, b_by = bound(nbytes(coef, rho_vec, Pd, Pl, ck),
+                       ops_factor(W, N, NX, B))
+    out.append(dict(
+        name="kkt_factor", max_abs_err=abs_err, max_rel_err=r_err,
+        odd_batch_rel_err=odd_err, tol=TOL_FACTOR,
+        tol_note="max abs error over max |plain|; f32 reassociation over a "
+                 "100-step recurrence",
+        kernel_vs_f64=rel_err(ck.double(), c64)[1],
+        plain_vs_f64=rel_err(cp.double(), c64)[1],
+        ok=bool(r_err <= TOL_FACTOR and odd_err <= TOL_FACTOR),
+        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, shape=f"W={W} N={N} B={B}"))
+
+    # ---- ADMM chunk: 2 iterations + accumulators from a non-trivial state
+    # with a mixed done mask; the kernel works in place on its own copy.
+    lu = admm_fused.build_lu_pack(scaled)
+    term_packs = (packs["EEinv"], packs["varc"], packs["Pdp"], packs["Plf"])
+    st = admm_lane.init_state_lane(
+        scaled, settings, None, None, scaling,
+        rho_bar=torch.full((B,), settings.rho, device="cuda"),
+        rho_vec=rho_vec, factor=(ck, None))
+    none_done = torch.zeros(B, dtype=torch.bool, device="cuda")
+    state0 = admm_fused.pack_state(scaled, st.x, st.z, st.y)
+    args = dict(coef=coef, lu=lu, packed_factor=(ck, None))
+    admm_fused.fused_admm_chunk(  # 10 kernel iterations from cold
+        scaled, rho_vec, none_done, settings, state_pack=state0, n_iter=10,
+        **args)
+    done = (torch.arange(B, device="cuda") % 5) == 3
+
+    scaled64 = cast(scaled, torch.float64)
+    d64 = lambda t: None if t is None else t.double()  # noqa: E731
+
+    def compare(n_iter, tp):
+        """Kernel and plain version (both f32) from the same state, and the
+        plain version in f64 on the same f32 inputs as the yardstick."""
+        sk = state0.clone()
+        sk, acck = admm_fused.fused_admm_chunk(
+            scaled, rho_vec, done, settings, state_pack=sk,
+            term_packs=tp, n_iter=n_iter, **args)
+        sp, accp = admm_fused.fused_admm_chunk_plain(
+            scaled, rho_vec, done, settings, state_pack=state0,
+            term_packs=tp, n_iter=n_iter, **args)
+        s64, acc64 = admm_fused.fused_admm_chunk_plain(
+            scaled64, d64(rho_vec), done, settings, state_pack=d64(state0),
+            term_packs=None if tp is None else tuple(d64(t) for t in tp),
+            n_iter=n_iter, packed_factor=(d64(ck), None))
+        torch.cuda.synchronize()
+        B2, Rp = 2 * N, scaled.rows_per_waypoint_padded
+        sect = {"x": slice(0, B2), "z": slice(B2, B2 + Rp),
+                "y": slice(B2 + Rp, B2 + 2 * Rp)}
+        errs = {k: rel_err(sk[:, s], sp[:, s]) for k, s in sect.items()}
+        vs64 = {k: (rel_err(sk[:, s].double(), s64[:, s])[1],
+                    rel_err(sp[:, s].double(), s64[:, s])[1])
+                for k, s in sect.items()}
+        frozen_same = torch.equal(sk[..., done], state0[..., done])
+        acc_errs = {}
+        if tp is not None:
+            # xsum / ysum cancel thousands of signed terms: their error is
+            # held against the sum of magnitudes, not against the sum.
+            scales = {"xsum": s64[:, sect["x"]].abs().sum((0, 1)).max().item(),
+                      "ysum": s64[:, sect["y"]].abs().sum((0, 1)).max().item()}
+            for name, row in _ACC.items():
+                sc = scales.get(name)
+                acc_errs[name] = rel_err(acck[row], accp[row], sc)
+                vs64["acc." + name] = (
+                    rel_err(acck[row].double(), acc64[row], sc)[1],
+                    rel_err(accp[row].double(), acc64[row], sc)[1])
+        return errs, acc_errs, frozen_same, vs64
+
+    def holds(vs):
+        """Kernel within TOL_CHUNK of the f64 run (the plain f32 version's
+        own distance from it is recorded beside it)."""
+        return all(k <= TOL_CHUNK for k, _ in vs.values())
+
+    errs, acc_errs, frozen_same, vs64 = compare(2, term_packs)
+    warm_errs, _, warm_frozen, warm_vs64 = compare(
+        settings.termination_warmup, None)
+    # The same comparison at an odd batch (tail mask).
+    odd_packs = admm_lane.build_const_packs(odd_s, odd_sc)
+    odd_ck, _ = kkt_factor.factor_packed_lane(odd_s, odd_rho, settings.sigma)
+    odd_st = torch.zeros((W, admm_fused.state_rows(odd_s)[1], 200), device="cuda")
+    odd_args = dict(coef=odd_packs["coef"], lu=admm_fused.build_lu_pack(odd_s),
+                    packed_factor=(odd_ck, None),
+                    term_packs=(odd_packs["EEinv"], odd_packs["varc"],
+                                odd_packs["Pdp"], odd_packs["Plf"]))
+    odd_done = torch.zeros(200, dtype=torch.bool, device="cuda")
+    ok_, oacc = admm_fused.fused_admm_chunk(
+        odd_s, odd_rho, odd_done, settings, state_pack=odd_st.clone(), **odd_args)
+    op_, oaccp = admm_fused.fused_admm_chunk_plain(
+        odd_s, odd_rho, odd_done, settings, state_pack=odd_st, **odd_args)
+    odd_err = max(rel_err(ok_, op_)[1],
+                  max(rel_err(oacc[r], oaccp[r])[1] for r in _ACC.values()))
+
+    scratch = state0.clone()
+    k_ms = time_ms(lambda: admm_fused.fused_admm_chunk(
+        scaled, rho_vec, done, settings, state_pack=scratch,
+        term_packs=term_packs, n_iter=2, **args))
+    warm_ms = time_ms(lambda: admm_fused.fused_admm_chunk(
+        scaled, rho_vec, done, settings, state_pack=scratch,
+        n_iter=settings.termination_warmup, **args), reps=5, warm=1)
+    p_ms = time_ms(lambda: admm_fused.fused_admm_chunk_plain(
+        scaled, rho_vec, done, settings, state_pack=state0,
+        term_packs=term_packs, n_iter=2, **args), reps=5, warm=1)
+    q_int = scaled._interleave(scaled.q_vec)
+    inputs = nbytes(ck, coef, q_int, lu, rho_vec, *term_packs, done, state0)
+    outputs = nbytes(state0) + 24 * B * 4
+    b_ms, b_by = bound(inputs + outputs, ops_chunk(W, N, NX, B, 2, True))
+    # Bytes one launch really streams: every pass re-reads its packs.
+    Tp, CRp, SRp, PNp = ck.shape[1], coef.shape[1], state0.shape[1], 8
+    Rp = scaled.rows_per_waypoint_padded
+    per_iter = (2 * Tp + 2 * PNp + 2 * CRp + 2 * N + 2 * Rp + 3 * SRp
+                + 4 * N + 2 * Rp) * 4 * W * B
+    term_extra = (2 * Rp + 40 + PNp) * 4 * W * B
+    streamed_ms = (2 * per_iter + term_extra) / HBM_BYTES_PER_S * 1e3
+    state_err = max(e[1] for e in errs.values())
+    acc_err = max(e[1] for e in acc_errs.values())
+    warm_err = max(e[1] for e in warm_errs.values())
+    out.append(dict(
+        name="admm_chunk",
+        max_abs_err=max(e[0] for e in errs.values()),
+        max_rel_err=state_err, acc_max_rel_err=acc_err,
+        acc_rel_err={k: v[1] for k, v in acc_errs.items()},
+        warmup_form_rel_err=warm_err, odd_batch_rel_err=odd_err,
+        kernel_and_plain_vs_f64=vs64, warmup_kernel_and_plain_vs_f64=warm_vs64,
+        frozen_problems_untouched=bool(frozen_same and warm_frozen),
+        tol=TOL_CHUNK,
+        tol_note="the kernel (f32, hrec algebra) is held against the plain "
+                 "version run in f64 on the same f32 inputs, per section "
+                 "(x, z, y) and per accumulator row, as max abs error over "
+                 "max |f64| (xsum/ysum: over the sum of magnitudes); the "
+                 "plain f32 version's own distance from f64 is recorded "
+                 "beside it.  An f32 KKT solve carries about cond(K) * 2^-24 "
+                 "in either form, so kernel and plain f32 differ by 2-3e-4 "
+                 "while both sit that far from f64; the kernel-vs-plain "
+                 "figures (max_abs_err, max_rel_err) are for information",
+        ok=bool(holds(vs64) and holds(warm_vs64) and odd_err <= TOL_CHUNK
+                and frozen_same and warm_frozen),
+        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, streamed_ms=streamed_ms,
+        warmup_form_ms=warm_ms,
+        shape=f"W={W} N={N} B={B} n_iter=2 emit_term (warm-up form: "
+              f"n_iter={settings.termination_warmup})"))
+    emit("kernels", kernels=out)
+    bad = [k["name"] for k in out if not k["ok"]]
+    if bad:
+        fail(f"kernel(s) outside tolerance of the plain version: {bad}")
+    return out
+
+
+def cast(qp, dtype):
+    return qp.replace(**{k: getattr(qp, k).to(dtype) for k in _ARRAY_FIELDS})
+
+
+def host_residual_check(qp, res, idx, settings):
+    """OSQP's termination criterion recomputed in float64 on the host for
+    the problems ``idx``; returns the worst residual/tolerance ratios."""
+    sub = cast(qp.replace(**{
+        k: getattr(qp, k)[..., idx].cpu() for k in _ARRAY_FIELDS
+    }), torch.float64)
+    x = res.x[idx].cpu().double().T.contiguous()
+    y = res.y[idx].cpu().double().T.contiguous()
+    z = res.z[idx].cpu().double().T.contiguous()
+    Ax, Px, ATy = sub.A_matvec(x), sub.P_matvec(x), sub.AT_matvec(y)
+    amax = lambda v: v.abs().amax(dim=0)  # noqa: E731
+    prim = amax(Ax - z)
+    dual = amax(Px + sub.q + ATy)
+    eps_p = settings.eps_abs + settings.eps_rel * torch.maximum(amax(Ax), amax(z))
+    eps_d = settings.eps_abs + settings.eps_rel * torch.maximum(
+        torch.maximum(amax(Px), amax(ATy)), amax(sub.q))
+    box = torch.maximum(sub.l - z, z - sub.u).clamp(min=0).amax(dim=0)
+    return ((prim / eps_p).max().item(), (dual / eps_d).max().item(),
+            box.max().item())
+
+
+def reset_counts():
+    ruiz_kernel.ruiz_equilibrate_lane_kernel.launches = 0
+    kkt_factor.factor_packed_lane.launches = 0
+    admm_fused.fused_admm_chunk.launches = 0
+
+
+def read_counts():
+    return {
+        "ruiz": ruiz_kernel.ruiz_equilibrate_lane_kernel.launches,
+        "kkt_factor": kkt_factor.factor_packed_lane.launches,
+        "admm_chunk": admm_fused.fused_admm_chunk.launches,
+    }
+
+
+def solve_phase(name, qp, settings, it_window=None, timed=True, host_check=16):
+    B = qp.batch
+    reset_counts()
+    syncs0 = admm_lane.HOST_SYNCS
+    res = admm_lane.solve_batched_lane(qp, settings)  # the main path, once
+    torch.cuda.synchronize()
+    counts = read_counts()
+    syncs = admm_lane.HOST_SYNCS - syncs0
+    status = res.status.cpu()
+    iters = res.iterations.cpu().to(torch.float64)
+    n_opt = int((status == int(ExitCode.kOptimal)).sum())
+    p50, it_max = int(iters.median()), int(iters.max())
+    finite = bool(torch.isfinite(res.x).all() and torch.isfinite(res.y).all())
+    idx = torch.linspace(0, B - 1, host_check).long()
+    prim_ratio, dual_ratio, box = host_residual_check(qp, res, idx, settings)
+    rec = dict(
+        batch=B, optimal=n_opt, iterations_p50=p50, iterations_max=it_max,
+        launches=counts, host_syncs=syncs, finite=finite,
+        shape_x=list(res.x.shape), f64_prim_res_over_eps=prim_ratio,
+        f64_dual_res_over_eps=dual_ratio, f64_max_box_violation=box,
+        prim_res_max=res.prim_res.max().item(),
+        dual_res_max=res.dual_res.max().item(),
+    )
+    if timed:
+        times = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            admm_lane.solve_batched_lane(qp, settings)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        ms = statistics.median(times) * 1e3
+        rec.update(ms_per_batch=ms, qps_per_s=n_opt / (ms * 1e-3),
+                   ms_all=[round(t * 1e3, 3) for t in times])
+    emit(name, **rec)
+    if n_opt != B:
+        fail(f"{name}: {n_opt}/{B} optimal")
+    if not finite or list(res.x.shape) != [B, 2 * W * N]:
+        fail(f"{name}: solution not finite or of the wrong shape")
+    # 2% slack: the solver decides in float32, the host recomputes in f64.
+    if prim_ratio > 1.02 or dual_ratio > 1.02 or box > 1e-4:
+        fail(f"{name}: float64 recomputation violates OSQP's criterion "
+             f"(prim {prim_ratio:.3f}, dual {dual_ratio:.3f}, box {box:.2e})")
+    if it_window and not (it_window[0] <= p50 <= it_window[1]
+                          and it_max <= it_window[2]):
+        fail(f"{name}: iterations p50 {p50} / max {it_max} outside {it_window}")
+    if min(counts.values()) < 1:
+        fail(f"{name}: a kernel of the path was never launched: {counts}")
+    chunks = -(-(it_max - settings.termination_warmup)
+               // settings.check_termination)
+    if syncs != chunks:
+        fail(f"{name}: {syncs} host syncs for {chunks} chunks")
+    return rec
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default="all",
+                    help="comma list of: build,kernels,solve,solve_stock,box")
+    ap.add_argument("--out", default=None, help="also write records here")
+    opts = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device: torch.cuda.is_available() is "
+              "false", file=sys.stderr)
+        sys.exit(2)
+    want = (set("build,kernels,solve,solve_stock,box".split(","))
+            if opts.phases == "all" else set(opts.phases.split(",")))
+    t_start = time.time()
+    torch.manual_seed(0)
+    phase_device()
+    honest_sig = {"NDIM": N, "NX": 5}
+    box_sig = {"NDIM": N, "NX": 0}
+    if "build" in want:
+        phase_build([honest_sig, box_sig] if want & {"box"} or
+                    opts.phases == "all" else [honest_sig])
+    kernels = phase_kernels() if "kernels" in want else []
+    bench = dataclasses.replace(Settings(), **BENCH)
+    launches = {}
+    if "solve" in want:
+        honest = build_honest_batch(BATCH, W, N, torch.float32, "cuda")
+        rec = solve_phase("solve", honest, bench, it_window=(25, 31, 35))
+        launches = rec["launches"]
+    if "solve_stock" in want:
+        stock = build_honest_batch(256, W, N, torch.float32, "cuda")
+        rec = solve_phase("solve_stock", stock, Settings(), timed=False)
+        if rec["launches"]["kkt_factor"] < 2:
+            fail("solve_stock: the rho-adaptation refactor never launched "
+                 "the factor kernel again")
+    if "box" in want:
+        box = build_box_batch(BATCH, W, N, torch.float32, "cuda")
+        solve_phase("box", box, bench, timed=False)
+
+    sources = {"ruiz": ("osqp_solver_tpu_torch/csrc/ruiz.cu",
+                        "osqp_solver_tpu/ops/ruiz_pallas.py:433"),
+               "kkt_factor": ("osqp_solver_tpu_torch/csrc/kkt_factor.cu",
+                              "osqp_solver_tpu/ops/kkt_factor_pallas.py:312"),
+               "admm_chunk": ("osqp_solver_tpu_torch/csrc/admm_chunk.cu",
+                              "osqp_solver_tpu/ops/admm_fused.py:1130")}
+    table = []
+    for k in kernels:
+        src, replaces = sources[k["name"]]
+        table.append({
+            "name": k["name"], "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches.get(k["name"], 0),
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+        })
+    RECORDS["seconds_total"] = round(time.time() - t_start, 1)
+    if opts.out:
+        with open(opts.out, "w") as f:
+            json.dump(RECORDS, f, indent=1)
+    full = opts.phases == "all"
+    if full and any(t["launches"] < 1 for t in table):
+        fail("a kernel of the main path was launched no time in the solve")
+    print(json.dumps({"kernels": table}), flush=True)
+    print(RECORDS["device"]["nvidia_smi"], flush=True)
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                   "count": torch.cuda.device_count()},
+    }), flush=True)
+
+
+if __name__ == "__main__":
+    main()
