@@ -15,8 +15,9 @@ no fallback.  Nothing here runs at import: a machine without ``nvcc`` can
 import every module of the package.
 
 ``host=True`` builds the same sources with ``g++`` in their host-emulation
-mode (``-DLANE_HOST_EMULATION``: the launch macro becomes a loop over
-threads), which lets a test check a kernel's arithmetic without a GPU.
+mode (``-DLANE_HOST_EMULATION -DLANE_REAL=double``: the launch macro becomes
+a loop over threads), which lets a test check a kernel's arithmetic, in
+double, without a GPU.
 The solver never takes that path.
 """
 from __future__ import annotations
@@ -60,40 +61,39 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _target(name: str, signature: dict, host: bool, real: str):
+def _target(name: str, signature: dict, host: bool):
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256()
     for f in sorted(CSRC.glob("*.cu*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     sig = "_".join(f"{k}{v}" for k, v in sorted(signature.items()))
-    h.update(f"{sig}|{host}|{real}".encode())
-    tag = ("host_" + real + "_") if host else ""
+    h.update(f"{sig}|{host}".encode())
+    tag = "host_" if host else ""
     return src, build_dir() / f"{name}_{tag}{sig}_{h.hexdigest()[:12]}.so"
 
 
-def _command(src: Path, out: Path, signature: dict, host: bool, real: str):
+def _command(src: Path, out: Path, signature: dict, host: bool):
     defs = [f"-D{k}={v}" for k, v in sorted(signature.items())]
     if host:
         return [
             "g++", "-x", "c++", "-std=c++17", "-O1", "-shared", "-fPIC",
-            "-DLANE_HOST_EMULATION", f"-DLANE_REAL={real}",
+            "-DLANE_HOST_EMULATION", "-DLANE_REAL=double",
             *defs, "-o", str(out), str(src),
         ]
     return [_nvcc(), *_NVCC_FLAGS, *defs, "-o", str(out), str(src)]
 
 
-def start_build(name: str, signature: dict, host: bool = False,
-                real: str = "float"):
+def start_build(name: str, signature: dict, host: bool = False):
     """Start one compiler process (or none if the library exists).  Returns
     a handle for :func:`finish_build`."""
-    src, out = _target(name, signature, host, real)
+    src, out = _target(name, signature, host)
     if out.exists():
         return (name, out, None, 0.0)
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.Popen(
-        _command(src, tmp, signature, host, real),
+        _command(src, tmp, signature, host),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     return (name, out, (proc, tmp), time.time())
@@ -127,13 +127,12 @@ def build_all(signatures, names=KERNELS):
     return {(n, s): finish_build(h) for n, s, h in handles}
 
 
-def library(name: str, signature: dict, host: bool = False,
-            real: str = "float"):
+def library(name: str, signature: dict, host: bool = False):
     """The loaded ``ctypes`` library of one kernel, built on first use."""
-    key = (name, tuple(sorted(signature.items())), host, real)
+    key = (name, tuple(sorted(signature.items())), host)
     lib = _LIBS.get(key)
     if lib is None:
-        path = finish_build(start_build(name, signature, host, real))
+        path = finish_build(start_build(name, signature, host))
         lib = _LIBS[key] = ctypes.CDLL(str(path))
     return lib
 

@@ -25,8 +25,12 @@
 // semantics as the reference's residual kernel (ops/residuals.py _ACC).
 //
 // Bound: two chains of W dependent 12x12 triangular-solve pairs per
-// iteration; latency-bound (B = 1024 is 32 warps on 132 SMs).  The last
-// backward pass holds far more than 255 values and spills; accepted.
+// iteration; latency-bound (B = 1024 is 32 warps on 132 SMs).  With one warp
+// per SM nothing hides the latency of the ~340 rows a waypoint step reads, so
+// each thread stages the NEXT waypoint's rows into shared memory with
+// cp.async (two stages, its own column only: no block barrier) while it
+// computes the current one (the termination packs too, in the last backward
+// pass).  That pass holds far more than 255 values and spills; accepted.
 #include "lane_common.cuh"
 
 constexpr real INF_THRESHOLD = real(1e25);
@@ -37,6 +41,24 @@ enum {
     A_PDX_MAX, A_ADX_MAX, A_ADX_MIN, A_Q_DOT, A_XSUM, A_YSUM, A_COUNT
 };
 
+// One stage of the shared-memory pipeline: rows of LANE_BLOCK values.
+constexpr int O_CH = 0;            // packed chol, T rows
+constexpr int O_CF = O_CH + T;     // stencil coefficients, CR rows
+constexpr int O_RH = O_CF + CR;    // rho, Rp rows
+constexpr int O_PL = O_RH + Rp;    // P-lower velocity diagonal, N rows
+constexpr int O_ST = O_PL + N;     // state tile x, z, y: SR rows
+constexpr int O_QW = O_ST + SR;    // q (forward) or the h scratch (backward)
+constexpr int O_LU = O_QW + B2;    // bounds, 2 Rp rows (backward only)
+constexpr int STAGE_ROWS = O_LU + 2 * Rp;
+// The last backward pass of an EMIT_TERM launch also stages:
+constexpr int O_EE = STAGE_ROWS;        // E then Einv, 2 Rp rows
+constexpr int O_VC = O_EE + 2 * Rp;     // q, D, Dinv: 3 * 2N rows
+constexpr int O_PD = O_VC + 3 * B2;     // P-diag velocity diagonal, N rows
+constexpr int STAGE_ROWS_TERM = O_PD + N;
+__host__ __device__ constexpr int stage_elems(bool term) {
+    return (term ? STAGE_ROWS_TERM : STAGE_ROWS) * LANE_BLOCK;
+}
+
 struct Args {
     Pack chol, coef, q, lu, rho, plf, ee, varc, pd;
     real* state;
@@ -44,17 +66,55 @@ struct Args {
     real* acc;
     int W, B, b;
     real sigma, alpha, keep;
+    real* smem;  // this thread's column of stage 0
+    int stage;   // elements per stage
 };
 
-template <int ROWS, int CNT>
-__device__ __forceinline__ void load_rows(const Pack& p, int t, real* out) {
+template <int ROWS, int CNT, int DST>
+__device__ __forceinline__ void stage_pack(const Pack& p, int t, real* sg) {
+    // Row k sits at base + k*B.  B is made opaque here so that the compiler
+    // forms each address with one multiply-add instead of keeping one
+    // induction pointer per row alive across the waypoint loop (hundreds of
+    // 64-bit values, all spilled).
+    int Bv = (int)p.B;
+    asm volatile("" : "+r"(Bv));
+    const real* base = p.p + ((size_t)t * ROWS) * p.B + p.b;
 #pragma unroll
-    for (int k = 0; k < CNT; ++k) out[k] = p(t, ROWS, k);
+    for (int k = 0; k < CNT; ++k)
+        cp_async4(sg + (DST + k) * LANE_BLOCK, base + k * Bv);
 }
 
+// Start the copies of waypoint t's rows into stage t & 1 and commit them as
+// one group.
+template <bool BWD, bool TERM = false>
+__device__ __forceinline__ void stage_issue(const Args& a, int t) {
+    real* sg = a.smem + (t & 1) * a.stage;
+    stage_pack<Tp, T, O_CH>(a.chol, t, sg);
+    stage_pack<CRp, CR, O_CF>(a.coef, t, sg);
+    stage_pack<Rp, Rp, O_RH>(a.rho, t, sg);
+    stage_pack<PNp, N, O_PL>(a.plf, t, sg);
+    const Pack st{a.state, (size_t)a.B, a.b};
+    stage_pack<SRp, SR, O_ST>(st, t, sg);
+    if (BWD) {
+        const Pack w{a.w, (size_t)a.B, a.b};
+        stage_pack<B2, B2, O_QW>(w, t, sg);
+        stage_pack<2 * Rp, 2 * Rp, O_LU>(a.lu, t, sg);
+        if (TERM) {
+            stage_pack<2 * Rp, 2 * Rp, O_EE>(a.ee, t, sg);
+            stage_pack<VCp, 3 * B2, O_VC>(a.varc, t, sg);
+            stage_pack<PNp, N, O_PD>(a.pd, t, sg);
+        }
+    } else {
+        stage_pack<B2, B2, O_QW>(a.q, t, sg);
+    }
+    cp_async_commit();
+}
+
+
+
 // Sparse coupling block Ml_t: (j,j) = qq, (j,N+j) = qv, (N+j,N+j) = vv.
-__device__ __forceinline__ void ml_at(const real* cf, const real* rh,
-                                      const real* pl, real* qq, real* qv,
+__device__ __forceinline__ void ml_at(const Rows& cf, const Rows& rh,
+                                      const Rows& pl, real* qq, real* qv,
                                       real* vv) {
 #pragma unroll
     for (int j = 0; j < N; ++j) {
@@ -67,7 +127,7 @@ __device__ __forceinline__ void ml_at(const real* cf, const real* rh,
 
 // Row r of A at one waypoint from this waypoint's variables v[] and the next
 // waypoint's vn[]; r is a compile-time constant after unrolling.
-__device__ __forceinline__ real a_row(int r, const real* cf, const real* v,
+__device__ __forceinline__ real a_row(int r, const Rows& cf, const real* v,
                                       const real* vn) {
     if (r < R_POS) {
         const int j = r - R_DYN;
@@ -92,7 +152,7 @@ __device__ __forceinline__ real a_row(int r, const real* cf, const real* v,
 
 // Own-row A' gather: contributions of THIS waypoint's rows to its own
 // variables (c2/pos/dense into q; c0/vel/a1 into v).
-__device__ __forceinline__ void at_own(const real* cf, const real* row,
+__device__ __forceinline__ void at_own(const Rows& cf, const real* row,
                                        real* out) {
 #pragma unroll
     for (int j = 0; j < N; ++j) {
@@ -110,7 +170,7 @@ __device__ __forceinline__ void at_own(const real* cf, const real* row,
 
 // Cross terms: contributions of this waypoint's rows to the NEXT waypoint's
 // variables (c1 into q, a0 into v).
-__device__ __forceinline__ void at_prev(const real* cf, const real* row,
+__device__ __forceinline__ void at_prev(const Rows& cf, const real* row,
                                         real* out) {
 #pragma unroll
     for (int j = 0; j < N; ++j) {
@@ -129,19 +189,23 @@ __device__ __forceinline__ void forward_pass(const Args& a) {
         vdyn_p[j] = vacc_p[j] = c1_p[j] = a0_p[j] = real(0);
         qq_p[j] = qv_p[j] = vv_p[j] = real(0);
     }
+    stage_issue<false>(a, 0);
     for (int t = 0; t < a.W; ++t) {
-        real cf[CR], rh[R], pl[N], ch[T];
-        load_rows<CRp, CR>(a.coef, t, cf);
-        load_rows<Rp, R>(a.rho, t, rh);
-        load_rows<PNp, N>(a.plf, t, pl);
-        load_rows<Tp, T>(a.chol, t, ch);
-        const real* st = a.state + ((size_t)t * SRp) * a.B + a.b;
+        if (t + 1 < a.W) {
+            stage_issue<false>(a, t + 1);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        const real* sg = a.smem + (t & 1) * a.stage;
+        const Rows cf{sg + O_CF * LANE_BLOCK}, rh{sg + O_RH * LANE_BLOCK},
+            pl{sg + O_PL * LANE_BLOCK}, ch{sg + O_CH * LANE_BLOCK};
         // v_r = rho_r z_r - y_r for the real rows.
         real vr[R];
 #pragma unroll
         for (int r = 0; r < R; ++r)
-            vr[r] = rh[r] * st[(size_t)(S_Z + r) * a.B] -
-                    st[(size_t)(S_Y + r) * a.B];
+            vr[r] = rh[r] * sg[(O_ST + S_Z + r) * LANE_BLOCK] -
+                    sg[(O_ST + S_Y + r) * LANE_BLOCK];
 
         real rhs[B2];
 #pragma unroll
@@ -152,7 +216,8 @@ __device__ __forceinline__ void forward_pass(const Args& a) {
 #pragma unroll
             for (int k = 0; k < NX; ++k)
                 g = g + cf[C_X + k * N + j] * vr[R_X + k];
-            rhs[j] = a.sigma * st[(size_t)(S_X + j) * a.B] - a.q(t, B2, j) + g;
+            rhs[j] = a.sigma * sg[(O_ST + S_X + j) * LANE_BLOCK] -
+                     sg[(O_QW + j) * LANE_BLOCK] + g;
         }
 #pragma unroll
         for (int j = 0; j < N; ++j) {  // v rows
@@ -160,8 +225,8 @@ __device__ __forceinline__ void forward_pass(const Args& a) {
             g = g + cf[C_VEL + j] * vr[R_VEL + j];
             g = g + cf[C_A1 + j] * vr[R_ACC + j];
             g = g + a0_p[j] * vacc_p[j];
-            rhs[N + j] = a.sigma * st[(size_t)(S_X + N + j) * a.B] -
-                         a.q(t, B2, N + j) + g;
+            rhs[N + j] = a.sigma * sg[(O_ST + S_X + N + j) * LANE_BLOCK] -
+                         sg[(O_QW + N + j) * LANE_BLOCK] + g;
         }
         // rhs_t - Ml_{t-1} h_{t-1}   (all-zero carry at t = 0).
         if (t > 0) {
@@ -189,9 +254,10 @@ __device__ __forceinline__ void forward_pass(const Args& a) {
     }
 }
 
-// max-reduce the variable-space quantities of one waypoint (varc rows of
-// waypoint tv) into the accumulators.
-__device__ __forceinline__ void reduce_var_space(const Args& a, int tv,
+// max-reduce the variable-space quantities of one waypoint, given its q and
+// Dinv rows, into the accumulators.
+__device__ __forceinline__ void reduce_var_space(const real* qv_,
+                                                 const real* dinv,
                                                  const real* aty,
                                                  const real* atdy,
                                                  const real* px,
@@ -200,8 +266,8 @@ __device__ __forceinline__ void reduce_var_space(const Args& a, int tv,
          npdx = real(0);
 #pragma unroll
     for (int i = 0; i < B2; ++i) {
-        const real Dinv = a.varc(tv, VCp, 2 * B2 + i);
-        const real qi = a.varc(tv, VCp, i);
+        const real Dinv = dinv[i];
+        const real qi = qv_[i];
         const real Px = i < N ? real(0) : px[i < N ? 0 : i - N];
         const real Pdx = i < N ? real(0) : pdx[i < N ? 0 : i - N];
         draw = rmax(draw, rabs(Dinv * (Px + qi + aty[i])));
@@ -228,8 +294,11 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
     // TERM carries (unused and removed by the compiler otherwise).
     real xsel_n[B2], xold_n[B2], dx_n[B2];
     real aty_p[B2], atdy_p[B2], px_p[N], pdx_p[N];
+    real q_n[B2], dinv_n[B2];  // q and Dinv rows of waypoint t+1
     real acc[A_COUNT];
     if (TERM) {
+#pragma unroll
+        for (int i = 0; i < B2; ++i) q_n[i] = dinv_n[i] = real(0);
 #pragma unroll
         for (int i = 0; i < B2; ++i)
             xsel_n[i] = xold_n[i] = dx_n[i] = aty_p[i] = atdy_p[i] = real(0);
@@ -241,13 +310,18 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
         acc[A_ADX_MIN] = INFINITY;
     }
 
+    stage_issue<true, TERM>(a, a.W - 1);
     for (int t = a.W - 1; t >= 0; --t) {
-        real cf[CR], rh[R], pl[N], ch[T];
-        load_rows<CRp, CR>(a.coef, t, cf);
-        load_rows<Rp, R>(a.rho, t, rh);
-        load_rows<PNp, N>(a.plf, t, pl);
-        load_rows<Tp, T>(a.chol, t, ch);
-        real* st = a.state + ((size_t)t * SRp) * a.B + a.b;
+        if (t > 0) {
+            stage_issue<true, TERM>(a, t - 1);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        const real* sg = a.smem + (t & 1) * a.stage;
+        const Rows cf{sg + O_CF * LANE_BLOCK}, rh{sg + O_RH * LANE_BLOCK},
+            pl{sg + O_PL * LANE_BLOCK}, ch{sg + O_CH * LANE_BLOCK};
+        real* st = a.state + ((size_t)t * SRp) * a.B + a.b;  // written here
 
         // x~_t = h_t - C^{-T} C^{-1} (Ml_t' x~_{t+1}).
         real xt[B2];
@@ -263,7 +337,7 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
             upper_solve(ch, u);
 #pragma unroll
             for (int i = 0; i < B2; ++i) {
-                const real h = a.w[((size_t)t * B2 + i) * a.B + a.b];
+                const real h = sg[(O_QW + i) * LANE_BLOCK];
                 xt[i] = (t < a.W - 1) ? h - u[i] : h;
             }
         }
@@ -271,7 +345,7 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
         real x_old[B2], x_sel[B2], dx[B2];
 #pragma unroll
         for (int i = 0; i < B2; ++i) {
-            x_old[i] = st[(size_t)(S_X + i) * a.B];
+            x_old[i] = sg[(O_ST + S_X + i) * LANE_BLOCK];
             const real x_new = alpha * xt[i] + (real(1) - alpha) * x_old[i];
             x_sel[i] = frozen ? x_old[i] : x_new;
             dx[i] = frozen ? real(0) : x_new - x_old[i];
@@ -286,11 +360,11 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
         for (int r = 0; r < Rp; ++r) {
             // Pad rows (r >= R): zero coefficients, (-INF, INF) bounds.
             const real ztr = a_row(r, cf, xt, xt_n);
-            const real rho_r = r < R ? rh[r < R ? r : 0] : a.rho(t, Rp, r);
-            const real z_old = st[(size_t)(S_Z + r) * a.B];
-            const real y_old = st[(size_t)(S_Y + r) * a.B];
-            const real lo = a.lu(t, 2 * Rp, r);
-            const real hi = a.lu(t, 2 * Rp, Rp + r);
+            const real rho_r = sg[(O_RH + r) * LANE_BLOCK];
+            const real z_old = sg[(O_ST + S_Z + r) * LANE_BLOCK];
+            const real y_old = sg[(O_ST + S_Y + r) * LANE_BLOCK];
+            const real lo = sg[(O_LU + r) * LANE_BLOCK];
+            const real hi = sg[(O_LU + Rp + r) * LANE_BLOCK];
             const real z_tmp = alpha * ztr + (real(1) - alpha) * z_old;
             const real z_new = rmin(rmax(z_tmp + y_old / rho_r, lo), hi);
             const real y_new = y_old + rho_r * (z_tmp - z_new);
@@ -310,8 +384,8 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
                 const real adx = a_row(r, cf, dx, dx_n);
                 const real ax_sel =
                     frozen ? axo : alpha * ztr + (real(1) - alpha) * axo;
-                const real E_r = a.ee(t, 2 * Rp, r);
-                const real Einv_r = a.ee(t, 2 * Rp, Rp + r);
+                const real E_r = sg[(O_EE + r) * LANE_BLOCK];
+                const real Einv_r = sg[(O_EE + Rp + r) * LANE_BLOCK];
                 pr_c = rmax(pr_c, rabs(Einv_r * (ax_sel - z_s)));
                 nax_c = rmax(nax_c, rabs(Einv_r * ax_sel));
                 nz_c = rmax(nz_c, rabs(Einv_r * z_s));
@@ -364,15 +438,18 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
                     px_f[j] = px_p[j] + pl[j] * x_sel[N + j];
                     pdx_f[j] = pdx_p[j] + pl[j] * dx[N + j];
                 }
-                reduce_var_space(a, t + 1, cross_y, cross_dy, px_f, pdx_f, acc);
+                reduce_var_space(q_n, dinv_n, cross_y, cross_dy, px_f, pdx_f,
+                                 acc);
             }
 
             // Own-value variable reductions at waypoint t.
             real ndx_c = real(0), qdot_c = real(0), xs_c = real(0);
 #pragma unroll
             for (int i = 0; i < B2; ++i) {
-                ndx_c = rmax(ndx_c, rabs(a.varc(t, VCp, B2 + i) * dx[i]));
-                qdot_c = qdot_c + a.varc(t, VCp, i) * dx[i];
+                q_n[i] = sg[(O_VC + i) * LANE_BLOCK];
+                dinv_n[i] = sg[(O_VC + 2 * B2 + i) * LANE_BLOCK];
+                ndx_c = rmax(ndx_c, rabs(sg[(O_VC + B2 + i) * LANE_BLOCK] * dx[i]));
+                qdot_c = qdot_c + q_n[i] * dx[i];
                 xs_c = xs_c + x_sel[i];
             }
             acc[A_NORM_DX] = rmax(acc[A_NORM_DX], ndx_c);
@@ -384,7 +461,7 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
             at_own(cf, dy, atdy_p);
 #pragma unroll
             for (int j = 0; j < N; ++j) {
-                const real pdj = a.pd(t, PNp, j);
+                const real pdj = sg[(O_PD + j) * LANE_BLOCK];
                 px_p[j] = pdj * x_sel[N + j] + pl[j] * xsel_n[N + j];
                 pdx_p[j] = pdj * dx[N + j] + pl[j] * dx_n[N + j];
             }
@@ -401,7 +478,7 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
 
     if (TERM) {
         // Epilogue: waypoint 0 has no t-1 cross terms.
-        reduce_var_space(a, 0, aty_p, atdy_p, px_p, pdx_p, acc);
+        reduce_var_space(q_n, dinv_n, aty_p, atdy_p, px_p, pdx_p, acc);
 #pragma unroll
         for (int k = 0; k < A_COUNT; ++k) a.acc[(size_t)k * a.B + a.b] = acc[k];
 #pragma unroll
@@ -418,6 +495,7 @@ __global__ void admm_chunk_kernel(
     const real* __restrict__ ee, const real* __restrict__ varc,
     const real* __restrict__ pd, const real* __restrict__ done, real* state,
     real* w, real* acc, int W, int B, int n_iter, real sigma, real alpha) {
+    LANE_SMEM_DECL();
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= B) return;
     const size_t Bs = (size_t)B;
@@ -425,7 +503,8 @@ __global__ void admm_chunk_kernel(
            {rho, Bs, b},  {plf, Bs, b},  {ee, Bs, b},   {varc, Bs, b},
            {pd, Bs, b},   state,         w,             acc,
            W,             B,             b,             sigma,
-           alpha,         done[b]};
+           alpha,         done[b],       lane_smem + threadIdx.x,
+           stage_elems(EMIT_TERM)};
     for (int it = 0; it < n_iter; ++it) {
         forward_pass(a);
         if (EMIT_TERM && it == n_iter - 1)
@@ -444,17 +523,30 @@ extern "C" int admm_chunk_launch(const void* chol, const void* coef,
                                  int emit_term, double sigma, double alpha,
                                  void* stream) {
     const int grid = (B + LANE_BLOCK - 1) / LANE_BLOCK;
+    const int smem_bytes =
+        2 * stage_elems(emit_term != 0) * (int)sizeof(real);
+#ifndef LANE_HOST_EMULATION
+    // More than the 48 KB a kernel gets without asking.
+    const cudaError_t attr =
+        emit_term ? cudaFuncSetAttribute(
+                        admm_chunk_kernel<true>,
+                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes)
+                  : cudaFuncSetAttribute(
+                        admm_chunk_kernel<false>,
+                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (attr != cudaSuccess) return (int)attr;
+#endif
 #define LANE_CHUNK_ARGS                                                       \
     (const real*)chol, (const real*)coef, (const real*)q, (const real*)lu,    \
         (const real*)rho, (const real*)plf, (const real*)ee,                  \
         (const real*)varc, (const real*)pd, (const real*)done, (real*)state,  \
         (real*)w, (real*)acc, W, B, n_iter, (real)sigma, (real)alpha
     if (emit_term) {
-        LANE_LAUNCH(admm_chunk_kernel<true>, grid, LANE_BLOCK, stream,
-                    LANE_CHUNK_ARGS);
+        LANE_LAUNCH_SMEM(admm_chunk_kernel<true>, grid, LANE_BLOCK, smem_bytes,
+                         stream, LANE_CHUNK_ARGS);
     } else {
-        LANE_LAUNCH(admm_chunk_kernel<false>, grid, LANE_BLOCK, stream,
-                    LANE_CHUNK_ARGS);
+        LANE_LAUNCH_SMEM(admm_chunk_kernel<false>, grid, LANE_BLOCK,
+                         smem_bytes, stream, LANE_CHUNK_ARGS);
     }
 #undef LANE_CHUNK_ARGS
     return LANE_LAST_ERROR();

@@ -14,7 +14,9 @@
 // grouping (|a| * e) * d of scale_data.  c (B,) is written at the end.
 //
 // Bound: each thread walks W waypoints serially per pass; the streamed bytes
-// are small, so the kernel is bound by that walk's latency.
+// are small, so the kernel is bound by that walk's latency.  Every load of a
+// step is issued at its top (the u-1 values are carried in registers, the u+1
+// index is clamped), so a step waits for memory once and not once per branch.
 #include "lane_common.cuh"
 
 constexpr real MIN_SCALING = real(1e-4);
@@ -50,18 +52,38 @@ __global__ void ruiz_kernel(const real* __restrict__ ac_,
 
         real gsum = real(0), gqmax = real(0);
         real Dn_prev[N], gpart[N];  // new Dv and P partial of waypoint u-1
+        // Old (this pass's input) values of waypoint u-1, carried in registers
+        // so that no load sits behind a branch: |c1|, |a0|, their E rows, |Pl|
+        // and the old Dv.  Zero at u = 0, where they multiply into a max
+        // with non-negative terms and so drop out.
+        real c1_p[N], a0_p[N], edyn_p[N], eacc_p[N], apl_p[N], dv_p[N];
 #pragma unroll
-        for (int j = 0; j < N; ++j) Dn_prev[j] = gpart[j] = real(0);
+        for (int j = 0; j < N; ++j) {
+            Dn_prev[j] = gpart[j] = real(0);
+            c1_p[j] = a0_p[j] = edyn_p[j] = eacc_p[j] = apl_p[j] = dv_p[j] =
+                real(0);
+        }
 
         for (int u = 0; u < W; ++u) {
-            const bool have_prev = u >= 1, have_next = u + 1 < W;
-            real Du[B2], Eu[R], a[CR];
+            const bool have_next = u + 1 < W;
+            const int un = have_next ? u + 1 : u;  // clamped: loaded always
+            // Every load of the step is issued here, up front.
+            real Du[B2], Dnx[B2], Eu[R], a[CR], pdu[N], plu[N], aqu[B2];
 #pragma unroll
-            for (int i = 0; i < B2; ++i) Du[i] = Do(u, B2, i);
+            for (int i = 0; i < B2; ++i) {
+                Du[i] = Do(u, B2, i);
+                Dnx[i] = Do(un, B2, i);
+                aqu[i] = aq(u, B2, i);
+            }
 #pragma unroll
             for (int r = 0; r < R; ++r) Eu[r] = Eo(u, Rp, r);
 #pragma unroll
             for (int k = 0; k < CR; ++k) a[k] = ac(u, CRp, k);
+#pragma unroll
+            for (int j = 0; j < N; ++j) {
+                pdu[j] = apd(u, PNp, j);
+                plu[j] = apl(u, PNp, j);
+            }
 
             real Dn[B2];
             real rowmax[R];
@@ -75,25 +97,19 @@ __global__ void ruiz_kernel(const real* __restrict__ ac_,
                 const real s_vel = a[C_VEL + j] * Eu[R_VEL + j] * dv;
                 const real s_a1 = a[C_A1 + j] * Eu[R_ACC + j] * dv;
 
-                // ---- column maxima of waypoint u (A + P, old D / c)
+                // ---- column maxima of waypoint u (A + P, old D / c); the
+                // u-1 terms are zero at u = 0.
                 real cq = rmax(s_pos, s_c2);
                 real cv = rmax(rmax(s_vel, s_c0), s_a1);
-                if (have_prev) {
-                    cq = rmax(cq, ac(u - 1, CRp, C_C1 + j) *
-                                      Eo(u - 1, Rp, R_DYN + j) * dq);
-                    cv = rmax(cv, ac(u - 1, CRp, C_A0 + j) *
-                                      Eo(u - 1, Rp, R_ACC + j) * dv);
-                }
+                cq = rmax(cq, c1_p[j] * edyn_p[j] * dq);
+                cv = rmax(cv, a0_p[j] * eacc_p[j] * dv);
 #pragma unroll
                 for (int k = 0; k < NX; ++k)
                     cq = rmax(cq, a[C_X + k * N + j] * Eu[R_X + k] * dq);
-                real pcol = ((c * dv) * apd(u, PNp, j)) * dv;
-                if (have_prev)
-                    pcol = rmax(pcol, (apl(u - 1, PNp, j) *
-                                       Do(u - 1, B2, N + j)) * (c * dv));
+                real pcol = ((c * dv) * pdu[j]) * dv;
+                pcol = rmax(pcol, (apl_p[j] * dv_p[j]) * (c * dv));
                 if (have_next)
-                    pcol = rmax(pcol, ((c * Do(u + 1, B2, N + j)) *
-                                       apl(u, PNp, j)) * dv);
+                    pcol = rmax(pcol, ((c * Dnx[N + j]) * plu[j]) * dv);
                 cv = rmax(cv, pcol);
                 Dn[j] = dq * inv_sqrt_limit(cq);
                 Dn[N + j] = dv * inv_sqrt_limit(cv);
@@ -102,10 +118,8 @@ __global__ void ruiz_kernel(const real* __restrict__ ac_,
                 real rd = rmax(s_c0, s_c2);
                 real ra = s_a1;
                 if (have_next) {
-                    rd = rmax(rd, a[C_C1 + j] * Eu[R_DYN + j] *
-                                      Do(u + 1, B2, j));
-                    ra = rmax(ra, a[C_A0 + j] * Eu[R_ACC + j] *
-                                      Do(u + 1, B2, N + j));
+                    rd = rmax(rd, a[C_C1 + j] * Eu[R_DYN + j] * Dnx[j]);
+                    ra = rmax(ra, a[C_A0 + j] * Eu[R_ACC + j] * Dnx[N + j]);
                 }
                 rowmax[R_DYN + j] = rd;
                 rowmax[R_POS + j] = s_pos;
@@ -130,19 +144,18 @@ __global__ void ruiz_kernel(const real* __restrict__ ac_,
                 En_out[((size_t)u * Rp + r) * Bs + b] =
                     Eu[r] * inv_sqrt_limit(rowmax[r]);
 #pragma unroll
-            for (int r = R; r < Rp; ++r)  // pad rows: zero row, E stays put
-                En_out[((size_t)u * Rp + r) * Bs + b] =
-                    Eo(u, Rp, r) * inv_sqrt_limit(real(0));
+            for (int r = R; r < Rp; ++r)  // pad rows: zero row, E stays 1
+                En_out[((size_t)u * Rp + r) * Bs + b] = real(1);
 
             // ---- cost normalisation (new D, old c), one waypoint delayed:
             // the P column of u-1 needs the new Dv of u.  q columns carry no
             // P entry and add limit(0) = 1 each to the mean.
-            if (have_prev) {
+            if (u >= 1) {
                 real add = real(N);
 #pragma unroll
                 for (int j = 0; j < N; ++j) {
                     const real lowcol =
-                        ((c * Dn[N + j]) * apl(u - 1, PNp, j)) * Dn_prev[j];
+                        ((c * Dn[N + j]) * apl_p[j]) * Dn_prev[j];
                     add = add + limit_scaling(rmax(gpart[j], lowcol));
                 }
                 gsum = gsum + add;
@@ -150,16 +163,21 @@ __global__ void ruiz_kernel(const real* __restrict__ ac_,
             real qadd = real(0);
 #pragma unroll
             for (int i = 0; i < B2; ++i)
-                qadd = rmax(qadd, (c * Dn[i]) * aq(u, B2, i));
+                qadd = rmax(qadd, (c * Dn[i]) * aqu[i]);
             gqmax = rmax(gqmax, qadd);
 #pragma unroll
             for (int j = 0; j < N; ++j) {
-                real g = ((c * Dn[N + j]) * apd(u, PNp, j)) * Dn[N + j];
-                if (have_prev)
-                    g = rmax(g, (apl(u - 1, PNp, j) * Dn_prev[j]) *
-                                    (c * Dn[N + j]));
+                real g = ((c * Dn[N + j]) * pdu[j]) * Dn[N + j];
+                // zero at u = 0 (apl_p = 0)
+                g = rmax(g, (apl_p[j] * Dn_prev[j]) * (c * Dn[N + j]));
                 gpart[j] = g;
                 Dn_prev[j] = Dn[N + j];
+                c1_p[j] = a[C_C1 + j];
+                a0_p[j] = a[C_A0 + j];
+                edyn_p[j] = Eu[R_DYN + j];
+                eacc_p[j] = Eu[R_ACC + j];
+                apl_p[j] = plu[j];
+                dv_p[j] = Du[N + j];
             }
         }
         {   // finish the last waypoint: no lower-column term

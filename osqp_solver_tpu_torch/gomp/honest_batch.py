@@ -1,4 +1,4 @@
-"""Builders of the benchmark problem classes, batch-trailing.
+"""Assembly of the benchmark problem classes, batch-trailing.
 
 Counterparts of ``bench.py::build_honest_batch`` and
 ``bench.py::build_box_batch`` of the JAX package's repository: the "honest"

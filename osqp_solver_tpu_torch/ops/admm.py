@@ -1,6 +1,6 @@
 """OSQP-semantics ADMM core: settings, result container, shared helpers.
 
-Counterpart of ``osqp_solver_tpu/ops/admm.py`` for what the lane driver
+Counterpart of ``osqp_solver_tpu/ops/admm.py`` for what the lane solve
 (:mod:`.admm_lane`) needs: ``Settings``, ``SolveResult``, the OSQP constants,
 ``_rho_vec`` and the stall detector (``stall_checks_needed``,
 ``_stall_init``, ``_stall_update``, ``_stall_reset``).  Every ``Settings``

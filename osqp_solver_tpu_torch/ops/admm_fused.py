@@ -1,7 +1,7 @@
 """Fused ADMM chunk: whole iterations inside one CUDA kernel.
 
 Counterpart of ``osqp_solver_tpu/ops/admm_fused.py``: the static layouts
-(``_row_layout``, ``_coef_layout``, ``_tri_maps``), the driver-side packs
+(``_row_layout``, ``_coef_layout``, ``_tri_maps``), the host-side packs
 (``build_coef_pack``, ``build_lu_pack``, ``pack_state``/``unpack_state``,
 ``pack_factor``) — all kept row for row, pad-to-8 rows included — and
 ``fused_admm_chunk`` in its ``hrec`` (gain-free) form with the termination
@@ -92,7 +92,7 @@ def layout_signature(qp) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Driver-side packing
+# Host-side packing
 # ---------------------------------------------------------------------------
 
 

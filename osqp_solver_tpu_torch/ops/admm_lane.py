@@ -1,4 +1,4 @@
-"""Lane-major (batch-last) batched ADMM driver.
+"""Lane-major (batch-last) batched ADMM solve loop.
 
 Counterpart of ``osqp_solver_tpu/ops/admm_lane.py``
 (``solve_batched_lane``, ``_solve_core`` and their helpers).  Same OSQP
@@ -11,7 +11,7 @@ CUDA device every iteration, factorization and the equilibration run in the
 hand-written kernels (:mod:`.admm_fused`, :mod:`.kkt_factor`,
 :mod:`.ruiz_kernel`); the host reads the device ONCE per chunk (one small
 tensor holding "any problem still running" and "any ρ to adapt"), counted in
-:data:`HOST_SYNCS`.  On the CPU the same driver runs the kernels' plain
+:data:`HOST_SYNCS`.  On the CPU the same loop runs the kernels' plain
 versions, and ``Settings(fused_chunk="off")`` runs the unfused op-by-op
 path.
 """
@@ -374,7 +374,7 @@ def _adapt_rho_decision(st: LaneADMMState, norms, settings: Settings):
 
 
 # ---------------------------------------------------------------------------
-# Driver
+# Entry point and chunk loop
 # ---------------------------------------------------------------------------
 
 

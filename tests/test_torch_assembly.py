@@ -1,10 +1,9 @@
 """PyTorch port vs JAX package: problem assembly — UR5e SoA kinematics, the
 horizontal-line obstacle, the trajectory-QP constructors and the two
-benchmark batch builders, field by field (f64, CPU, 1e-10)."""
+benchmark batch constructors, field by field (f64, CPU, 1e-10)."""
 import os
 import sys
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,7 +24,7 @@ from osqp_solver_tpu_torch.models import ur5e as tur5e
 from test_torch_helpers import assert_close
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-import bench  # noqa: E402  (the JAX package's benchmark builders)
+import bench  # noqa: E402  (the JAX package's benchmark batches)
 
 pytestmark = pytest.mark.torch_port
 TOL = dict(rtol=1e-10, atol=1e-10)
@@ -140,10 +139,10 @@ def test_constructors_match_reference(batched):
             assert_close(getattr(got, k), want, **TOL)
 
 
-@pytest.mark.parametrize("builder", ["build_honest_batch", "build_box_batch"])
-def test_benchmark_batches_match_reference(builder):
-    ref = getattr(bench, builder)(8, W, N, jnp.float64)
-    got = getattr(thonest, builder)(8, W, N, torch.float64, "cpu")
+@pytest.mark.parametrize("build", ["build_honest_batch", "build_box_batch"])
+def test_benchmark_batches_match_reference(build):
+    ref = getattr(bench, build)(8, W, N, jnp.float64)
+    got = getattr(thonest, build)(8, W, N, torch.float64, "cpu")
     s_ref, a_ref = convert.lane_qp_to_numpy(ref)
     s_got, a_got = convert.lane_qp_to_numpy(got)
     assert s_got == s_ref
@@ -152,7 +151,7 @@ def test_benchmark_batches_match_reference(builder):
     assert got.row_layout == "waypoint" and got.batch == 8
 
 
-def test_builders_need_an_explicit_cpu_device():
+def test_batch_assembly_needs_an_explicit_cpu_device():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
     with pytest.raises(RuntimeError):

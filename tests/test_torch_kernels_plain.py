@@ -14,7 +14,6 @@ from osqp_solver_tpu.ops import admm as jadmm
 from osqp_solver_tpu.ops import admm_fused as jfused
 from osqp_solver_tpu.ops import admm_lane as jlane_drv
 from osqp_solver_tpu_torch import _build, convert
-from osqp_solver_tpu_torch.ops import admm as tadmm
 from osqp_solver_tpu_torch.ops import admm_fused as tfused
 from osqp_solver_tpu_torch.ops import admm_lane as tlane_drv
 from osqp_solver_tpu_torch.ops import kkt_factor as tfactor
@@ -179,8 +178,7 @@ def test_chunk_wrapper_refuses_bad_arguments():
 def _host_lib(name, qp):
     if shutil.which("g++") is None:
         pytest.skip("host emulation of the CUDA sources needs g++")
-    return _build.library(name, tfused.layout_signature(qp), host=True,
-                          real="double")
+    return _build.library(name, tfused.layout_signature(qp), host=True)
 
 
 @pytest.mark.parametrize("flags,n_obs", [((False, True), 1), ((), 0)])

@@ -1,5 +1,5 @@
 """PyTorch port vs JAX package: the lane container's operators and every
-driver-side pack, on the same numpy inputs (f64, CPU, 1e-12)."""
+host-side pack, on the same numpy inputs (f64, CPU, 1e-12)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,7 +14,7 @@ from osqp_solver_tpu_torch.ops import admm_fused as tfused
 from osqp_solver_tpu_torch.ops import kkt_factor as tfactor
 from osqp_solver_tpu_torch.ops import residuals as tresid
 
-from test_torch_helpers import B, N, W, assert_close, both, to_np
+from test_torch_helpers import B, N, assert_close, both
 
 pytestmark = pytest.mark.torch_port
 TOL = dict(rtol=1e-12, atol=1e-12)
