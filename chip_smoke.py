@@ -5,40 +5,59 @@ Run it from the repository root on a machine with one NVIDIA Hopper GPU:
 
     python3 chip_smoke.py
 
-It builds the three hand-written kernels from ``osqp_solver_tpu_torch/csrc``
-(two layout signatures, all compilers started together), holds each kernel
-against its plain PyTorch version on the card at the main path's shape
-(honest GOMP class, W=100, N=6, B=1024, float32), times both, then drives the
-port's entry point ``solve_batched_lane`` on a 1024-problem honest batch, a
-256-problem batch with stock settings (ρ adaptation refactors) and a
-box-only batch (second layout signature), checking statuses, ADMM iteration
-counts, OSQP's residual criterion recomputed in float64 on the host, and
-that every kernel was really launched by the solve.  One JSON line per
-phase; the last three lines are the kernel table, the card's name and power
-limit, and the verdict.  Exits non-zero without a CUDA device or when any
-phase fails.  ``--phases build,kernels`` runs a subset; ``--out FILE`` also
-writes every phase's record to a JSON file.
+It builds the hand-written kernels from ``osqp_solver_tpu_torch/csrc`` (four
+sources, three layout signatures, all compilers started together), holds
+each kernel — the chunk kernel in its accumulator, warm-up and delta-writing
+forms — against its plain PyTorch version on the card at the main path's
+shape (honest GOMP class, W=100, N=6, B=1024, float32), times both, then
+drives the port's entry points:
+
+* ``solve_batched_lane`` on a 1024-problem honest batch (``solve``), the same
+  with ``term_fused="off"`` (``solve_unfused_term``: delta-writing chunk +
+  streaming residual kernel, counts equal to ``solve``), a 256-problem batch
+  with stock settings (ρ adaptation refactors) and a box-only batch;
+* ``GOMPSolver.run_batch_padded``, the full time-scaling search, on 1024
+  UR5e queries at W_max=50 (``planner_full``; fused and unfused termination
+  give equal results; every plan audited by exact FK in float64 on the host);
+* ``run_batch_padded`` and ``run_batch_lane`` on a fleet with per-query
+  sphere keep-outs (``planner_obstacles``; every optimal plan audited
+  against its own sphere).
+
+It checks statuses, ADMM iteration counts, OSQP's residual criterion
+recomputed in float64 on the host, and that every kernel was really launched
+by its path.  One JSON line per phase; the last three lines are the kernel
+table, the card's name and power limit, and the verdict.  Exits non-zero
+without a CUDA device or when any phase fails.  ``--phases build,kernels``
+runs a subset; ``--out FILE`` also writes every phase's record to a JSON
+file.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
-from osqp_solver_tpu_torch import _build
+from osqp_solver_tpu_torch import GOMPSolver, SphereObstacle, _build
+from osqp_solver_tpu_torch import constraints, stack_obstacles
+from osqp_solver_tpu_torch.gomp import planner
+from osqp_solver_tpu_torch.gomp.geometry import ERROR
 from osqp_solver_tpu_torch.gomp.honest_batch import (
     build_box_batch,
     build_honest_batch,
 )
 from osqp_solver_tpu_torch.gomp.trajectory_qp_lane import _ARRAY_FIELDS
+from osqp_solver_tpu_torch.models import ur5e
 from osqp_solver_tpu_torch.ops import admm_fused, admm_lane, kkt_factor
-from osqp_solver_tpu_torch.ops import ruiz_kernel
+from osqp_solver_tpu_torch.ops import residuals, ruiz_kernel
 from osqp_solver_tpu_torch.ops.admm import Settings, _rho_vec
 from osqp_solver_tpu_torch.ops.residuals import _ACC
 from osqp_solver_tpu_torch.ops.status import ExitCode
@@ -49,6 +68,13 @@ F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 BENCH = dict(rho=0.04, check_termination=2, adaptive_rho_interval=45,
              scaling=3, alpha=1.6, factor_form="hrec", termination_warmup=21)
 TOL_RUIZ, TOL_FACTOR, TOL_CHUNK = 1e-5, 1e-4, 1e-3
+TOL_RESID_MAX, TOL_RESID_SUM = 1e-4, 1e-3
+RESID_SUMS = ("support", "q_dot", "xsum", "ysum")
+PLANNER = dict(rho=0.04, check_termination=3, scaling=3)
+LANE_KERNELS = ("ruiz", "kkt_factor", "admm_chunk")
+UNFUSED_KERNELS = LANE_KERNELS + ("admm_chunk_dxdy", "residuals")
+PHASES = ("build,kernels,solve,solve_unfused_term,solve_stock,box,"
+          "planner_full,planner_obstacles")
 RECORDS = {}
 
 
@@ -142,6 +168,14 @@ def ops_chunk(W, N, NX, B, n_iter, emit_term):
     term = 2 * a_rows + 30 * Rp + 4 * N + 2 * B2 + 4 * N + 14 * B2 + 5 * B2
     term += 2 * N * (5 + 2 * NX) + 2 * 5 * N + 6 * N
     return W * B * (n_iter * (fwd + bwd) + (term if emit_term else 0))
+
+
+def ops_residuals(W, N, NX, B):
+    B2, R = 2 * N, 4 * N + NX
+    Rp = -(-R // 8) * 8
+    a_rows = 5 * N + N + N + 3 * N + 2 * N * NX
+    at = 2 * N * (5 + 2 * NX) + 8 * N
+    return W * B * (2 * a_rows + 30 * Rp + at + 10 * N + 16 * B2)
 
 
 def bound(bytes_moved, ops):
@@ -384,11 +418,170 @@ def phase_kernels():
         warmup_form_ms=warm_ms,
         shape=f"W={W} N={N} B={B} n_iter=2 emit_term (warm-up form: "
               f"n_iter={settings.termination_warmup})"))
+    out.append(check_chunk_dxdy(
+        scaled, scaled64, settings, rho_vec, done, state0, args, ck, q_int,
+        lu, NX))
+    out.append(check_residuals(scaled, scaling, settings, rho_vec, done,
+                               state0, args, packs, lu, NX))
     emit("kernels", kernels=out)
     bad = [k["name"] for k in out if not k["ok"]]
     if bad:
         fail(f"kernel(s) outside tolerance of the plain version: {bad}")
     return out
+
+
+def check_chunk_dxdy(scaled, scaled64, settings, rho_vec, done, state0, args,
+                     ck, q_int, lu, NX):
+    """The chunk's delta-writing form: state and deltas of 2 iterations
+    against the plain version run in f64 on the same f32 inputs."""
+    B = state0.shape[-1]
+    B2, Rp = 2 * N, scaled.rows_per_waypoint_padded
+    sk, dk = admm_fused.fused_admm_chunk(
+        scaled, rho_vec, done, settings, state_pack=state0.clone(), n_iter=2,
+        emit_dxdy=True, **args)
+    sp, dp = admm_fused.fused_admm_chunk_plain(
+        scaled, rho_vec, done, settings, state_pack=state0, n_iter=2,
+        emit_dxdy=True, **args)
+    s64, d64 = admm_fused.fused_admm_chunk_plain(
+        scaled64, rho_vec.double(), done, settings,
+        state_pack=state0.double(), n_iter=2, emit_dxdy=True,
+        packed_factor=(ck.double(), None))
+    # One iteration: the deltas are against the input state.
+    s1, d1 = admm_fused.fused_admm_chunk(
+        scaled, rho_vec, done, settings, state_pack=state0.clone(), n_iter=1,
+        emit_dxdy=True, **args)
+    _, d1_64 = admm_fused.fused_admm_chunk_plain(
+        scaled64, rho_vec.double(), done, settings,
+        state_pack=state0.double(), n_iter=1, emit_dxdy=True,
+        packed_factor=(ck.double(), None))
+    torch.cuda.synchronize()
+    sect = {"x": slice(0, B2), "z": slice(B2, B2 + Rp),
+            "y": slice(B2 + Rp, B2 + 2 * Rp)}
+    dsect = {"dx": (slice(0, B2), "x"), "dy": (slice(B2, B2 + Rp), "y")}
+    scale = {k: s64[:, sl].abs().max().item() for k, sl in sect.items()}
+    vs64 = {k: (rel_err(sk[:, sl].double(), s64[:, sl])[1],
+                rel_err(sp[:, sl].double(), s64[:, sl])[1])
+            for k, sl in sect.items()}
+    # Deltas: error over the STATE's scale (they shrink as the solve converges).
+    for k, (sl, of) in dsect.items():
+        vs64[k] = (rel_err(dk[:, sl].double(), d64[:, sl], scale[of])[1],
+                   rel_err(dp[:, sl].double(), d64[:, sl], scale[of])[1])
+        vs64[k + "_n_iter1"] = (
+            rel_err(d1[:, sl].double(), d1_64[:, sl], scale[of])[1], None)
+    frozen_zero = bool((dk[..., done] == 0).all() and (d1[..., done] == 0).all()
+                       and torch.equal(sk[..., done], state0[..., done]))
+    pads_zero = bool((dk[:, B2 + Rp:] == 0).all())
+    scratch = state0.clone()
+    k_ms = time_ms(lambda: admm_fused.fused_admm_chunk(
+        scaled, rho_vec, done, settings, state_pack=scratch, n_iter=2,
+        emit_dxdy=True, **args))
+    p_ms = time_ms(lambda: admm_fused.fused_admm_chunk_plain(
+        scaled, rho_vec, done, settings, state_pack=state0, n_iter=2,
+        emit_dxdy=True, **args), reps=5, warm=1)
+    Plf = kkt_factor.build_p_vel_packs(scaled)[1]
+    moved = nbytes(ck, args["coef"], q_int, lu, rho_vec, Plf, done, state0,
+                   state0, dk)
+    b_ms, b_by = bound(moved, ops_chunk(W, N, NX, B, 2, False))
+    worst = max(v[0] for v in vs64.values())
+    return dict(
+        name="admm_chunk_dxdy",
+        max_abs_err=max(rel_err(sk, sp)[0], rel_err(dk, dp)[0]),
+        max_rel_err=worst, kernel_and_plain_vs_f64=vs64,
+        frozen_problems_zero_and_untouched=frozen_zero,
+        pad_rows_zero=pads_zero, tol=TOL_CHUNK,
+        tol_note="state sections and the deltas dx, dy of the last of 2 "
+                 "iterations (and of a single iteration) against the plain "
+                 "version run in f64 on the same f32 inputs, as max abs error "
+                 "over max |f64 state section| (an f32 KKT solve carries "
+                 "about cond(K) * 2^-24 in either form); max_abs_err is "
+                 "kernel against plain f32, for information",
+        ok=bool(worst <= TOL_CHUNK and frozen_zero and pads_zero),
+        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"W={W} N={N} B={B} n_iter=2 emit_dxdy")
+
+
+def check_residuals(scaled, scaling, settings, rho_vec, done, state0, args,
+                    packs, lu, NX):
+    """The streaming residual kernel on the packs the delta-writing chunk
+    produced, against its plain version on the same packs."""
+    B = state0.shape[-1]
+    sp, dp = admm_fused.fused_admm_chunk(
+        scaled, rho_vec, done, settings, state_pack=state0.clone(), n_iter=2,
+        emit_dxdy=True, **args)
+    rowc = torch.cat([packs["EEinv"], lu], dim=1)
+    rp = (rowc, packs["varc"], packs["Pdp"], packs["Plf"], packs["norm_Dq"],
+          scaling.cinv)
+    coef = args["coef"]
+
+    def kernel_acc(state):
+        acc = torch.empty((24, B), dtype=torch.float32, device="cuda")
+        residuals._launch_residuals(
+            _build.library("residuals", admm_fused.layout_signature(scaled)),
+            coef, rp[2], rp[3], state, dp, rowc, rp[1], acc)
+        return acc
+
+    acck = kernel_acc(sp)
+    accp = residuals.termination_accumulators_plain(
+        scaled, sp, dp, rowc, rp[1])
+    acc64 = residuals.termination_accumulators_plain(
+        cast(scaled, torch.float64), sp.double(), dp.double(), rowc.double(),
+        rp[1].double())
+    tq = residuals.termination_quantities_kernel(scaled, sp, dp, coef, rp)
+    torch.cuda.synchronize()
+    x, _, y = admm_fused.unpack_state(scaled, sp.double())
+    dx, dy = admm_fused.unpack_dxdy(scaled, dp.double())
+    Rp = scaled.rows_per_waypoint_padded
+    E, Einv, lo, hi = (rowc[:, k * Rp:(k + 1) * Rp].reshape(-1, B).double()
+                       for k in range(4))
+    edy = E * dy
+    tight_u = (Einv * hi) < 1e25
+    tight_l = (Einv * lo) > -1e25
+    mags = {  # sums are held against the sum of their terms' magnitudes
+        "xsum": x.abs().sum(0), "ysum": y.abs().sum(0),
+        "q_dot": (scaled.q.double() * dx).abs().sum(0),
+        "support": (torch.where(tight_u, Einv * hi * edy.clamp(min=0), 0.0).abs()
+                    + torch.where(tight_l, Einv * lo * edy.clamp(max=0), 0.0).abs()
+                    ).sum(0),
+    }
+    errs, vs64 = {}, {}
+    for name, row in _ACC.items():
+        sc = mags[name].max().item() if name in mags else None
+        errs[name] = rel_err(acck[row], accp[row], sc)
+        vs64[name] = (rel_err(acck[row].double(), acc64[row], sc)[1],
+                      rel_err(accp[row].double(), acc64[row], sc)[1])
+    worst_max = max(v[1] for k, v in errs.items() if k not in RESID_SUMS)
+    worst_sum = max(v[1] for k, v in errs.items() if k in RESID_SUMS)
+    pad_rows_zero = bool((acck[len(_ACC):] == 0).all())
+    # A NaN planted in one problem's state must surface as blew_up there,
+    # and nowhere else.
+    bad = sp.clone()
+    bad[W // 2, 3, 7] = float("nan")
+    tq_bad = residuals.termination_quantities_kernel(scaled, bad, dp, coef, rp)
+    nan_carried = bool(tq_bad.blew_up[7]) and int(tq_bad.blew_up.sum()) == 1
+    no_false_alarm = not bool(tq.blew_up.any())
+    k_ms = time_ms(lambda: kernel_acc(sp))
+    p_ms = time_ms(lambda: residuals.termination_accumulators_plain(
+        scaled, sp, dp, rowc, rp[1]), reps=5, warm=1)
+    moved = nbytes(coef, rp[2], rp[3], sp, dp, rowc, rp[1], acck)
+    b_ms, b_by = bound(moved, ops_residuals(W, N, NX, B))
+    return dict(
+        name="residuals",
+        max_abs_err=max(v[0] for k, v in errs.items() if k not in RESID_SUMS),
+        max_rel_err=worst_max, sums_max_rel_err=worst_sum,
+        acc_rel_err={k: v[1] for k, v in errs.items()},
+        kernel_and_plain_vs_f64=vs64, pad_rows_zero=pad_rows_zero,
+        nan_carried_to_blew_up=nan_carried, no_false_alarm=no_false_alarm,
+        tol=TOL_RESID_MAX, tol_sums=TOL_RESID_SUM,
+        tol_note="each of the 18 accumulator rows against the plain version "
+                 "on the same f32 packs: maxima as max abs error over max "
+                 "|plain| (f32 reassociation in cancelling residuals), the "
+                 "four sums (support, q_dot, xsum, ysum) over the sum of "
+                 "their terms' magnitudes (they cancel thousands of signed "
+                 "terms, summed in another order)",
+        ok=bool(worst_max <= TOL_RESID_MAX and worst_sum <= TOL_RESID_SUM
+                and pad_rows_zero and nan_carried and no_false_alarm),
+        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"W={W} N={N} B={B}")
 
 
 def cast(qp, dtype):
@@ -420,6 +613,8 @@ def reset_counts():
     ruiz_kernel.ruiz_equilibrate_lane_kernel.launches = 0
     kkt_factor.factor_packed_lane.launches = 0
     admm_fused.fused_admm_chunk.launches = 0
+    admm_fused.fused_admm_chunk.launches_dxdy = 0
+    residuals.termination_quantities_kernel.launches = 0
 
 
 def read_counts():
@@ -427,10 +622,13 @@ def read_counts():
         "ruiz": ruiz_kernel.ruiz_equilibrate_lane_kernel.launches,
         "kkt_factor": kkt_factor.factor_packed_lane.launches,
         "admm_chunk": admm_fused.fused_admm_chunk.launches,
+        "admm_chunk_dxdy": admm_fused.fused_admm_chunk.launches_dxdy,
+        "residuals": residuals.termination_quantities_kernel.launches,
     }
 
 
-def solve_phase(name, qp, settings, it_window=None, timed=True, host_check=16):
+def solve_phase(name, qp, settings, it_window=None, timed=True, host_check=16,
+                need=LANE_KERNELS):
     B = qp.batch
     reset_counts()
     syncs0 = admm_lane.HOST_SYNCS
@@ -476,42 +674,352 @@ def solve_phase(name, qp, settings, it_window=None, timed=True, host_check=16):
     if it_window and not (it_window[0] <= p50 <= it_window[1]
                           and it_max <= it_window[2]):
         fail(f"{name}: iterations p50 {p50} / max {it_max} outside {it_window}")
-    if min(counts.values()) < 1:
+    if min(counts[k] for k in need) < 1:
         fail(f"{name}: a kernel of the path was never launched: {counts}")
     chunks = -(-(it_max - settings.termination_warmup)
                // settings.check_termination)
     if syncs != chunks:
         fail(f"{name}: {syncs} host syncs for {chunks} chunks")
+    rec["result"] = res
     return rec
+
+
+def phase_solve_unfused_term(honest, bench, fused_rec):
+    """The honest class with ``term_fused="off"``: the chunk's delta-writing
+    form and the streaming residual kernel decide termination.  Statuses and
+    iteration counts must equal the fused path's, problem for problem."""
+    settings = dataclasses.replace(bench, term_fused="off")
+    rec = solve_phase("solve_unfused_term", honest, settings,
+                      it_window=(25, 31, 35), need=UNFUSED_KERNELS)
+    ref = (fused_rec["result"] if fused_rec else
+           admm_lane.solve_batched_lane(honest, bench))
+    res = rec["result"]
+    same_status = int((res.status == ref.status).sum())
+    same_iters = int((res.iterations == ref.iterations).sum())
+    emit("solve_unfused_term_vs_fused", batch=honest.batch,
+         same_status=same_status, same_iterations=same_iters,
+         max_abs_dx=(res.x - ref.x).abs().max().item(),
+         ms_per_batch=rec["ms_per_batch"],
+         fused_ms_per_batch=fused_rec.get("ms_per_batch") if fused_rec else None)
+    if same_status != honest.batch or same_iters != honest.batch:
+        fail("solve_unfused_term: statuses or iteration counts differ from "
+             f"the fused path ({same_status}/{same_iters} of {honest.batch} "
+             "equal)")
+    return rec
+
+
+# ------------------------------------------------------------------ planner
+
+
+def ur5e_solver(max_waypoints, obstacles, **settings):
+    """The planner of the reference's fleet benchmarks: UR5e, wrist ball
+    r=0.15, tool ball r=0.05 (gripper), workspace floor y >= -0.4."""
+    INF = 1e30
+    return GOMPSolver(
+        max_waypoints=max_waypoints, time_step=0.1,
+        settings=dataclasses.replace(Settings(), **PLANNER, **settings),
+        pos_con=constraints.in_range(N, -2 * math.pi, 2 * math.pi),
+        vel_con=constraints.in_range(N, -math.pi, math.pi),
+        acc_con=constraints.in_range(N, -800 * math.pi / 180,
+                                     800 * math.pi / 180),
+        con_3d=constraints.Constraint(lower=np.array([-INF, -0.4, -INF]),
+                                      upper=np.full(3, INF)),
+        obstacles=obstacles,
+        balls=[ur5e.make_ball("back6", 0.15),
+               ur5e.make_ball("tool", 0.05, is_gripper=True)],
+        segments=10, dtype=torch.float32,
+    )
+
+
+def fleet_queries(B, rng):
+    starts = 0.02 * rng.standard_normal((B, N))
+    end0 = np.zeros(N)
+    end0[0] = math.pi
+    return starts, end0[None] + 0.02 * rng.standard_normal((B, N))
+
+
+def pct(t, q):
+    return float(np.percentile(t.cpu().numpy(), q))
+
+
+def audit_plans(solver, statuses, trajs, horizons, centers=None, radius=None):
+    """Exact FK of every ``kOptimal`` plan, recomputed in float64 on the
+    host, cut to its winning horizon: the gripper ball inside the workspace
+    box, velocities equal to position differences over dt, and (with
+    ``centers (B, 3)``) no waypoint and no segment between waypoints of
+    either ball inside its OWN sphere's keep-out.  Returns the worst
+    margins; negative means violated.  The planner accepted these plans in
+    float32 with the slack ``ERROR``; 1e-5 more covers float32 FK."""
+    WM = trajs.shape[1] // (2 * N)
+    st = statuses.cpu().numpy()
+    tr = trajs.cpu().double()
+    hz = horizons.cpu().numpy()
+    lo = torch.tensor(solver.con_3d.lower, dtype=torch.float64)
+    hi = torch.tensor(solver.con_3d.upper, dtype=torch.float64)
+    box, clear, dyn = math.inf, math.inf, 0.0
+    for b in np.nonzero(st == int(ExitCode.kOptimal))[0]:
+        w = int(hz[b])
+        q = tr[b, : WM * N].reshape(WM, N)[:w]
+        v = tr[b, WM * N:].reshape(WM, N)[:w]
+        dyn = max(dyn, (v[:-1] - (q[1:] - q[:-1]) / solver.time_step)
+                  .abs().max().item())
+        for ball in solver.balls:
+            pts = ball.fk_jac_batched(q)[0]  # (w, 3)
+            if ball.is_gripper:
+                box = min(box, (pts - ball.radius - lo).min().item(),
+                          (hi - pts - ball.radius).min().item())
+            if centers is not None:
+                own = SphereObstacle.create(centers[b], radius)
+                _, seg, _ = own.segment_closest(pts)
+                d = min(own.distance(pts).min().item(), seg.min().item())
+                clear = min(clear, d - (radius + ball.radius))
+    return dict(n_audited=int((st == int(ExitCode.kOptimal)).sum()),
+                workspace_margin=box, keepout_margin=clear,
+                velocity_mismatch=dyn)
+
+
+class CallTimer:
+    """CUDA-event time spent inside named callables of the planner module
+    (events around every call, summed after one synchronize)."""
+
+    def __init__(self):
+        self.events = collections.defaultdict(list)
+        self.saved = []
+
+    def wrap(self, key, fn):
+        def timed(*a, **kw):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            out = fn(*a, **kw)
+            t1.record()
+            self.events[key].append((t0, t1))
+            return out
+        return timed
+
+    def patch(self, obj, name, key):
+        self.saved.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, self.wrap(key, getattr(obj, name)))
+
+    def restore(self):
+        for obj, name, fn in reversed(self.saved):
+            setattr(obj, name, fn)
+
+    def totals(self):
+        torch.cuda.synchronize()
+        return {k: dict(ms=sum(a.elapsed_time(b) for a, b in v), calls=len(v))
+                for k, v in self.events.items()}
+
+
+def planner_breakdown(solver, starts, ends):
+    """One instrumented search: where its time goes, by CUDA events around
+    the planner's calls (solves, QP assembly, re-linearization, exact-FK
+    check)."""
+    timer = CallTimer()
+    timer.patch(planner, "solve_batched_lane", "solves")
+    timer.patch(planner, "linearize_workspace", "linearize")
+    for name in ("empty_trajectory_qp", "with_horizon_mask",
+                 "with_gomp_boxes_masked"):
+        timer.patch(planner, name, "assemble")
+    make_ok = solver._is_solution_ok_masked_fn
+    solver._is_solution_ok_masked_fn = lambda *a, **kw: timer.wrap(
+        "exact_fk_check", make_ok(*a, **kw))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.run_batch_padded(starts, ends)
+        totals = timer.totals()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        timer.restore()
+        del solver._is_solution_ok_masked_fn
+    totals["whole_search_ms"] = wall
+    totals["other_ms"] = wall - sum(
+        v["ms"] for v in totals.values() if isinstance(v, dict))
+    return totals
+
+
+def run_search(solver, starts, ends, **kw):
+    reset_counts()
+    p0, h0 = planner.PLANNER_SYNCS, admm_lane.HOST_SYNCS
+    out = solver.run_batch_padded(starts, ends, **kw)
+    torch.cuda.synchronize()
+    return out, read_counts(), dict(
+        planner_host_syncs=planner.PLANNER_SYNCS - p0,
+        solver_host_syncs=admm_lane.HOST_SYNCS - h0)
+
+
+def search_summary(out):
+    st, _, hz, rounds, iters = out
+    hist = collections.Counter(hz.cpu().tolist())
+    return dict(
+        optimal=int((st == int(ExitCode.kOptimal)).sum()),
+        statuses=dict(collections.Counter(st.cpu().tolist())),
+        horizons={str(k): hist[k] for k in sorted(hist)},
+        scp_rounds_p50=pct(rounds, 50), scp_rounds_max=int(rounds.max()),
+        admm_iters_p50=pct(iters, 50), admm_iters_max=int(iters.max()))
+
+
+def phase_planner_full():
+    """``run_batch_padded`` on 1024 UR5e queries, W_max=50, 10 segments, no
+    obstacles, stock solver settings but rho/check_termination/scaling."""
+    B = BATCH
+    solver = ur5e_solver(50, [])
+    starts, ends = fleet_queries(B, np.random.default_rng(0))
+    out, counts, syncs = run_search(solver, starts, ends)  # the path, once
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.run_batch_padded(starts, ends)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = statistics.median(times) * 1e3
+    summary = search_summary(out)
+    audit = audit_plans(solver, out[0], out[1], out[2])
+    where = planner_breakdown(solver, starts, ends)
+    # The same search with the termination reductions in their own kernel.
+    solver.settings = dataclasses.replace(solver.settings, term_fused="off")
+    out_u, counts_u, _ = run_search(solver, starts, ends)
+    differ = {name: int((a != b).sum()) for name, a, b in zip(
+        ("status", "trajectory", "horizon", "scp_rounds", "admm_iters"),
+        out, out_u) if name != "trajectory"}
+    finite = bool(torch.isfinite(out[1]).all())
+    emit("planner_full", batch=B, **summary, ms_per_batch=ms,
+         queries_per_s=summary["optimal"] / (ms * 1e-3),
+         ms_all=[round(t * 1e3, 1) for t in times], **syncs, launches=counts,
+         audit=audit, where_ms=where, unfused_launches=counts_u,
+         unfused_differs_in=differ, finite=finite,
+         shape_traj=list(out[1].shape))
+    if summary["optimal"] != B:
+        fail(f"planner_full: {summary['optimal']}/{B} optimal")
+    if not 300 <= summary["admm_iters_p50"] <= 460:
+        fail(f"planner_full: admm_iters p50 {summary['admm_iters_p50']} "
+             "outside 300..460")
+    if not finite or list(out[1].shape) != [B, 2 * 50 * N]:
+        fail("planner_full: trajectories not finite or of the wrong shape")
+    if audit["workspace_margin"] < -(ERROR + 1e-5):
+        fail(f"planner_full: exact-FK audit: gripper ball leaves the "
+             f"workspace box by {-audit['workspace_margin']:.2e}")
+    if audit["velocity_mismatch"] > 0.2:
+        fail("planner_full: velocities are not position differences over dt")
+    if any(differ.values()):
+        fail(f"planner_full: term_fused='off' changed the search: {differ}")
+    if min(counts[k] for k in LANE_KERNELS) < 1 or min(
+            counts_u[k] for k in UNFUSED_KERNELS) < 1:
+        fail(f"planner_full: a kernel of the path was never launched: "
+             f"{counts} / {counts_u}")
+    return counts
+
+
+def obstacle_fleet(B):
+    """Queries and per-query sphere centres of the reference's fleet example
+    (same generator, same order of draws)."""
+    rng = np.random.default_rng(0)
+    starts, ends = fleet_queries(B, rng)
+    centers = np.array([0.0, -0.28, -0.55])[None] + np.stack(
+        [0.03 * rng.standard_normal(3) for _ in range(B)])
+    return starts, ends, centers
+
+
+def phase_planner_obstacles():
+    """A fleet where every query has its OWN sphere keep-out: the full
+    search (W_max=30) and the fixed-horizon planner (W=30)."""
+    RADIUS = 0.12
+    shared = SphereObstacle.create([0.0, -0.28, -0.55], radius=RADIUS,
+                                   dtype=torch.float32)
+    solver = ur5e_solver(30, [shared], max_iter=300)
+
+    def stack(centers):
+        return [stack_obstacles([
+            SphereObstacle.create(c, radius=RADIUS, dtype=torch.float32)
+            for c in centers])]
+
+    # The reference example's own eight queries, for comparison with its
+    # CPU run.
+    s8, e8, c8 = obstacle_fleet(8)
+    out8 = solver.run_batch_padded(s8, e8, obstacles=stack(c8))
+    emit("planner_obstacles_first8", statuses=out8[0].tolist(),
+         horizons=out8[2].tolist(), scp_rounds=out8[3].tolist(),
+         admm_iters=out8[4].tolist())
+
+    B = BATCH
+    starts, ends, centers = obstacle_fleet(B)
+    obs = stack(centers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, counts, syncs = run_search(solver, starts, ends, obstacles=obs)
+    ms = (time.perf_counter() - t0) * 1e3
+    audit = audit_plans(solver, out[0], out[1], out[2], centers, RADIUS)
+    t0 = time.perf_counter()
+    st_l, tr_l, it_l = solver.run_batch_lane(starts, ends, waypoints=30,
+                                             obstacles=obs)
+    torch.cuda.synchronize()
+    lane_ms = (time.perf_counter() - t0) * 1e3
+    audit_l = audit_plans(solver, st_l, tr_l, torch.full_like(st_l, 30),
+                          centers, RADIUS)
+    allowed = {int(ExitCode.kOptimal), int(ExitCode.kOptimalInaccurate),
+               int(ExitCode.kUnknown)}
+    lane_statuses = dict(collections.Counter(st_l.cpu().tolist()))
+    summary = search_summary(out)
+    emit("planner_obstacles", batch=B, **summary, ms_first_search=ms, **syncs,
+         launches=counts, audit=audit,
+         lane=dict(statuses=lane_statuses, scp_iters_p50=pct(it_l, 50),
+                   scp_iters_max=int(it_l.max()), ms=lane_ms, audit=audit_l))
+    if not set(summary["statuses"]) | set(lane_statuses) <= allowed:
+        fail(f"planner_obstacles: unexpected status in {summary['statuses']} "
+             f"/ {lane_statuses}")
+    if summary["optimal"] < 1:
+        fail("planner_obstacles: no query is kOptimal")
+    for name, a in (("search", audit), ("fixed horizon", audit_l)):
+        if a["keepout_margin"] < -(ERROR + 1e-5):
+            fail(f"planner_obstacles ({name}): a kOptimal plan enters its "
+                 f"own sphere's keep-out by {-a['keepout_margin']:.2e}")
+        if a["workspace_margin"] < -(ERROR + 1e-5):
+            fail(f"planner_obstacles ({name}): gripper ball leaves the "
+                 f"workspace box by {-a['workspace_margin']:.2e}")
+    if not bool(torch.isfinite(out[1]).all() and torch.isfinite(tr_l).all()):
+        fail("planner_obstacles: trajectories not finite")
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="all",
-                    help="comma list of: build,kernels,solve,solve_stock,box")
+                    help="comma list of: " + PHASES)
     ap.add_argument("--out", default=None, help="also write records here")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: torch.cuda.is_available() is "
               "false", file=sys.stderr)
         sys.exit(2)
-    want = (set("build,kernels,solve,solve_stock,box".split(","))
-            if opts.phases == "all" else set(opts.phases.split(",")))
+    full = opts.phases == "all"
+    want = set(PHASES.split(",")) if full else set(opts.phases.split(","))
     t_start = time.time()
     torch.manual_seed(0)
     phase_device()
+    # Layout signatures: honest class and the sphere fleet (two balls, one
+    # obstacle), box-only, and the obstacle-free planner (gripper rows only).
     honest_sig = {"NDIM": N, "NX": 5}
-    box_sig = {"NDIM": N, "NX": 0}
     if "build" in want:
-        phase_build([honest_sig, box_sig] if want & {"box"} or
-                    opts.phases == "all" else [honest_sig])
+        sigs = [honest_sig]
+        if "box" in want:
+            sigs.append({"NDIM": N, "NX": 0})
+        if "planner_full" in want:
+            sigs.append({"NDIM": N, "NX": 3})
+        phase_build(sigs)
     kernels = phase_kernels() if "kernels" in want else []
     bench = dataclasses.replace(Settings(), **BENCH)
     launches = {}
-    if "solve" in want:
+    fused_rec = None
+    if want & {"solve", "solve_unfused_term"}:
         honest = build_honest_batch(BATCH, W, N, torch.float32, "cuda")
-        rec = solve_phase("solve", honest, bench, it_window=(25, 31, 35))
-        launches = rec["launches"]
+    if "solve" in want:
+        fused_rec = solve_phase("solve", honest, bench, it_window=(25, 31, 35))
+        launches.update({k: fused_rec["launches"][k] for k in LANE_KERNELS})
+    if "solve_unfused_term" in want:
+        rec = phase_solve_unfused_term(honest, bench, fused_rec)
+        launches.update({k: rec["launches"][k]
+                         for k in ("admm_chunk_dxdy", "residuals")})
     if "solve_stock" in want:
         stock = build_honest_batch(256, W, N, torch.float32, "cuda")
         rec = solve_phase("solve_stock", stock, Settings(), timed=False)
@@ -521,13 +1029,20 @@ def main():
     if "box" in want:
         box = build_box_batch(BATCH, W, N, torch.float32, "cuda")
         solve_phase("box", box, bench, timed=False)
+    if "planner_full" in want:
+        phase_planner_full()
+    if "planner_obstacles" in want:
+        phase_planner_obstacles()
 
-    sources = {"ruiz": ("osqp_solver_tpu_torch/csrc/ruiz.cu",
-                        "osqp_solver_tpu/ops/ruiz_pallas.py:433"),
-               "kkt_factor": ("osqp_solver_tpu_torch/csrc/kkt_factor.cu",
-                              "osqp_solver_tpu/ops/kkt_factor_pallas.py:312"),
-               "admm_chunk": ("osqp_solver_tpu_torch/csrc/admm_chunk.cu",
-                              "osqp_solver_tpu/ops/admm_fused.py:1130")}
+    csrc = "osqp_solver_tpu_torch/csrc/"
+    ops = "osqp_solver_tpu/ops/"
+    sources = {
+        "ruiz": (csrc + "ruiz.cu", ops + "ruiz_pallas.py:433"),
+        "kkt_factor": (csrc + "kkt_factor.cu", ops + "kkt_factor_pallas.py:312"),
+        "admm_chunk": (csrc + "admm_chunk.cu", ops + "admm_fused.py:1130"),
+        "admm_chunk_dxdy": (csrc + "admm_chunk.cu", ops + "admm_fused.py:1130"),
+        "residuals": (csrc + "residuals.cu", ops + "residuals_pallas.py:470"),
+    }
     table = []
     for k in kernels:
         src, replaces = sources[k["name"]]
@@ -542,9 +1057,9 @@ def main():
     if opts.out:
         with open(opts.out, "w") as f:
             json.dump(RECORDS, f, indent=1)
-    full = opts.phases == "all"
     if full and any(t["launches"] < 1 for t in table):
-        fail("a kernel of the main path was launched no time in the solve")
+        fail("a kernel of the main path was launched no time in its solve")
+    print(json.dumps({"seconds_total": RECORDS["seconds_total"]}), flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(RECORDS["device"]["nvidia_smi"], flush=True)
     print(json.dumps({

@@ -8,4 +8,22 @@ hand-written CUDA kernels (``csrc/``).  Every entry point takes an explicit
 PyTorch versions of the kernels) must be requested with ``device="cpu"``.
 """
 
-__all__ = ["ops", "gomp", "models", "convert"]
+from .gomp import constraints
+from .gomp.geometry import (
+    CapsuleObstacle,
+    HorizontalLine,
+    SphereObstacle,
+    stack_obstacles,
+)
+from .gomp.planner import GOMPSolver, PlanResult
+from .models.robot import RobotBall
+from .ops.admm import Settings, SolveResult
+from .ops.admm_lane import solve_batched_lane
+from .ops.status import ExitCode
+
+__all__ = [
+    "CapsuleObstacle", "ExitCode", "GOMPSolver", "HorizontalLine",
+    "PlanResult", "RobotBall", "Settings", "SolveResult", "SphereObstacle",
+    "constraints", "convert", "gomp", "models", "ops", "solve_batched_lane",
+    "stack_obstacles",
+]

@@ -34,7 +34,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("ruiz", "kkt_factor", "admm_chunk")
+KERNELS = ("ruiz", "kkt_factor", "admm_chunk", "residuals")
 
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

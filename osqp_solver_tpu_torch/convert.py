@@ -1,4 +1,5 @@
-"""Hand numpy data to the port: problems, scalings and settings.
+"""Hand numpy data to the port: problems, scalings, settings, obstacles and
+a planner's constructor arguments.
 
 Lets a test (or any caller holding arrays from another framework) build the
 port's containers from exactly what the JAX package built, without either
@@ -11,6 +12,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .gomp import geometry
+from .gomp.constraints import Constraint
 from .gomp.trajectory_qp_lane import _ARRAY_FIELDS, LaneTrajectoryQP
 from .ops.admm import Settings
 from .ops.ruiz import Scaling
@@ -80,3 +83,88 @@ def lane_qp_to_numpy(qp):
             a = a.detach().cpu().numpy()
         arrays[k] = np.asarray(a)
     return static, arrays
+
+
+# ------------------------------------------------------------- obstacles
+
+_OBSTACLE_TYPES = {
+    "HorizontalLine": geometry.HorizontalLine,
+    "SphereObstacle": geometry.SphereObstacle,
+    "CapsuleObstacle": geometry.CapsuleObstacle,
+}
+_OBSTACLE_LEAVES = {
+    "HorizontalLine": ("direction", "point", "bypass_below"),
+    "SphereObstacle": ("center", "radius", "margin"),
+    "CapsuleObstacle": ("a", "b", "radius", "margin"),
+}
+
+
+def obstacle_to_numpy(obstacle):
+    """``(kind, arrays)`` of a line, sphere or capsule obstacle of either
+    package (matched by class name, read by attribute)."""
+    kind = type(obstacle).__name__
+    if kind not in _OBSTACLE_LEAVES:
+        raise TypeError(f"obstacle_to_numpy: unknown obstacle type {kind}")
+    arrays = {}
+    for name in _OBSTACLE_LEAVES[kind]:
+        leaf = getattr(obstacle, name)
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach().cpu().numpy()
+        arrays[name] = np.asarray(leaf, dtype=np.float64)
+    return kind, arrays
+
+
+def obstacle_from_numpy(kind: str, arrays: dict, per_query: bool = False,
+                        device="cpu", dtype=torch.float64):
+    """The port's obstacle from ``(kind, arrays)``.
+
+    ``per_query``: the arrays carry the JAX package's LEADING ``(B,)``
+    per-problem axis (its ``stack_obstacles``); it is moved to the port's
+    TRAILING position (``center (B, 3)`` → ``(3, B)``)."""
+    if kind not in _OBSTACLE_TYPES:
+        raise TypeError(f"obstacle_from_numpy: unknown obstacle type {kind}")
+    leaves = {}
+    for name in _OBSTACLE_LEAVES[kind]:
+        a = np.asarray(arrays[name], dtype=np.float64)
+        if per_query:
+            a = np.moveaxis(a, 0, -1)
+        elif kind == "HorizontalLine" and name == "bypass_below":
+            leaves[name] = float(a)
+            continue
+        leaves[name] = torch.tensor(a, dtype=dtype, device=device)
+    return _OBSTACLE_TYPES[kind](**leaves)
+
+
+def gomp_solver_kwargs_from_numpy(spec: dict, device="cpu",
+                                  dtype=torch.float64) -> dict:
+    """Keyword arguments of :class:`~osqp_solver_tpu_torch.gomp.planner.
+    GOMPSolver` from plain data, so that two packages' planners can be built
+    from one set of arrays.
+
+    ``spec``: ``max_waypoints``, ``time_step``, the four constraints
+    ``pos_con``/``vel_con``/``acc_con``/``con_3d`` as ``(lower, upper)``
+    array pairs, ``obstacles`` as a list of :func:`obstacle_to_numpy`
+    outputs, and optionally ``settings`` (a dict of field names),
+    ``segments``, ``max_scp_iterations``.  The robot balls are callables and
+    are passed to the constructor by the caller."""
+    def con(pair):
+        lo, hi = (np.asarray(b, dtype=np.float64) for b in pair)
+        return Constraint(lo.copy(), hi.copy())
+
+    kwargs = dict(
+        max_waypoints=int(spec["max_waypoints"]),
+        time_step=float(spec["time_step"]),
+        pos_con=con(spec["pos_con"]), vel_con=con(spec["vel_con"]),
+        acc_con=con(spec["acc_con"]), con_3d=con(spec["con_3d"]),
+        obstacles=[
+            obstacle_from_numpy(kind, arrays, device=device, dtype=dtype)
+            for kind, arrays in spec.get("obstacles", ())
+        ],
+        dtype=dtype, device=device,
+    )
+    if "settings" in spec:
+        kwargs["settings"] = settings_from_dict(dict(spec["settings"]))
+    for name in ("segments", "max_scp_iterations"):
+        if name in spec:
+            kwargs[name] = int(spec[name])
+    return kwargs

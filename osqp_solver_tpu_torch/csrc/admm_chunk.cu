@@ -1,10 +1,13 @@
 // Fused ADMM chunk, one thread per problem: n_iter OSQP iterations per launch
-// on the packed state, gain-free ("hrec") substitutions, and - when EMIT_TERM -
-// the termination / certificate accumulators inside the last backward pass.
+// on the packed state, gain-free ("hrec") substitutions, and in the last
+// backward pass either the termination / certificate accumulators (MODE_TERM)
+// or the last iteration's packed deltas dx, dy (MODE_DXDY), or neither.
 //
 // Replaces the Pallas kernel of osqp_solver_tpu/ops/admm_fused.py
-// (fused_admm_chunk, body _make_kernel) in its hrec + emit_term form, and in
-// the accumulator-free form the warm-up chunk uses.
+// (fused_admm_chunk, body _make_kernel) in its hrec form: with emit_term, in
+// the accumulator-free form the warm-up chunk uses, and in the no-emit_term
+// form that writes the (W, DRp, B) delta pack for the separate residual
+// kernel (csrc/residuals.cu).
 //
 // Per iteration:
 //   forward  (t = 0..W-1):  rhs_t = sigma x_t - q_t + [A'(rho z - y)]_t, built
@@ -18,7 +21,12 @@
 // (same formulas as the factor kernel).  Frozen problems (done) keep their
 // state and emit zero deltas.
 //
-// EMIT_TERM, last backward pass: row-space reductions at waypoint t; the
+// MODE_DXDY, last backward pass: as x_t, y_t of waypoint t are rewritten, the
+// deltas against the state BEFORE this iteration (read from the staged copy of
+// the tile, so before the in-place write) go to dxdy[t] = [dx (2N); dy (Rp);
+// pad]; frozen problems emit exact zeros.
+//
+// MODE_TERM, last backward pass: row-space reductions at waypoint t; the
 // variable-space quantities of waypoint t+1 (A'y, Px, A'dy, P dx) need rows of
 // waypoint t, so they are carried as one-step-delayed partials and reduced at
 // step t; waypoint 0 is finished in an epilogue.  Same accumulators and
@@ -33,14 +41,6 @@
 // pass).  That pass holds far more than 255 values and spills; accepted.
 #include "lane_common.cuh"
 
-constexpr real INF_THRESHOLD = real(1e25);
-
-enum {
-    A_PRIM_RES = 0, A_NORM_EAX, A_NORM_EZ, A_DUAL_RAW, A_NORM_DPX, A_NORM_DATY,
-    A_NORM_EDY, A_NORM_DX, A_AT_DY, A_SUPPORT, A_LOOSE_POS, A_LOOSE_NEG,
-    A_PDX_MAX, A_ADX_MAX, A_ADX_MIN, A_Q_DOT, A_XSUM, A_YSUM, A_COUNT
-};
-
 // One stage of the shared-memory pipeline: rows of LANE_BLOCK values.
 constexpr int O_CH = 0;            // packed chol, T rows
 constexpr int O_CF = O_CH + T;     // stencil coefficients, CR rows
@@ -50,7 +50,7 @@ constexpr int O_ST = O_PL + N;     // state tile x, z, y: SR rows
 constexpr int O_QW = O_ST + SR;    // q (forward) or the h scratch (backward)
 constexpr int O_LU = O_QW + B2;    // bounds, 2 Rp rows (backward only)
 constexpr int STAGE_ROWS = O_LU + 2 * Rp;
-// The last backward pass of an EMIT_TERM launch also stages:
+// The last backward pass of a MODE_TERM launch also stages:
 constexpr int O_EE = STAGE_ROWS;        // E then Einv, 2 Rp rows
 constexpr int O_VC = O_EE + 2 * Rp;     // q, D, Dinv: 3 * 2N rows
 constexpr int O_PD = O_VC + 3 * B2;     // P-diag velocity diagonal, N rows
@@ -59,30 +59,19 @@ __host__ __device__ constexpr int stage_elems(bool term) {
     return (term ? STAGE_ROWS_TERM : STAGE_ROWS) * LANE_BLOCK;
 }
 
+enum { MODE_PLAIN = 0, MODE_TERM = 1, MODE_DXDY = 2 };
+
 struct Args {
     Pack chol, coef, q, lu, rho, plf, ee, varc, pd;
     real* state;
     real* w;
     real* acc;
+    real* dxdy;
     int W, B, b;
     real sigma, alpha, keep;
     real* smem;  // this thread's column of stage 0
     int stage;   // elements per stage
 };
-
-template <int ROWS, int CNT, int DST>
-__device__ __forceinline__ void stage_pack(const Pack& p, int t, real* sg) {
-    // Row k sits at base + k*B.  B is made opaque here so that the compiler
-    // forms each address with one multiply-add instead of keeping one
-    // induction pointer per row alive across the waypoint loop (hundreds of
-    // 64-bit values, all spilled).
-    int Bv = (int)p.B;
-    asm volatile("" : "+r"(Bv));
-    const real* base = p.p + ((size_t)t * ROWS) * p.B + p.b;
-#pragma unroll
-    for (int k = 0; k < CNT; ++k)
-        cp_async4(sg + (DST + k) * LANE_BLOCK, base + k * Bv);
-}
 
 // Start the copies of waypoint t's rows into stage t & 1 and commit them as
 // one group.
@@ -122,60 +111,6 @@ __device__ __forceinline__ void ml_at(const Rows& cf, const Rows& rh,
         qq[j] = rd * cf[C_C1 + j] * cf[C_C2 + j];
         qv[j] = rd * cf[C_C1 + j] * cf[C_C0 + j];
         vv[j] = rh[R_ACC + j] * cf[C_A0 + j] * cf[C_A1 + j] + pl[j];
-    }
-}
-
-// Row r of A at one waypoint from this waypoint's variables v[] and the next
-// waypoint's vn[]; r is a compile-time constant after unrolling.
-__device__ __forceinline__ real a_row(int r, const Rows& cf, const real* v,
-                                      const real* vn) {
-    if (r < R_POS) {
-        const int j = r - R_DYN;
-        return cf[C_C0 + j] * v[N + j] + cf[C_C1 + j] * vn[j] +
-               cf[C_C2 + j] * v[j];
-    }
-    if (r < R_VEL) return cf[C_POS + (r - R_POS)] * v[r - R_POS];
-    if (r < R_ACC) return cf[C_VEL + (r - R_VEL)] * v[N + (r - R_VEL)];
-    if (r < R_X) {
-        const int j = r - R_ACC;
-        return cf[C_A0 + j] * vn[N + j] + cf[C_A1 + j] * v[N + j];
-    }
-    if (r < R) {
-        const int k = r - R_X;
-        real acc = real(0);
-#pragma unroll
-        for (int j = 0; j < N; ++j) acc = acc + cf[C_X + k * N + j] * v[j];
-        return acc;
-    }
-    return real(0);
-}
-
-// Own-row A' gather: contributions of THIS waypoint's rows to its own
-// variables (c2/pos/dense into q; c0/vel/a1 into v).
-__device__ __forceinline__ void at_own(const Rows& cf, const real* row,
-                                       real* out) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-        real g = cf[C_C2 + j] * row[R_DYN + j];
-        g = g + cf[C_POS + j] * row[R_POS + j];
-#pragma unroll
-        for (int k = 0; k < NX; ++k) g = g + cf[C_X + k * N + j] * row[R_X + k];
-        out[j] = g;
-        real gv = cf[C_C0 + j] * row[R_DYN + j];
-        gv = gv + cf[C_VEL + j] * row[R_VEL + j];
-        gv = gv + cf[C_A1 + j] * row[R_ACC + j];
-        out[N + j] = gv;
-    }
-}
-
-// Cross terms: contributions of this waypoint's rows to the NEXT waypoint's
-// variables (c1 into q, a0 into v).
-__device__ __forceinline__ void at_prev(const Rows& cf, const real* row,
-                                        real* out) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-        out[j] = cf[C_C1 + j] * row[R_DYN + j];
-        out[N + j] = cf[C_A0 + j] * row[R_ACC + j];
     }
 }
 
@@ -283,8 +218,10 @@ __device__ __forceinline__ void reduce_var_space(const real* qv_,
     acc[A_PDX_MAX] = rmax(acc[A_PDX_MAX], npdx);
 }
 
-template <bool TERM>
+template <int MODE>
 __device__ __forceinline__ void backward_pass(const Args& a) {
+    constexpr bool TERM = MODE == MODE_TERM;
+    constexpr bool DXDY = MODE == MODE_DXDY;
     const bool frozen = a.keep != real(0);
     const real alpha = a.alpha;
     real xt_n[B2];  // x~_{t+1}
@@ -292,7 +229,7 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
     for (int i = 0; i < B2; ++i) xt_n[i] = real(0);
 
     // TERM carries (unused and removed by the compiler otherwise).
-    real xsel_n[B2], xold_n[B2], dx_n[B2];
+    real xsel_n[B2], dx_n[B2];
     real aty_p[B2], atdy_p[B2], px_p[N], pdx_p[N];
     real q_n[B2], dinv_n[B2];  // q and Dinv rows of waypoint t+1
     real acc[A_COUNT];
@@ -301,7 +238,7 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
         for (int i = 0; i < B2; ++i) q_n[i] = dinv_n[i] = real(0);
 #pragma unroll
         for (int i = 0; i < B2; ++i)
-            xsel_n[i] = xold_n[i] = dx_n[i] = aty_p[i] = atdy_p[i] = real(0);
+            xsel_n[i] = dx_n[i] = aty_p[i] = atdy_p[i] = real(0);
 #pragma unroll
         for (int j = 0; j < N; ++j) px_p[j] = pdx_p[j] = real(0);
 #pragma unroll
@@ -322,6 +259,7 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
         const Rows cf{sg + O_CF * LANE_BLOCK}, rh{sg + O_RH * LANE_BLOCK},
             pl{sg + O_PL * LANE_BLOCK}, ch{sg + O_CH * LANE_BLOCK};
         real* st = a.state + ((size_t)t * SRp) * a.B + a.b;  // written here
+        real* dd = DXDY ? a.dxdy + ((size_t)t * DRp) * a.B + a.b : nullptr;
 
         // x~_t = h_t - C^{-T} C^{-1} (Ml_t' x~_{t+1}).
         real xt[B2];
@@ -350,6 +288,7 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
             x_sel[i] = frozen ? x_old[i] : x_new;
             dx[i] = frozen ? real(0) : x_new - x_old[i];
             st[(size_t)(S_X + i) * a.B] = x_sel[i];
+            if (DXDY) dd[(size_t)i * a.B] = dx[i];
         }
 
         real y_sel[R], dy[R];  // kept for the A' gathers (TERM only)
@@ -373,17 +312,18 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
             const real dy_r = frozen ? real(0) : y_new - y_old;
             st[(size_t)(S_Z + r) * a.B] = z_s;
             st[(size_t)(S_Y + r) * a.B] = y_s;
+            if (DXDY) dd[(size_t)(B2 + r) * a.B] = dy_r;
             if (TERM) {
                 if (r < R) {
                     y_sel[r < R ? r : 0] = y_s;
                     dy[r < R ? r : 0] = dy_r;
                 }
-                // Row space at waypoint t.  A x_sel by linearity from A x~
-                // and one A-row apply on the OLD state; A dx from the deltas.
-                const real axo = a_row(r, cf, x_old, xold_n);
+                // Row space at waypoint t: A x_sel and A dx by the same
+                // A-row apply, in the same order of operations, as the
+                // separate residual kernel (csrc/residuals.cu), so that the
+                // two termination paths decide from the same float32 values.
+                const real ax_sel = a_row(r, cf, x_sel, xsel_n);
                 const real adx = a_row(r, cf, dx, dx_n);
-                const real ax_sel =
-                    frozen ? axo : alpha * ztr + (real(1) - alpha) * axo;
                 const real E_r = sg[(O_EE + r) * LANE_BLOCK];
                 const real Einv_r = sg[(O_EE + Rp + r) * LANE_BLOCK];
                 pr_c = rmax(pr_c, rabs(Einv_r * (ax_sel - z_s)));
@@ -409,6 +349,10 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
         }
 #pragma unroll
         for (int r = SR; r < SRp; ++r) st[(size_t)r * a.B] = real(0);
+        if (DXDY) {
+#pragma unroll
+            for (int r = DR; r < DRp; ++r) dd[(size_t)r * a.B] = real(0);
+        }
 
         if (TERM) {
             acc[A_PRIM_RES] = rmax(acc[A_PRIM_RES], pr_c);
@@ -468,7 +412,6 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
 #pragma unroll
             for (int i = 0; i < B2; ++i) {
                 xsel_n[i] = x_sel[i];
-                xold_n[i] = x_old[i];
                 dx_n[i] = dx[i];
             }
         }
@@ -487,14 +430,15 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
     }
 }
 
-template <bool EMIT_TERM>
+template <int MODE>
 __global__ void admm_chunk_kernel(
     const real* __restrict__ chol, const real* __restrict__ coef,
     const real* __restrict__ q, const real* __restrict__ lu,
     const real* __restrict__ rho, const real* __restrict__ plf,
     const real* __restrict__ ee, const real* __restrict__ varc,
     const real* __restrict__ pd, const real* __restrict__ done, real* state,
-    real* w, real* acc, int W, int B, int n_iter, real sigma, real alpha) {
+    real* w, real* acc, real* dxdy, int W, int B, int n_iter, real sigma,
+    real alpha) {
     LANE_SMEM_DECL();
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= B) return;
@@ -502,50 +446,57 @@ __global__ void admm_chunk_kernel(
     Args a{{chol, Bs, b}, {coef, Bs, b}, {q, Bs, b},    {lu, Bs, b},
            {rho, Bs, b},  {plf, Bs, b},  {ee, Bs, b},   {varc, Bs, b},
            {pd, Bs, b},   state,         w,             acc,
-           W,             B,             b,             sigma,
-           alpha,         done[b],       lane_smem + threadIdx.x,
-           stage_elems(EMIT_TERM)};
+           dxdy,          W,             B,             b,
+           sigma,         alpha,         done[b],       lane_smem + threadIdx.x,
+           stage_elems(MODE == MODE_TERM)};
     for (int it = 0; it < n_iter; ++it) {
         forward_pass(a);
-        if (EMIT_TERM && it == n_iter - 1)
-            backward_pass<true>(a);
+        if (MODE != MODE_PLAIN && it == n_iter - 1)
+            backward_pass<MODE>(a);
         else
-            backward_pass<false>(a);
+            backward_pass<MODE_PLAIN>(a);
     }
 }
 
+// mode: 0 = state only, 1 = also the accumulators (acc), 2 = also the deltas
+// of the last iteration (dxdy).
 extern "C" int admm_chunk_launch(const void* chol, const void* coef,
                                  const void* q, const void* lu,
                                  const void* rho, const void* plf,
                                  const void* ee, const void* varc,
                                  const void* pd, const void* done, void* state,
-                                 void* w, void* acc, int W, int B, int n_iter,
-                                 int emit_term, double sigma, double alpha,
-                                 void* stream) {
+                                 void* w, void* acc, void* dxdy, int W, int B,
+                                 int n_iter, int mode, double sigma,
+                                 double alpha, void* stream) {
+    if (mode < MODE_PLAIN || mode > MODE_DXDY) return -1;
     const int grid = (B + LANE_BLOCK - 1) / LANE_BLOCK;
     const int smem_bytes =
-        2 * stage_elems(emit_term != 0) * (int)sizeof(real);
+        2 * stage_elems(mode == MODE_TERM) * (int)sizeof(real);
 #ifndef LANE_HOST_EMULATION
     // More than the 48 KB a kernel gets without asking.
-    const cudaError_t attr =
-        emit_term ? cudaFuncSetAttribute(
-                        admm_chunk_kernel<true>,
-                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes)
-                  : cudaFuncSetAttribute(
-                        admm_chunk_kernel<false>,
-                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    const void* fn = mode == MODE_TERM
+                         ? (const void*)admm_chunk_kernel<MODE_TERM>
+                         : mode == MODE_DXDY
+                               ? (const void*)admm_chunk_kernel<MODE_DXDY>
+                               : (const void*)admm_chunk_kernel<MODE_PLAIN>;
+    const cudaError_t attr = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (attr != cudaSuccess) return (int)attr;
 #endif
 #define LANE_CHUNK_ARGS                                                       \
     (const real*)chol, (const real*)coef, (const real*)q, (const real*)lu,    \
         (const real*)rho, (const real*)plf, (const real*)ee,                  \
         (const real*)varc, (const real*)pd, (const real*)done, (real*)state,  \
-        (real*)w, (real*)acc, W, B, n_iter, (real)sigma, (real)alpha
-    if (emit_term) {
-        LANE_LAUNCH_SMEM(admm_chunk_kernel<true>, grid, LANE_BLOCK, smem_bytes,
-                         stream, LANE_CHUNK_ARGS);
+        (real*)w, (real*)acc, (real*)dxdy, W, B, n_iter, (real)sigma,         \
+        (real)alpha
+    if (mode == MODE_TERM) {
+        LANE_LAUNCH_SMEM(admm_chunk_kernel<MODE_TERM>, grid, LANE_BLOCK,
+                         smem_bytes, stream, LANE_CHUNK_ARGS);
+    } else if (mode == MODE_DXDY) {
+        LANE_LAUNCH_SMEM(admm_chunk_kernel<MODE_DXDY>, grid, LANE_BLOCK,
+                         smem_bytes, stream, LANE_CHUNK_ARGS);
     } else {
-        LANE_LAUNCH_SMEM(admm_chunk_kernel<false>, grid, LANE_BLOCK,
+        LANE_LAUNCH_SMEM(admm_chunk_kernel<MODE_PLAIN>, grid, LANE_BLOCK,
                          smem_bytes, stream, LANE_CHUNK_ARGS);
     }
 #undef LANE_CHUNK_ARGS

@@ -2,8 +2,12 @@
 
 Counterpart of ``osqp_solver_tpu/gomp/trajectory_qp.py`` for the assembly
 (``TrajectoryQP`` fields, ``smoothness_P_blocks``, ``empty_trajectory_qp``,
-``with_gomp_boxes``, ``linearize_workspace`` in its ``fk_jac_batched``
-branch).  The solver methods of the reference's container (``to_dense``,
+``with_gomp_boxes``, ``pinned_movable_mask``, ``with_horizon_mask``,
+``with_gomp_boxes_masked``, ``linearize_workspace`` in its
+``fk_jac_batched`` branch).  The horizon ``w_active`` of the masked
+constructors is one Python int for the whole batch (the planner's host loop
+knows it); the containers stay ``W_max``-shaped so that every horizon shares
+one row layout, hence one build of the kernels.  The solver methods of the reference's container (``to_dense``,
 the operator protocol for the vmapped solve) are not ported yet: the port
 solves through :class:`~.trajectory_qp_lane.LaneTrajectoryQP`.
 
@@ -221,12 +225,129 @@ def with_gomp_boxes(
     )
 
 
+def pinned_movable_mask(W: int, w_active=None, device=None):
+    """``(W,)`` bool: which waypoints the GOMP QP can actually move —
+    everything except the pinned ``q₀`` (start) and ``q_{wa−3}`` (end, the
+    reference quirk).  Fed to :func:`linearize_workspace`'s ``movable`` so
+    relative obstacle cuts never demand motion from a pin."""
+    idx = torch.arange(W, device=device)
+    wa = W if w_active is None else int(w_active)
+    return ~((idx == 0) | (idx == wa - 3))
+
+
+def with_horizon_mask(qp: TrajectoryQP, w_active: int) -> TrajectoryQP:
+    """Restrict a ``W_max``-shaped empty QP to an *active prefix* of
+    ``w_active`` waypoints: padding waypoints get zero objective/constraint
+    coefficients and ±INF bounds, exactly like a freshly built QP at
+    ``w_active`` plus mathematically inert rows.
+
+    Apply to ``empty_trajectory_qp(W_max, ...)`` BEFORE
+    :func:`with_gomp_boxes_masked` / :func:`linearize_workspace` (the latter
+    masked via its ``w_active`` argument).
+    """
+    W = qp.waypoints
+    wa = int(w_active)
+    nb = len(qp.batch_shape)
+    t = torch.arange(W, device=qp.q_vec.device)
+
+    def mask(m, extra):  # (rows,) -> (rows, 1 × extra, 1 × batch dims)
+        return m.reshape((-1,) + (1,) * (extra + nb))
+
+    act_v = t < wa  # velocity var exists for t < w_active
+    act_dyn = t[: W - 1] < wa - 1
+    act_acc = t[: W - 2] < wa - 2
+    dt_ = qp.q_vec.dtype
+    return qp.replace(
+        # Smoothness P at horizon w_active: tridiag(2, -1) over active blocks.
+        P_diag=qp.P_diag * mask(act_v, 2).to(dt_),
+        P_lower=qp.P_lower * mask(act_dyn, 2).to(dt_),
+        dyn_coef=qp.dyn_coef * mask(act_dyn, 2).to(dt_),
+        dyn_l=torch.where(
+            mask(act_dyn, 1), qp.dyn_l, torch.full_like(qp.dyn_l, -INF)
+        ),
+        dyn_u=torch.where(
+            mask(act_dyn, 1), qp.dyn_u, torch.full_like(qp.dyn_u, INF)
+        ),
+        acc_coef=qp.acc_coef * mask(act_acc, 2).to(dt_),
+    )
+
+
+def with_gomp_boxes_masked(
+    qp: TrajectoryQP,
+    start_pos,
+    end_pos,
+    pos_con,
+    vel_con,
+    acc_con,
+    w_active: int,
+) -> TrajectoryQP:
+    """Horizon-masked version of :func:`with_gomp_boxes`: identical row
+    semantics (including the ``W-3`` endpoint quirk) with ``W := w_active``
+    inside a ``W_max``-shaped container."""
+    W, N = qp.waypoints, qp.n_dim
+    wa = int(w_active)
+    kw = dict(dtype=qp.pos_l.dtype, device=qp.pos_l.device)
+    bs = qp.batch_shape
+    nb = len(bs)
+    start = torch.as_tensor(start_pos, **kw)
+    end = torch.as_tensor(end_pos, **kw)
+
+    def box(b, rows, fill):
+        """(N,) bound → (rows, N, *batch), loose entries set to ``fill``."""
+        b = torch.as_tensor(b, **kw)
+        b = torch.where(b.abs() >= INF_THRESHOLD, torch.full_like(b, fill), b)
+        return b.reshape((1, N) + (1,) * nb).expand((rows, N) + bs)
+
+    def rows(n):  # waypoint index, broadcast over N and the batch
+        return torch.arange(n, device=kw["device"]).reshape(
+            (n, 1) + (1,) * nb
+        )
+
+    def put(mask, value, old):
+        value = torch.as_tensor(value, **kw)
+        return torch.where(mask, value.expand(old.shape), old)
+
+    t = rows(W)
+    neg_p = torch.full((W, N) + bs, -INF, **kw)
+    # position rows: coefficient for q_0..q_{wa-2}
+    pos_coef = (t <= wa - 2).to(kw["dtype"]).expand((W, N) + bs).contiguous()
+    inner = (t >= 1) & (t <= wa - 2)
+    pos_l = put(inner, box(pos_con[0], W, -INF), neg_p)
+    pos_u = put(inner, box(pos_con[1], W, INF), -neg_p)
+    pos_l = put(t == 0, start[None], pos_l)
+    pos_u = put(t == 0, start[None], pos_u)
+    pos_l = put(t == wa - 3, end[None], pos_l)
+    pos_u = put(t == wa - 3, end[None], pos_u)
+
+    tv = rows(W - 1)
+    neg_v = torch.full((W - 1, N) + bs, -INF, **kw)
+    vel_coef = (tv <= wa - 3).to(kw["dtype"]).expand(neg_v.shape).contiguous()
+    vel_l = put(tv <= wa - 4, box(vel_con[0], W - 1, -INF), neg_v)
+    vel_u = put(tv <= wa - 4, box(vel_con[1], W - 1, INF), -neg_v)
+    vel_l = put(tv == wa - 3, 0.0, vel_l)
+    vel_u = put(tv == wa - 3, 0.0, vel_u)
+
+    ta = rows(W - 2)
+    neg_a = torch.full((W - 2, N) + bs, -INF, **kw)
+    acc_l = put(ta <= wa - 4, box(acc_con[0], W - 2, -INF), neg_a)
+    acc_u = put(ta <= wa - 4, box(acc_con[1], W - 2, INF), -neg_a)
+    acc_l = put(ta == wa - 3, 0.0, acc_l)
+    acc_u = put(ta == wa - 3, 0.0, acc_u)
+
+    return qp.replace(
+        pos_coef=pos_coef, vel_coef=vel_coef,
+        pos_l=pos_l, pos_u=pos_u, vel_l=vel_l, vel_u=vel_u,
+        acc_l=acc_l, acc_u=acc_u,
+    )
+
+
 def linearize_workspace(
     qp: TrajectoryQP,
     balls,
     obstacles,
     con_3d,
     trajectory,
+    w_active=None,
     movable=None,
 ) -> TrajectoryQP:
     """SCP linearization of workspace + obstacle constraints: FK and
@@ -237,8 +358,10 @@ def linearize_workspace(
     RobotBall` with ``fk_jac_batched``.  ``obstacles``: sequence of obstacle
     objects (length ``qp.n_obstacles``).  ``con_3d``: ``(lower, upper)`` pair
     of 3-vectors.  ``trajectory (2WN, *batch)``: only its position half is
-    read.  ``movable``: optional ``(W,)`` bool mask forwarded to obstacles
-    that accept it.
+    read.  ``w_active``: pad-to-max horizon — waypoints at or beyond it get
+    inert rows (zero Jacobian, ±INF bounds; see :func:`with_horizon_mask`).
+    ``movable``: optional ``(W,)`` bool mask forwarded to obstacles that
+    accept it.
     """
     W, N = qp.waypoints, qp.n_dim
     kw = dict(dtype=qp.ws_l.dtype, device=qp.ws_l.device)
@@ -247,6 +370,11 @@ def linearize_workspace(
     q_traj = torch.as_tensor(trajectory, **kw)[: W * N].reshape((W, N) + bs)
     c3l = torch.as_tensor(con_3d[0], **kw).reshape((1, 3) + (1,) * nb)
     c3u = torch.as_tensor(con_3d[1], **kw).reshape((1, 3) + (1,) * nb)
+    act = None
+    if w_active is not None:
+        act = (
+            torch.arange(W, device=kw["device"]) < int(w_active)
+        ).reshape((W,) + (1,) * nb)  # (W, 1 × batch dims)
 
     ws_jac, ws_l, ws_u = qp.ws_jac.clone(), qp.ws_l.clone(), qp.ws_u.clone()
     obs_jac, obs_l, obs_u = (
@@ -276,9 +404,14 @@ def linearize_workspace(
                 torch.full_like(points, INF),
                 c3u - points + jq,
             )
+            low, upp = low + r, upp - r
+            if act is not None:
+                jac = jac * act[:, None, None].to(jac.dtype)
+                low = torch.where(act[:, None], low, torch.full_like(low, -INF))
+                upp = torch.where(act[:, None], upp, torch.full_like(upp, INF))
             ws_jac[b] = jac
-            ws_l[b] = low + r
-            ws_u[b] = upp - r
+            ws_l[b] = low
+            ws_u[b] = upp
 
         for o, line in enumerate(obstacles):
             # Duck-typed obstacle protocol: one linearized row per waypoint;
@@ -286,6 +419,10 @@ def linearize_workspace(
             ojac, low, upp = call_linearize_rows(
                 line, points, jac, jq, r, movable=movable
             )
+            if act is not None:
+                ojac = ojac * act[:, None].to(ojac.dtype)
+                low = torch.where(act, low, torch.full_like(low, -INF))
+                upp = torch.where(act, upp, torch.full_like(upp, INF))
             obs_jac[b, o] = ojac
             obs_l[b, o] = low
             obs_u[b, o] = upp

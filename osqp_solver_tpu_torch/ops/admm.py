@@ -2,8 +2,10 @@
 
 Counterpart of ``osqp_solver_tpu/ops/admm.py`` for what the lane solve
 (:mod:`.admm_lane`) needs: ``Settings``, ``SolveResult``, the OSQP constants,
-``_rho_vec`` and the stall detector (``stall_checks_needed``,
-``_stall_init``, ``_stall_update``, ``_stall_reset``).  Every ``Settings``
+``_rho_vec``, the long-horizon refinement policy
+(``refine_steps_for_horizon``, ``with_auto_refine``) and the stall detector
+(``stall_checks_needed``, ``_stall_init``, ``_stall_update``,
+``_stall_reset``).  Every ``Settings``
 field keeps the reference's name and default; values this port does not
 implement yet are refused by :func:`check_supported`, never ignored.
 """
@@ -60,8 +62,9 @@ class Settings:
     # their plain PyTorch versions on the CPU; "off" (the unfused op-by-op
     # path) exists on the CPU only and raises on CUDA.
     fused_chunk: str = "auto"
-    # Termination reductions fused into the chunk's final backward pass.
-    # "off" (the separate streaming residual kernel) is not ported.
+    # Termination reductions fused into the chunk's final backward pass
+    # ("auto"/"on"), or "off": the chunk writes the last iteration's packed
+    # deltas and the separate streaming residual kernel reduces them.
     term_fused: str = "auto"
     # Factor stream form of the chunk kernel: "hrec" = gain-free, the sparse
     # KKT coupling block is rebuilt in registers from the stencil
@@ -104,8 +107,6 @@ def check_supported(settings: Settings) -> None:
     waiting = []
     if settings.kkt_method != "direct":
         waiting.append(f"kkt_method={settings.kkt_method!r}")
-    if settings.term_fused == "off":
-        waiting.append("term_fused='off'")
     if settings.factor_form != "hrec":
         waiting.append(f"factor_form={settings.factor_form!r}")
     if settings.anderson > 0:
@@ -124,8 +125,30 @@ def check_supported(settings: Settings) -> None:
         raise NotImplementedError(
             "not ported to the PyTorch/CUDA package yet: " + ", ".join(waiting)
         )
-    if settings.fused_chunk not in ("auto", "on", "off"):
-        raise ValueError(f"Settings.fused_chunk={settings.fused_chunk!r}")
+    for name in ("fused_chunk", "term_fused"):
+        if getattr(settings, name) not in ("auto", "on", "off"):
+            raise ValueError(f"Settings.{name}={getattr(settings, name)!r}")
+
+
+def refine_steps_for_horizon(waypoints: int, dtype) -> int:
+    """Iterative-refinement steps the long-horizon policy asks for: none in
+    float64, none up to 1024 waypoints in float32 (the verified range), one
+    beyond as a safety margin."""
+    if dtype == torch.float64:
+        return 0
+    if waypoints > 1024:
+        return 1
+    return 0
+
+
+def with_auto_refine(settings: Settings, waypoints: int, dtype) -> Settings:
+    """Bump ``kkt_refine`` per the long-horizon policy (never lowers an
+    explicit user setting).  Refinement itself is not ported: a bumped
+    setting is refused by :func:`check_supported` at the solve."""
+    auto = refine_steps_for_horizon(waypoints, dtype)
+    if auto > settings.kkt_refine:
+        return dataclasses.replace(settings, kkt_refine=auto)
+    return settings
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,8 +4,10 @@ Counterpart of ``osqp_solver_tpu/ops/admm_fused.py``: the static layouts
 (``_row_layout``, ``_coef_layout``, ``_tri_maps``), the host-side packs
 (``build_coef_pack``, ``build_lu_pack``, ``pack_state``/``unpack_state``,
 ``pack_factor``) — all kept row for row, pad-to-8 rows included — and
-``fused_admm_chunk`` in its ``hrec`` (gain-free) form with the termination
-accumulators (``emit_term``) riding the last backward pass.
+``fused_admm_chunk`` in its ``hrec`` (gain-free) form: with the termination
+accumulators (``emit_term``) riding the last backward pass, without them
+(the warm-up chunk), or writing the last iteration's packed deltas
+(``emit_dxdy``) for the separate residual kernel (:mod:`.residuals`).
 
 Kernel note (``csrc/admm_chunk.cu`` replaces the Pallas body
 ``admm_fused.py::_make_kernel`` behind ``fused_admm_chunk``).  The TPU
@@ -31,7 +33,7 @@ import ctypes
 import torch
 
 from .. import _build as _launch
-from .residuals import _ACC, _NACC
+from .residuals import _NACC, accumulator_rows
 
 
 def _pad8(n: int) -> int:
@@ -144,6 +146,27 @@ def dxdy_rows(qp):
     return DR, _pad8(DR)
 
 
+def pack_dxdy(qp, dx, dy):
+    """dx (n, B) flat, dy (m, B) waypoint-major → stacked (W, DRp, B)."""
+    W = qp.waypoints
+    Rp = qp.rows_per_waypoint_padded
+    B = dx.shape[-1]
+    DR, DRp = dxdy_rows(qp)
+    parts = [qp._interleave(dx), dy.reshape(W, Rp, B)]
+    if DRp > DR:
+        parts.append(dx.new_zeros((W, DRp - DR, B)))
+    return torch.cat(parts, dim=1)
+
+
+def unpack_dxdy(qp, d):
+    W, N = qp.waypoints, qp.n_dim
+    Rp = qp.rows_per_waypoint_padded
+    B = d.shape[-1]
+    dx = qp._deinterleave(d[:, : 2 * N])
+    dy = d[:, 2 * N : 2 * N + Rp].reshape(W * Rp, B)
+    return dx, dy
+
+
 def pack_state(qp, x, z, y):
     """x (n, B) flat, z/y (m, B) waypoint-major → stacked (W, SRp, B)."""
     W = qp.waypoints
@@ -235,73 +258,15 @@ def unpack_chol(qp, cholp):
 # ---------------------------------------------------------------------------
 
 
-def _acc_rows(scaled, ee, varc, x, z, y, dx, dy):
-    """The 18 raw ``_ACC`` accumulators from torch reductions, through the
-    scaled-operator identities ``A_base·dx_u = Einv·(A_s·dx)``,
-    ``Aᵀ_base·dy_u = cinv·Dinv·(Aᵀ_s·dy)``, ``P_base·dx_u = cinv·Dinv·(P_s·dx)``
-    (the ``cinv`` factors are applied by ``assemble_term_quantities``)."""
-    from .admm import INF_THRESHOLD
-
-    W, N, B = scaled.waypoints, scaled.n_dim, scaled.batch
-    Rp = scaled.rows_per_waypoint_padded
-    B2 = 2 * N
-    E = ee[:, :Rp].reshape(W * Rp, B)
-    Einv = ee[:, Rp:].reshape(W * Rp, B)
-    D = scaled._deinterleave(varc[:, B2 : 2 * B2])
-    Dinv = scaled._deinterleave(varc[:, 2 * B2 : 3 * B2])
-
-    def amax(v):
-        return v.abs().amax(dim=0)
-
-    Ax = scaled.A_matvec(x)
-    Px = scaled.P_matvec(x)
-    ATy = scaled.AT_matvec(y)
-    edy = E * dy
-    edy_pos = edy.clamp(min=0.0)
-    edy_neg = edy.clamp(max=0.0)
-    u_b = Einv * scaled.u
-    l_b = Einv * scaled.l
-    loose_u = u_b >= INF_THRESHOLD
-    loose_l = l_b <= -INF_THRESHOLD
-    zero = torch.zeros_like(edy)
-    eadx = Einv * scaled.A_matvec(dx)
-    inf = torch.full_like(edy, float("inf"))
-    rows = {
-        "prim_res": amax(Einv * (Ax - z)),
-        "normEAx": amax(Einv * Ax),
-        "normEz": amax(Einv * z),
-        "dual_raw": amax(Dinv * (Px + scaled.q + ATy)),
-        "normDPx": amax(Dinv * Px),
-        "normDATy": amax(Dinv * ATy),
-        "normEdy": amax(edy),
-        "norm_dx": amax(D * dx),
-        "At_dy": amax(Dinv * scaled.AT_matvec(dy)),
-        "support": (
-            torch.where(loose_u, zero, u_b * edy_pos)
-            + torch.where(loose_l, zero, l_b * edy_neg)
-        ).sum(dim=0),
-        "loose_pos": torch.where(loose_u, edy_pos, zero).amax(dim=0),
-        "loose_neg": torch.where(loose_l, -edy_neg, zero).amax(dim=0),
-        "Pdx_max": amax(Dinv * scaled.P_matvec(dx)),
-        "Adx_max": torch.where(loose_u, -inf, eadx).amax(dim=0),
-        "Adx_min": torch.where(loose_l, inf, eadx).amin(dim=0),
-        "q_dot": (scaled.q * dx).sum(dim=0),
-        "xsum": x.sum(dim=0),
-        "ysum": y.sum(dim=0),
-    }
-    acc = x.new_zeros((_NACC, B))
-    for k, idx in _ACC.items():
-        acc[idx] = rows[k]
-    return acc
-
-
 def fused_admm_chunk_plain(
     scaled, rho_vec, done, settings, *, coef=None, lu=None,
     packed_factor, state_pack, term_packs=None, n_iter=None,
+    emit_dxdy=False,
 ):
     """Plain PyTorch version of :func:`fused_admm_chunk`: ``n_iter`` ×
     :func:`.admm_lane._iteration` on the unpacked state, then the ``_ACC``
-    rows, repacked.  Returns a NEW state pack (the input is not modified).
+    rows or the packed deltas, repacked.  Returns a NEW state pack (the
+    input is not modified).
     """
     from ..gomp.trajectory_qp_lane import LaneFactor
     from .admm_lane import LaneADMMState, _iteration
@@ -332,14 +297,14 @@ def fused_admm_chunk_plain(
         prev = st
         st = _iteration(scaled, st, factor, settings)
     out = pack_state(scaled, st.x, st.z, st.y)
+    # Deltas of the LAST iteration; exactly zero for frozen problems.
+    dx, dy = st.x - prev.x, st.y - prev.y
+    if emit_dxdy:
+        return out, pack_dxdy(scaled, dx, dy)
     if term_packs is None:
         return out, None
     ee, varc = term_packs[0], term_packs[1]
-    # Deltas of the LAST iteration; exactly zero for frozen problems.
-    acc = _acc_rows(
-        scaled, ee, varc, st.x, st.z, st.y, st.x - prev.x, st.y - prev.y
-    )
-    return out, acc
+    return out, accumulator_rows(scaled, ee, varc, st.x, st.z, st.y, dx, dy)
 
 
 # ---------------------------------------------------------------------------
@@ -359,13 +324,17 @@ def _check_pack(name, t, shape, ref):
 
 
 def _launch_chunk(lib, cholp, coef, q_int, lu, rho3, Plf, ee, varc, Pdp,
-                  done_f, state_pack, w, acc, n_iter, sigma, alpha):
+                  done_f, state_pack, w, acc, n_iter, sigma, alpha,
+                  dxdy=None):
     """Call the C entry point of ``csrc/admm_chunk.cu`` on packs of one
-    device (``acc is None`` selects the accumulator-free instantiation)."""
+    device.  ``acc`` selects the instantiation with the accumulators,
+    ``dxdy`` the one that writes the delta pack, neither the one that only
+    advances the state."""
     W, _, B = state_pack.shape
+    mode = 1 if acc is not None else 2 if dxdy is not None else 0
     fn = lib.admm_chunk_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [
             ctypes.c_double, ctypes.c_double, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
@@ -373,7 +342,7 @@ def _launch_chunk(lib, cholp, coef, q_int, lu, rho3, Plf, ee, varc, Pdp,
     err = fn(
         ptr(cholp), ptr(coef), ptr(q_int), ptr(lu), ptr(rho3), ptr(Plf),
         ptr(ee), ptr(varc), ptr(Pdp), ptr(done_f), ptr(state_pack), ptr(w),
-        ptr(acc), W, B, int(n_iter), int(acc is not None),
+        ptr(acc), ptr(dxdy), W, B, int(n_iter), mode,
         float(sigma), float(alpha), _launch.stream(state_pack.device),
     )
     _launch.check(err, "admm_chunk_launch")
@@ -381,7 +350,7 @@ def _launch_chunk(lib, cholp, coef, q_int, lu, rho3, Plf, ee, varc, Pdp,
 
 def fused_admm_chunk(
     scaled, rho_vec, done, settings, *, coef, lu, packed_factor,
-    state_pack, term_packs=None, n_iter=None,
+    state_pack, term_packs=None, n_iter=None, emit_dxdy=False,
 ):
     """Run ``n_iter`` (default ``settings.check_termination``) ADMM
     iterations fused, on the packed state.
@@ -394,9 +363,12 @@ def fused_admm_chunk(
     ``term_packs``: ``(EEinv (W, 2Rp, B), varc, Pdp, Plf)`` — with them the
     kernel also emits the raw termination accumulators ``acc (24, B)`` in
     its last backward pass; without them ``Plf`` is rebuilt and only the
-    state advances.
+    state advances.  ``emit_dxdy`` (without ``term_packs``): the last
+    iteration's deltas are written as the ``(W, DRp, B)`` pack ``[dx; dy]``
+    that :func:`.residuals.termination_quantities_kernel` consumes.
 
-    Returns ``(state_out, acc | None)``.  On a CUDA tensor the kernel
+    Returns ``(state_out, acc | None)``, or ``(state_out, dxdy)`` with
+    ``emit_dxdy``.  On a CUDA tensor the kernel
     updates ``state_pack`` IN PLACE and returns the same tensor; frozen
     problems (``done``) keep their state and emit zero deltas.  On a CPU
     tensor the plain version runs and returns a new tensor.
@@ -427,6 +399,11 @@ def fused_admm_chunk(
     if tuple(done.shape) != (B,):
         raise ValueError(f"done: shape {tuple(done.shape)} != ({B},)")
     emit_term = term_packs is not None
+    if emit_term and emit_dxdy:
+        raise ValueError(
+            "emit_dxdy writes the deltas that term_packs consumes in "
+            "registers: pass one or the other"
+        )
     if emit_term:
         ee, varc, Pdp, Plf = term_packs
         _check_pack("EEinv", ee, (W, 2 * Rp, B), state_pack)
@@ -438,6 +415,7 @@ def fused_admm_chunk(
         return fused_admm_chunk_plain(
             scaled, rho_vec, done, settings, packed_factor=packed_factor,
             state_pack=state_pack, term_packs=term_packs, n_iter=n_iter,
+            emit_dxdy=emit_dxdy,
         )
     if state_pack.dtype != torch.float32:
         raise TypeError(
@@ -456,13 +434,25 @@ def fused_admm_chunk(
         torch.empty((_NACC, B), dtype=torch.float32, device=state_pack.device)
         if emit_term else None
     )
+    dxdy = (
+        torch.empty(
+            (W, dxdy_rows(scaled)[1], B), dtype=torch.float32,
+            device=state_pack.device,
+        )
+        if emit_dxdy else None
+    )
     _launch_chunk(
         _launch.library("admm_chunk", layout_signature(scaled)),
         cholp, coef, q_int, lu, rho3, Plf, ee, varc, Pdp, done_f, state_pack,
-        w, acc, n_iter, settings.sigma, settings.alpha,
+        w, acc, n_iter, settings.sigma, settings.alpha, dxdy=dxdy,
     )
     fused_admm_chunk.launches += 1
+    if emit_dxdy:
+        fused_admm_chunk.launches_dxdy += 1
+        return state_pack, dxdy
     return state_pack, acc
 
 
+# Kernel launches since import: all forms, and the delta-writing form alone.
 fused_admm_chunk.launches = 0
+fused_admm_chunk.launches_dxdy = 0

@@ -9,7 +9,8 @@ infeasibility certificates — with the batch axis last on every array.
 The reference's ``lax.while_loop`` over chunks is a host loop here.  On a
 CUDA device every iteration, factorization and the equilibration run in the
 hand-written kernels (:mod:`.admm_fused`, :mod:`.kkt_factor`,
-:mod:`.ruiz_kernel`); the host reads the device ONCE per chunk (one small
+:mod:`.ruiz_kernel`, and with ``Settings(term_fused="off")``
+:mod:`.residuals`); the host reads the device ONCE per chunk (one small
 tensor holding "any problem still running" and "any ρ to adapt"), counted in
 :data:`HOST_SYNCS`.  On the CPU the same loop runs the kernels' plain
 versions, and ``Settings(fused_chunk="off")`` runs the unfused op-by-op
@@ -477,7 +478,8 @@ def _use_fused(scaled, settings: Settings) -> bool:
         if on_cuda:
             raise NotImplementedError(
                 "on a CUDA device the lane solve needs the 'waypoint' row "
-                "layout and vel-diag P (the other paths are not ported yet)"
+                "layout and vel-diag P (the block-P forms of the Ruiz, "
+                "chunk and residual kernels are not ported yet)"
             )
         return False
     return True
@@ -503,10 +505,16 @@ def _solve_core(
         unpack_state,
     )
     from .kkt_factor import factor_packed_lane
-    from .residuals import assemble_term_quantities
+    from .residuals import (
+        assemble_term_quantities,
+        termination_quantities_kernel,
+    )
 
     check_supported(settings)
     use_fused = _use_fused(scaled, settings)
+    # Termination reductions inside the chunk kernel, or ("off") the chunk's
+    # delta-writing form followed by the streaming residual kernel.
+    use_term_fused = settings.term_fused != "off"
     ct = settings.check_termination
 
     if use_fused:
@@ -518,6 +526,12 @@ def _solve_core(
         coef_pack = packs["coef"]
         term_packs = (packs["EEinv"], packs["varc"], packs["Pdp"], packs["Plf"])
         norm_Dq = packs["norm_Dq"]
+        if not use_term_fused:
+            resid_packs = (
+                torch.cat([packs["EEinv"], lu_pack], dim=1),  # [E; Einv; l; u]
+                packs["varc"], packs["Pdp"], packs["Plf"], norm_Dq,
+                scaling.cinv,
+            )
 
     def fresh_factor(rho_vec_arr):
         """Packed (fused) or full-block (unfused) factor for a given ρ."""
@@ -570,15 +584,27 @@ def _solve_core(
         ``(state, new_rho, adapt, flags)`` with ``flags`` a 2-element device
         tensor ``[any problem still running, any ρ to adapt]``."""
         if use_fused:
-            sp, acc = fused_admm_chunk(
-                scaled, st.rho_vec, st.done, settings,
+            chunk_args = dict(
                 coef=coef_pack, lu=lu_pack, packed_factor=st.factor,
-                state_pack=st.x, term_packs=term_packs,
+                state_pack=st.x,
             )
+            if use_term_fused:
+                sp, acc = fused_admm_chunk(
+                    scaled, st.rho_vec, st.done, settings,
+                    term_packs=term_packs, **chunk_args,
+                )
+                tq = assemble_term_quantities(acc, scaling.cinv, norm_Dq)
+            else:
+                sp, dp = fused_admm_chunk(
+                    scaled, st.rho_vec, st.done, settings, emit_dxdy=True,
+                    **chunk_args,
+                )
+                tq = termination_quantities_kernel(
+                    scaled, sp, dp, coef_pack, resid_packs
+                )
             st = st.replace(
                 x=sp, iterations=st.iterations + ct * (~st.done).to(torch.int32)
             )
-            tq = assemble_term_quantities(acc, scaling.cinv, norm_Dq)
         else:
             st = plain_iterations(st, ct)
             tq = _termination_quantities(base, scaled, scaling, st)

@@ -1,14 +1,34 @@
-"""Termination accumulators and per-solve residual packs.
+"""Termination quantities: accumulator rows, per-solve packs, and the
+streaming residual kernel.
 
-Counterpart of ``osqp_solver_tpu/ops/residuals_pallas.py`` for what the
-termination-fused chunk kernel needs: the accumulator rows ``_ACC`` /
-``_NACC``, ``build_residual_packs`` and ``assemble_term_quantities``.  The
-separate streaming residual kernel of that module
-(``termination_quantities_kernel``) is not ported yet.
+Counterpart of ``osqp_solver_tpu/ops/residuals_pallas.py``: the accumulator
+rows ``_ACC`` / ``_NACC``, ``build_residual_packs``,
+``assemble_term_quantities`` and ``termination_quantities_kernel`` — the
+separate streaming pass the lane solve loop runs after each chunk when the
+termination reductions are not fused into the chunk kernel
+(``Settings(term_fused="off")``).
+
+Kernel note (``csrc/residuals.cu`` replaces the Pallas body
+``residuals_pallas.py::_make_kernel`` behind
+``termination_quantities_kernel``, for vel-diag P).  The TPU kernel walks
+the horizon with a 4-slot VMEM ring per (8, 128) tile of problems.  Here ONE
+THREAD owns ONE PROBLEM and walks the horizon once: all six matvecs (Ax, Px,
+Aᵀy, A·dx, P·dx, Aᵀ·dy) are waypoint-local stencils, so the values of
+waypoint u−1 it still needs are carried in registers, waypoints u and u+1
+sit in a three-stage shared-memory ring each thread fills for its own column
+with ``cp.async``, and the 18 running maxima and sums never leave
+registers.  Bound on an H100: every pack is read once and 24 values per
+problem are written — bytes on paper; with B=1024 (32 warps on 132 SMs) the
+serial walk's latency decides.  The block-P form is not ported: on a CUDA
+tensor the launcher raises for it.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from .. import _build
 
 # accumulator rows in the (NACC, B) output pack
 _ACC = dict(
@@ -109,3 +129,163 @@ def assemble_term_quantities(acc, cinv, norm_Dq):
         q_dot_dx=cinv * g("q_dot"),
         blew_up=~torch.isfinite(g("xsum") + g("ysum")),
     )
+
+
+def accumulator_rows(scaled, ee, varc, x, z, y, dx, dy):
+    """The 18 raw ``_ACC`` accumulators ``(NACC, B)`` from torch reductions on
+    the flat state and deltas, through the scaled-operator identities
+    ``A_base·dx_u = Einv·(A_s·dx)``, ``Aᵀ_base·dy_u = cinv·Dinv·(Aᵀ_s·dy)``,
+    ``P_base·dx_u = cinv·Dinv·(P_s·dx)`` (the ``cinv`` factors are applied by
+    :func:`assemble_term_quantities`).  ``ee (W, 2Rp, B) = [E; Einv]``,
+    ``varc = [q; D; Dinv]``."""
+    from .admm import INF_THRESHOLD
+
+    W, N, B = scaled.waypoints, scaled.n_dim, scaled.batch
+    Rp = scaled.rows_per_waypoint_padded
+    B2 = 2 * N
+    E = ee[:, :Rp].reshape(W * Rp, B)
+    Einv = ee[:, Rp : 2 * Rp].reshape(W * Rp, B)
+    D = scaled._deinterleave(varc[:, B2 : 2 * B2])
+    Dinv = scaled._deinterleave(varc[:, 2 * B2 : 3 * B2])
+
+    def amax(v):
+        return v.abs().amax(dim=0)
+
+    Ax = scaled.A_matvec(x)
+    Px = scaled.P_matvec(x)
+    ATy = scaled.AT_matvec(y)
+    edy = E * dy
+    edy_pos = edy.clamp(min=0.0)
+    edy_neg = edy.clamp(max=0.0)
+    u_b = Einv * scaled.u
+    l_b = Einv * scaled.l
+    loose_u = u_b >= INF_THRESHOLD
+    loose_l = l_b <= -INF_THRESHOLD
+    zero = torch.zeros_like(edy)
+    eadx = Einv * scaled.A_matvec(dx)
+    inf = torch.full_like(edy, float("inf"))
+    rows = {
+        "prim_res": amax(Einv * (Ax - z)),
+        "normEAx": amax(Einv * Ax),
+        "normEz": amax(Einv * z),
+        "dual_raw": amax(Dinv * (Px + scaled.q + ATy)),
+        "normDPx": amax(Dinv * Px),
+        "normDATy": amax(Dinv * ATy),
+        "normEdy": amax(edy),
+        "norm_dx": amax(D * dx),
+        "At_dy": amax(Dinv * scaled.AT_matvec(dy)),
+        "support": (
+            torch.where(loose_u, zero, u_b * edy_pos)
+            + torch.where(loose_l, zero, l_b * edy_neg)
+        ).sum(dim=0),
+        "loose_pos": torch.where(loose_u, edy_pos, zero).amax(dim=0),
+        "loose_neg": torch.where(loose_l, -edy_neg, zero).amax(dim=0),
+        "Pdx_max": amax(Dinv * scaled.P_matvec(dx)),
+        "Adx_max": torch.where(loose_u, -inf, eadx).amax(dim=0),
+        "Adx_min": torch.where(loose_l, inf, eadx).amin(dim=0),
+        "q_dot": (scaled.q * dx).sum(dim=0),
+        "xsum": x.sum(dim=0),
+        "ysum": y.sum(dim=0),
+    }
+    acc = x.new_zeros((_NACC, B))
+    for k, idx in _ACC.items():
+        acc[idx] = rows[k]
+    return acc
+
+
+def termination_accumulators_plain(scaled, state_pack, dxdy_pack, rowc, varc):
+    """Plain PyTorch version of the kernel's pass: unpack the two packs and
+    reduce with the container's matvecs.  Returns ``acc (NACC, B)``."""
+    from .admm_fused import unpack_dxdy, unpack_state
+
+    x, z, y = unpack_state(scaled, state_pack)
+    dx, dy = unpack_dxdy(scaled, dxdy_pack)
+    return accumulator_rows(scaled, rowc, varc, x, z, y, dx, dy)
+
+
+def termination_quantities_plain(scaled, state_pack, dxdy_pack, coef, packs):
+    """Plain PyTorch version of :func:`termination_quantities_kernel` (same
+    arguments, same result)."""
+    del coef  # the plain version reads the container directly
+    rowc, varc, _, _, norm_Dq, cinv = packs[:6]
+    acc = termination_accumulators_plain(
+        scaled, state_pack, dxdy_pack, rowc, varc
+    )
+    return assemble_term_quantities(acc, cinv, norm_Dq)
+
+
+def _launch_residuals(lib, coef, Pdp, Plf, state_pack, dxdy_pack, rowc, varc,
+                      acc):
+    """Call the C entry point of ``csrc/residuals.cu`` on packs of one
+    device."""
+    W, _, B = state_pack.shape
+    fn = lib.residuals_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    p = _build.ptr
+    err = fn(p(coef), p(Pdp), p(Plf), p(state_pack), p(dxdy_pack), p(rowc),
+             p(varc), p(acc), W, B, _build.stream(state_pack.device))
+    _build.check(err, "residuals_launch")
+
+
+def termination_quantities_kernel(scaled, state_pack, dxdy_pack, coef, packs):
+    """One streaming pass over the horizon → :class:`.admm_lane.
+    TermQuantities`.
+
+    ``scaled``: waypoint-layout :class:`LaneTrajectoryQP` (Ruiz scaled);
+    ``state_pack (W, SRp, B)`` / ``dxdy_pack (W, DRp, B)``: the chunk's
+    packed outputs (:func:`.admm_fused.fused_admm_chunk` with
+    ``emit_dxdy``); ``coef``: the stencil pack; ``packs``:
+    :func:`build_residual_packs` output followed by ``scaling.cinv``.
+
+    On a CUDA tensor the kernel runs (float32, vel-diag P) or the call
+    raises; on a CPU tensor the plain version runs.
+    """
+    from .admm_fused import (
+        _check_pack, _coef_layout, dxdy_rows, layout_signature, state_rows,
+    )
+
+    rowc, varc, Pdp, Plf, norm_Dq, cinv = packs[:6]
+    W, N, B = scaled.waypoints, scaled.n_dim, scaled.batch
+    Rp = scaled.rows_per_waypoint_padded
+    if scaled.row_layout != "waypoint":
+        raise ValueError(
+            "termination_quantities_kernel needs the 'waypoint' row layout"
+        )
+    _check_pack("state_pack", state_pack, (W, state_rows(scaled)[1], B),
+                state_pack)
+    _check_pack("dxdy_pack", dxdy_pack, (W, dxdy_rows(scaled)[1], B),
+                state_pack)
+    _check_pack("coef", coef, (W, _coef_layout(scaled)[3], B), state_pack)
+    _check_pack("rowc", rowc, (W, 4 * Rp, B), state_pack)
+    _check_pack("varc", varc, (W, -(-6 * N // 8) * 8, B), state_pack)
+
+    if state_pack.device.type == "cpu":
+        return termination_quantities_plain(
+            scaled, state_pack, dxdy_pack, coef, packs
+        )
+    if scaled.p_structure != "vel_diag":
+        raise NotImplementedError(
+            "the CUDA residual kernel is ported for vel-diag P only (the "
+            "block-P form of residuals_pallas is missing)"
+        )
+    if state_pack.dtype != torch.float32:
+        raise TypeError(
+            f"the CUDA residual kernel takes float32, got {state_pack.dtype}"
+        )
+    PNp = -(-N // 8) * 8
+    _check_pack("Pdp", Pdp, (W, PNp, B), state_pack)
+    _check_pack("Plf", Plf, (W, PNp, B), state_pack)
+    acc = torch.empty((_NACC, B), dtype=torch.float32, device=state_pack.device)
+    _launch_residuals(
+        _build.library("residuals", layout_signature(scaled)),
+        coef, Pdp, Plf, state_pack, dxdy_pack, rowc, varc, acc,
+    )
+    termination_quantities_kernel.launches += 1
+    return assemble_term_quantities(acc, cinv, norm_Dq)
+
+
+termination_quantities_kernel.launches = 0

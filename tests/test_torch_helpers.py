@@ -4,6 +4,9 @@ Inputs are made with numpy from a seed and handed to both packages: the JAX
 package builds its ``LaneTrajectoryQP`` from the arrays directly, the port
 through ``convert.lane_qp_from_numpy``.  Everything runs on the CPU in f64.
 """
+import dataclasses
+import functools
+import shutil
 import subprocess
 import sys
 
@@ -13,7 +16,12 @@ import pytest
 import torch
 
 from osqp_solver_tpu.gomp import trajectory_qp_lane as jlane
-from osqp_solver_tpu_torch import convert
+from osqp_solver_tpu.ops import admm as jadmm
+from osqp_solver_tpu.ops import admm_lane as jlane_drv
+from osqp_solver_tpu_torch import _build, convert
+from osqp_solver_tpu_torch.ops import admm_fused as tfused
+from osqp_solver_tpu_torch.ops import admm_lane as tlane_drv
+from osqp_solver_tpu_torch.ops import kkt_factor as tfactor
 
 pytestmark = pytest.mark.torch_port
 
@@ -97,6 +105,56 @@ def both(seed=0, **kw):
 
 def assert_close(a, b, rtol=0.0, atol=0.0):
     np.testing.assert_allclose(to_np(a), to_np(b), rtol=rtol, atol=atol)
+
+
+def t_(a):
+    return torch.from_numpy(np.array(a))
+
+
+@functools.lru_cache(maxsize=None)
+def chunk_case(seed=0, n_iter=3, flags=FLAGS, n_obs=N_OBS, W=W):
+    """A scaled problem, a non-trivial state, a mixed done mask — in both
+    frameworks — and the reference's result of ``n_iter`` iterations.
+    Cached: callers clone what they write to."""
+    jqp, _ = both(seed, flags=flags, n_obs=n_obs, W=W)
+    settings = dataclasses.replace(jadmm.Settings(), check_termination=n_iter)
+    jscaled, js = jlane_drv._ruiz_equilibrate_lane_jnp(jqp, 5)
+    rng = np.random.default_rng(seed + 100)
+    wx = rng.normal(size=(jqp.n, B))
+    wy = 0.1 * rng.normal(size=(jqp.m, B))
+    st = jlane_drv.init_state_lane(
+        jscaled, settings, jnp.asarray(wx), jnp.asarray(wy), js
+    )
+    done = np.zeros(B, bool)
+    done[[1, 6]] = True
+    st = st.replace(done=jnp.asarray(done))
+    ref = st
+    for _ in range(n_iter):
+        ref = jlane_drv._iteration(jscaled, ref.replace(factor=None),
+                                   st.factor, settings)
+    tq = jlane_drv._termination_quantities(jqp, jscaled, js, ref)
+
+    tscaled = convert.lane_qp_from_numpy(*convert.lane_qp_to_numpy(jscaled))
+    ts = convert.scaling_from_numpy(*(to_np(a) for a in (js.D, js.E, js.c)))
+    tsettings = convert.settings_from_dict(dataclasses.asdict(settings))
+    rho_vec = t_(st.rho_vec)
+    packs = tlane_drv.build_const_packs(tscaled, ts)
+    args = dict(
+        coef=packs["coef"], lu=tfused.build_lu_pack(tscaled),
+        packed_factor=tfactor.factor_packed_lane(
+            tscaled, rho_vec, settings.sigma, coef=packs["coef"]),
+        state_pack=tfused.pack_state(tscaled, t_(st.x), t_(st.z), t_(st.y)),
+        term_packs=(packs["EEinv"], packs["varc"], packs["Pdp"], packs["Plf"]),
+    )
+    return (jscaled, ref, tq), (tscaled, ts, tsettings, rho_vec, t_(done),
+                                packs, args)
+
+
+def host_lib(name, qp):
+    """A kernel's source built with g++ in host emulation (double)."""
+    if shutil.which("g++") is None:
+        pytest.skip("host emulation of the CUDA sources needs g++")
+    return _build.library(name, tfused.layout_signature(qp), host=True)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

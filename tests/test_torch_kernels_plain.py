@@ -2,31 +2,26 @@
 (KKT factor, Ruiz, fused ADMM chunk) against the reference's plain paths,
 the wrappers' argument checks, and the CUDA sources' arithmetic in host
 emulation (g++, double) against the plain versions.  f64, CPU."""
-import dataclasses
-import shutil
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from osqp_solver_tpu.ops import admm as jadmm
 from osqp_solver_tpu.ops import admm_fused as jfused
 from osqp_solver_tpu.ops import admm_lane as jlane_drv
-from osqp_solver_tpu_torch import _build, convert
+from osqp_solver_tpu_torch import convert
 from osqp_solver_tpu_torch.ops import admm_fused as tfused
 from osqp_solver_tpu_torch.ops import admm_lane as tlane_drv
 from osqp_solver_tpu_torch.ops import kkt_factor as tfactor
 from osqp_solver_tpu_torch.ops import residuals as tresid
 from osqp_solver_tpu_torch.ops import ruiz_kernel as truiz
 
-from test_torch_helpers import B, assert_close, both, to_np
+from test_torch_helpers import (
+    B, assert_close, both, chunk_case as _chunk_case, host_lib as _host_lib,
+    t_ as _t, to_np,
+)
 
 pytestmark = pytest.mark.torch_port
-
-
-def _t(a):
-    return torch.from_numpy(np.array(a))
 
 
 # ------------------------------------------------------------------ factor
@@ -84,43 +79,6 @@ def test_ruiz_type_layout_and_bad_arguments():
 # ------------------------------------------------------------------- chunk
 
 
-def _chunk_case(seed=0, n_iter=3, flags=(False, True), n_obs=1):
-    """A scaled problem, a non-trivial state, a mixed done mask — in both
-    frameworks — and the reference's result of ``n_iter`` iterations."""
-    jqp, _ = both(seed, flags=flags, n_obs=n_obs)
-    settings = dataclasses.replace(jadmm.Settings(), check_termination=n_iter)
-    jscaled, js = jlane_drv._ruiz_equilibrate_lane_jnp(jqp, 5)
-    rng = np.random.default_rng(seed + 100)
-    wx = rng.normal(size=(jqp.n, B))
-    wy = 0.1 * rng.normal(size=(jqp.m, B))
-    st = jlane_drv.init_state_lane(
-        jscaled, settings, jnp.asarray(wx), jnp.asarray(wy), js
-    )
-    done = np.zeros(B, bool)
-    done[[1, 6]] = True
-    st = st.replace(done=jnp.asarray(done))
-    ref = st
-    for _ in range(n_iter):
-        ref = jlane_drv._iteration(jscaled, ref.replace(factor=None),
-                                   st.factor, settings)
-    tq = jlane_drv._termination_quantities(jqp, jscaled, js, ref)
-
-    tscaled = convert.lane_qp_from_numpy(*convert.lane_qp_to_numpy(jscaled))
-    ts = convert.scaling_from_numpy(*(to_np(a) for a in (js.D, js.E, js.c)))
-    tsettings = convert.settings_from_dict(dataclasses.asdict(settings))
-    rho_vec = _t(st.rho_vec)
-    packs = tlane_drv.build_const_packs(tscaled, ts)
-    args = dict(
-        coef=packs["coef"], lu=tfused.build_lu_pack(tscaled),
-        packed_factor=tfactor.factor_packed_lane(
-            tscaled, rho_vec, settings.sigma, coef=packs["coef"]),
-        state_pack=tfused.pack_state(tscaled, _t(st.x), _t(st.z), _t(st.y)),
-        term_packs=(packs["EEinv"], packs["varc"], packs["Pdp"], packs["Plf"]),
-    )
-    return (jscaled, ref, tq), (tscaled, ts, tsettings, rho_vec, _t(done),
-                                packs, args)
-
-
 @pytest.mark.parametrize("flags,n_obs", [((False, True), 1), ((), 0)])
 def test_chunk_plain_matches_reference(flags, n_obs):
     (jscaled, ref, tq), (tscaled, ts, tsettings, rho_vec, done, packs, args) = (
@@ -153,6 +111,26 @@ def test_chunk_without_term_packs_advances_state_only():
     assert_close(out, with_acc)
 
 
+@pytest.mark.parametrize("flags,n_obs", [((False, True), 1), ((), 0)])
+def test_chunk_emit_dxdy_matches_reference_deltas(flags, n_obs):
+    """The delta-writing form: same state, and the packed deltas are the
+    reference's ``dx``/``dy`` of the last iteration (zero where frozen)."""
+    (jscaled, ref, _), (tscaled, ts, tsettings, rho_vec, done, packs, args) = (
+        _chunk_case(flags=flags, n_obs=n_obs))
+    args = dict(args, term_packs=None)
+    out, dxdy = tfused.fused_admm_chunk(tscaled, rho_vec, done, tsettings,
+                                        emit_dxdy=True, **args)
+    plain_out, _ = tfused.fused_admm_chunk(tscaled, rho_vec, done, tsettings,
+                                           **args)
+    assert_close(out, plain_out)
+    dx, dy = tfused.unpack_dxdy(tscaled, dxdy)
+    assert_close(dx, ref.dx, rtol=1e-10, atol=1e-10)
+    assert_close(dy, ref.dy, rtol=1e-10, atol=1e-10)
+    assert dxdy.shape == (tscaled.waypoints, tfused.dxdy_rows(tscaled)[1], B)
+    assert (to_np(dxdy)[..., [1, 6]] == 0.0).all()
+    assert tfused.fused_admm_chunk.launches_dxdy == 0
+
+
 def test_chunk_wrapper_refuses_bad_arguments():
     _, (tscaled, ts, tsettings, rho_vec, done, packs, args) = _chunk_case()
     call = lambda **kw: tfused.fused_admm_chunk(  # noqa: E731
@@ -173,12 +151,6 @@ def test_chunk_wrapper_refuses_bad_arguments():
 
 
 # ------------------------------------------- CUDA sources in host emulation
-
-
-def _host_lib(name, qp):
-    if shutil.which("g++") is None:
-        pytest.skip("host emulation of the CUDA sources needs g++")
-    return _build.library(name, tfused.layout_signature(qp), host=True)
 
 
 @pytest.mark.parametrize("flags,n_obs", [((False, True), 1), ((), 0)])

@@ -1,0 +1,229 @@
+"""PyTorch port vs JAX package: the unfused-termination path.
+
+The plain version of the streaming residual kernel against the JAX package's
+Pallas kernel in interpret mode (B=128, honest and box, each
+``TermQuantities`` field within 1e-10: same formulas in f64, other summation
+order), the chunk's delta-writing plain form against the JAX chunk kernel in
+interpret mode, the wrappers' argument checks, and the two CUDA sources'
+arithmetic in host emulation (g++, double) against the plain versions at
+1e-9 for W = 4, 5 and 12 with frozen problems.  f64, CPU."""
+import dataclasses
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from osqp_solver_tpu.ops import admm as jadmm
+from osqp_solver_tpu.ops import admm_fused as jfused
+from osqp_solver_tpu.ops import admm_lane as jlane_drv
+from osqp_solver_tpu.ops import residuals_pallas as jresid
+from osqp_solver_tpu_torch import convert
+from osqp_solver_tpu_torch.ops import admm as tadmm
+from osqp_solver_tpu_torch.ops import admm_fused as tfused
+from osqp_solver_tpu_torch.ops import admm_lane as tdrv
+from osqp_solver_tpu_torch.ops import kkt_factor as tfactor
+from osqp_solver_tpu_torch.ops import residuals as tresid
+from osqp_solver_tpu_torch.ops import ruiz_kernel as truiz
+
+from test_admm_fused import build_wp_batch
+from test_torch_helpers import B, assert_close, both, host_lib, t_, to_np
+
+pytestmark = pytest.mark.torch_port
+
+
+# ------------------------------------------- against the JAX Pallas kernels
+
+
+@pytest.fixture(scope="module", params=[True, False], ids=["honest", "box"])
+def interpreted(request):
+    """One chunk of 3 iterations by the JAX chunk kernel (interpret mode,
+    B=128) from a cold start, its packed outputs, and the JAX residual
+    kernel's quantities on them; and the same problem in the port."""
+    settings = dataclasses.replace(jadmm.Settings(), check_termination=3)
+    lane = build_wp_batch(honest=request.param)
+    scaled, scaling = jlane_drv.ruiz_equilibrate_lane(lane, settings.scaling)
+    st = jlane_drv.init_state_lane(scaled, settings)
+    done = jnp.zeros((lane.batch,), bool).at[5].set(True).at[77].set(True)
+    x2, z2, y2, dx2, dy2 = jfused.fused_admm_chunk(
+        scaled, st.factor, st.x, st.z, st.y, st.rho_vec, done, settings,
+        interpret=True,
+    )
+    sp = jfused.pack_state(scaled, x2, z2, y2)
+    dp = jfused.pack_dxdy(scaled, dx2, dy2)
+    jpacks = jresid.build_residual_packs(scaled, scaling) + (scaling.cinv,)
+    ref = jresid.termination_quantities_kernel(
+        scaled, sp, dp, jfused.build_coef_pack(scaled), jpacks, interpret=True
+    )
+    tscaled = convert.lane_qp_from_numpy(*convert.lane_qp_to_numpy(scaled))
+    ts = convert.scaling_from_numpy(
+        *(to_np(a) for a in (scaling.D, scaling.E, scaling.c)))
+    tsettings = convert.settings_from_dict(dataclasses.asdict(settings))
+    return dict(ref=ref, sp=sp, dp=dp, st=st, done=done, tscaled=tscaled,
+                ts=ts, tsettings=tsettings)
+
+
+def _port_packs(tscaled, ts):
+    return tresid.build_residual_packs(tscaled, ts) + (ts.cinv,)
+
+
+def test_residual_plain_matches_interpreted_kernel(interpreted):
+    c = interpreted
+    got = tresid.termination_quantities_kernel(
+        c["tscaled"], t_(c["sp"]), t_(c["dp"]),
+        tfused.build_coef_pack(c["tscaled"]), _port_packs(c["tscaled"], c["ts"]),
+    )
+    for name in c["ref"]._fields:
+        if name == "blew_up":
+            np.testing.assert_array_equal(to_np(got.blew_up),
+                                          np.asarray(c["ref"].blew_up))
+        else:
+            assert_close(getattr(got, name), getattr(c["ref"], name),
+                         rtol=1e-10, atol=1e-10)
+    assert tresid.termination_quantities_kernel.launches == 0
+
+
+def test_chunk_dxdy_plain_matches_interpreted_kernel(interpreted):
+    """Same state and same delta pack as the JAX chunk kernel without
+    ``term_packs`` (1e-9: two routes through a 3-iteration recurrence)."""
+    c = interpreted
+    tscaled, st = c["tscaled"], c["st"]
+    rho_vec = t_(st.rho_vec)
+    out, dxdy = tfused.fused_admm_chunk(
+        tscaled, rho_vec, t_(c["done"]), c["tsettings"],
+        coef=tfused.build_coef_pack(tscaled), lu=tfused.build_lu_pack(tscaled),
+        packed_factor=tfactor.factor_packed_lane(
+            tscaled, rho_vec, c["tsettings"].sigma),
+        state_pack=tfused.pack_state(tscaled, t_(st.x), t_(st.z), t_(st.y)),
+        emit_dxdy=True,
+    )
+    assert_close(out, c["sp"], rtol=1e-9, atol=1e-9)
+    assert_close(dxdy, c["dp"], rtol=1e-9, atol=1e-9)
+    assert (to_np(dxdy)[..., [5, 77]] == 0.0).all()  # frozen: exact zeros
+    dx, dy = tfused.unpack_dxdy(tscaled, dxdy)
+    assert_close(tfused.pack_dxdy(tscaled, dx, dy), dxdy)
+    assert tfused.fused_admm_chunk.launches_dxdy == 0
+
+
+# ------------------------------------------------------------ the wrappers
+
+
+@functools.lru_cache(maxsize=None)
+def _port_case(seed=0, W=8, flags=(False, True), n_obs=1):
+    """A random problem scaled by the port, a non-trivial state and a done
+    mask that freezes problems 1 and 6 — the port alone (the comparisons
+    below are between the port's kernels and its plain versions)."""
+    _, tqp = both(seed, flags=flags, n_obs=n_obs, W=W)
+    tsettings = dataclasses.replace(tadmm.Settings(), check_termination=3)
+    tscaled, ts = truiz.ruiz_equilibrate_lane_kernel(tqp, 5)
+    rng = np.random.default_rng(seed + 100)
+    st = tdrv.init_state_lane(
+        tscaled, tsettings, t_(rng.normal(size=(tqp.n, B))),
+        t_(0.1 * rng.normal(size=(tqp.m, B))), ts)
+    done = torch.zeros(B, dtype=torch.bool)
+    done[[1, 6]] = True
+    packs = tdrv.build_const_packs(tscaled, ts)
+    args = dict(
+        coef=packs["coef"], lu=tfused.build_lu_pack(tscaled),
+        packed_factor=tfactor.factor_packed_lane(
+            tscaled, st.rho_vec, tsettings.sigma, coef=packs["coef"]),
+        state_pack=tfused.pack_state(tscaled, st.x, st.z, st.y),
+    )
+    return tscaled, ts, tsettings, st.rho_vec, done, packs, args
+
+
+def _residual_case(W=8, flags=(False, True), n_obs=1, seed=0):
+    """Packs after 3 plain iterations that end with the delta form."""
+    tscaled, ts, tsettings, rho_vec, done, packs, args = _port_case(
+        seed, W, flags, n_obs)
+    sp, dp = tfused.fused_admm_chunk_plain(
+        tscaled, rho_vec, done, tsettings, emit_dxdy=True, **args)
+    return tscaled, ts, sp, dp, args["coef"], _port_packs(tscaled, ts)
+
+
+def test_residual_plain_matches_fused_accumulators():
+    """The separate pass on (state, dxdy) gives what the chunk's fused
+    accumulators give for the same iteration."""
+    tscaled, ts, tsettings, rho_vec, done, packs, args = _port_case()
+    _, acc = tfused.fused_admm_chunk_plain(
+        tscaled, rho_vec, done, tsettings, term_packs=(
+            packs["EEinv"], packs["varc"], packs["Pdp"], packs["Plf"]), **args)
+    sp, dp = tfused.fused_admm_chunk_plain(
+        tscaled, rho_vec, done, tsettings, emit_dxdy=True, **args)
+    fused = tresid.assemble_term_quantities(acc, ts.cinv, packs["norm_Dq"])
+    sep = tresid.termination_quantities_plain(
+        tscaled, sp, dp, args["coef"], _port_packs(tscaled, ts))
+    for name in fused._fields:
+        assert_close(getattr(sep, name), getattr(fused, name),
+                     rtol=1e-13, atol=1e-13)
+
+
+def test_residual_nan_in_state_is_carried():
+    tscaled, ts, sp, dp, coef, packs = _residual_case()
+    sp = sp.clone()
+    sp[2, 1, 3] = float("nan")
+    got = tresid.termination_quantities_kernel(tscaled, sp, dp, coef, packs)
+    assert to_np(got.blew_up).tolist() == [b == 3 for b in range(B)]
+
+
+def test_residual_and_dxdy_wrappers_refuse_bad_arguments():
+    tscaled, ts, sp, dp, coef, packs = _residual_case()
+    call = tresid.termination_quantities_kernel
+    with pytest.raises(ValueError):
+        call(tscaled, sp, dp[:, :-1].contiguous(), coef, packs)
+    with pytest.raises(TypeError):
+        call(tscaled, sp, dp.float(), coef, packs)
+    with pytest.raises(ValueError):
+        call(tscaled.replace(row_layout="type"), sp, dp, coef, packs)
+    with pytest.raises(ValueError):
+        call(tscaled, sp, dp, coef, (packs[0][:, :-1].contiguous(),) + packs[1:])
+    tscaled, ts, tsettings, rho_vec, done, packs, args = _port_case()
+    with pytest.raises(ValueError):  # accumulators and deltas together
+        tfused.fused_admm_chunk(
+            tscaled, rho_vec, done, tsettings, emit_dxdy=True, term_packs=(
+                packs["EEinv"], packs["varc"], packs["Pdp"], packs["Plf"]),
+            **args)
+
+
+# ------------------------------------------- CUDA sources in host emulation
+
+
+@pytest.mark.parametrize("W", [4, 5, 12])
+@pytest.mark.parametrize("flags,n_obs", [((False, True), 1), ((), 0)])
+def test_emulated_residual_kernel_matches_plain(W, flags, n_obs, tmp_path,
+                                                monkeypatch):
+    monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
+    tscaled, ts, sp, dp, coef, packs = _residual_case(W, flags, n_obs, seed=W)
+    rowc, varc, Pdp, Plf = packs[:4]
+    plain = tresid.termination_accumulators_plain(tscaled, sp, dp, rowc, varc)
+    acc = torch.full((24, B), float("nan"), dtype=torch.float64)
+    tresid._launch_residuals(
+        host_lib("residuals", tscaled), coef, Pdp, Plf, sp, dp, rowc, varc, acc)
+    assert_close(acc, plain, rtol=1e-9, atol=1e-9)
+    assert (to_np(acc)[18:] == 0.0).all()
+
+
+@pytest.mark.parametrize("W", [4, 5, 12])
+@pytest.mark.parametrize("n_iter", [1, 3])
+def test_emulated_chunk_dxdy_form_matches_plain(W, n_iter, tmp_path,
+                                                monkeypatch):
+    """``n_iter=1``: the deltas are against the INPUT state."""
+    monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
+    tscaled, ts, tsettings, rho_vec, done, packs, args = _port_case(W, W)
+    plain_state, plain_dxdy = tfused.fused_admm_chunk_plain(
+        tscaled, rho_vec, done, tsettings, emit_dxdy=True, n_iter=n_iter,
+        **args)
+    state = args["state_pack"].clone()
+    dxdy = torch.full_like(plain_dxdy, float("nan"))
+    tfused._launch_chunk(
+        host_lib("admm_chunk", tscaled), args["packed_factor"][0],
+        args["coef"], tscaled._interleave(tscaled.q_vec).contiguous(),
+        args["lu"], rho_vec.reshape(W, -1, B).contiguous(),
+        tfactor.build_p_vel_packs(tscaled)[1], None, None, None,
+        done.to(torch.float64), state,
+        torch.empty((W, 2 * tscaled.n_dim, B), dtype=torch.float64), None,
+        n_iter, tsettings.sigma, tsettings.alpha, dxdy=dxdy)
+    assert_close(state, plain_state, rtol=1e-9, atol=1e-9)
+    assert_close(dxdy, plain_dxdy, rtol=1e-9, atol=1e-9)
+    assert (to_np(dxdy)[..., [1, 6]] == 0.0).all()  # frozen: exact zeros

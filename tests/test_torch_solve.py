@@ -123,8 +123,29 @@ def test_no_scaling():
     _compare(20, dict(BENCH, scaling=0, max_iter=60))
 
 
+@pytest.mark.parametrize("stall_checks", [12, 0])
+@pytest.mark.parametrize("W,extra,optimal", [
+    (20, {}, True),  # converges
+    (16, dict(max_iter=120), False),  # gives up: stall window or max_iter
+])
+def test_unfused_termination_matches_fused_and_reference(W, extra, optimal,
+                                                         stall_checks):
+    """``term_fused="off"`` (the chunk's delta-writing form + the separate
+    residual pass) decides from the same quantities as the fused
+    accumulators: statuses and iteration counts equal to ``"auto"`` and to
+    the JAX package, solutions within 1e-9 of the fused run."""
+    overrides = dict(BENCH, stall_checks=stall_checks, **extra)
+    fused = _compare(W, overrides)
+    unfused = _compare(W, overrides, port_overrides=dict(term_fused="off"))
+    np.testing.assert_array_equal(to_np(unfused.status), to_np(fused.status))
+    np.testing.assert_array_equal(to_np(unfused.iterations),
+                                  to_np(fused.iterations))
+    assert_close(unfused.x, fused.x, rtol=1e-9, atol=1e-9)
+    assert (to_np(unfused.status) == ExitCode.kOptimal).all() == optimal
+
+
 @pytest.mark.parametrize("override", [
-    dict(kkt_method="cg"), dict(term_fused="off"), dict(factor_form="gain"),
+    dict(kkt_method="cg"), dict(factor_form="gain"),
     dict(anderson=3), dict(polish=True), dict(kkt_refine=1),
     dict(factor_round="f16"), dict(factor_warmup_stream="bf16"),
 ])
@@ -144,6 +165,10 @@ def test_bad_settings_and_arguments_raise():
     with pytest.raises(ValueError):
         tdrv.solve_batched_lane(
             tqp, dataclasses.replace(tadmm.Settings(), fused_chunk="maybe"),
+            device="cpu")
+    with pytest.raises(ValueError):
+        tdrv.solve_batched_lane(
+            tqp, dataclasses.replace(tadmm.Settings(), term_fused="maybe"),
             device="cpu")
     with pytest.raises(TypeError):
         tdrv.solve_batched_lane({"not": "a lane qp"}, device="cpu")
