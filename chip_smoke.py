@@ -5,12 +5,15 @@ Run it from the repository root on a machine with one NVIDIA Hopper GPU:
 
     python3 chip_smoke.py
 
-It builds the hand-written kernels from ``osqp_solver_tpu_torch/csrc`` (four
-sources, three layout signatures, all compilers started together), holds
-each kernel — the chunk kernel in its accumulator, warm-up and delta-writing
-forms — against its plain PyTorch version on the card at the main path's
-shape (honest GOMP class, W=100, N=6, B=1024, float32), times both, then
-drives the port's entry points:
+It builds the hand-written kernels from ``osqp_solver_tpu_torch/csrc`` (five
+sources; three layout signatures of the lane kernels and the block size of
+the tridiagonal one; all compilers started together), holds each kernel —
+the chunk kernel in its accumulator, warm-up and delta-writing forms, each
+in the ``hrec`` and the ``gain`` factor form, the factor kernel with and
+without its gain write, the block-tridiagonal factor and solve — against its
+plain PyTorch version on the card at the main path's shape (honest GOMP
+class, W=100, N=6, B=1024, float32), times both, then drives the port's
+entry points:
 
 * ``solve_batched_lane`` on a 1024-problem honest batch (``solve``), the same
   with ``term_fused="off"`` (``solve_unfused_term``: delta-writing chunk +
@@ -21,7 +24,13 @@ drives the port's entry points:
   give equal results; every plan audited by exact FK in float64 on the host);
 * ``run_batch_padded`` and ``run_batch_lane`` on a fleet with per-query
   sphere keep-outs (``planner_obstacles``; every optimal plan audited
-  against its own sphere).
+  against its own sphere);
+* ``setup_lane`` → ``mpc_scan_lane`` on the fleet of
+  ``benchmarks/mpc_fleet.py`` (1024 controllers x 50 ticks, honest class)
+  in the default ``hrec`` form (``mpc_fleet``), with ``factor_form="gain"``
+  (``mpc_fleet_gain``) and on the unfused path with its tridiagonal kernels,
+  reached by ``fused_chunk="off"`` and by the ``"type"`` row layout
+  (``mpc_fleet_unfused``), with guarded bound updates.
 
 It checks statuses, ADMM iteration counts, OSQP's residual criterion
 recomputed in float64 on the host, and that every kernel was really launched
@@ -36,6 +45,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import functools
 import json
 import math
 import statistics
@@ -48,6 +58,12 @@ import torch
 
 from osqp_solver_tpu_torch import GOMPSolver, SphereObstacle, _build
 from osqp_solver_tpu_torch import constraints, stack_obstacles
+from osqp_solver_tpu_torch import (
+    mpc_scan_lane,
+    setup_lane,
+    solve_lane,
+    update_bounds_lane,
+)
 from osqp_solver_tpu_torch.gomp import planner
 from osqp_solver_tpu_torch.gomp.geometry import ERROR
 from osqp_solver_tpu_torch.gomp.honest_batch import (
@@ -57,7 +73,8 @@ from osqp_solver_tpu_torch.gomp.honest_batch import (
 from osqp_solver_tpu_torch.gomp.trajectory_qp_lane import _ARRAY_FIELDS
 from osqp_solver_tpu_torch.models import ur5e
 from osqp_solver_tpu_torch.ops import admm_fused, admm_lane, kkt_factor
-from osqp_solver_tpu_torch.ops import residuals, ruiz_kernel
+from osqp_solver_tpu_torch.ops import session_lane
+from osqp_solver_tpu_torch.ops import residuals, ruiz_kernel, tridiag_kernel
 from osqp_solver_tpu_torch.ops.admm import Settings, _rho_vec
 from osqp_solver_tpu_torch.ops.residuals import _ACC
 from osqp_solver_tpu_torch.ops.status import ExitCode
@@ -68,13 +85,23 @@ F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 BENCH = dict(rho=0.04, check_termination=2, adaptive_rho_interval=45,
              scaling=3, alpha=1.6, factor_form="hrec", termination_warmup=21)
 TOL_RUIZ, TOL_FACTOR, TOL_CHUNK = 1e-5, 1e-4, 1e-3
+# Block-tridiagonal factor and solve (f32 kernel) against the plain version
+# run in f64 on the same f32 inputs, as max abs error over max |f64|: f32
+# reassociation along a 100-step recurrence of 12x12 Cholesky steps.
+TOL_TRIDIAG = 1e-4
 TOL_RESID_MAX, TOL_RESID_SUM = 1e-4, 1e-3
 RESID_SUMS = ("support", "q_dot", "xsum", "ysum")
 PLANNER = dict(rho=0.04, check_termination=3, scaling=3)
 LANE_KERNELS = ("ruiz", "kkt_factor", "admm_chunk")
 UNFUSED_KERNELS = LANE_KERNELS + ("admm_chunk_dxdy", "residuals")
+GAIN_KERNELS = LANE_KERNELS + ("kkt_factor_gain", "admm_chunk_gain")
+TRIDIAG_KERNELS = ("tridiag_factor", "tridiag_solve")
+# benchmarks/mpc_fleet.py: 1024 controllers x 50 ticks, honest W=100 class.
+FLEET = dict(rho=0.05, check_termination=5, adaptive_rho_interval=51)
+FLEET_TICKS = 50
 PHASES = ("build,kernels,solve,solve_unfused_term,solve_stock,box,"
-          "planner_full,planner_obstacles")
+          "planner_full,planner_obstacles,mpc_fleet,mpc_fleet_gain,"
+          "mpc_fleet_unfused")
 RECORDS = {}
 
 
@@ -132,6 +159,12 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def tril_bytes(blocks):
+    """Bytes of the lower triangles of a (W, B2, B2, B) array of blocks."""
+    W, B2, _, B = blocks.shape
+    return W * (B2 * (B2 + 1) // 2) * B * blocks.element_size()
+
+
 # ----------------------------------------------------------- operation counts
 # Counted from the kernels' loops for this run's shapes; a multiply, add,
 # max/min, compare, divide or square root each count as one operation.
@@ -176,6 +209,18 @@ def ops_residuals(W, N, NX, B):
     a_rows = 5 * N + N + N + 3 * N + 2 * N * NX
     at = 2 * N * (5 + 2 * NX) + 8 * N
     return W * B * (2 * a_rows + 30 * Rp + at + 10 * N + 16 * B2)
+
+
+def ops_tridiag_factor(W, B2, B):
+    gain = B2 * sum(2 * j + 1 for j in range(B2))
+    schur = (B2 * (B2 + 1) // 2) * 2 * B2
+    chol = sum(2 * j + 1 + (B2 - j - 1) * (2 * j + 1) for j in range(B2))
+    return W * B * (gain + schur + chol)
+
+
+def ops_tridiag_solve(W, B2, B):
+    sweep = 2 * B2 * B2 + sum(2 * i + 1 for i in range(B2))
+    return 2 * W * B * sweep
 
 
 def bound(bytes_moved, ops):
@@ -423,6 +468,15 @@ def phase_kernels():
         lu, NX))
     out.append(check_residuals(scaled, scaling, settings, rho_vec, done,
                                state0, args, packs, lu, NX))
+    row, gk = check_factor_gain(scaled, scaled64, rho_vec, settings, coef, ck,
+                                NX)
+    out.append(row)
+    out.append(check_chunk_gain(
+        scaled, scaled64, settings, rho_vec, done, state0, args, ck, gk,
+        term_packs, q_int, lu, NX))
+    out.extend(check_tridiag(scaled, rho_vec, settings))
+    for row in out:
+        row["ptxas"] = ptxas_of(row["name"], sig)
     emit("kernels", kernels=out)
     bad = [k["name"] for k in out if not k["ok"]]
     if bad:
@@ -584,6 +638,274 @@ def check_residuals(scaled, scaling, settings, rho_vec, done, state0, args,
         shape=f"W={W} N={N} B={B}")
 
 
+# Where each kernel row's registers and spills are read: (source, entry
+# function name as ptxas prints it, demangled prefix).
+PTXAS = {
+    "ruiz": ("ruiz", "ruiz_"),
+    "kkt_factor": ("kkt_factor", "kkt_factor_kernel"),
+    "kkt_factor_gain": ("kkt_factor", "kkt_factor_kernel"),
+    "admm_chunk": ("admm_chunk", "admm_chunk_kernelILi1ELb0E"),
+    "admm_chunk_dxdy": ("admm_chunk", "admm_chunk_kernelILi2ELb0E"),
+    "admm_chunk_gain": ("admm_chunk", "admm_chunk_kernelILi"),
+    "residuals": ("residuals", "residuals"),
+    "tridiag_factor": ("tridiag", "tridiag_factor_kernel"),
+    "tridiag_solve": ("tridiag", "tridiag_solve_kernel"),
+}
+
+
+def ptxas_of(name, sig):
+    """Registers / stack / spills of a kernel row's entry functions, from
+    the saved ``-Xptxas -v`` output of its build (the gain row: the three
+    ``GAIN = true`` instantiations)."""
+    source, prefix = PTXAS[name]
+    if source == "tridiag":
+        sig = {"B2": 2 * N}
+    _, path = _build._target(source, sig, False)
+    rep = _build.ptxas_report(path)
+    gain_only = name == "admm_chunk_gain"
+    return {k[:40]: v for k, v in rep.items()
+            if k.startswith(prefix) and (not gain_only or "Lb1E" in k[:40])}
+
+
+def check_factor_gain(scaled, scaled64, rho_vec, settings, coef, ck, NX):
+    """The factor kernel's gain write (``emit_gain=True``): packed chol and
+    packed G_t against the plain version run in f64 on the same f32 inputs.
+    Returns the row and the kernel's gain pack."""
+    B = rho_vec.shape[-1]
+    sigma = settings.sigma
+    cg, gk = kkt_factor.factor_packed_lane(scaled, rho_vec, sigma, coef=coef,
+                                           emit_gain=True)
+    c64, g64 = kkt_factor.factor_packed_lane_plain(
+        scaled64, rho_vec.double(), sigma, emit_gain=True)
+    cp, gp = kkt_factor.factor_packed_lane_plain(scaled, rho_vec, sigma,
+                                                 emit_gain=True)
+    torch.cuda.synchronize()
+    errs = {"chol": rel_err(cg.double(), c64), "gain": rel_err(gk.double(), g64)}
+    plain_vs_f64 = {"chol": rel_err(cp.double(), c64)[1],
+                    "gain": rel_err(gp.double(), g64)[1]}
+    chol_as_hrec = bool(torch.equal(cg, ck))
+    last_row_zero = bool((gk[-1] == 0).all())
+    k_ms = time_ms(lambda: kkt_factor.factor_packed_lane(
+        scaled, rho_vec, sigma, coef=coef, emit_gain=True))
+    p_ms = time_ms(lambda: kkt_factor.factor_packed_lane_plain(
+        scaled, rho_vec, sigma, emit_gain=True), reps=5, warm=1)
+    Pd, Pl = kkt_factor.build_p_vel_packs(scaled)
+    b_ms, b_by = bound(nbytes(coef, rho_vec, Pd, Pl, cg, gk),
+                       ops_factor(W, N, NX, B))
+    worst = max(e[1] for e in errs.values())
+    row = dict(
+        name="kkt_factor_gain", max_abs_err=max(e[0] for e in errs.values()),
+        max_rel_err=worst, rel_err={k: e[1] for k, e in errs.items()},
+        plain_f32_vs_f64=plain_vs_f64, chol_equals_hrec_form=chol_as_hrec,
+        last_gain_row_zero=last_row_zero, tol=TOL_FACTOR,
+        tol_note="packed chol and packed gain, each as max abs error over max "
+                 "|f64| against the plain version run in f64 on the same f32 "
+                 "inputs (f32 reassociation over a 100-step recurrence); the "
+                 "plain f32 version's own distance is recorded beside it",
+        ok=bool(worst <= TOL_FACTOR and chol_as_hrec and last_row_zero),
+        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, shape=f"W={W} N={N} B={B} emit_gain")
+    return row, gk
+
+
+def check_chunk_gain(scaled, scaled64, settings, rho_vec, done, state0, args,
+                     ck, gk, term_packs, q_int, lu, NX):
+    """The chunk kernel's gain form in its three modes (accumulators at
+    n_iter=2, the warm-up form at n_iter=21, deltas at n_iter=2), each
+    against the plain version run in f64 on the same f32 inputs."""
+    B = state0.shape[-1]
+    B2, Rp = 2 * N, scaled.rows_per_waypoint_padded
+    gargs = dict(args, packed_factor=(ck, gk))
+    f64_args = dict(packed_factor=(ck.double(), gk.double()))
+    rho64 = rho_vec.double()
+    tp64 = tuple(t.double() for t in term_packs)
+    sect = {"x": slice(0, B2), "z": slice(B2, B2 + Rp),
+            "y": slice(B2 + Rp, B2 + 2 * Rp)}
+    modes = {
+        "term": (dict(n_iter=2, term_packs=term_packs),
+                 dict(n_iter=2, term_packs=tp64)),
+        "plain": (dict(n_iter=settings.termination_warmup),
+                  dict(n_iter=settings.termination_warmup)),
+        "dxdy": (dict(n_iter=2, emit_dxdy=True), dict(n_iter=2, emit_dxdy=True)),
+    }
+    vs64, frozen, vs_hrec = {}, True, {}
+    for mode, (kw, kw64) in modes.items():
+        sk, ek = admm_fused.fused_admm_chunk(
+            scaled, rho_vec, done, settings, state_pack=state0.clone(),
+            **gargs, **kw)
+        sh, _ = admm_fused.fused_admm_chunk(
+            scaled, rho_vec, done, settings, state_pack=state0.clone(),
+            **args, **kw)
+        s64, e64 = admm_fused.fused_admm_chunk_plain(
+            scaled64, rho64, done, settings, state_pack=state0.double(),
+            **f64_args, **kw64)
+        torch.cuda.synchronize()
+        scale = {k: s64[:, sl].abs().max().item() for k, sl in sect.items()}
+        for k, sl in sect.items():
+            vs64[f"{mode}.{k}"] = rel_err(sk[:, sl].double(), s64[:, sl])
+            vs_hrec[f"{mode}.{k}"] = rel_err(sk[:, sl], sh[:, sl])[1]
+        if mode == "term":
+            scales = {"xsum": s64[:, sect["x"]].abs().sum((0, 1)).max().item(),
+                      "ysum": s64[:, sect["y"]].abs().sum((0, 1)).max().item()}
+            for name, row in _ACC.items():
+                vs64[f"term.acc.{name}"] = rel_err(
+                    ek[row].double(), e64[row], scales.get(name))
+        if mode == "dxdy":
+            for k, (sl, of) in {"dx": (slice(0, B2), "x"),
+                                "dy": (slice(B2, B2 + Rp), "y")}.items():
+                vs64[f"dxdy.{k}"] = rel_err(ek[:, sl].double(), e64[:, sl],
+                                            scale[of])
+            frozen = frozen and bool((ek[..., done] == 0).all())
+        frozen = frozen and torch.equal(sk[..., done], state0[..., done])
+    scratch = state0.clone()
+
+    def launch(**kw):
+        return lambda: admm_fused.fused_admm_chunk(
+            scaled, rho_vec, done, settings, state_pack=scratch, **gargs, **kw)
+
+    k_ms = time_ms(launch(n_iter=2, term_packs=term_packs))
+    warm_ms = time_ms(launch(n_iter=settings.termination_warmup), reps=5,
+                      warm=1)
+    dxdy_ms = time_ms(launch(n_iter=2, emit_dxdy=True))
+    hrec_ms = time_ms(lambda: admm_fused.fused_admm_chunk(
+        scaled, rho_vec, done, settings, state_pack=scratch,
+        term_packs=term_packs, n_iter=2, **args))
+    p_ms = time_ms(lambda: admm_fused.fused_admm_chunk_plain(
+        scaled, rho_vec, done, settings, state_pack=state0,
+        term_packs=term_packs, n_iter=2, **gargs), reps=5, warm=1)
+    inputs = nbytes(ck, gk, args["coef"], q_int, lu, rho_vec, *term_packs,
+                    done, state0)
+    b_ms, b_by = bound(inputs + nbytes(state0) + 24 * B * 4,
+                       ops_chunk(W, N, NX, B, 2, True))
+    worst = max(v[1] for v in vs64.values())
+    return dict(
+        name="admm_chunk_gain", max_abs_err=max(v[0] for v in vs64.values()),
+        max_rel_err=worst, kernel_vs_f64={k: v[1] for k, v in vs64.items()},
+        gain_vs_hrec_kernel=vs_hrec, frozen_problems_untouched=frozen,
+        tol=TOL_CHUNK,
+        tol_note="each mode's state sections (x, z, y), accumulator rows "
+                 "(xsum/ysum over the sum of magnitudes) and deltas (over the "
+                 "state section's scale) against the plain version run in "
+                 "f64 on the same f32 inputs and gain pack, as max abs error "
+                 "over max |f64|; an f32 KKT solve carries about "
+                 "cond(K) * 2^-24, as in the hrec rows",
+        ok=bool(worst <= TOL_CHUNK and frozen),
+        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, warmup_form_ms=warm_ms, dxdy_form_ms=dxdy_ms,
+        hrec_form_ms_same_call=hrec_ms,
+        shape=f"W={W} N={N} B={B} gain; ms: n_iter=2 emit_term (warm-up "
+              f"form n_iter={settings.termination_warmup}, dxdy n_iter=2)")
+
+
+def dense_kkt(diag, lower):
+    """The dense ``(B, W*B2, W*B2)`` matrix of a block-tridiagonal batch
+    (for the library yardstick only)."""
+    Wd, B2, _, B = diag.shape
+    M = torch.zeros((B, Wd * B2, Wd * B2), dtype=diag.dtype,
+                    device=diag.device)
+    for t in range(Wd):
+        s = slice(t * B2, (t + 1) * B2)
+        M[:, s, s] = diag[t].permute(2, 0, 1)
+        if t + 1 < Wd:
+            n = slice((t + 1) * B2, (t + 2) * B2)
+            low = lower[t].permute(2, 0, 1)
+            M[:, n, s] = low
+            M[:, s, n] = low.transpose(1, 2)
+    return M
+
+
+def check_tridiag(scaled, rho_vec, settings):
+    """The block-tridiagonal factor and solve kernels on the honest class's
+    KKT blocks (the unfused path's factor), each against the plain version
+    run in f64 on the same f32 inputs; the library yardstick is the dense
+    Cholesky of the same matrices and the dense solve on it."""
+    diag, lower = (t.contiguous() for t in scaled.kkt_blocks(
+        rho_vec, settings.sigma))
+    Wd, B2, _, B = diag.shape
+    ck, gk = tridiag_kernel.factor_lane_major(diag, lower)
+    c64, g64 = tridiag_kernel.factor_lane_major_plain(diag.double(),
+                                                      lower.double())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rhs = torch.randn((Wd, B2, B), generator=gen, device="cuda")
+    xk = tridiag_kernel.solve_lane_major(ck, gk, rhs)
+    x64 = tridiag_kernel.solve_lane_major_plain(ck.double(), gk.double(),
+                                                rhs.double())
+    # Tail mask, and a planted block that is not positive definite.
+    odd = 200
+    oc, og = tridiag_kernel.factor_lane_major(
+        diag[..., :odd].contiguous(), lower[..., :odd].contiguous())
+    odd_err = max(rel_err(oc.double(), c64[..., :odd])[1],
+                  rel_err(og.double(), g64[..., :odd])[1])
+    bad = diag.clone()
+    bad[Wd // 2, :, :, 7] = -torch.eye(B2, device="cuda")
+    bc, _ = tridiag_kernel.factor_lane_major(bad, lower)
+    low = torch.ones(B2, B2, dtype=torch.bool, device="cuda").tril()
+    planted = bc[..., 7][:, low]  # (W, B2(B2+1)/2) of the bad problem
+    others = torch.cat([bc[..., :7], bc[..., 8:]], dim=-1)
+    nan_only_there = bool(torch.isnan(planted[Wd // 2:]).all()
+                          and torch.isfinite(planted[:Wd // 2]).all()
+                          and torch.isfinite(others).all())
+    torch.cuda.synchronize()
+    iu = torch.triu_indices(B2, B2, offset=1, device="cuda")
+    upper_zero = bool((ck[:, iu[0], iu[1]] == 0).all())
+    f_errs = {"chol": rel_err(ck.double(), c64), "gain": rel_err(gk.double(), g64)}
+    s_err = rel_err(xk.double(), x64)
+    pc, pg = tridiag_kernel.factor_lane_major_plain(diag, lower)
+    plain_vs_f64 = {"chol": rel_err(pc.double(), c64)[1],
+                    "gain": rel_err(pg.double(), g64)[1],
+                    "x": rel_err(tridiag_kernel.solve_lane_major_plain(
+                        ck, gk, rhs).double(), x64)[1]}
+    f_ms = time_ms(lambda: tridiag_kernel.factor_lane_major(diag, lower))
+    s_ms = time_ms(lambda: tridiag_kernel.solve_lane_major(ck, gk, rhs))
+    fp_ms = time_ms(lambda: tridiag_kernel.factor_lane_major_plain(
+        diag, lower), reps=5, warm=1)
+    sp_ms = time_ms(lambda: tridiag_kernel.solve_lane_major_plain(
+        ck, gk, rhs), reps=5, warm=1)
+    # Library yardstick: dense Cholesky and solve of the same matrices.
+    M = dense_kkt(diag, lower)
+    lib_f_ms = time_ms(lambda: torch.linalg.cholesky(M), reps=3, warm=1)
+    L = torch.linalg.cholesky(M)
+    rhs_d = rhs.permute(2, 0, 1).reshape(B, Wd * B2, 1)
+    lib_s_ms = time_ms(lambda: torch.cholesky_solve(rhs_d, L), reps=5, warm=1)
+    x_lib = torch.cholesky_solve(rhs_d, L).reshape(B, Wd, B2).permute(1, 2, 0)
+    lib_vs_f64 = rel_err(x_lib.double(), x64)[1]
+    del M, L
+    torch.cuda.empty_cache()
+    # The kernels read only the lower triangle of diag (factor) and of chol
+    # (solve); chol is written whole, its zero upper triangle included.
+    fb_ms, fb_by = bound(tril_bytes(diag) + nbytes(lower, ck, gk),
+                         ops_tridiag_factor(Wd, B2, B))
+    sb_ms, sb_by = bound(tril_bytes(ck) + nbytes(gk, rhs, xk),
+                         ops_tridiag_solve(Wd, B2, B))
+    f_worst = max(e[1] for e in f_errs.values())
+    note = ("max abs error over max |f64| against the plain version run in "
+            "f64 on the same f32 inputs (f32 reassociation along a 100-step "
+            "recurrence of 12x12 steps); the plain f32 version's own "
+            "distance is recorded beside it")
+    shape = f"W={Wd} B2={B2} B={B}"
+    return [
+        dict(name="tridiag_factor", max_abs_err=max(e[0] for e in f_errs.values()),
+             max_rel_err=f_worst, rel_err={k: e[1] for k, e in f_errs.items()},
+             plain_f32_vs_f64=plain_vs_f64, odd_batch_rel_err=odd_err,
+             upper_triangle_zero=upper_zero, non_spd_gives_nan_there=nan_only_there,
+             tol=TOL_TRIDIAG, tol_note=note,
+             ok=bool(f_worst <= TOL_TRIDIAG and odd_err <= TOL_TRIDIAG
+                     and upper_zero and nan_only_there),
+             ms=f_ms, plain_ms=fp_ms, bound_ms=fb_ms, bound_by=fb_by,
+             library_ms=lib_f_ms,
+             library_note="torch.linalg.cholesky of the dense (B, W*B2, W*B2) "
+                          "f32 matrices (same factor: block-bidiagonal)",
+             shape=shape),
+        dict(name="tridiag_solve", max_abs_err=s_err[0], max_rel_err=s_err[1],
+             library_vs_f64=lib_vs_f64, tol=TOL_TRIDIAG, tol_note=note,
+             ok=bool(s_err[1] <= TOL_TRIDIAG),
+             ms=s_ms, plain_ms=sp_ms, bound_ms=sb_ms, bound_by=sb_by,
+             library_ms=lib_s_ms,
+             library_note="torch.cholesky_solve on the dense factor",
+             shape=shape),
+    ]
+
+
 def cast(qp, dtype):
     return qp.replace(**{k: getattr(qp, k).to(dtype) for k in _ARRAY_FIELDS})
 
@@ -612,18 +934,26 @@ def host_residual_check(qp, res, idx, settings):
 def reset_counts():
     ruiz_kernel.ruiz_equilibrate_lane_kernel.launches = 0
     kkt_factor.factor_packed_lane.launches = 0
+    kkt_factor.factor_packed_lane.launches_gain = 0
     admm_fused.fused_admm_chunk.launches = 0
     admm_fused.fused_admm_chunk.launches_dxdy = 0
+    admm_fused.fused_admm_chunk.launches_gain = 0
     residuals.termination_quantities_kernel.launches = 0
+    tridiag_kernel.factor_lane_major.launches = 0
+    tridiag_kernel.solve_lane_major.launches = 0
 
 
 def read_counts():
     return {
         "ruiz": ruiz_kernel.ruiz_equilibrate_lane_kernel.launches,
         "kkt_factor": kkt_factor.factor_packed_lane.launches,
+        "kkt_factor_gain": kkt_factor.factor_packed_lane.launches_gain,
         "admm_chunk": admm_fused.fused_admm_chunk.launches,
         "admm_chunk_dxdy": admm_fused.fused_admm_chunk.launches_dxdy,
+        "admm_chunk_gain": admm_fused.fused_admm_chunk.launches_gain,
         "residuals": residuals.termination_quantities_kernel.launches,
+        "tridiag_factor": tridiag_kernel.factor_lane_major.launches,
+        "tridiag_solve": tridiag_kernel.solve_lane_major.launches,
     }
 
 
@@ -787,6 +1117,7 @@ class CallTimer:
         self.saved = []
 
     def wrap(self, key, fn):
+        @functools.wraps(fn)  # keeps the kernel wrappers' launch counters
         def timed(*a, **kw):
             t0 = torch.cuda.Event(enable_timing=True)
             t1 = torch.cuda.Event(enable_timing=True)
@@ -982,6 +1313,218 @@ def phase_planner_obstacles():
         fail("planner_obstacles: trajectories not finite")
 
 
+# ---------------------------------------------------------------- fleet MPC
+
+
+def fleet_deltas(ticks):
+    """Per-tick goal shifts of ``benchmarks/mpc_fleet.py``:
+    ``2e-4 sin(0.3 t + j)`` for joint j, the same for every controller."""
+    t = torch.arange(ticks, dtype=torch.float32, device="cuda")[:, None, None]
+    j = torch.arange(N, dtype=torch.float32, device="cuda")[None, :, None]
+    return 2e-4 * torch.sin(0.3 * t + j)
+
+
+def shift_at(index):
+    """The benchmark's per-tick update: shift waypoint ``index``'s position
+    bounds (values only)."""
+    def shift(base, d):
+        pos_l, pos_u = base.pos_l.clone(), base.pos_u.clone()
+        pos_l[index] += d
+        pos_u[index] += d
+        return base.replace(pos_l=pos_l, pos_u=pos_u)
+    return shift
+
+
+def fleet_breakdown(sess, deltas, shift, settings, fused):
+    """One instrumented scan: where a tick's time goes, by CUDA events
+    around the calls of the solve loop (chunk kernel, or the unfused
+    iteration with its tridiagonal solve inside and the termination pass;
+    the termination decision; the per-solve ``l``/``u`` pack; the tick's
+    bounds update).  ``other`` is the whole scan less the outer calls."""
+    timer = CallTimer()
+    loop = ({"chunk_kernel": (admm_fused, "fused_admm_chunk")} if fused else
+            {"unfused_iteration": (admm_lane, "_iteration"),
+             "unfused_termination": (admm_lane, "_termination_quantities")})
+    outer = {**loop,
+             "decide": (admm_lane, "_termination_decide"),
+             "lu_pack": (admm_fused, "build_lu_pack"),
+             "bounds_update": (session_lane, "update_bounds_lane_apply")}
+    for key, (mod, name) in outer.items():
+        timer.patch(mod, name, key)
+    timer.patch(tridiag_kernel, "solve_lane_major", "tridiag_solve (inside "
+                "unfused_iteration)")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mpc_scan_lane(sess, deltas, shift, settings)
+        totals = timer.totals()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        timer.restore()
+    totals["whole_scan_ms"] = wall
+    totals["other_ms"] = wall - sum(totals[k]["ms"] for k in outer
+                                    if k in totals)
+    return totals
+
+
+# The benchmark shifts the LAST waypoint's position rows; with_gomp_boxes
+# puts the goal equality at waypoint W-3 and leaves the last two loose.
+GOAL = W - 3
+
+
+def fleet_phase(name, qp, settings, need, ref=None):
+    """``setup_lane`` → ``mpc_scan_lane`` over the benchmark's ticks, launch
+    and sync counts held to the path's, the scan timed (median of 3 from the
+    same session), then guarded bound updates and a short scan that moves
+    the real goal."""
+    B, T, ct = qp.batch, FLEET_TICKS, settings.check_termination
+    fused = admm_lane._use_fused(qp, settings)
+    factor_key = "kkt_factor" if fused else "tridiag_factor"
+    deltas, shift = fleet_deltas(T), shift_at(-1)
+    reset_counts()
+    syncs0, refac0 = admm_lane.HOST_SYNCS, admm_lane.RHO_REFACTORS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess = setup_lane(qp, settings)  # the main path: setup ...
+    torch.cuda.synchronize()
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    at_setup = read_counts()
+    end, (status, iters) = mpc_scan_lane(sess, deltas, shift, settings)  # ... scan
+    torch.cuda.synchronize()
+    counts = read_counts()
+    syncs = admm_lane.HOST_SYNCS - syncs0
+    refactors = admm_lane.RHO_REFACTORS - refac0
+    st, it = status.cpu(), iters.cpu()
+    n_opt = int((st == int(ExitCode.kOptimal)).sum())
+    chunks = sum(-(-int(m) // ct) for m in it.max(dim=1).values)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mpc_scan_lane(sess, deltas, shift, settings)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    scan_s = statistics.median(times)
+    where = fleet_breakdown(sess, deltas, shift, settings, fused)
+    # What comes out: one more warm solve, checked in f64 on the host.
+    _, res = solve_lane(end, settings)
+    idx = torch.linspace(0, B - 1, 16).long()
+    prim_ratio, dual_ratio, box = host_residual_check(end.base, res, idx,
+                                                      settings)
+    # Guarded updates: classification-stable (no refactor), then problem 0's
+    # goal equality turned into a box (exactly one batch refactor).
+    reset_counts()
+    s1 = admm_lane.HOST_SYNCS
+    stable = update_bounds_lane(end, True, settings,
+                                pos_l=end.base.pos_l + 1e-4,
+                                pos_u=end.base.pos_u + 1e-4)
+    stable_launches = read_counts()[factor_key]
+    pos_u = end.base.pos_u.clone()
+    pos_u[GOAL, :, 0] += 50.0
+    flipped = update_bounds_lane(end, True, settings, pos_u=pos_u)
+    flip_launches = read_counts()[factor_key] - stable_launches
+    guard_syncs = admm_lane.HOST_SYNCS - s1
+    _, res_flip = solve_lane(flipped, settings)
+    flip_optimal = int((res_flip.status == int(ExitCode.kOptimal)).sum())
+    # The same fleet with the goal equality itself moving (10 ticks).
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, (gst, git) = mpc_scan_lane(sess, fleet_deltas(10), shift_at(GOAL),
+                                  settings)
+    torch.cuda.synchronize()
+    goal_ms = (time.perf_counter() - t0) * 1e3 / 10
+    gst, git = gst.cpu(), git.cpu()
+    rec = dict(
+        batch=B, ticks=T, row_layout=qp.row_layout, fused=fused,
+        factor_form=settings.factor_form, optimal=n_opt, total=B * T,
+        tick0_iterations_p50=int(it[0].median()),
+        tick0_iterations_max=int(it[0].max()),
+        warm_iterations_p50=int(it[1:].median()),
+        warm_iterations_max=int(it[1:].max()),
+        warm_iterations_hist={str(k): v for k, v in sorted(
+            collections.Counter(it[1:].flatten().tolist()).items())},
+        ms_per_tick=scan_s / T * 1e3, resolves_per_s=B * T / scan_s,
+        where_ms=where,
+        scan_ms_all=[t * 1e3 for t in times], setup_ms=setup_ms,
+        host_syncs=syncs, chunks=chunks, rho_refactors=refactors,
+        launches_at_setup=at_setup, launches=counts,
+        shifted_rows_loose=bool((qp.pos_l[-1] <= -1e25).all()
+                                and (qp.pos_u[-1] >= 1e25).all()),
+        f64_prim_res_over_eps=prim_ratio, f64_dual_res_over_eps=dual_ratio,
+        f64_max_box_violation=box,
+        guard=dict(stable_factor_launches=stable_launches,
+                   stable_factor_kept=stable.factor is end.factor,
+                   flip_factor_launches=flip_launches, host_syncs=guard_syncs,
+                   flip_then_optimal=flip_optimal),
+        goal_moving=dict(ticks=10, optimal=int((gst == 0).sum()),
+                         warm_iterations_p50=int(git[1:].median()),
+                         warm_iterations_max=int(git[1:].max()),
+                         ms_per_tick=goal_ms))
+    if ref is not None:
+        rec.update(differ_status=int((st != ref[0]).sum()),
+                   differ_iterations=int((it != ref[1]).sum()),
+                   more_iterations=int((it > ref[1]).sum()),
+                   fewer_iterations=int((it < ref[1]).sum()),
+                   differ_iterations_at_tick0=int((it[0] != ref[1][0]).sum()))
+    emit(name, **rec)
+    if n_opt != B * T:
+        fail(f"{name}: {n_opt}/{B * T} optimal")
+    if prim_ratio > 1.02 or dual_ratio > 1.02 or box > 1e-4:
+        fail(f"{name}: float64 recomputation violates OSQP's criterion "
+             f"(prim {prim_ratio:.3f}, dual {dual_ratio:.3f}, box {box:.2e})")
+    want_ruiz = 1 if qp.row_layout == "waypoint" else 0
+    if at_setup["ruiz"] != want_ruiz or counts["ruiz"] != want_ruiz:
+        fail(f"{name}: Ruiz kernel launches {counts['ruiz']}, want {want_ruiz}")
+    if at_setup[factor_key] != 1 or counts[factor_key] != 1 + refactors:
+        fail(f"{name}: {counts[factor_key]} factor launches for 1 setup + "
+             f"{refactors} rho adaptations (unguarded updates must not "
+             "refactor)")
+    if syncs != chunks:
+        fail(f"{name}: {syncs} host syncs for {chunks} chunks")
+    if fused and counts["admm_chunk"] != chunks:
+        fail(f"{name}: {counts['admm_chunk']} chunk launches for {chunks}")
+    if not fused and (counts["admm_chunk"] != 0
+                      or counts["tridiag_solve"] != chunks * ct):
+        fail(f"{name}: unfused path launched the chunk kernel "
+             f"{counts['admm_chunk']} times and the tridiagonal solve "
+             f"{counts['tridiag_solve']} times for {chunks * ct} iterations")
+    gain = fused and settings.factor_form == "gain"
+    if (counts["kkt_factor_gain"], counts["admm_chunk_gain"]) != (
+            (counts["kkt_factor"], counts["admm_chunk"]) if gain else (0, 0)):
+        fail(f"{name}: gain-form launches {counts} do not match the form")
+    g = rec["guard"]
+    if (g["stable_factor_launches"] != 0 or not g["stable_factor_kept"]
+            or g["flip_factor_launches"] != 1 or g["host_syncs"] != 2
+            or g["flip_then_optimal"] != B):
+        fail(f"{name}: guarded updates: {g}")
+    if min(counts[k] for k in need) < 1:
+        fail(f"{name}: a kernel of the path was never launched: {counts}")
+    rec["result"] = (st, it)
+    return rec
+
+
+def phase_fleet(want, launches):
+    honest = build_honest_batch(BATCH, W, N, torch.float32, "cuda")
+    base = dataclasses.replace(Settings(), **FLEET)
+    ref = None
+    if "mpc_fleet" in want:
+        ref = fleet_phase("mpc_fleet", honest, base, LANE_KERNELS)["result"]
+    if "mpc_fleet_gain" in want:
+        rec = fleet_phase("mpc_fleet_gain", honest,
+                          dataclasses.replace(base, factor_form="gain"),
+                          GAIN_KERNELS, ref)
+        launches.update({k: rec["launches"][k]
+                         for k in ("kkt_factor_gain", "admm_chunk_gain")})
+    if "mpc_fleet_unfused" in want:
+        rec = fleet_phase("mpc_fleet_unfused", honest,
+                          dataclasses.replace(base, fused_chunk="off"),
+                          ("ruiz",) + TRIDIAG_KERNELS, ref)
+        launches.update({k: rec["launches"][k] for k in TRIDIAG_KERNELS})
+        fleet_phase("mpc_fleet_unfused_type",
+                    honest.replace(row_layout="type"), base, TRIDIAG_KERNELS,
+                    ref)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="all",
@@ -1001,7 +1544,7 @@ def main():
     # obstacle), box-only, and the obstacle-free planner (gripper rows only).
     honest_sig = {"NDIM": N, "NX": 5}
     if "build" in want:
-        sigs = [honest_sig]
+        sigs = [honest_sig, {"B2": 2 * N}]
         if "box" in want:
             sigs.append({"NDIM": N, "NX": 0})
         if "planner_full" in want:
@@ -1033,6 +1576,8 @@ def main():
         phase_planner_full()
     if "planner_obstacles" in want:
         phase_planner_obstacles()
+    if want & {"mpc_fleet", "mpc_fleet_gain", "mpc_fleet_unfused"}:
+        phase_fleet(want, launches)
 
     csrc = "osqp_solver_tpu_torch/csrc/"
     ops = "osqp_solver_tpu/ops/"
@@ -1042,6 +1587,11 @@ def main():
         "admm_chunk": (csrc + "admm_chunk.cu", ops + "admm_fused.py:1130"),
         "admm_chunk_dxdy": (csrc + "admm_chunk.cu", ops + "admm_fused.py:1130"),
         "residuals": (csrc + "residuals.cu", ops + "residuals_pallas.py:470"),
+        "kkt_factor_gain": (csrc + "kkt_factor.cu",
+                            ops + "kkt_factor_pallas.py:312"),
+        "admm_chunk_gain": (csrc + "admm_chunk.cu", ops + "admm_fused.py:1130"),
+        "tridiag_factor": (csrc + "tridiag.cu", ops + "pallas_tridiag.py:426"),
+        "tridiag_solve": (csrc + "tridiag.cu", ops + "pallas_tridiag.py:243"),
     }
     table = []
     for k in kernels:
@@ -1058,7 +1608,7 @@ def main():
         with open(opts.out, "w") as f:
             json.dump(RECORDS, f, indent=1)
     if full and any(t["launches"] < 1 for t in table):
-        fail("a kernel of the main path was launched no time in its solve")
+        fail("a kernel of the main path was launched no time on its path")
     print(json.dumps({"seconds_total": RECORDS["seconds_total"]}), flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(RECORDS["device"]["nvidia_smi"], flush=True)

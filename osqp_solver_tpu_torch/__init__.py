@@ -19,11 +19,19 @@ from .gomp.planner import GOMPSolver, PlanResult
 from .models.robot import RobotBall
 from .ops.admm import Settings, SolveResult
 from .ops.admm_lane import solve_batched_lane
+from .ops.session_lane import (
+    LaneSession,
+    mpc_scan_lane,
+    setup_lane,
+    solve_lane,
+    update_bounds_lane,
+)
 from .ops.status import ExitCode
 
 __all__ = [
     "CapsuleObstacle", "ExitCode", "GOMPSolver", "HorizontalLine",
-    "PlanResult", "RobotBall", "Settings", "SolveResult", "SphereObstacle",
-    "constraints", "convert", "gomp", "models", "ops", "solve_batched_lane",
-    "stack_obstacles",
+    "LaneSession", "PlanResult", "RobotBall", "Settings", "SolveResult",
+    "SphereObstacle", "constraints", "convert", "gomp", "models",
+    "mpc_scan_lane", "ops", "setup_lane", "solve_batched_lane", "solve_lane",
+    "stack_obstacles", "update_bounds_lane",
 ]

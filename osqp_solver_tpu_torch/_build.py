@@ -34,7 +34,14 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("ruiz", "kkt_factor", "admm_chunk", "residuals")
+# Each source and the keys of its layout signature (its ``-D`` values).
+KERNELS = {
+    "ruiz": ("NDIM", "NX"),
+    "kkt_factor": ("NDIM", "NX"),
+    "admm_chunk": ("NDIM", "NX"),
+    "residuals": ("NDIM", "NX"),
+    "tridiag": ("B2",),
+}
 
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -117,12 +124,14 @@ def finish_build(handle) -> Path:
     return out
 
 
-def build_all(signatures, names=KERNELS):
-    """Build every kernel for every signature, all compilers started
+def build_all(signatures, names=tuple(KERNELS)):
+    """Build every kernel for every signature of its kind (the signature's
+    keys are the kernel's :data:`KERNELS` entry), all compilers started
     together.  Returns ``{(name, sig items): path}``."""
     handles = [
         (n, tuple(sorted(s.items())), start_build(n, s))
         for s in signatures for n in names
+        if set(s) == set(KERNELS[n])
     ]
     return {(n, s): finish_build(h) for n, s, h in handles}
 

@@ -1,5 +1,5 @@
-"""Hand numpy data to the port: problems, scalings, settings, obstacles and
-a planner's constructor arguments.
+"""Hand numpy data to the port: problems, scalings, settings, lane
+sessions, obstacles and a planner's constructor arguments.
 
 Lets a test (or any caller holding arrays from another framework) build the
 port's containers from exactly what the JAX package built, without either
@@ -14,9 +14,10 @@ import torch
 
 from .gomp import geometry
 from .gomp.constraints import Constraint
-from .gomp.trajectory_qp_lane import _ARRAY_FIELDS, LaneTrajectoryQP
-from .ops.admm import Settings
+from .gomp.trajectory_qp_lane import _ARRAY_FIELDS, LaneFactor, LaneTrajectoryQP
+from .ops.admm import Settings, resolve_device
 from .ops.ruiz import Scaling
+from .ops.session_lane import LaneSession
 
 _STATIC_FIELDS = (
     "waypoints", "n_dim", "gripper_flags", "n_obstacles", "row_layout",
@@ -71,18 +72,79 @@ def settings_from_dict(values: dict) -> Settings:
     return Settings(**values)
 
 
+def _np(a):
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
 def lane_qp_to_numpy(qp):
     """``(static, arrays)`` of any lane container exposing the static and
     array fields as attributes (this package's, or another framework's
     mirror of it) — the inverse of :func:`lane_qp_from_numpy`."""
     static = {k: getattr(qp, k) for k in _STATIC_FIELDS}
-    arrays = {}
-    for k in _ARRAY_FIELDS:
-        a = getattr(qp, k)
-        if isinstance(a, torch.Tensor):
-            a = a.detach().cpu().numpy()
-        arrays[k] = np.asarray(a)
-    return static, arrays
+    return static, {k: _np(getattr(qp, k)) for k in _ARRAY_FIELDS}
+
+
+# ------------------------------------------------------------ lane sessions
+
+
+def lane_session_to_numpy(session) -> dict:
+    """Plain data of a lane session of either package (read by attribute):
+    ``base``/``scaled`` as :func:`lane_qp_to_numpy` pairs, ``scaling`` as
+    ``(D, E, c)``, ``warm_x``, ``warm_y``, ``rho_bar``, ``factor`` as
+    ``("packed", cholp, gainp | None)`` or ``("blocks", chol, gain)``, and
+    ``cache`` (a dict of arrays, or ``None``)."""
+    f = session.factor
+    if hasattr(f, "chol"):
+        factor = ("blocks", _np(f.chol), _np(f.gain))
+    else:
+        factor = ("packed", _np(f[0]), None if f[1] is None else _np(f[1]))
+    cache = session.cache
+    sc = session.scaling
+    return {
+        "base": lane_qp_to_numpy(session.base),
+        "scaled": lane_qp_to_numpy(session.scaled),
+        "scaling": (_np(sc.D), _np(sc.E), _np(sc.c)),
+        "warm_x": _np(session.warm_x),
+        "warm_y": _np(session.warm_y),
+        "rho_bar": _np(session.rho_bar),
+        "factor": factor,
+        "cache": None if cache is None else {k: _np(v) for k, v in cache.items()},
+    }
+
+
+def lane_session_from_numpy(data: dict, device=None, dtype=None) -> LaneSession:
+    """The port's :class:`~osqp_solver_tpu_torch.ops.session_lane.
+    LaneSession` from :func:`lane_session_to_numpy`'s data, so that a
+    session another framework set up (and advanced) is continued here.
+
+    A session's solves follow its tensors, so the device follows the entry
+    points' rule: CUDA unless ``device="cpu"`` is asked for."""
+    device = resolve_device(device)
+
+    def t(a):
+        return None if a is None else torch.tensor(
+            np.asarray(a), dtype=dtype, device=device)
+
+    kind, first, second = data["factor"]
+    if kind == "blocks":
+        factor = LaneFactor(chol=t(first), gain=t(second))
+    elif kind == "packed":
+        factor = (t(first), t(second))
+    else:
+        raise ValueError(f"lane_session_from_numpy: factor kind {kind!r}")
+    cache = data.get("cache")
+    return LaneSession(
+        base=lane_qp_from_numpy(*data["base"], device=device, dtype=dtype),
+        scaled=lane_qp_from_numpy(*data["scaled"], device=device, dtype=dtype),
+        scaling=scaling_from_numpy(*data["scaling"], device=device, dtype=dtype),
+        warm_x=t(data["warm_x"]),
+        warm_y=t(data["warm_y"]),
+        rho_bar=t(data["rho_bar"]),
+        factor=factor,
+        cache=None if cache is None else {k: t(v) for k, v in cache.items()},
+    )
 
 
 # ------------------------------------------------------------- obstacles

@@ -1,25 +1,30 @@
 // Fused ADMM chunk, one thread per problem: n_iter OSQP iterations per launch
-// on the packed state, gain-free ("hrec") substitutions, and in the last
-// backward pass either the termination / certificate accumulators (MODE_TERM)
-// or the last iteration's packed deltas dx, dy (MODE_DXDY), or neither.
+// on the packed state, and in the last backward pass either the termination /
+// certificate accumulators (MODE_TERM) or the last iteration's packed deltas
+// dx, dy (MODE_DXDY), or neither (MODE_PLAIN).  Each mode exists in both
+// factor forms: gain-free ("hrec", GAIN = false) and with the packed gain
+// G_t streamed beside the packed chol (GAIN = true).
 //
 // Replaces the Pallas kernel of osqp_solver_tpu/ops/admm_fused.py
-// (fused_admm_chunk, body _make_kernel) in its hrec form: with emit_term, in
-// the accumulator-free form the warm-up chunk uses, and in the no-emit_term
-// form that writes the (W, DRp, B) delta pack for the separate residual
-// kernel (csrc/residuals.cu).
+// (fused_admm_chunk, body _make_kernel): with emit_term, in the
+// accumulator-free form the warm-up chunk uses, and in the no-emit_term form
+// that writes the (W, DRp, B) delta pack for the separate residual kernel
+// (csrc/residuals.cu), each in the hrec and in the gain form.
 //
 // Per iteration:
 //   forward  (t = 0..W-1):  rhs_t = sigma x_t - q_t + [A'(rho z - y)]_t, built
 //            from the stencil (the A' gather touches rows of waypoints t-1, t);
-//            h_t = C_t^{-T} C_t^{-1} (rhs_t - Ml_{t-1} h_{t-1});  h_t goes to a
-//            (W, 2N, B) global scratch (L2-resident).
-//   backward (t = W-1..0):  x~_t = h_t - C_t^{-T} C_t^{-1} (Ml_t' x~_{t+1});
+//            hrec: h_t = C_t^{-T} C_t^{-1} (rhs_t - Ml_{t-1} h_{t-1});
+//            gain: w_t = C_t^{-1} (rhs_t - G_{t-1} w_{t-1});
+//            h_t / w_t goes to a (W, 2N, B) global scratch (L2-resident).
+//   backward (t = W-1..0):  hrec: x~_t = h_t - C_t^{-T} C_t^{-1} (Ml_t' x~_{t+1});
+//            gain: x~_t = C_t^{-T} (w_t - G_t' x~_{t+1});
 //            A rows of waypoint t from (x~_t, x~_{t+1}), relaxation, box
 //            projection, dual update; state tile t rewritten IN PLACE.
 // Ml_t is the sparse KKT coupling block rebuilt from rho and the stencil
-// (same formulas as the factor kernel).  Frozen problems (done) keep their
-// state and emit zero deltas.
+// (same formulas as the factor kernel); G_t is the packed upper triangle the
+// factor kernel writes with emit_gain (row t; the last row zero).  Frozen
+// problems (done) keep their state and emit zero deltas.
 //
 // MODE_DXDY, last backward pass: as x_t, y_t of waypoint t are rewritten, the
 // deltas against the state BEFORE this iteration (read from the staged copy of
@@ -55,14 +60,19 @@ constexpr int O_EE = STAGE_ROWS;        // E then Einv, 2 Rp rows
 constexpr int O_VC = O_EE + 2 * Rp;     // q, D, Dinv: 3 * 2N rows
 constexpr int O_PD = O_VC + 3 * B2;     // P-diag velocity diagonal, N rows
 constexpr int STAGE_ROWS_TERM = O_PD + N;
-__host__ __device__ constexpr int stage_elems(bool term) {
-    return (term ? STAGE_ROWS_TERM : STAGE_ROWS) * LANE_BLOCK;
+// The gain form stages the packed G (T rows) after the rows above: G_{t-1}
+// in the forward pass, G_t in the backward pass.
+__host__ __device__ constexpr int o_gain(bool term) {
+    return term ? STAGE_ROWS_TERM : STAGE_ROWS;
+}
+__host__ __device__ constexpr int stage_elems(bool term, bool gain) {
+    return (o_gain(term) + (gain ? T : 0)) * LANE_BLOCK;
 }
 
 enum { MODE_PLAIN = 0, MODE_TERM = 1, MODE_DXDY = 2 };
 
 struct Args {
-    Pack chol, coef, q, lu, rho, plf, ee, varc, pd;
+    Pack chol, gain, coef, q, lu, rho, plf, ee, varc, pd;
     real* state;
     real* w;
     real* acc;
@@ -75,10 +85,14 @@ struct Args {
 
 // Start the copies of waypoint t's rows into stage t & 1 and commit them as
 // one group.
-template <bool BWD, bool TERM = false>
+template <bool BWD, bool GAIN, bool TERM = false>
 __device__ __forceinline__ void stage_issue(const Args& a, int t) {
     real* sg = a.smem + (t & 1) * a.stage;
     stage_pack<Tp, T, O_CH>(a.chol, t, sg);
+    if (GAIN) {
+        constexpr int OG = o_gain(TERM);
+        stage_pack<Tp, T, OG>(a.gain, BWD ? t : (t > 0 ? t - 1 : 0), sg);
+    }
     stage_pack<CRp, CR, O_CF>(a.coef, t, sg);
     stage_pack<Rp, Rp, O_RH>(a.rho, t, sg);
     stage_pack<PNp, N, O_PL>(a.plf, t, sg);
@@ -114,6 +128,7 @@ __device__ __forceinline__ void ml_at(const Rows& cf, const Rows& rh,
     }
 }
 
+template <bool GAIN>
 __device__ __forceinline__ void forward_pass(const Args& a) {
     real h_p[B2], vdyn_p[N], vacc_p[N], c1_p[N], a0_p[N];
     real qq_p[N], qv_p[N], vv_p[N];
@@ -124,10 +139,10 @@ __device__ __forceinline__ void forward_pass(const Args& a) {
         vdyn_p[j] = vacc_p[j] = c1_p[j] = a0_p[j] = real(0);
         qq_p[j] = qv_p[j] = vv_p[j] = real(0);
     }
-    stage_issue<false>(a, 0);
+    stage_issue<false, GAIN>(a, 0);
     for (int t = 0; t < a.W; ++t) {
         if (t + 1 < a.W) {
-            stage_issue<false>(a, t + 1);
+            stage_issue<false, GAIN>(a, t + 1);
             cp_async_wait<1>();
         } else {
             cp_async_wait<0>();
@@ -163,16 +178,32 @@ __device__ __forceinline__ void forward_pass(const Args& a) {
             rhs[N + j] = a.sigma * sg[(O_ST + S_X + N + j) * LANE_BLOCK] -
                          sg[(O_QW + N + j) * LANE_BLOCK] + g;
         }
-        // rhs_t - Ml_{t-1} h_{t-1}   (all-zero carry at t = 0).
-        if (t > 0) {
+        if (GAIN) {
+            // rhs_t - G_{t-1} w_{t-1}, G upper-triangular (h_p holds w_{t-1}).
+            if (t > 0) {
+                const Rows gn{sg + o_gain(false) * LANE_BLOCK};
 #pragma unroll
-            for (int j = 0; j < N; ++j) {
-                rhs[j] = rhs[j] - (qq_p[j] * h_p[j] + qv_p[j] * h_p[N + j]);
-                rhs[N + j] = rhs[N + j] - vv_p[j] * h_p[N + j];
+                for (int i = 0; i < B2; ++i) {
+                    real acc = real(0);
+#pragma unroll
+                    for (int j = i; j < B2; ++j)
+                        acc = acc + gn[UP(i, j)] * h_p[j];
+                    rhs[i] = rhs[i] - acc;
+                }
             }
+            lower_solve(ch, rhs);  // w_t
+        } else {
+            // rhs_t - Ml_{t-1} h_{t-1}   (all-zero carry at t = 0).
+            if (t > 0) {
+#pragma unroll
+                for (int j = 0; j < N; ++j) {
+                    rhs[j] = rhs[j] - (qq_p[j] * h_p[j] + qv_p[j] * h_p[N + j]);
+                    rhs[N + j] = rhs[N + j] - vv_p[j] * h_p[N + j];
+                }
+            }
+            lower_solve(ch, rhs);
+            upper_solve(ch, rhs);  // h_t
         }
-        lower_solve(ch, rhs);
-        upper_solve(ch, rhs);  // h_t
 #pragma unroll
         for (int i = 0; i < B2; ++i) {
             a.w[((size_t)t * B2 + i) * a.B + a.b] = rhs[i];
@@ -185,7 +216,7 @@ __device__ __forceinline__ void forward_pass(const Args& a) {
             c1_p[j] = cf[C_C1 + j];
             a0_p[j] = cf[C_A0 + j];
         }
-        ml_at(cf, rh, pl, qq_p, qv_p, vv_p);
+        if (!GAIN) ml_at(cf, rh, pl, qq_p, qv_p, vv_p);
     }
 }
 
@@ -218,7 +249,7 @@ __device__ __forceinline__ void reduce_var_space(const real* qv_,
     acc[A_PDX_MAX] = rmax(acc[A_PDX_MAX], npdx);
 }
 
-template <int MODE>
+template <int MODE, bool GAIN>
 __device__ __forceinline__ void backward_pass(const Args& a) {
     constexpr bool TERM = MODE == MODE_TERM;
     constexpr bool DXDY = MODE == MODE_DXDY;
@@ -247,10 +278,10 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
         acc[A_ADX_MIN] = INFINITY;
     }
 
-    stage_issue<true, TERM>(a, a.W - 1);
+    stage_issue<true, GAIN, TERM>(a, a.W - 1);
     for (int t = a.W - 1; t >= 0; --t) {
         if (t > 0) {
-            stage_issue<true, TERM>(a, t - 1);
+            stage_issue<true, GAIN, TERM>(a, t - 1);
             cp_async_wait<1>();
         } else {
             cp_async_wait<0>();
@@ -261,9 +292,21 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
         real* st = a.state + ((size_t)t * SRp) * a.B + a.b;  // written here
         real* dd = DXDY ? a.dxdy + ((size_t)t * DRp) * a.B + a.b : nullptr;
 
-        // x~_t = h_t - C^{-T} C^{-1} (Ml_t' x~_{t+1}).
         real xt[B2];
-        {
+        if (GAIN) {
+            // x~_t = C^{-T} (w_t - G_t' x~_{t+1});  (G'x)_i = sum_{j<=i} G[j][i] x_j.
+            const Rows gn{sg + o_gain(TERM) * LANE_BLOCK};
+#pragma unroll
+            for (int i = 0; i < B2; ++i) {
+                real gx = real(0);
+#pragma unroll
+                for (int j = 0; j <= i; ++j) gx = gx + gn[UP(j, i)] * xt_n[j];
+                const real w = sg[(O_QW + i) * LANE_BLOCK];
+                xt[i] = (t < a.W - 1) ? w - gx : w;
+            }
+            upper_solve(ch, xt);
+        } else {
+            // x~_t = h_t - C^{-T} C^{-1} (Ml_t' x~_{t+1}).
             real qq[N], qv[N], vv[N], u[B2];
             ml_at(cf, rh, pl, qq, qv, vv);
 #pragma unroll
@@ -430,9 +473,10 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
     }
 }
 
-template <int MODE>
+template <int MODE, bool GAIN>
 __global__ void admm_chunk_kernel(
-    const real* __restrict__ chol, const real* __restrict__ coef,
+    const real* __restrict__ chol, const real* __restrict__ gain,
+    const real* __restrict__ coef,
     const real* __restrict__ q, const real* __restrict__ lu,
     const real* __restrict__ rho, const real* __restrict__ plf,
     const real* __restrict__ ee, const real* __restrict__ varc,
@@ -443,62 +487,73 @@ __global__ void admm_chunk_kernel(
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= B) return;
     const size_t Bs = (size_t)B;
-    Args a{{chol, Bs, b}, {coef, Bs, b}, {q, Bs, b},    {lu, Bs, b},
+    Args a{{chol, Bs, b}, {gain, Bs, b}, {coef, Bs, b}, {q, Bs, b}, {lu, Bs, b},
            {rho, Bs, b},  {plf, Bs, b},  {ee, Bs, b},   {varc, Bs, b},
            {pd, Bs, b},   state,         w,             acc,
            dxdy,          W,             B,             b,
            sigma,         alpha,         done[b],       lane_smem + threadIdx.x,
-           stage_elems(MODE == MODE_TERM)};
+           stage_elems(MODE == MODE_TERM, GAIN)};
     for (int it = 0; it < n_iter; ++it) {
-        forward_pass(a);
+        forward_pass<GAIN>(a);
         if (MODE != MODE_PLAIN && it == n_iter - 1)
-            backward_pass<MODE>(a);
+            backward_pass<MODE, GAIN>(a);
         else
-            backward_pass<MODE_PLAIN>(a);
+            backward_pass<MODE_PLAIN, GAIN>(a);
     }
 }
 
-// mode: 0 = state only, 1 = also the accumulators (acc), 2 = also the deltas
-// of the last iteration (dxdy).
-extern "C" int admm_chunk_launch(const void* chol, const void* coef,
-                                 const void* q, const void* lu,
-                                 const void* rho, const void* plf,
-                                 const void* ee, const void* varc,
-                                 const void* pd, const void* done, void* state,
-                                 void* w, void* acc, void* dxdy, int W, int B,
-                                 int n_iter, int mode, double sigma,
-                                 double alpha, void* stream) {
-    if (mode < MODE_PLAIN || mode > MODE_DXDY) return -1;
+template <int MODE, bool GAIN>
+static int launch_mode(const void* chol, const void* gain, const void* coef,
+                       const void* q, const void* lu, const void* rho,
+                       const void* plf, const void* ee, const void* varc,
+                       const void* pd, const void* done, void* state, void* w,
+                       void* acc, void* dxdy, int W, int B, int n_iter,
+                       double sigma, double alpha, void* stream) {
     const int grid = (B + LANE_BLOCK - 1) / LANE_BLOCK;
     const int smem_bytes =
-        2 * stage_elems(mode == MODE_TERM) * (int)sizeof(real);
+        2 * stage_elems(MODE == MODE_TERM, GAIN) * (int)sizeof(real);
 #ifndef LANE_HOST_EMULATION
     // More than the 48 KB a kernel gets without asking.
-    const void* fn = mode == MODE_TERM
-                         ? (const void*)admm_chunk_kernel<MODE_TERM>
-                         : mode == MODE_DXDY
-                               ? (const void*)admm_chunk_kernel<MODE_DXDY>
-                               : (const void*)admm_chunk_kernel<MODE_PLAIN>;
     const cudaError_t attr = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+        (const void*)admm_chunk_kernel<MODE, GAIN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (attr != cudaSuccess) return (int)attr;
 #endif
+    auto* kernel = admm_chunk_kernel<MODE, GAIN>;
+    LANE_LAUNCH_SMEM(kernel, grid, LANE_BLOCK,
+                     smem_bytes, stream, (const real*)chol, (const real*)gain,
+                     (const real*)coef, (const real*)q, (const real*)lu,
+                     (const real*)rho, (const real*)plf, (const real*)ee,
+                     (const real*)varc, (const real*)pd, (const real*)done,
+                     (real*)state, (real*)w, (real*)acc, (real*)dxdy, W, B,
+                     n_iter, (real)sigma, (real)alpha);
+    return LANE_LAST_ERROR();
+}
+
+// mode: 0 = state only, 1 = also the accumulators (acc), 2 = also the deltas
+// of the last iteration (dxdy).  gain: null for the hrec form, else the
+// packed gain (W, Tp, B).
+extern "C" int admm_chunk_launch(const void* chol, const void* gain,
+                                 const void* coef, const void* q,
+                                 const void* lu, const void* rho,
+                                 const void* plf, const void* ee,
+                                 const void* varc, const void* pd,
+                                 const void* done, void* state, void* w,
+                                 void* acc, void* dxdy, int W, int B,
+                                 int n_iter, int mode, double sigma,
+                                 double alpha, void* stream) {
 #define LANE_CHUNK_ARGS                                                       \
-    (const real*)chol, (const real*)coef, (const real*)q, (const real*)lu,    \
-        (const real*)rho, (const real*)plf, (const real*)ee,                  \
-        (const real*)varc, (const real*)pd, (const real*)done, (real*)state,  \
-        (real*)w, (real*)acc, (real*)dxdy, W, B, n_iter, (real)sigma,         \
-        (real)alpha
-    if (mode == MODE_TERM) {
-        LANE_LAUNCH_SMEM(admm_chunk_kernel<MODE_TERM>, grid, LANE_BLOCK,
-                         smem_bytes, stream, LANE_CHUNK_ARGS);
-    } else if (mode == MODE_DXDY) {
-        LANE_LAUNCH_SMEM(admm_chunk_kernel<MODE_DXDY>, grid, LANE_BLOCK,
-                         smem_bytes, stream, LANE_CHUNK_ARGS);
+    chol, gain, coef, q, lu, rho, plf, ee, varc, pd, done, state, w, acc,    \
+        dxdy, W, B, n_iter, sigma, alpha, stream
+    if (gain == nullptr) {
+        if (mode == MODE_PLAIN) return launch_mode<MODE_PLAIN, false>(LANE_CHUNK_ARGS);
+        if (mode == MODE_TERM) return launch_mode<MODE_TERM, false>(LANE_CHUNK_ARGS);
+        if (mode == MODE_DXDY) return launch_mode<MODE_DXDY, false>(LANE_CHUNK_ARGS);
     } else {
-        LANE_LAUNCH_SMEM(admm_chunk_kernel<MODE_PLAIN>, grid, LANE_BLOCK,
-                         smem_bytes, stream, LANE_CHUNK_ARGS);
+        if (mode == MODE_PLAIN) return launch_mode<MODE_PLAIN, true>(LANE_CHUNK_ARGS);
+        if (mode == MODE_TERM) return launch_mode<MODE_TERM, true>(LANE_CHUNK_ARGS);
+        if (mode == MODE_DXDY) return launch_mode<MODE_DXDY, true>(LANE_CHUNK_ARGS);
     }
 #undef LANE_CHUNK_ARGS
-    return LANE_LAST_ERROR();
+    return -1;
 }

@@ -1,7 +1,8 @@
 // KKT assemble + block-Cholesky + pack, one thread per problem.
 //
 // Replaces the Pallas kernel of osqp_solver_tpu/ops/kkt_factor_pallas.py
-// (factor_packed_lane, body _make_kernel) in its emit_gain=False form.
+// (factor_packed_lane, body _make_kernel) in both forms: emit_gain=False
+// (gainp null) and emit_gain=True.
 //
 // Per waypoint t the thread assembles the lower half of the 2N x 2N block of
 // P + sigma*I + A' diag(rho) A from the stencil coefficients (vel-diag P),
@@ -9,8 +10,10 @@
 // place, writes the packed lower triangle of C, and forms the packed upper
 // triangle G_t = Ml_t C_t^{-T} that the next step needs (Ml_t is the sparse
 // coupling block, the same formulas as ml_at() of the chunk kernel).  G is
-// carried in registers and never written.  Divisions go through one exact
-// reciprocal per pivot, as in the reference kernel.
+// carried in registers; with a gain pack (emit_gain) it is also written as
+// the packed upper triangle G_t at row t, the row of the last waypoint zero
+// (ops/admm_fused.py pack_factor).  Divisions go through one exact reciprocal
+// per pivot, as in the reference kernel.
 //
 // Bound: a chain of W dependent Cholesky steps per thread; latency, not
 // bandwidth or FLOP rate.  C (78 values at N=6) and G (78) are live together,
@@ -21,7 +24,8 @@ __global__ void kkt_factor_kernel(const real* __restrict__ coef_,
                                   const real* __restrict__ rho_,
                                   const real* __restrict__ pd_,
                                   const real* __restrict__ pl_,
-                                  real* __restrict__ cholp, int W, int B,
+                                  real* __restrict__ cholp,
+                                  real* __restrict__ gainp, int W, int B,
                                   real sigma) {
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= B) return;
@@ -131,15 +135,26 @@ __global__ void kkt_factor_kernel(const real* __restrict__ coef_,
                 G[UP(i, j)] = sij * idia[j];
             }
         }
+        if (gainp != nullptr) {
+            real* gout = gainp + ((size_t)t * Tp) * B + b;
+#pragma unroll
+            for (int k = 0; k < T; ++k)
+                gout[(size_t)k * B] = t < W - 1 ? G[k] : real(0);
+#pragma unroll
+            for (int k = T; k < Tp; ++k) gout[(size_t)k * B] = real(0);
+        }
     }
 }
 
+// gainp: null for the chol-only form (emit_gain=False).
 extern "C" int kkt_factor_launch(const void* coef, const void* rho,
                                  const void* pd, const void* pl, void* cholp,
-                                 int W, int B, double sigma, void* stream) {
+                                 void* gainp, int W, int B, double sigma,
+                                 void* stream) {
     const int grid = (B + LANE_BLOCK - 1) / LANE_BLOCK;
     LANE_LAUNCH(kkt_factor_kernel, grid, LANE_BLOCK, stream,
                 (const real*)coef, (const real*)rho, (const real*)pd,
-                (const real*)pl, (real*)cholp, W, B, (real)sigma);
+                (const real*)pl, (real*)cholp, (real*)gainp, W, B,
+                (real)sigma);
     return LANE_LAST_ERROR();
 }

@@ -15,11 +15,7 @@ from typing import Tuple
 
 import torch
 
-from ..ops.tridiag import (
-    BlockTridiagFactor,
-    block_tridiag_factor,
-    block_tridiag_solve,
-)
+from ..ops import tridiag_kernel
 
 _INF = 1e30  # matches constraints.INF
 
@@ -420,17 +416,20 @@ class LaneTrajectoryQP:
         return M_diag, M_lower
 
     def kkt_factor(self, rho_vec, sigma) -> LaneFactor:
-        """Full-block factor through :mod:`..ops.tridiag` (plain path)."""
-        diag, lower = self.kkt_blocks(rho_vec, sigma)
-        f = block_tridiag_factor(diag, lower)
-        return LaneFactor(chol=f.chol, gain=f.gain)
+        """Full-block factor: the block-tridiagonal kernel
+        (:func:`..ops.tridiag_kernel.factor_lane_major`) on a CUDA batch, as
+        the reference takes its Pallas kernel on the TPU; the plain version
+        on the CPU."""
+        chol, gain = tridiag_kernel.factor_lane_major(
+            *self.kkt_blocks(rho_vec, sigma))
+        return LaneFactor(chol=chol, gain=gain)
 
     def kkt_solve(self, factor: LaneFactor, rhs):
+        """``K⁻¹ rhs`` for ``rhs (n, B)``: the block-tridiagonal solve kernel
+        on a CUDA batch, the plain version on the CPU."""
         s = self._interleave(rhs)
-        out = block_tridiag_solve(
-            BlockTridiagFactor(factor.chol, factor.gain), s
-        )
-        return self._deinterleave(out)
+        return self._deinterleave(
+            tridiag_kernel.solve_lane_major(factor.chol, factor.gain, s))
 
 
 _ARRAY_FIELDS = (

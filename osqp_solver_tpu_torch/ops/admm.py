@@ -59,8 +59,8 @@ class Settings:
     # Unroll factor of the reference's inner loop; no effect on a host loop.
     inner_unroll: int = 1
     # Fused ADMM chunk: "auto"/"on" = the CUDA kernels on a CUDA device and
-    # their plain PyTorch versions on the CPU; "off" (the unfused op-by-op
-    # path) exists on the CPU only and raises on CUDA.
+    # their plain PyTorch versions on the CPU; "off" = the unfused op-by-op
+    # path (the block-tridiagonal factor/solve kernels on a CUDA device).
     fused_chunk: str = "auto"
     # Termination reductions fused into the chunk's final backward pass
     # ("auto"/"on"), or "off": the chunk writes the last iteration's packed
@@ -68,7 +68,8 @@ class Settings:
     term_fused: str = "auto"
     # Factor stream form of the chunk kernel: "hrec" = gain-free, the sparse
     # KKT coupling block is rebuilt in registers from the stencil
-    # coefficients.  "gain" is not ported.
+    # coefficients; "gain" = the factor kernel also writes the packed gain
+    # G_t and the chunk kernel streams it.
     factor_form: str = "hrec"
     # Anderson acceleration of the chunk fixed-point map (not ported).
     anderson: int = 0
@@ -107,8 +108,6 @@ def check_supported(settings: Settings) -> None:
     waiting = []
     if settings.kkt_method != "direct":
         waiting.append(f"kkt_method={settings.kkt_method!r}")
-    if settings.factor_form != "hrec":
-        waiting.append(f"factor_form={settings.factor_form!r}")
     if settings.anderson > 0:
         waiting.append(f"anderson={settings.anderson}")
     if settings.polish:
@@ -128,6 +127,8 @@ def check_supported(settings: Settings) -> None:
     for name in ("fused_chunk", "term_fused"):
         if getattr(settings, name) not in ("auto", "on", "off"):
             raise ValueError(f"Settings.{name}={getattr(settings, name)!r}")
+    if settings.factor_form not in ("hrec", "gain"):
+        raise ValueError(f"Settings.factor_form={settings.factor_form!r}")
 
 
 def refine_steps_for_horizon(waypoints: int, dtype) -> int:

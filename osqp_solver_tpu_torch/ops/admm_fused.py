@@ -4,10 +4,11 @@ Counterpart of ``osqp_solver_tpu/ops/admm_fused.py``: the static layouts
 (``_row_layout``, ``_coef_layout``, ``_tri_maps``), the host-side packs
 (``build_coef_pack``, ``build_lu_pack``, ``pack_state``/``unpack_state``,
 ``pack_factor``) — all kept row for row, pad-to-8 rows included — and
-``fused_admm_chunk`` in its ``hrec`` (gain-free) form: with the termination
-accumulators (``emit_term``) riding the last backward pass, without them
-(the warm-up chunk), or writing the last iteration's packed deltas
-(``emit_dxdy``) for the separate residual kernel (:mod:`.residuals`).
+``fused_admm_chunk`` in both factor forms, ``hrec`` (gain-free) and
+``gain`` (the packed ``G_t`` streamed): with the termination accumulators
+(``emit_term``) riding the last backward pass, without them (the warm-up
+chunk), or writing the last iteration's packed deltas (``emit_dxdy``) for
+the separate residual kernel (:mod:`.residuals`).
 
 Kernel note (``csrc/admm_chunk.cu`` replaces the Pallas body
 ``admm_fused.py::_make_kernel`` behind ``fused_admm_chunk``).  The TPU
@@ -17,8 +18,10 @@ THREAD owns ONE PROBLEM: batch-trailing packs make a warp's 32 threads read
 32 adjacent floats (one 128-byte row), the horizon is a loop inside the
 thread, and the recurrence state lives in registers.  Per iteration the
 forward pass builds the reduced-KKT right-hand side waypoint by waypoint and
-forward-substitutes (``h_t`` goes to a ``(W, 2N, B)`` global scratch that
-stays in L2); the backward pass finishes the solve and applies A rows,
+forward-substitutes (``h_t``, or ``w_t`` in the gain form, goes to a
+``(W, 2N, B)`` global scratch that stays in L2); the backward pass finishes
+the solve (``hrec`` rebuilds the sparse coupling block in registers, ``gain``
+stages ``G_t`` beside ``C_t``) and applies A rows,
 relaxation, projection and dual update in stream, writing the state pack IN
 PLACE.  Bound on an H100: the work is a chain of W dependent 12×12
 triangular solves per pass, so with B=1024 (32 warps on 132 SMs) the kernel
@@ -240,6 +243,20 @@ def pack_factor(qp, factor):
     return cholp, gainp
 
 
+def unpack_gain(qp, gainp):
+    """(W, Tp, B) packed upper triangles → full (W-1, 2N, 2N, B) gain
+    blocks (the last waypoint's zero row dropped)."""
+    W, B2 = qp.waypoints, 2 * qp.n_dim
+    _, up, _ = _tri_maps(B2)
+    flat = torch.tensor(
+        [i * B2 + j for (i, j) in sorted(up, key=up.get)],
+        device=gainp.device,
+    )
+    full = gainp.new_zeros((W - 1, B2 * B2, gainp.shape[-1]))
+    full[:, flat] = gainp[: W - 1, : len(up)]
+    return full.reshape(W - 1, B2, B2, -1)
+
+
 def unpack_chol(qp, cholp):
     """(W, Tp, B) packed lower triangle → full (W, 2N, 2N, B) blocks."""
     W, B2 = qp.waypoints, 2 * qp.n_dim
@@ -264,24 +281,28 @@ def fused_admm_chunk_plain(
     emit_dxdy=False,
 ):
     """Plain PyTorch version of :func:`fused_admm_chunk`: ``n_iter`` ×
-    :func:`.admm_lane._iteration` on the unpacked state, then the ``_ACC``
-    rows or the packed deltas, repacked.  Returns a NEW state pack (the
-    input is not modified).
+    :func:`.admm_lane._iteration` (with the plain block-tridiagonal solve)
+    on the unpacked state, then the ``_ACC`` rows or the packed deltas,
+    repacked.  Returns a NEW state pack (the input is not modified).
     """
     from ..gomp.trajectory_qp_lane import LaneFactor
     from .admm_lane import LaneADMMState, _iteration
+    from .tridiag_kernel import solve_lane_major_plain
 
     del coef, lu  # the plain version reads the container directly
     n_iter = settings.check_termination if n_iter is None else int(n_iter)
-    cholp = packed_factor[0]
+    cholp, gainp = packed_factor
     chol = unpack_chol(scaled, cholp)
-    # hrec carries no gain pack: rebuild G_t = Ml_t·C_t⁻ᵀ from the same
-    # sparse coupling block the kernel rebuilds in registers.
-    _, m_lower = scaled.kkt_blocks(rho_vec, settings.sigma)
-    c_lead = chol[:-1].movedim(-1, 0)
-    gain = torch.linalg.solve_triangular(
-        c_lead, m_lower.movedim(-1, 0).transpose(-1, -2), upper=False
-    ).transpose(-1, -2).movedim(0, -1)
+    if gainp is not None:
+        gain = unpack_gain(scaled, gainp)
+    else:
+        # hrec carries no gain pack: rebuild G_t = Ml_t·C_t⁻ᵀ from the same
+        # sparse coupling block the kernel rebuilds in registers.
+        _, m_lower = scaled.kkt_blocks(rho_vec, settings.sigma)
+        c_lead = chol[:-1].movedim(-1, 0)
+        gain = torch.linalg.solve_triangular(
+            c_lead, m_lower.movedim(-1, 0).transpose(-1, -2), upper=False
+        ).transpose(-1, -2).movedim(0, -1)
     factor = LaneFactor(chol=chol, gain=gain)
 
     x, z, y = unpack_state(scaled, state_pack)
@@ -292,10 +313,15 @@ def fused_admm_chunk_plain(
         iterations=torch.zeros(B, dtype=torch.int32, device=x.device),
         status=None, done=done.bool(), prim_res=None, dual_res=None,
     )
+
+    def plain_solve(f, rhs):
+        s = scaled._interleave(rhs)
+        return scaled._deinterleave(solve_lane_major_plain(f.chol, f.gain, s))
+
     prev = st
     for _ in range(n_iter):
         prev = st
-        st = _iteration(scaled, st, factor, settings)
+        st = _iteration(scaled, st, factor, settings, kkt_solve=plain_solve)
     out = pack_state(scaled, st.x, st.z, st.y)
     # Deltas of the LAST iteration; exactly zero for frozen problems.
     dx, dy = st.x - prev.x, st.y - prev.y
@@ -325,22 +351,23 @@ def _check_pack(name, t, shape, ref):
 
 def _launch_chunk(lib, cholp, coef, q_int, lu, rho3, Plf, ee, varc, Pdp,
                   done_f, state_pack, w, acc, n_iter, sigma, alpha,
-                  dxdy=None):
+                  dxdy=None, gainp=None):
     """Call the C entry point of ``csrc/admm_chunk.cu`` on packs of one
     device.  ``acc`` selects the instantiation with the accumulators,
     ``dxdy`` the one that writes the delta pack, neither the one that only
-    advances the state."""
+    advances the state; ``gainp`` the gain form of each."""
     W, _, B = state_pack.shape
     mode = 1 if acc is not None else 2 if dxdy is not None else 0
     fn = lib.admm_chunk_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [
             ctypes.c_double, ctypes.c_double, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     ptr = _launch.ptr
     err = fn(
-        ptr(cholp), ptr(coef), ptr(q_int), ptr(lu), ptr(rho3), ptr(Plf),
+        ptr(cholp), ptr(gainp), ptr(coef), ptr(q_int), ptr(lu), ptr(rho3),
+        ptr(Plf),
         ptr(ee), ptr(varc), ptr(Pdp), ptr(done_f), ptr(state_pack), ptr(w),
         ptr(acc), ptr(dxdy), W, B, int(n_iter), mode,
         float(sigma), float(alpha), _launch.stream(state_pack.device),
@@ -358,7 +385,8 @@ def fused_admm_chunk(
     ``scaled``: waypoint-layout vel-diag :class:`LaneTrajectoryQP` (Ruiz
     scaled); ``rho_vec (m, B)``; ``done (B,)`` bool; ``coef``/``lu``: the
     :func:`build_coef_pack` / :func:`build_lu_pack` outputs;
-    ``packed_factor``: ``(cholp (W, Tp, B), None)`` from
+    ``packed_factor``: ``(cholp (W, Tp, B), None)`` (the ``hrec`` form) or
+    ``(cholp, gainp (W, Tp, B))`` (the ``gain`` form) from
     :func:`.kkt_factor.factor_packed_lane`; ``state_pack (W, SRp, B)``;
     ``term_packs``: ``(EEinv (W, 2Rp, B), varc, Pdp, Plf)`` — with them the
     kernel also emits the raw termination accumulators ``acc (24, B)`` in
@@ -387,11 +415,14 @@ def fused_admm_chunk(
         raise ValueError("fused_admm_chunk needs the 'waypoint' row layout")
     if scaled.p_structure != "vel_diag":
         raise NotImplementedError(
-            "the gain-free (hrec) chunk needs vel-diag P"
+            "the chunk kernel needs vel-diag P (its block-P form is not "
+            "ported yet)"
         )
-    cholp = packed_factor[0]
+    cholp, gainp = packed_factor
     _check_pack("state_pack", state_pack, (W, SRp, B), state_pack)
     _check_pack("cholp", cholp, (W, Tp, B), state_pack)
+    if gainp is not None:
+        _check_pack("gainp", gainp, (W, Tp, B), state_pack)
     _check_pack("coef", coef, (W, CRp, B), state_pack)
     _check_pack("lu", lu, (W, 2 * Rp, B), state_pack)
     rho3 = rho_vec.reshape(W, Rp, B)
@@ -445,14 +476,19 @@ def fused_admm_chunk(
         _launch.library("admm_chunk", layout_signature(scaled)),
         cholp, coef, q_int, lu, rho3, Plf, ee, varc, Pdp, done_f, state_pack,
         w, acc, n_iter, settings.sigma, settings.alpha, dxdy=dxdy,
+        gainp=gainp,
     )
     fused_admm_chunk.launches += 1
+    if gainp is not None:
+        fused_admm_chunk.launches_gain += 1
     if emit_dxdy:
         fused_admm_chunk.launches_dxdy += 1
         return state_pack, dxdy
     return state_pack, acc
 
 
-# Kernel launches since import: all forms, and the delta-writing form alone.
+# Kernel launches since import: all forms, the delta-writing form alone,
+# and the gain form alone.
 fused_admm_chunk.launches = 0
 fused_admm_chunk.launches_dxdy = 0
+fused_admm_chunk.launches_gain = 0

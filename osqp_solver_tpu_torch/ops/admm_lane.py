@@ -7,14 +7,17 @@ over-relaxation, per-row ρ with per-problem adaptation, OSQP termination and
 infeasibility certificates — with the batch axis last on every array.
 
 The reference's ``lax.while_loop`` over chunks is a host loop here.  On a
-CUDA device every iteration, factorization and the equilibration run in the
-hand-written kernels (:mod:`.admm_fused`, :mod:`.kkt_factor`,
-:mod:`.ruiz_kernel`, and with ``Settings(term_fused="off")``
-:mod:`.residuals`); the host reads the device ONCE per chunk (one small
-tensor holding "any problem still running" and "any ρ to adapt"), counted in
-:data:`HOST_SYNCS`.  On the CPU the same loop runs the kernels' plain
-versions, and ``Settings(fused_chunk="off")`` runs the unfused op-by-op
-path.
+CUDA device every iteration, factorization and the equilibration of a
+waypoint-layout vel-diag batch run in the hand-written kernels
+(:mod:`.admm_fused`, :mod:`.kkt_factor`, :mod:`.ruiz_kernel`, and with
+``Settings(term_fused="off")`` :mod:`.residuals`), in either factor form
+(``Settings.factor_form``).  The unfused path — ``Settings(fused_chunk=
+"off")`` or the ``"type"`` row layout — runs op by op, its KKT factor and
+solve in the block-tridiagonal kernels (:mod:`.tridiag_kernel`).  Either
+way the host reads the device ONCE per chunk (one small tensor holding "any
+problem still running" and "any ρ to adapt"), counted in
+:data:`HOST_SYNCS`.  On the CPU the same loops run the kernels' plain
+versions.
 """
 from __future__ import annotations
 
@@ -41,8 +44,14 @@ from .admm import (
 from .ruiz import Scaling
 from .status import ExitCode
 
-# Device→host reads made by the chunk loop since import (one per chunk).
+# Device→host reads since import: one per chunk of the chunk loop, one per
+# guarded bounds update of a session (ops/session_lane.py).
 HOST_SYNCS = 0
+# Batch refactorizations after a ρ adaptation since import (decided by the
+# chunk's one read; no read of their own).  A verification counter:
+# chip_smoke.py holds the factor kernel's launches to one per setup plus
+# this count.
+RHO_REFACTORS = 0
 
 
 # ---------------------------------------------------------------------------
@@ -51,8 +60,11 @@ HOST_SYNCS = 0
 
 
 def ruiz_equilibrate_lane(qp, iters: int = 10):
-    """Dispatch: the kernel wrapper for waypoint-layout batches (CUDA kernel
-    on the card, plain version on the CPU), the plain version otherwise."""
+    """Dispatch by row layout: the kernel wrapper for waypoint-layout
+    batches (CUDA kernel on the card, plain version on the CPU), the plain
+    torch version for the ``"type"`` layout on any device — the reference's
+    own dispatch (its Pallas Ruiz admits only the waypoint layout, and it
+    runs the jnp version for the others on the TPU too), not a fallback."""
     from .ruiz_kernel import (
         ruiz_equilibrate_lane_kernel,
         ruiz_equilibrate_lane_plain,
@@ -60,10 +72,6 @@ def ruiz_equilibrate_lane(qp, iters: int = 10):
 
     if qp.row_layout == "waypoint":
         return ruiz_equilibrate_lane_kernel(qp, iters)
-    if qp.device.type != "cpu":
-        raise NotImplementedError(
-            "on a CUDA device the lane solve needs the 'waypoint' row layout"
-        )
     return ruiz_equilibrate_lane_plain(qp, iters)
 
 
@@ -160,11 +168,14 @@ def init_state_lane(
 # ---------------------------------------------------------------------------
 
 
-def _iteration(scaled, st: LaneADMMState, factor, settings: Settings):
-    """One scaled ADMM iteration on the flat state (plain path)."""
+def _iteration(scaled, st: LaneADMMState, factor, settings: Settings,
+               kkt_solve=None):
+    """One scaled ADMM iteration on the flat state (unfused path).  The KKT
+    solve is ``scaled.kkt_solve`` (the block-tridiagonal kernel on a CUDA
+    batch) unless a ``kkt_solve(factor, rhs)`` is given."""
     sigma, alpha = settings.sigma, settings.alpha
     rhs = sigma * st.x - scaled.q + scaled.AT_matvec(st.rho_vec * st.z - st.y)
-    xt = scaled.kkt_solve(factor, rhs)
+    xt = (scaled.kkt_solve if kkt_solve is None else kkt_solve)(factor, rhs)
     zt = scaled.A_matvec(xt)
 
     x_new = alpha * xt + (1.0 - alpha) * st.x
@@ -462,27 +473,25 @@ def identity_scaling_lane(base) -> Scaling:
 
 
 def _use_fused(scaled, settings: Settings) -> bool:
-    """Whether the solve runs through the packed-state chunk (kernels on
-    CUDA, plain versions on the CPU) or the unfused CPU path."""
-    on_cuda = scaled.device.type == "cuda"
-    fusable = (
+    """Whether the solve runs through the packed-state chunk (a
+    waypoint-layout vel-diag batch, unless ``fused_chunk="off"``) or the
+    unfused path (the ``"type"`` layout, ``"off"``, block P on the CPU).
+    Kernels on CUDA, plain versions on the CPU, either way.  A
+    waypoint-layout block-P batch on CUDA raises: its Ruiz and chunk need
+    the block-P kernel forms, which are not ported yet."""
+    if (
+        scaled.device.type == "cuda"
+        and scaled.row_layout == "waypoint"
+        and scaled.p_structure != "vel_diag"
+    ):
+        raise NotImplementedError(
+            "on a CUDA device a 'waypoint'-layout lane batch needs vel-diag "
+            "P (the block-P forms of the Ruiz, chunk and residual kernels "
+            "are not ported yet)"
+        )
+    return settings.fused_chunk != "off" and (
         scaled.row_layout == "waypoint" and scaled.p_structure == "vel_diag"
     )
-    if settings.fused_chunk == "off":
-        if on_cuda:
-            raise NotImplementedError(
-                "fused_chunk='off' (the unfused path) runs on the CPU only"
-            )
-        return False
-    if not fusable:
-        if on_cuda:
-            raise NotImplementedError(
-                "on a CUDA device the lane solve needs the 'waypoint' row "
-                "layout and vel-diag P (the block-P forms of the Ruiz, "
-                "chunk and residual kernels are not ported yet)"
-            )
-        return False
-    return True
 
 
 def _solve_core(
@@ -497,7 +506,7 @@ def _solve_core(
     (x_lane, y_lane, rho_bar, factor))``; the second element is the
     lane-major carry a later solve can be started from.
     """
-    global HOST_SYNCS
+    global HOST_SYNCS, RHO_REFACTORS
     from .admm_fused import (
         build_lu_pack,
         fused_admm_chunk,
@@ -512,6 +521,10 @@ def _solve_core(
 
     check_supported(settings)
     use_fused = _use_fused(scaled, settings)
+    # Gain-free factor form (factor_form="hrec"): the packed factor is
+    # (cholp, None) and the chunk kernel rebuilds the sparse coupling in
+    # registers; the gain form streams the packed G_t the factor writes.
+    use_hrec = use_fused and settings.factor_form == "hrec"
     # Termination reductions inside the chunk kernel, or ("off") the chunk's
     # delta-writing form followed by the streaming residual kernel.
     use_term_fused = settings.term_fused != "off"
@@ -538,7 +551,7 @@ def _solve_core(
         if use_fused:
             return factor_packed_lane(
                 scaled, rho_vec_arr, settings.sigma, coef=coef_pack,
-                emit_gain=False,
+                emit_gain=not use_hrec,
             )
         return scaled.kkt_factor(rho_vec_arr, settings.sigma)
 
@@ -628,6 +641,7 @@ def _solve_core(
         running, any_adapt = flags.tolist()  # the chunk's one host sync
         HOST_SYNCS += 1
         if any_adapt:
+            RHO_REFACTORS += 1
             rho_bar = torch.where(adapt, new_rho, st.rho_bar)
             rho_vec = _rho_vec(rho_bar, scaled.l, scaled.u)
             st = st.replace(

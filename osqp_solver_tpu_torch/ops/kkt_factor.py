@@ -9,10 +9,11 @@ Every entry of ``P + σI + Aᵀdiag(ρ)A`` is a few multiplies of the
 per-waypoint stencil coefficients, so each 2N×2N block is assembled in
 registers from the ``(W, CRp, B)`` coefficient pack, the Schur step
 ``S_t = M_t − G_{t-1}G_{t-1}ᵀ`` and the Cholesky run in place, and only the
-packed lower triangle is written; the full blocks never exist in memory.
-One thread owns one problem and walks the horizon; ``G_{t-1}`` (78 packed
-values at N=6) is carried in registers beside the 78 of ``C_t``, so the
-kernel spills.  Bound on an H100: a chain of W dependent 12×12 Cholesky
+packed lower triangle is written (and, with ``emit_gain``, the packed upper
+triangle ``G_t`` the ``gain`` chunk form streams); the full blocks never
+exist in memory.  One thread owns one problem and walks the horizon;
+``G_{t-1}`` (78 packed values at N=6) is carried in registers beside the 78
+of ``C_t``.  Bound on an H100: a chain of W dependent 12×12 Cholesky
 steps per thread — latency, not bandwidth (it reads coef+ρ+Pd+Pl and writes
 Tp rows once) and not FLOP rate; small blocks spread B=1024 over the SMs.
 """
@@ -44,26 +45,29 @@ def factor_packed_lane_plain(scaled, rho_vec, sigma, coef=None,
                              emit_gain=False):
     """Plain PyTorch version: ``kkt_blocks`` → block-tridiagonal Cholesky
     (:mod:`.tridiag`) → ``pack_factor``."""
+    from ..gomp.trajectory_qp_lane import LaneFactor
     from .admm_fused import pack_factor
+    from .tridiag_kernel import factor_lane_major_plain
 
     del coef
-    cholp, gainp = pack_factor(scaled, scaled.kkt_factor(rho_vec, sigma))
+    chol, gain = factor_lane_major_plain(*scaled.kkt_blocks(rho_vec, sigma))
+    cholp, gainp = pack_factor(scaled, LaneFactor(chol=chol, gain=gain))
     return cholp, (gainp if emit_gain else None)
 
 
-def _launch_factor(lib, coef, rho3, Pd, Pl, cholp, sigma):
+def _launch_factor(lib, coef, rho3, Pd, Pl, cholp, sigma, gainp=None):
     """Call the C entry point of ``csrc/kkt_factor.cu`` on packs of one
-    device."""
+    device; ``gainp`` (or ``None``) selects the gain write."""
     W, _, B = cholp.shape
     fn = lib.kkt_factor_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     p = _build.ptr
-    err = fn(p(coef), p(rho3), p(Pd), p(Pl), p(cholp), W, B, float(sigma),
-             _build.stream(cholp.device))
+    err = fn(p(coef), p(rho3), p(Pd), p(Pl), p(cholp), p(gainp), W, B,
+             float(sigma), _build.stream(cholp.device))
     _build.check(err, "kkt_factor_launch")
 
 
@@ -72,10 +76,10 @@ def factor_packed_lane(scaled, rho_vec, sigma, coef=None, emit_gain=False):
 
     ``scaled``: waypoint-layout vel-diag :class:`LaneTrajectoryQP` (Ruiz
     scaled); ``rho_vec (m, B)``; ``coef``: its :func:`build_coef_pack`
-    (built when omitted).  Returns ``(cholp (W, Tp, B), None)`` — equal to
-    ``pack_factor(qp, qp.kkt_factor(rho_vec, sigma))[0]`` up to f32
-    reassociation.  The gain pack (``emit_gain=True``) is produced by the
-    plain version only; the kernel's gain write is not ported yet.
+    (built when omitted).  Returns ``(cholp (W, Tp, B), None)``, or with
+    ``emit_gain=True`` ``(cholp, gainp (W, Tp, B))`` — equal to
+    ``pack_factor(qp, qp.kkt_factor(rho_vec, sigma))`` up to f32
+    reassociation.
     """
     from .admm_fused import (
         _coef_layout, _tri_maps, build_coef_pack, layout_signature,
@@ -97,11 +101,6 @@ def factor_packed_lane(scaled, rho_vec, sigma, coef=None, emit_gain=False):
         return factor_packed_lane_plain(scaled, rho_vec, sigma, coef, emit_gain)
     if scaled.p_structure != "vel_diag":
         raise NotImplementedError("the factor kernel needs vel-diag P")
-    if emit_gain:
-        raise NotImplementedError(
-            "the factor kernel's gain write (factor_form='gain') is not "
-            "ported yet"
-        )
     if rho_vec.dtype != torch.float32:
         raise TypeError(
             f"the CUDA factor kernel takes float32, got {rho_vec.dtype}"
@@ -115,13 +114,18 @@ def factor_packed_lane(scaled, rho_vec, sigma, coef=None, emit_gain=False):
     Pd, Pl = build_p_vel_packs(scaled)
     rho3 = rho_vec.reshape(W, Rp, B).contiguous()
     cholp = torch.empty((W, Tp, B), dtype=torch.float32, device=rho_vec.device)
+    gainp = torch.empty_like(cholp) if emit_gain else None
 
     _launch_factor(
         _build.library("kkt_factor", layout_signature(scaled)),
-        coef, rho3, Pd, Pl, cholp, sigma,
+        coef, rho3, Pd, Pl, cholp, sigma, gainp,
     )
     factor_packed_lane.launches += 1
-    return cholp, None
+    if emit_gain:
+        factor_packed_lane.launches_gain += 1
+    return cholp, gainp
 
 
+# Kernel launches since import: both forms, and the gain-writing form alone.
 factor_packed_lane.launches = 0
+factor_packed_lane.launches_gain = 0

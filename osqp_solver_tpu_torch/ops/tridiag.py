@@ -31,12 +31,19 @@ def _trail(a):  # (B, ...) -> (..., B)
     return a.movedim(0, -1)
 
 
+def _chol(a):
+    """Batched Cholesky; a block that is not positive definite becomes NaN
+    (no exception), as the reference's ``jnp.linalg.cholesky`` gives."""
+    L, info = torch.linalg.cholesky_ex(a)
+    return torch.where((info == 0)[:, None, None], L, float("nan"))
+
+
 def block_tridiag_factor(diag, lower) -> BlockTridiagFactor:
     """``C_0 = chol(D_0)``; ``G_t = L_t C_t⁻ᵀ``;
-    ``C_{t+1} = chol(D_{t+1} − G_t G_tᵀ)``.  A non-positive pivot yields
-    NaN (no exception), as in the reference."""
+    ``C_{t+1} = chol(D_{t+1} − G_t G_tᵀ)``.  A non-positive pivot yields a
+    NaN block (no exception), as in the reference."""
     W = diag.shape[0]
-    c = torch.linalg.cholesky_ex(_lead(diag[0])).L
+    c = _chol(_lead(diag[0]))
     chols, gains = [c], []
     for t in range(W - 1):
         L_t = _lead(lower[t])  # (B, n, n)
@@ -44,9 +51,7 @@ def block_tridiag_factor(diag, lower) -> BlockTridiagFactor:
         g = torch.linalg.solve_triangular(
             c, L_t.transpose(-1, -2), upper=False
         ).transpose(-1, -2)
-        c = torch.linalg.cholesky_ex(
-            _lead(diag[t + 1]) - g @ g.transpose(-1, -2)
-        ).L
+        c = _chol(_lead(diag[t + 1]) - g @ g.transpose(-1, -2))
         chols.append(c)
         gains.append(g)
     chol = _trail(torch.stack(chols, dim=1))  # (B, W, n, n) -> (W, n, n, B)

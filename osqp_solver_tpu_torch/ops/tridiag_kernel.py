@@ -1,0 +1,115 @@
+"""Batched block-tridiagonal Cholesky factor and solve on full blocks.
+
+Counterpart of ``osqp_solver_tpu/ops/pallas_tridiag.py``
+(``factor_lane_major``, ``solve_lane_major``); the plain versions wrap
+:mod:`.tridiag`.  These carry the unfused lane path
+(``LaneTrajectoryQP.kkt_factor`` / ``kkt_solve``): the ``"type"`` row
+layout and ``Settings(fused_chunk="off")``.
+
+Kernel note (``csrc/tridiag.cu`` replaces the Pallas bodies
+``_factor_kernel`` and ``_solve_kernel``).  The TPU kernels spread a batch
+tile over (sublane, lane) and stream each waypoint's full blocks through
+double-buffered VMEM.  Here one thread owns one problem and walks the
+horizon; the batch-trailing layout ``(W, B2, B2, B)`` makes a warp's 32
+loads of one block entry one 128-byte segment.  Both kernels stage the next
+step's blocks into shared memory with per-thread ``cp.async`` (two stages)
+while the current step computes.  The factor keeps ``C_{t-1}`` and
+``G_{t-1}`` in shared memory (one column per thread) and ``S_t`` in
+registers; the solve carries ``w_{t-1}`` / ``x_{t+1}`` in registers.  Bound
+on an H100: bytes on paper (~0.04-0.07 ms at B=1024, W=100, B2=12), the
+latency of each thread's serial chain of W steps in practice.  The block
+size ``B2`` is compile-time (one build per ``B2``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from .tridiag import BlockTridiagFactor, block_tridiag_factor, block_tridiag_solve
+
+
+def factor_lane_major_plain(diag, lower):
+    """Plain PyTorch version of :func:`factor_lane_major`."""
+    f = block_tridiag_factor(diag, lower)
+    return f.chol, f.gain
+
+
+def solve_lane_major_plain(chol, gain, rhs):
+    """Plain PyTorch version of :func:`solve_lane_major`."""
+    return block_tridiag_solve(BlockTridiagFactor(chol, gain), rhs)
+
+
+def _lib(B2):
+    return _build.library("tridiag", {"B2": int(B2)})
+
+
+def _launch(lib, name, a, b, c, d):
+    """Call ``tridiag_<name>_launch`` of ``csrc/tridiag.cu``: factor
+    ``(diag, lower, chol, gain)`` or solve ``(chol, gain, rhs, x)``, all on
+    one device, the first a ``(W, B2, B2, B)`` array."""
+    W, _, _, B = a.shape
+    fn = getattr(lib, f"tridiag_{name}_launch")
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+            ctypes.c_void_p
+        ]
+        fn.restype = ctypes.c_int
+    p = _build.ptr
+    err = fn(p(a), p(b), p(c), p(d), W, B, _build.stream(a.device))
+    _build.check(err, f"tridiag_{name}_launch")
+
+
+def factor_lane_major(diag, lower):
+    """Block Cholesky of a batch of symmetric block-tridiagonal matrices.
+
+    ``diag (W, B2, B2, B)``, ``lower (W-1, B2, B2, B)`` with
+    ``lower[t] = M[t+1, t]`` → ``(chol (W, B2, B2, B), gain (W-1, B2, B2,
+    B))``, ``M = C Cᵀ`` (upper triangle of ``chol`` zero).  A problem whose
+    matrix is not positive definite gets NaN blocks from the failing one on.
+    On a CUDA tensor the kernel runs (float32); on a CPU tensor the plain
+    version.
+    """
+    from .admm_fused import _check_pack
+
+    W, B2, _, B = diag.shape
+    diag, lower = diag.contiguous(), lower.contiguous()
+    _check_pack("lower", lower, (W - 1, B2, B2, B), diag)
+    if diag.device.type == "cpu":
+        return factor_lane_major_plain(diag, lower)
+    if diag.dtype != torch.float32:
+        raise TypeError(f"the CUDA tridiag kernel takes float32, got {diag.dtype}")
+    chol = torch.empty_like(diag)
+    gain = torch.empty_like(lower)
+    _launch(_lib(B2), "factor", diag, lower, chol, gain)
+    factor_lane_major.launches += 1
+    return chol, gain
+
+
+def solve_lane_major(chol, gain, rhs):
+    """Solve ``M x = rhs`` from :func:`factor_lane_major`'s factor.
+
+    ``chol (W, B2, B2, B)``, ``gain (W-1, B2, B2, B)``, ``rhs (W, B2, B)`` →
+    ``x (W, B2, B)``.  On a CUDA tensor the kernel runs (float32); on a CPU
+    tensor the plain version.
+    """
+    from .admm_fused import _check_pack
+
+    W, B2, _, B = chol.shape
+    chol, gain, rhs = chol.contiguous(), gain.contiguous(), rhs.contiguous()
+    _check_pack("gain", gain, (W - 1, B2, B2, B), chol)
+    _check_pack("rhs", rhs, (W, B2, B), chol)
+    if chol.device.type == "cpu":
+        return solve_lane_major_plain(chol, gain, rhs)
+    if chol.dtype != torch.float32:
+        raise TypeError(f"the CUDA tridiag kernel takes float32, got {chol.dtype}")
+    x = torch.empty_like(rhs)
+    _launch(_lib(B2), "solve", chol, gain, rhs, x)
+    solve_lane_major.launches += 1
+    return x
+
+
+# Kernel launches since import.
+factor_lane_major.launches = 0
+solve_lane_major.launches = 0

@@ -150,11 +150,17 @@ def chunk_case(seed=0, n_iter=3, flags=FLAGS, n_obs=N_OBS, W=W):
                                 packs, args)
 
 
-def host_lib(name, qp):
-    """A kernel's source built with g++ in host emulation (double)."""
+def host_lib_signature(name, signature):
+    """A kernel's source built with g++ in host emulation (double) for one
+    layout signature."""
     if shutil.which("g++") is None:
         pytest.skip("host emulation of the CUDA sources needs g++")
-    return _build.library(name, tfused.layout_signature(qp), host=True)
+    return _build.library(name, signature, host=True)
+
+
+def host_lib(name, qp):
+    """A lane kernel's source in host emulation for ``qp``'s layout."""
+    return host_lib_signature(name, tfused.layout_signature(qp))
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -38,6 +38,29 @@ def test_factor_plain_matches_reference(flags, n_obs):
     assert tfactor.factor_packed_lane.launches == 0
 
 
+@pytest.mark.parametrize("flags,n_obs", [((False, True), 1), ((), 0)])
+def test_factor_plain_gain_matches_reference(flags, n_obs):
+    """``emit_gain=True``: the packed upper-triangular G_t beside cholp, the
+    last waypoint's row zero (the reference's ``pack_factor``)."""
+    jqp, tqp = both(flags=flags, n_obs=n_obs)
+    rho = np.random.default_rng(4).uniform(0.05, 5.0, (jqp.m, B))
+    ref_c, ref_g = jfused.pack_factor(
+        jqp, jqp.kkt_factor(jnp.asarray(rho), 1e-6))
+    cholp, gainp = tfactor.factor_packed_lane(tqp, _t(rho), 1e-6,
+                                              emit_gain=True)
+    assert_close(cholp, ref_c, rtol=1e-10, atol=1e-13)
+    assert_close(gainp, ref_g, rtol=1e-10, atol=1e-13)
+    assert (to_np(gainp)[-1] == 0.0).all()
+    assert tfactor.factor_packed_lane.launches_gain == 0
+
+
+def _gain_args(tscaled, tsettings, rho_vec, args):
+    """The chunk case's arguments with the gain-form packed factor."""
+    gf = tfactor.factor_packed_lane(tscaled, rho_vec, tsettings.sigma,
+                                    coef=args["coef"], emit_gain=True)
+    return dict(args, packed_factor=gf)
+
+
 def test_factor_wrapper_refuses_bad_arguments():
     _, tqp = both()
     rho = torch.full((tqp.m, B), 0.1, dtype=torch.float64)
@@ -131,6 +154,41 @@ def test_chunk_emit_dxdy_matches_reference_deltas(flags, n_obs):
     assert tfused.fused_admm_chunk.launches_dxdy == 0
 
 
+@pytest.mark.parametrize("mode", ["term", "plain", "dxdy"])
+def test_chunk_plain_gain_form_matches_reference(mode):
+    """The gain form of each mode: the streamed G_t gives the reference's
+    iterations (its unfused solve is the gain algebra), accumulators and
+    deltas; the state equals the hrec form's."""
+    (jscaled, ref, tq), (tscaled, ts, tsettings, rho_vec, done, packs, args) = (
+        _chunk_case())
+    gargs = _gain_args(tscaled, tsettings, rho_vec, args)
+    if mode != "term":
+        gargs["term_packs"] = args["term_packs"] = None
+    kw = dict(emit_dxdy=True) if mode == "dxdy" else {}
+    out, extra = tfused.fused_admm_chunk(tscaled, rho_vec, done, tsettings,
+                                         **gargs, **kw)
+    hrec_out, _ = tfused.fused_admm_chunk(tscaled, rho_vec, done, tsettings,
+                                          **args, **kw)
+    x, z, y = tfused.unpack_state(tscaled, out)
+    tol = dict(rtol=1e-10, atol=1e-10)
+    assert_close(x, ref.x, **tol)
+    assert_close(z, ref.z, **tol)
+    assert_close(y, ref.y, **tol)
+    assert_close(out, hrec_out, rtol=1e-10, atol=1e-10)
+    if mode == "term":
+        got = tresid.assemble_term_quantities(extra, ts.cinv, packs["norm_Dq"])
+        for name in tq._fields:
+            assert_close(getattr(got, name), getattr(tq, name),
+                         rtol=1e-9, atol=1e-9)
+    elif mode == "dxdy":
+        dx, dy = tfused.unpack_dxdy(tscaled, extra)
+        assert_close(dx, ref.dx, **tol)
+        assert_close(dy, ref.dy, **tol)
+    else:
+        assert extra is None
+    assert tfused.fused_admm_chunk.launches_gain == 0
+
+
 def test_chunk_wrapper_refuses_bad_arguments():
     _, (tscaled, ts, tsettings, rho_vec, done, packs, args) = _chunk_case()
     call = lambda **kw: tfused.fused_admm_chunk(  # noqa: E731
@@ -148,6 +206,9 @@ def test_chunk_wrapper_refuses_bad_arguments():
     with pytest.raises(NotImplementedError):
         tfused.fused_admm_chunk(tscaled.replace(p_structure="block"), rho_vec,
                                 done, tsettings, **args)
+    cholp = args["packed_factor"][0]
+    with pytest.raises(ValueError):
+        call(packed_factor=(cholp, cholp[:-1].contiguous()))
 
 
 # ------------------------------------------- CUDA sources in host emulation
@@ -210,3 +271,62 @@ def test_emulated_chunk_kernel_matches_plain(emit_term, flags, n_obs, tmp_path,
     assert_close(state[..., [1, 6]], args["state_pack"][..., [1, 6]])
     if emit_term:
         assert_close(acc, plain_acc, rtol=1e-8, atol=1e-9)
+
+
+@pytest.mark.parametrize("flags,n_obs", [((False, True), 1), ((), 0)])
+def test_emulated_factor_kernel_gain_write_matches_plain(flags, n_obs,
+                                                         tmp_path,
+                                                         monkeypatch):
+    monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
+    _, tqp = both(flags=flags, n_obs=n_obs)
+    rho = _t(np.random.default_rng(5).uniform(0.05, 5.0, (tqp.m, B)))
+    plain_c, plain_g = tfactor.factor_packed_lane_plain(tqp, rho, 1e-6,
+                                                        emit_gain=True)
+    Pd, Pl = tfactor.build_p_vel_packs(tqp)
+    cholp = torch.full_like(plain_c, float("nan"))
+    gainp = torch.full_like(plain_g, float("nan"))
+    tfactor._launch_factor(
+        _host_lib("kkt_factor", tqp), tfused.build_coef_pack(tqp),
+        rho.reshape(tqp.waypoints, -1, B).contiguous(), Pd, Pl, cholp, 1e-6,
+        gainp)
+    assert_close(cholp, plain_c, rtol=1e-9, atol=1e-12)
+    assert_close(gainp, plain_g, rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("mode", ["term", "plain", "dxdy"])
+@pytest.mark.parametrize("flags,n_obs", [((False, True), 1), ((), 0)])
+def test_emulated_chunk_kernel_gain_form_matches_plain(mode, flags, n_obs,
+                                                       tmp_path, monkeypatch):
+    """The gain form of each of the three modes of ``csrc/admm_chunk.cu``
+    (G_{t-1} streamed forward, G_t backward) against the plain version."""
+    monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
+    _, (tscaled, ts, tsettings, rho_vec, done, packs, args) = _chunk_case(
+        flags=flags, n_obs=n_obs)
+    args = _gain_args(tscaled, tsettings, rho_vec, args)
+    if mode != "term":
+        args["term_packs"] = None
+    plain_state, plain_extra = tfused.fused_admm_chunk_plain(
+        tscaled, rho_vec, done, tsettings, emit_dxdy=mode == "dxdy", **args)
+    W = tscaled.waypoints
+    state = args["state_pack"].clone()
+    ee, varc, Pdp, Plf = args["term_packs"] or (
+        None, None, None, tfactor.build_p_vel_packs(tscaled)[1])
+    f64 = dict(dtype=torch.float64)
+    acc = torch.full((24, B), float("nan"), **f64) if mode == "term" else None
+    dxdy = (torch.full_like(plain_extra, float("nan"))
+            if mode == "dxdy" else None)
+    cholp, gainp = args["packed_factor"]
+    tfused._launch_chunk(
+        _host_lib("admm_chunk", tscaled), cholp, args["coef"],
+        tscaled._interleave(tscaled.q_vec).contiguous(), args["lu"],
+        rho_vec.reshape(W, -1, B).contiguous(), Plf, ee, varc, Pdp,
+        done.to(torch.float64), state,
+        torch.empty((W, 2 * tscaled.n_dim, B), **f64), acc,
+        tsettings.check_termination, tsettings.sigma, tsettings.alpha,
+        dxdy=dxdy, gainp=gainp)
+    assert_close(state, plain_state, rtol=1e-9, atol=1e-9)
+    assert_close(state[..., [1, 6]], args["state_pack"][..., [1, 6]])
+    if mode == "term":
+        assert_close(acc, plain_extra, rtol=1e-8, atol=1e-9)
+    elif mode == "dxdy":
+        assert_close(dxdy, plain_extra, rtol=1e-9, atol=1e-9)

@@ -30,6 +30,7 @@ B, N = 8, 6
 BENCH = dict(rho=0.04, check_termination=2, adaptive_rho_interval=45,
              scaling=3, alpha=1.6, factor_form="hrec", termination_warmup=21)
 _CACHE = {}
+_REFS = {}  # JAX solves, by problem and settings: several port forms share one
 
 
 def _problems(W):
@@ -45,8 +46,8 @@ def _problems(W):
 def _compare(W, overrides, warm=False, rho0=None, port_overrides=None):
     jqp, tqp = _problems(W)
     js = dataclasses.replace(jadmm.Settings(), fused_chunk="off", **overrides)
-    ts = dataclasses.replace(tadmm.Settings(), **overrides,
-                             **(port_overrides or {}))
+    ts = dataclasses.replace(tadmm.Settings(),
+                             **{**overrides, **(port_overrides or {})})
     kw_j, kw_t = {}, {}
     if warm:
         rng = np.random.default_rng(W)
@@ -57,7 +58,11 @@ def _compare(W, overrides, warm=False, rho0=None, port_overrides=None):
     if rho0 is not None:
         kw_j["rho0"] = jnp.asarray(rho0)
         kw_t["rho0"] = rho0
-    ref = jdrv.solve_batched_lane(jqp, js, **kw_j)
+    key = (W, tuple(sorted(overrides.items())), warm,
+           None if rho0 is None else tuple(np.ravel(rho0)))
+    if key not in _REFS:
+        _REFS[key] = jdrv.solve_batched_lane(jqp, js, **kw_j)
+    ref = _REFS[key]
     syncs = tdrv.HOST_SYNCS
     got = tdrv.solve_batched_lane(tqp, ts, device="cpu", **kw_t)
     np.testing.assert_array_equal(to_np(got.status), np.asarray(ref.status))
@@ -144,8 +149,22 @@ def test_unfused_termination_matches_fused_and_reference(W, extra, optimal,
     assert (to_np(unfused.status) == ExitCode.kOptimal).all() == optimal
 
 
+@pytest.mark.parametrize("W,overrides,port_overrides", [
+    (20, BENCH, {}),  # warm-up chunk, fused termination
+    (24, dict(rho=0.005), {}),  # ρ adaptation refactors in the gain form
+    (20, BENCH, dict(term_fused="off")),  # delta-writing chunk + residuals
+])
+def test_gain_factor_form_matches_reference(W, overrides, port_overrides):
+    """``factor_form="gain"``: the factor writes the packed gain and the
+    chunk streams it; statuses and iteration counts equal to the JAX
+    package, solutions within 1e-7."""
+    got = _compare(W, overrides,
+                   port_overrides=dict(port_overrides, factor_form="gain"))
+    assert (to_np(got.status) == ExitCode.kOptimal).all()
+
+
 @pytest.mark.parametrize("override", [
-    dict(kkt_method="cg"), dict(factor_form="gain"),
+    dict(kkt_method="cg"),
     dict(anderson=3), dict(polish=True), dict(kkt_refine=1),
     dict(factor_round="f16"), dict(factor_warmup_stream="bf16"),
 ])
@@ -169,6 +188,10 @@ def test_bad_settings_and_arguments_raise():
     with pytest.raises(ValueError):
         tdrv.solve_batched_lane(
             tqp, dataclasses.replace(tadmm.Settings(), term_fused="maybe"),
+            device="cpu")
+    with pytest.raises(ValueError):
+        tdrv.solve_batched_lane(
+            tqp, dataclasses.replace(tadmm.Settings(), factor_form="ldl"),
             device="cpu")
     with pytest.raises(TypeError):
         tdrv.solve_batched_lane({"not": "a lane qp"}, device="cpu")

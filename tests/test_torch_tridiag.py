@@ -1,0 +1,132 @@
+"""PyTorch port vs JAX package: the batched block-tridiagonal factor and
+solve (``ops/tridiag_kernel.py``).  The plain versions are held to
+``pallas_tridiag.factor_lane_major`` / ``solve_lane_major`` in interpret
+mode, and ``csrc/tridiag.cu`` compiled in host emulation (g++, double) to
+the plain versions.  f64, CPU."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from osqp_solver_tpu.ops import pallas_tridiag as jtri
+from osqp_solver_tpu.ops import tridiag as jref
+from osqp_solver_tpu_torch import _build
+from osqp_solver_tpu_torch.ops import tridiag_kernel as ttri
+
+from test_torch_helpers import assert_close, host_lib_signature, to_np
+
+pytestmark = pytest.mark.torch_port
+
+
+def spd_batch(W, B2, B, seed=0):
+    """Batch-trailing ``diag (W, B2, B2, B)``, ``lower (W-1, B2, B2, B)`` of
+    block-tridiagonal SPD matrices (diagonally dominant blocks) and a
+    right-hand side ``(W, B2, B)``, as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(W, B2, B2, B))
+    diag = np.einsum("wikb,wjkb->wijb", a, a) + (2.0 * B2) * np.eye(B2)[
+        None, :, :, None]
+    lower = 0.5 * rng.normal(size=(max(W - 1, 0), B2, B2, B))
+    rhs = rng.normal(size=(W, B2, B))
+    return diag, lower, rhs
+
+
+def t_(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("W,B2,B", [(5, 4, 3), (16, 12, 7), (1, 4, 2)])
+def test_plain_matches_pallas_interpret(W, B2, B):
+    """The shapes of ``tests/test_pallas_tridiag.py``.  The factor runs in
+    interpret mode at B2=4; at B2=12 (where tracing the unrolled 12x12
+    kernel in interpret mode costs ~35 s of one CPU) it is held to the
+    reference's scan ``block_tridiag_factor``, which its Pallas kernel
+    matches; the solve runs in interpret mode at every shape."""
+    diag, lower, rhs = spd_batch(W, B2, B)
+    if B2 == 4:
+        jchol, jgain = jtri.factor_lane_major(
+            jnp.asarray(diag), jnp.asarray(lower), interpret=True)
+    else:
+        jf = jax.vmap(jref.block_tridiag_factor, in_axes=-1, out_axes=-1)(
+            jnp.asarray(diag), jnp.asarray(lower))
+        jchol, jgain = jf.chol, jf.gain
+    chol, gain = ttri.factor_lane_major(t_(diag), t_(lower))
+    assert_close(chol, jchol, rtol=1e-10, atol=1e-12)
+    assert tuple(gain.shape) == (W - 1, B2, B2, B)
+    assert_close(gain, jgain, rtol=1e-10, atol=1e-12)
+    jx = jtri.solve_lane_major(jchol, jgain, jnp.asarray(rhs), interpret=True)
+    x = ttri.solve_lane_major(chol, gain, t_(rhs))
+    assert_close(x, jx, rtol=1e-10, atol=1e-12)
+    assert ttri.factor_lane_major.launches == 0
+    assert ttri.solve_lane_major.launches == 0
+
+
+def _emulated(diag, lower, rhs):
+    """Factor and solve through ``csrc/tridiag.cu`` in host emulation."""
+    W, B2, _, B = diag.shape
+    lib = host_lib_signature("tridiag", {"B2": B2})
+    chol = torch.full_like(diag, float("nan"))
+    gain = torch.full_like(lower, float("nan"))
+    ttri._launch(lib, "factor", diag, lower, chol, gain)
+    x = torch.full_like(rhs, float("nan"))
+    ttri._launch(lib, "solve", chol, gain, rhs, x)
+    return chol, gain, x
+
+
+@pytest.mark.parametrize("B2", [12, 14])
+@pytest.mark.parametrize("W", [1, 2, 5])
+def test_emulated_kernels_match_plain(W, B2, tmp_path, monkeypatch):
+    """B = 37: two blocks of 32 threads, the second one mostly idle."""
+    monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
+    diag, lower, rhs = (t_(a) for a in spd_batch(W, B2, 37, seed=W + B2))
+    chol, gain, x = _emulated(diag, lower, rhs)
+    pchol, pgain = ttri.factor_lane_major_plain(diag, lower)
+    assert_close(chol, pchol, rtol=1e-9, atol=1e-12)
+    assert_close(gain, pgain, rtol=1e-9, atol=1e-12)
+    iu = torch.triu_indices(B2, B2, offset=1)
+    assert (chol[:, iu[0], iu[1]] == 0).all()  # upper triangle written zero
+    assert_close(x, ttri.solve_lane_major_plain(pchol, pgain, rhs),
+                 rtol=1e-9, atol=1e-12)
+
+
+def test_emulated_non_spd_block_gives_nan(tmp_path, monkeypatch):
+    """A block that is not positive definite turns that problem's factor
+    into NaN from that waypoint on — in the kernel and in the plain
+    version alike — and touches no other problem."""
+    monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
+    W, B2, B, bad, t_bad = 5, 12, 37, 7, 2
+    diag, lower, rhs = spd_batch(W, B2, B, seed=3)
+    diag[t_bad, :, :, bad] = -np.eye(B2)
+    diag, lower, rhs = t_(diag), t_(lower), t_(rhs)
+    chol, gain, x = _emulated(diag, lower, rhs)
+    pchol, pgain = ttri.factor_lane_major_plain(diag, lower)
+    il = torch.tril_indices(B2, B2)
+    low, plow = chol[:, il[0], il[1]], pchol[:, il[0], il[1]]
+    np.testing.assert_array_equal(to_np(torch.isnan(low)),
+                                  to_np(torch.isnan(plow)))
+    assert torch.isnan(low[t_bad:, :, bad]).all()
+    assert torch.isfinite(low[:t_bad, :, bad]).all()
+    assert torch.isnan(gain[t_bad:, ..., bad]).all()
+    others = torch.arange(B) != bad
+    assert torch.isfinite(chol[..., others]).all()
+    assert torch.isfinite(x[..., others]).all()
+    assert torch.isnan(x[..., bad]).all()
+    assert_close(torch.nan_to_num(low), torch.nan_to_num(plow),
+                 rtol=1e-9, atol=1e-12)
+    assert_close(torch.nan_to_num(gain), torch.nan_to_num(pgain),
+                 rtol=1e-9, atol=1e-12)
+
+
+def test_wrappers_refuse_bad_arguments():
+    diag, lower, rhs = (t_(a) for a in spd_batch(4, 4, 3))
+    with pytest.raises(ValueError):
+        ttri.factor_lane_major(diag, lower[:-1])
+    with pytest.raises(TypeError):
+        ttri.factor_lane_major(diag, lower.float())
+    chol, gain = ttri.factor_lane_major(diag, lower)
+    with pytest.raises(ValueError):
+        ttri.solve_lane_major(chol, gain, rhs[:, :-1])
+    with pytest.raises(ValueError):
+        ttri.solve_lane_major(chol, gain[:, :-1], rhs)
+    assert "tridiag" in _build.KERNELS and _build.KERNELS["tridiag"] == ("B2",)
