@@ -5,14 +5,16 @@ Run it from the repository root on a machine with one NVIDIA Hopper GPU:
 
     python3 chip_smoke.py
 
-It builds the hand-written kernels from ``osqp_solver_tpu_torch/csrc`` (five
-sources; three layout signatures of the lane kernels and the block size of
-the tridiagonal one; all compilers started together), holds each kernel —
-the chunk kernel in its accumulator, warm-up and delta-writing forms, each
-in the ``hrec`` and the ``gain`` factor form, the factor kernel with and
-without its gain write, the block-tridiagonal factor and solve — against its
-plain PyTorch version on the card at the main path's shape (honest GOMP
-class, W=100, N=6, B=1024, float32), times both, then drives the port's
+It builds the hand-written kernels from ``osqp_solver_tpu_torch/csrc`` (six
+sources; three layout signatures of the lane kernels, the block size of the
+tridiagonal one, and the dense one; all compilers started together), holds
+each kernel — the chunk kernel in its accumulator, warm-up and
+delta-writing forms, each in the ``hrec`` and the ``gain`` factor form, the
+factor kernel with and without its gain write, the block-tridiagonal factor
+and solve, the dense Cholesky factor and solve — against its plain PyTorch
+version on the card at its main path's shape (honest GOMP class, W=100,
+N=6, B=1024; dense QPs n=64, m=96, B=1024; float32), times both, then
+drives the port's
 entry points:
 
 * ``solve_batched_lane`` on a 1024-problem honest batch (``solve``), the same
@@ -30,7 +32,14 @@ entry points:
   in the default ``hrec`` form (``mpc_fleet``), with ``factor_form="gain"``
   (``mpc_fleet_gain``) and on the unfused path with its tridiagonal kernels,
   reached by ``fused_chunk="off"`` and by the ``"type"`` row layout
-  (``mpc_fleet_unfused``), with guarded bound updates.
+  (``mpc_fleet_unfused``), with guarded bound updates;
+* the generic path: ``ops/admm.py::solve_batched`` on BASELINE config 2
+  (1024 dense random box QPs, n=64, m=96: ``dense``), ``ops/session.py``'s
+  ``setup`` → ``mpc_scan`` on config 4 (1000 bound shifts of an n=8 QP:
+  ``dense_session``), and on the trajectory container ``solve`` (config 1,
+  W=10) and a session (config 4b, the honest W=100 QP, 200 goal shifts:
+  ``trajectory_generic``), held to the JAX package's iteration counts on the
+  same problems (``tools/jax_reference_counts.py``).
 
 It checks statuses, ADMM iteration counts, OSQP's residual criterion
 recomputed in float64 on the host, and that every kernel was really launched
@@ -72,8 +81,11 @@ from osqp_solver_tpu_torch.gomp.honest_batch import (
 )
 from osqp_solver_tpu_torch.gomp.trajectory_qp_lane import _ARRAY_FIELDS
 from osqp_solver_tpu_torch.models import ur5e
+from osqp_solver_tpu_torch import convert
+from osqp_solver_tpu_torch.ops import admm as gadmm
 from osqp_solver_tpu_torch.ops import admm_fused, admm_lane, kkt_factor
-from osqp_solver_tpu_torch.ops import session_lane
+from osqp_solver_tpu_torch.ops import dense_kernel, session_lane
+from osqp_solver_tpu_torch.ops import session as gsession
 from osqp_solver_tpu_torch.ops import residuals, ruiz_kernel, tridiag_kernel
 from osqp_solver_tpu_torch.ops.admm import Settings, _rho_vec
 from osqp_solver_tpu_torch.ops.residuals import _ACC
@@ -90,6 +102,9 @@ TOL_RUIZ, TOL_FACTOR, TOL_CHUNK = 1e-5, 1e-4, 1e-3
 # reassociation along a 100-step recurrence of 12x12 Cholesky steps.
 TOL_TRIDIAG = 1e-4
 TOL_RESID_MAX, TOL_RESID_SUM = 1e-4, 1e-3
+# Dense Cholesky factor and solve (f32 kernel) against the plain version in
+# f64 on the same f32 inputs: the tolerances of tests/test_pallas_dense.py.
+TOL_DENSE_FACTOR, TOL_DENSE_SOLVE = 2e-4, 2e-3
 RESID_SUMS = ("support", "q_dot", "xsum", "ysum")
 PLANNER = dict(rho=0.04, check_termination=3, scaling=3)
 LANE_KERNELS = ("ruiz", "kkt_factor", "admm_chunk")
@@ -101,7 +116,7 @@ FLEET = dict(rho=0.05, check_termination=5, adaptive_rho_interval=51)
 FLEET_TICKS = 50
 PHASES = ("build,kernels,solve,solve_unfused_term,solve_stock,box,"
           "planner_full,planner_obstacles,mpc_fleet,mpc_fleet_gain,"
-          "mpc_fleet_unfused")
+          "mpc_fleet_unfused,dense,dense_session,trajectory_generic")
 RECORDS = {}
 
 
@@ -223,10 +238,148 @@ def ops_tridiag_solve(W, B2, B):
     return 2 * W * B * sweep
 
 
+def ops_dense_factor(n, B):
+    """Right-looking Cholesky: a square root and n-j-1 divides per column,
+    a multiply-subtract per entry of the trailing lower triangle."""
+    return B * sum(1 + (n - j - 1) + 2 * sum(n - k for k in range(j + 1, n))
+                   for j in range(n))
+
+
+def ops_dense_solve(n, B):
+    """Forward axpy sweep and backward dot sweep: one divide per row and a
+    multiply-add per strictly-lower entry in each."""
+    return B * 2 * sum(1 + 2 * (n - j - 1) for j in range(n))
+
+
+def dense_factor_bytes(n, B):
+    """The lower triangle of M read, all of Lt (zeros included) written."""
+    return (n * (n + 1) // 2 + n * n) * B * 4
+
+
+def dense_solve_bytes(n, B):
+    """The lower triangle of Lt and rhs read, x written."""
+    return (n * (n + 1) // 2 + 2 * n) * B * 4
+
+
 def bound(bytes_moved, ops):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ------------------------------------------------ generic path: problems
+# BASELINE config 2 (benchmarks/run_all.py:107-117): dense random box QPs,
+# drawn with numpy (the machine with the card has no JAX) from one seed.
+DENSE_N, DENSE_M, DENSE_SEED = 64, 96, 0
+# BASELINE config 4 (run_all.py:186-213): 1000 sequential bound shifts,
+# all checked; the first 200 of them timed again.
+SESSION_STEPS, SESSION_TIMED = 1000, 200
+# BASELINE config 4b (run_all.py:215-266), cut from 1000 to 200 goal shifts.
+GOAL_STEPS = 200
+INF_BOUND = 1e30
+
+
+def dense_problems(batch, seed=DENSE_SEED, n=DENSE_N, m=DENSE_M):
+    """Config 2's problems as float32 numpy arrays, batch-LEADING (the JAX
+    package's vmapped layout): ``P = M Mᵀ/n + 0.1 I``, ``q``, ``A``
+    standard normal, bounds ``A x0 ± (|e| + 0.1)`` around a random point."""
+    rng = np.random.default_rng(seed)
+    Mx = rng.standard_normal((batch, n, n))
+    q = rng.standard_normal((batch, n))
+    A = rng.standard_normal((batch, m, n))
+    x0 = rng.standard_normal((batch, n))
+    margin = np.abs(rng.standard_normal((batch, m))) + 0.1
+    P = Mx @ Mx.transpose(0, 2, 1) / n + 0.1 * np.eye(n)
+    Ax0 = np.einsum("bmn,bn->bm", A, x0)
+    return tuple(a.astype(np.float32)
+                 for a in (P, q, A, Ax0 - margin, Ax0 + margin))
+
+
+def session_problem(steps=SESSION_STEPS):
+    """Config 4: the n=8 identity QP with box [-1, 1] and the shifts
+    ``linspace(0, 0.3)`` of both bounds, float32 numpy."""
+    n = 8
+    eye = np.eye(n, dtype=np.float32)
+    qp = (eye, np.zeros(n, np.float32), eye, -np.ones(n, np.float32),
+          np.ones(n, np.float32))
+    shifts = np.linspace(0.0, 0.3, steps)[:, None] * np.ones(n)
+    return qp, shifts.astype(np.float32)
+
+
+def shift_box(base, s):
+    """Config 4's update: both bounds of every row shifted by ``s``."""
+    return base.replace(l=-1.0 + s, u=1.0 + s)
+
+
+def trajectory_config1(device):
+    """Config 1: the W=10, N=6 trajectory QP of ``build_trajectory_batch``
+    (problem 0), built in float64 and rounded to float32."""
+    from osqp_solver_tpu_torch.gomp import trajectory_qp as tq
+
+    Wc, Nc = 10, 6
+    kw = dict(dtype=torch.float64, device=device)
+    j = torch.arange(Nc, **kw)
+    qp = tq.empty_trajectory_qp(Wc, Nc, (), 0, **kw)
+    full = lambda v: torch.full((Nc,), v, **kw)  # noqa: E731
+    qp = tq.with_gomp_boxes(
+        qp, 0.02 * torch.sin(j), 1.0 + 0.02 * torch.cos(j * 1.3),
+        (full(-10.0), full(10.0)), (full(-1.0), full(1.0)),
+        (full(-2.0), full(2.0)))
+    return qp.map_arrays(lambda a: a.float())
+
+
+def trajectory_config4b(device):
+    """Config 4b: the honest W=100 UR5e QP (two balls, one line obstacle),
+    linearized at the linspace warm start, built in float64 and rounded to
+    float32."""
+    from osqp_solver_tpu_torch.gomp import trajectory_qp as tq
+    from osqp_solver_tpu_torch.gomp.geometry import HorizontalLine
+    from osqp_solver_tpu_torch.gomp.trajectory import calc_warm_start_batched
+
+    Wc, Nc, DT = 100, 6, 0.1
+    kw = dict(dtype=torch.float64, device=device)
+    balls = (ur5e.make_ball("back6", 0.15),
+             ur5e.make_ball("tool", 0.05, is_gripper=True))
+    start = torch.zeros(Nc, **kw)
+    end = torch.tensor([math.pi, 0, 0, 0, 0, 0], **kw)
+    full = lambda v: torch.full((Nc,), v, **kw)  # noqa: E731
+    acc = 800 * math.pi / 180 * DT**2
+    qp = tq.empty_trajectory_qp(Wc, Nc, (False, True), 1, **kw)
+    qp = tq.with_gomp_boxes(
+        qp, start, end, (full(-2 * math.pi), full(2 * math.pi)),
+        (full(-math.pi * DT), full(math.pi * DT)), (full(-acc), full(acc)))
+    qp = tq.linearize_workspace(
+        qp, balls, [HorizontalLine.create((0.0, 1.0), (0.35, 0.0, 0.15),
+                                          **kw)],
+        (torch.tensor([-INF_BOUND, -0.4, -INF_BOUND], **kw),
+         torch.full((3,), INF_BOUND, **kw)),
+        calc_warm_start_batched(start, end, Wc))
+    return qp.map_arrays(lambda a: a.float())
+
+
+def goal_deltas(steps=GOAL_STEPS):
+    """Config 4b's per-step goal shifts ``1e-4 sin(k)``, float32 numpy."""
+    d = 1e-4 * np.sin(np.arange(steps))[:, None] * np.ones(6)
+    return d.astype(np.float32)
+
+
+def shift_goal(base, d):
+    """Config 4b's update (``apply_goal_shift``): the LAST waypoint's
+    position bounds move by ``d`` (rows that are loose, +-1e30)."""
+    pos_l, pos_u = base.pos_l.clone(), base.pos_u.clone()
+    pos_l[-1] += d
+    pos_u[-1] += d
+    return base.replace(pos_l=pos_l, pos_u=pos_u)
+
+
+def encode_iters(iters, ct):
+    """Iteration counts (multiples of ``ct``) as one base-36 digit each."""
+    digits = "0123456789abcdefghijklmnopqrstuvwxyz"
+    return "".join(digits[int(k) // ct] for k in iters)
+
+
+def decode_iters(code, ct):
+    return [int(ch, 36) * ct for ch in code]
 
 
 # -------------------------------------------------------------------- phases
@@ -475,6 +628,7 @@ def phase_kernels():
         scaled, scaled64, settings, rho_vec, done, state0, args, ck, gk,
         term_packs, q_int, lu, NX))
     out.extend(check_tridiag(scaled, rho_vec, settings))
+    out.extend(check_dense())
     for row in out:
         row["ptxas"] = ptxas_of(row["name"], sig)
     emit("kernels", kernels=out)
@@ -650,6 +804,8 @@ PTXAS = {
     "residuals": ("residuals", "residuals"),
     "tridiag_factor": ("tridiag", "tridiag_factor_kernel"),
     "tridiag_solve": ("tridiag", "tridiag_solve_kernel"),
+    "dense_factor": ("dense", "dense_factor_kernel"),
+    "dense_solve": ("dense", "dense_solve_kernel"),
 }
 
 
@@ -660,6 +816,8 @@ def ptxas_of(name, sig):
     source, prefix = PTXAS[name]
     if source == "tridiag":
         sig = {"B2": 2 * N}
+    elif source == "dense":
+        sig = {}
     _, path = _build._target(source, sig, False)
     rep = _build.ptxas_report(path)
     gain_only = name == "admm_chunk_gain"
@@ -906,6 +1064,108 @@ def check_tridiag(scaled, rho_vec, settings):
     ]
 
 
+def dense_kkt_inputs(batch, n, m, seed):
+    """The reduced KKT matrices of config 2's first ρ (its scaled problems)
+    and a right-hand side, as the dense path hands them to its kernels."""
+    qps = convert.dense_qp_from_numpy(
+        *dense_problems(batch, seed, n, m), device="cuda")
+    scaled, _ = gadmm.equilibrate(qps, Settings())
+    rb = torch.full((batch,), Settings().rho, device="cuda")
+    M = scaled.kkt_matrix(_rho_vec(rb, scaled.l, scaled.u), Settings().sigma)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return M, torch.randn((n, batch), generator=gen, device="cuda")
+
+
+def dense_case(M, rhs):
+    """Kernel factor and solve against the plain version run in f64 on the
+    same f32 inputs: (factor rel err, solve rel err, Lt, x)."""
+    Lt = dense_kernel.factor_lane_major(M)
+    x = dense_kernel.solve_lane_major(Lt, rhs)
+    L64 = dense_kernel.factor_lane_major_plain(M.double())
+    x64 = dense_kernel.solve_lane_major_plain(Lt.double(), rhs.double())
+    torch.cuda.synchronize()
+    return rel_err(Lt.double(), L64), rel_err(x.double(), x64), Lt, x
+
+
+def check_dense():
+    """The dense Cholesky factor and solve kernels (B6) on the main path's
+    inputs (config 2: n=64, m=96, B=1024) and at the reference kernel's
+    largest size (n=160, B=256), each against the plain version run in f64
+    on the same f32 inputs; library yardsticks ``torch.linalg.cholesky``
+    and ``torch.cholesky_solve`` on the same batch."""
+    n, B = DENSE_N, BATCH
+    M, rhs = dense_kkt_inputs(B, n, DENSE_M, DENSE_SEED)
+    f_err, s_err, Lt, _ = dense_case(M, rhs)
+    Mg, rg = dense_kkt_inputs(256, 160, 240, 1)
+    big = dense_case(Mg, rg)
+    # Tail of a block (B=200), one problem (B=1), n=1, and a planted
+    # non-positive pivot at column 20 of problem 7.
+    odd = dense_case(M[..., :200].contiguous(), rhs[:, :200].contiguous())
+    one = dense_case(M[..., :1].contiguous(), rhs[:, :1].contiguous())
+    tiny = dense_case(M[:1, :1].contiguous() + 1.0, rhs[:1].contiguous())
+    bad = M.clone()
+    bad[20, 20, 7] = -1.0
+    bL = dense_kernel.factor_lane_major(bad)
+    bx = dense_kernel.solve_lane_major(bL, rhs)
+    # Lt[j, i] holds L[i, j]: the factor's lower triangle is i >= j.
+    low = torch.ones(n, n, dtype=torch.bool, device="cuda").triu()
+    col = torch.arange(n, device="cuda")[:, None].expand(n, n)
+    planted = bL[..., 7]
+    others = torch.cat([bL[..., :7], bL[..., 8:]], dim=-1)
+    nan_there = bool(torch.isnan(planted[low & (col >= 20)]).all()
+                     and torch.isfinite(planted[low & (col < 20)]).all()
+                     and torch.isfinite(others).all()
+                     and torch.isnan(bx[:, 7]).all()
+                     and torch.isfinite(bx[:, :7]).all()
+                     and torch.isfinite(bx[:, 8:]).all())
+    iu = torch.ones(n, n, dtype=torch.bool, device="cuda").tril(-1)
+    upper_zero = bool((Lt[iu] == 0).all())
+    cases = ((f_err, s_err), big, odd, one, tiny)
+    f_ok = max(c[0][1] for c in cases)
+    s_ok = max(c[1][1] for c in cases)
+    f_ms = time_ms(lambda: dense_kernel.factor_lane_major(M))
+    s_ms = time_ms(lambda: dense_kernel.solve_lane_major(Lt, rhs))
+    M64, Lt64, rhs64 = M.double(), Lt.double(), rhs.double()
+    fp_ms = time_ms(lambda: dense_kernel.factor_lane_major_plain(M64))
+    sp_ms = time_ms(lambda: dense_kernel.solve_lane_major_plain(Lt64, rhs64))
+    Mb = M.permute(2, 0, 1).contiguous()
+    Lb = torch.linalg.cholesky(Mb)
+    rb = rhs.T.contiguous().unsqueeze(-1)
+    lib_f_ms = time_ms(lambda: torch.linalg.cholesky(Mb))
+    lib_s_ms = time_ms(lambda: torch.cholesky_solve(rb, Lb))
+    Lg = big[2]
+    big_ms = {"factor": time_ms(lambda: dense_kernel.factor_lane_major(Mg)),
+              "solve": time_ms(lambda: dense_kernel.solve_lane_major(Lg, rg))}
+    fb_ms, fb_by = bound(dense_factor_bytes(n, B), ops_dense_factor(n, B))
+    sb_ms, sb_by = bound(dense_solve_bytes(n, B), ops_dense_solve(n, B))
+    note = ("max abs error over max |f64| against the plain version run in "
+            "f64 on the same f32 inputs (the solve from the kernel's own "
+            "factor); worst of n=64 B=1024, n=160 B=256, B=200, B=1, n=1")
+    shape = f"n={n} B={B} (also n=160 B=256)"
+    return [
+        dict(name="dense_factor", max_abs_err=f_err[0], max_rel_err=f_ok,
+             rel_err_n160=big[0][1], upper_triangle_zero=upper_zero,
+             non_spd_gives_nan_there=nan_there, tol=TOL_DENSE_FACTOR,
+             tol_note=note,
+             ok=bool(f_ok <= TOL_DENSE_FACTOR and upper_zero and nan_there),
+             ms=f_ms, plain_ms=fp_ms, bound_ms=fb_ms, bound_by=fb_by,
+             library_ms=lib_f_ms,
+             library_note="torch.linalg.cholesky of the (B, n, n) f32 batch",
+             n160_B256=dict(ms=big_ms["factor"], bound_ms=bound(
+                 dense_factor_bytes(160, 256), ops_dense_factor(160, 256))[0]),
+             shape=shape),
+        dict(name="dense_solve", max_abs_err=s_err[0], max_rel_err=s_ok,
+             rel_err_n160=big[1][1], tol=TOL_DENSE_SOLVE, tol_note=note,
+             ok=bool(s_ok <= TOL_DENSE_SOLVE),
+             ms=s_ms, plain_ms=sp_ms, bound_ms=sb_ms, bound_by=sb_by,
+             library_ms=lib_s_ms,
+             library_note="torch.cholesky_solve on the library's factor",
+             n160_B256=dict(ms=big_ms["solve"], bound_ms=bound(
+                 dense_solve_bytes(160, 256), ops_dense_solve(160, 256))[0]),
+             shape=shape),
+    ]
+
+
 def cast(qp, dtype):
     return qp.replace(**{k: getattr(qp, k).to(dtype) for k in _ARRAY_FIELDS})
 
@@ -941,6 +1201,8 @@ def reset_counts():
     residuals.termination_quantities_kernel.launches = 0
     tridiag_kernel.factor_lane_major.launches = 0
     tridiag_kernel.solve_lane_major.launches = 0
+    dense_kernel.factor_lane_major.launches = 0
+    dense_kernel.solve_lane_major.launches = 0
 
 
 def read_counts():
@@ -954,6 +1216,8 @@ def read_counts():
         "residuals": residuals.termination_quantities_kernel.launches,
         "tridiag_factor": tridiag_kernel.factor_lane_major.launches,
         "tridiag_solve": tridiag_kernel.solve_lane_major.launches,
+        "dense_factor": dense_kernel.factor_lane_major.launches,
+        "dense_solve": dense_kernel.solve_lane_major.launches,
     }
 
 
@@ -1525,6 +1789,343 @@ def phase_fleet(want, launches):
                     ref)
 
 
+# ------------------------------------------------------------ generic path
+# Per-problem (per-step) ADMM iteration counts of the JAX package's float32
+# CPU run on the same problems (tools/jax_reference_counts.py), in
+# encode_iters form.
+DENSE_REF = dict(p50=50, max=150, code=(
+    "2222223432223223423332242222322342323233222323222323232322323224"
+    "2513223233223324322322222333424323522222323422322523213222223232"
+    "2222232222342222422222223222434222222222323222332223442323322522"
+    "3233222223222222223422223322222222342333223222233423222222322223"
+    "2222223223223222242432222332222222243222222132222222223222223222"
+    "3222232232223222322222423222221222332336222324222222232223222242"
+    "2222222222223222222522322223222233232332222224223322232232322232"
+    "3222322223323232222323322222232222222322222232223222223322422222"
+    "2352244233332222322322224223323322222222222333222322232353213233"
+    "3222222222232322222222322321222222232222222232433622223223322222"
+    "2222242332223222223222222322332222322222222322422322223222432342"
+    "2323322224222223223433223222222232232322222222322232223222322222"
+    "2322223222222233442323232222322222423232322223222223222223222232"
+    "3222322222223323223222222222232232222332443222222221342232123223"
+    "2222422222322242222223222432231332224322222222332232232222222223"
+    "3232222325231422223233223322122223323222423222322332232223232223"))
+SESSION_REF_ITERS = 25  # every one of the 1000 re-solves
+CONFIG1_REF_ITERS = 25
+GOAL_REF = dict(ct=5, code=(
+    "e211111111111112111112111121111211112111121111121111211112111112"
+    "1111211112111121111121111211112111121111211112111121111211111211"
+    "1121111211112111121111211112111121111211111211112111121111211112"
+    "11112111"))
+# Share of config 2's problems whose iteration count may differ from the
+# reference's: float32 on the card and on the CPU round differently.
+DENSE_ITER_DIFF_SHARE = 0.05
+
+
+def host_residual_check_generic(qp, res, idx, settings):
+    """OSQP's criterion recomputed in float64 on the host through the
+    operator protocol, for problems ``idx`` of a container and its result
+    (both with one batch dim, or both without); the worst
+    residual/tolerance ratios and the worst box violation."""
+    if not qp.batch_shape:
+        qp = qp.map_arrays(lambda a: a.unsqueeze(-1))
+        res = dataclasses.replace(res, x=res.x[None], y=res.y[None],
+                                  z=res.z[None])
+    sub = qp.map_arrays(lambda a: a[..., idx].cpu().double())
+    x, y, z = (getattr(res, k)[idx].cpu().double().T for k in "xyz")
+    Ax, Px, ATy = sub.A_matvec(x), sub.P_matvec(x), sub.AT_matvec(y)
+    amax = lambda v: v.abs().amax(dim=0)  # noqa: E731
+    prim = amax(Ax - z)
+    dual = amax(Px + sub.q + ATy)
+    eps_p = settings.eps_abs + settings.eps_rel * torch.maximum(amax(Ax), amax(z))
+    eps_d = settings.eps_abs + settings.eps_rel * torch.maximum(
+        torch.maximum(amax(Px), amax(ATy)), amax(sub.q))
+    box = torch.maximum(sub.l - z, z - sub.u).clamp(min=0).amax(dim=0)
+    return ((prim / eps_p).max().item(), (dual / eps_d).max().item(),
+            box.max().item())
+
+
+def generic_where_ms(run):
+    """One instrumented ``run()`` of the generic path: CUDA-event time in
+    the dense and tridiagonal kernels, in the rest of each ADMM iteration
+    (matvecs and elementwise glue), in the termination pass, in the ρ
+    refactors and in equilibration; ``other`` is the run less those."""
+    timer = CallTimer()
+    parts = {"iteration": (gadmm, "_admm_iteration"),
+             "termination": (gadmm, "_termination"),
+             "rho_refactor": (gadmm, "_adapt_rho"),
+             "equilibrate": (gadmm, "equilibrate")}
+    for key, (mod, name) in parts.items():
+        timer.patch(mod, name, key)
+    for mod in (dense_kernel, tridiag_kernel):
+        timer.patch(mod, "solve_lane_major", "solve_kernel")
+        timer.patch(mod, "factor_lane_major", "factor_kernel")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        totals = timer.totals()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        timer.restore()
+    get = lambda k: totals.get(k, {}).get("ms", 0.0)  # noqa: E731
+    totals["iteration_glue_ms"] = get("iteration") - get("solve_kernel")
+    totals["whole_ms"] = wall
+    totals["other_ms"] = wall - sum(get(k) for k in parts)
+    return totals
+
+
+def generic_counts(before_syncs, before_refactors):
+    torch.cuda.synchronize()
+    return (read_counts(), gadmm.HOST_SYNCS - before_syncs,
+            gadmm.RHO_REFACTORS - before_refactors)
+
+
+def dense_option_checks():
+    """The generic path's options on the card, 64 problems each: polish (a
+    second factor launch and 1 + ``polish_refine_iter`` more solves),
+    ``kkt_refine=1`` (two solves per iteration), the CG backend (no dense
+    kernel at all), and a badly scaled batch with ``scaling=0`` whose ρ
+    adapts (a refactor per adapting chunk).  Every problem must end
+    kOptimal."""
+    base = Settings()
+    P, q, A, l, u = dense_problems(64, seed=5)
+    scale = np.tile(np.array([1, 1e3, 1, 1e-3, 1, 30, 1, 0.1], np.float32), 8)
+    mixed = (P * scale[:, None, None], q * scale[:, None], A, l, u)
+    cases = {
+        "polish": ((P, q, A, l, u), dict(polish=True)),
+        "kkt_refine": ((P, q, A, l, u), dict(kkt_refine=1)),
+        "cg": ((P, q, A, l, u), dict(kkt_method="cg")),
+        "adapting_scaling0": (mixed, dict(scaling=0)),
+    }
+    out, bad = {}, []
+    for name, (arrays, kw) in cases.items():
+        settings = dataclasses.replace(base, **kw)
+        qps = convert.dense_qp_from_numpy(*arrays, device="cuda")
+        reset_counts()
+        s0, r0 = gadmm.HOST_SYNCS, gadmm.RHO_REFACTORS
+        res = gadmm.solve_batched(qps, settings)
+        counts, syncs, refactors = generic_counts(s0, r0)
+        its = int(res.iterations.max())
+        n_opt = int((res.status == int(ExitCode.kOptimal)).sum())
+        f, sv = counts["dense_factor"], counts["dense_solve"]
+        polish_solves = its + 1 + settings.polish_refine_iter
+        want = {"polish": (2 + refactors, polish_solves),
+                "kkt_refine": (1 + refactors, 2 * its),
+                "cg": (0, 0),
+                "adapting_scaling0": (1 + refactors, its)}[name]
+        out[name] = dict(optimal=n_opt, iterations_max=its, host_syncs=syncs,
+                         rho_refactors=refactors, dense_factor=f,
+                         dense_solve=sv, want_factor_solve=list(want))
+        if (n_opt != 64 or (f, sv) != want
+                or (name == "adapting_scaling0" and refactors < 1)):
+            bad.append(name)
+    return out, bad
+
+
+def phase_dense():
+    """BASELINE config 2 on the generic path: ``solve_batched`` on 1024
+    dense random box QPs (n=64, m=96, f32, ``Settings()``)."""
+    settings = Settings()
+    B, ct = BATCH, settings.check_termination
+    qps = convert.dense_qp_from_numpy(*dense_problems(B), device="cuda")
+    reset_counts()
+    s0, r0 = gadmm.HOST_SYNCS, gadmm.RHO_REFACTORS
+    res = gadmm.solve_batched(qps, settings)  # the main path, once
+    counts, syncs, refactors = generic_counts(s0, r0)
+    it = res.iterations.cpu()
+    n_opt = int((res.status == int(ExitCode.kOptimal)).sum())
+    ref = torch.tensor(decode_iters(DENSE_REF["code"], ct)[:B], dtype=it.dtype)
+    differ = int((it != ref).sum())
+    p50, it_max = int(it.double().median()), int(it.max())
+    idx = torch.linspace(0, B - 1, 16).long()
+    prim_ratio, dual_ratio, box = host_residual_check_generic(
+        qps, res, idx, settings)
+    times = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gadmm.solve_batched(qps, settings)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = statistics.median(times) * 1e3
+    where = generic_where_ms(lambda: gadmm.solve_batched(qps, settings))
+    options, bad_options = dense_option_checks()
+    finite = bool(torch.isfinite(res.x).all() and torch.isfinite(res.y).all())
+    rec = dict(
+        batch=B, n=DENSE_N, m=DENSE_M, optimal=n_opt, iterations_p50=p50,
+        iterations_max=it_max, reference_p50=DENSE_REF["p50"],
+        reference_max=DENSE_REF["max"], differ_iterations=differ,
+        more_iterations=int((it > ref).sum()),
+        fewer_iterations=int((it < ref).sum()),
+        iterations_hist={str(k): v for k, v in sorted(
+            collections.Counter(it.tolist()).items())},
+        launches=counts, host_syncs=syncs, rho_refactors=refactors,
+        finite=finite, shape_x=list(res.x.shape),
+        f64_prim_res_over_eps=prim_ratio, f64_dual_res_over_eps=dual_ratio,
+        f64_max_box_violation=box, ms_per_batch=ms,
+        qps_per_s=n_opt / (ms * 1e-3), ms_all=[t * 1e3 for t in times],
+        where_ms=where, options=options)
+    emit("dense", **rec)
+    if bad_options:
+        fail(f"dense: option checks failed: {bad_options}: {options}")
+    if n_opt != B:
+        fail(f"dense: {n_opt}/{B} optimal")
+    if not finite or list(res.x.shape) != [B, DENSE_N]:
+        fail("dense: solution not finite or of the wrong shape")
+    if p50 != DENSE_REF["p50"] or differ > DENSE_ITER_DIFF_SHARE * B:
+        fail(f"dense: iterations p50 {p50} (reference {DENSE_REF['p50']}), "
+             f"{differ}/{B} problems differ from the reference")
+    if prim_ratio > 1.02 or dual_ratio > 1.02 or box > 1e-4:
+        fail(f"dense: float64 recomputation violates OSQP's criterion "
+             f"(prim {prim_ratio:.3f}, dual {dual_ratio:.3f}, box {box:.2e})")
+    chunks = -(-it_max // ct)
+    if syncs != chunks:
+        fail(f"dense: {syncs} host syncs for {chunks} chunks")
+    if (counts["dense_factor"] != 1 + refactors
+            or counts["dense_solve"] != chunks * ct):
+        fail(f"dense: {counts['dense_factor']} factor launches for 1 setup + "
+             f"{refactors} refactors, {counts['dense_solve']} solve launches "
+             f"for {chunks * ct} iterations")
+    return rec
+
+
+def phase_dense_session():
+    """BASELINE config 4: ``session.setup`` then ``mpc_scan`` over 1000
+    sequential bound shifts of the n=8 identity QP, on the cached factor."""
+    settings = Settings()
+    ct = settings.check_termination
+    qp_np, shifts_np = session_problem()
+    qp = convert.dense_qp_from_numpy(*qp_np, device="cuda")
+    shifts = torch.tensor(shifts_np, device="cuda")
+    reset_counts()
+    s0, r0 = gadmm.HOST_SYNCS, gadmm.RHO_REFACTORS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess = gsession.setup(qp, settings)  # the main path: setup ...
+    end, (xs, status, iters) = gsession.mpc_scan(  # ... and scan
+        sess, shifts, shift_box, settings)
+    counts, syncs, refactors = generic_counts(s0, r0)
+    first_s = time.perf_counter() - t0
+    # Timed: the first SESSION_TIMED steps again, from the same session.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gsession.mpc_scan(sess, shifts[:SESSION_TIMED], shift_box, settings)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    it, st = iters.cpu(), status.cpu()
+    n_opt = int((st == int(ExitCode.kOptimal)).sum())
+    # x* = 0 at every step: the box [-1 + s, 1 + s] holds it for s <= 0.3.
+    x_err = xs.abs().max().item()
+    rec = dict(steps=SESSION_STEPS, n=8, optimal=n_opt,
+               iterations_hist={str(k): v for k, v in sorted(
+                   collections.Counter(it.tolist()).items())},
+               reference_iterations=SESSION_REF_ITERS,
+               differ_iterations=int((it != SESSION_REF_ITERS).sum()),
+               max_abs_x=x_err, launches=counts, host_syncs=syncs,
+               rho_refactors=refactors, first_scan_s=first_s,
+               timed_steps=SESSION_TIMED,
+               resolves_per_s=SESSION_TIMED / scan_s,
+               ms_per_resolve=scan_s / SESSION_TIMED * 1e3)
+    emit("dense_session", **rec)
+    total = int(it.sum())
+    if n_opt != SESSION_STEPS or rec["differ_iterations"]:
+        fail(f"dense_session: {n_opt} optimal, {rec['differ_iterations']} "
+             "re-solves with iteration counts other than the reference's")
+    if x_err > 1e-2:
+        fail(f"dense_session: |x| up to {x_err:.2e}, the optimum is 0")
+    if counts["dense_factor"] != 1 + refactors or refactors:
+        fail(f"dense_session: {counts['dense_factor']} factor launches, "
+             f"{refactors} refactors: the cached factor must serve the scan")
+    if counts["dense_solve"] != total or syncs != total // ct:
+        fail(f"dense_session: {counts['dense_solve']} solve launches and "
+             f"{syncs} syncs for {total} iterations")
+    return rec
+
+
+def phase_trajectory_generic():
+    """The generic path on the trajectory container: config 1 (W=10, one
+    ``solve``) and config 4b (the honest W=100 UR5e QP, one session,
+    ``check_termination=5``, 200 goal shifts), with the block-tridiagonal
+    kernels as its factor and solve."""
+    settings = Settings()
+    qp1 = trajectory_config1("cuda")
+    reset_counts()
+    s0, r0 = gadmm.HOST_SYNCS, gadmm.RHO_REFACTORS
+    res1 = gadmm.solve(qp1, settings)  # the main path: one solve ...
+    counts1, syncs1, ref1 = generic_counts(s0, r0)
+    it1 = int(res1.iterations)
+    ms1 = time_ms(lambda: gadmm.solve(qp1, settings))
+    chk1 = host_residual_check_generic(qp1, res1, [0], settings)
+
+    s4b = dataclasses.replace(settings, check_termination=5)
+    qp4b = trajectory_config4b("cuda")
+    deltas = torch.tensor(goal_deltas(), device="cuda")
+    reset_counts()
+    s0, r0 = gadmm.HOST_SYNCS, gadmm.RHO_REFACTORS
+    sess = gsession.setup(qp4b, s4b)  # ... and a session scan
+    end, (xs, status, iters) = gsession.mpc_scan(sess, deltas, shift_goal,
+                                                 s4b)
+    counts4, syncs4, ref4 = generic_counts(s0, r0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gsession.mpc_scan(sess, deltas, shift_goal, s4b)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    it, st = iters.cpu(), status.cpu()
+    ref = torch.tensor(decode_iters(GOAL_REF["code"], GOAL_REF["ct"]))
+    _, res_end = gsession.solve(end, s4b)
+    chk4 = host_residual_check_generic(
+        gsession._user_view(end, end.base), res_end, [0], s4b)
+    rec = dict(
+        config1=dict(W=10, status=int(res1.status), iterations=it1,
+                     reference_iterations=CONFIG1_REF_ITERS,
+                     launches=counts1, host_syncs=syncs1, rho_refactors=ref1,
+                     ms_per_solve=ms1, f64_prim_dual_box=chk1),
+        config4b=dict(
+            W=100, steps=GOAL_STEPS, optimal=int((st == 0).sum()),
+            iterations_hist={str(k): v for k, v in sorted(
+                collections.Counter(it.tolist()).items())},
+            reference_hist={str(k): v for k, v in sorted(
+                collections.Counter(ref.tolist()).items())},
+            differ_iterations=int((it != ref).sum()),
+            launches=counts4, host_syncs=syncs4, rho_refactors=ref4,
+            shifted_rows_loose=bool((qp4b.pos_l[-1] <= -1e25).all()
+                                    and (qp4b.pos_u[-1] >= 1e25).all()),
+            ms_per_resolve=scan_s / GOAL_STEPS * 1e3,
+            resolves_per_s=GOAL_STEPS / scan_s, f64_prim_dual_box=chk4))
+    emit("trajectory_generic", **rec)
+    c1, c4 = rec["config1"], rec["config4b"]
+    if c1["status"] != 0 or it1 != CONFIG1_REF_ITERS:
+        fail(f"trajectory_generic (config 1): status {c1['status']}, "
+             f"{it1} iterations (reference {CONFIG1_REF_ITERS})")
+    # The shifted rows are loose, so every warm step re-solves the same
+    # problem, and WHICH step needs a second chunk follows the float32
+    # rounding of the carried iterate: the cold step and the histogram of
+    # the warm ones are held to the reference, step by step is recorded.
+    if (c4["optimal"] != GOAL_STEPS or int(it[0]) != int(ref[0])
+            or c4["iterations_hist"] != c4["reference_hist"]):
+        fail(f"trajectory_generic (config 4b): {c4['optimal']} optimal, "
+             f"first step {int(it[0])} iterations (reference {int(ref[0])}), "
+             f"histogram {c4['iterations_hist']} (reference "
+             f"{c4['reference_hist']})")
+    for name, chk in (("config 1", chk1), ("config 4b", chk4)):
+        if chk[0] > 1.02 or chk[1] > 1.02 or chk[2] > 1e-4:
+            fail(f"trajectory_generic ({name}): float64 recomputation "
+                 f"violates OSQP's criterion {chk}")
+    total = int(it.sum())
+    for name, counts, syncs, refs, iters_, ct in (
+            ("config 1", counts1, syncs1, ref1, it1,
+             settings.check_termination),
+            ("config 4b", counts4, syncs4, ref4, total, 5)):
+        if (counts["tridiag_factor"] != 1 + refs
+                or counts["tridiag_solve"] != iters_
+                or syncs != iters_ // ct or counts["dense_solve"]):
+            fail(f"trajectory_generic ({name}): launches {counts}, {syncs} "
+                 f"syncs, {refs} refactors for {iters_} iterations")
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="all",
@@ -1544,7 +2145,7 @@ def main():
     # obstacle), box-only, and the obstacle-free planner (gripper rows only).
     honest_sig = {"NDIM": N, "NX": 5}
     if "build" in want:
-        sigs = [honest_sig, {"B2": 2 * N}]
+        sigs = [honest_sig, {"B2": 2 * N}, {}]
         if "box" in want:
             sigs.append({"NDIM": N, "NX": 0})
         if "planner_full" in want:
@@ -1578,6 +2179,14 @@ def main():
         phase_planner_obstacles()
     if want & {"mpc_fleet", "mpc_fleet_gain", "mpc_fleet_unfused"}:
         phase_fleet(want, launches)
+    if "dense" in want:
+        rec = phase_dense()
+        launches.update({k: rec["launches"][k]
+                         for k in ("dense_factor", "dense_solve")})
+    if "dense_session" in want:
+        phase_dense_session()
+    if "trajectory_generic" in want:
+        phase_trajectory_generic()
 
     csrc = "osqp_solver_tpu_torch/csrc/"
     ops = "osqp_solver_tpu/ops/"
@@ -1592,6 +2201,8 @@ def main():
         "admm_chunk_gain": (csrc + "admm_chunk.cu", ops + "admm_fused.py:1130"),
         "tridiag_factor": (csrc + "tridiag.cu", ops + "pallas_tridiag.py:426"),
         "tridiag_solve": (csrc + "tridiag.cu", ops + "pallas_tridiag.py:243"),
+        "dense_factor": (csrc + "dense.cu", ops + "pallas_dense.py:119"),
+        "dense_solve": (csrc + "dense.cu", ops + "pallas_dense.py:151"),
     }
     table = []
     for k in kernels:

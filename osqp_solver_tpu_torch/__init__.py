@@ -17,7 +17,7 @@ from .gomp.geometry import (
 )
 from .gomp.planner import GOMPSolver, PlanResult
 from .models.robot import RobotBall
-from .ops.admm import Settings, SolveResult
+from .ops.admm import Settings, SolveResult, solve, solve_batched
 from .ops.admm_lane import solve_batched_lane
 from .ops.session_lane import (
     LaneSession,
@@ -26,12 +26,14 @@ from .ops.session_lane import (
     solve_lane,
     update_bounds_lane,
 )
+from .ops.qp import DenseQP, dense_qp
 from .ops.status import ExitCode
 
 __all__ = [
-    "CapsuleObstacle", "ExitCode", "GOMPSolver", "HorizontalLine",
+    "CapsuleObstacle", "DenseQP", "ExitCode", "GOMPSolver", "HorizontalLine",
     "LaneSession", "PlanResult", "RobotBall", "Settings", "SolveResult",
-    "SphereObstacle", "constraints", "convert", "gomp", "models",
-    "mpc_scan_lane", "ops", "setup_lane", "solve_batched_lane", "solve_lane",
-    "stack_obstacles", "update_bounds_lane",
+    "SphereObstacle", "constraints", "convert", "dense_qp", "gomp", "models",
+    "mpc_scan_lane", "ops", "setup_lane", "solve", "solve_batched",
+    "solve_batched_lane", "solve_lane", "stack_obstacles",
+    "update_bounds_lane",
 ]

@@ -41,6 +41,7 @@ KERNELS = {
     "admm_chunk": ("NDIM", "NX"),
     "residuals": ("NDIM", "NX"),
     "tridiag": ("B2",),
+    "dense": (),
 }
 
 _NVCC_FLAGS = [

@@ -3,7 +3,10 @@ sessions, obstacles and a planner's constructor arguments.
 
 Lets a test (or any caller holding arrays from another framework) build the
 port's containers from exactly what the JAX package built, without either
-package importing the other.
+package importing the other.  Where a converter's result decides where an
+entry point runs (a session, a planner), its ``device`` follows the entry
+points' rule: CUDA unless ``device="cpu"`` is asked for.  The problem
+containers go wherever the solve that takes them runs.
 """
 from __future__ import annotations
 
@@ -14,8 +17,10 @@ import torch
 
 from .gomp import geometry
 from .gomp.constraints import Constraint
+from .gomp.trajectory_qp import TrajectoryQP
 from .gomp.trajectory_qp_lane import _ARRAY_FIELDS, LaneFactor, LaneTrajectoryQP
 from .ops.admm import Settings, resolve_device
+from .ops.qp import DenseQP
 from .ops.ruiz import Scaling
 from .ops.session_lane import LaneSession
 
@@ -49,6 +54,62 @@ def lane_qp_from_numpy(static: dict, arrays: dict, device="cpu",
         p_structure=str(static["p_structure"]),
         **tensors,
     )
+
+
+def _trailing(a, batched: bool, device, dtype):
+    """A JAX-package array (batch-LEADING when ``batched``) as a port tensor
+    (batch-trailing)."""
+    a = np.asarray(a)
+    return torch.tensor(np.moveaxis(a, 0, -1) if batched else a, dtype=dtype,
+                        device=device)
+
+
+def dense_qp_from_numpy(P, q, A, l, u, device=None, dtype=None) -> DenseQP:
+    """A :class:`~osqp_solver_tpu_torch.ops.qp.DenseQP` from the JAX
+    package's arrays: one problem (``P (n, n)``, ``q (n,)``, ...) or a
+    vmapped batch, batch-LEADING (``P (B, n, n)``, ``q (B, n)``, ...),
+    which lands batch-trailing.  ``device``: CUDA unless ``"cpu"`` is
+    asked for."""
+    device = resolve_device(device)
+    batched = np.ndim(q) == 2
+    return DenseQP(*(_trailing(a, batched, device, dtype)
+                     for a in (P, q, A, l, u)))
+
+
+_TRAJ_STATIC = ("waypoints", "n_dim", "gripper_flags", "n_obstacles",
+                "p_structure")
+
+
+def trajectory_qp_from_numpy(static: dict, arrays: dict, device=None,
+                             dtype=None) -> TrajectoryQP:
+    """A :class:`~osqp_solver_tpu_torch.gomp.trajectory_qp.TrajectoryQP`
+    from the JAX package's container data: ``static`` (``waypoints, n_dim,
+    gripper_flags, n_obstacles, p_structure``) and its 21 array fields, one
+    problem or a vmapped batch (batch-LEADING, landing batch-trailing).
+    ``device``: CUDA unless ``"cpu"`` is asked for."""
+    missing = [k for k in _TRAJ_STATIC if k not in static]
+    missing += [k for k in _ARRAY_FIELDS if k not in arrays]
+    if missing:
+        raise KeyError(f"trajectory_qp_from_numpy: missing {missing}")
+    device = resolve_device(device)
+    batched = np.ndim(arrays["q_vec"]) == 2
+    return TrajectoryQP(
+        waypoints=int(static["waypoints"]),
+        n_dim=int(static["n_dim"]),
+        gripper_flags=tuple(bool(g) for g in static["gripper_flags"]),
+        n_obstacles=int(static["n_obstacles"]),
+        p_structure=str(static["p_structure"]),
+        **{k: _trailing(arrays[k], batched, device, dtype)
+           for k in _ARRAY_FIELDS},
+    )
+
+
+def trajectory_qp_to_numpy(qp):
+    """``(static, arrays)`` of a trajectory container of either package
+    (read by attribute; arrays as they are stored) — what
+    :func:`trajectory_qp_from_numpy` takes from the JAX package."""
+    return ({k: getattr(qp, k) for k in _TRAJ_STATIC},
+            {k: _np(getattr(qp, k)) for k in _ARRAY_FIELDS})
 
 
 def scaling_from_numpy(D, E, c, device="cpu", dtype=None) -> Scaling:
@@ -197,7 +258,7 @@ def obstacle_from_numpy(kind: str, arrays: dict, per_query: bool = False,
     return _OBSTACLE_TYPES[kind](**leaves)
 
 
-def gomp_solver_kwargs_from_numpy(spec: dict, device="cpu",
+def gomp_solver_kwargs_from_numpy(spec: dict, device=None,
                                   dtype=torch.float64) -> dict:
     """Keyword arguments of :class:`~osqp_solver_tpu_torch.gomp.planner.
     GOMPSolver` from plain data, so that two packages' planners can be built
@@ -208,7 +269,10 @@ def gomp_solver_kwargs_from_numpy(spec: dict, device="cpu",
     array pairs, ``obstacles`` as a list of :func:`obstacle_to_numpy`
     outputs, and optionally ``settings`` (a dict of field names),
     ``segments``, ``max_scp_iterations``.  The robot balls are callables and
-    are passed to the constructor by the caller."""
+    are passed to the constructor by the caller.  ``device`` (also the
+    planner's): CUDA unless ``"cpu"`` is asked for."""
+    device = resolve_device(device)
+
     def con(pair):
         lo, hi = (np.asarray(b, dtype=np.float64) for b in pair)
         return Constraint(lo.copy(), hi.copy())

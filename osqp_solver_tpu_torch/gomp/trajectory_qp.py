@@ -24,8 +24,17 @@ from typing import Sequence, Tuple
 
 import torch
 
+from ..ops import tridiag_kernel
+from ..ops.tridiag import BlockTridiagFactor
 from .constraints import INF, INF_THRESHOLD
 from .geometry import call_linearize_rows
+
+
+def _pad0(x, before: int, after: int):
+    """Zero rows before/after ``x`` along its first dimension."""
+    z = x.new_zeros((1,) + tuple(x.shape[1:]))
+    return torch.cat([z.expand((before,) + tuple(x.shape[1:])), x,
+                      z.expand((after,) + tuple(x.shape[1:]))])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +84,328 @@ class TrajectoryQP:
     @property
     def batch_shape(self) -> tuple:
         return tuple(self.q_vec.shape[1:])
+
+    @property
+    def n(self) -> int:
+        return 2 * self.waypoints * self.n_dim
+
+    @property
+    def m(self) -> int:
+        W, N = self.waypoints, self.n_dim
+        return (4 * W - 4) * N + sum(
+            W * self._rows_per_wp(b) for b in range(self.n_balls)
+        )
+
+    def map_arrays(self, fn) -> "TrajectoryQP":
+        """The same structure with ``fn`` applied to every array field."""
+        return self.replace(**{
+            f.name: fn(getattr(self, f.name))
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)
+        })
+
+    # ------------------------------------------------------------------
+    # Operator protocol of the generic solver (ops/admm.py), batch-trailing:
+    # x (n, *batch) in the reference variable order [q..., v...], rows
+    # (m, *batch) in its compact row order.
+    # ------------------------------------------------------------------
+
+    def _rows_per_wp(self, ball: int) -> int:
+        return (3 if self.gripper_flags[ball] else 0) + self.n_obstacles
+
+    def _concat_rows(self, dyn, pos, vel, acc, ws, obs):
+        """Pack per-block row values into the flat ``(m, *batch)`` vector.
+
+        ``ws``: ``(n_balls, W, 3, *batch)``; ``obs``: ``(n_balls, n_obs, W,
+        *batch)``.  Per ball, the waypoint-major interleave of gripper XYZ
+        rows then obstacle rows."""
+        bs = dyn.shape[2:]
+        parts = [a.reshape((-1,) + bs) for a in (dyn, pos, vel, acc)]
+        for b in range(self.n_balls):
+            per_wp = []
+            if self.gripper_flags[b]:
+                per_wp.append(ws[b])  # (W, 3, *batch)
+            if self.n_obstacles:
+                per_wp.append(obs[b].movedim(0, 1))  # (W, n_obs, *batch)
+            if per_wp:
+                parts.append(torch.cat(per_wp, dim=1).reshape((-1,) + bs))
+        return torch.cat(parts)
+
+    def _split_rows(self, y):
+        """Inverse of :meth:`_concat_rows`: ``(dyn, pos, vel, acc, ws,
+        obs)``, ws/obs zero for balls without those rows."""
+        W, N = self.waypoints, self.n_dim
+        bs = tuple(y.shape[1:])
+        kw = dict(dtype=y.dtype, device=y.device)
+        off = 0
+        outs = []
+        for rows in (W - 1, W, W - 1, W - 2):
+            outs.append(y[off : off + rows * N].reshape((rows, N) + bs))
+            off += rows * N
+        ws = torch.zeros((self.n_balls, W, 3) + bs, **kw)
+        obs = torch.zeros((self.n_balls, self.n_obstacles, W) + bs, **kw)
+        for b in range(self.n_balls):
+            rpw = self._rows_per_wp(b)
+            if rpw == 0:
+                continue
+            blk = y[off : off + W * rpw].reshape((W, rpw) + bs)
+            off += W * rpw
+            k = 0
+            if self.gripper_flags[b]:
+                ws[b] = blk[:, :3]
+                k = 3
+            if self.n_obstacles:
+                obs[b] = blk[:, k:].movedim(0, 1)
+        return (*outs, ws, obs)
+
+    @property
+    def l(self):
+        return self._concat_rows(self.dyn_l, self.pos_l, self.vel_l,
+                                 self.acc_l, self.ws_l, self.obs_l)
+
+    @property
+    def u(self):
+        return self._concat_rows(self.dyn_u, self.pos_u, self.vel_u,
+                                 self.acc_u, self.ws_u, self.obs_u)
+
+    @property
+    def q(self):
+        return self.q_vec
+
+    def _qv(self, x):
+        W, N = self.waypoints, self.n_dim
+        bs = tuple(x.shape[1:])
+        return (x[: W * N].reshape((W, N) + bs),
+                x[W * N :].reshape((W, N) + bs))
+
+    def _interleave(self, x):
+        """``(n, *batch)`` → per-waypoint states ``(W, 2N, *batch)``."""
+        q, v = self._qv(x)
+        return torch.cat([q, v], dim=1)
+
+    def _deinterleave(self, s):
+        N = self.n_dim
+        bs = tuple(s.shape[2:])
+        return torch.cat([s[:, :N].reshape((-1,) + bs),
+                          s[:, N:].reshape((-1,) + bs)])
+
+    def A_matvec(self, x):
+        q, v = self._qv(x)
+        c, a = self.dyn_coef, self.acc_coef
+        dyn = c[:, :, 0] * v[:-1] + c[:, :, 1] * q[1:] + c[:, :, 2] * q[:-1]
+        pos = self.pos_coef * q
+        vel = self.vel_coef * v[:-1]
+        acc = a[:, :, 0] * v[1:-1] + a[:, :, 1] * v[:-2]
+        ws = (self.ws_jac * q[None, :, None]).sum(dim=3)
+        obs = (self.obs_jac * q[None, None]).sum(dim=3)
+        return self._concat_rows(dyn, pos, vel, acc, ws, obs)
+
+    def AT_matvec(self, y):
+        dyn, pos, vel, acc, ws, obs = self._split_rows(y)
+        c, a = self.dyn_coef, self.acc_coef
+        qg = self.pos_coef * pos
+        qg[1:] += c[:, :, 1] * dyn
+        qg[:-1] += c[:, :, 2] * dyn
+        qg = qg + (self.ws_jac * ws[:, :, :, None]).sum(dim=(0, 2))
+        qg = qg + (self.obs_jac * obs[:, :, :, None]).sum(dim=(0, 1))
+        vg = torch.zeros_like(qg)
+        vg[:-1] += c[:, :, 0] * dyn + self.vel_coef * vel
+        vg[1:-1] += a[:, :, 0] * acc
+        vg[:-2] += a[:, :, 1] * acc
+        bs = tuple(y.shape[1:])
+        return torch.cat([qg.reshape((-1,) + bs), vg.reshape((-1,) + bs)])
+
+    def P_matvec(self, x):
+        s = self._interleave(x)
+        y = (self.P_diag * s[:, None]).sum(dim=2)
+        if self.waypoints > 1:
+            y[1:] += (self.P_lower * s[:-1, None]).sum(dim=2)
+            y[:-1] += (self.P_lower * s[1:, :, None]).sum(dim=1)
+        return self._deinterleave(y)
+
+    # --- Ruiz norms -----------------------------------------------------
+
+    def A_col_absmax(self):
+        c, a = self.dyn_coef.abs(), self.acc_coef.abs()
+        qm = self.pos_coef.abs()
+        qm = torch.maximum(qm, _pad0(c[:, :, 2], 0, 1))
+        qm = torch.maximum(qm, _pad0(c[:, :, 1], 1, 0))
+        if self.n_balls:
+            qm = torch.maximum(qm, self.ws_jac.abs().amax(dim=(0, 2)))
+        if self.n_obstacles and self.n_balls:
+            qm = torch.maximum(qm, self.obs_jac.abs().amax(dim=(0, 1)))
+        vm = _pad0(torch.maximum(self.vel_coef.abs(), c[:, :, 0]), 0, 1)
+        vm = torch.maximum(vm, _pad0(a[:, :, 1], 0, 2))
+        vm = torch.maximum(vm, _pad0(a[:, :, 0], 1, 1))
+        bs = self.batch_shape
+        return torch.cat([qm.reshape((-1,) + bs), vm.reshape((-1,) + bs)])
+
+    def A_row_absmax(self):
+        def amax(t, dim):  # an empty ball axis has no rows to reduce
+            return t.abs().amax(dim=dim) if t.numel() else t.sum(dim=dim)
+
+        return self._concat_rows(
+            amax(self.dyn_coef, 2), self.pos_coef.abs(), self.vel_coef.abs(),
+            amax(self.acc_coef, 2), amax(self.ws_jac, 3),
+            amax(self.obs_jac, 3),
+        )
+
+    def P_col_absmax(self):
+        pd = self.P_diag.abs().amax(dim=1)  # (W, 2N, *batch) per-col max
+        if self.waypoints > 1:
+            low = self.P_lower.abs()
+            pd[:-1] = torch.maximum(pd[:-1], low.amax(dim=1))  # cols of t
+            pd[1:] = torch.maximum(pd[1:], low.amax(dim=2))  # cols of t+1
+        return self._deinterleave(pd)
+
+    # --- scaling ----------------------------------------------------------
+
+    def scale_data(self, D, E, c):
+        Dq, Dv = self._qv(D)
+        e_dyn, e_pos, e_vel, e_acc, e_ws, e_obs = self._split_rows(E)
+        d_int = self._interleave(D)  # (W, 2N, *batch)
+        P_diag = c * d_int[:, :, None] * self.P_diag * d_int[:, None, :]
+        P_lower = (
+            c * d_int[1:, :, None] * self.P_lower * d_int[:-1, None, :]
+            if self.waypoints > 1 else self.P_lower
+        )
+        dc, ac = self.dyn_coef, self.acc_coef
+        dyn_coef = torch.stack([
+            dc[:, :, 0] * e_dyn * Dv[:-1],
+            dc[:, :, 1] * e_dyn * Dq[1:],
+            dc[:, :, 2] * e_dyn * Dq[:-1],
+        ], dim=2)
+        acc_coef = torch.stack([
+            ac[:, :, 0] * e_acc * Dv[1:-1],
+            ac[:, :, 1] * e_acc * Dv[:-2],
+        ], dim=2)
+        return self.replace(
+            P_diag=P_diag,
+            P_lower=P_lower,
+            q_vec=c * D * self.q_vec,
+            dyn_coef=dyn_coef,
+            dyn_l=e_dyn * self.dyn_l,
+            dyn_u=e_dyn * self.dyn_u,
+            pos_coef=self.pos_coef * e_pos * Dq,
+            pos_l=e_pos * self.pos_l,
+            pos_u=e_pos * self.pos_u,
+            vel_coef=self.vel_coef * e_vel * Dv[:-1],
+            vel_l=e_vel * self.vel_l,
+            vel_u=e_vel * self.vel_u,
+            acc_coef=acc_coef,
+            acc_l=e_acc * self.acc_l,
+            acc_u=e_acc * self.acc_u,
+            ws_jac=self.ws_jac * e_ws[:, :, :, None] * Dq[None, :, None],
+            ws_l=e_ws * self.ws_l,
+            ws_u=e_ws * self.ws_u,
+            obs_jac=self.obs_jac * e_obs[:, :, :, None] * Dq[None, None],
+            obs_l=e_obs * self.obs_l,
+            obs_u=e_obs * self.obs_u,
+        )
+
+    # --- KKT path ---------------------------------------------------------
+
+    def kkt_blocks(self, rho_vec, sigma):
+        """``P + σI + Aᵀdiag(ρ)A`` as block-tridiagonal ``(diag (W, 2N, 2N,
+        *batch), lower (W-1, 2N, 2N, *batch))``: every AᵀρA contribution
+        of the stencil rows lands on a sub-block diagonal of the waypoint
+        blocks, the workspace rows on the position block."""
+        N = self.n_dim
+        r_dyn, r_pos, r_vel, r_acc, r_ws, r_obs = self._split_rows(rho_vec)
+        bs = self.batch_shape
+        kw = dict(dtype=self.P_diag.dtype, device=self.P_diag.device)
+        c0, c1, c2 = (self.dyn_coef[:, :, k] for k in range(3))
+        a0, a1 = self.acc_coef[:, :, 0], self.acc_coef[:, :, 1]
+
+        # Per-waypoint sub-block diagonals of AᵀρA (each (W, N, *batch)).
+        d_qq = r_pos * self.pos_coef**2
+        d_qq = (d_qq + _pad0(r_dyn * c2 * c2, 0, 1)
+                + _pad0(r_dyn * c1 * c1, 1, 0))
+        d_vv = _pad0(r_dyn * c0 * c0 + r_vel * self.vel_coef**2, 0, 1)
+        d_vv = (d_vv + _pad0(r_acc * a0 * a0, 1, 1)
+                + _pad0(r_acc * a1 * a1, 0, 2))
+        d_qv = _pad0(r_dyn * c2 * c0, 0, 1)
+
+        ones = (1,) * len(bs)
+        eye = torch.eye(2 * N, **kw).reshape((2 * N, 2 * N) + ones)
+        # ones at (j, N + j)
+        k_qv = torch.diag(torch.ones(N, **kw), N).reshape(eye.shape)
+        zpad = torch.zeros_like(d_qv)
+        M_diag = (
+            self.P_diag
+            + sigma * eye
+            + torch.cat([d_qq, d_vv], dim=1)[:, :, None] * eye
+            + torch.cat([d_qv, zpad], dim=1)[:, :, None] * k_qv
+            + torch.cat([zpad, d_qv], dim=1)[:, :, None] * k_qv.transpose(0, 1)
+        )
+
+        # Lower (t+1, t) blocks: dyn couples (q_{t+1} → q_t, v_t), acc
+        # couples (v_{t+1} → v_t).
+        l_qq = r_dyn * c1 * c2
+        l_qv = r_dyn * c1 * c0
+        l_vv = _pad0(r_acc * a0 * a1, 0, 1)
+        zlow = torch.zeros_like(l_qq)
+        M_lower = (
+            self.P_lower
+            + torch.cat([l_qq, l_vv], dim=1)[:, :, None] * eye
+            + torch.cat([l_qv, zlow], dim=1)[:, :, None] * k_qv
+        )
+
+        J = self.ws_jac  # (n_balls, W, 3, N, *batch)
+        ws_c = (J[:, :, :, :, None] * r_ws[:, :, :, None, None]
+                * J[:, :, :, None]).sum(dim=(0, 2))
+        if self.n_obstacles and self.n_balls:
+            O = self.obs_jac  # (n_balls, n_obs, W, N, *batch)
+            ws_c = ws_c + (O[:, :, :, :, None] * r_obs[:, :, :, None, None]
+                           * O[:, :, :, None]).sum(dim=(0, 1))
+        M_diag[:, :N, :N] += ws_c
+        return M_diag, M_lower
+
+    def kkt_factor(self, rho_vec, sigma):
+        """Block-tridiagonal Cholesky of the reduced KKT (one trailing batch
+        dim): the kernel of :mod:`..ops.tridiag_kernel` on a CUDA batch, the
+        plain recurrence of :mod:`..ops.tridiag` on the CPU."""
+        chol, gain = tridiag_kernel.factor_lane_major(
+            *self.kkt_blocks(rho_vec, sigma))
+        return BlockTridiagFactor(chol=chol, gain=gain)
+
+    def kkt_solve(self, factor, rhs):
+        s = tridiag_kernel.solve_lane_major(
+            factor.chol, factor.gain, self._interleave(rhs))
+        return self._deinterleave(s)
+
+    # --- dense ------------------------------------------------------------
+
+    def to_dense(self):
+        """Dense ``(P, q, A, l, u)`` in the reference variable layout with
+        compact rows, batch-trailing (tests and ground truth only)."""
+        n, bs = self.n, self.batch_shape
+        kw = dict(dtype=self.q_vec.dtype, device=self.q_vec.device)
+        cols = []
+        for j in range(n):
+            e = torch.zeros((n,) + bs, **kw)
+            e[j] = 1.0
+            cols.append(self.A_matvec(e))
+        A = torch.stack(cols, dim=1)
+        W, B2 = self.waypoints, 2 * self.n_dim
+        P_int = torch.zeros((W * B2, W * B2) + bs, **kw)
+        for t in range(W):
+            s = slice(t * B2, (t + 1) * B2)
+            P_int[s, s] = self.P_diag[t]
+            if t + 1 < W:
+                nx = slice((t + 1) * B2, (t + 2) * B2)
+                P_int[nx, s] = self.P_lower[t]
+                P_int[s, nx] = self.P_lower[t].transpose(0, 1)
+        perm = self._perm_to_interleaved()
+        P = P_int[perm][:, perm]
+        return P, self.q_vec, A, self.l, self.u
+
+    def _perm_to_interleaved(self):
+        """``perm[i]`` = interleaved index of reference-layout variable i."""
+        W, N = self.waypoints, self.n_dim
+        t = torch.arange(W)[:, None] * 2 * N
+        j = torch.arange(N)[None, :]
+        return torch.cat([(t + j).reshape(-1), (t + N + j).reshape(-1)])
 
 
 # --------------------------------------------------------------------------

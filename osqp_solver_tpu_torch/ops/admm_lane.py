@@ -21,28 +21,26 @@ versions.
 """
 from __future__ import annotations
 
-import dataclasses
-from typing import NamedTuple, Optional
-
 import torch
 
 from .admm import (
-    DIV_TOL,
-    INF_THRESHOLD,
-    RHO_MAX,
-    RHO_MIN,
+    ADMMState,
     Settings,
     SolveResult,
+    _admm_iteration,
+    _adapt_rho_decision,
     _rho_vec,
-    _stall_init,
     _stall_reset,
-    _stall_update,
+    _termination_decide,
+    _termination_quantities,
     check_supported,
+    finalize,
+    identity_scaling,
+    init_state,
     pin_matmul_precision,
     resolve_device,
 )
 from .ruiz import Scaling
-from .status import ExitCode
 
 # Device→host reads since import: one per chunk of the chunk loop, one per
 # guarded bounds update of a session (ops/session_lane.py).
@@ -80,87 +78,10 @@ def ruiz_equilibrate_lane(qp, iters: int = 10):
 # ---------------------------------------------------------------------------
 
 
-@dataclasses.dataclass(frozen=True)
-class LaneADMMState:
-    x: torch.Tensor  # (n, B) scaled primal — or the (W, SRp, B) state pack
-    z: Optional[torch.Tensor]  # (m, B)
-    y: Optional[torch.Tensor]  # (m, B)
-    dx: Optional[torch.Tensor]
-    dy: Optional[torch.Tensor]
-    rho_bar: torch.Tensor  # (B,)
-    rho_vec: torch.Tensor  # (m, B)
-    factor: object
-    iterations: torch.Tensor  # (B,) int32
-    status: torch.Tensor  # (B,) int32
-    done: torch.Tensor  # (B,) bool
-    prim_res: torch.Tensor  # (B,)
-    dual_res: torch.Tensor  # (B,)
-    # Stall-detection carry (Settings.stall_checks > 0; None otherwise).
-    stall_ref: Optional[torch.Tensor] = None
-    stall_k: Optional[torch.Tensor] = None
-
-    def replace(self, **changes) -> "LaneADMMState":
-        return dataclasses.replace(self, **changes)
-
-
-def _norm0(v):
-    """Per-problem inf-norm over the row axis: (m, B) → (B,)."""
-    return v.abs().amax(dim=0)
-
-
-def init_state_lane(
-    scaled,
-    settings: Settings,
-    warm_x=None,
-    warm_y=None,
-    scaling: Optional[Scaling] = None,
-    rho_bar=None,
-    factor=None,
-    rho_vec=None,
-) -> LaneADMMState:
-    """Cold/warm start; ``warm_x``/``warm_y`` are unscaled ``(n|m, B)``."""
-    dtype, dev = scaled.q.dtype, scaled.q.device
-    n, B = scaled.q.shape
-    m = scaled.m
-    if warm_x is None:
-        x = torch.zeros((n, B), dtype=dtype, device=dev)
-        z = torch.zeros((m, B), dtype=dtype, device=dev)
-    else:
-        x = scaling.Dinv * torch.as_tensor(warm_x, dtype=dtype, device=dev)
-        z = scaled.A_matvec(x)
-    if warm_y is None:
-        y = torch.zeros((m, B), dtype=dtype, device=dev)
-    else:
-        y = scaling.c * scaling.Einv * torch.as_tensor(
-            warm_y, dtype=dtype, device=dev
-        )
-
-    if rho_bar is None:
-        rho_bar = torch.full((B,), settings.rho, dtype=dtype, device=dev)
-    if rho_vec is None:
-        rho_vec = _rho_vec(rho_bar, scaled.l, scaled.u)
-    if factor is None:
-        factor = scaled.kkt_factor(rho_vec, settings.sigma)
-    stall_ref, stall_k = _stall_init(settings, dtype, (B,), dev)
-    return LaneADMMState(
-        x=x,
-        z=z,
-        y=y,
-        dx=torch.zeros((n, B), dtype=dtype, device=dev),
-        dy=torch.zeros((m, B), dtype=dtype, device=dev),
-        rho_bar=rho_bar,
-        rho_vec=rho_vec,
-        factor=factor,
-        iterations=torch.zeros((B,), dtype=torch.int32, device=dev),
-        status=torch.full(
-            (B,), int(ExitCode.kUnknown), dtype=torch.int32, device=dev
-        ),
-        done=torch.zeros((B,), dtype=torch.bool, device=dev),
-        prim_res=torch.full((B,), float("inf"), dtype=dtype, device=dev),
-        dual_res=torch.full((B,), float("inf"), dtype=dtype, device=dev),
-        stall_ref=stall_ref,
-        stall_k=stall_k,
-    )
+# The generic path's state and cold/warm start serve the lane driver too
+# (its fused path carries the packed state in ``x`` and leaves z..dy None).
+LaneADMMState = ADMMState
+init_state_lane = init_state
 
 
 # ---------------------------------------------------------------------------
@@ -170,219 +91,12 @@ def init_state_lane(
 
 def _iteration(scaled, st: LaneADMMState, factor, settings: Settings,
                kkt_solve=None):
-    """One scaled ADMM iteration on the flat state (unfused path).  The KKT
-    solve is ``scaled.kkt_solve`` (the block-tridiagonal kernel on a CUDA
-    batch) unless a ``kkt_solve(factor, rhs)`` is given."""
-    sigma, alpha = settings.sigma, settings.alpha
-    rhs = sigma * st.x - scaled.q + scaled.AT_matvec(st.rho_vec * st.z - st.y)
-    xt = (scaled.kkt_solve if kkt_solve is None else kkt_solve)(factor, rhs)
-    zt = scaled.A_matvec(xt)
-
-    x_new = alpha * xt + (1.0 - alpha) * st.x
-    z_tmp = alpha * zt + (1.0 - alpha) * st.z
-    z_new = torch.minimum(
-        torch.maximum(z_tmp + st.y / st.rho_vec, scaled.l), scaled.u
-    )
-    y_new = st.y + st.rho_vec * (z_tmp - z_new)
-
-    keep = st.done  # (B,) broadcasts against (rows, B)
-
-    def sel(new, old):
-        return torch.where(keep, old, new)
-
-    return st.replace(
-        x=sel(x_new, st.x),
-        z=sel(z_new, st.z),
-        y=sel(y_new, st.y),
-        dx=sel(x_new - st.x, st.dx),
-        dy=sel(y_new - st.y, st.dy),
-        iterations=st.iterations + (~keep).to(torch.int32),
-    )
-
-
-class TermQuantities(NamedTuple):
-    """Per-problem (B,) reductions feeding the OSQP termination decision,
-    produced either by the plain matvec path
-    (:func:`_termination_quantities`) or from the chunk kernel's
-    accumulators (:func:`.residuals.assemble_term_quantities`)."""
-
-    prim_res: torch.Tensor
-    dual_res: torch.Tensor
-    prim_norm: torch.Tensor
-    dual_norm: torch.Tensor
-    norm_dy: torch.Tensor
-    norm_dx: torch.Tensor
-    At_dy_max: torch.Tensor  # ‖Aᵀdy_u‖∞
-    support: torch.Tensor  # Σ u·(dy_u)₊ + l·(dy_u)₋ over tight rows
-    loose_dy_pos_max: torch.Tensor  # max (dy_u)₊ over loose-u rows
-    loose_dy_neg_max: torch.Tensor  # max −(dy_u)₋ over loose-l rows
-    P_dx_max: torch.Tensor  # ‖P dx_u‖∞
-    A_dx_max: torch.Tensor  # max A dx_u over tight-u rows (−inf if none)
-    A_dx_min: torch.Tensor  # min A dx_u over tight-l rows (+inf if none)
-    q_dot_dx: torch.Tensor  # qᵀ dx_u
-    blew_up: torch.Tensor  # bool: iterates went non-finite
-
-
-def _termination_quantities(
-    base, scaled, scaling: Scaling, st: LaneADMMState
-) -> TermQuantities:
-    """Plain path on the flat state and the BASE (unscaled) operators."""
-    Einv, Dinv, cinv = scaling.Einv, scaling.Dinv, scaling.cinv
-
-    Ax = scaled.A_matvec(st.x)
-    Px = scaled.P_matvec(st.x)
-    ATy = scaled.AT_matvec(st.y)
-
-    prim_res = _norm0(Einv * (Ax - st.z))
-    dual_res = cinv * _norm0(Dinv * (Px + scaled.q + ATy))
-    prim_norm = torch.maximum(_norm0(Einv * Ax), _norm0(Einv * st.z))
-    dual_norm = cinv * torch.maximum(
-        torch.maximum(_norm0(Dinv * Px), _norm0(Dinv * ATy)),
-        _norm0(Dinv * scaled.q),
-    )
-
-    dy_u = cinv * scaling.E * st.dy
-    dx_u = scaling.D * st.dx
-    base_l, base_u = base.l, base.u
-    loose_u = base_u >= INF_THRESHOLD
-    loose_l = base_l <= -INF_THRESHOLD
-
-    zero = torch.zeros_like(dy_u)
-    inf = torch.full_like(dy_u, float("inf"))
-    dy_pos = dy_u.clamp(min=0.0)
-    dy_neg = dy_u.clamp(max=0.0)
-    support = (
-        torch.where(loose_u, zero, base_u * dy_pos)
-        + torch.where(loose_l, zero, base_l * dy_neg)
-    ).sum(dim=0)
-    A_dx = base.A_matvec(dx_u)
-    return TermQuantities(
-        prim_res=prim_res,
-        dual_res=dual_res,
-        prim_norm=prim_norm,
-        dual_norm=dual_norm,
-        norm_dy=_norm0(dy_u),
-        norm_dx=_norm0(dx_u),
-        At_dy_max=_norm0(base.AT_matvec(dy_u)),
-        support=support,
-        loose_dy_pos_max=torch.where(loose_u, dy_pos, zero).amax(dim=0),
-        loose_dy_neg_max=torch.where(loose_l, -dy_neg, zero).amax(dim=0),
-        P_dx_max=_norm0(base.P_matvec(dx_u)),
-        A_dx_max=torch.where(loose_u, -inf, A_dx).amax(dim=0),
-        A_dx_min=torch.where(loose_l, inf, A_dx).amin(dim=0),
-        q_dot_dx=(base.q * dx_u).sum(dim=0),
-        blew_up=~torch.isfinite(st.x.sum(dim=0) + st.y.sum(dim=0)),
-    )
-
-
-def _termination_decide(
-    st: LaneADMMState, tq: TermQuantities, settings: Settings
-):
-    """Status decision from the reductions (shared by both paths).
-
-    ``all(v ≤ ε)`` over masked rows is expressed as ``max(v over mask) ≤ ε``
-    (empty mask → vacuous true via the 0/∓inf initializers)."""
-    prim_res, dual_res = tq.prim_res, tq.dual_res
-    eps_prim = settings.eps_abs + settings.eps_rel * tq.prim_norm
-    eps_dual = settings.eps_abs + settings.eps_rel * tq.dual_norm
-    solved = (prim_res <= eps_prim) & (dual_res <= eps_dual)
-    solved_inacc = (prim_res <= 10 * eps_prim) & (dual_res <= 10 * eps_dual)
-
-    def prim_inf_at(eps):
-        eps_p = eps * tq.norm_dy
-        return (
-            (tq.norm_dy > eps)
-            & (tq.At_dy_max <= eps_p)
-            & (tq.support <= -eps_p)
-            & (tq.loose_dy_pos_max <= eps_p)
-            & (tq.loose_dy_neg_max <= eps_p)
-        )
-
-    def dual_inf_at(eps):
-        eps_d = eps * tq.norm_dx
-        return (
-            (tq.norm_dx > eps)
-            & (tq.P_dx_max <= eps_d)
-            & (tq.q_dot_dx <= -eps_d)
-            & (tq.A_dx_max <= eps_d)
-            & (tq.A_dx_min >= -eps_d)
-        )
-
-    prim_inf = prim_inf_at(settings.eps_prim_inf)
-    dual_inf = dual_inf_at(settings.eps_dual_inf)
-    # OSQP at max_iter re-checks with 10×-relaxed tolerances → the
-    # k*InfeasibleInaccurate statuses.
-    prim_inf_inacc = prim_inf_at(10 * settings.eps_prim_inf)
-    dual_inf_inacc = dual_inf_at(10 * settings.eps_dual_inf)
-
-    blew_up = tq.blew_up
-
-    st, stalled = _stall_update(
-        st, prim_res, dual_res, eps_prim, eps_dual, settings
-    )
-    # A stalled problem gives up through the max_iter ladder below.
-    at_max = (st.iterations >= settings.max_iter) | stalled
-
-    def code(c):
-        return torch.full_like(st.status, int(c))
-
-    w = torch.where
-    new_status = w(
-        blew_up,
-        code(ExitCode.kNonConvex),
-        w(
-            solved,
-            code(ExitCode.kOptimal),
-            w(
-                prim_inf,
-                code(ExitCode.kPrimalInfeasible),
-                w(
-                    dual_inf,
-                    code(ExitCode.kDualInfeasible),
-                    w(
-                        at_max,
-                        w(
-                            solved_inacc,
-                            code(ExitCode.kOptimalInaccurate),
-                            w(
-                                prim_inf_inacc,
-                                code(ExitCode.kPrimalInfeasibleInaccurate),
-                                w(
-                                    dual_inf_inacc,
-                                    code(ExitCode.kDualInfeasibleInaccurate),
-                                    code(ExitCode.kMaxIterations),
-                                ),
-                            ),
-                        ),
-                        code(ExitCode.kUnknown),
-                    ),
-                ),
-            ),
-        ),
-    )
-    newly_done = solved | prim_inf | dual_inf | at_max | blew_up
-
-    st = st.replace(
-        status=w(st.done, st.status, new_status),
-        done=st.done | newly_done,
-        prim_res=w(st.done, st.prim_res, prim_res),
-        dual_res=w(st.done, st.dual_res, dual_res),
-    )
-    return st, (prim_res, dual_res, tq.prim_norm, tq.dual_norm)
-
-
-def _adapt_rho_decision(st: LaneADMMState, norms, settings: Settings):
-    prim_res, dual_res, prim_norm, dual_norm = norms
-    pr = prim_res / prim_norm.clamp(min=DIV_TOL)
-    dr = dual_res / dual_norm.clamp(min=DIV_TOL)
-    new_rho = torch.clamp(
-        st.rho_bar * torch.sqrt(pr / dr.clamp(min=DIV_TOL)), RHO_MIN, RHO_MAX
-    )
-    tol = settings.adaptive_rho_tolerance
-    adapt = (~st.done) & (
-        (new_rho > tol * st.rho_bar) | (new_rho < st.rho_bar / tol)
-    )
-    return new_rho, adapt
+    """One scaled ADMM iteration on the flat state (unfused path): the
+    generic step with the lane factor.  The KKT solve is
+    ``scaled.kkt_solve`` (the block-tridiagonal kernel on a CUDA batch)
+    unless a ``kkt_solve(factor, rhs)`` is given."""
+    return _admm_iteration(scaled, st, settings, factor=factor,
+                           solve=kkt_solve)
 
 
 # ---------------------------------------------------------------------------
@@ -463,13 +177,7 @@ def build_const_packs(scaled, scaling: Scaling):
 
 def identity_scaling_lane(base) -> Scaling:
     n, B = base.q.shape
-    kw = dict(dtype=base.q.dtype, device=base.q.device)
-    one = torch.ones((B,), **kw)
-    ones_n = torch.ones((n, B), **kw)
-    ones_m = torch.ones((base.m, B), **kw)
-    return Scaling(
-        D=ones_n, E=ones_m, c=one, Dinv=ones_n, Einv=ones_m, cinv=one
-    )
+    return identity_scaling(n, base.m, base.q.dtype, (B,), base.q.device)
 
 
 def _use_fused(scaled, settings: Settings) -> bool:
@@ -658,28 +366,4 @@ def _solve_core(
         st.rho_bar,
         st.factor,
     )
-    return _finalize(base, scaling, st), carry
-
-
-def _finalize(base, scaling: Scaling, st: LaneADMMState) -> SolveResult:
-    """Unscale and package a batch-leading :class:`SolveResult`."""
-    x = scaling.D * st.x
-    y = scaling.cinv * scaling.E * st.y
-    z = scaling.Einv * st.z
-    status = torch.where(
-        st.done,
-        st.status,
-        torch.full_like(st.status, int(ExitCode.kMaxIterations)),
-    )
-    obj = 0.5 * (x * base.P_matvec(x)).sum(dim=0) + (base.q * x).sum(dim=0)
-    return SolveResult(
-        x=x.T.contiguous(),
-        y=y.T.contiguous(),
-        z=z.T.contiguous(),
-        status=status,
-        iterations=st.iterations,
-        prim_res=st.prim_res,
-        dual_res=st.dual_res,
-        rho=st.rho_bar,
-        obj_val=obj,
-    )
+    return finalize(base, scaling, st), carry

@@ -103,9 +103,9 @@ def build_residual_packs(scaled, scaling):
 
 
 def assemble_term_quantities(acc, cinv, norm_Dq):
-    """(NACC, B) raw accumulators → :class:`.admm_lane.TermQuantities`
+    """(NACC, B) raw accumulators → :class:`.admm.TermQuantities`
     (applies the host-side ``cinv`` / ``norm_Dq`` combines)."""
-    from .admm_lane import TermQuantities
+    from .admm import TermQuantities
 
     def g(k):
         return acc[_ACC[k]]
@@ -232,7 +232,7 @@ def _launch_residuals(lib, coef, Pdp, Plf, state_pack, dxdy_pack, rowc, varc,
 
 
 def termination_quantities_kernel(scaled, state_pack, dxdy_pack, coef, packs):
-    """One streaming pass over the horizon → :class:`.admm_lane.
+    """One streaming pass over the horizon → :class:`.admm.
     TermQuantities`.
 
     ``scaled``: waypoint-layout :class:`LaneTrajectoryQP` (Ruiz scaled);

@@ -69,7 +69,8 @@ def _both_solvers(obstacles=(), waypoints=12, **kw):
     tball = RobotBall(radius=0.05, is_gripper=True,
                       fk_jac_batched=_identity_fk_jac)
     tsolver = GOMPSolver(
-        balls=[tball], **convert.gomp_solver_kwargs_from_numpy(spec))
+        balls=[tball], **convert.gomp_solver_kwargs_from_numpy(
+            spec, device="cpu"))
     return jsolver, tsolver
 
 
@@ -252,10 +253,37 @@ def test_planner_default_device_is_cuda_and_raises_without_one():
                 vel_con=(np.full(N, -1.0), np.full(N, 1.0)),
                 acc_con=(np.full(N, -1.0), np.full(N, 1.0)),
                 con_3d=(np.full(3, -1.0), np.full(3, 1.0)))
-    kwargs = convert.gomp_solver_kwargs_from_numpy(spec)
+    kwargs = convert.gomp_solver_kwargs_from_numpy(spec, device="cpu")
     kwargs.pop("device")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GOMPSolver(balls=[], **kwargs)
+
+
+def _planner_spec():
+    return dict(max_waypoints=8, time_step=0.1,
+                pos_con=(np.full(N, -1.0), np.full(N, 1.0)),
+                vel_con=(np.full(N, -1.0), np.full(N, 1.0)),
+                acc_con=(np.full(N, -1.0), np.full(N, 1.0)),
+                con_3d=(np.full(3, -1.0), np.full(3, 1.0)))
+
+
+def test_planner_kwargs_from_numpy_default_to_cuda():
+    """Without ``device=`` the converter's kwargs build a CUDA planner (the
+    entry points' rule), or raise where there is no CUDA device."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            convert.gomp_solver_kwargs_from_numpy(_planner_spec())
+        return
+    kwargs = convert.gomp_solver_kwargs_from_numpy(_planner_spec())
+    assert kwargs["device"].type == "cuda"
+    assert GOMPSolver(balls=[], **kwargs).device.type == "cuda"
+
+
+def test_planner_kwargs_from_numpy_on_the_cpu_when_asked():
+    kwargs = convert.gomp_solver_kwargs_from_numpy(_planner_spec(),
+                                                   device="cpu")
+    assert kwargs["device"].type == "cpu"
+    assert GOMPSolver(balls=[], **kwargs).device.type == "cpu"
 
 
 def test_auto_refine_policy_matches_reference_and_is_refused():
