@@ -6,16 +6,17 @@ Run it from the repository root on a machine with one NVIDIA Hopper GPU:
     python3 chip_smoke.py
 
 It builds the hand-written kernels from ``osqp_solver_tpu_torch/csrc`` (six
-sources; three layout signatures of the lane kernels, the block size of the
-tridiagonal one, and the dense one; all compilers started together), holds
-each kernel — the chunk kernel in its accumulator, warm-up and
-delta-writing forms, each in the ``hrec`` and the ``gain`` factor form, the
-factor kernel with and without its gain write, the block-tridiagonal factor
-and solve, the dense Cholesky factor and solve — against its plain PyTorch
-version on the card at its main path's shape (honest GOMP class, W=100,
-N=6, B=1024; dense QPs n=64, m=96, B=1024; float32), times both, then
-drives the port's
-entry points:
+sources; three layout signatures of the lane kernels, the Ruiz and residual
+kernels also in their block-P form, the block size of the tridiagonal one,
+and the dense one; all compilers started together), holds each kernel — the
+chunk kernel in its accumulator, warm-up and delta-writing forms, each in
+the ``hrec`` and the ``gain`` factor form, the factor kernel with and
+without its gain write, the block-tridiagonal factor and solve, the dense
+Cholesky factor and solve, and the block-P forms of Ruiz and the residual
+kernel with the gain chunk fed ``pack_factor`` of the block-tridiagonal
+factor — against its plain PyTorch version on the card at its main path's
+shape (honest GOMP class, W=100, N=6, B=1024; dense QPs n=64, m=96, B=1024;
+float32), times both, then drives the port's entry points:
 
 * ``solve_batched_lane`` on a 1024-problem honest batch (``solve``), the same
   with ``term_fused="off"`` (``solve_unfused_term``: delta-writing chunk +
@@ -39,7 +40,14 @@ entry points:
   ``dense_session``), and on the trajectory container ``solve`` (config 1,
   W=10) and a session (config 4b, the honest W=100 QP, 200 goal shifts:
   ``trajectory_generic``), held to the JAX package's iteration counts on the
-  same problems (``tools/jax_reference_counts.py``).
+  same problems (``tools/jax_reference_counts.py``);
+* the block-P lane path: ``solve_batched_lane`` on the honest class with a
+  seeded objective that fills every ``P_diag`` block and the upper triangle
+  of every ``P_lower`` block (``solve_block_p``, held to the JAX f32
+  counts), on the unchanged honest batch declared ``p_structure="block"``
+  (``solve_block_p_declared``), and ``setup_lane`` → ``mpc_scan_lane`` on
+  the block-P batch with a moving goal (``mpc_fleet_block_p``); no plain
+  version may run on the card there.
 
 It checks statuses, ADMM iteration counts, OSQP's residual criterion
 recomputed in float64 on the host, and that every kernel was really launched
@@ -108,6 +116,10 @@ TOL_DENSE_FACTOR, TOL_DENSE_SOLVE = 2e-4, 2e-3
 RESID_SUMS = ("support", "q_dot", "xsum", "ysum")
 PLANNER = dict(rho=0.04, check_termination=3, scaling=3)
 LANE_KERNELS = ("ruiz", "kkt_factor", "admm_chunk")
+# The block-P lane path: Ruiz and residuals in their block forms, the gain
+# chunk fed the packed block-tridiagonal factor.
+BLOCK_KERNELS = ("ruiz_block", "tridiag_factor", "admm_chunk_block",
+                 "residuals_block")
 UNFUSED_KERNELS = LANE_KERNELS + ("admm_chunk_dxdy", "residuals")
 GAIN_KERNELS = LANE_KERNELS + ("kkt_factor_gain", "admm_chunk_gain")
 TRIDIAG_KERNELS = ("tridiag_factor", "tridiag_solve")
@@ -116,7 +128,14 @@ FLEET = dict(rho=0.05, check_termination=5, adaptive_rho_interval=51)
 FLEET_TICKS = 50
 PHASES = ("build,kernels,solve,solve_unfused_term,solve_stock,box,"
           "planner_full,planner_obstacles,mpc_fleet,mpc_fleet_gain,"
-          "mpc_fleet_unfused,dense,dense_session,trajectory_generic")
+          "mpc_fleet_unfused,dense,dense_session,trajectory_generic,"
+          "solve_block_p,solve_block_p_declared,mpc_fleet_block_p")
+# The block-P fleet: fewer ticks than the vel-diag fleets, for time, at the
+# settings the block-P batch is solved at (BENCH) without the warm-up chunk:
+# at the fleet benchmark's stock ones (scaling 10, rho 0.05) its cold ticks
+# take several times longer and some end kOptimalInaccurate.
+BLOCK_FLEET_TICKS = 20
+BLOCK_FLEET = dict(BENCH, termination_warmup=0)
 RECORDS = {}
 
 
@@ -200,9 +219,12 @@ def ops_factor(W, N, NX, B):
     return W * B * (dense + stencil + schur + chol + gain)
 
 
-def ops_ruiz(W, N, NX, B, iters):
+def ops_ruiz(W, N, NX, B, iters, block=False):
     R = 4 * N + NX
     per_wp = N * (51 + 3 * NX) + 3 * NX * N + 5 * R + 20 * N
+    if block:  # P over full blocks: six sweeps of a 2N x 2N block
+        B2 = 2 * N
+        per_wp += 12 * B2 * B2 + 14 * B2 - 20 * N
     return iters * W * B * per_wp
 
 
@@ -218,12 +240,14 @@ def ops_chunk(W, N, NX, B, n_iter, emit_term):
     return W * B * (n_iter * (fwd + bwd) + (term if emit_term else 0))
 
 
-def ops_residuals(W, N, NX, B):
+def ops_residuals(W, N, NX, B, block=False):
     B2, R = 2 * N, 4 * N + NX
     Rp = -(-R // 8) * 8
     a_rows = 5 * N + N + N + 3 * N + 2 * N * NX
     at = 2 * N * (5 + 2 * NX) + 8 * N
-    return W * B * (2 * a_rows + 30 * Rp + at + 10 * N + 16 * B2)
+    # P x and P dx: the velocity diagonals, or three full-block products each
+    p_ops = 12 * B2 * B2 + 4 * B2 if block else 10 * N
+    return W * B * (2 * a_rows + 30 * Rp + at + p_ops + 16 * B2)
 
 
 def ops_tridiag_factor(W, B2, B):
@@ -372,14 +396,73 @@ def shift_goal(base, d):
     return base.replace(pos_l=pos_l, pos_u=pos_u)
 
 
-def encode_iters(iters, ct):
-    """Iteration counts (multiples of ``ct``) as one base-36 digit each."""
-    digits = "0123456789abcdefghijklmnopqrstuvwxyz"
-    return "".join(digits[int(k) // ct] for k in iters)
+# ------------------------------------------------ block-P lane batch
+# The objective of the block-P phases: the GOMP smoothness term plus a
+# seeded sum of squares that fills every entry of each P_diag block and the
+# upper triangle of each P_lower block (rows of waypoint t+1, columns of t).
+# With s = (q_scale on the N positions, 1 on the N velocities) of a waypoint:
+#   sum_t 1/2 (s x_t)' M_t M_t' (s x_t)
+#   + sum_{t, r} 1/2 w ((s x_{t+1})[r] - sum_{c >= r} beta_{t,r,c} (s x_t)[c])^2.
+# PSD by construction; the coupling blocks are upper-triangular, the side on
+# which the packed gain of admm_fused.pack_factor is exact (ROADMAP.md,
+# queue C).  The weights keep the honest class's statuses (1024/1024 optimal
+# in the JAX package) and its float32 iteration counts stable: heavier
+# weights, on the positions above all, lengthen the solves several times
+# and leave many problems' counts to float32 rounding.
+BLOCK_P_SEED, BLOCK_P_M, BLOCK_P_W, BLOCK_P_Q = 5, 0.03, 0.03, 0.03
 
 
-def decode_iters(code, ct):
-    return [int(ch, 36) * ct for ch in code]
+def block_p_terms(W, N, B, seed=BLOCK_P_SEED, m_scale=BLOCK_P_M,
+                  w=BLOCK_P_W, q_scale=BLOCK_P_Q):
+    """The sum of squares above as its Hessian blocks, float64 numpy,
+    batch-trailing: ``(dP_diag (W, 2N, 2N, B), dP_lower (W-1, 2N, 2N, B))``
+    (``M_t`` entries ``m_scale`` x standard normal, ``beta`` uniform in
+    [-1, 1] on and above the diagonal)."""
+    rng = np.random.default_rng(seed)
+    B2 = 2 * N
+    M = m_scale * rng.standard_normal((W, B2, B2, B))
+    beta = rng.uniform(-1.0, 1.0, (W - 1, B2, B2, B))
+    beta *= np.triu(np.ones((B2, B2)))[None, :, :, None]
+    dPd = np.einsum("tikb,tjkb->tijb", M, M)
+    dPd[1:] += w * np.eye(B2)[None, :, :, None]
+    dPd[:-1] += w * np.einsum("trib,trjb->tijb", beta, beta)
+    s = np.r_[np.full(N, q_scale), np.ones(N)]
+    ss = np.outer(s, s)[None, :, :, None]
+    return dPd * ss, -w * beta * ss
+
+
+def with_block_p(qp, seed=BLOCK_P_SEED):
+    """A float64 lane batch with :func:`block_p_terms` added to its P,
+    declared ``p_structure="block"``."""
+    dPd, dPl = block_p_terms(qp.waypoints, qp.n_dim, qp.batch, seed)
+    kw = dict(dtype=qp.dtype, device=qp.device)
+    return qp.replace(P_diag=qp.P_diag + torch.as_tensor(dPd, **kw),
+                      P_lower=qp.P_lower + torch.as_tensor(dPl, **kw),
+                      p_structure="block")
+
+
+def block_p_batch(batch, device):
+    """The honest class with the block-P objective, built in float64 on the
+    CPU and rounded to float32 (the numbers ``tools/jax_reference_counts.py``
+    hands to the JAX package), then moved to ``device``."""
+    qp = with_block_p(build_honest_batch(batch, W, N, torch.float64, "cpu"))
+    return cast(qp, torch.float32).to(device)
+
+
+ITER_DIGITS = ("0123456789abcdefghijklmnopqrstuvwxyz"
+               "ABCDEFGHIJKLMNOPQRSTUVWXYZ")
+
+
+def encode_iters(iters, ct, offset=0):
+    """Iteration counts (``offset`` plus multiples of ``ct``: a warm-up
+    chunk of ``termination_warmup`` iterations puts the checks at odd
+    counts) as one digit each, ``(k - offset) // ct`` in base 62 (0-9, a-z,
+    A-Z)."""
+    return "".join(ITER_DIGITS[(int(k) - offset) // ct] for k in iters)
+
+
+def decode_iters(code, ct, offset=0):
+    return [ITER_DIGITS.index(ch) * ct + offset for ch in code]
 
 
 # -------------------------------------------------------------------- phases
@@ -629,6 +712,7 @@ def phase_kernels():
         term_packs, q_int, lu, NX))
     out.extend(check_tridiag(scaled, rho_vec, settings))
     out.extend(check_dense())
+    out.extend(check_block_p(settings, NX))
     for row in out:
         row["ptxas"] = ptxas_of(row["name"], sig)
     emit("kernels", kernels=out)
@@ -639,10 +723,13 @@ def phase_kernels():
 
 
 def check_chunk_dxdy(scaled, scaled64, settings, rho_vec, done, state0, args,
-                     ck, q_int, lu, NX):
+                     ck, q_int, lu, NX, gk=None, name="admm_chunk_dxdy"):
     """The chunk's delta-writing form: state and deltas of 2 iterations
-    against the plain version run in f64 on the same f32 inputs."""
+    against the plain version run in f64 on the same f32 inputs.  ``gk``:
+    the gain pack (the gain form; ``args`` carry it too), as the block-P
+    path runs it."""
     B = state0.shape[-1]
+    pf64 = (ck.double(), None if gk is None else gk.double())
     B2, Rp = 2 * N, scaled.rows_per_waypoint_padded
     sk, dk = admm_fused.fused_admm_chunk(
         scaled, rho_vec, done, settings, state_pack=state0.clone(), n_iter=2,
@@ -653,7 +740,7 @@ def check_chunk_dxdy(scaled, scaled64, settings, rho_vec, done, state0, args,
     s64, d64 = admm_fused.fused_admm_chunk_plain(
         scaled64, rho_vec.double(), done, settings,
         state_pack=state0.double(), n_iter=2, emit_dxdy=True,
-        packed_factor=(ck.double(), None))
+        packed_factor=pf64)
     # One iteration: the deltas are against the input state.
     s1, d1 = admm_fused.fused_admm_chunk(
         scaled, rho_vec, done, settings, state_pack=state0.clone(), n_iter=1,
@@ -661,7 +748,7 @@ def check_chunk_dxdy(scaled, scaled64, settings, rho_vec, done, state0, args,
     _, d1_64 = admm_fused.fused_admm_chunk_plain(
         scaled64, rho_vec.double(), done, settings,
         state_pack=state0.double(), n_iter=1, emit_dxdy=True,
-        packed_factor=(ck.double(), None))
+        packed_factor=pf64)
     torch.cuda.synchronize()
     sect = {"x": slice(0, B2), "z": slice(B2, B2 + Rp),
             "y": slice(B2 + Rp, B2 + 2 * Rp)}
@@ -686,13 +773,14 @@ def check_chunk_dxdy(scaled, scaled64, settings, rho_vec, done, state0, args,
     p_ms = time_ms(lambda: admm_fused.fused_admm_chunk_plain(
         scaled, rho_vec, done, settings, state_pack=state0, n_iter=2,
         emit_dxdy=True, **args), reps=5, warm=1)
-    Plf = kkt_factor.build_p_vel_packs(scaled)[1]
-    moved = nbytes(ck, args["coef"], q_int, lu, rho_vec, Plf, done, state0,
+    # The hrec form reads the velocity diagonal of P_lower, the gain form G.
+    extra = kkt_factor.build_p_vel_packs(scaled)[1] if gk is None else gk
+    moved = nbytes(ck, args["coef"], q_int, lu, rho_vec, extra, done, state0,
                    state0, dk)
     b_ms, b_by = bound(moved, ops_chunk(W, N, NX, B, 2, False))
     worst = max(v[0] for v in vs64.values())
     return dict(
-        name="admm_chunk_dxdy",
+        name=name,
         max_abs_err=max(rel_err(sk, sp)[0], rel_err(dk, dp)[0]),
         max_rel_err=worst, kernel_and_plain_vs_f64=vs64,
         frozen_problems_zero_and_untouched=frozen_zero,
@@ -705,13 +793,16 @@ def check_chunk_dxdy(scaled, scaled64, settings, rho_vec, done, state0, args,
                  "kernel against plain f32, for information",
         ok=bool(worst <= TOL_CHUNK and frozen_zero and pads_zero),
         ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"W={W} N={N} B={B} n_iter=2 emit_dxdy")
+        shape=f"W={W} N={N} B={B} n_iter=2 emit_dxdy"
+              + ("" if gk is None else f" gain, P {scaled.p_structure}"))
 
 
 def check_residuals(scaled, scaling, settings, rho_vec, done, state0, args,
-                    packs, lu, NX):
+                    packs, lu, NX, row_name="residuals"):
     """The streaming residual kernel on the packs the delta-writing chunk
-    produced, against its plain version on the same packs."""
+    produced, against its plain version on the same packs (the form of
+    ``scaled.p_structure``)."""
+    block = scaled.p_structure != "vel_diag"
     B = state0.shape[-1]
     sp, dp = admm_fused.fused_admm_chunk(
         scaled, rho_vec, done, settings, state_pack=state0.clone(), n_iter=2,
@@ -724,7 +815,7 @@ def check_residuals(scaled, scaling, settings, rho_vec, done, state0, args,
     def kernel_acc(state):
         acc = torch.empty((24, B), dtype=torch.float32, device="cuda")
         residuals._launch_residuals(
-            _build.library("residuals", admm_fused.layout_signature(scaled)),
+            _build.library("residuals", admm_fused.p_signature(scaled)),
             coef, rp[2], rp[3], state, dp, rowc, rp[1], acc)
         return acc
 
@@ -757,8 +848,12 @@ def check_residuals(scaled, scaling, settings, rho_vec, done, state0, args,
         errs[name] = rel_err(acck[row], accp[row], sc)
         vs64[name] = (rel_err(acck[row].double(), acc64[row], sc)[1],
                       rel_err(accp[row].double(), acc64[row], sc)[1])
-    worst_max = max(v[1] for k, v in errs.items() if k not in RESID_SUMS)
-    worst_sum = max(v[1] for k, v in errs.items() if k in RESID_SUMS)
+    if block:  # the block form is held against the f64 run
+        worst_max = max(v[0] for k, v in vs64.items() if k not in RESID_SUMS)
+        worst_sum = max(v[0] for k, v in vs64.items() if k in RESID_SUMS)
+    else:
+        worst_max = max(v[1] for k, v in errs.items() if k not in RESID_SUMS)
+        worst_sum = max(v[1] for k, v in errs.items() if k in RESID_SUMS)
     pad_rows_zero = bool((acck[len(_ACC):] == 0).all())
     # A NaN planted in one problem's state must surface as blew_up there,
     # and nowhere else.
@@ -771,25 +866,29 @@ def check_residuals(scaled, scaling, settings, rho_vec, done, state0, args,
     p_ms = time_ms(lambda: residuals.termination_accumulators_plain(
         scaled, sp, dp, rowc, rp[1]), reps=5, warm=1)
     moved = nbytes(coef, rp[2], rp[3], sp, dp, rowc, rp[1], acck)
-    b_ms, b_by = bound(moved, ops_residuals(W, N, NX, B))
+    b_ms, b_by = bound(moved, ops_residuals(W, N, NX, B, block))
+    acc_abs = {k: (rel_err(acck[r].double(), acc64[r])[0] if block
+                   else errs[k][0]) for k, r in _ACC.items()}
     return dict(
-        name="residuals",
-        max_abs_err=max(v[0] for k, v in errs.items() if k not in RESID_SUMS),
+        name=row_name,
+        max_abs_err=max(v for k, v in acc_abs.items() if k not in RESID_SUMS),
         max_rel_err=worst_max, sums_max_rel_err=worst_sum,
         acc_rel_err={k: v[1] for k, v in errs.items()},
         kernel_and_plain_vs_f64=vs64, pad_rows_zero=pad_rows_zero,
         nan_carried_to_blew_up=nan_carried, no_false_alarm=no_false_alarm,
         tol=TOL_RESID_MAX, tol_sums=TOL_RESID_SUM,
         tol_note="each of the 18 accumulator rows against the plain version "
-                 "on the same f32 packs: maxima as max abs error over max "
-                 "|plain| (f32 reassociation in cancelling residuals), the "
-                 "four sums (support, q_dot, xsum, ysum) over the sum of "
-                 "their terms' magnitudes (they cancel thousands of signed "
-                 "terms, summed in another order)",
+                 + ("run in f64 on the same f32 packs" if block else
+                    "on the same f32 packs") +
+                 ": maxima as max abs error over max |plain| (f32 "
+                 "reassociation in cancelling residuals), the four sums "
+                 "(support, q_dot, xsum, ysum) over the sum of their terms' "
+                 "magnitudes (they cancel thousands of signed terms, summed "
+                 "in another order)",
         ok=bool(worst_max <= TOL_RESID_MAX and worst_sum <= TOL_RESID_SUM
                 and pad_rows_zero and nan_carried and no_false_alarm),
         ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"W={W} N={N} B={B}")
+        shape=f"W={W} N={N} B={B} P {scaled.p_structure}")
 
 
 # Where each kernel row's registers and spills are read: (source, entry
@@ -802,6 +901,9 @@ PTXAS = {
     "admm_chunk_dxdy": ("admm_chunk", "admm_chunk_kernelILi2ELb0E"),
     "admm_chunk_gain": ("admm_chunk", "admm_chunk_kernelILi"),
     "residuals": ("residuals", "residuals"),
+    "ruiz_block": ("ruiz", "ruiz_"),
+    "residuals_block": ("residuals", "residuals"),
+    "admm_chunk_block": ("admm_chunk", "admm_chunk_kernelILi2ELb1E"),
     "tridiag_factor": ("tridiag", "tridiag_factor_kernel"),
     "tridiag_solve": ("tridiag", "tridiag_solve_kernel"),
     "dense_factor": ("dense", "dense_factor_kernel"),
@@ -818,6 +920,8 @@ def ptxas_of(name, sig):
         sig = {"B2": 2 * N}
     elif source == "dense":
         sig = {}
+    elif "BLOCK_P" in _build.KERNELS[source]:
+        sig = dict(sig, BLOCK_P=int(name.endswith("_block")))
     _, path = _build._target(source, sig, False)
     rep = _build.ptxas_report(path)
     gain_only = name == "admm_chunk_gain"
@@ -953,6 +1057,70 @@ def check_chunk_gain(scaled, scaled64, settings, rho_vec, done, state0, args,
         hrec_form_ms_same_call=hrec_ms,
         shape=f"W={W} N={N} B={B} gain; ms: n_iter=2 emit_term (warm-up "
               f"form n_iter={settings.termination_warmup}, dxdy n_iter=2)")
+
+
+def check_block_p(settings, NX):
+    """The block-P forms at the main shape, on the block-P batch: Ruiz and
+    the residual kernel against their plain versions run in f64 on the same
+    f32 inputs, and the gain chunk (delta-writing form) fed
+    ``pack_factor`` of the block-tridiagonal factor kernel, as the block-P
+    path runs it."""
+    B, iters = BATCH, settings.scaling
+    bp = block_p_batch(B, "cuda")
+
+    def ruiz_err(qp):
+        got = ruiz_kernel.ruiz_scalings_kernel(qp, iters)
+        plain = ruiz_kernel._ruiz_scalings_plain(qp, iters)
+        ref = ruiz_kernel._ruiz_scalings_plain(cast(qp, torch.float64), iters)
+        torch.cuda.synchronize()
+        ratio = lambda a, b: rel_err(a.double() / b, torch.ones_like(b))[0]  # noqa: E731
+        return (max(ratio(a, b) for a, b in zip(got, ref)),
+                max(ratio(a, b) for a, b in zip(plain, ref)),
+                max(rel_err(a, b)[0] for a, b in zip(got, plain)))
+
+    err, plain_err, vs_plain = ruiz_err(bp)
+    odd_err = ruiz_err(block_p_batch(200, "cuda"))[0]
+    k_ms = time_ms(lambda: ruiz_kernel.ruiz_scalings_kernel(bp, iters))
+    p_ms = time_ms(lambda: ruiz_kernel._ruiz_scalings_plain(bp, iters))
+    rp = ruiz_kernel._ruiz_kernel_packs(bp)
+    b_ms, b_by = bound(
+        nbytes(*rp[:4]) + nbytes(rp[4][0], rp[5][0], rp[6]),
+        ops_ruiz(W, N, NX, B, iters, block=True))
+    rows = [dict(
+        name="ruiz_block", max_abs_err=err, max_rel_err=err,
+        plain_f32_vs_f64=plain_err, kernel_vs_plain_f32=vs_plain,
+        odd_batch_rel_err=odd_err, tol=TOL_RUIZ,
+        tol_note="D, E, c elementwise relative to the plain version run in "
+                 "f64 on the same f32 inputs (|kernel / f64 - 1|)",
+        ok=bool(err <= TOL_RUIZ and odd_err <= TOL_RUIZ),
+        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None,
+        shape=f"W={W} N={N} B={B} iters={iters} P block (full |P_diag|, "
+              "|P_lower| packs)")]
+
+    # A state from 10 iterations from cold, then a mixed done mask.
+    scaled, scaling = admm_lane.ruiz_equilibrate_lane(bp, iters)
+    packs = admm_lane.build_const_packs(scaled, scaling)
+    rb = torch.full((B,), settings.rho, device="cuda")
+    rho_vec = _rho_vec(rb, scaled.l, scaled.u)
+    pf = admm_lane._packed_factor(scaled, rho_vec, settings)
+    lu = admm_fused.build_lu_pack(scaled)
+    st = admm_lane.init_state_lane(scaled, settings, None, None, scaling,
+                                   rho_bar=rb, rho_vec=rho_vec, factor=pf)
+    state0 = admm_fused.pack_state(scaled, st.x, st.z, st.y)
+    args = dict(coef=packs["coef"], lu=lu, packed_factor=pf)
+    admm_fused.fused_admm_chunk(
+        scaled, rho_vec, torch.zeros(B, dtype=torch.bool, device="cuda"),
+        settings, state_pack=state0, n_iter=10, emit_dxdy=True, **args)
+    done = (torch.arange(B, device="cuda") % 5) == 3
+    q_int = scaled._interleave(scaled.q_vec)
+    rows.append(check_chunk_dxdy(
+        scaled, cast(scaled, torch.float64), settings, rho_vec, done, state0,
+        args, pf[0], q_int, lu, NX, gk=pf[1], name="admm_chunk_block"))
+    rows.append(check_residuals(scaled, scaling, settings, rho_vec, done,
+                                state0, args, packs, lu, NX,
+                                row_name="residuals_block"))
+    return rows
 
 
 def dense_kkt(diag, lower):
@@ -1193,6 +1361,9 @@ def host_residual_check(qp, res, idx, settings):
 
 def reset_counts():
     ruiz_kernel.ruiz_equilibrate_lane_kernel.launches = 0
+    ruiz_kernel.ruiz_equilibrate_lane_kernel.launches_block = 0
+    admm_fused.fused_admm_chunk.launches_block = 0
+    residuals.termination_quantities_kernel.launches_block = 0
     kkt_factor.factor_packed_lane.launches = 0
     kkt_factor.factor_packed_lane.launches_gain = 0
     admm_fused.fused_admm_chunk.launches = 0
@@ -1214,6 +1385,10 @@ def read_counts():
         "admm_chunk_dxdy": admm_fused.fused_admm_chunk.launches_dxdy,
         "admm_chunk_gain": admm_fused.fused_admm_chunk.launches_gain,
         "residuals": residuals.termination_quantities_kernel.launches,
+        "ruiz_block": ruiz_kernel.ruiz_equilibrate_lane_kernel.launches_block,
+        "admm_chunk_block": admm_fused.fused_admm_chunk.launches_block,
+        "residuals_block":
+            residuals.termination_quantities_kernel.launches_block,
         "tridiag_factor": tridiag_kernel.factor_lane_major.launches,
         "tridiag_solve": tridiag_kernel.solve_lane_major.launches,
         "dense_factor": dense_kernel.factor_lane_major.launches,
@@ -1221,15 +1396,44 @@ def read_counts():
     }
 
 
+class PlainCalls:
+    """Counts calls of the kernels' plain versions while active: on a CUDA
+    batch the wrappers must launch their kernels, never these."""
+    TARGETS = ((ruiz_kernel, "_ruiz_scalings_plain"),
+               (kkt_factor, "factor_packed_lane_plain"),
+               (admm_fused, "fused_admm_chunk_plain"),
+               (residuals, "termination_accumulators_plain"),
+               (tridiag_kernel, "factor_lane_major_plain"),
+               (tridiag_kernel, "solve_lane_major_plain"))
+
+    def __enter__(self):
+        self.calls, self.saved = collections.Counter(), []
+        for mod, name in self.TARGETS:
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+
+            def counted(*a, _fn=fn, _name=name, **kw):
+                self.calls[_name] += 1
+                return _fn(*a, **kw)
+            setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
 def solve_phase(name, qp, settings, it_window=None, timed=True, host_check=16,
                 need=LANE_KERNELS):
     B = qp.batch
     reset_counts()
-    syncs0 = admm_lane.HOST_SYNCS
+    syncs0, refac0 = admm_lane.HOST_SYNCS, admm_lane.RHO_REFACTORS
     res = admm_lane.solve_batched_lane(qp, settings)  # the main path, once
     torch.cuda.synchronize()
     counts = read_counts()
     syncs = admm_lane.HOST_SYNCS - syncs0
+    refactors = admm_lane.RHO_REFACTORS - refac0
     status = res.status.cpu()
     iters = res.iterations.cpu().to(torch.float64)
     n_opt = int((status == int(ExitCode.kOptimal)).sum())
@@ -1239,7 +1443,8 @@ def solve_phase(name, qp, settings, it_window=None, timed=True, host_check=16,
     prim_ratio, dual_ratio, box = host_residual_check(qp, res, idx, settings)
     rec = dict(
         batch=B, optimal=n_opt, iterations_p50=p50, iterations_max=it_max,
-        launches=counts, host_syncs=syncs, finite=finite,
+        launches=counts, host_syncs=syncs, rho_refactors=refactors,
+        finite=finite,
         shape_x=list(res.x.shape), f64_prim_res_over_eps=prim_ratio,
         f64_dual_res_over_eps=dual_ratio, f64_max_box_violation=box,
         prim_res_max=res.prim_res.max().item(),
@@ -1274,7 +1479,156 @@ def solve_phase(name, qp, settings, it_window=None, timed=True, host_check=16,
                // settings.check_termination)
     if syncs != chunks:
         fail(f"{name}: {syncs} host syncs for {chunks} chunks")
+    rec["chunks"] = chunks
     rec["result"] = res
+    return rec
+
+
+def check_block_launches(name, rec, settings, chunks, warmups):
+    """The block-P path's launches: the block Ruiz once, the
+    block-tridiagonal factor once per setup plus once per ρ refactor, no
+    stencil factor, the gain chunk once per chunk (plus the warm-up ones) on
+    the block-P batch, the block residual kernel once per chunk; no plain
+    version called."""
+    c = rec["launches"]
+    want = dict(ruiz=1, ruiz_block=1, kkt_factor=0,
+                tridiag_factor=1 + rec["rho_refactors"],
+                admm_chunk=chunks + warmups,
+                admm_chunk_block=chunks + warmups,
+                admm_chunk_gain=chunks + warmups,
+                admm_chunk_dxdy=chunks, residuals=chunks,
+                residuals_block=chunks)
+    bad = {k: (c[k], v) for k, v in want.items() if c[k] != v}
+    if bad:
+        fail(f"{name}: launches (got, want) {bad}")
+    if rec["plain_calls"]:
+        fail(f"{name}: plain versions called on the card: "
+             f"{rec['plain_calls']}")
+
+
+def phase_solve_block_p(bp, bench):
+    """The honest class with the block-P objective through
+    ``solve_batched_lane``: 1024/1024 optimal, the JAX f32 run's p50, at
+    most 5 % of problems at another count, the block-P kernels launched as
+    the path runs them and no plain version."""
+    with PlainCalls() as plain:
+        rec = solve_phase("solve_block_p", bp, bench, need=BLOCK_KERNELS)
+    rec["plain_calls"] = dict(plain.calls)
+    it = rec["result"].iterations.cpu()
+    ref = torch.tensor(decode_iters(BLOCK_P_REF["code"], BLOCK_P_REF["ct"],
+                                    BLOCK_P_REF["offset"]))
+    differ = int((it != ref).sum())
+    summary = dict(
+        batch=bp.batch, optimal=rec["optimal"],
+        iterations_p50=rec["iterations_p50"],
+        reference_p50=int(ref.median()), iterations_max=rec["iterations_max"],
+        reference_max=int(ref.max()), differ_iterations=differ,
+        more_iterations=int((it > ref).sum()),
+        fewer_iterations=int((it < ref).sum()),
+        launches=rec["launches"], chunks=rec["chunks"],
+        rho_refactors=rec["rho_refactors"], plain_calls=rec["plain_calls"],
+        ms_per_batch=rec["ms_per_batch"])
+    emit("solve_block_p_vs_reference", **summary)
+    if (rec["iterations_p50"] != int(ref.median())
+            or differ > DENSE_ITER_DIFF_SHARE * bp.batch):
+        fail(f"solve_block_p: p50 {rec['iterations_p50']} (reference "
+             f"{int(ref.median())}), {differ} of {bp.batch} problems at "
+             "another count")
+    check_block_launches("solve_block_p", rec, bench, rec["chunks"],
+                         int(bench.termination_warmup > 0))
+    return rec
+
+
+def phase_solve_block_p_declared(honest, bench, fused_rec):
+    """The unchanged honest batch declared ``p_structure="block"``: the
+    block forms on vel-diag data.  All optimal; how many problems end at
+    another count than phase ``solve`` (f32 sums of 12 products where the
+    vel-diag form takes one, and the residual kernel in place of the fused
+    accumulators), and the cost of the block forms on the same problems."""
+    with PlainCalls() as plain:
+        rec = solve_phase("solve_block_p_declared",
+                          honest.replace(p_structure="block"), bench,
+                          need=BLOCK_KERNELS)
+    rec["plain_calls"] = dict(plain.calls)
+    ref = (fused_rec["result"] if fused_rec else
+           admm_lane.solve_batched_lane(honest, bench))
+    res = rec["result"]
+    emit("solve_block_p_declared_vs_solve", batch=honest.batch,
+         same_status=int((res.status == ref.status).sum()),
+         differ_iterations=int((res.iterations != ref.iterations).sum()),
+         more_iterations=int((res.iterations > ref.iterations).sum()),
+         max_abs_dx=(res.x - ref.x).abs().max().item(),
+         ms_per_batch=rec["ms_per_batch"],
+         solve_ms_per_batch=fused_rec.get("ms_per_batch") if fused_rec
+         else None)
+    check_block_launches("solve_block_p_declared", rec, bench, rec["chunks"],
+                         int(bench.termination_warmup > 0))
+    return rec
+
+
+def phase_fleet_block_p(bp):
+    """``setup_lane`` → ``mpc_scan_lane`` on the block-P batch: 1024
+    controllers, the goal equality moving each tick (as ``goal_moving`` of
+    the fleet phases), every pair optimal, one Ruiz and one factor at setup
+    and none per tick (beyond ρ refactors), no plain version."""
+    settings = dataclasses.replace(Settings(), **BLOCK_FLEET)
+    B, T, ct = bp.batch, BLOCK_FLEET_TICKS, settings.check_termination
+    deltas, shift = fleet_deltas(T), shift_at(GOAL)
+    with PlainCalls() as plain:
+        reset_counts()
+        syncs0, refac0 = admm_lane.HOST_SYNCS, admm_lane.RHO_REFACTORS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess = setup_lane(bp, settings)  # the main path: setup ...
+        torch.cuda.synchronize()
+        setup_ms = (time.perf_counter() - t0) * 1e3
+        at_setup = read_counts()
+        end, (status, iters) = mpc_scan_lane(sess, deltas, shift, settings)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        syncs = admm_lane.HOST_SYNCS - syncs0
+        refactors = admm_lane.RHO_REFACTORS - refac0
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mpc_scan_lane(sess, deltas, shift, settings)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        _, res = solve_lane(end, settings)
+    st, it = status.cpu(), iters.cpu()
+    n_opt = int((st == int(ExitCode.kOptimal)).sum())
+    chunks = sum(-(-int(m) // ct) for m in it.max(dim=1).values)
+    idx = torch.linspace(0, B - 1, 16).long()
+    prim_ratio, dual_ratio, box = host_residual_check(end.base, res, idx,
+                                                      settings)
+    scan_s = statistics.median(times)
+    rec = dict(
+        batch=B, ticks=T, update="goal equality (waypoint W-3) moved",
+        factor_form_effective="gain", optimal=n_opt, total=B * T,
+        tick0_iterations_p50=int(it[0].median()),
+        tick0_iterations_max=int(it[0].max()),
+        warm_iterations_p50=int(it[1:].median()),
+        warm_iterations_max=int(it[1:].max()),
+        ms_per_tick=scan_s / T * 1e3, resolves_per_s=B * T / scan_s,
+        scan_ms_all=[t * 1e3 for t in times], setup_ms=setup_ms,
+        host_syncs=syncs, chunks=chunks, rho_refactors=refactors,
+        launches_at_setup=at_setup, launches=counts,
+        plain_calls=dict(plain.calls),
+        f64_prim_res_over_eps=prim_ratio, f64_dual_res_over_eps=dual_ratio,
+        f64_max_box_violation=box)
+    emit("mpc_fleet_block_p", **rec)
+    name = "mpc_fleet_block_p"
+    if n_opt != B * T:
+        fail(f"{name}: {n_opt}/{B * T} optimal")
+    if prim_ratio > 1.02 or dual_ratio > 1.02 or box > 1e-4:
+        fail(f"{name}: float64 recomputation violates OSQP's criterion "
+             f"(prim {prim_ratio:.3f}, dual {dual_ratio:.3f}, box {box:.2e})")
+    if (at_setup["ruiz_block"], at_setup["tridiag_factor"]) != (1, 1):
+        fail(f"{name}: setup launched {at_setup}")
+    if syncs != chunks:
+        fail(f"{name}: {syncs} host syncs for {chunks} chunks")
+    check_block_launches(name, rec, settings, chunks, 0)
     return rec
 
 
@@ -1820,6 +2174,26 @@ GOAL_REF = dict(ct=5, code=(
 # Share of config 2's problems whose iteration count may differ from the
 # reference's: float32 on the card and on the CPU round differently.
 DENSE_ITER_DIFF_SHARE = 0.05
+# solve_block_p: the JAX package's float32 CPU counts on the same 1024
+# block-P problems (tools/jax_reference_counts.py solve_block_p): 1024/1024
+# optimal, p50 37 (lower median), max 59; checks at 21 + 2k iterations.
+BLOCK_P_REF = dict(ct=2, offset=1, code=(
+    "hhifekhnkhoihkeljhlqikhfqniihllkmmkfhqifkighhigijgghpgdgiiikfjkj"
+    "gmhmgifjijmjjnfjhogiqklihjjfjgikfemklfjehnnhnimihnggiggkigfmjfhj"
+    "njklingliijlkikiphjihmlkiefpnnienkkmmhohfgkgnmikhhhlijomhihikjge"
+    "gjkgikhlhkkhgiifljeilmmghiiljihfhggffijgehegflfmeogigkfjlhjhlnlh"
+    "gkkhhelfkhgiffhilfikggihfgjhfjmgllgjehjfjgkjgphiikfljljieilfkmoh"
+    "khhmhjjjfghkjelilmfmflgfijfgfifkpigjlmkgpnlglhiijigfhgjljphgjngj"
+    "kjmlnnfggiiolkifmigiigigijiielgjmghiljgikhkhjkjkoiklfhknhgifoggm"
+    "ngmkikekkghkikkhlfgkhjmifjlhfjlggdjfifiiggiiihipjnjfigjqjogjkifh"
+    "kgifitolhokgmhhngjihkgrkkoigflilgikihhlmikilikjgihgkglfikklkigkn"
+    "hgmoflhhlfjhmifgfifoiihklhhhhfehhofolkgihgrkhjlgijioijjhggjiggih"
+    "gkjjikpigjkjhhlhjlnkjfihjihgpjggilomhfigoejinghnfkjhiljfhgkigfig"
+    "fiilijkglihhljmfgilklhjlggfdngjjifkkgijhhnjihfjfkglkfhifkmhljmfh"
+    "mkhjhknmggifjeffngnghknikgikqiijominkihgenlfggfhhgojjljohfmjplpi"
+    "giijjlmiofllgfkjijigggimklilknkgngjnniihklifmpfifktihipjiolhiimh"
+    "gjlghkhrkgjjjfjkghghhfkkjmjfikhfiiiikjhiikeigggnfjgmmggjhnmihfjh"
+    "llgmgljgekihmhgomkgpohnkhiqkljghghfgiljmiigijkgihhijqmflnklgjknl"))
 
 
 def host_residual_check_generic(qp, res, idx, settings):
@@ -2143,19 +2517,22 @@ def main():
     phase_device()
     # Layout signatures: honest class and the sphere fleet (two balls, one
     # obstacle), box-only, and the obstacle-free planner (gripper rows only).
+    # The kernels that read P (Ruiz, residuals) add the P form, BLOCK_P.
     honest_sig = {"NDIM": N, "NX": 5}
     if "build" in want:
-        sigs = [honest_sig, {"B2": 2 * N}, {}]
-        if "box" in want:
-            sigs.append({"NDIM": N, "NX": 0})
-        if "planner_full" in want:
-            sigs.append({"NDIM": N, "NX": 3})
+        sigs = [{"B2": 2 * N}, {}]
+        for nx in (5, 0, 3):  # honest; box; planner_full
+            if nx == 5 or (nx == 0 and "box" in want) or (
+                    nx == 3 and "planner_full" in want):
+                sigs += [{"NDIM": N, "NX": nx},
+                         {"NDIM": N, "NX": nx, "BLOCK_P": 0}]
+        sigs.append(dict(honest_sig, BLOCK_P=1))
         phase_build(sigs)
     kernels = phase_kernels() if "kernels" in want else []
     bench = dataclasses.replace(Settings(), **BENCH)
     launches = {}
     fused_rec = None
-    if want & {"solve", "solve_unfused_term"}:
+    if want & {"solve", "solve_unfused_term", "solve_block_p_declared"}:
         honest = build_honest_batch(BATCH, W, N, torch.float32, "cuda")
     if "solve" in want:
         fused_rec = solve_phase("solve", honest, bench, it_window=(25, 31, 35))
@@ -2187,6 +2564,16 @@ def main():
         phase_dense_session()
     if "trajectory_generic" in want:
         phase_trajectory_generic()
+    if want & {"solve_block_p", "mpc_fleet_block_p"}:
+        bp = block_p_batch(BATCH, "cuda")
+    if "solve_block_p" in want:
+        rec = phase_solve_block_p(bp, bench)
+        launches.update({k: rec["launches"][k] for k in
+                         ("ruiz_block", "admm_chunk_block", "residuals_block")})
+    if "solve_block_p_declared" in want:
+        phase_solve_block_p_declared(honest, bench, fused_rec)
+    if "mpc_fleet_block_p" in want:
+        phase_fleet_block_p(bp)
 
     csrc = "osqp_solver_tpu_torch/csrc/"
     ops = "osqp_solver_tpu/ops/"
@@ -2203,6 +2590,11 @@ def main():
         "tridiag_solve": (csrc + "tridiag.cu", ops + "pallas_tridiag.py:243"),
         "dense_factor": (csrc + "dense.cu", ops + "pallas_dense.py:119"),
         "dense_solve": (csrc + "dense.cu", ops + "pallas_dense.py:151"),
+        "ruiz_block": (csrc + "ruiz.cu", ops + "ruiz_pallas.py:433"),
+        "admm_chunk_block": (csrc + "admm_chunk.cu",
+                             ops + "admm_fused.py:1130"),
+        "residuals_block": (csrc + "residuals.cu",
+                            ops + "residuals_pallas.py:470"),
     }
     table = []
     for k in kernels:

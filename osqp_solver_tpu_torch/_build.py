@@ -36,10 +36,10 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 # Each source and the keys of its layout signature (its ``-D`` values).
 KERNELS = {
-    "ruiz": ("NDIM", "NX"),
+    "ruiz": ("NDIM", "NX", "BLOCK_P"),
     "kkt_factor": ("NDIM", "NX"),
     "admm_chunk": ("NDIM", "NX"),
-    "residuals": ("NDIM", "NX"),
+    "residuals": ("NDIM", "NX", "BLOCK_P"),
     "tridiag": ("B2",),
     "dense": (),
 }

@@ -4,12 +4,16 @@
 // the packed deltas of the last iteration.
 //
 // Replaces the Pallas kernel of osqp_solver_tpu/ops/residuals_pallas.py
-// (termination_quantities_kernel, body _make_kernel) for vel-diag P.
+// (termination_quantities_kernel, body _make_kernel): vel-diag P, or with
+// -DBLOCK_P=1 generic dense 2N x 2N blocks of P (the reference's block
+// branch, residuals_pallas.py:296-310).
 //
 // All six matvecs are waypoint-local stencils.  At waypoint u:
 //   A x, A dx     rows of u from the variables of u and u+1;
 //   A'y, A'dy     own rows of u plus the c1 / a0 cross terms of rows u-1;
-//   P x, P dx     Pd_u v_u + Pl_{u-1} v_{u-1} + Pl_u v_{u+1} (velocity half).
+//   P x, P dx     Pd_u v_u + Pl_{u-1} v_{u-1} + Pl_u v_{u+1} (velocity half);
+//                 BLOCK_P: Pd_u x_u + Pl_{u-1} x_{u-1} + Pl_u' x_{u+1} on all
+//                 2N rows, Pd_u from its packed lower triangle.
 // What waypoint u needs of u-1 (c1, a0, the dyn and acc rows of y and dy, Pl,
 // v, dv: 9N values) is carried in registers; the variables of u+1 are read
 // from the NEXT stage of a three-stage shared-memory ring, which each thread
@@ -27,13 +31,28 @@
 // values are written, so bytes over the memory rate; in practice the walk is
 // one dependent chain of W steps per thread and B = 1024 is 32 warps on 132
 // SMs, so latency decides, as for the other lane kernels.
+//
+// BLOCK_P: the stage also holds Pd_u (T packed rows) and Pl_u (4N^2 rows),
+// 578 rows in all at N=6, NX=5: three stages are 222 KB of the 227 KB a block
+// may opt into.  Pl_{u-1} is not kept: at step u-1, while its stage is live,
+// the products Pl_{u-1} x_{u-1} and Pl_{u-1} dx_{u-1} that waypoint u needs
+// are formed and carried (4N values).
 #include "lane_common.cuh"
 
+#ifndef BLOCK_P
+#define BLOCK_P 0
+#endif
+
 // One stage of the ring: rows of LANE_BLOCK values.
+#if BLOCK_P
+constexpr int PD_ROWS = T, PL_ROWS = B2 * B2;  // packed Pd_u, full Pl_u
+#else
+constexpr int PD_ROWS = N, PL_ROWS = N;  // velocity diagonals
+#endif
 constexpr int O_CF = 0;             // stencil coefficients, CR rows
-constexpr int O_PD = O_CF + CR;     // P-diag velocity diagonal, N rows
-constexpr int O_PL = O_PD + N;      // P-lower velocity diagonal, N rows
-constexpr int O_ST = O_PL + N;      // state tile x, z, y: SR rows
+constexpr int O_PD = O_CF + CR;     // P-diag: PD_ROWS rows
+constexpr int O_PL = O_PD + PD_ROWS;  // P-lower: PL_ROWS rows
+constexpr int O_ST = O_PL + PL_ROWS;  // state tile x, z, y: SR rows
 constexpr int O_DD = O_ST + SR;     // delta tile dx, dy: DR rows
 constexpr int O_RC = O_DD + DR;     // E, Einv, l, u: 4 Rp rows
 constexpr int O_VC = O_RC + 4 * Rp; // q, D, Dinv: 3 * 2N rows
@@ -49,8 +68,13 @@ struct Args {
 __device__ __forceinline__ void stage_issue(const Args& a, int t) {
     real* sg = a.smem + (t % NSTAGE) * STAGE_ELEMS;
     stage_pack<CRp, CR, O_CF>(a.coef, t, sg);
+#if BLOCK_P
+    stage_pack<Tp, T, O_PD>(a.pd, t, sg);
+    stage_pack<B2 * B2, B2 * B2, O_PL>(a.pl, t, sg);
+#else
     stage_pack<PNp, N, O_PD>(a.pd, t, sg);
     stage_pack<PNp, N, O_PL>(a.pl, t, sg);
+#endif
     stage_pack<SRp, SR, O_ST>(a.state, t, sg);
     stage_pack<DRp, DR, O_DD>(a.dxdy, t, sg);
     stage_pack<4 * Rp, 4 * Rp, O_RC>(a.rowc, t, sg);
@@ -79,12 +103,23 @@ __global__ void residuals_kernel(
 
     // What waypoint u needs of waypoint u-1 (all zero at u = 0).
     real c1_p[N], a0_p[N], ydyn_p[N], yacc_p[N], dydyn_p[N], dyacc_p[N];
+#if BLOCK_P
+    real spx[B2], spdx[B2];  // Pl_{u-1} x_{u-1}, Pl_{u-1} dx_{u-1}
+#pragma unroll
+    for (int i = 0; i < B2; ++i) spx[i] = spdx[i] = real(0);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+        c1_p[j] = a0_p[j] = ydyn_p[j] = yacc_p[j] = real(0);
+        dydyn_p[j] = dyacc_p[j] = real(0);
+    }
+#else
     real pl_p[N], v_p[N], dv_p[N];
 #pragma unroll
     for (int j = 0; j < N; ++j) {
         c1_p[j] = a0_p[j] = ydyn_p[j] = yacc_p[j] = real(0);
         dydyn_p[j] = dyacc_p[j] = pl_p[j] = v_p[j] = dv_p[j] = real(0);
     }
+#endif
 
     stage_issue(a, 0);
     if (W > 1) stage_issue(a, 1);
@@ -165,6 +200,46 @@ __global__ void residuals_kernel(
             atdy[j] = atdy[j] + c1_p[j] * dydyn_p[j];
             atdy[N + j] = atdy[N + j] + a0_p[j] * dyacc_p[j];
         }
+#if BLOCK_P
+        // P x, P dx on all 2N rows, summed as the reference: the diagonal
+        // block from zero, then the carried Pl_{u-1} term, then Pl_u' of the
+        // next waypoint (zero pad block at u = W-1).
+        real px_b[B2], pdx_b[B2];
+        {
+            const Rows pdr{sg + O_PD * LANE_BLOCK}, plr{sg + O_PL * LANE_BLOCK};
+#pragma unroll
+            for (int i = 0; i < B2; ++i) {
+                real dg = real(0), dgd = real(0), up = real(0), upd = real(0);
+#pragma unroll
+                for (int j = 0; j < B2; ++j) {
+                    const real p = pdr[j <= i ? LOW(i, j) : LOW(j, i)];
+                    dg = dg + p * x[j];
+                    dgd = dgd + p * dx[j];
+                }
+#pragma unroll
+                for (int j = 0; j < B2; ++j) {
+                    const real p = plr[j * B2 + i];
+                    up = up + p * xn[j];
+                    upd = upd + p * dxn[j];
+                }
+                px_b[i] = (dg + spx[i]) + up;
+                pdx_b[i] = (dgd + spdx[i]) + upd;
+            }
+            // What waypoint u+1 needs of Pl_u: Pl_u x_u and Pl_u dx_u.
+#pragma unroll
+            for (int i = 0; i < B2; ++i) {
+                real lx = real(0), ldx = real(0);
+#pragma unroll
+                for (int j = 0; j < B2; ++j) {
+                    const real p = plr[i * B2 + j];
+                    lx = lx + p * x[j];
+                    ldx = ldx + p * dx[j];
+                }
+                spx[i] = lx;
+                spdx[i] = ldx;
+            }
+        }
+#endif
         real draw = real(0), ndpx = real(0), ndaty = real(0), ndx = real(0);
         real npdx = real(0), natdy = real(0), qdot = real(0), xs = real(0);
 #pragma unroll
@@ -172,6 +247,9 @@ __global__ void residuals_kernel(
             const real q_i = sg[(O_VC + i) * LANE_BLOCK];
             const real D_i = sg[(O_VC + B2 + i) * LANE_BLOCK];
             const real Dinv_i = sg[(O_VC + 2 * B2 + i) * LANE_BLOCK];
+#if BLOCK_P
+            const real px = px_b[i], pdx = pdx_b[i];
+#else
             real px = real(0), pdx = real(0);
             if (i >= N) {
                 const int j = i >= N ? i - N : 0;
@@ -181,6 +259,7 @@ __global__ void residuals_kernel(
                 px = (pd_j * x[i] + pl_j * xn[i]) + pl_p[j] * v_p[j];
                 pdx = (pd_j * dx[i] + pl_j * dxn[i]) + pl_p[j] * dv_p[j];
             }
+#endif
             draw = rmax(draw, rabs(Dinv_i * (px + q_i + aty[i])));
             ndpx = rmax(ndpx, rabs(Dinv_i * px));
             ndaty = rmax(ndaty, rabs(Dinv_i * aty[i]));
@@ -219,9 +298,11 @@ __global__ void residuals_kernel(
             yacc_p[j] = y[R_ACC + j];
             dydyn_p[j] = dy[R_DYN + j];
             dyacc_p[j] = dy[R_ACC + j];
+#if !BLOCK_P
             pl_p[j] = sg[(O_PL + j) * LANE_BLOCK];
             v_p[j] = x[N + j];
             dv_p[j] = dx[N + j];
+#endif
         }
     }
 

@@ -96,6 +96,13 @@ def layout_signature(qp) -> dict:
     return {"NDIM": qp.n_dim, "NX": n_dense_rows(qp)}
 
 
+def p_signature(qp) -> dict:
+    """:func:`layout_signature` plus the P form (``BLOCK_P``: 0 for vel-diag
+    P, 1 for generic blocks) — the signature of the kernels that read P
+    (``csrc/ruiz.cu``, ``csrc/residuals.cu``)."""
+    return dict(layout_signature(qp), BLOCK_P=int(qp.p_structure != "vel_diag"))
+
+
 # ---------------------------------------------------------------------------
 # Host-side packing
 # ---------------------------------------------------------------------------
@@ -197,7 +204,11 @@ def unpack_state(qp, st):
 # ---------------------------------------------------------------------------
 #
 # ``chol`` is lower-triangular and — for the trajectory QP family — ``gain``
-# is exactly upper-triangular, so both pack to 2N(2N+1)/2 entries.
+# is exactly upper-triangular, so both pack to 2N(2N+1)/2 entries.  That
+# holds while every coupling block of P (``P_lower[t]``: rows of waypoint
+# t+1, columns of t) is upper-triangular, as GOMP's are; a block P with
+# entries below the diagonal there loses them here, in the reference
+# (``admm_fused.py:257-260``) and in this port alike.
 
 
 def _tri_maps(B2):
@@ -382,12 +393,15 @@ def fused_admm_chunk(
     """Run ``n_iter`` (default ``settings.check_termination``) ADMM
     iterations fused, on the packed state.
 
-    ``scaled``: waypoint-layout vel-diag :class:`LaneTrajectoryQP` (Ruiz
-    scaled); ``rho_vec (m, B)``; ``done (B,)`` bool; ``coef``/``lu``: the
+    ``scaled``: waypoint-layout :class:`LaneTrajectoryQP` (Ruiz scaled);
+    ``rho_vec (m, B)``; ``done (B,)`` bool; ``coef``/``lu``: the
     :func:`build_coef_pack` / :func:`build_lu_pack` outputs;
     ``packed_factor``: ``(cholp (W, Tp, B), None)`` (the ``hrec`` form) or
     ``(cholp, gainp (W, Tp, B))`` (the ``gain`` form) from
-    :func:`.kkt_factor.factor_packed_lane`; ``state_pack (W, SRp, B)``;
+    :func:`.kkt_factor.factor_packed_lane`, or for block P from
+    :func:`pack_factor` of the block-tridiagonal factor (gain form only, no
+    ``term_packs``: the iteration itself never reads P);
+    ``state_pack (W, SRp, B)``;
     ``term_packs``: ``(EEinv (W, 2Rp, B), varc, Pdp, Plf)`` — with them the
     kernel also emits the raw termination accumulators ``acc (24, B)`` in
     its last backward pass; without them ``Plf`` is rebuilt and only the
@@ -413,12 +427,16 @@ def fused_admm_chunk(
         raise ValueError(f"n_iter={n_iter}")
     if scaled.row_layout != "waypoint":
         raise ValueError("fused_admm_chunk needs the 'waypoint' row layout")
-    if scaled.p_structure != "vel_diag":
-        raise NotImplementedError(
-            "the chunk kernel needs vel-diag P (its block-P form is not "
-            "ported yet)"
-        )
     cholp, gainp = packed_factor
+    if scaled.p_structure != "vel_diag" and (
+            gainp is None or term_packs is not None):
+        # The reference asserts the same (admm_fused.py:1022-1024, :1036):
+        # the hrec form rebuilds the coupling from the vel-diag P, and the
+        # fused accumulators read the vel-diag P packs.
+        raise ValueError(
+            "a block-P chunk runs in the gain form (a gain pack in "
+            "packed_factor) and without term_packs"
+        )
     _check_pack("state_pack", state_pack, (W, SRp, B), state_pack)
     _check_pack("cholp", cholp, (W, Tp, B), state_pack)
     if gainp is not None:
@@ -481,6 +499,8 @@ def fused_admm_chunk(
     fused_admm_chunk.launches += 1
     if gainp is not None:
         fused_admm_chunk.launches_gain += 1
+    if scaled.p_structure != "vel_diag":
+        fused_admm_chunk.launches_block += 1
     if emit_dxdy:
         fused_admm_chunk.launches_dxdy += 1
         return state_pack, dxdy
@@ -488,7 +508,8 @@ def fused_admm_chunk(
 
 
 # Kernel launches since import: all forms, the delta-writing form alone,
-# and the gain form alone.
+# the gain form alone, and those on a block-P batch alone.
 fused_admm_chunk.launches = 0
 fused_admm_chunk.launches_dxdy = 0
 fused_admm_chunk.launches_gain = 0
+fused_admm_chunk.launches_block = 0

@@ -11,8 +11,12 @@ CUDA device every iteration, factorization and the equilibration of a
 waypoint-layout vel-diag batch run in the hand-written kernels
 (:mod:`.admm_fused`, :mod:`.kkt_factor`, :mod:`.ruiz_kernel`, and with
 ``Settings(term_fused="off")`` :mod:`.residuals`), in either factor form
-(``Settings.factor_form``).  The unfused path — ``Settings(fused_chunk=
-"off")`` or the ``"type"`` row layout — runs op by op, its KKT factor and
+(``Settings.factor_form``).  A waypoint-layout block-P batch takes the same
+packed chunk in the gain form, fed :func:`.admm_fused.pack_factor` of the
+block-tridiagonal factor kernel (:mod:`.tridiag_kernel`), with the block-P
+Ruiz and the residual kernel once per chunk.  The unfused path —
+``Settings(fused_chunk="off")`` or the ``"type"`` row layout — runs op by
+op, its KKT factor and
 solve in the block-tridiagonal kernels (:mod:`.tridiag_kernel`).  Either
 way the host reads the device ONCE per chunk (one small tensor holding "any
 problem still running" and "any ρ to adapt"), counted in
@@ -181,25 +185,35 @@ def identity_scaling_lane(base) -> Scaling:
 
 
 def _use_fused(scaled, settings: Settings) -> bool:
-    """Whether the solve runs through the packed-state chunk (a
-    waypoint-layout vel-diag batch, unless ``fused_chunk="off"``) or the
-    unfused path (the ``"type"`` layout, ``"off"``, block P on the CPU).
-    Kernels on CUDA, plain versions on the CPU, either way.  A
-    waypoint-layout block-P batch on CUDA raises: its Ruiz and chunk need
-    the block-P kernel forms, which are not ported yet."""
-    if (
-        scaled.device.type == "cuda"
+    """Whether the solve runs through the packed-state chunk or the unfused
+    path: the reference's ``fused_chunk_supported`` without its TPU tile
+    gates.  A waypoint-layout batch, vel-diag or block P, goes fused unless
+    ``fused_chunk="off"``, ``kkt_method="cg"`` or ``kkt_refine > 0``; the
+    ``"type"`` layout never does.  Kernels on CUDA, plain versions on the
+    CPU, either way."""
+    return (
+        settings.fused_chunk != "off"
         and scaled.row_layout == "waypoint"
-        and scaled.p_structure != "vel_diag"
-    ):
-        raise NotImplementedError(
-            "on a CUDA device a 'waypoint'-layout lane batch needs vel-diag "
-            "P (the block-P forms of the Ruiz, chunk and residual kernels "
-            "are not ported yet)"
-        )
-    return settings.fused_chunk != "off" and (
-        scaled.row_layout == "waypoint" and scaled.p_structure == "vel_diag"
+        and settings.kkt_method == "direct"
+        and settings.kkt_refine == 0
     )
+
+
+def _packed_factor(scaled, rho_vec, settings: Settings, coef=None):
+    """The fused path's packed factor ``(cholp, gainp | None)``: for vel-diag
+    P the factor kernel straight from the stencil, without the gain pack
+    under ``factor_form="hrec"``; for block P, :func:`.admm_fused.
+    pack_factor` of the block-tridiagonal factor, gain form whatever
+    ``factor_form`` says — the hrec chunk needs vel-diag P (the reference's
+    ``admm_lane.py:759-767``, ``:815-827``)."""
+    from .admm_fused import pack_factor
+    from .kkt_factor import factor_packed_lane
+
+    if scaled.p_structure == "vel_diag":
+        return factor_packed_lane(
+            scaled, rho_vec, settings.sigma, coef=coef,
+            emit_gain=settings.factor_form != "hrec")
+    return pack_factor(scaled, scaled.kkt_factor(rho_vec, settings.sigma))
 
 
 def _solve_core(
@@ -221,7 +235,6 @@ def _solve_core(
         pack_state,
         unpack_state,
     )
-    from .kkt_factor import factor_packed_lane
     from .residuals import (
         assemble_term_quantities,
         termination_quantities_kernel,
@@ -229,13 +242,12 @@ def _solve_core(
 
     check_supported(settings)
     use_fused = _use_fused(scaled, settings)
-    # Gain-free factor form (factor_form="hrec"): the packed factor is
-    # (cholp, None) and the chunk kernel rebuilds the sparse coupling in
-    # registers; the gain form streams the packed G_t the factor writes.
-    use_hrec = use_fused and settings.factor_form == "hrec"
-    # Termination reductions inside the chunk kernel, or ("off") the chunk's
-    # delta-writing form followed by the streaming residual kernel.
-    use_term_fused = settings.term_fused != "off"
+    # Termination reductions inside the chunk kernel (vel-diag P), or the
+    # chunk's delta-writing form followed by the streaming residual kernel
+    # ("off", and block P).  The factor form (hrec or gain) is the packed
+    # factor's: _packed_factor picks it.
+    use_term_fused = (settings.term_fused != "off"
+                      and scaled.p_structure == "vel_diag")
     ct = settings.check_termination
 
     if use_fused:
@@ -257,10 +269,8 @@ def _solve_core(
     def fresh_factor(rho_vec_arr):
         """Packed (fused) or full-block (unfused) factor for a given ρ."""
         if use_fused:
-            return factor_packed_lane(
-                scaled, rho_vec_arr, settings.sigma, coef=coef_pack,
-                emit_gain=not use_hrec,
-            )
+            return _packed_factor(scaled, rho_vec_arr, settings,
+                                  coef=coef_pack)
         return scaled.kkt_factor(rho_vec_arr, settings.sigma)
 
     if rb is None:

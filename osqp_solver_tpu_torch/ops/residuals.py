@@ -19,8 +19,11 @@ sit in a three-stage shared-memory ring each thread fills for its own column
 with ``cp.async``, and the 18 running maxima and sums never leave
 registers.  Bound on an H100: every pack is read once and 24 values per
 problem are written — bytes on paper; with B=1024 (32 warps on 132 SMs) the
-serial walk's latency decides.  The block-P form is not ported: on a CUDA
-tensor the launcher raises for it.
+serial walk's latency decides.  The block-P form (the build with
+``-DBLOCK_P=1``) streams the packed lower triangle of each ``P_diag`` block
+and the full ``P_lower`` block through the same ring (three stages of 578
+rows at N=6: 222 KB of shared memory) and carries ``Pl_{u-1}·x_{u-1}`` and
+``Pl_{u-1}·dx_{u-1}`` instead of the block.
 """
 from __future__ import annotations
 
@@ -55,7 +58,10 @@ def build_residual_packs(scaled, scaling):
     Returns ``(rowc (W, 4Rp, B), varc (W, VCp, B), Pdp, Plf, norm_Dq (B,))``
     with ``rowc = [E; Einv; l; u]``, ``varc = [q; D; Dinv]`` (interleaved per
     waypoint); for vel-diag P, ``Pdp``/``Plf`` are the ``(W, pad8(N), B)``
-    velocity diagonals of ``P_diag``/``P_lower`` (last ``Plf`` row zero)."""
+    velocity diagonals of ``P_diag``/``P_lower`` (last ``Plf`` row zero); for
+    block P, ``Pdp (W, Tp, B)`` is the packed lower triangle of each
+    ``P_diag`` block and ``Plf (W, 4N², B)`` the full ``P_lower`` blocks
+    (the last one zero)."""
     W, N = scaled.waypoints, scaled.n_dim
     Rp = scaled.rows_per_waypoint_padded
     B = scaled.batch
@@ -241,11 +247,13 @@ def termination_quantities_kernel(scaled, state_pack, dxdy_pack, coef, packs):
     ``emit_dxdy``); ``coef``: the stencil pack; ``packs``:
     :func:`build_residual_packs` output followed by ``scaling.cinv``.
 
-    On a CUDA tensor the kernel runs (float32, vel-diag P) or the call
-    raises; on a CPU tensor the plain version runs.
+    On a CUDA tensor the kernel runs (float32, in the form of
+    ``scaled.p_structure``) or the call raises; on a CPU tensor the plain
+    version runs.
     """
     from .admm_fused import (
-        _check_pack, _coef_layout, dxdy_rows, layout_signature, state_rows,
+        _check_pack, _coef_layout, _tri_maps, dxdy_rows, p_signature,
+        state_rows,
     )
 
     rowc, varc, Pdp, Plf, norm_Dq, cinv = packs[:6]
@@ -267,25 +275,29 @@ def termination_quantities_kernel(scaled, state_pack, dxdy_pack, coef, packs):
         return termination_quantities_plain(
             scaled, state_pack, dxdy_pack, coef, packs
         )
-    if scaled.p_structure != "vel_diag":
-        raise NotImplementedError(
-            "the CUDA residual kernel is ported for vel-diag P only (the "
-            "block-P form of residuals_pallas is missing)"
-        )
     if state_pack.dtype != torch.float32:
         raise TypeError(
             f"the CUDA residual kernel takes float32, got {state_pack.dtype}"
         )
-    PNp = -(-N // 8) * 8
-    _check_pack("Pdp", Pdp, (W, PNp, B), state_pack)
-    _check_pack("Plf", Plf, (W, PNp, B), state_pack)
+    sig = p_signature(scaled)
+    if sig["BLOCK_P"]:
+        B2 = 2 * N
+        _check_pack("Pdp", Pdp, (W, _tri_maps(B2)[2], B), state_pack)
+        _check_pack("Plf", Plf, (W, B2 * B2, B), state_pack)
+    else:
+        PNp = -(-N // 8) * 8
+        _check_pack("Pdp", Pdp, (W, PNp, B), state_pack)
+        _check_pack("Plf", Plf, (W, PNp, B), state_pack)
     acc = torch.empty((_NACC, B), dtype=torch.float32, device=state_pack.device)
     _launch_residuals(
-        _build.library("residuals", layout_signature(scaled)),
+        _build.library("residuals", sig),
         coef, Pdp, Plf, state_pack, dxdy_pack, rowc, varc, acc,
     )
     termination_quantities_kernel.launches += 1
+    termination_quantities_kernel.launches_block += sig["BLOCK_P"]
     return assemble_term_quantities(acc, cinv, norm_Dq)
 
 
+# Kernel launches since import: both forms, and the block-P form alone.
 termination_quantities_kernel.launches = 0
+termination_quantities_kernel.launches_block = 0

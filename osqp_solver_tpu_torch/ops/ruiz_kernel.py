@@ -18,6 +18,14 @@ keep the grouping of ``LaneTrajectoryQP.scale_data`` (``(|a|·e)·d``).  Bound
 on an H100: per pass it streams |coef|, |Pd|, |Pl|, |q| and D/E once in and
 D/E once out — a few MB at B=1024 — so memory time is microseconds and the
 kernel is bound by the latency of each thread's serial walk over W.
+
+Block P (``p_structure="block"``, the reference's block branches): the
+build with ``-DBLOCK_P=1`` takes full ``|P_diag|`` and ``|P_lower|`` blocks
+``(W, 2N, 2N, B)`` (the lower pack padded to W with a zero block) and forms
+the P column maxima over whole blocks; the cost normalisation averages all
+2N columns.  Those packs are ~30x the vel-diag bytes (2 x 59 MB at W=100,
+N=6, B=1024, f32), read every pass: the first lane kernel whose bytes are
+not negligible.
 """
 from __future__ import annotations
 
@@ -167,15 +175,21 @@ def _launch_ruiz(lib, ac, aPd, aPl, aq, Dbuf, Ebuf, c, iters):
 
 
 def _ruiz_kernel_packs(qp):
-    """The kernel's inputs and buffers: ``|coef|, |Pd|, |Pl|, |q|`` packs,
-    the ping-pong ``D``/``E`` buffers (ones) and the ``c`` output."""
+    """The kernel's inputs and buffers: ``|coef|, |Pd|, |Pl|, |q|`` packs
+    (the P packs as the form of ``qp.p_structure`` takes them), the
+    ping-pong ``D``/``E`` buffers (ones) and the ``c`` output."""
     from .admm_fused import build_coef_pack
     from .kkt_factor import build_p_vel_packs
 
     W, B = qp.waypoints, qp.batch
     kw = dict(dtype=qp.dtype, device=qp.device)
     ac = build_coef_pack(qp).abs_()
-    aPd, aPl = (p.abs_() for p in build_p_vel_packs(qp))
+    if qp.p_structure == "vel_diag":
+        aPd, aPl = (p.abs_() for p in build_p_vel_packs(qp))
+    else:  # full blocks, |P_lower| padded to W (ruiz_pallas.py:407-416)
+        aPd = qp.P_diag.abs().contiguous()
+        aPl = torch.cat([qp.P_lower.abs(),
+                         qp.P_lower.new_zeros((1,) + qp.P_lower.shape[1:])])
     aq = qp._interleave(qp.q_vec).abs()
     # Pass k reads slot k%2 and writes slot (k+1)%2.
     Dbuf = torch.ones((2, W, 2 * qp.n_dim, B), **kw)
@@ -190,18 +204,19 @@ def _unpack_scalings(qp, Dbuf, Ebuf, c, iters):
 
 
 def ruiz_scalings_kernel(qp, iters: int):
-    """Launch the kernel: ``(D (n, B), E (m, B), c (B,))`` on the card."""
-    from .admm_fused import layout_signature
+    """Launch the kernel: ``(D (n, B), E (m, B), c (B,))`` on the card, in
+    the form of ``qp.p_structure``."""
+    from .admm_fused import p_signature
 
     if qp.dtype != torch.float32:
         raise TypeError(f"the CUDA Ruiz kernel takes float32, got {qp.dtype}")
-    if qp.p_structure != "vel_diag":
-        raise NotImplementedError("the Ruiz kernel needs vel-diag P")
     if qp.waypoints < 3:
         raise ValueError("the Ruiz kernel needs at least 3 waypoints")
     packs = _ruiz_kernel_packs(qp)
-    _launch_ruiz(_build.library("ruiz", layout_signature(qp)), *packs, iters)
+    sig = p_signature(qp)
+    _launch_ruiz(_build.library("ruiz", sig), *packs, iters)
     ruiz_equilibrate_lane_kernel.launches += 1
+    ruiz_equilibrate_lane_kernel.launches_block += sig["BLOCK_P"]
     return _unpack_scalings(qp, *packs[4:], iters)
 
 
@@ -209,8 +224,9 @@ def ruiz_equilibrate_lane_kernel(qp, iters: int = 10):
     """Kernel-backed lane Ruiz: returns ``(scaled_qp, Scaling)``.
 
     ``qp``: waypoint-layout :class:`LaneTrajectoryQP`.  On a CUDA batch the
-    kernel computes ``(D, E, c)`` (float32, vel-diag P) and the container is
-    scaled once afterwards; on a CPU batch the plain version runs."""
+    kernel computes ``(D, E, c)`` (float32, the form of ``qp.p_structure``)
+    and the container is scaled once afterwards; on a CPU batch the plain
+    version runs."""
     if qp.row_layout != "waypoint":
         raise ValueError("ruiz_equilibrate_lane_kernel needs the 'waypoint' "
                          "row layout")
@@ -221,4 +237,6 @@ def ruiz_equilibrate_lane_kernel(qp, iters: int = 10):
     return _finish(qp, *ruiz_scalings_kernel(qp, iters))
 
 
+# Kernel launches since import: both forms, and the block-P form alone.
 ruiz_equilibrate_lane_kernel.launches = 0
+ruiz_equilibrate_lane_kernel.launches_block = 0

@@ -36,6 +36,7 @@ from .admm import (
     resolve_device,
 )
 from .admm_lane import (
+    _packed_factor,
     _solve_core,
     _use_fused,
     build_const_packs,
@@ -104,16 +105,13 @@ def setup_lane(qps, settings: Settings = Settings(), device=None) -> LaneSession
 def _fresh_factor(scaled, rho_bar, settings: Settings, cache=None):
     """Factor in the representation the solve path will consume: the
     packed ``(cholp, gainp | None)`` of the fused path (gain written unless
-    ``factor_form="hrec"``), or the full-block factor of the unfused one."""
-    from .kkt_factor import factor_packed_lane
-
+    ``factor_form="hrec"`` on a vel-diag batch; block P packs the
+    block-tridiagonal factor, gain form), or the full-block factor of the
+    unfused one — the branches of ``admm_lane._solve_core``."""
     rho_vec = _rho_vec(rho_bar, scaled.l, scaled.u)
     if _use_fused(scaled, settings):
-        return factor_packed_lane(
-            scaled, rho_vec, settings.sigma,
-            coef=None if cache is None else cache["coef"],
-            emit_gain=settings.factor_form != "hrec",
-        )
+        return _packed_factor(scaled, rho_vec, settings,
+                              coef=None if cache is None else cache["coef"])
     return scaled.kkt_factor(rho_vec, settings.sigma)
 
 

@@ -159,7 +159,10 @@ def host_lib_signature(name, signature):
 
 
 def host_lib(name, qp):
-    """A lane kernel's source in host emulation for ``qp``'s layout."""
+    """A lane kernel's source in host emulation for ``qp``'s layout (and,
+    for the kernels that read P, its P form)."""
+    if "BLOCK_P" in _build.KERNELS[name]:
+        return host_lib_signature(name, tfused.p_signature(qp))
     return host_lib_signature(name, tfused.layout_signature(qp))
 
 

@@ -203,10 +203,18 @@ def test_chunk_wrapper_refuses_bad_arguments():
         call(n_iter=0)
     with pytest.raises(ValueError):
         tfused.fused_admm_chunk(tscaled, rho_vec, done[:-1], tsettings, **args)
-    with pytest.raises(NotImplementedError):
-        tfused.fused_admm_chunk(tscaled.replace(p_structure="block"), rho_vec,
-                                done, tsettings, **args)
+    # A block-P chunk runs only in the gain form and without term_packs (the
+    # reference asserts both): with no gain pack, or with the packs of the
+    # fused accumulators, it raises.
     cholp = args["packed_factor"][0]
+    block = tscaled.replace(p_structure="block")
+    with pytest.raises(ValueError, match="gain form"):
+        tfused.fused_admm_chunk(block, rho_vec, done, tsettings, **args)
+    with pytest.raises(ValueError, match="gain form"):
+        tfused.fused_admm_chunk(
+            block, rho_vec, done, tsettings,
+            **dict(args, packed_factor=(cholp, cholp), term_packs=(
+                packs["EEinv"], packs["varc"], packs["Pdp"], packs["Plf"])))
     with pytest.raises(ValueError):
         call(packed_factor=(cholp, cholp[:-1].contiguous()))
 

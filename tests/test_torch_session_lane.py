@@ -311,13 +311,13 @@ def test_lane_session_from_numpy_default_device_is_cuda():
 def test_path_choice_on_cuda(row_layout, p_structure, fused_chunk, fused):
     """Which path a CUDA batch takes (decided from the container alone, so
     it is checked here without a card): the packed chunk for a
-    waypoint-layout vel-diag batch, the unfused path for ``"off"`` and for
-    the ``"type"`` layout; a waypoint-layout block-P batch raises."""
+    waypoint-layout batch, the unfused path for ``"off"`` and for the
+    ``"type"`` layout; a waypoint-layout block-P batch is fused as a
+    vel-diag one is (the reference's ``fused_chunk_supported``)."""
     qp = types.SimpleNamespace(device=torch.device("cuda"),
                                row_layout=row_layout, p_structure=p_structure)
     s = dataclasses.replace(tadmm.Settings(), fused_chunk=fused_chunk)
     assert tdrv._use_fused(qp, s) == fused
     block = types.SimpleNamespace(device=torch.device("cuda"),
                                   row_layout="waypoint", p_structure="block")
-    with pytest.raises(NotImplementedError):
-        tdrv._use_fused(block, s)
+    assert tdrv._use_fused(block, s) == (fused_chunk != "off")

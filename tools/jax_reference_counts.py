@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Iteration counts of the JAX package on the generic-path problems of
-``chip_smoke.py`` (float32, CPU): the references its ``dense``,
-``dense_session`` and ``trajectory_generic`` phases hold the port to.
+"""Iteration counts of the JAX package on the problems of ``chip_smoke.py``
+(float32, CPU): the references its ``dense``, ``dense_session``,
+``trajectory_generic`` and ``solve_block_p`` phases hold the port to.
 
 The problems come from ``chip_smoke.py``'s own generators (numpy from a
-seed for the dense configurations; the port's trajectory builders in
-float64, rounded to float32), so both packages solve the same float32
-numbers.  Run from the repository root on a machine with JAX:
+seed for the dense configurations and the block-P objective; the port's
+trajectory and honest-class builders in float64, rounded to float32), so
+both packages solve the same float32 numbers.  Run from the repository root
+on a machine with JAX:
 
-    JAX_PLATFORMS=cpu python3 tools/jax_reference_counts.py
+    JAX_PLATFORMS=cpu python3 tools/jax_reference_counts.py [CONFIG ...]
 
-Prints one JSON line per configuration; the ``code`` strings are the
-per-problem (per-step) counts in ``chip_smoke.encode_iters`` form.
+(all configurations without arguments; ``solve_block_p`` alone takes a few
+minutes).  Prints one JSON line per configuration; the ``code`` strings are
+the per-problem (per-step) counts in ``chip_smoke.encode_iters`` form, and
+``p50`` is the lower median, as ``torch.median`` takes it.
 """
 from __future__ import annotations
 
@@ -29,23 +32,29 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import chip_smoke as cs  # noqa: E402
 from osqp_solver_tpu.gomp.trajectory_qp import TrajectoryQP  # noqa: E402
+from osqp_solver_tpu.gomp.trajectory_qp_lane import (  # noqa: E402
+    LaneTrajectoryQP,
+)
 from osqp_solver_tpu.ops import admm  # noqa: E402
+from osqp_solver_tpu.ops import admm_lane  # noqa: E402
 from osqp_solver_tpu.ops import session as S  # noqa: E402
 from osqp_solver_tpu.ops.qp import DenseQP  # noqa: E402
 from osqp_solver_tpu_torch import convert  # noqa: E402
 
 
-def summary(name, iters, ct, status, **extra):
+def summary(name, iters, ct, status, offset=0, **extra):
     iters = np.asarray(iters).reshape(-1)
     status = np.asarray(status).reshape(-1)
     print(json.dumps({
         "config": name, "n": int(iters.size),
         "optimal": int((status == 0).sum()),
-        "p50": int(np.median(iters)), "max": int(iters.max()),
+        "p50": int(np.sort(iters)[(iters.size - 1) // 2]),
+        "max": int(iters.max()),
         "min": int(iters.min()),
         "hist": {str(k): v for k, v in sorted(
             collections.Counter(iters.tolist()).items())},
-        "code": cs.encode_iters(iters, ct), **extra,
+        "ct": ct, "offset": offset,
+        "code": cs.encode_iters(iters, ct, offset), **extra,
     }), flush=True)
 
 
@@ -62,34 +71,54 @@ def jax_trajectory(qp):
 
 
 def main():
+    want = set(sys.argv[1:]) or {"dense", "dense_session",
+                                 "trajectory_config1",
+                                 "trajectory_config4b", "solve_block_p"}
     settings = admm.Settings()
+    if "solve_block_p" in want:
+        # The honest class with the block-P objective at the bench.py
+        # settings, B=1024; "off": the jnp path on the CPU (the Pallas chunk
+        # gives the same counts in exact arithmetic on these upper-triangular
+        # coupling blocks).
+        static, arrays = convert.lane_qp_to_numpy(
+            cs.block_p_batch(cs.BATCH, "cpu"))
+        jqp = LaneTrajectoryQP(**static, **{k: jnp.asarray(v)
+                                            for k, v in arrays.items()})
+        sb = dataclasses.replace(settings, **cs.BENCH, fused_chunk="off")
+        rb = jax.jit(lambda q: admm_lane.solve_batched_lane(q, sb))(jqp)
+        summary("solve_block_p", rb.iterations, sb.check_termination,
+                rb.status, sb.termination_warmup % sb.check_termination)
 
-    # config 2: dense random box QPs, batch 1024
-    P, q, A, l, u = cs.dense_problems(1024)
-    qps = DenseQP(*(jnp.asarray(a) for a in (P, q, A, l, u)))
-    r = jax.jit(lambda qps: admm.solve_batched(qps, settings))(qps)
-    summary("dense", r.iterations, settings.check_termination, r.status)
+    if "dense" in want:
+        # config 2: dense random box QPs, batch 1024
+        P, q, A, l, u = cs.dense_problems(1024)
+        qps = DenseQP(*(jnp.asarray(a) for a in (P, q, A, l, u)))
+        r = jax.jit(lambda qps: admm.solve_batched(qps, settings))(qps)
+        summary("dense", r.iterations, settings.check_termination, r.status)
 
-    # config 4: n=8 session, 1000 bound shifts
-    qp4, shifts = cs.session_problem()
-    sess = S.setup(DenseQP(*(jnp.asarray(a) for a in qp4)), settings)
-    _, (_, st4, it4) = jax.jit(lambda se, u: S.mpc_scan(
-        se, u, cs.shift_box, settings))(sess, jnp.asarray(shifts))
-    summary("dense_session", it4, settings.check_termination, st4)
+    if "dense_session" in want:
+        # config 4: n=8 session, 1000 bound shifts
+        qp4, shifts = cs.session_problem()
+        sess = S.setup(DenseQP(*(jnp.asarray(a) for a in qp4)), settings)
+        _, (_, st4, it4) = jax.jit(lambda se, u: S.mpc_scan(
+            se, u, cs.shift_box, settings))(sess, jnp.asarray(shifts))
+        summary("dense_session", it4, settings.check_termination, st4)
 
-    # config 1: W=10 trajectory QP, one solve
-    qp1 = jax_trajectory(cs.trajectory_config1("cpu"))
-    r1 = jax.jit(lambda qp: admm.solve(qp, settings))(qp1)
-    summary("trajectory_config1", r1.iterations, settings.check_termination,
-            r1.status)
+    if "trajectory_config1" in want:
+        # config 1: W=10 trajectory QP, one solve
+        qp1 = jax_trajectory(cs.trajectory_config1("cpu"))
+        r1 = jax.jit(lambda qp: admm.solve(qp, settings))(qp1)
+        summary("trajectory_config1", r1.iterations,
+                settings.check_termination, r1.status)
 
-    # config 4b: honest W=100 session, goal shifts
-    s4b = dataclasses.replace(settings, check_termination=5)
-    qp4b = jax_trajectory(cs.trajectory_config4b("cpu"))
-    sess4b = S.setup(qp4b, s4b)
-    _, (_, st4b, it4b) = jax.jit(lambda se, u: S.mpc_scan(
-        se, u, shift_goal, s4b))(sess4b, jnp.asarray(cs.goal_deltas()))
-    summary("trajectory_config4b", it4b, s4b.check_termination, st4b)
+    if "trajectory_config4b" in want:
+        # config 4b: honest W=100 session, goal shifts
+        s4b = dataclasses.replace(settings, check_termination=5)
+        qp4b = jax_trajectory(cs.trajectory_config4b("cpu"))
+        sess4b = S.setup(qp4b, s4b)
+        _, (_, st4b, it4b) = jax.jit(lambda se, u: S.mpc_scan(
+            se, u, shift_goal, s4b))(sess4b, jnp.asarray(cs.goal_deltas()))
+        summary("trajectory_config4b", it4b, s4b.check_termination, st4b)
 
 
 if __name__ == "__main__":
