@@ -15,13 +15,17 @@ without its gain write, the block-tridiagonal factor and solve, the dense
 Cholesky factor and solve, and the block-P forms of Ruiz and the residual
 kernel with the gain chunk fed ``pack_factor`` of the block-tridiagonal
 factor — against its plain PyTorch version on the card at its main path's
-shape (honest GOMP class, W=100, N=6, B=1024; dense QPs n=64, m=96, B=1024;
-float32), times both, then drives the port's entry points:
+shape (honest GOMP class, W=100, N=6, B=1024; dense QPs n=64, m=96, B=1024,
+and the dense kernels also at n=160, 512 and 2048; float32), times both,
+then drives the port's entry points:
 
 * ``solve_batched_lane`` on a 1024-problem honest batch (``solve``), the same
   with ``term_fused="off"`` (``solve_unfused_term``: delta-writing chunk +
   streaming residual kernel, counts equal to ``solve``), a 256-problem batch
   with stock settings (ρ adaptation refactors) and a box-only batch;
+* ``solve_batched_lane`` on W=3 batches (``solve_w3``: box-only and honest,
+  B=1024), below the Ruiz kernel's 4 waypoints: Ruiz in plain torch, as the
+  reference gates its kernel, the factor and chunk kernels as at any W;
 * ``GOMPSolver.run_batch_padded``, the full time-scaling search, on 1024
   UR5e queries at W_max=50 (``planner_full``; fused and unfused termination
   give equal results; every plan audited by exact FK in float64 on the host);
@@ -113,6 +117,13 @@ TOL_RESID_MAX, TOL_RESID_SUM = 1e-4, 1e-3
 # Dense Cholesky factor and solve (f32 kernel) against the plain version in
 # f64 on the same f32 inputs: the tolerances of tests/test_pallas_dense.py.
 TOL_DENSE_FACTOR, TOL_DENSE_SOLVE = 2e-4, 2e-3
+# The dense rows are timed over this many calls back to back (kernel, plain
+# version and library call alike): at ~0.1 ms a single call's time is
+# mostly the host's enqueue.
+DENSE_INNER = 20
+# (n, B) of the dense kernels' large cases: the factor's device-memory
+# branch (n > 336) and a size above the earlier solve's n <= 1816.
+DENSE_LARGE = ((512, 8), (2048, 2))
 RESID_SUMS = ("support", "q_dot", "xsum", "ysum")
 PLANNER = dict(rho=0.04, check_termination=3, scaling=3)
 LANE_KERNELS = ("ruiz", "kkt_factor", "admm_chunk")
@@ -126,7 +137,7 @@ TRIDIAG_KERNELS = ("tridiag_factor", "tridiag_solve")
 # benchmarks/mpc_fleet.py: 1024 controllers x 50 ticks, honest W=100 class.
 FLEET = dict(rho=0.05, check_termination=5, adaptive_rho_interval=51)
 FLEET_TICKS = 50
-PHASES = ("build,kernels,solve,solve_unfused_term,solve_stock,box,"
+PHASES = ("build,kernels,solve,solve_unfused_term,solve_stock,box,solve_w3,"
           "planner_full,planner_obstacles,mpc_fleet,mpc_fleet_gain,"
           "mpc_fleet_unfused,dense,dense_session,trajectory_generic,"
           "solve_block_p,solve_block_p_declared,mpc_fleet_block_p")
@@ -137,6 +148,7 @@ PHASES = ("build,kernels,solve,solve_unfused_term,solve_stock,box,"
 BLOCK_FLEET_TICKS = 20
 BLOCK_FLEET = dict(BENCH, termination_warmup=0)
 RECORDS = {}
+OUT = None  # --out: the records are written there, on failure too
 
 
 def emit(phase, **fields):
@@ -146,6 +158,9 @@ def emit(phase, **fields):
 
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    if OUT:
+        with open(OUT, "w") as f:
+            json.dump(dict(RECORDS, failed=msg), f, indent=1, default=str)
     sys.exit(1)
 
 
@@ -157,8 +172,10 @@ def nvidia_smi():
     ).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps=7, warm=2):
-    """Median device time of ``fn`` in ms (CUDA events, warmed)."""
+def time_ms(fn, reps=7, warm=2, inner=1):
+    """Median device time of ``fn`` in ms (CUDA events, warmed), each sample
+    over ``inner`` calls back to back (more than one keeps the stream busy
+    while the host enqueues, so that a call's host overhead is not timed)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -167,11 +184,21 @@ def time_ms(fn, reps=7, warm=2):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
+
+
+def host_ms(fn):
+    """Host time of ``fn`` in ms, the device synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def rel_err(got, ref, scale=None):
@@ -463,6 +490,31 @@ def encode_iters(iters, ct, offset=0):
 
 def decode_iters(code, ct, offset=0):
     return [ITER_DIGITS.index(ch) * ct + offset for ch in code]
+
+
+def encode_statuses(status):
+    """Exit codes (0..10) as one digit each."""
+    return "".join(ITER_DIGITS[int(s)] for s in status)
+
+
+def decode_statuses(code):
+    return [ITER_DIGITS.index(ch) for ch in code]
+
+
+# Lane batches below the Ruiz kernel's 4 waypoints (the reference's gate):
+# the shortest horizon GOMP's builders make.
+W3 = 3
+
+
+def w3_batch(kind, device):
+    """A W=3 lane batch of BATCH problems (``"box"``: box-only, all optimal;
+    ``"honest"``: the honest class, primal infeasible in three steps), built
+    in float64 on the CPU and rounded to float32 (the numbers
+    ``tools/jax_reference_counts.py`` hands to the JAX package), then moved
+    to ``device``."""
+    build = {"box": build_box_batch, "honest": build_honest_batch}[kind]
+    return cast(build(BATCH, W3, N, torch.float64, "cpu"),
+                torch.float32).to(device)
 
 
 # -------------------------------------------------------------------- phases
@@ -1255,12 +1307,53 @@ def dense_case(M, rhs):
     return rel_err(Lt.double(), L64), rel_err(x.double(), x64), Lt, x
 
 
+def upper_zero_of(Lt):
+    """Whether ``Lt[j, i]`` is zero for every i < j (above L's diagonal)."""
+    n = Lt.shape[0]
+    iu = torch.ones(n, n, dtype=torch.bool, device=Lt.device).tril(-1)
+    return bool((Lt[iu] == 0).all())
+
+
+def spd_lane_major(n, batch, seed):
+    """Random SPD matrices ``a aᵀ/n + I/2`` (``tests/test_pallas_dense.py``'s
+    family), lane-major ``(n, n, B)`` float32 on the card, and a
+    right-hand side: the large-n cases, made on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn((batch, n, n), generator=gen, device="cuda",
+                    dtype=torch.float64)
+    M = a @ a.transpose(1, 2) / n + 0.5 * torch.eye(n, device="cuda",
+                                                    dtype=torch.float64)
+    rhs = torch.randn((n, batch), generator=gen, device="cuda")
+    return M.float().permute(1, 2, 0).contiguous(), rhs
+
+
+def dense_plans(n, B):
+    """The launch plans ``csrc/dense.cu`` takes on this card at (n, B)."""
+    lib = dense_kernel._lib()
+    budget, sms = dense_kernel.device_limits(lib, torch.device("cuda"))
+    return {which: dense_kernel.plan(lib, which, n, B, budget,
+                                     dense_kernel.BLOCK_THREADS, sms)
+            for which in ("factor", "solve")}
+
+
+def library_ms(M, rhs):
+    """``torch.linalg.cholesky`` and ``torch.cholesky_solve`` on the same
+    batch, batch-leading: the library yardsticks (ms)."""
+    Mb = M.permute(2, 0, 1).contiguous()
+    Lb = torch.linalg.cholesky(Mb)
+    rb = rhs.T.contiguous().unsqueeze(-1)
+    return (time_ms(lambda: torch.linalg.cholesky(Mb), inner=DENSE_INNER),
+            time_ms(lambda: torch.cholesky_solve(rb, Lb), inner=DENSE_INNER))
+
+
 def check_dense():
     """The dense Cholesky factor and solve kernels (B6) on the main path's
-    inputs (config 2: n=64, m=96, B=1024) and at the reference kernel's
-    largest size (n=160, B=256), each against the plain version run in f64
-    on the same f32 inputs; library yardsticks ``torch.linalg.cholesky``
-    and ``torch.cholesky_solve`` on the same batch."""
+    inputs (config 2: n=64, m=96, B=1024), at the reference kernel's
+    largest size (n=160, B=256), and beyond it: n=512 (the factor's
+    device-memory branch) and n=2048 (above the earlier kernel's n <= 1816),
+    each against the plain version run in f64 on the same f32 inputs;
+    library yardsticks ``torch.linalg.cholesky`` and ``torch.cholesky_solve``
+    on the same batch at n=64 and n=160."""
     n, B = DENSE_N, BATCH
     M, rhs = dense_kkt_inputs(B, n, DENSE_M, DENSE_SEED)
     f_err, s_err, Lt, _ = dense_case(M, rhs)
@@ -1271,6 +1364,9 @@ def check_dense():
     odd = dense_case(M[..., :200].contiguous(), rhs[:, :200].contiguous())
     one = dense_case(M[..., :1].contiguous(), rhs[:, :1].contiguous())
     tiny = dense_case(M[:1, :1].contiguous() + 1.0, rhs[:1].contiguous())
+    # Beyond the shared-memory triangle (n > 336) and the old limit.
+    large = {f"n{nl}_B{bl}": dense_case(*spd_lane_major(nl, bl, nl))
+             for nl, bl in DENSE_LARGE}
     bad = M.clone()
     bad[20, 20, 7] = -1.0
     bL = dense_kernel.factor_lane_major(bad)
@@ -1286,50 +1382,69 @@ def check_dense():
                      and torch.isnan(bx[:, 7]).all()
                      and torch.isfinite(bx[:, :7]).all()
                      and torch.isfinite(bx[:, 8:]).all())
-    iu = torch.ones(n, n, dtype=torch.bool, device="cuda").tril(-1)
-    upper_zero = bool((Lt[iu] == 0).all())
-    cases = ((f_err, s_err), big, odd, one, tiny)
+    upper_zero = all(upper_zero_of(L) for L in (Lt, *(c[2] for c in
+                                                      large.values())))
+    cases = ((f_err, s_err), big, odd, one, tiny, *large.values())
     f_ok = max(c[0][1] for c in cases)
     s_ok = max(c[1][1] for c in cases)
-    f_ms = time_ms(lambda: dense_kernel.factor_lane_major(M))
-    s_ms = time_ms(lambda: dense_kernel.solve_lane_major(Lt, rhs))
+    tm = functools.partial(time_ms, inner=DENSE_INNER)
+    f_ms = tm(lambda: dense_kernel.factor_lane_major(M))
+    s_ms = tm(lambda: dense_kernel.solve_lane_major(Lt, rhs))
+    single = {"factor": time_ms(lambda: dense_kernel.factor_lane_major(M)),
+              "solve": time_ms(lambda: dense_kernel.solve_lane_major(Lt, rhs))}
     M64, Lt64, rhs64 = M.double(), Lt.double(), rhs.double()
-    fp_ms = time_ms(lambda: dense_kernel.factor_lane_major_plain(M64))
-    sp_ms = time_ms(lambda: dense_kernel.solve_lane_major_plain(Lt64, rhs64))
-    Mb = M.permute(2, 0, 1).contiguous()
-    Lb = torch.linalg.cholesky(Mb)
-    rb = rhs.T.contiguous().unsqueeze(-1)
-    lib_f_ms = time_ms(lambda: torch.linalg.cholesky(Mb))
-    lib_s_ms = time_ms(lambda: torch.cholesky_solve(rb, Lb))
+    fp_ms = tm(lambda: dense_kernel.factor_lane_major_plain(M64))
+    sp_ms = tm(lambda: dense_kernel.solve_lane_major_plain(Lt64, rhs64))
+    lib_f_ms, lib_s_ms = library_ms(M, rhs)
     Lg = big[2]
-    big_ms = {"factor": time_ms(lambda: dense_kernel.factor_lane_major(Mg)),
-              "solve": time_ms(lambda: dense_kernel.solve_lane_major(Lg, rg))}
+    big_ms = {"factor": tm(lambda: dense_kernel.factor_lane_major(Mg)),
+              "solve": tm(lambda: dense_kernel.solve_lane_major(Lg, rg))}
+    big_lib = dict(zip(("factor", "solve"), library_ms(Mg, rg)))
+    # Eight problems: the time of one problem's chain of column steps.
+    M8, r8, L8 = (t[..., :8].contiguous() for t in (M, rhs, Lt))
+    few_ms = {"factor": tm(lambda: dense_kernel.factor_lane_major(M8)),
+              "solve": tm(lambda: dense_kernel.solve_lane_major(L8, r8))}
     fb_ms, fb_by = bound(dense_factor_bytes(n, B), ops_dense_factor(n, B))
     sb_ms, sb_by = bound(dense_solve_bytes(n, B), ops_dense_solve(n, B))
+    plans = {f"n{nn}_B{bb}": dense_plans(nn, bb)
+             for nn, bb in ((n, B), (160, 256), *DENSE_LARGE)}
     note = ("max abs error over max |f64| against the plain version run in "
             "f64 on the same f32 inputs (the solve from the kernel's own "
-            "factor); worst of n=64 B=1024, n=160 B=256, B=200, B=1, n=1")
+            "factor); worst of n=64 B=1024, n=160 B=256, B=200, B=1, n=1, "
+            + ", ".join(f"n={a} B={b}" for a, b in DENSE_LARGE))
     shape = f"n={n} B={B} (also n=160 B=256)"
+    rel = lambda k: {key: c[k][1] for key, c in large.items()}  # noqa: E731
     return [
         dict(name="dense_factor", max_abs_err=f_err[0], max_rel_err=f_ok,
-             rel_err_n160=big[0][1], upper_triangle_zero=upper_zero,
+             rel_err_n160=big[0][1], rel_err_large=rel(0),
+             upper_triangle_zero=upper_zero,
              non_spd_gives_nan_there=nan_there, tol=TOL_DENSE_FACTOR,
              tol_note=note,
              ok=bool(f_ok <= TOL_DENSE_FACTOR and upper_zero and nan_there),
              ms=f_ms, plain_ms=fp_ms, bound_ms=fb_ms, bound_by=fb_by,
-             library_ms=lib_f_ms,
+             library_ms=lib_f_ms, ms_single_call=single["factor"],
+             timing_note=f"ms, plain_ms, library_ms: CUDA events over "
+                         f"{DENSE_INNER} calls back to back; ms_single_call: "
+                         "one call between the events, as the other rows",
              library_note="torch.linalg.cholesky of the (B, n, n) f32 batch",
-             n160_B256=dict(ms=big_ms["factor"], bound_ms=bound(
+             n160_B256=dict(ms=big_ms["factor"],
+                            library_ms=big_lib["factor"], bound_ms=bound(
                  dense_factor_bytes(160, 256), ops_dense_factor(160, 256))[0]),
+             n64_B8_ms=few_ms["factor"],
+             plans={k: v["factor"] for k, v in plans.items()},
              shape=shape),
         dict(name="dense_solve", max_abs_err=s_err[0], max_rel_err=s_ok,
-             rel_err_n160=big[1][1], tol=TOL_DENSE_SOLVE, tol_note=note,
+             rel_err_n160=big[1][1], rel_err_large=rel(1),
+             tol=TOL_DENSE_SOLVE, tol_note=note,
              ok=bool(s_ok <= TOL_DENSE_SOLVE),
              ms=s_ms, plain_ms=sp_ms, bound_ms=sb_ms, bound_by=sb_by,
-             library_ms=lib_s_ms,
+             library_ms=lib_s_ms, ms_single_call=single["solve"],
              library_note="torch.cholesky_solve on the library's factor",
-             n160_B256=dict(ms=big_ms["solve"], bound_ms=bound(
+             n160_B256=dict(ms=big_ms["solve"],
+                            library_ms=big_lib["solve"], bound_ms=bound(
                  dense_solve_bytes(160, 256), ops_dense_solve(160, 256))[0]),
+             n64_B8_ms=few_ms["solve"],
+             plans={k: v["solve"] for k, v in plans.items()},
              shape=shape),
     ]
 
@@ -1537,6 +1652,100 @@ def phase_solve_block_p(bp, bench):
     check_block_launches("solve_block_p", rec, bench, rec["chunks"],
                          int(bench.termination_warmup > 0))
     return rec
+
+
+def phase_solve_w3(bench):
+    """``solve_batched_lane`` on W=3 batches (B=1024, f32, BENCH settings):
+    below the Ruiz kernel's 4 waypoints the path equilibrates with the plain
+    torch version, as the reference does on the TPU, and runs the factor and
+    the fused chunk kernels as at any W.  Box-only: held to the JAX f32 run
+    on the same problems, every status equal, 1024/1024 optimal, the
+    reference's p50 with at most 5 % of problems at another count.  Honest
+    (primal infeasible in three steps): every problem primal infeasible
+    (exact or inaccurate), as in JAX; its counts and exact codes are
+    recorded beside JAX's, not held: the certificate's iteration follows
+    f32 rounding (in f64 the two packages agree problem for problem, p50 35;
+    in f32 JAX gives p50 41 and the port on the CPU 45).  Ruiz kernel
+    launches 0, the chunk kernel once per chunk (and the warm-up), one sync
+    per chunk, no plain version but Ruiz's."""
+    infeasible = (int(ExitCode.kPrimalInfeasible),
+                  int(ExitCode.kPrimalInfeasibleInaccurate))
+    warmups = int(bench.termination_warmup > 0)
+    recs = {}
+    for kind in ("box", "honest"):
+        qp = w3_batch(kind, "cuda")
+        ref = W3_REF[kind]
+        reset_counts()
+        syncs0, refac0 = admm_lane.HOST_SYNCS, admm_lane.RHO_REFACTORS
+        with PlainCalls() as plain:
+            res = admm_lane.solve_batched_lane(qp, bench)  # the main path
+            torch.cuda.synchronize()
+        counts = read_counts()
+        syncs = admm_lane.HOST_SYNCS - syncs0
+        refactors = admm_lane.RHO_REFACTORS - refac0
+        status, it = res.status.cpu(), res.iterations.cpu()
+        ref_it = torch.tensor(decode_iters(ref["code"], ref["ct"],
+                                           ref["offset"]), dtype=it.dtype)
+        ref_st = torch.tensor(decode_statuses(ref["statuses"]),
+                              dtype=status.dtype)
+        it_max = int(it.max())
+        chunks = -(-(it_max - bench.termination_warmup)
+                   // bench.check_termination)
+        rec = dict(
+            W=W3, batch=qp.batch, optimal=int((status == 0).sum()),
+            statuses={str(k): v for k, v in sorted(
+                collections.Counter(status.tolist()).items())},
+            same_status=int((status == ref_st).sum()),
+            iterations_p50=int(it.median()), iterations_max=it_max,
+            reference_p50=int(ref_it.median()),
+            reference_max=int(ref_it.max()),
+            differ_iterations=int((it != ref_it).sum()),
+            launches=counts, host_syncs=syncs, rho_refactors=refactors,
+            chunks=chunks, plain_calls=dict(plain.calls),
+            finite=bool(torch.isfinite(res.x).all()),
+            shape_x=list(res.x.shape))
+        if kind == "box":
+            rec["f64_prim_dual_box"] = host_residual_check(
+                qp, res, torch.linspace(0, qp.batch - 1, 16).long(), bench)
+            rec["ms_per_batch"] = statistics.median(
+                host_ms(lambda: admm_lane.solve_batched_lane(qp, bench))
+                for _ in range(3))
+        recs[kind] = rec
+    emit("solve_w3", **recs)
+    for kind, rec in recs.items():
+        ref_st = decode_statuses(W3_REF[kind]["statuses"])
+        if kind == "box":
+            ok_status = rec["same_status"] == rec["batch"] == rec["optimal"]
+        else:
+            ok_status = (set(ref_st) <= set(infeasible) and set(
+                int(k) for k in rec["statuses"]) <= set(infeasible))
+        if not ok_status:
+            fail(f"solve_w3 ({kind}): statuses {rec['statuses']}, "
+                 f"{rec['same_status']} equal to the reference's")
+        if kind == "box" and (
+                rec["iterations_p50"] != rec["reference_p50"]
+                or rec["differ_iterations"] > DENSE_ITER_DIFF_SHARE * BATCH):
+            fail(f"solve_w3 ({kind}): p50 {rec['iterations_p50']} (reference "
+                 f"{rec['reference_p50']}), {rec['differ_iterations']} "
+                 "problems at another count")
+        if not rec["finite"] or rec["shape_x"] != [BATCH, 2 * W3 * N]:
+            fail(f"solve_w3 ({kind}): solution not finite or of the wrong "
+                 "shape")
+        if kind == "box" and max(rec["f64_prim_dual_box"][:2]) > 1.02:
+            fail(f"solve_w3 (box): float64 recomputation violates OSQP's "
+                 f"criterion {rec['f64_prim_dual_box']}")
+        c = rec["launches"]
+        want = dict(ruiz=0, ruiz_block=0,
+                    kkt_factor=1 + rec["rho_refactors"],
+                    admm_chunk=rec["chunks"] + warmups)
+        bad = {k: (c[k], v) for k, v in want.items() if c[k] != v}
+        if bad or rec["host_syncs"] != rec["chunks"]:
+            fail(f"solve_w3 ({kind}): launches (got, want) {bad}, "
+                 f"{rec['host_syncs']} syncs for {rec['chunks']} chunks")
+        if rec["plain_calls"] != {"_ruiz_scalings_plain": 1}:
+            fail(f"solve_w3 ({kind}): plain versions called "
+                 f"{rec['plain_calls']}, want Ruiz's alone")
+    return recs
 
 
 def phase_solve_block_p_declared(honest, bench, fused_rec):
@@ -2195,6 +2404,49 @@ BLOCK_P_REF = dict(ct=2, offset=1, code=(
     "gjlghkhrkgjjjfjkghghhfkkjmjfikhfiiiikjhiikeigggnfjgmmggjhnmihfjh"
     "llgmgljgekihmhgomkgpohnkhiqkljghghfgiljmiigijkgihhijqmflnklgjknl"))
 
+# solve_w3: the JAX package's float32 CPU run on the same W=3 batches
+# (tools/jax_reference_counts.py solve_w3): iteration counts in
+# encode_iters form (checks at 21 + 2k) and exit codes in
+# encode_statuses form.  Box: 1024/1024 optimal at 23 iterations;
+# honest: 1024 primal infeasible (codes 1 and 4), p50 41, max 83.
+W3_REF = {
+    "box": dict(ct=2, offset=1, code="b" * 1024,
+                statuses="0" * 1024),
+    "honest": dict(ct=2, offset=1, code=(
+        "lnghjmkhlrkkqtittlngjqglhjjgtkhilogjjktshttsttiijktognqmgikgimgi"
+        "hkmkgFthhmgihhpnlimjjtFtimftiigqhjCnmkhjsisjmtmjkljjhogkgFktrokh"
+        "iiqgjltjrlhgtlhkhqhkknthkgilrntjmjjggihftjtmglmgthotngihtthkkmth"
+        "FFtkgthmjnghufmstjkkkhFmqihtrgkhttghtmjiitgopiglhtrtgkkghgritjht"
+        "giiiptkyyqngpkjirlgjhtghoktjniiitjphthhFziiotogikomhtgimoEthnglj"
+        "gtgoztFhojtqhigoggirttvthlipgilrkptgmgmgglgjjhtjktrhqrpohnkkjmgt"
+        "hrtglkljgFgjjhifhkgogkgiFhisjjitpqhgtokitkltgntttmrkttmihighugkf"
+        "DutsjgholtgltFtirjhlitthjggqnniiwfmihgEgkiqjgitjipjottfijkjhitng"
+        "jhliithhkmlgkhhggklhmthttisnjtikqhjttfjttlgiffgttknlpFoqhiltlhnn"
+        "lmlnjoktjpjtjoiilhiphihlkhhijljlmltitgttjhgjtnmjnggtzgjhtiqllmih"
+        "jntkspjgmkAulktotjjrihlpltzhktnFrjlhojtkghighgnhtjglrihhhmhkhkkD"
+        "hhhtskgggliifmwntrpgtlFgqgtkjgztmgjhgghghhjitoiFqiijhighkgmjoqng"
+        "pkjmpgjAjggsjptthitkqiggtoiminqtsttisqihmjjginjjklipthzgmhiirpgh"
+        "jpptlgikjhmqhhisinggjoihtglgllgglkmmkkFgnlilinilgkjgroFpFtthhksj"
+        "iptipgtfhtqitFuiqgiohfshtoitnotoFqgnjgltitllttlthrptigimthkkhhgh"
+        "ijhtlmgjthttFihtFftgvjtgqFlsthqlhklkmqjghhtnlqkhionoyklokivjthhi"),
+        statuses=(
+        "1111111111111414411111111111111111111141144114111141111111111111"
+        "1111141111111111111114441114111111111111111111111111111114141111"
+        "1111114111114111111111411111114111111111414111114114111144111141"
+        "4141111111111111411111411111111144114111141111111414111111114114"
+        "1111141111111111111114111141111141114114111141111111411111411111"
+        "1411144111411111111144141111111111411111111111411411111111111114"
+        "1141111114111111111111114111111411114111411411441111111111111111"
+        "1141111114114441111114411111111111111111111111411111441111111411"
+        "1111141111111111111114141111111111144114411111144111141111141111"
+        "1111111411141111111111111111111111414144111141111114111141111111"
+        "1141111111111141111111111411141411111141111111114111111111111111"
+        "1114111111111111411141411141111411111111111141141111111111111111"
+        "1111111111111144114111114111111114411111111111111111411111111111"
+        "1114111111111111111111114111111111111141111111111111114144411111"
+        "1141114114114411111111114114114141111114141144141111111141111111"
+        "1114111111411114114111411411411111111111114111111111111111114111")),
+}
 
 def host_residual_check_generic(qp, res, idx, settings):
     """OSQP's criterion recomputed in float64 on the host through the
@@ -2506,6 +2758,8 @@ def main():
                     help="comma list of: " + PHASES)
     ap.add_argument("--out", default=None, help="also write records here")
     opts = ap.parse_args()
+    global OUT
+    OUT = opts.out
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: torch.cuda.is_available() is "
               "false", file=sys.stderr)
@@ -2550,6 +2804,8 @@ def main():
     if "box" in want:
         box = build_box_batch(BATCH, W, N, torch.float32, "cuda")
         solve_phase("box", box, bench, timed=False)
+    if "solve_w3" in want:
+        phase_solve_w3(bench)
     if "planner_full" in want:
         phase_planner_full()
     if "planner_obstacles" in want:

@@ -15,9 +15,10 @@ no fallback.  Nothing here runs at import: a machine without ``nvcc`` can
 import every module of the package.
 
 ``host=True`` builds the same sources with ``g++`` in their host-emulation
-mode (``-DLANE_HOST_EMULATION -DLANE_REAL=double``: the launch macro becomes
-a loop over threads), which lets a test check a kernel's arithmetic, in
-double, without a GPU.
+mode (``-std=c++20 -pthread -DLANE_HOST_EMULATION -DLANE_REAL=double``: the
+launch macro becomes a loop over threads, and a cooperative launch runs each
+block's threads as ``std::thread``s meeting at ``std::barrier``s), which lets
+a test check a kernel's arithmetic, in double, without a GPU.
 The solver never takes that path.
 """
 from __future__ import annotations
@@ -85,7 +86,8 @@ def _command(src: Path, out: Path, signature: dict, host: bool):
     defs = [f"-D{k}={v}" for k, v in sorted(signature.items())]
     if host:
         return [
-            "g++", "-x", "c++", "-std=c++17", "-O1", "-shared", "-fPIC",
+            "g++", "-x", "c++", "-std=c++20", "-pthread", "-O1", "-shared",
+            "-fPIC",
             "-DLANE_HOST_EMULATION", "-DLANE_REAL=double",
             *defs, "-o", str(out), str(src),
         ]
@@ -148,8 +150,9 @@ def library(name: str, signature: dict, host: bool = False):
 
 
 def ptxas_report(path: Path) -> dict:
-    """Registers and spill bytes per kernel from the saved ``-Xptxas -v``
-    output of one library."""
+    """Registers, spill bytes and static shared memory per kernel from the
+    saved ``-Xptxas -v`` output of one library (dynamic shared memory is
+    set at launch)."""
     log = Path(path).with_suffix(".log")
     out = {}
     if not log.exists():
@@ -161,12 +164,14 @@ def ptxas_report(path: Path) -> dict:
         st = re.search(r"(\d+) bytes spill stores", body)
         ld = re.search(r"(\d+) bytes spill loads", body)
         stack = re.search(r"(\d+) bytes stack frame", body)
+        smem = re.search(r"(\d+) bytes smem", body)
         short = re.sub(r"^_Z\d+", "", fn)
         out[short] = {
             "registers": int(regs.group(1)) if regs else None,
             "stack_bytes": int(stack.group(1)) if stack else None,
             "spill_store_bytes": int(st.group(1)) if st else None,
             "spill_load_bytes": int(ld.group(1)) if ld else None,
+            "static_smem_bytes": int(smem.group(1)) if smem else 0,
         }
     sec = re.search(r"build_seconds ([\d.]+)", text)
     if sec:

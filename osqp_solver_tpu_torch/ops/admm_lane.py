@@ -62,17 +62,20 @@ RHO_REFACTORS = 0
 
 
 def ruiz_equilibrate_lane(qp, iters: int = 10):
-    """Dispatch by row layout: the kernel wrapper for waypoint-layout
-    batches (CUDA kernel on the card, plain version on the CPU), the plain
-    torch version for the ``"type"`` layout on any device — the reference's
-    own dispatch (its Pallas Ruiz admits only the waypoint layout, and it
-    runs the jnp version for the others on the TPU too), not a fallback."""
+    """Dispatch as the reference's ``ruiz_kernel_supported`` does: the
+    kernel wrapper for waypoint-layout batches of at least 4 waypoints (CUDA
+    kernel on the card, plain version on the CPU), the plain torch version
+    for the ``"type"`` layout and for fewer waypoints on any device — the
+    reference's own dispatch (its Pallas Ruiz admits only those batches, and
+    it runs the jnp version for the others on the TPU too), not a
+    fallback."""
     from .ruiz_kernel import (
         ruiz_equilibrate_lane_kernel,
         ruiz_equilibrate_lane_plain,
+        ruiz_kernel_supported,
     )
 
-    if qp.row_layout == "waypoint":
+    if ruiz_kernel_supported(qp):
         return ruiz_equilibrate_lane_kernel(qp, iters)
     return ruiz_equilibrate_lane_plain(qp, iters)
 

@@ -10,12 +10,18 @@ iteration.
 Kernel note (``csrc/dense.cu`` replaces the Pallas bodies ``_factor_kernel``
 and ``_solve_kernel``).  The TPU kernels put 128 problems on the vector
 lanes and unroll the factorization statically over ``n``, which is why they
-pad the batch to 128 with identity matrices and stop at ``n = 160`` (VMEM).
-Here one thread owns one problem and loops over ``n`` at run time: no
-padding, one build for every ``n``.  The factor works in place in its output
-buffer in device memory (L2-resident at the main path's size); the solve
-keeps the n-vector in shared memory, which holds ``n ≤ 1816`` on an H100
-(227 KB per block of 32 threads); a larger ``n`` raises at launch.
+pad the batch to 128 with identity matrices and stop at ``n = 160`` (VMEM;
+XLA's Cholesky above).  Here a group of threads (one or more warps) works on
+each problem and a block takes a few adjacent problems, so that each load
+and store of the lane-major arrays is coalesced; ``n`` is a run-time
+argument: no padding, one build for every ``n``, and no limit on ``n``.  The
+factor keeps each problem's triangle in shared memory while it fits
+(``n ≤ 336`` in float32 on an H100) and otherwise works on it in a
+device-memory scratch buffer; the solve stages the triangle the same way and
+keeps the n-vector in shared memory (in ``x`` beyond 227 KB).  The group
+size, the problems per block and the branch are planned at each launch from
+``n``, ``B``, the card's shared memory per block and its SM count
+(:func:`plan`).
 """
 from __future__ import annotations
 
@@ -46,23 +52,84 @@ def solve_lane_major_plain(Lt, rhs):
 
 
 def _lib():
-    return _build.library("dense", {})
+    return configure(_build.library("dense", {}))
 
 
-def _launch(lib, name, *args):
+def configure(lib):
+    """Set the C signatures of a loaded ``csrc/dense.cu`` library (once)."""
+    if not getattr(lib, "dense_ready", False):
+        lib.dense_device_limits.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.dense_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.dense_plan.restype = None
+        for name in ("factor", "solve"):
+            fn = getattr(lib, f"dense_{name}_launch")
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.dense_ready = True
+    return lib
+
+
+# Threads per block of both kernels on the card, at most (the group of each
+# problem is a whole number of warps within it).
+BLOCK_THREADS = 1024
+_LIMITS: dict = {}
+_PLANS: dict = {}
+
+
+def device_limits(lib, device):
+    """``(shared bytes a block may opt into, SM count)`` of a CUDA device,
+    as the launch functions take them (read once per device)."""
+    key = device.index
+    if key is None:
+        key = torch.cuda.current_device()
+    if key not in _LIMITS:
+        out = (ctypes.c_int * 2)()
+        _build.check(lib.dense_device_limits(key, out), "dense_device_limits")
+        _LIMITS[key] = (out[0], out[1])
+    return _LIMITS[key]
+
+
+PLAN_KEYS = ("groups", "threads", "stride", "smem_bytes", "branch", "blocks")
+
+
+def plan(lib, which, n, B, budget, threads, sms):
+    """The launch plan of ``csrc/dense.cu`` (``which``: ``"factor"`` or
+    ``"solve"``): problems per block, threads per problem, the packed
+    triangle's stride, shared bytes, the branch (factor: 0 shared memory, 1
+    device-memory scratch; solve: 0 triangle and vector in shared memory, 1
+    vector only, 2 neither) and the block count.  Cached."""
+    key = (id(lib), which, n, B, budget, threads, sms)
+    if key not in _PLANS:
+        out = (ctypes.c_longlong * len(PLAN_KEYS))()
+        lib.dense_plan(int(which == "solve"), n, B, budget, threads, sms, out)
+        _PLANS[key] = dict(zip(PLAN_KEYS, out))
+    return _PLANS[key]
+
+
+def _launch(lib, name, *args, budget, threads, sms):
     """Call ``dense_<name>_launch`` of ``csrc/dense.cu``: factor ``(M, Lt)``
     or solve ``(Lt, rhs, x)``, all on one device, the first an
-    ``(n, n, B)`` array."""
+    ``(n, n, B)`` array, with the shared-memory ``budget`` (bytes per
+    block), ``threads`` per block and the SM count to plan for.  The factor's
+    device-memory scratch is allocated here when the plan needs it."""
     n, _, B = args[0].shape
-    fn = getattr(lib, f"dense_{name}_launch")
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * len(args) + [ctypes.c_int] * 2 + [
-            ctypes.c_void_p
-        ]
-        fn.restype = ctypes.c_int
-    err = fn(*(_build.ptr(a) for a in args), n, B,
-             _build.stream(args[0].device))
+    if name == "factor":
+        p = plan(lib, "factor", n, B, budget, threads, sms)
+        scratch = (torch.empty(p["stride"] * B, dtype=args[0].dtype,
+                               device=args[0].device)
+                   if p["branch"] == 1 else None)
+        args = args + (scratch,)
+    err = getattr(lib, f"dense_{name}_launch")(
+        *(_build.ptr(a) for a in args), n, B, budget, threads, sms,
+        _build.stream(args[0].device))
     _build.check(err, f"dense_{name}_launch (n={n}, B={B})")
+
+
+def _launch_cuda(name, *args):
+    lib = _lib()
+    budget, sms = device_limits(lib, args[0].device)
+    _launch(lib, name, *args, budget=budget, threads=BLOCK_THREADS, sms=sms)
 
 
 def _check(name, t, shape, ref):
@@ -86,7 +153,7 @@ def factor_lane_major(M):
     if M.device.type == "cpu":
         return factor_lane_major_plain(M)
     Lt = torch.empty_like(M)
-    _launch(_lib(), "factor", M, Lt)
+    _launch_cuda("factor", M, Lt)
     factor_lane_major.launches += 1
     return Lt
 
@@ -102,7 +169,7 @@ def solve_lane_major(Lt, rhs):
     if Lt.device.type == "cpu":
         return solve_lane_major_plain(Lt, rhs)
     x = torch.empty_like(rhs)
-    _launch(_lib(), "solve", Lt, rhs, x)
+    _launch_cuda("solve", Lt, rhs, x)
     solve_lane_major.launches += 1
     return x
 

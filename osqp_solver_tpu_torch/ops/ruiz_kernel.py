@@ -203,6 +203,17 @@ def _unpack_scalings(qp, Dbuf, Ebuf, c, iters):
     return qp._deinterleave(Dbuf[slot]), Ebuf[slot].reshape(-1, qp.batch), c
 
 
+# The reference's Pallas Ruiz (ruiz_pallas.py:40-48) admits waypoint-layout
+# batches of at least 4 waypoints; its B % 128 tiling is a TPU limit.
+MIN_WAYPOINTS = 4
+
+
+def ruiz_kernel_supported(qp) -> bool:
+    """Whether the reference runs its Ruiz kernel on ``qp``
+    (``ruiz_pallas.ruiz_kernel_supported`` without the TPU tiling)."""
+    return qp.row_layout == "waypoint" and qp.waypoints >= MIN_WAYPOINTS
+
+
 def ruiz_scalings_kernel(qp, iters: int):
     """Launch the kernel: ``(D (n, B), E (m, B), c (B,))`` on the card, in
     the form of ``qp.p_structure``."""
@@ -210,8 +221,11 @@ def ruiz_scalings_kernel(qp, iters: int):
 
     if qp.dtype != torch.float32:
         raise TypeError(f"the CUDA Ruiz kernel takes float32, got {qp.dtype}")
-    if qp.waypoints < 3:
-        raise ValueError("the Ruiz kernel needs at least 3 waypoints")
+    if not ruiz_kernel_supported(qp):
+        raise ValueError(
+            "the Ruiz kernel takes waypoint-layout batches of at least 4 "
+            f"waypoints, got {qp.waypoints} (as the reference's "
+            "ruiz_pallas.ruiz_kernel_supported)")
     packs = _ruiz_kernel_packs(qp)
     sig = p_signature(qp)
     _launch_ruiz(_build.library("ruiz", sig), *packs, iters)

@@ -85,23 +85,47 @@ def test_plain_non_spd_problem_gives_nan():
     assert np.isnan(x[:, bad]).all() and np.isfinite(x[:, others]).all()
 
 
-def _emulated(M, rhs):
-    """Factor and solve through ``csrc/dense.cu`` in host emulation."""
-    lib = host_lib_signature("dense", {})
+# Host emulation of the launches: 16 threads per block (the emulated warp is
+# 4 threads), planned for 2 SMs; CARD is an H100's shared memory per block.
+CARD, THREADS, SMS = 232448, 16, 2
+
+
+def _emulated(M, rhs, budget=CARD):
+    """Factor and solve through ``csrc/dense.cu`` in host emulation, planned
+    for ``budget`` bytes of shared memory per block; returns ``(Lt, x,
+    factor plan, solve plan)``."""
+    lib = tdk.configure(host_lib_signature("dense", {}))
+    kw = dict(budget=budget, threads=THREADS, sms=SMS)
     Lt = torch.full_like(M, float("nan"))
-    tdk._launch(lib, "factor", M, Lt)
+    tdk._launch(lib, "factor", M, Lt, **kw)
     x = torch.full_like(rhs, float("nan"))
-    tdk._launch(lib, "solve", Lt, rhs, x)
-    return Lt, x
+    tdk._launch(lib, "solve", Lt, rhs, x, **kw)
+    n, B = rhs.shape
+    return (Lt, x, tdk.plan(lib, "factor", n, B, **kw),
+            tdk.plan(lib, "solve", n, B, **kw))
 
 
-@pytest.mark.parametrize("n,B", [(1, 1), (8, 37), (24, 3), (64, 33)])
-def test_emulated_kernels_match_plain(n, B, tmp_path, monkeypatch):
-    """B = 37, 33: a second block of 32 threads, mostly idle; n = 1 and
-    B = 1: the single-problem and 1x1 cases of the solver."""
+@pytest.mark.parametrize("n,B,budget,branches", [
+    pytest.param(1, 1, CARD, (0, 0), id="1-1"),
+    pytest.param(8, 37, CARD, (0, 0), id="8-37"),
+    pytest.param(24, 3, CARD, (0, 0), id="24-3"),
+    pytest.param(64, 33, CARD, (0, 0), id="64-33"),
+    # Small budgets: the factor on its device-memory scratch; the solve
+    # with L read from Lt and the vector in shared memory (2000 bytes), or
+    # in x (100 bytes).
+    pytest.param(24, 5, 2000, (1, 1), id="24-5-device"),
+    pytest.param(40, 7, 100, (1, 2), id="40-7-device"),
+])
+def test_emulated_kernels_match_plain(n, B, budget, branches, tmp_path,
+                                      monkeypatch):
+    """B = 37, 33, 5, 7: not a multiple of the problems per block; n = 1
+    and B = 1: the single-problem and 1x1 cases of the solver; the last two
+    cases take the branches that an H100 runs for n > 336 (factor) and
+    n > 58,112 (solve)."""
     monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
     M, rhs = (t_(a) for a in spd_batch(n, B, seed=n + B))
-    Lt, x = _emulated(M, rhs)
+    Lt, x, fplan, splan = _emulated(M, rhs, budget)
+    assert (fplan["branch"], splan["branch"]) == branches
     assert_close(Lt, tdk.factor_lane_major_plain(M), rtol=1e-9, atol=1e-12)
     iu = torch.ones(n, n, dtype=torch.bool).tril(-1)  # Lt[j, i], i < j
     assert (Lt[iu] == 0).all()  # zeros above the diagonal of L written
@@ -112,16 +136,15 @@ def test_emulated_kernels_match_plain(n, B, tmp_path, monkeypatch):
     assert_close(Mx, rhs, rtol=1e-9, atol=1e-9)
 
 
-def test_emulated_non_spd_problem_gives_nan_from_its_column(tmp_path,
-                                                           monkeypatch):
+def _check_nan_from_column(budget, factor_branch):
     """The kernel turns the failing column and every later one of that
     problem into NaN (earlier columns keep their values, as the
     reference's Pallas kernel does), and touches no other problem."""
-    monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
     n, B, bad, col = 12, 37, 7, 4
     M, rhs = spd_batch(n, B, seed=3)
     M[col, col, bad] = 0.0  # a zero pivot is not positive either
-    Lt, x = _emulated(t_(M), t_(rhs))
+    Lt, x, fplan, _ = _emulated(t_(M), t_(rhs), budget)
+    assert fplan["branch"] == factor_branch
     Lt, x = to_np(Lt), to_np(x)
     jLt = np.asarray(jpd.factor_lane_major(
         jnp.asarray(M[..., bad:bad + 1]), interpret=True))[..., 0]
@@ -135,6 +158,20 @@ def test_emulated_non_spd_problem_gives_nan_from_its_column(tmp_path,
     assert np.isfinite(x[:, others]).all()
     assert_close(Lt[..., others], to_np(tdk.factor_lane_major_plain(
         t_(M[..., others]))), rtol=1e-9, atol=1e-12)
+
+
+def test_emulated_non_spd_problem_gives_nan_from_its_column(tmp_path,
+                                                           monkeypatch):
+    monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
+    _check_nan_from_column(CARD, 0)
+
+
+def test_emulated_non_spd_problem_gives_nan_in_device_memory_branch(
+        tmp_path, monkeypatch):
+    """The same planted pivot with the triangles in the device-memory
+    scratch buffer (a budget below one triangle)."""
+    monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
+    _check_nan_from_column(200, 1)
 
 
 def test_wrappers_refuse_bad_arguments():

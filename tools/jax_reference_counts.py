@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Iteration counts of the JAX package on the problems of ``chip_smoke.py``
 (float32, CPU): the references its ``dense``, ``dense_session``,
-``trajectory_generic`` and ``solve_block_p`` phases hold the port to.
+``trajectory_generic``, ``solve_block_p`` and ``solve_w3`` phases hold the
+port to.
 
 The problems come from ``chip_smoke.py``'s own generators (numpy from a
 seed for the dense configurations and the block-P objective; the port's
@@ -73,8 +74,23 @@ def jax_trajectory(qp):
 def main():
     want = set(sys.argv[1:]) or {"dense", "dense_session",
                                  "trajectory_config1",
-                                 "trajectory_config4b", "solve_block_p"}
+                                 "trajectory_config4b", "solve_block_p",
+                                 "solve_w3"}
     settings = admm.Settings()
+    if "solve_w3" in want:
+        # W=3 lane batches (below the Ruiz kernel's 4 waypoints), B=1024, at
+        # the bench.py settings: the box-only class and the honest class
+        # (primal infeasible in three steps); statuses per problem too.
+        sb = dataclasses.replace(settings, **cs.BENCH, fused_chunk="off")
+        for kind in ("box", "honest"):
+            static, arrays = convert.lane_qp_to_numpy(cs.w3_batch(kind, "cpu"))
+            jqp = LaneTrajectoryQP(**static, **{k: jnp.asarray(v)
+                                                for k, v in arrays.items()})
+            r = jax.jit(lambda q: admm_lane.solve_batched_lane(q, sb))(jqp)
+            summary(f"solve_w3_{kind}", r.iterations, sb.check_termination,
+                    r.status, sb.termination_warmup % sb.check_termination,
+                    statuses=cs.encode_statuses(np.asarray(r.status)))
+
     if "solve_block_p" in want:
         # The honest class with the block-P objective at the bench.py
         # settings, B=1024; "off": the jnp path on the CPU (the Pallas chunk
