@@ -65,6 +65,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import ctypes
 import dataclasses
 import functools
 import json
@@ -687,13 +688,7 @@ def phase_kernels():
     warm_errs, _, warm_frozen, warm_vs64 = compare(
         settings.termination_warmup, None)
     # The same comparison at an odd batch (tail mask).
-    odd_packs = admm_lane.build_const_packs(odd_s, odd_sc)
-    odd_ck, _ = kkt_factor.factor_packed_lane(odd_s, odd_rho, settings.sigma)
-    odd_st = torch.zeros((W, admm_fused.state_rows(odd_s)[1], 200), device="cuda")
-    odd_args = dict(coef=odd_packs["coef"], lu=admm_fused.build_lu_pack(odd_s),
-                    packed_factor=(odd_ck, None),
-                    term_packs=(odd_packs["EEinv"], odd_packs["varc"],
-                                odd_packs["Pdp"], odd_packs["Plf"]))
+    odd_st, odd_args = chunk_setup(odd_s, odd_sc, odd_rho, settings)
     odd_done = torch.zeros(200, dtype=torch.bool, device="cuda")
     ok_, oacc = admm_fused.fused_admm_chunk(
         odd_s, odd_rho, odd_done, settings, state_pack=odd_st.clone(), **odd_args)
@@ -701,6 +696,20 @@ def phase_kernels():
         odd_s, odd_rho, odd_done, settings, state_pack=odd_st, **odd_args)
     odd_err = max(rel_err(ok_, op_)[1],
                   max(rel_err(oacc[r], oaccp[r])[1] for r in _ACC.values()))
+    # Eight problems: how much of the time is one problem's chain.
+    few = build_honest_batch(8, W, N, torch.float32, "cuda")
+    few_s, few_sc = admm_lane.ruiz_equilibrate_lane(few, settings.scaling)
+    few_rho = _rho_vec(torch.full((8,), settings.rho, device="cuda"),
+                       few_s.l, few_s.u)
+    few_st, few_args = chunk_setup(few_s, few_sc, few_rho, settings)
+    few_done = torch.zeros(8, dtype=torch.bool, device="cuda")
+    few_ms = time_ms(lambda: admm_fused.fused_admm_chunk(
+        few_s, few_rho, few_done, settings, state_pack=few_st, n_iter=2,
+        **few_args))
+    few_warm_ms = time_ms(lambda: admm_fused.fused_admm_chunk(
+        few_s, few_rho, few_done, settings, state_pack=few_st,
+        n_iter=settings.termination_warmup,
+        **dict(few_args, term_packs=None)), reps=5, warm=1)
 
     scratch = state0.clone()
     k_ms = time_ms(lambda: admm_fused.fused_admm_chunk(
@@ -749,6 +758,13 @@ def phase_kernels():
         ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=None, streamed_ms=streamed_ms,
         warmup_form_ms=warm_ms,
+        ms_per_iteration=warm_ms / settings.termination_warmup,
+        B8_ms=few_ms, B8_warmup_form_ms=few_warm_ms,
+        B8_ms_per_iteration=few_warm_ms / settings.termination_warmup,
+        plan=chunk_plan(sig, B, 1, False),
+        plan_warmup_form=chunk_plan(sig, B, 0, False),
+        plan_B200=chunk_plan(sig, 200, 1, False),
+        plan_B8=chunk_plan(sig, 8, 1, False),
         shape=f"W={W} N={N} B={B} n_iter=2 emit_term (warm-up form: "
               f"n_iter={settings.termination_warmup})"))
     out.append(check_chunk_dxdy(
@@ -767,11 +783,43 @@ def phase_kernels():
     out.extend(check_block_p(settings, NX))
     for row in out:
         row["ptxas"] = ptxas_of(row["name"], sig)
+    # Every build of the chunk kernel (hrec and gain x three modes).
+    rows = {row["name"]: row for row in out}
+    rows["admm_chunk"]["ptxas_all_builds"] = ptxas_of("admm_chunk_all", sig)
     emit("kernels", kernels=out)
     bad = [k["name"] for k in out if not k["ok"]]
     if bad:
         fail(f"kernel(s) outside tolerance of the plain version: {bad}")
     return out
+
+
+def chunk_setup(scaled, scaling, rho_vec, settings):
+    """A zero state and the chunk's arguments (hrec factor, with the
+    accumulator packs) for one scaled batch."""
+    packs = admm_lane.build_const_packs(scaled, scaling)
+    ck, _ = kkt_factor.factor_packed_lane(scaled, rho_vec, settings.sigma)
+    state = torch.zeros((W, admm_fused.state_rows(scaled)[1], scaled.batch),
+                        device="cuda")
+    return state, dict(coef=packs["coef"], lu=admm_fused.build_lu_pack(scaled),
+                       packed_factor=(ck, None),
+                       term_packs=(packs["EEinv"], packs["varc"], packs["Pdp"],
+                                   packs["Plf"]))
+
+
+def chunk_plan(sig, B, mode, gain):
+    """The chunk kernel's launch plan on this card for a batch of B
+    (``admm_chunk_plan``): threads per problem, problems per block, stages,
+    shared bytes, blocks, threads per block, slot values per problem, tile
+    row stride and bytes per staging copy."""
+    fn = _build.library("admm_chunk", sig).admm_chunk_plan
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = None
+    out = (ctypes.c_longlong * 9)()
+    fn(B, torch.cuda.get_device_properties(0).multi_processor_count, mode,
+       int(gain), out)
+    keys = ("G", "Q", "stages", "shared_bytes", "blocks", "threads_per_block",
+            "slot_values", "tile_stride", "copy_bytes")
+    return dict(zip(keys, list(out)))
 
 
 def check_chunk_dxdy(scaled, scaled64, settings, rho_vec, done, state0, args,
@@ -822,6 +870,9 @@ def check_chunk_dxdy(scaled, scaled64, settings, rho_vec, done, state0, args,
     k_ms = time_ms(lambda: admm_fused.fused_admm_chunk(
         scaled, rho_vec, done, settings, state_pack=scratch, n_iter=2,
         emit_dxdy=True, **args))
+    warm_ms = time_ms(lambda: admm_fused.fused_admm_chunk(
+        scaled, rho_vec, done, settings, state_pack=scratch,
+        n_iter=settings.termination_warmup, **args), reps=5, warm=1)
     p_ms = time_ms(lambda: admm_fused.fused_admm_chunk_plain(
         scaled, rho_vec, done, settings, state_pack=state0, n_iter=2,
         emit_dxdy=True, **args), reps=5, warm=1)
@@ -845,8 +896,12 @@ def check_chunk_dxdy(scaled, scaled64, settings, rho_vec, done, state0, args,
                  "kernel against plain f32, for information",
         ok=bool(worst <= TOL_CHUNK and frozen_zero and pads_zero),
         ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        warmup_form_ms=warm_ms,
+        ms_per_iteration=warm_ms / settings.termination_warmup,
+        plan=chunk_plan(admm_fused.layout_signature(scaled), B, 2, gk is not None),
         shape=f"W={W} N={N} B={B} n_iter=2 emit_dxdy"
-              + ("" if gk is None else f" gain, P {scaled.p_structure}"))
+              + ("" if gk is None else f" gain, P {scaled.p_structure}")
+              + f" (warm-up form: n_iter={settings.termination_warmup})")
 
 
 def check_residuals(scaled, scaling, settings, rho_vec, done, state0, args,
@@ -956,6 +1011,7 @@ PTXAS = {
     "ruiz_block": ("ruiz", "ruiz_"),
     "residuals_block": ("residuals", "residuals"),
     "admm_chunk_block": ("admm_chunk", "admm_chunk_kernelILi2ELb1E"),
+    "admm_chunk_all": ("admm_chunk", "admm_chunk_kernel"),
     "tridiag_factor": ("tridiag", "tridiag_factor_kernel"),
     "tridiag_solve": ("tridiag", "tridiag_solve_kernel"),
     "dense_factor": ("dense", "dense_factor_kernel"),
@@ -1106,7 +1162,13 @@ def check_chunk_gain(scaled, scaled64, settings, rho_vec, done, state0, args,
         ok=bool(worst <= TOL_CHUNK and frozen),
         ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=None, warmup_form_ms=warm_ms, dxdy_form_ms=dxdy_ms,
+        ms_per_iteration=warm_ms / settings.termination_warmup,
         hrec_form_ms_same_call=hrec_ms,
+        plan=chunk_plan(admm_fused.layout_signature(scaled), B, 1, True),
+        plan_warmup_form=chunk_plan(admm_fused.layout_signature(scaled), B,
+                                    0, True),
+        plan_dxdy_form=chunk_plan(admm_fused.layout_signature(scaled), B, 2,
+                                  True),
         shape=f"W={W} N={N} B={B} gain; ms: n_iter=2 emit_term (warm-up "
               f"form n_iter={settings.termination_warmup}, dxdy n_iter=2)")
 

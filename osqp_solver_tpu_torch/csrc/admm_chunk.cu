@@ -1,9 +1,9 @@
-// Fused ADMM chunk, one thread per problem: n_iter OSQP iterations per launch
-// on the packed state, and in the last backward pass either the termination /
-// certificate accumulators (MODE_TERM) or the last iteration's packed deltas
-// dx, dy (MODE_DXDY), or neither (MODE_PLAIN).  Each mode exists in both
-// factor forms: gain-free ("hrec", GAIN = false) and with the packed gain
-// G_t streamed beside the packed chol (GAIN = true).
+// Fused ADMM chunk, a group of threads per problem: n_iter OSQP iterations
+// per launch on the packed state, and in the last backward pass either the
+// termination / certificate accumulators (MODE_TERM) or the last iteration's
+// packed deltas dx, dy (MODE_DXDY), or neither (MODE_PLAIN).  Each mode exists
+// in both factor forms: gain-free ("hrec", GAIN = false) and with the packed
+// gain G_t streamed beside the packed chol (GAIN = true).
 //
 // Replaces the Pallas kernel of osqp_solver_tpu/ops/admm_fused.py
 // (fused_admm_chunk, body _make_kernel): with emit_term, in the
@@ -31,22 +31,97 @@
 // the tile, so before the in-place write) go to dxdy[t] = [dx (2N); dy (Rp);
 // pad]; frozen problems emit exact zeros.
 //
-// MODE_TERM, last backward pass: row-space reductions at waypoint t; the
-// variable-space quantities of waypoint t+1 (A'y, Px, A'dy, P dx) need rows of
-// waypoint t, so they are carried as one-step-delayed partials and reduced at
-// step t; waypoint 0 is finished in an epilogue.  Same accumulators and
-// semantics as the reference's residual kernel (ops/residuals.py _ACC).
+// MODE_TERM, last backward pass: the accumulators of the separate residual
+// kernel (ops/residuals.py _ACC), equal to it bit for bit on the same state
+// and deltas.  Row-space quantities at waypoint t; the variable-space ones of
+// waypoint t+1 (A'y, Px, A'dy, P dx) need rows of waypoint t, so they are
+// carried as one-step-delayed partials and reduced at step t; waypoint 0 is
+// finished in an epilogue.  Every element is computed by the same expression
+// as in csrc/residuals.cu (the A'y and P x multiply-adds written out as its
+// compiled code forms them: at_gather).  The maxima are exact in any order,
+// so each lane keeps its own and the group reduces them at the end.  The
+// four sums keep that kernel's order: per waypoint one lane adds the rows
+// (or variables) in increasing order from the values left in shared memory,
+// and the per-waypoint sums, parked in the h scratch of their (already
+// consumed) waypoint, are added in increasing waypoint order in the
+// epilogue.
 //
-// Bound: two chains of W dependent 12x12 triangular-solve pairs per
-// iteration; latency-bound (B = 1024 is 32 warps on 132 SMs).  With one warp
-// per SM nothing hides the latency of the ~340 rows a waypoint step reads, so
-// each thread stages the NEXT waypoint's rows into shared memory with
-// cp.async (two stages, its own column only: no block barrier) while it
-// computes the current one (the termination packs too, in the last backward
-// pass).  That pass holds far more than 255 values and spills; accepted.
+// Design (Hopper).  The work of a waypoint step is a chain: two (gain: one)
+// 2N x 2N triangular solves per pass.  One thread per problem left B = 1024 at
+// 32 single-warp blocks (100 of 132 SMs idle) with every staged row and every
+// multiply-add of a step on one thread.  Here:
+//   - a group of G threads (the smallest power of two >= 2N: 16 at N = 6)
+//     works on one problem; a block holds Q adjacent problems (planned at each
+//     launch: 4 while the blocks still cover 7/8 of the SMs, fewer for small
+//     batches), so B = 1024 is 256 blocks of 64 such threads;
+//   - a producer warp per block stages waypoint t+2's rows of its Q problems
+//     (t-2 backward) with cp.async into a ring of NSTAGE = 3 tiles while the
+//     groups compute waypoint t, one __syncthreads per step; the copies'
+//     instructions are then off the groups' chain.  A tile is [row][QS = 12]
+//     (one column per problem), 16-byte copies of four problems each;
+//   - each lane of a group solves the whole 2N x 2N systems in registers
+//     from the group's vector (left in shared memory, one __syncwarp): the
+//     two problems of a warp share one instruction stream, and the solve
+//     needs no exchange (column sweeps across the group were slower: a
+//     shuffle per pivot on the chain);
+//   - constraint rows r = lane, lane + G, ... stay on one lane each, from the
+//     A-row apply to the state and delta writes; the vectors a row reads
+//     (x~_t, x~_{t+1}, and in MODE_TERM x_sel, dx of t and t+1) sit in a
+//     small shared-memory slot per group, double-buffered by waypoint parity.
+// Bound: on paper bytes (each pack read once per pass); in practice each
+// problem's chain of dependent steps (the solves' 2N true divisions each, the
+// rows), with one or two blocks of 3 warps per SM: eight problems take about
+// as long as 1024 (PERF.md).  The variants timed on the card are in
+// tools/chunk_variants.py and PERF.md.
 #include "lane_common.cuh"
 
-// One stage of the shared-memory pipeline: rows of LANE_BLOCK values.
+// Threads per problem, and problems per block at most.
+__host__ __device__ constexpr int pow2_at_least(int n) {
+    return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
+constexpr int G = pow2_at_least(B2) < 4 ? 4 : pow2_at_least(B2);
+static_assert(G <= 32, "a group is at most one warp (2N <= 32)");
+// Problems per block at most (log2) and stages of the ring, tuned on an
+// H100 (tools/chunk_variants.py builds other values).
+#ifndef CHUNK_QLOG_MAX
+#define CHUNK_QLOG_MAX 2
+#endif
+#ifndef CHUNK_NSTAGE
+#define CHUNK_NSTAGE 3
+#endif
+static_assert(CHUNK_QLOG_MAX >= 0 && CHUNK_QLOG_MAX <= 3, "");
+constexpr int Q_MAX = 1 << CHUNK_QLOG_MAX;
+constexpr int NSTAGE = CHUNK_NSTAGE;
+static_assert(NSTAGE >= 2, "");
+// The producer threads of a block (a warp; in host emulation at least a
+// group), which issue all the staging copies.
+constexpr int PRODUCERS = LANE_WARP > G ? LANE_WARP : G;
+
+// CHUNK_PROFILE: thread 0 of block 0 adds the clock cycles of each phase of
+// a step to a shared-memory tally, added to chunk_profile[] at the end of the
+// launch (read with admm_chunk_profile); tooling only.
+#ifdef CHUNK_PROFILE
+__device__ unsigned long long chunk_profile[16];
+__shared__ unsigned long long chunk_tally[16];
+#define PROF_START long long prof_t = clock64()
+#define PROF(k)                                                             \
+    do {                                                                    \
+        if (blockIdx.x == 0 && threadIdx.x == 0) {                          \
+            const long long prof_n = clock64();                             \
+            chunk_tally[k] += prof_n - prof_t;                              \
+            prof_t = prof_n;                                                \
+        }                                                                   \
+    } while (0)
+#define PROF_ARG , long long& prof_t
+#define PROF_PASS , prof_t
+#else
+#define PROF_START
+#define PROF(k)
+#define PROF_ARG
+#define PROF_PASS
+#endif
+
+// One stage of the ring: rows of QS values (one column per problem).
 constexpr int O_CH = 0;            // packed chol, T rows
 constexpr int O_CF = O_CH + T;     // stencil coefficients, CR rows
 constexpr int O_RH = O_CF + CR;    // rho, Rp rows
@@ -65,416 +140,652 @@ constexpr int STAGE_ROWS_TERM = O_PD + N;
 __host__ __device__ constexpr int o_gain(bool term) {
     return term ? STAGE_ROWS_TERM : STAGE_ROWS;
 }
-__host__ __device__ constexpr int stage_elems(bool term, bool gain) {
-    return (o_gain(term) + (gain ? T : 0)) * LANE_BLOCK;
+__host__ __device__ constexpr int stage_rows(bool term, bool gain) {
+    return o_gain(term) + (gain ? T : 0);
 }
+
+// The slot of a group (shared memory after the ring): vectors of G values
+// and rows of a waypoint, two of each (waypoint parity), the accumulators,
+// and the right-hand side of a solve.
+constexpr int SL_X = 0;             // fwd: h_t / w_t; bwd: x~_t
+constexpr int SL_XS = SL_X + 2 * G;   // x_sel_t (MODE_TERM)
+constexpr int SL_DX = SL_XS + 2 * G;  // dx_t (MODE_TERM)
+constexpr int SL_Y = SL_DX + 2 * G;   // y_sel of the Rp rows (MODE_TERM), 2x
+constexpr int SL_DY = SL_Y + 2 * Rp;  // dy of the Rp rows (MODE_TERM), 2x
+constexpr int SL_ACC = SL_DY + 2 * Rp;  // the accumulators (MODE_TERM)
+constexpr int SL_R = SL_ACC + NACC;   // the right-hand side of a solve
+constexpr int SLOT = SL_R + G;
+static_assert(A_COUNT <= NACC && 4 <= G, "");
 
 enum { MODE_PLAIN = 0, MODE_TERM = 1, MODE_DXDY = 2 };
 
+// The tile: rows of QS = 12 values, Q <= 8 of them used (one column per
+// problem).  A compile-time stride makes every staged read an immediate
+// offset; 12 is a multiple of four values, so a row's columns take 16-byte
+// copies, and the G lanes of a problem, reading G rows of one column, meet
+// at most 2-way bank conflicts.  16-byte copies when a block's columns are
+// whole 16-byte pieces of every row (4 or 8 problems, B a multiple of 4),
+// else 4-byte copies.
+constexpr int QS = 12;
+static_assert(Q_MAX <= QS, "");
+__host__ __device__ constexpr bool tile_x4(int qlog, int B) {
+    return qlog >= 2 && B % 4 == 0;
+}
+
+// The first staging thread of a block: past the consumers, at a warp
+// boundary (a warp then holds consumers or stagers, never both).
+__host__ __device__ constexpr int producer_base(int qlog) {
+    return ((G << qlog) + LANE_WARP - 1) / LANE_WARP * LANE_WARP;
+}
+__host__ __device__ constexpr int block_threads(int qlog) {
+    return producer_base(qlog) + PRODUCERS;
+}
+
+// The shared-memory bytes of a launch.
+__host__ __device__ constexpr int chunk_smem_bytes(int qlog, bool term,
+                                                   bool gain) {
+    return (NSTAGE * stage_rows(term, gain) * QS + (1 << qlog) * SLOT) *
+           (int)sizeof(real);
+}
+
+// Rows of one problem's column of a staged tile.
+struct Tile {
+    const real* p;
+    __device__ __forceinline__ real operator[](int k) const {
+        return p[k * QS];
+    }
+};
+
 struct Args {
-    Pack chol, gain, coef, q, lu, rho, plf, ee, varc, pd;
+    const real *chol, *gain, *coef, *q, *lu, *rho, *plf, *ee, *varc, *pd;
     real* state;
     real* w;
     real* acc;
     real* dxdy;
-    int W, B, b;
-    real sigma, alpha, keep;
-    real* smem;  // this thread's column of stage 0
-    int stage;   // elements per stage
+    int W, B;
+    real sigma, alpha;
+    // This thread: block's first problem, problems per block (log2), group
+    // (= problem in the block), lane, its problem; below, whether the batch
+    // holds its problem and whether that is frozen.
+    int b0, qlog, g, lane, b;
+    bool x4;        // stage with 16-byte copies (four problems each)
+    bool stager;    // this thread is a producer: it issues staging copies
+    bool idle;      // this thread computes nothing (a producer, or a pad
+                    // thread before the producers' warp)
+    int ptid;       // its index among the PRODUCERS
+    bool valid;
+    bool frozen;
+    real* ring;  // stage 0 of the ring
+    real* slot;  // this group's slot
 };
 
-// Start the copies of waypoint t's rows into stage t & 1 and commit them as
-// one group.
+// Copy the first CNT rows of waypoint t of a (W, ROWS, B) pack into rows
+// DST.. of stage sg, the block's Q columns, copies e = ptid, ptid +
+// PRODUCERS, ...
+// x4: four adjacent columns per copy (row e / (Q/4), columns 4 (e % (Q/4))..);
+// else one (row e / Q, column e % Q).  Columns past the batch stay stale.
+__device__ __forceinline__ void stage_rows_of(const Args& a, const real* pack,
+                                              int ROWS, int CNT, int DST,
+                                              int t, real* sg) {
+    const real* rows = pack + ((size_t)t * ROWS) * a.B + a.b0;
+    const int cl = a.x4 ? a.qlog - 2 : a.qlog;  // log2 copies per row
+    const int w = a.x4 ? 4 : 1;
+    for (int e = a.ptid; e < (CNT << cl); e += PRODUCERS) {
+        const int k = e >> cl, p = w * (e & ((1 << cl) - 1));
+        if (a.b0 + p >= a.B) continue;
+        real* dst = sg + (DST + k) * QS + p;
+        const real* src = rows + (size_t)k * a.B + p;
+        if (a.x4)
+            cp_async_x4(dst, src);
+        else
+            cp_async4(dst, src);
+    }
+}
+
+// Start the block's copies of waypoint t's rows into stage t % NSTAGE and
+// commit them as one group.
 template <bool BWD, bool GAIN, bool TERM = false>
 __device__ __forceinline__ void stage_issue(const Args& a, int t) {
-    real* sg = a.smem + (t & 1) * a.stage;
-    stage_pack<Tp, T, O_CH>(a.chol, t, sg);
-    if (GAIN) {
-        constexpr int OG = o_gain(TERM);
-        stage_pack<Tp, T, OG>(a.gain, BWD ? t : (t > 0 ? t - 1 : 0), sg);
-    }
-    stage_pack<CRp, CR, O_CF>(a.coef, t, sg);
-    stage_pack<Rp, Rp, O_RH>(a.rho, t, sg);
-    stage_pack<PNp, N, O_PL>(a.plf, t, sg);
-    const Pack st{a.state, (size_t)a.B, a.b};
-    stage_pack<SRp, SR, O_ST>(st, t, sg);
+    real* sg = a.ring + (t % NSTAGE) * stage_rows(TERM, GAIN) * QS;
+    stage_rows_of(a, a.chol, Tp, T, O_CH, t, sg);
+    if (GAIN)
+        stage_rows_of(a, a.gain, Tp, T, o_gain(TERM),
+                      BWD ? t : (t > 0 ? t - 1 : 0), sg);
+    stage_rows_of(a, a.coef, CRp, CR, O_CF, t, sg);
+    stage_rows_of(a, a.rho, Rp, Rp, O_RH, t, sg);
+    stage_rows_of(a, a.plf, PNp, N, O_PL, t, sg);
+    stage_rows_of(a, a.state, SRp, SR, O_ST, t, sg);
     if (BWD) {
-        const Pack w{a.w, (size_t)a.B, a.b};
-        stage_pack<B2, B2, O_QW>(w, t, sg);
-        stage_pack<2 * Rp, 2 * Rp, O_LU>(a.lu, t, sg);
+        stage_rows_of(a, a.w, B2, B2, O_QW, t, sg);
+        stage_rows_of(a, a.lu, 2 * Rp, 2 * Rp, O_LU, t, sg);
         if (TERM) {
-            stage_pack<2 * Rp, 2 * Rp, O_EE>(a.ee, t, sg);
-            stage_pack<VCp, 3 * B2, O_VC>(a.varc, t, sg);
-            stage_pack<PNp, N, O_PD>(a.pd, t, sg);
+            stage_rows_of(a, a.ee, 2 * Rp, 2 * Rp, O_EE, t, sg);
+            stage_rows_of(a, a.varc, VCp, 3 * B2, O_VC, t, sg);
+            stage_rows_of(a, a.pd, PNp, N, O_PD, t, sg);
         }
     } else {
-        stage_pack<B2, B2, O_QW>(a.q, t, sg);
+        stage_rows_of(a, a.q, B2, B2, O_QW, t, sg);
     }
     cp_async_commit();
 }
 
+// Top of a step: this thread's copies of waypoint t have landed (every step
+// commits one group, empty past the horizon, so NSTAGE - 2 later groups are
+// in flight), the whole block's with the barrier, and nobody reads the
+// stage the next issue overwrites any more.  Returns this problem's column
+// of stage t.
+template <bool TERM, bool GAIN>
+__device__ __forceinline__ const real* stage_wait(const Args& a, int t) {
+    cp_async_wait<NSTAGE - 2>();
+    __syncthreads();
+    return a.ring + (t % NSTAGE) * stage_rows(TERM, GAIN) * QS + a.g;
+}
 
-
-// Sparse coupling block Ml_t: (j,j) = qq, (j,N+j) = qv, (N+j,N+j) = vv.
-__device__ __forceinline__ void ml_at(const Rows& cf, const Rows& rh,
-                                      const Rows& pl, real* qq, real* qv,
-                                      real* vv) {
+// L y = v in place, L the packed lower triangle c[] (true divisions), by
+// columns: y_j = v_j / L_jj, then v_i -= L_ij y_j below it, so each row
+// subtracts in increasing j as a row-by-row substitution does, and the
+// chain is one division and one multiply-add per column.
+__device__ __forceinline__ void lower_solve(const real* c, real* v) {
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
-        const real rd = rh[R_DYN + j];
-        qq[j] = rd * cf[C_C1 + j] * cf[C_C2 + j];
-        qv[j] = rd * cf[C_C1 + j] * cf[C_C0 + j];
-        vv[j] = rh[R_ACC + j] * cf[C_A0 + j] * cf[C_A1 + j] + pl[j];
+    for (int j = 0; j < B2; ++j) {
+        v[j] = v[j] / c[LOW(j, j)];
+#pragma unroll
+        for (int i = j + 1; i < B2; ++i) v[i] = v[i] - c[LOW(i, j)] * v[j];
     }
+}
+
+// L' x = v in place, by columns of L' from the last: x_k = v_k / L_kk, then
+// v_i -= L_ki x_k above it (each row subtracts in decreasing k).
+__device__ __forceinline__ void upper_solve(const real* c, real* v) {
+#pragma unroll
+    for (int k = B2 - 1; k >= 0; --k) {
+        v[k] = v[k] / c[LOW(k, k)];
+#pragma unroll
+        for (int i = 0; i < k; ++i) v[i] = v[i] - c[LOW(k, i)] * v[k];
+    }
+}
+
+// A solve with the staged factor C of the group's 2N-vector, lane i < 2N
+// holding v_i: LOWER C y = v, then UPPER C' x = y.  Returns this lane's
+// element of the result.  The lanes leave v in the slot and each solves the
+// whole system in registers: the two problems of a warp issue one
+// instruction stream, and nothing is exchanged inside the solve (column
+// sweeps across the group, a shuffle per pivot on the chain, were slower:
+// PERF.md).
+template <bool LOWER, bool UPPER>
+__device__ __forceinline__ real group_solve(const Tile& ch, real v,
+                                            const Args& a PROF_ARG) {
+    real* r = a.slot + SL_R;
+    if (a.lane < B2) r[a.lane] = v;
+    lane_group_sync(a.g, G);
+    // The factor in registers first: every load in flight at once, and
+    // the substitutions' chain is then divisions and multiply-adds only.
+    real L[T], y[B2];
+#pragma unroll
+    for (int k = 0; k < T; ++k) L[k] = ch[k];
+#pragma unroll
+    for (int k = 0; k < B2; ++k) y[k] = r[k];
+    PROF(12);
+    if (LOWER) lower_solve(L, y);
+    if (UPPER) upper_solve(L, y);
+    PROF(13);
+    real out = y[0];
+#pragma unroll
+    for (int k = 1; k < B2; ++k)
+        if (a.lane == k) out = y[k];
+    return out;
 }
 
 template <bool GAIN>
 __device__ __forceinline__ void forward_pass(const Args& a) {
-    real h_p[B2], vdyn_p[N], vacc_p[N], c1_p[N], a0_p[N];
-    real qq_p[N], qv_p[N], vv_p[N];
-#pragma unroll
-    for (int i = 0; i < B2; ++i) h_p[i] = real(0);
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-        vdyn_p[j] = vacc_p[j] = c1_p[j] = a0_p[j] = real(0);
-        qq_p[j] = qv_p[j] = vv_p[j] = real(0);
-    }
-    stage_issue<false, GAIN>(a, 0);
-    for (int t = 0; t < a.W; ++t) {
-        if (t + 1 < a.W) {
-            stage_issue<false, GAIN>(a, t + 1);
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
+    const int i = a.lane;
+    const int j = i < N ? i : i - N;  // joint of this lane's variable
+    // Carried from waypoint t-1: lane j < N: c1_{t-1}[j], (rho z - y) of
+    // dyn row j, and Ml's (j,j), (j,N+j); lane N+j: a0_{t-1}[j], (rho z - y)
+    // of acc row j, and Ml's (N+j,N+j).
+    real cc = real(0), vc = real(0), m0 = real(0), m1 = real(0);
+    __syncthreads();  // the previous pass's state and slot writes
+    if (a.stager)
+        for (int t = 0; t < NSTAGE - 1; ++t) {
+            if (t < a.W) stage_issue<false, GAIN>(a, t);
+            else cp_async_commit();
         }
-        const real* sg = a.smem + (t & 1) * a.stage;
-        const Rows cf{sg + O_CF * LANE_BLOCK}, rh{sg + O_RH * LANE_BLOCK},
-            pl{sg + O_PL * LANE_BLOCK}, ch{sg + O_CH * LANE_BLOCK};
-        // v_r = rho_r z_r - y_r for the real rows.
-        real vr[R];
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-            vr[r] = rh[r] * sg[(O_ST + S_Z + r) * LANE_BLOCK] -
-                    sg[(O_ST + S_Y + r) * LANE_BLOCK];
-
-        real rhs[B2];
-#pragma unroll
-        for (int j = 0; j < N; ++j) {  // q rows of the A' gather
-            real g = cf[C_C2 + j] * vr[R_DYN + j];
-            g = g + c1_p[j] * vdyn_p[j];
-            g = g + cf[C_POS + j] * vr[R_POS + j];
+    for (int t = 0; t < a.W; ++t) {
+        PROF_START;
+        const real* sg = stage_wait<false, GAIN>(a, t);
+        PROF(0);
+        if (a.stager) {
+            if (t + NSTAGE - 1 < a.W)
+                stage_issue<false, GAIN>(a, t + NSTAGE - 1);
+            else
+                cp_async_commit();
+        }
+        PROF(1);
+        if (a.idle) continue;
+        const Tile cf{sg + O_CF * QS}, rh{sg + O_RH * QS},
+            pl{sg + O_PL * QS}, ch{sg + O_CH * QS};
+        const Tile st{sg + O_ST * QS};
+        // v_r = rho_r z_r - y_r of row r.
+        auto vr = [&](int r) { return rh[r] * st[S_Z + r] - st[S_Y + r]; };
+        const real* hp = a.slot + SL_X + ((t + 1) & 1) * G;  // h_{t-1}
+        real v = real(0);
+        real cc_n = real(0), vc_n = real(0);
+        if (i < N) {  // q row j of the A' gather
+            const real vd = vr(R_DYN + j);
+            real g = cf[C_C2 + j] * vd;
+            g = g + cc * vc;
+            g = g + cf[C_POS + j] * vr(R_POS + j);
 #pragma unroll
             for (int k = 0; k < NX; ++k)
-                g = g + cf[C_X + k * N + j] * vr[R_X + k];
-            rhs[j] = a.sigma * sg[(O_ST + S_X + j) * LANE_BLOCK] -
-                     sg[(O_QW + j) * LANE_BLOCK] + g;
+                g = g + cf[C_X + k * N + j] * vr(R_X + k);
+            v = a.sigma * st[S_X + j] - sg[(O_QW + j) * QS] + g;
+            cc_n = cf[C_C1 + j];
+            vc_n = vd;
+        } else if (i < B2) {  // v row j
+            const real va = vr(R_ACC + j);
+            real g = cf[C_C0 + j] * vr(R_DYN + j);
+            g = g + cf[C_VEL + j] * vr(R_VEL + j);
+            g = g + cf[C_A1 + j] * va;
+            g = g + cc * vc;
+            v = a.sigma * st[S_X + N + j] - sg[(O_QW + N + j) * QS] + g;
+            cc_n = cf[C_A0 + j];
+            vc_n = va;
         }
-#pragma unroll
-        for (int j = 0; j < N; ++j) {  // v rows
-            real g = cf[C_C0 + j] * vr[R_DYN + j];
-            g = g + cf[C_VEL + j] * vr[R_VEL + j];
-            g = g + cf[C_A1 + j] * vr[R_ACC + j];
-            g = g + a0_p[j] * vacc_p[j];
-            rhs[N + j] = a.sigma * sg[(O_ST + S_X + N + j) * LANE_BLOCK] -
-                         sg[(O_QW + N + j) * LANE_BLOCK] + g;
-        }
+        PROF(2);
         if (GAIN) {
-            // rhs_t - G_{t-1} w_{t-1}, G upper-triangular (h_p holds w_{t-1}).
-            if (t > 0) {
-                const Rows gn{sg + o_gain(false) * LANE_BLOCK};
+            // rhs_t - G_{t-1} w_{t-1}, G upper-triangular.
+            if (t > 0 && i < B2) {
+                const Tile gn{sg + o_gain(false) * QS};
+                real acc = real(0);
 #pragma unroll
-                for (int i = 0; i < B2; ++i) {
-                    real acc = real(0);
-#pragma unroll
-                    for (int j = i; j < B2; ++j)
-                        acc = acc + gn[UP(i, j)] * h_p[j];
-                    rhs[i] = rhs[i] - acc;
-                }
+                for (int c = 0; c < B2; ++c)
+                    if (c >= i) acc = acc + gn[UP(i, c)] * hp[c];
+                v = v - acc;
             }
-            lower_solve(ch, rhs);  // w_t
+            v = group_solve<true, false>(ch, v, a PROF_PASS);  // w_t
         } else {
             // rhs_t - Ml_{t-1} h_{t-1}   (all-zero carry at t = 0).
             if (t > 0) {
-#pragma unroll
-                for (int j = 0; j < N; ++j) {
-                    rhs[j] = rhs[j] - (qq_p[j] * h_p[j] + qv_p[j] * h_p[N + j]);
-                    rhs[N + j] = rhs[N + j] - vv_p[j] * h_p[N + j];
-                }
+                if (i < N)
+                    v = v - (m0 * hp[j] + m1 * hp[N + j]);
+                else if (i < B2)
+                    v = v - m0 * hp[N + j];
             }
-            lower_solve(ch, rhs);
-            upper_solve(ch, rhs);  // h_t
+            v = group_solve<true, true>(ch, v, a PROF_PASS);  // h_t
         }
-#pragma unroll
-        for (int i = 0; i < B2; ++i) {
-            a.w[((size_t)t * B2 + i) * a.B + a.b] = rhs[i];
-            h_p[i] = rhs[i];
+        PROF(3);
+        if (i < B2) {
+            if (a.valid) a.w[((size_t)t * B2 + i) * a.B + a.b] = v;
+            a.slot[SL_X + (t & 1) * G + i] = v;
         }
-#pragma unroll
-        for (int j = 0; j < N; ++j) {
-            vdyn_p[j] = vr[R_DYN + j];
-            vacc_p[j] = vr[R_ACC + j];
-            c1_p[j] = cf[C_C1 + j];
-            a0_p[j] = cf[C_A0 + j];
+        cc = cc_n;
+        vc = vc_n;
+        if (!GAIN) {  // Ml_t: (j,j) = qq, (j,N+j) = qv, (N+j,N+j) = vv
+            if (i < N) {
+                const real rd = rh[R_DYN + j];
+                m0 = rd * cf[C_C1 + j] * cf[C_C2 + j];
+                m1 = rd * cf[C_C1 + j] * cf[C_C0 + j];
+            } else if (i < B2) {
+                m0 = rh[R_ACC + j] * cf[C_A0 + j] * cf[C_A1 + j] + pl[j];
+            }
         }
-        if (!GAIN) ml_at(cf, rh, pl, qq_p, qv_p, vv_p);
+        PROF(6);
     }
 }
 
-// max-reduce the variable-space quantities of one waypoint, given its q and
-// Dinv rows, into the accumulators.
-__device__ __forceinline__ void reduce_var_space(const real* qv_,
-                                                 const real* dinv,
-                                                 const real* aty,
-                                                 const real* atdy,
-                                                 const real* px,
-                                                 const real* pdx, real* acc) {
-    real draw = real(0), ndpx = real(0), ndaty = real(0), natdy = real(0),
-         npdx = real(0);
+// The variable-space terms of the MODE_TERM accumulators, with the
+// multiply-adds written out: the residual kernel's one-thread code leaves
+// them to the compiler, which forms, from `a*b + c*d` and `s + e*f`,
+// fma(a, b, c*d) and fma(e, f, s); the same code on a group's lanes does
+// not come out the same way, so the fused kernel states those operations
+// (host emulation: no fused multiply-add, as the residual kernel there).
+__device__ __forceinline__ real mul_rn(real a, real b) {
+#ifdef LANE_HOST_EMULATION
+    return a * b;
+#else
+    return __fmul_rn(a, b);
+#endif
+}
+__device__ __forceinline__ real fma_rn(real a, real b, real c) {
+#ifdef LANE_HOST_EMULATION
+    return mul_rn(a, b) + c;
+#else
+    return __fmaf_rn(a, b, c);
+#endif
+}
+
+// The own-row A' gather of variable i plus the cross term of the waypoint
+// before (cross = (c, y): c1 and the dyn row for a q row, a0 and the acc
+// row for a v row), as residuals.cu's at_own and its cross-term add give it;
+// cw[]: variable i's own-row coefficients (own_coefs), taken from the
+// waypoint's stage while it was live.
+constexpr int NCW = 2 + (NX > 1 ? NX : 1);
+__device__ __forceinline__ void own_coefs(int i, const Tile& cf, real* cw) {
+    if (i < N) {
+        cw[0] = cf[C_C2 + i];
+        cw[1] = cf[C_POS + i];
 #pragma unroll
-    for (int i = 0; i < B2; ++i) {
-        const real Dinv = dinv[i];
-        const real qi = qv_[i];
-        const real Px = i < N ? real(0) : px[i < N ? 0 : i - N];
-        const real Pdx = i < N ? real(0) : pdx[i < N ? 0 : i - N];
-        draw = rmax(draw, rabs(Dinv * (Px + qi + aty[i])));
-        ndpx = rmax(ndpx, rabs(Dinv * Px));
-        ndaty = rmax(ndaty, rabs(Dinv * aty[i]));
-        natdy = rmax(natdy, rabs(Dinv * atdy[i]));
-        npdx = rmax(npdx, rabs(Dinv * Pdx));
+        for (int k = 0; k < NX; ++k) cw[2 + k] = cf[C_X + k * N + i];
+    } else {
+        cw[0] = cf[C_C0 + i - N];
+        cw[1] = cf[C_VEL + i - N];
+        cw[2] = cf[C_A1 + i - N];
     }
-    acc[A_DUAL_RAW] = rmax(acc[A_DUAL_RAW], draw);
-    acc[A_NORM_DPX] = rmax(acc[A_NORM_DPX], ndpx);
-    acc[A_NORM_DATY] = rmax(acc[A_NORM_DATY], ndaty);
-    acc[A_AT_DY] = rmax(acc[A_AT_DY], natdy);
-    acc[A_PDX_MAX] = rmax(acc[A_PDX_MAX], npdx);
+}
+__device__ __forceinline__ real at_gather(int i, const real* cw,
+                                          const real* row, real c, real y) {
+    if (i < N) {
+        const int j = i;
+        real g = fma_rn(cw[0], row[R_DYN + j], mul_rn(cw[1], row[R_POS + j]));
+#pragma unroll
+        for (int k = 0; k < NX; ++k) g = fma_rn(cw[2 + k], row[R_X + k], g);
+        return fma_rn(c, y, g);
+    }
+    const int j = i - N;
+    real gv = fma_rn(cw[0], row[R_DYN + j], mul_rn(cw[1], row[R_VEL + j]));
+    gv = fma_rn(cw[2], row[R_ACC + j], gv);
+    return fma_rn(c, y, gv);
+}
+
+// This lane's running maxima of the MODE_TERM accumulators.
+struct Maxima {
+    real pr, nax, nz, nedy, lpos, lneg, adxmx, adxmn;  // row space
+    real draw, ndpx, ndaty, natdy, npdx, ndx;           // variable space
+};
+
+// Variable i of one waypoint (q_i, Dinv_i given) into the maxima.
+__device__ __forceinline__ void reduce_var(int i, real qi, real Dinv, real aty,
+                                           real atdy, real px, real pdx,
+                                           Maxima& m) {
+    const real Px = i < N ? real(0) : px;
+    const real Pdx = i < N ? real(0) : pdx;
+    m.draw = rmax(m.draw, rabs(Dinv * (Px + qi + aty)));
+    m.ndpx = rmax(m.ndpx, rabs(Dinv * Px));
+    m.ndaty = rmax(m.ndaty, rabs(Dinv * aty));
+    m.natdy = rmax(m.natdy, rabs(Dinv * atdy));
+    m.npdx = rmax(m.npdx, rabs(Dinv * Pdx));
 }
 
 template <int MODE, bool GAIN>
 __device__ __forceinline__ void backward_pass(const Args& a) {
     constexpr bool TERM = MODE == MODE_TERM;
     constexpr bool DXDY = MODE == MODE_DXDY;
-    const bool frozen = a.keep != real(0);
+    const int i = a.lane;
+    const int j = i < N ? i : i - N;
     const real alpha = a.alpha;
-    real xt_n[B2];  // x~_{t+1}
-#pragma unroll
-    for (int i = 0; i < B2; ++i) xt_n[i] = real(0);
+    real* sl = a.slot;
 
-    // TERM carries (unused and removed by the compiler otherwise).
-    real xsel_n[B2], dx_n[B2];
-    real aty_p[B2], atdy_p[B2], px_p[N], pdx_p[N];
-    real q_n[B2], dinv_n[B2];  // q and Dinv rows of waypoint t+1
-    real acc[A_COUNT];
-    if (TERM) {
-#pragma unroll
-        for (int i = 0; i < B2; ++i) q_n[i] = dinv_n[i] = real(0);
-#pragma unroll
-        for (int i = 0; i < B2; ++i)
-            xsel_n[i] = dx_n[i] = aty_p[i] = atdy_p[i] = real(0);
-#pragma unroll
-        for (int j = 0; j < N; ++j) px_p[j] = pdx_p[j] = real(0);
-#pragma unroll
-        for (int k = 0; k < A_COUNT; ++k) acc[k] = real(0);
-        acc[A_ADX_MAX] = -INFINITY;
-        acc[A_ADX_MIN] = INFINITY;
+    // TERM carries of this lane's variable (unused otherwise): the partials
+    // of waypoint t+1 and its q and Dinv rows.
+    real px_p = real(0), pdx_p = real(0), cw[NCW];
+    real q_n = real(0), dinv_n = real(0);
+    Maxima m{};
+    m.adxmx = -INFINITY;
+    m.adxmn = INFINITY;
+
+    __syncthreads();  // the forward pass is done with the slot
+    // No waypoint W: x~, x_sel and dx of "t+1" are zero at t = W-1.
+    if (!a.idle) {
+        sl[SL_X + (a.W & 1) * G + i] = real(0);
+        sl[SL_XS + (a.W & 1) * G + i] = real(0);
+        sl[SL_DX + (a.W & 1) * G + i] = real(0);
     }
-
-    stage_issue<true, GAIN, TERM>(a, a.W - 1);
-    for (int t = a.W - 1; t >= 0; --t) {
-        if (t > 0) {
-            stage_issue<true, GAIN, TERM>(a, t - 1);
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
+    if (a.stager)
+        for (int t = a.W - 1; t > a.W - NSTAGE; --t) {
+            if (t >= 0) stage_issue<true, GAIN, TERM>(a, t);
+            else cp_async_commit();
         }
-        const real* sg = a.smem + (t & 1) * a.stage;
-        const Rows cf{sg + O_CF * LANE_BLOCK}, rh{sg + O_RH * LANE_BLOCK},
-            pl{sg + O_PL * LANE_BLOCK}, ch{sg + O_CH * LANE_BLOCK};
+    for (int t = a.W - 1; t >= 0; --t) {
+        PROF_START;
+        const real* sg = stage_wait<TERM, GAIN>(a, t);
+        PROF(4);
+        if (a.stager) {
+            if (t - NSTAGE + 1 >= 0)
+                stage_issue<true, GAIN, TERM>(a, t - NSTAGE + 1);
+            else
+                cp_async_commit();
+        }
+        PROF(5);
+        if (a.idle) continue;
+        const Tile cf{sg + O_CF * QS}, rh{sg + O_RH * QS},
+            pl{sg + O_PL * QS}, ch{sg + O_CH * QS};
+        const Tile stg{sg + O_ST * QS};
+        const int cur = t & 1, nxt = (t + 1) & 1;
+        const real* xn = sl + SL_X + nxt * G;  // x~_{t+1}
         real* st = a.state + ((size_t)t * SRp) * a.B + a.b;  // written here
         real* dd = DXDY ? a.dxdy + ((size_t)t * DRp) * a.B + a.b : nullptr;
 
-        real xt[B2];
+        const real h = i < B2 ? sg[(O_QW + i) * QS] : real(0);
+        real xt;
+        PROF(7);
         if (GAIN) {
-            // x~_t = C^{-T} (w_t - G_t' x~_{t+1});  (G'x)_i = sum_{j<=i} G[j][i] x_j.
-            const Rows gn{sg + o_gain(TERM) * LANE_BLOCK};
-#pragma unroll
-            for (int i = 0; i < B2; ++i) {
+            // x~_t = C^{-T} (w_t - G_t' x~_{t+1});  (G'x)_i = sum_{c<=i} G[c][i] x_c.
+            real v = real(0);
+            if (i < B2) {
+                const Tile gn{sg + o_gain(TERM) * QS};
                 real gx = real(0);
 #pragma unroll
-                for (int j = 0; j <= i; ++j) gx = gx + gn[UP(j, i)] * xt_n[j];
-                const real w = sg[(O_QW + i) * LANE_BLOCK];
-                xt[i] = (t < a.W - 1) ? w - gx : w;
+                for (int c = 0; c < B2; ++c)
+                    if (c <= i) gx = gx + gn[UP(c, i)] * xn[c];
+                v = (t < a.W - 1) ? h - gx : h;
             }
-            upper_solve(ch, xt);
+            xt = group_solve<false, true>(ch, v, a PROF_PASS);
         } else {
             // x~_t = h_t - C^{-T} C^{-1} (Ml_t' x~_{t+1}).
-            real qq[N], qv[N], vv[N], u[B2];
-            ml_at(cf, rh, pl, qq, qv, vv);
-#pragma unroll
-            for (int j = 0; j < N; ++j) {
-                u[j] = qq[j] * xt_n[j];
-                u[N + j] = qv[j] * xt_n[j] + vv[j] * xt_n[N + j];
+            real u = real(0);
+            if (i < N) {
+                const real rd = rh[R_DYN + j];
+                u = rd * cf[C_C1 + j] * cf[C_C2 + j] * xn[j];
+            } else if (i < B2) {
+                const real rd = rh[R_DYN + j];
+                const real qv = rd * cf[C_C1 + j] * cf[C_C0 + j];
+                const real vv =
+                    rh[R_ACC + j] * cf[C_A0 + j] * cf[C_A1 + j] + pl[j];
+                u = qv * xn[j] + vv * xn[N + j];
             }
-            lower_solve(ch, u);
-            upper_solve(ch, u);
-#pragma unroll
-            for (int i = 0; i < B2; ++i) {
-                const real h = sg[(O_QW + i) * LANE_BLOCK];
-                xt[i] = (t < a.W - 1) ? h - u[i] : h;
+            u = group_solve<true, true>(ch, u, a PROF_PASS);
+            xt = (t < a.W - 1) ? h - u : h;
+        }
+        PROF(8);
+
+        real x_sel = real(0), dx = real(0);
+        if (i < B2) {
+            const real x_old = stg[S_X + i];
+            const real x_new = alpha * xt + (real(1) - alpha) * x_old;
+            x_sel = a.frozen ? x_old : x_new;
+            dx = a.frozen ? real(0) : x_new - x_old;
+            if (a.valid) {
+                st[(size_t)(S_X + i) * a.B] = x_sel;
+                if (DXDY) dd[(size_t)i * a.B] = dx;
+            }
+            sl[SL_X + cur * G + i] = xt;
+            if (TERM) {
+                sl[SL_XS + cur * G + i] = x_sel;
+                sl[SL_DX + cur * G + i] = dx;
             }
         }
+        lane_group_sync(a.g, G);
+        PROF(9);
 
-        real x_old[B2], x_sel[B2], dx[B2];
+        const real* xc = sl + SL_X + cur * G;
+        // Rows i, i + G, ... (unrolled: the rows of a lane overlap).
 #pragma unroll
-        for (int i = 0; i < B2; ++i) {
-            x_old[i] = sg[(O_ST + S_X + i) * LANE_BLOCK];
-            const real x_new = alpha * xt[i] + (real(1) - alpha) * x_old[i];
-            x_sel[i] = frozen ? x_old[i] : x_new;
-            dx[i] = frozen ? real(0) : x_new - x_old[i];
-            st[(size_t)(S_X + i) * a.B] = x_sel[i];
-            if (DXDY) dd[(size_t)i * a.B] = dx[i];
-        }
-
-        real y_sel[R], dy[R];  // kept for the A' gathers (TERM only)
-        real pr_c = real(0), nax_c = real(0), nz_c = real(0), nedy_c = real(0);
-        real sup_c = real(0), lpos_c = real(0), lneg_c = real(0), ys_c = real(0);
-        real adxmx_c = -INFINITY, adxmn_c = INFINITY;
-#pragma unroll
-        for (int r = 0; r < Rp; ++r) {
+        for (int rr = 0; rr < (Rp + G - 1) / G; ++rr) {
+            const int r = i + rr * G;
+            if (r >= Rp) break;
             // Pad rows (r >= R): zero coefficients, (-INF, INF) bounds.
-            const real ztr = a_row(r, cf, xt, xt_n);
-            const real rho_r = sg[(O_RH + r) * LANE_BLOCK];
-            const real z_old = sg[(O_ST + S_Z + r) * LANE_BLOCK];
-            const real y_old = sg[(O_ST + S_Y + r) * LANE_BLOCK];
-            const real lo = sg[(O_LU + r) * LANE_BLOCK];
-            const real hi = sg[(O_LU + Rp + r) * LANE_BLOCK];
+            const real ztr = a_row(r, cf, xc, xn);
+            const real rho_r = rh[r];
+            const real z_old = stg[S_Z + r];
+            const real y_old = stg[S_Y + r];
+            const real lo = sg[(O_LU + r) * QS];
+            const real hi = sg[(O_LU + Rp + r) * QS];
             const real z_tmp = alpha * ztr + (real(1) - alpha) * z_old;
             const real z_new = rmin(rmax(z_tmp + y_old / rho_r, lo), hi);
             const real y_new = y_old + rho_r * (z_tmp - z_new);
-            const real z_s = frozen ? z_old : z_new;
-            const real y_s = frozen ? y_old : y_new;
-            const real dy_r = frozen ? real(0) : y_new - y_old;
-            st[(size_t)(S_Z + r) * a.B] = z_s;
-            st[(size_t)(S_Y + r) * a.B] = y_s;
-            if (DXDY) dd[(size_t)(B2 + r) * a.B] = dy_r;
+            const real z_s = a.frozen ? z_old : z_new;
+            const real y_s = a.frozen ? y_old : y_new;
+            const real dy_r = a.frozen ? real(0) : y_new - y_old;
+            if (a.valid) {
+                st[(size_t)(S_Z + r) * a.B] = z_s;
+                st[(size_t)(S_Y + r) * a.B] = y_s;
+                if (DXDY) dd[(size_t)(B2 + r) * a.B] = dy_r;
+            }
             if (TERM) {
-                if (r < R) {
-                    y_sel[r < R ? r : 0] = y_s;
-                    dy[r < R ? r : 0] = dy_r;
-                }
-                // Row space at waypoint t: A x_sel and A dx by the same
-                // A-row apply, in the same order of operations, as the
-                // separate residual kernel (csrc/residuals.cu), so that the
-                // two termination paths decide from the same float32 values.
-                const real ax_sel = a_row(r, cf, x_sel, xsel_n);
-                const real adx = a_row(r, cf, dx, dx_n);
-                const real E_r = sg[(O_EE + r) * LANE_BLOCK];
-                const real Einv_r = sg[(O_EE + Rp + r) * LANE_BLOCK];
-                pr_c = rmax(pr_c, rabs(Einv_r * (ax_sel - z_s)));
-                nax_c = rmax(nax_c, rabs(Einv_r * ax_sel));
-                nz_c = rmax(nz_c, rabs(Einv_r * z_s));
+                sl[SL_Y + cur * Rp + r] = y_s;
+                sl[SL_DY + cur * Rp + r] = dy_r;
+                // A x_sel and A dx by the same A-row apply as the residual
+                // kernel, and the same expressions after it.
+                const real ax_sel = a_row(r, cf, sl + SL_XS + cur * G,
+                                          sl + SL_XS + nxt * G);
+                const real adx = a_row(r, cf, sl + SL_DX + cur * G,
+                                       sl + SL_DX + nxt * G);
+                const real E_r = sg[(O_EE + r) * QS];
+                const real Einv_r = sg[(O_EE + Rp + r) * QS];
+                m.pr = rmax(m.pr, rabs(Einv_r * (ax_sel - z_s)));
+                m.nax = rmax(m.nax, rabs(Einv_r * ax_sel));
+                m.nz = rmax(m.nz, rabs(Einv_r * z_s));
                 const real edy = E_r * dy_r;
-                nedy_c = rmax(nedy_c, rabs(edy));
+                m.nedy = rmax(m.nedy, rabs(edy));
                 const real edy_pos = rmax(edy, real(0));
                 const real edy_neg = rmin(edy, real(0));
-                const real u_b = Einv_r * hi;
-                const real l_b = Einv_r * lo;
-                const bool loose_u = u_b >= INF_THRESHOLD;
-                const bool loose_l = l_b <= -INF_THRESHOLD;
-                sup_c = sup_c + (loose_u ? real(0) : u_b * edy_pos) +
-                        (loose_l ? real(0) : l_b * edy_neg);
-                lpos_c = rmax(lpos_c, loose_u ? edy_pos : real(0));
-                lneg_c = rmax(lneg_c, loose_l ? -edy_neg : real(0));
+                const bool loose_u = Einv_r * hi >= INF_THRESHOLD;
+                const bool loose_l = Einv_r * lo <= -INF_THRESHOLD;
+                m.lpos = rmax(m.lpos, loose_u ? edy_pos : real(0));
+                m.lneg = rmax(m.lneg, loose_l ? -edy_neg : real(0));
                 const real eadx = Einv_r * adx;
-                if (!loose_u) adxmx_c = rmax(adxmx_c, eadx);
-                if (!loose_l) adxmn_c = rmin(adxmn_c, eadx);
-                ys_c = ys_c + y_s;
+                if (!loose_u) m.adxmx = rmax(m.adxmx, eadx);
+                if (!loose_l) m.adxmn = rmin(m.adxmn, eadx);
             }
         }
-#pragma unroll
-        for (int r = SR; r < SRp; ++r) st[(size_t)r * a.B] = real(0);
-        if (DXDY) {
-#pragma unroll
-            for (int r = DR; r < DRp; ++r) dd[(size_t)r * a.B] = real(0);
+        if (a.valid) {
+            for (int r = SR + i; r < SRp; r += G) st[(size_t)r * a.B] = real(0);
+            if (DXDY)
+                for (int r = DR + i; r < DRp; r += G)
+                    dd[(size_t)r * a.B] = real(0);
         }
 
+        PROF(10);
         if (TERM) {
-            acc[A_PRIM_RES] = rmax(acc[A_PRIM_RES], pr_c);
-            acc[A_NORM_EAX] = rmax(acc[A_NORM_EAX], nax_c);
-            acc[A_NORM_EZ] = rmax(acc[A_NORM_EZ], nz_c);
-            acc[A_NORM_EDY] = rmax(acc[A_NORM_EDY], nedy_c);
-            acc[A_SUPPORT] = acc[A_SUPPORT] + sup_c;
-            acc[A_LOOSE_POS] = rmax(acc[A_LOOSE_POS], lpos_c);
-            acc[A_LOOSE_NEG] = rmax(acc[A_LOOSE_NEG], lneg_c);
-            acc[A_ADX_MAX] = rmax(acc[A_ADX_MAX], adxmx_c);
-            acc[A_ADX_MIN] = rmin(acc[A_ADX_MIN], adxmn_c);
-            acc[A_YSUM] = acc[A_YSUM] + ys_c;
-
-            // Variable space, waypoint t+1: finish the carried partials with
-            // this waypoint's cross terms (c1/a0 rows, P-lower).
-            if (t < a.W - 1) {
-                real cross_y[B2], cross_dy[B2], px_f[N], pdx_f[N];
-                at_prev(cf, y_sel, cross_y);
-                at_prev(cf, dy, cross_dy);
-#pragma unroll
-                for (int i = 0; i < B2; ++i) {
-                    cross_y[i] = aty_p[i] + cross_y[i];
-                    cross_dy[i] = atdy_p[i] + cross_dy[i];
+            lane_group_sync(a.g, G);  // y_sel, dy of every row
+            const real* ys = sl + SL_Y + cur * Rp;
+            const real* dys = sl + SL_DY + cur * Rp;
+            const real* xs = sl + SL_XS + cur * G;
+            const real* dxs = sl + SL_DX + cur * G;
+            // The sums of waypoint t, each on one lane in residuals.cu's
+            // order, parked in the consumed h scratch of waypoint t.
+            if (i < 4) {
+                real s = real(0);
+                if (i == 0) {  // support
+                    for (int r = 0; r < Rp; ++r) {
+                        const real E_r = sg[(O_EE + r) * QS];
+                        const real Einv_r = sg[(O_EE + Rp + r) * QS];
+                        const real lo = sg[(O_LU + r) * QS];
+                        const real hi = sg[(O_LU + Rp + r) * QS];
+                        const real edy = E_r * dys[r];
+                        const real edy_pos = rmax(edy, real(0));
+                        const real edy_neg = rmin(edy, real(0));
+                        const real u_b = Einv_r * hi;
+                        const real l_b = Einv_r * lo;
+                        const bool loose_u = u_b >= INF_THRESHOLD;
+                        const bool loose_l = l_b <= -INF_THRESHOLD;
+                        s = s + (loose_u ? real(0) : u_b * edy_pos) +
+                            (loose_l ? real(0) : l_b * edy_neg);
+                    }
+                } else if (i == 1) {  // sum y
+                    for (int r = 0; r < Rp; ++r) s = s + ys[r];
+                } else if (i == 2) {  // q'dx
+                    for (int c = 0; c < B2; ++c)
+                        s = s + sg[(O_VC + c) * QS] * dxs[c];
+                } else {  // sum x
+                    for (int c = 0; c < B2; ++c) s = s + xs[c];
                 }
-#pragma unroll
-                for (int j = 0; j < N; ++j) {
-                    px_f[j] = px_p[j] + pl[j] * x_sel[N + j];
-                    pdx_f[j] = pdx_p[j] + pl[j] * dx[N + j];
+                if (a.valid) a.w[((size_t)t * B2 + i) * a.B + a.b] = s;
+            }
+            if (i < B2) {
+                // Variable space, waypoint t+1: its own-row gathers (its
+                // rows and coefficients kept from step t+1) and this
+                // waypoint's cross terms (c1/a0 rows, P-lower), formed in
+                // one expression each, as the residual kernel forms them.
+                if (t < a.W - 1) {
+                    const real* ysn = sl + SL_Y + nxt * Rp;
+                    const real* dysn = sl + SL_DY + nxt * Rp;
+                    const bool q = i < N;
+                    const real c = q ? cf[C_C1 + j] : cf[C_A0 + j];
+                    const int r = q ? R_DYN + j : R_ACC + j;
+                    const real aty = at_gather(i, cw, ysn, c, ys[r]);
+                    const real atdy = at_gather(i, cw, dysn, c, dys[r]);
+                    real px = real(0), pdx = real(0);
+                    if (!q) {
+                        px = fma_rn(pl[j], x_sel, px_p);
+                        pdx = fma_rn(pl[j], dx, pdx_p);
+                    }
+                    reduce_var(i, q_n, dinv_n, aty, atdy, px, pdx, m);
                 }
-                reduce_var_space(q_n, dinv_n, cross_y, cross_dy, px_f, pdx_f,
-                                 acc);
-            }
-
-            // Own-value variable reductions at waypoint t.
-            real ndx_c = real(0), qdot_c = real(0), xs_c = real(0);
-#pragma unroll
-            for (int i = 0; i < B2; ++i) {
-                q_n[i] = sg[(O_VC + i) * LANE_BLOCK];
-                dinv_n[i] = sg[(O_VC + 2 * B2 + i) * LANE_BLOCK];
-                ndx_c = rmax(ndx_c, rabs(sg[(O_VC + B2 + i) * LANE_BLOCK] * dx[i]));
-                qdot_c = qdot_c + q_n[i] * dx[i];
-                xs_c = xs_c + x_sel[i];
-            }
-            acc[A_NORM_DX] = rmax(acc[A_NORM_DX], ndx_c);
-            acc[A_Q_DOT] = acc[A_Q_DOT] + qdot_c;
-            acc[A_XSUM] = acc[A_XSUM] + xs_c;
-
-            // Fresh partials for waypoint t (own-row terms).
-            at_own(cf, y_sel, aty_p);
-            at_own(cf, dy, atdy_p);
-#pragma unroll
-            for (int j = 0; j < N; ++j) {
-                const real pdj = sg[(O_PD + j) * LANE_BLOCK];
-                px_p[j] = pdj * x_sel[N + j] + pl[j] * xsel_n[N + j];
-                pdx_p[j] = pdj * dx[N + j] + pl[j] * dx_n[N + j];
-            }
-#pragma unroll
-            for (int i = 0; i < B2; ++i) {
-                xsel_n[i] = x_sel[i];
-                dx_n[i] = dx[i];
+                // Own values of waypoint t.
+                q_n = sg[(O_VC + i) * QS];
+                dinv_n = sg[(O_VC + 2 * B2 + i) * QS];
+                m.ndx = rmax(m.ndx, rabs(sg[(O_VC + B2 + i) * QS] * dx));
+                // Partials of waypoint t: its own-row coefficients, P terms.
+                own_coefs(i, cf, cw);
+                if (i >= N) {
+                    const real pdj = sg[(O_PD + j) * QS];
+                    px_p = fma_rn(pdj, x_sel,
+                                  mul_rn(pl[j], sl[SL_XS + nxt * G + i]));
+                    pdx_p = fma_rn(pdj, dx,
+                                   mul_rn(pl[j], sl[SL_DX + nxt * G + i]));
+                }
             }
         }
-#pragma unroll
-        for (int i = 0; i < B2; ++i) xt_n[i] = xt[i];
+        PROF(11);
     }
+    if (a.idle) return;
 
     if (TERM) {
         // Epilogue: waypoint 0 has no t-1 cross terms.
-        reduce_var_space(q_n, dinv_n, aty_p, atdy_p, px_p, pdx_p, acc);
+        if (i < B2)
+            reduce_var(i, q_n, dinv_n,
+                       at_gather(i, cw, sl + SL_Y, real(0), real(0)),
+                       at_gather(i, cw, sl + SL_DY, real(0), real(0)), px_p,
+                       pdx_p, m);
+        real mx[14] = {m.pr,   m.nax,   m.nz,    m.nedy,  m.lpos,
+                       m.lneg, m.adxmx, m.draw,  m.ndpx,  m.ndaty,
+                       m.natdy, m.npdx, m.ndx,   m.adxmn};
 #pragma unroll
-        for (int k = 0; k < A_COUNT; ++k) a.acc[(size_t)k * a.B + a.b] = acc[k];
+        for (int k = 0; k < 14; ++k)
 #pragma unroll
-        for (int k = A_COUNT; k < NACC; ++k)
-            a.acc[(size_t)k * a.B + a.b] = real(0);
+            for (int o = G / 2; o > 0; o /= 2) {
+                const real other = lane_shfl_xor(mx[k], o, a.g, G);
+                mx[k] = k == 13 ? rmin(mx[k], other) : rmax(mx[k], other);
+            }
+        real* acc = sl + SL_ACC;
+        if (i == 0) {
+            const int rows[13] = {A_PRIM_RES, A_NORM_EAX,  A_NORM_EZ,
+                                  A_NORM_EDY, A_LOOSE_POS, A_LOOSE_NEG,
+                                  A_ADX_MAX,  A_DUAL_RAW,  A_NORM_DPX,
+                                  A_NORM_DATY, A_AT_DY,    A_PDX_MAX,
+                                  A_NORM_DX};
+            for (int k = 0; k < 13; ++k) acc[rows[k]] = mx[k];
+            acc[A_ADX_MIN] = mx[13];
+        }
+        if (i < 4) {  // the sums, in increasing waypoint order
+            real s = real(0);
+            if (a.valid)
+                for (int u = 0; u < a.W; ++u)
+                    s = s + a.w[((size_t)u * B2 + i) * a.B + a.b];
+            const int rows[4] = {A_SUPPORT, A_YSUM, A_Q_DOT, A_XSUM};
+            acc[rows[i]] = s;
+        }
+        lane_group_sync(a.g, G);
+        if (a.valid)
+            for (int k = i; k < NACC; k += G)
+                a.acc[(size_t)k * a.B + a.b] = k < A_COUNT ? acc[k] : real(0);
     }
 }
 
 template <int MODE, bool GAIN>
-__global__ void admm_chunk_kernel(
+__global__ void __launch_bounds__(block_threads(CHUNK_QLOG_MAX), 1)
+    admm_chunk_kernel(
     const real* __restrict__ chol, const real* __restrict__ gain,
     const real* __restrict__ coef,
     const real* __restrict__ q, const real* __restrict__ lu,
@@ -482,17 +793,27 @@ __global__ void admm_chunk_kernel(
     const real* __restrict__ ee, const real* __restrict__ varc,
     const real* __restrict__ pd, const real* __restrict__ done, real* state,
     real* w, real* acc, real* dxdy, int W, int B, int n_iter, real sigma,
-    real alpha) {
+    real alpha, int qlog) {
     LANE_SMEM_DECL();
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
-    const size_t Bs = (size_t)B;
-    Args a{{chol, Bs, b}, {gain, Bs, b}, {coef, Bs, b}, {q, Bs, b}, {lu, Bs, b},
-           {rho, Bs, b},  {plf, Bs, b},  {ee, Bs, b},   {varc, Bs, b},
-           {pd, Bs, b},   state,         w,             acc,
-           dxdy,          W,             B,             b,
-           sigma,         alpha,         done[b],       lane_smem + threadIdx.x,
-           stage_elems(MODE == MODE_TERM, GAIN)};
+    const int consumers = G << qlog, tid = threadIdx.x;
+    const int pbase = producer_base(qlog);
+    const bool idle = tid >= consumers;
+    const int g = threadIdx.x / G;
+    const int b0 = blockIdx.x << qlog;
+    const int b = b0 + g;
+    const bool valid = !idle && b < B;
+    real* ring = lane_smem;
+    real* slot = ring + NSTAGE * stage_rows(MODE == MODE_TERM, GAIN) * QS +
+                 g * SLOT;
+    const Args a{chol,  gain,  coef,  q,     lu,     rho,
+                 plf,   ee,    varc,  pd,    state,  w,
+                 acc,   dxdy,  W,     B,     sigma,  alpha,
+                 b0,    qlog,  g,     (int)(threadIdx.x % G), b,
+                 tile_x4(qlog, B), tid >= pbase, idle, tid - pbase, valid, valid && done[b] != real(0), ring, slot};
+#ifdef CHUNK_PROFILE
+    if (threadIdx.x == 0)
+        for (int k = 0; k < 16; ++k) chunk_tally[k] = 0;
+#endif
     for (int it = 0; it < n_iter; ++it) {
         forward_pass<GAIN>(a);
         if (MODE != MODE_PLAIN && it == n_iter - 1)
@@ -500,6 +821,48 @@ __global__ void admm_chunk_kernel(
         else
             backward_pass<MODE_PLAIN, GAIN>(a);
     }
+#ifdef CHUNK_PROFILE
+    if (blockIdx.x == 0 && threadIdx.x == 0)
+        for (int k = 0; k < 16; ++k) chunk_profile[k] += chunk_tally[k];
+#endif
+}
+
+// Problems per block: Q_MAX while the blocks still cover 7/8 of the SMs,
+// else halved (a small batch spreads over more SMs).
+static int chunk_qlog(int B, int sms) {
+    int qlog = CHUNK_QLOG_MAX;
+    while (qlog > 0 && 8LL * ((B + (1 << qlog) - 1) >> qlog) < 7LL * sms)
+        --qlog;
+    return qlog;
+}
+
+static int device_sms() {
+#ifdef LANE_HOST_EMULATION
+    return 1;
+#else
+    static int cached[64];
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+    if (cached[dev] == 0 &&
+        cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount,
+                               dev) != cudaSuccess)
+        return 132;
+    return cached[dev];
+#endif
+}
+
+// plan[0..8] = threads per problem G, problems per block Q, stages, shared
+// bytes, blocks, threads per block, slot values per problem, tile row
+// stride, bytes per staging copy.
+extern "C" void admm_chunk_plan(int B, int sms, int mode, int gain,
+                                long long* plan) {
+    const int qlog = chunk_qlog(B, sms), Q = 1 << qlog;
+    const long long p[9] = {G, Q, NSTAGE,
+                            chunk_smem_bytes(qlog, mode == MODE_TERM,
+                                             gain != 0),
+                            (B + Q - 1) / Q, block_threads(qlog), SLOT, QS,
+                            tile_x4(qlog, B) ? 16 : 4};
+    for (int k = 0; k < 9; ++k) plan[k] = p[k];
 }
 
 template <int MODE, bool GAIN>
@@ -509,26 +872,27 @@ static int launch_mode(const void* chol, const void* gain, const void* coef,
                        const void* pd, const void* done, void* state, void* w,
                        void* acc, void* dxdy, int W, int B, int n_iter,
                        double sigma, double alpha, void* stream) {
-    const int grid = (B + LANE_BLOCK - 1) / LANE_BLOCK;
-    const int smem_bytes =
-        2 * stage_elems(MODE == MODE_TERM, GAIN) * (int)sizeof(real);
-#ifndef LANE_HOST_EMULATION
-    // More than the 48 KB a kernel gets without asking.
-    const cudaError_t attr = cudaFuncSetAttribute(
-        (const void*)admm_chunk_kernel<MODE, GAIN>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (attr != cudaSuccess) return (int)attr;
-#endif
-    auto* kernel = admm_chunk_kernel<MODE, GAIN>;
-    LANE_LAUNCH_SMEM(kernel, grid, LANE_BLOCK,
-                     smem_bytes, stream, (const real*)chol, (const real*)gain,
-                     (const real*)coef, (const real*)q, (const real*)lu,
-                     (const real*)rho, (const real*)plf, (const real*)ee,
-                     (const real*)varc, (const real*)pd, (const real*)done,
-                     (real*)state, (real*)w, (real*)acc, (real*)dxdy, W, B,
-                     n_iter, (real)sigma, (real)alpha);
-    return LANE_LAST_ERROR();
+    const int qlog = chunk_qlog(B, device_sms()), Q = 1 << qlog;
+    return lane_launch_coop(
+        &admm_chunk_kernel<MODE, GAIN>, (B + Q - 1) / Q, block_threads(qlog), G,
+        chunk_smem_bytes(qlog, MODE == MODE_TERM, GAIN), stream,
+        (const real*)chol, (const real*)gain, (const real*)coef,
+        (const real*)q, (const real*)lu, (const real*)rho, (const real*)plf,
+        (const real*)ee, (const real*)varc, (const real*)pd,
+        (const real*)done, (real*)state, (real*)w, (real*)acc, (real*)dxdy,
+        W, B, n_iter, (real)sigma, (real)alpha, qlog);
 }
+
+#ifdef CHUNK_PROFILE
+// The cycles of each phase so far (16 values), then zeroed.
+extern "C" int admm_chunk_profile(long long* out) {
+    int err = (int)cudaMemcpyFromSymbol(out, chunk_profile,
+                                        sizeof(chunk_profile));
+    if (err != 0) return err;
+    const unsigned long long zero[16] = {};
+    return (int)cudaMemcpyToSymbol(chunk_profile, zero, sizeof(zero));
+}
+#endif
 
 // mode: 0 = state only, 1 = also the accumulators (acc), 2 = also the deltas
 // of the last iteration (dxdy).  gain: null for the hrec form, else the

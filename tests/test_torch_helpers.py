@@ -112,11 +112,11 @@ def t_(a):
 
 
 @functools.lru_cache(maxsize=None)
-def chunk_case(seed=0, n_iter=3, flags=FLAGS, n_obs=N_OBS, W=W):
+def chunk_case(seed=0, n_iter=3, flags=FLAGS, n_obs=N_OBS, W=W, B=B):
     """A scaled problem, a non-trivial state, a mixed done mask — in both
     frameworks — and the reference's result of ``n_iter`` iterations.
     Cached: callers clone what they write to."""
-    jqp, _ = both(seed, flags=flags, n_obs=n_obs, W=W)
+    jqp, _ = both(seed, flags=flags, n_obs=n_obs, W=W, B=B)
     settings = dataclasses.replace(jadmm.Settings(), check_termination=n_iter)
     jscaled, js = jlane_drv._ruiz_equilibrate_lane_jnp(jqp, 5)
     rng = np.random.default_rng(seed + 100)
