@@ -16,19 +16,23 @@ Cholesky factor and solve, and the block-P forms of Ruiz and the residual
 kernel with the gain chunk fed ``pack_factor`` of the block-tridiagonal
 factor — against its plain PyTorch version on the card at its main path's
 shape (honest GOMP class, W=100, N=6, B=1024; dense QPs n=64, m=96, B=1024,
-and the dense kernels also at n=160, 512 and 2048; float32), times both,
-then drives the port's entry points:
+and the dense kernels also at n=160, 512 and 2048; float32; the chunk
+kernel also at B=1022, where its last block of 4 problems is half empty),
+times both, then drives the port's entry points:
 
 * ``solve_batched_lane`` on a 1024-problem honest batch (``solve``), the same
   with ``term_fused="off"`` (``solve_unfused_term``: delta-writing chunk +
-  streaming residual kernel, counts equal to ``solve``), a 256-problem batch
+  streaming residual kernel, counts equal to ``solve``, and the two forms'
+  termination accumulators equal bit for bit), a 256-problem batch
   with stock settings (ρ adaptation refactors) and a box-only batch;
 * ``solve_batched_lane`` on W=3 batches (``solve_w3``: box-only and honest,
   B=1024), below the Ruiz kernel's 4 waypoints: Ruiz in plain torch, as the
   reference gates its kernel, the factor and chunk kernels as at any W;
 * ``GOMPSolver.run_batch_padded``, the full time-scaling search, on 1024
   UR5e queries at W_max=50 (``planner_full``; fused and unfused termination
-  give equal results; every plan audited by exact FK in float64 on the host);
+  give equal results, and so do, bit for bit, the accumulators of every
+  fused termination chunk of a search and those of the delta form +
+  residual kernel; every plan audited by exact FK in float64 on the host);
 * ``run_batch_padded`` and ``run_batch_lane`` on a fleet with per-query
   sphere keep-outs (``planner_obstacles``; every optimal plan audited
   against its own sphere);
@@ -598,7 +602,7 @@ def phase_kernels():
         cast(scaled, torch.float64), rho_vec.double(), settings.sigma)
     torch.cuda.synchronize()
     abs_err, r_err = rel_err(ck, cp)
-    odd_s, odd_sc = admm_lane.ruiz_equilibrate_lane(odd, settings.scaling)
+    odd_s, _ = admm_lane.ruiz_equilibrate_lane(odd, settings.scaling)
     odd_rho = _rho_vec(torch.full((200,), settings.rho, device="cuda"),
                        odd_s.l, odd_s.u)
     odd_err = rel_err(
@@ -640,44 +644,10 @@ def phase_kernels():
     done = (torch.arange(B, device="cuda") % 5) == 3
 
     scaled64 = cast(scaled, torch.float64)
-    d64 = lambda t: None if t is None else t.double()  # noqa: E731
 
     def compare(n_iter, tp):
-        """Kernel and plain version (both f32) from the same state, and the
-        plain version in f64 on the same f32 inputs as the yardstick."""
-        sk = state0.clone()
-        sk, acck = admm_fused.fused_admm_chunk(
-            scaled, rho_vec, done, settings, state_pack=sk,
-            term_packs=tp, n_iter=n_iter, **args)
-        sp, accp = admm_fused.fused_admm_chunk_plain(
-            scaled, rho_vec, done, settings, state_pack=state0,
-            term_packs=tp, n_iter=n_iter, **args)
-        s64, acc64 = admm_fused.fused_admm_chunk_plain(
-            scaled64, d64(rho_vec), done, settings, state_pack=d64(state0),
-            term_packs=None if tp is None else tuple(d64(t) for t in tp),
-            n_iter=n_iter, packed_factor=(d64(ck), None))
-        torch.cuda.synchronize()
-        B2, Rp = 2 * N, scaled.rows_per_waypoint_padded
-        sect = {"x": slice(0, B2), "z": slice(B2, B2 + Rp),
-                "y": slice(B2 + Rp, B2 + 2 * Rp)}
-        errs = {k: rel_err(sk[:, s], sp[:, s]) for k, s in sect.items()}
-        vs64 = {k: (rel_err(sk[:, s].double(), s64[:, s])[1],
-                    rel_err(sp[:, s].double(), s64[:, s])[1])
-                for k, s in sect.items()}
-        frozen_same = torch.equal(sk[..., done], state0[..., done])
-        acc_errs = {}
-        if tp is not None:
-            # xsum / ysum cancel thousands of signed terms: their error is
-            # held against the sum of magnitudes, not against the sum.
-            scales = {"xsum": s64[:, sect["x"]].abs().sum((0, 1)).max().item(),
-                      "ysum": s64[:, sect["y"]].abs().sum((0, 1)).max().item()}
-            for name, row in _ACC.items():
-                sc = scales.get(name)
-                acc_errs[name] = rel_err(acck[row], accp[row], sc)
-                vs64["acc." + name] = (
-                    rel_err(acck[row].double(), acc64[row], sc)[1],
-                    rel_err(accp[row].double(), acc64[row], sc)[1])
-        return errs, acc_errs, frozen_same, vs64
+        return chunk_vs_f64(scaled, rho_vec, done, settings, state0, args,
+                            n_iter, tp)
 
     def holds(vs):
         """Kernel within TOL_CHUNK of the f64 run (the plain f32 version's
@@ -688,28 +658,27 @@ def phase_kernels():
     warm_errs, _, warm_frozen, warm_vs64 = compare(
         settings.termination_warmup, None)
     # The same comparison at an odd batch (tail mask).
-    odd_st, odd_args = chunk_setup(odd_s, odd_sc, odd_rho, settings)
+    o_s, o_rho, o_tp, o_args, o_st = chunk_start(200, settings, 0)
     odd_done = torch.zeros(200, dtype=torch.bool, device="cuda")
     ok_, oacc = admm_fused.fused_admm_chunk(
-        odd_s, odd_rho, odd_done, settings, state_pack=odd_st.clone(), **odd_args)
+        o_s, o_rho, odd_done, settings, state_pack=o_st.clone(),
+        term_packs=o_tp, **o_args)
     op_, oaccp = admm_fused.fused_admm_chunk_plain(
-        odd_s, odd_rho, odd_done, settings, state_pack=odd_st, **odd_args)
+        o_s, o_rho, odd_done, settings, state_pack=o_st, term_packs=o_tp,
+        **o_args)
     odd_err = max(rel_err(ok_, op_)[1],
                   max(rel_err(oacc[r], oaccp[r])[1] for r in _ACC.values()))
+    # A batch whose last block is part empty (several problems per block).
+    ragged = check_chunk_ragged(settings, sig)
     # Eight problems: how much of the time is one problem's chain.
-    few = build_honest_batch(8, W, N, torch.float32, "cuda")
-    few_s, few_sc = admm_lane.ruiz_equilibrate_lane(few, settings.scaling)
-    few_rho = _rho_vec(torch.full((8,), settings.rho, device="cuda"),
-                       few_s.l, few_s.u)
-    few_st, few_args = chunk_setup(few_s, few_sc, few_rho, settings)
+    few_s, few_rho, few_tp, few_args, few_st = chunk_start(8, settings, 0)
     few_done = torch.zeros(8, dtype=torch.bool, device="cuda")
     few_ms = time_ms(lambda: admm_fused.fused_admm_chunk(
         few_s, few_rho, few_done, settings, state_pack=few_st, n_iter=2,
-        **few_args))
+        term_packs=few_tp, **few_args))
     few_warm_ms = time_ms(lambda: admm_fused.fused_admm_chunk(
         few_s, few_rho, few_done, settings, state_pack=few_st,
-        n_iter=settings.termination_warmup,
-        **dict(few_args, term_packs=None)), reps=5, warm=1)
+        n_iter=settings.termination_warmup, **few_args), reps=5, warm=1)
 
     scratch = state0.clone()
     k_ms = time_ms(lambda: admm_fused.fused_admm_chunk(
@@ -741,6 +710,7 @@ def phase_kernels():
         max_rel_err=state_err, acc_max_rel_err=acc_err,
         acc_rel_err={k: v[1] for k, v in acc_errs.items()},
         warmup_form_rel_err=warm_err, odd_batch_rel_err=odd_err,
+        ragged_batch=ragged,
         kernel_and_plain_vs_f64=vs64, warmup_kernel_and_plain_vs_f64=warm_vs64,
         frozen_problems_untouched=bool(frozen_same and warm_frozen),
         tol=TOL_CHUNK,
@@ -754,7 +724,7 @@ def phase_kernels():
                  "while both sit that far from f64; the kernel-vs-plain "
                  "figures (max_abs_err, max_rel_err) are for information",
         ok=bool(holds(vs64) and holds(warm_vs64) and odd_err <= TOL_CHUNK
-                and frozen_same and warm_frozen),
+                and frozen_same and warm_frozen and ragged["ok"]),
         ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=None, streamed_ms=streamed_ms,
         warmup_form_ms=warm_ms,
@@ -793,17 +763,177 @@ def phase_kernels():
     return out
 
 
-def chunk_setup(scaled, scaling, rho_vec, settings):
-    """A zero state and the chunk's arguments (hrec factor, with the
-    accumulator packs) for one scaled batch."""
-    packs = admm_lane.build_const_packs(scaled, scaling)
-    ck, _ = kkt_factor.factor_packed_lane(scaled, rho_vec, settings.sigma)
-    state = torch.zeros((W, admm_fused.state_rows(scaled)[1], scaled.batch),
-                        device="cuda")
-    return state, dict(coef=packs["coef"], lu=admm_fused.build_lu_pack(scaled),
-                       packed_factor=(ck, None),
-                       term_packs=(packs["EEinv"], packs["varc"], packs["Pdp"],
-                                   packs["Plf"]))
+def chunk_vs_f64(scaled, rho_vec, done, settings, state0, args, n_iter, tp):
+    """Kernel and plain version (both f32) from the same state, and the
+    plain version in f64 on the same f32 inputs as the yardstick.  Returns
+    the kernel-vs-plain errors of the state sections and accumulator rows,
+    whether the frozen problems' state is untouched, and per section / row
+    the (kernel, plain f32) distances from f64."""
+    d64 = lambda t: None if t is None else t.double()  # noqa: E731
+    ck = args["packed_factor"][0]
+    sk = state0.clone()
+    sk, acck = admm_fused.fused_admm_chunk(
+        scaled, rho_vec, done, settings, state_pack=sk,
+        term_packs=tp, n_iter=n_iter, **args)
+    sp, accp = admm_fused.fused_admm_chunk_plain(
+        scaled, rho_vec, done, settings, state_pack=state0,
+        term_packs=tp, n_iter=n_iter, **args)
+    s64, acc64 = admm_fused.fused_admm_chunk_plain(
+        cast(scaled, torch.float64), d64(rho_vec), done, settings,
+        state_pack=d64(state0),
+        term_packs=None if tp is None else tuple(d64(t) for t in tp),
+        n_iter=n_iter, packed_factor=(d64(ck), None))
+    torch.cuda.synchronize()
+    B2, Rp = 2 * N, scaled.rows_per_waypoint_padded
+    sect = {"x": slice(0, B2), "z": slice(B2, B2 + Rp),
+            "y": slice(B2 + Rp, B2 + 2 * Rp)}
+    errs = {k: rel_err(sk[:, s], sp[:, s]) for k, s in sect.items()}
+    vs64 = {k: (rel_err(sk[:, s].double(), s64[:, s])[1],
+                rel_err(sp[:, s].double(), s64[:, s])[1])
+            for k, s in sect.items()}
+    frozen_same = torch.equal(sk[..., done], state0[..., done])
+    acc_errs = {}
+    if tp is not None:
+        # xsum / ysum cancel thousands of signed terms: their error is
+        # held against the sum of magnitudes, not against the sum.
+        scales = {"xsum": s64[:, sect["x"]].abs().sum((0, 1)).max().item(),
+                  "ysum": s64[:, sect["y"]].abs().sum((0, 1)).max().item()}
+        for name, row in _ACC.items():
+            sc = scales.get(name)
+            acc_errs[name] = rel_err(acck[row], accp[row], sc)
+            vs64["acc." + name] = (
+                rel_err(acck[row].double(), acc64[row], sc)[1],
+                rel_err(accp[row].double(), acc64[row], sc)[1])
+    return errs, acc_errs, frozen_same, vs64
+
+
+def chunk_start(batch, settings, warm_iters=10):
+    """The honest class at ``batch`` with the main path's packs, and a
+    packed state after ``warm_iters`` kernel iterations from the solver's
+    initial state: (scaled, rho_vec, term_packs, args, state); ``args``
+    (stencil, bounds, hrec factor) is what every chunk call takes."""
+    _, _, scaled, scaling, packs, rho_vec = main_path_problem(batch)
+    coef = packs["coef"]
+    ck, _ = kkt_factor.factor_packed_lane(scaled, rho_vec, settings.sigma,
+                                          coef=coef)
+    st = admm_lane.init_state_lane(
+        scaled, settings, None, None, scaling,
+        rho_bar=torch.full((batch,), settings.rho, device="cuda"),
+        rho_vec=rho_vec, factor=(ck, None))
+    state = admm_fused.pack_state(scaled, st.x, st.z, st.y)
+    args = dict(coef=coef, lu=admm_fused.build_lu_pack(scaled),
+                packed_factor=(ck, None))
+    if warm_iters:
+        admm_fused.fused_admm_chunk(
+            scaled, rho_vec,
+            torch.zeros(batch, dtype=torch.bool, device="cuda"), settings,
+            state_pack=state, n_iter=warm_iters, **args)
+    term_packs = (packs["EEinv"], packs["varc"], packs["Pdp"], packs["Plf"])
+    return scaled, rho_vec, term_packs, args, state
+
+
+def check_chunk_ragged(settings, sig, batch=1022):
+    """The chunk kernel at a batch its plan splits into blocks of several
+    problems with the last block part empty (4-byte copies; the empty
+    groups still take part in every barrier and group sync): 2 iterations
+    with the accumulators from a non-trivial state, every fifth problem
+    and the batch's last one frozen, held to the plain version in f64 at
+    TOL_CHUNK."""
+    plan = chunk_plan(sig, batch, 1, False)
+    scaled, rho_vec, term_packs, args, state0 = chunk_start(batch, settings)
+    ar = torch.arange(batch, device="cuda")
+    done = (ar % 5 == 3) | (ar == batch - 1)
+    _, _, frozen_same, vs64 = chunk_vs_f64(
+        scaled, rho_vec, done, settings, state0, args, 2, term_packs)
+    worst = max(k for k, _ in vs64.values())
+    tail = plan["Q"] > 1 and batch % plan["Q"] != 0
+    return dict(batch=batch, plan=plan, last_block_part_empty=tail,
+                kernel_vs_f64=worst, kernel_and_plain_vs_f64=vs64,
+                frozen_problems_untouched=bool(frozen_same),
+                ok=bool(tail and worst <= TOL_CHUNK and frozen_same))
+
+
+def term_compare(scaled, rho_vec, done, settings, chunk, **kw):
+    """One MODE_TERM chunk (``kw`` holds its ``term_packs`` and
+    ``state_pack``) and, from a copy of its input state, the delta form
+    followed by the residual kernel (``csrc/residuals.cu``).  Returns the
+    term chunk's outputs and, per item (the state, each accumulator row),
+    the count of values that differ bit for bit (NaN equals NaN)."""
+    s_copy = kw["state_pack"].clone()
+    out, acc = chunk(scaled, rho_vec, done, settings, **kw)
+    su, dd = chunk(scaled, rho_vec, done, settings,
+                   **dict(kw, term_packs=None, state_pack=s_copy,
+                          emit_dxdy=True))
+    ee, varc, Pdp, Plf = kw["term_packs"]
+    acc_u = torch.empty_like(acc)
+    residuals._launch_residuals(
+        _build.library("residuals", admm_fused.p_signature(scaled)),
+        kw["coef"], Pdp, Plf, su, dd, torch.cat([ee, kw["lu"]], dim=1), varc,
+        acc_u)
+    ne = (acc != acc_u) & ~(acc.isnan() & acc_u.isnan())
+    per_row = ne.sum(1).tolist()
+    differ = {name: per_row[r] for name, r in _ACC.items() if per_row[r]}
+    n_state = int((out != su).sum())
+    if n_state:
+        differ["state"] = n_state
+    return (out, acc), differ
+
+
+def term_bits_equal(settings, batch=BATCH, starts=(10, 40)):
+    """The fused termination against the unfused one on the honest class
+    (``term_compare``), in the hrec and the gain form, at states after each
+    count of ``starts`` iterations, every fifth problem frozen.  The state
+    written and every accumulator row must agree bit for bit: the two paths
+    then decide termination from the same float32 values."""
+    scaled, rho_vec, term_packs, args, state = chunk_start(batch, settings,
+                                                           starts[0])
+    ck = args["packed_factor"][0]
+    _, gk = kkt_factor.factor_packed_lane(scaled, rho_vec, settings.sigma,
+                                          coef=args["coef"], emit_gain=True)
+    done = (torch.arange(batch, device="cuda") % 5) == 3
+    differ, cases = {}, 0
+    for k, n in enumerate(starts):
+        if k:
+            admm_fused.fused_admm_chunk(
+                scaled, rho_vec, done, settings, state_pack=state,
+                n_iter=n - starts[k - 1], **args)
+        for form, factor in (("hrec", (ck, None)), ("gain", (ck, gk))):
+            _, d = term_compare(
+                scaled, rho_vec, done, settings, admm_fused.fused_admm_chunk,
+                **dict(args, packed_factor=factor), state_pack=state.clone(),
+                n_iter=2, term_packs=term_packs)
+            cases += 1
+            differ.update({f"{form}@{n}.{k_}": v for k_, v in d.items()})
+    return dict(batch=batch, cases=cases, starts=list(starts),
+                forms=["hrec", "gain"], differing=differ, ok=not differ)
+
+
+def search_term_bits(solver, starts, ends):
+    """The search once more with every MODE_TERM chunk it launches checked
+    by ``term_compare`` (``ops/admm_lane.py`` looks the wrapper up at each
+    solve).  Returns the launches checked and the differing values summed
+    over them by item."""
+    chunk = admm_fused.fused_admm_chunk
+    differ, calls = collections.Counter(), 0
+
+    def checked(scaled, rho_vec, done, settings, **kw):
+        nonlocal calls
+        if kw.get("term_packs") is None:
+            return chunk(scaled, rho_vec, done, settings, **kw)
+        res, d = term_compare(scaled, rho_vec, done, settings, chunk, **kw)
+        calls += 1
+        differ.update(d)
+        return res
+
+    checked.__dict__.update(chunk.__dict__)  # the wrapper's launch counters
+    admm_fused.fused_admm_chunk = checked
+    try:
+        solver.run_batch_padded(starts, ends)
+        torch.cuda.synchronize()
+    finally:
+        admm_fused.fused_admm_chunk = chunk
+    return dict(term_launches=calls, differing=dict(differ),
+                ok=bool(calls and not differ))
 
 
 def chunk_plan(sig, B, mode, gain):
@@ -1924,6 +2054,11 @@ def phase_solve_unfused_term(honest, bench, fused_rec):
         fail("solve_unfused_term: statuses or iteration counts differ from "
              f"the fused path ({same_status}/{same_iters} of {honest.batch} "
              "equal)")
+    bits = term_bits_equal(bench)
+    emit("solve_unfused_term_bits", **bits)
+    if not bits["ok"]:
+        fail("solve_unfused_term: fused accumulators differ from the delta "
+             f"form + residual kernel: {bits['differing']}")
     return rec
 
 
@@ -2098,6 +2233,8 @@ def phase_planner_full():
     summary = search_summary(out)
     audit = audit_plans(solver, out[0], out[1], out[2])
     where = planner_breakdown(solver, starts, ends)
+    # Every term chunk of a search against the delta form + residual kernel.
+    term_bits = search_term_bits(solver, starts, ends)
     # The same search with the termination reductions in their own kernel.
     solver.settings = dataclasses.replace(solver.settings, term_fused="off")
     out_u, counts_u, _ = run_search(solver, starts, ends)
@@ -2109,7 +2246,7 @@ def phase_planner_full():
          queries_per_s=summary["optimal"] / (ms * 1e-3),
          ms_all=[round(t * 1e3, 1) for t in times], **syncs, launches=counts,
          audit=audit, where_ms=where, unfused_launches=counts_u,
-         unfused_differs_in=differ, finite=finite,
+         unfused_differs_in=differ, term_bits=term_bits, finite=finite,
          shape_traj=list(out[1].shape))
     if summary["optimal"] != B:
         fail(f"planner_full: {summary['optimal']}/{B} optimal")
@@ -2125,6 +2262,9 @@ def phase_planner_full():
         fail("planner_full: velocities are not position differences over dt")
     if any(differ.values()):
         fail(f"planner_full: term_fused='off' changed the search: {differ}")
+    if not term_bits["ok"]:
+        fail("planner_full: fused accumulators differ from the delta form + "
+             f"residual kernel: {term_bits}")
     if min(counts[k] for k in LANE_KERNELS) < 1 or min(
             counts_u[k] for k in UNFUSED_KERNELS) < 1:
         fail(f"planner_full: a kernel of the path was never launched: "

@@ -71,8 +71,10 @@
 // Bound: on paper bytes (each pack read once per pass); in practice each
 // problem's chain of dependent steps (the solves' 2N true divisions each, the
 // rows), with one or two blocks of 3 warps per SM: eight problems take about
-// as long as 1024 (PERF.md).  The variants timed on the card are in
-// tools/chunk_variants.py and PERF.md.
+// as long as 1024.  PERF.md records the variants timed on the card.
+#include <cstdint>
+#include <initializer_list>
+
 #include "lane_common.cuh"
 
 // Threads per problem, and problems per block at most.
@@ -81,45 +83,14 @@ __host__ __device__ constexpr int pow2_at_least(int n) {
 }
 constexpr int G = pow2_at_least(B2) < 4 ? 4 : pow2_at_least(B2);
 static_assert(G <= 32, "a group is at most one warp (2N <= 32)");
-// Problems per block at most (log2) and stages of the ring, tuned on an
-// H100 (tools/chunk_variants.py builds other values).
-#ifndef CHUNK_QLOG_MAX
-#define CHUNK_QLOG_MAX 2
-#endif
-#ifndef CHUNK_NSTAGE
-#define CHUNK_NSTAGE 3
-#endif
-static_assert(CHUNK_QLOG_MAX >= 0 && CHUNK_QLOG_MAX <= 3, "");
-constexpr int Q_MAX = 1 << CHUNK_QLOG_MAX;
-constexpr int NSTAGE = CHUNK_NSTAGE;
-static_assert(NSTAGE >= 2, "");
+// Problems per block at most (log2) and stages of the ring, as tuned on an
+// H100 (PERF.md records the other values timed).
+constexpr int QLOG_MAX = 2;
+constexpr int Q_MAX = 1 << QLOG_MAX;
+constexpr int NSTAGE = 3;
 // The producer threads of a block (a warp; in host emulation at least a
 // group), which issue all the staging copies.
 constexpr int PRODUCERS = LANE_WARP > G ? LANE_WARP : G;
-
-// CHUNK_PROFILE: thread 0 of block 0 adds the clock cycles of each phase of
-// a step to a shared-memory tally, added to chunk_profile[] at the end of the
-// launch (read with admm_chunk_profile); tooling only.
-#ifdef CHUNK_PROFILE
-__device__ unsigned long long chunk_profile[16];
-__shared__ unsigned long long chunk_tally[16];
-#define PROF_START long long prof_t = clock64()
-#define PROF(k)                                                             \
-    do {                                                                    \
-        if (blockIdx.x == 0 && threadIdx.x == 0) {                          \
-            const long long prof_n = clock64();                             \
-            chunk_tally[k] += prof_n - prof_t;                              \
-            prof_t = prof_n;                                                \
-        }                                                                   \
-    } while (0)
-#define PROF_ARG , long long& prof_t
-#define PROF_PASS , prof_t
-#else
-#define PROF_START
-#define PROF(k)
-#define PROF_ARG
-#define PROF_PASS
-#endif
 
 // One stage of the ring: rows of QS values (one column per problem).
 constexpr int O_CH = 0;            // packed chol, T rows
@@ -164,8 +135,8 @@ enum { MODE_PLAIN = 0, MODE_TERM = 1, MODE_DXDY = 2 };
 // offset; 12 is a multiple of four values, so a row's columns take 16-byte
 // copies, and the G lanes of a problem, reading G rows of one column, meet
 // at most 2-way bank conflicts.  16-byte copies when a block's columns are
-// whole 16-byte pieces of every row (4 or 8 problems, B a multiple of 4),
-// else 4-byte copies.
+// whole 16-byte pieces of every row (4 problems, B a multiple of 4, every
+// pack 16-byte aligned), else 4-byte copies.
 constexpr int QS = 12;
 static_assert(Q_MAX <= QS, "");
 __host__ __device__ constexpr bool tile_x4(int qlog, int B) {
@@ -314,7 +285,7 @@ __device__ __forceinline__ void upper_solve(const real* c, real* v) {
 // PERF.md).
 template <bool LOWER, bool UPPER>
 __device__ __forceinline__ real group_solve(const Tile& ch, real v,
-                                            const Args& a PROF_ARG) {
+                                            const Args& a) {
     real* r = a.slot + SL_R;
     if (a.lane < B2) r[a.lane] = v;
     lane_group_sync(a.g, G);
@@ -325,10 +296,8 @@ __device__ __forceinline__ real group_solve(const Tile& ch, real v,
     for (int k = 0; k < T; ++k) L[k] = ch[k];
 #pragma unroll
     for (int k = 0; k < B2; ++k) y[k] = r[k];
-    PROF(12);
     if (LOWER) lower_solve(L, y);
     if (UPPER) upper_solve(L, y);
-    PROF(13);
     real out = y[0];
 #pragma unroll
     for (int k = 1; k < B2; ++k)
@@ -351,16 +320,13 @@ __device__ __forceinline__ void forward_pass(const Args& a) {
             else cp_async_commit();
         }
     for (int t = 0; t < a.W; ++t) {
-        PROF_START;
         const real* sg = stage_wait<false, GAIN>(a, t);
-        PROF(0);
         if (a.stager) {
             if (t + NSTAGE - 1 < a.W)
                 stage_issue<false, GAIN>(a, t + NSTAGE - 1);
             else
                 cp_async_commit();
         }
-        PROF(1);
         if (a.idle) continue;
         const Tile cf{sg + O_CF * QS}, rh{sg + O_RH * QS},
             pl{sg + O_PL * QS}, ch{sg + O_CH * QS};
@@ -391,7 +357,6 @@ __device__ __forceinline__ void forward_pass(const Args& a) {
             cc_n = cf[C_A0 + j];
             vc_n = va;
         }
-        PROF(2);
         if (GAIN) {
             // rhs_t - G_{t-1} w_{t-1}, G upper-triangular.
             if (t > 0 && i < B2) {
@@ -402,7 +367,7 @@ __device__ __forceinline__ void forward_pass(const Args& a) {
                     if (c >= i) acc = acc + gn[UP(i, c)] * hp[c];
                 v = v - acc;
             }
-            v = group_solve<true, false>(ch, v, a PROF_PASS);  // w_t
+            v = group_solve<true, false>(ch, v, a);  // w_t
         } else {
             // rhs_t - Ml_{t-1} h_{t-1}   (all-zero carry at t = 0).
             if (t > 0) {
@@ -411,9 +376,8 @@ __device__ __forceinline__ void forward_pass(const Args& a) {
                 else if (i < B2)
                     v = v - m0 * hp[N + j];
             }
-            v = group_solve<true, true>(ch, v, a PROF_PASS);  // h_t
+            v = group_solve<true, true>(ch, v, a);  // h_t
         }
-        PROF(3);
         if (i < B2) {
             if (a.valid) a.w[((size_t)t * B2 + i) * a.B + a.b] = v;
             a.slot[SL_X + (t & 1) * G + i] = v;
@@ -429,7 +393,6 @@ __device__ __forceinline__ void forward_pass(const Args& a) {
                 m0 = rh[R_ACC + j] * cf[C_A0 + j] * cf[C_A1 + j] + pl[j];
             }
         }
-        PROF(6);
     }
 }
 
@@ -536,16 +499,13 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
             else cp_async_commit();
         }
     for (int t = a.W - 1; t >= 0; --t) {
-        PROF_START;
         const real* sg = stage_wait<TERM, GAIN>(a, t);
-        PROF(4);
         if (a.stager) {
             if (t - NSTAGE + 1 >= 0)
                 stage_issue<true, GAIN, TERM>(a, t - NSTAGE + 1);
             else
                 cp_async_commit();
         }
-        PROF(5);
         if (a.idle) continue;
         const Tile cf{sg + O_CF * QS}, rh{sg + O_RH * QS},
             pl{sg + O_PL * QS}, ch{sg + O_CH * QS};
@@ -557,7 +517,6 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
 
         const real h = i < B2 ? sg[(O_QW + i) * QS] : real(0);
         real xt;
-        PROF(7);
         if (GAIN) {
             // x~_t = C^{-T} (w_t - G_t' x~_{t+1});  (G'x)_i = sum_{c<=i} G[c][i] x_c.
             real v = real(0);
@@ -569,7 +528,7 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
                     if (c <= i) gx = gx + gn[UP(c, i)] * xn[c];
                 v = (t < a.W - 1) ? h - gx : h;
             }
-            xt = group_solve<false, true>(ch, v, a PROF_PASS);
+            xt = group_solve<false, true>(ch, v, a);
         } else {
             // x~_t = h_t - C^{-T} C^{-1} (Ml_t' x~_{t+1}).
             real u = real(0);
@@ -583,10 +542,9 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
                     rh[R_ACC + j] * cf[C_A0 + j] * cf[C_A1 + j] + pl[j];
                 u = qv * xn[j] + vv * xn[N + j];
             }
-            u = group_solve<true, true>(ch, u, a PROF_PASS);
+            u = group_solve<true, true>(ch, u, a);
             xt = (t < a.W - 1) ? h - u : h;
         }
-        PROF(8);
 
         real x_sel = real(0), dx = real(0);
         if (i < B2) {
@@ -605,7 +563,6 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
             }
         }
         lane_group_sync(a.g, G);
-        PROF(9);
 
         const real* xc = sl + SL_X + cur * G;
         // Rows i, i + G, ... (unrolled: the rows of a lane overlap).
@@ -665,7 +622,6 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
                     dd[(size_t)r * a.B] = real(0);
         }
 
-        PROF(10);
         if (TERM) {
             lane_group_sync(a.g, G);  // y_sel, dy of every row
             const real* ys = sl + SL_Y + cur * Rp;
@@ -737,7 +693,6 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
                 }
             }
         }
-        PROF(11);
     }
     if (a.idle) return;
 
@@ -784,7 +739,7 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
 }
 
 template <int MODE, bool GAIN>
-__global__ void __launch_bounds__(block_threads(CHUNK_QLOG_MAX), 1)
+__global__ void __launch_bounds__(block_threads(QLOG_MAX), 1)
     admm_chunk_kernel(
     const real* __restrict__ chol, const real* __restrict__ gain,
     const real* __restrict__ coef,
@@ -793,7 +748,7 @@ __global__ void __launch_bounds__(block_threads(CHUNK_QLOG_MAX), 1)
     const real* __restrict__ ee, const real* __restrict__ varc,
     const real* __restrict__ pd, const real* __restrict__ done, real* state,
     real* w, real* acc, real* dxdy, int W, int B, int n_iter, real sigma,
-    real alpha, int qlog) {
+    real alpha, int qlog, int x4) {
     LANE_SMEM_DECL();
     const int consumers = G << qlog, tid = threadIdx.x;
     const int pbase = producer_base(qlog);
@@ -809,11 +764,7 @@ __global__ void __launch_bounds__(block_threads(CHUNK_QLOG_MAX), 1)
                  plf,   ee,    varc,  pd,    state,  w,
                  acc,   dxdy,  W,     B,     sigma,  alpha,
                  b0,    qlog,  g,     (int)(threadIdx.x % G), b,
-                 tile_x4(qlog, B), tid >= pbase, idle, tid - pbase, valid, valid && done[b] != real(0), ring, slot};
-#ifdef CHUNK_PROFILE
-    if (threadIdx.x == 0)
-        for (int k = 0; k < 16; ++k) chunk_tally[k] = 0;
-#endif
+                 x4 != 0, tid >= pbase, idle, tid - pbase, valid, valid && done[b] != real(0), ring, slot};
     for (int it = 0; it < n_iter; ++it) {
         forward_pass<GAIN>(a);
         if (MODE != MODE_PLAIN && it == n_iter - 1)
@@ -821,16 +772,12 @@ __global__ void __launch_bounds__(block_threads(CHUNK_QLOG_MAX), 1)
         else
             backward_pass<MODE_PLAIN, GAIN>(a);
     }
-#ifdef CHUNK_PROFILE
-    if (blockIdx.x == 0 && threadIdx.x == 0)
-        for (int k = 0; k < 16; ++k) chunk_profile[k] += chunk_tally[k];
-#endif
 }
 
 // Problems per block: Q_MAX while the blocks still cover 7/8 of the SMs,
 // else halved (a small batch spreads over more SMs).
 static int chunk_qlog(int B, int sms) {
-    int qlog = CHUNK_QLOG_MAX;
+    int qlog = QLOG_MAX;
     while (qlog > 0 && 8LL * ((B + (1 << qlog) - 1) >> qlog) < 7LL * sms)
         --qlog;
     return qlog;
@@ -853,7 +800,7 @@ static int device_sms() {
 
 // plan[0..8] = threads per problem G, problems per block Q, stages, shared
 // bytes, blocks, threads per block, slot values per problem, tile row
-// stride, bytes per staging copy.
+// stride, bytes per staging copy (for 16-byte aligned packs).
 extern "C" void admm_chunk_plan(int B, int sms, int mode, int gain,
                                 long long* plan) {
     const int qlog = chunk_qlog(B, sms), Q = 1 << qlog;
@@ -873,6 +820,12 @@ static int launch_mode(const void* chol, const void* gain, const void* coef,
                        void* acc, void* dxdy, int W, int B, int n_iter,
                        double sigma, double alpha, void* stream) {
     const int qlog = chunk_qlog(B, device_sms()), Q = 1 << qlog;
+    // 16-byte copies need every staged pack 16-byte aligned.
+    uintptr_t bits = 0;
+    for (const void* p : {chol, gain, coef, q, lu, rho, plf, ee, varc, pd,
+                          (const void*)state, (const void*)w})
+        bits |= (uintptr_t)p;
+    const int x4 = tile_x4(qlog, B) && bits % 16 == 0;
     return lane_launch_coop(
         &admm_chunk_kernel<MODE, GAIN>, (B + Q - 1) / Q, block_threads(qlog), G,
         chunk_smem_bytes(qlog, MODE == MODE_TERM, GAIN), stream,
@@ -880,19 +833,8 @@ static int launch_mode(const void* chol, const void* gain, const void* coef,
         (const real*)q, (const real*)lu, (const real*)rho, (const real*)plf,
         (const real*)ee, (const real*)varc, (const real*)pd,
         (const real*)done, (real*)state, (real*)w, (real*)acc, (real*)dxdy,
-        W, B, n_iter, (real)sigma, (real)alpha, qlog);
+        W, B, n_iter, (real)sigma, (real)alpha, qlog, x4);
 }
-
-#ifdef CHUNK_PROFILE
-// The cycles of each phase so far (16 values), then zeroed.
-extern "C" int admm_chunk_profile(long long* out) {
-    int err = (int)cudaMemcpyFromSymbol(out, chunk_profile,
-                                        sizeof(chunk_profile));
-    if (err != 0) return err;
-    const unsigned long long zero[16] = {};
-    return (int)cudaMemcpyToSymbol(chunk_profile, zero, sizeof(zero));
-}
-#endif
 
 // mode: 0 = state only, 1 = also the accumulators (acc), 2 = also the deltas
 // of the last iteration (dxdy).  gain: null for the hrec form, else the
