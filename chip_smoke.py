@@ -177,15 +177,20 @@ def nvidia_smi():
     ).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps=7, warm=2, inner=1):
+def time_ms(fn, reps=7, warm=2, inner=1, setup=None):
     """Median device time of ``fn`` in ms (CUDA events, warmed), each sample
     over ``inner`` calls back to back (more than one keeps the stream busy
-    while the host enqueues, so that a call's host overhead is not timed)."""
+    while the host enqueues, so that a call's host overhead is not timed).
+    ``setup``, if given, runs before each sample, outside its events."""
     for _ in range(warm):
+        if setup is not None:
+            setup()
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if setup is not None:
+            setup()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -569,6 +574,114 @@ def check_ruiz(base, iters, batch):
     return max(e[0] for e in errs), max(e[1] for e in errs)
 
 
+# ------------------------------------------ Ruiz and factor kernels alone
+# The wrappers also build packs and buffers on every call; these time the
+# launch itself on packs built beforehand, and hold the kernels against
+# their plain versions at the edges of their launch plans.
+
+
+def ruiz_alone(qp, iters):
+    """``(launch, reset)``: one launch of ``csrc/ruiz.cu`` on packs built
+    beforehand, and the reset of its ping-pong input slot that has to
+    precede each launch (run outside the timed events)."""
+    packs = ruiz_kernel._ruiz_kernel_packs(qp)
+    lib = _build.library("ruiz", admm_fused.p_signature(qp))
+    Dbuf, Ebuf = packs[4], packs[5]
+
+    def reset():
+        Dbuf[0].fill_(1.0)
+        Ebuf[0].fill_(1.0)
+    return (lambda: ruiz_kernel._launch_ruiz(lib, *packs, iters)), reset
+
+
+def factor_alone(scaled, rho_vec, sigma, emit_gain=False):
+    """``(launch, None)``: one launch of ``csrc/kkt_factor.cu`` on the
+    coefficient, rho and P packs and the outputs, all built beforehand."""
+    W_, Rp, B = (scaled.waypoints, scaled.rows_per_waypoint_padded,
+                 scaled.batch)
+    coef = admm_fused.build_coef_pack(scaled)
+    Pd, Pl = kkt_factor.build_p_vel_packs(scaled)
+    rho3 = rho_vec.reshape(W_, Rp, B).contiguous()
+    Tp = admm_fused._tri_maps(2 * scaled.n_dim)[2]
+    cholp = torch.empty((W_, Tp, B), device="cuda")
+    gainp = torch.empty_like(cholp) if emit_gain else None
+    lib = _build.library("kkt_factor", admm_fused.layout_signature(scaled))
+    return (lambda: kkt_factor._launch_factor(lib, coef, rho3, Pd, Pl, cholp,
+                                              sigma, gainp)), None
+
+
+def lane_plan(name, W_, B):
+    """The launch plan of the Ruiz or factor kernel (``name``) for W_
+    waypoints and a batch of B: one thread per problem, LANE_BLOCK = 32
+    problems per block, no shared memory."""
+    return dict(threads_per_problem=1, problems_per_block=32,
+                blocks=-(-B // 32), threads_per_block=32, shared_bytes=0,
+                waypoints=W_)
+
+
+def alone_ms(make, *args, **kw):
+    """Device time of one launch alone (``make`` gives ``(launch,
+    reset)``)."""
+    launch, reset = make(*args, **kw)
+    return time_ms(launch, setup=reset)
+
+
+# The edge cases of the plans: a batch whose last block is part empty, the
+# Ruiz gate's fewest waypoints, and the planner's longest horizon.
+EDGE_CASES = {"B1022": (1022, W), "W4": (BATCH, 4), "W50": (BATCH, 50)}
+
+
+def ruiz_vs_f64(qp, iters):
+    """The Ruiz kernel and its plain version (f32) against the plain version
+    run in f64 on the same f32 inputs, elementwise relative
+    (``|x / f64 - 1|``, max over D, E, c), and the kernel against the plain
+    f32 version (max abs)."""
+    got = ruiz_kernel.ruiz_scalings_kernel(qp, iters)
+    plain = ruiz_kernel._ruiz_scalings_plain(qp, iters)
+    ref = ruiz_kernel._ruiz_scalings_plain(cast(qp, torch.float64), iters)
+    torch.cuda.synchronize()
+
+    def ratio(a, b):
+        return rel_err(a.double() / b, torch.ones_like(b))[0]
+    return (max(ratio(a, b) for a, b in zip(got, ref)),
+            max(ratio(a, b) for a, b in zip(plain, ref)),
+            max(rel_err(a, b)[0] for a, b in zip(got, plain)))
+
+
+def ruiz_edge_cases(iters, block=False):
+    """The Ruiz kernel at each of EDGE_CASES against its plain version:
+    vel-diag relative to the plain f32 version (as the main row), block P
+    relative to the plain version in f64 (as its row)."""
+    out = {}
+    for name, (batch, w) in EDGE_CASES.items():
+        qp = build_honest_batch(batch, w, N, torch.float32, "cuda")
+        if block:
+            qp = cast(with_block_p(cast(qp, torch.float64)), torch.float32)
+            out[name] = ruiz_vs_f64(qp, iters)[0]
+        else:
+            out[name] = check_ruiz(qp, iters, batch)[1]
+    return out
+
+
+def factor_edge_cases(settings, emit_gain=False):
+    """The factor kernel at each of EDGE_CASES against its plain version
+    (f32, max abs error over max |plain|, chol and gain packs)."""
+    out = {}
+    for name, (batch, w) in EDGE_CASES.items():
+        base = build_honest_batch(batch, w, N, torch.float32, "cuda")
+        scaled, _ = admm_lane.ruiz_equilibrate_lane(base, settings.scaling)
+        rb = torch.full((batch,), settings.rho, device="cuda")
+        rho_vec = _rho_vec(rb, scaled.l, scaled.u)
+        got = kkt_factor.factor_packed_lane(scaled, rho_vec, settings.sigma,
+                                            emit_gain=emit_gain)
+        ref = kkt_factor.factor_packed_lane_plain(
+            scaled, rho_vec, settings.sigma, emit_gain=emit_gain)
+        torch.cuda.synchronize()
+        out[name] = max(rel_err(a, b)[1] for a, b in zip(got, ref)
+                        if a is not None)
+    return out
+
+
 def phase_kernels():
     settings, base, scaled, scaling, packs, rho_vec = main_path_problem(BATCH)
     sig = admm_fused.layout_signature(scaled)
@@ -580,7 +693,10 @@ def phase_kernels():
     abs_err, r_err = check_ruiz(base, settings.scaling, B)
     odd = build_honest_batch(200, W, N, torch.float32, "cuda")
     odd_err = check_ruiz(odd, settings.scaling, 200)[1]
-    k_ms = time_ms(lambda: ruiz_kernel.ruiz_scalings_kernel(base, settings.scaling))
+    edge = ruiz_edge_cases(settings.scaling)
+    w_ms = time_ms(lambda: ruiz_kernel.ruiz_scalings_kernel(base, settings.scaling))
+    k_ms = alone_ms(ruiz_alone, base, settings.scaling)
+    few = build_honest_batch(8, W, N, torch.float32, "cuda")
     p_ms = time_ms(lambda: ruiz_kernel._ruiz_scalings_plain(base, settings.scaling))
     rp = ruiz_kernel._ruiz_kernel_packs(base)
     b_ms, b_by = bound(
@@ -588,11 +704,16 @@ def phase_kernels():
         ops_ruiz(W, N, NX, B, settings.scaling))
     out.append(dict(
         name="ruiz", max_abs_err=abs_err, max_rel_err=r_err,
-        odd_batch_rel_err=odd_err, tol=TOL_RUIZ,
+        odd_batch_rel_err=odd_err, edge_cases_rel_err=edge, tol=TOL_RUIZ,
         tol_note="D, E, c elementwise relative to the plain version",
-        ok=bool(r_err <= TOL_RUIZ and odd_err <= TOL_RUIZ),
-        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, shape=f"W={W} N={N} B={B} iters={settings.scaling}"))
+        ok=bool(r_err <= TOL_RUIZ and odd_err <= TOL_RUIZ
+                and max(edge.values()) <= TOL_RUIZ),
+        ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None,
+        B8_ms=alone_ms(ruiz_alone, few, settings.scaling),
+        plan=lane_plan("ruiz", W, B), plan_B8=lane_plan("ruiz", W, 8),
+        shape=f"W={W} N={N} B={B} iters={settings.scaling}; ms: the launch "
+              "alone on packs built beforehand, wrapper_ms: the wrapper"))
 
     # ---- KKT factor: packed chol against kkt_blocks -> tridiag -> pack.
     coef = packs["coef"]
@@ -609,8 +730,11 @@ def phase_kernels():
         kkt_factor.factor_packed_lane(odd_s, odd_rho, settings.sigma)[0],
         kkt_factor.factor_packed_lane_plain(odd_s, odd_rho, settings.sigma)[0],
     )[1]
-    k_ms = time_ms(lambda: kkt_factor.factor_packed_lane(
+    edge = factor_edge_cases(settings)
+    w_ms = time_ms(lambda: kkt_factor.factor_packed_lane(
         scaled, rho_vec, settings.sigma, coef=coef))
+    k_ms = alone_ms(factor_alone, scaled, rho_vec, settings.sigma)
+    few_s, few_rho = chunk_start(8, settings, 0)[:2]
     p_ms = time_ms(lambda: kkt_factor.factor_packed_lane_plain(
         scaled, rho_vec, settings.sigma), reps=5, warm=1)
     Pd, Pl = kkt_factor.build_p_vel_packs(scaled)
@@ -618,14 +742,20 @@ def phase_kernels():
                        ops_factor(W, N, NX, B))
     out.append(dict(
         name="kkt_factor", max_abs_err=abs_err, max_rel_err=r_err,
-        odd_batch_rel_err=odd_err, tol=TOL_FACTOR,
+        odd_batch_rel_err=odd_err, edge_cases_rel_err=edge, tol=TOL_FACTOR,
         tol_note="max abs error over max |plain|; f32 reassociation over a "
                  "100-step recurrence",
         kernel_vs_f64=rel_err(ck.double(), c64)[1],
         plain_vs_f64=rel_err(cp.double(), c64)[1],
-        ok=bool(r_err <= TOL_FACTOR and odd_err <= TOL_FACTOR),
-        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, shape=f"W={W} N={N} B={B}"))
+        ok=bool(r_err <= TOL_FACTOR and odd_err <= TOL_FACTOR
+                and max(edge.values()) <= TOL_FACTOR),
+        ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None,
+        B8_ms=alone_ms(factor_alone, few_s, few_rho, settings.sigma),
+        plan=lane_plan("kkt_factor", W, B),
+        plan_B8=lane_plan("kkt_factor", W, 8),
+        shape=f"W={W} N={N} B={B}; ms: the launch alone on packs built "
+              "beforehand, wrapper_ms: the wrapper"))
 
     # ---- ADMM chunk: 2 iterations + accumulators from a non-trivial state
     # with a mixed done mask; the kernel works in place on its own copy.
@@ -753,8 +883,16 @@ def phase_kernels():
     out.extend(check_block_p(settings, NX))
     for row in out:
         row["ptxas"] = ptxas_of(row["name"], sig)
-    # Every build of the chunk kernel (hrec and gain x three modes).
     rows = {row["name"]: row for row in out}
+    # The factor's library yardstick: the dense Cholesky of the same
+    # assembled KKT matrices, timed in the tridiagonal factor's row.
+    for name in ("kkt_factor", "kkt_factor_gain"):
+        rows[name]["library_ms"] = rows["tridiag_factor"]["library_ms"]
+        rows[name]["library_note"] = (
+            "torch.linalg.cholesky of the dense (B, W*B2, W*B2) f32 KKT "
+            "matrices (the tridiag_factor row's time): factor only, no "
+            "assembly")
+    # Every build of the chunk kernel (hrec and gain x three modes).
     rows["admm_chunk"]["ptxas_all_builds"] = ptxas_of("admm_chunk_all", sig)
     emit("kernels", kernels=out)
     bad = [k["name"] for k in out if not k["ok"]]
@@ -1185,8 +1323,12 @@ def check_factor_gain(scaled, scaled64, rho_vec, settings, coef, ck, NX):
                     "gain": rel_err(gp.double(), g64)[1]}
     chol_as_hrec = bool(torch.equal(cg, ck))
     last_row_zero = bool((gk[-1] == 0).all())
-    k_ms = time_ms(lambda: kkt_factor.factor_packed_lane(
+    edge = factor_edge_cases(settings, emit_gain=True)
+    w_ms = time_ms(lambda: kkt_factor.factor_packed_lane(
         scaled, rho_vec, sigma, coef=coef, emit_gain=True))
+    k_ms = alone_ms(factor_alone, scaled, rho_vec, sigma, emit_gain=True)
+    few_s, few_rho = chunk_start(8, settings, 0)[:2]
+    few_ms = alone_ms(factor_alone, few_s, few_rho, sigma, emit_gain=True)
     p_ms = time_ms(lambda: kkt_factor.factor_packed_lane_plain(
         scaled, rho_vec, sigma, emit_gain=True), reps=5, warm=1)
     Pd, Pl = kkt_factor.build_p_vel_packs(scaled)
@@ -1202,9 +1344,15 @@ def check_factor_gain(scaled, scaled64, rho_vec, settings, coef, ck, NX):
                  "|f64| against the plain version run in f64 on the same f32 "
                  "inputs (f32 reassociation over a 100-step recurrence); the "
                  "plain f32 version's own distance is recorded beside it",
-        ok=bool(worst <= TOL_FACTOR and chol_as_hrec and last_row_zero),
-        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, shape=f"W={W} N={N} B={B} emit_gain")
+        edge_cases_rel_err=edge,
+        ok=bool(worst <= TOL_FACTOR and chol_as_hrec and last_row_zero
+                and max(edge.values()) <= TOL_FACTOR),
+        ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, B8_ms=few_ms,
+        plan=lane_plan("kkt_factor", W, B),
+        plan_B8=lane_plan("kkt_factor", W, 8),
+        shape=f"W={W} N={N} B={B} emit_gain; ms: the launch alone on packs "
+              "built beforehand, wrapper_ms: the wrapper")
     return row, gk
 
 
@@ -1312,19 +1460,12 @@ def check_block_p(settings, NX):
     B, iters = BATCH, settings.scaling
     bp = block_p_batch(B, "cuda")
 
-    def ruiz_err(qp):
-        got = ruiz_kernel.ruiz_scalings_kernel(qp, iters)
-        plain = ruiz_kernel._ruiz_scalings_plain(qp, iters)
-        ref = ruiz_kernel._ruiz_scalings_plain(cast(qp, torch.float64), iters)
-        torch.cuda.synchronize()
-        ratio = lambda a, b: rel_err(a.double() / b, torch.ones_like(b))[0]  # noqa: E731
-        return (max(ratio(a, b) for a, b in zip(got, ref)),
-                max(ratio(a, b) for a, b in zip(plain, ref)),
-                max(rel_err(a, b)[0] for a, b in zip(got, plain)))
-
-    err, plain_err, vs_plain = ruiz_err(bp)
-    odd_err = ruiz_err(block_p_batch(200, "cuda"))[0]
-    k_ms = time_ms(lambda: ruiz_kernel.ruiz_scalings_kernel(bp, iters))
+    err, plain_err, vs_plain = ruiz_vs_f64(bp, iters)
+    odd_err = ruiz_vs_f64(block_p_batch(200, "cuda"), iters)[0]
+    edge = ruiz_edge_cases(iters, block=True)
+    w_ms = time_ms(lambda: ruiz_kernel.ruiz_scalings_kernel(bp, iters))
+    k_ms = alone_ms(ruiz_alone, bp, iters)
+    few_ms = alone_ms(ruiz_alone, block_p_batch(8, "cuda"), iters)
     p_ms = time_ms(lambda: ruiz_kernel._ruiz_scalings_plain(bp, iters))
     rp = ruiz_kernel._ruiz_kernel_packs(bp)
     b_ms, b_by = bound(
@@ -1333,14 +1474,18 @@ def check_block_p(settings, NX):
     rows = [dict(
         name="ruiz_block", max_abs_err=err, max_rel_err=err,
         plain_f32_vs_f64=plain_err, kernel_vs_plain_f32=vs_plain,
-        odd_batch_rel_err=odd_err, tol=TOL_RUIZ,
+        odd_batch_rel_err=odd_err, edge_cases_rel_err=edge, tol=TOL_RUIZ,
         tol_note="D, E, c elementwise relative to the plain version run in "
                  "f64 on the same f32 inputs (|kernel / f64 - 1|)",
-        ok=bool(err <= TOL_RUIZ and odd_err <= TOL_RUIZ),
-        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None,
+        ok=bool(err <= TOL_RUIZ and odd_err <= TOL_RUIZ
+                and max(edge.values()) <= TOL_RUIZ),
+        ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, B8_ms=few_ms,
+        plan=lane_plan("ruiz_block", W, B),
+        plan_B8=lane_plan("ruiz_block", W, 8),
         shape=f"W={W} N={N} B={B} iters={iters} P block (full |P_diag|, "
-              "|P_lower| packs)")]
+              "|P_lower| packs); ms: the launch alone on packs built "
+              "beforehand, wrapper_ms: the wrapper")]
 
     # A state from 10 iterations from cold, then a mixed done mask.
     scaled, scaling = admm_lane.ruiz_equilibrate_lane(bp, iters)
