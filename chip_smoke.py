@@ -581,22 +581,17 @@ def check_ruiz(base, iters, batch):
 
 
 def ruiz_alone(qp, iters):
-    """``(launch, reset)``: one launch of ``csrc/ruiz.cu`` on packs built
-    beforehand, and the reset of its ping-pong input slot that has to
-    precede each launch (run outside the timed events)."""
+    """``(launch, None)``: one launch of ``csrc/ruiz.cu`` on packs and
+    outputs built beforehand (the kernel needs no reset between launches)."""
     packs = ruiz_kernel._ruiz_kernel_packs(qp)
     lib = _build.library("ruiz", admm_fused.p_signature(qp))
-    Dbuf, Ebuf = packs[4], packs[5]
-
-    def reset():
-        Dbuf[0].fill_(1.0)
-        Ebuf[0].fill_(1.0)
-    return (lambda: ruiz_kernel._launch_ruiz(lib, *packs, iters)), reset
+    return (lambda: ruiz_kernel._launch_ruiz(lib, *packs, iters)), None
 
 
-def factor_alone(scaled, rho_vec, sigma, emit_gain=False):
+def factor_alone(scaled, rho_vec, sigma, emit_gain=False, variant=None):
     """``(launch, None)``: one launch of ``csrc/kkt_factor.cu`` on the
-    coefficient, rho and P packs and the outputs, all built beforehand."""
+    coefficient, rho and P packs and the outputs, all built beforehand
+    (``variant``: extra ``-D`` values of the build)."""
     W_, Rp, B = (scaled.waypoints, scaled.rows_per_waypoint_padded,
                  scaled.batch)
     coef = admm_fused.build_coef_pack(scaled)
@@ -605,25 +600,50 @@ def factor_alone(scaled, rho_vec, sigma, emit_gain=False):
     Tp = admm_fused._tri_maps(2 * scaled.n_dim)[2]
     cholp = torch.empty((W_, Tp, B), device="cuda")
     gainp = torch.empty_like(cholp) if emit_gain else None
-    lib = _build.library("kkt_factor", admm_fused.layout_signature(scaled))
-    return (lambda: kkt_factor._launch_factor(lib, coef, rho3, Pd, Pl, cholp,
-                                              sigma, gainp)), None
+    lib = _build.library("kkt_factor", dict(
+        admm_fused.layout_signature(scaled), **(variant or {})))
+    launch = lambda: kkt_factor._launch_factor(  # noqa: E731
+        lib, coef, rho3, Pd, Pl, cholp, sigma, gainp)
+    launch.out = (cholp, gainp)
+    return launch, None
 
 
 def lane_plan(name, W_, B):
-    """The launch plan of the Ruiz or factor kernel (``name``) for W_
-    waypoints and a batch of B: one thread per problem, LANE_BLOCK = 32
-    problems per block, no shared memory."""
-    return dict(threads_per_problem=1, problems_per_block=32,
-                blocks=-(-B // 32), threads_per_block=32, shared_bytes=0,
-                waypoints=W_)
+    """The launch plan of the Ruiz or factor kernel (``name``: a kernel
+    row) for W_ waypoints and a batch of B on this card."""
+    sig = {"NDIM": N, "NX": 5}
+    if name.startswith("ruiz"):
+        lib = _build.library("ruiz", dict(sig, BLOCK_P=int(
+            name.endswith("_block"))))
+        return ruiz_kernel.plan(lib, W_, B)
+    return kkt_factor.plan(_build.library("kkt_factor", sig), W_, B)
+
+
+def factor_sweep_variant(scaled, rho_vec, sigma, ref):
+    """The factor kernel built with its Cholesky as column sweeps across
+    the group (``-DKKT_CHOL_SWEEP=1``): its time alone and its packed chol
+    against ``ref`` (the plain version), max abs over max |ref|."""
+    launch, _ = factor_alone(scaled, rho_vec, sigma,
+                             variant={"KKT_CHOL_SWEEP": 1})
+    launch()
+    torch.cuda.synchronize()
+    return dict(ms=time_ms(launch, inner=ALONE_INNER),
+                rel_err=rel_err(launch.out[0], ref)[1])
+
+
+# Launches back to back per timed sample of a kernel alone: a single
+# launch's time includes the host's enqueue (ctypes and the plan), tens of
+# microseconds.
+ALONE_INNER = 20
 
 
 def alone_ms(make, *args, **kw):
     """Device time of one launch alone (``make`` gives ``(launch,
-    reset)``)."""
+    reset)``): ``(ms over ALONE_INNER launches back to back, ms of a single
+    launch)``, the second as the starting tree's kernels were first timed."""
     launch, reset = make(*args, **kw)
-    return time_ms(launch, setup=reset)
+    return (time_ms(launch, setup=reset, inner=ALONE_INNER),
+            time_ms(launch, setup=reset))
 
 
 # The edge cases of the plans: a batch whose last block is part empty, the
@@ -695,7 +715,7 @@ def phase_kernels():
     odd_err = check_ruiz(odd, settings.scaling, 200)[1]
     edge = ruiz_edge_cases(settings.scaling)
     w_ms = time_ms(lambda: ruiz_kernel.ruiz_scalings_kernel(base, settings.scaling))
-    k_ms = alone_ms(ruiz_alone, base, settings.scaling)
+    k_ms, k1_ms = alone_ms(ruiz_alone, base, settings.scaling)
     few = build_honest_batch(8, W, N, torch.float32, "cuda")
     p_ms = time_ms(lambda: ruiz_kernel._ruiz_scalings_plain(base, settings.scaling))
     rp = ruiz_kernel._ruiz_kernel_packs(base)
@@ -708,10 +728,11 @@ def phase_kernels():
         tol_note="D, E, c elementwise relative to the plain version",
         ok=bool(r_err <= TOL_RUIZ and odd_err <= TOL_RUIZ
                 and max(edge.values()) <= TOL_RUIZ),
-        ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None,
-        B8_ms=alone_ms(ruiz_alone, few, settings.scaling),
+        ms=k_ms, single_launch_ms=k1_ms, wrapper_ms=w_ms, plain_ms=p_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        B8_ms=alone_ms(ruiz_alone, few, settings.scaling)[0],
         plan=lane_plan("ruiz", W, B), plan_B8=lane_plan("ruiz", W, 8),
+        plan_W50=lane_plan("ruiz", 50, B),
         shape=f"W={W} N={N} B={B} iters={settings.scaling}; ms: the launch "
               "alone on packs built beforehand, wrapper_ms: the wrapper"))
 
@@ -733,7 +754,7 @@ def phase_kernels():
     edge = factor_edge_cases(settings)
     w_ms = time_ms(lambda: kkt_factor.factor_packed_lane(
         scaled, rho_vec, settings.sigma, coef=coef))
-    k_ms = alone_ms(factor_alone, scaled, rho_vec, settings.sigma)
+    k_ms, k1_ms = alone_ms(factor_alone, scaled, rho_vec, settings.sigma)
     few_s, few_rho = chunk_start(8, settings, 0)[:2]
     p_ms = time_ms(lambda: kkt_factor.factor_packed_lane_plain(
         scaled, rho_vec, settings.sigma), reps=5, warm=1)
@@ -749,11 +770,13 @@ def phase_kernels():
         plain_vs_f64=rel_err(cp.double(), c64)[1],
         ok=bool(r_err <= TOL_FACTOR and odd_err <= TOL_FACTOR
                 and max(edge.values()) <= TOL_FACTOR),
-        ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None,
-        B8_ms=alone_ms(factor_alone, few_s, few_rho, settings.sigma),
+        ms=k_ms, single_launch_ms=k1_ms, wrapper_ms=w_ms, plain_ms=p_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        B8_ms=alone_ms(factor_alone, few_s, few_rho, settings.sigma)[0],
         plan=lane_plan("kkt_factor", W, B),
         plan_B8=lane_plan("kkt_factor", W, 8),
+        sweep_variant=factor_sweep_variant(scaled, rho_vec, settings.sigma,
+                                           cp),
         shape=f"W={W} N={N} B={B}; ms: the launch alone on packs built "
               "beforehand, wrapper_ms: the wrapper"))
 
@@ -1270,8 +1293,8 @@ def check_residuals(scaled, scaling, settings, rho_vec, done, state0, args,
 # function name as ptxas prints it, demangled prefix).
 PTXAS = {
     "ruiz": ("ruiz", "ruiz_"),
-    "kkt_factor": ("kkt_factor", "kkt_factor_kernel"),
-    "kkt_factor_gain": ("kkt_factor", "kkt_factor_kernel"),
+    "kkt_factor": ("kkt_factor", "kkt_factor_kernelILb0E"),
+    "kkt_factor_gain": ("kkt_factor", "kkt_factor_kernelILb1E"),
     "admm_chunk": ("admm_chunk", "admm_chunk_kernelILi1ELb0E"),
     "admm_chunk_dxdy": ("admm_chunk", "admm_chunk_kernelILi2ELb0E"),
     "admm_chunk_gain": ("admm_chunk", "admm_chunk_kernelILi"),
@@ -1326,9 +1349,10 @@ def check_factor_gain(scaled, scaled64, rho_vec, settings, coef, ck, NX):
     edge = factor_edge_cases(settings, emit_gain=True)
     w_ms = time_ms(lambda: kkt_factor.factor_packed_lane(
         scaled, rho_vec, sigma, coef=coef, emit_gain=True))
-    k_ms = alone_ms(factor_alone, scaled, rho_vec, sigma, emit_gain=True)
+    k_ms, k1_ms = alone_ms(factor_alone, scaled, rho_vec, sigma,
+                           emit_gain=True)
     few_s, few_rho = chunk_start(8, settings, 0)[:2]
-    few_ms = alone_ms(factor_alone, few_s, few_rho, sigma, emit_gain=True)
+    few_ms = alone_ms(factor_alone, few_s, few_rho, sigma, emit_gain=True)[0]
     p_ms = time_ms(lambda: kkt_factor.factor_packed_lane_plain(
         scaled, rho_vec, sigma, emit_gain=True), reps=5, warm=1)
     Pd, Pl = kkt_factor.build_p_vel_packs(scaled)
@@ -1347,8 +1371,8 @@ def check_factor_gain(scaled, scaled64, rho_vec, settings, coef, ck, NX):
         edge_cases_rel_err=edge,
         ok=bool(worst <= TOL_FACTOR and chol_as_hrec and last_row_zero
                 and max(edge.values()) <= TOL_FACTOR),
-        ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, B8_ms=few_ms,
+        ms=k_ms, single_launch_ms=k1_ms, wrapper_ms=w_ms, plain_ms=p_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, B8_ms=few_ms,
         plan=lane_plan("kkt_factor", W, B),
         plan_B8=lane_plan("kkt_factor", W, 8),
         shape=f"W={W} N={N} B={B} emit_gain; ms: the launch alone on packs "
@@ -1464,8 +1488,8 @@ def check_block_p(settings, NX):
     odd_err = ruiz_vs_f64(block_p_batch(200, "cuda"), iters)[0]
     edge = ruiz_edge_cases(iters, block=True)
     w_ms = time_ms(lambda: ruiz_kernel.ruiz_scalings_kernel(bp, iters))
-    k_ms = alone_ms(ruiz_alone, bp, iters)
-    few_ms = alone_ms(ruiz_alone, block_p_batch(8, "cuda"), iters)
+    k_ms, k1_ms = alone_ms(ruiz_alone, bp, iters)
+    few_ms = alone_ms(ruiz_alone, block_p_batch(8, "cuda"), iters)[0]
     p_ms = time_ms(lambda: ruiz_kernel._ruiz_scalings_plain(bp, iters))
     rp = ruiz_kernel._ruiz_kernel_packs(bp)
     b_ms, b_by = bound(
@@ -1479,8 +1503,8 @@ def check_block_p(settings, NX):
                  "f64 on the same f32 inputs (|kernel / f64 - 1|)",
         ok=bool(err <= TOL_RUIZ and odd_err <= TOL_RUIZ
                 and max(edge.values()) <= TOL_RUIZ),
-        ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, B8_ms=few_ms,
+        ms=k_ms, single_launch_ms=k1_ms, wrapper_ms=w_ms, plain_ms=p_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, B8_ms=few_ms,
         plan=lane_plan("ruiz_block", W, B),
         plan_B8=lane_plan("ruiz_block", W, 8),
         shape=f"W={W} N={N} B={B} iters={iters} P block (full |P_diag|, "

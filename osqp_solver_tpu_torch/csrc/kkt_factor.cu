@@ -1,160 +1,354 @@
-// KKT assemble + block-Cholesky + pack, one thread per problem.
+// KKT assemble + block-Cholesky + pack: a group of threads per problem, the
+// assembly off the step chain.
 //
 // Replaces the Pallas kernel of osqp_solver_tpu/ops/kkt_factor_pallas.py
 // (factor_packed_lane, body _make_kernel) in both forms: emit_gain=False
 // (gainp null) and emit_gain=True.
 //
-// Per waypoint t the thread assembles the lower half of the 2N x 2N block of
-// P + sigma*I + A' diag(rho) A from the stencil coefficients (vel-diag P),
-// applies the Schur step S = M_t - G_{t-1} G_{t-1}', factors S = C C' in
-// place, writes the packed lower triangle of C, and forms the packed upper
-// triangle G_t = Ml_t C_t^{-T} that the next step needs (Ml_t is the sparse
-// coupling block, the same formulas as ml_at() of the chunk kernel).  G is
-// carried in registers; with a gain pack (emit_gain) it is also written as
-// the packed upper triangle G_t at row t, the row of the last waypoint zero
-// (ops/admm_fused.py pack_factor).  Divisions go through one exact reciprocal
-// per pivot, as in the reference kernel.
+// Per waypoint t: the lower half M_t of the 2N x 2N diagonal block of
+// P + sigma*I + A' diag(rho) A and the coupling block Ml_t (three diagonals:
+// (j, j) = qq, (j, N+j) = qv, (N+j, N+j) = vv; the formulas of ml_at() of the
+// chunk kernel) from the stencil coefficients (vel-diag P); the Schur step
+// S = M_t - G_{t-1} G_{t-1}'; S = C C'; the packed lower triangle of C to
+// cholp row t; G_t = Ml_t C_t^{-T} (packed upper triangle), and with a gain
+// pack (emit_gain) G_t to gainp row t, the row of the last waypoint zero
+// (ops/admm_fused.py pack_factor).  Divisions go through one exact
+// reciprocal per pivot, as in the reference kernel.
 //
-// Bound: a chain of W dependent Cholesky steps per thread; latency, not
-// bandwidth or FLOP rate.  C (78 values at N=6) and G (78) are live together,
-// so the kernel spills; see the ptxas figures printed by chip_smoke.py.
+// Design (Hopper).  One thread per problem did all of it, on 32 single-warp
+// blocks at B = 1024.  Here a group of G threads (the smallest power of two
+// >= 2N: 16 at N = 6) works on each problem and a block holds Q adjacent
+// problems, the problem index fastest among a warp's lanes (lane l of problem
+// q is thread l*Q + q), so a row's loads and stores of the Q problems are
+// adjacent values.  The chain over t is real (S_t needs G_{t-1}), but:
+//   - the assembly of M_t and Ml_t does not depend on t-1: a prologue
+//     assembles a window of TW waypoints of all Q problems at once (one
+//     thread per (waypoint, problem) pair) into shared memory, before the
+//     chain walks them; the window is planned so that the blocks of one wave
+//     fit on the SMs (W = 100 at B = 1024: 8 problems a block, two windows);
+//   - on the chain each lane forms a few entries of the Schur update (G_{t-1}
+//     in shared memory), barrier; every lane then factors the whole 2N x 2N
+//     S in its registers (no exchange; PR 7's chunk kernel found a whole
+//     small system in each lane's registers faster than column sweeps) and
+//     lane i < 2N forms row i of G_t (an independent forward substitution),
+//     writes it to shared memory for the next step and stores row i of C
+//     and of G_t, barrier.  With -DKKT_CHOL_SWEEP=1 the Cholesky instead runs
+//     by columns across the group (lane i owns row i; one barrier a pivot).
+// Bound: each problem's chain of W dependent steps (a square root and an
+// exact reciprocal per pivot), not bytes or operations.
 #include "lane_common.cuh"
 
-__global__ void kkt_factor_kernel(const real* __restrict__ coef_,
-                                  const real* __restrict__ rho_,
-                                  const real* __restrict__ pd_,
-                                  const real* __restrict__ pl_,
-                                  real* __restrict__ cholp,
-                                  real* __restrict__ gainp, int W, int B,
-                                  real sigma) {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
-    const Pack coef{coef_, (size_t)B, b}, rho{rho_, (size_t)B, b},
-        pd{pd_, (size_t)B, b}, pl{pl_, (size_t)B, b};
+#ifndef KKT_CHOL_SWEEP
+#define KKT_CHOL_SWEEP 0
+#endif
 
-    real G[T];          // packed upper G_{t-1}
-    real c1sq_p[N], a0sq_p[N];
-#pragma unroll
-    for (int k = 0; k < T; ++k) G[k] = real(0);
-#pragma unroll
-    for (int j = 0; j < N; ++j) { c1sq_p[j] = real(0); a0sq_p[j] = real(0); }
+__host__ __device__ constexpr int pow2_at_least(int n) {
+    return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
+// Threads per problem, problems per block at most (log2), threads per block.
+constexpr int G = pow2_at_least(B2);
+constexpr int QLOG_MAX = 3;
+constexpr int MAX_THREADS = G << QLOG_MAX;
+// Schur entries per lane.
+constexpr int NE = (T + G - 1) / G;
+// One waypoint's slot of the window: M_t (then S_t, packed lower) and Ml_t
+// (qq, qv, vv); an odd count, so that the prologue's stores of several
+// waypoints land in distinct banks.
+constexpr int SL_ML = T;
+constexpr int SLOT = (T + 3 * N) | 1;
 
-    for (int t = 0; t < W; ++t) {
-        real S[T];  // packed lower: M_diag, then S, then C (in place)
-#pragma unroll
-        for (int k = 0; k < T; ++k) S[k] = real(0);
+// ---------------------------------------------------------------- the plan
 
-        // Dense q-block J' rho J of the workspace / obstacle rows.
+struct FactorPlan {
+    int Q, qlog, TW, windows, smem, blocks, threads;
+};
+
+static FactorPlan factor_plan_for(int W, int B, int budget, int sms) {
+    int qlog = QLOG_MAX;
+    // Q problems a block while the blocks still cover 7/8 of the SMs.
+    while (qlog > 0 && 8LL * ((B + (1 << qlog) - 1) >> qlog) < 7LL * sms)
+        --qlog;
+    const int Q = 1 << qlog;
+    const int blocks = (B + Q - 1) / Q;
+    // Shared memory of a block such that the blocks of one wave (up to two a
+    // SM) fit; a block reserves 1 KB of the SM's shared memory.
+    const int per_sm = sms > 0 ? (blocks + sms - 1) / sms : 1;
+    const int k = per_sm < 2 ? 1 : 2;
+    long long per_block = ((long long)budget + 1024) / k - 1024;
+    if (per_block > budget) per_block = budget;
+    const long long fixed = (long long)T * (Q + 1);
+    long long tw = (per_block / (long long)sizeof(real) - fixed) /
+                   ((long long)SLOT * Q);
+    if (tw > W) tw = W;
+    FactorPlan p{};
+    if (tw < 1) return p;
+    const int windows = (int)((W + tw - 1) / tw);
+    const int TW = (W + windows - 1) / windows;
+    const long long bytes =
+        ((long long)TW * SLOT * Q + fixed) * (long long)sizeof(real);
+    p = FactorPlan{Q, qlog, TW, windows, (int)bytes, blocks, G * Q};
+    return p;
+}
+
+// --------------------------------------------------------------- the kernel
+
+template <bool GAIN>
+__global__ void __launch_bounds__(MAX_THREADS)
+    kkt_factor_kernel(const real* __restrict__ coef_,
+                      const real* __restrict__ rho_,
+                      const real* __restrict__ pd_,
+                      const real* __restrict__ pl_, real* __restrict__ cholp,
+                      real* __restrict__ gainp, int W, int B, real sigma,
+                      int qlog, int TW) {
+    LANE_SMEM_DECL();
+    const int Q = 1 << qlog, QG = Q + 1;
+    const int tid = threadIdx.x, nthreads = G << qlog;
+    const int q = tid & (Q - 1), l = tid >> qlog;
+    const int b0 = blockIdx.x << qlog, b = b0 + q;
+    const bool valid = b < B;
+    const size_t Bs = (size_t)B;
+    real* win = lane_smem;                        // [t][SLOT][Q]
+    real* gp = win + (size_t)TW * SLOT * Q + q;   // G_{t-1}: [T][Q + 1]
+
+    // This lane's Schur entries (i, j) of the packed lower triangle: row i,
+    // and the offsets of rows i and j of the packed upper G (G[UP(i, k)] at
+    // gp[(ui + k) * QG] for k >= i).
+    int ei[NE], ui[NE], uj[NE];
 #pragma unroll
-        for (int k = 0; k < NX; ++k) {
-            const real rr = rho(t, Rp, R_X + k);
-            real f[N];
+    for (int m = 0; m < NE; ++m) {
+        const int e = l + m * G;
+        int i = 0;
+        while (i + 1 < B2 && LOW(i + 1, 0) <= e) ++i;
+        const int j = e - LOW(i, 0);
+        ei[m] = i;
+        ui[m] = UP(i, i) - i;
+        uj[m] = UP(j, j) - j;
+    }
+    for (int e = l; e < T; e += G) gp[e * QG] = real(0);  // G_{-1} = 0
+
+    for (int t0 = 0; t0 < W; t0 += TW) {
+        const int tn = W - t0 < TW ? W - t0 : TW;
+        // ---- prologue: M_t and Ml_t of the window, one thread a pair
+        for (int pr = tid; pr < tn * Q; pr += nthreads) {
+            const int tl = pr >> qlog, t = t0 + tl;
+            const int bb = b0 + (pr & (Q - 1));
+            if (bb >= B) continue;
+            const Pack coef{coef_, Bs, bb}, rho{rho_, Bs, bb}, pd{pd_, Bs, bb},
+                pl{pl_, Bs, bb};
+            real S[T];
 #pragma unroll
-            for (int j = 0; j < N; ++j) f[j] = coef(t, CRp, C_X + k * N + j);
+            for (int k = 0; k < T; ++k) S[k] = real(0);
+            // Dense q-block J' rho J of the workspace / obstacle rows.
 #pragma unroll
-            for (int i = 0; i < N; ++i) {
-                const real fi = f[i] * rr;
+            for (int k = 0; k < NX; ++k) {
+                const real rr = rho(t, Rp, R_X + k);
+                real f[N];
 #pragma unroll
-                for (int j = 0; j <= i; ++j) S[LOW(i, j)] += fi * f[j];
+                for (int j = 0; j < N; ++j) f[j] = coef(t, CRp, C_X + k * N + j);
+#pragma unroll
+                for (int i = 0; i < N; ++i) {
+                    const real fi = f[i] * rr;
+#pragma unroll
+                    for (int j = 0; j <= i; ++j) S[LOW(i, j)] += fi * f[j];
+                }
             }
-        }
-
-        real ml_qq[N], ml_qv[N], ml_vv[N];
+            real* slot = win + (size_t)tl * SLOT * Q + (pr & (Q - 1));
 #pragma unroll
-        for (int j = 0; j < N; ++j) {
-            const real rd = rho(t, Rp, R_DYN + j);
-            const real ra = rho(t, Rp, R_ACC + j);
-            const real c0 = coef(t, CRp, C_C0 + j);
-            const real c1 = coef(t, CRp, C_C1 + j);
-            const real c2 = coef(t, CRp, C_C2 + j);
-            const real a0 = coef(t, CRp, C_A0 + j);
-            const real a1 = coef(t, CRp, C_A1 + j);
-            const real po = coef(t, CRp, C_POS + j);
-            const real ve = coef(t, CRp, C_VEL + j);
-            const real d_qq =
-                rho(t, Rp, R_POS + j) * po * po + rd * c2 * c2 + c1sq_p[j];
-            const real d_vv = rd * c0 * c0 + rho(t, Rp, R_VEL + j) * ve * ve +
-                              a0sq_p[j] + ra * a1 * a1;
-            S[LOW(j, j)] = S[LOW(j, j)] + d_qq + sigma;
-            S[LOW(N + j, j)] = rd * c2 * c0;
-            S[LOW(N + j, N + j)] = d_vv + pd(t, PNp, j) + sigma;
-            c1sq_p[j] = rd * c1 * c1;
-            a0sq_p[j] = ra * a0 * a0;
-            ml_qq[j] = rd * c1 * c2;
-            ml_qv[j] = rd * c1 * c0;
-            ml_vv[j] = ra * a0 * a1 + pl(t, PNp, j);
-        }
-
-        // S = M_diag - G_{t-1} G_{t-1}'   (G = 0 at t = 0).
-#pragma unroll
-        for (int i = 0; i < B2; ++i) {
-#pragma unroll
-            for (int j = 0; j <= i; ++j) {
-                real acc = real(0);
-#pragma unroll
-                for (int k = i; k < B2; ++k) acc += G[UP(i, k)] * G[UP(j, k)];
-                S[LOW(i, j)] = S[LOW(i, j)] - acc;
+            for (int j = 0; j < N; ++j) {
+                const real rd = rho(t, Rp, R_DYN + j);
+                const real ra = rho(t, Rp, R_ACC + j);
+                const real c0 = coef(t, CRp, C_C0 + j);
+                const real c1 = coef(t, CRp, C_C1 + j);
+                const real c2 = coef(t, CRp, C_C2 + j);
+                const real a0 = coef(t, CRp, C_A0 + j);
+                const real a1 = coef(t, CRp, C_A1 + j);
+                const real po = coef(t, CRp, C_POS + j);
+                const real ve = coef(t, CRp, C_VEL + j);
+                // The coupling rows of waypoint t-1 (zero at t = 0).
+                real c1sq = real(0), a0sq = real(0);
+                if (t > 0) {
+                    const real c1p = coef(t - 1, CRp, C_C1 + j);
+                    const real a0p = coef(t - 1, CRp, C_A0 + j);
+                    c1sq = rho(t - 1, Rp, R_DYN + j) * c1p * c1p;
+                    a0sq = rho(t - 1, Rp, R_ACC + j) * a0p * a0p;
+                }
+                const real d_qq =
+                    rho(t, Rp, R_POS + j) * po * po + rd * c2 * c2 + c1sq;
+                const real d_vv = rd * c0 * c0 +
+                                  rho(t, Rp, R_VEL + j) * ve * ve + a0sq +
+                                  ra * a1 * a1;
+                S[LOW(j, j)] = S[LOW(j, j)] + d_qq + sigma;
+                S[LOW(N + j, j)] = rd * c2 * c0;
+                S[LOW(N + j, N + j)] = d_vv + pd(t, PNp, j) + sigma;
+                slot[(SL_ML + j) * Q] = rd * c1 * c2;
+                slot[(SL_ML + N + j) * Q] = rd * c1 * c0;
+                slot[(SL_ML + 2 * N + j) * Q] = ra * a0 * a1 + pl(t, PNp, j);
             }
+#pragma unroll
+            for (int k = 0; k < T; ++k) slot[k * Q] = S[k];
         }
+        __syncthreads();
 
-        // In-place Cholesky, column by column, reciprocal pivots.
-        real idia[B2];
+        // ---- the chain over the window
+        for (int tl = 0; tl < tn; ++tl) {
+            const int t = t0 + tl;
+            real* slot = win + (size_t)tl * SLOT * Q + q;
+            // S = M_t - G_{t-1} G_{t-1}', a few entries a lane (the sum over
+            // k >= i unrolled, so that its loads issue together).
 #pragma unroll
-        for (int jj = 0; jj < B2; ++jj) {
-            real sdd = S[LOW(jj, jj)];
+            for (int m = 0; m < NE; ++m) {
+                if (l + m * G < T) {
+                    const real* gi = gp + ui[m] * QG;
+                    const real* gj = gp + uj[m] * QG;
+                    real acc = real(0);
 #pragma unroll
-            for (int k = 0; k < jj; ++k) sdd -= S[LOW(jj, k)] * S[LOW(jj, k)];
-            const real d = sqrt(sdd);
-            S[LOW(jj, jj)] = d;
-            idia[jj] = real(1) / d;
-#pragma unroll
-            for (int i = jj + 1; i < B2; ++i) {
-                real sij = S[LOW(i, jj)];
-#pragma unroll
-                for (int k = 0; k < jj; ++k) sij -= S[LOW(i, k)] * S[LOW(jj, k)];
-                S[LOW(i, jj)] = sij * idia[jj];
+                    for (int k = 0; k < B2; ++k)
+                        if (k >= ei[m]) acc += gi[k * QG] * gj[k * QG];
+                    slot[(l + m * G) * Q] = slot[(l + m * G) * Q] - acc;
+                }
             }
-        }
+            __syncthreads();
 
+            real idia[B2];
+#if KKT_CHOL_SWEEP
+            // Cholesky by columns: lane i owns row i of S (in place in the
+            // slot; the diagonal stays S and every lane keeps the pivots).
+            real dg[B2], crow[B2];
 #pragma unroll
-        for (int k = 0; k < T; ++k) cholp[((size_t)t * Tp + k) * B + b] = S[k];
+            for (int jj = 0; jj < B2; ++jj) {
+                real sdd = slot[LOW(jj, jj) * Q];
 #pragma unroll
-        for (int k = T; k < Tp; ++k) cholp[((size_t)t * Tp + k) * B + b] = real(0);
-
-        // G_t = Ml_t C_t^{-T}, upper triangular; Ml has three diagonals:
-        // (j, j) = qq, (j, N+j) = qv, (N+j, N+j) = vv.
+                for (int k = 0; k < jj; ++k) {
+                    const real v = slot[LOW(jj, k) * Q];
+                    sdd -= v * v;
+                }
+                dg[jj] = sqrt(sdd);
+                idia[jj] = real(1) / dg[jj];
+                crow[jj] = real(0);
+                if (l > jj && l < B2) {
+                    real sij = slot[LOW(l, jj) * Q];
 #pragma unroll
-        for (int i = 0; i < B2; ++i) {
-#pragma unroll
-            for (int j = i; j < B2; ++j) {
-                real sij = real(0);
-                if (j == i) sij = (i < N) ? ml_qq[i] : ml_vv[i - N];
-                if (i < N && j == i + N) sij = ml_qv[i];
-#pragma unroll
-                for (int k = i; k < j; ++k) sij -= G[UP(i, k)] * S[LOW(j, k)];
-                G[UP(i, j)] = sij * idia[j];
+                    for (int k = 0; k < jj; ++k)
+                        sij -= crow[k] * slot[LOW(jj, k) * Q];
+                    crow[jj] = sij * idia[jj];
+                    slot[LOW(l, jj) * Q] = crow[jj];
+                }
+                __syncthreads();
             }
-        }
-        if (gainp != nullptr) {
-            real* gout = gainp + ((size_t)t * Tp) * B + b;
+#define CHOL(i, j) ((i) == (j) ? dg[i] : slot[LOW(i, j) * Q])
+#else
+            // Cholesky of the whole S in this lane's registers.
+            real S[T];
 #pragma unroll
-            for (int k = 0; k < T; ++k)
-                gout[(size_t)k * B] = t < W - 1 ? G[k] : real(0);
+            for (int k = 0; k < T; ++k) S[k] = slot[k * Q];
 #pragma unroll
-            for (int k = T; k < Tp; ++k) gout[(size_t)k * B] = real(0);
+            for (int jj = 0; jj < B2; ++jj) {
+                real sdd = S[LOW(jj, jj)];
+#pragma unroll
+                for (int k = 0; k < jj; ++k) sdd -= S[LOW(jj, k)] * S[LOW(jj, k)];
+                const real d = sqrt(sdd);
+                S[LOW(jj, jj)] = d;
+                idia[jj] = real(1) / d;
+#pragma unroll
+                for (int i = jj + 1; i < B2; ++i) {
+                    real sij = S[LOW(i, jj)];
+#pragma unroll
+                    for (int k = 0; k < jj; ++k)
+                        sij -= S[LOW(i, k)] * S[LOW(jj, k)];
+                    S[LOW(i, jj)] = sij * idia[jj];
+                }
+            }
+#define CHOL(i, j) S[LOW(i, j)]
+#endif
+
+            // Row i = l of G_t = Ml_t C_t^{-T} (upper triangular: Ml has the
+            // diagonals qq, vv and qv at (j, N+j)), and row i of C and of
+            // G_t out.
+            if (l < B2 && valid) {
+                const real diag = l < N ? slot[(SL_ML + l) * Q]
+                                        : slot[(SL_ML + N + l) * Q];
+                const real qv = l < N ? slot[(SL_ML + N + l) * Q] : real(0);
+                real grow[B2];
+#pragma unroll
+                for (int j = 0; j < B2; ++j) {
+                    real sij = j == l ? diag : (j == l + N ? qv : real(0));
+#pragma unroll
+                    for (int k = 0; k < j; ++k)
+                        if (k >= l) sij -= grow[k] * CHOL(j, k);
+                    grow[j] = j >= l ? sij * idia[j] : real(0);
+                }
+#pragma unroll
+                for (int j = 0; j < B2; ++j)
+                    if (j >= l) gp[UP(l, j) * QG] = grow[j];
+                real* crow_out = cholp + ((size_t)t * Tp) * Bs + b;
+#pragma unroll
+                for (int r = 0; r < B2; ++r)
+                    if (r == l) {
+#pragma unroll
+                        for (int j = 0; j <= r; ++j)
+                            crow_out[(size_t)LOW(r, j) * Bs] = CHOL(r, j);
+                    }
+                if (GAIN) {
+                    real* gout = gainp + ((size_t)t * Tp) * Bs + b;
+#pragma unroll
+                    for (int j = 0; j < B2; ++j)
+                        if (j >= l)
+                            gout[(size_t)UP(l, j) * Bs] =
+                                t < W - 1 ? grow[j] : real(0);
+                }
+            }
+#undef CHOL
+            if (valid) {
+                for (int e = T + l; e < Tp; e += G) {
+                    cholp[((size_t)t * Tp + e) * Bs + b] = real(0);
+                    if (GAIN) gainp[((size_t)t * Tp + e) * Bs + b] = real(0);
+                }
+            }
+            __syncthreads();
         }
     }
 }
 
-// gainp: null for the chol-only form (emit_gain=False).
+// plan[0..7] = threads per problem G, problems per block Q, waypoints per
+// window TW, windows, shared bytes, blocks, threads per block, and the
+// shared bytes planned for.  budget / sms <= 0: the current device's (the
+// host-emulation tests pass a small budget to reach several windows).
+extern "C" int kkt_factor_plan(int W, int B, int budget, int sms,
+                               long long* plan) {
+    int dev_smem = 0, dev_sms = 0;
+    if (budget <= 0 || sms <= 0) {
+        const int err = lane_device_limits(&dev_smem, &dev_sms);
+        if (err != 0) return err;
+        if (budget <= 0) budget = dev_smem;
+        if (sms <= 0) sms = dev_sms;
+    }
+    const FactorPlan p = factor_plan_for(W, B, budget, sms);
+    const long long v[8] = {G,        p.Q,      p.TW,      p.windows,
+                            p.smem,   p.blocks, p.threads, budget};
+    for (int k = 0; k < 8; ++k) plan[k] = v[k];
+    return 0;
+}
+
+// gainp: null for the chol-only form (emit_gain=False).  budget: as
+// kkt_factor_plan.
 extern "C" int kkt_factor_launch(const void* coef, const void* rho,
                                  const void* pd, const void* pl, void* cholp,
                                  void* gainp, int W, int B, double sigma,
-                                 void* stream) {
-    const int grid = (B + LANE_BLOCK - 1) / LANE_BLOCK;
-    LANE_LAUNCH(kkt_factor_kernel, grid, LANE_BLOCK, stream,
-                (const real*)coef, (const real*)rho, (const real*)pd,
-                (const real*)pl, (real*)cholp, (real*)gainp, W, B,
-                (real)sigma);
-    return LANE_LAST_ERROR();
+                                 int budget, void* stream) {
+    int dev_smem = 0, sms = 0;
+    const int err = lane_device_limits(&dev_smem, &sms);
+    if (err != 0) return err;
+    if (budget <= 0) budget = dev_smem;
+    const FactorPlan p = factor_plan_for(W, B, budget, sms);
+    if (p.TW == 0 || p.smem > dev_smem) return -1;
+#define LANE_FACTOR_ARGS                                                      \
+    (const real*)coef, (const real*)rho, (const real*)pd, (const real*)pl,    \
+        (real*)cholp, (real*)gainp, W, B, (real)sigma, p.qlog, p.TW
+    if (gainp == nullptr)
+        return lane_launch_coop(&kkt_factor_kernel<false>, p.blocks,
+                                p.threads, p.threads, p.smem, stream,
+                                LANE_FACTOR_ARGS);
+    return lane_launch_coop(&kkt_factor_kernel<true>, p.blocks, p.threads,
+                            p.threads, p.smem, stream, LANE_FACTOR_ARGS);
+#undef LANE_FACTOR_ARGS
 }

@@ -1,5 +1,5 @@
-// Modified Ruiz equilibration, all passes in one launch, one thread per
-// problem.
+// Modified Ruiz equilibration, all passes in one launch: a group of threads
+// per problem, the waypoints of a pass in parallel.
 //
 // Replaces the Pallas kernel of osqp_solver_tpu/ops/ruiz_pallas.py
 // (ruiz_equilibrate_lane_kernel, body _make_kernel): vel-diag P, or with
@@ -8,27 +8,48 @@
 //
 // Inputs are absolute values: |coef| (W, CRp, B), |Pd|, |Pl| (W, PNp, B; last
 // |Pl| row zero; BLOCK_P: full blocks (W, 2N, 2N, B), the last |Pl| block
-// zero), |q| (W, 2N, B).  D (2, W, 2N, B) and E (2, W, Rp, B) are
-// ping-pong buffers, slot 0 initialised to ones by the caller: pass k reads
-// slot k%2 and writes slot (k+1)%2, so every row and column maximum of a pass
-// sees the OLD D/E of all neighbouring waypoints (a Jacobi sweep, as the
-// reference computes it).  Only the cost normalisation uses the NEW D, carried
-// one waypoint back in registers, with the old c.  Scaled magnitudes keep the
-// grouping (|a| * e) * d of scale_data.  c (B,) is written at the end.
+// zero), |q| (W, 2N, B).  Outputs: D (W, 2N, B), E (W, Rp, B) (pad rows 1)
+// and c (B,), written once at the end.
 //
-// Bound: each thread walks W waypoints serially per pass; the streamed bytes
-// are small, so the kernel is bound by that walk's latency.  Every load of a
-// step is issued at its top (the u-1 values are carried in registers, the u+1
-// index is clamped), so a step waits for memory once and not once per branch.
+// Each pass is a Jacobi sweep, as the reference computes it: every row and
+// column maximum reads the OLD D/E of the neighbouring waypoints, so the new
+// D/E of waypoint u depend only on the old D/E of u-1, u and u+1, and all W
+// waypoints of a pass are independent.  Only the cost normalisation reduces
+// over W: the mean of the limited P column maxima under the NEW D (which
+// need the new D of u-1, u and u+1) and the max of |c D q|, with the old c.
+// Scaled magnitudes keep the grouping (|a| * e) * d of scale_data and
+// ((c d_i) |P_ij|) d_j of the reference.
 //
-// BLOCK_P: the P blocks are 4 x 144 values a step (|Pd_u| twice, |Pl_u|,
-// |Pl_{u-1}|), too many for registers, so they are read at the point of use
-// (the second reads of a step hit L1).  What waypoint u needs of |Pl_{u-1}|
-// under the OLD D — its row maxima weighted by D_{u-1} — is formed at step u-1
-// while |Pl_{u-1}| is read for the lower-column term, and carried (2N values);
-// the cost normalisation, which needs the NEW D of u, reads |Pl_{u-1}| again.
-// The block packs are ~30x the vel-diag bytes (2 x 59 MB at W=100, N=6,
-// B=1024) and are streamed every pass.
+// Design (Hopper).  One thread per problem walked W waypoints per pass, W
+// dependent steps, on 32 single-warp blocks (100 of 132 SMs idle at
+// B = 1024).  Here:
+//   - a group of G threads works on each problem and deals its waypoints out
+//     in contiguous runs of rpt (the last run may be shorter); a block holds
+//     Q adjacent problems with the problem index fastest among a warp's
+//     lanes, so a row's loads and stores of Q problems are adjacent values;
+//   - the constant rows (|coef|, |Pd|, |Pl|, |q|) of every waypoint are
+//     copied into shared memory once (cp.async) and read from there in every
+//     pass; D and E live in shared memory too, [row][waypoint][problem];
+//   - a pass: each thread reads the old values it needs of the waypoints
+//     just outside its run (D of both neighbours, E of the one before),
+//     barrier; it rewrites its run's D/E in place, waypoint by waypoint,
+//     carrying the old values of the waypoint before in registers; barrier;
+//     each thread forms the cost normalisation's terms over its run from the
+//     new D; the group sums them (butterfly shuffles within a warp, then one
+//     value per warp through shared memory, added in a fixed order by every
+//     thread, so all threads of a problem hold the same c); barrier;
+//   - G, rpt, Q and where the rows live are planned at each launch from W,
+//     B, the shared memory a block may use and the SM count (ruiz_plan):
+//     constants and D/E in shared memory while they fit, else D/E alone
+//     (the constants read from the packs in device memory), else neither
+//     (D/E in the output arrays), so every W >= 4 runs.
+// BLOCK_P: the four 12 x 12 |P| blocks of a waypoint cannot stay on chip, so
+// they are read from the packs at the point of use (2 x 59 MB at W=100, N=6,
+// B=1024, read several times a pass through L2).
+// Bound: the vel-diag build by reading its packs once (the passes run on
+// chip); the block build by the |P| block reads.  PERF.md records the times.
+#include <type_traits>
+
 #include "lane_common.cuh"
 
 #ifndef BLOCK_P
@@ -39,305 +60,461 @@ constexpr int PB = B2 * B2;  // entries of one full P block (BLOCK_P packs)
 constexpr real MIN_SCALING = real(1e-4);
 constexpr real MAX_SCALING = real(1e4);
 
-__device__ __forceinline__ real limit_scaling(real x) {
+// Threads per block at most: 512 (128 registers a thread) with every row in
+// shared memory; 256 (255 registers) where rows are read from the packs in
+// device memory (64-bit addresses) and in the block build; problems per
+// block at most (log2).
+__host__ __device__ constexpr int max_threads(bool ksm) {
+    return ksm && !BLOCK_P ? 512 : 256;
+}
+constexpr int QLOG_MAX = 3;
+
+// Rows of the state: D (2N) then E (the R real rows; the pad rows are 1).
+constexpr int S_D = 0, S_E = B2, SROWS = B2 + R;
+// Constant rows kept on chip: |coef| (the CR real rows), the velocity
+// diagonals of |Pd| and |Pl| (vel-diag), |q|.
+#if BLOCK_P
+constexpr int K_CF = 0, K_Q = CR, KROWS = CR + B2;
+#else
+constexpr int K_CF = 0, K_PD = CR, K_PL = CR + N, K_Q = CR + 2 * N,
+              KROWS = CR + 2 * N + B2;
+#endif
+
+__host__ __device__ __forceinline__ real limit_scaling(real x) {
     x = x < MIN_SCALING ? real(1) : x;
-    return rmin(x, MAX_SCALING);
+    return x < MAX_SCALING ? x : MAX_SCALING;
 }
 
 __device__ __forceinline__ real inv_sqrt_limit(real x) {
     return real(1) / sqrt(limit_scaling(x));
 }
 
-__global__ void ruiz_kernel(const real* __restrict__ ac_,
-                            const real* __restrict__ apd_,
-                            const real* __restrict__ apl_,
-                            const real* __restrict__ aq_, real* Dbuf,
-                            real* Ebuf, real* c_out, int W, int B, int iters) {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
-    const size_t Bs = (size_t)B;
-    const Pack ac{ac_, Bs, b}, apd{apd_, Bs, b}, apl{apl_, Bs, b},
-        aq{aq_, Bs, b};
-    const size_t dslot = (size_t)W * B2 * Bs, eslot = (size_t)W * Rp * Bs;
-    real c = real(1);
+// Row r of waypoint u of one problem: in shared memory ([row][u][Q], I =
+// int) or in a (W, rows, B) pack in device memory (I = long long).
+template <class I>
+struct View {
+    real* p;
+    I su, sr;
+    __device__ __forceinline__ real& operator()(int u, int r) const {
+        return p[u * su + r * sr];
+    }
+};
 
-    for (int it = 0; it < iters; ++it) {
-        const Pack Do{Dbuf + (it % 2) * dslot, Bs, b};
-        const Pack Eo{Ebuf + (it % 2) * eslot, Bs, b};
-        real* Dn_out = Dbuf + ((it + 1) % 2) * dslot;
-        real* En_out = Ebuf + ((it + 1) % 2) * eslot;
+// ---------------------------------------------------------------- the plan
 
-        real gsum = real(0), gqmax = real(0);
-#if BLOCK_P
-        // New D, P partial (diagonal + lower-row terms) and old-D lower-row
-        // maxima of waypoint u-1 (the last for waypoint u), and its old |c1|,
-        // |a0| and their E rows: zero at u = 0, where they multiply into a
-        // max with non-negative terms and so drop out.
-        real Dn_prev[B2], gpart[B2], prow[B2];
-        real c1_p[N], a0_p[N], edyn_p[N], eacc_p[N];
-#pragma unroll
-        for (int i = 0; i < B2; ++i) Dn_prev[i] = gpart[i] = prow[i] = real(0);
-#pragma unroll
-        for (int j = 0; j < N; ++j)
-            c1_p[j] = a0_p[j] = edyn_p[j] = eacc_p[j] = real(0);
-#else
-        real Dn_prev[N], gpart[N];  // new Dv and P partial of waypoint u-1
-        // Old (this pass's input) values of waypoint u-1, carried in registers
-        // so that no load sits behind a branch: |c1|, |a0|, their E rows, |Pl|
-        // and the old Dv.  Zero at u = 0, where they multiply into a max
-        // with non-negative terms and so drop out.
-        real c1_p[N], a0_p[N], edyn_p[N], eacc_p[N], apl_p[N], dv_p[N];
-#pragma unroll
-        for (int j = 0; j < N; ++j) {
-            Dn_prev[j] = gpart[j] = real(0);
-            c1_p[j] = a0_p[j] = edyn_p[j] = eacc_p[j] = apl_p[j] = dv_p[j] =
-                real(0);
+struct RuizPlan {
+    int G, Q, qlog, rpt, ksm, ssm, smem, blocks, threads, np;
+};
+
+static RuizPlan ruiz_plan_for(int W, int B, int budget, int max_thr,
+                              int sms) {
+    RuizPlan p{};
+    for (int place = 0; place < 3; ++place) {
+        const int ksm = place == 0, ssm = place <= 1;
+        int threads = max_threads(ksm);
+        if (max_thr > 0 && max_thr < threads) threads = max_thr;
+        for (int qlog = QLOG_MAX; qlog >= 0; --qlog) {
+            const int Q = 1 << qlog;
+            const long long blocks = (B + Q - 1) / Q;
+            // A small batch spreads over the SMs.
+            if (qlog > 0 && 8 * blocks < 7LL * sms) continue;
+            const int L = LANE_WARP / Q > 1 ? LANE_WARP / Q : 1;
+            const int gmax = threads / Q / L * L;
+            if (gmax < L) continue;
+            const int rpt = (W + gmax - 1) / gmax;
+            const int runs = (W + rpt - 1) / rpt;
+            const int G = (runs + L - 1) / L * L;
+            const long long vals = (long long)W * Q *
+                                       ((ksm ? KROWS : 0) + (ssm ? SROWS : 0)) +
+                                   2LL * (G / L) * Q;
+            const long long bytes = vals * (long long)sizeof(real);
+            if (bytes > budget && place < 2) continue;
+            p = RuizPlan{G, Q, qlog, rpt, ksm, ssm, (int)bytes, (int)blocks,
+                         G * Q, G / L};
+            return p;
         }
+    }
+    return p;
+}
+
+// --------------------------------------------------------------- the kernel
+
+template <bool KSM, bool SSM>
+__global__ void __launch_bounds__(max_threads(KSM), 1)
+    ruiz_kernel(const real* __restrict__ ac_, const real* __restrict__ apd_,
+                const real* __restrict__ apl_, const real* __restrict__ aq_,
+                real* Dout, real* Eout, real* c_out, int W, int B, int iters,
+                int qlog, int G, int rpt) {
+    using KI = typename std::conditional<KSM, int, long long>::type;
+    using SI = typename std::conditional<SSM, int, long long>::type;
+    LANE_SMEM_DECL();
+    const int Q = 1 << qlog, WQ = W * Q;
+    const int tid = threadIdx.x, nthreads = G << qlog;
+    const int q = tid & (Q - 1), g = tid >> qlog;
+    const int b0 = blockIdx.x << qlog, b = b0 + q;
+    const bool valid = b < B;
+    const size_t Bs = (size_t)B;
+    const int L = LANE_WARP >> qlog > 1 ? LANE_WARP >> qlog : 1;
+    const int np = G / L;
+    // This thread's run of waypoints (empty for the problems past B).
+    const int u0 = g * rpt;
+    const int u1 = valid ? (u0 + rpt < W ? u0 + rpt : W) : u0;
+
+    real* ks = lane_smem;
+    real* ss = ks + (KSM ? KROWS * WQ : 0);
+    real* red = ss + (SSM ? SROWS * WQ : 0);
+
+    // ---- the views of this problem's rows
+    View<KI> cf, aq;
+#if !BLOCK_P
+    View<KI> pd, pl;
+#endif
+    if constexpr (KSM) {
+        cf = {ks + K_CF * WQ + q, Q, WQ};
+        aq = {ks + K_Q * WQ + q, Q, WQ};
+#if !BLOCK_P
+        pd = {ks + K_PD * WQ + q, Q, WQ};
+        pl = {ks + K_PL * WQ + q, Q, WQ};
+#endif
+    } else {
+        cf = {const_cast<real*>(ac_) + b, (KI)CRp * B, (KI)B};
+        aq = {const_cast<real*>(aq_) + b, (KI)B2 * B, (KI)B};
+#if !BLOCK_P
+        pd = {const_cast<real*>(apd_) + b, (KI)PNp * B, (KI)B};
+        pl = {const_cast<real*>(apl_) + b, (KI)PNp * B, (KI)B};
+#endif
+    }
+    View<SI> D, E;
+    if constexpr (SSM) {
+        D = {ss + S_D * WQ + q, Q, WQ};
+        E = {ss + S_E * WQ + q, Q, WQ};
+    } else {
+        D = {Dout + b, (SI)B2 * B, (SI)B};
+        E = {Eout + b, (SI)Rp * B, (SI)B};
+    }
+#if BLOCK_P
+    const Pack pdb{apd_, Bs, b}, plb{apl_, Bs, b};
 #endif
 
-        for (int u = 0; u < W; ++u) {
-            const bool have_next = u + 1 < W;
-            const int un = have_next ? u + 1 : u;  // clamped: loaded always
-            // Every load of the step is issued here, up front.
-            real Du[B2], Dnx[B2], Eu[R], a[CR], aqu[B2];
+    // ---- stage the constant rows (row by row: the source is uniform across
+    // the block); D = E = 1
+    if constexpr (KSM) {
+        for (int row = 0; row < KROWS; ++row) {
+            const real* src;
+            size_t us;  // waypoint stride of the source pack
+            if (row < K_CF + CR) {
+                src = ac_ + (size_t)(row - K_CF) * Bs;
+                us = (size_t)CRp * Bs;
 #if !BLOCK_P
-            real pdu[N], plu[N];
+            } else if (row < K_PD + N) {
+                src = apd_ + (size_t)(row - K_PD) * Bs;
+                us = (size_t)PNp * Bs;
+            } else if (row < K_PL + N) {
+                src = apl_ + (size_t)(row - K_PL) * Bs;
+                us = (size_t)PNp * Bs;
 #endif
+            } else {
+                src = aq_ + (size_t)(row - K_Q) * Bs;
+                us = (size_t)B2 * Bs;
+            }
+            for (int u = g; u < W; u += G) {
+                real* dst = ks + (row * W + u) * Q + q;
+                if (valid)
+                    cp_async4(dst, src + u * us + b);
+                else
+                    *dst = real(0);
+            }
+        }
+        cp_async_commit();
+    }
+    if constexpr (SSM) {
+        for (int i = tid; i < SROWS * WQ; i += nthreads) ss[i] = real(1);
+    } else if (valid) {
+        for (int i = g; i < W * B2; i += G) Dout[(size_t)i * Bs + b] = real(1);
+        for (int i = g; i < W * Rp; i += G) Eout[(size_t)i * Bs + b] = real(1);
+    }
+    if constexpr (KSM) cp_async_wait<0>();
+    __syncthreads();
+
+    real c = real(1);
+    for (int it = 0; it < iters; ++it) {
+        // ---- 1. the old values this run needs from its neighbours' runs:
+        // D (Dv alone for vel-diag P) and the dyn/acc E rows of the waypoint
+        // before it, D of the waypoint after it (zero where there is none).
+        real pD[B2], pedyn[N], peacc[N], nD[B2];
+#pragma unroll
+        for (int i = 0; i < B2; ++i) pD[i] = nD[i] = real(0);
+#pragma unroll
+        for (int j = 0; j < N; ++j) pedyn[j] = peacc[j] = real(0);
+        if (u0 < u1) {
+            if (u0 > 0) {
+#pragma unroll
+                for (int i = BLOCK_P ? 0 : N; i < B2; ++i)
+                    pD[i] = D(u0 - 1, i);
+#pragma unroll
+                for (int j = 0; j < N; ++j) {
+                    pedyn[j] = E(u0 - 1, R_DYN + j);
+                    peacc[j] = E(u0 - 1, R_ACC + j);
+                }
+            }
+            if (u1 < W) {
+#pragma unroll
+                for (int i = 0; i < B2; ++i) nD[i] = D(u1, i);
+            }
+        }
+        __syncthreads();
+
+        // ---- 2. new D and E of the run, in place, waypoint by waypoint; the
+        // old values of the waypoint before are carried in registers.
+        for (int u = u0; u < u1; ++u) {
+            const bool has_prev = u > 0, has_next = u + 1 < W;
+            real Du[B2], Dx[B2], ex[NX > 0 ? NX : 1];
 #pragma unroll
             for (int i = 0; i < B2; ++i) {
-                Du[i] = Do(u, B2, i);
-                Dnx[i] = Do(un, B2, i);
-                aqu[i] = aq(u, B2, i);
+                Du[i] = D(u, i);
+                Dx[i] = u + 1 < u1 ? D(u + 1, i) : nD[i];
             }
 #pragma unroll
-            for (int r = 0; r < R; ++r) Eu[r] = Eo(u, Rp, r);
-#pragma unroll
-            for (int k = 0; k < CR; ++k) a[k] = ac(u, CRp, k);
-#if !BLOCK_P
-#pragma unroll
-            for (int j = 0; j < N; ++j) {
-                pdu[j] = apd(u, PNp, j);
-                plu[j] = apl(u, PNp, j);
-            }
-#else
+            for (int k = 0; k < NX; ++k) ex[k] = E(u, R_X + k);
+#if BLOCK_P
             // P column maxima of waypoint u (old D / c): the diagonal block,
-            // the carried lower-row term of |Pl_{u-1}|, the lower-column term
-            // of |Pl_u| with the old D of u+1 (the pad block is zero at
-            // u = W-1).  Grouping as the reference: (c d_i |P_ij|) d_j.
-            real pcb[B2], prow_n[B2];
+            // the row maxima of |Pl_{u-1}| under the old D of u-1, and the
+            // lower-column term of |Pl_u| with the old D of u+1.
+            real pcb[B2];
             {
-                real cd[B2], cdn[B2];
+                real prow[B2];
 #pragma unroll
-                for (int i = 0; i < B2; ++i) {
-                    cd[i] = c * Du[i];
-                    cdn[i] = c * Dnx[i];
+                for (int ii = 0; ii < B2; ++ii) {
+                    real r = real(0);
+                    if (has_prev) {
+#pragma unroll
+                        for (int jx = 0; jx < B2; ++jx)
+                            r = rmax(r, plb(u - 1, PB, ii * B2 + jx) * pD[jx]);
+                    }
+                    prow[ii] = r;
                 }
 #pragma unroll
                 for (int jj = 0; jj < B2; ++jj) {
                     real acc = real(0), accc = real(0);
 #pragma unroll
                     for (int ii = 0; ii < B2; ++ii) {
-                        acc = rmax(acc, cd[ii] * apd(u, PB, ii * B2 + jj));
-                        accc = rmax(accc, cdn[ii] * apl(u, PB, ii * B2 + jj));
+                        acc = rmax(acc, (c * Du[ii]) * pdb(u, PB, ii * B2 + jj));
+                        if (has_next)
+                            accc = rmax(accc,
+                                        (c * Dx[ii]) * plb(u, PB, ii * B2 + jj));
                     }
                     real pc = acc * Du[jj];
                     pc = rmax(pc, prow[jj] * (c * Du[jj]));
                     pcb[jj] = rmax(pc, accc * Du[jj]);
                 }
-                // Row maxima of |Pl_u| under the old D of u: waypoint u+1's
-                // lower-row term, carried.
-#pragma unroll
-                for (int ii = 0; ii < B2; ++ii) {
-                    real r = real(0);
-#pragma unroll
-                    for (int jx = 0; jx < B2; ++jx)
-                        r = rmax(r, apl(u, PB, ii * B2 + jx) * Du[jx]);
-                    prow_n[ii] = r;
-                }
             }
 #endif
-
-            real Dn[B2];
-            real rowmax[R];
 #pragma unroll
             for (int j = 0; j < N; ++j) {
                 const real dq = Du[j], dv = Du[N + j];
+                const real edyn = E(u, R_DYN + j), epos = E(u, R_POS + j);
+                const real evel = E(u, R_VEL + j), eacc = E(u, R_ACC + j);
                 // Scaled magnitudes of this waypoint's stencil rows.
-                const real s_pos = a[C_POS + j] * Eu[R_POS + j] * dq;
-                const real s_c2 = a[C_C2 + j] * Eu[R_DYN + j] * dq;
-                const real s_c0 = a[C_C0 + j] * Eu[R_DYN + j] * dv;
-                const real s_vel = a[C_VEL + j] * Eu[R_VEL + j] * dv;
-                const real s_a1 = a[C_A1 + j] * Eu[R_ACC + j] * dv;
+                const real s_pos = cf(u, C_POS + j) * epos * dq;
+                const real s_c2 = cf(u, C_C2 + j) * edyn * dq;
+                const real s_c0 = cf(u, C_C0 + j) * edyn * dv;
+                const real s_vel = cf(u, C_VEL + j) * evel * dv;
+                const real s_a1 = cf(u, C_A1 + j) * eacc * dv;
 
-                // ---- column maxima of waypoint u (A + P, old D / c); the
-                // u-1 terms are zero at u = 0.
+                // column maxima of waypoint u (A + P, old D / c)
                 real cq = rmax(s_pos, s_c2);
                 real cv = rmax(rmax(s_vel, s_c0), s_a1);
-                cq = rmax(cq, c1_p[j] * edyn_p[j] * dq);
-                cv = rmax(cv, a0_p[j] * eacc_p[j] * dv);
+                if (has_prev) {
+                    cq = rmax(cq, cf(u - 1, C_C1 + j) * pedyn[j] * dq);
+                    cv = rmax(cv, cf(u - 1, C_A0 + j) * peacc[j] * dv);
+                }
 #pragma unroll
                 for (int k = 0; k < NX; ++k)
-                    cq = rmax(cq, a[C_X + k * N + j] * Eu[R_X + k] * dq);
+                    cq = rmax(cq, cf(u, C_X + k * N + j) * ex[k] * dq);
 #if BLOCK_P
                 cq = rmax(cq, pcb[j]);
                 cv = rmax(cv, pcb[N + j]);
 #else
-                real pcol = ((c * dv) * pdu[j]) * dv;
-                pcol = rmax(pcol, (apl_p[j] * dv_p[j]) * (c * dv));
-                if (have_next)
-                    pcol = rmax(pcol, ((c * Dnx[N + j]) * plu[j]) * dv);
+                real pcol = ((c * dv) * pd(u, j)) * dv;
+                if (has_prev)
+                    pcol = rmax(pcol, (pl(u - 1, j) * pD[N + j]) * (c * dv));
+                if (has_next)
+                    pcol = rmax(pcol, ((c * Dx[N + j]) * pl(u, j)) * dv);
                 cv = rmax(cv, pcol);
 #endif
-                Dn[j] = dq * inv_sqrt_limit(cq);
-                Dn[N + j] = dv * inv_sqrt_limit(cv);
+                D(u, j) = dq * inv_sqrt_limit(cq);
+                D(u, N + j) = dv * inv_sqrt_limit(cv);
 
-                // ---- row maxima of waypoint u (old D / E)
+                // row maxima of waypoint u (old D / E)
                 real rd = rmax(s_c0, s_c2);
                 real ra = s_a1;
-                if (have_next) {
-                    rd = rmax(rd, a[C_C1 + j] * Eu[R_DYN + j] * Dnx[j]);
-                    ra = rmax(ra, a[C_A0 + j] * Eu[R_ACC + j] * Dnx[N + j]);
+                if (has_next) {
+                    rd = rmax(rd, cf(u, C_C1 + j) * edyn * Dx[j]);
+                    ra = rmax(ra, cf(u, C_A0 + j) * eacc * Dx[N + j]);
                 }
-                rowmax[R_DYN + j] = rd;
-                rowmax[R_POS + j] = s_pos;
-                rowmax[R_VEL + j] = s_vel;
-                rowmax[R_ACC + j] = ra;
+                E(u, R_DYN + j) = edyn * inv_sqrt_limit(rd);
+                E(u, R_POS + j) = epos * inv_sqrt_limit(s_pos);
+                E(u, R_VEL + j) = evel * inv_sqrt_limit(s_vel);
+                E(u, R_ACC + j) = eacc * inv_sqrt_limit(ra);
+                pedyn[j] = edyn;
+                peacc[j] = eacc;
             }
 #pragma unroll
             for (int k = 0; k < NX; ++k) {
                 real m = real(0);
 #pragma unroll
                 for (int j = 0; j < N; ++j)
-                    m = rmax(m, a[C_X + k * N + j] * Eu[R_X + k] * Du[j]);
-                rowmax[R_X + k] = m;
+                    m = rmax(m, cf(u, C_X + k * N + j) * ex[k] * Du[j]);
+                E(u, R_X + k) = ex[k] * inv_sqrt_limit(m);
             }
+#pragma unroll
+            for (int i = 0; i < B2; ++i) pD[i] = Du[i];
+        }
+        __syncthreads();
 
-            // ---- new D / E of waypoint u into the other slot
+        // ---- 3. cost normalisation terms of the run (new D, old c)
+        real gsum = real(0), gqmax = real(0);
+        for (int u = u0; u < u1; ++u) {
+            const bool has_prev = u > 0, has_next = u + 1 < W;
+            real Dn[B2];
 #pragma unroll
-            for (int i = 0; i < B2; ++i)
-                Dn_out[((size_t)u * B2 + i) * Bs + b] = Dn[i];
-#pragma unroll
-            for (int r = 0; r < R; ++r)
-                En_out[((size_t)u * Rp + r) * Bs + b] =
-                    Eu[r] * inv_sqrt_limit(rowmax[r]);
-#pragma unroll
-            for (int r = R; r < Rp; ++r)  // pad rows: zero row, E stays 1
-                En_out[((size_t)u * Rp + r) * Bs + b] = real(1);
-
-            // ---- cost normalisation (new D, old c), one waypoint delayed:
-            // the P column of u-1 needs the new D of u.
+            for (int i = 0; i < B2; ++i) Dn[i] = D(u, i);
 #if BLOCK_P
-            real cdn_new[B2];
+            real Dp[B2], Dx[B2];
 #pragma unroll
-            for (int i = 0; i < B2; ++i) cdn_new[i] = c * Dn[i];
-            real growp[B2];  // lower-row maxima of |Pl_{u-1}| under new D
-#pragma unroll
-            for (int i = 0; i < B2; ++i) growp[i] = real(0);
-            if (u >= 1) {
-                real add = real(0);
-#pragma unroll
-                for (int jj = 0; jj < B2; ++jj) {
-                    real accc = real(0);
-#pragma unroll
-                    for (int ii = 0; ii < B2; ++ii)
-                        accc = rmax(accc,
-                                    cdn_new[ii] * apl(u - 1, PB, ii * B2 + jj));
-                    add = add + limit_scaling(
-                                    rmax(gpart[jj], accc * Dn_prev[jj]));
-                }
-                gsum = gsum + add;
-#pragma unroll
-                for (int jj = 0; jj < B2; ++jj) {
-                    real r = real(0);
-#pragma unroll
-                    for (int jx = 0; jx < B2; ++jx)
-                        r = rmax(r, apl(u - 1, PB, jj * B2 + jx) * Dn_prev[jx]);
-                    growp[jj] = r;
-                }
+            for (int i = 0; i < B2; ++i) {
+                Dp[i] = has_prev ? D(u - 1, i) : real(0);
+                Dx[i] = has_next ? D(u + 1, i) : real(0);
             }
-            real qadd = real(0);
-#pragma unroll
-            for (int i = 0; i < B2; ++i) qadd = rmax(qadd, cdn_new[i] * aqu[i]);
-            gqmax = rmax(gqmax, qadd);
+            real add = real(0);
 #pragma unroll
             for (int jj = 0; jj < B2; ++jj) {
                 real acc = real(0);
 #pragma unroll
                 for (int ii = 0; ii < B2; ++ii)
-                    acc = rmax(acc, cdn_new[ii] * apd(u, PB, ii * B2 + jj));
-                // zero at u = 0 (growp = 0)
-                gpart[jj] = rmax(acc * Dn[jj], growp[jj] * (c * Dn[jj]));
-            }
+                    acc = rmax(acc, (c * Dn[ii]) * pdb(u, PB, ii * B2 + jj));
+                real pc = acc * Dn[jj];
+                if (has_prev) {
+                    real r = real(0);
 #pragma unroll
-            for (int i = 0; i < B2; ++i) {
-                Dn_prev[i] = Dn[i];
-                prow[i] = prow_n[i];
-            }
-#pragma unroll
-            for (int j = 0; j < N; ++j) {
-                c1_p[j] = a[C_C1 + j];
-                a0_p[j] = a[C_A0 + j];
-                edyn_p[j] = Eu[R_DYN + j];
-                eacc_p[j] = Eu[R_ACC + j];
-            }
-#else
-            // q columns carry no P entry and add limit(0) = 1 each to the mean.
-            if (u >= 1) {
-                real add = real(N);
-#pragma unroll
-                for (int j = 0; j < N; ++j) {
-                    const real lowcol =
-                        ((c * Dn[N + j]) * apl_p[j]) * Dn_prev[j];
-                    add = add + limit_scaling(rmax(gpart[j], lowcol));
+                    for (int jx = 0; jx < B2; ++jx)
+                        r = rmax(r, plb(u - 1, PB, jj * B2 + jx) * Dp[jx]);
+                    pc = rmax(pc, r * (c * Dn[jj]));
                 }
-                gsum = gsum + add;
+                if (has_next) {
+                    real accc = real(0);
+#pragma unroll
+                    for (int ii = 0; ii < B2; ++ii)
+                        accc = rmax(accc,
+                                    (c * Dx[ii]) * plb(u, PB, ii * B2 + jj));
+                    pc = rmax(pc, accc * Dn[jj]);
+                }
+                add = add + limit_scaling(pc);
             }
-            real qadd = real(0);
-#pragma unroll
-            for (int i = 0; i < B2; ++i)
-                qadd = rmax(qadd, (c * Dn[i]) * aqu[i]);
-            gqmax = rmax(gqmax, qadd);
-#pragma unroll
-            for (int j = 0; j < N; ++j) {
-                real g = ((c * Dn[N + j]) * pdu[j]) * Dn[N + j];
-                // zero at u = 0 (apl_p = 0)
-                g = rmax(g, (apl_p[j] * Dn_prev[j]) * (c * Dn[N + j]));
-                gpart[j] = g;
-                Dn_prev[j] = Dn[N + j];
-                c1_p[j] = a[C_C1 + j];
-                a0_p[j] = a[C_A0 + j];
-                edyn_p[j] = Eu[R_DYN + j];
-                eacc_p[j] = Eu[R_ACC + j];
-                apl_p[j] = plu[j];
-                dv_p[j] = Du[N + j];
-            }
-#endif
-        }
-        {   // finish the last waypoint: no lower-column term
-#if BLOCK_P
-            real add = real(0);
-#pragma unroll
-            for (int j = 0; j < B2; ++j) add = add + limit_scaling(gpart[j]);
 #else
+            // q columns carry no P entry and add limit(0) = 1 each.
             real add = real(N);
 #pragma unroll
-            for (int j = 0; j < N; ++j) add = add + limit_scaling(gpart[j]);
+            for (int j = 0; j < N; ++j) {
+                const real dv = Dn[N + j];
+                real pc = ((c * dv) * pd(u, j)) * dv;
+                if (has_prev)
+                    pc = rmax(pc, (pl(u - 1, j) * D(u - 1, N + j)) * (c * dv));
+                if (has_next)
+                    pc = rmax(pc, ((c * D(u + 1, N + j)) * pl(u, j)) * dv);
+                add = add + limit_scaling(pc);
+            }
 #endif
             gsum = gsum + add;
+            real qadd = real(0);
+#pragma unroll
+            for (int i = 0; i < B2; ++i) qadd = rmax(qadd, (c * Dn[i]) * aq(u, i));
+            gqmax = rmax(gqmax, qadd);
         }
-        const real gamma =
-            real(1) / limit_scaling(rmax(gsum / real(W * B2), gqmax));
-        c = c * gamma;
+
+        // ---- 4. the group's sum and max: within the warp (lanes of one
+        // problem are Q apart), then one value per warp, every thread adding
+        // them in the same order.
+        for (int m = Q; m < LANE_WARP; m <<= 1) {
+            gsum = gsum + lane_shfl_xor(gsum, m, tid / LANE_WARP, LANE_WARP);
+            gqmax = rmax(gqmax,
+                         lane_shfl_xor(gqmax, m, tid / LANE_WARP, LANE_WARP));
+        }
+        if (g % L == 0) {
+            red[(g / L) * Q + q] = gsum;
+            red[(np + g / L) * Q + q] = gqmax;
+        }
+        __syncthreads();
+        real s = real(0), mx = real(0);
+        for (int k = 0; k < np; ++k) {
+            s = s + red[k * Q + q];
+            mx = rmax(mx, red[(np + k) * Q + q]);
+        }
+        c = c * (real(1) / limit_scaling(rmax(s / real(W * B2), mx)));
     }
-    c_out[b] = c;
+
+    // ---- D, E (pad rows 1) and c out
+    if constexpr (SSM) {
+        if (valid) {
+            for (int u = g; u < W; u += G) {
+#pragma unroll
+                for (int i = 0; i < B2; ++i)
+                    Dout[((size_t)u * B2 + i) * Bs + b] = D(u, i);
+#pragma unroll
+                for (int r = 0; r < Rp; ++r)
+                    Eout[((size_t)u * Rp + r) * Bs + b] =
+                        r < R ? E(u, r) : real(1);
+            }
+        }
+    }
+    if (valid && g == 0) c_out[b] = c;
 }
 
+// plan[0..9] = threads per problem G, problems per block Q, waypoints per
+// thread rpt, constants in shared memory (0/1), D/E in shared memory (0/1),
+// shared bytes, blocks, threads per block, partial sums per problem, and
+// the shared bytes planned for.  budget / sms <= 0: the current device's;
+// threads <= 0: the build's own cap (the host-emulation tests pass fewer, and a
+// small budget, to reach runs of several waypoints and the other
+// placements).
+extern "C" int ruiz_plan(int W, int B, int budget, int threads, int sms,
+                         long long* plan) {
+    int dev_smem = 0, dev_sms = 0;
+    if (budget <= 0 || sms <= 0) {
+        const int err = lane_device_limits(&dev_smem, &dev_sms);
+        if (err != 0) return err;
+        if (budget <= 0) budget = dev_smem;
+        if (sms <= 0) sms = dev_sms;
+    }
+    const RuizPlan p = ruiz_plan_for(W, B, budget, threads, sms);
+    const long long v[10] = {p.G,      p.Q,      p.rpt,     p.ksm, p.ssm,
+                             p.smem,   p.blocks, p.threads, p.np,  budget};
+    for (int k = 0; k < 10; ++k) plan[k] = v[k];
+    return 0;
+}
+
+// D (W, 2N, B), E (W, Rp, B), c (B,) are written whole.  budget, threads:
+// as ruiz_plan (<= 0: the device's, the build's own cap).
 extern "C" int ruiz_launch(const void* ac, const void* apd, const void* apl,
-                           const void* aq, void* Dbuf, void* Ebuf, void* c_out,
-                           int W, int B, int iters, void* stream) {
-    const int grid = (B + LANE_BLOCK - 1) / LANE_BLOCK;
-    LANE_LAUNCH(ruiz_kernel, grid, LANE_BLOCK, stream, (const real*)ac,
-                (const real*)apd, (const real*)apl, (const real*)aq,
-                (real*)Dbuf, (real*)Ebuf, (real*)c_out, W, B, iters);
-    return LANE_LAST_ERROR();
+                           const void* aq, void* D, void* E, void* c_out,
+                           int W, int B, int iters, int budget, int threads,
+                           void* stream) {
+    int dev_smem = 0, sms = 0;
+    const int err = lane_device_limits(&dev_smem, &sms);
+    if (err != 0) return err;
+    if (budget <= 0) budget = dev_smem;
+    const RuizPlan p = ruiz_plan_for(W, B, budget, threads, sms);
+    if (p.G == 0 || p.smem > dev_smem) return -1;
+#define LANE_RUIZ_ARGS                                                        \
+    (const real*)ac, (const real*)apd, (const real*)apl, (const real*)aq,     \
+        (real*)D, (real*)E, (real*)c_out, W, B, iters, p.qlog, p.G, p.rpt
+    if (p.ksm)
+        return lane_launch_coop(&ruiz_kernel<true, true>, p.blocks, p.threads,
+                                LANE_WARP, p.smem, stream, LANE_RUIZ_ARGS);
+    if (p.ssm)
+        return lane_launch_coop(&ruiz_kernel<false, true>, p.blocks, p.threads,
+                                LANE_WARP, p.smem, stream, LANE_RUIZ_ARGS);
+    return lane_launch_coop(&ruiz_kernel<false, false>, p.blocks, p.threads,
+                            LANE_WARP, p.smem, stream, LANE_RUIZ_ARGS);
+#undef LANE_RUIZ_ARGS
 }

@@ -6,16 +6,20 @@ Counterpart of ``osqp_solver_tpu/ops/kkt_factor_pallas.py``
 Kernel note (``csrc/kkt_factor.cu`` replaces the Pallas body
 ``kkt_factor_pallas.py::_make_kernel`` behind ``factor_packed_lane``).
 Every entry of ``P + σI + Aᵀdiag(ρ)A`` is a few multiplies of the
-per-waypoint stencil coefficients, so each 2N×2N block is assembled in
-registers from the ``(W, CRp, B)`` coefficient pack, the Schur step
-``S_t = M_t − G_{t-1}G_{t-1}ᵀ`` and the Cholesky run in place, and only the
+per-waypoint stencil coefficients, so each 2N×2N block is assembled on chip
+from the ``(W, CRp, B)`` coefficient pack, the Schur step
+``S_t = M_t − G_{t-1}G_{t-1}ᵀ`` and the Cholesky run on chip, and only the
 packed lower triangle is written (and, with ``emit_gain``, the packed upper
 triangle ``G_t`` the ``gain`` chunk form streams); the full blocks never
-exist in memory.  One thread owns one problem and walks the horizon;
-``G_{t-1}`` (78 packed values at N=6) is carried in registers beside the 78
-of ``C_t``.  Bound on an H100: a chain of W dependent 12×12 Cholesky
-steps per thread — latency, not bandwidth (it reads coef+ρ+Pd+Pl and writes
-Tp rows once) and not FLOP rate; small blocks spread B=1024 over the SMs.
+exist in memory.  A group of threads works on each problem and a block
+holds a few adjacent problems: the blocks of a window of waypoints are
+assembled at once, off the step chain, into shared memory; on the chain
+the group's lanes share the Schur update, each lane factors the whole
+block in its registers and lane ``i`` forms row ``i`` of ``G_t``.  The
+problems per block and the window are planned at each launch
+(:func:`plan`).  Bound on an H100: each problem's chain of W dependent
+12×12 steps — latency, not bandwidth (it reads coef+ρ+Pd+Pl and writes Tp
+rows once) and not FLOP rate.
 """
 from __future__ import annotations
 
@@ -55,19 +59,48 @@ def factor_packed_lane_plain(scaled, rho_vec, sigma, coef=None,
     return cholp, (gainp if emit_gain else None)
 
 
-def _launch_factor(lib, coef, rho3, Pd, Pl, cholp, sigma, gainp=None):
-    """Call the C entry point of ``csrc/kkt_factor.cu`` on packs of one
-    device; ``gainp`` (or ``None``) selects the gain write."""
-    W, _, B = cholp.shape
-    fn = lib.kkt_factor_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_void_p,
+def _configure(lib):
+    """Set the C signatures of a loaded ``csrc/kkt_factor.cu`` library
+    (once)."""
+    if lib.kkt_factor_launch.argtypes is None:
+        lib.kkt_factor_launch.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_int,
+            ctypes.c_void_p,
         ]
-        fn.restype = ctypes.c_int
+        lib.kkt_factor_launch.restype = ctypes.c_int
+        lib.kkt_factor_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.kkt_factor_plan.restype = ctypes.c_int
+    return lib
+
+
+PLAN_KEYS = ("G", "Q", "window", "windows", "shared_bytes", "blocks",
+             "threads_per_block", "budget")
+
+
+def plan(lib, W, B, budget=0, sms=0):
+    """The launch plan of ``csrc/kkt_factor.cu`` for ``W`` waypoints and a
+    batch of ``B``: threads per problem, problems per block, waypoints per
+    assembled window, windows, shared bytes, blocks, threads per block and
+    the shared bytes planned for (``budget`` / ``sms`` 0: the current
+    device's)."""
+    lib = _configure(lib)
+    out = (ctypes.c_longlong * len(PLAN_KEYS))()
+    _build.check(lib.kkt_factor_plan(W, B, budget, sms, out),
+                 "kkt_factor_plan")
+    return dict(zip(PLAN_KEYS, out))
+
+
+def _launch_factor(lib, coef, rho3, Pd, Pl, cholp, sigma, gainp=None,
+                   budget=0):
+    """Call the C entry point of ``csrc/kkt_factor.cu`` on packs of one
+    device; ``gainp`` (or ``None``) selects the gain write; ``budget``: the
+    shared bytes a block may use (0: the device's)."""
+    W, _, B = cholp.shape
+    lib = _configure(lib)
     p = _build.ptr
-    err = fn(p(coef), p(rho3), p(Pd), p(Pl), p(cholp), p(gainp), W, B,
-             float(sigma), _build.stream(cholp.device))
+    err = lib.kkt_factor_launch(p(coef), p(rho3), p(Pd), p(Pl), p(cholp),
+                                p(gainp), W, B, float(sigma), int(budget),
+                                _build.stream(cholp.device))
     _build.check(err, "kkt_factor_launch")
 
 

@@ -7,25 +7,26 @@ Counterpart of ``osqp_solver_tpu/ops/ruiz_pallas.py``
 Kernel note (``csrc/ruiz.cu`` replaces the Pallas body
 ``ruiz_pallas.py::_make_kernel``).  OSQP's modified Ruiz is a per-waypoint
 stencil: a row touches variables of waypoints (t, t+1), a column gathers
-rows of (t−1, t), and the vel-diag P adds columns of (t−1, t, t+1).  One
-thread owns one problem and runs every pass inside one launch.  Each pass is
-a JACOBI sweep — every row and column maximum reads the OLD D/E of all
-neighbours — so D and E ping-pong between two global buffers from pass to
-pass (a thread re-reading a neighbour it has just overwritten would compute
-a different, Gauss-Seidel, scaling); only the cost normalisation reads the
-new D, carried one waypoint back in registers, with the old ``c``.  Products
-keep the grouping of ``LaneTrajectoryQP.scale_data`` (``(|a|·e)·d``).  Bound
-on an H100: per pass it streams |coef|, |Pd|, |Pl|, |q| and D/E once in and
-D/E once out — a few MB at B=1024 — so memory time is microseconds and the
-kernel is bound by the latency of each thread's serial walk over W.
+rows of (t−1, t), and the vel-diag P adds columns of (t−1, t, t+1).  Each
+pass is a JACOBI sweep — every row and column maximum reads the OLD D/E of
+all neighbours — so the new D/E of every waypoint of a pass can be formed
+at once; only the cost normalisation (the new D, the old ``c``) reduces
+over the horizon.  A group of threads works on each problem, each thread on
+a contiguous run of waypoints, and a block holds a few adjacent problems;
+the constant rows and D/E stay in shared memory across all passes while
+they fit, and D, E and ``c`` are written once at the end.  The group size,
+the run length, the problems per block and where the rows live are planned
+at each launch (:func:`plan`).  Products keep the grouping of
+``LaneTrajectoryQP.scale_data`` (``(|a|·e)·d``); sums over the horizon are
+taken in another order than the plain version's (ulp-level differences).
+Bound on an H100: reading the packs once (a few tens of MB at B=1024).
 
 Block P (``p_structure="block"``, the reference's block branches): the
 build with ``-DBLOCK_P=1`` takes full ``|P_diag|`` and ``|P_lower|`` blocks
 ``(W, 2N, 2N, B)`` (the lower pack padded to W with a zero block) and forms
 the P column maxima over whole blocks; the cost normalisation averages all
-2N columns.  Those packs are ~30x the vel-diag bytes (2 x 59 MB at W=100,
-N=6, B=1024, f32), read every pass: the first lane kernel whose bytes are
-not negligible.
+2N columns.  Those packs (2 x 59 MB at W=100, N=6, B=1024, f32) are read
+from device memory at the point of use, several times a pass.
 """
 from __future__ import annotations
 
@@ -159,25 +160,52 @@ def ruiz_equilibrate_lane_plain(qp, iters: int = 10):
     return _finish(qp, *_ruiz_scalings_plain(qp, iters))
 
 
-def _launch_ruiz(lib, ac, aPd, aPl, aq, Dbuf, Ebuf, c, iters):
-    """Call the C entry point of ``csrc/ruiz.cu`` on packs of one device."""
-    _, W, _, B = Dbuf.shape
-    fn = lib.ruiz_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p
-        ]
-        fn.restype = ctypes.c_int
+def _configure(lib):
+    """Set the C signatures of a loaded ``csrc/ruiz.cu`` library (once)."""
+    if lib.ruiz_launch.argtypes is None:
+        lib.ruiz_launch.argtypes = [ctypes.c_void_p] * 7 + [
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.ruiz_launch.restype = ctypes.c_int
+        lib.ruiz_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.ruiz_plan.restype = ctypes.c_int
+    return lib
+
+
+PLAN_KEYS = ("G", "Q", "rpt", "constants_in_shared", "state_in_shared",
+             "shared_bytes", "blocks", "threads_per_block",
+             "partials_per_problem", "budget")
+
+
+def plan(lib, W, B, budget=0, threads=0, sms=0):
+    """The launch plan of ``csrc/ruiz.cu`` for ``W`` waypoints and a batch
+    of ``B``: threads per problem, problems per block, waypoints per thread,
+    whether the constant rows and D/E sit in shared memory, shared bytes,
+    blocks, threads per block, the group's partial sums and the shared bytes
+    planned for (``budget`` / ``sms`` 0: the current device's; ``threads``
+    per block at most, 0: the kernel's own limit)."""
+    lib = _configure(lib)
+    out = (ctypes.c_longlong * len(PLAN_KEYS))()
+    _build.check(lib.ruiz_plan(W, B, budget, threads, sms, out), "ruiz_plan")
+    return dict(zip(PLAN_KEYS, out))
+
+
+def _launch_ruiz(lib, ac, aPd, aPl, aq, D, E, c, iters, budget=0,
+                 threads=0):
+    """Call the C entry point of ``csrc/ruiz.cu`` on packs of one device;
+    ``budget``, ``threads``: as :func:`plan`."""
+    W, _, B = D.shape
+    lib = _configure(lib)
     p = _build.ptr
-    err = fn(p(ac), p(aPd), p(aPl), p(aq), p(Dbuf), p(Ebuf), p(c),
-             W, B, int(iters), _build.stream(c.device))
+    err = lib.ruiz_launch(p(ac), p(aPd), p(aPl), p(aq), p(D), p(E), p(c),
+                          W, B, int(iters), int(budget), int(threads),
+                          _build.stream(c.device))
     _build.check(err, "ruiz_launch")
 
 
 def _ruiz_kernel_packs(qp):
-    """The kernel's inputs and buffers: ``|coef|, |Pd|, |Pl|, |q|`` packs
-    (the P packs as the form of ``qp.p_structure`` takes them), the
-    ping-pong ``D``/``E`` buffers (ones) and the ``c`` output."""
+    """The kernel's inputs and outputs: ``|coef|, |Pd|, |Pl|, |q|`` packs
+    (the P packs as the form of ``qp.p_structure`` takes them) and the
+    ``D (W, 2N, B)``, ``E (W, Rp, B)``, ``c (B,)`` outputs."""
     from .admm_fused import build_coef_pack
     from .kkt_factor import build_p_vel_packs
 
@@ -191,16 +219,14 @@ def _ruiz_kernel_packs(qp):
         aPl = torch.cat([qp.P_lower.abs(),
                          qp.P_lower.new_zeros((1,) + qp.P_lower.shape[1:])])
     aq = qp._interleave(qp.q_vec).abs()
-    # Pass k reads slot k%2 and writes slot (k+1)%2.
-    Dbuf = torch.ones((2, W, 2 * qp.n_dim, B), **kw)
-    Ebuf = torch.ones((2, W, qp.rows_per_waypoint_padded, B), **kw)
+    D = torch.empty((W, 2 * qp.n_dim, B), **kw)
+    E = torch.empty((W, qp.rows_per_waypoint_padded, B), **kw)
     c = torch.empty((B,), **kw)
-    return ac, aPd, aPl, aq, Dbuf, Ebuf, c
+    return ac, aPd, aPl, aq, D, E, c
 
 
-def _unpack_scalings(qp, Dbuf, Ebuf, c, iters):
-    slot = iters % 2
-    return qp._deinterleave(Dbuf[slot]), Ebuf[slot].reshape(-1, qp.batch), c
+def _unpack_scalings(qp, D, E, c):
+    return qp._deinterleave(D), E.reshape(-1, qp.batch), c
 
 
 # The reference's Pallas Ruiz (ruiz_pallas.py:40-48) admits waypoint-layout
@@ -231,7 +257,7 @@ def ruiz_scalings_kernel(qp, iters: int):
     _launch_ruiz(_build.library("ruiz", sig), *packs, iters)
     ruiz_equilibrate_lane_kernel.launches += 1
     ruiz_equilibrate_lane_kernel.launches_block += sig["BLOCK_P"]
-    return _unpack_scalings(qp, *packs[4:], iters)
+    return _unpack_scalings(qp, *packs[4:])
 
 
 def ruiz_equilibrate_lane_kernel(qp, iters: int = 10):

@@ -34,7 +34,8 @@ from osqp_solver_tpu_torch.ops import ruiz_kernel as truiz
 
 from test_admm_fused import B, N, W, build_wp_batch
 from test_torch_helpers import (
-    assert_close, host_lib, random_lane_problem, t_, to_np, torch_lane,
+    RUIZ_CASES, RUIZ_PARAMS, assert_close, emulated_ruiz, host_lib,
+    random_lane_problem, t_, to_np, torch_lane,
 )
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -172,10 +173,10 @@ def test_block_p_residual_plain_matches_interpreted_kernel():
 # ------------------------------------------- CUDA sources in host emulation
 
 
-def _random_block_case(seed, flags=(False, True), n_obs=1, W=8):
-    """A random lane batch (B=8) with a symmetric random ``P_diag`` and an
+def _random_block_case(seed, flags=(False, True), n_obs=1, W=8, B=8):
+    """A random lane batch with a symmetric random ``P_diag`` and an
     upper-triangular random ``P_lower`` on top of its vel-diag P."""
-    static, arrays = random_lane_problem(seed, W=W, flags=flags,
+    static, arrays = random_lane_problem(seed, W=W, B=B, flags=flags,
                                          n_obs=n_obs)
     rng = np.random.default_rng(seed + 50)
     B2, b = 2 * static["n_dim"], arrays["q_vec"].shape[-1]
@@ -187,17 +188,16 @@ def _random_block_case(seed, flags=(False, True), n_obs=1, W=8):
     return torch_lane(static, arrays)
 
 
-@pytest.mark.parametrize("iters", [1, 4])
-@pytest.mark.parametrize("flags,n_obs", [((False, True), 1), ((), 0)])
-def test_emulated_block_ruiz_kernel_matches_plain(iters, flags, n_obs,
+@pytest.mark.parametrize("iters,flags,n_obs,case", RUIZ_PARAMS)
+def test_emulated_block_ruiz_kernel_matches_plain(iters, flags, n_obs, case,
                                                   tmp_path, monkeypatch):
     monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
-    tqp = _random_block_case(iters, flags, n_obs)
+    kw = {k: v for k, v in RUIZ_CASES.get(case, {}).items()
+          if k in ("W", "B")}
+    tqp = _random_block_case(iters, flags, n_obs, **kw)
     D, E, c = truiz._ruiz_scalings_plain(tqp, iters)
-    packs = truiz._ruiz_kernel_packs(tqp)
-    assert packs[1].shape == tqp.P_diag.shape  # the full-block packs
-    truiz._launch_ruiz(host_lib("ruiz", tqp), *packs, iters)
-    Dk, Ek, ck = truiz._unpack_scalings(tqp, *packs[4:], iters)
+    assert truiz._ruiz_kernel_packs(tqp)[1].shape == tqp.P_diag.shape
+    Dk, Ek, ck = emulated_ruiz(tqp, iters, case)
     assert_close(Dk, D, rtol=1e-9)
     assert_close(Ek, E, rtol=1e-9)
     assert_close(ck, c, rtol=1e-9)

@@ -22,6 +22,7 @@ from osqp_solver_tpu_torch import _build, convert
 from osqp_solver_tpu_torch.ops import admm_fused as tfused
 from osqp_solver_tpu_torch.ops import admm_lane as tlane_drv
 from osqp_solver_tpu_torch.ops import kkt_factor as tfactor
+from osqp_solver_tpu_torch.ops import ruiz_kernel as truiz
 
 pytestmark = pytest.mark.torch_port
 
@@ -164,6 +165,47 @@ def host_lib(name, qp):
     if "BLOCK_P" in _build.KERNELS[name]:
         return host_lib_signature(name, tfused.p_signature(qp))
     return host_lib_signature(name, tfused.layout_signature(qp))
+
+
+# Cases of the emulated Ruiz kernel beyond the base batch (W=8, B=8: one
+# block of 8 problems): a batch that is not a multiple of the problems per
+# block (the last block masked), the gate's fewest waypoints, runs of
+# several waypoints with a shorter last one (W=11 at 16 threads a block:
+# runs of 6 and 5), and a shared-memory budget (bytes of the
+# double-precision emulation) that keeps D/E alone in shared memory, or
+# nothing.
+ODD_BATCH = 13
+RUIZ_CASES = {"odd_batch": dict(B=ODD_BATCH), "w4": dict(W=4),
+              "uneven_runs": dict(W=11, threads=16),
+              "state_shared": dict(W=11, B=ODD_BATCH, threads=16,
+                                   budget=4096),
+              "nothing_shared": dict(W=11, B=ODD_BATCH, budget=1)}
+RUIZ_PLACEMENT = {"state_shared": (0, 1), "nothing_shared": (0, 0)}
+RUIZ_PARAMS = [
+    pytest.param(i, f, n, "base", id=f"{fid}-{i}")
+    for f, n, fid in [((False, True), 1, "flags0-1"), ((), 0, "flags1-0")]
+    for i in (1, 4)
+] + [pytest.param(4, (False, True), 1, c, id=c) for c in RUIZ_CASES]
+
+
+def emulated_ruiz(tqp, iters, case):
+    """The Ruiz kernel in host emulation on ``tqp`` with the budget and
+    thread cap of ``RUIZ_CASES[case]`` (none for "base"): ``(D, E, c)``;
+    asserts that the plan reaches what the case is for."""
+    kw = RUIZ_CASES.get(case, {})
+    budget, threads = kw.get("budget", 0), kw.get("threads", 0)
+    lib = host_lib("ruiz", tqp)
+    p = truiz.plan(lib, tqp.waypoints, tqp.batch, budget, threads)
+    if case == "uneven_runs":
+        assert p["rpt"] > 1 and tqp.waypoints % p["rpt"] != 0
+    if case in RUIZ_PLACEMENT:
+        assert (p["constants_in_shared"],
+                p["state_in_shared"]) == RUIZ_PLACEMENT[case]
+    packs = truiz._ruiz_kernel_packs(tqp)
+    for t in packs[4:]:
+        t.fill_(float("nan"))
+    truiz._launch_ruiz(lib, *packs, iters, budget=budget, threads=threads)
+    return truiz._unpack_scalings(tqp, *packs[4:])
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

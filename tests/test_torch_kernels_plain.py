@@ -23,7 +23,8 @@ from osqp_solver_tpu_torch.ops import residuals as tresid
 from osqp_solver_tpu_torch.ops import ruiz_kernel as truiz
 
 from test_torch_helpers import (
-    B, assert_close, both, chunk_case as _chunk_case, host_lib as _host_lib,
+    B, ODD_BATCH, RUIZ_CASES, RUIZ_PARAMS, assert_close, both,
+    chunk_case as _chunk_case, emulated_ruiz, host_lib as _host_lib,
     random_lane_problem, t_ as _t, to_np, torch_lane,
 )
 
@@ -231,31 +232,60 @@ def test_chunk_wrapper_refuses_bad_arguments():
 # ------------------------------------------- CUDA sources in host emulation
 
 
-@pytest.mark.parametrize("flags,n_obs", [((False, True), 1), ((), 0)])
-def test_emulated_factor_kernel_matches_plain(flags, n_obs, tmp_path,
+# Cases of the emulated factor kernel beyond the base batch (W=8, B=8: one
+# block of 8 problems): a batch that is not a multiple of the problems per
+# block (the last block masked), W=2 and at W=11 with a shared-memory budget
+# that splits the horizon into windows of 4, 4 and 3 waypoints (a budget in
+# bytes of the double-precision emulation).
+FACTOR_CASES = {"odd_batch": dict(B=ODD_BATCH), "w2": dict(W=2),
+                "windows": dict(W=11, B=ODD_BATCH, budget=20000)}
+FACTOR_PARAMS = [
+    pytest.param(f, n, "base", id=fid)
+    for f, n, fid in [((False, True), 1, "flags0-1"), ((), 0, "flags1-0")]
+] + [pytest.param((False, True), 1, c, id=c) for c in FACTOR_CASES]
+
+
+def _emulated_factor(case, flags, n_obs, seed, emit_gain):
+    """The factor kernel in host emulation on one case of FACTOR_CASES (or
+    the base batch) against the plain version: ``(kernel, plain)`` pairs
+    of the packed chol (and gain)."""
+    kw = dict(FACTOR_CASES.get(case, {}))
+    budget = kw.pop("budget", 0)
+    _, tqp = both(flags=flags, n_obs=n_obs, **kw)
+    W, Bb = tqp.waypoints, tqp.batch
+    rho = _t(np.random.default_rng(seed).uniform(0.05, 5.0, (tqp.m, Bb)))
+    plain = tfactor.factor_packed_lane_plain(tqp, rho, 1e-6,
+                                             emit_gain=emit_gain)
+    Pd, Pl = tfactor.build_p_vel_packs(tqp)
+    cholp = torch.full_like(plain[0], float("nan"))
+    gainp = torch.full_like(plain[0], float("nan")) if emit_gain else None
+    lib = _host_lib("kkt_factor", tqp)
+    if case == "windows":
+        assert tfactor.plan(lib, W, Bb, budget)["windows"] == 3
+    tfactor._launch_factor(
+        lib, tfused.build_coef_pack(tqp),
+        rho.reshape(W, -1, Bb).contiguous(), Pd, Pl, cholp, 1e-6, gainp,
+        budget=budget)
+    return [(cholp, plain[0])] + ([(gainp, plain[1])] if emit_gain else [])
+
+
+@pytest.mark.parametrize("flags,n_obs,case", FACTOR_PARAMS)
+def test_emulated_factor_kernel_matches_plain(flags, n_obs, case, tmp_path,
                                               monkeypatch):
     monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
-    _, tqp = both(flags=flags, n_obs=n_obs)
-    rho = _t(np.random.default_rng(3).uniform(0.05, 5.0, (tqp.m, B)))
-    plain, _ = tfactor.factor_packed_lane_plain(tqp, rho, 1e-6)
-    Pd, Pl = tfactor.build_p_vel_packs(tqp)
-    cholp = torch.full_like(plain, float("nan"))
-    tfactor._launch_factor(
-        _host_lib("kkt_factor", tqp), tfused.build_coef_pack(tqp),
-        rho.reshape(tqp.waypoints, -1, B).contiguous(), Pd, Pl, cholp, 1e-6)
-    assert_close(cholp, plain, rtol=1e-9, atol=1e-12)
+    for got, ref in _emulated_factor(case, flags, n_obs, 3, False):
+        assert_close(got, ref, rtol=1e-9, atol=1e-12)
 
 
-@pytest.mark.parametrize("iters", [1, 4])
-@pytest.mark.parametrize("flags,n_obs", [((False, True), 1), ((), 0)])
-def test_emulated_ruiz_kernel_matches_plain(iters, flags, n_obs, tmp_path,
-                                            monkeypatch):
+@pytest.mark.parametrize("iters,flags,n_obs,case", RUIZ_PARAMS)
+def test_emulated_ruiz_kernel_matches_plain(iters, flags, n_obs, case,
+                                            tmp_path, monkeypatch):
     monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
-    _, tqp = both(flags=flags, n_obs=n_obs)
+    kw = {k: v for k, v in RUIZ_CASES.get(case, {}).items()
+          if k in ("W", "B")}
+    _, tqp = both(flags=flags, n_obs=n_obs, **kw)
     D, E, c = truiz._ruiz_scalings_plain(tqp, iters)
-    packs = truiz._ruiz_kernel_packs(tqp)
-    truiz._launch_ruiz(_host_lib("ruiz", tqp), *packs, iters)
-    Dk, Ek, ck = truiz._unpack_scalings(tqp, *packs[4:], iters)
+    Dk, Ek, ck = emulated_ruiz(tqp, iters, case)
     assert_close(Dk, D, rtol=1e-12)
     assert_close(Ek, E, rtol=1e-12)
     assert_close(ck, c, rtol=1e-12)
@@ -264,7 +294,6 @@ def test_emulated_ruiz_kernel_matches_plain(iters, flags, n_obs, tmp_path,
 # Cases of the emulated chunk kernel beyond the base batch of B problems
 # (one block of Q = 8): a batch that is not a multiple of Q (the last block
 # masked), and a done mask that freezes all problems but two.
-ODD_BATCH = 13
 CHUNK_FLAGS = [((False, True), 1, "flags0-1"), ((), 0, "flags1-0")]
 
 
@@ -334,24 +363,13 @@ def test_emulated_chunk_kernel_matches_plain(flags, n_obs, emit_term, case,
         assert_close(acc, plain_acc, rtol=1e-8, atol=1e-9)
 
 
-@pytest.mark.parametrize("flags,n_obs", [((False, True), 1), ((), 0)])
-def test_emulated_factor_kernel_gain_write_matches_plain(flags, n_obs,
+@pytest.mark.parametrize("flags,n_obs,case", FACTOR_PARAMS)
+def test_emulated_factor_kernel_gain_write_matches_plain(flags, n_obs, case,
                                                          tmp_path,
                                                          monkeypatch):
     monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
-    _, tqp = both(flags=flags, n_obs=n_obs)
-    rho = _t(np.random.default_rng(5).uniform(0.05, 5.0, (tqp.m, B)))
-    plain_c, plain_g = tfactor.factor_packed_lane_plain(tqp, rho, 1e-6,
-                                                        emit_gain=True)
-    Pd, Pl = tfactor.build_p_vel_packs(tqp)
-    cholp = torch.full_like(plain_c, float("nan"))
-    gainp = torch.full_like(plain_g, float("nan"))
-    tfactor._launch_factor(
-        _host_lib("kkt_factor", tqp), tfused.build_coef_pack(tqp),
-        rho.reshape(tqp.waypoints, -1, B).contiguous(), Pd, Pl, cholp, 1e-6,
-        gainp)
-    assert_close(cholp, plain_c, rtol=1e-9, atol=1e-12)
-    assert_close(gainp, plain_g, rtol=1e-9, atol=1e-12)
+    for got, ref in _emulated_factor(case, flags, n_obs, 5, True):
+        assert_close(got, ref, rtol=1e-9, atol=1e-12)
 
 
 @functools.lru_cache(maxsize=None)
