@@ -588,10 +588,9 @@ def ruiz_alone(qp, iters):
     return (lambda: ruiz_kernel._launch_ruiz(lib, *packs, iters)), None
 
 
-def factor_alone(scaled, rho_vec, sigma, emit_gain=False, variant=None):
+def factor_alone(scaled, rho_vec, sigma, emit_gain=False):
     """``(launch, None)``: one launch of ``csrc/kkt_factor.cu`` on the
-    coefficient, rho and P packs and the outputs, all built beforehand
-    (``variant``: extra ``-D`` values of the build)."""
+    coefficient, rho and P packs and the outputs, all built beforehand."""
     W_, Rp, B = (scaled.waypoints, scaled.rows_per_waypoint_padded,
                  scaled.batch)
     coef = admm_fused.build_coef_pack(scaled)
@@ -600,12 +599,9 @@ def factor_alone(scaled, rho_vec, sigma, emit_gain=False, variant=None):
     Tp = admm_fused._tri_maps(2 * scaled.n_dim)[2]
     cholp = torch.empty((W_, Tp, B), device="cuda")
     gainp = torch.empty_like(cholp) if emit_gain else None
-    lib = _build.library("kkt_factor", dict(
-        admm_fused.layout_signature(scaled), **(variant or {})))
-    launch = lambda: kkt_factor._launch_factor(  # noqa: E731
-        lib, coef, rho3, Pd, Pl, cholp, sigma, gainp)
-    launch.out = (cholp, gainp)
-    return launch, None
+    lib = _build.library("kkt_factor", admm_fused.layout_signature(scaled))
+    return (lambda: kkt_factor._launch_factor(lib, coef, rho3, Pd, Pl, cholp,
+                                              sigma, gainp)), None
 
 
 def lane_plan(name, W_, B):
@@ -617,18 +613,6 @@ def lane_plan(name, W_, B):
             name.endswith("_block"))))
         return ruiz_kernel.plan(lib, W_, B)
     return kkt_factor.plan(_build.library("kkt_factor", sig), W_, B)
-
-
-def factor_sweep_variant(scaled, rho_vec, sigma, ref):
-    """The factor kernel built with its Cholesky as column sweeps across
-    the group (``-DKKT_CHOL_SWEEP=1``): its time alone and its packed chol
-    against ``ref`` (the plain version), max abs over max |ref|."""
-    launch, _ = factor_alone(scaled, rho_vec, sigma,
-                             variant={"KKT_CHOL_SWEEP": 1})
-    launch()
-    torch.cuda.synchronize()
-    return dict(ms=time_ms(launch, inner=ALONE_INNER),
-                rel_err=rel_err(launch.out[0], ref)[1])
 
 
 # Launches back to back per timed sample of a kernel alone: a single
@@ -644,6 +628,20 @@ def alone_ms(make, *args, **kw):
     launch, reset = make(*args, **kw)
     return (time_ms(launch, setup=reset, inner=ALONE_INNER),
             time_ms(launch, setup=reset))
+
+
+def fast_math_mismatches():
+    """``ruiz_fast_math_mismatches`` of ``csrc/ruiz.cu``: the floats from
+    2^-100 to 2^100 whose ``sqrt_rn`` or ``rcp_rn`` (``lane_common.cuh``,
+    the Ruiz and factor kernels' square roots and reciprocals) differ from
+    ``sqrtf`` or ``1.0f / x`` on this card."""
+    fn = _build.library("ruiz", {"NDIM": N, "NX": 5, "BLOCK_P": 0}
+                        ).ruiz_fast_math_mismatches
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_ulonglong(0)
+    _build.check(fn(ctypes.byref(out)), "ruiz_fast_math_mismatches")
+    return out.value
 
 
 # The edge cases of the plans: a batch whose last block is part empty, the
@@ -722,12 +720,14 @@ def phase_kernels():
     b_ms, b_by = bound(
         nbytes(*rp[:4]) + nbytes(rp[4][0], rp[5][0], rp[6]),
         ops_ruiz(W, N, NX, B, settings.scaling))
+    fm_bad = fast_math_mismatches()
     out.append(dict(
         name="ruiz", max_abs_err=abs_err, max_rel_err=r_err,
         odd_batch_rel_err=odd_err, edge_cases_rel_err=edge, tol=TOL_RUIZ,
         tol_note="D, E, c elementwise relative to the plain version",
+        fast_math_mismatches=fm_bad,
         ok=bool(r_err <= TOL_RUIZ and odd_err <= TOL_RUIZ
-                and max(edge.values()) <= TOL_RUIZ),
+                and max(edge.values()) <= TOL_RUIZ and fm_bad == 0),
         ms=k_ms, single_launch_ms=k1_ms, wrapper_ms=w_ms, plain_ms=p_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         B8_ms=alone_ms(ruiz_alone, few, settings.scaling)[0],
@@ -775,8 +775,6 @@ def phase_kernels():
         B8_ms=alone_ms(factor_alone, few_s, few_rho, settings.sigma)[0],
         plan=lane_plan("kkt_factor", W, B),
         plan_B8=lane_plan("kkt_factor", W, 8),
-        sweep_variant=factor_sweep_variant(scaled, rho_vec, settings.sigma,
-                                           cp),
         shape=f"W={W} N={N} B={B}; ms: the launch alone on packs built "
               "beforehand, wrapper_ms: the wrapper"))
 

@@ -38,10 +38,6 @@
 // exact reciprocal per pivot), not bytes or operations.
 #include "lane_common.cuh"
 
-#ifndef KKT_CHOL_SWEEP
-#define KKT_CHOL_SWEEP 0
-#endif
-
 __host__ __device__ constexpr int pow2_at_least(int n) {
     return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
 }
@@ -51,11 +47,16 @@ constexpr int QLOG_MAX = 3;
 constexpr int MAX_THREADS = G << QLOG_MAX;
 // Schur entries per lane.
 constexpr int NE = (T + G - 1) / G;
-// One waypoint's slot of the window: M_t (then S_t, packed lower) and Ml_t
-// (qq, qv, vv); an odd count, so that the prologue's stores of several
-// waypoints land in distinct banks.
+// One waypoint's slot of the window: M_t (then S_t, then C_t, packed lower)
+// and Ml_t (qq, qv, vv); an odd count, so that the prologue's stores of
+// several waypoints land in distinct banks.  G_{t-1} of a problem: GS values
+// (odd, so that the problems of a warp read distinct banks).
 constexpr int SL_ML = T;
-constexpr int SLOT = (T + 3 * N) | 1;
+constexpr int SLOT = (T + 3 * N + 1) | 1;
+constexpr int GS = T | 1;
+// The slot row that the Schur entries past T (NE * G > T) update: a spare.
+constexpr int SL_SPARE = SLOT - 1;
+static_assert(SLOT <= 256 && GS <= 256, "Schur entries are packed a byte each");
 
 // ---------------------------------------------------------------- the plan
 
@@ -76,7 +77,7 @@ static FactorPlan factor_plan_for(int W, int B, int budget, int sms) {
     const int k = per_sm < 2 ? 1 : 2;
     long long per_block = ((long long)budget + 1024) / k - 1024;
     if (per_block > budget) per_block = budget;
-    const long long fixed = (long long)T * (Q + 1);
+    const long long fixed = (long long)GS * Q;
     long long tw = (per_block / (long long)sizeof(real) - fixed) /
                    ((long long)SLOT * Q);
     if (tw > W) tw = W;
@@ -93,7 +94,7 @@ static FactorPlan factor_plan_for(int W, int B, int budget, int sms) {
 // --------------------------------------------------------------- the kernel
 
 template <bool GAIN>
-__global__ void __launch_bounds__(MAX_THREADS)
+__global__ void __launch_bounds__(MAX_THREADS, 1)
     kkt_factor_kernel(const real* __restrict__ coef_,
                       const real* __restrict__ rho_,
                       const real* __restrict__ pd_,
@@ -101,30 +102,41 @@ __global__ void __launch_bounds__(MAX_THREADS)
                       real* __restrict__ gainp, int W, int B, real sigma,
                       int qlog, int TW) {
     LANE_SMEM_DECL();
-    const int Q = 1 << qlog, QG = Q + 1;
+    const int Q = 1 << qlog;
     const int tid = threadIdx.x, nthreads = G << qlog;
     const int q = tid & (Q - 1), l = tid >> qlog;
     const int b0 = blockIdx.x << qlog, b = b0 + q;
     const bool valid = b < B;
     const size_t Bs = (size_t)B;
-    real* win = lane_smem;                        // [t][SLOT][Q]
-    real* gp = win + (size_t)TW * SLOT * Q + q;   // G_{t-1}: [T][Q + 1]
+    real* win = lane_smem;                         // [t][SLOT][Q]
+    real* gq = win + (size_t)TW * SLOT * Q + q * GS;  // G_{t-1}: [Q][GS]
 
-    // This lane's Schur entries (i, j) of the packed lower triangle: row i,
-    // and the offsets of rows i and j of the packed upper G (G[UP(i, k)] at
-    // gp[(ui + k) * QG] for k >= i).
-    int ei[NE], ui[NE], uj[NE];
+    // This lane's Schur entries (i, j) of the packed lower triangle, NE of
+    // them; those past T update the spare slot row with row 2N-1's single
+    // term, so that every lane runs NE entries without a branch.  Packed a
+    // byte each: i, the offsets of rows i and j of the packed upper G
+    // (G[UP(i, k)] at gq[ui + k] for k >= i) and the slot row.
+    int ent[NE];
 #pragma unroll
     for (int m = 0; m < NE; ++m) {
         const int e = l + m * G;
         int i = 0;
         while (i + 1 < B2 && LOW(i + 1, 0) <= e) ++i;
-        const int j = e - LOW(i, 0);
-        ei[m] = i;
-        ui[m] = UP(i, i) - i;
-        uj[m] = UP(j, j) - j;
+        const int j = e < T ? e - LOW(i, 0) : i;
+        ent[m] = i | (UP(i, i) - i) << 8 | (UP(j, j) - j) << 16 |
+                 (e < T ? e : SL_SPARE) << 24;
     }
-    for (int e = l; e < T; e += G) gp[e * QG] = real(0);  // G_{-1} = 0
+    for (int e = l; e < T; e += G) gq[e] = real(0);  // G_{-1} = 0
+    // Packed C of waypoint t from its slot to cholp row t: entries l, l + G,
+    // ... of this lane (the Q problems of a warp's store are adjacent).
+    const auto store_chol = [&](const real* cslot, int t) {
+        real* out = cholp + (size_t)t * Tp * Bs + b;
+#pragma unroll
+        for (int m = 0; m < (Tp + G - 1) / G; ++m) {
+            const int e = l + m * G;
+            if (e < Tp) out[(size_t)e * Bs] = e < T ? cslot[e * Q] : real(0);
+        }
+    };
 
     for (int t0 = 0; t0 < W; t0 += TW) {
         const int tn = W - t0 < TW ? W - t0 : TW;
@@ -164,14 +176,15 @@ __global__ void __launch_bounds__(MAX_THREADS)
                 const real a1 = coef(t, CRp, C_A1 + j);
                 const real po = coef(t, CRp, C_POS + j);
                 const real ve = coef(t, CRp, C_VEL + j);
-                // The coupling rows of waypoint t-1 (zero at t = 0).
-                real c1sq = real(0), a0sq = real(0);
-                if (t > 0) {
-                    const real c1p = coef(t - 1, CRp, C_C1 + j);
-                    const real a0p = coef(t - 1, CRp, C_A0 + j);
-                    c1sq = rho(t - 1, Rp, R_DYN + j) * c1p * c1p;
-                    a0sq = rho(t - 1, Rp, R_ACC + j) * a0p * a0p;
-                }
+                // The coupling rows of waypoint t-1 (zero at t = 0; loaded
+                // from waypoint 0 there, so that no load waits on a branch).
+                const int tp = t > 0 ? t - 1 : 0;
+                const real c1p = coef(tp, CRp, C_C1 + j);
+                const real a0p = coef(tp, CRp, C_A0 + j);
+                const real rdp = rho(tp, Rp, R_DYN + j);
+                const real rap = rho(tp, Rp, R_ACC + j);
+                const real c1sq = t > 0 ? rdp * c1p * c1p : real(0);
+                const real a0sq = t > 0 ? rap * a0p * a0p : real(0);
                 const real d_qq =
                     rho(t, Rp, R_POS + j) * po * po + rd * c2 * c2 + c1sq;
                 const real d_vv = rd * c0 * c0 +
@@ -193,52 +206,39 @@ __global__ void __launch_bounds__(MAX_THREADS)
         for (int tl = 0; tl < tn; ++tl) {
             const int t = t0 + tl;
             real* slot = win + (size_t)tl * SLOT * Q + q;
-            // S = M_t - G_{t-1} G_{t-1}', a few entries a lane (the sum over
-            // k >= i unrolled, so that its loads issue together).
+            // S = M_t - G_{t-1} G_{t-1}', NE entries a lane.  Every k is
+            // loaded (k < i reads other entries of G) and the slot written
+            // after all the sums, so that no load waits behind a predicate
+            // or a store; each sum takes k >= i.
+            real acc[NE];
 #pragma unroll
             for (int m = 0; m < NE; ++m) {
-                if (l + m * G < T) {
-                    const real* gi = gp + ui[m] * QG;
-                    const real* gj = gp + uj[m] * QG;
-                    real acc = real(0);
+                const int i = ent[m] & 255;
+                const real* gi = gq + (ent[m] >> 8 & 255);
+                const real* gj = gq + (ent[m] >> 16 & 255);
+                real a[B2], c[B2];
 #pragma unroll
-                    for (int k = 0; k < B2; ++k)
-                        if (k >= ei[m]) acc += gi[k * QG] * gj[k * QG];
-                    slot[(l + m * G) * Q] = slot[(l + m * G) * Q] - acc;
+                for (int k = 0; k < B2; ++k) {
+                    a[k] = gi[k];
+                    c[k] = gj[k];
                 }
+                acc[m] = real(0);
+#pragma unroll
+                for (int k = 0; k < B2; ++k)
+                    acc[m] = k >= i ? acc[m] + a[k] * c[k] : acc[m];
+            }
+#pragma unroll
+            for (int m = 0; m < NE; ++m) {
+                real* e = slot + (ent[m] >> 24) * Q;
+                *e = *e - acc[m];
             }
             __syncthreads();
+            // C_{t-1} out of its slot (written there after the last barrier),
+            // a few entries a lane, the pad entries zero.
+            if (tl > 0 && valid) store_chol(slot - SLOT * Q, t - 1);
 
-            real idia[B2];
-#if KKT_CHOL_SWEEP
-            // Cholesky by columns: lane i owns row i of S (in place in the
-            // slot; the diagonal stays S and every lane keeps the pivots).
-            real dg[B2], crow[B2];
-#pragma unroll
-            for (int jj = 0; jj < B2; ++jj) {
-                real sdd = slot[LOW(jj, jj) * Q];
-#pragma unroll
-                for (int k = 0; k < jj; ++k) {
-                    const real v = slot[LOW(jj, k) * Q];
-                    sdd -= v * v;
-                }
-                dg[jj] = sqrt(sdd);
-                idia[jj] = real(1) / dg[jj];
-                crow[jj] = real(0);
-                if (l > jj && l < B2) {
-                    real sij = slot[LOW(l, jj) * Q];
-#pragma unroll
-                    for (int k = 0; k < jj; ++k)
-                        sij -= crow[k] * slot[LOW(jj, k) * Q];
-                    crow[jj] = sij * idia[jj];
-                    slot[LOW(l, jj) * Q] = crow[jj];
-                }
-                __syncthreads();
-            }
-#define CHOL(i, j) ((i) == (j) ? dg[i] : slot[LOW(i, j) * Q])
-#else
             // Cholesky of the whole S in this lane's registers.
-            real S[T];
+            real S[T], idia[B2];
 #pragma unroll
             for (int k = 0; k < T; ++k) S[k] = slot[k * Q];
 #pragma unroll
@@ -246,9 +246,9 @@ __global__ void __launch_bounds__(MAX_THREADS)
                 real sdd = S[LOW(jj, jj)];
 #pragma unroll
                 for (int k = 0; k < jj; ++k) sdd -= S[LOW(jj, k)] * S[LOW(jj, k)];
-                const real d = sqrt(sdd);
+                const real d = sqrt_rn(sdd);
                 S[LOW(jj, jj)] = d;
-                idia[jj] = real(1) / d;
+                idia[jj] = rcp_rn(d);
 #pragma unroll
                 for (int i = jj + 1; i < B2; ++i) {
                     real sij = S[LOW(i, jj)];
@@ -258,13 +258,11 @@ __global__ void __launch_bounds__(MAX_THREADS)
                     S[LOW(i, jj)] = sij * idia[jj];
                 }
             }
-#define CHOL(i, j) S[LOW(i, j)]
-#endif
 
             // Row i = l of G_t = Ml_t C_t^{-T} (upper triangular: Ml has the
-            // diagonals qq, vv and qv at (j, N+j)), and row i of C and of
-            // G_t out.
-            if (l < B2 && valid) {
+            // diagonals qq, vv and qv at (j, N+j)): into G_{t-1}'s place for
+            // the next step, and with emit_gain to gainp row t.
+            if (l < B2) {
                 const real diag = l < N ? slot[(SL_ML + l) * Q]
                                         : slot[(SL_ML + N + l) * Q];
                 const real qv = l < N ? slot[(SL_ML + N + l) * Q] : real(0);
@@ -274,38 +272,37 @@ __global__ void __launch_bounds__(MAX_THREADS)
                     real sij = j == l ? diag : (j == l + N ? qv : real(0));
 #pragma unroll
                     for (int k = 0; k < j; ++k)
-                        if (k >= l) sij -= grow[k] * CHOL(j, k);
+                        if (k >= l) sij -= grow[k] * S[LOW(j, k)];
                     grow[j] = j >= l ? sij * idia[j] : real(0);
                 }
+                real* grow_out = gq + (UP(l, l) - l);
 #pragma unroll
                 for (int j = 0; j < B2; ++j)
-                    if (j >= l) gp[UP(l, j) * QG] = grow[j];
-                real* crow_out = cholp + ((size_t)t * Tp) * Bs + b;
-#pragma unroll
-                for (int r = 0; r < B2; ++r)
-                    if (r == l) {
-#pragma unroll
-                        for (int j = 0; j <= r; ++j)
-                            crow_out[(size_t)LOW(r, j) * Bs] = CHOL(r, j);
-                    }
-                if (GAIN) {
-                    real* gout = gainp + ((size_t)t * Tp) * Bs + b;
+                    if (j >= l) grow_out[j] = grow[j];
+                if (GAIN && valid) {
+                    real* gout = gainp + ((size_t)t * Tp + UP(l, l) - l) * Bs + b;
 #pragma unroll
                     for (int j = 0; j < B2; ++j)
                         if (j >= l)
-                            gout[(size_t)UP(l, j) * Bs] =
-                                t < W - 1 ? grow[j] : real(0);
+                            gout[(size_t)j * Bs] = t < W - 1 ? grow[j] : real(0);
                 }
             }
-#undef CHOL
-            if (valid) {
-                for (int e = T + l; e < Tp; e += G) {
-                    cholp[((size_t)t * Tp + e) * Bs + b] = real(0);
-                    if (GAIN) gainp[((size_t)t * Tp + e) * Bs + b] = real(0);
-                }
+            if (GAIN && valid) {
+                for (int e = T + l; e < Tp; e += G)
+                    gainp[((size_t)t * Tp + e) * Bs + b] = real(0);
             }
             __syncthreads();
+            // C_t into the slot of S_t (read by every lane before the
+            // barrier), by the lanes of the first warp.
+            if (l * Q < LANE_WARP) {
+#pragma unroll
+                for (int k = 0; k < T; ++k) slot[k * Q] = S[k];
+            }
         }
+        __syncthreads();
+        // C of the window's last step out before the next window's prologue.
+        if (valid) store_chol(win + (size_t)(tn - 1) * SLOT * Q + q, t0 + tn - 1);
+        __syncthreads();
     }
 }
 

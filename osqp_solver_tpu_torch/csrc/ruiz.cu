@@ -48,6 +48,8 @@
 // B=1024, read several times a pass through L2).
 // Bound: the vel-diag build by reading its packs once (the passes run on
 // chip); the block build by the |P| block reads.  PERF.md records the times.
+#include <cstdint>
+#include <initializer_list>
 #include <type_traits>
 
 #include "lane_common.cuh"
@@ -55,18 +57,15 @@
 #ifndef BLOCK_P
 #define BLOCK_P 0
 #endif
+
 constexpr int PB = B2 * B2;  // entries of one full P block (BLOCK_P packs)
 
 constexpr real MIN_SCALING = real(1e-4);
 constexpr real MAX_SCALING = real(1e4);
 
-// Threads per block at most: 512 (128 registers a thread) with every row in
-// shared memory; 256 (255 registers) where rows are read from the packs in
-// device memory (64-bit addresses) and in the block build; problems per
+// Threads per block at most (255 registers a thread), and problems per
 // block at most (log2).
-__host__ __device__ constexpr int max_threads(bool ksm) {
-    return ksm && !BLOCK_P ? 512 : 256;
-}
+constexpr int MAX_THREADS = 256;
 constexpr int QLOG_MAX = 3;
 
 // Rows of the state: D (2N) then E (the R real rows; the pad rows are 1).
@@ -85,8 +84,26 @@ __host__ __device__ __forceinline__ real limit_scaling(real x) {
     return x < MAX_SCALING ? x : MAX_SCALING;
 }
 
+// A compiler barrier at the top of a loop's iteration (FENCE): its loads
+// are not hoisted above it.  Where they come from device memory (the block
+// build's P blocks, the placements without the constants on chip) the
+// compiler otherwise issues every iteration's loads at once, each with its
+// own address, and runs out of registers.
+template <bool FENCE>
+__device__ __forceinline__ void hold_loads() {
+#ifndef LANE_HOST_EMULATION
+    if (FENCE) asm volatile("" ::: "memory");
+#endif
+}
+
+// The maxima of the scaled magnitudes (non-negative and finite): one
+// instruction, where rmax's comparison and select are two.
+__device__ __forceinline__ real vmax(real a, real b) { return fmax(a, b); }
+
+// 1 / sqrt(limit(x)), each operation rounded as sqrt() and the division
+// round it (limit_scaling keeps x within [1e-4, 1e4]).
 __device__ __forceinline__ real inv_sqrt_limit(real x) {
-    return real(1) / sqrt(limit_scaling(x));
+    return rcp_rn(sqrt_rn(limit_scaling(x)));
 }
 
 // Row r of waypoint u of one problem: in shared memory ([row][u][Q], I =
@@ -106,13 +123,16 @@ struct RuizPlan {
     int G, Q, qlog, rpt, ksm, ssm, smem, blocks, threads, np;
 };
 
+// The plan: the first placement (constants and D/E in shared memory, then
+// D/E alone, then neither) that fits, and in it the most problems per block
+// (their rows are adjacent: longer pieces of each row to copy); then as
+// many threads as the waypoints need.
 static RuizPlan ruiz_plan_for(int W, int B, int budget, int max_thr,
                               int sms) {
-    RuizPlan p{};
+    const int threads =
+        max_thr > 0 && max_thr < MAX_THREADS ? max_thr : MAX_THREADS;
     for (int place = 0; place < 3; ++place) {
         const int ksm = place == 0, ssm = place <= 1;
-        int threads = max_threads(ksm);
-        if (max_thr > 0 && max_thr < threads) threads = max_thr;
         for (int qlog = QLOG_MAX; qlog >= 0; --qlog) {
             const int Q = 1 << qlog;
             const long long blocks = (B + Q - 1) / Q;
@@ -124,27 +144,28 @@ static RuizPlan ruiz_plan_for(int W, int B, int budget, int max_thr,
             const int rpt = (W + gmax - 1) / gmax;
             const int runs = (W + rpt - 1) / rpt;
             const int G = (runs + L - 1) / L * L;
+            // + the group sums, and the old D of the waypoint after each
+            // thread's run.
             const long long vals = (long long)W * Q *
                                        ((ksm ? KROWS : 0) + (ssm ? SROWS : 0)) +
-                                   2LL * (G / L) * Q;
+                                   2LL * (G / L) * Q + (long long)B2 * G * Q;
             const long long bytes = vals * (long long)sizeof(real);
             if (bytes > budget && place < 2) continue;
-            p = RuizPlan{G, Q, qlog, rpt, ksm, ssm, (int)bytes, (int)blocks,
-                         G * Q, G / L};
-            return p;
+            return RuizPlan{G, Q, qlog, rpt, ksm, ssm, (int)bytes, (int)blocks,
+                            G * Q, G / L};
         }
     }
-    return p;
+    return RuizPlan{};
 }
 
 // --------------------------------------------------------------- the kernel
 
 template <bool KSM, bool SSM>
-__global__ void __launch_bounds__(max_threads(KSM), 1)
+__global__ void __launch_bounds__(MAX_THREADS, 1)
     ruiz_kernel(const real* __restrict__ ac_, const real* __restrict__ apd_,
                 const real* __restrict__ apl_, const real* __restrict__ aq_,
                 real* Dout, real* Eout, real* c_out, int W, int B, int iters,
-                int qlog, int G, int rpt) {
+                int qlog, int G, int rpt, int x4) {
     using KI = typename std::conditional<KSM, int, long long>::type;
     using SI = typename std::conditional<SSM, int, long long>::type;
     LANE_SMEM_DECL();
@@ -163,6 +184,9 @@ __global__ void __launch_bounds__(max_threads(KSM), 1)
     real* ks = lane_smem;
     real* ss = ks + (KSM ? KROWS * WQ : 0);
     real* red = ss + (SSM ? SROWS * WQ : 0);
+    // The old D of the waypoint after this thread's run ([i][thread]): kept
+    // here rather than in registers across the run.
+    real* nxt = red + 2 * np * Q + tid;
 
     // ---- the views of this problem's rows
     View<KI> cf, aq;
@@ -197,7 +221,8 @@ __global__ void __launch_bounds__(max_threads(KSM), 1)
 #endif
 
     // ---- stage the constant rows (row by row: the source is uniform across
-    // the block); D = E = 1
+    // the block; 16-byte copies of 4 problems where x4); D = E = 1
+    const int q4s = x4 ? qlog - 2 : 0;  // log2 of the 4-problem pieces
     if constexpr (KSM) {
         for (int row = 0; row < KROWS; ++row) {
             const real* src;
@@ -217,12 +242,23 @@ __global__ void __launch_bounds__(max_threads(KSM), 1)
                 src = aq_ + (size_t)(row - K_Q) * Bs;
                 us = (size_t)B2 * Bs;
             }
-            for (int u = g; u < W; u += G) {
-                real* dst = ks + (row * W + u) * Q + q;
-                if (valid)
-                    cp_async4(dst, src + u * us + b);
-                else
-                    *dst = real(0);
+            if (x4) {
+                for (int k = tid; k < W << q4s; k += nthreads) {
+                    const int u = k >> q4s, qq = (k & ((1 << q4s) - 1)) << 2;
+                    real* dst = ks + (row * W + u) * Q + qq;
+                    if (b0 + qq < B)
+                        cp_async_x4(dst, src + u * us + b0 + qq);
+                    else
+                        dst[0] = dst[1] = dst[2] = dst[3] = real(0);
+                }
+            } else {
+                for (int u = g; u < W; u += G) {
+                    real* dst = ks + (row * W + u) * Q + q;
+                    if (valid)
+                        cp_async4(dst, src + u * us + b);
+                    else
+                        *dst = real(0);
+                }
             }
         }
         cp_async_commit();
@@ -241,9 +277,9 @@ __global__ void __launch_bounds__(max_threads(KSM), 1)
         // ---- 1. the old values this run needs from its neighbours' runs:
         // D (Dv alone for vel-diag P) and the dyn/acc E rows of the waypoint
         // before it, D of the waypoint after it (zero where there is none).
-        real pD[B2], pedyn[N], peacc[N], nD[B2];
+        real pD[B2], pedyn[N], peacc[N];
 #pragma unroll
-        for (int i = 0; i < B2; ++i) pD[i] = nD[i] = real(0);
+        for (int i = 0; i < B2; ++i) pD[i] = real(0);
 #pragma unroll
         for (int j = 0; j < N; ++j) pedyn[j] = peacc[j] = real(0);
         if (u0 < u1) {
@@ -257,60 +293,62 @@ __global__ void __launch_bounds__(max_threads(KSM), 1)
                     peacc[j] = E(u0 - 1, R_ACC + j);
                 }
             }
-            if (u1 < W) {
 #pragma unroll
-                for (int i = 0; i < B2; ++i) nD[i] = D(u1, i);
-            }
+            for (int i = 0; i < B2; ++i)
+                nxt[i * nthreads] = u1 < W ? D(u1 < W ? u1 : u0, i) : real(0);
         }
         __syncthreads();
 
         // ---- 2. new D and E of the run, in place, waypoint by waypoint; the
         // old values of the waypoint before are carried in registers.
         for (int u = u0; u < u1; ++u) {
-            const bool has_prev = u > 0, has_next = u + 1 < W;
+            // The waypoint before (0 at u = 0, where the carried old values
+            // are zero, so that its terms drop out of the maxima without a
+            // branch); Dx is zero past the last waypoint.
+            const int up = u > 0 ? u - 1 : 0;
             real Du[B2], Dx[B2], ex[NX > 0 ? NX : 1];
 #pragma unroll
             for (int i = 0; i < B2; ++i) {
                 Du[i] = D(u, i);
-                Dx[i] = u + 1 < u1 ? D(u + 1, i) : nD[i];
+                Dx[i] = u + 1 < u1 ? D(u + 1, i) : nxt[i * nthreads];
             }
 #pragma unroll
             for (int k = 0; k < NX; ++k) ex[k] = E(u, R_X + k);
 #if BLOCK_P
-            // P column maxima of waypoint u (old D / c): the diagonal block,
-            // the row maxima of |Pl_{u-1}| under the old D of u-1, and the
-            // lower-column term of |Pl_u| with the old D of u+1.
-            real pcb[B2];
-            {
-                real prow[B2];
+            // P column maximum jj of waypoint u (old D / c): the diagonal
+            // block, the row maxima of |Pl_{u-1}| under the old D of u-1,
+            // and the lower-column term of |Pl_u| with the old D of u+1;
+            // formed where it is used, so that no block of them stays live.
+            const auto p_colmax = [&](int jj) {
+                hold_loads<true>();
+                real acc = real(0), accc = real(0), prow = real(0);
 #pragma unroll
                 for (int ii = 0; ii < B2; ++ii) {
-                    real r = real(0);
-                    if (has_prev) {
-#pragma unroll
-                        for (int jx = 0; jx < B2; ++jx)
-                            r = rmax(r, plb(u - 1, PB, ii * B2 + jx) * pD[jx]);
-                    }
-                    prow[ii] = r;
+                    acc = vmax(acc, (c * Du[ii]) * pdb(u, PB, ii * B2 + jj));
+                    accc = vmax(accc, (c * Dx[ii]) * plb(u, PB, ii * B2 + jj));
+                    prow = vmax(prow, plb(up, PB, jj * B2 + ii) * pD[ii]);
                 }
-#pragma unroll
-                for (int jj = 0; jj < B2; ++jj) {
-                    real acc = real(0), accc = real(0);
-#pragma unroll
-                    for (int ii = 0; ii < B2; ++ii) {
-                        acc = rmax(acc, (c * Du[ii]) * pdb(u, PB, ii * B2 + jj));
-                        if (has_next)
-                            accc = rmax(accc,
-                                        (c * Dx[ii]) * plb(u, PB, ii * B2 + jj));
-                    }
-                    real pc = acc * Du[jj];
-                    pc = rmax(pc, prow[jj] * (c * Du[jj]));
-                    pcb[jj] = rmax(pc, accc * Du[jj]);
-                }
-            }
+                real pc = acc * Du[jj];
+                pc = vmax(pc, prow * (c * Du[jj]));
+                return vmax(pc, accc * Du[jj]);
+            };
 #endif
+            // The new D and E of u, written after all of u's reads (a store
+            // between them would keep the later loads behind it); the block
+            // build, bound by its P reads, writes them as they come and
+            // keeps the registers.
+            real Dnew[B2], Enew[R];
+            const auto put_d = [&](int i, real v) {
+                if (BLOCK_P) D(u, i) = v;
+                else Dnew[i] = v;
+            };
+            const auto put_e = [&](int r, real v) {
+                if (BLOCK_P) E(u, r) = v;
+                else Enew[r] = v;
+            };
 #pragma unroll
             for (int j = 0; j < N; ++j) {
+                hold_loads<!KSM || BLOCK_P>();
                 const real dq = Du[j], dv = Du[N + j];
                 const real edyn = E(u, R_DYN + j), epos = E(u, R_POS + j);
                 const real evel = E(u, R_VEL + j), eacc = E(u, R_ACC + j);
@@ -322,40 +360,34 @@ __global__ void __launch_bounds__(max_threads(KSM), 1)
                 const real s_a1 = cf(u, C_A1 + j) * eacc * dv;
 
                 // column maxima of waypoint u (A + P, old D / c)
-                real cq = rmax(s_pos, s_c2);
-                real cv = rmax(rmax(s_vel, s_c0), s_a1);
-                if (has_prev) {
-                    cq = rmax(cq, cf(u - 1, C_C1 + j) * pedyn[j] * dq);
-                    cv = rmax(cv, cf(u - 1, C_A0 + j) * peacc[j] * dv);
-                }
+                real cq = vmax(s_pos, s_c2);
+                real cv = vmax(vmax(s_vel, s_c0), s_a1);
+                cq = vmax(cq, cf(up, C_C1 + j) * pedyn[j] * dq);
+                cv = vmax(cv, cf(up, C_A0 + j) * peacc[j] * dv);
 #pragma unroll
                 for (int k = 0; k < NX; ++k)
-                    cq = rmax(cq, cf(u, C_X + k * N + j) * ex[k] * dq);
+                    cq = vmax(cq, cf(u, C_X + k * N + j) * ex[k] * dq);
 #if BLOCK_P
-                cq = rmax(cq, pcb[j]);
-                cv = rmax(cv, pcb[N + j]);
+                cq = vmax(cq, p_colmax(j));
+                cv = vmax(cv, p_colmax(N + j));
 #else
                 real pcol = ((c * dv) * pd(u, j)) * dv;
-                if (has_prev)
-                    pcol = rmax(pcol, (pl(u - 1, j) * pD[N + j]) * (c * dv));
-                if (has_next)
-                    pcol = rmax(pcol, ((c * Dx[N + j]) * pl(u, j)) * dv);
-                cv = rmax(cv, pcol);
+                pcol = vmax(pcol, (pl(up, j) * pD[N + j]) * (c * dv));
+                pcol = vmax(pcol, ((c * Dx[N + j]) * pl(u, j)) * dv);
+                cv = vmax(cv, pcol);
 #endif
-                D(u, j) = dq * inv_sqrt_limit(cq);
-                D(u, N + j) = dv * inv_sqrt_limit(cv);
+                put_d(j, dq * inv_sqrt_limit(cq));
+                put_d(N + j, dv * inv_sqrt_limit(cv));
 
                 // row maxima of waypoint u (old D / E)
-                real rd = rmax(s_c0, s_c2);
+                real rd = vmax(s_c0, s_c2);
                 real ra = s_a1;
-                if (has_next) {
-                    rd = rmax(rd, cf(u, C_C1 + j) * edyn * Dx[j]);
-                    ra = rmax(ra, cf(u, C_A0 + j) * eacc * Dx[N + j]);
-                }
-                E(u, R_DYN + j) = edyn * inv_sqrt_limit(rd);
-                E(u, R_POS + j) = epos * inv_sqrt_limit(s_pos);
-                E(u, R_VEL + j) = evel * inv_sqrt_limit(s_vel);
-                E(u, R_ACC + j) = eacc * inv_sqrt_limit(ra);
+                rd = vmax(rd, cf(u, C_C1 + j) * edyn * Dx[j]);
+                ra = vmax(ra, cf(u, C_A0 + j) * eacc * Dx[N + j]);
+                put_e(R_DYN + j, edyn * inv_sqrt_limit(rd));
+                put_e(R_POS + j, epos * inv_sqrt_limit(s_pos));
+                put_e(R_VEL + j, evel * inv_sqrt_limit(s_vel));
+                put_e(R_ACC + j, eacc * inv_sqrt_limit(ra));
                 pedyn[j] = edyn;
                 peacc[j] = eacc;
             }
@@ -364,8 +396,14 @@ __global__ void __launch_bounds__(max_threads(KSM), 1)
                 real m = real(0);
 #pragma unroll
                 for (int j = 0; j < N; ++j)
-                    m = rmax(m, cf(u, C_X + k * N + j) * ex[k] * Du[j]);
-                E(u, R_X + k) = ex[k] * inv_sqrt_limit(m);
+                    m = vmax(m, cf(u, C_X + k * N + j) * ex[k] * Du[j]);
+                put_e(R_X + k, ex[k] * inv_sqrt_limit(m));
+            }
+            if (!BLOCK_P) {
+#pragma unroll
+                for (int i = 0; i < B2; ++i) D(u, i) = Dnew[i];
+#pragma unroll
+                for (int r = 0; r < R; ++r) E(u, r) = Enew[r];
             }
 #pragma unroll
             for (int i = 0; i < B2; ++i) pD[i] = Du[i];
@@ -375,40 +413,37 @@ __global__ void __launch_bounds__(max_threads(KSM), 1)
         // ---- 3. cost normalisation terms of the run (new D, old c)
         real gsum = real(0), gqmax = real(0);
         for (int u = u0; u < u1; ++u) {
+            // The new D of the waypoints before and after (zero where there
+            // is none: their terms drop out of the maxima).
             const bool has_prev = u > 0, has_next = u + 1 < W;
-            real Dn[B2];
-#pragma unroll
-            for (int i = 0; i < B2; ++i) Dn[i] = D(u, i);
-#if BLOCK_P
-            real Dp[B2], Dx[B2];
+            const int up = has_prev ? u - 1 : u, un = has_next ? u + 1 : u;
+            real Dn[B2], Dp[B2], Dx[B2];
 #pragma unroll
             for (int i = 0; i < B2; ++i) {
-                Dp[i] = has_prev ? D(u - 1, i) : real(0);
-                Dx[i] = has_next ? D(u + 1, i) : real(0);
+                Dn[i] = D(u, i);
+                const real vp = D(up, i), vn = D(un, i);
+                Dp[i] = has_prev ? vp : real(0);
+                Dx[i] = has_next ? vn : real(0);
             }
+#if BLOCK_P
             real add = real(0);
 #pragma unroll
             for (int jj = 0; jj < B2; ++jj) {
+                hold_loads<true>();
                 real acc = real(0);
 #pragma unroll
                 for (int ii = 0; ii < B2; ++ii)
-                    acc = rmax(acc, (c * Dn[ii]) * pdb(u, PB, ii * B2 + jj));
+                    acc = vmax(acc, (c * Dn[ii]) * pdb(u, PB, ii * B2 + jj));
                 real pc = acc * Dn[jj];
-                if (has_prev) {
-                    real r = real(0);
+                real r = real(0), accc = real(0);
 #pragma unroll
-                    for (int jx = 0; jx < B2; ++jx)
-                        r = rmax(r, plb(u - 1, PB, jj * B2 + jx) * Dp[jx]);
-                    pc = rmax(pc, r * (c * Dn[jj]));
-                }
-                if (has_next) {
-                    real accc = real(0);
+                for (int jx = 0; jx < B2; ++jx)
+                    r = vmax(r, plb(up, PB, jj * B2 + jx) * Dp[jx]);
+                pc = vmax(pc, r * (c * Dn[jj]));
 #pragma unroll
-                    for (int ii = 0; ii < B2; ++ii)
-                        accc = rmax(accc,
-                                    (c * Dx[ii]) * plb(u, PB, ii * B2 + jj));
-                    pc = rmax(pc, accc * Dn[jj]);
-                }
+                for (int ii = 0; ii < B2; ++ii)
+                    accc = vmax(accc, (c * Dx[ii]) * plb(u, PB, ii * B2 + jj));
+                pc = vmax(pc, accc * Dn[jj]);
                 add = add + limit_scaling(pc);
             }
 #else
@@ -418,18 +453,16 @@ __global__ void __launch_bounds__(max_threads(KSM), 1)
             for (int j = 0; j < N; ++j) {
                 const real dv = Dn[N + j];
                 real pc = ((c * dv) * pd(u, j)) * dv;
-                if (has_prev)
-                    pc = rmax(pc, (pl(u - 1, j) * D(u - 1, N + j)) * (c * dv));
-                if (has_next)
-                    pc = rmax(pc, ((c * D(u + 1, N + j)) * pl(u, j)) * dv);
+                pc = vmax(pc, (pl(up, j) * Dp[N + j]) * (c * dv));
+                pc = vmax(pc, ((c * Dx[N + j]) * pl(u, j)) * dv);
                 add = add + limit_scaling(pc);
             }
 #endif
             gsum = gsum + add;
             real qadd = real(0);
 #pragma unroll
-            for (int i = 0; i < B2; ++i) qadd = rmax(qadd, (c * Dn[i]) * aq(u, i));
-            gqmax = rmax(gqmax, qadd);
+            for (int i = 0; i < B2; ++i) qadd = vmax(qadd, (c * Dn[i]) * aq(u, i));
+            gqmax = vmax(gqmax, qadd);
         }
 
         // ---- 4. the group's sum and max: within the warp (lanes of one
@@ -437,7 +470,7 @@ __global__ void __launch_bounds__(max_threads(KSM), 1)
         // them in the same order.
         for (int m = Q; m < LANE_WARP; m <<= 1) {
             gsum = gsum + lane_shfl_xor(gsum, m, tid / LANE_WARP, LANE_WARP);
-            gqmax = rmax(gqmax,
+            gqmax = vmax(gqmax,
                          lane_shfl_xor(gqmax, m, tid / LANE_WARP, LANE_WARP));
         }
         if (g % L == 0) {
@@ -448,14 +481,29 @@ __global__ void __launch_bounds__(max_threads(KSM), 1)
         real s = real(0), mx = real(0);
         for (int k = 0; k < np; ++k) {
             s = s + red[k * Q + q];
-            mx = rmax(mx, red[(np + k) * Q + q]);
+            mx = vmax(mx, red[(np + k) * Q + q]);
         }
-        c = c * (real(1) / limit_scaling(rmax(s / real(W * B2), mx)));
+        c = c * (real(1) / limit_scaling(vmax(s / real(W * B2), mx)));
     }
 
     // ---- D, E (pad rows 1) and c out
     if constexpr (SSM) {
-        if (valid) {
+        if (x4) {
+            for (int row = 0; row < B2 + Rp; ++row) {
+                real* dst = row < B2 ? Dout + (size_t)row * Bs
+                                     : Eout + (size_t)(row - B2) * Bs;
+                const size_t us = (size_t)(row < B2 ? B2 : Rp) * Bs;
+                const real* src = ss + (row < B2 ? S_D + row : S_E + row - B2) * WQ;
+                for (int k = tid; k < W << q4s; k += nthreads) {
+                    const int u = k >> q4s, qq = (k & ((1 << q4s) - 1)) << 2;
+                    if (b0 + qq >= B) continue;
+                    if (row < B2 + R)
+                        copy4(dst + u * us + b0 + qq, src + u * Q + qq);
+                    else
+                        fill4(dst + u * us + b0 + qq, real(1));
+                }
+            }
+        } else if (valid) {
             for (int u = g; u < W; u += G) {
 #pragma unroll
                 for (int i = 0; i < B2; ++i)
@@ -505,9 +553,15 @@ extern "C" int ruiz_launch(const void* ac, const void* apd, const void* apl,
     if (budget <= 0) budget = dev_smem;
     const RuizPlan p = ruiz_plan_for(W, B, budget, threads, sms);
     if (p.G == 0 || p.smem > dev_smem) return -1;
+    // 16-byte copies of 4 problems: whole pieces of every row (B a multiple
+    // of 4, at least 4 problems a block) at 16-byte aligned addresses.
+    uintptr_t bits = 0;
+    for (const void* ptr : {ac, apd, apl, aq, (const void*)D, (const void*)E})
+        bits |= (uintptr_t)ptr;
+    const int x4 = p.Q >= 4 && B % 4 == 0 && bits % 16 == 0;
 #define LANE_RUIZ_ARGS                                                        \
     (const real*)ac, (const real*)apd, (const real*)apl, (const real*)aq,     \
-        (real*)D, (real*)E, (real*)c_out, W, B, iters, p.qlog, p.G, p.rpt
+        (real*)D, (real*)E, (real*)c_out, W, B, iters, p.qlog, p.G, p.rpt, x4
     if (p.ksm)
         return lane_launch_coop(&ruiz_kernel<true, true>, p.blocks, p.threads,
                                 LANE_WARP, p.smem, stream, LANE_RUIZ_ARGS);
@@ -518,3 +572,35 @@ extern "C" int ruiz_launch(const void* ac, const void* apd, const void* apl,
                             LANE_WARP, p.smem, stream, LANE_RUIZ_ARGS);
 #undef LANE_RUIZ_ARGS
 }
+
+#ifndef LANE_HOST_EMULATION
+// Every float x from 2^-100 to 2^100 (1.6e9 of them): sqrt_rn(x) against
+// sqrtf(x) and rcp_rn(x) against 1.0f / x, bit for bit.
+__global__ void fast_math_check_kernel(unsigned lo, unsigned n,
+                                       unsigned long long* bad) {
+    unsigned long long mine = 0;
+    for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+         i += gridDim.x * blockDim.x) {
+        const float x = __uint_as_float(lo + i);
+        mine += (sqrt_rn(x) != sqrtf(x)) + (rcp_rn(x) != 1.0f / x);
+    }
+    if (mine) atomicAdd(bad, mine);
+}
+
+// The mismatches of that check (into *out, on the host); returns the CUDA
+// error.
+extern "C" int ruiz_fast_math_mismatches(unsigned long long* out) {
+    const unsigned lo = 0x0d800000u, hi = 0x71800000u;  // 2^-100, 2^100
+    unsigned long long* bad = nullptr;
+    int err = (int)cudaMalloc(&bad, sizeof(*bad));
+    if (err == 0) err = (int)cudaMemset(bad, 0, sizeof(*bad));
+    if (err == 0) {
+        fast_math_check_kernel<<<1024, 256>>>(lo, hi - lo + 1, bad);
+        err = (int)cudaGetLastError();
+    }
+    if (err == 0)
+        err = (int)cudaMemcpy(out, bad, sizeof(*bad), cudaMemcpyDeviceToHost);
+    if (bad != nullptr) cudaFree(bad);
+    return err;
+}
+#endif
