@@ -107,13 +107,14 @@ __device__ __forceinline__ real inv_sqrt_limit(real x) {
 }
 
 // Row r of waypoint u of one problem: in shared memory ([row][u][Q], I =
-// int) or in a (W, rows, B) pack in device memory (I = long long).
+// int) or in a (W, rows, B) pack in device memory (I = long long: the
+// offset in 64 bits, the strides in 32).
 template <class I>
 struct View {
     real* p;
-    I su, sr;
+    int su, sr;
     __device__ __forceinline__ real& operator()(int u, int r) const {
-        return p[u * su + r * sr];
+        return p[(I)u * su + (I)r * sr];
     }
 };
 
@@ -133,6 +134,10 @@ static RuizPlan ruiz_plan_for(int W, int B, int budget, int max_thr,
         max_thr > 0 && max_thr < MAX_THREADS ? max_thr : MAX_THREADS;
     for (int place = 0; place < 3; ++place) {
         const int ksm = place == 0, ssm = place <= 1;
+        // The block build keeps D/E on chip only with its constant rows:
+        // with both the P blocks and the constants read from device memory
+        // its 255 registers do not suffice.
+        if (BLOCK_P && place == 1) continue;
         for (int qlog = QLOG_MAX; qlog >= 0; --qlog) {
             const int Q = 1 << qlog;
             const long long blocks = (B + Q - 1) / Q;
@@ -175,8 +180,10 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     const int b0 = blockIdx.x << qlog, b = b0 + q;
     const bool valid = b < B;
     const size_t Bs = (size_t)B;
-    const int L = LANE_WARP >> qlog > 1 ? LANE_WARP >> qlog : 1;
-    const int np = G / L;
+    // A warp holds L lanes of each of its problems (a power of two).
+    int llog = 0;
+    while ((1 << (llog + 1)) * Q <= LANE_WARP) ++llog;
+    const int np = G >> llog;
     // This thread's run of waypoints (empty for the problems past B).
     const int u0 = g * rpt;
     const int u1 = valid ? (u0 + rpt < W ? u0 + rpt : W) : u0;
@@ -201,11 +208,11 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
         pl = {ks + K_PL * WQ + q, Q, WQ};
 #endif
     } else {
-        cf = {const_cast<real*>(ac_) + b, (KI)CRp * B, (KI)B};
-        aq = {const_cast<real*>(aq_) + b, (KI)B2 * B, (KI)B};
+        cf = {const_cast<real*>(ac_) + b, CRp * B, B};
+        aq = {const_cast<real*>(aq_) + b, B2 * B, B};
 #if !BLOCK_P
-        pd = {const_cast<real*>(apd_) + b, (KI)PNp * B, (KI)B};
-        pl = {const_cast<real*>(apl_) + b, (KI)PNp * B, (KI)B};
+        pd = {const_cast<real*>(apd_) + b, PNp * B, B};
+        pl = {const_cast<real*>(apl_) + b, PNp * B, B};
 #endif
     }
     View<SI> D, E;
@@ -213,8 +220,8 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
         D = {ss + S_D * WQ + q, Q, WQ};
         E = {ss + S_E * WQ + q, Q, WQ};
     } else {
-        D = {Dout + b, (SI)B2 * B, (SI)B};
-        E = {Eout + b, (SI)Rp * B, (SI)B};
+        D = {Dout + b, B2 * B, B};
+        E = {Eout + b, Rp * B, B};
     }
 #if BLOCK_P
     const Pack pdb{apd_, Bs, b}, plb{apl_, Bs, b};
@@ -321,13 +328,20 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
             // formed where it is used, so that no block of them stays live.
             const auto p_colmax = [&](int jj) {
                 hold_loads<true>();
+                // (Without the constants on chip, each of the three sweeps
+                // has its loads to itself.)
                 real acc = real(0), accc = real(0), prow = real(0);
 #pragma unroll
-                for (int ii = 0; ii < B2; ++ii) {
+                for (int ii = 0; ii < B2; ++ii)
                     acc = vmax(acc, (c * Du[ii]) * pdb(u, PB, ii * B2 + jj));
+                hold_loads<!KSM>();
+#pragma unroll
+                for (int ii = 0; ii < B2; ++ii)
                     accc = vmax(accc, (c * Dx[ii]) * plb(u, PB, ii * B2 + jj));
+                hold_loads<!KSM>();
+#pragma unroll
+                for (int ii = 0; ii < B2; ++ii)
                     prow = vmax(prow, plb(up, PB, jj * B2 + ii) * pD[ii]);
-                }
                 real pc = acc * Du[jj];
                 pc = vmax(pc, prow * (c * Du[jj]));
                 return vmax(pc, accc * Du[jj]);
@@ -393,6 +407,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
             }
 #pragma unroll
             for (int k = 0; k < NX; ++k) {
+                hold_loads<!KSM || BLOCK_P>();
                 real m = real(0);
 #pragma unroll
                 for (int j = 0; j < N; ++j)
@@ -436,10 +451,12 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
                     acc = vmax(acc, (c * Dn[ii]) * pdb(u, PB, ii * B2 + jj));
                 real pc = acc * Dn[jj];
                 real r = real(0), accc = real(0);
+                hold_loads<!KSM>();
 #pragma unroll
                 for (int jx = 0; jx < B2; ++jx)
                     r = vmax(r, plb(up, PB, jj * B2 + jx) * Dp[jx]);
                 pc = vmax(pc, r * (c * Dn[jj]));
+                hold_loads<!KSM>();
 #pragma unroll
                 for (int ii = 0; ii < B2; ++ii)
                     accc = vmax(accc, (c * Dx[ii]) * plb(u, PB, ii * B2 + jj));
@@ -451,6 +468,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
             real add = real(N);
 #pragma unroll
             for (int j = 0; j < N; ++j) {
+                hold_loads<!KSM>();
                 const real dv = Dn[N + j];
                 real pc = ((c * dv) * pd(u, j)) * dv;
                 pc = vmax(pc, (pl(up, j) * Dp[N + j]) * (c * dv));
@@ -473,9 +491,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
             gqmax = vmax(gqmax,
                          lane_shfl_xor(gqmax, m, tid / LANE_WARP, LANE_WARP));
         }
-        if (g % L == 0) {
-            red[(g / L) * Q + q] = gsum;
-            red[(np + g / L) * Q + q] = gqmax;
+        if ((g & ((1 << llog) - 1)) == 0) {
+            red[(g >> llog) * Q + q] = gsum;
+            red[(np + (g >> llog)) * Q + q] = gqmax;
         }
         __syncthreads();
         real s = real(0), mx = real(0);
@@ -552,7 +570,10 @@ extern "C" int ruiz_launch(const void* ac, const void* apd, const void* apl,
     if (err != 0) return err;
     if (budget <= 0) budget = dev_smem;
     const RuizPlan p = ruiz_plan_for(W, B, budget, threads, sms);
-    if (p.G == 0 || p.smem > dev_smem) return -1;
+    // A pack's waypoint stride (rows x B) is a 32-bit int in the kernel.
+    const int rows = CRp > Rp ? CRp : Rp;
+    if (p.G == 0 || p.smem > dev_smem || (long long)rows * B > 0x7fffffffLL)
+        return -1;
     // 16-byte copies of 4 problems: whole pieces of every row (B a multiple
     // of 4, at least 4 problems a block) at 16-byte aligned addresses.
     uintptr_t bits = 0;
@@ -565,9 +586,11 @@ extern "C" int ruiz_launch(const void* ac, const void* apd, const void* apl,
     if (p.ksm)
         return lane_launch_coop(&ruiz_kernel<true, true>, p.blocks, p.threads,
                                 LANE_WARP, p.smem, stream, LANE_RUIZ_ARGS);
+#if !BLOCK_P
     if (p.ssm)
         return lane_launch_coop(&ruiz_kernel<false, true>, p.blocks, p.threads,
                                 LANE_WARP, p.smem, stream, LANE_RUIZ_ARGS);
+#endif
     return lane_launch_coop(&ruiz_kernel<false, false>, p.blocks, p.threads,
                             LANE_WARP, p.smem, stream, LANE_RUIZ_ARGS);
 #undef LANE_RUIZ_ARGS

@@ -180,7 +180,10 @@ RUIZ_CASES = {"odd_batch": dict(B=ODD_BATCH), "w4": dict(W=4),
               "state_shared": dict(W=11, B=ODD_BATCH, threads=16,
                                    budget=4096),
               "nothing_shared": dict(W=11, B=ODD_BATCH, budget=1)}
-RUIZ_PLACEMENT = {"state_shared": (0, 1), "nothing_shared": (0, 0)}
+# (constants, D/E) in shared memory by case and P form: the block build
+# keeps D/E on chip only with its constants.
+RUIZ_PLACEMENT = {"state_shared": {"vel_diag": (0, 1), "block": (0, 0)},
+                  "nothing_shared": {"vel_diag": (0, 0), "block": (0, 0)}}
 RUIZ_PARAMS = [
     pytest.param(i, f, n, "base", id=f"{fid}-{i}")
     for f, n, fid in [((False, True), 1, "flags0-1"), ((), 0, "flags1-0")]
@@ -199,8 +202,8 @@ def emulated_ruiz(tqp, iters, case):
     if case == "uneven_runs":
         assert p["rpt"] > 1 and tqp.waypoints % p["rpt"] != 0
     if case in RUIZ_PLACEMENT:
-        assert (p["constants_in_shared"],
-                p["state_in_shared"]) == RUIZ_PLACEMENT[case]
+        assert (p["constants_in_shared"], p["state_in_shared"]
+                ) == RUIZ_PLACEMENT[case][tqp.p_structure]
     packs = truiz._ruiz_kernel_packs(tqp)
     for t in packs[4:]:
         t.fill_(float("nan"))
