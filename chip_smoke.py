@@ -18,7 +18,11 @@ factor — against its plain PyTorch version on the card at its main path's
 shape (honest GOMP class, W=100, N=6, B=1024; dense QPs n=64, m=96, B=1024,
 and the dense kernels also at n=160, 512 and 2048; float32; the chunk
 kernel also at B=1022, where its last block of 4 problems is half empty),
-times both, then drives the port's entry points:
+times both (the Ruiz and factor kernels also alone, on packs built
+beforehand, at B=8, and at the edges of their launch plans: B=1022, W=4,
+W=50; and the rounded square root and reciprocal they share, bit for bit
+against ``sqrtf`` and the division on every float from 2^-100 to 2^100),
+then drives the port's entry points:
 
 * ``solve_batched_lane`` on a 1024-problem honest batch (``solve``), the same
   with ``term_fused="off"`` (``solve_unfused_term``: delta-writing chunk +
@@ -177,20 +181,15 @@ def nvidia_smi():
     ).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps=7, warm=2, inner=1, setup=None):
+def time_ms(fn, reps=7, warm=2, inner=1):
     """Median device time of ``fn`` in ms (CUDA events, warmed), each sample
     over ``inner`` calls back to back (more than one keeps the stream busy
-    while the host enqueues, so that a call's host overhead is not timed).
-    ``setup``, if given, runs before each sample, outside its events."""
+    while the host enqueues, so that a call's host overhead is not timed)."""
     for _ in range(warm):
-        if setup is not None:
-            setup()
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
-        if setup is not None:
-            setup()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -581,16 +580,16 @@ def check_ruiz(base, iters, batch):
 
 
 def ruiz_alone(qp, iters):
-    """``(launch, None)``: one launch of ``csrc/ruiz.cu`` on packs and
-    outputs built beforehand (the kernel needs no reset between launches)."""
+    """One launch of ``csrc/ruiz.cu`` on packs and outputs built
+    beforehand."""
     packs = ruiz_kernel._ruiz_kernel_packs(qp)
     lib = _build.library("ruiz", admm_fused.p_signature(qp))
-    return (lambda: ruiz_kernel._launch_ruiz(lib, *packs, iters)), None
+    return lambda: ruiz_kernel._launch_ruiz(lib, *packs, iters)
 
 
 def factor_alone(scaled, rho_vec, sigma, emit_gain=False):
-    """``(launch, None)``: one launch of ``csrc/kkt_factor.cu`` on the
-    coefficient, rho and P packs and the outputs, all built beforehand."""
+    """One launch of ``csrc/kkt_factor.cu`` on the coefficient, rho and P
+    packs and the outputs, all built beforehand."""
     W_, Rp, B = (scaled.waypoints, scaled.rows_per_waypoint_padded,
                  scaled.batch)
     coef = admm_fused.build_coef_pack(scaled)
@@ -600,8 +599,8 @@ def factor_alone(scaled, rho_vec, sigma, emit_gain=False):
     cholp = torch.empty((W_, Tp, B), device="cuda")
     gainp = torch.empty_like(cholp) if emit_gain else None
     lib = _build.library("kkt_factor", admm_fused.layout_signature(scaled))
-    return (lambda: kkt_factor._launch_factor(lib, coef, rho3, Pd, Pl, cholp,
-                                              sigma, gainp)), None
+    return lambda: kkt_factor._launch_factor(lib, coef, rho3, Pd, Pl, cholp,
+                                             sigma, gainp)
 
 
 def lane_plan(name, W_, B):
@@ -622,12 +621,11 @@ ALONE_INNER = 20
 
 
 def alone_ms(make, *args, **kw):
-    """Device time of one launch alone (``make`` gives ``(launch,
-    reset)``): ``(ms over ALONE_INNER launches back to back, ms of a single
-    launch)``, the second as the starting tree's kernels were first timed."""
-    launch, reset = make(*args, **kw)
-    return (time_ms(launch, setup=reset, inner=ALONE_INNER),
-            time_ms(launch, setup=reset))
+    """Device time of one launch alone (``make`` gives the launch): ``(ms
+    over ALONE_INNER launches back to back, ms of a single launch)``, the
+    second as the starting tree's kernels were first timed."""
+    launch = make(*args, **kw)
+    return time_ms(launch, inner=ALONE_INNER), time_ms(launch)
 
 
 def fast_math_mismatches():

@@ -783,21 +783,6 @@ static int chunk_qlog(int B, int sms) {
     return qlog;
 }
 
-static int device_sms() {
-#ifdef LANE_HOST_EMULATION
-    return 1;
-#else
-    static int cached[64];
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
-    if (cached[dev] == 0 &&
-        cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount,
-                               dev) != cudaSuccess)
-        return 132;
-    return cached[dev];
-#endif
-}
-
 // plan[0..8] = threads per problem G, problems per block Q, stages, shared
 // bytes, blocks, threads per block, slot values per problem, tile row
 // stride, bytes per staging copy (for 16-byte aligned packs).
@@ -819,7 +804,10 @@ static int launch_mode(const void* chol, const void* gain, const void* coef,
                        const void* pd, const void* done, void* state, void* w,
                        void* acc, void* dxdy, int W, int B, int n_iter,
                        double sigma, double alpha, void* stream) {
-    const int qlog = chunk_qlog(B, device_sms()), Q = 1 << qlog;
+    int dev_smem = 0, sms = 0;
+    const int err = lane_device_limits(&dev_smem, &sms);
+    if (err != 0) return err;
+    const int qlog = chunk_qlog(B, sms), Q = 1 << qlog;
     // 16-byte copies need every staged pack 16-byte aligned.
     uintptr_t bits = 0;
     for (const void* p : {chol, gain, coef, q, lu, rho, plf, ee, varc, pd,

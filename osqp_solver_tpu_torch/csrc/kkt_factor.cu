@@ -26,14 +26,17 @@
 //     thread per (waypoint, problem) pair) into shared memory, before the
 //     chain walks them; the window is planned so that the blocks of one wave
 //     fit on the SMs (W = 100 at B = 1024: 8 problems a block, two windows);
-//   - on the chain each lane forms a few entries of the Schur update (G_{t-1}
-//     in shared memory), barrier; every lane then factors the whole 2N x 2N
-//     S in its registers (no exchange; PR 7's chunk kernel found a whole
-//     small system in each lane's registers faster than column sweeps) and
-//     lane i < 2N forms row i of G_t (an independent forward substitution),
-//     writes it to shared memory for the next step and stores row i of C
-//     and of G_t, barrier.  With -DKKT_CHOL_SWEEP=1 the Cholesky instead runs
-//     by columns across the group (lane i owns row i; one barrier a pivot).
+//   - a step: each lane forms a few entries of the Schur update (G_{t-1} in
+//     shared memory), barrier; every lane factors the whole 2N x 2N S in its
+//     registers (no exchange), with the branch-free rounded sqrt_rn and
+//     rcp_rn of lane_common.cuh; lane i < 2N forms row i of G_t (an
+//     independent forward substitution) into shared memory for the next
+//     step and, with emit_gain, to gainp; barrier; C_t goes to its slot and
+//     out to cholp during the next step, a few entries a lane.
+// Two other designs were timed on the card and were no faster (PERF.md): the
+// Cholesky by columns across the group (lane i owning row i, a barrier a
+// pivot), and the whole Schur update in every lane's registers with one
+// barrier a step.
 // Bound: each problem's chain of W dependent steps (a square root and an
 // exact reciprocal per pivot), not bytes or operations.
 #include "lane_common.cuh"

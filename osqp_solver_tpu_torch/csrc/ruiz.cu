@@ -26,28 +26,37 @@
 //   - a group of G threads works on each problem and deals its waypoints out
 //     in contiguous runs of rpt (the last run may be shorter); a block holds
 //     Q adjacent problems with the problem index fastest among a warp's
-//     lanes, so a row's loads and stores of Q problems are adjacent values;
+//     lanes, so a row's loads and stores of Q problems are adjacent values
+//     (16-byte copies of 4 problems where Q >= 4 and the packs allow);
 //   - the constant rows (|coef|, |Pd|, |Pl|, |q|) of every waypoint are
 //     copied into shared memory once (cp.async) and read from there in every
 //     pass; D and E live in shared memory too, [row][waypoint][problem];
 //   - a pass: each thread reads the old values it needs of the waypoints
-//     just outside its run (D of both neighbours, E of the one before),
-//     barrier; it rewrites its run's D/E in place, waypoint by waypoint,
-//     carrying the old values of the waypoint before in registers; barrier;
-//     each thread forms the cost normalisation's terms over its run from the
-//     new D; the group sums them (butterfly shuffles within a warp, then one
-//     value per warp through shared memory, added in a fixed order by every
-//     thread, so all threads of a problem hold the same c); barrier;
-//   - G, rpt, Q and where the rows live are planned at each launch from W,
+//     just outside its run (D of both neighbours, E of the one before; the
+//     D after it into a shared slot of its own), barrier; it rewrites its
+//     run's D/E in place, waypoint by waypoint, carrying the old values of
+//     the waypoint before in registers; barrier; each thread forms the cost
+//     normalisation's terms over its run from the new D; the group sums them
+//     (butterfly shuffles within a warp, then one value per warp through
+//     shared memory, added in a fixed order by every thread, so all threads
+//     of a problem hold the same c); barrier;
+//   - neighbour terms that do not exist (u = 0, u = W-1) are zeros that drop
+//     out of the maxima, not branches, and the square roots and reciprocals
+//     are lane_common.cuh's branch-free rounded ones (limit_scaling keeps
+//     their operands in [1e-4, 1e4]), so a waypoint's loads issue together;
+//   - Q, G, rpt and where the rows live are planned at each launch from W,
 //     B, the shared memory a block may use and the SM count (ruiz_plan):
 //     constants and D/E in shared memory while they fit, else D/E alone
 //     (the constants read from the packs in device memory), else neither
-//     (D/E in the output arrays), so every W >= 4 runs.
+//     (D/E in the output arrays), so every W >= 4 runs; in the first that
+//     fits, the most problems per block (longer pieces of each row to copy
+//     beat shorter runs on the card; PERF.md).
 // BLOCK_P: the four 12 x 12 |P| blocks of a waypoint cannot stay on chip, so
 // they are read from the packs at the point of use (2 x 59 MB at W=100, N=6,
 // B=1024, read several times a pass through L2).
-// Bound: the vel-diag build by reading its packs once (the passes run on
-// chip); the block build by the |P| block reads.  PERF.md records the times.
+// Bound: the vel-diag build by reading its packs once and writing D/E (the
+// passes run on chip); the block build by the |P| block reads.  PERF.md
+// records the times.
 #include <cstdint>
 #include <initializer_list>
 #include <type_traits>
