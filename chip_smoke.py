@@ -715,9 +715,8 @@ def phase_kernels():
     few = build_honest_batch(8, W, N, torch.float32, "cuda")
     p_ms = time_ms(lambda: ruiz_kernel._ruiz_scalings_plain(base, settings.scaling))
     rp = ruiz_kernel._ruiz_kernel_packs(base)
-    b_ms, b_by = bound(
-        nbytes(*rp[:4]) + nbytes(rp[4][0], rp[5][0], rp[6]),
-        ops_ruiz(W, N, NX, B, settings.scaling))
+    b_ms, b_by = bound(  # the packs read once, D, E and c written once
+        nbytes(*rp), ops_ruiz(W, N, NX, B, settings.scaling))
     fm_bad = fast_math_mismatches()
     out.append(dict(
         name="ruiz", max_abs_err=abs_err, max_rel_err=r_err,
@@ -1488,9 +1487,8 @@ def check_block_p(settings, NX):
     few_ms = alone_ms(ruiz_alone, block_p_batch(8, "cuda"), iters)[0]
     p_ms = time_ms(lambda: ruiz_kernel._ruiz_scalings_plain(bp, iters))
     rp = ruiz_kernel._ruiz_kernel_packs(bp)
-    b_ms, b_by = bound(
-        nbytes(*rp[:4]) + nbytes(rp[4][0], rp[5][0], rp[6]),
-        ops_ruiz(W, N, NX, B, iters, block=True))
+    b_ms, b_by = bound(  # the packs read once, D, E and c written once
+        nbytes(*rp), ops_ruiz(W, N, NX, B, iters, block=True))
     rows = [dict(
         name="ruiz_block", max_abs_err=err, max_rel_err=err,
         plain_f32_vs_f64=plain_err, kernel_vs_plain_f32=vs_plain,
