@@ -189,7 +189,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     const int b0 = blockIdx.x << qlog, b = b0 + q;
     const bool valid = b < B;
     const size_t Bs = (size_t)B;
-    // A warp holds L lanes of each of its problems (a power of two).
+    // A warp holds 2^llog lanes of each of its problems.
     int llog = 0;
     while ((1 << (llog + 1)) * Q <= LANE_WARP) ++llog;
     const int np = G >> llog;
