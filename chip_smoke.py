@@ -6,7 +6,7 @@ Run it from the repository root on a machine with one NVIDIA Hopper GPU:
     python3 chip_smoke.py
 
 It builds the hand-written kernels from ``osqp_solver_tpu_torch/csrc`` (six
-sources; three layout signatures of the lane kernels, the Ruiz and residual
+sources and the fast-math check; three layout signatures of the lane kernels, the Ruiz and residual
 kernels also in their block-P form, the block size of the tridiagonal one,
 and the dense one; all compilers started together), holds each kernel — the
 chunk kernel in its accumulator, warm-up and delta-writing forms, each in
@@ -20,7 +20,7 @@ and the dense kernels also at n=160, 512 and 2048; float32; the chunk
 kernel also at B=1022, where its last block of 4 problems is half empty),
 times both (the Ruiz and factor kernels also alone, on packs built
 beforehand, at B=8, and at the edges of their launch plans: B=1022, W=4,
-W=50; and the rounded square root and reciprocal they share, bit for bit
+W=50, and Ruiz with its rows in device memory; and the rounded square root and reciprocal they share, bit for bit
 against ``sqrtf`` and the division on every float from 2^-100 to 2^100),
 then drives the port's entry points:
 
@@ -629,16 +629,15 @@ def alone_ms(make, *args, **kw):
 
 
 def fast_math_mismatches():
-    """``ruiz_fast_math_mismatches`` of ``csrc/ruiz.cu``: the floats from
-    2^-100 to 2^100 whose ``sqrt_rn`` or ``rcp_rn`` (``lane_common.cuh``,
-    the Ruiz and factor kernels' square roots and reciprocals) differ from
-    ``sqrtf`` or ``1.0f / x`` on this card."""
-    fn = _build.library("ruiz", {"NDIM": N, "NX": 5, "BLOCK_P": 0}
-                        ).ruiz_fast_math_mismatches
+    """``csrc/fast_math_check.cu``: the floats from 2^-100 to 2^100 whose
+    ``sqrt_rn`` or ``rcp_rn`` (``lane_common.cuh``, the Ruiz and factor
+    kernels' square roots and reciprocals) differ from ``sqrtf`` or
+    ``1.0f / x`` on this card."""
+    fn = _build.library("fast_math_check", {}).fast_math_mismatches
     fn.argtypes = [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = ctypes.c_ulonglong(0)
-    _build.check(fn(ctypes.byref(out)), "ruiz_fast_math_mismatches")
+    _build.check(fn(ctypes.byref(out)), "fast_math_mismatches")
     return out.value
 
 
@@ -662,6 +661,32 @@ def ruiz_vs_f64(qp, iters):
     return (max(ratio(a, b) for a, b in zip(got, ref)),
             max(ratio(a, b) for a, b in zip(plain, ref)),
             max(rel_err(a, b)[0] for a, b in zip(got, plain)))
+
+
+def ruiz_off_chip(qp, iters):
+    """The Ruiz kernel on ``qp`` with its constant rows and D/E in device
+    memory, the placement the plan takes where they do not fit in shared
+    memory (forced here by a budget of one byte): the plan, the launch
+    alone's ms (as the row's ``ms``) and ``rel_err``, ``|kernel / plain -
+    1|`` elementwise, max over D, E, c, against the plain version in f32
+    (vel-diag, as its row) or run in f64 on the same f32 inputs (block P,
+    as its row)."""
+    lib = _build.library("ruiz", admm_fused.p_signature(qp))
+    p = ruiz_kernel.plan(lib, qp.waypoints, qp.batch, budget=1)
+    packs = ruiz_kernel._ruiz_kernel_packs(qp)
+
+    def launch():
+        ruiz_kernel._launch_ruiz(lib, *packs, iters, budget=1)
+    launch()
+    got = [t.clone() for t in ruiz_kernel._unpack_scalings(qp, *packs[4:])]
+    block = qp.p_structure == "block"
+    ref = ruiz_kernel._ruiz_scalings_plain(
+        cast(qp, torch.float64) if block else qp, iters)
+    torch.cuda.synchronize()
+    err = max(rel_err(a.double() / b.double(), torch.ones_like(b.double()))[0]
+              for a, b in zip(got, ref))
+    return dict(plan=p, rel_err=err, ms=time_ms(launch, inner=ALONE_INNER),
+                shape=f"W={qp.waypoints} B={qp.batch}")
 
 
 def ruiz_edge_cases(iters, block=False):
@@ -710,6 +735,7 @@ def phase_kernels():
     odd = build_honest_batch(200, W, N, torch.float32, "cuda")
     odd_err = check_ruiz(odd, settings.scaling, 200)[1]
     edge = ruiz_edge_cases(settings.scaling)
+    off = ruiz_off_chip(base, settings.scaling)
     w_ms = time_ms(lambda: ruiz_kernel.ruiz_scalings_kernel(base, settings.scaling))
     k_ms, k1_ms = alone_ms(ruiz_alone, base, settings.scaling)
     few = build_honest_batch(8, W, N, torch.float32, "cuda")
@@ -722,9 +748,11 @@ def phase_kernels():
         name="ruiz", max_abs_err=abs_err, max_rel_err=r_err,
         odd_batch_rel_err=odd_err, edge_cases_rel_err=edge, tol=TOL_RUIZ,
         tol_note="D, E, c elementwise relative to the plain version",
-        fast_math_mismatches=fm_bad,
+        fast_math_mismatches=fm_bad, rows_off_chip=off,
         ok=bool(r_err <= TOL_RUIZ and odd_err <= TOL_RUIZ
-                and max(edge.values()) <= TOL_RUIZ and fm_bad == 0),
+                and max(edge.values()) <= TOL_RUIZ and fm_bad == 0
+                and off["rel_err"] <= TOL_RUIZ
+                and not off["plan"]["rows_in_shared"]),
         ms=k_ms, single_launch_ms=k1_ms, wrapper_ms=w_ms, plain_ms=p_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         B8_ms=alone_ms(ruiz_alone, few, settings.scaling)[0],
@@ -1482,6 +1510,7 @@ def check_block_p(settings, NX):
     err, plain_err, vs_plain = ruiz_vs_f64(bp, iters)
     odd_err = ruiz_vs_f64(block_p_batch(200, "cuda"), iters)[0]
     edge = ruiz_edge_cases(iters, block=True)
+    off = ruiz_off_chip(bp, iters)
     w_ms = time_ms(lambda: ruiz_kernel.ruiz_scalings_kernel(bp, iters))
     k_ms, k1_ms = alone_ms(ruiz_alone, bp, iters)
     few_ms = alone_ms(ruiz_alone, block_p_batch(8, "cuda"), iters)[0]
@@ -1492,11 +1521,14 @@ def check_block_p(settings, NX):
     rows = [dict(
         name="ruiz_block", max_abs_err=err, max_rel_err=err,
         plain_f32_vs_f64=plain_err, kernel_vs_plain_f32=vs_plain,
-        odd_batch_rel_err=odd_err, edge_cases_rel_err=edge, tol=TOL_RUIZ,
+        odd_batch_rel_err=odd_err, edge_cases_rel_err=edge,
+        rows_off_chip=off, tol=TOL_RUIZ,
         tol_note="D, E, c elementwise relative to the plain version run in "
                  "f64 on the same f32 inputs (|kernel / f64 - 1|)",
         ok=bool(err <= TOL_RUIZ and odd_err <= TOL_RUIZ
-                and max(edge.values()) <= TOL_RUIZ),
+                and max(edge.values()) <= TOL_RUIZ
+                and off["rel_err"] <= TOL_RUIZ
+                and not off["plan"]["rows_in_shared"]),
         ms=k_ms, single_launch_ms=k1_ms, wrapper_ms=w_ms, plain_ms=p_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=None, B8_ms=few_ms,
         plan=lane_plan("ruiz_block", W, B),

@@ -43,6 +43,7 @@ KERNELS = {
     "residuals": ("NDIM", "NX", "BLOCK_P"),
     "tridiag": ("B2",),
     "dense": (),
+    "fast_math_check": (),
 }
 
 _NVCC_FLAGS = [

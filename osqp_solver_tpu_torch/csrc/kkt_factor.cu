@@ -311,17 +311,14 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
 
 // plan[0..7] = threads per problem G, problems per block Q, waypoints per
 // window TW, windows, shared bytes, blocks, threads per block, and the
-// shared bytes planned for.  budget / sms <= 0: the current device's (the
-// host-emulation tests pass a small budget to reach several windows).
-extern "C" int kkt_factor_plan(int W, int B, int budget, int sms,
-                               long long* plan) {
-    int dev_smem = 0, dev_sms = 0;
-    if (budget <= 0 || sms <= 0) {
-        const int err = lane_device_limits(&dev_smem, &dev_sms);
-        if (err != 0) return err;
-        if (budget <= 0) budget = dev_smem;
-        if (sms <= 0) sms = dev_sms;
-    }
+// shared bytes planned for: the plan kkt_factor_launch makes on the current
+// device.  budget <= 0: the device's (the host-emulation tests pass a small
+// budget to reach several windows).
+extern "C" int kkt_factor_plan(int W, int B, int budget, long long* plan) {
+    int dev_smem = 0, sms = 0;
+    const int err = lane_device_limits(&dev_smem, &sms);
+    if (err != 0) return err;
+    if (budget <= 0) budget = dev_smem;
     const FactorPlan p = factor_plan_for(W, B, budget, sms);
     const long long v[8] = {G,        p.Q,      p.TW,      p.windows,
                             p.smem,   p.blocks, p.threads, budget};

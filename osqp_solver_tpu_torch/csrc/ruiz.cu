@@ -46,11 +46,11 @@
 //     their operands in [1e-4, 1e4]), so a waypoint's loads issue together;
 //   - Q, G, rpt and where the rows live are planned at each launch from W,
 //     B, the shared memory a block may use and the SM count (ruiz_plan):
-//     constants and D/E in shared memory while they fit, else D/E alone
-//     (the constants read from the packs in device memory), else neither
-//     (D/E in the output arrays), so every W >= 4 runs; in the first that
-//     fits, the most problems per block (longer pieces of each row to copy
-//     beat shorter runs on the card; PERF.md).
+//     constants and D/E in shared memory while they fit, else both read and
+//     written in device memory (the constants from their packs, D/E in the
+//     output arrays), so every W >= 4 runs; on chip, the most problems per
+//     block that fit (longer pieces of each row to copy beat shorter runs
+//     on the card; PERF.md).
 // BLOCK_P: the four 12 x 12 |P| blocks of a waypoint cannot stay on chip, so
 // they are read from the packs at the point of use (2 x 59 MB at W=100, N=6,
 // B=1024, read several times a pass through L2).
@@ -95,7 +95,7 @@ __host__ __device__ __forceinline__ real limit_scaling(real x) {
 
 // A compiler barrier at the top of a loop's iteration (FENCE): its loads
 // are not hoisted above it.  Where they come from device memory (the block
-// build's P blocks, the placements without the constants on chip) the
+// build's P blocks, the placement without the rows on chip) the
 // compiler otherwise issues every iteration's loads at once, each with its
 // own address, and runs out of registers.
 template <bool FENCE>
@@ -130,23 +130,18 @@ struct View {
 // ---------------------------------------------------------------- the plan
 
 struct RuizPlan {
-    int G, Q, qlog, rpt, ksm, ssm, smem, blocks, threads, np;
+    int G, Q, qlog, rpt, sm, smem, blocks, threads, np;
 };
 
-// The plan: the first placement (constants and D/E in shared memory, then
-// D/E alone, then neither) that fits, and in it the most problems per block
+// The plan: the constant rows and D/E in shared memory if they fit, else
+// both in device memory; in that placement the most problems per block
 // (their rows are adjacent: longer pieces of each row to copy); then as
 // many threads as the waypoints need.
 static RuizPlan ruiz_plan_for(int W, int B, int budget, int max_thr,
                               int sms) {
     const int threads =
         max_thr > 0 && max_thr < MAX_THREADS ? max_thr : MAX_THREADS;
-    for (int place = 0; place < 3; ++place) {
-        const int ksm = place == 0, ssm = place <= 1;
-        // The block build keeps D/E on chip only with its constant rows:
-        // with both the P blocks and the constants read from device memory
-        // its 255 registers do not suffice.
-        if (BLOCK_P && place == 1) continue;
+    for (int sm = 1; sm >= 0; --sm) {
         for (int qlog = QLOG_MAX; qlog >= 0; --qlog) {
             const int Q = 1 << qlog;
             const long long blocks = (B + Q - 1) / Q;
@@ -160,12 +155,11 @@ static RuizPlan ruiz_plan_for(int W, int B, int budget, int max_thr,
             const int G = (runs + L - 1) / L * L;
             // + the group sums, and the old D of the waypoint after each
             // thread's run.
-            const long long vals = (long long)W * Q *
-                                       ((ksm ? KROWS : 0) + (ssm ? SROWS : 0)) +
+            const long long vals = (long long)W * Q * (sm ? KROWS + SROWS : 0) +
                                    2LL * (G / L) * Q + (long long)B2 * G * Q;
             const long long bytes = vals * (long long)sizeof(real);
-            if (bytes > budget && place < 2) continue;
-            return RuizPlan{G, Q, qlog, rpt, ksm, ssm, (int)bytes, (int)blocks,
+            if (bytes > budget && sm) continue;
+            return RuizPlan{G, Q, qlog, rpt, sm, (int)bytes, (int)blocks,
                             G * Q, G / L};
         }
     }
@@ -174,14 +168,15 @@ static RuizPlan ruiz_plan_for(int W, int B, int budget, int max_thr,
 
 // --------------------------------------------------------------- the kernel
 
-template <bool KSM, bool SSM>
+// SM: the constant rows and D/E in shared memory (else the packs and the
+// outputs in device memory).
+template <bool SM>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
     ruiz_kernel(const real* __restrict__ ac_, const real* __restrict__ apd_,
                 const real* __restrict__ apl_, const real* __restrict__ aq_,
                 real* Dout, real* Eout, real* c_out, int W, int B, int iters,
                 int qlog, int G, int rpt, int x4) {
-    using KI = typename std::conditional<KSM, int, long long>::type;
-    using SI = typename std::conditional<SSM, int, long long>::type;
+    using I = typename std::conditional<SM, int, long long>::type;
     LANE_SMEM_DECL();
     const int Q = 1 << qlog, WQ = W * Q;
     const int tid = threadIdx.x, nthreads = G << qlog;
@@ -198,24 +193,26 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     const int u1 = valid ? (u0 + rpt < W ? u0 + rpt : W) : u0;
 
     real* ks = lane_smem;
-    real* ss = ks + (KSM ? KROWS * WQ : 0);
-    real* red = ss + (SSM ? SROWS * WQ : 0);
+    real* ss = ks + (SM ? KROWS * WQ : 0);
+    real* red = ss + (SM ? SROWS * WQ : 0);
     // The old D of the waypoint after this thread's run ([i][thread]): kept
     // here rather than in registers across the run.
     real* nxt = red + 2 * np * Q + tid;
 
     // ---- the views of this problem's rows
-    View<KI> cf, aq;
+    View<I> cf, aq, D, E;
 #if !BLOCK_P
-    View<KI> pd, pl;
+    View<I> pd, pl;
 #endif
-    if constexpr (KSM) {
+    if constexpr (SM) {
         cf = {ks + K_CF * WQ + q, Q, WQ};
         aq = {ks + K_Q * WQ + q, Q, WQ};
 #if !BLOCK_P
         pd = {ks + K_PD * WQ + q, Q, WQ};
         pl = {ks + K_PL * WQ + q, Q, WQ};
 #endif
+        D = {ss + S_D * WQ + q, Q, WQ};
+        E = {ss + S_E * WQ + q, Q, WQ};
     } else {
         cf = {const_cast<real*>(ac_) + b, CRp * B, B};
         aq = {const_cast<real*>(aq_) + b, B2 * B, B};
@@ -223,12 +220,6 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
         pd = {const_cast<real*>(apd_) + b, PNp * B, B};
         pl = {const_cast<real*>(apl_) + b, PNp * B, B};
 #endif
-    }
-    View<SI> D, E;
-    if constexpr (SSM) {
-        D = {ss + S_D * WQ + q, Q, WQ};
-        E = {ss + S_E * WQ + q, Q, WQ};
-    } else {
         D = {Dout + b, B2 * B, B};
         E = {Eout + b, Rp * B, B};
     }
@@ -239,7 +230,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     // ---- stage the constant rows (row by row: the source is uniform across
     // the block; 16-byte copies of 4 problems where x4); D = E = 1
     const int q4s = x4 ? qlog - 2 : 0;  // log2 of the 4-problem pieces
-    if constexpr (KSM) {
+    if constexpr (SM) {
         for (int row = 0; row < KROWS; ++row) {
             const real* src;
             size_t us;  // waypoint stride of the source pack
@@ -278,14 +269,12 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
             }
         }
         cp_async_commit();
-    }
-    if constexpr (SSM) {
         for (int i = tid; i < SROWS * WQ; i += nthreads) ss[i] = real(1);
+        cp_async_wait<0>();
     } else if (valid) {
         for (int i = g; i < W * B2; i += G) Dout[(size_t)i * Bs + b] = real(1);
         for (int i = g; i < W * Rp; i += G) Eout[(size_t)i * Bs + b] = real(1);
     }
-    if constexpr (KSM) cp_async_wait<0>();
     __syncthreads();
 
     real c = real(1);
@@ -343,11 +332,11 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
 #pragma unroll
                 for (int ii = 0; ii < B2; ++ii)
                     acc = vmax(acc, (c * Du[ii]) * pdb(u, PB, ii * B2 + jj));
-                hold_loads<!KSM>();
+                hold_loads<!SM>();
 #pragma unroll
                 for (int ii = 0; ii < B2; ++ii)
                     accc = vmax(accc, (c * Dx[ii]) * plb(u, PB, ii * B2 + jj));
-                hold_loads<!KSM>();
+                hold_loads<!SM>();
 #pragma unroll
                 for (int ii = 0; ii < B2; ++ii)
                     prow = vmax(prow, plb(up, PB, jj * B2 + ii) * pD[ii]);
@@ -371,7 +360,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
             };
 #pragma unroll
             for (int j = 0; j < N; ++j) {
-                hold_loads<!KSM || BLOCK_P>();
+                hold_loads<!SM || BLOCK_P>();
                 const real dq = Du[j], dv = Du[N + j];
                 const real edyn = E(u, R_DYN + j), epos = E(u, R_POS + j);
                 const real evel = E(u, R_VEL + j), eacc = E(u, R_ACC + j);
@@ -416,7 +405,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
             }
 #pragma unroll
             for (int k = 0; k < NX; ++k) {
-                hold_loads<!KSM || BLOCK_P>();
+                hold_loads<!SM || BLOCK_P>();
                 real m = real(0);
 #pragma unroll
                 for (int j = 0; j < N; ++j)
@@ -460,12 +449,12 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
                     acc = vmax(acc, (c * Dn[ii]) * pdb(u, PB, ii * B2 + jj));
                 real pc = acc * Dn[jj];
                 real r = real(0), accc = real(0);
-                hold_loads<!KSM>();
+                hold_loads<!SM>();
 #pragma unroll
                 for (int jx = 0; jx < B2; ++jx)
                     r = vmax(r, plb(up, PB, jj * B2 + jx) * Dp[jx]);
                 pc = vmax(pc, r * (c * Dn[jj]));
-                hold_loads<!KSM>();
+                hold_loads<!SM>();
 #pragma unroll
                 for (int ii = 0; ii < B2; ++ii)
                     accc = vmax(accc, (c * Dx[ii]) * plb(u, PB, ii * B2 + jj));
@@ -477,7 +466,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
             real add = real(N);
 #pragma unroll
             for (int j = 0; j < N; ++j) {
-                hold_loads<!KSM>();
+                hold_loads<!SM>();
                 const real dv = Dn[N + j];
                 real pc = ((c * dv) * pd(u, j)) * dv;
                 pc = vmax(pc, (pl(up, j) * Dp[N + j]) * (c * dv));
@@ -514,7 +503,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     }
 
     // ---- D, E (pad rows 1) and c out
-    if constexpr (SSM) {
+    if constexpr (SM) {
         if (x4) {
             for (int row = 0; row < B2 + Rp; ++row) {
                 real* dst = row < B2 ? Dout + (size_t)row * Bs
@@ -545,26 +534,23 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     if (valid && g == 0) c_out[b] = c;
 }
 
-// plan[0..9] = threads per problem G, problems per block Q, waypoints per
-// thread rpt, constants in shared memory (0/1), D/E in shared memory (0/1),
-// shared bytes, blocks, threads per block, partial sums per problem, and
-// the shared bytes planned for.  budget / sms <= 0: the current device's;
-// threads <= 0: the build's own cap (the host-emulation tests pass fewer, and a
-// small budget, to reach runs of several waypoints and the other
-// placements).
-extern "C" int ruiz_plan(int W, int B, int budget, int threads, int sms,
+// plan[0..8] = threads per problem G, problems per block Q, waypoints per
+// thread rpt, constants and D/E in shared memory (0/1), shared bytes,
+// blocks, threads per block, partial sums per problem, and the shared bytes
+// planned for: the plan ruiz_launch makes on the current device.  budget <=
+// 0: the device's; threads <= 0: the build's own cap (the host-emulation
+// tests pass fewer, and a small budget, to reach runs of several waypoints
+// and the placement in device memory).
+extern "C" int ruiz_plan(int W, int B, int budget, int threads,
                          long long* plan) {
-    int dev_smem = 0, dev_sms = 0;
-    if (budget <= 0 || sms <= 0) {
-        const int err = lane_device_limits(&dev_smem, &dev_sms);
-        if (err != 0) return err;
-        if (budget <= 0) budget = dev_smem;
-        if (sms <= 0) sms = dev_sms;
-    }
+    int dev_smem = 0, sms = 0;
+    const int err = lane_device_limits(&dev_smem, &sms);
+    if (err != 0) return err;
+    if (budget <= 0) budget = dev_smem;
     const RuizPlan p = ruiz_plan_for(W, B, budget, threads, sms);
-    const long long v[10] = {p.G,      p.Q,      p.rpt,     p.ksm, p.ssm,
-                             p.smem,   p.blocks, p.threads, p.np,  budget};
-    for (int k = 0; k < 10; ++k) plan[k] = v[k];
+    const long long v[9] = {p.G,      p.Q,       p.rpt, p.sm,  p.smem,
+                            p.blocks, p.threads, p.np,  budget};
+    for (int k = 0; k < 9; ++k) plan[k] = v[k];
     return 0;
 }
 
@@ -592,47 +578,10 @@ extern "C" int ruiz_launch(const void* ac, const void* apd, const void* apl,
 #define LANE_RUIZ_ARGS                                                        \
     (const real*)ac, (const real*)apd, (const real*)apl, (const real*)aq,     \
         (real*)D, (real*)E, (real*)c_out, W, B, iters, p.qlog, p.G, p.rpt, x4
-    if (p.ksm)
-        return lane_launch_coop(&ruiz_kernel<true, true>, p.blocks, p.threads,
+    if (p.sm)
+        return lane_launch_coop(&ruiz_kernel<true>, p.blocks, p.threads,
                                 LANE_WARP, p.smem, stream, LANE_RUIZ_ARGS);
-#if !BLOCK_P
-    if (p.ssm)
-        return lane_launch_coop(&ruiz_kernel<false, true>, p.blocks, p.threads,
-                                LANE_WARP, p.smem, stream, LANE_RUIZ_ARGS);
-#endif
-    return lane_launch_coop(&ruiz_kernel<false, false>, p.blocks, p.threads,
+    return lane_launch_coop(&ruiz_kernel<false>, p.blocks, p.threads,
                             LANE_WARP, p.smem, stream, LANE_RUIZ_ARGS);
 #undef LANE_RUIZ_ARGS
 }
-
-#ifndef LANE_HOST_EMULATION
-// Every float x from 2^-100 to 2^100 (1.6e9 of them): sqrt_rn(x) against
-// sqrtf(x) and rcp_rn(x) against 1.0f / x, bit for bit.
-__global__ void fast_math_check_kernel(unsigned lo, unsigned n,
-                                       unsigned long long* bad) {
-    unsigned long long mine = 0;
-    for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-         i += gridDim.x * blockDim.x) {
-        const float x = __uint_as_float(lo + i);
-        mine += (sqrt_rn(x) != sqrtf(x)) + (rcp_rn(x) != 1.0f / x);
-    }
-    if (mine) atomicAdd(bad, mine);
-}
-
-// The mismatches of that check (into *out, on the host); returns the CUDA
-// error.
-extern "C" int ruiz_fast_math_mismatches(unsigned long long* out) {
-    const unsigned lo = 0x0d800000u, hi = 0x71800000u;  // 2^-100, 2^100
-    unsigned long long* bad = nullptr;
-    int err = (int)cudaMalloc(&bad, sizeof(*bad));
-    if (err == 0) err = (int)cudaMemset(bad, 0, sizeof(*bad));
-    if (err == 0) {
-        fast_math_check_kernel<<<1024, 256>>>(lo, hi - lo + 1, bad);
-        err = (int)cudaGetLastError();
-    }
-    if (err == 0)
-        err = (int)cudaMemcpy(out, bad, sizeof(*bad), cudaMemcpyDeviceToHost);
-    if (bad != nullptr) cudaFree(bad);
-    return err;
-}
-#endif

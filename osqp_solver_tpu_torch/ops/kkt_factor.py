@@ -68,7 +68,7 @@ def _configure(lib):
             ctypes.c_void_p,
         ]
         lib.kkt_factor_launch.restype = ctypes.c_int
-        lib.kkt_factor_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.kkt_factor_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.kkt_factor_plan.restype = ctypes.c_int
     return lib
 
@@ -77,16 +77,15 @@ PLAN_KEYS = ("G", "Q", "window", "windows", "shared_bytes", "blocks",
              "threads_per_block", "budget")
 
 
-def plan(lib, W, B, budget=0, sms=0):
+def plan(lib, W, B, budget=0):
     """The launch plan of ``csrc/kkt_factor.cu`` for ``W`` waypoints and a
-    batch of ``B``: threads per problem, problems per block, waypoints per
-    assembled window, windows, shared bytes, blocks, threads per block and
-    the shared bytes planned for (``budget`` / ``sms`` 0: the current
-    device's)."""
+    batch of ``B`` on the current device, as :func:`_launch_factor` makes
+    it: threads per problem, problems per block, waypoints per assembled
+    window, windows, shared bytes, blocks, threads per block and the shared
+    bytes planned for (``budget`` 0: the device's)."""
     lib = _configure(lib)
     out = (ctypes.c_longlong * len(PLAN_KEYS))()
-    _build.check(lib.kkt_factor_plan(W, B, budget, sms, out),
-                 "kkt_factor_plan")
+    _build.check(lib.kkt_factor_plan(W, B, budget, out), "kkt_factor_plan")
     return dict(zip(PLAN_KEYS, out))
 
 

@@ -14,7 +14,8 @@ at once; only the cost normalisation (the new D, the old ``c``) reduces
 over the horizon.  A group of threads works on each problem, each thread on
 a contiguous run of waypoints, and a block holds a few adjacent problems;
 the constant rows and D/E stay in shared memory across all passes while
-they fit, and D, E and ``c`` are written once at the end.  The group size,
+they fit (else both are read and written in device memory), and D, E and
+``c`` are written once at the end.  The group size,
 the run length, the problems per block and where the rows live are planned
 at each launch (:func:`plan`).  Products keep the grouping of
 ``LaneTrajectoryQP.scale_data`` (``(|a|·e)·d``); sums over the horizon are
@@ -166,26 +167,26 @@ def _configure(lib):
         lib.ruiz_launch.argtypes = [ctypes.c_void_p] * 7 + [
             ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.ruiz_launch.restype = ctypes.c_int
-        lib.ruiz_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.ruiz_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.ruiz_plan.restype = ctypes.c_int
     return lib
 
 
-PLAN_KEYS = ("G", "Q", "rpt", "constants_in_shared", "state_in_shared",
-             "shared_bytes", "blocks", "threads_per_block",
-             "partials_per_problem", "budget")
+PLAN_KEYS = ("G", "Q", "rpt", "rows_in_shared", "shared_bytes", "blocks",
+             "threads_per_block", "partials_per_problem", "budget")
 
 
-def plan(lib, W, B, budget=0, threads=0, sms=0):
+def plan(lib, W, B, budget=0, threads=0):
     """The launch plan of ``csrc/ruiz.cu`` for ``W`` waypoints and a batch
-    of ``B``: threads per problem, problems per block, waypoints per thread,
-    whether the constant rows and D/E sit in shared memory, shared bytes,
-    blocks, threads per block, the group's partial sums and the shared bytes
-    planned for (``budget`` / ``sms`` 0: the current device's; ``threads``
+    of ``B`` on the current device, as :func:`_launch_ruiz` makes it:
+    threads per problem, problems per block, waypoints per thread, whether
+    the constant rows and D/E sit in shared memory (else in device memory),
+    shared bytes, blocks, threads per block, the group's partial sums and
+    the shared bytes planned for (``budget`` 0: the device's; ``threads``
     per block at most, 0: the kernel's own limit)."""
     lib = _configure(lib)
     out = (ctypes.c_longlong * len(PLAN_KEYS))()
-    _build.check(lib.ruiz_plan(W, B, budget, threads, sms, out), "ruiz_plan")
+    _build.check(lib.ruiz_plan(W, B, budget, threads, out), "ruiz_plan")
     return dict(zip(PLAN_KEYS, out))
 
 

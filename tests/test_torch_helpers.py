@@ -171,19 +171,19 @@ def host_lib(name, qp):
 # block of 8 problems): a batch that is not a multiple of the problems per
 # block (the last block masked), the gate's fewest waypoints, runs of
 # several waypoints with a shorter last one (W=11 at 16 threads a block:
-# runs of 6 and 5), and a shared-memory budget (bytes of the
-# double-precision emulation) that keeps D/E alone in shared memory, or
-# nothing.
+# runs of 6 and 5), and shared-memory budgets (bytes of the
+# double-precision emulation) too small for the rows, which put the
+# constant rows and D/E in device memory: with runs of several waypoints
+# ("state_shared", a budget that held D/E alone when the plan had that
+# placement) and of one ("nothing_shared").
 ODD_BATCH = 13
 RUIZ_CASES = {"odd_batch": dict(B=ODD_BATCH), "w4": dict(W=4),
               "uneven_runs": dict(W=11, threads=16),
               "state_shared": dict(W=11, B=ODD_BATCH, threads=16,
                                    budget=4096),
               "nothing_shared": dict(W=11, B=ODD_BATCH, budget=1)}
-# (constants, D/E) in shared memory by case and P form: the block build
-# keeps D/E on chip only with its constants.
-RUIZ_PLACEMENT = {"state_shared": {"vel_diag": (0, 1), "block": (0, 0)},
-                  "nothing_shared": {"vel_diag": (0, 0), "block": (0, 0)}}
+# The cases whose plan keeps the rows in device memory.
+RUIZ_OFF_CHIP = ("state_shared", "nothing_shared")
 RUIZ_PARAMS = [
     pytest.param(i, f, n, "base", id=f"{fid}-{i}")
     for f, n, fid in [((False, True), 1, "flags0-1"), ((), 0, "flags1-0")]
@@ -199,11 +199,9 @@ def emulated_ruiz(tqp, iters, case):
     budget, threads = kw.get("budget", 0), kw.get("threads", 0)
     lib = host_lib("ruiz", tqp)
     p = truiz.plan(lib, tqp.waypoints, tqp.batch, budget, threads)
-    if case == "uneven_runs":
+    if case in ("uneven_runs", "state_shared"):
         assert p["rpt"] > 1 and tqp.waypoints % p["rpt"] != 0
-    if case in RUIZ_PLACEMENT:
-        assert (p["constants_in_shared"], p["state_in_shared"]
-                ) == RUIZ_PLACEMENT[case][tqp.p_structure]
+    assert p["rows_in_shared"] == (case not in RUIZ_OFF_CHIP)
     packs = truiz._ruiz_kernel_packs(tqp)
     for t in packs[4:]:
         t.fill_(float("nan"))
