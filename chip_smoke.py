@@ -82,6 +82,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -158,6 +159,11 @@ BLOCK_FLEET_TICKS = 20
 BLOCK_FLEET = dict(BENCH, termination_warmup=0)
 RECORDS = {}
 OUT = None  # --out: the records are written there, on failure too
+# --ref-tree: the root of an earlier checkout of this repository (for
+# example ``git archive 4b7b0f4 | tar -x -C DIR``): its tridiagonal solve and
+# residual kernels are built beside this tree's and run on the same inputs
+# in the kernels phase, compared bit for bit and timed in the same call.
+REF_TREE = None
 
 
 def emit(phase, **fields):
@@ -536,9 +542,31 @@ def phase_device():
          device_count=torch.cuda.device_count())
 
 
+def ref_signatures():
+    """The sources and signatures built from --ref-tree."""
+    lane = {"NDIM": N, "NX": 5}
+    return [("tridiag", {"B2": 2 * N}), ("residuals", dict(lane, BLOCK_P=0)),
+            ("residuals", dict(lane, BLOCK_P=1))]
+
+
+def ref_csrc():
+    return Path(REF_TREE) / "osqp_solver_tpu_torch" / "csrc"
+
+
+@functools.lru_cache(maxsize=None)
+def ref_library(name, sig_items):
+    """A kernel library of --ref-tree (built in the build phase)."""
+    return ctypes.CDLL(str(_build.finish_build(
+        _build.start_build(name, dict(sig_items), csrc=ref_csrc()))))
+
+
 def phase_build(signatures):
     t0 = time.time()
+    ref = [(n, s, _build.start_build(n, s, csrc=ref_csrc()))
+           for n, s in (ref_signatures() if REF_TREE else [])]
     built = _build.build_all(signatures)
+    for n, s, h in ref:
+        built[("ref_" + n, tuple(sorted(s.items())))] = _build.finish_build(h)
     seconds = time.time() - t0
     report = {}
     for (name, sig), path in built.items():
@@ -628,17 +656,19 @@ def alone_ms(make, *args, **kw):
     return time_ms(launch, inner=ALONE_INNER), time_ms(launch)
 
 
+@functools.lru_cache(maxsize=None)
 def fast_math_mismatches():
-    """``csrc/fast_math_check.cu``: the floats from 2^-100 to 2^100 whose
-    ``sqrt_rn`` or ``rcp_rn`` (``lane_common.cuh``, the Ruiz and factor
-    kernels' square roots and reciprocals) differ from ``sqrtf`` or
-    ``1.0f / x`` on this card."""
+    """``csrc/fast_math_check.cu`` on this card: ``(the floats from 2^-100
+    to 2^100 whose sqrt_rn or rcp_rn differ from sqrtf or 1.0f / x, the
+    quotients of its check whose div_rn differs from the division)`` —
+    ``lane_platform.cuh``'s square root and reciprocal of the Ruiz and
+    factor kernels, and the division of the tridiagonal solve."""
     fn = _build.library("fast_math_check", {}).fast_math_mismatches
     fn.argtypes = [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = ctypes.c_ulonglong(0)
-    _build.check(fn(ctypes.byref(out)), "fast_math_mismatches")
-    return out.value
+    out = (ctypes.c_ulonglong * 2)()
+    _build.check(fn(out), "fast_math_mismatches")
+    return tuple(out)
 
 
 # The edge cases of the plans: a batch whose last block is part empty, the
@@ -743,7 +773,7 @@ def phase_kernels():
     rp = ruiz_kernel._ruiz_kernel_packs(base)
     b_ms, b_by = bound(  # the packs read once, D, E and c written once
         nbytes(*rp), ops_ruiz(W, N, NX, B, settings.scaling))
-    fm_bad = fast_math_mismatches()
+    fm_bad = fast_math_mismatches()[0]
     out.append(dict(
         name="ruiz", max_abs_err=abs_err, max_rel_err=r_err,
         odd_batch_rel_err=odd_err, edge_cases_rel_err=edge, tol=TOL_RUIZ,
@@ -1283,7 +1313,10 @@ def check_residuals(scaled, scaling, settings, rho_vec, done, state0, args,
     tq_bad = residuals.termination_quantities_kernel(scaled, bad, dp, coef, rp)
     nan_carried = bool(tq_bad.blew_up[7]) and int(tq_bad.blew_up.sum()) == 1
     no_false_alarm = not bool(tq.blew_up.any())
-    k_ms = time_ms(lambda: kernel_acc(sp))
+    lib = _build.library("residuals", admm_fused.p_signature(scaled))
+    batches = resid_batches(lib, block, (coef, rp[2], rp[3], sp, dp, rowc,
+                                         rp[1]), acck)
+    k_ms, k1_ms = batches["B1024"]["ms"], time_ms(lambda: kernel_acc(sp))
     p_ms = time_ms(lambda: residuals.termination_accumulators_plain(
         scaled, sp, dp, rowc, rp[1]), reps=5, warm=1)
     moved = nbytes(coef, rp[2], rp[3], sp, dp, rowc, rp[1], acck)
@@ -1306,10 +1339,63 @@ def check_residuals(scaled, scaling, settings, rho_vec, done, state0, args,
                  "(support, q_dot, xsum, ysum) over the sum of their terms' "
                  "magnitudes (they cancel thousands of signed terms, summed "
                  "in another order)",
+        batches=batches,
         ok=bool(worst_max <= TOL_RESID_MAX and worst_sum <= TOL_RESID_SUM
-                and pad_rows_zero and nan_carried and no_false_alarm),
-        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"W={W} N={N} B={B} P {scaled.p_structure}")
+                and pad_rows_zero and nan_carried and no_false_alarm
+                and all(v["equal_to_B1024"] for v in batches.values())),
+        ms=k_ms, single_launch_ms=k1_ms, plain_ms=p_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, plan=batches["B1024"]["plan"],
+        shape=f"W={W} N={N} B={B} P {scaled.p_structure}; ms: the launch "
+              "alone, 20 back to back; single_launch_ms: one wrapper call "
+              "with its output's allocation")
+
+
+# The residual kernel's batches: the main shape, a last block part empty,
+# and a small batch (one problem a block).
+RESID_BATCHES = (1024, 1022, 8)
+
+
+def ref_resid_launch(block, packs, acc):
+    """One launch of --ref-tree's residual kernel (its C signature: no sums
+    scratch) on the packs, into ``acc``."""
+    fn = ref_library("residuals", (("BLOCK_P", int(block)), ("NDIM", N),
+                                   ("NX", 5))).residuals_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    Wd, _, B = packs[3].shape
+    p = _build.ptr
+    return lambda: _build.check(
+        fn(*(p(t) for t in packs), p(acc), Wd, B, _build.stream(acc.device)),
+        "ref residuals_launch")
+
+
+def resid_batches(lib, block, packs, acc_full):
+    """The residual kernel alone at each of RESID_BATCHES (the packs cut
+    from the main shape's): its plan, its time over 20 launches back to
+    back, whether its accumulators equal the main shape's for the same
+    problems bit for bit and, with --ref-tree, that tree's kernel on the
+    same packs: its time and the values that differ bit for bit."""
+    out = {}
+    for batch in RESID_BATCHES:
+        cut = [t[..., :batch].contiguous() for t in packs]
+        acc = torch.empty((24, batch), device="cuda")
+        launch = lambda: residuals._launch_residuals(lib, *cut, acc)
+        launch()
+        torch.cuda.synchronize()
+        rec = dict(plan=residuals.plan(lib, batch),
+                   equal_to_B1024=bits_differing(acc, acc_full[:, :batch])[0]
+                   == 0,
+                   ms=time_ms(launch, inner=ALONE_INNER))
+        if REF_TREE:
+            acc_r = torch.empty_like(acc)
+            ref = ref_resid_launch(block, cut, acc_r)
+            ref()
+            rec["ref_bits_differing"], rec["ref_max_abs_diff"] = (
+                bits_differing(acc, acc_r))
+            rec["ref_ms"] = time_ms(ref, inner=ALONE_INNER)
+        out[f"B{batch}"] = rec
+    return out
 
 
 # Where each kernel row's registers and spills are read: (source, entry
@@ -1621,7 +1707,11 @@ def check_tridiag(scaled, rho_vec, settings):
                     "x": rel_err(tridiag_kernel.solve_lane_major_plain(
                         ck, gk, rhs).double(), x64)[1]}
     f_ms = time_ms(lambda: tridiag_kernel.factor_lane_major(diag, lower))
-    s_ms = time_ms(lambda: tridiag_kernel.solve_lane_major(ck, gk, rhs))
+    s_ms, s1_ms = alone_ms(solve_alone, ck, gk, rhs)
+    sw_ms = time_ms(lambda: tridiag_kernel.solve_lane_major(ck, gk, rhs))
+    cases = solve_cases(diag, lower, rhs)
+    off = solve_off_chip(ck, gk, rhs, xk, x64)
+    div_bad = fast_math_mismatches()[1]
     fp_ms = time_ms(lambda: tridiag_kernel.factor_lane_major_plain(
         diag, lower), reps=5, warm=1)
     sp_ms = time_ms(lambda: tridiag_kernel.solve_lane_major_plain(
@@ -1663,12 +1753,106 @@ def check_tridiag(scaled, rho_vec, settings):
              shape=shape),
         dict(name="tridiag_solve", max_abs_err=s_err[0], max_rel_err=s_err[1],
              library_vs_f64=lib_vs_f64, tol=TOL_TRIDIAG, tol_note=note,
-             ok=bool(s_err[1] <= TOL_TRIDIAG),
-             ms=s_ms, plain_ms=sp_ms, bound_ms=sb_ms, bound_by=sb_by,
-             library_ms=lib_s_ms,
+             cases=cases, w_in_x=off, div_rn_mismatches=div_bad,
+             ok=bool(s_err[1] <= TOL_TRIDIAG and div_bad == 0
+                     and all(c["ok"] for c in cases.values()) and off["ok"]),
+             ms=s_ms, single_launch_ms=s1_ms, wrapper_ms=sw_ms, plain_ms=sp_ms,
+             bound_ms=sb_ms, bound_by=sb_by, library_ms=lib_s_ms,
              library_note="torch.cholesky_solve on the dense factor",
-             shape=shape),
+             plan=cases["B1024"]["plan"],
+             shape=shape + "; ms: the launch alone on inputs and output "
+                           "built beforehand, wrapper_ms: the wrapper"),
     ]
+
+
+# The solve's batches and horizons: the main shape, a last block part
+# empty, small batches (fewer problems per block), one problem, and config
+# 1's horizon.
+SOLVE_CASES = {"B1024": (1024, W), "B1022": (1022, W), "B8": (8, W),
+               "B1": (1, W), "W10_B1024": (1024, 10), "W10_B1": (1, 10)}
+
+
+def solve_alone(chol, gain, rhs, budget=0):
+    """One launch of the solve kernel on inputs and an output built
+    beforehand (``budget`` as ``tridiag_kernel.plan``)."""
+    lib = _build.library("tridiag", {"B2": chol.shape[1]})
+    x = torch.empty_like(rhs)
+    return lambda: tridiag_kernel._launch(lib, "solve", chol, gain, rhs, x,
+                                          budget=budget)
+
+
+def ref_solve_alone(chol, gain, rhs, x):
+    """One launch of --ref-tree's solve kernel (its C signature without a
+    budget) into ``x``."""
+    Wd, B2, _, B = chol.shape
+    fn = ref_library("tridiag", (("B2", B2),)).tridiag_solve_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    p = _build.ptr
+    return lambda: _build.check(
+        fn(p(chol), p(gain), p(rhs), p(x), Wd, B, _build.stream(x.device)),
+        "ref tridiag_solve_launch")
+
+
+def bits_differing(a, b):
+    """Values of two equal-shaped tensors that differ bit for bit (NaN
+    equals NaN), and the largest |a - b| among them."""
+    ne = (a != b) & ~(a.isnan() & b.isnan())
+    n = int(ne.sum())
+    return n, (a[ne] - b[ne]).abs().max().item() if n else 0.0
+
+
+def solve_cases(diag, lower, rhs):
+    """The solve kernel at each of SOLVE_CASES (the blocks, the batch cut
+    from the main shape's, factored by the kernel) against the plain
+    version run in f64 on the same f32 inputs, with its plan, its time
+    alone and, with --ref-tree, that tree's kernel on the same inputs: its
+    time and the values that differ bit for bit."""
+    lib = _build.library("tridiag", {"B2": diag.shape[1]})
+    out = {}
+    for name, (batch, w) in SOLVE_CASES.items():
+        d = diag[:w, ..., :batch].contiguous()
+        lo = lower[:w - 1, ..., :batch].contiguous()
+        r = rhs[:w, :, :batch].contiguous()
+        c, g = tridiag_kernel.factor_lane_major(d, lo)
+        x = tridiag_kernel.solve_lane_major(c, g, r)
+        x64 = tridiag_kernel.solve_lane_major_plain(c.double(), g.double(),
+                                                    r.double())
+        err = rel_err(x.double(), x64)[1]
+        rec = dict(batch=batch, W=w, plan=tridiag_kernel.plan(lib, w, batch),
+                   rel_err=err, ms=alone_ms(solve_alone, c, g, r)[0])
+        if REF_TREE:
+            xr = torch.empty_like(r)
+            launch = ref_solve_alone(c, g, r, xr)
+            launch()
+            rec["ref_bits_differing"], rec["ref_max_abs_diff"] = (
+                bits_differing(x, xr))
+            rec["ref_ms"] = time_ms(launch, inner=ALONE_INNER)
+        rec["ok"] = bool(err <= TOL_TRIDIAG)
+        out[name] = rec
+    return out
+
+
+def solve_off_chip(chol, gain, rhs, x_on, x64):
+    """The solve with w_t kept in x between the sweeps, the placement its
+    plan takes where w does not fit in shared memory (forced here by a
+    budget of one byte): the plan, the time alone, the distance from f64
+    and the values that differ bit for bit from the on-chip placement."""
+    Wd, B2, _, B = chol.shape
+    lib = _build.library("tridiag", {"B2": B2})
+    x = torch.empty_like(rhs)
+    launch = lambda: tridiag_kernel._launch(lib, "solve", chol, gain, rhs, x,
+                                            budget=1)
+    launch()
+    torch.cuda.synchronize()
+    err = rel_err(x.double(), x64)[1]
+    differ = bits_differing(x, x_on)[0]
+    p = tridiag_kernel.plan(lib, Wd, B, budget=1)
+    return dict(plan=p, rel_err=err, bits_differing_from_on_chip=differ,
+                ms=time_ms(launch, inner=ALONE_INNER),
+                ok=bool(err <= TOL_TRIDIAG and not differ
+                        and not p["w_on_chip"]))
 
 
 def dense_kkt_inputs(batch, n, m, seed):
@@ -3154,9 +3338,12 @@ def main():
     ap.add_argument("--phases", default="all",
                     help="comma list of: " + PHASES)
     ap.add_argument("--out", default=None, help="also write records here")
+    ap.add_argument("--ref-tree", default=None,
+                    help="root of an earlier checkout whose tridiagonal "
+                         "solve and residual kernels run beside these")
     opts = ap.parse_args()
-    global OUT
-    OUT = opts.out
+    global OUT, REF_TREE
+    OUT, REF_TREE = opts.out, opts.ref_tree
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: torch.cuda.is_available() is "
               "false", file=sys.stderr)

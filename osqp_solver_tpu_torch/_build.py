@@ -71,10 +71,10 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _target(name: str, signature: dict, host: bool):
-    src = CSRC / f"{name}.cu"
+def _target(name: str, signature: dict, host: bool, csrc: Path = CSRC):
+    src = csrc / f"{name}.cu"
     h = hashlib.sha256()
-    for f in sorted(CSRC.glob("*.cu*")):
+    for f in sorted(csrc.glob("*.cu*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     sig = "_".join(f"{k}{v}" for k, v in sorted(signature.items()))
@@ -95,10 +95,12 @@ def _command(src: Path, out: Path, signature: dict, host: bool):
     return [_nvcc(), *_NVCC_FLAGS, *defs, "-o", str(out), str(src)]
 
 
-def start_build(name: str, signature: dict, host: bool = False):
-    """Start one compiler process (or none if the library exists).  Returns
-    a handle for :func:`finish_build`."""
-    src, out = _target(name, signature, host)
+def start_build(name: str, signature: dict, host: bool = False,
+                csrc: Path = CSRC):
+    """Start one compiler process (or none if the library exists) on
+    ``csrc/<name>.cu`` (by default this package's sources).  Returns a
+    handle for :func:`finish_build`."""
+    src, out = _target(name, signature, host, Path(csrc))
     if out.exists():
         return (name, out, None, 0.0)
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -33,18 +33,10 @@
 //
 // MODE_TERM, last backward pass: the accumulators of the separate residual
 // kernel (ops/residuals.py _ACC), equal to it bit for bit on the same state
-// and deltas.  Row-space quantities at waypoint t; the variable-space ones of
-// waypoint t+1 (A'y, Px, A'dy, P dx) need rows of waypoint t, so they are
-// carried as one-step-delayed partials and reduced at step t; waypoint 0 is
-// finished in an epilogue.  Every element is computed by the same expression
-// as in csrc/residuals.cu (the A'y and P x multiply-adds written out as its
-// compiled code forms them: at_gather).  The maxima are exact in any order,
-// so each lane keeps its own and the group reduces them at the end.  The
-// four sums keep that kernel's order: per waypoint one lane adds the rows
-// (or variables) in increasing order from the values left in shared memory,
-// and the per-waypoint sums, parked in the h scratch of their (already
-// consumed) waypoint, are added in increasing waypoint order in the
-// epilogue.
+// and deltas: both reduce through lane_common.cuh's termination functions
+// (reduce_row, at_gather, reduce_var, waypoint_sum, term_finish) in the same
+// backward walk, the per-waypoint sums parked in the h scratch of their
+// (already consumed) waypoint.
 //
 // Design (Hopper).  The work of a waypoint step is a chain: two (gain: one)
 // 2N x 2N triangular solves per pass.  One thread per problem left B = 1024 at
@@ -78,9 +70,6 @@
 #include "lane_common.cuh"
 
 // Threads per problem, and problems per block at most.
-__host__ __device__ constexpr int pow2_at_least(int n) {
-    return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
-}
 constexpr int G = pow2_at_least(B2) < 4 ? 4 : pow2_at_least(B2);
 static_assert(G <= 32, "a group is at most one warp (2N <= 32)");
 // Problems per block at most (log2) and stages of the ring, as tuned on an
@@ -88,9 +77,8 @@ static_assert(G <= 32, "a group is at most one warp (2N <= 32)");
 constexpr int QLOG_MAX = 2;
 constexpr int Q_MAX = 1 << QLOG_MAX;
 constexpr int NSTAGE = 3;
-// The producer threads of a block (a warp; in host emulation at least a
-// group), which issue all the staging copies.
-constexpr int PRODUCERS = LANE_WARP > G ? LANE_WARP : G;
+// The producer threads of a block, which issue all the staging copies.
+constexpr int PRODUCERS = group_producers(G);
 
 // One stage of the ring: rows of QS values (one column per problem).
 constexpr int O_CH = 0;            // packed chol, T rows
@@ -116,37 +104,33 @@ __host__ __device__ constexpr int stage_rows(bool term, bool gain) {
 }
 
 // The slot of a group (shared memory after the ring): vectors of G values
-// and rows of a waypoint, two of each (waypoint parity), the accumulators,
-// and the right-hand side of a solve.
+// and rows of a waypoint, two of each (waypoint parity), the support terms
+// of a waypoint's rows, the accumulators, and the right-hand side of a
+// solve.
 constexpr int SL_X = 0;             // fwd: h_t / w_t; bwd: x~_t
 constexpr int SL_XS = SL_X + 2 * G;   // x_sel_t (MODE_TERM)
 constexpr int SL_DX = SL_XS + 2 * G;  // dx_t (MODE_TERM)
 constexpr int SL_Y = SL_DX + 2 * G;   // y_sel of the Rp rows (MODE_TERM), 2x
 constexpr int SL_DY = SL_Y + 2 * Rp;  // dy of the Rp rows (MODE_TERM), 2x
-constexpr int SL_ACC = SL_DY + 2 * Rp;  // the accumulators (MODE_TERM)
+constexpr int SL_SUP = SL_DY + 2 * Rp;  // support terms (MODE_TERM)
+constexpr int SL_ACC = SL_SUP + 2 * Rp;  // the accumulators (MODE_TERM)
 constexpr int SL_R = SL_ACC + NACC;   // the right-hand side of a solve
 constexpr int SLOT = SL_R + G;
 static_assert(A_COUNT <= NACC && 4 <= G, "");
 
 enum { MODE_PLAIN = 0, MODE_TERM = 1, MODE_DXDY = 2 };
 
-// The tile: rows of QS = 12 values, Q <= 8 of them used (one column per
+// The tile: rows of QS = 12 values, Q <= 4 of them used (one column per
 // problem).  A compile-time stride makes every staged read an immediate
-// offset; 12 is a multiple of four values, so a row's columns take 16-byte
-// copies, and the G lanes of a problem, reading G rows of one column, meet
-// at most 2-way bank conflicts.  16-byte copies when a block's columns are
-// whole 16-byte pieces of every row (4 problems, B a multiple of 4, every
-// pack 16-byte aligned), else 4-byte copies.
+// offset; the G lanes of a problem, reading G rows of one column, meet at
+// most 2-way bank conflicts.  16-byte copies when a block's columns are
+// whole 16-byte pieces of every row (group_tile_x4) and every pack is
+// 16-byte aligned, else 4-byte copies.
 constexpr int QS = 12;
-static_assert(Q_MAX <= QS, "");
-__host__ __device__ constexpr bool tile_x4(int qlog, int B) {
-    return qlog >= 2 && B % 4 == 0;
-}
+static_assert(Q_MAX <= QS && QS % 4 == 0, "");
 
-// The first staging thread of a block: past the consumers, at a warp
-// boundary (a warp then holds consumers or stagers, never both).
 __host__ __device__ constexpr int producer_base(int qlog) {
-    return ((G << qlog) + LANE_WARP - 1) / LANE_WARP * LANE_WARP;
+    return group_producer_base(G << qlog);
 }
 __host__ __device__ constexpr int block_threads(int qlog) {
     return producer_base(qlog) + PRODUCERS;
@@ -159,13 +143,7 @@ __host__ __device__ constexpr int chunk_smem_bytes(int qlog, bool term,
            (int)sizeof(real);
 }
 
-// Rows of one problem's column of a staged tile.
-struct Tile {
-    const real* p;
-    __device__ __forceinline__ real operator[](int k) const {
-        return p[k * QS];
-    }
-};
+using Tile = TileCol<QS>;
 
 struct Args {
     const real *chol, *gain, *coef, *q, *lu, *rho, *plf, *ee, *varc, *pd;
@@ -191,26 +169,12 @@ struct Args {
 };
 
 // Copy the first CNT rows of waypoint t of a (W, ROWS, B) pack into rows
-// DST.. of stage sg, the block's Q columns, copies e = ptid, ptid +
-// PRODUCERS, ...
-// x4: four adjacent columns per copy (row e / (Q/4), columns 4 (e % (Q/4))..);
-// else one (row e / Q, column e % Q).  Columns past the batch stay stale.
+// DST.. of stage sg, the block's Q columns (this producer's share).
 __device__ __forceinline__ void stage_rows_of(const Args& a, const real* pack,
                                               int ROWS, int CNT, int DST,
                                               int t, real* sg) {
-    const real* rows = pack + ((size_t)t * ROWS) * a.B + a.b0;
-    const int cl = a.x4 ? a.qlog - 2 : a.qlog;  // log2 copies per row
-    const int w = a.x4 ? 4 : 1;
-    for (int e = a.ptid; e < (CNT << cl); e += PRODUCERS) {
-        const int k = e >> cl, p = w * (e & ((1 << cl) - 1));
-        if (a.b0 + p >= a.B) continue;
-        real* dst = sg + (DST + k) * QS + p;
-        const real* src = rows + (size_t)k * a.B + p;
-        if (a.x4)
-            cp_async_x4(dst, src);
-        else
-            cp_async4(dst, src);
-    }
+    stage_pack_rows<QS>(Stager{a.B, a.b0, a.qlog, a.ptid, PRODUCERS, a.x4},
+                        pack, ROWS, CNT, DST, t, sg);
 }
 
 // Start the block's copies of waypoint t's rows into stage t % NSTAGE and
@@ -396,79 +360,6 @@ __device__ __forceinline__ void forward_pass(const Args& a) {
     }
 }
 
-// The variable-space terms of the MODE_TERM accumulators, with the
-// multiply-adds written out: the residual kernel's one-thread code leaves
-// them to the compiler, which forms, from `a*b + c*d` and `s + e*f`,
-// fma(a, b, c*d) and fma(e, f, s); the same code on a group's lanes does
-// not come out the same way, so the fused kernel states those operations
-// (host emulation: no fused multiply-add, as the residual kernel there).
-__device__ __forceinline__ real mul_rn(real a, real b) {
-#ifdef LANE_HOST_EMULATION
-    return a * b;
-#else
-    return __fmul_rn(a, b);
-#endif
-}
-__device__ __forceinline__ real fma_rn(real a, real b, real c) {
-#ifdef LANE_HOST_EMULATION
-    return mul_rn(a, b) + c;
-#else
-    return __fmaf_rn(a, b, c);
-#endif
-}
-
-// The own-row A' gather of variable i plus the cross term of the waypoint
-// before (cross = (c, y): c1 and the dyn row for a q row, a0 and the acc
-// row for a v row), as residuals.cu's at_own and its cross-term add give it;
-// cw[]: variable i's own-row coefficients (own_coefs), taken from the
-// waypoint's stage while it was live.
-constexpr int NCW = 2 + (NX > 1 ? NX : 1);
-__device__ __forceinline__ void own_coefs(int i, const Tile& cf, real* cw) {
-    if (i < N) {
-        cw[0] = cf[C_C2 + i];
-        cw[1] = cf[C_POS + i];
-#pragma unroll
-        for (int k = 0; k < NX; ++k) cw[2 + k] = cf[C_X + k * N + i];
-    } else {
-        cw[0] = cf[C_C0 + i - N];
-        cw[1] = cf[C_VEL + i - N];
-        cw[2] = cf[C_A1 + i - N];
-    }
-}
-__device__ __forceinline__ real at_gather(int i, const real* cw,
-                                          const real* row, real c, real y) {
-    if (i < N) {
-        const int j = i;
-        real g = fma_rn(cw[0], row[R_DYN + j], mul_rn(cw[1], row[R_POS + j]));
-#pragma unroll
-        for (int k = 0; k < NX; ++k) g = fma_rn(cw[2 + k], row[R_X + k], g);
-        return fma_rn(c, y, g);
-    }
-    const int j = i - N;
-    real gv = fma_rn(cw[0], row[R_DYN + j], mul_rn(cw[1], row[R_VEL + j]));
-    gv = fma_rn(cw[2], row[R_ACC + j], gv);
-    return fma_rn(c, y, gv);
-}
-
-// This lane's running maxima of the MODE_TERM accumulators.
-struct Maxima {
-    real pr, nax, nz, nedy, lpos, lneg, adxmx, adxmn;  // row space
-    real draw, ndpx, ndaty, natdy, npdx, ndx;           // variable space
-};
-
-// Variable i of one waypoint (q_i, Dinv_i given) into the maxima.
-__device__ __forceinline__ void reduce_var(int i, real qi, real Dinv, real aty,
-                                           real atdy, real px, real pdx,
-                                           Maxima& m) {
-    const real Px = i < N ? real(0) : px;
-    const real Pdx = i < N ? real(0) : pdx;
-    m.draw = rmax(m.draw, rabs(Dinv * (Px + qi + aty)));
-    m.ndpx = rmax(m.ndpx, rabs(Dinv * Px));
-    m.ndaty = rmax(m.ndaty, rabs(Dinv * aty));
-    m.natdy = rmax(m.natdy, rabs(Dinv * atdy));
-    m.npdx = rmax(m.npdx, rabs(Dinv * Pdx));
-}
-
 template <int MODE, bool GAIN>
 __device__ __forceinline__ void backward_pass(const Args& a) {
     constexpr bool TERM = MODE == MODE_TERM;
@@ -482,9 +373,7 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
     // of waypoint t+1 and its q and Dinv rows.
     real px_p = real(0), pdx_p = real(0), cw[NCW];
     real q_n = real(0), dinv_n = real(0);
-    Maxima m{};
-    m.adxmx = -INFINITY;
-    m.adxmn = INFINITY;
+    Maxima m = maxima_start();
 
     __syncthreads();  // the forward pass is done with the slot
     // No waypoint W: x~, x_sel and dx of "t+1" are zero at t = W-1.
@@ -597,22 +486,9 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
                                           sl + SL_XS + nxt * G);
                 const real adx = a_row(r, cf, sl + SL_DX + cur * G,
                                        sl + SL_DX + nxt * G);
-                const real E_r = sg[(O_EE + r) * QS];
-                const real Einv_r = sg[(O_EE + Rp + r) * QS];
-                m.pr = rmax(m.pr, rabs(Einv_r * (ax_sel - z_s)));
-                m.nax = rmax(m.nax, rabs(Einv_r * ax_sel));
-                m.nz = rmax(m.nz, rabs(Einv_r * z_s));
-                const real edy = E_r * dy_r;
-                m.nedy = rmax(m.nedy, rabs(edy));
-                const real edy_pos = rmax(edy, real(0));
-                const real edy_neg = rmin(edy, real(0));
-                const bool loose_u = Einv_r * hi >= INF_THRESHOLD;
-                const bool loose_l = Einv_r * lo <= -INF_THRESHOLD;
-                m.lpos = rmax(m.lpos, loose_u ? edy_pos : real(0));
-                m.lneg = rmax(m.lneg, loose_l ? -edy_neg : real(0));
-                const real eadx = Einv_r * adx;
-                if (!loose_u) m.adxmx = rmax(m.adxmx, eadx);
-                if (!loose_l) m.adxmn = rmin(m.adxmn, eadx);
+                reduce_row(ax_sel, adx, z_s, dy_r, sg[(O_EE + r) * QS],
+                           sg[(O_EE + Rp + r) * QS], lo, hi, m,
+                           sl + SL_SUP + 2 * r);
             }
         }
         if (a.valid) {
@@ -628,34 +504,11 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
             const real* dys = sl + SL_DY + cur * Rp;
             const real* xs = sl + SL_XS + cur * G;
             const real* dxs = sl + SL_DX + cur * G;
-            // The sums of waypoint t, each on one lane in residuals.cu's
-            // order, parked in the consumed h scratch of waypoint t.
+            // The sums of waypoint t, each on one lane, parked in the
+            // consumed h scratch of waypoint t.
             if (i < 4) {
-                real s = real(0);
-                if (i == 0) {  // support
-                    for (int r = 0; r < Rp; ++r) {
-                        const real E_r = sg[(O_EE + r) * QS];
-                        const real Einv_r = sg[(O_EE + Rp + r) * QS];
-                        const real lo = sg[(O_LU + r) * QS];
-                        const real hi = sg[(O_LU + Rp + r) * QS];
-                        const real edy = E_r * dys[r];
-                        const real edy_pos = rmax(edy, real(0));
-                        const real edy_neg = rmin(edy, real(0));
-                        const real u_b = Einv_r * hi;
-                        const real l_b = Einv_r * lo;
-                        const bool loose_u = u_b >= INF_THRESHOLD;
-                        const bool loose_l = l_b <= -INF_THRESHOLD;
-                        s = s + (loose_u ? real(0) : u_b * edy_pos) +
-                            (loose_l ? real(0) : l_b * edy_neg);
-                    }
-                } else if (i == 1) {  // sum y
-                    for (int r = 0; r < Rp; ++r) s = s + ys[r];
-                } else if (i == 2) {  // q'dx
-                    for (int c = 0; c < B2; ++c)
-                        s = s + sg[(O_VC + c) * QS] * dxs[c];
-                } else {  // sum x
-                    for (int c = 0; c < B2; ++c) s = s + xs[c];
-                }
+                const real s = waypoint_sum(i, sl + SL_SUP, ys,
+                                            Tile{sg + O_VC * QS}, xs, dxs);
                 if (a.valid) a.w[((size_t)t * B2 + i) * a.B + a.b] = s;
             }
             if (i < B2) {
@@ -676,7 +529,7 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
                         px = fma_rn(pl[j], x_sel, px_p);
                         pdx = fma_rn(pl[j], dx, pdx_p);
                     }
-                    reduce_var(i, q_n, dinv_n, aty, atdy, px, pdx, m);
+                    reduce_var(q_n, dinv_n, aty, atdy, px, pdx, m);
                 }
                 // Own values of waypoint t.
                 q_n = sg[(O_VC + i) * QS];
@@ -699,42 +552,12 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
     if (TERM) {
         // Epilogue: waypoint 0 has no t-1 cross terms.
         if (i < B2)
-            reduce_var(i, q_n, dinv_n,
+            reduce_var(q_n, dinv_n,
                        at_gather(i, cw, sl + SL_Y, real(0), real(0)),
                        at_gather(i, cw, sl + SL_DY, real(0), real(0)), px_p,
                        pdx_p, m);
-        real mx[14] = {m.pr,   m.nax,   m.nz,    m.nedy,  m.lpos,
-                       m.lneg, m.adxmx, m.draw,  m.ndpx,  m.ndaty,
-                       m.natdy, m.npdx, m.ndx,   m.adxmn};
-#pragma unroll
-        for (int k = 0; k < 14; ++k)
-#pragma unroll
-            for (int o = G / 2; o > 0; o /= 2) {
-                const real other = lane_shfl_xor(mx[k], o, a.g, G);
-                mx[k] = k == 13 ? rmin(mx[k], other) : rmax(mx[k], other);
-            }
-        real* acc = sl + SL_ACC;
-        if (i == 0) {
-            const int rows[13] = {A_PRIM_RES, A_NORM_EAX,  A_NORM_EZ,
-                                  A_NORM_EDY, A_LOOSE_POS, A_LOOSE_NEG,
-                                  A_ADX_MAX,  A_DUAL_RAW,  A_NORM_DPX,
-                                  A_NORM_DATY, A_AT_DY,    A_PDX_MAX,
-                                  A_NORM_DX};
-            for (int k = 0; k < 13; ++k) acc[rows[k]] = mx[k];
-            acc[A_ADX_MIN] = mx[13];
-        }
-        if (i < 4) {  // the sums, in increasing waypoint order
-            real s = real(0);
-            if (a.valid)
-                for (int u = 0; u < a.W; ++u)
-                    s = s + a.w[((size_t)u * B2 + i) * a.B + a.b];
-            const int rows[4] = {A_SUPPORT, A_YSUM, A_Q_DOT, A_XSUM};
-            acc[rows[i]] = s;
-        }
-        lane_group_sync(a.g, G);
-        if (a.valid)
-            for (int k = i; k < NACC; k += G)
-                a.acc[(size_t)k * a.B + a.b] = k < A_COUNT ? acc[k] : real(0);
+        term_finish<G>(i, a.g, a.valid, a.W, m, a.w + (size_t)i * a.B + a.b,
+                       (size_t)B2 * a.B, sl + SL_ACC, a.acc + a.b, a.B);
     }
 }
 
@@ -774,14 +597,7 @@ __global__ void __launch_bounds__(block_threads(QLOG_MAX), 1)
     }
 }
 
-// Problems per block: Q_MAX while the blocks still cover 7/8 of the SMs,
-// else halved (a small batch spreads over more SMs).
-static int chunk_qlog(int B, int sms) {
-    int qlog = QLOG_MAX;
-    while (qlog > 0 && 8LL * ((B + (1 << qlog) - 1) >> qlog) < 7LL * sms)
-        --qlog;
-    return qlog;
-}
+static int chunk_qlog(int B, int sms) { return group_qlog(B, sms, QLOG_MAX); }
 
 // plan[0..8] = threads per problem G, problems per block Q, stages, shared
 // bytes, blocks, threads per block, slot values per problem, tile row
@@ -793,7 +609,7 @@ extern "C" void admm_chunk_plan(int B, int sms, int mode, int gain,
                             chunk_smem_bytes(qlog, mode == MODE_TERM,
                                              gain != 0),
                             (B + Q - 1) / Q, block_threads(qlog), SLOT, QS,
-                            tile_x4(qlog, B) ? 16 : 4};
+                            group_tile_x4(qlog, B) ? 16 : 4};
     for (int k = 0; k < 9; ++k) plan[k] = p[k];
 }
 
@@ -813,7 +629,7 @@ static int launch_mode(const void* chol, const void* gain, const void* coef,
     for (const void* p : {chol, gain, coef, q, lu, rho, plf, ee, varc, pd,
                           (const void*)state, (const void*)w})
         bits |= (uintptr_t)p;
-    const int x4 = tile_x4(qlog, B) && bits % 16 == 0;
+    const int x4 = group_tile_x4(qlog, B) && bits % 16 == 0;
     return lane_launch_coop(
         &admm_chunk_kernel<MODE, GAIN>, (B + Q - 1) / Q, block_threads(qlog), G,
         chunk_smem_bytes(qlog, MODE == MODE_TERM, GAIN), stream,

@@ -29,7 +29,7 @@
 //   - a step: each lane forms a few entries of the Schur update (G_{t-1} in
 //     shared memory), barrier; every lane factors the whole 2N x 2N S in its
 //     registers (no exchange), with the branch-free rounded sqrt_rn and
-//     rcp_rn of lane_common.cuh; lane i < 2N forms row i of G_t (an
+//     rcp_rn of lane_platform.cuh; lane i < 2N forms row i of G_t (an
 //     independent forward substitution) into shared memory for the next
 //     step and, with emit_gain, to gainp; barrier; C_t goes to its slot and
 //     out to cholp during the next step, a few entries a lane.
@@ -41,9 +41,6 @@
 // exact reciprocal per pivot), not bytes or operations.
 #include "lane_common.cuh"
 
-__host__ __device__ constexpr int pow2_at_least(int n) {
-    return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
-}
 // Threads per problem, problems per block at most (log2), threads per block.
 constexpr int G = pow2_at_least(B2);
 constexpr int QLOG_MAX = 3;

@@ -42,7 +42,7 @@
 //     of a problem hold the same c); barrier;
 //   - neighbour terms that do not exist (u = 0, u = W-1) are zeros that drop
 //     out of the maxima, not branches, and the square roots and reciprocals
-//     are lane_common.cuh's branch-free rounded ones (limit_scaling keeps
+//     are lane_platform.cuh's branch-free rounded ones (limit_scaling keeps
 //     their operands in [1e-4, 1e4]), so a waypoint's loads issue together;
 //   - Q, G, rpt and where the rows live are planned at each launch from W,
 //     B, the shared memory a block may use and the SM count (ruiz_plan):

@@ -1,5 +1,5 @@
-// Batched block-tridiagonal Cholesky factor and two-sweep solve, one thread
-// per problem, full (B2 x B2) blocks.
+// Batched block-tridiagonal Cholesky factor and two-sweep solve, full
+// (B2 x B2) blocks.
 //
 // Replaces the Pallas kernels of osqp_solver_tpu/ops/pallas_tridiag.py:
 // factor_lane_major (body _factor_kernel) and solve_lane_major (body
@@ -11,30 +11,54 @@
 //
 // Layout (batch-trailing): diag/chol (W, B2, B2, B), lower/gain (W-1, B2, B2,
 // B), rhs/x (W, B2, B); element [t, i, j, b] sits at ((t*B2 + i)*B2 + j)*B + b,
-// so the 32 threads of a warp read 32 adjacent values of one entry.
+// so adjacent problems read adjacent values of one entry.
 //
-// Both kernels walk the horizon and stage the NEXT step's blocks into shared
-// memory with per-thread 4-byte cp.async (two stages, each thread its own
-// column: no bank conflicts, no barrier) while the current step computes:
-// one warp's ~220 independent row loads per step overlap instead of
-// stalling the step's arithmetic one batch at a time.
+// Factor (one thread per problem): it walks the horizon and stages the NEXT
+// step's blocks into shared memory with per-thread 4-byte cp.async (two
+// stages, each thread its own column: no bank conflicts, no barrier) while
+// the current step computes.  S_t (the packed lower half, B2(B2+1)/2 values)
+// is factored in registers.  C_{t-1} and G_{t-1} (B2^2 values) would not fit
+// beside it in the 255-register file, so they live in shared memory too.  G
+// is formed row by row, as the reference's _gain_rows, with one reciprocal
+// per pivot.  The upper triangle of chol is written as zeros.  A
+// non-positive pivot turns the whole block C_t into NaN, as a failed dense
+// Cholesky does in the reference (and so every later block of that
+// problem): statuses depend on it, no error is raised.  Bound: a chain of W
+// dependent B2 x B2 steps per thread; B=1024 problems are 32 warps, one per
+// SM.
 //
-// Factor: S_t (the packed lower half, B2(B2+1)/2 values) is factored in
-// registers.  C_{t-1} and G_{t-1} (B2^2 values) would not fit beside it in
-// the 255-register file, so they live in shared memory too.  G is formed row
-// by row, as the reference's _gain_rows, with one reciprocal per pivot.  The
-// upper triangle of chol is written as zeros.  A non-positive pivot turns the
-// whole block C_t into NaN, as a failed dense Cholesky does in the reference
-// (and so every later block of that problem): statuses depend on it, no
-// error is raised.
-//
-// Solve: the forward sweep writes w_t into x (read back by the same thread in
-// the backward sweep, which overwrites it with x_t); w_{t-1} / x_{t+1} are
-// carried in registers.
-//
-// Bound: a chain of W dependent B2 x B2 steps per thread; bytes on paper (each
-// step touches 2 B2^2 values), the latency of that chain in practice: B=1024
-// problems are 32 warps, one per SM.
+// Solve (a group of threads per problem).  One thread per problem left
+// B = 1024 at 32 single-warp blocks (100 of 132 SMs idle) and B = 1 at one
+// thread, each step a chain of 144 + 78 multiply-adds and 12 divisions with
+// rhs read from device memory on it and w_t written there and read back.
+// Here:
+//   - a group of SG threads (the smallest power of two >= B2: 16 at B2 = 12)
+//     works on one problem; a block holds Q adjacent problems (4 while the
+//     blocks still cover 7/8 of the SMs, fewer for small batches: B = 1024
+//     is 256 blocks, B = 1 one group);
+//   - a producer warp stages step t+2's C_t (its lower triangle), gain block
+//     and rhs_t (t-2 backward) with cp.async into a ring of three [row][SQS]
+//     tiles while the groups solve step t, one __syncthreads a step;
+//   - lane i < B2 forms row i of the step's right-hand side (rhs_t -
+//     G_{t-1} w_{t-1}; backward w_t - G_t' x_{t+1}) from the previous step's
+//     vector, which every lane holds in registers, and leaves it in the
+//     group's slot (one __syncwarp); the gain block is staged so that lane
+//     i's row is a column of the tile (2-way bank conflicts at most);
+//   - every lane then solves the whole triangular system in registers, row
+//     by row with j ascending, as the one-thread kernel did, each division
+//     rounded as the division rounds it but without its branch to a slow
+//     path (div_rn: the pivots' reciprocals are taken off the chain), so
+//     the rows' multiply-adds interleave: x is bit for bit that kernel's;
+//   - the forward sweep keeps w_t on chip (W B2 values a problem) for the
+//     backward sweep, or, where the launch plan finds no room, writes it into
+//     x, from where the producer stages it back.  Nothing on a step's chain
+//     reads device memory.
+// Bound: bytes on paper (each step's blocks read once a sweep); in practice
+// each problem's chain of 2W steps, each B2 divisions and the multiply-adds
+// between them.
+#include <cstdint>
+#include <initializer_list>
+
 #include "lane_platform.cuh"
 
 #ifndef B2
@@ -48,8 +72,8 @@ __host__ __device__ constexpr int TRI(int i, int j) {
     return i * (i + 1) / 2 + j;
 }
 
-// One stage of either kernel: a packed lower triangle (chol of step t, or the
-// lower half of D_t) and a full block (G, or L_{t-1}).
+// ---- the factor: one thread per problem.  One stage: the lower half of D_t
+// (packed) and the full block L_{t-1}.
 constexpr int O_TRI = 0;
 constexpr int O_FULL = NT;
 constexpr int STAGE = NT + NF;
@@ -191,101 +215,231 @@ __global__ void tridiag_factor_kernel(const real* __restrict__ diag,
     }
 }
 
-__global__ void tridiag_solve_kernel(const real* __restrict__ chol,
-                                     const real* __restrict__ gain,
-                                     const real* __restrict__ rhs,
-                                     real* __restrict__ x, int W, int B) {
-    LANE_SMEM_DECL();
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
-    const size_t Bs = (size_t)B;
-    real* stages = lane_smem + threadIdx.x;  // two stages: C_t, G
-    auto row = [&](int t, int i) -> size_t {
-        return ((size_t)t * B2 + i) * Bs + b;
-    };
+// ---- the solve: a group of SG threads per problem.
+constexpr int SG = pow2_at_least(B2) < 4 ? 4 : pow2_at_least(B2);
+static_assert(SG <= 32, "a group is at most one warp (B2 <= 32)");
+// Problems per block at most (log2), stages of the ring, producer threads,
+// and the tile's row stride (one column a problem).
+constexpr int S_QLOG_MAX = 2;
+constexpr int S_NSTAGE = 3;
+constexpr int S_PRODUCERS = group_producers(SG);
+constexpr int SQS = 1 << S_QLOG_MAX;
+// One stage: the lower triangle of C_t (NT rows), the gain block (NF rows;
+// forward G_{t-1} transposed, backward G_t), and rhs_t forward or w_t
+// backward (B2 rows, when w is not kept on chip).
+constexpr int S_C = 0, S_G = NT, S_V = NT + NF, S_ROWS = NT + NF + B2;
+using STile = TileCol<SQS>;
 
-    real c[B2];  // w_{t-1}, then x_{t+1}
-#pragma unroll
-    for (int i = 0; i < B2; ++i) c[i] = real(0);
+__host__ __device__ constexpr int solve_producer_base(int qlog) {
+    return group_producer_base(SG << qlog);
+}
+__host__ __device__ constexpr int solve_threads(int qlog) {
+    return solve_producer_base(qlog) + S_PRODUCERS;
+}
+// Shared values: the ring, a slot of SG values per group, and (w on chip)
+// w_t of every step, [t][i][SQS].
+__host__ __device__ constexpr long long solve_smem_bytes(int W, int qlog,
+                                                         bool w_on_chip) {
+    return ((long long)S_NSTAGE * S_ROWS * SQS + (long long)SG * (1 << qlog) +
+            (w_on_chip ? (long long)W * B2 * SQS : 0)) *
+           (long long)sizeof(real);
+}
 
-    // Forward: step t reads C_t and G_{t-1}.
-    stage_step(chol, 0, gain, -1, B, b, stages);
-    for (int t = 0; t < W; ++t) {
-        if (t + 1 < W) {
-            stage_step(chol, t + 1, gain, t, B, b,
-                       stages + ((t + 1) & 1) * STAGE * LANE_BLOCK);
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        real* sg = stages + (t & 1) * STAGE * LANE_BLOCK;
-        const Col C{sg + O_TRI * LANE_BLOCK}, G{sg + O_FULL * LANE_BLOCK};
-        real v[B2];
+struct SolvePlan {
+    int qlog, Q, w_on_chip, smem, blocks, threads;
+};
+
+// Problems per block as the chunk kernel plans them; w on chip when the
+// shared memory of the launch fits in budget (bytes), else in x.
+static SolvePlan solve_plan_for(int W, int B, int budget, int sms) {
+    const int qlog = group_qlog(B, sms, S_QLOG_MAX), Q = 1 << qlog;
+    const bool on = solve_smem_bytes(W, qlog, true) <= budget;
+    return SolvePlan{qlog, Q, on, (int)solve_smem_bytes(W, qlog, on),
+                     (B + Q - 1) / Q, solve_threads(qlog)};
+}
+
+// Start this producer's copies of step t into stage t % S_NSTAGE and commit
+// them: C_t's lower triangle; forward G_{t-1} transposed (t > 0) and rhs_t,
+// backward G_t (t < W-1) and, w in x, w_t.
+template <bool BWD, bool WSM>
+__device__ __forceinline__ void solve_issue(const Stager& s, const real* chol,
+                                            const real* gain, const real* v,
+                                            real* ring, int t, int W) {
+    real* sg = ring + (t % S_NSTAGE) * S_ROWS * SQS;
+    const size_t blk = (size_t)NF * s.B, vec = (size_t)B2 * s.B;
+    stage_tile_rows<SQS>(s, chol + t * blk + s.b0, NF, sg + S_C * SQS,
+                         [](int k) {
+                             const int i = k / B2, j = k % B2;
+                             return j <= i ? TRI(i, j) : -1;
+                         });
+    if (!BWD && t > 0)
+        stage_tile_rows<SQS>(s, gain + (t - 1) * blk + s.b0, NF,
+                             sg + S_G * SQS,
+                             [](int k) { return (k % B2) * B2 + k / B2; });
+    if (BWD && t < W - 1)
+        stage_tile_rows<SQS>(s, gain + t * blk + s.b0, NF, sg + S_G * SQS,
+                             [](int k) { return k; });
+    if (!BWD || !WSM)
+        stage_tile_rows<SQS>(s, v + t * vec + s.b0, B2, sg + S_V * SQS,
+                             [](int k) { return k; });
+    cp_async_commit();
+}
+
+// The step's triangular solve in every lane: y from the group's right-hand
+// side r[] (in the slot) and the lower triangle L[] of C_t (in registers),
+// row by row with j ascending and a division per row rounded as the
+// division rounds it (div_rn, from the pivots' reciprocals rl[] taken as
+// soon as L is loaded), as the one-thread kernel formed them: forward
+// C y = r, backward C' y = r.
+template <bool BWD>
+__device__ __forceinline__ void solve_rows(const real* L, const real* rl,
+                                           const real* r, real* y) {
+    real v[B2];
 #pragma unroll
-        for (int i = 0; i < B2; ++i) {
-            real acc = real(0);
-            if (t > 0) {
-#pragma unroll
-                for (int j = 0; j < B2; ++j) acc = acc + G[i * B2 + j] * c[j];
-            }
-            v[i] = rhs[row(t, i)] - acc;
-        }
+    for (int k = 0; k < B2; ++k) v[k] = r[k];
+    if (!BWD) {
 #pragma unroll
         for (int i = 0; i < B2; ++i) {
             real acc = v[i];
 #pragma unroll
-            for (int j = 0; j < i; ++j) acc = acc - C[TRI(i, j)] * v[j];
-            v[i] = acc / C[TRI(i, i)];
+            for (int j = 0; j < i; ++j) acc = fma_rn(-L[TRI(i, j)], y[j], acc);
+            y[i] = div_rn(acc, L[TRI(i, i)], rl[i]);
         }
-#pragma unroll
-        for (int i = 0; i < B2; ++i) {
-            x[row(t, i)] = v[i];
-            c[i] = v[i];
-        }
-    }
-
-    // Backward: step t reads C_t and G_t (none at t = W-1).
-    stage_step(chol, W - 1, gain, -1, B, b,
-               stages + ((W - 1) & 1) * STAGE * LANE_BLOCK);
-    for (int t = W - 1; t >= 0; --t) {
-        if (t > 0) {
-            stage_step(chol, t - 1, gain, t - 1, B, b,
-                       stages + ((t - 1) & 1) * STAGE * LANE_BLOCK);
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        real* sg = stages + (t & 1) * STAGE * LANE_BLOCK;
-        const Col C{sg + O_TRI * LANE_BLOCK}, G{sg + O_FULL * LANE_BLOCK};
-        real v[B2];
-#pragma unroll
-        for (int i = 0; i < B2; ++i) {
-            real acc = real(0);
-            if (t < W - 1) {
-#pragma unroll
-                for (int j = 0; j < B2; ++j) acc = acc + G[j * B2 + i] * c[j];
-            }
-            v[i] = x[row(t, i)] - acc;
-        }
+    } else {
 #pragma unroll
         for (int i = B2 - 1; i >= 0; --i) {
             real acc = v[i];
 #pragma unroll
-            for (int j = i + 1; j < B2; ++j) acc = acc - C[TRI(j, i)] * v[j];
-            v[i] = acc / C[TRI(i, i)];
-        }
-#pragma unroll
-        for (int i = 0; i < B2; ++i) {
-            x[row(t, i)] = v[i];
-            c[i] = v[i];
+            for (int j = i + 1; j < B2; ++j)
+                acc = fma_rn(-L[TRI(j, i)], y[j], acc);
+            y[i] = div_rn(acc, L[TRI(i, i)], rl[i]);
         }
     }
 }
 
-// Dynamic shared memory of each kernel: the factor keeps C_{t-1} and G_{t-1}
-// beside its two stages, the solve only its two stages.
+// WSM: w_t kept in shared memory (else in x).
+template <bool WSM>
+__global__ void __launch_bounds__(solve_threads(S_QLOG_MAX), 1)
+    tridiag_solve_kernel(const real* __restrict__ chol,
+                         const real* __restrict__ gain,
+                         const real* __restrict__ rhs, real* x, int W, int B,
+                         int qlog, int x4) {
+    LANE_SMEM_DECL();
+    const int tid = threadIdx.x, pbase = solve_producer_base(qlog);
+    const bool idle = tid >= (SG << qlog), stager = tid >= pbase;
+    const int g = tid / SG, i = tid % SG;
+    const int b0 = blockIdx.x << qlog, b = b0 + g;
+    const bool valid = !idle && b < B;
+    const Stager s{B, b0, qlog, tid - pbase, S_PRODUCERS, x4 != 0};
+    real* ring = lane_smem;
+    real* slot = ring + S_NSTAGE * S_ROWS * SQS + g * SG;
+    real* wsm = ring + S_NSTAGE * S_ROWS * SQS + (SG << qlog) + g;
+    real* xb = x + b;
+
+    real c[B2];  // w_{t-1} forward, x_{t+1} backward, in every lane
+#pragma unroll
+    for (int k = 0; k < B2; ++k) c[k] = real(0);
+
+    // Forward: w_t = C_t^{-1} (rhs_t - G_{t-1} w_{t-1}).
+    if (stager)
+        for (int t = 0; t < S_NSTAGE - 1; ++t) {
+            if (t < W) solve_issue<false, WSM>(s, chol, gain, rhs, ring, t, W);
+            else cp_async_commit();
+        }
+    for (int t = 0; t < W; ++t) {
+        cp_async_wait<S_NSTAGE - 2>();
+        __syncthreads();
+        const real* sg = ring + (t % S_NSTAGE) * S_ROWS * SQS + g;
+        if (stager) {
+            if (t + S_NSTAGE - 1 < W)
+                solve_issue<false, WSM>(s, chol, gain, rhs, ring,
+                                        t + S_NSTAGE - 1, W);
+            else
+                cp_async_commit();
+        }
+        if (idle) continue;
+        const STile C{sg + S_C * SQS}, Gt{sg + S_G * SQS}, V{sg + S_V * SQS};
+        real L[NT], rl[B2];  // loads in flight before the chain needs them
+#pragma unroll
+        for (int k = 0; k < NT; ++k) L[k] = C[k];
+#pragma unroll
+        for (int k = 0; k < B2; ++k) rl[k] = rcp_rn(L[TRI(k, k)]);
+        if (i < B2) {
+            real acc = real(0);
+            if (t > 0) {
+#pragma unroll
+                for (int j = 0; j < B2; ++j)
+                    acc = fma_rn(Gt[j * B2 + i], c[j], acc);
+            }
+            slot[i] = V[i] - acc;
+        }
+        lane_group_sync(g, SG);
+        solve_rows<false>(L, rl, slot, c);
+        if (i < B2) {
+            real wi = c[0];
+#pragma unroll
+            for (int k = 1; k < B2; ++k)
+                if (i == k) wi = c[k];
+            if (WSM)
+                wsm[(t * B2 + i) * SQS] = wi;
+            else if (valid)
+                xb[(size_t)(t * B2 + i) * B] = wi;
+        }
+    }
+
+    // Backward: x_t = C_t^{-T} (w_t - G_t' x_{t+1}).  The barrier ends the
+    // forward sweep's reads of the ring (and makes its w writes visible).
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < B2; ++k) c[k] = real(0);
+    if (stager)
+        for (int t = W - 1; t > W - S_NSTAGE; --t) {
+            if (t >= 0) solve_issue<true, WSM>(s, chol, gain, x, ring, t, W);
+            else cp_async_commit();
+        }
+    for (int t = W - 1; t >= 0; --t) {
+        cp_async_wait<S_NSTAGE - 2>();
+        __syncthreads();
+        const real* sg = ring + (t % S_NSTAGE) * S_ROWS * SQS + g;
+        if (stager) {
+            if (t - S_NSTAGE + 1 >= 0)
+                solve_issue<true, WSM>(s, chol, gain, x, ring,
+                                       t - S_NSTAGE + 1, W);
+            else
+                cp_async_commit();
+        }
+        if (idle) continue;
+        const STile C{sg + S_C * SQS}, Gt{sg + S_G * SQS}, V{sg + S_V * SQS};
+        real L[NT], rl[B2];
+#pragma unroll
+        for (int k = 0; k < NT; ++k) L[k] = C[k];
+#pragma unroll
+        for (int k = 0; k < B2; ++k) rl[k] = rcp_rn(L[TRI(k, k)]);
+        if (i < B2) {
+            real acc = real(0);
+            if (t < W - 1) {
+#pragma unroll
+                for (int j = 0; j < B2; ++j)
+                    acc = fma_rn(Gt[j * B2 + i], c[j], acc);
+            }
+            const real wi = WSM ? wsm[(t * B2 + i) * SQS] : V[i];
+            slot[i] = wi - acc;
+        }
+        lane_group_sync(g, SG);
+        solve_rows<true>(L, rl, slot, c);
+        if (i < B2 && valid) {
+            real xi = c[0];
+#pragma unroll
+            for (int k = 1; k < B2; ++k)
+                if (i == k) xi = c[k];
+            xb[(size_t)(t * B2 + i) * B] = xi;
+        }
+    }
+}
+
+// Dynamic shared memory of the factor: C_{t-1} and G_{t-1} beside its two
+// stages.
 constexpr int FACTOR_SMEM = 3 * STAGE * LANE_BLOCK * (int)sizeof(real);
-constexpr int SOLVE_SMEM = 2 * STAGE * LANE_BLOCK * (int)sizeof(real);
 
 static int allow_smem(const void* fn, int bytes) {
 #ifndef LANE_HOST_EMULATION
@@ -312,14 +466,50 @@ extern "C" int tridiag_factor_launch(const void* diag, const void* lower,
     return LANE_LAST_ERROR();
 }
 
+// The solve's plan on the current device for W steps and a batch of B;
+// budget <= 0: the shared memory a block may use (the host-emulation tests
+// pass a small one to put w in x).
+static int solve_plan(int W, int B, int budget, SolvePlan* p) {
+    int dev_smem = 0, sms = 0;
+    const int err = lane_device_limits(&dev_smem, &sms);
+    if (err != 0) return err;
+    *p = solve_plan_for(W, B, budget > 0 ? budget : dev_smem, sms);
+    return p->smem > dev_smem ? -1 : 0;
+}
+
+// plan[0..8] = threads per problem, problems per block Q, stages, w kept
+// on chip (0/1), shared bytes, blocks, threads per block, tile row stride,
+// bytes per staging copy (for 16-byte aligned arrays): the plan
+// tridiag_solve_launch makes.
+extern "C" int tridiag_solve_plan(int W, int B, int budget, long long* plan) {
+    SolvePlan p{};
+    const int err = solve_plan(W, B, budget, &p);
+    const long long v[9] = {SG,       p.Q,       S_NSTAGE, p.w_on_chip, p.smem,
+                            p.blocks, p.threads, SQS,
+                            group_tile_x4(p.qlog, B) ? 16 : 4};
+    for (int k = 0; k < 9; ++k) plan[k] = v[k];
+    return err;
+}
+
 extern "C" int tridiag_solve_launch(const void* chol, const void* gain,
                                     const void* rhs, void* x, int W, int B,
-                                    void* stream) {
-    const int grid = (B + LANE_BLOCK - 1) / LANE_BLOCK;
-    const int attr = allow_smem((const void*)tridiag_solve_kernel, SOLVE_SMEM);
-    if (attr != 0) return attr;
-    LANE_LAUNCH_SMEM(tridiag_solve_kernel, grid, LANE_BLOCK, SOLVE_SMEM,
-                     stream, (const real*)chol, (const real*)gain,
-                     (const real*)rhs, (real*)x, W, B);
-    return LANE_LAST_ERROR();
+                                    int budget, void* stream) {
+    SolvePlan p{};
+    const int err = solve_plan(W, B, budget, &p);
+    if (err != 0) return err;
+    // 16-byte copies need every staged array 16-byte aligned.
+    uintptr_t bits = 0;
+    for (const void* ptr : {chol, gain, rhs, (const void*)x})
+        bits |= (uintptr_t)ptr;
+    const int x4 = group_tile_x4(p.qlog, B) && bits % 16 == 0;
+#define LANE_SOLVE_ARGS                                                       \
+    (const real*)chol, (const real*)gain, (const real*)rhs, (real*)x, W, B,  \
+        p.qlog, x4
+    if (p.w_on_chip)
+        return lane_launch_coop(&tridiag_solve_kernel<true>, p.blocks,
+                                p.threads, SG, p.smem, stream,
+                                LANE_SOLVE_ARGS);
+    return lane_launch_coop(&tridiag_solve_kernel<false>, p.blocks, p.threads,
+                            SG, p.smem, stream, LANE_SOLVE_ARGS);
+#undef LANE_SOLVE_ARGS
 }

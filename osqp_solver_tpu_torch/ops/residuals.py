@@ -10,20 +10,25 @@ termination reductions are not fused into the chunk kernel
 
 Kernel note (``csrc/residuals.cu`` replaces the Pallas body
 ``residuals_pallas.py::_make_kernel`` behind
-``termination_quantities_kernel``, for vel-diag P).  The TPU kernel walks
-the horizon with a 4-slot VMEM ring per (8, 128) tile of problems.  Here ONE
-THREAD owns ONE PROBLEM and walks the horizon once: all six matvecs (Ax, Px,
-Aᵀy, A·dx, P·dx, Aᵀ·dy) are waypoint-local stencils, so the values of
-waypoint u−1 it still needs are carried in registers, waypoints u and u+1
-sit in a three-stage shared-memory ring each thread fills for its own column
-with ``cp.async``, and the 18 running maxima and sums never leave
-registers.  Bound on an H100: every pack is read once and 24 values per
-problem are written — bytes on paper; with B=1024 (32 warps on 132 SMs) the
-serial walk's latency decides.  The block-P form (the build with
+``termination_quantities_kernel``).  The TPU kernel walks the horizon with
+a 4-slot VMEM ring per (8, 128) tile of problems.  Here a GROUP of threads
+(16 at N=6) works on each problem and a block holds a few adjacent problems
+(:func:`plan`); the walk is the fused chunk kernel's termination tail
+(``csrc/admm_chunk.cu`` ``MODE_TERM``) without the ADMM update, through the
+same device functions (``lane_common.cuh``), so the fused and the unfused
+termination decide from the same float values, bit for bit.  All six
+matvecs (Ax, Px, Aᵀy, A·dx, P·dx, Aᵀ·dy) are waypoint-local stencils: the
+walk goes backward, a producer warp stages each waypoint's rows two steps
+ahead into a three-stage shared-memory ring, lane i owns variable i and
+rows i, i+16, ..., and what a waypoint needs of its neighbour is carried in
+registers or the group's slot.  The four sums are added per waypoint in row
+order and parked in a ``(W, 4, B)`` scratch, then added in waypoint order;
+the maxima are reduced across the group.  Bound on an H100: every pack is
+read once and 24 values per problem are written — bytes on paper; each
+problem's walk of W steps in practice.  The block-P form (the build with
 ``-DBLOCK_P=1``) streams the packed lower triangle of each ``P_diag`` block
-and the full ``P_lower`` block through the same ring (three stages of 578
-rows at N=6: 222 KB of shared memory) and carries ``Pl_{u-1}·x_{u-1}`` and
-``Pl_{u-1}·dx_{u-1}`` instead of the block.
+and the full ``P_lower`` block through the same ring (578 rows a stage:
+9.2 KB at 4 problems) and carries rows of ``Pd_u·x_u`` and ``Pl_uᵀ·x_{u+1}``.
 """
 from __future__ import annotations
 
@@ -220,20 +225,46 @@ def termination_quantities_plain(scaled, state_pack, dxdy_pack, coef, packs):
     return assemble_term_quantities(acc, cinv, norm_Dq)
 
 
+PLAN_KEYS = ("G", "Q", "stages", "shared_bytes", "blocks",
+             "threads_per_block", "tile_stride", "copy_bytes")
+
+
+def _configure(lib):
+    """Set the C signatures of a loaded ``csrc/residuals.cu`` library
+    (once)."""
+    if lib.residuals_launch.argtypes is None:
+        lib.residuals_launch.argtypes = [ctypes.c_void_p] * 9 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.residuals_launch.restype = ctypes.c_int
+        lib.residuals_plan.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.residuals_plan.restype = ctypes.c_int
+    return lib
+
+
+def plan(lib, B):
+    """The launch plan of ``csrc/residuals.cu`` for a batch of ``B`` on the
+    current device, as :func:`_launch_residuals` makes it: threads per
+    problem, problems per block, ring stages, shared bytes, blocks, threads
+    per block, the tile's row stride and the bytes of a staging copy (for
+    16-byte aligned packs)."""
+    lib = _configure(lib)
+    out = (ctypes.c_longlong * len(PLAN_KEYS))()
+    _build.check(lib.residuals_plan(B, out), "residuals_plan")
+    return dict(zip(PLAN_KEYS, out))
+
+
 def _launch_residuals(lib, coef, Pdp, Plf, state_pack, dxdy_pack, rowc, varc,
                       acc):
     """Call the C entry point of ``csrc/residuals.cu`` on packs of one
-    device."""
+    device (with a ``(W, 4, B)`` scratch for the per-waypoint sums)."""
     W, _, B = state_pack.shape
-    fn = lib.residuals_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
+    lib = _configure(lib)
+    sums = state_pack.new_empty((W, 4, B))
     p = _build.ptr
-    err = fn(p(coef), p(Pdp), p(Plf), p(state_pack), p(dxdy_pack), p(rowc),
-             p(varc), p(acc), W, B, _build.stream(state_pack.device))
+    err = lib.residuals_launch(
+        p(coef), p(Pdp), p(Plf), p(state_pack), p(dxdy_pack), p(rowc),
+        p(varc), p(sums), p(acc), W, B, _build.stream(state_pack.device))
     _build.check(err, "residuals_launch")
 
 

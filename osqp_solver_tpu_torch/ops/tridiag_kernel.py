@@ -9,16 +9,20 @@ layout and ``Settings(fused_chunk="off")``.
 Kernel note (``csrc/tridiag.cu`` replaces the Pallas bodies
 ``_factor_kernel`` and ``_solve_kernel``).  The TPU kernels spread a batch
 tile over (sublane, lane) and stream each waypoint's full blocks through
-double-buffered VMEM.  Here one thread owns one problem and walks the
-horizon; the batch-trailing layout ``(W, B2, B2, B)`` makes a warp's 32
-loads of one block entry one 128-byte segment.  Both kernels stage the next
-step's blocks into shared memory with per-thread ``cp.async`` (two stages)
-while the current step computes.  The factor keeps ``C_{t-1}`` and
-``G_{t-1}`` in shared memory (one column per thread) and ``S_t`` in
-registers; the solve carries ``w_{t-1}`` / ``x_{t+1}`` in registers.  Bound
-on an H100: bytes on paper (~0.04-0.07 ms at B=1024, W=100, B2=12), the
-latency of each thread's serial chain of W steps in practice.  The block
-size ``B2`` is compile-time (one build per ``B2``).
+double-buffered VMEM.  The factor here is one thread per problem walking
+the horizon: it stages the next step's blocks into shared memory with
+per-thread ``cp.async`` (two stages) while the current step computes, keeps
+``C_{t-1}`` and ``G_{t-1}`` in shared memory (one column per thread) and
+``S_t`` in registers.  The solve puts a group of 16 threads (at B2=12) on
+each problem and a few problems in a block (:func:`plan`): a producer warp
+stages each step's ``C_t``, gain block and right-hand side two steps ahead
+into a three-stage ring, lane i forms row i of the step's right-hand side,
+and every lane solves the whole triangular system in registers, row by row
+with true divisions (bit for bit the one-thread form); ``w_t`` stays in
+shared memory between the sweeps where it fits, else in ``x``.  Bound on
+an H100: bytes on paper (~0.03-0.06 ms at B=1024, W=100, B2=12), each
+problem's chain of steps in practice.  The block size ``B2`` is
+compile-time (one build per ``B2``).
 """
 from __future__ import annotations
 
@@ -45,19 +49,54 @@ def _lib(B2):
     return _build.library("tridiag", {"B2": int(B2)})
 
 
-def _launch(lib, name, a, b, c, d):
+def _configure(lib):
+    """Set the C signatures of a loaded ``csrc/tridiag.cu`` library
+    (once)."""
+    if lib.tridiag_solve_launch.argtypes is None:
+        lib.tridiag_factor_launch.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_int] * 2 + [ctypes.c_void_p]
+        lib.tridiag_factor_launch.restype = ctypes.c_int
+        lib.tridiag_solve_launch.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.tridiag_solve_launch.restype = ctypes.c_int
+        lib.tridiag_solve_plan.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        lib.tridiag_solve_plan.restype = ctypes.c_int
+    return lib
+
+
+PLAN_KEYS = ("G", "Q", "stages", "w_on_chip", "shared_bytes", "blocks",
+             "threads_per_block", "tile_stride", "copy_bytes")
+
+
+def plan(lib, W, B, budget=0):
+    """The solve kernel's launch plan for ``W`` steps and a batch of ``B``
+    on the current device, as :func:`_launch` makes it: threads per
+    problem, problems per block, ring stages, whether ``w`` stays in shared
+    memory between the sweeps (else in ``x``), shared bytes, blocks,
+    threads per block, the tile's row stride and the bytes of a staging
+    copy (for 16-byte aligned arrays); ``budget``: the shared bytes a block
+    may use (0: the device's)."""
+    lib = _configure(lib)
+    out = (ctypes.c_longlong * len(PLAN_KEYS))()
+    _build.check(lib.tridiag_solve_plan(W, B, budget, out),
+                 "tridiag_solve_plan")
+    return dict(zip(PLAN_KEYS, out))
+
+
+def _launch(lib, name, a, b, c, d, budget=0):
     """Call ``tridiag_<name>_launch`` of ``csrc/tridiag.cu``: factor
     ``(diag, lower, chol, gain)`` or solve ``(chol, gain, rhs, x)``, all on
-    one device, the first a ``(W, B2, B2, B)`` array."""
+    one device, the first a ``(W, B2, B2, B)`` array; ``budget``: the
+    solve's, as :func:`plan`."""
     W, _, _, B = a.shape
-    fn = getattr(lib, f"tridiag_{name}_launch")
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
-            ctypes.c_void_p
-        ]
-        fn.restype = ctypes.c_int
+    lib = _configure(lib)
     p = _build.ptr
-    err = fn(p(a), p(b), p(c), p(d), W, B, _build.stream(a.device))
+    args = [p(a), p(b), p(c), p(d), W, B]
+    if name == "solve":
+        args.append(int(budget))
+    err = getattr(lib, f"tridiag_{name}_launch")(*args,
+                                                  _build.stream(a.device))
     _build.check(err, f"tridiag_{name}_launch")
 
 

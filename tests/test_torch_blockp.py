@@ -203,12 +203,23 @@ def test_emulated_block_ruiz_kernel_matches_plain(iters, flags, n_obs, case,
     assert_close(ck, c, rtol=1e-9)
 
 
-@pytest.mark.parametrize("W", [4, 9])
-@pytest.mark.parametrize("flags,n_obs", [((False, True), 1), ((), 0)])
-def test_emulated_block_residual_kernel_matches_plain(W, flags, n_obs,
+# The emulated block residual kernel's cases: B = 8 (two blocks of 4
+# problems) at two horizons, a batch that is not a multiple of the problems
+# per block, and a single problem.
+BLOCK_RESIDUAL_PARAMS = [
+    pytest.param(W, flags, n_obs, 8, id=f"{fid}-{W}")
+    for flags, n_obs, fid in [((False, True), 1, "flags0-1"),
+                              ((), 0, "flags1-0")]
+    for W in (4, 9)
+] + [pytest.param(5, (False, True), 1, 13, id="odd_batch"),
+     pytest.param(4, (False, True), 1, 1, id="B1")]
+
+
+@pytest.mark.parametrize("W,flags,n_obs,batch", BLOCK_RESIDUAL_PARAMS)
+def test_emulated_block_residual_kernel_matches_plain(W, flags, n_obs, batch,
                                                       tmp_path, monkeypatch):
     monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
-    tqp = _random_block_case(W, flags, n_obs, W=W)
+    tqp = _random_block_case(W, flags, n_obs, W=W, B=batch)
     tscaled, ts = truiz.ruiz_equilibrate_lane_kernel(tqp, 3)
     packs = tdrv.build_const_packs(tscaled, ts)
     rng = np.random.default_rng(W + 7)

@@ -442,17 +442,21 @@ def test_emulated_chunk_kernel_gain_form_matches_plain(flags, n_obs, mode,
         assert (to_np(extra)[..., to_np(done)] == 0.0).all()
 
 
-@pytest.mark.parametrize("form", ["hrec", "gain"])
+@pytest.mark.parametrize("form,case", [
+    pytest.param("hrec", "base", id="hrec"),
+    pytest.param("gain", "base", id="gain"),
+    pytest.param("hrec", "odd_batch", id="hrec-odd_batch"),
+    pytest.param("gain", "odd_batch", id="gain-odd_batch"),
+])
 def test_emulated_term_accumulators_equal_dxdy_then_residuals(
-        form, tmp_path, monkeypatch):
+        form, case, tmp_path, monkeypatch):
     """Fused and unfused termination decide from the same numbers: the
     accumulators of the emulated ``MODE_TERM`` chunk equal, bit for bit,
     those of the emulated ``MODE_DXDY`` chunk followed by the emulated
     ``csrc/residuals.cu`` on its state and deltas (both kernels add the
     sums in the same order; the maxima are exact in any order)."""
     monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
-    tscaled, ts, tsettings, rho_vec, done, packs, args = _emulated_case(
-        "base")
+    tscaled, ts, tsettings, rho_vec, done, packs, args = _emulated_case(case)
     if form == "gain":
         args = _gain_args(tscaled, tsettings, rho_vec, args)
     state_t, acc_t = _emulated_chunk(tscaled, rho_vec, done, tsettings, args,

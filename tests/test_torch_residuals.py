@@ -110,11 +110,12 @@ def test_chunk_dxdy_plain_matches_interpreted_kernel(interpreted):
 
 
 @functools.lru_cache(maxsize=None)
-def _port_case(seed=0, W=8, flags=(False, True), n_obs=1):
+def _port_case(seed=0, W=8, flags=(False, True), n_obs=1, B=B):
     """A random problem scaled by the port, a non-trivial state and a done
-    mask that freezes problems 1 and 6 — the port alone (the comparisons
-    below are between the port's kernels and its plain versions)."""
-    _, tqp = both(seed, flags=flags, n_obs=n_obs, W=W)
+    mask that freezes problems 1 and 6 (those of them in the batch) — the
+    port alone (the comparisons below are between the port's kernels and
+    its plain versions)."""
+    _, tqp = both(seed, flags=flags, n_obs=n_obs, W=W, B=B)
     tsettings = dataclasses.replace(tadmm.Settings(), check_termination=3)
     tscaled, ts = truiz.ruiz_equilibrate_lane_kernel(tqp, 5)
     rng = np.random.default_rng(seed + 100)
@@ -122,7 +123,7 @@ def _port_case(seed=0, W=8, flags=(False, True), n_obs=1):
         tscaled, tsettings, t_(rng.normal(size=(tqp.n, B))),
         t_(0.1 * rng.normal(size=(tqp.m, B))), ts)
     done = torch.zeros(B, dtype=torch.bool)
-    done[[1, 6]] = True
+    done[[k for k in (1, 6) if k < B]] = True
     packs = tdrv.build_const_packs(tscaled, ts)
     args = dict(
         coef=packs["coef"], lu=tfused.build_lu_pack(tscaled),
@@ -133,10 +134,10 @@ def _port_case(seed=0, W=8, flags=(False, True), n_obs=1):
     return tscaled, ts, tsettings, st.rho_vec, done, packs, args
 
 
-def _residual_case(W=8, flags=(False, True), n_obs=1, seed=0):
+def _residual_case(W=8, flags=(False, True), n_obs=1, seed=0, B=B):
     """Packs after 3 plain iterations that end with the delta form."""
     tscaled, ts, tsettings, rho_vec, done, packs, args = _port_case(
-        seed, W, flags, n_obs)
+        seed, W, flags, n_obs, B)
     sp, dp = tfused.fused_admm_chunk_plain(
         tscaled, rho_vec, done, tsettings, emit_dxdy=True, **args)
     return tscaled, ts, sp, dp, args["coef"], _port_packs(tscaled, ts)
@@ -189,15 +190,27 @@ def test_residual_and_dxdy_wrappers_refuse_bad_arguments():
 # ------------------------------------------- CUDA sources in host emulation
 
 
-@pytest.mark.parametrize("W", [4, 5, 12])
-@pytest.mark.parametrize("flags,n_obs", [((False, True), 1), ((), 0)])
-def test_emulated_residual_kernel_matches_plain(W, flags, n_obs, tmp_path,
-                                                monkeypatch):
+# The emulated residual kernel's cases: the base batch (B = 8, two blocks of
+# 4 problems) at three horizons, a batch that is not a multiple of the
+# problems per block (the last block masked) and a single problem.
+RESIDUAL_PARAMS = [
+    pytest.param(W, flags, n_obs, B, id=f"{fid}-{W}")
+    for flags, n_obs, fid in [((False, True), 1, "flags0-1"),
+                              ((), 0, "flags1-0")]
+    for W in (4, 5, 12)
+] + [pytest.param(5, (False, True), 1, 13, id="odd_batch"),
+     pytest.param(4, (False, True), 1, 1, id="B1")]
+
+
+@pytest.mark.parametrize("W,flags,n_obs,batch", RESIDUAL_PARAMS)
+def test_emulated_residual_kernel_matches_plain(W, flags, n_obs, batch,
+                                                tmp_path, monkeypatch):
     monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
-    tscaled, ts, sp, dp, coef, packs = _residual_case(W, flags, n_obs, seed=W)
+    tscaled, ts, sp, dp, coef, packs = _residual_case(W, flags, n_obs, seed=W,
+                                                      B=batch)
     rowc, varc, Pdp, Plf = packs[:4]
     plain = tresid.termination_accumulators_plain(tscaled, sp, dp, rowc, varc)
-    acc = torch.full((24, B), float("nan"), dtype=torch.float64)
+    acc = torch.full((24, batch), float("nan"), dtype=torch.float64)
     tresid._launch_residuals(
         host_lib("residuals", tscaled), coef, Pdp, Plf, sp, dp, rowc, varc, acc)
     assert_close(acc, plain, rtol=1e-9, atol=1e-9)

@@ -2,7 +2,8 @@
 solve (``ops/tridiag_kernel.py``).  The plain versions are held to
 ``pallas_tridiag.factor_lane_major`` / ``solve_lane_major`` in interpret
 mode, and ``csrc/tridiag.cu`` compiled in host emulation (g++, double) to
-the plain versions.  f64, CPU."""
+the plain versions, the solve at the edges of its launch plan.  f64,
+CPU."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -62,25 +63,44 @@ def test_plain_matches_pallas_interpret(W, B2, B):
     assert ttri.solve_lane_major.launches == 0
 
 
-def _emulated(diag, lower, rhs):
-    """Factor and solve through ``csrc/tridiag.cu`` in host emulation."""
+def _emulated(diag, lower, rhs, budget=0):
+    """Factor and solve through ``csrc/tridiag.cu`` in host emulation (the
+    solve with the shared-memory ``budget`` of :func:`ttri.plan`)."""
     W, B2, _, B = diag.shape
     lib = host_lib_signature("tridiag", {"B2": B2})
     chol = torch.full_like(diag, float("nan"))
     gain = torch.full_like(lower, float("nan"))
     ttri._launch(lib, "factor", diag, lower, chol, gain)
     x = torch.full_like(rhs, float("nan"))
-    ttri._launch(lib, "solve", chol, gain, rhs, x)
+    ttri._launch(lib, "solve", chol, gain, rhs, x, budget=budget)
     return chol, gain, x
 
 
-@pytest.mark.parametrize("B2", [12, 14])
-@pytest.mark.parametrize("W", [1, 2, 5])
-def test_emulated_kernels_match_plain(W, B2, tmp_path, monkeypatch):
-    """B = 37: two blocks of 32 threads, the second one mostly idle."""
+# The emulated solve's cases: B = 37 (ten blocks of 4 problems, the last
+# with one), one problem (a block with three empty columns), and w_t kept
+# in x between the sweeps (a budget of one byte), with one and with several
+# steps.
+SOLVE_PARAMS = [
+    pytest.param(W, B2, 37, 0, id=f"{W}-{B2}")
+    for B2 in (12, 14) for W in (1, 2, 5)
+] + [
+    pytest.param(5, 12, 1, 0, id="B1"),
+    pytest.param(2, 12, 1, 0, id="B1-W2"),
+    pytest.param(1, 12, 37, 1, id="w_in_x-1"),
+    pytest.param(2, 14, 37, 1, id="w_in_x-2"),
+    pytest.param(5, 12, 37, 1, id="w_in_x-5"),
+]
+
+
+@pytest.mark.parametrize("W,B2,B,budget", SOLVE_PARAMS)
+def test_emulated_kernels_match_plain(W, B2, B, budget, tmp_path,
+                                      monkeypatch):
     monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
-    diag, lower, rhs = (t_(a) for a in spd_batch(W, B2, 37, seed=W + B2))
-    chol, gain, x = _emulated(diag, lower, rhs)
+    diag, lower, rhs = (t_(a) for a in spd_batch(W, B2, B, seed=W + B2))
+    p = ttri.plan(host_lib_signature("tridiag", {"B2": B2}), W, B, budget)
+    assert (p["G"], p["w_on_chip"]) == (16, int(budget == 0))
+    assert p["blocks"] == -(-B // p["Q"])
+    chol, gain, x = _emulated(diag, lower, rhs, budget)
     pchol, pgain = ttri.factor_lane_major_plain(diag, lower)
     assert_close(chol, pchol, rtol=1e-9, atol=1e-12)
     assert_close(gain, pgain, rtol=1e-9, atol=1e-12)
