@@ -1356,18 +1356,22 @@ RESID_BATCHES = (1024, 1022, 8)
 
 
 def ref_resid_launch(block, packs, acc):
-    """One launch of --ref-tree's residual kernel (its C signature: no sums
-    scratch) on the packs, into ``acc``."""
-    fn = ref_library("residuals", (("BLOCK_P", int(block)), ("NDIM", N),
-                                   ("NX", 5))).residuals_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    """One launch of --ref-tree's residual kernel on the packs, into
+    ``acc`` (its C signature: with a sums scratch where the tree plans its
+    launch, else without)."""
+    lib = ref_library("residuals", (("BLOCK_P", int(block)), ("NDIM", N),
+                                    ("NX", 5)))
+    fn = lib.residuals_launch
     Wd, _, B = packs[3].shape
+    sums = ([acc.new_empty((Wd, 4, B))] if hasattr(lib, "residuals_plan")
+            else [])
+    fn.argtypes = [ctypes.c_void_p] * (8 + len(sums)) + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     p = _build.ptr
     return lambda: _build.check(
-        fn(*(p(t) for t in packs), p(acc), Wd, B, _build.stream(acc.device)),
-        "ref residuals_launch")
+        fn(*(p(t) for t in list(packs) + sums), p(acc), Wd, B,
+           _build.stream(acc.device)), "ref residuals_launch")
 
 
 def resid_batches(lib, block, packs, acc_full):
@@ -1782,17 +1786,19 @@ def solve_alone(chol, gain, rhs, budget=0):
 
 
 def ref_solve_alone(chol, gain, rhs, x):
-    """One launch of --ref-tree's solve kernel (its C signature without a
-    budget) into ``x``."""
+    """One launch of --ref-tree's solve kernel into ``x`` (its C signature:
+    with a budget where the tree plans its solve, else without)."""
     Wd, B2, _, B = chol.shape
-    fn = ref_library("tridiag", (("B2", B2),)).tridiag_solve_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
-        ctypes.c_void_p]
+    lib = ref_library("tridiag", (("B2", B2),))
+    fn = lib.tridiag_solve_launch
+    budget = [0] if hasattr(lib, "tridiag_solve_plan") else []
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (2 + len(
+        budget)) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     p = _build.ptr
     return lambda: _build.check(
-        fn(p(chol), p(gain), p(rhs), p(x), Wd, B, _build.stream(x.device)),
-        "ref tridiag_solve_launch")
+        fn(p(chol), p(gain), p(rhs), p(x), Wd, B, *budget,
+           _build.stream(x.device)), "ref tridiag_solve_launch")
 
 
 def bits_differing(a, b):

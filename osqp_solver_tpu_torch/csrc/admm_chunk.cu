@@ -170,11 +170,11 @@ struct Args {
 
 // Copy the first CNT rows of waypoint t of a (W, ROWS, B) pack into rows
 // DST.. of stage sg, the block's Q columns (this producer's share).
+template <int ROWS, int CNT, int DST>
 __device__ __forceinline__ void stage_rows_of(const Args& a, const real* pack,
-                                              int ROWS, int CNT, int DST,
                                               int t, real* sg) {
-    stage_pack_rows<QS>(Stager{a.B, a.b0, a.qlog, a.ptid, PRODUCERS, a.x4},
-                        pack, ROWS, CNT, DST, t, sg);
+    stage_pack_rows<QS, PRODUCERS, ROWS, CNT, DST>(
+        make_stager(a.B, a.b0, a.qlog, a.ptid, a.x4), pack, t, sg);
 }
 
 // Start the block's copies of waypoint t's rows into stage t % NSTAGE and
@@ -182,24 +182,24 @@ __device__ __forceinline__ void stage_rows_of(const Args& a, const real* pack,
 template <bool BWD, bool GAIN, bool TERM = false>
 __device__ __forceinline__ void stage_issue(const Args& a, int t) {
     real* sg = a.ring + (t % NSTAGE) * stage_rows(TERM, GAIN) * QS;
-    stage_rows_of(a, a.chol, Tp, T, O_CH, t, sg);
+    stage_rows_of<Tp, T, O_CH>(a, a.chol, t, sg);
     if (GAIN)
-        stage_rows_of(a, a.gain, Tp, T, o_gain(TERM),
-                      BWD ? t : (t > 0 ? t - 1 : 0), sg);
-    stage_rows_of(a, a.coef, CRp, CR, O_CF, t, sg);
-    stage_rows_of(a, a.rho, Rp, Rp, O_RH, t, sg);
-    stage_rows_of(a, a.plf, PNp, N, O_PL, t, sg);
-    stage_rows_of(a, a.state, SRp, SR, O_ST, t, sg);
+        stage_rows_of<Tp, T, o_gain(TERM)>(
+            a, a.gain, BWD ? t : (t > 0 ? t - 1 : 0), sg);
+    stage_rows_of<CRp, CR, O_CF>(a, a.coef, t, sg);
+    stage_rows_of<Rp, Rp, O_RH>(a, a.rho, t, sg);
+    stage_rows_of<PNp, N, O_PL>(a, a.plf, t, sg);
+    stage_rows_of<SRp, SR, O_ST>(a, a.state, t, sg);
     if (BWD) {
-        stage_rows_of(a, a.w, B2, B2, O_QW, t, sg);
-        stage_rows_of(a, a.lu, 2 * Rp, 2 * Rp, O_LU, t, sg);
+        stage_rows_of<B2, B2, O_QW>(a, a.w, t, sg);
+        stage_rows_of<2 * Rp, 2 * Rp, O_LU>(a, a.lu, t, sg);
         if (TERM) {
-            stage_rows_of(a, a.ee, 2 * Rp, 2 * Rp, O_EE, t, sg);
-            stage_rows_of(a, a.varc, VCp, 3 * B2, O_VC, t, sg);
-            stage_rows_of(a, a.pd, PNp, N, O_PD, t, sg);
+            stage_rows_of<2 * Rp, 2 * Rp, O_EE>(a, a.ee, t, sg);
+            stage_rows_of<VCp, 3 * B2, O_VC>(a, a.varc, t, sg);
+            stage_rows_of<PNp, N, O_PD>(a, a.pd, t, sg);
         }
     } else {
-        stage_rows_of(a, a.q, B2, B2, O_QW, t, sg);
+        stage_rows_of<B2, B2, O_QW>(a, a.q, t, sg);
     }
     cp_async_commit();
 }

@@ -119,18 +119,18 @@ struct Packs {
 __device__ __forceinline__ void stage_issue(const Packs& k, const Stager& s,
                                             real* ring, int t) {
     real* sg = ring + (t % NSTAGE) * STAGE_ROWS * QS;
-    stage_pack_rows<QS>(s, k.coef, CRp, CR, O_CF, t, sg);
+    stage_pack_rows<QS, PRODUCERS, CRp, CR, O_CF>(s, k.coef, t, sg);
 #if BLOCK_P
-    stage_pack_rows<QS>(s, k.pd, Tp, T, O_PD, t, sg);
-    stage_pack_rows<QS>(s, k.pl, B2 * B2, B2 * B2, O_PL, t, sg);
+    stage_pack_rows<QS, PRODUCERS, Tp, T, O_PD>(s, k.pd, t, sg);
+    stage_pack_rows<QS, PRODUCERS, B2 * B2, B2 * B2, O_PL>(s, k.pl, t, sg);
 #else
-    stage_pack_rows<QS>(s, k.pd, PNp, N, O_PD, t, sg);
-    stage_pack_rows<QS>(s, k.pl, PNp, N, O_PL, t, sg);
+    stage_pack_rows<QS, PRODUCERS, PNp, N, O_PD>(s, k.pd, t, sg);
+    stage_pack_rows<QS, PRODUCERS, PNp, N, O_PL>(s, k.pl, t, sg);
 #endif
-    stage_pack_rows<QS>(s, k.state, SRp, SR, O_ST, t, sg);
-    stage_pack_rows<QS>(s, k.dxdy, DRp, DR, O_DD, t, sg);
-    stage_pack_rows<QS>(s, k.rowc, 4 * Rp, 4 * Rp, O_RC, t, sg);
-    stage_pack_rows<QS>(s, k.varc, VCp, 3 * B2, O_VC, t, sg);
+    stage_pack_rows<QS, PRODUCERS, SRp, SR, O_ST>(s, k.state, t, sg);
+    stage_pack_rows<QS, PRODUCERS, DRp, DR, O_DD>(s, k.dxdy, t, sg);
+    stage_pack_rows<QS, PRODUCERS, 4 * Rp, 4 * Rp, O_RC>(s, k.rowc, t, sg);
+    stage_pack_rows<QS, PRODUCERS, VCp, 3 * B2, O_VC>(s, k.varc, t, sg);
     cp_async_commit();
 }
 
@@ -150,7 +150,7 @@ __global__ void __launch_bounds__(block_threads(QLOG_MAX), 1)
     const int b0 = blockIdx.x << qlog, b = b0 + g;
     const bool valid = !idle && b < B;
     const Packs packs{coef, pd, pl, state, dxdy, rowc, varc};
-    const Stager s{B, b0, qlog, tid - pbase, PRODUCERS, x4 != 0};
+    const Stager s = make_stager(B, b0, qlog, tid - pbase, x4);
     real* ring = lane_smem;
     real* sl = ring + NSTAGE * STAGE_ROWS * QS + g * SLOT;
 

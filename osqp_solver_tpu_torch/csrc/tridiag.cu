@@ -38,7 +38,10 @@
 //     is 256 blocks, B = 1 one group);
 //   - a producer warp stages step t+2's C_t (its lower triangle), gain block
 //     and rhs_t (t-2 backward) with cp.async into a ring of three [row][SQS]
-//     tiles while the groups solve step t, one __syncthreads a step;
+//     tiles while the groups solve step t, one __syncthreads a step; a
+//     producer thread's copies are unrolled (stage_tile_copies): as a loop
+//     their address arithmetic, not the groups' arithmetic, set the step
+//     time;
 //   - lane i < B2 forms row i of the step's right-hand side (rhs_t -
 //     G_{t-1} w_{t-1}; backward w_t - G_t' x_{t+1}) from the previous step's
 //     vector, which every lane holds in registers, and leaves it in the
@@ -267,21 +270,23 @@ __device__ __forceinline__ void solve_issue(const Stager& s, const real* chol,
                                             real* ring, int t, int W) {
     real* sg = ring + (t % S_NSTAGE) * S_ROWS * SQS;
     const size_t blk = (size_t)NF * s.B, vec = (size_t)B2 * s.B;
-    stage_tile_rows<SQS>(s, chol + t * blk + s.b0, NF, sg + S_C * SQS,
-                         [](int k) {
-                             const int i = k / B2, j = k % B2;
-                             return j <= i ? TRI(i, j) : -1;
-                         });
+    stage_tile_copies<SQS, S_PRODUCERS, NF>(s, chol + t * blk + s.b0,
+                                          sg + S_C * SQS, [](int k) {
+                                              const int i = k / B2, j = k % B2;
+                                              return j <= i ? TRI(i, j) : -1;
+                                          });
     if (!BWD && t > 0)
-        stage_tile_rows<SQS>(s, gain + (t - 1) * blk + s.b0, NF,
-                             sg + S_G * SQS,
-                             [](int k) { return (k % B2) * B2 + k / B2; });
+        stage_tile_copies<SQS, S_PRODUCERS, NF>(
+            s, gain + (t - 1) * blk + s.b0, sg + S_G * SQS,
+            [](int k) { return (k % B2) * B2 + k / B2; });
     if (BWD && t < W - 1)
-        stage_tile_rows<SQS>(s, gain + t * blk + s.b0, NF, sg + S_G * SQS,
-                             [](int k) { return k; });
+        stage_tile_copies<SQS, S_PRODUCERS, NF>(s, gain + t * blk + s.b0,
+                                              sg + S_G * SQS,
+                                              [](int k) { return k; });
     if (!BWD || !WSM)
-        stage_tile_rows<SQS>(s, v + t * vec + s.b0, B2, sg + S_V * SQS,
-                             [](int k) { return k; });
+        stage_tile_copies<SQS, S_PRODUCERS, B2>(s, v + t * vec + s.b0,
+                                              sg + S_V * SQS,
+                                              [](int k) { return k; });
     cp_async_commit();
 }
 
@@ -317,6 +322,86 @@ __device__ __forceinline__ void solve_rows(const real* L, const real* rl,
     }
 }
 
+// What lane i of a group needs of step t, loaded into registers at the top
+// of the step: the lower triangle of C_t and its pivots' reciprocals,
+// entries j*B2 + i of the staged gain block (forward G_{t-1}[i][j], the
+// block staged transposed; backward G_t[j][i]), and row i of rhs_t
+// (forward) or w_t (backward).
+struct StepOperands {
+    real L[NT], rl[B2], gr[B2], v;
+};
+
+template <bool BWD, bool WSM>
+__device__ __forceinline__ void load_step(const real* sg, const real* wsm_t,
+                                          int i, StepOperands& o) {
+    const STile C{sg + S_C * SQS}, Gt{sg + S_G * SQS}, V{sg + S_V * SQS};
+#pragma unroll
+    for (int k = 0; k < NT; ++k) o.L[k] = C[k];
+#pragma unroll
+    for (int k = 0; k < B2; ++k) o.rl[k] = rcp_rn(o.L[TRI(k, k)]);
+    const int r = i < B2 ? i : 0;  // lanes past B2: a row of the tile, unused
+#pragma unroll
+    for (int j = 0; j < B2; ++j) o.gr[j] = Gt[j * B2 + r];
+    o.v = BWD && WSM ? wsm_t[r * SQS] : V[r];
+}
+
+// One sweep, step u = 0..W-1 on t = u (forward) or W-1-u (backward):
+// forward w_t = C_t^{-1} (rhs_t - G_{t-1} w_{t-1}), into wsm (w on chip)
+// or x; backward x_t = C_t^{-T} (w_t - G_t' x_{t+1}), into x.  c[] holds
+// the previous step's vector in every lane, zero at the first step.  vec is
+// rhs forward and x backward (where w_t is staged from when not on chip).
+template <bool BWD, bool WSM>
+__device__ __forceinline__ void solve_sweep(
+    const Stager& s, bool stager, bool idle, bool valid, int i, int g,
+    const real* chol, const real* gain, const real* vec, real* ring,
+    real* slot, real* wsm, real* xb, int W, int B, real* c) {
+    auto step = [&](int u) { return BWD ? W - 1 - u : u; };
+    if (stager)
+        for (int u = 0; u < S_NSTAGE - 1; ++u) {
+            if (u < W) solve_issue<BWD, WSM>(s, chol, gain, vec, ring, step(u), W);
+            else cp_async_commit();
+        }
+    StepOperands o;
+    for (int u = 0; u < W; ++u) {
+        const int t = step(u);
+        // Step u has landed (every step commits one group, empty past the
+        // horizon), the whole block's with the barrier, and nobody reads the
+        // stage the next issue overwrites any more.
+        cp_async_wait<S_NSTAGE - 2>();
+        __syncthreads();
+        if (stager) {
+            if (u + S_NSTAGE - 1 < W)
+                solve_issue<BWD, WSM>(s, chol, gain, vec, ring,
+                                      step(u + S_NSTAGE - 1), W);
+            else
+                cp_async_commit();
+        }
+        if (idle) continue;
+        load_step<BWD, WSM>(ring + (t % S_NSTAGE) * S_ROWS * SQS + g,
+                            wsm + t * B2 * SQS, i, o);
+        if (i < B2) {
+            real acc = real(0);
+            if (u > 0) {
+#pragma unroll
+                for (int j = 0; j < B2; ++j) acc = fma_rn(o.gr[j], c[j], acc);
+            }
+            slot[i] = o.v - acc;
+        }
+        lane_group_sync(g, SG);
+        solve_rows<BWD>(o.L, o.rl, slot, c);
+        if (i < B2) {
+            real ci = c[0];
+#pragma unroll
+            for (int k = 1; k < B2; ++k)
+                if (i == k) ci = c[k];
+            if (!BWD && WSM)
+                wsm[(t * B2 + i) * SQS] = ci;
+            else if (valid)
+                xb[(size_t)(t * B2 + i) * B] = ci;
+        }
+    }
+}
+
 // WSM: w_t kept in shared memory (else in x).
 template <bool WSM>
 __global__ void __launch_bounds__(solve_threads(S_QLOG_MAX), 1)
@@ -330,7 +415,7 @@ __global__ void __launch_bounds__(solve_threads(S_QLOG_MAX), 1)
     const int g = tid / SG, i = tid % SG;
     const int b0 = blockIdx.x << qlog, b = b0 + g;
     const bool valid = !idle && b < B;
-    const Stager s{B, b0, qlog, tid - pbase, S_PRODUCERS, x4 != 0};
+    const Stager s = make_stager(B, b0, qlog, tid - pbase, x4);
     real* ring = lane_smem;
     real* slot = ring + S_NSTAGE * S_ROWS * SQS + g * SG;
     real* wsm = ring + S_NSTAGE * S_ROWS * SQS + (SG << qlog) + g;
@@ -339,102 +424,15 @@ __global__ void __launch_bounds__(solve_threads(S_QLOG_MAX), 1)
     real c[B2];  // w_{t-1} forward, x_{t+1} backward, in every lane
 #pragma unroll
     for (int k = 0; k < B2; ++k) c[k] = real(0);
-
-    // Forward: w_t = C_t^{-1} (rhs_t - G_{t-1} w_{t-1}).
-    if (stager)
-        for (int t = 0; t < S_NSTAGE - 1; ++t) {
-            if (t < W) solve_issue<false, WSM>(s, chol, gain, rhs, ring, t, W);
-            else cp_async_commit();
-        }
-    for (int t = 0; t < W; ++t) {
-        cp_async_wait<S_NSTAGE - 2>();
-        __syncthreads();
-        const real* sg = ring + (t % S_NSTAGE) * S_ROWS * SQS + g;
-        if (stager) {
-            if (t + S_NSTAGE - 1 < W)
-                solve_issue<false, WSM>(s, chol, gain, rhs, ring,
-                                        t + S_NSTAGE - 1, W);
-            else
-                cp_async_commit();
-        }
-        if (idle) continue;
-        const STile C{sg + S_C * SQS}, Gt{sg + S_G * SQS}, V{sg + S_V * SQS};
-        real L[NT], rl[B2];  // loads in flight before the chain needs them
-#pragma unroll
-        for (int k = 0; k < NT; ++k) L[k] = C[k];
-#pragma unroll
-        for (int k = 0; k < B2; ++k) rl[k] = rcp_rn(L[TRI(k, k)]);
-        if (i < B2) {
-            real acc = real(0);
-            if (t > 0) {
-#pragma unroll
-                for (int j = 0; j < B2; ++j)
-                    acc = fma_rn(Gt[j * B2 + i], c[j], acc);
-            }
-            slot[i] = V[i] - acc;
-        }
-        lane_group_sync(g, SG);
-        solve_rows<false>(L, rl, slot, c);
-        if (i < B2) {
-            real wi = c[0];
-#pragma unroll
-            for (int k = 1; k < B2; ++k)
-                if (i == k) wi = c[k];
-            if (WSM)
-                wsm[(t * B2 + i) * SQS] = wi;
-            else if (valid)
-                xb[(size_t)(t * B2 + i) * B] = wi;
-        }
-    }
-
-    // Backward: x_t = C_t^{-T} (w_t - G_t' x_{t+1}).  The barrier ends the
-    // forward sweep's reads of the ring (and makes its w writes visible).
+    solve_sweep<false, WSM>(s, stager, idle, valid, i, g, chol, gain, rhs,
+                            ring, slot, wsm, xb, W, B, c);
+    // The barrier ends the forward sweep's reads of the ring (and makes its
+    // w writes visible).
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < B2; ++k) c[k] = real(0);
-    if (stager)
-        for (int t = W - 1; t > W - S_NSTAGE; --t) {
-            if (t >= 0) solve_issue<true, WSM>(s, chol, gain, x, ring, t, W);
-            else cp_async_commit();
-        }
-    for (int t = W - 1; t >= 0; --t) {
-        cp_async_wait<S_NSTAGE - 2>();
-        __syncthreads();
-        const real* sg = ring + (t % S_NSTAGE) * S_ROWS * SQS + g;
-        if (stager) {
-            if (t - S_NSTAGE + 1 >= 0)
-                solve_issue<true, WSM>(s, chol, gain, x, ring,
-                                       t - S_NSTAGE + 1, W);
-            else
-                cp_async_commit();
-        }
-        if (idle) continue;
-        const STile C{sg + S_C * SQS}, Gt{sg + S_G * SQS}, V{sg + S_V * SQS};
-        real L[NT], rl[B2];
-#pragma unroll
-        for (int k = 0; k < NT; ++k) L[k] = C[k];
-#pragma unroll
-        for (int k = 0; k < B2; ++k) rl[k] = rcp_rn(L[TRI(k, k)]);
-        if (i < B2) {
-            real acc = real(0);
-            if (t < W - 1) {
-#pragma unroll
-                for (int j = 0; j < B2; ++j)
-                    acc = fma_rn(Gt[j * B2 + i], c[j], acc);
-            }
-            const real wi = WSM ? wsm[(t * B2 + i) * SQS] : V[i];
-            slot[i] = wi - acc;
-        }
-        lane_group_sync(g, SG);
-        solve_rows<true>(L, rl, slot, c);
-        if (i < B2 && valid) {
-            real xi = c[0];
-#pragma unroll
-            for (int k = 1; k < B2; ++k)
-                if (i == k) xi = c[k];
-            xb[(size_t)(t * B2 + i) * B] = xi;
-        }
-    }
+    solve_sweep<true, WSM>(s, stager, idle, valid, i, g, chol, gain, x, ring,
+                           slot, wsm, xb, W, B, c);
 }
 
 // Dynamic shared memory of the factor: C_{t-1} and G_{t-1} beside its two
