@@ -20,9 +20,12 @@ and the dense kernels also at n=160, 512 and 2048; float32; the chunk
 kernel also at B=1022, where its last block of 4 problems is half empty),
 times both (the Ruiz and factor kernels also alone, on packs built
 beforehand, at B=8, and at the edges of their launch plans: B=1022, W=4,
-W=50, and Ruiz with its rows in device memory; and the rounded square root and reciprocal they share, bit for bit
-against ``sqrtf`` and the division on every float from 2^-100 to 2^100),
-then drives the port's entry points:
+W=50, and Ruiz with its rows in device memory; the tridiagonal solve alone
+at B=1024, 1022, 8 and 1 and at W=10, and with w_t in device memory; the
+residual kernel alone at B=1024, 1022 and 8; and the rounded square root,
+reciprocal and division they share, bit for bit against ``sqrtf`` and the
+division on every float from 2^-100 to 2^100 and many quotients), then
+drives the port's entry points:
 
 * ``solve_batched_lane`` on a 1024-problem honest batch (``solve``), the same
   with ``term_fused="off"`` (``solve_unfused_term``: delta-writing chunk +
@@ -67,7 +70,9 @@ by its path.  One JSON line per phase; the last three lines are the kernel
 table, the card's name and power limit, and the verdict.  Exits non-zero
 without a CUDA device or when any phase fails.  ``--phases build,kernels``
 runs a subset; ``--out FILE`` also writes every phase's record to a JSON
-file.
+file; ``--ref-tree DIR`` (an earlier checkout, e.g. ``git archive 4b7b0f4 |
+tar -x -C DIR``) also builds that tree's tridiagonal solve and residual
+kernels and runs them on the same inputs, compared bit for bit and timed.
 """
 from __future__ import annotations
 

@@ -17,9 +17,10 @@ per-thread ``cp.async`` (two stages) while the current step computes, keeps
 each problem and a few problems in a block (:func:`plan`): a producer warp
 stages each step's ``C_t``, gain block and right-hand side two steps ahead
 into a three-stage ring, lane i forms row i of the step's right-hand side,
-and every lane solves the whole triangular system in registers, row by row
-with true divisions (bit for bit the one-thread form); ``w_t`` stays in
-shared memory between the sweeps where it fits, else in ``x``.  Bound on
+and every lane solves the whole triangular system in registers, row by row,
+its divisions rounded as ``/`` rounds them (bit for bit the earlier
+one-thread kernel's); ``w_t`` stays in shared memory between the sweeps
+where it fits, else in ``x``.  Bound on
 an H100: bytes on paper (~0.03-0.06 ms at B=1024, W=100, B2=12), each
 problem's chain of steps in practice.  The block size ``B2`` is
 compile-time (one build per ``B2``).
