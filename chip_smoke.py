@@ -20,8 +20,9 @@ and the dense kernels also at n=160, 512 and 2048; float32; the chunk
 kernel also at B=1022, where its last block of 4 problems is half empty),
 times both (the Ruiz and factor kernels also alone, on packs built
 beforehand, at B=8, and at the edges of their launch plans: B=1022, W=4,
-W=50, and Ruiz with its rows in device memory; the tridiagonal solve alone
-at B=1024, 1022, 8 and 1 and at W=10, and with w_t in device memory; the
+W=50, and Ruiz with its rows in device memory; the tridiagonal factor and
+solve alone at B=1024, 1022, 8 and 1 and at W=10 (the factor also at W=50),
+and the solve with w_t in device memory; the
 residual kernel alone at B=1024, 1022 and 8; and the rounded square root,
 reciprocal and division they share, bit for bit against ``sqrtf`` and the
 division on every float from 2^-100 to 2^100 and many quotients), then
@@ -70,9 +71,10 @@ by its path.  One JSON line per phase; the last three lines are the kernel
 table, the card's name and power limit, and the verdict.  Exits non-zero
 without a CUDA device or when any phase fails.  ``--phases build,kernels``
 runs a subset; ``--out FILE`` also writes every phase's record to a JSON
-file; ``--ref-tree DIR`` (an earlier checkout, e.g. ``git archive 4b7b0f4 |
-tar -x -C DIR``) also builds that tree's tridiagonal solve and residual
-kernels and runs them on the same inputs, compared bit for bit and timed.
+file; ``--ref-tree DIR`` (an earlier checkout, e.g. ``git archive 8554bbc |
+tar -x -C DIR``) also builds that tree's tridiagonal factor and solve and
+residual kernels and runs them on the same inputs, compared bit for bit and
+timed (the factor must equal that tree's bit for bit).
 """
 from __future__ import annotations
 
@@ -165,9 +167,10 @@ BLOCK_FLEET = dict(BENCH, termination_warmup=0)
 RECORDS = {}
 OUT = None  # --out: the records are written there, on failure too
 # --ref-tree: the root of an earlier checkout of this repository (for
-# example ``git archive 4b7b0f4 | tar -x -C DIR``): its tridiagonal solve and
-# residual kernels are built beside this tree's and run on the same inputs
-# in the kernels phase, compared bit for bit and timed in the same call.
+# example ``git archive 8554bbc | tar -x -C DIR``): its tridiagonal factor
+# and solve and residual kernels are built beside this tree's and run on the
+# same inputs in the kernels phase, compared bit for bit and timed in the
+# same call.
 REF_TREE = None
 
 
@@ -1715,7 +1718,9 @@ def check_tridiag(scaled, rho_vec, settings):
                     "gain": rel_err(pg.double(), g64)[1],
                     "x": rel_err(tridiag_kernel.solve_lane_major_plain(
                         ck, gk, rhs).double(), x64)[1]}
-    f_ms = time_ms(lambda: tridiag_kernel.factor_lane_major(diag, lower))
+    f_ms, f1_ms = alone_ms(factor_alone_tridiag, diag, lower)
+    fw_ms = time_ms(lambda: tridiag_kernel.factor_lane_major(diag, lower))
+    f_cases = factor_cases(diag, lower)
     s_ms, s1_ms = alone_ms(solve_alone, ck, gk, rhs)
     sw_ms = time_ms(lambda: tridiag_kernel.solve_lane_major(ck, gk, rhs))
     cases = solve_cases(diag, lower, rhs)
@@ -1752,14 +1757,18 @@ def check_tridiag(scaled, rho_vec, settings):
              max_rel_err=f_worst, rel_err={k: e[1] for k, e in f_errs.items()},
              plain_f32_vs_f64=plain_vs_f64, odd_batch_rel_err=odd_err,
              upper_triangle_zero=upper_zero, non_spd_gives_nan_there=nan_only_there,
-             tol=TOL_TRIDIAG, tol_note=note,
+             tol=TOL_TRIDIAG, tol_note=note, cases=f_cases,
              ok=bool(f_worst <= TOL_TRIDIAG and odd_err <= TOL_TRIDIAG
-                     and upper_zero and nan_only_there),
-             ms=f_ms, plain_ms=fp_ms, bound_ms=fb_ms, bound_by=fb_by,
-             library_ms=lib_f_ms,
+                     and upper_zero and nan_only_there
+                     and all(c["ok"] for c in f_cases.values())),
+             ms=f_ms, single_launch_ms=f1_ms, wrapper_ms=fw_ms,
+             B8_ms=f_cases["B8"]["ms"], plain_ms=fp_ms, bound_ms=fb_ms,
+             bound_by=fb_by, library_ms=lib_f_ms,
              library_note="torch.linalg.cholesky of the dense (B, W*B2, W*B2) "
                           "f32 matrices (same factor: block-bidiagonal)",
-             shape=shape),
+             plan=f_cases["B1024"]["plan"],
+             shape=shape + "; ms: the launch alone on inputs and outputs "
+                           "built beforehand, wrapper_ms: the wrapper"),
         dict(name="tridiag_solve", max_abs_err=s_err[0], max_rel_err=s_err[1],
              library_vs_f64=lib_vs_f64, tol=TOL_TRIDIAG, tol_note=note,
              cases=cases, w_in_x=off, div_rn_mismatches=div_bad,
@@ -1779,6 +1788,67 @@ def check_tridiag(scaled, rho_vec, settings):
 # 1's horizon.
 SOLVE_CASES = {"B1024": (1024, W), "B1022": (1022, W), "B8": (8, W),
                "B1": (1, W), "W10_B1024": (1024, 10), "W10_B1": (1, 10)}
+
+
+# The factor's: the solve's and the planner's longest horizon.
+FACTOR_CASES = dict(SOLVE_CASES, W50_B1024=(1024, 50))
+
+
+def factor_alone_tridiag(diag, lower):
+    """One launch of the factor kernel on inputs and outputs built
+    beforehand."""
+    lib = _build.library("tridiag", {"B2": diag.shape[1]})
+    chol, gain = torch.empty_like(diag), torch.empty_like(lower)
+    return lambda: tridiag_kernel._launch(lib, "factor", diag, lower, chol,
+                                          gain)
+
+
+def ref_factor_alone(diag, lower, chol, gain):
+    """One launch of --ref-tree's factor kernel into ``chol`` and ``gain``
+    (the same C signature in every tree)."""
+    Wd, B2, _, B = diag.shape
+    fn = ref_library("tridiag", (("B2", B2),)).tridiag_factor_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    p = _build.ptr
+    return lambda: _build.check(
+        fn(p(diag), p(lower), p(chol), p(gain), Wd, B,
+           _build.stream(diag.device)), "ref tridiag_factor_launch")
+
+
+def factor_cases(diag, lower):
+    """The factor kernel at each of FACTOR_CASES (the blocks cut from the
+    main shape's) against the plain version run in f64 on the same f32
+    inputs (chol and gain, the worse of the two), with its plan, its time
+    alone and, with --ref-tree, that tree's kernel on the same inputs: its
+    time and the values of chol and gain that differ bit for bit, which
+    must be none."""
+    lib = _build.library("tridiag", {"B2": diag.shape[1]})
+    out = {}
+    for name, (batch, w) in FACTOR_CASES.items():
+        d = diag[:w, ..., :batch].contiguous()
+        lo = lower[:w - 1, ..., :batch].contiguous()
+        c, g = tridiag_kernel.factor_lane_major(d, lo)
+        c64, g64 = tridiag_kernel.factor_lane_major_plain(d.double(),
+                                                          lo.double())
+        err = max(rel_err(c.double(), c64)[1], rel_err(g.double(), g64)[1])
+        rec = dict(batch=batch, W=w, plan=tridiag_kernel.factor_plan(
+            lib, batch), rel_err=err,
+            ms=alone_ms(factor_alone_tridiag, d, lo)[0])
+        same = True
+        if REF_TREE:
+            cr, gr = torch.empty_like(c), torch.empty_like(g)
+            launch = ref_factor_alone(d, lo, cr, gr)
+            launch()
+            (nc, dc), (ng, dg) = bits_differing(c, cr), bits_differing(g, gr)
+            rec["ref_bits_differing"] = {"chol": nc, "gain": ng}
+            rec["ref_max_abs_diff"] = max(dc, dg)
+            rec["ref_ms"] = time_ms(launch, inner=ALONE_INNER)
+            same = nc == 0 and ng == 0
+        rec["ok"] = bool(err <= TOL_TRIDIAG and same)
+        out[name] = rec
+    return out
 
 
 def solve_alone(chol, gain, rhs, budget=0):
@@ -3351,7 +3421,8 @@ def main():
     ap.add_argument("--out", default=None, help="also write records here")
     ap.add_argument("--ref-tree", default=None,
                     help="root of an earlier checkout whose tridiagonal "
-                         "solve and residual kernels run beside these")
+                         "factor and solve and residual kernels run beside "
+                         "these")
     opts = ap.parse_args()
     global OUT, REF_TREE
     OUT, REF_TREE = opts.out, opts.ref_tree

@@ -13,19 +13,45 @@
 // B), rhs/x (W, B2, B); element [t, i, j, b] sits at ((t*B2 + i)*B2 + j)*B + b,
 // so adjacent problems read adjacent values of one entry.
 //
-// Factor (one thread per problem): it walks the horizon and stages the NEXT
-// step's blocks into shared memory with per-thread 4-byte cp.async (two
-// stages, each thread its own column: no bank conflicts, no barrier) while
-// the current step computes.  S_t (the packed lower half, B2(B2+1)/2 values)
-// is factored in registers.  C_{t-1} and G_{t-1} (B2^2 values) would not fit
-// beside it in the 255-register file, so they live in shared memory too.  G
-// is formed row by row, as the reference's _gain_rows, with one reciprocal
-// per pivot.  The upper triangle of chol is written as zeros.  A
+// Factor (a group of threads per problem).  One thread per problem did a
+// step as a chain of ~2,000 operations: the 12 gain rows one after the
+// other, the 78 Schur entries, the Cholesky with IEEE square roots and
+// divisions (whose slow-path branch is a scheduling barrier), and 288
+// scattered stores; B = 1024 problems were 32 single-warp blocks (100 of 132
+// SMs idle), B = 1 one thread.  Here (kkt_factor.cu's step, fed as below):
+//   - a group of SG threads (16 at B2 = 12) works on one problem; a block
+//     holds Q adjacent problems, the problem index fastest among a warp's
+//     lanes (lane l of problem q is thread l*Q + q), so that the Q problems'
+//     values of one entry are adjacent in every load and store (Q = 8: one
+//     32-byte sector); Q is 8 while the blocks still cover 7/8 of the SMs,
+//     fewer for small batches (B = 1024: 128 blocks; B = 1: one group);
+//   - D_t and L_t do not depend on the chain: each lane copies what it will
+//     read itself (its Schur entries of D_t, lane i < B2 row i of L_t) with
+//     4-byte cp.async two steps ahead into a ring of three stages, and waits
+//     for its own copies only (no producer warp, no barrier for them).  A
+//     problem's values in shared memory are contiguous and read with 16-byte
+//     loads (4x fewer shared-memory instructions than one value a load);
+//   - a step: each lane forms NE (5) of the entries of S_t = D_t -
+//     G_{t-1} G_{t-1}' in place from G_{t-1} in shared memory; barrier;
+//     every lane factors the whole S_t in registers with the branch-free
+//     rounded sqrt_rn and rcp_rn; lane i < B2 forms row i of G_t = L_t
+//     C_t^{-T} (an independent forward substitution) while C_t is in its
+//     registers, and writes row i of C_t (its upper part zero) and of G_t out
+//     and G_t into shared memory; barrier.  The lanes past B2 run the same
+//     code on rows of their own, and the stores and copies are predicated
+//     (store_if, cp_async4_if), so that the copies, the Cholesky, the
+//     substitution and the stores are one block without a branch, which the
+//     compiler interleaves (with a branch around each store, as it compiles
+//     a plain if, the kernel took a third longer: PERF.md).
+// Every entry keeps the one-thread kernel's order of operations (Schur and
+// substitution sums from D_t and L_t with k ascending, one reciprocal per
+// pivot times the sum, multiply-adds as nvcc contracted them, written out
+// with fma_rn/mul_rn), so chol and gain are bit for bit that kernel's.  A
 // non-positive pivot turns the whole block C_t into NaN, as a failed dense
-// Cholesky does in the reference (and so every later block of that
-// problem): statuses depend on it, no error is raised.  Bound: a chain of W
-// dependent B2 x B2 steps per thread; B=1024 problems are 32 warps, one per
-// SM.
+// Cholesky does in the reference (and so G_t and every later block of that
+// problem): statuses depend on it, no error is raised.  Bound: each
+// problem's chain of W steps, each B2 pivots (a square root and a
+// reciprocal) and the substitution behind them.
 //
 // Solve (a group of threads per problem).  One thread per problem left
 // B = 1024 at 32 single-warp blocks (100 of 132 SMs idle) and B = 1 at one
@@ -75,152 +101,193 @@ __host__ __device__ constexpr int TRI(int i, int j) {
     return i * (i + 1) / 2 + j;
 }
 
-// ---- the factor: one thread per problem.  One stage: the lower half of D_t
-// (packed) and the full block L_{t-1}.
-constexpr int O_TRI = 0;
-constexpr int O_FULL = NT;
-constexpr int STAGE = NT + NF;
+// A group of SG threads (the smallest power of two >= B2, at least 4) works
+// on one problem in both kernels.
+constexpr int SG = pow2_at_least(B2) < 4 ? 4 : pow2_at_least(B2);
+static_assert(SG <= 32, "a group is at most one warp (B2 <= 32)");
 
-// Rows of this thread's column of a shared-memory tile.
-struct Col {
-    real* p;
-    __device__ __forceinline__ real& operator[](int k) const {
-        return p[k * LANE_BLOCK];
-    }
+// ---- the factor.
+// Problems per block at most (log2), stages of the ring, Schur entries per
+// lane, and a row of a block padded to whole 16-byte loads.
+constexpr int F_QLOG_MAX = 3;
+constexpr int F_NSTAGE = 3;
+constexpr int NE = (NT + SG - 1) / SG;
+constexpr int B2P = (B2 + 3) / 4 * 4;
+// A problem's shared values, each read with 16-byte loads: in a stage of
+// the ring, the packed lower triangle of D_t, which the Schur update turns
+// into S_t in place (NE * SG values: those past NT take the last lanes'
+// spare entries), then row i of L_t for lane i at F_L + i * B2P (lane i <
+// B2 copies and reads it; the rows of the lanes past B2 are never copied);
+// G_{t-1} as [lane][B2P].  Each stride is an odd number of 16-byte pieces,
+// so that the Q problems' loads of one lane fall in distinct banks.
+__host__ __device__ constexpr int odd_quads(int n) {
+    return n % 8 == 0 ? n + 4 : n;
+}
+constexpr int F_L = NE * SG;
+constexpr int F_FR = odd_quads(F_L + SG * B2P);
+constexpr int F_GS = odd_quads(SG * B2P);
+static_assert(F_L <= 256 && NF <= 256, "entries are packed a byte each");
+
+__host__ __device__ constexpr long long factor_smem_bytes(int qlog) {
+    return ((long long)F_NSTAGE * F_FR + F_GS) * (1 << qlog) *
+           (long long)sizeof(real);
+}
+
+struct FactorPlan {
+    int qlog, Q, smem, blocks, threads;
 };
 
-// Start the copies of block t of a (.., B2, B2, B) array into one stage:
-// its lower triangle (TRI_ONLY) or all of it, and commit nothing.
-template <bool TRI_ONLY, int DST>
-__device__ __forceinline__ void stage_block(const real* a, int t, int B,
-                                            int b, real* sg) {
-    // B is made opaque so that each address is one multiply-add rather than
-    // one 64-bit induction pointer per entry kept alive across the loop.
-    int Bv = B;
-#ifndef LANE_HOST_EMULATION
-    asm volatile("" : "+r"(Bv));
-#endif
-    const real* base = a + ((size_t)t * NF) * (size_t)B + b;
-#pragma unroll
-    for (int i = 0; i < B2; ++i)
-#pragma unroll
-        for (int j = 0; j < (TRI_ONLY ? i + 1 : B2); ++j)
-            cp_async4(sg + (DST + (TRI_ONLY ? TRI(i, j) : i * B2 + j)) *
-                               LANE_BLOCK,
-                      base + (i * B2 + j) * Bv);
+// Problems per block as the chunk kernel plans them.
+static FactorPlan factor_plan_for(int B, int sms) {
+    const int qlog = group_qlog(B, sms, F_QLOG_MAX), Q = 1 << qlog;
+    return FactorPlan{qlog, Q, (int)factor_smem_bytes(qlog), (B + Q - 1) / Q,
+                      SG << qlog};
 }
 
-// Stage of step t: the triangle of block tt of `tri` and, when tf >= 0, the
-// full block tf of `full`; one commit group.
-__device__ __forceinline__ void stage_step(const real* tri, int tt,
-                                           const real* full, int tf, int B,
-                                           int b, real* sg) {
-    stage_block<true, O_TRI>(tri, tt, B, b, sg);
-    if (tf >= 0) stage_block<false, O_FULL>(full, tf, B, b, sg);
-    cp_async_commit();
-}
-
-__global__ void tridiag_factor_kernel(const real* __restrict__ diag,
-                                      const real* __restrict__ lower,
-                                      real* __restrict__ chol,
-                                      real* __restrict__ gain, int W, int B) {
+__global__ void __launch_bounds__(SG << F_QLOG_MAX, 1)
+    tridiag_factor_kernel(const real* __restrict__ diag,
+                          const real* __restrict__ lower,
+                          real* __restrict__ chol, real* __restrict__ gain,
+                          int W, int B, int qlog) {
     LANE_SMEM_DECL();
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
+    const int Q = 1 << qlog, tid = threadIdx.x;
+    const int q = tid & (Q - 1), l = tid >> qlog;
+    const int b = (blockIdx.x << qlog) + q;
+    const bool valid = b < B, row = l < B2;
     const size_t Bs = (size_t)B;
-    real* own = lane_smem + threadIdx.x;
-    const Col Cp{own};                       // C_{t-1}: NT rows
-    const Col G{own + NT * LANE_BLOCK};      // G_{t-1}: NF rows
-    real* stages = own + STAGE * LANE_BLOCK; // two stages: D_t, L_{t-1}
+    // Past the batch (the last block): read the last problem, write nothing.
+    const size_t bl = valid ? b : B - 1;
+    real* ring = lane_smem + q * F_FR;                        // [stage][q][F_FR]
+    real* gq = lane_smem + F_NSTAGE * F_FR * Q + q * F_GS;   // G_{t-1}
+    const real nan = real(NAN);
 
-    stage_step(diag, 0, lower, -1, B, b, stages);
+    // This lane's Schur entries e = l, l + SG, ... of the packed triangle,
+    // packed a byte each: the offsets of rows i and j of G, the entry's
+    // offset (i, j) in a full block, and e (the entries past NT update spare
+    // values with row B2-1's terms, so that every lane runs NE entries
+    // without a branch).
+    unsigned ent[NE];
+#pragma unroll
+    for (int m = 0; m < NE; ++m) {
+        const int e = l + m * SG;
+        int i = 0;
+        while (i + 1 < B2 && TRI(i + 1, 0) <= e) ++i;
+        const int j = e < NT ? e - TRI(i, 0) : i;
+        ent[m] = (unsigned)(i * B2P) | (unsigned)(j * B2P) << 8 |
+                 (unsigned)(i * B2 + j) << 16 | (unsigned)e << 24;
+    }
+    // Where lane l < B2 writes row l of C_t and of G_t.
+    const int lr = row ? l : 0;
+    real* co = chol + (size_t)lr * B2 * Bs + b;
+    real* go = gain + (size_t)lr * B2 * Bs + b;
+    // This lane's copies of step u into stage u % F_NSTAGE, one commit
+    // group: its entries of D_u and, lane i < B2 below the last step, row i
+    // of L_u.  Past the horizon it copies the last step's entries into a
+    // stage nobody reads, so that the copies need no branch.
+    const auto issue = [&](int u) {
+        real* sg = ring + (u % F_NSTAGE) * F_FR * Q;
+        const int uc = u < W ? u : W - 1;
+        const real* d = diag + (size_t)uc * NF * Bs + bl;
+#pragma unroll
+        for (int m = 0; m < NE; ++m)
+            cp_async4_if(sg + (ent[m] >> 24), d + (ent[m] >> 16 & 255) * Bs,
+                         l + m * SG < NT);
+        const real* lo = lower + ((size_t)uc * NF + lr * B2) * Bs + bl;
+#pragma unroll
+        for (int j = 0; j < B2; ++j)
+            cp_async4_if(sg + F_L + l * B2P + j, lo + j * Bs,
+                         row && uc < W - 1);
+        cp_async_commit();
+    };
+    for (int u = 0; u < F_NSTAGE - 1; ++u) issue(u);
+
     for (int t = 0; t < W; ++t) {
-        if (t + 1 < W) {
-            stage_step(diag, t + 1, lower, t, B, b,
-                       stages + ((t + 1) & 1) * STAGE * LANE_BLOCK);
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        real* sg = stages + (t & 1) * STAGE * LANE_BLOCK;
-        const Col D{sg + O_TRI * LANE_BLOCK}, L{sg + O_FULL * LANE_BLOCK};
-
-        real S[NT];
-#pragma unroll
-        for (int k = 0; k < NT; ++k) S[k] = D[k];
-
+        real* sg = ring + (t % F_NSTAGE) * F_FR * Q;
+        // Into the stage of step t-1, which nobody reads after the last
+        // barrier.
+        issue(t + F_NSTAGE - 1);
+        cp_async_wait<F_NSTAGE - 1>();  // this lane's copies of step t
         if (t > 0) {
-            // G_{t-1}[i][j] = (L[i][j] - sum_{k<j} G[i][k] C[j][k]) / C[j][j].
-            real inv[B2];
+            // S_t = D_t - G_{t-1} G_{t-1}', this lane's entries, k ascending.
+            real acc[NE];
 #pragma unroll
-            for (int j = 0; j < B2; ++j) inv[j] = real(1) / Cp[TRI(j, j)];
-            real* gout = gain + ((size_t)(t - 1) * NF) * Bs + b;
-#pragma unroll 1
-            for (int i = 0; i < B2; ++i) {
+            for (int m = 0; m < NE; ++m) {
+                real gi[B2P], gj[B2P];
 #pragma unroll
-                for (int j = 0; j < B2; ++j) {
-                    real s = L[i * B2 + j];
-#pragma unroll
-                    for (int k = 0; k < j; ++k)
-                        s = s - G[i * B2 + k] * Cp[TRI(j, k)];
-                    const real g = s * inv[j];
-                    G[i * B2 + j] = g;
-                    gout[(size_t)(i * B2 + j) * Bs] = g;
+                for (int k = 0; k < B2P; k += 4) {
+                    load4(gq + (ent[m] & 255) + k, gi + k);
+                    load4(gq + (ent[m] >> 8 & 255) + k, gj + k);
                 }
+                real a = sg[ent[m] >> 24];
+#pragma unroll
+                for (int k = 0; k < B2; ++k) a = fma_rn(-gi[k], gj[k], a);
+                acc[m] = a;
             }
-            // S_t = D_t - G G'.
 #pragma unroll
-            for (int i = 0; i < B2; ++i) {
-#pragma unroll
-                for (int j = 0; j <= i; ++j) {
-                    real acc = S[TRI(i, j)];
-#pragma unroll
-                    for (int k = 0; k < B2; ++k)
-                        acc = acc - G[i * B2 + k] * G[j * B2 + k];
-                    S[TRI(i, j)] = acc;
-                }
-            }
+            for (int m = 0; m < NE; ++m) sg[ent[m] >> 24] = acc[m];
         }
+        __syncthreads();  // S_t whole
 
-        // Cholesky in place, column by column, one reciprocal per pivot.
+        // Cholesky of the whole S_t in this lane's registers, column by
+        // column, one reciprocal per pivot.
+        real S[(NT + 3) / 4 * 4], rl[B2];
+#pragma unroll
+        for (int k = 0; k < NT; k += 4) load4(sg + k, S + k);
         bool bad = false;
 #pragma unroll
         for (int j = 0; j < B2; ++j) {
             real s = S[TRI(j, j)];
 #pragma unroll
-            for (int k = 0; k < j; ++k) s = s - S[TRI(j, k)] * S[TRI(j, k)];
+            for (int k = 0; k < j; ++k)
+                s = fma_rn(-S[TRI(j, k)], S[TRI(j, k)], s);
             bad = bad || !(s > real(0));
-            const real d = sqrt(s);
-            const real r = real(1) / d;
+            const real d = sqrt_rn(s);
+            rl[j] = rcp_rn(d);
             S[TRI(j, j)] = d;
 #pragma unroll
             for (int i = j + 1; i < B2; ++i) {
                 real v = S[TRI(i, j)];
 #pragma unroll
-                for (int k = 0; k < j; ++k) v = v - S[TRI(i, k)] * S[TRI(j, k)];
-                S[TRI(i, j)] = v * r;
+                for (int k = 0; k < j; ++k)
+                    v = fma_rn(-S[TRI(i, k)], S[TRI(j, k)], v);
+                S[TRI(i, j)] = mul_rn(v, rl[j]);
             }
         }
-        const real nan = real(NAN);
-        real* cout = chol + ((size_t)t * NF) * Bs + b;
+        // A non-positive pivot: every value of C_t and G_t NaN (x - poison
+        // is x, -0 included, or NaN).
+        const real poison = bad ? nan : real(0);
+        // Row l of G_t = L_t C_t^{-T}: G[l][j] = (L[l][j] - sum_{k<j}
+        // G[l][k] C[j][k]) / C[j][j]; into shared memory for the next step
+        // (the lanes past B2 into rows nobody reads) and out.
+        const bool gout = row && valid && t < W - 1;
+        real Lr[B2P], g[B2P];
 #pragma unroll
-        for (int i = 0; i < B2; ++i) {
+        for (int k = 0; k < B2P; k += 4) load4(sg + F_L + l * B2P + k, Lr + k);
 #pragma unroll
-            for (int j = 0; j < B2; ++j) {
-                real c = real(0);
-                if (j <= i) {
-                    c = bad ? nan : S[TRI(i, j)];
-                    Cp[TRI(i, j)] = c;
-                }
-                cout[(size_t)(i * B2 + j) * Bs] = c;
-            }
+        for (int j = 0; j < B2P; ++j) {
+            real s = j < B2 ? Lr[j] : real(0);
+#pragma unroll
+            for (int k = 0; k < j && j < B2; ++k)
+                s = fma_rn(-g[k], S[TRI(j, k)], s);
+            g[j] = j < B2 ? mul_rn(s, rl[j]) - poison : real(0);
+            if (j < B2) store_if(go + (size_t)t * NF * Bs + j * Bs, g[j], gout);
         }
+#pragma unroll
+        for (int k = 0; k < B2P; k += 4) store4(gq + l * B2P + k, g + k);
+        // Row l of C_t, picked out of the registers, its upper part zero.
+#pragma unroll
+        for (int j = 0; j < B2; ++j) {
+            real v = real(0);
+#pragma unroll
+            for (int i = j; i < B2; ++i) v = l == i ? S[TRI(i, j)] : v;
+            v = l >= j ? v - poison : real(0);
+            store_if(co + (size_t)t * NF * Bs + j * Bs, v, row && valid);
+        }
+        __syncthreads();  // G_t whole
     }
 }
 
 // ---- the solve: a group of SG threads per problem.
-constexpr int SG = pow2_at_least(B2) < 4 ? 4 : pow2_at_least(B2);
-static_assert(SG <= 32, "a group is at most one warp (B2 <= 32)");
 // Problems per block at most (log2), stages of the ring, producer threads,
 // and the tile's row stride (one column a problem).
 constexpr int S_QLOG_MAX = 2;
@@ -435,33 +502,37 @@ __global__ void __launch_bounds__(solve_threads(S_QLOG_MAX), 1)
                            slot, wsm, xb, W, B, c);
 }
 
-// Dynamic shared memory of the factor: C_{t-1} and G_{t-1} beside its two
-// stages.
-constexpr int FACTOR_SMEM = 3 * STAGE * LANE_BLOCK * (int)sizeof(real);
+// The factor's plan on the current device for a batch of B.
+static int factor_plan(int B, FactorPlan* p) {
+    int dev_smem = 0, sms = 0;
+    const int err = lane_device_limits(&dev_smem, &sms);
+    if (err != 0) return err;
+    *p = factor_plan_for(B, sms);
+    return p->smem > dev_smem ? -1 : 0;
+}
 
-static int allow_smem(const void* fn, int bytes) {
-#ifndef LANE_HOST_EMULATION
-    // More than the 48 KB a kernel gets without asking.
-    return (int)cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-#else
-    (void)fn;
-    (void)bytes;
-    return 0;
-#endif
+// plan[0..6] = threads per problem, problems per block Q, stages, shared
+// bytes, blocks, threads per block, bytes per staging copy: the plan
+// tridiag_factor_launch makes.
+extern "C" int tridiag_factor_plan(int B, long long* plan) {
+    FactorPlan p{};
+    const int err = factor_plan(B, &p);
+    const long long v[7] = {SG,       p.Q,       F_NSTAGE, p.smem,
+                            p.blocks, p.threads, (long long)sizeof(real)};
+    for (int k = 0; k < 7; ++k) plan[k] = v[k];
+    return err;
 }
 
 extern "C" int tridiag_factor_launch(const void* diag, const void* lower,
                                      void* chol, void* gain, int W, int B,
                                      void* stream) {
-    const int grid = (B + LANE_BLOCK - 1) / LANE_BLOCK;
-    const int attr =
-        allow_smem((const void*)tridiag_factor_kernel, FACTOR_SMEM);
-    if (attr != 0) return attr;
-    LANE_LAUNCH_SMEM(tridiag_factor_kernel, grid, LANE_BLOCK, FACTOR_SMEM,
-                     stream, (const real*)diag, (const real*)lower,
-                     (real*)chol, (real*)gain, W, B);
-    return LANE_LAST_ERROR();
+    FactorPlan p{};
+    const int err = factor_plan(B, &p);
+    if (err != 0) return err;
+    return lane_launch_coop(&tridiag_factor_kernel, p.blocks, p.threads,
+                            p.threads, p.smem, stream, (const real*)diag,
+                            (const real*)lower, (real*)chol, (real*)gain, W,
+                            B, p.qlog);
 }
 
 // The solve's plan on the current device for W steps and a batch of B;

@@ -3,8 +3,7 @@
 Counterpart of ``osqp_solver_tpu/gomp/trajectory_qp_lane.py``
 (``LaneTrajectoryQP``, ``LaneFactor``, ``from_trailing``, ``to_lane``).
 Every array keeps the batch axis LAST, ``(rows..., B)``, so that the CUDA
-kernels give one problem to one thread and a warp's 32 threads read 32
-adjacent floats.  Methods mirror the reference one for one, including the
+kernels read the values of adjacent problems from adjacent addresses.  Methods mirror the reference one for one, including the
 multiply grouping of ``scale_data`` (the equilibration kernel reproduces it
 value for value).
 """

@@ -9,12 +9,15 @@ layout and ``Settings(fused_chunk="off")``.
 Kernel note (``csrc/tridiag.cu`` replaces the Pallas bodies
 ``_factor_kernel`` and ``_solve_kernel``).  The TPU kernels spread a batch
 tile over (sublane, lane) and stream each waypoint's full blocks through
-double-buffered VMEM.  The factor here is one thread per problem walking
-the horizon: it stages the next step's blocks into shared memory with
-per-thread ``cp.async`` (two stages) while the current step computes, keeps
-``C_{t-1}`` and ``G_{t-1}`` in shared memory (one column per thread) and
-``S_t`` in registers.  The solve puts a group of 16 threads (at B2=12) on
-each problem and a few problems in a block (:func:`plan`): a producer warp
+double-buffered VMEM.  Both kernels here put a group of 16 threads (at
+B2=12) on each problem and a few adjacent problems in a block.  The factor
+(:func:`factor_plan`: up to 8 problems a block) has each lane copy the
+entries of ``D_t`` and the row of ``L_t`` it reads itself with ``cp.async``
+three steps ahead; a step is: each lane forms a few entries of the Schur
+update ``D_t - G_{t-1} G_{t-1}'`` from ``G_{t-1}`` in shared memory, every
+lane factors the whole 12x12 block in registers, and lane i forms row i of
+``G_t`` and writes rows i of ``C_t`` and ``G_t`` out; bit for bit the
+earlier one-thread kernel's.  The solve (:func:`plan`): a producer warp
 stages each step's ``C_t``, gain block and right-hand side two steps ahead
 into a three-stage ring, lane i forms row i of the step's right-hand side,
 and every lane solves the whole triangular system in registers, row by row,
@@ -63,6 +66,8 @@ def _configure(lib):
         lib.tridiag_solve_plan.argtypes = [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
         lib.tridiag_solve_plan.restype = ctypes.c_int
+        lib.tridiag_factor_plan.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.tridiag_factor_plan.restype = ctypes.c_int
     return lib
 
 
@@ -83,6 +88,21 @@ def plan(lib, W, B, budget=0):
     _build.check(lib.tridiag_solve_plan(W, B, budget, out),
                  "tridiag_solve_plan")
     return dict(zip(PLAN_KEYS, out))
+
+
+FACTOR_PLAN_KEYS = ("G", "Q", "stages", "shared_bytes", "blocks",
+                    "threads_per_block", "copy_bytes")
+
+
+def factor_plan(lib, B):
+    """The factor kernel's launch plan for a batch of ``B`` on the current
+    device, as :func:`_launch` makes it: threads per problem, problems per
+    block, ring stages, shared bytes, blocks, threads per block and the
+    bytes of a staging copy."""
+    lib = _configure(lib)
+    out = (ctypes.c_longlong * len(FACTOR_PLAN_KEYS))()
+    _build.check(lib.tridiag_factor_plan(B, out), "tridiag_factor_plan")
+    return dict(zip(FACTOR_PLAN_KEYS, out))
 
 
 def _launch(lib, name, a, b, c, d, budget=0):

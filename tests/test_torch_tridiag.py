@@ -2,8 +2,8 @@
 solve (``ops/tridiag_kernel.py``).  The plain versions are held to
 ``pallas_tridiag.factor_lane_major`` / ``solve_lane_major`` in interpret
 mode, and ``csrc/tridiag.cu`` compiled in host emulation (g++, double) to
-the plain versions, the solve at the edges of its launch plan.  f64,
-CPU."""
+the plain versions, the factor and the solve at the edges of their launch
+plans.  f64, CPU."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -110,12 +110,11 @@ def test_emulated_kernels_match_plain(W, B2, B, budget, tmp_path,
                  rtol=1e-9, atol=1e-12)
 
 
-def test_emulated_non_spd_block_gives_nan(tmp_path, monkeypatch):
-    """A block that is not positive definite turns that problem's factor
-    into NaN from that waypoint on — in the kernel and in the plain
-    version alike — and touches no other problem."""
-    monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
-    W, B2, B, bad, t_bad = 5, 12, 37, 7, 2
+def _non_spd_block_gives_nan(t_bad):
+    """A block that is not positive definite at waypoint ``t_bad`` of one
+    problem: that problem's factor is NaN from there on — in the kernel and
+    in the plain version alike — and no other problem is touched."""
+    W, B2, B, bad = 5, 12, 37, 7
     diag, lower, rhs = spd_batch(W, B2, B, seed=3)
     diag[t_bad, :, :, bad] = -np.eye(B2)
     diag, lower, rhs = t_(diag), t_(lower), t_(rhs)
@@ -128,6 +127,7 @@ def test_emulated_non_spd_block_gives_nan(tmp_path, monkeypatch):
     assert torch.isnan(low[t_bad:, :, bad]).all()
     assert torch.isfinite(low[:t_bad, :, bad]).all()
     assert torch.isnan(gain[t_bad:, ..., bad]).all()
+    assert torch.isfinite(gain[:t_bad, ..., bad]).all()
     others = torch.arange(B) != bad
     assert torch.isfinite(chol[..., others]).all()
     assert torch.isfinite(x[..., others]).all()
@@ -136,6 +136,67 @@ def test_emulated_non_spd_block_gives_nan(tmp_path, monkeypatch):
                  rtol=1e-9, atol=1e-12)
     assert_close(torch.nan_to_num(gain), torch.nan_to_num(pgain),
                  rtol=1e-9, atol=1e-12)
+
+
+def test_emulated_non_spd_block_gives_nan(tmp_path, monkeypatch):
+    """A block that is not positive definite turns that problem's factor
+    into NaN from that waypoint on — in the kernel and in the plain
+    version alike — and touches no other problem."""
+    monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
+    _non_spd_block_gives_nan(2)
+
+
+@pytest.mark.parametrize("t_bad", [0, 4], ids=["first", "last"])
+def test_emulated_non_spd_block_at_the_ends_gives_nan(t_bad, tmp_path,
+                                                      monkeypatch):
+    """The same at the first waypoint (every block of the problem NaN) and
+    at the last (no gain block after it)."""
+    monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
+    _non_spd_block_gives_nan(t_bad)
+
+
+# The emulated factor at the edges of its plan: a last block part empty
+# (B = 37: five blocks of 8 problems, the last with 5), one problem (a block
+# with seven empty columns), one waypoint (no gain), two, and B2 = 14 (a
+# group of 16 threads with 14 rows).
+FACTOR_PARAMS = [
+    pytest.param(5, 12, 37, id="B37"),
+    pytest.param(5, 12, 1, id="B1"),
+    pytest.param(1, 12, 37, id="W1"),
+    pytest.param(2, 12, 37, id="W2"),
+    pytest.param(5, 14, 37, id="B2_14"),
+    pytest.param(2, 14, 1, id="B2_14-W2-B1"),
+]
+
+
+@pytest.mark.parametrize("W,B2,B", FACTOR_PARAMS)
+def test_emulated_factor_matches_plain(W, B2, B, tmp_path, monkeypatch):
+    monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
+    diag, lower, _ = (t_(a) for a in spd_batch(W, B2, B, seed=10 * W + B2))
+    lib = host_lib_signature("tridiag", {"B2": B2})
+    chol = torch.full_like(diag, float("nan"))
+    gain = torch.full_like(lower, float("nan"))
+    ttri._launch(lib, "factor", diag, lower, chol, gain)
+    pchol, pgain = ttri.factor_lane_major_plain(diag, lower)
+    assert_close(chol, pchol, rtol=1e-9, atol=1e-12)
+    assert_close(gain, pgain, rtol=1e-9, atol=1e-12)
+    iu = torch.triu_indices(B2, B2, offset=1)
+    assert (chol[:, iu[0], iu[1]] == 0).all()  # upper triangle written zero
+
+
+@pytest.mark.parametrize("B2,B", [(12, 37), (12, 1), (14, 1024)])
+def test_emulated_factor_plan(B2, B, tmp_path, monkeypatch):
+    """The factor's plan: a group of 16 threads per problem, up to 8
+    problems a block (the emulated device has one SM, so always 8 there),
+    one block per 8 problems, and shared memory that a block of float32
+    values gets on the card without opting in (48 KB)."""
+    monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
+    p = ttri.factor_plan(host_lib_signature("tridiag", {"B2": B2}), B)
+    assert (p["G"], p["Q"], p["stages"]) == (16, 8, 3)
+    assert p["blocks"] == -(-B // p["Q"])
+    assert p["threads_per_block"] == p["G"] * p["Q"]
+    assert p["copy_bytes"] == 8  # double in host emulation, 4 on the card
+    assert 0 < p["shared_bytes"] // 2 <= 48 * 1024
 
 
 def test_wrappers_refuse_bad_arguments():
