@@ -13,12 +13,9 @@
 // B), rhs/x (W, B2, B); element [t, i, j, b] sits at ((t*B2 + i)*B2 + j)*B + b,
 // so adjacent problems read adjacent values of one entry.
 //
-// Factor (a group of threads per problem).  One thread per problem did a
-// step as a chain of ~2,000 operations: the 12 gain rows one after the
-// other, the 78 Schur entries, the Cholesky with IEEE square roots and
-// divisions (whose slow-path branch is a scheduling barrier), and 288
-// scattered stores; B = 1024 problems were 32 single-warp blocks (100 of 132
-// SMs idle), B = 1 one thread.  Here (kkt_factor.cu's step, fed as below):
+// Factor (a group of threads per problem: kkt_factor.cu's step, fed as
+// below), so that a problem's chain is ~B2 pivots and one substitution a
+// step, not the ~2,000 dependent operations of a step on one thread:
 //   - a group of SG threads (16 at B2 = 12) works on one problem; a block
 //     holds Q adjacent problems, the problem index fastest among a warp's
 //     lanes (lane l of problem q is thread l*Q + q), so that the Q problems'
@@ -28,7 +25,8 @@
 //   - D_t and L_t do not depend on the chain: each lane copies what it will
 //     read itself (its Schur entries of D_t, lane i < B2 row i of L_t) with
 //     4-byte cp.async two steps ahead into a ring of three stages, and waits
-//     for its own copies only (no producer warp, no barrier for them).  A
+//     for its own copies only (no barrier for them; a producer warp, the
+//     solve's form, must copy 4 bytes at a time here and was 2.5x slower).  A
 //     problem's values in shared memory are contiguous and read with 16-byte
 //     loads (4x fewer shared-memory instructions than one value a load);
 //   - a step: each lane forms NE (5) of the entries of S_t = D_t -
