@@ -7,8 +7,8 @@ Run it from the repository root on a machine with one NVIDIA Hopper GPU:
 
 It builds the hand-written kernels from ``osqp_solver_tpu_torch/csrc`` (six
 sources and the fast-math check; three layout signatures of the lane kernels, the Ruiz and residual
-kernels also in their block-P form, the block size of the tridiagonal one,
-and the dense one; all compilers started together), holds each kernel — the
+kernels also in their block-P form, the tridiagonal one at B2=12, 18 and
+20, and the dense one; all compilers started together), holds each kernel — the
 chunk kernel in its accumulator, warm-up and delta-writing forms, each in
 the ``hrec`` and the ``gain`` factor form, the factor kernel with and
 without its gain write, the block-tridiagonal factor and solve, the dense
@@ -22,7 +22,8 @@ times both (the Ruiz and factor kernels also alone, on packs built
 beforehand, at B=8, and at the edges of their launch plans: B=1022, W=4,
 W=50, and Ruiz with its rows in device memory; the tridiagonal factor and
 solve alone at B=1024, 1022, 8 and 1 and at W=10 (the factor also at W=50),
-and the solve with w_t in device memory; the
+and the solve with w_t in device memory, and both at B2=18 and 20 (N=9 and
+10; W=100, B=1024) and at B=1, W=802 (each launch repeated: equal bits); the
 residual kernel alone at B=1024, 1022 and 8; and the rounded square root,
 reciprocal and division they share, bit for bit against ``sqrtf`` and the
 division on every float from 2^-100 to 2^100 and many quotients), then
@@ -63,7 +64,14 @@ drives the port's entry points:
   counts), on the unchanged honest batch declared ``p_structure="block"``
   (``solve_block_p_declared``), and ``setup_lane`` → ``mpc_scan_lane`` on
   the block-P batch with a moving goal (``mpc_fleet_block_p``); no plain
-  version may run on the card there.
+  version may run on the card there;
+* the single-query planner on sessions over the trajectory container: the
+  reference example (``solver-example.cpp``: UR5e, W_max=802, 10 segments,
+  stock settings) through ``GOMPSolver.run`` and ``run_padded``
+  (``planner_run``: kOptimal, exact-FK audit, start and goal FK, the two
+  ``.data`` files; the tridiagonal kernels' launch counts in the kernel
+  table are this phase's), and ``run_batch`` against ``run_batch_lane`` on
+  256 fleet queries at W=50 (``planner_batch``).
 
 It checks statuses, ADMM iteration counts, OSQP's residual criterion
 recomputed in float64 on the host, and that every kernel was really launched
@@ -157,7 +165,8 @@ FLEET_TICKS = 50
 PHASES = ("build,kernels,solve,solve_unfused_term,solve_stock,box,solve_w3,"
           "planner_full,planner_obstacles,mpc_fleet,mpc_fleet_gain,"
           "mpc_fleet_unfused,dense,dense_session,trajectory_generic,"
-          "solve_block_p,solve_block_p_declared,mpc_fleet_block_p")
+          "solve_block_p,solve_block_p_declared,mpc_fleet_block_p,"
+          "planner_run,planner_batch")
 # The block-P fleet: fewer ticks than the vel-diag fleets, for time, at the
 # settings the block-P batch is solved at (BENCH) without the warm-up chunk:
 # at the fleet benchmark's stock ones (scaling 10, rho 0.05) its cold ticks
@@ -1747,6 +1756,17 @@ def check_tridiag(scaled, rho_vec, settings):
     sb_ms, sb_by = bound(tril_bytes(ck) + nbytes(gk, rhs, xk),
                          ops_tridiag_solve(Wd, B2, B))
     f_worst = max(e[1] for e in f_errs.values())
+    sizes = tridiag_sizes()
+    main = dict(B2=B2, W=Wd, batch=B)
+    f_sizes = {"B2_12": dict(main, max_abs_err=max(e[0] for e in f_errs.values()),
+                             rel_err=f_worst, ms=f_ms, plain_ms=fp_ms,
+                             bound_ms=fb_ms, bound_by=fb_by,
+                             library_ms=lib_f_ms),
+               **{k: v["factor"] for k, v in sizes.items()}}
+    s_sizes = {"B2_12": dict(main, max_abs_err=s_err[0], rel_err=s_err[1],
+                             ms=s_ms, plain_ms=sp_ms, bound_ms=sb_ms,
+                             bound_by=sb_by, library_ms=lib_s_ms),
+               **{k: v["solve"] for k, v in sizes.items()}}
     note = ("max abs error over max |f64| against the plain version run in "
             "f64 on the same f32 inputs (f32 reassociation along a 100-step "
             "recurrence of 12x12 steps); the plain f32 version's own "
@@ -1758,9 +1778,11 @@ def check_tridiag(scaled, rho_vec, settings):
              plain_f32_vs_f64=plain_vs_f64, odd_batch_rel_err=odd_err,
              upper_triangle_zero=upper_zero, non_spd_gives_nan_there=nan_only_there,
              tol=TOL_TRIDIAG, tol_note=note, cases=f_cases,
+             sizes=f_sizes,
              ok=bool(f_worst <= TOL_TRIDIAG and odd_err <= TOL_TRIDIAG
                      and upper_zero and nan_only_there
-                     and all(c["ok"] for c in f_cases.values())),
+                     and all(c["ok"] for c in f_cases.values())
+                     and all(c["ok"] for c in sizes.values())),
              ms=f_ms, single_launch_ms=f1_ms, wrapper_ms=fw_ms,
              B8_ms=f_cases["B8"]["ms"], plain_ms=fp_ms, bound_ms=fb_ms,
              bound_by=fb_by, library_ms=lib_f_ms,
@@ -1772,8 +1794,10 @@ def check_tridiag(scaled, rho_vec, settings):
         dict(name="tridiag_solve", max_abs_err=s_err[0], max_rel_err=s_err[1],
              library_vs_f64=lib_vs_f64, tol=TOL_TRIDIAG, tol_note=note,
              cases=cases, w_in_x=off, div_rn_mismatches=div_bad,
+             sizes=s_sizes,
              ok=bool(s_err[1] <= TOL_TRIDIAG and div_bad == 0
-                     and all(c["ok"] for c in cases.values()) and off["ok"]),
+                     and all(c["ok"] for c in cases.values()) and off["ok"]
+                     and all(c["ok"] for c in sizes.values())),
              ms=s_ms, single_launch_ms=s1_ms, wrapper_ms=sw_ms, plain_ms=sp_ms,
              bound_ms=sb_ms, bound_by=sb_by, library_ms=lib_s_ms,
              library_note="torch.cholesky_solve on the dense factor",
@@ -1781,6 +1805,94 @@ def check_tridiag(scaled, rho_vec, settings):
              shape=shape + "; ms: the launch alone on inputs and output "
                            "built beforehand, wrapper_ms: the wrapper"),
     ]
+
+
+# The tridiagonal kernels at other sizes than the main path's: B2=18 and 20
+# (N=9 and 10: entry tables of 16 bits, a warp per problem, the solve's
+# triangle read from the stage) at the main shape, and one problem at the
+# reference example's W_max=802 (the planner_run phase's largest segment).
+TRIDIAG_SIZES = {"B2_18": (18, W, BATCH), "B2_20": (20, W, BATCH),
+                 "W802_B1": (12, 802, 1), "B2_18_W802_B1": (18, 802, 1)}
+
+
+def spd_blocks(B2, Wd, B, seed=0):
+    """A batch of block-tridiagonal symmetric positive definite f32
+    matrices (diagonally dominant blocks) and a right-hand side, on the
+    card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn((Wd, B2, B2, B), generator=gen, device="cuda")
+    eye = torch.eye(B2, device="cuda")[None, :, :, None]
+    diag = (torch.einsum("wikb,wjkb->wijb", a, a) + 2.0 * B2 * eye)
+    lower = 0.5 * torch.randn((Wd - 1, B2, B2, B), generator=gen,
+                              device="cuda")
+    rhs = torch.randn((Wd, B2, B), generator=gen, device="cuda")
+    return diag.contiguous(), lower, rhs
+
+
+def tridiag_sizes():
+    """The factor and the solve at each of TRIDIAG_SIZES, on a seeded SPD
+    batch: against the plain version run in f64 on the same f32 inputs (at
+    the main shape's tolerance), the launch plans, the time alone, the
+    plain version's time and the bound; with the ptxas report of the
+    build.  ``{size: {"factor": {...}, "solve": {...}, "ok": bool}}``."""
+    out = {}
+    for name, (B2, Wd, B) in TRIDIAG_SIZES.items():
+        diag, lower, rhs = spd_blocks(B2, Wd, B)
+        lib = _build.library("tridiag", {"B2": B2})
+        ck, gk = tridiag_kernel.factor_lane_major(diag, lower)
+        xk = tridiag_kernel.solve_lane_major(ck, gk, rhs)
+        c64, g64 = tridiag_kernel.factor_lane_major_plain(diag.double(),
+                                                          lower.double())
+        x64 = tridiag_kernel.solve_lane_major_plain(ck.double(), gk.double(),
+                                                    rhs.double())
+        # The same launches again: the results must not change by a bit.
+        ck2, gk2 = tridiag_kernel.factor_lane_major(diag, lower)
+        xk2 = tridiag_kernel.solve_lane_major(ck, gk, rhs)
+        torch.cuda.synchronize()
+        f_again = bits_differing(ck, ck2)[0] + bits_differing(gk, gk2)[0]
+        s_again = bits_differing(xk, xk2)[0]
+        ce, ge = rel_err(ck.double(), c64), rel_err(gk.double(), g64)
+        se = rel_err(xk.double(), x64)
+        iu = torch.triu_indices(B2, B2, offset=1, device="cuda")
+        upper_zero = bool((ck[:, iu[0], iu[1]] == 0).all())
+        fb = bound(tril_bytes(diag) + nbytes(lower, ck, gk),
+                   ops_tridiag_factor(Wd, B2, B))
+        sb = bound(tril_bytes(ck) + nbytes(gk, rhs, xk),
+                   ops_tridiag_solve(Wd, B2, B))
+        reps = dict(reps=3, warm=1)
+        shape = dict(B2=B2, W=Wd, batch=B)
+        _, path = _build._target("tridiag", {"B2": B2}, False)
+        ptx = _build.ptxas_report(path)
+        f_ok = max(ce[1], ge[1]) <= TOL_TRIDIAG and upper_zero and not f_again
+        s_ok = se[1] <= TOL_TRIDIAG and not s_again
+        out[name] = dict(
+            factor=dict(
+                shape, max_abs_err=max(ce[0], ge[0]),
+                rel_err=max(ce[1], ge[1]), upper_triangle_zero=upper_zero,
+                bits_differing_run_to_run=f_again,
+                ms=alone_ms(factor_alone_tridiag, diag, lower)[0],
+                plain_ms=time_ms(lambda: tridiag_kernel.factor_lane_major_plain(
+                    diag, lower), **reps),
+                bound_ms=fb[0], bound_by=fb[1], library_ms=None,
+                plan=tridiag_kernel.factor_plan(lib, B),
+                ptxas={k[:40]: v for k, v in ptx.items()
+                       if k.startswith("tridiag_factor_kernel")},
+                ok=bool(f_ok)),
+            solve=dict(
+                shape, max_abs_err=se[0], rel_err=se[1],
+                bits_differing_run_to_run=s_again,
+                ms=alone_ms(solve_alone, ck, gk, rhs)[0],
+                plain_ms=time_ms(lambda: tridiag_kernel.solve_lane_major_plain(
+                    ck, gk, rhs), **reps),
+                bound_ms=sb[0], bound_by=sb[1], library_ms=None,
+                plan=tridiag_kernel.plan(lib, Wd, B),
+                ptxas={k[:40]: v for k, v in ptx.items()
+                       if k.startswith("tridiag_solve_kernel")},
+                ok=bool(s_ok)),
+            ok=bool(f_ok and s_ok))
+        del diag, lower, rhs, ck, gk, xk, ck2, gk2, xk2, c64, g64, x64
+        torch.cuda.empty_cache()
+    return out
 
 
 # The solve's batches and horizons: the main shape, a last block part
@@ -2732,6 +2844,240 @@ def phase_planner_full():
     return counts
 
 
+# The reference example (solver-example.cpp, as examples/solver_example.py
+# builds it): start 0, end (π, 0, 0, 0, 0, 0), W_max=802, dt=0.1, 10
+# segments, no obstacles, stock Settings(), float32.
+EXAMPLE = dict(max_waypoints=802, time_step=0.1, segments=10)
+EXAMPLE_START = np.zeros(N)
+EXAMPLE_END = np.array([math.pi, 0.0, 0.0, 0.0, 0.0, 0.0])
+# The JAX package on the same problem in float32 on the CPU
+# (tools/jax_reference_counts.py planner_run): per call the status, the
+# winning horizon and every segment's (waypoints, scp_iterations,
+# admm_iterations, status).  Recorded beside the port's, not held: in f32
+# the counts of the segments without a plan follow rounding.
+_JAX_FEASIBLE = [[w, 1, 25, 0] for w in (802, 721, 641, 561, 481, 401, 320)]
+JAX_PLANNER_RUN = {
+    "run_padded": dict(status="kOptimal", winning_waypoints=320,
+                       stats=_JAX_FEASIBLE + [[240, 1, 100, 1], [160, 1, 75, 1],
+                                              [80, 1, 100, 1]]),
+    "run": dict(status="kOptimal", winning_waypoints=320,
+                stats=_JAX_FEASIBLE + [[240, 1, 100, 1], [160, 1, 75, 1],
+                                       [80, 1, 125, 1]]),
+}
+
+
+def example_solver(device="cuda"):
+    """The reference example's planner: UR5e, wrist ball r=0.15, tool ball
+    r=0.05 (the gripper), pos ±2π, vel ±π, acc ±800π/180, the workspace
+    floor y >= -0.4, the analytic IK as ``gripper_ik`` (stored, unused)."""
+    return GOMPSolver(
+        **EXAMPLE,
+        pos_con=constraints.in_range(N, -2 * math.pi, 2 * math.pi),
+        vel_con=constraints.in_range(N, -math.pi, math.pi),
+        acc_con=constraints.in_range(N, -math.pi * 800 / 180,
+                                     math.pi * 800 / 180),
+        con_3d=constraints.in_range(3, [-constraints.INF, -0.4,
+                                        -constraints.INF], None),
+        obstacles=[],
+        balls=[ur5e.make_ball("back6", 0.15),
+               ur5e.make_ball("tool", 0.05, is_gripper=True)],
+        gripper_ik=ur5e.inverse_kinematics_position,
+        dtype=torch.float32, device=device,
+    )
+
+
+def check_data_files(q, points):
+    """Write the two ``.data`` files of ``q (W, 6)`` and its FK points
+    ``(W, 3)`` to a temporary directory, as the reference example does, and
+    check their lines: six ``%g`` numbers, and ``(x, y, z)``."""
+    import re
+    import tempfile
+
+    from osqp_solver_tpu_torch.utils.trajectory_io import (
+        write_trajectory_files,
+    )
+
+    num = r"-?\d+(?:\.\d+)?(?:e[-+]\d+)?"
+    ctrl_re = re.compile(rf"^{num}( {num}){{5}}$")
+    xyz_re = re.compile(rf"^\({num}, {num}, {num}\)$")
+    with tempfile.TemporaryDirectory() as d:
+        ctrl, xyz = Path(d) / "output_trajectory_ctrl.data", Path(
+            d) / "output_trajectory_xyz.data"
+        write_trajectory_files(q, points, ctrl, xyz)
+        c_lines = ctrl.read_text().splitlines()
+        x_lines = xyz.read_text().splitlines()
+    ok = (len(c_lines) == len(q) == len(x_lines)
+          and all(ctrl_re.match(ln) for ln in c_lines)
+          and all(xyz_re.match(ln) for ln in x_lines))
+    return dict(lines=len(c_lines), first_ctrl=c_lines[0] if c_lines else "",
+                first_xyz=x_lines[0] if x_lines else "", ok=bool(ok))
+
+
+def plan_checks(solver, res):
+    """One plan of ``run``/``run_padded`` checked as the reference example
+    reads it: status, the winning horizon's shape, the exact-FK audit in
+    float64 on the host, start and goal FK against the ground truth, and
+    the ``.data`` files."""
+    traj = np.asarray(res.trajectory, dtype=np.float64)
+    won = [st.waypoints for st in res.stats if st.status == int(
+        ExitCode.kOptimal)]
+    Ww = min(won) if won else 0
+    shape_ok = bool(won) and traj.shape == (2 * Ww * N,)
+    finite = bool(np.isfinite(traj).all())
+    rec = dict(status=res.status.name, winning_waypoints=Ww,
+               stats=[list(st) for st in res.stats], finite=finite,
+               shape=list(traj.shape), shape_ok=shape_ok)
+    if not (shape_ok and finite):
+        return rec
+    t = torch.from_numpy(traj)
+    audit = audit_plans(solver, torch.tensor([int(res.status)]), t[None],
+                        torch.tensor([Ww]))
+    q = t[: Ww * N].reshape(Ww, N)
+    fk = ur5e.forward_kinematics
+    truth = fk(torch.from_numpy(np.stack([EXAMPLE_START, EXAMPLE_END])))
+    from osqp_solver_tpu_torch.gomp.trajectory import (
+        map_joint_trajectory_to_xyz,
+    )
+
+    points = map_joint_trajectory_to_xyz(t, fk, N)
+    rec.update(
+        audit=audit,
+        start_fk_err=(points[0] - truth[0]).abs().max().item(),
+        goal_fk_err=(points[Ww - 3] - truth[1]).abs().max().item(),
+        fk_summary=dict(start=points[0].tolist(), middle=points[
+            min(10, Ww - 1)].tolist(), goal=points[Ww - 3].tolist()),
+        data_files=check_data_files(q.numpy(), points.numpy()))
+    return rec
+
+
+def phase_planner_run():
+    """The reference example on the card: ``run`` (one session per
+    horizon) and ``run_padded`` (one W_max-shaped session layout), each
+    once as the path with the launch counters from 0, then timed; where
+    the time goes (device time inside the tridiagonal kernels, host
+    reads)."""
+    solver = example_solver()
+    lib = _build.library("tridiag", {"B2": 2 * N})
+    rec = dict(jax_f32_cpu=JAX_PLANNER_RUN,
+               solve_plan_W802_B1=tridiag_kernel.plan(lib, 802, 1),
+               factor_plan_B1=tridiag_kernel.factor_plan(lib, 1))
+    for name in ("run", "run_padded"):
+        call = getattr(solver, name)
+        reset_counts()
+        p0, h0 = planner.PLANNER_SYNCS, gadmm.HOST_SYNCS
+        with PlainCalls() as plain:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = call(EXAMPLE_START, EXAMPLE_END)  # the path, once
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        r = plan_checks(solver, res)
+        r.update(wall_ms=wall, launches={k: counts[k] for k in
+                                         TRIDIAG_KERNELS},
+                 all_launches=counts, plain_calls=dict(plain.calls),
+                 planner_host_syncs=planner.PLANNER_SYNCS - p0,
+                 solver_host_syncs=gadmm.HOST_SYNCS - h0,
+                 scp_rounds=sum(st.scp_iterations for st in res.stats),
+                 admm_iterations=sum(st.admm_iterations for st in res.stats))
+        # Timed again, and once with CUDA events around the two kernels'
+        # wrappers (their device time) inside the host-clock wall.
+        r["wall_ms_again"] = host_ms(lambda: call(EXAMPLE_START, EXAMPLE_END))
+        timer = CallTimer()
+        timer.patch(tridiag_kernel, "factor_lane_major", "tridiag_factor")
+        timer.patch(tridiag_kernel, "solve_lane_major", "tridiag_solve")
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(EXAMPLE_START, EXAMPLE_END)
+            totals = timer.totals()
+            whole = (time.perf_counter() - t0) * 1e3
+        finally:
+            timer.restore()
+        kern = sum(v["ms"] for v in totals.values())
+        r["where_ms"] = dict(totals, whole_ms=whole, kernels_ms=kern,
+                             outside_kernels_ms=whole - kern)
+        rec[name] = r
+    emit("planner_run", **rec)
+    for name in ("run", "run_padded"):
+        r = rec[name]
+        if r["status"] != "kOptimal":
+            fail(f"planner_run: {name} ended {r['status']}")
+        if not (r["finite"] and r["shape_ok"]):
+            fail(f"planner_run: {name}: trajectory not finite or of the "
+                 f"wrong shape {r['shape']}")
+        if r["audit"]["workspace_margin"] < -(ERROR + 1e-5):
+            fail(f"planner_run: {name}: exact-FK audit: the gripper ball "
+                 f"leaves the workspace by {-r['audit']['workspace_margin']}")
+        if r["audit"]["velocity_mismatch"] > 0.2:
+            fail(f"planner_run: {name}: velocities are not position "
+                 "differences over dt")
+        if max(r["start_fk_err"], r["goal_fk_err"]) > 1e-3:
+            fail(f"planner_run: {name}: start/goal FK off the ground truth "
+                 f"({r['start_fk_err']:.2e}, {r['goal_fk_err']:.2e})")
+        if not r["data_files"]["ok"]:
+            fail(f"planner_run: {name}: .data files: {r['data_files']}")
+        if min(r["launches"].values()) < 1 or r["plain_calls"]:
+            fail(f"planner_run: {name}: launches {r['launches']}, plain "
+                 f"versions {r['plain_calls']}")
+        if r["planner_host_syncs"] != r["scp_rounds"]:
+            fail(f"planner_run: {name}: {r['planner_host_syncs']} planner "
+                 f"reads for {r['scp_rounds']} SCP rounds")
+    return {k: rec["run"]["launches"][k] + rec["run_padded"]["launches"][k]
+            for k in TRIDIAG_KERNELS}
+
+
+def phase_planner_batch():
+    """``run_batch`` (one session with a trailing batch dim) against
+    ``run_batch_lane`` on 256 UR5e fleet queries at W=50, as the JAX
+    package's tests/test_planner.py::test_run_batch_lane_matches_run_batch
+    holds them: equal statuses, every query optimal, SCP rounds within 2,
+    every plan through the exact-FK audit."""
+    B, Wb = 256, 50
+    solver = ur5e_solver(Wb, [])
+    starts, ends = fleet_queries(B, np.random.default_rng(1))
+    reset_counts()
+    p0 = planner.PLANNER_SYNCS
+    with PlainCalls() as plain:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st_v, tr_v, it_v = solver.run_batch(starts, ends, Wb)  # the path
+        torch.cuda.synchronize()
+        ms_v = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    syncs = planner.PLANNER_SYNCS - p0
+    t0 = time.perf_counter()
+    st_l, tr_l, it_l = solver.run_batch_lane(starts, ends, Wb)
+    torch.cuda.synchronize()
+    ms_l = (time.perf_counter() - t0) * 1e3
+    hz = torch.full((B,), Wb)
+    audit_v = audit_plans(solver, st_v, tr_v, hz)
+    audit_l = audit_plans(solver, st_l, tr_l, hz)
+    rounds_diff = int((it_v - it_l).abs().max())
+    same = bool(torch.equal(st_v, st_l))
+    n_opt = int((st_v == int(ExitCode.kOptimal)).sum())
+    emit("planner_batch", batch=B, waypoints=Wb, run_batch_ms=ms_v,
+         run_batch_lane_ms=ms_l, optimal=n_opt, statuses_equal=same,
+         scp_rounds_max_diff=rounds_diff,
+         scp_rounds_p50=pct(it_v.float(), 50), scp_rounds_max=int(it_v.max()),
+         max_traj_diff=(tr_v - tr_l).abs().max().item(),
+         planner_host_syncs=syncs, launches=counts,
+         plain_calls=dict(plain.calls), audit_run_batch=audit_v,
+         audit_run_batch_lane=audit_l,
+         finite=bool(torch.isfinite(tr_v).all()))
+    if not same or n_opt != B:
+        fail(f"planner_batch: statuses equal {same}, {n_opt}/{B} optimal")
+    if rounds_diff > 2:
+        fail(f"planner_batch: SCP rounds differ by {rounds_diff} > 2")
+    for a in (audit_v, audit_l):
+        if a["n_audited"] != B or a["workspace_margin"] < -(ERROR + 1e-5) \
+                or a["velocity_mismatch"] > 0.2:
+            fail(f"planner_batch: exact-FK audit failed: {a}")
+    if min(counts[k] for k in TRIDIAG_KERNELS) < 1 or plain.calls:
+        fail(f"planner_batch: launches {counts}, plain versions "
+             f"{dict(plain.calls)}")
+
+
 def obstacle_fleet(B):
     """Queries and per-query sphere centres of the reference's fleet example
     (same generator, same order of draws)."""
@@ -3440,10 +3786,10 @@ def main():
     # The kernels that read P (Ruiz, residuals) add the P form, BLOCK_P.
     honest_sig = {"NDIM": N, "NX": 5}
     if "build" in want:
-        sigs = [{"B2": 2 * N}, {}]
+        sigs = [{"B2": 2 * N}, {"B2": 18}, {"B2": 20}, {}]
         for nx in (5, 0, 3):  # honest; box; planner_full
             if nx == 5 or (nx == 0 and "box" in want) or (
-                    nx == 3 and "planner_full" in want):
+                    nx == 3 and want & {"planner_full", "planner_batch"}):
                 sigs += [{"NDIM": N, "NX": nx},
                          {"NDIM": N, "NX": nx, "BLOCK_P": 0}]
         sigs.append(dict(honest_sig, BLOCK_P=1))
@@ -3496,6 +3842,11 @@ def main():
         phase_solve_block_p_declared(honest, bench, fused_rec)
     if "mpc_fleet_block_p" in want:
         phase_fleet_block_p(bp)
+    if "planner_run" in want:
+        # This slice's main path: the tridiagonal rows' launches are its.
+        launches.update(phase_planner_run())
+    if "planner_batch" in want:
+        phase_planner_batch()
 
     csrc = "osqp_solver_tpu_torch/csrc/"
     ops = "osqp_solver_tpu/ops/"
@@ -3527,6 +3878,7 @@ def main():
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+            **({"sizes": k["sizes"]} if "sizes" in k else {}),
         })
     RECORDS["seconds_total"] = round(time.time() - t_start, 1)
     if opts.out:

@@ -46,6 +46,36 @@ KERNELS = {
     "fast_math_check": (),
 }
 
+# The largest sizes each source is built for: (signature key, its largest
+# value, the limit as the source states it).  A signature above them is
+# refused before a compiler starts (start_build, so every kernel wrapper).
+LIMITS = {
+    "tridiag": ("B2", 20, "csrc/tridiag.cu: its solve is held against its "
+                "plain version on the card up to B2 <= 20 (N <= 10); at "
+                "B2=24 it spills and gives wrong results"),
+    "kkt_factor": ("NDIM", 10, "csrc/kkt_factor.cu:59: Schur entries are "
+                   "packed a byte each (SLOT <= 256: N <= 10)"),
+    "admm_chunk": ("NDIM", 16, "csrc/admm_chunk.cu:74: a group of threads "
+                   "per problem is at most one warp (2N <= 32)"),
+    "residuals": ("NDIM", 16, "csrc/residuals.cu:65: a group of threads per "
+                  "problem is at most one warp (2N <= 32)"),
+}
+
+
+def check_limits(name: str, signature: dict) -> None:
+    """Raise ``NotImplementedError`` naming the limit when ``csrc/<name>.cu``
+    cannot be built for ``signature``."""
+    limit = LIMITS.get(name)
+    if limit is None:
+        return
+    key, most, what = limit
+    value = signature.get(key)
+    if value is not None and int(value) > most:
+        raise NotImplementedError(
+            f"the CUDA kernel {name} is not built for {key}={value}: {what}"
+        )
+
+
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -100,6 +130,7 @@ def start_build(name: str, signature: dict, host: bool = False,
     """Start one compiler process (or none if the library exists) on
     ``csrc/<name>.cu`` (by default this package's sources).  Returns a
     handle for :func:`finish_build`."""
+    check_limits(name, signature)
     src, out = _target(name, signature, host, Path(csrc))
     if out.exists():
         return (name, out, None, 0.0)

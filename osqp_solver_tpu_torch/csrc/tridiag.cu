@@ -71,8 +71,9 @@
 //     vector, which every lane holds in registers, and leaves it in the
 //     group's slot (one __syncwarp); the gain block is staged so that lane
 //     i's row is a column of the tile (2-way bank conflicts at most);
-//   - every lane then solves the whole triangular system in registers, row
-//     by row with j ascending, as the one-thread kernel did, each division
+//   - every lane then solves the whole triangular system in registers
+//     (above B2 = 16 reading C_t from the stage: L_IN_STAGE), row by row
+//     with j ascending, as the one-thread kernel did, each division
 //     rounded as the division rounds it but without its branch to a slow
 //     path (div_rn: the pivots' reciprocals are taken off the chain), so
 //     the rows' multiply-adds interleave: x is bit for bit that kernel's;
@@ -85,6 +86,7 @@
 // between them.
 #include <cstdint>
 #include <initializer_list>
+#include <type_traits>
 
 #include "lane_platform.cuh"
 
@@ -124,7 +126,18 @@ __host__ __device__ constexpr int odd_quads(int n) {
 constexpr int F_L = NE * SG;
 constexpr int F_FR = odd_quads(F_L + SG * B2P);
 constexpr int F_GS = odd_quads(SG * B2P);
-static_assert(F_L <= 256 && NF <= 256, "entries are packed a byte each");
+// A lane's table of Schur entries packs four offsets into one word: a byte
+// each while every offset is below 256 (B2 <= 16), else 16 bits each.
+constexpr bool ENT_WIDE = !(F_L <= 256 && NF <= 256 && (B2 - 1) * B2P < 256);
+using ent_t = std::conditional_t<ENT_WIDE, unsigned long long, unsigned>;
+constexpr int ENT_BITS = ENT_WIDE ? 16 : 8;
+constexpr ent_t ENT_MASK = (ent_t(1) << ENT_BITS) - 1;
+static_assert(F_L <= 65536 && NF <= 65536, "entries fit 16 bits each");
+// Field k of an entry: 0 and 1 the offsets of rows i and j of G, 2 the
+// entry's offset (i, j) in a full block, 3 its place e in the triangle.
+__host__ __device__ constexpr int ent_field(ent_t e, int k) {
+    return (int)(e >> (k * ENT_BITS) & ENT_MASK);
+}
 
 __host__ __device__ constexpr long long factor_smem_bytes(int qlog) {
     return ((long long)F_NSTAGE * F_FR + F_GS) * (1 << qlog) *
@@ -160,19 +173,19 @@ __global__ void __launch_bounds__(SG << F_QLOG_MAX, 1)
     const real nan = real(NAN);
 
     // This lane's Schur entries e = l, l + SG, ... of the packed triangle,
-    // packed a byte each: the offsets of rows i and j of G, the entry's
-    // offset (i, j) in a full block, and e (the entries past NT update spare
+    // each its four fields of ent_field (the entries past NT update spare
     // values with row B2-1's terms, so that every lane runs NE entries
     // without a branch).
-    unsigned ent[NE];
+    ent_t ent[NE];
 #pragma unroll
     for (int m = 0; m < NE; ++m) {
         const int e = l + m * SG;
         int i = 0;
         while (i + 1 < B2 && TRI(i + 1, 0) <= e) ++i;
         const int j = e < NT ? e - TRI(i, 0) : i;
-        ent[m] = (unsigned)(i * B2P) | (unsigned)(j * B2P) << 8 |
-                 (unsigned)(i * B2 + j) << 16 | (unsigned)e << 24;
+        ent[m] = (ent_t)(i * B2P) | (ent_t)(j * B2P) << ENT_BITS |
+                 (ent_t)(i * B2 + j) << 2 * ENT_BITS |
+                 (ent_t)e << 3 * ENT_BITS;
     }
     // Where lane l < B2 writes row l of C_t and of G_t.
     const int lr = row ? l : 0;
@@ -188,8 +201,8 @@ __global__ void __launch_bounds__(SG << F_QLOG_MAX, 1)
         const real* d = diag + (size_t)uc * NF * Bs + bl;
 #pragma unroll
         for (int m = 0; m < NE; ++m)
-            cp_async4_if(sg + (ent[m] >> 24), d + (ent[m] >> 16 & 255) * Bs,
-                         l + m * SG < NT);
+            cp_async4_if(sg + ent_field(ent[m], 3),
+                         d + ent_field(ent[m], 2) * Bs, l + m * SG < NT);
         const real* lo = lower + ((size_t)uc * NF + lr * B2) * Bs + bl;
 #pragma unroll
         for (int j = 0; j < B2; ++j)
@@ -213,16 +226,16 @@ __global__ void __launch_bounds__(SG << F_QLOG_MAX, 1)
                 real gi[B2P], gj[B2P];
 #pragma unroll
                 for (int k = 0; k < B2P; k += 4) {
-                    load4(gq + (ent[m] & 255) + k, gi + k);
-                    load4(gq + (ent[m] >> 8 & 255) + k, gj + k);
+                    load4(gq + ent_field(ent[m], 0) + k, gi + k);
+                    load4(gq + ent_field(ent[m], 1) + k, gj + k);
                 }
-                real a = sg[ent[m] >> 24];
+                real a = sg[ent_field(ent[m], 3)];
 #pragma unroll
                 for (int k = 0; k < B2; ++k) a = fma_rn(-gi[k], gj[k], a);
                 acc[m] = a;
             }
 #pragma unroll
-            for (int m = 0; m < NE; ++m) sg[ent[m] >> 24] = acc[m];
+            for (int m = 0; m < NE; ++m) sg[ent_field(ent[m], 3)] = acc[m];
         }
         __syncthreads();  // S_t whole
 
@@ -355,14 +368,23 @@ __device__ __forceinline__ void solve_issue(const Stager& s, const real* chol,
     cp_async_commit();
 }
 
+// Above B2 = 16 a lane cannot hold the step's triangle (NT values) in
+// registers beside the rest: the solve then reads it from the stage at the
+// point of use.  Held in registers at B2 = 18 and 20, the kernel spilled
+// and its results on the card changed from run to run; read from the
+// stage it does not spill there and is right in every case checked.  At
+// B2 = 24 it spills again and fails: the wrappers refuse B2 > 20.
+constexpr bool L_IN_STAGE = B2 > 16;
+
 // The step's triangular solve in every lane: y from the group's right-hand
-// side r[] (in the slot) and the lower triangle L[] of C_t (in registers),
+// side r[] (in the slot) and the lower triangle L[] of C_t (in registers,
+// or the stage's column above B2 = 16),
 // row by row with j ascending and a division per row rounded as the
 // division rounds it (div_rn, from the pivots' reciprocals rl[] taken as
 // soon as L is loaded), as the one-thread kernel formed them: forward
 // C y = r, backward C' y = r.
-template <bool BWD>
-__device__ __forceinline__ void solve_rows(const real* L, const real* rl,
+template <bool BWD, class Tri>
+__device__ __forceinline__ void solve_rows(const Tri& L, const real* rl,
                                            const real* r, real* y) {
     real v[B2];
 #pragma unroll
@@ -393,17 +415,22 @@ __device__ __forceinline__ void solve_rows(const real* L, const real* rl,
 // block staged transposed; backward G_t[j][i]), and row i of rhs_t
 // (forward) or w_t (backward).
 struct StepOperands {
-    real L[NT], rl[B2], gr[B2], v;
+    real L[L_IN_STAGE ? 1 : NT], rl[B2], gr[B2], v;
 };
 
 template <bool BWD, bool WSM>
 __device__ __forceinline__ void load_step(const real* sg, const real* wsm_t,
                                           int i, StepOperands& o) {
     const STile C{sg + S_C * SQS}, Gt{sg + S_G * SQS}, V{sg + S_V * SQS};
+    if constexpr (L_IN_STAGE) {
 #pragma unroll
-    for (int k = 0; k < NT; ++k) o.L[k] = C[k];
+        for (int k = 0; k < B2; ++k) o.rl[k] = rcp_rn(C[TRI(k, k)]);
+    } else {
 #pragma unroll
-    for (int k = 0; k < B2; ++k) o.rl[k] = rcp_rn(o.L[TRI(k, k)]);
+        for (int k = 0; k < NT; ++k) o.L[k] = C[k];
+#pragma unroll
+        for (int k = 0; k < B2; ++k) o.rl[k] = rcp_rn(o.L[TRI(k, k)]);
+    }
     const int r = i < B2 ? i : 0;  // lanes past B2: a row of the tile, unused
 #pragma unroll
     for (int j = 0; j < B2; ++j) o.gr[j] = Gt[j * B2 + r];
@@ -442,8 +469,8 @@ __device__ __forceinline__ void solve_sweep(
                 cp_async_commit();
         }
         if (idle) continue;
-        load_step<BWD, WSM>(ring + (t % S_NSTAGE) * S_ROWS * SQS + g,
-                            wsm + t * B2 * SQS, i, o);
+        const real* sg = ring + (t % S_NSTAGE) * S_ROWS * SQS + g;
+        load_step<BWD, WSM>(sg, wsm + t * B2 * SQS, i, o);
         if (i < B2) {
             real acc = real(0);
             if (u > 0) {
@@ -453,7 +480,10 @@ __device__ __forceinline__ void solve_sweep(
             slot[i] = o.v - acc;
         }
         lane_group_sync(g, SG);
-        solve_rows<BWD>(o.L, o.rl, slot, c);
+        if constexpr (L_IN_STAGE)
+            solve_rows<BWD>(STile{sg + S_C * SQS}, o.rl, slot, c);
+        else
+            solve_rows<BWD>(o.L, o.rl, slot, c);
         if (i < B2) {
             real ci = c[0];
 #pragma unroll

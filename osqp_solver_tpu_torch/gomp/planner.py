@@ -1,30 +1,41 @@
-"""GOMP planner, batched: SCP loop + time-scaling horizon shrinking.
+"""GOMP planner: SCP loop + time-scaling horizon shrinking.
 
-Counterpart of ``osqp_solver_tpu/gomp/planner.py`` for the batched lane
-paths: ``GOMPSolver.run_batch_lane`` (fixed horizon) and
-``GOMPSolver.run_batch_padded`` (the flagship full time-scaling search, the
-reference's ``run(start, end)`` over a batch of queries), with shared or
-per-query line / sphere / capsule obstacles.  Every SCP round solves the
-whole batch together with :func:`~osqp_solver_tpu_torch.ops.admm_lane.
-solve_batched_lane`; per-query convergence and survival are masks.
+Counterpart of ``osqp_solver_tpu/gomp/planner.py``.  Two families of entry
+points:
 
-The reference's ``lax.while_loop`` / ``fori_loop`` are host loops here.  The
-horizon ``wa`` of a segment is one Python int for the whole batch, but the
-containers stay ``W_max``-shaped and masked, so all segments share one row
-layout and one build of the kernels.  The host reads the device ONCE per SCP
-round (one small tensor: "any query still iterating", "rounds so far", "any
-query still descending"), counted in :data:`PLANNER_SYNCS` — beside the
-solver's own one read per chunk (``ops.admm_lane.HOST_SYNCS``).  A segment
-in which no query runs does no solve, exactly as the reference's
-``while_loop`` runs no body.
+* the single-query and session-batched planners on the generic path
+  (:mod:`~osqp_solver_tpu_torch.ops.session` over a ``TrajectoryQP``, the
+  reference's cached-factor setup/update/solve layer): ``run(start, end)``
+  (the reference's flagship call, one horizon per segment),
+  ``run_padded`` (every segment in one ``W_max``-shaped masked session),
+  their fixed-horizon steps ``run_horizon`` / ``run_horizon_padded``, and
+  ``run_batch`` (B queries at one horizon in one session with a trailing
+  batch dim).  On the card their factor and solve are the
+  block-tridiagonal kernels (:mod:`~osqp_solver_tpu_torch.ops.
+  tridiag_kernel`);
+* the lane-batched planners on the fused lane solve
+  (:func:`~osqp_solver_tpu_torch.ops.admm_lane.solve_batched_lane`):
+  ``run_batch_lane`` (fixed horizon) and ``run_batch_padded`` (the full
+  time-scaling search over a batch of queries), with shared or per-query
+  line / sphere / capsule obstacles.
+
+The reference's jitted programs are plain host functions and its
+``lax.while_loop`` / ``fori_loop`` host loops.  The host reads the device
+ONCE per SCP round (one small tensor: the round's status, iteration count
+and exact-FK verdict for one query; "any query still iterating", "rounds
+so far", "any query still descending" for a batch), counted in
+:data:`PLANNER_SYNCS` — beside the solvers' own one read per chunk
+(``ops.admm.HOST_SYNCS``, ``ops.admm_lane.HOST_SYNCS``).  A segment in which
+no query runs does no solve, exactly as the reference's ``while_loop`` runs
+no body.  The batched paths' horizon ``wa`` is one Python int for the whole
+batch, and their containers stay ``W_max``-shaped and masked, so all
+segments share one row layout and one build of the kernels.
 
 Queries enter and results leave batch-LEADING (``starts (B, N)``,
 trajectories ``(B, 2·W·N)``) as in the reference; inside, everything is
 batch-trailing.
 
-Not ported yet: ``run``, ``run_padded``, ``run_horizon*``, ``run_batch``
-(they solve through the reference's cached-factor setup/update/solve layer,
-which the port does not have yet) and the ``_sharded`` variants.
+Not ported yet: the ``_sharded`` variants (they need ``parallel/``).
 """
 from __future__ import annotations
 
@@ -35,6 +46,7 @@ import torch
 
 from ..models.robot import RobotBall
 from ..ops import admm as admm_mod
+from ..ops import session as ops_session
 from ..ops.admm import Settings, pin_matmul_precision, resolve_device
 from ..ops.admm_lane import solve_batched_lane
 from ..ops.status import ExitCode
@@ -55,7 +67,8 @@ MAX_ITERATIONS = 100  # SCP re-linearization cap
 SEGMENTS = 10  # time-scaling steps
 
 # Device→host reads made by the planner's SCP loops since import (one per
-# SCP round; the solves inside add ``ops.admm_lane.HOST_SYNCS``).
+# SCP round; the solves inside add ``ops.admm.HOST_SYNCS`` or
+# ``ops.admm_lane.HOST_SYNCS``).
 PLANNER_SYNCS = 0
 
 _OPTIMAL = int(ExitCode.kOptimal)
@@ -226,6 +239,290 @@ class GOMPSolver:
         if per_query_obs:
             return is_ok_core
         return lambda x, wa: is_ok_core(x, wa, self.obstacles)
+
+    # ------------------------------------------------------ session path
+
+    def _build_session(self, start, end, warm, W, settings, obstacles=None):
+        """Session of one query (``start (N,)``, ``warm (2WN,)``) or of a
+        batch (``start (N, B)``, ``warm (2WN, B)``) at horizon ``W``.
+        ``obstacles``: per-query obstacles (trailing ``(B,)`` leaves);
+        ``None`` → the constructor's."""
+        if obstacles is None:
+            obstacles = self.obstacles
+        qp = empty_trajectory_qp(
+            W, self.n_dim, [b.is_gripper for b in self.balls],
+            len(self.obstacles), self.dtype, self.device,
+            batch_shape=tuple(start.shape[1:]),
+        )
+        qp = with_gomp_boxes(qp, start, end, *self._boxes())
+        qp = linearize_workspace(
+            qp, self.balls, obstacles, self._con3d(), warm,
+            movable=pinned_movable_mask(W, device=self.device),
+        )
+        warm_x = warm.T if warm.dim() > 1 else warm
+        return ops_session.setup(qp, settings, warm_x=warm_x,
+                                 device=self.device)
+
+    def _programs(self, waypoints: int):
+        """``(setup_fn, step_fn)`` of one query at this horizon length.
+
+        ``step_fn`` refactors through ``ops_session.update`` with the
+        DEFAULT ``Settings()`` (the reference's ``run_horizon`` step does,
+        unlike its padded and batched steps), mirrored."""
+        W = waypoints
+        settings = admm_mod.with_auto_refine(self.settings, W, self.dtype)
+        is_ok = self._is_solution_ok_fn(W)
+        con3d = self._con3d()
+        movable = pinned_movable_mask(W, device=self.device)
+
+        def setup_fn(start, end, warm):
+            return self._build_session(start, end, warm, W, settings)
+
+        def step_fn(sess):
+            sess, res = ops_session.solve(sess, settings)
+            ok = is_ok(res.x[:, None])[0]
+            new_qp = linearize_workspace(
+                ops_session._user_view(sess, sess.base), self.balls,
+                self.obstacles, con3d, res.x, movable=movable,
+            )
+            sess = ops_session.update(sess, new_qp)
+            return sess, res.x, res.status, ok, res.iterations
+
+        return setup_fn, step_fn
+
+    def _padded_programs(self):
+        """``(setup_fn, step_fn)`` at ``W_max`` with the active horizon
+        ``wa`` an argument: every segment of :meth:`run_padded` shares one
+        row layout (``trajectory_qp.with_horizon_mask``)."""
+        W = self.max_waypoints
+        settings = admm_mod.with_auto_refine(self.settings, W, self.dtype)
+        is_ok = self._is_solution_ok_masked_fn(W)
+        con3d, boxes = self._con3d(), self._boxes()
+
+        def linearize(qp, x, wa):
+            return linearize_workspace(
+                qp, self.balls, self.obstacles, con3d, x, w_active=wa,
+                movable=pinned_movable_mask(W, wa, device=self.device),
+            )
+
+        def setup_fn(start, end, warm, wa):
+            qp = empty_trajectory_qp(
+                W, self.n_dim, [b.is_gripper for b in self.balls],
+                len(self.obstacles), self.dtype, self.device,
+            )
+            qp = with_horizon_mask(qp, wa)
+            qp = with_gomp_boxes_masked(qp, start, end, *boxes, wa)
+            return ops_session.setup(linearize(qp, warm, wa), settings,
+                                     warm_x=warm, device=self.device)
+
+        def step_fn(sess, wa):
+            sess, res = ops_session.solve(sess, settings)
+            ok = is_ok(res.x[:, None], wa)[0]
+            new_qp = linearize(ops_session._user_view(sess, sess.base),
+                               res.x, wa)
+            sess = ops_session.update(sess, new_qp, settings=settings)
+            return sess, res.x, res.status, ok, res.iterations
+
+        return setup_fn, step_fn
+
+    def _scp_loop(self, sess, step, waypoints: int, warm):
+        """The fixed-horizon SCP loop of one query: ``step(sess)`` until the
+        solve fails, the exact-FK check passes, or ``max_scp_iterations``
+        rounds; one device read a round.  Returns ``(ExitCode, solution,
+        SegmentStats)`` with the reference's status ladder."""
+        global PLANNER_SYNCS
+        last_solution = warm
+        total_admm = 0
+        for i in range(self.max_scp_iterations):
+            sess, x, status, ok, iters = step(sess)
+            last_solution = x
+            status, iters, ok = torch.stack(
+                [status.to(torch.int32), iters.to(torch.int32),
+                 ok.to(torch.int32)]).tolist()  # the round's one read
+            PLANNER_SYNCS += 1
+            total_admm += iters
+            if status not in (_OPTIMAL, _INACCURATE):
+                # No solution at this horizon.
+                return (ExitCode.kUnknown, last_solution,
+                        SegmentStats(waypoints, i + 1, total_admm, status))
+            if ok:
+                # A 10x-relaxed-tolerance solve stays distinguishable.
+                code = (ExitCode.kOptimal if status == _OPTIMAL
+                        else ExitCode.kOptimalInaccurate)
+                return (code, last_solution,
+                        SegmentStats(waypoints, i + 1, total_admm, status))
+        return (ExitCode.kUnknown, last_solution,
+                SegmentStats(waypoints, self.max_scp_iterations, total_admm,
+                             -1))
+
+    def _point(self, a):
+        """One configuration or flat trajectory as a 1-D tensor."""
+        return self._tensor(a).reshape(-1)
+
+    def run_horizon(self, start, end, waypoints: int, warm_start):
+        """One fixed-horizon SCP solve of one query: solve, check exact-FK
+        feasibility, re-linearize + update, repeat ≤ ``max_scp_iterations``
+        times.  ``warm_start (2·W·N,)``.  Returns ``(ExitCode, solution
+        (2·W·N,) tensor, SegmentStats)``."""
+        assert waypoints >= 4
+        pin_matmul_precision()
+        setup_fn, step_fn = self._programs(waypoints)
+        warm = self._point(warm_start)
+        sess = setup_fn(self._point(start), self._point(end), warm)
+        return self._scp_loop(sess, step_fn, waypoints, warm)
+
+    def run_horizon_padded(self, start, end, w_active: int, warm_start):
+        """One SCP solve at horizon ``w_active`` inside the ``W_max``
+        session; ``warm_start`` in padded layout ``(2·W_max·N,)``."""
+        assert 4 <= w_active <= self.max_waypoints
+        pin_matmul_precision()
+        setup_fn, step_fn = self._padded_programs()
+        wa = int(w_active)
+        warm = self._point(warm_start)
+        sess = setup_fn(self._point(start), self._point(end), warm, wa)
+        return self._scp_loop(sess, lambda s: step_fn(s, wa), wa, warm)
+
+    def _slice_warm_padded(self, sol_padded, w_prev: int, w_new: int):
+        """The reference's warm-start slicing quirk in padded layout: the
+        first two ``w_new·N`` windows of the previous COMPACT solution (when
+        the previous horizon was longer the second window is leftover
+        positions), re-padded.  On the solution's device."""
+        W, N = self.max_waypoints, self.n_dim
+        sol = self._point(sol_padded)
+        compact = torch.cat([sol[: w_prev * N], sol[W * N: W * N + w_prev * N]])
+        wn = w_new * N
+        out = torch.zeros(2 * W * N, dtype=sol.dtype, device=sol.device)
+        out[:wn] = compact[:wn]
+        out[W * N: W * N + wn] = compact[wn: 2 * wn]
+        return out
+
+    def _segments(self):
+        """The time-scaling search's horizons, longest first."""
+        for i in range(self.segments, 0, -1):
+            waypoints = self.max_waypoints * i // self.segments
+            if waypoints < 4:
+                break
+            yield waypoints
+
+    def run(self, start_pos, end_pos) -> PlanResult:
+        """Time-scaling outer loop: shrink the horizon ``segments → 1``,
+        warm-starting each segment from the previous solution; keep the
+        shortest feasible trajectory.  Velocities unscaled by dt."""
+        N = self.n_dim
+        start, end = self._point(start_pos), self._point(end_pos)
+        last_solution = calc_warm_start_batched(start, end, self.max_waypoints)
+        last_code = ExitCode.kUnknown
+        stats: List[SegmentStats] = []
+        for waypoints in self._segments():
+            # The first two wN-slices of the previous solution — when the
+            # previous horizon was longer, the "velocity" half is leftover
+            # positions (the reference's quirk, replicated).
+            wn = waypoints * N
+            warm = torch.cat([last_solution[:wn], last_solution[wn: 2 * wn]])
+            code, solution, seg_stats = self.run_horizon(
+                start, end, waypoints, warm)
+            stats.append(seg_stats)
+            if code not in (ExitCode.kOptimal, ExitCode.kUnknown):
+                break
+            if code == ExitCode.kOptimal:
+                last_code = ExitCode.kOptimal
+                last_solution = solution
+        sol = last_solution.cpu().numpy().copy()
+        half = sol.size // 2
+        sol[half:] /= self.time_step
+        return PlanResult(status=last_code, trajectory=sol, stats=stats)
+
+    def run_padded(self, start_pos, end_pos) -> PlanResult:
+        """:meth:`run`'s search (warm-start quirk included) with every
+        segment in ONE ``W_max``-shaped masked session layout.  Returns the
+        winning horizon's compact trajectory, velocities unscaled."""
+        W, N = self.max_waypoints, self.n_dim
+        start, end = self._point(start_pos), self._point(end_pos)
+        last_code = ExitCode.kUnknown
+        last_solution = calc_warm_start_masked(start, end, W, W)
+        last_w = W
+        stats: List[SegmentStats] = []
+        for waypoints in self._segments():
+            warm = self._slice_warm_padded(last_solution, last_w, waypoints)
+            code, solution, seg_stats = self.run_horizon_padded(
+                start, end, waypoints, warm)
+            stats.append(seg_stats)
+            if code not in (ExitCode.kOptimal, ExitCode.kUnknown):
+                break
+            if code == ExitCode.kOptimal:
+                last_code = ExitCode.kOptimal
+                last_solution = solution
+                last_w = waypoints
+        sol = last_solution.cpu().numpy()
+        out = np.concatenate([sol[: last_w * N], sol[W * N: W * N + last_w * N]])
+        out[last_w * N:] /= self.time_step
+        return PlanResult(status=last_code, trajectory=out, stats=stats)
+
+    def run_batch(self, starts, ends, waypoints: int,
+                  max_scp: Optional[int] = None, obstacles=None):
+        """Batched fixed-horizon planner on ONE session with a trailing
+        batch dim: the SCP loop (solve → exact-FK check → re-linearize →
+        update with ``settings``) for B queries with masked per-query
+        convergence.  A query that has stopped keeps its solution, status
+        and round count, as the reference's vmapped ``while_loop`` freezes
+        its carry; its problem is not solved again.
+
+        ``obstacles``: optional per-query obstacles, as in
+        :meth:`run_batch_lane`.  Returns ``(statuses (B,), trajectories (B,
+        2WN), scp_iters (B,))`` with velocities unscaled by dt and
+        :meth:`run_horizon`'s status ladder.
+        """
+        global PLANNER_SYNCS
+        W, N = int(waypoints), self.n_dim
+        assert W >= 4
+        max_scp = self.max_scp_iterations if max_scp is None else int(max_scp)
+        pin_matmul_precision()
+        starts, ends = self._queries(starts, ends)
+        B = starts.shape[1]
+        obs, _ = self._obstacles_arg(obstacles, B)
+        settings = admm_mod.with_auto_refine(self.settings, W, self.dtype)
+        is_ok = self._is_solution_ok_fn(W, per_query_obs=True)
+        con3d = self._con3d()
+        movable = pinned_movable_mask(W, device=self.device)
+        dev = self.device
+
+        x = calc_warm_start_batched(starts, ends, W)  # (2WN, B)
+        status = torch.full((B,), _UNKNOWN, dtype=torch.int32, device=dev)
+        ok = torch.zeros((B,), dtype=torch.bool, device=dev)
+        k = torch.zeros((B,), dtype=torch.int32, device=dev)
+        running = torch.ones((B,), dtype=torch.bool, device=dev)
+        go = B > 0 and max_scp > 0
+        sess = self._build_session(starts, ends, x, W, settings,
+                                   obstacles=obs) if go else None
+        while go:
+            sess, res = ops_session.solve(sess, settings, active=running)
+            xr = res.x.T
+            x = torch.where(running, xr, x)
+            status = torch.where(running, res.status, status)
+            ok = torch.where(running, is_ok(xr, obs), ok)
+            k = k + running.to(torch.int32)
+            running = running & ~ok & (
+                (status == _OPTIMAL) | (status == _UNKNOWN)
+                | (status == _INACCURATE)) & (k < max_scp)
+            go = bool(running.any())  # the round's one read
+            PLANNER_SYNCS += 1
+            if go:
+                new_qp = linearize_workspace(
+                    sess.base, self.balls, obs, con3d, xr, movable=movable)
+                sess = ops_session.update(sess, new_qp, settings=settings)
+
+        final_status = torch.where(
+            ok,
+            torch.where(status == _INACCURATE,
+                        torch.full_like(status, _INACCURATE),
+                        torch.full_like(status, _OPTIMAL)),
+            torch.full_like(status, _UNKNOWN),
+        )
+        half = W * N
+        x = torch.cat([x[:half], x[half:] / self.time_step], dim=0)
+        return final_status, x.T.contiguous(), k
+
+    # ------------------------------------------------------- lane path
 
     def _solve(self, qp_t, settings, x, y):
         """One batched solve of the trailing container, warm-started."""

@@ -140,6 +140,7 @@ def solve_batched_lane(
             "solve_batched_lane takes a LaneTrajectoryQP (convert a "
             "batch-leading container with trajectory_qp_lane.to_lane)"
         )
+    check_kernel_limits(qps, settings, dev)
     base = qps.to(dev)
     if settings.scaling > 0:
         scaled, scaling = ruiz_equilibrate_lane(base, settings.scaling)
@@ -200,6 +201,29 @@ def _use_fused(scaled, settings: Settings) -> bool:
         and settings.kkt_method == "direct"
         and settings.kkt_refine == 0
     )
+
+
+def check_kernel_limits(qp, settings: Settings, device) -> None:
+    """On a CUDA ``device``, raise ``NotImplementedError`` naming the limit,
+    before anything is built or moved, where a kernel that the solve of
+    ``qp`` launches is not built for its size (``_build.LIMITS``): the fused
+    path's factor kernel above 10 joints, its chunk and residual kernels
+    above 16, the block-tridiagonal kernels above 10.  The plain versions on
+    the CPU have no such limit."""
+    from .. import _build
+
+    if torch.device(device).type != "cuda":
+        return
+    if not _use_fused(qp, settings):
+        names = ("tridiag",)
+    elif qp.p_structure == "vel_diag":
+        names = ("kkt_factor", "admm_chunk") + (
+            ("residuals",) if settings.term_fused == "off" else ())
+    else:
+        names = ("tridiag", "admm_chunk", "residuals")
+    sig = {"NDIM": qp.n_dim, "B2": 2 * qp.n_dim}
+    for name in names:
+        _build.check_limits(name, sig)
 
 
 def _packed_factor(scaled, rho_vec, settings: Settings, coef=None):

@@ -158,11 +158,16 @@ def update_bounds(session: Session, guard_reclassification: bool = False,
                                settings))
 
 
-def solve(session: Session, settings: Settings = Settings()):
+def solve(session: Session, settings: Settings = Settings(), active=None):
     """Solve warm-started from the session's carried iterates, ρ and cached
     factor.  Returns ``(advanced session, SolveResult)`` — iterates, ρ and
     factor advance, OSQP's cross-``Solve()`` carry; the result is
-    batch-leading, without a batch dim for an unbatched session."""
+    batch-leading, without a batch dim for an unbatched session.
+
+    ``active``: optional ``(B,)`` bool of a batched session, the problems
+    to solve; the others start done, iterate no time and return status
+    ``kUnknown`` (a batched planner's finished queries, whose results it
+    keeps from earlier)."""
     admm.check_supported(settings, generic=True)
     st = admm.init_state(
         session.scaled, settings,
@@ -170,6 +175,8 @@ def solve(session: Session, settings: Settings = Settings()):
         scaling=session.scaling, rho_bar=session.rho_bar,
         factor=session.factor,
     )
+    if active is not None:
+        st = st.replace(done=~torch.as_tensor(active, device=st.done.device))
     st = admm.run_admm(session.base, session.scaled, session.scaling, st,
                        settings)
     res = admm.finalize(session.base, session.scaling, st)

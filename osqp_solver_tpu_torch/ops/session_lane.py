@@ -40,6 +40,7 @@ from .admm_lane import (
     _solve_core,
     _use_fused,
     build_const_packs,
+    check_kernel_limits,
     identity_scaling_lane,
     ruiz_equilibrate_lane,
 )
@@ -78,6 +79,7 @@ def setup_lane(qps, settings: Settings = Settings(), device=None) -> LaneSession
     pin_matmul_precision()
     if not isinstance(qps, LaneTrajectoryQP):
         qps = to_lane(qps)
+    check_kernel_limits(qps, settings, dev)
     qps = qps.to(dev)
     if settings.scaling > 0:
         scaled, scaling = ruiz_equilibrate_lane(qps, settings.scaling)

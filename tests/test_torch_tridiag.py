@@ -211,3 +211,86 @@ def test_wrappers_refuse_bad_arguments():
     with pytest.raises(ValueError):
         ttri.solve_lane_major(chol, gain[:, :-1], rhs)
     assert "tridiag" in _build.KERNELS and _build.KERNELS["tridiag"] == ("B2",)
+
+
+# Above 8 joints (B2 > 16) the factor's entry tables hold 16 bits a field
+# and a group of threads is a whole warp (32 threads): N = 9 and 10, a
+# batch whose last block is partly empty, one problem, and the solve's w_t
+# on chip and in x.
+WIDE_PARAMS = [
+    pytest.param(5, 18, 13, 0, id="B2_18"),
+    pytest.param(3, 18, 1, 1, id="B2_18-B1-w_in_x"),
+    pytest.param(4, 20, 13, 1, id="B2_20-w_in_x"),
+    pytest.param(2, 20, 1, 0, id="B2_20-W2-B1"),
+]
+
+
+@pytest.mark.parametrize("W,B2,B,budget", WIDE_PARAMS)
+def test_emulated_kernels_above_8_joints_match_plain(W, B2, B, budget,
+                                                     tmp_path, monkeypatch):
+    monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
+    diag, lower, rhs = (t_(a) for a in spd_batch(W, B2, B, seed=W + B2 + B))
+    lib = host_lib_signature("tridiag", {"B2": B2})
+    p = ttri.plan(lib, W, B, budget)
+    assert (p["G"], p["w_on_chip"]) == (32, int(budget == 0))
+    fp = ttri.factor_plan(lib, B)
+    assert (fp["G"], fp["Q"]) == (32, 8)
+    assert fp["blocks"] == -(-B // fp["Q"])
+    chol, gain, x = _emulated(diag, lower, rhs, budget)
+    pchol, pgain = ttri.factor_lane_major_plain(diag, lower)
+    assert_close(chol, pchol, rtol=1e-9, atol=1e-12)
+    assert_close(gain, pgain, rtol=1e-9, atol=1e-12)
+    iu = torch.triu_indices(B2, B2, offset=1)
+    assert (chol[:, iu[0], iu[1]] == 0).all()
+    assert_close(x, ttri.solve_lane_major_plain(pchol, pgain, rhs),
+                 rtol=1e-9, atol=1e-12)
+
+
+def test_block_size_above_32_is_refused_before_any_build(monkeypatch):
+    def no_build(*a, **kw):
+        raise AssertionError("a build was started")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    monkeypatch.setattr(_build, "start_build", no_build)
+    for B2 in (22, 34):
+        with pytest.raises(NotImplementedError,
+                           match=rf"tridiag.*B2={B2}.*B2 <= 20"):
+            ttri._lib(B2)
+    with pytest.raises(AssertionError, match="a build was started"):
+        ttri._lib(20)
+
+
+def test_lane_driver_above_10_joints_is_refused_before_any_build(
+        monkeypatch):
+    """On a CUDA device the fused lane path at N = 11 is refused by name of
+    the factor kernel's limit, before any build and before the batch moves;
+    the unfused path by the tridiagonal kernels' (N up to 10).  Here the
+    device is only named: nothing reaches it."""
+    from osqp_solver_tpu_torch.ops import admm_lane, session_lane
+    from osqp_solver_tpu_torch.ops.admm import Settings
+
+    from test_torch_helpers import torch_lane, random_lane_problem
+
+    def no_build(*a, **kw):
+        raise AssertionError("a build was started")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    monkeypatch.setattr(_build, "start_build", no_build)
+    cuda = torch.device("cuda")
+    monkeypatch.setattr(admm_lane, "resolve_device", lambda d: cuda)
+    monkeypatch.setattr(session_lane, "resolve_device", lambda d: cuda)
+    qp = torch_lane(*random_lane_problem(W=4, N=11, B=2))
+    with pytest.raises(NotImplementedError, match=r"kkt_factor.*N <= 10"):
+        admm_lane.solve_batched_lane(qp, Settings())
+    with pytest.raises(NotImplementedError, match=r"kkt_factor.*N <= 10"):
+        session_lane.setup_lane(qp, Settings())
+    off = Settings(fused_chunk="off")
+    with pytest.raises(NotImplementedError, match=r"tridiag.*B2=22"):
+        admm_lane.check_kernel_limits(qp, off, cuda)
+    qp10 = torch_lane(*random_lane_problem(W=4, N=10, B=1))
+    admm_lane.check_kernel_limits(qp10, off, cuda)
+    admm_lane.check_kernel_limits(qp10, Settings(), cuda)
+    qp17 = torch_lane(*random_lane_problem(W=4, N=17, B=1))
+    with pytest.raises(NotImplementedError, match=r"kkt_factor"):
+        admm_lane.check_kernel_limits(qp17, Settings(), cuda)
+    admm_lane.check_kernel_limits(qp17, Settings(), torch.device("cpu"))

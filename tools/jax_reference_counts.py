@@ -2,7 +2,8 @@
 """Iteration counts of the JAX package on the problems of ``chip_smoke.py``
 (float32, CPU): the references its ``dense``, ``dense_session``,
 ``trajectory_generic``, ``solve_block_p`` and ``solve_w3`` phases hold the
-port to.
+port to, and the planner statistics its ``planner_run`` phase prints beside
+its own.
 
 The problems come from ``chip_smoke.py``'s own generators (numpy from a
 seed for the dense configurations and the block-P objective; the port's
@@ -13,7 +14,8 @@ on a machine with JAX:
     JAX_PLATFORMS=cpu python3 tools/jax_reference_counts.py [CONFIG ...]
 
 (all configurations without arguments; ``solve_block_p`` alone takes a few
-minutes).  Prints one JSON line per configuration; the ``code`` strings are
+minutes, ``planner_run`` (the reference example at W_max=802: ``run_padded``,
+one compile, and ``run``, one compile per horizon) about ten).  Prints one JSON line per configuration; the ``code`` strings are
 the per-problem (per-step) counts in ``chip_smoke.encode_iters`` form, and
 ``p50`` is the lower median, as ``torch.median`` takes it.
 """
@@ -71,12 +73,48 @@ def jax_trajectory(qp):
                                      for k, v in arrays.items()})
 
 
+def planner_run():
+    """The reference example (``chip_smoke.EXAMPLE``) through the JAX
+    package's ``run_padded`` and ``run`` in float32: per call the status,
+    the winning horizon, every segment's statistics and the wall time
+    (compiles included)."""
+    import time
+
+    from osqp_solver_tpu import constraints as C
+    from osqp_solver_tpu.gomp.planner import GOMPSolver
+    from osqp_solver_tpu.models import ur5e
+
+    solver = GOMPSolver(
+        **cs.EXAMPLE,
+        pos_con=C.in_range(6, -2 * np.pi, 2 * np.pi),
+        vel_con=C.in_range(6, -np.pi, np.pi),
+        acc_con=C.in_range(6, -np.pi * 800 / 180, np.pi * 800 / 180),
+        con_3d=C.in_range(3, [-C.INF, -0.4, -C.INF], None),
+        obstacles=[],
+        balls=[ur5e.make_ball("back6", 0.15),
+               ur5e.make_ball("tool", 0.05, is_gripper=True)],
+        dtype=jnp.float32,
+    )
+    out = {}
+    for name in ("run_padded", "run"):
+        t0 = time.time()
+        res = getattr(solver, name)(cs.EXAMPLE_START, cs.EXAMPLE_END)
+        won = [st.waypoints for st in res.stats if st.status == 0]
+        out[name] = dict(
+            status=res.status.name, winning_waypoints=min(won) if won else 0,
+            stats=[[int(v) for v in st] for st in res.stats],
+            wall_s=round(time.time() - t0, 1))
+    print(json.dumps({"config": "planner_run", **out}), flush=True)
+
+
 def main():
     want = set(sys.argv[1:]) or {"dense", "dense_session",
                                  "trajectory_config1",
                                  "trajectory_config4b", "solve_block_p",
-                                 "solve_w3"}
+                                 "solve_w3", "planner_run"}
     settings = admm.Settings()
+    if "planner_run" in want:
+        planner_run()
     if "solve_w3" in want:
         # W=3 lane batches (below the Ruiz kernel's 4 waypoints), B=1024, at
         # the bench.py settings: the box-only class and the honest class
