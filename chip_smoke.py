@@ -7,8 +7,9 @@ Run it from the repository root on a machine with one NVIDIA Hopper GPU:
 
 It builds the hand-written kernels from ``osqp_solver_tpu_torch/csrc`` (six
 sources and the fast-math check; three layout signatures of the lane kernels, the Ruiz and residual
-kernels also in their block-P form, the tridiagonal one at B2=12, 18 and
-20, and the dense one; all compilers started together), holds each kernel — the
+kernels also in their block-P form, the tridiagonal one at B2=12 to 32,
+the lane sources also at N=7, 9, 10, 12 and 16, and the dense one; all
+compilers started together), holds each kernel — the
 chunk kernel in its accumulator, warm-up and delta-writing forms, each in
 the ``hrec`` and the ``gain`` factor form, the factor kernel with and
 without its gain write, the block-tridiagonal factor and solve, the dense
@@ -22,8 +23,9 @@ times both (the Ruiz and factor kernels also alone, on packs built
 beforehand, at B=8, and at the edges of their launch plans: B=1022, W=4,
 W=50, and Ruiz with its rows in device memory; the tridiagonal factor and
 solve alone at B=1024, 1022, 8 and 1 and at W=10 (the factor also at W=50),
-and the solve with w_t in device memory, and both at B2=18 and 20 (N=9 and
-10; W=100, B=1024) and at B=1, W=802 (each launch repeated: equal bits); the
+and the solve with w_t in device memory, and both at B2=18, 20, 22, 24, 28
+and 32 (N=9 to 16; W=100, B=1024) and at B=1, W=802 (each launch repeated:
+equal bits); the
 residual kernel alone at B=1024, 1022 and 8; and the rounded square root,
 reciprocal and division they share, bit for bit against ``sqrtf`` and the
 division on every float from 2^-100 to 2^100 and many quotients), then
@@ -69,9 +71,22 @@ drives the port's entry points:
   reference example (``solver-example.cpp``: UR5e, W_max=802, 10 segments,
   stock settings) through ``GOMPSolver.run`` and ``run_padded``
   (``planner_run``: kOptimal, exact-FK audit, start and goal FK, the two
-  ``.data`` files; the tridiagonal kernels' launch counts in the kernel
-  table are this phase's), and ``run_batch`` against ``run_batch_lane`` on
-  256 fleet queries at W=50 (``planner_batch``).
+  ``.data`` files), and ``run_batch`` against ``run_batch_lane`` on
+  256 fleet queries at W=50 (``planner_batch``);
+* the lane kernels above 6 joints (``lane_sizes``): at N=7, 9, 10, 12 and
+  16 (a box batch with the honest class's ball rows, W=100, B=1024) every
+  lane kernel against its plain version in f64 and repeated bit for bit,
+  with its registers and spills, and the lane solve fused (both
+  termination forms, equal counts; the gain form) and unfused;
+* the lane driver's settings of this slice: ``with_auto_refine``'s
+  ``kkt_refine=1`` on the honest class at W=1100 (``solve_refine``: the
+  tridiagonal solve twice per iteration) and through ``run_batch_lane`` on
+  64 queries of the full search at W=1100 (``planner_long``, held to the
+  JAX f32 run), ``polish=True`` fused and unfused (``solve_polish``), and
+  ``anderson=4`` fused, with unfused termination, unfused and with ρ
+  adaptation firing (``solve_anderson``, held to the JAX f32 run).  The
+  kernel table's launch counts are these phases' (``launches_by_path``
+  gives every path's).
 
 It checks statuses, ADMM iteration counts, OSQP's residual criterion
 recomputed in float64 on the host, and that every kernel was really launched
@@ -82,7 +97,9 @@ runs a subset; ``--out FILE`` also writes every phase's record to a JSON
 file; ``--ref-tree DIR`` (an earlier checkout, e.g. ``git archive 8554bbc |
 tar -x -C DIR``) also builds that tree's tridiagonal factor and solve and
 residual kernels and runs them on the same inputs, compared bit for bit and
-timed (the factor must equal that tree's bit for bit).
+timed (the factor must equal that tree's bit for bit), and its N=6 lane
+kernels (Ruiz, the KKT factor in both forms, the chunk in four forms) and
+B2=18 and 20 tridiagonal pair, which must equal this tree's bit for bit.
 """
 from __future__ import annotations
 
@@ -166,7 +183,8 @@ PHASES = ("build,kernels,solve,solve_unfused_term,solve_stock,box,solve_w3,"
           "planner_full,planner_obstacles,mpc_fleet,mpc_fleet_gain,"
           "mpc_fleet_unfused,dense,dense_session,trajectory_generic,"
           "solve_block_p,solve_block_p_declared,mpc_fleet_block_p,"
-          "planner_run,planner_batch")
+          "planner_run,planner_batch,lane_sizes,solve_refine,planner_long,"
+          "solve_polish,solve_anderson")
 # The block-P fleet: fewer ticks than the vel-diag fleets, for time, at the
 # settings the block-P batch is solved at (BENCH) without the warm-up chunk:
 # at the fleet benchmark's stock ones (scaling 10, rho 0.05) its cold ticks
@@ -549,6 +567,30 @@ def w3_batch(kind, device):
                 torch.float32).to(device)
 
 
+# The lane driver's settings of this slice.  Anderson
+# acceleration at the cadence of the reference's own tests
+# (tests/test_admm_lane.py), and with ρ adaptation firing (its :461).
+ANDERSON = dict(anderson=4, check_termination=3)
+ANDERSON_RHO = dict(ANDERSON, rho=10.0, adaptive_rho_interval=6)
+# Long horizons: float32 above 1024 waypoints takes one refinement step per
+# KKT solve (with_auto_refine).
+LONG_W, LONG_QUERIES, REFINE_BATCH = 1100, 64, 256
+
+
+def honest_f32(batch, Wd, device):
+    """The honest class built in float64 on the CPU and rounded to float32
+    (the numbers ``tools/jax_reference_counts.py`` hands to the JAX
+    package), then moved to ``device``."""
+    return cast(build_honest_batch(batch, Wd, N, torch.float64, "cpu"),
+                torch.float32).to(device)
+
+
+def long_queries():
+    """The first LONG_QUERIES queries of the full search (planner_full's,
+    ``bench.py:321-344``)."""
+    return fleet_queries(LONG_QUERIES, np.random.default_rng(0))
+
+
 # -------------------------------------------------------------------- phases
 
 
@@ -562,8 +604,11 @@ def phase_device():
 def ref_signatures():
     """The sources and signatures built from --ref-tree."""
     lane = {"NDIM": N, "NX": 5}
-    return [("tridiag", {"B2": 2 * N}), ("residuals", dict(lane, BLOCK_P=0)),
-            ("residuals", dict(lane, BLOCK_P=1))]
+    return [("tridiag", {"B2": 2 * N}), ("tridiag", {"B2": 18}),
+            ("tridiag", {"B2": 20}), ("residuals", dict(lane, BLOCK_P=0)),
+            ("residuals", dict(lane, BLOCK_P=1)),
+            ("ruiz", dict(lane, BLOCK_P=0)), ("kkt_factor", lane),
+            ("admm_chunk", lane)]
 
 
 def ref_csrc():
@@ -770,6 +815,86 @@ def factor_edge_cases(settings, emit_gain=False):
     return out
 
 
+def ref_lane_compare(base, scaled, rho_vec, settings, packs, state0, done,
+                     ck, cg, gg):
+    """The N=6 lane kernels of --ref-tree beside this tree's on the main
+    shape's inputs: the Ruiz kernel, the KKT factor in both forms, and the
+    chunk in its accumulator, delta, warm-up and gain forms.  Per kernel
+    the values that differ bit for bit (which must be none) and both trees'
+    times alone (20 launches back to back)."""
+    sig = {"NDIM": N, "NX": 5}
+    ref = lambda name, s_: ref_library(  # noqa: E731
+        name, tuple(sorted(s_.items())))
+    mine = lambda name, s_: _build.library(name, s_)  # noqa: E731
+    it, B = settings.scaling, base.batch
+    rp = ruiz_kernel._ruiz_kernel_packs(base)
+    coef, lu = packs["coef"], admm_fused.build_lu_pack(scaled)
+    Pd, Pl = kkt_factor.build_p_vel_packs(scaled)
+    rho3 = rho_vec.reshape(W, -1, B).contiguous()
+    q_int = scaled._interleave(scaled.q_vec).contiguous()
+    done_f = done.to(torch.float32).contiguous()
+    ee, varc, Pdp = packs["EEinv"], packs["varc"], packs["Pdp"]
+    Plf = packs["Plf"]
+
+    def ruiz(lib):
+        out = [t.clone() for t in rp[4:]]
+        return (lambda: ruiz_kernel._launch_ruiz(lib, *rp[:4], *out, it),
+                out)
+
+    def factor(gain):
+        def make(lib):
+            out = [torch.empty_like(ck)] + ([torch.empty_like(ck)] if gain
+                                            else [])
+            return (lambda: kkt_factor._launch_factor(
+                lib, coef, rho3, Pd, Pl, out[0], settings.sigma,
+                out[1] if gain else None), out)
+        return make
+
+    def chunk(mode, n_iter, gain=False):
+        def make(lib):
+            state = state0.clone()
+            w = torch.empty((W, 2 * N, B), device="cuda")
+            acc = torch.empty((24, B), device="cuda") if mode == 1 else None
+            dxdy = (torch.empty((W, admm_fused.dxdy_rows(scaled)[1], B),
+                                device="cuda") if mode == 2 else None)
+            pf = (cg, gg) if gain else (ck, None)
+
+            def launch():
+                state.copy_(state0)
+                admm_fused._launch_chunk(
+                    lib, pf[0], coef, q_int, lu, rho3, Plf,
+                    ee if mode == 1 else None, varc if mode == 1 else None,
+                    Pdp if mode == 1 else None, done_f, state, w, acc,
+                    n_iter, settings.sigma, settings.alpha, dxdy=dxdy,
+                    gainp=pf[1])
+            return launch, [t for t in (state, acc, dxdy) if t is not None]
+        return make
+
+    cases = {
+        "ruiz": ("ruiz", dict(sig, BLOCK_P=0), ruiz),
+        "kkt_factor": ("kkt_factor", sig, factor(False)),
+        "kkt_factor_gain": ("kkt_factor", sig, factor(True)),
+        "admm_chunk": ("admm_chunk", sig, chunk(1, 2)),
+        "admm_chunk_dxdy": ("admm_chunk", sig, chunk(2, 2)),
+        "admm_chunk_warmup": ("admm_chunk", sig,
+                              chunk(0, settings.termination_warmup)),
+        "admm_chunk_gain": ("admm_chunk", sig, chunk(1, 2, gain=True)),
+    }
+    out = {}
+    for name, (src, s_, make) in cases.items():
+        la, oa = make(mine(src, s_))
+        lb, ob = make(ref(src, s_))
+        la()
+        lb()
+        torch.cuda.synchronize()
+        nd = [bits_differing(a, b) for a, b in zip(oa, ob)]
+        out[name] = dict(bits_differing=sum(n for n, _ in nd),
+                         max_abs_diff=max(d for _, d in nd),
+                         ms=time_ms(la, inner=ALONE_INNER),
+                         ref_ms=time_ms(lb, inner=ALONE_INNER))
+    return out
+
+
 def phase_kernels():
     settings, base, scaled, scaling, packs, rho_vec = main_path_problem(BATCH)
     sig = admm_fused.layout_signature(scaled)
@@ -972,6 +1097,10 @@ def phase_kernels():
         scaled, scaled64, settings, rho_vec, done, state0, args, ck, gk,
         term_packs, q_int, lu, NX))
     out.extend(check_tridiag(scaled, rho_vec, settings))
+    ref_lane = None
+    if REF_TREE:
+        ref_lane = ref_lane_compare(base, scaled, rho_vec, settings, packs,
+                                    state0, done, ck, ck, gk)
     out.extend(check_dense())
     out.extend(check_block_p(settings, NX))
     for row in out:
@@ -987,10 +1116,13 @@ def phase_kernels():
             "assembly")
     # Every build of the chunk kernel (hrec and gain x three modes).
     rows["admm_chunk"]["ptxas_all_builds"] = ptxas_of("admm_chunk_all", sig)
-    emit("kernels", kernels=out)
+    emit("kernels", kernels=out,
+         **({"ref_tree_lane_N6": ref_lane} if ref_lane else {}))
     bad = [k["name"] for k in out if not k["ok"]]
     if bad:
         fail(f"kernel(s) outside tolerance of the plain version: {bad}")
+    if ref_lane and any(v["bits_differing"] for v in ref_lane.values()):
+        fail(f"the N=6 lane kernels differ from --ref-tree's: {ref_lane}")
     return out
 
 
@@ -1812,7 +1944,9 @@ def check_tridiag(scaled, rho_vec, settings):
 # triangle read from the stage) at the main shape, and one problem at the
 # reference example's W_max=802 (the planner_run phase's largest segment).
 TRIDIAG_SIZES = {"B2_18": (18, W, BATCH), "B2_20": (20, W, BATCH),
-                 "W802_B1": (12, 802, 1), "B2_18_W802_B1": (18, 802, 1)}
+                 "W802_B1": (12, 802, 1), "B2_18_W802_B1": (18, 802, 1),
+                 "B2_22": (22, W, BATCH), "B2_24": (24, W, BATCH),
+                 "B2_28": (28, W, BATCH), "B2_32": (32, W, BATCH)}
 
 
 def spd_blocks(B2, Wd, B, seed=0):
@@ -1865,6 +1999,26 @@ def tridiag_sizes():
         ptx = _build.ptxas_report(path)
         f_ok = max(ce[1], ge[1]) <= TOL_TRIDIAG and upper_zero and not f_again
         s_ok = se[1] <= TOL_TRIDIAG and not s_again
+        ref = {}
+        if REF_TREE and B2 in (18, 20) and Wd == W:
+            # The parent's forms at B2 <= 20 are kept: equal bits there.
+            cr, gr = torch.empty_like(ck), torch.empty_like(gk)
+            fl = ref_factor_alone(diag, lower, cr, gr)
+            xr = torch.empty_like(xk)
+            sl = ref_solve_alone(ck, gk, rhs, xr)
+            fl()
+            sl()
+            torch.cuda.synchronize()
+            fb_ = {"chol": bits_differing(ck, cr)[0],
+                   "gain": bits_differing(gk, gr)[0]}
+            sb_ = bits_differing(xk, xr)[0]
+            ref = dict(
+                factor=dict(ref_bits_differing=fb_,
+                            ref_ms=time_ms(fl, inner=ALONE_INNER)),
+                solve=dict(ref_bits_differing={"x": sb_},
+                           ref_ms=time_ms(sl, inner=ALONE_INNER)))
+            f_ok = f_ok and not (fb_["chol"] or fb_["gain"])
+            s_ok = s_ok and not sb_
         out[name] = dict(
             factor=dict(
                 shape, max_abs_err=max(ce[0], ge[0]),
@@ -1877,7 +2031,7 @@ def tridiag_sizes():
                 plan=tridiag_kernel.factor_plan(lib, B),
                 ptxas={k[:40]: v for k, v in ptx.items()
                        if k.startswith("tridiag_factor_kernel")},
-                ok=bool(f_ok)),
+                **ref.get("factor", {}), ok=bool(f_ok)),
             solve=dict(
                 shape, max_abs_err=se[0], rel_err=se[1],
                 bits_differing_run_to_run=s_again,
@@ -1888,7 +2042,7 @@ def tridiag_sizes():
                 plan=tridiag_kernel.plan(lib, Wd, B),
                 ptxas={k[:40]: v for k, v in ptx.items()
                        if k.startswith("tridiag_solve_kernel")},
-                ok=bool(s_ok)),
+                **ref.get("solve", {}), ok=bool(s_ok)),
             ok=bool(f_ok and s_ok))
         del diag, lower, rhs, ck, gk, xk, ck2, gk2, xk2, c64, g64, x64
         torch.cuda.empty_cache()
@@ -3412,6 +3566,28 @@ BLOCK_P_REF = dict(ct=2, offset=1, code=(
     "gjlghkhrkgjjjfjkghghhfkkjmjfikhfiiiikjhiikeigggnfjgmmggjhnmihfjh"
     "llgmgljgekihmhgomkgpohnkhiqkljghghfgiljmiigijkgihhijqmflnklgjknl"))
 
+# The JAX package's float32 runs on the CPU of solve_anderson's and
+# solve_polish's batch (``tools/jax_reference_counts.py solve_anderson
+# solve_polish``): p50 and histogram of the iterations at ANDERSON and at
+# ANDERSON_RHO (1024/1024 optimal at both), and how many problems its
+# polish moved at the bench.py settings (statuses equal to the unpolished
+# run's).
+ANDERSON_REF = {
+    "base": dict(p50=42, max=48, hist={"36": 306, "39": 16, "42": 649,
+                                       "45": 24, "48": 29}),
+    "rho": dict(p50=63, max=105, hist={
+        "33": 1, "39": 5, "42": 38, "45": 130, "48": 47, "51": 32, "54": 24,
+        "57": 89, "60": 51, "63": 419, "66": 38, "69": 30, "72": 54,
+        "75": 17, "78": 10, "81": 12, "84": 10, "87": 6, "93": 5, "96": 1,
+        "99": 2, "102": 2, "105": 1}),
+}
+POLISH_REF = dict(polished=0, same_status=1024)
+# ``tools/jax_reference_counts.py planner_long``: run_batch_lane of the JAX
+# package at W=1100 in float32 on planner_long's 64 queries: exit codes and
+# SCP rounds per query in encode_statuses form (64/64 optimal, one round
+# each).
+PLANNER_LONG_REF = dict(statuses="0" * 64, rounds="1" * 64)
+
 # solve_w3: the JAX package's float32 CPU run on the same W=3 batches
 # (tools/jax_reference_counts.py solve_w3): iteration counts in
 # encode_iters form (checks at 21 + 2k) and exit codes in
@@ -3760,6 +3936,548 @@ def phase_trajectory_generic():
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Queue A2 and the lane kernels above 6 joints (C1).
+# ---------------------------------------------------------------------------
+# The joint counts the lane kernels are proven at: N=7 (the iiwa14), 9 and
+# 10 (the 16-bit Schur tables of the tridiagonal factor), 12 and 16 (the
+# rows of a step split among a warp's lanes: every kernel's large form).
+LANE_SIZES = (7, 9, 10, 12, 16)
+SIZE_SEED = 12
+
+
+def size_batch(Nj, batch=BATCH, Wd=W, seed=SIZE_SEED):
+    """A box-only batch of ``Nj`` joints (``build_box_batch``) with the
+    honest class's row structure added as the tests' random batches add it
+    (``tests/test_torch_helpers.py``): a wrist ball and a gripper ball, the
+    gripper's three workspace rows and one obstacle row per ball, seeded
+    Jacobians, finite one- and two-sided bounds that the box solution keeps
+    inactive (|J q| stays below 0.1 N max|q|).  NX = 5, as the honest
+    class: the same builds of the lane kernels, at another NDIM."""
+    qp = build_box_batch(batch, Wd, Nj, torch.float32, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + Nj)
+    kw = dict(dtype=torch.float32, device="cuda")
+    jac = lambda *shape: 0.2 * torch.rand(  # noqa: E731
+        shape, generator=gen, **kw) - 0.1
+    ws_jac = jac(2, Wd, 3, Nj, batch)
+    ws_jac[0] = 0.0  # the wrist ball is no gripper: no workspace rows
+    bound = 0.1 * Nj * 1.1 + 1.0
+    return qp.replace(
+        gripper_flags=(False, True), n_obstacles=1,
+        ws_jac=ws_jac,
+        ws_l=torch.full((2, Wd, 3, batch), -bound, **kw),
+        ws_u=torch.full((2, Wd, 3, batch), bound, **kw),
+        obs_jac=jac(2, 1, Wd, Nj, batch),
+        obs_l=torch.full((2, 1, Wd, batch), -bound, **kw),
+        obs_u=torch.full((2, 1, Wd, batch), INF_BOUND, **kw))
+
+
+def size_signatures(Nj):
+    """The builds a lane solve at ``Nj`` joints runs: the four lane sources
+    (NX = 5) and the tridiagonal pair."""
+    lane = {"NDIM": Nj, "NX": 5}
+    return [lane, dict(lane, BLOCK_P=0), {"B2": 2 * Nj}]
+
+
+def repeat_bits(launch, outs):
+    """Launch again (``launch()`` returns new outputs) and count the values
+    that differ bit for bit from ``outs``."""
+    again = launch()
+    torch.cuda.synchronize()
+    return sum(bits_differing(a, b)[0] for a, b in zip(outs, again)
+               if a is not None)
+
+
+def size_kernels(Nj, qp, settings):
+    """Every lane kernel of the path at ``Nj`` joints against its plain
+    version run in f64 on the same f32 inputs, at the kernels phase's
+    tolerances, each launch repeated (equal bits) and timed through its
+    wrapper (``ms``; the chunk: its 2 iterations), with the ptxas report of
+    each build: Ruiz; the KKT factor (both forms); the chunk (the
+    accumulator form, the delta form and the gain form, 2 iterations from
+    a state 10 iterations in, every fifth problem frozen); the residual
+    kernel on the delta form's packs; the tridiagonal factor and solve on
+    the batch's KKT blocks."""
+    B, B2, sig = qp.batch, 2 * Nj, {"NDIM": Nj, "NX": 5}
+    out = {}
+    it = settings.scaling
+    # Ruiz: D, E, c elementwise relative to f64.
+    rk, rp_, _ = ruiz_vs_f64(qp, it)
+    first = ruiz_kernel.ruiz_scalings_kernel(qp, it)
+    out["ruiz"] = dict(vs_f64=rk, plain_vs_f64=rp_, tol=TOL_RUIZ,
+                       bits_differing_run_to_run=repeat_bits(
+                           lambda: ruiz_kernel.ruiz_scalings_kernel(qp, it),
+                           first),
+                       ms=time_ms(lambda: ruiz_kernel.ruiz_scalings_kernel(
+                           qp, it)))
+    out["ruiz"]["ok"] = bool(rk <= TOL_RUIZ
+                             and not out["ruiz"]["bits_differing_run_to_run"])
+    scaled, scaling = admm_lane.ruiz_equilibrate_lane(qp, it)
+    scaled64 = cast(scaled, torch.float64)
+    packs = admm_lane.build_const_packs(scaled, scaling)
+    coef = packs["coef"]
+    rho_vec = _rho_vec(torch.full((B,), settings.rho, device="cuda"),
+                       scaled.l, scaled.u)
+    # KKT factor, both forms.
+    fac = lambda g: kkt_factor.factor_packed_lane(  # noqa: E731
+        scaled, rho_vec, settings.sigma, coef=coef, emit_gain=g)
+    ck, _ = fac(False)
+    cg, gg = fac(True)
+    c64, g64 = kkt_factor.factor_packed_lane_plain(
+        scaled64, rho_vec.double(), settings.sigma, emit_gain=True)
+    cp, gp = kkt_factor.factor_packed_lane_plain(
+        scaled, rho_vec, settings.sigma, emit_gain=True)
+    torch.cuda.synchronize()
+    for name, got, plain, ref, g in (
+            ("kkt_factor", [ck], [cp], [c64], False),
+            ("kkt_factor_gain", [cg, gg], [cp, gp], [c64, g64], True)):
+        e = max(rel_err(a.double(), r)[1] for a, r in zip(got, ref))
+        ep = max(rel_err(a.double(), r)[1] for a, r in zip(plain, ref))
+        rep = repeat_bits(lambda g=g: fac(g), got)
+        out[name] = dict(vs_f64=e, plain_vs_f64=ep, tol=TOL_FACTOR,
+                         bits_differing_run_to_run=rep,
+                         ms=time_ms(lambda g=g: fac(g)),
+                         plan=kkt_factor.plan(_build.library(
+                             "kkt_factor", sig), W, B),
+                         ok=bool(e <= TOL_FACTOR and not rep))
+    # The chunk kernel from a warm state, every fifth problem frozen.
+    st = admm_lane.init_state_lane(
+        scaled, settings, None, None, scaling,
+        rho_bar=torch.full((B,), settings.rho, device="cuda"),
+        rho_vec=rho_vec, factor=(ck, None))
+    lu = admm_fused.build_lu_pack(scaled)
+    state0 = admm_fused.pack_state(scaled, st.x, st.z, st.y)
+    none_done = torch.zeros(B, dtype=torch.bool, device="cuda")
+    admm_fused.fused_admm_chunk(
+        scaled, rho_vec, none_done, settings, state_pack=state0, n_iter=10,
+        coef=coef, lu=lu, packed_factor=(ck, None))
+    done = (torch.arange(B, device="cuda") % 5) == 3
+    term_packs = (packs["EEinv"], packs["varc"], packs["Pdp"], packs["Plf"])
+    Rp = scaled.rows_per_waypoint_padded
+    sect = {"x": slice(0, B2), "z": slice(B2, B2 + Rp),
+            "y": slice(B2 + Rp, B2 + 2 * Rp)}
+    d64 = lambda t: None if t is None else t.double()  # noqa: E731
+    for name, pf, tp, dxdy in (
+            ("admm_chunk", (ck, None), term_packs, False),
+            ("admm_chunk_dxdy", (ck, None), None, True),
+            ("admm_chunk_gain", (cg, gg), term_packs, False)):
+        def launch(pf=pf, tp=tp, dxdy=dxdy):
+            return admm_fused.fused_admm_chunk(
+                scaled, rho_vec, done, settings, state_pack=state0.clone(),
+                n_iter=2, term_packs=tp, emit_dxdy=dxdy, coef=coef, lu=lu,
+                packed_factor=pf)
+        sk, extra = launch()
+        s64, e64 = admm_fused.fused_admm_chunk_plain(
+            scaled64, rho_vec.double(), done, settings,
+            state_pack=state0.double(), n_iter=2,
+            term_packs=None if tp is None else tuple(d64(t) for t in tp),
+            emit_dxdy=dxdy, coef=coef.double(), lu=lu.double(),
+            packed_factor=tuple(d64(t) for t in pf))
+        torch.cuda.synchronize()
+        errs = {k: rel_err(sk[:, sl].double(), s64[:, sl])[1]
+                for k, sl in sect.items()}
+        if dxdy:
+            scale = {k: s64[:, sl].abs().max().item() for k, sl in sect.items()}
+            errs["dx"] = rel_err(extra[:, :B2].double(), e64[:, :B2],
+                                 scale["x"])[1]
+            errs["dy"] = rel_err(extra[:, B2:B2 + Rp].double(),
+                                 e64[:, B2:B2 + Rp], scale["y"])[1]
+        else:
+            mags = {"xsum": s64[:, sect["x"]].abs().sum((0, 1)).max().item(),
+                    "ysum": s64[:, sect["y"]].abs().sum((0, 1)).max().item()}
+            for acc_name, row in _ACC.items():
+                errs["acc." + acc_name] = rel_err(
+                    extra[row].double(), e64[row], mags.get(acc_name))[1]
+        frozen = torch.equal(sk[..., done], state0[..., done])
+        rep = repeat_bits(launch, (sk, extra))
+        worst = max(errs.values())
+        out[name] = dict(vs_f64=errs, max_vs_f64=worst, tol=TOL_CHUNK,
+                         frozen_problems_untouched=frozen,
+                         bits_differing_run_to_run=rep,
+                         ms=time_ms(launch),
+                         ok=bool(worst <= TOL_CHUNK and frozen and not rep))
+        if name == "admm_chunk_dxdy":
+            sp_k, dp_k = sk, extra
+    # The residual kernel on the delta form's packs.
+    rowc = torch.cat([packs["EEinv"], lu], dim=1)
+    rlib = _build.library("residuals", dict(sig, BLOCK_P=0))
+
+    def resid():
+        acc = torch.empty((24, B), device="cuda")
+        residuals._launch_residuals(rlib, coef, packs["Pdp"], packs["Plf"],
+                                    sp_k, dp_k, rowc, packs["varc"], acc)
+        return (acc,)
+    (acck,) = resid()
+    acc64 = residuals.termination_accumulators_plain(
+        scaled64, sp_k.double(), dp_k.double(), rowc.double(),
+        packs["varc"].double())
+    torch.cuda.synchronize()
+    x, _, y = admm_fused.unpack_state(scaled, sp_k.double())
+    dx, dy = admm_fused.unpack_dxdy(scaled, dp_k.double())
+    E, Einv, lo, hi = (rowc[:, k * Rp:(k + 1) * Rp].reshape(-1, B).double()
+                       for k in range(4))
+    edy = E * dy
+    sup = (torch.where((Einv * hi) < 1e25, Einv * hi * edy.clamp(min=0), 0.0)
+           .abs() + torch.where((Einv * lo) > -1e25,
+                                Einv * lo * edy.clamp(max=0), 0.0).abs())
+    mags = {"xsum": x.abs().sum(0).max().item(),
+            "ysum": y.abs().sum(0).max().item(),
+            "q_dot": (scaled.q.double() * dx).abs().sum(0).max().item(),
+            "support": sup.sum(0).max().item()}
+    rerr = {k: rel_err(acck[r].double(), acc64[r], mags.get(k))[1]
+            for k, r in _ACC.items()}
+    rep = repeat_bits(resid, (acck,))
+    w_max = max(v for k, v in rerr.items() if k not in RESID_SUMS)
+    w_sum = max(v for k, v in rerr.items() if k in RESID_SUMS)
+    out["residuals"] = dict(
+        vs_f64=rerr, tol=TOL_RESID_MAX, tol_sums=TOL_RESID_SUM,
+        bits_differing_run_to_run=rep, ms=time_ms(resid),
+        ok=bool(w_max <= TOL_RESID_MAX and w_sum <= TOL_RESID_SUM
+                and not rep))
+    # The tridiagonal pair on the batch's KKT blocks.
+    diag, lower = (t.contiguous() for t in scaled.kkt_blocks(
+        rho_vec, settings.sigma))
+    tc, tg = tridiag_kernel.factor_lane_major(diag, lower)
+    gen = torch.Generator(device="cuda").manual_seed(Nj)
+    rhs = torch.randn((W, B2, B), generator=gen, device="cuda")
+    tx = tridiag_kernel.solve_lane_major(tc, tg, rhs)
+    t64 = tridiag_kernel.factor_lane_major_plain(diag.double(),
+                                                 lower.double())
+    x64 = tridiag_kernel.solve_lane_major_plain(tc.double(), tg.double(),
+                                                rhs.double())
+    torch.cuda.synchronize()
+    fe = max(rel_err(a.double(), r)[1] for a, r in zip((tc, tg), t64))
+    se = rel_err(tx.double(), x64)[1]
+    frep = repeat_bits(lambda: tridiag_kernel.factor_lane_major(diag, lower),
+                       (tc, tg))
+    srep = repeat_bits(
+        lambda: (tridiag_kernel.solve_lane_major(tc, tg, rhs),), (tx,))
+    out["tridiag_factor"] = dict(vs_f64=fe, tol=TOL_TRIDIAG,
+                                 bits_differing_run_to_run=frep,
+                                 ms=time_ms(lambda: tridiag_kernel.
+                                            factor_lane_major(diag, lower)),
+                                 ok=bool(fe <= TOL_TRIDIAG and not frep))
+    out["tridiag_solve"] = dict(vs_f64=se, tol=TOL_TRIDIAG,
+                                bits_differing_run_to_run=srep,
+                                ms=time_ms(lambda: tridiag_kernel.
+                                           solve_lane_major(tc, tg, rhs)),
+                                ok=bool(se <= TOL_TRIDIAG and not srep))
+    # Registers and spills of every build at this size.
+    ptx = {}
+    for src, s_ in (("ruiz", dict(sig, BLOCK_P=0)), ("kkt_factor", sig),
+                    ("admm_chunk", sig), ("residuals", dict(sig, BLOCK_P=0)),
+                    ("tridiag", {"B2": B2})):
+        rep_ = _build.ptxas_report(_build._target(src, s_, False)[1])
+        ptx[src] = {k[:40]: {kk: v[kk] for kk in (
+            "registers", "spill_store_bytes", "spill_load_bytes",
+            "stack_bytes")} for k, v in rep_.items() if isinstance(v, dict)}
+    return out, ptx
+
+
+SIZE_FORMS = {"hrec": {}, "hrec_term_off": dict(term_fused="off"),
+              "gain": dict(factor_form="gain"),
+              "unfused": dict(fused_chunk="off")}
+
+
+def phase_lane_sizes():
+    """The lane path at N = 7, 9, 10, 12 and 16 joints (``size_batch``: W=100,
+    B=1024, f32, the bench.py settings): every kernel against its plain
+    version in f64 (``size_kernels``), then ``solve_batched_lane`` fused in
+    the hrec form with fused and unfused termination (statuses and counts
+    equal problem for problem), in the gain form, and on the unfused path;
+    every form 1024/1024 optimal, the f64 criterion within 2 % on 16
+    problems, the path's kernels launched and no plain version."""
+    bench = dataclasses.replace(Settings(), **BENCH)
+    recs = {}
+    for Nj in LANE_SIZES:
+        qp = size_batch(Nj)
+        kern, ptx = size_kernels(Nj, qp, bench)
+        forms = {}
+        for form, over in SIZE_FORMS.items():
+            s = dataclasses.replace(bench, **over)
+            reset_counts()
+            syncs0 = admm_lane.HOST_SYNCS
+            with PlainCalls() as plain:
+                res = admm_lane.solve_batched_lane(qp, s)  # the path, once
+                torch.cuda.synchronize()
+            counts = {k: v for k, v in read_counts().items() if v}
+            it, st = res.iterations.cpu(), res.status.cpu()
+            forms[form] = dict(
+                optimal=int((st == 0).sum()), iterations_p50=int(it.median()),
+                iterations_max=int(it.max()), launches=counts,
+                host_syncs=admm_lane.HOST_SYNCS - syncs0,
+                plain_calls=dict(plain.calls),
+                f64_prim_dual_box=host_residual_check(
+                    qp, res, torch.linspace(0, BATCH - 1, 16).long(), s),
+                finite=bool(torch.isfinite(res.x).all()),
+                status=st, iterations=it)
+        a, b = forms["hrec"], forms["hrec_term_off"]
+        same = dict(statuses=int((a["status"] != b["status"]).sum()),
+                    iterations=int((a["iterations"] != b["iterations"]).sum()))
+        for f in forms.values():
+            f.pop("status"), f.pop("iterations")
+        recs[f"N{Nj}"] = dict(kernels=kern, ptxas=ptx, solves=forms,
+                              term_fused_vs_off_differ=same)
+        del qp
+        torch.cuda.empty_cache()
+    emit("lane_sizes", batch=BATCH, W=W, sizes=list(LANE_SIZES), **recs)
+    need = {"hrec": ("ruiz", "kkt_factor", "admm_chunk"),
+            "hrec_term_off": ("ruiz", "kkt_factor", "admm_chunk_dxdy",
+                              "residuals"),
+            "gain": ("ruiz", "kkt_factor_gain", "admm_chunk_gain"),
+            "unfused": ("ruiz", "tridiag_factor", "tridiag_solve")}
+    for key, rec in recs.items():
+        bad = [k for k, v in rec["kernels"].items() if not v["ok"]]
+        if bad:
+            fail(f"lane_sizes ({key}): kernel(s) outside tolerance of the "
+                 f"f64 plain version or not equal run to run: {bad}")
+        if any(rec["term_fused_vs_off_differ"].values()):
+            fail(f"lane_sizes ({key}): fused and unfused termination differ: "
+                 f"{rec['term_fused_vs_off_differ']}")
+        for form, f in rec["solves"].items():
+            if f["optimal"] != BATCH or not f["finite"]:
+                fail(f"lane_sizes ({key}, {form}): {f['optimal']}/{BATCH} "
+                     "optimal")
+            if max(f["f64_prim_dual_box"][:2]) > 1.02:
+                fail(f"lane_sizes ({key}, {form}): float64 recomputation "
+                     f"violates OSQP's criterion {f['f64_prim_dual_box']}")
+            if f["plain_calls"] or min(f["launches"].get(k, 0)
+                                       for k in need[form]) < 1:
+                fail(f"lane_sizes ({key}, {form}): launches {f['launches']}, "
+                     f"plain versions {f['plain_calls']}")
+    return recs
+
+
+def solve_counts(qp, settings):
+    """One ``solve_batched_lane`` with the counters read around it: the
+    result, the launches, the host reads, the ρ refactors, the polish
+    factors and the plain versions called."""
+    reset_counts()
+    s0, r0 = admm_lane.HOST_SYNCS, admm_lane.RHO_REFACTORS
+    p0 = admm_lane.POLISH_FACTORS
+    with PlainCalls() as plain:
+        res = admm_lane.solve_batched_lane(qp, settings)
+        torch.cuda.synchronize()
+    return res, dict(
+        launches=read_counts(), host_syncs=admm_lane.HOST_SYNCS - s0,
+        rho_refactors=admm_lane.RHO_REFACTORS - r0,
+        polish_factors=admm_lane.POLISH_FACTORS - p0,
+        plain_calls=dict(plain.calls))
+
+
+def iteration_summary(res, settings, offset=0):
+    it, st = res.iterations.cpu(), res.status.cpu()
+    it_max = int(it.max())
+    return dict(
+        optimal=int((st == 0).sum()),
+        statuses={str(k): v for k, v in sorted(
+            collections.Counter(st.tolist()).items())},
+        iterations_p50=int(it.median()), iterations_max=it_max,
+        iterations_hist={str(k): v for k, v in sorted(
+            collections.Counter(it.tolist()).items())},
+        chunks=-(-(it_max - offset) // settings.check_termination),
+        finite=bool(torch.isfinite(res.x).all()))
+
+
+def phase_solve_refine():
+    """The honest class at W=1100 (B=256, f32, stock settings) with
+    ``with_auto_refine``'s bumped ``kkt_refine=1``: the unfused path, each
+    iteration a tridiagonal solve and one refinement solve.  Every problem
+    optimal, the f64 criterion within 2 % on 16 problems; launches: the
+    tridiagonal factor once plus once per ρ refactor, the solve twice per
+    iteration run, no stencil factor or chunk, no plain version; one host
+    read per chunk."""
+    s = gadmm.with_auto_refine(Settings(), LONG_W, torch.float32)
+    qp = build_honest_batch(REFINE_BATCH, LONG_W, N, torch.float32, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, c = solve_counts(qp, s)  # the main path, once
+    ms = (time.perf_counter() - t0) * 1e3
+    summ = iteration_summary(res, s)
+    chk = host_residual_check(
+        qp, res, torch.linspace(0, REFINE_BATCH - 1, 16).long(), s)
+    rec = dict(W=LONG_W, batch=REFINE_BATCH, kkt_refine=s.kkt_refine,
+               **summ, **c, f64_prim_dual_box=chk, ms=ms)
+    emit("solve_refine", **rec)
+    L = c["launches"]
+    if s.kkt_refine != 1:
+        fail(f"solve_refine: with_auto_refine gave kkt_refine={s.kkt_refine}")
+    if summ["optimal"] != REFINE_BATCH or not summ["finite"]:
+        fail(f"solve_refine: {summ['optimal']}/{REFINE_BATCH} optimal")
+    if max(chk[:2]) > 1.02:
+        fail(f"solve_refine: float64 recomputation violates OSQP's criterion "
+             f"{chk}")
+    want = dict(tridiag_factor=1 + c["rho_refactors"],
+                tridiag_solve=2 * summ["iterations_max"], kkt_factor=0,
+                admm_chunk=0, ruiz=1)
+    bad = {k: (L[k], v) for k, v in want.items() if L[k] != v}
+    if bad or c["plain_calls"] or c["host_syncs"] != summ["chunks"]:
+        fail(f"solve_refine: launches (got, want) {bad}, plain versions "
+             f"{c['plain_calls']}, {c['host_syncs']} syncs for "
+             f"{summ['chunks']} chunks")
+    return L
+
+
+def phase_planner_long():
+    """``run_batch_lane`` at W=1100 in f32 (the bumped ``kkt_refine=1``:
+    the unfused lane solve) on the first 64 queries of the full search:
+    statuses equal to the JAX f32 run's, SCP rounds within 2 of its, every
+    optimal plan through the exact-FK audit, the tridiagonal kernels
+    launched and no plain version."""
+    solver = ur5e_solver(LONG_W, [])
+    starts, ends = long_queries()
+    reset_counts()
+    p0 = planner.PLANNER_SYNCS
+    with PlainCalls() as plain:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, tr, rounds = solver.run_batch_lane(starts, ends, LONG_W)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    ref_st = torch.tensor(decode_statuses(PLANNER_LONG_REF["statuses"]))
+    ref_rounds = torch.tensor(decode_statuses(PLANNER_LONG_REF["rounds"]))
+    st_c, rounds_c = st.cpu(), rounds.cpu()
+    audit = audit_plans(solver, st_c, tr, torch.full((LONG_QUERIES,),
+                                                     LONG_W))
+    rec = dict(W=LONG_W, queries=LONG_QUERIES, ms=ms,
+               optimal=int((st_c == 0).sum()),
+               statuses={str(k): v for k, v in sorted(
+                   collections.Counter(st_c.tolist()).items())},
+               same_status=int((st_c == ref_st).sum()),
+               reference_optimal=int((ref_st == 0).sum()),
+               scp_rounds_max_diff=int((rounds_c - ref_rounds).abs().max()),
+               scp_rounds_hist={str(k): v for k, v in sorted(
+                   collections.Counter(rounds_c.tolist()).items())},
+               planner_host_syncs=planner.PLANNER_SYNCS - p0,
+               launches={k: v for k, v in counts.items() if v},
+               plain_calls=dict(plain.calls), audit=audit,
+               finite=bool(torch.isfinite(tr).all()))
+    emit("planner_long", **rec)
+    if rec["same_status"] != LONG_QUERIES:
+        fail(f"planner_long: {rec['same_status']}/{LONG_QUERIES} statuses "
+             "equal to the JAX f32 run's")
+    if rec["scp_rounds_max_diff"] > 2:
+        fail(f"planner_long: SCP rounds differ from JAX's by "
+             f"{rec['scp_rounds_max_diff']} > 2")
+    if (audit["workspace_margin"] < -(ERROR + 1e-5)
+            or audit["velocity_mismatch"] > 0.2 or not rec["finite"]):
+        fail(f"planner_long: exact-FK audit failed: {audit}")
+    if (min(counts[k] for k in TRIDIAG_KERNELS) < 1 or counts["admm_chunk"]
+            or counts["kkt_factor"] or plain.calls):
+        fail(f"planner_long: launches {counts}, plain versions "
+             f"{dict(plain.calls)}")
+    return rec
+
+
+def phase_solve_polish():
+    """The honest class (W=100, B=1024, f32, the bench.py settings) with
+    ``polish=True``, fused and unfused: statuses equal to the unpolished
+    run's, how many problems the polish moved, the f64 criterion within
+    2 % on 16 of the polished problems; polish's launches counted apart:
+    one tridiagonal factor and ``1 + polish_refine_iter`` solves beyond
+    the path's own."""
+    qp = honest_f32(BATCH, W, "cuda")
+    bench = dataclasses.replace(Settings(), **BENCH)
+    recs = {}
+    for form, over in (("fused", {}), ("unfused", dict(fused_chunk="off"))):
+        s0 = dataclasses.replace(bench, **over)
+        sp = dataclasses.replace(s0, polish=True)
+        r0, c0 = solve_counts(qp, s0)
+        r1, c1 = solve_counts(qp, sp)  # the main path, once
+        moved = (r1.x != r0.x).any(dim=1)
+        idx = torch.nonzero(moved).flatten().cpu()
+        idx = (idx[torch.linspace(0, len(idx) - 1, min(16, len(idx))).long()]
+               if len(idx) else torch.linspace(0, BATCH - 1, 16).long())
+        L0, L1 = c0["launches"], c1["launches"]
+        recs[form] = dict(
+            **iteration_summary(r1, sp, sp.termination_warmup),
+            same_status=int((r1.status == r0.status).sum()),
+            polished=int(moved.sum()),
+            reference_polished=POLISH_REF["polished"],
+            f64_prim_dual_box_polished=host_residual_check(qp, r1, idx, sp),
+            polish_launches={k: L1[k] - L0[k] for k in TRIDIAG_KERNELS},
+            launches={k: v for k, v in L1.items() if v},
+            polish_factors=c1["polish_factors"],
+            rho_refactors=c1["rho_refactors"], host_syncs=c1["host_syncs"],
+            plain_calls=c1["plain_calls"])
+    emit("solve_polish", **recs)
+    want = {"tridiag_factor": 1,
+            "tridiag_solve": 1 + bench.polish_refine_iter}
+    for form, rec in recs.items():
+        if rec["same_status"] != BATCH:
+            fail(f"solve_polish ({form}): {rec['same_status']}/{BATCH} "
+                 "statuses equal to the unpolished run's")
+        if max(rec["f64_prim_dual_box_polished"][:2]) > 1.02:
+            fail(f"solve_polish ({form}): float64 recomputation violates "
+                 f"OSQP's criterion {rec['f64_prim_dual_box_polished']}")
+        if (rec["polish_launches"] != want or rec["polish_factors"] != 1
+                or rec["plain_calls"]):
+            fail(f"solve_polish ({form}): polish launches "
+                 f"{rec['polish_launches']} (want {want}), "
+                 f"{rec['polish_factors']} polish factors, plain versions "
+                 f"{rec['plain_calls']}")
+    return recs["fused"]["launches"]
+
+
+def phase_solve_anderson():
+    """The honest class (W=100, B=1024, f32) with ``anderson=4`` and
+    ``check_termination=3``: fused with the chunk's termination fused and
+    not (equal statuses and counts), unfused, and fused with ρ adaptation
+    firing (``rho=10``, ``adaptive_rho_interval=6``).  Every form
+    1024/1024 optimal, the f64 criterion within 2 % on 16 problems, p50
+    within one chunk of the JAX f32 run's (``ANDERSON_REF``), one host read
+    per chunk, no plain version."""
+    qp = honest_f32(BATCH, W, "cuda")
+    forms = {"fused": (ANDERSON, {}),
+             "fused_term_off": (ANDERSON, dict(term_fused="off")),
+             "unfused": (ANDERSON, dict(fused_chunk="off")),
+             "rho_fused": (ANDERSON_RHO, {})}
+    recs, results, main_launches = {}, {}, None
+    for form, (over, port) in forms.items():
+        s = dataclasses.replace(Settings(), **over, **port)
+        res, c = solve_counts(qp, s)
+        if form == "fused":  # this slice's main path
+            main_launches = c["launches"]
+        ref = ANDERSON_REF["rho" if form.startswith("rho") else "base"]
+        summ = iteration_summary(res, s)
+        recs[form] = dict(
+            **summ, reference_p50=ref["p50"], reference_hist=ref["hist"],
+            f64_prim_dual_box=host_residual_check(
+                qp, res, torch.linspace(0, BATCH - 1, 16).long(), s),
+            launches={k: v for k, v in c["launches"].items() if v},
+            host_syncs=c["host_syncs"], rho_refactors=c["rho_refactors"],
+            plain_calls=c["plain_calls"],
+            ms=statistics.median(host_ms(
+                lambda: admm_lane.solve_batched_lane(qp, s))
+                for _ in range(3)))
+        results[form] = res
+    a, b = results["fused"], results["fused_term_off"]
+    differ = dict(statuses=int((a.status != b.status).sum()),
+                  iterations=int((a.iterations != b.iterations).sum()))
+    emit("solve_anderson", **recs, term_fused_vs_off_differ=differ)
+    if any(differ.values()):
+        fail(f"solve_anderson: fused and unfused termination differ: "
+             f"{differ}")
+    for form, rec in recs.items():
+        ct = ANDERSON["check_termination"]
+        if rec["optimal"] != BATCH or not rec["finite"]:
+            fail(f"solve_anderson ({form}): {rec['optimal']}/{BATCH} optimal")
+        if max(rec["f64_prim_dual_box"][:2]) > 1.02:
+            fail(f"solve_anderson ({form}): float64 recomputation violates "
+                 f"OSQP's criterion {rec['f64_prim_dual_box']}")
+        if abs(rec["iterations_p50"] - rec["reference_p50"]) > ct:
+            fail(f"solve_anderson ({form}): p50 {rec['iterations_p50']}, JAX "
+                 f"f32 {rec['reference_p50']}: more than one chunk apart")
+        if rec["host_syncs"] != rec["chunks"] or rec["plain_calls"]:
+            fail(f"solve_anderson ({form}): {rec['host_syncs']} syncs for "
+                 f"{rec['chunks']} chunks, plain versions "
+                 f"{rec['plain_calls']}")
+    if recs["rho_fused"]["rho_refactors"] < 1:
+        fail("solve_anderson (rho_fused): no ρ adaptation fired")
+    return main_launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="all",
@@ -3786,7 +4504,10 @@ def main():
     # The kernels that read P (Ruiz, residuals) add the P form, BLOCK_P.
     honest_sig = {"NDIM": N, "NX": 5}
     if "build" in want:
-        sigs = [{"B2": 2 * N}, {"B2": 18}, {"B2": 20}, {}]
+        sigs = [{"B2": 2 * N}, {}] + [
+            {"B2": b2} for b2, _, _ in TRIDIAG_SIZES.values() if b2 != 2 * N]
+        if "lane_sizes" in want:
+            sigs += [s_ for n in LANE_SIZES for s_ in size_signatures(n)]
         for nx in (5, 0, 3):  # honest; box; planner_full
             if nx == 5 or (nx == 0 and "box" in want) or (
                     nx == 3 and want & {"planner_full", "planner_batch"}):
@@ -3847,6 +4568,22 @@ def main():
         launches.update(phase_planner_run())
     if "planner_batch" in want:
         phase_planner_batch()
+    # This slice's paths (queue A2): their counts are the table's launches
+    # where they run a kernel; every path's are recorded beside them.
+    by_path = {}
+    if "lane_sizes" in want:
+        phase_lane_sizes()
+    if "solve_refine" in want:
+        by_path["solve_refine"] = phase_solve_refine()
+    if "planner_long" in want:
+        by_path["planner_long"] = phase_planner_long()["launches"]
+    if "solve_polish" in want:
+        by_path["solve_polish"] = phase_solve_polish()
+    if "solve_anderson" in want:
+        by_path["solve_anderson"] = phase_solve_anderson()
+    for path in ("solve_polish", "solve_anderson", "solve_refine"):
+        launches.update({k: v for k, v in by_path.get(path, {}).items()
+                         if v})
 
     csrc = "osqp_solver_tpu_torch/csrc/"
     ops = "osqp_solver_tpu/ops/"
@@ -3879,6 +4616,8 @@ def main():
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             **({"sizes": k["sizes"]} if "sizes" in k else {}),
+            "launches_by_path": {p_: c.get(k["name"], 0)
+                                 for p_, c in by_path.items()},
         })
     RECORDS["seconds_total"] = round(time.time() - t_start, 1)
     if opts.out:

@@ -50,15 +50,16 @@ KERNELS = {
 # value, the limit as the source states it).  A signature above them is
 # refused before a compiler starts (start_build, so every kernel wrapper).
 LIMITS = {
-    "tridiag": ("B2", 20, "csrc/tridiag.cu: its solve is held against its "
-                "plain version on the card up to B2 <= 20 (N <= 10); at "
-                "B2=24 it spills and gives wrong results"),
-    "kkt_factor": ("NDIM", 10, "csrc/kkt_factor.cu:59: Schur entries are "
-                   "packed a byte each (SLOT <= 256: N <= 10)"),
-    "admm_chunk": ("NDIM", 16, "csrc/admm_chunk.cu:74: a group of threads "
-                   "per problem is at most one warp (2N <= 32)"),
+    "tridiag": ("B2", 32, "csrc/tridiag.cu:115: a group of threads per "
+                "problem is at most one warp (B2 <= 32: N <= 16)"),
+    "kkt_factor": ("NDIM", 16, "csrc/kkt_factor.cu:52: a group of threads "
+                   "per problem is at most one warp (2N <= 32: N <= 16)"),
+    "admm_chunk": ("NDIM", 16, "csrc/admm_chunk.cu:76: a group of threads "
+                   "per problem is at most one warp (2N <= 32: N <= 16)"),
     "residuals": ("NDIM", 16, "csrc/residuals.cu:65: a group of threads per "
-                  "problem is at most one warp (2N <= 32)"),
+                  "problem is at most one warp (2N <= 32: N <= 16)"),
+    "ruiz": ("NDIM", 16, "csrc/ruiz.cu: held against its plain version on "
+             "the card up to N <= 16, the other lane kernels' limit"),
 }
 
 
@@ -164,12 +165,13 @@ def finish_build(handle) -> Path:
 def build_all(signatures, names=tuple(KERNELS)):
     """Build every kernel for every signature of its kind (the signature's
     keys are the kernel's :data:`KERNELS` entry), all compilers started
-    together.  Returns ``{(name, sig items): path}``."""
-    handles = [
-        (n, tuple(sorted(s.items())), start_build(n, s))
-        for s in signatures for n in names
-        if set(s) == set(KERNELS[n])
-    ]
+    together, one for each distinct (kernel, signature): two compilers of
+    one target would write the same temporary file.  Returns ``{(name, sig
+    items): path}``."""
+    wanted = dict.fromkeys(
+        (n, tuple(sorted(s.items())))
+        for s in signatures for n in names if set(s) == set(KERNELS[n]))
+    handles = [(n, s, start_build(n, dict(s))) for n, s in wanted]
     return {(n, s): finish_build(h) for n, s, h in handles}
 
 

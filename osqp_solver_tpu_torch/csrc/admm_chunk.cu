@@ -55,7 +55,9 @@
 //     from the group's vector (left in shared memory, one __syncwarp): the
 //     two problems of a warp share one instruction stream, and the solve
 //     needs no exchange (column sweeps across the group were slower: a
-//     shuffle per pivot on the chain);
+//     shuffle per pivot on the chain).  Above N = 10 (LANE_SOLVE) the
+//     factor does not fit a lane's registers, and the solves go by columns
+//     across the group, the factor read from the stage;
 //   - constraint rows r = lane, lane + G, ... stay on one lane each, from the
 //     A-row apply to the state and delta writes; the vectors a row reads
 //     (x~_t, x~_{t+1}, and in MODE_TERM x_sel, dx of t and t+1) sit in a
@@ -125,8 +127,14 @@ enum { MODE_PLAIN = 0, MODE_TERM = 1, MODE_DXDY = 2 };
 // offset; the G lanes of a problem, reading G rows of one column, meet at
 // most 2-way bank conflicts.  16-byte copies when a block's columns are
 // whole 16-byte pieces of every row (group_tile_x4) and every pack is
-// 16-byte aligned, else 4-byte copies.
-constexpr int QS = 12;
+// 16-byte aligned, else 4-byte copies.  Where three stages of the largest
+// form (the gain form with the accumulators) would not leave a block's
+// shared memory 32 KB of the 227 KB it may use at 12 values a row (above
+// N = 12), the rows take QS = 4, one value per problem.
+__host__ __device__ constexpr int qs_for(int rows) {
+    return NSTAGE * rows * 12 * 4 <= 195 * 1024 ? 12 : 4;
+}
+constexpr int QS = qs_for(stage_rows(true, true));
 static_assert(Q_MAX <= QS && QS % 4 == 0, "");
 
 __host__ __device__ constexpr int producer_base(int qlog) {
@@ -247,26 +255,57 @@ __device__ __forceinline__ void upper_solve(const real* c, real* v) {
 // instruction stream, and nothing is exchanged inside the solve (column
 // sweeps across the group, a shuffle per pivot on the chain, were slower:
 // PERF.md).
+//
+// Above 2N = 20 (N > 10) the factor (T values) does not fit beside the rest
+// in a lane's registers: the solve then runs by columns ACROSS the group,
+// lane i owning element i, the factor read from the stage at the point of
+// use, a shuffle a column (lane j divides and passes its element, the lanes
+// below, or above for C', take its term off), in the same order of
+// operations as lower_solve and upper_solve.
+constexpr bool LANE_SOLVE = B2 > 20;
+
 template <bool LOWER, bool UPPER>
 __device__ __forceinline__ real group_solve(const Tile& ch, real v,
                                             const Args& a) {
-    real* r = a.slot + SL_R;
-    if (a.lane < B2) r[a.lane] = v;
-    lane_group_sync(a.g, G);
-    // The factor in registers first: every load in flight at once, and
-    // the substitutions' chain is then divisions and multiply-adds only.
-    real L[T], y[B2];
+    if constexpr (LANE_SOLVE) {
+        const int i = a.lane;
+        const real cii = ch[LOW(i < B2 ? i : 0, i < B2 ? i : 0)];
+        if (LOWER) {
 #pragma unroll
-    for (int k = 0; k < T; ++k) L[k] = ch[k];
+            for (int j = 0; j < B2; ++j) {
+                const real yj = lane_shfl(v / cii, j, a.g, G);
+                if (i == j) v = yj;
+                else if (i > j && i < B2) v = v - ch[LOW(i, j)] * yj;
+            }
+        }
+        if (UPPER) {
 #pragma unroll
-    for (int k = 0; k < B2; ++k) y[k] = r[k];
-    if (LOWER) lower_solve(L, y);
-    if (UPPER) upper_solve(L, y);
-    real out = y[0];
+            for (int k = B2 - 1; k >= 0; --k) {
+                const real xk = lane_shfl(v / cii, k, a.g, G);
+                if (i == k) v = xk;
+                else if (i < k) v = v - ch[LOW(k, i)] * xk;
+            }
+        }
+        return v;
+    } else {
+        real* r = a.slot + SL_R;
+        if (a.lane < B2) r[a.lane] = v;
+        lane_group_sync(a.g, G);
+        // The factor in registers first: every load in flight at once, and
+        // the substitutions' chain is then divisions and multiply-adds only.
+        real L[T], y[B2];
 #pragma unroll
-    for (int k = 1; k < B2; ++k)
-        if (a.lane == k) out = y[k];
-    return out;
+        for (int k = 0; k < T; ++k) L[k] = ch[k];
+#pragma unroll
+        for (int k = 0; k < B2; ++k) y[k] = r[k];
+        if (LOWER) lower_solve(L, y);
+        if (UPPER) upper_solve(L, y);
+        real out = y[0];
+#pragma unroll
+        for (int k = 1; k < B2; ++k)
+            if (a.lane == k) out = y[k];
+        return out;
+    }
 }
 
 template <bool GAIN>

@@ -33,16 +33,23 @@
 //     independent forward substitution) into shared memory for the next
 //     step and, with emit_gain, to gainp; barrier; C_t goes to its slot and
 //     out to cholp during the next step, a few entries a lane.
+// Above N = 10 (LANE_ROWS) the whole S no longer fits a lane's registers:
+// the prologue assembles each waypoint in its slot, and lane i owns row i
+// of the step (factor_rows_step: the Cholesky by columns across the group,
+// a barrier a pivot, in place in the slot; row i of G_t from there).
 // Two other designs were timed on the card and were no faster (PERF.md): the
 // Cholesky by columns across the group (lane i owning row i, a barrier a
 // pivot), and the whole Schur update in every lane's registers with one
 // barrier a step.
 // Bound: each problem's chain of W dependent steps (a square root and an
 // exact reciprocal per pivot), not bytes or operations.
+#include <type_traits>
+
 #include "lane_common.cuh"
 
 // Threads per problem, problems per block at most (log2), threads per block.
 constexpr int G = pow2_at_least(B2);
+static_assert(G <= 32, "a group is at most one warp (2N <= 32)");
 constexpr int QLOG_MAX = 3;
 constexpr int MAX_THREADS = G << QLOG_MAX;
 // Schur entries per lane.
@@ -56,7 +63,21 @@ constexpr int SLOT = (T + 3 * N + 1) | 1;
 constexpr int GS = T | 1;
 // The slot row that the Schur entries past T (NE * G > T) update: a spare.
 constexpr int SL_SPARE = SLOT - 1;
-static_assert(SLOT <= 256 && GS <= 256, "Schur entries are packed a byte each");
+// A lane's table of Schur entries packs four fields into one word: a byte
+// each while every field is below 256 (N <= 10), else 16 bits each.
+constexpr bool ENT_WIDE = !(SLOT <= 256 && GS <= 256);
+using ent_t = std::conditional_t<ENT_WIDE, unsigned long long, unsigned>;
+constexpr int ENT_BITS = ENT_WIDE ? 16 : 8;
+static_assert(SLOT <= 65536 && GS <= 65536, "entries fit 16 bits each");
+// Field k of an entry: 0 its row i, 1 and 2 the offsets of rows i and j of
+// the packed upper G (G[UP(i, k)] at gq[ui + k] for k >= i), 3 its slot row.
+__host__ __device__ constexpr int ent_field(ent_t e, int k) {
+    return (int)(e >> (k * ENT_BITS) & ((ent_t(1) << ENT_BITS) - 1));
+}
+// Above 2N = 20 (N > 10) the step's rows are split among the group's lanes
+// (the header's LANE_ROWS form): no array of T values stays in a lane's
+// registers.
+constexpr bool LANE_ROWS = B2 > 20;
 
 // ---------------------------------------------------------------- the plan
 
@@ -93,6 +114,70 @@ static FactorPlan factor_plan_for(int W, int B, int budget, int sms) {
 
 // --------------------------------------------------------------- the kernel
 
+// One step above N = 10 (LANE_ROWS), after the Schur update left S_t in its
+// slot (stride Q) and the block's barrier: lane l < 2N owns row l.  Cholesky
+// by columns (a block barrier per pivot): lane j forms its pivot from its
+// row, then every lane below forms its entry of column j from its row and
+// row j in the slot; C_t overwrites S_t in place, where the next step stores
+// it out.  Then row l of G_t = Ml_t C_t^{-T} from C_t in the slot, into
+// G_{t-1}'s place (read by this step's Schur update before the last
+// barrier) and with emit_gain to gainp row t.  Every entry keeps the order
+// of operations of the form in registers.
+template <bool GAIN>
+__device__ __forceinline__ void factor_rows_step(real* slot, real* gq,
+                                                 real* gainp, int t, int W,
+                                                 size_t Bs, int b, int Q,
+                                                 int l, bool valid) {
+    const bool row = l < B2;
+    const int lr = row ? l : 0;
+    const auto C = [&](int i, int j) -> real& { return slot[LOW(i, j) * Q]; };
+    real a[B2];  // row lr of S_t, then of C_t
+#pragma unroll
+    for (int k = 0; k < B2; ++k) a[k] = k <= lr ? C(lr, k) : real(0);
+#pragma unroll
+    for (int jj = 0; jj < B2; ++jj) {
+        if (l == jj) {
+            real sdd = a[jj];
+#pragma unroll
+            for (int k = 0; k < jj; ++k) sdd -= a[k] * a[k];
+            a[jj] = sqrt_rn(sdd);
+            C(jj, jj) = a[jj];
+        }
+        __syncthreads();  // pivot jj and row jj whole
+        if (row && l > jj) {
+            real sij = a[jj];
+#pragma unroll
+            for (int k = 0; k < jj; ++k) sij -= a[k] * C(jj, k);
+            a[jj] = sij * rcp_rn(C(jj, jj));
+            C(l, jj) = a[jj];
+        }
+    }
+    __syncthreads();  // C_t whole
+    if (!row) return;
+    const real diag =
+        l < N ? slot[(SL_ML + l) * Q] : slot[(SL_ML + N + l) * Q];
+    const real qv = l < N ? slot[(SL_ML + N + l) * Q] : real(0);
+    real grow[B2];
+#pragma unroll
+    for (int j = 0; j < B2; ++j) {
+        real sij = j == l ? diag : (j == l + N ? qv : real(0));
+#pragma unroll
+        for (int k = 0; k < j; ++k)
+            if (k >= l) sij -= grow[k] * C(j, k);
+        grow[j] = j >= l ? sij * rcp_rn(C(j, j)) : real(0);
+    }
+    real* grow_out = gq + (UP(l, l) - l);
+#pragma unroll
+    for (int j = 0; j < B2; ++j)
+        if (j >= l) grow_out[j] = grow[j];
+    if (GAIN && valid) {
+        real* gout = gainp + ((size_t)t * Tp + UP(l, l) - l) * Bs + b;
+#pragma unroll
+        for (int j = 0; j < B2; ++j)
+            if (j >= l) gout[(size_t)j * Bs] = t < W - 1 ? grow[j] : real(0);
+    }
+}
+
 template <bool GAIN>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
     kkt_factor_kernel(const real* __restrict__ coef_,
@@ -113,18 +198,19 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
 
     // This lane's Schur entries (i, j) of the packed lower triangle, NE of
     // them; those past T update the spare slot row with row 2N-1's single
-    // term, so that every lane runs NE entries without a branch.  Packed a
-    // byte each: i, the offsets of rows i and j of the packed upper G
-    // (G[UP(i, k)] at gq[ui + k] for k >= i) and the slot row.
-    int ent[NE];
+    // term, so that every lane runs NE entries without a branch.  Fields
+    // (ent_field): i, the offsets of rows i and j of the packed upper G and
+    // the slot row.
+    ent_t ent[NE];
 #pragma unroll
     for (int m = 0; m < NE; ++m) {
         const int e = l + m * G;
         int i = 0;
         while (i + 1 < B2 && LOW(i + 1, 0) <= e) ++i;
         const int j = e < T ? e - LOW(i, 0) : i;
-        ent[m] = i | (UP(i, i) - i) << 8 | (UP(j, j) - j) << 16 |
-                 (e < T ? e : SL_SPARE) << 24;
+        ent[m] = (ent_t)i | (ent_t)(UP(i, i) - i) << ENT_BITS |
+                 (ent_t)(UP(j, j) - j) << 2 * ENT_BITS |
+                 (ent_t)(e < T ? e : SL_SPARE) << 3 * ENT_BITS;
     }
     for (int e = l; e < T; e += G) gq[e] = real(0);  // G_{-1} = 0
     // Packed C of waypoint t from its slot to cholp row t: entries l, l + G,
@@ -147,9 +233,15 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
             if (bb >= B) continue;
             const Pack coef{coef_, Bs, bb}, rho{rho_, Bs, bb}, pd{pd_, Bs, bb},
                 pl{pl_, Bs, bb};
-            real S[T];
+            real* slot = win + (size_t)tl * SLOT * Q + (pr & (Q - 1));
+            // M_t in registers, or (LANE_ROWS) in its slot.
+            real Sr[LANE_ROWS ? 1 : T];
+            const auto S = [&](int k) -> real& {
+                if constexpr (LANE_ROWS) return slot[k * Q];
+                else return Sr[k];
+            };
 #pragma unroll
-            for (int k = 0; k < T; ++k) S[k] = real(0);
+            for (int k = 0; k < T; ++k) S(k) = real(0);
             // Dense q-block J' rho J of the workspace / obstacle rows.
 #pragma unroll
             for (int k = 0; k < NX; ++k) {
@@ -161,10 +253,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
                 for (int i = 0; i < N; ++i) {
                     const real fi = f[i] * rr;
 #pragma unroll
-                    for (int j = 0; j <= i; ++j) S[LOW(i, j)] += fi * f[j];
+                    for (int j = 0; j <= i; ++j) S(LOW(i, j)) += fi * f[j];
                 }
             }
-            real* slot = win + (size_t)tl * SLOT * Q + (pr & (Q - 1));
 #pragma unroll
             for (int j = 0; j < N; ++j) {
                 const real rd = rho(t, Rp, R_DYN + j);
@@ -190,15 +281,17 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
                 const real d_vv = rd * c0 * c0 +
                                   rho(t, Rp, R_VEL + j) * ve * ve + a0sq +
                                   ra * a1 * a1;
-                S[LOW(j, j)] = S[LOW(j, j)] + d_qq + sigma;
-                S[LOW(N + j, j)] = rd * c2 * c0;
-                S[LOW(N + j, N + j)] = d_vv + pd(t, PNp, j) + sigma;
+                S(LOW(j, j)) = S(LOW(j, j)) + d_qq + sigma;
+                S(LOW(N + j, j)) = rd * c2 * c0;
+                S(LOW(N + j, N + j)) = d_vv + pd(t, PNp, j) + sigma;
                 slot[(SL_ML + j) * Q] = rd * c1 * c2;
                 slot[(SL_ML + N + j) * Q] = rd * c1 * c0;
                 slot[(SL_ML + 2 * N + j) * Q] = ra * a0 * a1 + pl(t, PNp, j);
             }
+            if constexpr (!LANE_ROWS) {
 #pragma unroll
-            for (int k = 0; k < T; ++k) slot[k * Q] = S[k];
+                for (int k = 0; k < T; ++k) slot[k * Q] = Sr[k];
+            }
         }
         __syncthreads();
 
@@ -213,9 +306,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
             real acc[NE];
 #pragma unroll
             for (int m = 0; m < NE; ++m) {
-                const int i = ent[m] & 255;
-                const real* gi = gq + (ent[m] >> 8 & 255);
-                const real* gj = gq + (ent[m] >> 16 & 255);
+                const int i = ent_field(ent[m], 0);
+                const real* gi = gq + ent_field(ent[m], 1);
+                const real* gj = gq + ent_field(ent[m], 2);
                 real a[B2], c[B2];
 #pragma unroll
                 for (int k = 0; k < B2; ++k) {
@@ -229,7 +322,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
             }
 #pragma unroll
             for (int m = 0; m < NE; ++m) {
-                real* e = slot + (ent[m] >> 24) * Q;
+                real* e = slot + ent_field(ent[m], 3) * Q;
                 *e = *e - acc[m];
             }
             __syncthreads();
@@ -237,66 +330,81 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
             // a few entries a lane, the pad entries zero.
             if (tl > 0 && valid) store_chol(slot - SLOT * Q, t - 1);
 
-            // Cholesky of the whole S in this lane's registers.
-            real S[T], idia[B2];
+            if constexpr (LANE_ROWS) {
+                factor_rows_step<GAIN>(slot, gq, gainp, t, W, Bs, b, Q, l,
+                                       valid);
+                if (GAIN && valid) {
+                    for (int e = T + l; e < Tp; e += G)
+                        gainp[((size_t)t * Tp + e) * Bs + b] = real(0);
+                }
+                __syncthreads();
+            } else {
+                // Cholesky of the whole S in this lane's registers.
+                real S[T], idia[B2];
 #pragma unroll
-            for (int k = 0; k < T; ++k) S[k] = slot[k * Q];
+                for (int k = 0; k < T; ++k) S[k] = slot[k * Q];
 #pragma unroll
-            for (int jj = 0; jj < B2; ++jj) {
-                real sdd = S[LOW(jj, jj)];
-#pragma unroll
-                for (int k = 0; k < jj; ++k) sdd -= S[LOW(jj, k)] * S[LOW(jj, k)];
-                const real d = sqrt_rn(sdd);
-                S[LOW(jj, jj)] = d;
-                idia[jj] = rcp_rn(d);
-#pragma unroll
-                for (int i = jj + 1; i < B2; ++i) {
-                    real sij = S[LOW(i, jj)];
+                for (int jj = 0; jj < B2; ++jj) {
+                    real sdd = S[LOW(jj, jj)];
 #pragma unroll
                     for (int k = 0; k < jj; ++k)
-                        sij -= S[LOW(i, k)] * S[LOW(jj, k)];
-                    S[LOW(i, jj)] = sij * idia[jj];
+                        sdd -= S[LOW(jj, k)] * S[LOW(jj, k)];
+                    const real d = sqrt_rn(sdd);
+                    S[LOW(jj, jj)] = d;
+                    idia[jj] = rcp_rn(d);
+#pragma unroll
+                    for (int i = jj + 1; i < B2; ++i) {
+                        real sij = S[LOW(i, jj)];
+#pragma unroll
+                        for (int k = 0; k < jj; ++k)
+                            sij -= S[LOW(i, k)] * S[LOW(jj, k)];
+                        S[LOW(i, jj)] = sij * idia[jj];
+                    }
                 }
-            }
 
-            // Row i = l of G_t = Ml_t C_t^{-T} (upper triangular: Ml has the
-            // diagonals qq, vv and qv at (j, N+j)): into G_{t-1}'s place for
-            // the next step, and with emit_gain to gainp row t.
-            if (l < B2) {
-                const real diag = l < N ? slot[(SL_ML + l) * Q]
-                                        : slot[(SL_ML + N + l) * Q];
-                const real qv = l < N ? slot[(SL_ML + N + l) * Q] : real(0);
-                real grow[B2];
+                // Row i = l of G_t = Ml_t C_t^{-T} (upper triangular: Ml has
+                // the diagonals qq, vv and qv at (j, N+j)): into G_{t-1}'s
+                // place for the next step, and with emit_gain to gainp row t.
+                if (l < B2) {
+                    const real diag = l < N ? slot[(SL_ML + l) * Q]
+                                            : slot[(SL_ML + N + l) * Q];
+                    const real qv =
+                        l < N ? slot[(SL_ML + N + l) * Q] : real(0);
+                    real grow[B2];
 #pragma unroll
-                for (int j = 0; j < B2; ++j) {
-                    real sij = j == l ? diag : (j == l + N ? qv : real(0));
+                    for (int j = 0; j < B2; ++j) {
+                        real sij =
+                            j == l ? diag : (j == l + N ? qv : real(0));
 #pragma unroll
-                    for (int k = 0; k < j; ++k)
-                        if (k >= l) sij -= grow[k] * S[LOW(j, k)];
-                    grow[j] = j >= l ? sij * idia[j] : real(0);
-                }
-                real* grow_out = gq + (UP(l, l) - l);
-#pragma unroll
-                for (int j = 0; j < B2; ++j)
-                    if (j >= l) grow_out[j] = grow[j];
-                if (GAIN && valid) {
-                    real* gout = gainp + ((size_t)t * Tp + UP(l, l) - l) * Bs + b;
+                        for (int k = 0; k < j; ++k)
+                            if (k >= l) sij -= grow[k] * S[LOW(j, k)];
+                        grow[j] = j >= l ? sij * idia[j] : real(0);
+                    }
+                    real* grow_out = gq + (UP(l, l) - l);
 #pragma unroll
                     for (int j = 0; j < B2; ++j)
-                        if (j >= l)
-                            gout[(size_t)j * Bs] = t < W - 1 ? grow[j] : real(0);
-                }
-            }
-            if (GAIN && valid) {
-                for (int e = T + l; e < Tp; e += G)
-                    gainp[((size_t)t * Tp + e) * Bs + b] = real(0);
-            }
-            __syncthreads();
-            // C_t into the slot of S_t (read by every lane before the
-            // barrier), by the lanes of the first warp.
-            if (l * Q < LANE_WARP) {
+                        if (j >= l) grow_out[j] = grow[j];
+                    if (GAIN && valid) {
+                        real* gout =
+                            gainp + ((size_t)t * Tp + UP(l, l) - l) * Bs + b;
 #pragma unroll
-                for (int k = 0; k < T; ++k) slot[k * Q] = S[k];
+                        for (int j = 0; j < B2; ++j)
+                            if (j >= l)
+                                gout[(size_t)j * Bs] =
+                                    t < W - 1 ? grow[j] : real(0);
+                    }
+                }
+                if (GAIN && valid) {
+                    for (int e = T + l; e < Tp; e += G)
+                        gainp[((size_t)t * Tp + e) * Bs + b] = real(0);
+                }
+                __syncthreads();
+                // C_t into the slot of S_t (read by every lane before the
+                // barrier), by the lanes of the first warp.
+                if (l * Q < LANE_WARP) {
+#pragma unroll
+                    for (int k = 0; k < T; ++k) slot[k * Q] = S[k];
+                }
             }
         }
         __syncthreads();

@@ -41,6 +41,10 @@
 //     substitution and the stores are one block without a branch, which the
 //     compiler interleaves (with a branch around each store, as it compiles
 //     a plain if, the kernel took a third longer: PERF.md).
+// Above B2 = 20 (LANE_ROWS) lane i owns row i of the step instead: the
+// Cholesky goes by columns across the group, a block barrier a pivot, C_t
+// overwriting S_t in the stage, and row i of G_t reads C_t from there
+// (factor_rows_step).
 // Every entry keeps the one-thread kernel's order of operations (Schur and
 // substitution sums from D_t and L_t with k ascending, one reciprocal per
 // pivot times the sum, multiply-adds as nvcc contracted them, written out
@@ -77,6 +81,10 @@
 //     rounded as the division rounds it but without its branch to a slow
 //     path (div_rn: the pivots' reciprocals are taken off the chain), so
 //     the rows' multiply-adds interleave: x is bit for bit that kernel's;
+//   - above B2 = 20 (LANE_ROWS) lane i owns row i instead: the step's dot
+//     product and triangular solve go by columns across the group, a
+//     shuffle a column (solve_rows_across), and nothing of B2 values stays
+//     in a lane's registers;
 //   - the forward sweep keeps w_t on chip (W B2 values a problem) for the
 //     backward sweep, or, where the launch plan finds no room, writes it into
 //     x, from where the producer stages it back.  Nothing on a step's chain
@@ -106,6 +114,15 @@ __host__ __device__ constexpr int TRI(int i, int j) {
 constexpr int SG = pow2_at_least(B2) < 4 ? 4 : pow2_at_least(B2);
 static_assert(SG <= 32, "a group is at most one warp (B2 <= 32)");
 
+// Above B2 = 20 both kernels split a step's rows among the group's lanes
+// (lane i owns row i) instead of working the whole B2 x B2 system in every
+// lane, and the solve's producer issues its copies in a loop
+// (solve_copies): neither kernel spills there.  Up to B2 = 20 the forms
+// below are unchanged, bit for bit.  (With the copies unrolled, the solve
+// built at B2 = 24 spilled and its results changed from run to run, with
+// the consumer's earlier form and with this one alike: PERF.md.)
+constexpr bool LANE_ROWS = B2 > 20;
+
 // ---- the factor.
 // Problems per block at most (log2), stages of the ring, Schur entries per
 // lane, and a row of a block padded to whole 16-byte loads.
@@ -124,6 +141,10 @@ __host__ __device__ constexpr int odd_quads(int n) {
     return n % 8 == 0 ? n + 4 : n;
 }
 constexpr int F_L = NE * SG;
+// LANE_ROWS: the first spare entry past the triangle (F_L > NT at every
+// B2 above 20) holds the step's "some pivot not positive" flag.
+constexpr int F_BAD = NT;
+static_assert(!LANE_ROWS || F_L > NT, "a spare entry for the pivot flag");
 constexpr int F_FR = odd_quads(F_L + SG * B2P);
 constexpr int F_GS = odd_quads(SG * B2P);
 // A lane's table of Schur entries packs four offsets into one word: a byte
@@ -153,6 +174,68 @@ static FactorPlan factor_plan_for(int B, int sms) {
     const int qlog = group_qlog(B, sms, F_QLOG_MAX), Q = 1 << qlog;
     return FactorPlan{qlog, Q, (int)factor_smem_bytes(qlog), (B + Q - 1) / Q,
                       SG << qlog};
+}
+
+// One step of the factor above B2 = 20, after the Schur update left S_t in
+// the stage (sg: this problem's values) and the block's barrier: lane l < B2
+// owns row l.  Cholesky by columns (a block barrier per pivot): lane j
+// forms its pivot from its row, then every lane below forms its entry of
+// column j from its row and row j in shared memory; C_t overwrites S_t in
+// place.  Then row l of G_t = L_t C_t^{-T} from C_t in shared memory, into
+// gq (G_{t-1}'s place, read by this step's Schur update before the last
+// barrier) and out, and row l of C_t out.  Every entry keeps the one-thread
+// kernel's order of operations, as the forms below B2 = 20 do.  Lanes past
+// B2 (lr = 0) compute on row 0 and write nothing but their unread rows of
+// gq.
+__device__ __forceinline__ void factor_rows_step(
+    real* sg, real* gq, real* co, real* go, int t, int W, size_t Bs, int l,
+    int lr, bool row, bool valid) {
+    real a[B2];  // row lr of S_t, then of C_t
+#pragma unroll
+    for (int k = 0; k < B2; ++k) a[k] = k <= lr ? sg[TRI(lr, k)] : real(0);
+    if (l == 0) sg[F_BAD] = real(0);
+#pragma unroll
+    for (int j = 0; j < B2; ++j) {
+        if (l == j) {
+            real s = a[j];
+#pragma unroll
+            for (int k = 0; k < j; ++k) s = fma_rn(-a[k], a[k], s);
+            if (!(s > real(0))) sg[F_BAD] = real(1);
+            a[j] = sqrt_rn(s);
+            sg[TRI(j, j)] = a[j];
+        }
+        __syncthreads();  // pivot j and row j whole
+        if (row && l > j) {
+            real v = a[j];
+#pragma unroll
+            for (int k = 0; k < j; ++k) v = fma_rn(-a[k], sg[TRI(j, k)], v);
+            a[j] = mul_rn(v, rcp_rn(sg[TRI(j, j)]));
+            sg[TRI(l, j)] = a[j];
+        }
+    }
+    __syncthreads();  // C_t whole
+    // A non-positive pivot: every value of C_t and G_t NaN.
+    const real poison = sg[F_BAD] != real(0) ? real(NAN) : real(0);
+    const bool gout = row && valid && t < W - 1;
+    real g[B2P];
+#pragma unroll
+    for (int j = 0; j < B2P; ++j) {
+        if (j < B2) {
+            real s = sg[F_L + l * B2P + j];
+#pragma unroll
+            for (int k = 0; k < j; ++k) s = fma_rn(-g[k], sg[TRI(j, k)], s);
+            g[j] = mul_rn(s, rcp_rn(sg[TRI(j, j)])) - poison;
+            store_if(go + (size_t)t * NF * Bs + j * Bs, g[j], gout);
+        } else {
+            g[j] = real(0);
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < B2P; k += 4) store4(gq + l * B2P + k, g + k);
+#pragma unroll
+    for (int j = 0; j < B2; ++j)
+        store_if(co + (size_t)t * NF * Bs + j * Bs,
+                 l >= j ? a[j] - poison : real(0), row && valid);
 }
 
 __global__ void __launch_bounds__(SG << F_QLOG_MAX, 1)
@@ -239,60 +322,66 @@ __global__ void __launch_bounds__(SG << F_QLOG_MAX, 1)
         }
         __syncthreads();  // S_t whole
 
-        // Cholesky of the whole S_t in this lane's registers, column by
-        // column, one reciprocal per pivot.
-        real S[(NT + 3) / 4 * 4], rl[B2];
+        if constexpr (LANE_ROWS) {
+            factor_rows_step(sg, gq, co, go, t, W, Bs, l, lr, row, valid);
+        } else {
+            // Cholesky of the whole S_t in this lane's registers, column by
+            // column, one reciprocal per pivot.
+            real S[(NT + 3) / 4 * 4], rl[B2];
 #pragma unroll
-        for (int k = 0; k < NT; k += 4) load4(sg + k, S + k);
-        bool bad = false;
+            for (int k = 0; k < NT; k += 4) load4(sg + k, S + k);
+            bool bad = false;
 #pragma unroll
-        for (int j = 0; j < B2; ++j) {
-            real s = S[TRI(j, j)];
-#pragma unroll
-            for (int k = 0; k < j; ++k)
-                s = fma_rn(-S[TRI(j, k)], S[TRI(j, k)], s);
-            bad = bad || !(s > real(0));
-            const real d = sqrt_rn(s);
-            rl[j] = rcp_rn(d);
-            S[TRI(j, j)] = d;
-#pragma unroll
-            for (int i = j + 1; i < B2; ++i) {
-                real v = S[TRI(i, j)];
+            for (int j = 0; j < B2; ++j) {
+                real s = S[TRI(j, j)];
 #pragma unroll
                 for (int k = 0; k < j; ++k)
-                    v = fma_rn(-S[TRI(i, k)], S[TRI(j, k)], v);
-                S[TRI(i, j)] = mul_rn(v, rl[j]);
+                    s = fma_rn(-S[TRI(j, k)], S[TRI(j, k)], s);
+                bad = bad || !(s > real(0));
+                const real d = sqrt_rn(s);
+                rl[j] = rcp_rn(d);
+                S[TRI(j, j)] = d;
+#pragma unroll
+                for (int i = j + 1; i < B2; ++i) {
+                    real v = S[TRI(i, j)];
+#pragma unroll
+                    for (int k = 0; k < j; ++k)
+                        v = fma_rn(-S[TRI(i, k)], S[TRI(j, k)], v);
+                    S[TRI(i, j)] = mul_rn(v, rl[j]);
+                }
             }
-        }
-        // A non-positive pivot: every value of C_t and G_t NaN (x - poison
-        // is x, -0 included, or NaN).
-        const real poison = bad ? nan : real(0);
-        // Row l of G_t = L_t C_t^{-T}: G[l][j] = (L[l][j] - sum_{k<j}
-        // G[l][k] C[j][k]) / C[j][j]; into shared memory for the next step
-        // (the lanes past B2 into rows nobody reads) and out.
-        const bool gout = row && valid && t < W - 1;
-        real Lr[B2P], g[B2P];
+            // A non-positive pivot: every value of C_t and G_t NaN (x - poison
+            // is x, -0 included, or NaN).
+            const real poison = bad ? nan : real(0);
+            // Row l of G_t = L_t C_t^{-T}: G[l][j] = (L[l][j] - sum_{k<j}
+            // G[l][k] C[j][k]) / C[j][j]; into shared memory for the next step
+            // (the lanes past B2 into rows nobody reads) and out.
+            const bool gout = row && valid && t < W - 1;
+            real Lr[B2P], g[B2P];
 #pragma unroll
-        for (int k = 0; k < B2P; k += 4) load4(sg + F_L + l * B2P + k, Lr + k);
+            for (int k = 0; k < B2P; k += 4)
+                load4(sg + F_L + l * B2P + k, Lr + k);
 #pragma unroll
-        for (int j = 0; j < B2P; ++j) {
-            real s = j < B2 ? Lr[j] : real(0);
+            for (int j = 0; j < B2P; ++j) {
+                real s = j < B2 ? Lr[j] : real(0);
 #pragma unroll
-            for (int k = 0; k < j && j < B2; ++k)
-                s = fma_rn(-g[k], S[TRI(j, k)], s);
-            g[j] = j < B2 ? mul_rn(s, rl[j]) - poison : real(0);
-            if (j < B2) store_if(go + (size_t)t * NF * Bs + j * Bs, g[j], gout);
-        }
+                for (int k = 0; k < j && j < B2; ++k)
+                    s = fma_rn(-g[k], S[TRI(j, k)], s);
+                g[j] = j < B2 ? mul_rn(s, rl[j]) - poison : real(0);
+                if (j < B2)
+                    store_if(go + (size_t)t * NF * Bs + j * Bs, g[j], gout);
+            }
 #pragma unroll
-        for (int k = 0; k < B2P; k += 4) store4(gq + l * B2P + k, g + k);
-        // Row l of C_t, picked out of the registers, its upper part zero.
+            for (int k = 0; k < B2P; k += 4) store4(gq + l * B2P + k, g + k);
+            // Row l of C_t, picked out of the registers, its upper part zero.
 #pragma unroll
-        for (int j = 0; j < B2; ++j) {
-            real v = real(0);
+            for (int j = 0; j < B2; ++j) {
+                real v = real(0);
 #pragma unroll
-            for (int i = j; i < B2; ++i) v = l == i ? S[TRI(i, j)] : v;
-            v = l >= j ? v - poison : real(0);
-            store_if(co + (size_t)t * NF * Bs + j * Bs, v, row && valid);
+                for (int i = j; i < B2; ++i) v = l == i ? S[TRI(i, j)] : v;
+                v = l >= j ? v - poison : real(0);
+                store_if(co + (size_t)t * NF * Bs + j * Bs, v, row && valid);
+            }
         }
         __syncthreads();  // G_t whole
     }
@@ -342,29 +431,37 @@ static SolvePlan solve_plan_for(int W, int B, int budget, int sms) {
 // Start this producer's copies of step t into stage t % S_NSTAGE and commit
 // them: C_t's lower triangle; forward G_{t-1} transposed (t > 0) and rhs_t,
 // backward G_t (t < W-1) and, w in x, w_t.
+// Above B2 = 20 (LANE_ROWS) the copies go in a loop (stage_tile_copies_
+// rolled): unrolled, the producer's addresses of a stage's ~1,600 rows
+// took the kernel's registers and it spilled.
+template <int CNT, class DstRow>
+__device__ __forceinline__ void solve_copies(const Stager& s, const real* src,
+                                             real* dst, DstRow dst_row) {
+    if constexpr (LANE_ROWS)
+        stage_tile_copies_rolled<SQS, S_PRODUCERS, CNT>(s, src, dst, dst_row);
+    else
+        stage_tile_copies<SQS, S_PRODUCERS, CNT>(s, src, dst, dst_row);
+}
+
 template <bool BWD, bool WSM>
 __device__ __forceinline__ void solve_issue(const Stager& s, const real* chol,
                                             const real* gain, const real* v,
                                             real* ring, int t, int W) {
     real* sg = ring + (t % S_NSTAGE) * S_ROWS * SQS;
     const size_t blk = (size_t)NF * s.B, vec = (size_t)B2 * s.B;
-    stage_tile_copies<SQS, S_PRODUCERS, NF>(s, chol + t * blk + s.b0,
-                                          sg + S_C * SQS, [](int k) {
-                                              const int i = k / B2, j = k % B2;
-                                              return j <= i ? TRI(i, j) : -1;
-                                          });
+    solve_copies<NF>(s, chol + t * blk + s.b0, sg + S_C * SQS, [](int k) {
+        const int i = k / B2, j = k % B2;
+        return j <= i ? TRI(i, j) : -1;
+    });
     if (!BWD && t > 0)
-        stage_tile_copies<SQS, S_PRODUCERS, NF>(
-            s, gain + (t - 1) * blk + s.b0, sg + S_G * SQS,
-            [](int k) { return (k % B2) * B2 + k / B2; });
+        solve_copies<NF>(s, gain + (t - 1) * blk + s.b0, sg + S_G * SQS,
+                         [](int k) { return (k % B2) * B2 + k / B2; });
     if (BWD && t < W - 1)
-        stage_tile_copies<SQS, S_PRODUCERS, NF>(s, gain + t * blk + s.b0,
-                                              sg + S_G * SQS,
-                                              [](int k) { return k; });
+        solve_copies<NF>(s, gain + t * blk + s.b0, sg + S_G * SQS,
+                         [](int k) { return k; });
     if (!BWD || !WSM)
-        stage_tile_copies<SQS, S_PRODUCERS, B2>(s, v + t * vec + s.b0,
-                                              sg + S_V * SQS,
-                                              [](int k) { return k; });
+        solve_copies<B2>(s, v + t * vec + s.b0, sg + S_V * SQS,
+                         [](int k) { return k; });
     cp_async_commit();
 }
 
@@ -373,7 +470,8 @@ __device__ __forceinline__ void solve_issue(const Stager& s, const real* chol,
 // point of use.  Held in registers at B2 = 18 and 20, the kernel spilled
 // and its results on the card changed from run to run; read from the
 // stage it does not spill there and is right in every case checked.  At
-// B2 = 24 it spills again and fails: the wrappers refuse B2 > 20.
+// B2 = 24 this form spilled again and failed: above B2 = 20 the solve
+// takes the LANE_ROWS form.
 constexpr bool L_IN_STAGE = B2 > 16;
 
 // The step's triangular solve in every lane: y from the group's right-hand
@@ -437,10 +535,45 @@ __device__ __forceinline__ void load_step(const real* sg, const real* wsm_t,
     o.v = BWD && WSM ? wsm_t[r * SQS] : V[r];
 }
 
+// A step of a sweep above B2 = 20 (LANE_ROWS), lane i owning row i: its
+// element of the right-hand side (the dot product with the previous step's
+// vector, whose elements the lanes own, through shuffles), then the
+// triangular solve by columns across the group, a shuffle a column: lane j
+// divides and passes its element, the lanes below (forward) or above
+// (backward) take its term off.  Forward this is the row form's order of
+// operations; backward each row takes its terms in decreasing j.  c is this
+// lane's element of the previous step's vector on entry and of this step's
+// on return.
+template <bool BWD, bool WSM>
+__device__ __forceinline__ real solve_rows_across(const real* sg,
+                                                  const real* wsm_t, int i,
+                                                  int g, bool first, real c) {
+    const STile C{sg + S_C * SQS}, Gt{sg + S_G * SQS}, V{sg + S_V * SQS};
+    const int r = i < B2 ? i : 0;  // lanes past B2: row 0's values, unused
+    const real cii = C[TRI(r, r)], rli = rcp_rn(cii);
+    real acc = real(0);
+    if (!first) {
+#pragma unroll
+        for (int j = 0; j < B2; ++j)
+            acc = fma_rn(Gt[j * B2 + r], lane_shfl(c, j, g, SG), acc);
+    }
+    real v = (BWD && WSM ? wsm_t[r * SQS] : V[r]) - acc, y = real(0);
+#pragma unroll
+    for (int u = 0; u < B2; ++u) {
+        const int j = BWD ? B2 - 1 - u : u;
+        const real yj = lane_shfl(div_rn(v, cii, rli), j, g, SG);
+        y = i == j ? yj : y;
+        if (!BWD && i > j && i < B2) v = fma_rn(-C[TRI(i, j)], yj, v);
+        if (BWD && i < j) v = fma_rn(-C[TRI(j, i)], yj, v);
+    }
+    return y;
+}
+
 // One sweep, step u = 0..W-1 on t = u (forward) or W-1-u (backward):
 // forward w_t = C_t^{-1} (rhs_t - G_{t-1} w_{t-1}), into wsm (w on chip)
 // or x; backward x_t = C_t^{-T} (w_t - G_t' x_{t+1}), into x.  c[] holds
-// the previous step's vector in every lane, zero at the first step.  vec is
+// the previous step's vector in every lane, zero at the first step (above
+// B2 = 20 c[0] holds this lane's element of it).  vec is
 // rhs forward and x backward (where w_t is staged from when not on chip).
 template <bool BWD, bool WSM>
 __device__ __forceinline__ void solve_sweep(
@@ -470,29 +603,41 @@ __device__ __forceinline__ void solve_sweep(
         }
         if (idle) continue;
         const real* sg = ring + (t % S_NSTAGE) * S_ROWS * SQS + g;
-        load_step<BWD, WSM>(sg, wsm + t * B2 * SQS, i, o);
-        if (i < B2) {
-            real acc = real(0);
-            if (u > 0) {
-#pragma unroll
-                for (int j = 0; j < B2; ++j) acc = fma_rn(o.gr[j], c[j], acc);
+        if constexpr (LANE_ROWS) {
+            c[0] = solve_rows_across<BWD, WSM>(sg, wsm + t * B2 * SQS, i, g,
+                                                u == 0, c[0]);
+            if (i < B2) {
+                if (!BWD && WSM)
+                    wsm[(t * B2 + i) * SQS] = c[0];
+                else if (valid)
+                    xb[(size_t)(t * B2 + i) * B] = c[0];
             }
-            slot[i] = o.v - acc;
-        }
-        lane_group_sync(g, SG);
-        if constexpr (L_IN_STAGE)
-            solve_rows<BWD>(STile{sg + S_C * SQS}, o.rl, slot, c);
-        else
-            solve_rows<BWD>(o.L, o.rl, slot, c);
-        if (i < B2) {
-            real ci = c[0];
+        } else {
+            load_step<BWD, WSM>(sg, wsm + t * B2 * SQS, i, o);
+            if (i < B2) {
+                real acc = real(0);
+                if (u > 0) {
 #pragma unroll
-            for (int k = 1; k < B2; ++k)
-                if (i == k) ci = c[k];
-            if (!BWD && WSM)
-                wsm[(t * B2 + i) * SQS] = ci;
-            else if (valid)
-                xb[(size_t)(t * B2 + i) * B] = ci;
+                    for (int j = 0; j < B2; ++j)
+                        acc = fma_rn(o.gr[j], c[j], acc);
+                }
+                slot[i] = o.v - acc;
+            }
+            lane_group_sync(g, SG);
+            if constexpr (L_IN_STAGE)
+                solve_rows<BWD>(STile{sg + S_C * SQS}, o.rl, slot, c);
+            else
+                solve_rows<BWD>(o.L, o.rl, slot, c);
+            if (i < B2) {
+                real ci = c[0];
+#pragma unroll
+                for (int k = 1; k < B2; ++k)
+                    if (i == k) ci = c[k];
+                if (!BWD && WSM)
+                    wsm[(t * B2 + i) * SQS] = ci;
+                else if (valid)
+                    xb[(size_t)(t * B2 + i) * B] = ci;
+            }
         }
     }
 }
@@ -516,16 +661,19 @@ __global__ void __launch_bounds__(solve_threads(S_QLOG_MAX), 1)
     real* wsm = ring + S_NSTAGE * S_ROWS * SQS + (SG << qlog) + g;
     real* xb = x + b;
 
-    real c[B2];  // w_{t-1} forward, x_{t+1} backward, in every lane
+    // w_{t-1} forward, x_{t+1} backward, in every lane (above B2 = 20 this
+    // lane's element).
+    constexpr int NC = LANE_ROWS ? 1 : B2;
+    real c[NC];
 #pragma unroll
-    for (int k = 0; k < B2; ++k) c[k] = real(0);
+    for (int k = 0; k < NC; ++k) c[k] = real(0);
     solve_sweep<false, WSM>(s, stager, idle, valid, i, g, chol, gain, rhs,
                             ring, slot, wsm, xb, W, B, c);
     // The barrier ends the forward sweep's reads of the ring (and makes its
     // w writes visible).
     __syncthreads();
 #pragma unroll
-    for (int k = 0; k < B2; ++k) c[k] = real(0);
+    for (int k = 0; k < NC; ++k) c[k] = real(0);
     solve_sweep<true, WSM>(s, stager, idle, valid, i, g, chol, gain, x, ring,
                            slot, wsm, xb, W, B, c);
 }

@@ -17,7 +17,11 @@ points:
   (:func:`~osqp_solver_tpu_torch.ops.admm_lane.solve_batched_lane`):
   ``run_batch_lane`` (fixed horizon) and ``run_batch_padded`` (the full
   time-scaling search over a batch of queries), with shared or per-query
-  line / sphere / capsule obstacles.
+  line / sphere / capsule obstacles.  A float32 horizon above 1024
+  waypoints takes one iterative-refinement step per KKT solve (the
+  reference's ``with_auto_refine`` policy), which sends the lane solve to
+  its unfused path: the block-tridiagonal factor and solve kernels, the
+  solve launched twice per ADMM iteration.
 
 The reference's jitted programs are plain host functions and its
 ``lax.while_loop`` / ``fori_loop`` host loops.  The host reads the device

@@ -67,10 +67,9 @@ class Settings:
     kkt_method: str = "direct"
     cg_tol: float = 1e-7
     cg_max_iter: int = 100
-    # Iterative-refinement steps after each direct KKT solve (generic path
-    # only).
+    # Iterative-refinement steps after each direct KKT solve.
     kkt_refine: int = 0
-    # Solution polishing (generic path only).
+    # Solution polishing.
     polish: bool = False
     polish_delta: float = 1e-6
     polish_refine_iter: int = 3
@@ -89,7 +88,8 @@ class Settings:
     # coefficients; "gain" = the factor kernel also writes the packed gain
     # G_t and the chunk kernel streams it.
     factor_form: str = "hrec"
-    # Anderson acceleration of the chunk fixed-point map (not ported).
+    # Anderson acceleration of the chunk fixed-point map (lane driver only,
+    # as in the reference).
     anderson: int = 0
     anderson_reg: float = 1e-8
     anderson_safeguard: float = 1.5
@@ -119,8 +119,9 @@ def check_supported(settings: Settings, generic: bool = False) -> None:
     """Refuse every ``Settings`` value that this port does not implement.
 
     ``generic``: the caller is the generic path (:func:`solve_batched`,
-    :mod:`.session`), which has the CG backend, ``kkt_refine`` and
-    ``polish``; the lane driver has none of them yet."""
+    :mod:`.session`), which has the CG backend and no Anderson acceleration;
+    the lane driver has Anderson acceleration and no CG backend, as in the
+    reference."""
     for name in ("factor_round", "factor_warmup_stream"):
         val = getattr(settings, name)
         if val not in _STREAM_VALUES:
@@ -129,16 +130,15 @@ def check_supported(settings: Settings, generic: bool = False) -> None:
             )
     if settings.kkt_method not in ("direct", "cg"):
         raise ValueError(f"Settings.kkt_method={settings.kkt_method!r}")
+    if not generic and settings.kkt_method != "direct":
+        raise NotImplementedError(
+            "the lane driver supports the direct KKT backend only, as the "
+            "reference's; use ops.admm.solve_batched for kkt_method='cg'")
+    if generic and settings.anderson > 0:
+        raise NotImplementedError(
+            f"anderson={settings.anderson}: Anderson acceleration is a "
+            "setting of the lane driver only, as in the reference")
     waiting = []
-    if not generic:
-        if settings.kkt_method != "direct":
-            waiting.append(f"kkt_method={settings.kkt_method!r}")
-        if settings.polish:
-            waiting.append("polish=True")
-        if settings.kkt_refine > 0:
-            waiting.append(f"kkt_refine={settings.kkt_refine}")
-    if settings.anderson > 0:
-        waiting.append(f"anderson={settings.anderson}")
     if settings.factor_round != "none":
         waiting.append(f"factor_round={settings.factor_round!r}")
     if settings.factor_warmup_stream != "none":
@@ -146,10 +146,9 @@ def check_supported(settings: Settings, generic: bool = False) -> None:
             f"factor_warmup_stream={settings.factor_warmup_stream!r}"
         )
     if waiting:
-        path = "generic path" if generic else "lane driver"
         raise NotImplementedError(
-            f"not ported to the PyTorch/CUDA package's {path} yet: "
-            + ", ".join(waiting)
+            "reduced-precision factor streams are TPU settings that the "
+            "PyTorch/CUDA package does not implement: " + ", ".join(waiting)
         )
     for name in ("fused_chunk", "term_fused"):
         if getattr(settings, name) not in ("auto", "on", "off"):
@@ -171,8 +170,9 @@ def refine_steps_for_horizon(waypoints: int, dtype) -> int:
 
 def with_auto_refine(settings: Settings, waypoints: int, dtype) -> Settings:
     """Bump ``kkt_refine`` per the long-horizon policy (never lowers an
-    explicit user setting).  The lane driver has no refinement: a bumped
-    setting is refused by :func:`check_supported` at its solve."""
+    explicit user setting).  Either driver honours the bumped setting: the
+    lane driver then takes its unfused path, whose every KKT solve is
+    followed by the refinement steps."""
     auto = refine_steps_for_horizon(waypoints, dtype)
     if auto > settings.kkt_refine:
         return dataclasses.replace(settings, kkt_refine=auto)
@@ -320,6 +320,15 @@ class ADMMState:
     # Stall-detection carry (Settings.stall_checks > 0; None otherwise).
     stall_ref: Optional[torch.Tensor] = None
     stall_k: Optional[torch.Tensor] = None
+    # Anderson-acceleration carry of the lane driver (Settings.anderson > 0;
+    # None otherwise): the ring of chunk-map outputs and residuals on
+    # v = (x, z + y/ρ) (anderson, n + m, B), the current chunk's input v,
+    # the slots filled (B,) and the last residual's norm (B,).
+    aa_g: Optional[torch.Tensor] = None
+    aa_f: Optional[torch.Tensor] = None
+    aa_vin: Optional[torch.Tensor] = None
+    aa_n: Optional[torch.Tensor] = None
+    aa_fnorm: Optional[torch.Tensor] = None
 
     def replace(self, **changes) -> "ADMMState":
         return dataclasses.replace(self, **changes)

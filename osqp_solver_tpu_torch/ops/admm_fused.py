@@ -251,7 +251,10 @@ def pack_factor(qp, factor):
         z = cholp.new_zeros((W, pad, B))
         cholp = torch.cat([cholp, z], dim=1)
         gainp = torch.cat([gainp, z], dim=1)
-    return cholp, gainp
+    # Contiguous whatever the layout of the factor's blocks (with no pad to
+    # append, as at 2N = 16 and 32, the gather keeps it), as the kernels
+    # read it.
+    return cholp.contiguous(), gainp.contiguous()
 
 
 def unpack_gain(qp, gainp):

@@ -11,17 +11,21 @@ CUDA device every iteration, factorization and the equilibration of a
 waypoint-layout vel-diag batch run in the hand-written kernels
 (:mod:`.admm_fused`, :mod:`.kkt_factor`, :mod:`.ruiz_kernel`, and with
 ``Settings(term_fused="off")`` :mod:`.residuals`), in either factor form
-(``Settings.factor_form``).  A waypoint-layout block-P batch takes the same
-packed chunk in the gain form, fed :func:`.admm_fused.pack_factor` of the
-block-tridiagonal factor kernel (:mod:`.tridiag_kernel`), with the block-P
-Ruiz and the residual kernel once per chunk.  The unfused path —
-``Settings(fused_chunk="off")`` or the ``"type"`` row layout — runs op by
-op, its KKT factor and
-solve in the block-tridiagonal kernels (:mod:`.tridiag_kernel`).  Either
-way the host reads the device ONCE per chunk (one small tensor holding "any
-problem still running" and "any ρ to adapt"), counted in
-:data:`HOST_SYNCS`.  On the CPU the same loops run the kernels' plain
-versions.
+(``Settings.factor_form``), with the reference's Anderson acceleration of
+the chunk map between chunks (``Settings.anderson``; glue, no kernel of its
+own) and its solution polish after the loop (``Settings.polish``: one more
+block-tridiagonal factor and ``1 + polish_refine_iter`` solves).  A
+waypoint-layout block-P batch takes the same packed chunk in the gain form,
+fed :func:`.admm_fused.pack_factor` of the block-tridiagonal factor kernel
+(:mod:`.tridiag_kernel`), with the block-P Ruiz and the residual kernel
+once per chunk.  The unfused path — ``Settings(fused_chunk="off")`` or the
+``"type"`` row layout — runs op by op, its KKT factor and solve in the
+block-tridiagonal kernels (:mod:`.tridiag_kernel`); it is also the path of
+``Settings(kkt_refine=k)``, whose every KKT solve is followed by ``k``
+refinement solves.  Either way the host reads the device ONCE per chunk
+(one small tensor holding "any problem still running" and "any ρ to
+adapt"), counted in :data:`HOST_SYNCS`.  On the CPU the same loops run the
+kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ from .admm import (
     identity_scaling,
     init_state,
     pin_matmul_precision,
+    polish,
     resolve_device,
 )
 from .ruiz import Scaling
@@ -54,6 +59,9 @@ HOST_SYNCS = 0
 # chip_smoke.py holds the factor kernel's launches to one per setup plus
 # this count.
 RHO_REFACTORS = 0
+# Polish factorizations since import (one per solve with Settings.polish):
+# counted apart from the ρ refactors, which a session's contract limits.
+POLISH_FACTORS = 0
 
 
 # ---------------------------------------------------------------------------
@@ -104,6 +112,118 @@ def _iteration(scaled, st: LaneADMMState, factor, settings: Settings,
     unless a ``kkt_solve(factor, rhs)`` is given."""
     return _admm_iteration(scaled, st, settings, factor=factor,
                            solve=kkt_solve)
+
+
+def _anderson_init(scaled, st: LaneADMMState, settings: Settings,
+                   use_fused: bool) -> LaneADMMState:
+    """The Anderson carry (the reference's ``admm_lane.py:901-915``): an
+    empty ring of ``settings.anderson`` slots on v = (x, w = z + y/ρ), the
+    current v as the next chunk's input, no slot filled, and an infinite
+    last residual norm."""
+    from .admm_fused import unpack_state
+
+    if use_fused:
+        x0, z0, y0 = unpack_state(scaled, st.x)
+    else:
+        x0, z0, y0 = st.x, st.z, st.y
+    v0 = torch.cat([x0, z0 + y0 / st.rho_vec], dim=0)
+    B = v0.shape[-1]
+    ring = (settings.anderson,) + tuple(v0.shape)
+    return st.replace(
+        aa_g=v0.new_zeros(ring),
+        aa_f=v0.new_zeros(ring),
+        aa_vin=v0,
+        aa_n=torch.zeros((B,), dtype=torch.int32, device=v0.device),
+        aa_fnorm=torch.full((B,), float("inf"), dtype=v0.dtype,
+                            device=v0.device),
+    )
+
+
+def _anderson_step(scaled, st: LaneADMMState, settings: Settings,
+                   use_fused: bool, reset_mask) -> LaneADMMState:
+    """Safeguarded Anderson extrapolation of the chunk fixed-point map (the
+    reference's ``_anderson_step``, step for step).
+
+    One chunk is a map T on v = (x, w = z + y/ρ).  The last
+    ``settings.anderson`` outputs g_i = T(v_i) and residuals f_i = g_i − v_i
+    give α ∝ M⁻¹1 with M = FᵀF + λ·(tr M / mh)·I, normalised to Σα = 1, and
+    v⁺ = Σ αᵢ g_i; z and y are recovered from w (z = Π_[l,u](w), y = ρ(w −
+    z)).  A problem's history resets where its residual grew past
+    ``anderson_safeguard`` times the last one, where ``reset_mask`` (its ρ
+    just adapted), and at its first step; a reset fills every slot with the
+    current pair.  Done problems and problems whose extrapolation is not
+    finite (or whose Σα vanishes) keep the plain iterate; done problems keep
+    their state and carry.  Device work only: the per-problem mh×mh systems
+    are solved without a check that would read the device."""
+    from .admm_fused import pack_state, unpack_state
+
+    mh = settings.anderson
+    n = scaled.q.shape[0]
+    if use_fused:
+        x0, z0, y0 = unpack_state(scaled, st.x)
+    else:
+        x0, z0, y0 = st.x, st.z, st.y
+    v_out = torch.cat([x0, z0 + y0 / st.rho_vec], dim=0)  # (d, B)
+    f = v_out - st.aa_vin
+    fnorm = f.abs().amax(dim=0)  # (B,)
+
+    grew = fnorm > settings.anderson_safeguard * st.aa_fnorm
+    reset = grew | reset_mask | (st.aa_n == 0)
+    kept = torch.where(reset, torch.zeros_like(st.aa_n), st.aa_n)
+    slot = kept % mh
+    ar = torch.arange(mh, device=slot.device)
+    sm = ((ar[:, None] == slot[None, :]) | reset[None, :])[:, None, :]
+    aa_g = torch.where(sm, v_out[None], st.aa_g)
+    aa_f = torch.where(sm, f[None], st.aa_f)
+
+    M = torch.einsum("idb,jdb->bij", aa_f, aa_f)
+    tr = torch.diagonal(M, dim1=1, dim2=2).sum(dim=1)
+    lam = settings.anderson_reg * tr / mh + 1e-30
+    M = M + lam[:, None, None] * torch.eye(mh, dtype=M.dtype,
+                                           device=M.device)
+    a = torch.linalg.solve_ex(
+        M, torch.ones((M.shape[0], mh, 1), dtype=M.dtype, device=M.device),
+        check_errors=False,
+    ).result[..., 0]
+    s = a.sum(dim=1, keepdim=True)
+    tiny = s.abs() < 1e-12
+    alpha = a / torch.where(tiny, torch.ones_like(s), s)
+    v_acc = torch.einsum("bi,idb->db", alpha, aa_g)
+    bad = ~torch.isfinite(v_acc.abs().amax(dim=0)) | tiny[:, 0]
+    v_new = torch.where((st.done | bad)[None, :], v_out, v_acc)
+
+    xn = v_new[:n]
+    w = v_new[n:]
+    zn = torch.minimum(torch.maximum(w, scaled.l), scaled.u)
+    yn = st.rho_vec * (w - zn)
+    frozen = st.done[None, :]
+    xn = torch.where(frozen, x0, xn)
+    zn = torch.where(frozen, z0, zn)
+    yn = torch.where(frozen, y0, yn)
+    if use_fused:
+        st = st.replace(x=pack_state(scaled, xn, zn, yn))
+    else:
+        st = st.replace(x=xn, z=zn, y=yn)
+    return st.replace(
+        aa_g=aa_g,
+        aa_f=aa_f,
+        aa_vin=torch.cat([xn, zn + yn / st.rho_vec], dim=0),
+        aa_n=torch.where(st.done, st.aa_n, kept + 1),
+        aa_fnorm=torch.where(st.done, st.aa_fnorm, fnorm),
+    )
+
+
+def _polish(base, scaled, scaling: Scaling, st: LaneADMMState,
+            settings: Settings) -> LaneADMMState:
+    """The reference's lane polish (``admm_lane.py:1018-1061``), which is
+    the generic one on the lane container: the active set from the unscaled
+    z, y, l and u, one ``scaled.kkt_factor`` (the block-tridiagonal factor
+    kernel on a CUDA batch, counted in :data:`POLISH_FACTORS`), ``1 +
+    polish_refine_iter`` solves, and the polished iterate taken per problem
+    where it improves both residuals of a kOptimal problem."""
+    global POLISH_FACTORS
+    POLISH_FACTORS += 1
+    return polish(base, scaled, scaling, st, settings)
 
 
 # ---------------------------------------------------------------------------
@@ -206,10 +326,11 @@ def _use_fused(scaled, settings: Settings) -> bool:
 def check_kernel_limits(qp, settings: Settings, device) -> None:
     """On a CUDA ``device``, raise ``NotImplementedError`` naming the limit,
     before anything is built or moved, where a kernel that the solve of
-    ``qp`` launches is not built for its size (``_build.LIMITS``): the fused
-    path's factor kernel above 10 joints, its chunk and residual kernels
-    above 16, the block-tridiagonal kernels above 10.  The plain versions on
-    the CPU have no such limit."""
+    ``qp`` launches is not built for its size (``_build.LIMITS``: every
+    lane kernel stops at 16 joints, a group of threads per problem being at
+    most one warp).  The block-tridiagonal kernels are on the unfused path,
+    the block-P path and, with ``polish``, every path.  The plain versions
+    on the CPU have no such limit."""
     from .. import _build
 
     if torch.device(device).type != "cuda":
@@ -221,6 +342,8 @@ def check_kernel_limits(qp, settings: Settings, device) -> None:
             ("residuals",) if settings.term_fused == "off" else ())
     else:
         names = ("tridiag", "admm_chunk", "residuals")
+    if settings.polish and "tridiag" not in names:
+        names += ("tridiag",)
     sig = {"NDIM": qp.n_dim, "B2": 2 * qp.n_dim}
     for name in names:
         _build.check_limits(name, sig)
@@ -335,6 +458,8 @@ def _solve_core(
             st = st.replace(x=sp, iterations=st.iterations + warmup)
         else:
             st = plain_iterations(st, warmup)
+    if settings.anderson > 0:
+        st = _anderson_init(scaled, st, settings, use_fused)
 
     def chunk(st):
         """One chunk of ``check_termination`` iterations, the termination
@@ -393,10 +518,18 @@ def _solve_core(
                 rho_bar=rho_bar, rho_vec=rho_vec, factor=fresh_factor(rho_vec)
             )
             st = _stall_reset(st, adapt, settings)
+        if settings.anderson > 0:
+            # After the refactor, as the reference's chunk body: w = z + y/ρ
+            # changes scale where ρ adapted, and the history resets there.
+            st = _anderson_step(
+                scaled, st, settings, use_fused,
+                torch.zeros_like(st.done) if adapt is None else adapt)
 
     if use_fused:
         x, z, y = unpack_state(scaled, st.x)
         st = st.replace(x=x, z=z, y=y)
+    if settings.polish:
+        st = _polish(base, scaled, scaling, st, settings)
     carry = (
         scaling.D * st.x,
         scaling.cinv * scaling.E * st.y,

@@ -50,7 +50,7 @@ def solve_lane_major_plain(chol, gain, rhs):
 
 
 def _lib(B2):
-    """The library for block size ``B2``; above 20 ``NotImplementedError``
+    """The library for block size ``B2``; above 32 ``NotImplementedError``
     before any build (``_build.LIMITS``)."""
     sig = {"B2": int(B2)}
     _build.check_limits("tridiag", sig)

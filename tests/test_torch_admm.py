@@ -179,14 +179,21 @@ def test_solve_refuses_a_batch_and_lane_keeps_its_refusals():
     _, tq = both_dense(random_dense(2, 3, 4))
     with pytest.raises(ValueError):
         tadmm.solve(tq, device="cpu")
-    for kw in (dict(kkt_method="cg"), dict(polish=True), dict(kkt_refine=1)):
+    # The lane driver refuses the CG backend, as the reference's does; it
+    # takes polish and refinement (tests/test_torch_lane_settings.py).
+    cg = tadmm.Settings(kkt_method="cg")
+    tadmm.check_supported(cg, generic=True)
+    with pytest.raises(NotImplementedError, match="lane driver"):
+        tadmm.check_supported(cg)
+    with pytest.raises(NotImplementedError):
+        tlane.solve_batched_lane(None, cg, device="cpu")
+    for kw in (dict(polish=True), dict(kkt_refine=1)):
         s = tadmm.Settings(**kw)
         tadmm.check_supported(s, generic=True)
-        with pytest.raises(NotImplementedError, match="lane driver"):
-            tadmm.check_supported(s)
-        with pytest.raises(NotImplementedError):
-            tlane.solve_batched_lane(None, s, device="cpu")
-    with pytest.raises(NotImplementedError, match="generic path"):
+        tadmm.check_supported(s)
+    # Anderson acceleration is the lane driver's only, as in the reference.
+    tadmm.check_supported(tadmm.Settings(anderson=2))
+    with pytest.raises(NotImplementedError, match="lane driver only"):
         tadmm.solve_batched(tq, tadmm.Settings(anderson=2), device="cpu")
     with pytest.raises(ValueError):
         tadmm.check_supported(tadmm.Settings(kkt_method="qr"), generic=True)

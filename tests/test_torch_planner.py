@@ -9,6 +9,7 @@ horizons, SCP rounds and ADMM iteration counts must be EQUAL; trajectories
 agree within 1e-6 (the two lane solvers agree to ~1e-7 per solve, and the
 differences pass through a handful of SCP re-linearizations)."""
 import dataclasses
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -301,5 +302,8 @@ def test_auto_refine_policy_matches_reference_and_is_refused():
     assert bumped.kkt_refine == 1
     keep = dataclasses.replace(s, kkt_refine=3)
     assert tadmm.with_auto_refine(keep, 1025, torch.float32) is keep
-    with pytest.raises(NotImplementedError, match="kkt_refine"):
-        tadmm.check_supported(bumped)  # bumped, not silently dropped
+    # Bumped, not silently dropped: the lane driver takes it, on its
+    # unfused path (tests/test_torch_lane_settings.py plans at W=1025).
+    tadmm.check_supported(bumped)
+    qp = types.SimpleNamespace(row_layout="waypoint")
+    assert tdrv._use_fused(qp, s) and not tdrv._use_fused(qp, bumped)

@@ -164,8 +164,17 @@ def test_gain_factor_form_matches_reference(W, overrides, port_overrides):
 
 
 @pytest.mark.parametrize("override", [
-    dict(kkt_method="cg"),
     dict(anderson=3), dict(polish=True), dict(kkt_refine=1),
+], ids=["anderson", "polish", "kkt_refine"])
+def test_lane_settings_match_reference(override):
+    """The settings the lane driver once refused, on the honest class at
+    W=12 (primal infeasible at stock settings): statuses and iteration
+    counts equal to the JAX package's, solutions within 1e-7."""
+    _compare(12, dict(override, check_termination=3))
+
+
+@pytest.mark.parametrize("override", [
+    dict(kkt_method="cg"),
     dict(factor_round="f16"), dict(factor_warmup_stream="bf16"),
 ])
 def test_unported_settings_raise(override):

@@ -222,6 +222,10 @@ WIDE_PARAMS = [
     pytest.param(3, 18, 1, 1, id="B2_18-B1-w_in_x"),
     pytest.param(4, 20, 13, 1, id="B2_20-w_in_x"),
     pytest.param(2, 20, 1, 0, id="B2_20-W2-B1"),
+    # Above B2 = 20 (N = 12 and 16) a step's rows are split among the
+    # group's lanes in both kernels.
+    pytest.param(4, 24, 2, 0, id="B2_24"),
+    pytest.param(4, 32, 2, 1, id="B2_32-w_in_x"),
 ]
 
 
@@ -252,20 +256,37 @@ def test_block_size_above_32_is_refused_before_any_build(monkeypatch):
 
     monkeypatch.setattr(_build, "library", no_build)
     monkeypatch.setattr(_build, "start_build", no_build)
-    for B2 in (22, 34):
+    for B2 in (34, 40):
         with pytest.raises(NotImplementedError,
-                           match=rf"tridiag.*B2={B2}.*B2 <= 20"):
+                           match=rf"tridiag.*B2={B2}.*B2 <= 32"):
             ttri._lib(B2)
-    with pytest.raises(AssertionError, match="a build was started"):
-        ttri._lib(20)
+    for B2 in (20, 22, 32):  # built up to one warp a problem
+        with pytest.raises(AssertionError, match="a build was started"):
+            ttri._lib(B2)
+
+
+def test_build_all_starts_one_compiler_per_target(monkeypatch):
+    """A signature listed twice (as ``chip_smoke.py``'s build phase lists
+    B2=18 for two of its sizes) starts one compiler: two compilers of one
+    target would write the same temporary file."""
+    started = []
+    monkeypatch.setattr(_build, "start_build",
+                        lambda n, s, *a, **kw: started.append((n, s)) or n)
+    monkeypatch.setattr(_build, "finish_build", lambda h: h)
+    built = _build.build_all([{"B2": 18}, {"B2": 18}, {"B2": 20}])
+    assert started == [("tridiag", {"B2": 18}), ("tridiag", {"B2": 20})]
+    assert sorted(built) == [("tridiag", (("B2", 18),)),
+                             ("tridiag", (("B2", 20),))]
 
 
 def test_lane_driver_above_10_joints_is_refused_before_any_build(
         monkeypatch):
-    """On a CUDA device the fused lane path at N = 11 is refused by name of
-    the factor kernel's limit, before any build and before the batch moves;
-    the unfused path by the tridiagonal kernels' (N up to 10).  Here the
-    device is only named: nothing reaches it."""
+    """On a CUDA device every lane kernel is built up to N = 16 (a group of
+    threads a problem is at most one warp): N = 11 and 16 pass the check on
+    both paths, and N = 17 is refused by name of the fused path's factor
+    kernel, or of the tridiagonal kernels on the unfused path and with
+    polish, before any build and before the batch moves.  Here the device
+    is only named: nothing reaches it."""
     from osqp_solver_tpu_torch.ops import admm_lane, session_lane
     from osqp_solver_tpu_torch.ops.admm import Settings
 
@@ -279,18 +300,19 @@ def test_lane_driver_above_10_joints_is_refused_before_any_build(
     cuda = torch.device("cuda")
     monkeypatch.setattr(admm_lane, "resolve_device", lambda d: cuda)
     monkeypatch.setattr(session_lane, "resolve_device", lambda d: cuda)
-    qp = torch_lane(*random_lane_problem(W=4, N=11, B=2))
-    with pytest.raises(NotImplementedError, match=r"kkt_factor.*N <= 10"):
-        admm_lane.solve_batched_lane(qp, Settings())
-    with pytest.raises(NotImplementedError, match=r"kkt_factor.*N <= 10"):
-        session_lane.setup_lane(qp, Settings())
     off = Settings(fused_chunk="off")
-    with pytest.raises(NotImplementedError, match=r"tridiag.*B2=22"):
-        admm_lane.check_kernel_limits(qp, off, cuda)
-    qp10 = torch_lane(*random_lane_problem(W=4, N=10, B=1))
-    admm_lane.check_kernel_limits(qp10, off, cuda)
-    admm_lane.check_kernel_limits(qp10, Settings(), cuda)
-    qp17 = torch_lane(*random_lane_problem(W=4, N=17, B=1))
+    for n in (11, 16):
+        qp = torch_lane(*random_lane_problem(W=4, N=n, B=1))
+        for s in (Settings(), off, Settings(term_fused="off"),
+                  Settings(polish=True)):
+            admm_lane.check_kernel_limits(qp, s, cuda)
+    qp17 = torch_lane(*random_lane_problem(W=4, N=17, B=2))
+    with pytest.raises(NotImplementedError, match=r"kkt_factor.*N <= 16"):
+        admm_lane.solve_batched_lane(qp17, Settings())
+    with pytest.raises(NotImplementedError, match=r"kkt_factor.*N <= 16"):
+        session_lane.setup_lane(qp17, Settings())
+    with pytest.raises(NotImplementedError, match=r"tridiag.*B2=34"):
+        admm_lane.check_kernel_limits(qp17, off, cuda)
     with pytest.raises(NotImplementedError, match=r"kkt_factor"):
         admm_lane.check_kernel_limits(qp17, Settings(), cuda)
     admm_lane.check_kernel_limits(qp17, Settings(), torch.device("cpu"))

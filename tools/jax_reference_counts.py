@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Iteration counts of the JAX package on the problems of ``chip_smoke.py``
 (float32, CPU): the references its ``dense``, ``dense_session``,
-``trajectory_generic``, ``solve_block_p`` and ``solve_w3`` phases hold the
-port to, and the planner statistics its ``planner_run`` phase prints beside
-its own.
+``trajectory_generic``, ``solve_block_p``, ``solve_w3``, ``solve_anderson``
+and ``planner_long`` phases hold the port to, the planner statistics its
+``planner_run`` phase prints beside its own, and the unpolished and polished
+statuses of ``solve_polish``'s batch.
 
 The problems come from ``chip_smoke.py``'s own generators (numpy from a
 seed for the dense configurations and the block-P objective; the port's
@@ -15,7 +16,8 @@ on a machine with JAX:
 
 (all configurations without arguments; ``solve_block_p`` alone takes a few
 minutes, ``planner_run`` (the reference example at W_max=802: ``run_padded``,
-one compile, and ``run``, one compile per horizon) about ten).  Prints one JSON line per configuration; the ``code`` strings are
+one compile, and ``run``, one compile per horizon) about ten, and
+``solve_anderson``, ``solve_polish`` and ``planner_long`` a few each).  Prints one JSON line per configuration; the ``code`` strings are
 the per-problem (per-step) counts in ``chip_smoke.encode_iters`` form, and
 ``p50`` is the lower median, as ``torch.median`` takes it.
 """
@@ -107,12 +109,91 @@ def planner_run():
     print(json.dumps({"config": "planner_run", **out}), flush=True)
 
 
+def jax_lane(qp):
+    static, arrays = convert.lane_qp_to_numpy(qp)
+    return LaneTrajectoryQP(**static, **{k: jnp.asarray(v)
+                                         for k, v in arrays.items()})
+
+
+def solve_anderson(settings):
+    """``chip_smoke.solve_anderson``'s batch (the honest class, W=100,
+    B=1024) at its two settings: Anderson acceleration, and the same with ρ
+    adaptation firing (the JAX package's plain path on the CPU)."""
+    jqp = jax_lane(cs.honest_f32(cs.BATCH, cs.W, "cpu"))
+    for name, over in (("solve_anderson", cs.ANDERSON),
+                       ("solve_anderson_rho", cs.ANDERSON_RHO)):
+        sa = dataclasses.replace(settings, **over, fused_chunk="off")
+        r = jax.jit(lambda q: admm_lane.solve_batched_lane(q, sa))(jqp)
+        summary(name, r.iterations, sa.check_termination, r.status,
+                statuses=cs.encode_statuses(np.asarray(r.status)))
+
+
+def solve_polish(settings):
+    """``chip_smoke.solve_polish``'s batch at its settings, unpolished and
+    polished: the statuses, and how many problems the polish moved."""
+    jqp = jax_lane(cs.honest_f32(cs.BATCH, cs.W, "cpu"))
+    base = dataclasses.replace(settings, **cs.BENCH, fused_chunk="off")
+    r0 = jax.jit(lambda q: admm_lane.solve_batched_lane(q, base))(jqp)
+    pol = dataclasses.replace(base, polish=True)
+    r1 = jax.jit(lambda q: admm_lane.solve_batched_lane(q, pol))(jqp)
+    moved = np.any(np.asarray(r1.x) != np.asarray(r0.x), axis=1)
+    summary("solve_polish", r1.iterations, base.check_termination, r1.status,
+            base.termination_warmup % base.check_termination,
+            same_status=int((np.asarray(r1.status)
+                             == np.asarray(r0.status)).sum()),
+            polished=int(moved.sum()))
+
+
+def planner_long():
+    """``chip_smoke.planner_long``: ``run_batch_lane`` of the JAX package
+    at W=1100 in float32 (one refinement step per KKT solve, its
+    ``with_auto_refine``) on the first 64 queries of the full search, the
+    UR5e of the fleet benchmarks: statuses and SCP rounds per query."""
+    import time
+
+    from osqp_solver_tpu import constraints as C
+    from osqp_solver_tpu.gomp.planner import GOMPSolver
+    from osqp_solver_tpu.models import ur5e
+
+    solver = GOMPSolver(
+        max_waypoints=cs.LONG_W, time_step=0.1, segments=10,
+        settings=dataclasses.replace(admm.Settings(), **cs.PLANNER),
+        pos_con=C.in_range(6, -2 * np.pi, 2 * np.pi),
+        vel_con=C.in_range(6, -np.pi, np.pi),
+        acc_con=C.in_range(6, -np.pi * 800 / 180, np.pi * 800 / 180),
+        con_3d=C.in_range(3, [-C.INF, -0.4, -C.INF], None),
+        obstacles=[],
+        balls=[ur5e.make_ball("back6", 0.15),
+               ur5e.make_ball("tool", 0.05, is_gripper=True)],
+        dtype=jnp.float32,
+    )
+    starts, ends = cs.long_queries()
+    t0 = time.time()
+    st, _, rounds = solver.run_batch_lane(
+        starts.astype(np.float32), ends.astype(np.float32),
+        waypoints=cs.LONG_W)
+    st, rounds = np.asarray(st), np.asarray(rounds)
+    print(json.dumps({
+        "config": "planner_long", "n": int(st.size),
+        "optimal": int((st == 0).sum()),
+        "statuses": cs.encode_statuses(st),
+        "rounds": cs.encode_statuses(rounds),
+        "wall_s": round(time.time() - t0, 1)}), flush=True)
+
+
 def main():
     want = set(sys.argv[1:]) or {"dense", "dense_session",
                                  "trajectory_config1",
                                  "trajectory_config4b", "solve_block_p",
-                                 "solve_w3", "planner_run"}
+                                 "solve_w3", "planner_run", "solve_anderson",
+                                 "solve_polish", "planner_long"}
     settings = admm.Settings()
+    if "solve_anderson" in want:
+        solve_anderson(settings)
+    if "solve_polish" in want:
+        solve_polish(settings)
+    if "planner_long" in want:
+        planner_long()
     if "planner_run" in want:
         planner_run()
     if "solve_w3" in want:
