@@ -7,8 +7,9 @@ Run it from the repository root on a machine with one NVIDIA Hopper GPU:
 
 It builds the hand-written kernels from ``osqp_solver_tpu_torch/csrc`` (six
 sources and the fast-math check; three layout signatures of the lane kernels, the Ruiz and residual
-kernels also in their block-P form, the tridiagonal one at B2=12 to 32,
-the lane sources also at N=7, 9, 10, 12 and 16, and the dense one; all
+kernels also in their block-P form, the tridiagonal one at B2=8 to 128,
+the lane sources also at N=4, 7, 9, 10, 12, 16, 17, 24, 32 and 64, and the
+dense one; all
 compilers started together), holds each kernel — the
 chunk kernel in its accumulator, warm-up and delta-writing forms, each in
 the ``hrec`` and the ``gain`` factor form, the factor kernel with and
@@ -84,9 +85,25 @@ drives the port's entry points:
   64 queries of the full search at W=1100 (``planner_long``, held to the
   JAX f32 run), ``polish=True`` fused and unfused (``solve_polish``), and
   ``anderson=4`` fused, with unfused termination, unfused and with ρ
-  adaptation firing (``solve_anderson``, held to the JAX f32 run).  The
-  kernel table's launch counts are these phases' (``launches_by_path``
-  gives every path's).
+  adaptation firing (``solve_anderson``, held to the JAX f32 run);
+* the lane kernels above 16 joints (``lane_wide``): their wide forms at
+  N=17, 24, 32 and 64 as ``lane_sizes`` holds them (B=256; at N=64 the
+  plans put the gain chunk's and the tridiagonal pair's rings in the
+  device-memory workspace), at N=32 also with their rings and windows
+  forced into the workspace (equal bits), the
+  block-P builds and solve at N=17 and 32, and the tridiagonal pair alone
+  at B2=34, 48, 64 and 96, on chip and in the workspace;
+* generic DH arms: the presets' float32 kinematics and batched DLS IK
+  against float64 on the host (``dh_arms``), and this slice's main path
+  (``planner_dh``): the full search of ``benchmarks/planner_batch.py
+  --robot iiwa14|scara --full`` on 1024 queries (every query optimal, the
+  first 64 held to the JAX f32 run, every plan audited by exact FK in
+  float64, and every lane kernel of its N=7 and N=4 builds held to its
+  plain version in f64 on the search's first batch) and
+  ``examples/dh_robot_example.py``'s problem through ``run``.  The kernel
+  table's launch counts are ``planner_dh``'s where it launches a kernel,
+  else the earlier phases' (``launches_by_path`` gives every path's; each
+  row's ``wide`` gives its times above 16 joints).
 
 It checks statuses, ADMM iteration counts, OSQP's residual criterion
 recomputed in float64 on the host, and that every kernel was really launched
@@ -134,7 +151,9 @@ from osqp_solver_tpu_torch.gomp.honest_batch import (
     build_honest_batch,
 )
 from osqp_solver_tpu_torch.gomp.trajectory_qp_lane import _ARRAY_FIELDS
-from osqp_solver_tpu_torch.models import ur5e
+from osqp_solver_tpu_torch.models.robot import ball_fk_jac
+from osqp_solver_tpu_torch.models import dh_robot, ur5e
+from osqp_solver_tpu_torch.utils.types import NoInverseKinematicSolution
 from osqp_solver_tpu_torch import convert
 from osqp_solver_tpu_torch.ops import admm as gadmm
 from osqp_solver_tpu_torch.ops import admm_fused, admm_lane, kkt_factor
@@ -184,7 +203,7 @@ PHASES = ("build,kernels,solve,solve_unfused_term,solve_stock,box,solve_w3,"
           "mpc_fleet_unfused,dense,dense_session,trajectory_generic,"
           "solve_block_p,solve_block_p_declared,mpc_fleet_block_p,"
           "planner_run,planner_batch,lane_sizes,solve_refine,planner_long,"
-          "solve_polish,solve_anderson")
+          "solve_polish,solve_anderson,lane_wide,dh_arms,planner_dh")
 # The block-P fleet: fewer ticks than the vel-diag fleets, for time, at the
 # settings the block-P batch is solved at (BENCH) without the warm-up chunk:
 # at the fleet benchmark's stock ones (scaling 10, rho 0.05) its cold ticks
@@ -601,14 +620,24 @@ def phase_device():
          device_count=torch.cuda.device_count())
 
 
-def ref_signatures():
-    """The sources and signatures built from --ref-tree."""
+def ref_signatures(want=()):
+    """The sources and signatures built from --ref-tree: the N=6 lane
+    kernels, the tridiagonal pair at every B2 of TRIDIAG_SIZES up to 32 and,
+    with ``lane_sizes`` in ``want``, the Ruiz, factor and chunk kernels at
+    every N of LANE_SIZES."""
     lane = {"NDIM": N, "NX": 5}
-    return [("tridiag", {"B2": 2 * N}), ("tridiag", {"B2": 18}),
-            ("tridiag", {"B2": 20}), ("residuals", dict(lane, BLOCK_P=0)),
-            ("residuals", dict(lane, BLOCK_P=1)),
-            ("ruiz", dict(lane, BLOCK_P=0)), ("kkt_factor", lane),
-            ("admm_chunk", lane)]
+    out = [("tridiag", {"B2": 2 * N}), ("residuals", dict(lane, BLOCK_P=0)),
+           ("residuals", dict(lane, BLOCK_P=1)),
+           ("ruiz", dict(lane, BLOCK_P=0)), ("kkt_factor", lane),
+           ("admm_chunk", lane)]
+    out += [("tridiag", {"B2": b2}) for b2 in sorted(
+        {b2 for b2, _, _ in TRIDIAG_SIZES.values() if 2 * N < b2 <= 32})]
+    if "lane_sizes" in want:
+        for n in LANE_SIZES:
+            sz = {"NDIM": n, "NX": 5}
+            out += [("ruiz", dict(sz, BLOCK_P=0)), ("kkt_factor", sz),
+                    ("admm_chunk", sz)]
+    return out
 
 
 def ref_csrc():
@@ -622,10 +651,10 @@ def ref_library(name, sig_items):
         _build.start_build(name, dict(sig_items), csrc=ref_csrc()))))
 
 
-def phase_build(signatures):
+def phase_build(signatures, want=()):
     t0 = time.time()
     ref = [(n, s, _build.start_build(n, s, csrc=ref_csrc()))
-           for n, s in (ref_signatures() if REF_TREE else [])]
+           for n, s in (ref_signatures(want) if REF_TREE else [])]
     built = _build.build_all(signatures)
     for n, s, h in ref:
         built[("ref_" + n, tuple(sorted(s.items())))] = _build.finish_build(h)
@@ -816,13 +845,14 @@ def factor_edge_cases(settings, emit_gain=False):
 
 
 def ref_lane_compare(base, scaled, rho_vec, settings, packs, state0, done,
-                     ck, cg, gg):
-    """The N=6 lane kernels of --ref-tree beside this tree's on the main
-    shape's inputs: the Ruiz kernel, the KKT factor in both forms, and the
-    chunk in its accumulator, delta, warm-up and gain forms.  Per kernel
-    the values that differ bit for bit (which must be none) and both trees'
-    times alone (20 launches back to back)."""
-    sig = {"NDIM": N, "NX": 5}
+                     ck, cg, gg, Nj=N):
+    """The lane kernels of --ref-tree beside this tree's at ``Nj`` joints
+    (the main shape's inputs at N=6, ``size_batch``'s in ``lane_sizes``):
+    the Ruiz kernel, the KKT factor in both forms, and the chunk in its
+    accumulator, delta, warm-up and gain forms.  Per kernel the values that
+    differ bit for bit (which must be none) and both trees' times alone (20
+    launches back to back)."""
+    sig = {"NDIM": Nj, "NX": 5}
     ref = lambda name, s_: ref_library(  # noqa: E731
         name, tuple(sorted(s_.items())))
     mine = lambda name, s_: _build.library(name, s_)  # noqa: E731
@@ -853,7 +883,7 @@ def ref_lane_compare(base, scaled, rho_vec, settings, packs, state0, done,
     def chunk(mode, n_iter, gain=False):
         def make(lib):
             state = state0.clone()
-            w = torch.empty((W, 2 * N, B), device="cuda")
+            w = torch.empty((W, 2 * Nj, B), device="cuda")
             acc = torch.empty((24, B), device="cuda") if mode == 1 else None
             dxdy = (torch.empty((W, admm_fused.dxdy_rows(scaled)[1], B),
                                 device="cuda") if mode == 2 else None)
@@ -1963,25 +1993,38 @@ def spd_blocks(B2, Wd, B, seed=0):
     return diag.contiguous(), lower, rhs
 
 
-def tridiag_sizes():
-    """The factor and the solve at each of TRIDIAG_SIZES, on a seeded SPD
-    batch: against the plain version run in f64 on the same f32 inputs (at
-    the main shape's tolerance), the launch plans, the time alone, the
-    plain version's time and the bound; with the ptxas report of the
-    build.  ``{size: {"factor": {...}, "solve": {...}, "ok": bool}}``."""
+def tridiag_sizes(sizes=None, budget=0):
+    """The factor and the solve at each of ``sizes`` (TRIDIAG_SIZES), on a
+    seeded SPD batch: against the plain version run in f64 on the same f32
+    inputs (at the main shape's tolerance), the launch plans, the time
+    alone, the plain version's time and the bound; with the ptxas report of
+    the build; with --ref-tree, up to B2=32, the tree's kernels on the same
+    inputs (equal bits).  ``budget``: the shared bytes the launches may use
+    (1: the wide forms' rings in device memory).  ``{size: {"factor":
+    {...}, "solve": {...}, "ok": bool}}``."""
     out = {}
-    for name, (B2, Wd, B) in TRIDIAG_SIZES.items():
+    for name, (B2, Wd, B) in (sizes or TRIDIAG_SIZES).items():
         diag, lower, rhs = spd_blocks(B2, Wd, B)
         lib = _build.library("tridiag", {"B2": B2})
-        ck, gk = tridiag_kernel.factor_lane_major(diag, lower)
-        xk = tridiag_kernel.solve_lane_major(ck, gk, rhs)
+        def factor():
+            c, g = torch.empty_like(diag), torch.empty_like(lower)
+            tridiag_kernel._launch(lib, "factor", diag, lower, c, g,
+                                   budget=budget)
+            return c, g
+
+        def solve(c, g):
+            x = torch.empty_like(rhs)
+            tridiag_kernel._launch(lib, "solve", c, g, rhs, x, budget=budget)
+            return x
+        ck, gk = factor()
+        xk = solve(ck, gk)
         c64, g64 = tridiag_kernel.factor_lane_major_plain(diag.double(),
                                                           lower.double())
         x64 = tridiag_kernel.solve_lane_major_plain(ck.double(), gk.double(),
                                                     rhs.double())
         # The same launches again: the results must not change by a bit.
-        ck2, gk2 = tridiag_kernel.factor_lane_major(diag, lower)
-        xk2 = tridiag_kernel.solve_lane_major(ck, gk, rhs)
+        ck2, gk2 = factor()
+        xk2 = solve(ck, gk)
         torch.cuda.synchronize()
         f_again = bits_differing(ck, ck2)[0] + bits_differing(gk, gk2)[0]
         s_again = bits_differing(xk, xk2)[0]
@@ -2000,8 +2043,8 @@ def tridiag_sizes():
         f_ok = max(ce[1], ge[1]) <= TOL_TRIDIAG and upper_zero and not f_again
         s_ok = se[1] <= TOL_TRIDIAG and not s_again
         ref = {}
-        if REF_TREE and B2 in (18, 20) and Wd == W:
-            # The parent's forms at B2 <= 20 are kept: equal bits there.
+        if REF_TREE and B2 <= 32 and Wd == W:
+            # The parent's forms up to B2 = 32 are kept: equal bits there.
             cr, gr = torch.empty_like(ck), torch.empty_like(gk)
             fl = ref_factor_alone(diag, lower, cr, gr)
             xr = torch.empty_like(xk)
@@ -2024,22 +2067,24 @@ def tridiag_sizes():
                 shape, max_abs_err=max(ce[0], ge[0]),
                 rel_err=max(ce[1], ge[1]), upper_triangle_zero=upper_zero,
                 bits_differing_run_to_run=f_again,
-                ms=alone_ms(factor_alone_tridiag, diag, lower)[0],
+                ms=(time_ms(factor, inner=ALONE_INNER) if budget else
+                    alone_ms(factor_alone_tridiag, diag, lower)[0]),
                 plain_ms=time_ms(lambda: tridiag_kernel.factor_lane_major_plain(
                     diag, lower), **reps),
                 bound_ms=fb[0], bound_by=fb[1], library_ms=None,
-                plan=tridiag_kernel.factor_plan(lib, B),
+                plan=tridiag_kernel.factor_plan(lib, B, budget),
                 ptxas={k[:40]: v for k, v in ptx.items()
                        if k.startswith("tridiag_factor_kernel")},
                 **ref.get("factor", {}), ok=bool(f_ok)),
             solve=dict(
                 shape, max_abs_err=se[0], rel_err=se[1],
                 bits_differing_run_to_run=s_again,
-                ms=alone_ms(solve_alone, ck, gk, rhs)[0],
+                ms=(time_ms(lambda: solve(ck, gk), inner=ALONE_INNER)
+                    if budget else alone_ms(solve_alone, ck, gk, rhs)[0]),
                 plain_ms=time_ms(lambda: tridiag_kernel.solve_lane_major_plain(
                     ck, gk, rhs), **reps),
                 bound_ms=sb[0], bound_by=sb[1], library_ms=None,
-                plan=tridiag_kernel.plan(lib, Wd, B),
+                plan=tridiag_kernel.plan(lib, Wd, B, budget),
                 ptxas={k[:40]: v for k, v in ptx.items()
                        if k.startswith("tridiag_solve_kernel")},
                 **ref.get("solve", {}), ok=bool(s_ok)),
@@ -2830,6 +2875,7 @@ def audit_plans(solver, statuses, trajs, horizons, centers=None, radius=None):
     either ball inside its OWN sphere's keep-out.  Returns the worst
     margins; negative means violated.  The planner accepted these plans in
     float32 with the slack ``ERROR``; 1e-5 more covers float32 FK."""
+    N = solver.n_dim
     WM = trajs.shape[1] // (2 * N)
     st = statuses.cpu().numpy()
     tr = trajs.cpu().double()
@@ -2844,7 +2890,7 @@ def audit_plans(solver, statuses, trajs, horizons, centers=None, radius=None):
         dyn = max(dyn, (v[:-1] - (q[1:] - q[:-1]) / solver.time_step)
                   .abs().max().item())
         for ball in solver.balls:
-            pts = ball.fk_jac_batched(q)[0]  # (w, 3)
+            pts = ball_fk_jac(ball, q, jacobian=False)[0]  # (w, 3)
             if ball.is_gripper:
                 box = min(box, (pts - ball.radius - lo).min().item(),
                           (hi - pts - ball.radius).min().item())
@@ -3944,6 +3990,19 @@ def phase_trajectory_generic():
 # rows of a step split among a warp's lanes: every kernel's large form).
 LANE_SIZES = (7, 9, 10, 12, 16)
 SIZE_SEED = 12
+# Above 16 joints (lane_wide): the wide forms (a group of 64 threads at
+# N=17-32, 128 at N=64, one problem a block) at B=256; at N=32 also with
+# their rings and windows forced into the device-memory workspace; at N=64
+# the plans put the tridiagonal pair's rings and the gain chunk's ring
+# there unforced (WIDE_UNFORCED); the tridiagonal pair alone up to B2=96,
+# on chip and in the workspace.
+WIDE_SIZES = (17, 24, 32, 64)
+WIDE_BATCH = 256
+WORKSPACE_SIZES = (32,)
+WIDE_UNFORCED = {64: ("admm_chunk_gain", "tridiag_factor", "tridiag_solve")}
+WIDE_TRIDIAG = {f"B2_{b2}": (b2, W, WIDE_BATCH) for b2 in (34, 48, 64, 96)}
+WIDE_TRIDIAG_WORKSPACE = {"B2_64_workspace": (64, W, WIDE_BATCH),
+                          "B2_96_workspace": (96, W, WIDE_BATCH)}
 
 
 def size_batch(Nj, batch=BATCH, Wd=W, seed=SIZE_SEED):
@@ -3988,7 +4047,7 @@ def repeat_bits(launch, outs):
                if a is not None)
 
 
-def size_kernels(Nj, qp, settings):
+def size_kernels(Nj, qp, settings, ref=True):
     """Every lane kernel of the path at ``Nj`` joints against its plain
     version run in f64 on the same f32 inputs, at the kernels phase's
     tolerances, each launch repeated (equal bits) and timed through its
@@ -3997,8 +4056,12 @@ def size_kernels(Nj, qp, settings):
     accumulator form, the delta form and the gain form, 2 iterations from
     a state 10 iterations in, every fifth problem frozen); the residual
     kernel on the delta form's packs; the tridiagonal factor and solve on
-    the batch's KKT blocks."""
-    B, B2, sig = qp.batch, 2 * Nj, {"NDIM": Nj, "NX": 5}
+    the batch's KKT blocks.  The builds are the batch's (its waypoints and
+    rows); ``ref``: with --ref-tree, also that tree's kernels at N <= 16
+    (``size_batch``'s builds)."""
+    B, B2, Wd = qp.batch, 2 * Nj, qp.waypoints
+    sig = admm_fused.layout_signature(qp)
+    NX = sig["NX"]
     out = {}
     it = settings.scaling
     # Ruiz: D, E, c elementwise relative to f64.
@@ -4012,6 +4075,12 @@ def size_kernels(Nj, qp, settings):
                            qp, it)))
     out["ruiz"]["ok"] = bool(rk <= TOL_RUIZ
                              and not out["ruiz"]["bits_differing_run_to_run"])
+    slow = dict(reps=3, warm=1)  # the plain versions' times
+    out["ruiz"]["plain_ms"] = time_ms(
+        lambda: ruiz_kernel._ruiz_scalings_plain(qp, it), **slow)
+    out["ruiz"]["bound_ms"], out["ruiz"]["bound_by"] = bound(
+        nbytes(*ruiz_kernel._ruiz_kernel_packs(qp)),
+        ops_ruiz(Wd, Nj, NX, B, it))
     scaled, scaling = admm_lane.ruiz_equilibrate_lane(qp, it)
     scaled64 = cast(scaled, torch.float64)
     packs = admm_lane.build_const_packs(scaled, scaling)
@@ -4034,11 +4103,18 @@ def size_kernels(Nj, qp, settings):
         e = max(rel_err(a.double(), r)[1] for a, r in zip(got, ref))
         ep = max(rel_err(a.double(), r)[1] for a, r in zip(plain, ref))
         rep = repeat_bits(lambda g=g: fac(g), got)
+        b_ms, b_by = bound(nbytes(coef, rho_vec, *kkt_factor.build_p_vel_packs(
+            scaled), *got), ops_factor(Wd, Nj, NX, B))
         out[name] = dict(vs_f64=e, plain_vs_f64=ep, tol=TOL_FACTOR,
                          bits_differing_run_to_run=rep,
                          ms=time_ms(lambda g=g: fac(g)),
+                         plain_ms=time_ms(
+                             lambda g=g: kkt_factor.factor_packed_lane_plain(
+                                 scaled, rho_vec, settings.sigma,
+                                 emit_gain=g), **slow),
+                         bound_ms=b_ms, bound_by=b_by,
                          plan=kkt_factor.plan(_build.library(
-                             "kkt_factor", sig), W, B),
+                             "kkt_factor", sig), Wd, B),
                          ok=bool(e <= TOL_FACTOR and not rep))
     # The chunk kernel from a warm state, every fifth problem frozen.
     st = admm_lane.init_state_lane(
@@ -4091,10 +4167,22 @@ def size_kernels(Nj, qp, settings):
         frozen = torch.equal(sk[..., done], state0[..., done])
         rep = repeat_bits(launch, (sk, extra))
         worst = max(errs.values())
+        b_ms, b_by = bound(
+            nbytes(*pf, coef, scaled.q_vec, lu, rho_vec, done, state0,
+                   *(tp or ()), state0, extra),
+            ops_chunk(Wd, Nj, NX, B, 2, tp is not None))
         out[name] = dict(vs_f64=errs, max_vs_f64=worst, tol=TOL_CHUNK,
                          frozen_problems_untouched=frozen,
                          bits_differing_run_to_run=rep,
                          ms=time_ms(launch),
+                         plain_ms=time_ms(
+                             lambda pf=pf, tp=tp, dxdy=dxdy:
+                             admm_fused.fused_admm_chunk_plain(
+                                 scaled, rho_vec, done, settings,
+                                 state_pack=state0, n_iter=2, term_packs=tp,
+                                 emit_dxdy=dxdy, coef=coef, lu=lu,
+                                 packed_factor=pf), **slow),
+                         bound_ms=b_ms, bound_by=b_by,
                          ok=bool(worst <= TOL_CHUNK and frozen and not rep))
         if name == "admm_chunk_dxdy":
             sp_k, dp_k = sk, extra
@@ -4129,9 +4217,15 @@ def size_kernels(Nj, qp, settings):
     rep = repeat_bits(resid, (acck,))
     w_max = max(v for k, v in rerr.items() if k not in RESID_SUMS)
     w_sum = max(v for k, v in rerr.items() if k in RESID_SUMS)
+    b_ms, b_by = bound(nbytes(coef, packs["Pdp"], packs["Plf"], sp_k, dp_k,
+                              rowc, packs["varc"], acck),
+                       ops_residuals(Wd, Nj, NX, B))
     out["residuals"] = dict(
         vs_f64=rerr, tol=TOL_RESID_MAX, tol_sums=TOL_RESID_SUM,
         bits_differing_run_to_run=rep, ms=time_ms(resid),
+        plain_ms=time_ms(lambda: residuals.termination_accumulators_plain(
+            scaled, sp_k, dp_k, rowc, packs["varc"]), **slow),
+        bound_ms=b_ms, bound_by=b_by,
         ok=bool(w_max <= TOL_RESID_MAX and w_sum <= TOL_RESID_SUM
                 and not rep))
     # The tridiagonal pair on the batch's KKT blocks.
@@ -4139,7 +4233,7 @@ def size_kernels(Nj, qp, settings):
         rho_vec, settings.sigma))
     tc, tg = tridiag_kernel.factor_lane_major(diag, lower)
     gen = torch.Generator(device="cuda").manual_seed(Nj)
-    rhs = torch.randn((W, B2, B), generator=gen, device="cuda")
+    rhs = torch.randn((Wd, B2, B), generator=gen, device="cuda")
     tx = tridiag_kernel.solve_lane_major(tc, tg, rhs)
     t64 = tridiag_kernel.factor_lane_major_plain(diag.double(),
                                                  lower.double())
@@ -4152,16 +4246,45 @@ def size_kernels(Nj, qp, settings):
                        (tc, tg))
     srep = repeat_bits(
         lambda: (tridiag_kernel.solve_lane_major(tc, tg, rhs),), (tx,))
+    fb = bound(tril_bytes(diag) + nbytes(lower, tc, tg),
+               ops_tridiag_factor(Wd, B2, B))
+    sb = bound(tril_bytes(tc) + nbytes(tg, rhs, tx),
+               ops_tridiag_solve(Wd, B2, B))
     out["tridiag_factor"] = dict(vs_f64=fe, tol=TOL_TRIDIAG,
                                  bits_differing_run_to_run=frep,
+                                 plain_ms=time_ms(
+                                     lambda: tridiag_kernel.
+                                     factor_lane_major_plain(diag, lower),
+                                     **slow),
+                                 bound_ms=fb[0], bound_by=fb[1],
                                  ms=time_ms(lambda: tridiag_kernel.
                                             factor_lane_major(diag, lower)),
                                  ok=bool(fe <= TOL_TRIDIAG and not frep))
     out["tridiag_solve"] = dict(vs_f64=se, tol=TOL_TRIDIAG,
                                 bits_differing_run_to_run=srep,
+                                plain_ms=time_ms(
+                                    lambda: tridiag_kernel.
+                                    solve_lane_major_plain(tc, tg, rhs),
+                                    **slow),
+                                bound_ms=sb[0], bound_by=sb[1],
                                 ms=time_ms(lambda: tridiag_kernel.
                                            solve_lane_major(tc, tg, rhs)),
                                 ok=bool(se <= TOL_TRIDIAG and not srep))
+    if Nj in WORKSPACE_SIZES:
+        out["workspace"] = workspace_bits(
+            Nj, scaled, rho_vec, settings, packs, state0, done, ck, cg, gg,
+            (coef, packs["Pdp"], packs["Plf"], sp_k, dp_k, rowc,
+             packs["varc"]))
+    if REF_TREE and ref and Nj <= 16:
+        # The parent's lane kernels at this size, bit for bit and timed.
+        out["ref_tree"] = ref_lane_compare(
+            qp, scaled, rho_vec, settings, packs, state0, done, ck, cg, gg,
+            Nj=Nj)
+        bad_ref = {k: v["bits_differing"] for k, v in out["ref_tree"].items()
+                   if v["bits_differing"]}
+        if bad_ref:
+            fail(f"lane_sizes (N{Nj}): values differing bit for bit from "
+                 f"--ref-tree: {bad_ref}")
     # Registers and spills of every build at this size.
     ptx = {}
     for src, s_ in (("ruiz", dict(sig, BLOCK_P=0)), ("kkt_factor", sig),
@@ -4174,6 +4297,94 @@ def size_kernels(Nj, qp, settings):
     return out, ptx
 
 
+def workspace_bits(Nj, scaled, rho_vec, settings, packs, state0, done, ck,
+                   cg, gg, resid_packs):
+    """The wide forms with their rings and windows in the device-memory
+    workspace (a one-byte shared-memory budget) beside the same launches on
+    chip: the KKT factor in both forms, the chunk in its accumulator and
+    gain forms (2 iterations), the residual kernel.  The arithmetic is the
+    same, so every value must be equal bit for bit; both times alone."""
+    sig = {"NDIM": Nj, "NX": 5}
+    B = scaled.batch
+    coef, lu = packs["coef"], admm_fused.build_lu_pack(scaled)
+    Pd, Pl = kkt_factor.build_p_vel_packs(scaled)
+    rho3 = rho_vec.reshape(W, -1, B).contiguous()
+    q_int = scaled._interleave(scaled.q_vec).contiguous()
+    done_f = done.to(torch.float32).contiguous()
+
+    def factor(gain):
+        def make(budget):
+            lib = _build.library("kkt_factor", sig)
+            out = [torch.empty_like(ck) for _ in range(1 + gain)]
+            return (lambda: kkt_factor._launch_factor(
+                lib, coef, rho3, Pd, Pl, out[0], settings.sigma,
+                out[1] if gain else None, budget=budget), out)
+        return make
+
+    def chunk(gain):
+        def make(budget):
+            lib = _build.library("admm_chunk", sig)
+            state = state0.clone()
+            w = torch.empty((W, 2 * Nj, B), device="cuda")
+            acc = torch.empty((24, B), device="cuda")
+            pf = (cg, gg) if gain else (ck, None)
+
+            def launch():
+                state.copy_(state0)
+                admm_fused._launch_chunk(
+                    lib, pf[0], coef, q_int, lu, rho3, packs["Plf"],
+                    packs["EEinv"], packs["varc"], packs["Pdp"], done_f,
+                    state, w, acc, 2, settings.sigma, settings.alpha,
+                    gainp=pf[1], budget=budget)
+            return launch, [state, acc]
+        return make
+
+    def resid(budget):
+        lib = _build.library("residuals", dict(sig, BLOCK_P=0))
+        acc = torch.empty((24, B), device="cuda")
+        return (lambda: residuals._launch_residuals(lib, *resid_packs, acc,
+                                                    budget=budget), [acc])
+
+    out = {}
+    for name, make in (("kkt_factor", factor(False)),
+                       ("kkt_factor_gain", factor(True)),
+                       ("admm_chunk", chunk(False)),
+                       ("admm_chunk_gain", chunk(True)),
+                       ("residuals", resid)):
+        (la, oa), (lb, ob) = make(0), make(1)
+        la()
+        lb()
+        torch.cuda.synchronize()
+        nd = sum(bits_differing(a, b)[0] for a, b in zip(oa, ob))
+        out[name] = dict(bits_differing=nd, ms_on_chip=time_ms(la),
+                         ms_workspace=time_ms(lb))
+    return out
+
+
+def unforced_workspace(Nj, Wd, B):
+    """The bytes of device-memory workspace that each lane build's plan at
+    ``Nj`` joints (NX = 5) asks for at ``Wd`` waypoints and a batch of
+    ``B`` under the card's own shared-memory limit (no forced budget): the
+    KKT factor, the chunk in its accumulator, delta and gain forms, the
+    residual kernel and the tridiagonal pair."""
+    sig = {"NDIM": Nj, "NX": 5}
+    ws = _build.library("admm_chunk", sig).admm_chunk_workspace_bytes
+    ws.argtypes = [ctypes.c_int] * 4
+    ws.restype = ctypes.c_longlong
+    tri = _build.library("tridiag", {"B2": 2 * Nj})
+    return {
+        "kkt_factor": kkt_factor.plan(_build.library("kkt_factor", sig), Wd,
+                                      B)["workspace_bytes"],
+        "admm_chunk": ws(B, 1, 0, 0), "admm_chunk_dxdy": ws(B, 2, 0, 0),
+        "admm_chunk_gain": ws(B, 1, 1, 0),
+        "residuals": residuals.plan(_build.library(
+            "residuals", dict(sig, BLOCK_P=0)), B)["workspace_bytes"],
+        "tridiag_factor": tridiag_kernel.factor_plan(tri, B)[
+            "workspace_bytes"],
+        "tridiag_solve": tridiag_kernel.plan(tri, Wd, B)["workspace_bytes"],
+    }
+
+
 SIZE_FORMS = {"hrec": {}, "hrec_term_off": dict(term_fused="off"),
               "gain": dict(factor_form="gain"),
               "unfused": dict(fused_chunk="off")}
@@ -4181,17 +4392,26 @@ SIZE_FORMS = {"hrec": {}, "hrec_term_off": dict(term_fused="off"),
 
 def phase_lane_sizes():
     """The lane path at N = 7, 9, 10, 12 and 16 joints (``size_batch``: W=100,
-    B=1024, f32, the bench.py settings): every kernel against its plain
-    version in f64 (``size_kernels``), then ``solve_batched_lane`` fused in
-    the hrec form with fused and unfused termination (statuses and counts
-    equal problem for problem), in the gain form, and on the unfused path;
-    every form 1024/1024 optimal, the f64 criterion within 2 % on 16
-    problems, the path's kernels launched and no plain version."""
+    B=1024, f32, the bench.py settings): ``lane_path_sizes``."""
+    return lane_path_sizes("lane_sizes", LANE_SIZES, BATCH)
+
+
+def lane_path_sizes(phase, sizes, batch):
+    """The lane path at each joint count of ``sizes`` (``size_batch`` of
+    ``batch`` problems: W=100, f32, the bench.py settings): every kernel
+    against its plain version in f64 (``size_kernels``), then
+    ``solve_batched_lane`` fused in the hrec form with fused and unfused
+    termination (statuses and counts equal problem for problem), in the
+    gain form, and on the unfused path; every form all optimal, the f64
+    criterion within 2 % on 16 problems, the path's kernels launched and no
+    plain version."""
     bench = dataclasses.replace(Settings(), **BENCH)
     recs = {}
-    for Nj in LANE_SIZES:
-        qp = size_batch(Nj)
+    for Nj in sizes:
+        qp = size_batch(Nj, batch=batch)
         kern, ptx = size_kernels(Nj, qp, bench)
+        ref = kern.pop("ref_tree", None)
+        work = kern.pop("workspace", None)
         forms = {}
         for form, over in SIZE_FORMS.items():
             s = dataclasses.replace(bench, **over)
@@ -4208,7 +4428,7 @@ def phase_lane_sizes():
                 host_syncs=admm_lane.HOST_SYNCS - syncs0,
                 plain_calls=dict(plain.calls),
                 f64_prim_dual_box=host_residual_check(
-                    qp, res, torch.linspace(0, BATCH - 1, 16).long(), s),
+                    qp, res, torch.linspace(0, batch - 1, 16).long(), s),
                 finite=bool(torch.isfinite(res.x).all()),
                 status=st, iterations=it)
         a, b = forms["hrec"], forms["hrec_term_off"]
@@ -4217,10 +4437,14 @@ def phase_lane_sizes():
         for f in forms.values():
             f.pop("status"), f.pop("iterations")
         recs[f"N{Nj}"] = dict(kernels=kern, ptxas=ptx, solves=forms,
-                              term_fused_vs_off_differ=same)
+                              term_fused_vs_off_differ=same,
+                              workspace_unforced=unforced_workspace(
+                                  Nj, W, batch),
+                              **({"ref_tree": ref} if ref else {}),
+                              **({"workspace": work} if work else {}))
         del qp
         torch.cuda.empty_cache()
-    emit("lane_sizes", batch=BATCH, W=W, sizes=list(LANE_SIZES), **recs)
+    emit(phase, batch=batch, W=W, sizes=list(sizes), **recs)
     need = {"hrec": ("ruiz", "kkt_factor", "admm_chunk"),
             "hrec_term_off": ("ruiz", "kkt_factor", "admm_chunk_dxdy",
                               "residuals"),
@@ -4229,23 +4453,449 @@ def phase_lane_sizes():
     for key, rec in recs.items():
         bad = [k for k, v in rec["kernels"].items() if not v["ok"]]
         if bad:
-            fail(f"lane_sizes ({key}): kernel(s) outside tolerance of the "
+            fail(f"{phase} ({key}): kernel(s) outside tolerance of the "
                  f"f64 plain version or not equal run to run: {bad}")
         if any(rec["term_fused_vs_off_differ"].values()):
-            fail(f"lane_sizes ({key}): fused and unfused termination differ: "
+            fail(f"{phase} ({key}): fused and unfused termination differ: "
                  f"{rec['term_fused_vs_off_differ']}")
         for form, f in rec["solves"].items():
-            if f["optimal"] != BATCH or not f["finite"]:
-                fail(f"lane_sizes ({key}, {form}): {f['optimal']}/{BATCH} "
+            if f["optimal"] != batch or not f["finite"]:
+                fail(f"{phase} ({key}, {form}): {f['optimal']}/{batch} "
                      "optimal")
             if max(f["f64_prim_dual_box"][:2]) > 1.02:
-                fail(f"lane_sizes ({key}, {form}): float64 recomputation "
+                fail(f"{phase} ({key}, {form}): float64 recomputation "
                      f"violates OSQP's criterion {f['f64_prim_dual_box']}")
             if f["plain_calls"] or min(f["launches"].get(k, 0)
                                        for k in need[form]) < 1:
-                fail(f"lane_sizes ({key}, {form}): launches {f['launches']}, "
+                fail(f"{phase} ({key}, {form}): launches {f['launches']}, "
                      f"plain versions {f['plain_calls']}")
     return recs
+
+
+WIDE_BLOCK_SIZES = (17, 32)
+
+
+def wide_block_checks(Nj, batch=WIDE_BATCH):
+    """The block-P builds above 16 joints on ``size_batch`` with the
+    block-P objective (``with_block_p``, f32): the block Ruiz kernel and the
+    block residual kernel (on a random state and deltas) against their
+    plain versions in f64, each launch repeated bit for bit; then
+    ``solve_batched_lane`` on the block-P path (block Ruiz, the tridiagonal
+    factor, the gain chunk fed ``pack_factor``, the block residual kernel):
+    every problem optimal, the path's kernels launched, no plain version."""
+    bench = dataclasses.replace(Settings(), **BENCH)
+    bp = cast(with_block_p(cast(size_batch(Nj, batch=batch),
+                                torch.float64)), torch.float32)
+    it = bench.scaling
+    rk, rp_, _ = ruiz_vs_f64(bp, it)
+    first = ruiz_kernel.ruiz_scalings_kernel(bp, it)
+    out = {"ruiz_block": dict(
+        vs_f64=rk, plain_vs_f64=rp_, tol=TOL_RUIZ,
+        bits_differing_run_to_run=repeat_bits(
+            lambda: ruiz_kernel.ruiz_scalings_kernel(bp, it), first),
+        ms=time_ms(lambda: ruiz_kernel.ruiz_scalings_kernel(bp, it)))}
+    scaled, scaling = admm_lane.ruiz_equilibrate_lane(bp, it)
+    packs = admm_lane.build_const_packs(scaled, scaling)
+    gen = torch.Generator(device="cuda").manual_seed(Nj)
+    rnd = lambda k: torch.randn((k, batch), generator=gen,  # noqa: E731
+                                device="cuda")
+    sp = admm_fused.pack_state(scaled, rnd(scaled.n), rnd(scaled.m),
+                               rnd(scaled.m))
+    dp = admm_fused.pack_dxdy(scaled, rnd(scaled.n), rnd(scaled.m))
+    rowc = torch.cat([packs["EEinv"], admm_fused.build_lu_pack(scaled)], 1)
+    lib = _build.library("residuals", admm_fused.p_signature(scaled))
+
+    def resid():
+        acc = torch.empty((24, batch), device="cuda")
+        residuals._launch_residuals(lib, packs["coef"], packs["Pdp"],
+                                    packs["Plf"], sp, dp, rowc, packs["varc"],
+                                    acc)
+        return (acc,)
+    (acck,) = resid()
+    acc64 = residuals.termination_accumulators_plain(
+        cast(scaled, torch.float64), sp.double(), dp.double(), rowc.double(),
+        packs["varc"].double())
+    torch.cuda.synchronize()
+    # The maxima over max |f64|, the sums over their terms' magnitudes
+    # (check_residuals' scales).
+    x, _, y = admm_fused.unpack_state(scaled, sp.double())
+    dx, dy = admm_fused.unpack_dxdy(scaled, dp.double())
+    Rp = scaled.rows_per_waypoint_padded
+    E, Einv, lo, hi = (rowc[:, k * Rp:(k + 1) * Rp].reshape(-1, batch)
+                       .double() for k in range(4))
+    edy = E * dy
+    mags = {"xsum": x.abs().sum(0), "ysum": y.abs().sum(0),
+            "q_dot": (scaled.q.double() * dx).abs().sum(0),
+            "support": (torch.where((Einv * hi) < 1e25,
+                                    Einv * hi * edy.clamp(min=0), 0.0).abs()
+                        + torch.where((Einv * lo) > -1e25,
+                                      Einv * lo * edy.clamp(max=0), 0.0).abs()
+                        ).sum(0)}
+    errs = {k: rel_err(acck[r].double(), acc64[r],
+                       mags[k].max().item() if k in mags else None)[1]
+            for k, r in _ACC.items()}
+    rep = repeat_bits(resid, (acck,))
+    w_max = max(v for k, v in errs.items() if k not in RESID_SUMS)
+    w_sum = max(v for k, v in errs.items() if k in RESID_SUMS)
+    out["ruiz_block"]["ok"] = bool(
+        rk <= TOL_RUIZ and not out["ruiz_block"]["bits_differing_run_to_run"])
+    out["residuals_block"] = dict(
+        vs_f64=errs, tol=TOL_RESID_MAX, tol_sums=TOL_RESID_SUM,
+        bits_differing_run_to_run=rep, ms=time_ms(resid),
+        ok=bool(w_max <= TOL_RESID_MAX and w_sum <= TOL_RESID_SUM
+                and not rep))
+    reset_counts()
+    with PlainCalls() as plain:
+        res = admm_lane.solve_batched_lane(bp, bench)
+        torch.cuda.synchronize()
+    st = res.status.cpu()
+    out["solve"] = dict(
+        optimal=int((st == 0).sum()),
+        iterations_p50=int(res.iterations.cpu().median()),
+        launches={k: v for k, v in read_counts().items() if v},
+        plain_calls=dict(plain.calls))
+    return out
+
+
+def phase_lane_wide():
+    """The repair above 16 joints: the lane path at N = 17, 24, 32 and 64
+    (``lane_path_sizes`` at B=256: every kernel in every form against its
+    plain version in f64, each launch repeated bit for bit; the four solve
+    forms all optimal; at N=64 the gain chunk and the tridiagonal pair with
+    their rings in the workspace unforced), at N=32 the workspace
+    placements equal bit for bit to the on-chip ones, and the tridiagonal
+    pair alone at B2 = 34, 48, 64 and 96, on chip and (64, 96) in the
+    workspace."""
+    recs = lane_path_sizes("lane_wide", WIDE_SIZES, WIDE_BATCH)
+    tri = tridiag_sizes(WIDE_TRIDIAG)
+    tri.update(tridiag_sizes(WIDE_TRIDIAG_WORKSPACE, budget=1))
+    emit("lane_wide_tridiag", **tri)
+    blocks = {f"N{n}": wide_block_checks(n) for n in WIDE_BLOCK_SIZES}
+    emit("lane_wide_block_p", batch=WIDE_BATCH, **blocks)
+    need = ("ruiz_block", "tridiag_factor", "admm_chunk_block",
+            "residuals_block")
+    for key, rec in blocks.items():
+        bad = [k for k in ("ruiz_block", "residuals_block")
+               if not rec[k]["ok"]]
+        sv = rec["solve"]
+        if bad or sv["optimal"] != WIDE_BATCH or sv["plain_calls"] or min(
+                sv["launches"].get(k, 0) for k in need) < 1:
+            fail(f"lane_wide ({key}, block P): kernels {bad}, solve {sv}")
+    bad = [k for k, v in tri.items() if not v["ok"]]
+    if bad:
+        fail(f"lane_wide: tridiagonal pair outside tolerance or not equal "
+             f"run to run at {bad}")
+    for key, rec in recs.items():
+        ws = rec.get("workspace", {})
+        off = {k: v["bits_differing"] for k, v in ws.items()
+               if v["bits_differing"]}
+        if off:
+            fail(f"lane_wide ({key}): the workspace placement differs from "
+                 f"the on-chip one: {off}")
+    for n, names in WIDE_UNFORCED.items():
+        plans = recs[f"N{n}"]["workspace_unforced"]
+        if min(plans[k] for k in names) <= 0:
+            fail(f"lane_wide (N{n}): the plans were to put {names} in the "
+                 f"device-memory workspace unforced: {plans}")
+    return recs, tri
+
+
+# ---------------------------------------------------------------------------
+# Generic DH arms (queue A5): the presets' kinematics and the planner on them.
+# ---------------------------------------------------------------------------
+DH_PRESETS = ("UR5E", "UR10E", "IIWA14", "SCARA")
+DH_SAMPLES, DH_SEED = 1024, 13
+# float32 FK / Jacobians on the card against float64 on the host from the
+# same float32 configurations (link lengths up to 1.4 m: ~1e-7 relative).
+TOL_DH = 1e-5
+
+
+def dh_configs(robot, B, rng, spread):
+    """``B`` configurations within ``spread`` of zero (the prismatic joints
+    within their 0.2 m stroke), float64 numpy."""
+    q = rng.uniform(-spread, spread, (B, robot.n_joints))
+    for i, t in enumerate(robot.joint_types):
+        if t == "p":
+            q[:, i] = rng.uniform(0.02, 0.18, B)
+    return q
+
+
+def phase_dh_arms():
+    """The DH presets' kinematics on the card in float32: the SoA FK and
+    Jacobians (``fk_pose_jacobian``), the matrix-path FK and the ``jacfwd``
+    Jacobian of ``make_ball``'s callables, on DH_SAMPLES random
+    configurations, against the same calls in float64 on the host; DLS
+    position and pose IK round trips on DH_SAMPLES targets (the FK of random
+    configurations, started 0.15 rad away), batched, with the converged
+    share and the worst round-trip error of the converged; ``ik_checked``
+    raising on an out-of-reach target."""
+    rng = np.random.default_rng(DH_SEED)
+    recs = {}
+    for name in DH_PRESETS:
+        robot = getattr(dh_robot, name)
+        q32 = torch.from_numpy(dh_configs(robot, DH_SAMPLES, rng, 2.5)).to(
+            "cuda", torch.float32)
+        q64 = q32.double().cpu()
+        got = robot.fk_pose_jacobian(q32)
+        ref = robot.fk_pose_jacobian(q64)
+        err = {k: (g.double().cpu() - r).abs().max().item() for k, g, r in
+               zip(("point", "rotation", "jac_position", "jac_angular"),
+                   got, ref)}
+        err["point_fk_matrix"] = (robot.point_fk(q32).double().cpu()
+                                  - robot.point_fk(q64)).abs().max().item()
+        ball = robot.make_ball(radius=0.05, is_gripper=True)
+        jv = torch.func.vmap(ball.jacobian)(q32[:64]).double().cpu()
+        err["jacfwd_callable"] = (jv - ref[2][:64]).abs().max().item()
+        # IK round trips: targets from configurations near zero.
+        qt = torch.from_numpy(dh_configs(robot, DH_SAMPLES, rng, 0.8))
+        p_t, R_t = robot.pose_fk(qt)
+        q0 = (qt + 0.15).to("cuda", torch.float32)
+        p32, R32 = p_t.to("cuda", torch.float32), R_t.to("cuda", torch.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qp, okp = robot.position_ik(p32, q0=q0)
+        torch.cuda.synchronize()
+        ms_pos = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        qr, okr = robot.pose_ik(p32, R32, q0=q0)
+        torch.cuda.synchronize()
+        ms_pose = (time.perf_counter() - t0) * 1e3
+        rt_pos = (robot.point_fk(qp.double().cpu()) - p_t).norm(dim=-1)
+        rt_pose = (robot.point_fk(qr.double().cpu()) - p_t).norm(dim=-1)
+        okp, okr = okp.cpu(), okr.cpu()
+        raised = False
+        try:
+            dh_robot.ik_checked(robot, torch.tensor([9.0, 0.0, 0.0],
+                                                    device="cuda"))
+        except NoInverseKinematicSolution:
+            raised = True
+        recs[name] = dict(
+            joints=robot.n_joints, joint_types="".join(robot.joint_types),
+            max_abs_err_vs_f64=err, tol=TOL_DH,
+            position_ik=dict(converged=float(okp.float().mean()),
+                             worst_converged_error_m=float(
+                                 rt_pos[okp].max()) if okp.any() else None,
+                             ms=ms_pos),
+            pose_ik=dict(converged=float(okr.float().mean()),
+                         worst_converged_error_m=float(
+                             rt_pose[okr].max()) if okr.any() else None,
+                         ms=ms_pose),
+            ik_checked_raises=raised)
+    emit("dh_arms", samples=DH_SAMPLES, **recs)
+    for name, r in recs.items():
+        if max(r["max_abs_err_vs_f64"].values()) > TOL_DH:
+            fail(f"dh_arms ({name}): float32 kinematics off the float64 "
+                 f"host values: {r['max_abs_err_vs_f64']}")
+        for kind in ("position_ik", "pose_ik"):
+            k = r[kind]
+            # A float32 round trip is converged within the f32 tolerance
+            # (1e-4 m), and nearly every target near zero is reached.
+            if k["converged"] < 0.9 or (k["worst_converged_error_m"] or 0.0) \
+                    > 2e-4:
+                fail(f"dh_arms ({name}): {kind} {k}")
+        if not r["ik_checked_raises"]:
+            fail(f"dh_arms ({name}): ik_checked did not raise out of reach")
+    return recs
+
+
+def dh_solver(robot, max_waypoints=50, **settings):
+    """``benchmarks/planner_batch.py --robot <arm> --full``'s planner: a
+    ball of r=0.15 at frame N-1 and the gripper ball r=0.05 at the tool,
+    workspace floor y >= -0.4, the fleet benchmarks' joint bounds (the
+    SCARA's stroke too), 10 segments, float32, at PLANNER's settings."""
+    INF = 1e30
+    n = robot.n_joints
+    return GOMPSolver(
+        max_waypoints=max_waypoints, time_step=0.1,
+        settings=dataclasses.replace(Settings(), **PLANNER, **settings),
+        pos_con=constraints.in_range(n, -2 * math.pi, 2 * math.pi),
+        vel_con=constraints.in_range(n, -math.pi, math.pi),
+        acc_con=constraints.in_range(n, -800 * math.pi / 180,
+                                     800 * math.pi / 180),
+        con_3d=constraints.Constraint(lower=np.array([-INF, -0.4, -INF]),
+                                      upper=np.full(3, INF)),
+        obstacles=[],
+        balls=[robot.make_ball(link=n - 1, radius=0.15),
+               robot.make_ball(radius=0.05, is_gripper=True)],
+        segments=10, dtype=torch.float32,
+    )
+
+
+def dh_queries(n, B, rng):
+    """``benchmarks/planner_batch.py``'s queries for an arm of ``n``
+    joints: starts near zero, ends near (π, 0, ..., 0)."""
+    starts = 0.02 * rng.standard_normal((B, n))
+    end0 = np.zeros(n)
+    end0[0] = math.pi
+    return starts, end0[None] + 0.02 * rng.standard_normal((B, n))
+
+
+DH_REF_QUERIES = 64
+# planner_dh: the JAX package's float32 CPU run of the same search on the
+# first DH_REF_QUERIES queries (tools/jax_reference_counts.py planner_dh):
+# exit codes and SCP rounds per query in encode_statuses form, and the
+# p50 of ADMM iterations per query over the search.  Both arms: 64/64
+# optimal at horizon 15 in 10 SCP rounds each.
+PLANNER_DH_REF = {
+    "IIWA14": dict(statuses="0" * 64, rounds="a" * 64, admm_iters_p50=345),
+    "SCARA": dict(statuses="0" * 64, rounds="a" * 64, admm_iters_p50=342),
+}
+# The card's admm_iters p50 over all BATCH queries must lie within this
+# share of the JAX run's.
+DH_ITERS_BAND = 0.1
+
+
+def dh_example():
+    """``examples/dh_robot_example.py``'s problem on the card in float32:
+    the iiwa14, a Cartesian goal solved by DLS IK into a joint
+    configuration, ``run`` from zero to it (W_max=16, 3 segments; its
+    session's tridiagonal kernels at B2=14), the example's checks: kOptimal
+    and the gripper FK at waypoint W-3 within 1e-2 m of the goal."""
+    robot = dh_robot.IIWA14
+    n = robot.n_joints
+    kw = dict(dtype=torch.float32, device="cuda")
+    goal = robot.point_fk(torch.full((n,), 0.5, **kw))
+    q_end, ok = robot.position_ik(goal, q0=torch.full((n,), 0.3, **kw))
+    INF = 1e30
+    solver = GOMPSolver(
+        max_waypoints=16, time_step=0.1,
+        pos_con=constraints.in_range(n, -3.0, 3.0),
+        vel_con=constraints.in_range(n, -math.pi, math.pi),
+        acc_con=constraints.in_range(n, -4 * math.pi, 4 * math.pi),
+        con_3d=constraints.in_range(3, [-INF, -0.4, -INF], INF),
+        obstacles=[],
+        balls=[robot.make_ball(link=n - 1, radius=0.12),
+               robot.make_ball(radius=0.05, is_gripper=True)],
+        segments=3, dtype=torch.float32)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with PlainCalls() as plain:
+        res = solver.run(np.zeros(n), q_end.cpu().numpy())
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = {k: v for k, v in read_counts().items() if v}
+    W_ = res.trajectory.size // (2 * n)
+    q = torch.from_numpy(np.asarray(res.trajectory[: W_ * n],
+                                    dtype=np.float64).reshape(W_, n))
+    err = float((robot.point_fk(q[W_ - 3]) - goal.double().cpu()).norm())
+    return dict(ik_converged=bool(ok), status=res.status.name,
+                horizon=W_, goal_error_m=err, ms=ms, launches=counts,
+                plain_calls=dict(plain.calls),
+                stats=[tuple(int(v) for v in s_) for s_ in res.stats])
+
+
+def keep_first_solve(solver):
+    """Wrap ``solver._solve`` so that it keeps the first batch it is given
+    (the trailing container and the settings); the wrapper launches
+    nothing.  Returns the list the batch goes into; ``del solver._solve``
+    takes the wrapper off."""
+    seen = []
+    inner = solver._solve
+
+    def keep(qp_t, settings, x, y):
+        if not seen:
+            seen.append((qp_t, settings))
+        return inner(qp_t, settings, x, y)
+    solver._solve = keep
+    return seen
+
+
+def phase_planner_dh():
+    """The slice's path: ``run_batch_padded`` (the full search, its solves
+    on the lane driver) on BATCH queries of ``benchmarks/planner_batch.py
+    --robot iiwa14|scara --full`` (W_max=50, 10 segments, two balls, the
+    floor y >= -0.4, queries from default_rng(0)), float32: every query
+    optimal and the admm_iters p50 within DH_ITERS_BAND of the JAX run's;
+    the first DH_REF_QUERIES queries' statuses equal to the JAX package's
+    float32 CPU run and their SCP rounds within 2; an exact-FK audit in
+    float64 on the host; the fused lane kernels launched and no plain
+    version.  The search's first batch (W=50, B=BATCH, the builds at N=7
+    and 4 with NX=3) then goes through ``size_kernels``: every lane kernel
+    of those builds against its plain version in f64, each launch repeated
+    bit for bit.  Then ``dh_example``."""
+    recs = {}
+    launches = collections.Counter()
+    for name in ("IIWA14", "SCARA"):
+        robot = getattr(dh_robot, name)
+        solver = dh_solver(robot)
+        starts, ends = dh_queries(robot.n_joints, BATCH,
+                                  np.random.default_rng(0))
+        first = keep_first_solve(solver)
+        with PlainCalls() as plain:
+            out, counts, syncs = run_search(solver, starts, ends)
+        del solver._solve
+        launches.update(counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.run_batch_padded(starts, ends)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        summary = search_summary(out)
+        audit = audit_plans(solver, out[0], out[1], out[2])
+        st, rounds = out[0].cpu(), out[3].cpu()
+        k = DH_REF_QUERIES
+        rec = dict(joints=robot.n_joints, batch=BATCH, **summary,
+                   ms_per_batch=ms, **syncs, launches=counts,
+                   plain_calls=dict(plain.calls), audit=audit,
+                   statuses_first=encode_statuses(st[:k].numpy()),
+                   rounds_first=encode_statuses(rounds[:k].numpy()),
+                   finite=bool(torch.isfinite(out[1]).all()))
+        ref = PLANNER_DH_REF[name]
+        if ref["statuses"] is not None:
+            rs = torch.tensor(decode_statuses(ref["statuses"]))
+            rr = torch.tensor(decode_statuses(ref["rounds"]))
+            rec["same_status_first"] = int((st[:k] == rs).sum())
+            rec["scp_rounds_max_diff_first"] = int(
+                (rounds[:k] - rr).abs().max())
+        qp_t, s_ = first[0]
+        lane = planner.from_trailing(qp_t, row_layout="waypoint")
+        rec["kernels"], rec["ptxas"] = size_kernels(robot.n_joints, lane, s_,
+                                                    ref=False)
+        rec["kernels_at"] = dict(W=lane.waypoints, batch=lane.batch,
+                                 **admm_fused.layout_signature(lane))
+        del first[:], lane, qp_t
+        recs[name] = rec
+    example = dh_example()
+    emit("planner_dh", **recs, example=example)
+    for name, rec in recs.items():
+        if rec["optimal"] != BATCH or not rec["finite"]:
+            fail(f"planner_dh ({name}): {rec['optimal']}/{BATCH} optimal")
+        ref_it = PLANNER_DH_REF[name]["admm_iters_p50"]
+        if abs(rec["admm_iters_p50"] - ref_it) > DH_ITERS_BAND * ref_it:
+            fail(f"planner_dh ({name}): admm_iters p50 "
+                 f"{rec['admm_iters_p50']} outside {DH_ITERS_BAND:.0%} of "
+                 f"the JAX run's {ref_it}")
+        bad = [k_ for k_, v in rec["kernels"].items() if not v["ok"]]
+        if bad:
+            fail(f"planner_dh ({name}): kernel(s) at the search's shape "
+                 f"outside tolerance of the f64 plain version or not equal "
+                 f"run to run: {bad}")
+        if "same_status_first" in rec and (
+                rec["same_status_first"] != DH_REF_QUERIES
+                or rec["scp_rounds_max_diff_first"] > 2):
+            fail(f"planner_dh ({name}): the first {DH_REF_QUERIES} queries "
+                 f"differ from the JAX float32 run: {rec['statuses_first']} "
+                 f"{rec['rounds_first']}")
+        if rec["audit"]["workspace_margin"] < -(ERROR + 1e-5):
+            fail(f"planner_dh ({name}): exact-FK audit: gripper ball leaves "
+                 f"the workspace box by {-rec['audit']['workspace_margin']}")
+        if rec["audit"]["velocity_mismatch"] > 0.2:
+            fail(f"planner_dh ({name}): velocities are not position "
+                 "differences over dt")
+        if rec["plain_calls"] or min(rec["launches"][k_]
+                                     for k_ in LANE_KERNELS) < 1:
+            fail(f"planner_dh ({name}): launches {rec['launches']}, plain "
+                 f"versions {rec['plain_calls']}")
+    if not (example["ik_converged"] and example["status"] == "kOptimal"
+            and example["goal_error_m"] < 1e-2):
+        fail(f"planner_dh: the DH example's checks failed: {example}")
+    if example["plain_calls"] or min(example["launches"].get(k_, 0) for k_
+                                     in TRIDIAG_KERNELS) < 1:
+        fail(f"planner_dh: the DH example's launches {example['launches']}, "
+             f"plain versions {example['plain_calls']}")
+    launches.update(example["launches"])
+    return dict(launches)
 
 
 def solve_counts(qp, settings):
@@ -4508,13 +5158,22 @@ def main():
             {"B2": b2} for b2, _, _ in TRIDIAG_SIZES.values() if b2 != 2 * N]
         if "lane_sizes" in want:
             sigs += [s_ for n in LANE_SIZES for s_ in size_signatures(n)]
+        if "lane_wide" in want:
+            sigs += [s_ for n in WIDE_SIZES for s_ in size_signatures(n)]
+            sigs += [{"NDIM": n, "NX": 5, "BLOCK_P": 1}
+                     for n in WIDE_BLOCK_SIZES]
+            sigs += [{"B2": b2} for b2, _, _ in WIDE_TRIDIAG.values()]
+        if "planner_dh" in want:  # the iiwa14 and the SCARA, two balls
+            for n in (7, 4):
+                sigs += [{"NDIM": n, "NX": 3},
+                         {"NDIM": n, "NX": 3, "BLOCK_P": 0}, {"B2": 2 * n}]
         for nx in (5, 0, 3):  # honest; box; planner_full
             if nx == 5 or (nx == 0 and "box" in want) or (
                     nx == 3 and want & {"planner_full", "planner_batch"}):
                 sigs += [{"NDIM": N, "NX": nx},
                          {"NDIM": N, "NX": nx, "BLOCK_P": 0}]
         sigs.append(dict(honest_sig, BLOCK_P=1))
-        phase_build(sigs)
+        phase_build(sigs, want)
     kernels = phase_kernels() if "kernels" in want else []
     bench = dataclasses.replace(Settings(), **BENCH)
     launches = {}
@@ -4584,6 +5243,27 @@ def main():
     for path in ("solve_polish", "solve_anderson", "solve_refine"):
         launches.update({k: v for k, v in by_path.get(path, {}).items()
                          if v})
+    if "dh_arms" in want:
+        phase_dh_arms()
+    if "planner_dh" in want:
+        # This slice's main path: its launches are the table's.
+        by_path["planner_dh"] = phase_planner_dh()
+        launches.update({k: v for k, v in by_path["planner_dh"].items()
+                         if v})
+    # The repair above 16 joints: each kernel's wide form, timed per size.
+    wide = {}
+    if "lane_wide" in want:
+        recs, tri = phase_lane_wide()
+        for key, rec in recs.items():
+            for name, k in rec["kernels"].items():
+                wide.setdefault(name, {})[key] = {
+                    f: k.get(f) for f in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by")}
+        for key, rec in tri.items():
+            for part in ("factor", "solve"):
+                wide.setdefault("tridiag_" + part, {})[key] = {
+                    f: rec[part][f] for f in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by")}
 
     csrc = "osqp_solver_tpu_torch/csrc/"
     ops = "osqp_solver_tpu/ops/"
@@ -4616,6 +5296,7 @@ def main():
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             **({"sizes": k["sizes"]} if "sizes" in k else {}),
+            **({"wide": wide[k["name"]]} if k["name"] in wide else {}),
             "launches_by_path": {p_: c.get(k["name"], 0)
                                  for p_, c in by_path.items()},
         })

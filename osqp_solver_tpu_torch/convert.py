@@ -1,5 +1,5 @@
 """Hand numpy data to the port: problems, scalings, settings, lane
-sessions, obstacles and a planner's constructor arguments.
+sessions, obstacles, a planner's constructor arguments and DH arms.
 
 Lets a test (or any caller holding arrays from another framework) build the
 port's containers from exactly what the JAX package built, without either
@@ -294,3 +294,19 @@ def gomp_solver_kwargs_from_numpy(spec: dict, device=None,
         if name in spec:
             kwargs[name] = int(spec[name])
     return kwargs
+
+
+def dh_robot_from(robot) -> "DHRobot":
+    """The port's :class:`~osqp_solver_tpu_torch.models.dh_robot.DHRobot`
+    of another package's DH arm, read by attribute: ``a``, ``d``,
+    ``alpha``, ``theta`` as floats, ``joint_types`` and ``name`` as
+    strings — so that one arm goes through both packages."""
+    from .models.dh_robot import DHRobot
+
+    floats = lambda v: tuple(float(x) for x in v)  # noqa: E731
+    return DHRobot(
+        a=floats(robot.a), d=floats(robot.d), alpha=floats(robot.alpha),
+        name=str(robot.name),
+        joint_types=tuple(str(t) for t in robot.joint_types),
+        theta=floats(robot.theta),
+    )

@@ -62,6 +62,13 @@
 //     A-row apply to the state and delta writes; the vectors a row reads
 //     (x~_t, x~_{t+1}, and in MODE_TERM x_sel, dx of t and t+1) sit in a
 //     small shared-memory slot per group, double-buffered by waypoint parity.
+// Above N = 16 (WIDE: 2N > 32) the group spans several warps (64 threads at
+// N = 17-32) and a block holds one problem: the tile takes one value a row
+// (QS = 1), the producers' copies go in a loop, the column solves pass each
+// column's element through shared memory (one group barrier a column) and
+// the termination's maxima through the group's exchange; where the ring
+// does not fit in shared memory it lives in a device-memory workspace that
+// the wrapper allocates (DEV).
 // Bound: on paper bytes (each pack read once per pass); in practice each
 // problem's chain of dependent steps (the solves' 2N true divisions each, the
 // rows), with one or two blocks of 3 warps per SM: eight problems take about
@@ -71,12 +78,13 @@
 
 #include "lane_common.cuh"
 
-// Threads per problem, and problems per block at most.
+// Threads per problem, and problems per block at most.  WIDE: a group of
+// several warps, one problem a block.
 constexpr int G = pow2_at_least(B2) < 4 ? 4 : pow2_at_least(B2);
-static_assert(G <= 32, "a group is at most one warp (2N <= 32)");
+constexpr bool WIDE = B2 > 32;
 // Problems per block at most (log2) and stages of the ring, as tuned on an
 // H100 (PERF.md records the other values timed).
-constexpr int QLOG_MAX = 2;
+constexpr int QLOG_MAX = WIDE ? 0 : 2;
 constexpr int Q_MAX = 1 << QLOG_MAX;
 constexpr int NSTAGE = 3;
 // The producer threads of a block, which issue all the staging copies.
@@ -117,7 +125,10 @@ constexpr int SL_DY = SL_Y + 2 * Rp;  // dy of the Rp rows (MODE_TERM), 2x
 constexpr int SL_SUP = SL_DY + 2 * Rp;  // support terms (MODE_TERM)
 constexpr int SL_ACC = SL_SUP + 2 * Rp;  // the accumulators (MODE_TERM)
 constexpr int SL_R = SL_ACC + NACC;   // the right-hand side of a solve
-constexpr int SLOT = SL_R + G;
+// WIDE: the column solves' broadcasts (G values each for the lower and the
+// upper sweep), the first G also the termination's exchange.
+constexpr int SL_XCH = SL_R + G;
+constexpr int SLOT = SL_XCH + (WIDE ? 2 * G : 0);
 static_assert(A_COUNT <= NACC && 4 <= G, "");
 
 enum { MODE_PLAIN = 0, MODE_TERM = 1, MODE_DXDY = 2 };
@@ -134,8 +145,9 @@ enum { MODE_PLAIN = 0, MODE_TERM = 1, MODE_DXDY = 2 };
 __host__ __device__ constexpr int qs_for(int rows) {
     return NSTAGE * rows * 12 * 4 <= 195 * 1024 ? 12 : 4;
 }
-constexpr int QS = qs_for(stage_rows(true, true));
-static_assert(Q_MAX <= QS && QS % 4 == 0, "");
+// WIDE: one value a row (one problem a block).
+constexpr int QS = WIDE ? 1 : qs_for(stage_rows(true, true));
+static_assert(WIDE || (Q_MAX <= QS && QS % 4 == 0), "");
 
 __host__ __device__ constexpr int producer_base(int qlog) {
     return group_producer_base(G << qlog);
@@ -144,10 +156,15 @@ __host__ __device__ constexpr int block_threads(int qlog) {
     return producer_base(qlog) + PRODUCERS;
 }
 
-// The shared-memory bytes of a launch.
+// The shared-memory bytes of a launch (DEV: the slots alone, the ring in
+// device memory), and the values of the ring a block holds.
+__host__ __device__ constexpr int ring_values(bool term, bool gain) {
+    return NSTAGE * stage_rows(term, gain) * QS;
+}
 __host__ __device__ constexpr int chunk_smem_bytes(int qlog, bool term,
-                                                   bool gain) {
-    return (NSTAGE * stage_rows(term, gain) * QS + (1 << qlog) * SLOT) *
+                                                   bool gain,
+                                                   bool dev = false) {
+    return ((dev ? 0 : ring_values(term, gain)) + (1 << qlog) * SLOT) *
            (int)sizeof(real);
 }
 
@@ -174,6 +191,7 @@ struct Args {
     bool frozen;
     real* ring;  // stage 0 of the ring
     real* slot;  // this group's slot
+    bool dev;    // the ring in device memory (WIDE only)
 };
 
 // Copy the first CNT rows of waypoint t of a (W, ROWS, B) pack into rows
@@ -181,8 +199,17 @@ struct Args {
 template <int ROWS, int CNT, int DST>
 __device__ __forceinline__ void stage_rows_of(const Args& a, const real* pack,
                                               int t, real* sg) {
-    stage_pack_rows<QS, PRODUCERS, ROWS, CNT, DST>(
-        make_stager(a.B, a.b0, a.qlog, a.ptid, a.x4), pack, t, sg);
+    const Stager s = make_stager(a.B, a.b0, a.qlog, a.ptid, a.x4);
+    if constexpr (WIDE) {
+        if (a.dev)
+            stage_pack_rows<QS, PRODUCERS, ROWS, CNT, DST, true, true>(
+                s, pack, t, sg);
+        else
+            stage_pack_rows<QS, PRODUCERS, ROWS, CNT, DST, true>(s, pack, t,
+                                                                 sg);
+    } else {
+        stage_pack_rows<QS, PRODUCERS, ROWS, CNT, DST>(s, pack, t, sg);
+    }
 }
 
 // Start the block's copies of waypoint t's rows into stage t % NSTAGE and
@@ -267,7 +294,37 @@ constexpr bool LANE_SOLVE = B2 > 20;
 template <bool LOWER, bool UPPER>
 __device__ __forceinline__ real group_solve(const Tile& ch, real v,
                                             const Args& a) {
-    if constexpr (LANE_SOLVE) {
+    if constexpr (WIDE) {
+        // The columns across the group as below, lane j's element passed
+        // through the slot (a place per column and sweep, written once a
+        // step: one group barrier a column; the step's barrier separates
+        // the steps).
+        const int i = a.lane;
+        const real cii = ch[LOW(i < B2 ? i : 0, i < B2 ? i : 0)];
+        real* lo = a.slot + SL_XCH;
+        real* up = lo + G;
+        if (LOWER) {
+#pragma unroll 1
+            for (int j = 0; j < B2; ++j) {
+                if (i == j) lo[j] = v / cii;
+                lane_group_sync(a.g, G);
+                const real yj = lo[j];
+                if (i == j) v = yj;
+                else if (i > j && i < B2) v = v - ch[LOW(i, j)] * yj;
+            }
+        }
+        if (UPPER) {
+#pragma unroll 1
+            for (int k = B2 - 1; k >= 0; --k) {
+                if (i == k) up[k] = v / cii;
+                lane_group_sync(a.g, G);
+                const real xk = up[k];
+                if (i == k) v = xk;
+                else if (i < k) v = v - ch[LOW(k, i)] * xk;
+            }
+        }
+        return v;
+    } else if constexpr (LANE_SOLVE) {
         const int i = a.lane;
         const real cii = ch[LOW(i < B2 ? i : 0, i < B2 ? i : 0)];
         if (LOWER) {
@@ -595,8 +652,9 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
                        at_gather(i, cw, sl + SL_Y, real(0), real(0)),
                        at_gather(i, cw, sl + SL_DY, real(0), real(0)), px_p,
                        pdx_p, m);
-        term_finish<G>(i, a.g, a.valid, a.W, m, a.w + (size_t)i * a.B + a.b,
-                       (size_t)B2 * a.B, sl + SL_ACC, a.acc + a.b, a.B);
+        term_finish<G, WIDE>(i, a.g, a.valid, a.W, m,
+                             a.w + (size_t)i * a.B + a.b, (size_t)B2 * a.B,
+                             sl + SL_ACC, a.acc + a.b, a.B, sl + SL_XCH);
     }
 }
 
@@ -610,7 +668,7 @@ __global__ void __launch_bounds__(block_threads(QLOG_MAX), 1)
     const real* __restrict__ ee, const real* __restrict__ varc,
     const real* __restrict__ pd, const real* __restrict__ done, real* state,
     real* w, real* acc, real* dxdy, int W, int B, int n_iter, real sigma,
-    real alpha, int qlog, int x4) {
+    real alpha, int qlog, int x4, real* work) {
     LANE_SMEM_DECL();
     const int consumers = G << qlog, tid = threadIdx.x;
     const int pbase = producer_base(qlog);
@@ -619,14 +677,18 @@ __global__ void __launch_bounds__(block_threads(QLOG_MAX), 1)
     const int b0 = blockIdx.x << qlog;
     const int b = b0 + g;
     const bool valid = !idle && b < B;
-    real* ring = lane_smem;
-    real* slot = ring + NSTAGE * stage_rows(MODE == MODE_TERM, GAIN) * QS +
-                 g * SLOT;
+    // DEV (work not null; WIDE only): the ring in the workspace, the slots
+    // alone in shared memory.
+    constexpr int RING = ring_values(MODE == MODE_TERM, GAIN);
+    const bool dev = WIDE && work != nullptr;
+    real* ring = dev ? work + (size_t)blockIdx.x * RING : lane_smem;
+    real* slot = (dev ? lane_smem : ring + RING) + g * SLOT;
     const Args a{chol,  gain,  coef,  q,     lu,     rho,
                  plf,   ee,    varc,  pd,    state,  w,
                  acc,   dxdy,  W,     B,     sigma,  alpha,
                  b0,    qlog,  g,     (int)(threadIdx.x % G), b,
-                 x4 != 0, tid >= pbase, idle, tid - pbase, valid, valid && done[b] != real(0), ring, slot};
+                 x4 != 0, tid >= pbase, idle, tid - pbase, valid, valid && done[b] != real(0), ring, slot,
+                 dev};
     for (int it = 0; it < n_iter; ++it) {
         forward_pass<GAIN>(a);
         if (MODE != MODE_PLAIN && it == n_iter - 1)
@@ -652,17 +714,41 @@ extern "C" void admm_chunk_plan(int B, int sms, int mode, int gain,
     for (int k = 0; k < 9; ++k) plan[k] = p[k];
 }
 
+// Whether a launch's ring goes to device memory (the wide form, where it
+// does not fit in the shared memory a block may use).
+static bool ring_off_chip(int qlog, int mode, bool gain, int dev_smem) {
+    return WIDE && chunk_smem_bytes(qlog, mode == MODE_TERM, gain) > dev_smem;
+}
+
+// The bytes of the device-memory workspace a launch needs (0: none);
+// budget <= 0: the shared memory a block may use (the host-emulation tests
+// and the card's checks pass a small one to put the ring in device memory).
+extern "C" long long admm_chunk_workspace_bytes(int B, int mode, int gain,
+                                                int budget) {
+    int dev_smem = 0, sms = 0;
+    if (lane_device_limits(&dev_smem, &sms) != 0) return 0;
+    if (budget > 0 && budget < dev_smem) dev_smem = budget;
+    const int qlog = chunk_qlog(B, sms), Q = 1 << qlog;
+    if (!ring_off_chip(qlog, mode, gain != 0, dev_smem)) return 0;
+    return (long long)ring_values(mode == MODE_TERM, gain != 0) *
+           ((B + Q - 1) / Q) * (long long)sizeof(real);
+}
+
 template <int MODE, bool GAIN>
 static int launch_mode(const void* chol, const void* gain, const void* coef,
                        const void* q, const void* lu, const void* rho,
                        const void* plf, const void* ee, const void* varc,
                        const void* pd, const void* done, void* state, void* w,
                        void* acc, void* dxdy, int W, int B, int n_iter,
-                       double sigma, double alpha, void* stream) {
+                       double sigma, double alpha, void* stream, void* work,
+                       int budget) {
     int dev_smem = 0, sms = 0;
     const int err = lane_device_limits(&dev_smem, &sms);
     if (err != 0) return err;
+    const int room = budget > 0 && budget < dev_smem ? budget : dev_smem;
     const int qlog = chunk_qlog(B, sms), Q = 1 << qlog;
+    const bool off = ring_off_chip(qlog, MODE, GAIN, room);
+    if (off && work == nullptr) return -1;
     // 16-byte copies need every staged pack 16-byte aligned.
     uintptr_t bits = 0;
     for (const void* p : {chol, gain, coef, q, lu, rho, plf, ee, varc, pd,
@@ -671,17 +757,21 @@ static int launch_mode(const void* chol, const void* gain, const void* coef,
     const int x4 = group_tile_x4(qlog, B) && bits % 16 == 0;
     return lane_launch_coop(
         &admm_chunk_kernel<MODE, GAIN>, (B + Q - 1) / Q, block_threads(qlog), G,
-        chunk_smem_bytes(qlog, MODE == MODE_TERM, GAIN), stream,
+        chunk_smem_bytes(qlog, MODE == MODE_TERM, GAIN, off), stream,
         (const real*)chol, (const real*)gain, (const real*)coef,
         (const real*)q, (const real*)lu, (const real*)rho, (const real*)plf,
         (const real*)ee, (const real*)varc, (const real*)pd,
         (const real*)done, (real*)state, (real*)w, (real*)acc, (real*)dxdy,
-        W, B, n_iter, (real)sigma, (real)alpha, qlog, x4);
+        W, B, n_iter, (real)sigma, (real)alpha, qlog, x4,
+        (real*)(off ? work : nullptr));
 }
 
 // mode: 0 = state only, 1 = also the accumulators (acc), 2 = also the deltas
 // of the last iteration (dxdy).  gain: null for the hrec form, else the
-// packed gain (W, Tp, B).
+// packed gain (W, Tp, B).  work: admm_chunk_workspace_bytes of device
+// memory for the same budget, or null where that is 0 (the last arguments,
+// so that a caller of the earlier signature still works where none is
+// needed).
 extern "C" int admm_chunk_launch(const void* chol, const void* gain,
                                  const void* coef, const void* q,
                                  const void* lu, const void* rho,
@@ -690,10 +780,11 @@ extern "C" int admm_chunk_launch(const void* chol, const void* gain,
                                  const void* done, void* state, void* w,
                                  void* acc, void* dxdy, int W, int B,
                                  int n_iter, int mode, double sigma,
-                                 double alpha, void* stream) {
+                                 double alpha, void* stream, void* work,
+                                 int budget) {
 #define LANE_CHUNK_ARGS                                                       \
     chol, gain, coef, q, lu, rho, plf, ee, varc, pd, done, state, w, acc,    \
-        dxdy, W, B, n_iter, sigma, alpha, stream
+        dxdy, W, B, n_iter, sigma, alpha, stream, work, budget
     if (gain == nullptr) {
         if (mode == MODE_PLAIN) return launch_mode<MODE_PLAIN, false>(LANE_CHUNK_ARGS);
         if (mode == MODE_TERM) return launch_mode<MODE_TERM, false>(LANE_CHUNK_ARGS);

@@ -37,6 +37,15 @@
 // the prologue assembles each waypoint in its slot, and lane i owns row i
 // of the step (factor_rows_step: the Cholesky by columns across the group,
 // a barrier a pivot, in place in the slot; row i of G_t from there).
+// Above N = 16 (WIDE: 2N > 32) the group spans several warps (64 threads at
+// N = 17-32), and a block holds one problem.  The LANE_ROWS step is already
+// one of block barriers and shared memory; the wide form rolls its loops
+// (schur_wide: the entries walked in a loop, (i, j) worked out from the
+// entry's index, no table, each sum written as soon as it is formed;
+// factor_wide_step: the Cholesky and row l of G_t in place, no lane
+// holding 2N values), and where even one waypoint's slot beside G_{t-1}
+// does not fit in shared memory the window lives in a device-memory
+// workspace that the wrapper allocates (DEV).
 // Two other designs were timed on the card and were no faster (PERF.md): the
 // Cholesky by columns across the group (lane i owning row i, a barrier a
 // pivot), and the whole Schur update in every lane's registers with one
@@ -48,9 +57,10 @@
 #include "lane_common.cuh"
 
 // Threads per problem, problems per block at most (log2), threads per block.
+// WIDE: a group of several warps, one problem a block.
 constexpr int G = pow2_at_least(B2);
-static_assert(G <= 32, "a group is at most one warp (2N <= 32)");
-constexpr int QLOG_MAX = 3;
+constexpr bool WIDE = B2 > 32;
+constexpr int QLOG_MAX = WIDE ? 0 : 3;
 constexpr int MAX_THREADS = G << QLOG_MAX;
 // Schur entries per lane.
 constexpr int NE = (T + G - 1) / G;
@@ -65,10 +75,12 @@ constexpr int GS = T | 1;
 constexpr int SL_SPARE = SLOT - 1;
 // A lane's table of Schur entries packs four fields into one word: a byte
 // each while every field is below 256 (N <= 10), else 16 bits each.
+// (The wide form keeps no table.)
 constexpr bool ENT_WIDE = !(SLOT <= 256 && GS <= 256);
 using ent_t = std::conditional_t<ENT_WIDE, unsigned long long, unsigned>;
 constexpr int ENT_BITS = ENT_WIDE ? 16 : 8;
-static_assert(SLOT <= 65536 && GS <= 65536, "entries fit 16 bits each");
+static_assert(WIDE || (SLOT <= 65536 && GS <= 65536),
+              "entries fit 16 bits each");
 // Field k of an entry: 0 its row i, 1 and 2 the offsets of rows i and j of
 // the packed upper G (G[UP(i, k)] at gq[ui + k] for k >= i), 3 its slot row.
 __host__ __device__ constexpr int ent_field(ent_t e, int k) {
@@ -83,7 +95,20 @@ constexpr bool LANE_ROWS = B2 > 20;
 
 struct FactorPlan {
     int Q, qlog, TW, windows, smem, blocks, threads;
+    long long work;  // DEV: values of the device-memory workspace
 };
+
+// The wide form's window in device memory (DEV): waypoints a window.
+constexpr int DEV_TW = 8;
+
+// Row i of entry e of a packed lower triangle (e < T): the float root,
+// corrected to the exact row.
+__device__ __forceinline__ int tri_row(int e) {
+    int i = (int)((sqrtf(8.0f * (float)e + 1.0f) - 1.0f) * 0.5f);
+    while (i > 0 && LOW(i, 0) > e) --i;
+    while (i + 1 < B2 && LOW(i + 1, 0) <= e) ++i;
+    return i;
+}
 
 static FactorPlan factor_plan_for(int W, int B, int budget, int sms) {
     int qlog = QLOG_MAX;
@@ -103,12 +128,19 @@ static FactorPlan factor_plan_for(int W, int B, int budget, int sms) {
                    ((long long)SLOT * Q);
     if (tw > W) tw = W;
     FactorPlan p{};
+    if (tw < 1 && WIDE) {
+        // Not one waypoint on chip: the window and G_{t-1} in device memory.
+        const int windows = (W + DEV_TW - 1) / DEV_TW;
+        const int TW = (W + windows - 1) / windows;
+        return FactorPlan{Q, qlog, TW, windows, 0, blocks, G * Q,
+                          (long long)TW * SLOT * Q + fixed};
+    }
     if (tw < 1) return p;
     const int windows = (int)((W + tw - 1) / tw);
     const int TW = (W + windows - 1) / windows;
     const long long bytes =
         ((long long)TW * SLOT * Q + fixed) * (long long)sizeof(real);
-    p = FactorPlan{Q, qlog, TW, windows, (int)bytes, blocks, G * Q};
+    p = FactorPlan{Q, qlog, TW, windows, (int)bytes, blocks, G * Q, 0};
     return p;
 }
 
@@ -178,14 +210,72 @@ __device__ __forceinline__ void factor_rows_step(real* slot, real* gq,
     }
 }
 
+// The Schur update of the wide form: entries e = l, l + G, ... of the
+// packed triangle, k ascending from i as the table form sums them.
+__device__ __forceinline__ void schur_wide(real* slot, const real* gq, int Q,
+                                           int l) {
+#pragma unroll 1
+    for (int e = l; e < T; e += G) {
+        const int i = tri_row(e), j = e - LOW(i, 0);
+        const real* gi = gq + (UP(i, i) - i);
+        const real* gj = gq + (UP(j, j) - j);
+        real acc = real(0);
+#pragma unroll 4
+        for (int k = i; k < B2; ++k) acc = acc + gi[k] * gj[k];
+        slot[e * Q] = slot[e * Q] - acc;
+    }
+}
+
+// The wide form's step (WIDE, one problem a block): factor_rows_step's
+// arithmetic in place in the slot with every loop rolled (no lane holds 2N
+// values), row l of G_t formed in G_{t-1}'s place.
 template <bool GAIN>
+__device__ __forceinline__ void factor_wide_step(real* slot, real* gq,
+                                                 real* gainp, int t, int W,
+                                                 size_t Bs, int b, int l,
+                                                 bool valid) {
+    const bool row = l < B2;
+    const auto C = [&](int i, int j) -> real& { return slot[LOW(i, j)]; };
+#pragma unroll 1
+    for (int jj = 0; jj < B2; ++jj) {
+        if (l == jj) {
+            real sdd = C(jj, jj);
+            for (int k = 0; k < jj; ++k) sdd -= C(jj, k) * C(jj, k);
+            C(jj, jj) = sqrt_rn(sdd);
+        }
+        __syncthreads();  // pivot jj and row jj whole
+        if (row && l > jj) {
+            real sij = C(l, jj);
+            for (int k = 0; k < jj; ++k) sij -= C(l, k) * C(jj, k);
+            C(l, jj) = sij * rcp_rn(C(jj, jj));
+        }
+    }
+    __syncthreads();  // C_t whole
+    if (!row) return;
+    const real diag = l < N ? slot[SL_ML + l] : slot[SL_ML + N + l];
+    const real qv = l < N ? slot[SL_ML + N + l] : real(0);
+    real* grow = gq + (UP(l, l) - l);  // grow[j], j >= l
+    real* gout = gainp + ((size_t)t * Tp + UP(l, l) - l) * Bs + b;
+#pragma unroll 1
+    for (int j = l; j < B2; ++j) {
+        real sij = j == l ? diag : (j == l + N ? qv : real(0));
+        for (int k = l; k < j; ++k) sij -= grow[k] * C(j, k);
+        grow[j] = sij * rcp_rn(C(j, j));
+        if (GAIN && valid)
+            gout[(size_t)j * Bs] = t < W - 1 ? grow[j] : real(0);
+    }
+}
+
+// DEV (the wide form only): the window and G_{t-1} in the workspace work
+// (each block its own part), not in shared memory.
+template <bool GAIN, bool DEV = false>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
     kkt_factor_kernel(const real* __restrict__ coef_,
                       const real* __restrict__ rho_,
                       const real* __restrict__ pd_,
                       const real* __restrict__ pl_, real* __restrict__ cholp,
                       real* __restrict__ gainp, int W, int B, real sigma,
-                      int qlog, int TW) {
+                      int qlog, int TW, real* work) {
     LANE_SMEM_DECL();
     const int Q = 1 << qlog;
     const int tid = threadIdx.x, nthreads = G << qlog;
@@ -193,7 +283,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     const int b0 = blockIdx.x << qlog, b = b0 + q;
     const bool valid = b < B;
     const size_t Bs = (size_t)B;
-    real* win = lane_smem;                         // [t][SLOT][Q]
+    // [t][SLOT][Q]
+    real* win = DEV ? work + (size_t)blockIdx.x * ((size_t)TW * SLOT + GS) * Q
+                    : lane_smem;
     real* gq = win + (size_t)TW * SLOT * Q + q * GS;  // G_{t-1}: [Q][GS]
 
     // This lane's Schur entries (i, j) of the packed lower triangle, NE of
@@ -201,9 +293,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     // term, so that every lane runs NE entries without a branch.  Fields
     // (ent_field): i, the offsets of rows i and j of the packed upper G and
     // the slot row.
-    ent_t ent[NE];
+    ent_t ent[WIDE ? 1 : NE];
 #pragma unroll
-    for (int m = 0; m < NE; ++m) {
+    for (int m = 0; m < (WIDE ? 0 : NE); ++m) {
         const int e = l + m * G;
         int i = 0;
         while (i + 1 < B2 && LOW(i + 1, 0) <= e) ++i;
@@ -303,9 +395,10 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
             // loaded (k < i reads other entries of G) and the slot written
             // after all the sums, so that no load waits behind a predicate
             // or a store; each sum takes k >= i.
-            real acc[NE];
+            if constexpr (WIDE) schur_wide(slot, gq, Q, l);
+            real acc[WIDE ? 1 : NE];
 #pragma unroll
-            for (int m = 0; m < NE; ++m) {
+            for (int m = 0; m < (WIDE ? 0 : NE); ++m) {
                 const int i = ent_field(ent[m], 0);
                 const real* gi = gq + ent_field(ent[m], 1);
                 const real* gj = gq + ent_field(ent[m], 2);
@@ -321,7 +414,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
                     acc[m] = k >= i ? acc[m] + a[k] * c[k] : acc[m];
             }
 #pragma unroll
-            for (int m = 0; m < NE; ++m) {
+            for (int m = 0; m < (WIDE ? 0 : NE); ++m) {
                 real* e = slot + ent_field(ent[m], 3) * Q;
                 *e = *e - acc[m];
             }
@@ -331,8 +424,12 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
             if (tl > 0 && valid) store_chol(slot - SLOT * Q, t - 1);
 
             if constexpr (LANE_ROWS) {
-                factor_rows_step<GAIN>(slot, gq, gainp, t, W, Bs, b, Q, l,
-                                       valid);
+                if constexpr (WIDE)
+                    factor_wide_step<GAIN>(slot, gq, gainp, t, W, Bs, b, l,
+                                           valid);
+                else
+                    factor_rows_step<GAIN>(slot, gq, gainp, t, W, Bs, b, Q, l,
+                                           valid);
                 if (GAIN && valid) {
                     for (int e = T + l; e < Tp; e += G)
                         gainp[((size_t)t * Tp + e) * Bs + b] = real(0);
@@ -414,43 +511,61 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     }
 }
 
-// plan[0..7] = threads per problem G, problems per block Q, waypoints per
-// window TW, windows, shared bytes, blocks, threads per block, and the
-// shared bytes planned for: the plan kkt_factor_launch makes on the current
-// device.  budget <= 0: the device's (the host-emulation tests pass a small
-// budget to reach several windows).
+// The launch in either form (gain), DEV: the window in the workspace (a
+// template, so that only the wide builds compile that kernel).
+template <bool DEV, class... A>
+static int launch_form(bool gain, const FactorPlan& p, void* stream,
+                       A... args) {
+    const int smem = DEV ? 0 : p.smem;
+    if (gain)
+        return lane_launch_coop(&kkt_factor_kernel<true, DEV>, p.blocks,
+                                p.threads, p.threads, smem, stream, args...);
+    return lane_launch_coop(&kkt_factor_kernel<false, DEV>, p.blocks,
+                            p.threads, p.threads, smem, stream, args...);
+}
+
+// plan[0..8] = threads per problem G, problems per block Q, waypoints per
+// window TW, windows, shared bytes, blocks, threads per block, the shared
+// bytes planned for, and the bytes of the device-memory workspace the
+// launch needs (0: none; the wide form where no waypoint fits on chip): the
+// plan kkt_factor_launch makes on the current device.  budget <= 0: the
+// device's (the host-emulation tests pass a small budget to reach several
+// windows, or the workspace).
 extern "C" int kkt_factor_plan(int W, int B, int budget, long long* plan) {
     int dev_smem = 0, sms = 0;
     const int err = lane_device_limits(&dev_smem, &sms);
     if (err != 0) return err;
     if (budget <= 0) budget = dev_smem;
     const FactorPlan p = factor_plan_for(W, B, budget, sms);
-    const long long v[8] = {G,        p.Q,      p.TW,      p.windows,
-                            p.smem,   p.blocks, p.threads, budget};
-    for (int k = 0; k < 8; ++k) plan[k] = v[k];
+    const long long v[9] = {G,        p.Q,      p.TW,      p.windows,
+                            p.smem,   p.blocks, p.threads, budget,
+                            p.work * p.blocks * (long long)sizeof(real)};
+    for (int k = 0; k < 9; ++k) plan[k] = v[k];
     return 0;
 }
 
 // gainp: null for the chol-only form (emit_gain=False).  budget: as
-// kkt_factor_plan.
+// kkt_factor_plan; work: its workspace (null where the plan needs none;
+// the last argument, so that a caller of the earlier signature still
+// works where none is needed).
 extern "C" int kkt_factor_launch(const void* coef, const void* rho,
                                  const void* pd, const void* pl, void* cholp,
                                  void* gainp, int W, int B, double sigma,
-                                 int budget, void* stream) {
+                                 int budget, void* stream, void* work) {
     int dev_smem = 0, sms = 0;
     const int err = lane_device_limits(&dev_smem, &sms);
     if (err != 0) return err;
     if (budget <= 0) budget = dev_smem;
     const FactorPlan p = factor_plan_for(W, B, budget, sms);
-    if (p.TW == 0 || p.smem > dev_smem) return -1;
+    if (p.TW == 0 || p.smem > dev_smem || (p.work > 0 && work == nullptr))
+        return -1;
 #define LANE_FACTOR_ARGS                                                      \
     (const real*)coef, (const real*)rho, (const real*)pd, (const real*)pl,    \
-        (real*)cholp, (real*)gainp, W, B, (real)sigma, p.qlog, p.TW
-    if (gainp == nullptr)
-        return lane_launch_coop(&kkt_factor_kernel<false>, p.blocks,
-                                p.threads, p.threads, p.smem, stream,
-                                LANE_FACTOR_ARGS);
-    return lane_launch_coop(&kkt_factor_kernel<true>, p.blocks, p.threads,
-                            p.threads, p.smem, stream, LANE_FACTOR_ARGS);
+        (real*)cholp, (real*)gainp, W, B, (real)sigma, p.qlog, p.TW,          \
+        (real*)work
+    if (p.work > 0)
+        return launch_form<WIDE>(gainp != nullptr, p, stream,
+                                 LANE_FACTOR_ARGS);
+    return launch_form<false>(gainp != nullptr, p, stream, LANE_FACTOR_ARGS);
 #undef LANE_FACTOR_ARGS
 }

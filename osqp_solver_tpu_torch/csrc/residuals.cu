@@ -48,6 +48,11 @@
 // BLOCK_P: lane i forms row i of Pd_u x_u and of Pl_u' x_{u+1} (j ascending,
 // from zero) at step u and carries them; at step u-1, row i of
 // Pl_{u-1} x_{u-1} completes P x of waypoint u as (Pd x + Pl x) + Pl' x.
+// Above N = 16 (WIDE: 2N > 32) the group spans several warps and a block
+// holds one problem, as the chunk kernel's wide form: one value a tile row,
+// the copies in a loop, the maxima through the group's exchange in shared
+// memory, and the ring in a device-memory workspace where it does not fit
+// on chip (DEV).
 // Bound: every pack read once and 24 values a problem written (bytes); in
 // practice each problem's chain of W steps.  PERF.md records the times.
 #include <cstdint>
@@ -61,13 +66,14 @@
 
 // Threads per problem, problems per block at most (log2), stages of the
 // ring, producer threads, and the tile's row stride (one column a problem).
+// WIDE: a group of several warps, one problem a block.
 constexpr int G = pow2_at_least(B2) < 4 ? 4 : pow2_at_least(B2);
-static_assert(G <= 32, "a group is at most one warp (2N <= 32)");
-constexpr int QLOG_MAX = 2;
+constexpr bool WIDE = B2 > 32;
+constexpr int QLOG_MAX = WIDE ? 0 : 2;
 constexpr int NSTAGE = 3;
 constexpr int PRODUCERS = group_producers(G);
 constexpr int QS = 1 << QLOG_MAX;
-static_assert(QS % 4 == 0, "");
+static_assert(WIDE || QS % 4 == 0, "");
 
 // One stage of the ring: rows of QS values.
 #if BLOCK_P
@@ -93,7 +99,8 @@ constexpr int SL_Y = SL_DX + 2 * G;
 constexpr int SL_DY = SL_Y + 2 * Rp;
 constexpr int SL_SUP = SL_DY + 2 * Rp;  // support terms, 2 a row
 constexpr int SL_ACC = SL_SUP + 2 * Rp;
-constexpr int SLOT = SL_ACC + NACC;
+constexpr int SL_XCH = SL_ACC + NACC;  // WIDE: the group's exchange
+constexpr int SLOT = SL_XCH + (WIDE ? G : 0);
 
 // Sums parked per waypoint: support, sum y, q'dx, sum x.
 constexpr int NSUM = 4;
@@ -104,8 +111,11 @@ __host__ __device__ constexpr int producer_base(int qlog) {
 __host__ __device__ constexpr int block_threads(int qlog) {
     return producer_base(qlog) + PRODUCERS;
 }
-__host__ __device__ constexpr int resid_smem_bytes(int qlog) {
-    return (NSTAGE * STAGE_ROWS * QS + (1 << qlog) * SLOT) * (int)sizeof(real);
+// DEV: the ring in device memory, the slots alone in shared memory.
+constexpr int RING = NSTAGE * STAGE_ROWS * QS;
+__host__ __device__ constexpr int resid_smem_bytes(int qlog,
+                                                   bool dev = false) {
+    return ((dev ? 0 : RING) + (1 << qlog) * SLOT) * (int)sizeof(real);
 }
 
 using Tile = TileCol<QS>;
@@ -116,24 +126,33 @@ struct Packs {
 
 // Start this producer's copies of waypoint t's rows into stage t % NSTAGE
 // and commit them as one group.
+template <bool DEV = false>
 __device__ __forceinline__ void stage_issue(const Packs& k, const Stager& s,
                                             real* ring, int t) {
     real* sg = ring + (t % NSTAGE) * STAGE_ROWS * QS;
-    stage_pack_rows<QS, PRODUCERS, CRp, CR, O_CF>(s, k.coef, t, sg);
+    stage_pack_rows<QS, PRODUCERS, CRp, CR, O_CF, WIDE, DEV>(s, k.coef, t,
+                                                            sg);
 #if BLOCK_P
-    stage_pack_rows<QS, PRODUCERS, Tp, T, O_PD>(s, k.pd, t, sg);
-    stage_pack_rows<QS, PRODUCERS, B2 * B2, B2 * B2, O_PL>(s, k.pl, t, sg);
+    stage_pack_rows<QS, PRODUCERS, Tp, T, O_PD, WIDE, DEV>(s, k.pd, t, sg);
+    stage_pack_rows<QS, PRODUCERS, B2 * B2, B2 * B2, O_PL, WIDE, DEV>(
+        s, k.pl, t, sg);
 #else
-    stage_pack_rows<QS, PRODUCERS, PNp, N, O_PD>(s, k.pd, t, sg);
-    stage_pack_rows<QS, PRODUCERS, PNp, N, O_PL>(s, k.pl, t, sg);
+    stage_pack_rows<QS, PRODUCERS, PNp, N, O_PD, WIDE, DEV>(s, k.pd, t, sg);
+    stage_pack_rows<QS, PRODUCERS, PNp, N, O_PL, WIDE, DEV>(s, k.pl, t, sg);
 #endif
-    stage_pack_rows<QS, PRODUCERS, SRp, SR, O_ST>(s, k.state, t, sg);
-    stage_pack_rows<QS, PRODUCERS, DRp, DR, O_DD>(s, k.dxdy, t, sg);
-    stage_pack_rows<QS, PRODUCERS, 4 * Rp, 4 * Rp, O_RC>(s, k.rowc, t, sg);
-    stage_pack_rows<QS, PRODUCERS, VCp, 3 * B2, O_VC>(s, k.varc, t, sg);
+    stage_pack_rows<QS, PRODUCERS, SRp, SR, O_ST, WIDE, DEV>(s, k.state, t,
+                                                            sg);
+    stage_pack_rows<QS, PRODUCERS, DRp, DR, O_DD, WIDE, DEV>(s, k.dxdy, t,
+                                                            sg);
+    stage_pack_rows<QS, PRODUCERS, 4 * Rp, 4 * Rp, O_RC, WIDE, DEV>(
+        s, k.rowc, t, sg);
+    stage_pack_rows<QS, PRODUCERS, VCp, 3 * B2, O_VC, WIDE, DEV>(
+        s, k.varc, t, sg);
     cp_async_commit();
 }
 
+// DEV (WIDE only): the ring in the workspace work, each block its part.
+template <bool DEV = false>
 __global__ void __launch_bounds__(block_threads(QLOG_MAX), 1)
     residuals_kernel(const real* __restrict__ coef,
                      const real* __restrict__ pd, const real* __restrict__ pl,
@@ -141,7 +160,7 @@ __global__ void __launch_bounds__(block_threads(QLOG_MAX), 1)
                      const real* __restrict__ dxdy,
                      const real* __restrict__ rowc,
                      const real* __restrict__ varc, real* sums, real* acc_out,
-                     int W, int B, int qlog, int x4) {
+                     int W, int B, int qlog, int x4, real* work) {
     LANE_SMEM_DECL();
     const int tid = threadIdx.x, pbase = producer_base(qlog);
     const bool idle = tid >= (G << qlog), stager = tid >= pbase;
@@ -151,8 +170,8 @@ __global__ void __launch_bounds__(block_threads(QLOG_MAX), 1)
     const bool valid = !idle && b < B;
     const Packs packs{coef, pd, pl, state, dxdy, rowc, varc};
     const Stager s = make_stager(B, b0, qlog, tid - pbase, x4);
-    real* ring = lane_smem;
-    real* sl = ring + NSTAGE * STAGE_ROWS * QS + g * SLOT;
+    real* ring = DEV ? work + (size_t)blockIdx.x * RING : lane_smem;
+    real* sl = (DEV ? lane_smem : ring + RING) + g * SLOT;
 
     // Carried from waypoint t+1: its maxima inputs q, Dinv, own-row A'
     // coefficients, and its P partials (vel-diag: Pd v + Pl v_{+1} of a v
@@ -174,7 +193,7 @@ __global__ void __launch_bounds__(block_threads(QLOG_MAX), 1)
     }
     if (stager)
         for (int t = W - 1; t > W - NSTAGE; --t) {
-            if (t >= 0) stage_issue(packs, s, ring, t);
+            if (t >= 0) stage_issue<DEV>(packs, s, ring, t);
             else cp_async_commit();
         }
     for (int t = W - 1; t >= 0; --t) {
@@ -185,7 +204,8 @@ __global__ void __launch_bounds__(block_threads(QLOG_MAX), 1)
         __syncthreads();
         const real* sg = ring + (t % NSTAGE) * STAGE_ROWS * QS + g;
         if (stager) {
-            if (t - NSTAGE + 1 >= 0) stage_issue(packs, s, ring, t - NSTAGE + 1);
+            if (t - NSTAGE + 1 >= 0)
+                stage_issue<DEV>(packs, s, ring, t - NSTAGE + 1);
             else cp_async_commit();
         }
         if (idle) continue;
@@ -300,56 +320,80 @@ __global__ void __launch_bounds__(block_threads(QLOG_MAX), 1)
                    at_gather(i, cw, sl + SL_DY, real(0), real(0)), px, pdx,
                    m);
     }
-    term_finish<G>(i, g, valid, W, m, sums + (size_t)i * B + b,
-                   (size_t)NSUM * B, sl + SL_ACC, acc_out + b, B);
+    term_finish<G, WIDE>(i, g, valid, W, m, sums + (size_t)i * B + b,
+                         (size_t)NSUM * B, sl + SL_ACC, acc_out + b, B,
+                         sl + SL_XCH);
 }
 
 struct ResidPlan {
     int qlog, Q, smem, blocks, threads;
+    long long work;  // DEV: values of the device-memory workspace
 };
 
-static int resid_plan_for(int B, ResidPlan* p) {
+// budget <= 0: the shared memory a block may use (the host-emulation tests
+// and the card's checks pass a small one to put the ring in device memory).
+static int resid_plan_for(int B, int budget, ResidPlan* p) {
     int dev_smem = 0, sms = 0;
     const int err = lane_device_limits(&dev_smem, &sms);
     if (err != 0) return err;
+    const int room = budget > 0 && budget < dev_smem ? budget : dev_smem;
     const int qlog = group_qlog(B, sms, QLOG_MAX), Q = 1 << qlog;
-    *p = ResidPlan{qlog, Q, resid_smem_bytes(qlog), (B + Q - 1) / Q,
-                   block_threads(qlog)};
+    const int blocks = (B + Q - 1) / Q;
+    // WIDE: the ring in device memory where it does not fit on chip.
+    const bool dev = WIDE && resid_smem_bytes(qlog) > room;
+    *p = ResidPlan{qlog, Q, resid_smem_bytes(qlog, dev), blocks,
+                   block_threads(qlog), dev ? (long long)RING * blocks : 0};
     return p->smem > dev_smem ? -1 : 0;
 }
 
-// plan[0..7] = threads per problem G, problems per block Q, stages, shared
+// plan[0..8] = threads per problem G, problems per block Q, stages, shared
 // bytes, blocks, threads per block, tile row stride, bytes per staging copy
-// (for 16-byte aligned packs): the plan residuals_launch makes on the
-// current device.
-extern "C" int residuals_plan(int B, long long* plan) {
+// (for 16-byte aligned packs), and the bytes of the device-memory workspace
+// (0: the ring on chip): the plan residuals_launch makes on the current
+// device.
+extern "C" int residuals_plan(int B, long long* plan, int budget) {
     ResidPlan p{};
-    const int err = resid_plan_for(B, &p);
-    const long long v[8] = {G,        p.Q,       NSTAGE, p.smem,
+    const int err = resid_plan_for(B, budget, &p);
+    const long long v[9] = {G,        p.Q,       NSTAGE, p.smem,
                             p.blocks, p.threads, QS,
-                            group_tile_x4(p.qlog, B) ? 16 : 4};
-    for (int k = 0; k < 8; ++k) plan[k] = v[k];
+                            group_tile_x4(p.qlog, B) ? 16 : 4,
+                            p.work * (long long)sizeof(real)};
+    for (int k = 0; k < 9; ++k) plan[k] = v[k];
     return err;
 }
 
-// sums: a (W, 4, B) scratch, written and read back by the kernel.
+// The launch, DEV: the ring in the workspace (a template, so that only the
+// wide builds compile that kernel).
+template <bool DEV, class... A>
+static int launch_resid(const ResidPlan& p, void* stream, A... args) {
+    return lane_launch_coop(&residuals_kernel<DEV>, p.blocks, p.threads, G,
+                            p.smem, stream, args...);
+}
+
+// sums: a (W, 4, B) scratch, written and read back by the kernel.  work:
+// the plan's workspace for the same budget (residuals_plan), null where it
+// needs none (the last arguments, so that a caller of the earlier
+// signature still works there).
 extern "C" int residuals_launch(const void* coef, const void* pd,
                                 const void* pl, const void* state,
                                 const void* dxdy, const void* rowc,
                                 const void* varc, void* sums, void* acc, int W,
-                                int B, void* stream) {
+                                int B, void* stream, void* work,
+                                int budget) {
     ResidPlan p{};
-    const int err = resid_plan_for(B, &p);
+    const int err = resid_plan_for(B, budget, &p);
     if (err != 0) return err;
+    if (p.work > 0 && work == nullptr) return -1;
     // 16-byte copies need every staged pack 16-byte aligned.
     uintptr_t bits = 0;
     for (const void* ptr : {coef, pd, pl, state, dxdy, rowc, varc})
         bits |= (uintptr_t)ptr;
     const int x4 = group_tile_x4(p.qlog, B) && bits % 16 == 0;
-    return lane_launch_coop(&residuals_kernel, p.blocks, p.threads, G, p.smem,
-                            stream, (const real*)coef, (const real*)pd,
-                            (const real*)pl, (const real*)state,
-                            (const real*)dxdy, (const real*)rowc,
-                            (const real*)varc, (real*)sums, (real*)acc, W, B,
-                            p.qlog, x4);
+#define LANE_RESID_ARGS                                                       \
+    (const real*)coef, (const real*)pd, (const real*)pl, (const real*)state,  \
+        (const real*)dxdy, (const real*)rowc, (const real*)varc, (real*)sums, \
+        (real*)acc, W, B, p.qlog, x4, (real*)work
+    if (p.work > 0) return launch_resid<WIDE>(p, stream, LANE_RESID_ARGS);
+    return launch_resid<false>(p, stream, LANE_RESID_ARGS);
+#undef LANE_RESID_ARGS
 }

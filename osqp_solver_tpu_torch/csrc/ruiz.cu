@@ -54,6 +54,11 @@
 // BLOCK_P: the four 12 x 12 |P| blocks of a waypoint cannot stay on chip, so
 // they are read from the packs at the point of use (2 x 59 MB at W=100, N=6,
 // B=1024, read several times a pass through L2).
+// Above N = 16 (WIDE: 2N > 32) a thread's values of a waypoint (D, E and
+// the neighbours' of 2N, R and N rows, and in the block build the 2N x 2N
+// blocks' columns) no longer fit in its registers: every loop over them is
+// rolled (RUIZ_UNROLL), the arrays live in local memory, and the plan takes
+// fewer threads where even the per-thread slots do not fit on chip.
 // Bound: the vel-diag build by reading its packs once and writing D/E (the
 // passes run on chip); the block build by the |P| block reads.  PERF.md
 // records the times.
@@ -65,6 +70,13 @@
 
 #ifndef BLOCK_P
 #define BLOCK_P 0
+#endif
+
+constexpr bool WIDE = B2 > 32;
+#if 2 * NDIM > 32
+#define RUIZ_UNROLL _Pragma("unroll 1")
+#else
+#define RUIZ_UNROLL _Pragma("unroll")
 #endif
 
 constexpr int PB = B2 * B2;  // entries of one full P block (BLOCK_P packs)
@@ -133,14 +145,13 @@ struct RuizPlan {
     int G, Q, qlog, rpt, sm, smem, blocks, threads, np;
 };
 
-// The plan: the constant rows and D/E in shared memory if they fit, else
-// both in device memory; in that placement the most problems per block
-// (their rows are adjacent: longer pieces of each row to copy); then as
-// many threads as the waypoints need.
-static RuizPlan ruiz_plan_for(int W, int B, int budget, int max_thr,
-                              int sms) {
-    const int threads =
-        max_thr > 0 && max_thr < MAX_THREADS ? max_thr : MAX_THREADS;
+// The plan for at most `threads` a block: the constant rows and D/E in
+// shared memory if they fit, else both in device memory; in that placement
+// the most problems per block (their rows are adjacent: longer pieces of
+// each row to copy); then as many threads as the waypoints need.  WIDE:
+// none where even the per-thread slots do not fit in budget.
+static RuizPlan ruiz_plan_threads(int W, int B, int budget, int threads,
+                                  int sms) {
     for (int sm = 1; sm >= 0; --sm) {
         for (int qlog = QLOG_MAX; qlog >= 0; --qlog) {
             const int Q = 1 << qlog;
@@ -158,12 +169,24 @@ static RuizPlan ruiz_plan_for(int W, int B, int budget, int max_thr,
             const long long vals = (long long)W * Q * (sm ? KROWS + SROWS : 0) +
                                    2LL * (G / L) * Q + (long long)B2 * G * Q;
             const long long bytes = vals * (long long)sizeof(real);
-            if (bytes > budget && sm) continue;
+            if (bytes > budget && (sm || WIDE)) continue;
             return RuizPlan{G, Q, qlog, rpt, sm, (int)bytes, (int)blocks,
                             G * Q, G / L};
         }
     }
     return RuizPlan{};
+}
+
+// The plan at the build's thread cap (or max_thr); WIDE: fewer threads a
+// block until the slots fit.
+static RuizPlan ruiz_plan_for(int W, int B, int budget, int max_thr,
+                              int sms) {
+    int threads =
+        max_thr > 0 && max_thr < MAX_THREADS ? max_thr : MAX_THREADS;
+    RuizPlan p = ruiz_plan_threads(W, B, budget, threads, sms);
+    while (WIDE && p.G == 0 && threads > LANE_WARP)
+        p = ruiz_plan_threads(W, B, budget, threads /= 2, sms);
+    return p;
 }
 
 // --------------------------------------------------------------- the kernel
@@ -283,22 +306,22 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
         // D (Dv alone for vel-diag P) and the dyn/acc E rows of the waypoint
         // before it, D of the waypoint after it (zero where there is none).
         real pD[B2], pedyn[N], peacc[N];
-#pragma unroll
+RUIZ_UNROLL
         for (int i = 0; i < B2; ++i) pD[i] = real(0);
-#pragma unroll
+RUIZ_UNROLL
         for (int j = 0; j < N; ++j) pedyn[j] = peacc[j] = real(0);
         if (u0 < u1) {
             if (u0 > 0) {
-#pragma unroll
+RUIZ_UNROLL
                 for (int i = BLOCK_P ? 0 : N; i < B2; ++i)
                     pD[i] = D(u0 - 1, i);
-#pragma unroll
+RUIZ_UNROLL
                 for (int j = 0; j < N; ++j) {
                     pedyn[j] = E(u0 - 1, R_DYN + j);
                     peacc[j] = E(u0 - 1, R_ACC + j);
                 }
             }
-#pragma unroll
+RUIZ_UNROLL
             for (int i = 0; i < B2; ++i)
                 nxt[i * nthreads] = u1 < W ? D(u1 < W ? u1 : u0, i) : real(0);
         }
@@ -312,12 +335,12 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
             // branch); Dx is zero past the last waypoint.
             const int up = u > 0 ? u - 1 : 0;
             real Du[B2], Dx[B2], ex[NX > 0 ? NX : 1];
-#pragma unroll
+RUIZ_UNROLL
             for (int i = 0; i < B2; ++i) {
                 Du[i] = D(u, i);
                 Dx[i] = u + 1 < u1 ? D(u + 1, i) : nxt[i * nthreads];
             }
-#pragma unroll
+RUIZ_UNROLL
             for (int k = 0; k < NX; ++k) ex[k] = E(u, R_X + k);
 #if BLOCK_P
             // P column maximum jj of waypoint u (old D / c): the diagonal
@@ -329,15 +352,15 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
                 // (Without the constants on chip, each of the three sweeps
                 // has its loads to itself.)
                 real acc = real(0), accc = real(0), prow = real(0);
-#pragma unroll
+RUIZ_UNROLL
                 for (int ii = 0; ii < B2; ++ii)
                     acc = vmax(acc, (c * Du[ii]) * pdb(u, PB, ii * B2 + jj));
                 hold_loads<!SM>();
-#pragma unroll
+RUIZ_UNROLL
                 for (int ii = 0; ii < B2; ++ii)
                     accc = vmax(accc, (c * Dx[ii]) * plb(u, PB, ii * B2 + jj));
                 hold_loads<!SM>();
-#pragma unroll
+RUIZ_UNROLL
                 for (int ii = 0; ii < B2; ++ii)
                     prow = vmax(prow, plb(up, PB, jj * B2 + ii) * pD[ii]);
                 real pc = acc * Du[jj];
@@ -358,7 +381,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
                 if (BLOCK_P) E(u, r) = v;
                 else Enew[r] = v;
             };
-#pragma unroll
+RUIZ_UNROLL
             for (int j = 0; j < N; ++j) {
                 hold_loads<!SM || BLOCK_P>();
                 const real dq = Du[j], dv = Du[N + j];
@@ -376,7 +399,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
                 real cv = vmax(vmax(s_vel, s_c0), s_a1);
                 cq = vmax(cq, cf(up, C_C1 + j) * pedyn[j] * dq);
                 cv = vmax(cv, cf(up, C_A0 + j) * peacc[j] * dv);
-#pragma unroll
+RUIZ_UNROLL
                 for (int k = 0; k < NX; ++k)
                     cq = vmax(cq, cf(u, C_X + k * N + j) * ex[k] * dq);
 #if BLOCK_P
@@ -403,22 +426,22 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
                 pedyn[j] = edyn;
                 peacc[j] = eacc;
             }
-#pragma unroll
+RUIZ_UNROLL
             for (int k = 0; k < NX; ++k) {
                 hold_loads<!SM || BLOCK_P>();
                 real m = real(0);
-#pragma unroll
+RUIZ_UNROLL
                 for (int j = 0; j < N; ++j)
                     m = vmax(m, cf(u, C_X + k * N + j) * ex[k] * Du[j]);
                 put_e(R_X + k, ex[k] * inv_sqrt_limit(m));
             }
             if (!BLOCK_P) {
-#pragma unroll
+RUIZ_UNROLL
                 for (int i = 0; i < B2; ++i) D(u, i) = Dnew[i];
-#pragma unroll
+RUIZ_UNROLL
                 for (int r = 0; r < R; ++r) E(u, r) = Enew[r];
             }
-#pragma unroll
+RUIZ_UNROLL
             for (int i = 0; i < B2; ++i) pD[i] = Du[i];
         }
         __syncthreads();
@@ -431,7 +454,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
             const bool has_prev = u > 0, has_next = u + 1 < W;
             const int up = has_prev ? u - 1 : u, un = has_next ? u + 1 : u;
             real Dn[B2], Dp[B2], Dx[B2];
-#pragma unroll
+RUIZ_UNROLL
             for (int i = 0; i < B2; ++i) {
                 Dn[i] = D(u, i);
                 const real vp = D(up, i), vn = D(un, i);
@@ -440,22 +463,22 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
             }
 #if BLOCK_P
             real add = real(0);
-#pragma unroll
+RUIZ_UNROLL
             for (int jj = 0; jj < B2; ++jj) {
                 hold_loads<true>();
                 real acc = real(0);
-#pragma unroll
+RUIZ_UNROLL
                 for (int ii = 0; ii < B2; ++ii)
                     acc = vmax(acc, (c * Dn[ii]) * pdb(u, PB, ii * B2 + jj));
                 real pc = acc * Dn[jj];
                 real r = real(0), accc = real(0);
                 hold_loads<!SM>();
-#pragma unroll
+RUIZ_UNROLL
                 for (int jx = 0; jx < B2; ++jx)
                     r = vmax(r, plb(up, PB, jj * B2 + jx) * Dp[jx]);
                 pc = vmax(pc, r * (c * Dn[jj]));
                 hold_loads<!SM>();
-#pragma unroll
+RUIZ_UNROLL
                 for (int ii = 0; ii < B2; ++ii)
                     accc = vmax(accc, (c * Dx[ii]) * plb(u, PB, ii * B2 + jj));
                 pc = vmax(pc, accc * Dn[jj]);
@@ -464,7 +487,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
 #else
             // q columns carry no P entry and add limit(0) = 1 each.
             real add = real(N);
-#pragma unroll
+RUIZ_UNROLL
             for (int j = 0; j < N; ++j) {
                 hold_loads<!SM>();
                 const real dv = Dn[N + j];
@@ -476,7 +499,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
 #endif
             gsum = gsum + add;
             real qadd = real(0);
-#pragma unroll
+RUIZ_UNROLL
             for (int i = 0; i < B2; ++i) qadd = vmax(qadd, (c * Dn[i]) * aq(u, i));
             gqmax = vmax(gqmax, qadd);
         }
@@ -521,10 +544,10 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
             }
         } else if (valid) {
             for (int u = g; u < W; u += G) {
-#pragma unroll
+RUIZ_UNROLL
                 for (int i = 0; i < B2; ++i)
                     Dout[((size_t)u * B2 + i) * Bs + b] = D(u, i);
-#pragma unroll
+RUIZ_UNROLL
                 for (int r = 0; r < Rp; ++r)
                     Eout[((size_t)u * Rp + r) * Bs + b] =
                         r < R ? E(u, r) : real(1);

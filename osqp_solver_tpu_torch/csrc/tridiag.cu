@@ -89,6 +89,16 @@
 //     backward sweep, or, where the launch plan finds no room, writes it into
 //     x, from where the producer stages it back.  Nothing on a step's chain
 //     reads device memory.
+// Above B2 = 32 (WIDE) the group spans several warps and a block holds one
+// problem, in both kernels.  The factor takes the LANE_ROWS step with every
+// loop rolled: its Schur entries worked out from their index (no table),
+// the Cholesky and G_t's rows in place in shared memory (nothing of B2
+// values in registers).  The solve takes the LANE_ROWS form with the tile
+// one value a row, the previous step's vector and each column's element
+// broadcast through shared memory (one group barrier a column).  Where a
+// kernel's three-stage ring does not fit in shared memory it lives in a
+// device-memory workspace that the wrapper allocates (DEV: the copies are
+// loads and stores, made visible by the step's barrier).
 // Bound: bytes on paper (each step's blocks read once a sweep); in practice
 // each problem's chain of 2W steps, each B2 divisions and the multiply-adds
 // between them.
@@ -111,8 +121,10 @@ __host__ __device__ constexpr int TRI(int i, int j) {
 
 // A group of SG threads (the smallest power of two >= B2, at least 4) works
 // on one problem in both kernels.
+// Above B2 = 32 (WIDE) the group is several warps and a block holds one
+// problem.
 constexpr int SG = pow2_at_least(B2) < 4 ? 4 : pow2_at_least(B2);
-static_assert(SG <= 32, "a group is at most one warp (B2 <= 32)");
+constexpr bool WIDE = B2 > 32;
 
 // Above B2 = 20 both kernels split a step's rows among the group's lanes
 // (lane i owns row i) instead of working the whole B2 x B2 system in every
@@ -126,7 +138,7 @@ constexpr bool LANE_ROWS = B2 > 20;
 // ---- the factor.
 // Problems per block at most (log2), stages of the ring, Schur entries per
 // lane, and a row of a block padded to whole 16-byte loads.
-constexpr int F_QLOG_MAX = 3;
+constexpr int F_QLOG_MAX = WIDE ? 0 : 3;
 constexpr int F_NSTAGE = 3;
 constexpr int NE = (NT + SG - 1) / SG;
 constexpr int B2P = (B2 + 3) / 4 * 4;
@@ -140,20 +152,25 @@ constexpr int B2P = (B2 + 3) / 4 * 4;
 __host__ __device__ constexpr int odd_quads(int n) {
     return n % 8 == 0 ? n + 4 : n;
 }
-constexpr int F_L = NE * SG;
+// WIDE: the triangle, the flag, and the rows of L_t and G_{t-1} of the B2
+// lanes that own a row only.
+constexpr int F_L = WIDE ? (NT + 4) / 4 * 4 : NE * SG;
 // LANE_ROWS: the first spare entry past the triangle (F_L > NT at every
 // B2 above 20) holds the step's "some pivot not positive" flag.
 constexpr int F_BAD = NT;
 static_assert(!LANE_ROWS || F_L > NT, "a spare entry for the pivot flag");
-constexpr int F_FR = odd_quads(F_L + SG * B2P);
-constexpr int F_GS = odd_quads(SG * B2P);
+constexpr int F_ROWS = WIDE ? B2 : SG;
+constexpr int F_FR = odd_quads(F_L + F_ROWS * B2P);
+constexpr int F_GS = odd_quads(F_ROWS * B2P);
 // A lane's table of Schur entries packs four offsets into one word: a byte
 // each while every offset is below 256 (B2 <= 16), else 16 bits each.
+// (The wide form keeps no table.)
 constexpr bool ENT_WIDE = !(F_L <= 256 && NF <= 256 && (B2 - 1) * B2P < 256);
 using ent_t = std::conditional_t<ENT_WIDE, unsigned long long, unsigned>;
 constexpr int ENT_BITS = ENT_WIDE ? 16 : 8;
 constexpr ent_t ENT_MASK = (ent_t(1) << ENT_BITS) - 1;
-static_assert(F_L <= 65536 && NF <= 65536, "entries fit 16 bits each");
+static_assert(WIDE || (F_L <= 65536 && NF <= 65536),
+              "entries fit 16 bits each");
 // Field k of an entry: 0 and 1 the offsets of rows i and j of G, 2 the
 // entry's offset (i, j) in a full block, 3 its place e in the triangle.
 __host__ __device__ constexpr int ent_field(ent_t e, int k) {
@@ -167,13 +184,76 @@ __host__ __device__ constexpr long long factor_smem_bytes(int qlog) {
 
 struct FactorPlan {
     int qlog, Q, smem, blocks, threads;
+    long long work;  // DEV: values of the device-memory workspace
 };
 
-// Problems per block as the chunk kernel plans them.
-static FactorPlan factor_plan_for(int B, int sms) {
+// Problems per block as the chunk kernel plans them; WIDE: the ring and
+// G_{t-1} in device memory where they do not fit in budget (bytes).
+static FactorPlan factor_plan_for(int B, int sms, int budget) {
     const int qlog = group_qlog(B, sms, F_QLOG_MAX), Q = 1 << qlog;
-    return FactorPlan{qlog, Q, (int)factor_smem_bytes(qlog), (B + Q - 1) / Q,
-                      SG << qlog};
+    const int blocks = (B + Q - 1) / Q;
+    if (WIDE && factor_smem_bytes(qlog) > budget)
+        return FactorPlan{qlog, Q, 0, blocks, SG << qlog,
+                          ((long long)F_NSTAGE * F_FR + F_GS) * blocks};
+    return FactorPlan{qlog, Q, (int)factor_smem_bytes(qlog), blocks,
+                      SG << qlog, 0};
+}
+
+// Row i of entry e of the packed lower triangle (e < NT): the float root,
+// corrected to the exact row.
+__device__ __forceinline__ int tri_row(int e) {
+    int i = (int)((sqrtf(8.0f * (float)e + 1.0f) - 1.0f) * 0.5f);
+    while (i > 0 && TRI(i, 0) > e) --i;
+    while (i + 1 < B2 && TRI(i + 1, 0) <= e) ++i;
+    return i;
+}
+
+// The wide form's step (WIDE), after the Schur update left S_t in the stage
+// (sg) and the block's barrier: factor_rows_step's arithmetic, in place in
+// shared memory (or the workspace) with every loop rolled, so that no lane
+// holds B2 values.  Lanes past B2 take part in the barriers alone.
+__device__ __forceinline__ void factor_wide_step(
+    real* sg, real* gq, real* co, real* go, int t, int W, size_t Bs, int l,
+    bool row, bool valid) {
+    if (l == 0) sg[F_BAD] = real(0);
+#pragma unroll 1
+    for (int j = 0; j < B2; ++j) {
+        if (l == j) {
+            real s = sg[TRI(j, j)];
+            for (int k = 0; k < j; ++k)
+                s = fma_rn(-sg[TRI(j, k)], sg[TRI(j, k)], s);
+            if (!(s > real(0))) sg[F_BAD] = real(1);
+            sg[TRI(j, j)] = sqrt_rn(s);
+        }
+        __syncthreads();  // pivot j and row j whole
+        if (row && l > j) {
+            real v = sg[TRI(l, j)];
+            for (int k = 0; k < j; ++k)
+                v = fma_rn(-sg[TRI(l, k)], sg[TRI(j, k)], v);
+            sg[TRI(l, j)] = mul_rn(v, rcp_rn(sg[TRI(j, j)]));
+        }
+    }
+    __syncthreads();  // C_t whole
+    const real poison = sg[F_BAD] != real(0) ? real(NAN) : real(0);
+    if (!row) return;
+    // Row l of G_t = L_t C_t^{-T} into gq (G_{t-1}'s place, read by this
+    // step's Schur update before the last barrier) and out; row l of C_t
+    // out.
+    real* gl = gq + l * B2P;
+#pragma unroll 1
+    for (int j = 0; j < B2; ++j) {
+        real s = sg[F_L + l * B2P + j];
+        for (int k = 0; k < j; ++k) s = fma_rn(-gl[k], sg[TRI(j, k)], s);
+        const real gj = mul_rn(s, rcp_rn(sg[TRI(j, j)])) - poison;
+        gl[j] = gj;
+        if (valid && t < W - 1) go[(size_t)t * NF * Bs + j * Bs] = gj;
+    }
+    if (valid) {
+#pragma unroll 1
+        for (int j = 0; j < B2; ++j)
+            co[(size_t)t * NF * Bs + j * Bs] =
+                l >= j ? sg[TRI(l, j)] - poison : real(0);
+    }
 }
 
 // One step of the factor above B2 = 20, after the Schur update left S_t in
@@ -238,11 +318,14 @@ __device__ __forceinline__ void factor_rows_step(
                  l >= j ? a[j] - poison : real(0), row && valid);
 }
 
+// DEV (WIDE only): the ring and G_{t-1} in the workspace work, each block
+// its part.
+template <bool DEV = false>
 __global__ void __launch_bounds__(SG << F_QLOG_MAX, 1)
     tridiag_factor_kernel(const real* __restrict__ diag,
                           const real* __restrict__ lower,
                           real* __restrict__ chol, real* __restrict__ gain,
-                          int W, int B, int qlog) {
+                          int W, int B, int qlog, real* work) {
     LANE_SMEM_DECL();
     const int Q = 1 << qlog, tid = threadIdx.x;
     const int q = tid & (Q - 1), l = tid >> qlog;
@@ -251,17 +334,20 @@ __global__ void __launch_bounds__(SG << F_QLOG_MAX, 1)
     const size_t Bs = (size_t)B;
     // Past the batch (the last block): read the last problem, write nothing.
     const size_t bl = valid ? b : B - 1;
-    real* ring = lane_smem + q * F_FR;                        // [stage][q][F_FR]
-    real* gq = lane_smem + F_NSTAGE * F_FR * Q + q * F_GS;   // G_{t-1}
+    real* base = DEV ? work + (size_t)blockIdx.x *
+                                  ((size_t)F_NSTAGE * F_FR + F_GS) * Q
+                     : lane_smem;
+    real* ring = base + q * F_FR;                        // [stage][q][F_FR]
+    real* gq = base + F_NSTAGE * F_FR * Q + q * F_GS;   // G_{t-1}
     const real nan = real(NAN);
 
     // This lane's Schur entries e = l, l + SG, ... of the packed triangle,
     // each its four fields of ent_field (the entries past NT update spare
     // values with row B2-1's terms, so that every lane runs NE entries
     // without a branch).
-    ent_t ent[NE];
+    ent_t ent[WIDE ? 1 : NE];
 #pragma unroll
-    for (int m = 0; m < NE; ++m) {
+    for (int m = 0; m < (WIDE ? 0 : NE); ++m) {
         const int e = l + m * SG;
         int i = 0;
         while (i + 1 < B2 && TRI(i + 1, 0) <= e) ++i;
@@ -282,6 +368,23 @@ __global__ void __launch_bounds__(SG << F_QLOG_MAX, 1)
         real* sg = ring + (u % F_NSTAGE) * F_FR * Q;
         const int uc = u < W ? u : W - 1;
         const real* d = diag + (size_t)uc * NF * Bs + bl;
+        if constexpr (WIDE) {
+            // Entries l, l + SG, ... of D_u and, lane i < B2 below the last
+            // step, row i of L_u, in loops.
+#pragma unroll 1
+            for (int e = l; e < NT; e += SG) {
+                const int i = tri_row(e);
+                stage_copy4<DEV>(sg + e, d + (i * B2 + e - TRI(i, 0)) * Bs);
+            }
+            const real* lo = lower + ((size_t)uc * NF + lr * B2) * Bs + bl;
+            if (row && uc < W - 1) {
+#pragma unroll 1
+                for (int j = 0; j < B2; ++j)
+                    stage_copy4<DEV>(sg + F_L + l * B2P + j, lo + j * Bs);
+            }
+            cp_async_commit();
+            return;
+        }
 #pragma unroll
         for (int m = 0; m < NE; ++m)
             cp_async4_if(sg + ent_field(ent[m], 3),
@@ -301,7 +404,20 @@ __global__ void __launch_bounds__(SG << F_QLOG_MAX, 1)
         // barrier.
         issue(t + F_NSTAGE - 1);
         cp_async_wait<F_NSTAGE - 1>();  // this lane's copies of step t
-        if (t > 0) {
+        if (WIDE && t > 0) {
+            // S_t = D_t - G_{t-1} G_{t-1}', this lane's entries, k
+            // ascending, each written as soon as it is formed.
+#pragma unroll 1
+            for (int e = l; e < NT; e += SG) {
+                const int i = tri_row(e), j = e - TRI(i, 0);
+                const real* gi = gq + i * B2P;
+                const real* gj = gq + j * B2P;
+                real a = sg[e];
+#pragma unroll 4
+                for (int k = 0; k < B2; ++k) a = fma_rn(-gi[k], gj[k], a);
+                sg[e] = a;
+            }
+        } else if (t > 0) {
             // S_t = D_t - G_{t-1} G_{t-1}', this lane's entries, k ascending.
             real acc[NE];
 #pragma unroll
@@ -322,7 +438,9 @@ __global__ void __launch_bounds__(SG << F_QLOG_MAX, 1)
         }
         __syncthreads();  // S_t whole
 
-        if constexpr (LANE_ROWS) {
+        if constexpr (WIDE) {
+            factor_wide_step(sg, gq, co, go, t, W, Bs, l, row, valid);
+        } else if constexpr (LANE_ROWS) {
             factor_rows_step(sg, gq, co, go, t, W, Bs, l, lr, row, valid);
         } else {
             // Cholesky of the whole S_t in this lane's registers, column by
@@ -390,7 +508,7 @@ __global__ void __launch_bounds__(SG << F_QLOG_MAX, 1)
 // ---- the solve: a group of SG threads per problem.
 // Problems per block at most (log2), stages of the ring, producer threads,
 // and the tile's row stride (one column a problem).
-constexpr int S_QLOG_MAX = 2;
+constexpr int S_QLOG_MAX = WIDE ? 0 : 2;
 constexpr int S_NSTAGE = 3;
 constexpr int S_PRODUCERS = group_producers(SG);
 constexpr int SQS = 1 << S_QLOG_MAX;
@@ -406,26 +524,35 @@ __host__ __device__ constexpr int solve_producer_base(int qlog) {
 __host__ __device__ constexpr int solve_threads(int qlog) {
     return solve_producer_base(qlog) + S_PRODUCERS;
 }
-// Shared values: the ring, a slot of SG values per group, and (w on chip)
+// Shared values: the ring (DEV: in device memory instead), a slot of SG
+// values per group (WIDE: 2 SG, the broadcasts of a step), and (w on chip)
 // w_t of every step, [t][i][SQS].
+constexpr int S_RING = S_NSTAGE * S_ROWS * SQS;
+constexpr int S_SLOT = WIDE ? 2 * SG : SG;
 __host__ __device__ constexpr long long solve_smem_bytes(int W, int qlog,
-                                                         bool w_on_chip) {
-    return ((long long)S_NSTAGE * S_ROWS * SQS + (long long)SG * (1 << qlog) +
+                                                         bool w_on_chip,
+                                                         bool dev = false) {
+    return ((dev ? 0 : (long long)S_RING) + (long long)S_SLOT * (1 << qlog) +
             (w_on_chip ? (long long)W * B2 * SQS : 0)) *
            (long long)sizeof(real);
 }
 
 struct SolvePlan {
     int qlog, Q, w_on_chip, smem, blocks, threads;
+    long long work;  // DEV: values of the device-memory workspace
 };
 
 // Problems per block as the chunk kernel plans them; w on chip when the
-// shared memory of the launch fits in budget (bytes), else in x.
+// shared memory of the launch fits in budget (bytes), else in x; WIDE: the
+// ring in device memory where even it and the slot do not fit.
 static SolvePlan solve_plan_for(int W, int B, int budget, int sms) {
     const int qlog = group_qlog(B, sms, S_QLOG_MAX), Q = 1 << qlog;
-    const bool on = solve_smem_bytes(W, qlog, true) <= budget;
-    return SolvePlan{qlog, Q, on, (int)solve_smem_bytes(W, qlog, on),
-                     (B + Q - 1) / Q, solve_threads(qlog)};
+    const int blocks = (B + Q - 1) / Q;
+    const bool dev = WIDE && solve_smem_bytes(W, qlog, false) > budget;
+    const bool on = solve_smem_bytes(W, qlog, true, dev) <= budget;
+    return SolvePlan{qlog, Q, on, (int)solve_smem_bytes(W, qlog, on, dev),
+                     blocks, solve_threads(qlog),
+                     dev ? (long long)S_RING * blocks : 0};
 }
 
 // Start this producer's copies of step t into stage t % S_NSTAGE and commit
@@ -434,34 +561,37 @@ static SolvePlan solve_plan_for(int W, int B, int budget, int sms) {
 // Above B2 = 20 (LANE_ROWS) the copies go in a loop (stage_tile_copies_
 // rolled): unrolled, the producer's addresses of a stage's ~1,600 rows
 // took the kernel's registers and it spilled.
-template <int CNT, class DstRow>
+// DEV: into the ring in device memory.
+template <int CNT, bool DEV, class DstRow>
 __device__ __forceinline__ void solve_copies(const Stager& s, const real* src,
                                              real* dst, DstRow dst_row) {
     if constexpr (LANE_ROWS)
-        stage_tile_copies_rolled<SQS, S_PRODUCERS, CNT>(s, src, dst, dst_row);
+        stage_tile_copies_rolled<SQS, S_PRODUCERS, CNT, DstRow, DEV>(
+            s, src, dst, dst_row);
     else
         stage_tile_copies<SQS, S_PRODUCERS, CNT>(s, src, dst, dst_row);
 }
 
-template <bool BWD, bool WSM>
+template <bool BWD, bool WSM, bool DEV>
 __device__ __forceinline__ void solve_issue(const Stager& s, const real* chol,
                                             const real* gain, const real* v,
                                             real* ring, int t, int W) {
     real* sg = ring + (t % S_NSTAGE) * S_ROWS * SQS;
     const size_t blk = (size_t)NF * s.B, vec = (size_t)B2 * s.B;
-    solve_copies<NF>(s, chol + t * blk + s.b0, sg + S_C * SQS, [](int k) {
-        const int i = k / B2, j = k % B2;
-        return j <= i ? TRI(i, j) : -1;
-    });
+    solve_copies<NF, DEV>(s, chol + t * blk + s.b0, sg + S_C * SQS,
+                          [](int k) {
+                              const int i = k / B2, j = k % B2;
+                              return j <= i ? TRI(i, j) : -1;
+                          });
     if (!BWD && t > 0)
-        solve_copies<NF>(s, gain + (t - 1) * blk + s.b0, sg + S_G * SQS,
-                         [](int k) { return (k % B2) * B2 + k / B2; });
+        solve_copies<NF, DEV>(s, gain + (t - 1) * blk + s.b0, sg + S_G * SQS,
+                              [](int k) { return (k % B2) * B2 + k / B2; });
     if (BWD && t < W - 1)
-        solve_copies<NF>(s, gain + t * blk + s.b0, sg + S_G * SQS,
-                         [](int k) { return k; });
+        solve_copies<NF, DEV>(s, gain + t * blk + s.b0, sg + S_G * SQS,
+                              [](int k) { return k; });
     if (!BWD || !WSM)
-        solve_copies<B2>(s, v + t * vec + s.b0, sg + S_V * SQS,
-                         [](int k) { return k; });
+        solve_copies<B2, DEV>(s, v + t * vec + s.b0, sg + S_V * SQS,
+                              [](int k) { return k; });
     cp_async_commit();
 }
 
@@ -569,13 +699,48 @@ __device__ __forceinline__ real solve_rows_across(const real* sg,
     return y;
 }
 
+// A step of a sweep above B2 = 32 (WIDE): solve_rows_across with its
+// shuffles as broadcasts through the group's slot xch: the previous step's
+// vector (lane i its element, xch[i], one barrier), then each column's
+// element (xch[SG + j], written once a step: one barrier a column; the
+// step's barrier separates the steps).
+template <bool BWD, bool WSM>
+__device__ __forceinline__ real solve_rows_wide(const real* sg,
+                                                const real* wsm_t, int i,
+                                                int g, bool first, real c,
+                                                real* xch) {
+    const STile C{sg + S_C * SQS}, Gt{sg + S_G * SQS}, V{sg + S_V * SQS};
+    const int r = i < B2 ? i : 0;  // lanes past B2: row 0's values, unused
+    const real cii = C[TRI(r, r)], rli = rcp_rn(cii);
+    real acc = real(0);
+    if (!first) {
+        xch[i] = c;
+        lane_group_sync(g, SG);
+#pragma unroll 4
+        for (int j = 0; j < B2; ++j) acc = fma_rn(Gt[j * B2 + r], xch[j], acc);
+    }
+    real* yx = xch + SG;
+    real v = (BWD && WSM ? wsm_t[r * SQS] : V[r]) - acc, y = real(0);
+#pragma unroll 1
+    for (int u = 0; u < B2; ++u) {
+        const int j = BWD ? B2 - 1 - u : u;
+        if (i == j) yx[j] = div_rn(v, cii, rli);
+        lane_group_sync(g, SG);
+        const real yj = yx[j];
+        y = i == j ? yj : y;
+        if (!BWD && i > j && i < B2) v = fma_rn(-C[TRI(i, j)], yj, v);
+        if (BWD && i < j) v = fma_rn(-C[TRI(j, i)], yj, v);
+    }
+    return y;
+}
+
 // One sweep, step u = 0..W-1 on t = u (forward) or W-1-u (backward):
 // forward w_t = C_t^{-1} (rhs_t - G_{t-1} w_{t-1}), into wsm (w on chip)
 // or x; backward x_t = C_t^{-T} (w_t - G_t' x_{t+1}), into x.  c[] holds
 // the previous step's vector in every lane, zero at the first step (above
 // B2 = 20 c[0] holds this lane's element of it).  vec is
 // rhs forward and x backward (where w_t is staged from when not on chip).
-template <bool BWD, bool WSM>
+template <bool BWD, bool WSM, bool DEV>
 __device__ __forceinline__ void solve_sweep(
     const Stager& s, bool stager, bool idle, bool valid, int i, int g,
     const real* chol, const real* gain, const real* vec, real* ring,
@@ -583,8 +748,11 @@ __device__ __forceinline__ void solve_sweep(
     auto step = [&](int u) { return BWD ? W - 1 - u : u; };
     if (stager)
         for (int u = 0; u < S_NSTAGE - 1; ++u) {
-            if (u < W) solve_issue<BWD, WSM>(s, chol, gain, vec, ring, step(u), W);
-            else cp_async_commit();
+            if (u < W)
+                solve_issue<BWD, WSM, DEV>(s, chol, gain, vec, ring, step(u),
+                                           W);
+            else
+                cp_async_commit();
         }
     StepOperands o;
     for (int u = 0; u < W; ++u) {
@@ -596,16 +764,20 @@ __device__ __forceinline__ void solve_sweep(
         __syncthreads();
         if (stager) {
             if (u + S_NSTAGE - 1 < W)
-                solve_issue<BWD, WSM>(s, chol, gain, vec, ring,
-                                      step(u + S_NSTAGE - 1), W);
+                solve_issue<BWD, WSM, DEV>(s, chol, gain, vec, ring,
+                                           step(u + S_NSTAGE - 1), W);
             else
                 cp_async_commit();
         }
         if (idle) continue;
         const real* sg = ring + (t % S_NSTAGE) * S_ROWS * SQS + g;
         if constexpr (LANE_ROWS) {
-            c[0] = solve_rows_across<BWD, WSM>(sg, wsm + t * B2 * SQS, i, g,
-                                                u == 0, c[0]);
+            if constexpr (WIDE)
+                c[0] = solve_rows_wide<BWD, WSM>(sg, wsm + t * B2 * SQS, i,
+                                                 g, u == 0, c[0], slot);
+            else
+                c[0] = solve_rows_across<BWD, WSM>(sg, wsm + t * B2 * SQS, i,
+                                                    g, u == 0, c[0]);
             if (i < B2) {
                 if (!BWD && WSM)
                     wsm[(t * B2 + i) * SQS] = c[0];
@@ -642,13 +814,14 @@ __device__ __forceinline__ void solve_sweep(
     }
 }
 
-// WSM: w_t kept in shared memory (else in x).
-template <bool WSM>
+// WSM: w_t kept in shared memory (else in x).  DEV (WIDE only): the ring
+// in the workspace work, each block its part.
+template <bool WSM, bool DEV = false>
 __global__ void __launch_bounds__(solve_threads(S_QLOG_MAX), 1)
     tridiag_solve_kernel(const real* __restrict__ chol,
                          const real* __restrict__ gain,
                          const real* __restrict__ rhs, real* x, int W, int B,
-                         int qlog, int x4) {
+                         int qlog, int x4, real* work) {
     LANE_SMEM_DECL();
     const int tid = threadIdx.x, pbase = solve_producer_base(qlog);
     const bool idle = tid >= (SG << qlog), stager = tid >= pbase;
@@ -656,9 +829,10 @@ __global__ void __launch_bounds__(solve_threads(S_QLOG_MAX), 1)
     const int b0 = blockIdx.x << qlog, b = b0 + g;
     const bool valid = !idle && b < B;
     const Stager s = make_stager(B, b0, qlog, tid - pbase, x4);
-    real* ring = lane_smem;
-    real* slot = ring + S_NSTAGE * S_ROWS * SQS + g * SG;
-    real* wsm = ring + S_NSTAGE * S_ROWS * SQS + (SG << qlog) + g;
+    real* ring = DEV ? work + (size_t)blockIdx.x * S_RING : lane_smem;
+    real* after = DEV ? lane_smem : ring + S_RING;  // the slots, then w
+    real* slot = after + g * S_SLOT;
+    real* wsm = after + (S_SLOT << qlog) + g;
     real* xb = x + b;
 
     // w_{t-1} forward, x_{t+1} backward, in every lane (above B2 = 20 this
@@ -667,48 +841,66 @@ __global__ void __launch_bounds__(solve_threads(S_QLOG_MAX), 1)
     real c[NC];
 #pragma unroll
     for (int k = 0; k < NC; ++k) c[k] = real(0);
-    solve_sweep<false, WSM>(s, stager, idle, valid, i, g, chol, gain, rhs,
-                            ring, slot, wsm, xb, W, B, c);
+    solve_sweep<false, WSM, DEV>(s, stager, idle, valid, i, g, chol, gain,
+                                 rhs, ring, slot, wsm, xb, W, B, c);
     // The barrier ends the forward sweep's reads of the ring (and makes its
     // w writes visible).
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < NC; ++k) c[k] = real(0);
-    solve_sweep<true, WSM>(s, stager, idle, valid, i, g, chol, gain, x, ring,
-                           slot, wsm, xb, W, B, c);
+    solve_sweep<true, WSM, DEV>(s, stager, idle, valid, i, g, chol, gain, x,
+                                ring, slot, wsm, xb, W, B, c);
 }
 
-// The factor's plan on the current device for a batch of B.
-static int factor_plan(int B, FactorPlan* p) {
+// The factor's plan on the current device for a batch of B; budget <= 0:
+// the shared memory a block may use (the host-emulation tests and the card's
+// checks pass a small one to put the wide form's ring in device memory).
+static int factor_plan(int B, int budget, FactorPlan* p) {
     int dev_smem = 0, sms = 0;
     const int err = lane_device_limits(&dev_smem, &sms);
     if (err != 0) return err;
-    *p = factor_plan_for(B, sms);
+    *p = factor_plan_for(B, sms, budget > 0 ? budget : dev_smem);
     return p->smem > dev_smem ? -1 : 0;
 }
 
-// plan[0..6] = threads per problem, problems per block Q, stages, shared
-// bytes, blocks, threads per block, bytes per staging copy: the plan
+// plan[0..7] = threads per problem, problems per block Q, stages, shared
+// bytes, blocks, threads per block, bytes per staging copy, and the bytes
+// of the device-memory workspace (0: the ring on chip): the plan
 // tridiag_factor_launch makes.
-extern "C" int tridiag_factor_plan(int B, long long* plan) {
+extern "C" int tridiag_factor_plan(int B, int budget, long long* plan) {
     FactorPlan p{};
-    const int err = factor_plan(B, &p);
-    const long long v[7] = {SG,       p.Q,       F_NSTAGE, p.smem,
-                            p.blocks, p.threads, (long long)sizeof(real)};
-    for (int k = 0; k < 7; ++k) plan[k] = v[k];
+    const int err = factor_plan(B, budget, &p);
+    const long long v[8] = {SG,       p.Q,       F_NSTAGE, p.smem,
+                            p.blocks, p.threads, (long long)sizeof(real),
+                            p.work * (long long)sizeof(real)};
+    for (int k = 0; k < 8; ++k) plan[k] = v[k];
     return err;
 }
 
+// The factor's launch, DEV: the ring in the workspace (a template, so that
+// only the wide builds compile that kernel).
+template <bool DEV, class... A>
+static int launch_factor(const FactorPlan& p, void* stream, A... args) {
+    return lane_launch_coop(&tridiag_factor_kernel<DEV>, p.blocks, p.threads,
+                            p.threads, p.smem, stream, args...);
+}
+
+// budget, work: as tridiag_factor_plan, and its workspace (null where it
+// needs none); the last arguments, so that a caller of the earlier
+// signature still works where none is needed.
 extern "C" int tridiag_factor_launch(const void* diag, const void* lower,
                                      void* chol, void* gain, int W, int B,
-                                     void* stream) {
+                                     void* stream, int budget, void* work) {
     FactorPlan p{};
-    const int err = factor_plan(B, &p);
+    const int err = factor_plan(B, budget, &p);
     if (err != 0) return err;
-    return lane_launch_coop(&tridiag_factor_kernel, p.blocks, p.threads,
-                            p.threads, p.smem, stream, (const real*)diag,
-                            (const real*)lower, (real*)chol, (real*)gain, W,
-                            B, p.qlog);
+    if (p.work > 0 && work == nullptr) return -1;
+#define LANE_FACTOR_ARGS                                                      \
+    (const real*)diag, (const real*)lower, (real*)chol, (real*)gain, W, B,    \
+        p.qlog, (real*)work
+    if (p.work > 0) return launch_factor<WIDE>(p, stream, LANE_FACTOR_ARGS);
+    return launch_factor<false>(p, stream, LANE_FACTOR_ARGS);
+#undef LANE_FACTOR_ARGS
 }
 
 // The solve's plan on the current device for W steps and a batch of B;
@@ -722,26 +914,42 @@ static int solve_plan(int W, int B, int budget, SolvePlan* p) {
     return p->smem > dev_smem ? -1 : 0;
 }
 
-// plan[0..8] = threads per problem, problems per block Q, stages, w kept
+// plan[0..9] = threads per problem, problems per block Q, stages, w kept
 // on chip (0/1), shared bytes, blocks, threads per block, tile row stride,
-// bytes per staging copy (for 16-byte aligned arrays): the plan
+// bytes per staging copy (for 16-byte aligned arrays), and the bytes of
+// the device-memory workspace (0: the ring on chip): the plan
 // tridiag_solve_launch makes.
 extern "C" int tridiag_solve_plan(int W, int B, int budget, long long* plan) {
     SolvePlan p{};
     const int err = solve_plan(W, B, budget, &p);
-    const long long v[9] = {SG,       p.Q,       S_NSTAGE, p.w_on_chip, p.smem,
-                            p.blocks, p.threads, SQS,
-                            group_tile_x4(p.qlog, B) ? 16 : 4};
-    for (int k = 0; k < 9; ++k) plan[k] = v[k];
+    const long long v[10] = {SG,       p.Q,       S_NSTAGE, p.w_on_chip,
+                             p.smem,   p.blocks,  p.threads, SQS,
+                             group_tile_x4(p.qlog, B) ? 16 : 4,
+                             p.work * (long long)sizeof(real)};
+    for (int k = 0; k < 10; ++k) plan[k] = v[k];
     return err;
 }
 
+// The solve's launch in its w placement, DEV: the ring in the workspace (a
+// template, so that only the wide builds compile those kernels).
+template <bool DEV, class... A>
+static int launch_solve(const SolvePlan& p, void* stream, A... args) {
+    if (p.w_on_chip)
+        return lane_launch_coop(&tridiag_solve_kernel<true, DEV>, p.blocks,
+                                p.threads, SG, p.smem, stream, args...);
+    return lane_launch_coop(&tridiag_solve_kernel<false, DEV>, p.blocks,
+                            p.threads, SG, p.smem, stream, args...);
+}
+
+// work: the plan's workspace, null where it needs none (the last argument,
+// so that a caller of the earlier signature still works there).
 extern "C" int tridiag_solve_launch(const void* chol, const void* gain,
                                     const void* rhs, void* x, int W, int B,
-                                    int budget, void* stream) {
+                                    int budget, void* stream, void* work) {
     SolvePlan p{};
     const int err = solve_plan(W, B, budget, &p);
     if (err != 0) return err;
+    if (p.work > 0 && work == nullptr) return -1;
     // 16-byte copies need every staged array 16-byte aligned.
     uintptr_t bits = 0;
     for (const void* ptr : {chol, gain, rhs, (const void*)x})
@@ -749,12 +957,8 @@ extern "C" int tridiag_solve_launch(const void* chol, const void* gain,
     const int x4 = group_tile_x4(p.qlog, B) && bits % 16 == 0;
 #define LANE_SOLVE_ARGS                                                       \
     (const real*)chol, (const real*)gain, (const real*)rhs, (real*)x, W, B,  \
-        p.qlog, x4
-    if (p.w_on_chip)
-        return lane_launch_coop(&tridiag_solve_kernel<true>, p.blocks,
-                                p.threads, SG, p.smem, stream,
-                                LANE_SOLVE_ARGS);
-    return lane_launch_coop(&tridiag_solve_kernel<false>, p.blocks, p.threads,
-                            SG, p.smem, stream, LANE_SOLVE_ARGS);
+        p.qlog, x4, (real*)work
+    if (p.work > 0) return launch_solve<WIDE>(p, stream, LANE_SOLVE_ARGS);
+    return launch_solve<false>(p, stream, LANE_SOLVE_ARGS);
 #undef LANE_SOLVE_ARGS
 }

@@ -48,7 +48,7 @@ from typing import List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..models.robot import RobotBall
+from ..models.robot import RobotBall, ball_fk_jac
 from ..ops import admm as admm_mod
 from ..ops import session as ops_session
 from ..ops.admm import Settings, pin_matmul_precision, resolve_device
@@ -100,8 +100,11 @@ class GOMPSolver:
     construction so dynamics rows stay unit-coefficient; the returned
     trajectories' velocity half is divided by ``dt``.  ``device``: where the
     planner runs — CUDA unless the caller passes ``"cpu"`` (raises when
-    there is no CUDA device and the CPU was not asked for).  ``balls`` need
-    ``fk_jac_batched`` (see :mod:`~osqp_solver_tpu_torch.models.ur5e`).
+    there is no CUDA device and the CPU was not asked for).  ``balls``:
+    :class:`~osqp_solver_tpu_torch.models.robot.RobotBall` of any arm (the
+    UR5e's of :mod:`~osqp_solver_tpu_torch.models.ur5e`, any DH arm's of
+    :mod:`~osqp_solver_tpu_torch.models.dh_robot`), with ``fk_jac_batched``
+    or the per-configuration ``fk``/``jacobian``.
     """
 
     def __init__(
@@ -204,7 +207,8 @@ class GOMPSolver:
         """Exact-FK ball centres ``(W, 3, B)`` of every ball for the
         position half of ``x (2WN, B)``."""
         q = x[: W * self.n_dim].reshape(W, self.n_dim, -1)
-        return [ball.fk_jac_batched(q, axis=1)[0] for ball in self.balls]
+        return [ball_fk_jac(ball, q, axis=1, jacobian=False)[0]
+                for ball in self.balls]
 
     def _is_solution_ok_fn(self, W, per_query_obs: bool = False):
         """Exact nonlinear-FK feasibility of a batch: gripper within the 3-D

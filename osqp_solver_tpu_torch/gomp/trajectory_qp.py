@@ -3,8 +3,9 @@
 Counterpart of ``osqp_solver_tpu/gomp/trajectory_qp.py`` for the assembly
 (``TrajectoryQP`` fields, ``smoothness_P_blocks``, ``empty_trajectory_qp``,
 ``with_gomp_boxes``, ``pinned_movable_mask``, ``with_horizon_mask``,
-``with_gomp_boxes_masked``, ``linearize_workspace`` in its
-``fk_jac_batched`` branch).  The horizon ``w_active`` of the masked
+``with_gomp_boxes_masked``, ``linearize_workspace`` in both its branches:
+the batched ``fk_jac_batched`` and the per-configuration ``fk``/
+``jacobian``).  The horizon ``w_active`` of the masked
 constructors is one Python int for the whole batch (the planner's host loop
 knows it); the containers stay ``W_max``-shaped so that every horizon shares
 one row layout, hence one build of the kernels.  The solver methods of the reference's container (``to_dense``,
@@ -27,6 +28,7 @@ import torch
 from ..ops import tridiag_kernel
 from ..ops.tridiag import BlockTridiagFactor
 from .constraints import INF, INF_THRESHOLD
+from ..models.robot import ball_fk_jac
 from .geometry import call_linearize_rows
 
 
@@ -686,7 +688,8 @@ def linearize_workspace(
     and only *values* of fixed-shape arrays change.
 
     ``balls``: sequence of :class:`~osqp_solver_tpu_torch.models.robot.
-    RobotBall` with ``fk_jac_batched``.  ``obstacles``: sequence of obstacle
+    RobotBall`: with ``fk_jac_batched``, or with the per-configuration
+    ``fk``/``jacobian`` (evaluated by ``torch.func.vmap``).  ``obstacles``: sequence of obstacle
     objects (length ``qp.n_obstacles``).  ``con_3d``: ``(lower, upper)`` pair
     of 3-vectors.  ``trajectory (2WN, *batch)``: only its position half is
     read.  ``w_active``: pad-to-max horizon — waypoints at or beyond it get
@@ -713,13 +716,10 @@ def linearize_workspace(
     )
 
     for b, ball in enumerate(balls):
-        if getattr(ball, "fk_jac_batched", None) is None:
-            raise NotImplementedError(
-                "linearize_workspace needs RobotBall.fk_jac_batched (the "
-                "per-configuration fk/jacobian branch is not ported yet)"
-            )
-        # points (W, 3, *batch), jac (W, 3, N, *batch)
-        points, jac = ball.fk_jac_batched(q_traj, axis=1)
+        # points (W, 3, *batch), jac (W, 3, N, *batch): the SoA batched
+        # evaluator, else fk/jacobian at every waypoint and problem.
+        points, jac = ball_fk_jac(ball, q_traj, axis=1)
+        points, jac = points.to(kw["dtype"]), jac.to(kw["dtype"])
         jq = (jac * q_traj[:, None]).sum(dim=2)  # (W, 3, *batch) J·q₀
         r = ball.radius
 

@@ -13,21 +13,20 @@ the separate residual kernel (:mod:`.residuals`).
 Kernel note (``csrc/admm_chunk.cu`` replaces the Pallas body
 ``admm_fused.py::_make_kernel`` behind ``fused_admm_chunk``).  The TPU
 kernel keeps an (8, 128) tile of problems per scalar and double-buffers
-every stream between HBM and VMEM; none of that carries over.  Here ONE
-THREAD owns ONE PROBLEM: batch-trailing packs make a warp's 32 threads read
-32 adjacent floats (one 128-byte row), the horizon is a loop inside the
-thread, and the recurrence state lives in registers.  Per iteration the
-forward pass builds the reduced-KKT right-hand side waypoint by waypoint and
-forward-substitutes (``h_t``, or ``w_t`` in the gain form, goes to a
-``(W, 2N, B)`` global scratch that stays in L2); the backward pass finishes
-the solve (``hrec`` rebuilds the sparse coupling block in registers, ``gain``
-stages ``G_t`` beside ``C_t``) and applies A rows,
-relaxation, projection and dual update in stream, writing the state pack IN
-PLACE.  Bound on an H100: the work is a chain of W dependent 12×12
-triangular solves per pass, so with B=1024 (32 warps on 132 SMs) the kernel
-is bound by the latency of that chain, not by memory bandwidth or FLOP
-rate; small blocks (32 threads) spread the batch over the SMs.  The final
-backward pass with ``emit_term`` needs more than 255 registers and spills.
+every stream between HBM and VMEM; none of that carries over.  Here a
+group of threads (the smallest power of two >= 2N: 16 at N=6) works on each
+problem and a block holds up to 4 adjacent problems, fed by a producer warp
+that stages each waypoint's rows two steps ahead into a three-stage ring;
+above 16 joints one problem a block, a group of several warps, and the ring
+in a device-memory workspace where it does not fit on chip
+(``admm_chunk_workspace_bytes``; :func:`_launch_chunk` allocates it).  Per
+iteration the forward pass builds the reduced-KKT right-hand side waypoint
+by waypoint and forward-substitutes (``h_t``, or ``w_t`` in the gain form,
+goes to a ``(W, 2N, B)`` global scratch that stays in L2); the backward pass
+finishes the solve and applies A rows, relaxation, projection and dual
+update in stream, writing the state pack IN PLACE.  Bound on an H100: each
+problem's chain of W dependent 2N×2N triangular solves per pass, not memory
+bandwidth or FLOP rate.
 """
 from __future__ import annotations
 
@@ -363,28 +362,50 @@ def _check_pack(name, t, shape, ref):
         raise ValueError(f"{name}: tensor must be contiguous")
 
 
+def _chunk_group(lib):
+    """Threads per problem of a ``csrc/admm_chunk.cu`` build (its plan)."""
+    fn = lib.admm_chunk_plan
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = None
+    out = (ctypes.c_longlong * 9)()
+    fn(1, 1, 0, 0, out)
+    return out[0]
+
+
 def _launch_chunk(lib, cholp, coef, q_int, lu, rho3, Plf, ee, varc, Pdp,
                   done_f, state_pack, w, acc, n_iter, sigma, alpha,
-                  dxdy=None, gainp=None):
+                  dxdy=None, gainp=None, budget=0):
     """Call the C entry point of ``csrc/admm_chunk.cu`` on packs of one
     device.  ``acc`` selects the instantiation with the accumulators,
     ``dxdy`` the one that writes the delta pack, neither the one that only
-    advances the state; ``gainp`` the gain form of each."""
+    advances the state; ``gainp`` the gain form of each.  ``budget``: the
+    shared bytes a block may use (0: the device's); above 16 joints the
+    ring goes to a device-memory workspace where it does not fit."""
     W, _, B = state_pack.shape
     mode = 1 if acc is not None else 2 if dxdy is not None else 0
     fn = lib.admm_chunk_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [
             ctypes.c_double, ctypes.c_double, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int,
         ]
         fn.restype = ctypes.c_int
     ptr = _launch.ptr
+    work = None
+    if _launch.wide(lib, _chunk_group):
+        ws = lib.admm_chunk_workspace_bytes
+        ws.argtypes = [ctypes.c_int] * 4
+        ws.restype = ctypes.c_longlong
+        work = _launch.workspace(
+            ws(B, mode, int(gainp is not None), int(budget)),
+            state_pack.device)
     err = fn(
         ptr(cholp), ptr(gainp), ptr(coef), ptr(q_int), ptr(lu), ptr(rho3),
         ptr(Plf),
         ptr(ee), ptr(varc), ptr(Pdp), ptr(done_f), ptr(state_pack), ptr(w),
         ptr(acc), ptr(dxdy), W, B, int(n_iter), mode,
         float(sigma), float(alpha), _launch.stream(state_pack.device),
+        ptr(work), int(budget),
     )
     _launch.check(err, "admm_chunk_launch")
 

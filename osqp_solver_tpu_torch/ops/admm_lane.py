@@ -50,6 +50,7 @@ from .admm import (
     resolve_device,
 )
 from .ruiz import Scaling
+from .tridiag_kernel import MAX_B2
 
 # Device→host reads since import: one per chunk of the chunk loop, one per
 # guarded bounds update of a session (ops/session_lane.py).
@@ -260,7 +261,7 @@ def solve_batched_lane(
             "solve_batched_lane takes a LaneTrajectoryQP (convert a "
             "batch-leading container with trajectory_qp_lane.to_lane)"
         )
-    check_kernel_limits(qps, settings, dev)
+    check_kernel_limits(qps, dev)
     base = qps.to(dev)
     if settings.scaling > 0:
         scaled, scaling = ruiz_equilibrate_lane(base, settings.scaling)
@@ -323,30 +324,29 @@ def _use_fused(scaled, settings: Settings) -> bool:
     )
 
 
-def check_kernel_limits(qp, settings: Settings, device) -> None:
-    """On a CUDA ``device``, raise ``NotImplementedError`` naming the limit,
-    before anything is built or moved, where a kernel that the solve of
-    ``qp`` launches is not built for its size (``_build.LIMITS``: every
-    lane kernel stops at 16 joints, a group of threads per problem being at
-    most one warp).  The block-tridiagonal kernels are on the unfused path,
-    the block-P path and, with ``polish``, every path.  The plain versions
-    on the CPU have no such limit."""
-    from .. import _build
+# The most joints a lane solve takes on the card: a block holds a group of
+# pow2_at_least(2N) threads and, in the chunk, residual and tridiagonal
+# solve kernels, as many producer threads, and a block has at most 1,024:
+# the tridiagonal kernels' limit on B2 = 2N.
+MAX_KERNEL_JOINTS = MAX_B2 // 2
 
+
+def check_kernel_limits(qp, device) -> None:
+    """On a CUDA ``device``, raise ``NotImplementedError`` naming the limit,
+    before anything is built or moved, where the solve of ``qp`` cannot
+    launch its kernels: above :data:`MAX_KERNEL_JOINTS` joints a problem's
+    group of threads and its producers outgrow a block.  Up to there every
+    lane kernel launches (above 16 joints in its wide form; ``chip_smoke.py``
+    holds them on the card at N = 4-32 and 64).  The plain versions on the
+    CPU have no limit."""
     if torch.device(device).type != "cuda":
         return
-    if not _use_fused(qp, settings):
-        names = ("tridiag",)
-    elif qp.p_structure == "vel_diag":
-        names = ("kkt_factor", "admm_chunk") + (
-            ("residuals",) if settings.term_fused == "off" else ())
-    else:
-        names = ("tridiag", "admm_chunk", "residuals")
-    if settings.polish and "tridiag" not in names:
-        names += ("tridiag",)
-    sig = {"NDIM": qp.n_dim, "B2": 2 * qp.n_dim}
-    for name in names:
-        _build.check_limits(name, sig)
+    if qp.n_dim > MAX_KERNEL_JOINTS:
+        raise NotImplementedError(
+            f"the lane kernels take at most {MAX_KERNEL_JOINTS} joints on "
+            f"the card (N={qp.n_dim}): a problem's group of threads, the "
+            "smallest power of two >= 2N, and as many producer threads must "
+            "fit the 1,024 threads of a block")
 
 
 def _packed_factor(scaled, rho_vec, settings: Settings, coef=None):

@@ -17,9 +17,11 @@ assembled at once, off the step chain, into shared memory; on the chain
 the group's lanes share the Schur update, each lane factors the whole
 block in its registers and lane ``i`` forms row ``i`` of ``G_t``.  The
 problems per block and the window are planned at each launch
-(:func:`plan`).  Bound on an H100: each problem's chain of W dependent
-12×12 steps — latency, not bandwidth (it reads coef+ρ+Pd+Pl and writes Tp
-rows once) and not FLOP rate.
+(:func:`plan`); above 16 joints one problem a block and a group of
+several warps, the window in a device-memory workspace (allocated here)
+where not even one waypoint fits on chip.  Bound on an H100: each
+problem's chain of W dependent 12×12 steps — latency, not bandwidth (it
+reads coef+ρ+Pd+Pl and writes Tp rows once) and not FLOP rate.
 """
 from __future__ import annotations
 
@@ -65,7 +67,7 @@ def _configure(lib):
     if lib.kkt_factor_launch.argtypes is None:
         lib.kkt_factor_launch.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_int,
-            ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.kkt_factor_launch.restype = ctypes.c_int
         lib.kkt_factor_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -74,15 +76,17 @@ def _configure(lib):
 
 
 PLAN_KEYS = ("G", "Q", "window", "windows", "shared_bytes", "blocks",
-             "threads_per_block", "budget")
+             "threads_per_block", "budget", "workspace_bytes")
 
 
 def plan(lib, W, B, budget=0):
     """The launch plan of ``csrc/kkt_factor.cu`` for ``W`` waypoints and a
     batch of ``B`` on the current device, as :func:`_launch_factor` makes
     it: threads per problem, problems per block, waypoints per assembled
-    window, windows, shared bytes, blocks, threads per block and the shared
-    bytes planned for (``budget`` 0: the device's)."""
+    window, windows, shared bytes, blocks, threads per block, the shared
+    bytes planned for (``budget`` 0: the device's) and the bytes of the
+    device-memory workspace it needs (above 16 joints, where not even one
+    waypoint's slot fits on chip; else 0)."""
     lib = _configure(lib)
     out = (ctypes.c_longlong * len(PLAN_KEYS))()
     _build.check(lib.kkt_factor_plan(W, B, budget, out), "kkt_factor_plan")
@@ -97,9 +101,13 @@ def _launch_factor(lib, coef, rho3, Pd, Pl, cholp, sigma, gainp=None,
     W, _, B = cholp.shape
     lib = _configure(lib)
     p = _build.ptr
+    work = None
+    if _build.wide(lib, lambda lb: plan(lb, 4, 1)["G"]):
+        work = _build.workspace(plan(lib, W, B, budget)["workspace_bytes"],
+                                cholp.device)
     err = lib.kkt_factor_launch(p(coef), p(rho3), p(Pd), p(Pl), p(cholp),
                                 p(gainp), W, B, float(sigma), int(budget),
-                                _build.stream(cholp.device))
+                                _build.stream(cholp.device), p(work))
     _build.check(err, "kkt_factor_launch")
 
 

@@ -13,7 +13,9 @@ Kernel note (``csrc/residuals.cu`` replaces the Pallas body
 ``termination_quantities_kernel``).  The TPU kernel walks the horizon with
 a 4-slot VMEM ring per (8, 128) tile of problems.  Here a GROUP of threads
 (16 at N=6) works on each problem and a block holds a few adjacent problems
-(:func:`plan`); the walk is the fused chunk kernel's termination tail
+(:func:`plan`; above 16 joints one problem a block, a group of several
+warps, and the ring in a device-memory workspace where it does not fit on
+chip); the walk is the fused chunk kernel's termination tail
 (``csrc/admm_chunk.cu`` ``MODE_TERM``) without the ADMM update, through the
 same device functions (``lane_common.cuh``), so the fused and the unfused
 termination decide from the same float values, bit for bit.  All six
@@ -226,7 +228,8 @@ def termination_quantities_plain(scaled, state_pack, dxdy_pack, coef, packs):
 
 
 PLAN_KEYS = ("G", "Q", "stages", "shared_bytes", "blocks",
-             "threads_per_block", "tile_stride", "copy_bytes")
+             "threads_per_block", "tile_stride", "copy_bytes",
+             "workspace_bytes")
 
 
 def _configure(lib):
@@ -234,37 +237,47 @@ def _configure(lib):
     (once)."""
     if lib.residuals_launch.argtypes is None:
         lib.residuals_launch.argtypes = [ctypes.c_void_p] * 9 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int,
         ]
         lib.residuals_launch.restype = ctypes.c_int
-        lib.residuals_plan.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.residuals_plan.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                       ctypes.c_int]
         lib.residuals_plan.restype = ctypes.c_int
     return lib
 
 
-def plan(lib, B):
+def plan(lib, B, budget=0):
     """The launch plan of ``csrc/residuals.cu`` for a batch of ``B`` on the
     current device, as :func:`_launch_residuals` makes it: threads per
     problem, problems per block, ring stages, shared bytes, blocks, threads
-    per block, the tile's row stride and the bytes of a staging copy (for
-    16-byte aligned packs)."""
+    per block, the tile's row stride, the bytes of a staging copy (for
+    16-byte aligned packs) and the bytes of the device-memory workspace
+    (above 16 joints, where the ring does not fit in ``budget``, the shared
+    bytes a block may use, 0: the device's; else 0)."""
     lib = _configure(lib)
     out = (ctypes.c_longlong * len(PLAN_KEYS))()
-    _build.check(lib.residuals_plan(B, out), "residuals_plan")
+    _build.check(lib.residuals_plan(B, out, int(budget)), "residuals_plan")
     return dict(zip(PLAN_KEYS, out))
 
 
 def _launch_residuals(lib, coef, Pdp, Plf, state_pack, dxdy_pack, rowc, varc,
-                      acc):
+                      acc, budget=0):
     """Call the C entry point of ``csrc/residuals.cu`` on packs of one
-    device (with a ``(W, 4, B)`` scratch for the per-waypoint sums)."""
+    device (with a ``(W, 4, B)`` scratch for the per-waypoint sums);
+    ``budget``: as :func:`plan`."""
     W, _, B = state_pack.shape
     lib = _configure(lib)
     sums = state_pack.new_empty((W, 4, B))
     p = _build.ptr
+    work = None
+    if _build.wide(lib, lambda lb: plan(lb, 1)["G"]):
+        work = _build.workspace(plan(lib, B, budget)["workspace_bytes"],
+                                state_pack.device)
     err = lib.residuals_launch(
         p(coef), p(Pdp), p(Plf), p(state_pack), p(dxdy_pack), p(rowc),
-        p(varc), p(sums), p(acc), W, B, _build.stream(state_pack.device))
+        p(varc), p(sums), p(acc), W, B, _build.stream(state_pack.device),
+        p(work), int(budget))
     _build.check(err, "residuals_launch")
 
 

@@ -26,7 +26,10 @@ one-thread kernel's); ``w_t`` stays in shared memory between the sweeps
 where it fits, else in ``x``.  Bound on
 an H100: bytes on paper (~0.03-0.06 ms at B=1024, W=100, B2=12), each
 problem's chain of steps in practice.  The block size ``B2`` is
-compile-time (one build per ``B2``).
+compile-time (one build per ``B2``).  Above B2=32 both kernels take their
+wide form (one problem a block, a group of several warps, shuffles through
+shared memory); where a ring does not fit on chip its plan asks for a
+device-memory workspace, which :func:`_launch` allocates.
 """
 from __future__ import annotations
 
@@ -49,12 +52,20 @@ def solve_lane_major_plain(chol, gain, rhs):
     return block_tridiag_solve(BlockTridiagFactor(chol, gain), rhs)
 
 
+# The largest block the kernels take: the solve's group of threads (the
+# smallest power of two >= B2) and as many producer threads fill the 1,024
+# threads of a block.
+MAX_B2 = 512
+
+
 def _lib(B2):
-    """The library for block size ``B2``; above 32 ``NotImplementedError``
-    before any build (``_build.LIMITS``)."""
-    sig = {"B2": int(B2)}
-    _build.check_limits("tridiag", sig)
-    return _build.library("tridiag", sig)
+    """The library for block size ``B2`` (above 32 the wide form); above
+    :data:`MAX_B2` ``NotImplementedError`` before any build."""
+    if B2 > MAX_B2:
+        raise NotImplementedError(
+            f"the CUDA tridiag kernels take B2 <= {MAX_B2}, got B2={B2}: a "
+            "problem's group of threads and its producers fill a block")
+    return _build.library("tridiag", {"B2": int(B2)})
 
 
 def _configure(lib):
@@ -62,21 +73,24 @@ def _configure(lib):
     (once)."""
     if lib.tridiag_solve_launch.argtypes is None:
         lib.tridiag_factor_launch.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_int] * 2 + [ctypes.c_void_p]
+            ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int,
+                                 ctypes.c_void_p]
         lib.tridiag_factor_launch.restype = ctypes.c_int
         lib.tridiag_solve_launch.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_int] * 3 + [ctypes.c_void_p]
+            ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
         lib.tridiag_solve_launch.restype = ctypes.c_int
         lib.tridiag_solve_plan.argtypes = [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
         lib.tridiag_solve_plan.restype = ctypes.c_int
-        lib.tridiag_factor_plan.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.tridiag_factor_plan.argtypes = [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
         lib.tridiag_factor_plan.restype = ctypes.c_int
     return lib
 
 
 PLAN_KEYS = ("G", "Q", "stages", "w_on_chip", "shared_bytes", "blocks",
-             "threads_per_block", "tile_stride", "copy_bytes")
+             "threads_per_block", "tile_stride", "copy_bytes",
+             "workspace_bytes")
 
 
 def plan(lib, W, B, budget=0):
@@ -84,9 +98,10 @@ def plan(lib, W, B, budget=0):
     on the current device, as :func:`_launch` makes it: threads per
     problem, problems per block, ring stages, whether ``w`` stays in shared
     memory between the sweeps (else in ``x``), shared bytes, blocks,
-    threads per block, the tile's row stride and the bytes of a staging
-    copy (for 16-byte aligned arrays); ``budget``: the shared bytes a block
-    may use (0: the device's)."""
+    threads per block, the tile's row stride, the bytes of a staging copy
+    (for 16-byte aligned arrays) and of the device-memory workspace (above
+    B2=32, where the ring does not fit in ``budget``; else 0);
+    ``budget``: the shared bytes a block may use (0: the device's)."""
     lib = _configure(lib)
     out = (ctypes.c_longlong * len(PLAN_KEYS))()
     _build.check(lib.tridiag_solve_plan(W, B, budget, out),
@@ -95,17 +110,20 @@ def plan(lib, W, B, budget=0):
 
 
 FACTOR_PLAN_KEYS = ("G", "Q", "stages", "shared_bytes", "blocks",
-                    "threads_per_block", "copy_bytes")
+                    "threads_per_block", "copy_bytes", "workspace_bytes")
 
 
-def factor_plan(lib, B):
+def factor_plan(lib, B, budget=0):
     """The factor kernel's launch plan for a batch of ``B`` on the current
     device, as :func:`_launch` makes it: threads per problem, problems per
-    block, ring stages, shared bytes, blocks, threads per block and the
-    bytes of a staging copy."""
+    block, ring stages, shared bytes, blocks, threads per block, the bytes
+    of a staging copy and of the device-memory workspace (above B2=32,
+    where the ring does not fit in ``budget``; else 0); ``budget``: the
+    shared bytes a block may use (0: the device's)."""
     lib = _configure(lib)
     out = (ctypes.c_longlong * len(FACTOR_PLAN_KEYS))()
-    _build.check(lib.tridiag_factor_plan(B, out), "tridiag_factor_plan")
+    _build.check(lib.tridiag_factor_plan(B, int(budget), out),
+                 "tridiag_factor_plan")
     return dict(zip(FACTOR_PLAN_KEYS, out))
 
 
@@ -113,15 +131,25 @@ def _launch(lib, name, a, b, c, d, budget=0):
     """Call ``tridiag_<name>_launch`` of ``csrc/tridiag.cu``: factor
     ``(diag, lower, chol, gain)`` or solve ``(chol, gain, rhs, x)``, all on
     one device, the first a ``(W, B2, B2, B)`` array; ``budget``: the
-    solve's, as :func:`plan`."""
+    shared bytes a block may use, as :func:`plan` and :func:`factor_plan`
+    take it (0: the device's), with the device-memory workspace the plan
+    asks for."""
     W, _, _, B = a.shape
     lib = _configure(lib)
     p = _build.ptr
-    args = [p(a), p(b), p(c), p(d), W, B]
+    stream = _build.stream(a.device)
+    wide = _build.wide(lib, lambda lb: factor_plan(lb, 1)["G"])
     if name == "solve":
-        args.append(int(budget))
-    err = getattr(lib, f"tridiag_{name}_launch")(*args,
-                                                  _build.stream(a.device))
+        work = _build.workspace(plan(lib, W, B, budget)["workspace_bytes"],
+                                a.device) if wide else None
+        err = lib.tridiag_solve_launch(p(a), p(b), p(c), p(d), W, B,
+                                       int(budget), stream, p(work))
+    else:
+        work = _build.workspace(
+            factor_plan(lib, B, budget)["workspace_bytes"],
+            a.device) if wide else None
+        err = lib.tridiag_factor_launch(p(a), p(b), p(c), p(d), W, B, stream,
+                                        int(budget), p(work))
     _build.check(err, f"tridiag_{name}_launch")
 
 

@@ -251,16 +251,19 @@ def test_emulated_kernels_above_8_joints_match_plain(W, B2, B, budget,
 
 
 def test_block_size_above_32_is_refused_before_any_build(monkeypatch):
+    """Above B2 = 32 the kernels build in their wide form up to
+    ``MAX_B2`` (512: the solve's group and its producers fill a block);
+    past it the block size is refused by name before any build."""
     def no_build(*a, **kw):
         raise AssertionError("a build was started")
 
     monkeypatch.setattr(_build, "library", no_build)
     monkeypatch.setattr(_build, "start_build", no_build)
-    for B2 in (34, 40):
+    for B2 in (514, 1000):
         with pytest.raises(NotImplementedError,
-                           match=rf"tridiag.*B2={B2}.*B2 <= 32"):
+                           match=rf"tridiag.*B2 <= 512, got B2={B2}"):
             ttri._lib(B2)
-    for B2 in (20, 22, 32):  # built up to one warp a problem
+    for B2 in (20, 22, 32, 34, 40, 96, 512):  # built, wide above 32
         with pytest.raises(AssertionError, match="a build was started"):
             ttri._lib(B2)
 
@@ -281,12 +284,12 @@ def test_build_all_starts_one_compiler_per_target(monkeypatch):
 
 def test_lane_driver_above_10_joints_is_refused_before_any_build(
         monkeypatch):
-    """On a CUDA device every lane kernel is built up to N = 16 (a group of
-    threads a problem is at most one warp): N = 11 and 16 pass the check on
-    both paths, and N = 17 is refused by name of the fused path's factor
-    kernel, or of the tridiagonal kernels on the unfused path and with
-    polish, before any build and before the batch moves.  Here the device
-    is only named: nothing reaches it."""
+    """On a CUDA device every lane kernel takes any joint count up to
+    ``admm_lane.MAX_KERNEL_JOINTS`` (256: a problem's group of threads and
+    its producers fill a block) on every path: N = 11, 16, 17, 24 and 32
+    pass the check, and N = 257 is refused by name of that limit by the
+    solve and the session, before any build and before the batch moves.
+    Here the device is only named: nothing reaches it."""
     from osqp_solver_tpu_torch.ops import admm_lane, session_lane
     from osqp_solver_tpu_torch.ops.admm import Settings
 
@@ -300,19 +303,13 @@ def test_lane_driver_above_10_joints_is_refused_before_any_build(
     cuda = torch.device("cuda")
     monkeypatch.setattr(admm_lane, "resolve_device", lambda d: cuda)
     monkeypatch.setattr(session_lane, "resolve_device", lambda d: cuda)
-    off = Settings(fused_chunk="off")
-    for n in (11, 16):
+    for n in (11, 16, 17, 24, 32):
         qp = torch_lane(*random_lane_problem(W=4, N=n, B=1))
-        for s in (Settings(), off, Settings(term_fused="off"),
-                  Settings(polish=True)):
-            admm_lane.check_kernel_limits(qp, s, cuda)
-    qp17 = torch_lane(*random_lane_problem(W=4, N=17, B=2))
-    with pytest.raises(NotImplementedError, match=r"kkt_factor.*N <= 16"):
-        admm_lane.solve_batched_lane(qp17, Settings())
-    with pytest.raises(NotImplementedError, match=r"kkt_factor.*N <= 16"):
-        session_lane.setup_lane(qp17, Settings())
-    with pytest.raises(NotImplementedError, match=r"tridiag.*B2=34"):
-        admm_lane.check_kernel_limits(qp17, off, cuda)
-    with pytest.raises(NotImplementedError, match=r"kkt_factor"):
-        admm_lane.check_kernel_limits(qp17, Settings(), cuda)
-    admm_lane.check_kernel_limits(qp17, Settings(), torch.device("cpu"))
+        admm_lane.check_kernel_limits(qp, cuda)
+    big = torch_lane(*random_lane_problem(W=2, N=257, B=1))
+    for s in (Settings(), Settings(fused_chunk="off"), Settings(polish=True)):
+        with pytest.raises(NotImplementedError, match=r"at most 256 joints"):
+            admm_lane.solve_batched_lane(big, s)
+    with pytest.raises(NotImplementedError, match=r"N=257"):
+        session_lane.setup_lane(big, Settings())
+    admm_lane.check_kernel_limits(big, torch.device("cpu"))

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Iteration counts of the JAX package on the problems of ``chip_smoke.py``
 (float32, CPU): the references its ``dense``, ``dense_session``,
-``trajectory_generic``, ``solve_block_p``, ``solve_w3``, ``solve_anderson``
-and ``planner_long`` phases hold the port to, the planner statistics its
+``trajectory_generic``, ``solve_block_p``, ``solve_w3``, ``solve_anderson``,
+``planner_long`` and ``planner_dh`` phases hold the port to, the planner
+statistics its
 ``planner_run`` phase prints beside its own, and the unpolished and polished
 statuses of ``solve_polish``'s batch.
 
@@ -17,7 +18,8 @@ on a machine with JAX:
 (all configurations without arguments; ``solve_block_p`` alone takes a few
 minutes, ``planner_run`` (the reference example at W_max=802: ``run_padded``,
 one compile, and ``run``, one compile per horizon) about ten, and
-``solve_anderson``, ``solve_polish`` and ``planner_long`` a few each).  Prints one JSON line per configuration; the ``code`` strings are
+``solve_anderson``, ``solve_polish``, ``planner_long`` and
+``planner_dh`` a few each).  Prints one JSON line per configuration; the ``code`` strings are
 the per-problem (per-step) counts in ``chip_smoke.encode_iters`` form, and
 ``p50`` is the lower median, as ``torch.median`` takes it.
 """
@@ -181,12 +183,57 @@ def planner_long():
         "wall_s": round(time.time() - t0, 1)}), flush=True)
 
 
+def planner_dh():
+    """``chip_smoke.planner_dh``: the full search (``run_batch_padded``) of
+    ``benchmarks/planner_batch.py --robot iiwa14|scara --full`` in the JAX
+    package, float32, on the first ``chip_smoke.DH_REF_QUERIES`` of its
+    queries: statuses and SCP rounds per query, and the p50 of ADMM
+    iterations per query."""
+    import time
+
+    from osqp_solver_tpu import constraints as C
+    from osqp_solver_tpu.gomp.planner import GOMPSolver
+    from osqp_solver_tpu.models import dh_robot
+
+    for name in ("IIWA14", "SCARA"):
+        robot = getattr(dh_robot, name)
+        n = robot.n_joints
+        solver = GOMPSolver(
+            max_waypoints=50, time_step=0.1, segments=10,
+            settings=dataclasses.replace(admm.Settings(), **cs.PLANNER),
+            pos_con=C.in_range(n, -2 * np.pi, 2 * np.pi),
+            vel_con=C.in_range(n, -np.pi, np.pi),
+            acc_con=C.in_range(n, -np.pi * 800 / 180, np.pi * 800 / 180),
+            con_3d=C.in_range(3, [-C.INF, -0.4, -C.INF], None),
+            obstacles=[],
+            balls=[robot.make_ball(link=n - 1, radius=0.15),
+                   robot.make_ball(radius=0.05, is_gripper=True)],
+            dtype=jnp.float32,
+        )
+        starts, ends = cs.dh_queries(n, cs.BATCH, np.random.default_rng(0))
+        k = cs.DH_REF_QUERIES
+        t0 = time.time()
+        st, _, hz, rounds, iters = solver.run_batch_padded(
+            starts[:k].astype(np.float32), ends[:k].astype(np.float32))
+        st, rounds = np.asarray(st), np.asarray(rounds)
+        print(json.dumps({
+            "config": f"planner_dh_{name}", "n": int(st.size),
+            "optimal": int((st == 0).sum()),
+            "statuses": cs.encode_statuses(st),
+            "rounds": cs.encode_statuses(rounds),
+            "horizons": {str(k_): v for k_, v in sorted(collections.Counter(
+                np.asarray(hz).tolist()).items())},
+            "admm_iters_p50": int(np.sort(np.asarray(iters))[(k - 1) // 2]),
+            "wall_s": round(time.time() - t0, 1)}), flush=True)
+
+
 def main():
     want = set(sys.argv[1:]) or {"dense", "dense_session",
                                  "trajectory_config1",
                                  "trajectory_config4b", "solve_block_p",
                                  "solve_w3", "planner_run", "solve_anderson",
-                                 "solve_polish", "planner_long"}
+                                 "solve_polish", "planner_long",
+                                 "planner_dh"}
     settings = admm.Settings()
     if "solve_anderson" in want:
         solve_anderson(settings)
@@ -194,6 +241,8 @@ def main():
         solve_polish(settings)
     if "planner_long" in want:
         planner_long()
+    if "planner_dh" in want:
+        planner_dh()
     if "planner_run" in want:
         planner_run()
     if "solve_w3" in want:
