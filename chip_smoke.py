@@ -100,10 +100,21 @@ drives the port's entry points:
   first 64 held to the JAX f32 run, every plan audited by exact FK in
   float64, and every lane kernel of its N=7 and N=4 builds held to its
   plain version in f64 on the search's first batch) and
-  ``examples/dh_robot_example.py``'s problem through ``run``.  The kernel
-  table's launch counts are ``planner_dh``'s where it launches a kernel,
-  else the earlier phases' (``launches_by_path`` gives every path's; each
-  row's ``wide`` gives its times above 16 joints).
+  ``examples/dh_robot_example.py``'s problem through ``run``;
+* this slice's main path, the user-facing entry points: the port's five
+  examples (``osqp_solver_tpu_torch/examples``), each ``main()`` at its
+  default flags on the card in a temporary directory (``examples``: the
+  solver example in both ``--mode padded`` and ``--mode exact``, its plan
+  through ``planner_run``'s checks; each exits 0 by its own criterion and
+  launches its path's kernels and no plain version; statuses and horizons
+  beside the JAX f32 CPU runs), and ``ConstraintBuilder``'s QPs (256 at
+  W=30: the UR5e, two balls, the example's boxes and lines; n=360) solved
+  through ``ops/admm.solve_batched`` on the dense kernels in float32 and
+  held to the port's float64 CPU solve of a seeded subset
+  (``builder_dense``).  The kernel table's launch counts are this path's
+  where it launches a kernel, else the earlier phases' (``planner_dh``'s
+  first; ``launches_by_path`` gives every path's; each row's ``wide``
+  gives its times above 16 joints).
 
 It checks statuses, ADMM iteration counts, OSQP's residual criterion
 recomputed in float64 on the host, and that every kernel was really launched
@@ -203,7 +214,8 @@ PHASES = ("build,kernels,solve,solve_unfused_term,solve_stock,box,solve_w3,"
           "mpc_fleet_unfused,dense,dense_session,trajectory_generic,"
           "solve_block_p,solve_block_p_declared,mpc_fleet_block_p,"
           "planner_run,planner_batch,lane_sizes,solve_refine,planner_long,"
-          "solve_polish,solve_anderson,lane_wide,dh_arms,planner_dh")
+          "solve_polish,solve_anderson,lane_wide,dh_arms,planner_dh,"
+          "examples,builder_dense")
 # The block-P fleet: fewer ticks than the vel-diag fleets, for time, at the
 # settings the block-P batch is solved at (BENCH) without the warm-up chunk:
 # at the fleet benchmark's stock ones (scaling 10, rho 0.05) its cold ticks
@@ -3086,31 +3098,38 @@ def example_solver(device="cuda"):
     )
 
 
+def data_files_ok(ctrl, xyz, n, W):
+    """The reference example's ``.data`` contents: ``W`` lines each, ``n``
+    ``%g`` numbers a control line, ``(x, y, z)`` a position line."""
+    import re
+
+    num = r"-?\d+(?:\.\d+)?(?:e[-+]\d+)?"
+    c_lines, x_lines = ctrl.splitlines(), xyz.splitlines()
+    return bool(len(c_lines) == len(x_lines) == W and all(
+        re.fullmatch(rf"{num}( {num}){{{n - 1}}}", ln) for ln in c_lines)
+        and all(re.fullmatch(rf"\({num}, {num}, {num}\)", ln)
+                for ln in x_lines))
+
+
 def check_data_files(q, points):
     """Write the two ``.data`` files of ``q (W, 6)`` and its FK points
     ``(W, 3)`` to a temporary directory, as the reference example does, and
     check their lines: six ``%g`` numbers, and ``(x, y, z)``."""
-    import re
     import tempfile
 
     from osqp_solver_tpu_torch.utils.trajectory_io import (
         write_trajectory_files,
     )
 
-    num = r"-?\d+(?:\.\d+)?(?:e[-+]\d+)?"
-    ctrl_re = re.compile(rf"^{num}( {num}){{5}}$")
-    xyz_re = re.compile(rf"^\({num}, {num}, {num}\)$")
     with tempfile.TemporaryDirectory() as d:
         ctrl, xyz = Path(d) / "output_trajectory_ctrl.data", Path(
             d) / "output_trajectory_xyz.data"
         write_trajectory_files(q, points, ctrl, xyz)
-        c_lines = ctrl.read_text().splitlines()
-        x_lines = xyz.read_text().splitlines()
-    ok = (len(c_lines) == len(q) == len(x_lines)
-          and all(ctrl_re.match(ln) for ln in c_lines)
-          and all(xyz_re.match(ln) for ln in x_lines))
+        c_text, x_text = ctrl.read_text(), xyz.read_text()
+    c_lines, x_lines = c_text.splitlines(), x_text.splitlines()
     return dict(lines=len(c_lines), first_ctrl=c_lines[0] if c_lines else "",
-                first_xyz=x_lines[0] if x_lines else "", ok=bool(ok))
+                first_xyz=x_lines[0] if x_lines else "",
+                ok=data_files_ok(c_text, x_text, 6, len(q)))
 
 
 def plan_checks(solver, res):
@@ -5128,6 +5147,356 @@ def phase_solve_anderson():
     return main_launches
 
 
+# examples: the JAX package's float32 CPU runs of the same examples at their
+# defaults (tools/jax_reference_counts.py examples): statuses in
+# encode_statuses form, winning horizons and SCP rounds per query, recorded
+# beside the port's (in f32 the planners with obstacles follow rounding:
+# ROADMAP.md C4).
+EXAMPLES_REF = {
+    "fleet_planning": dict(statuses="00000000",
+                           horizons=[18, 24, 24, 27, 18, 24, 24, 21],
+                           scp_rounds=[17, 21, 15, 18, 13, 15, 15, 7]),
+    "grasp": dict(statuses="00000000", horizons=[12, 12, 9, 9, 9, 15, 12, 12],
+                  scp_rounds=[9, 9, 9, 9, 9, 8, 9, 9]),
+    "dh_robot": dict(status="kOptimal", winning_waypoints=10,
+                     stats=[[16, 1, 25, 0], [10, 1, 25, 0], [5, 1, 425, 6]]),
+}
+EXAMPLE_MODULES = ("solver_example", "dh_robot_example", "fleet_planning_example",
+                   "grasp_example", "mpc_fleet_example")
+# The kernels each example's path runs on the card.
+EXAMPLE_KERNELS = {"solver_example": TRIDIAG_KERNELS,
+                   "dh_robot_example": TRIDIAG_KERNELS,
+                   "fleet_planning_example": LANE_KERNELS,
+                   "grasp_example": LANE_KERNELS,
+                   "mpc_fleet_example": LANE_KERNELS}
+
+
+class PlainCallsDense(PlainCalls):
+    """:class:`PlainCalls` with the dense kernels' plain versions too
+    (counted as ``dense.factor_lane_major_plain``, ...)."""
+
+    def __enter__(self):
+        super().__enter__()
+        for name in ("factor_lane_major_plain", "solve_lane_major_plain"):
+            fn = getattr(dense_kernel, name)
+            self.saved.append((dense_kernel, name, fn))
+
+            def counted(*a, _fn=fn, _name="dense." + name, **kw):
+                self.calls[_name] += 1
+                return _fn(*a, **kw)
+            setattr(dense_kernel, name, counted)
+        return self
+
+
+class ResultCapture:
+    """Keeps what the planner's entry points return while active (the
+    examples print their results; the phase reads them here): a list of
+    ``(method, solver, result)``."""
+    METHODS = ("run", "run_padded", "run_batch_padded")
+
+    def __enter__(self):
+        self.results, self.saved = [], []
+        for name in self.METHODS:
+            fn = getattr(GOMPSolver, name)
+            self.saved.append((name, fn))
+
+            def kept(solver, *a, _fn=fn, _name=name, **kw):
+                out = _fn(solver, *a, **kw)
+                self.results.append((_name, solver, out))
+                return out
+            setattr(GOMPSolver, name, kept)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved:
+            setattr(GOMPSolver, name, fn)
+        return False
+
+
+def run_example(name, argv=()):
+    """``main(argv)`` of the port's example ``name`` on the card, in a
+    temporary directory, once: the launch counters from 0 around it, the
+    plain versions counted, the planner's results kept; its exit code,
+    printed lines, ``.data`` files and wall time."""
+    import contextlib
+    import importlib
+    import io
+    import os
+    import tempfile
+
+    module = importlib.import_module(f"osqp_solver_tpu_torch.examples.{name}")
+    out, cwd = io.StringIO(), os.getcwd()
+    scans = []
+    if name == "mpc_fleet_example":  # the example imports these by name
+        scan, solve1 = module.mpc_scan_lane, module.solve_lane
+
+        def kept_scan(*a, **kw):
+            out_ = scan(*a, **kw)
+            scans.append(out_[1])
+            return out_
+
+        def kept_solve(*a, **kw):
+            r = solve1(*a, **kw)
+            scans.append(r[1])
+            return r
+        module.mpc_scan_lane, module.solve_lane = kept_scan, kept_solve
+    with tempfile.TemporaryDirectory() as d:
+        os.chdir(d)
+        try:
+            reset_counts()
+            with PlainCallsDense() as plain, ResultCapture() as cap, \
+                    contextlib.redirect_stdout(out):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rc = module.main(list(argv))
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            counts = read_counts()
+            files = {p_.name: p_.read_text() for p_ in Path(d).glob("*.data")}
+        finally:
+            os.chdir(cwd)
+            if name == "mpc_fleet_example":
+                module.mpc_scan_lane, module.solve_lane = scan, solve1
+    return dict(rc=rc, launches={k: v for k, v in counts.items() if v},
+                plain_calls=dict(plain.calls), results=cap.results,
+                scans=scans, wall_ms=wall, stdout=out.getvalue().splitlines(),
+                files=files)
+
+
+def batch_plan_record(out):
+    """Statuses, horizons and finiteness of a ``run_batch_padded`` result."""
+    st, trajs, hz, rounds, iters = (a.cpu() for a in out)
+    return dict(statuses=encode_statuses(st.numpy()),
+                optimal=int((st == 0).sum()), horizons=hz.tolist(),
+                scp_rounds=rounds.tolist(), admm_iters=iters.tolist(),
+                finite=bool(torch.isfinite(trajs).all()))
+
+
+def phase_examples():
+    """The port's five examples, ``main()`` at their default flags on the
+    card (``solver_example`` in both ``--mode padded`` and ``--mode
+    exact``): each exits 0 by its own criterion, launches every kernel of
+    its path (``EXAMPLE_KERNELS``) and no plain version; the solver
+    example's plan passes ``planner_run``'s checks (exact-FK audit, start
+    and goal FK, ``.data`` lines), every plan is finite, and the statuses and
+    horizons are recorded beside the JAX float32 CPU runs
+    (``JAX_PLANNER_RUN``, ``EXAMPLES_REF``)."""
+    recs, launches = {}, collections.Counter()
+    runs = [("solver_example", ()), ("solver_example", ("--mode", "exact"))]
+    runs += [(n, ()) for n in EXAMPLE_MODULES[1:]]
+    for name, argv in runs:
+        key = name + ("_exact" if argv else "")
+        r = run_example(name, argv)
+        launches.update(r["launches"])
+        rec = dict(exit_code=r["rc"], wall_ms=r["wall_ms"],
+                   launches=r["launches"], plain_calls=r["plain_calls"],
+                   stdout=r["stdout"])
+        if name in ("solver_example", "dh_robot_example"):
+            _, solver, res = r["results"][-1]
+            n = solver.n_dim
+            traj = np.asarray(res.trajectory, dtype=np.float64)
+            won = [st.waypoints for st in res.stats if st.status == 0]
+            rec.update(status=res.status.name,
+                       winning_waypoints=min(won) if won else 0,
+                       stats=[list(map(int, st)) for st in res.stats],
+                       finite=bool(np.isfinite(traj).all()))
+        if name == "solver_example":
+            rec.update(plan_checks(solver, res),
+                       jax_f32_cpu=JAX_PLANNER_RUN["run" if argv
+                                                   else "run_padded"])
+            W_ = rec["winning_waypoints"]
+            rec["example_data_files_ok"] = data_files_ok(
+                r["files"].get("output_trajectory_ctrl.data", ""),
+                r["files"].get("output_trajectory_xyz.data", ""), n, W_)
+        elif name == "dh_robot_example":
+            rec["jax_f32_cpu"] = EXAMPLES_REF.get("dh_robot")
+        elif name == "mpc_fleet_example":
+            res0, (st, it) = r["scans"][0], r["scans"][1]
+            rec.update(cold_optimal=int((res0.status == 0).sum()),
+                       optimal=int((st == 0).sum()), total=st.numel(),
+                       finite=bool(torch.isfinite(res0.x).all()),
+                       warm_iterations_p50=int(it.double().median()))
+        else:
+            _, _, out = r["results"][-1]
+            rec.update(batch_plan_record(out), jax_f32_cpu=EXAMPLES_REF.get(
+                name.replace("_example", "")))
+        recs[key] = rec
+    # A float64 request on the card gets the kernels' TypeError, never a
+    # quiet plain path.
+    refused = {}
+    for name in ("solver_example", "dh_robot_example"):
+        try:
+            run_example(name, ("--f64", "--waypoints", "16", "--segments",
+                               "2"))
+            refused[name] = "ran"
+        except TypeError as e:
+            refused[name] = f"TypeError: {e}"
+    recs["float64_refused"] = refused
+    emit("examples", **recs)
+    if any(not v.startswith("TypeError") for v in refused.values()):
+        fail(f"examples: a float64 request on the card was not refused: "
+             f"{refused}")
+    for key, rec in recs.items():
+        if key == "float64_refused":
+            continue
+        name = key.replace("_exact", "")
+        if rec["exit_code"] != 0:
+            fail(f"examples: {key} exited {rec['exit_code']}: "
+                 f"{rec['stdout'][-3:]}")
+        if not rec["finite"]:
+            fail(f"examples: {key}: a plan is not finite")
+        if min(rec["launches"].get(k, 0) for k in EXAMPLE_KERNELS[name]) < 1 \
+                or rec["plain_calls"]:
+            fail(f"examples: {key}: launches {rec['launches']}, plain "
+                 f"versions {rec['plain_calls']}")
+        if name == "solver_example":
+            if rec["status"] != "kOptimal" or not rec["shape_ok"]:
+                fail(f"examples: {key} ended {rec['status']}")
+            if rec["audit"]["workspace_margin"] < -(ERROR + 1e-5) or \
+                    rec["audit"]["velocity_mismatch"] > 0.2:
+                fail(f"examples: {key}: exact-FK audit failed: "
+                     f"{rec['audit']}")
+            if max(rec["start_fk_err"], rec["goal_fk_err"]) > 1e-3:
+                fail(f"examples: {key}: start/goal FK off the ground truth")
+            if not (rec["data_files"]["ok"] and rec["example_data_files_ok"]):
+                fail(f"examples: {key}: .data files")
+    return dict(launches)
+
+
+# builder_dense: ConstraintBuilder's QPs (the reference example's UR5e, its
+# two balls, boxes and --obstacles lines) at W=30, solved as DenseQPs
+# through ops/admm.solve_batched: BUILDER_BATCH on the card in float32,
+# BUILDER_CPU of them (a seeded subset) on the CPU in float64.
+BUILDER_W, BUILDER_BATCH, BUILDER_CPU, BUILDER_SEED = 30, 256, 32, 14
+# |x_f32 - x_f64| allowed, in radians (radians per step for velocities):
+# both stop at OSQP's eps_abs = eps_rel = 1e-3; the port's float32 plain
+# versions on the CPU end 4.9e-4 from float64 on 16 of these problems (the
+# same iteration counts), and the card's kernels round otherwise: ten times
+# that.
+BUILDER_X_TOL = 5e-3
+
+
+def builder_problems(B=BUILDER_BATCH, W=BUILDER_W, seed=BUILDER_SEED):
+    """``B`` dense QPs from ``ConstraintBuilder``, batch-leading numpy
+    float64 ``(P, q, A, l, u)``: starts near zero, goals a base turn of up
+    to 1.2 rad the way that keeps the tool off the floor y >= -0.4 and
+    away from the lines in XY (the tool's y stays above -0.26, its x below
+    -0.29), the other joints within 0.2 rad (every goal reachable in W-3
+    steps under the acceleration limit), warm trajectories the straight
+    line plus noise, P the smoothness objective, q zero; and the seconds
+    the builds took."""
+    from osqp_solver_tpu_torch import ConstraintBuilder, HorizontalLine
+    from osqp_solver_tpu_torch.gomp.trajectory import smoothness_objective
+
+    rng = np.random.default_rng(seed)
+    starts = 0.02 * rng.standard_normal((B, N))
+    goals = starts + rng.uniform(-0.2, 0.2, (B, N))
+    goals[:, 0] = starts[:, 0] + rng.uniform(-1.2, 0.0, B)
+    dt = EXAMPLE["time_step"]
+    C = constraints
+    pos = C.in_range(N, -2 * math.pi, 2 * math.pi)
+    vel = C.scaled(C.in_range(N, -math.pi, math.pi), dt)
+    acc = C.scaled(C.in_range(N, -math.pi * 800 / 180, math.pi * 800 / 180),
+                   dt * dt)
+    con3d = C.in_range(3, [-C.INF, -0.4, -C.INF], None)
+    balls = [ur5e.make_ball("back6", 0.15),
+             ur5e.make_ball("tool", 0.05, is_gripper=True)]
+    lines = [HorizontalLine.create([0, 1], [0, 0, 0.6], True),
+             HorizontalLine.create([0, 1], [0.3, 0, 0.5], False)]
+    P = np.asarray(smoothness_objective(W, N), dtype=np.float64)
+    t0 = time.perf_counter()
+    ls, As, us = [], [], []
+    for b in range(B):
+        q = np.linspace(starts[b], goals[b], W) + 0.01 * rng.standard_normal(
+            (W, N))
+        traj = np.concatenate([q.reshape(-1), np.zeros(W * N)])
+        l_, A_, u_ = (ConstraintBuilder(W, N, balls=balls, obstacles=lines)
+                      .position(0, C.equal(starts[b]))
+                      .positions(1, W - 2, pos)
+                      .position(W - 3, C.equal(goals[b]))
+                      .velocities(0, W - 4, vel)
+                      .velocity(W - 3, C.eq_zero(N))
+                      .accelerations(0, W - 4, acc)
+                      .acceleration(W - 3, C.eq_zero(N))
+                      .with_obstacles(con3d, traj)
+                      .build())
+        ls.append(l_)
+        As.append(A_)
+        us.append(u_)
+    seconds = time.perf_counter() - t0
+    n = P.shape[0]
+    return (np.ascontiguousarray(np.broadcast_to(P, (B, n, n))),
+            np.zeros((B, n)), np.stack(As), np.stack(ls), np.stack(us)), seconds
+
+
+def phase_builder_dense():
+    """``ConstraintBuilder``'s QPs solved as dense QPs (n=360) through
+    ``ops/admm.solve_batched``: BUILDER_BATCH on the card in float32 (the
+    dense factor and solve kernels launched, no plain version), held to the
+    port's float64 CPU solve of a seeded subset: equal statuses, ``x``
+    within BUILDER_X_TOL."""
+    arrays, build_s = builder_problems()
+    settings = Settings()
+    B = arrays[1].shape[0]
+    qps = convert.dense_qp_from_numpy(*arrays, device="cuda",
+                                      dtype=torch.float32)
+    reset_counts()
+    s0, r0 = gadmm.HOST_SYNCS, gadmm.RHO_REFACTORS
+    with PlainCallsDense() as plain:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = gadmm.solve_batched(qps, settings)  # the main path, once
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    counts, syncs, refactors = generic_counts(s0, r0)
+    idx = np.sort(np.random.default_rng(BUILDER_SEED).choice(
+        B, BUILDER_CPU, replace=False))
+    t0 = time.perf_counter()
+    ref = gadmm.solve_batched(convert.dense_qp_from_numpy(
+        *(a[idx] for a in arrays), device="cpu", dtype=torch.float64),
+        settings, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    st, it = res.status.cpu(), res.iterations.cpu()
+    sub = torch.from_numpy(idx)
+    same = int((st[sub] == ref.status).sum())
+    x_err = float((res.x.cpu().double()[sub] - ref.x).abs().max())
+    n, m = arrays[2].shape[2], arrays[2].shape[1]
+    kern = {}
+    Mf = torch.randn(n, n, B, device="cuda")
+    Mf = torch.einsum("ikb,jkb->ijb", Mf, Mf) / n + torch.eye(
+        n, device="cuda")[:, :, None]
+    rhs = torch.randn(n, B, device="cuda")
+    Lt = dense_kernel.factor_lane_major(Mf)
+    kern["dense_factor_ms"] = time_ms(lambda: dense_kernel.factor_lane_major(
+        Mf))
+    kern["dense_solve_ms"] = time_ms(lambda: dense_kernel.solve_lane_major(
+        Lt, rhs))
+    rec = dict(
+        batch=B, W=BUILDER_W, n=n, m=m, build_s=build_s, ms=ms,
+        statuses={str(k): v for k, v in sorted(collections.Counter(
+            st.tolist()).items())},
+        optimal=int((st == 0).sum()), iterations_p50=int(it.median()),
+        iterations_max=int(it.max()), cpu_subset=len(idx), cpu_s=cpu_s,
+        cpu_statuses={str(k): v for k, v in sorted(collections.Counter(
+            ref.status.tolist()).items())},
+        cpu_iterations_p50=int(ref.iterations.median()),
+        same_status=same, x_max_abs_err=x_err, x_tol=BUILDER_X_TOL,
+        finite=bool(torch.isfinite(res.x).all()), launches=counts,
+        host_syncs=syncs, rho_refactors=refactors,
+        plain_calls=dict(plain.calls), kernels_at_n=kern)
+    emit("builder_dense", **rec)
+    if same != len(idx) or not rec["finite"]:
+        fail(f"builder_dense: {same}/{len(idx)} statuses equal to the "
+             f"float64 CPU run's")
+    if x_err > BUILDER_X_TOL:
+        fail(f"builder_dense: x off the float64 CPU run by {x_err:.3e} > "
+             f"{BUILDER_X_TOL}")
+    if min(counts["dense_factor"], counts["dense_solve"]) < 1 or plain.calls:
+        fail(f"builder_dense: launches {counts}, plain versions "
+             f"{dict(plain.calls)}")
+    return {k: counts[k] for k in ("dense_factor", "dense_solve")}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="all",
@@ -5167,9 +5536,12 @@ def main():
             for n in (7, 4):
                 sigs += [{"NDIM": n, "NX": 3},
                          {"NDIM": n, "NX": 3, "BLOCK_P": 0}, {"B2": 2 * n}]
+        if "examples" in want:  # the DH example's iiwa14 through run
+            sigs.append({"B2": 14})
         for nx in (5, 0, 3):  # honest; box; planner_full
             if nx == 5 or (nx == 0 and "box" in want) or (
-                    nx == 3 and want & {"planner_full", "planner_batch"}):
+                    nx == 3 and want & {"planner_full", "planner_batch",
+                                        "examples"}):
                 sigs += [{"NDIM": N, "NX": nx},
                          {"NDIM": N, "NX": nx, "BLOCK_P": 0}]
         sigs.append(dict(honest_sig, BLOCK_P=1))
@@ -5249,6 +5621,15 @@ def main():
         # This slice's main path: its launches are the table's.
         by_path["planner_dh"] = phase_planner_dh()
         launches.update({k: v for k, v in by_path["planner_dh"].items()
+                         if v})
+    # This slice's main path: the five examples and the builder's dense
+    # QPs; their launches are the table's where they run a kernel.
+    if "examples" in want:
+        by_path["examples"] = phase_examples()
+    if "builder_dense" in want:
+        by_path["builder_dense"] = phase_builder_dense()
+    for path in ("examples", "builder_dense"):
+        launches.update({k: v for k, v in by_path.get(path, {}).items()
                          if v})
     # The repair above 16 joints: each kernel's wide form, timed per size.
     wide = {}

@@ -15,10 +15,10 @@ no fallback.  Nothing here runs at import: a machine without ``nvcc`` can
 import every module of the package.
 
 ``host=True`` builds the same sources with ``g++`` in their host-emulation
-mode (``-std=c++20 -pthread -DLANE_HOST_EMULATION -DLANE_REAL=double``: the
-launch macro becomes a loop over threads, and a cooperative launch runs each
-block's threads as ``std::thread``s meeting at ``std::barrier``s), which lets
-a test check a kernel's arithmetic, in double, without a GPU.
+mode (``-std=c++20 -pthread -DLANE_HOST_EMULATION -DLANE_REAL=double``: a
+cooperative launch runs each block's threads as fibers of the calling
+thread, switched at every barrier), which lets a test check a kernel's
+arithmetic, in double, without a GPU.
 The solver never takes that path.
 """
 from __future__ import annotations

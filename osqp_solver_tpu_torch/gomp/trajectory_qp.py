@@ -5,12 +5,13 @@ Counterpart of ``osqp_solver_tpu/gomp/trajectory_qp.py`` for the assembly
 ``with_gomp_boxes``, ``pinned_movable_mask``, ``with_horizon_mask``,
 ``with_gomp_boxes_masked``, ``linearize_workspace`` in both its branches:
 the batched ``fk_jac_batched`` and the per-configuration ``fk``/
-``jacobian``).  The horizon ``w_active`` of the masked
-constructors is one Python int for the whole batch (the planner's host loop
-knows it); the containers stay ``W_max``-shaped so that every horizon shares
-one row layout, hence one build of the kernels.  The solver methods of the reference's container (``to_dense``,
-the operator protocol for the vmapped solve) are not ported yet: the port
-solves through :class:`~.trajectory_qp_lane.LaneTrajectoryQP`.
+``jacobian``), the operator protocol of the generic solver
+(:mod:`osqp_solver_tpu_torch.ops.admm`), and the host-side exports
+``layout``, ``row_map``, ``to_dense`` and ``to_csr``.  The horizon
+``w_active`` of the masked constructors is one Python int for the whole
+batch (the planner's host loop knows it); the containers stay
+``W_max``-shaped so that every horizon shares one row layout, hence one
+build of the kernels.
 
 Where the reference ``vmap``s these constructors over a problem batch, the
 batch is a written-out TRAILING dimension here: every array below may carry
@@ -23,13 +24,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..ops import tridiag_kernel
-from ..ops.tridiag import BlockTridiagFactor
+from ..ops.tridiag import BlockTridiagFactor, block_tridiag_to_dense
 from .constraints import INF, INF_THRESHOLD
 from ..models.robot import ball_fk_jac
 from .geometry import call_linearize_rows
+from .layout import TrajectoryLayout, make_layout
 
 
 def _pad0(x, before: int, after: int):
@@ -239,7 +242,7 @@ class TrajectoryQP:
         vm = _pad0(torch.maximum(self.vel_coef.abs(), c[:, :, 0]), 0, 1)
         vm = torch.maximum(vm, _pad0(a[:, :, 1], 0, 2))
         vm = torch.maximum(vm, _pad0(a[:, :, 0], 1, 1))
-        bs = self.batch_shape
+        bs = tuple(qm.shape[2:])
         return torch.cat([qm.reshape((-1,) + bs), vm.reshape((-1,) + bs)])
 
     def A_row_absmax(self):
@@ -376,6 +379,113 @@ class TrajectoryQP:
             factor.chol, factor.gain, self._interleave(rhs))
         return self._deinterleave(s)
 
+    # --- host-side exports -------------------------------------------------
+
+    def layout(self) -> TrajectoryLayout:
+        return make_layout(
+            self.waypoints, self.n_dim, self.gripper_flags, self.n_obstacles
+        )
+
+    def row_map(self) -> np.ndarray:
+        """Compact row -> the reference's padded row index (host side;
+        :class:`~.builder.ConstraintBuilder`'s rows)."""
+        lay = self.layout()
+        W, N = self.waypoints, self.n_dim
+        idx = list(range((W - 1) * N))  # dynamics
+        idx.extend(range(lay.position_offset, lay.position_offset + W * N))
+        idx.extend(range(lay.velocity_offset,
+                         lay.velocity_offset + (W - 1) * N))
+        idx.extend(range(lay.acceleration_offset,
+                         lay.acceleration_offset + (W - 2) * N))
+        for b in range(self.n_balls):
+            for t in range(W):
+                for k in range(self._rows_per_wp(b)):
+                    idx.append(lay.workspace_row(b, t, k))
+        return np.asarray(idx)
+
+    def to_csr(self):
+        """Host-side CSR export of one problem (no batch dims) in the
+        *interleaved* ``[q_t, v_t]`` variable order (banded KKT), for the
+        native sparse oracle (``native/osqp_oracle.cpp``).
+
+        Returns ``(P_csr, q, A_csr, l, u, kb, perm)`` as numpy data: each
+        ``*_csr`` an ``(indptr, indices, data)`` triple, ``kb = 4N-1`` the
+        KKT half-bandwidth, and ``perm`` mapping reference-layout variable
+        i to its interleaved index (``x_ref = x_interleaved[perm]``)."""
+        if self.batch_shape:
+            raise ValueError(f"to_csr takes one problem; this container has "
+                             f"batch dims {self.batch_shape}")
+        W, N = self.waypoints, self.n_dim
+
+        def host(t):
+            return t.detach().cpu().numpy()
+
+        def qcol(t, j):
+            return 2 * N * t + j
+
+        def vcol(t, j):
+            return 2 * N * t + N + j
+
+        A_rows = []  # (cols, vals) per row, in the compact row order
+        dyn = host(self.dyn_coef)
+        for t in range(W - 1):
+            for j in range(N):
+                A_rows.append((np.array([vcol(t, j), qcol(t + 1, j),
+                                         qcol(t, j)]), dyn[t, j]))
+        pos_c = host(self.pos_coef)
+        for t in range(W):
+            for j in range(N):
+                A_rows.append((np.array([qcol(t, j)]), pos_c[t, j:j + 1]))
+        vel_c = host(self.vel_coef)
+        for t in range(W - 1):
+            for j in range(N):
+                A_rows.append((np.array([vcol(t, j)]), vel_c[t, j:j + 1]))
+        acc = host(self.acc_coef)
+        for t in range(W - 2):
+            for j in range(N):
+                A_rows.append((np.array([vcol(t + 1, j), vcol(t, j)]),
+                               acc[t, j]))
+        ws_jac, obs_jac = host(self.ws_jac), host(self.obs_jac)
+        q_cols = np.arange(N)
+        for b in range(self.n_balls):
+            for t in range(W):
+                if self.gripper_flags[b]:
+                    for a in range(3):
+                        A_rows.append((2 * N * t + q_cols, ws_jac[b, t, a]))
+                for o in range(self.n_obstacles):
+                    A_rows.append((2 * N * t + q_cols, obs_jac[b, o, t]))
+
+        def csr(rows):
+            indptr = np.zeros(len(rows) + 1, np.int32)
+            indptr[1:] = np.cumsum([len(c) for c, _ in rows])
+            return (indptr,
+                    np.concatenate([c for c, _ in rows]).astype(np.int32),
+                    np.concatenate([v for _, v in rows]).astype(np.float64))
+
+        # P from the block-tridiagonal (diag, lower) pair, row by row.
+        Pd, Pl = host(self.P_diag), host(self.P_lower)
+        B2 = 2 * N
+        P_rows = []
+        for t in range(W):
+            for k in range(B2):
+                cols, vals = [], []
+                if t > 0:  # P[t, t-1] = P_lower[t-1]
+                    cols.append(2 * N * (t - 1) + np.arange(B2))
+                    vals.append(Pl[t - 1, k])
+                cols.append(2 * N * t + np.arange(B2))
+                vals.append(Pd[t, k])
+                if t < W - 1:  # P[t, t+1] = P_lower[t].T
+                    cols.append(2 * N * (t + 1) + np.arange(B2))
+                    vals.append(Pl[t, :, k])
+                P_rows.append((np.concatenate(cols), np.concatenate(vals)))
+
+        perm = host(self._perm_to_interleaved())
+        q_int = np.zeros(2 * W * N)
+        q_int[perm] = host(self.q_vec)
+        return (csr(P_rows), q_int, csr(A_rows),
+                np.asarray(host(self.l), np.float64),
+                np.asarray(host(self.u), np.float64), 4 * N - 1, perm)
+
     # --- dense ------------------------------------------------------------
 
     def to_dense(self):
@@ -389,15 +499,7 @@ class TrajectoryQP:
             e[j] = 1.0
             cols.append(self.A_matvec(e))
         A = torch.stack(cols, dim=1)
-        W, B2 = self.waypoints, 2 * self.n_dim
-        P_int = torch.zeros((W * B2, W * B2) + bs, **kw)
-        for t in range(W):
-            s = slice(t * B2, (t + 1) * B2)
-            P_int[s, s] = self.P_diag[t]
-            if t + 1 < W:
-                nx = slice((t + 1) * B2, (t + 2) * B2)
-                P_int[nx, s] = self.P_lower[t]
-                P_int[s, nx] = self.P_lower[t].transpose(0, 1)
+        P_int = block_tridiag_to_dense(self.P_diag, self.P_lower)
         perm = self._perm_to_interleaved()
         P = P_int[perm][:, perm]
         return P, self.q_vec, A, self.l, self.u

@@ -15,6 +15,7 @@ from typing import Tuple
 import torch
 
 from ..ops import tridiag_kernel
+from .trajectory_qp import TrajectoryQP
 
 _INF = 1e30  # matches constraints.INF
 
@@ -300,6 +301,14 @@ class LaneTrajectoryQP:
             y[1:] += torch.einsum("wijb,wjb->wib", self.P_lower, s[:-1])
             y[:-1] += torch.einsum("wjib,wjb->wib", self.P_lower, s[1:])
         return self._deinterleave(y)
+
+    # ---------------------------------------------------------- Ruiz norms
+    # The trajectory container's, which take any trailing batch dims (the
+    # generic Ruiz of ``ops/ruiz.py`` reads them).
+
+    A_col_absmax = TrajectoryQP.A_col_absmax
+    A_row_absmax = TrajectoryQP.A_row_absmax
+    P_col_absmax = TrajectoryQP.P_col_absmax
 
     # ------------------------------------------------------------- scaling
 

@@ -5,10 +5,12 @@ Counterpart of ``osqp_solver_tpu/models/ur5e.py``: the 4×4-matrix FK
 ``forward_kinematics*``), the batched structure-of-arrays evaluator the SCP
 linearization uses (``_soa_compose``, ``fk_jacobian_points``,
 ``make_ball``) and the 8-branch closed-form IK (``inverse_kinematics*``,
-``wrap_to_pi``).  Every function takes any leading batch shape: where the
-reference vmaps, the batch dims are written out here.  The reference's
-autodiff Jacobians (``joint_jacobian*``) are not ported: the geometric
-Jacobian of ``fk_jacobian_points`` is the same function.
+``wrap_to_pi``), and the position Jacobians ``joint_jacobian``,
+``joint_jacobian_6_back`` and ``jacobian_elbow_joint`` (the reference's are
+``jax.jacfwd`` of the 4×4 FK; here the geometric Jacobian of
+``fk_jacobian_points``, the same function).  Every function takes any
+leading batch shape: where the reference vmaps, the batch dims are written
+out here.
 
 Classic DH parameters (Universal Robots published values for the UR5e)::
 
@@ -183,6 +185,21 @@ def fk_jacobian_points(q, frame: str = "tool", axis: int = -1):
         dim=axis,
     )
     return points, jac
+
+
+def joint_jacobian(q):
+    """Tool-point position Jacobian ``(..., 3, 6)`` of ``q (..., 6)``."""
+    return fk_jacobian_points(q, "tool")[1]
+
+
+def joint_jacobian_6_back(q):
+    """Position Jacobian of :func:`forward_kinematics_6_back`."""
+    return fk_jacobian_points(q, "back6")[1]
+
+
+def jacobian_elbow_joint(q):
+    """Position Jacobian of :func:`forward_kinematics_elbow_joint`."""
+    return fk_jacobian_points(q, "elbow")[1]
 
 
 def make_ball(frame: str, radius: float, is_gripper: bool = False):

@@ -1,7 +1,8 @@
 """Symmetric block-tridiagonal factorization and solves, batch-trailing.
 
 Counterpart of ``osqp_solver_tpu/ops/tridiag.py``
-(``block_tridiag_factor``, ``block_tridiag_solve``) in the lane layout the
+(``block_tridiag_factor``, ``block_tridiag_solve``,
+``block_tridiag_matvec``, ``block_tridiag_to_dense``) in the lane layout the
 reference reaches by ``vmap``: ``diag (W, n, n, B)``, ``lower (W-1, n, n,
 B)`` with ``lower[t] = M[t+1, t]``.  The horizon recurrence is a Python
 loop over ``W``.  This is the plain reference of the KKT-factor kernel
@@ -83,3 +84,27 @@ def block_tridiag_solve(factor: BlockTridiagFactor, b):
             upper=True,
         )
     return _trail(torch.stack(xs, dim=1).squeeze(-1))  # (W, n, B)
+
+
+def block_tridiag_matvec(diag, lower, x):
+    """``y = M x`` for ``x (W, n, *batch)``, with ``diag (W, n, n, *batch)``
+    and ``lower (W-1, n, n, *batch)``; no batch dims is the reference's
+    unbatched call."""
+    y = torch.einsum("tij...,tj...->ti...", diag, x)
+    if lower.shape[0]:
+        y[1:] += torch.einsum("tij...,tj...->ti...", lower, x[:-1])
+        y[:-1] += torch.einsum("tji...,tj...->ti...", lower, x[1:])
+    return y
+
+
+def block_tridiag_to_dense(diag, lower):
+    """The dense ``(W*n, W*n, *batch)`` matrix (tests only)."""
+    W, n = diag.shape[:2]
+    bs = tuple(diag.shape[3:])
+    M = diag.new_zeros((W * n, W * n) + bs)
+    for t in range(W):
+        M[t * n:(t + 1) * n, t * n:(t + 1) * n] = diag[t]
+    for t in range(W - 1):
+        M[(t + 1) * n:(t + 2) * n, t * n:(t + 1) * n] = lower[t]
+        M[t * n:(t + 1) * n, (t + 1) * n:(t + 2) * n] = lower[t].transpose(0, 1)
+    return M

@@ -74,7 +74,7 @@ def test_solve_batched_dense_matches_jax(case):
         P, q = P * MIXED[:, None, None], q * MIXED[:, None]
     jq, tq = both_dense((P, q, A, l, u))
     js, ts = settings_pair(**kw)
-    jres = jadmm.solve_batched(jq, js)
+    jres = jax.jit(lambda q: jadmm.solve_batched(q, js))(jq)
     tres = tadmm.solve_batched(tq, ts, device="cpu")
     assert_same(jres, tres)
     assert (to_np(tres.status) == ExitCode.kOptimal).all()
@@ -101,11 +101,13 @@ def test_warm_start_matches_jax():
     P, q, A, l, u = random_dense(8, 10, 14, seed=3)
     jq, tq = both_dense((P, q, A, l, u))
     js, ts = settings_pair()
-    cold = jadmm.solve_batched(jq, js)
+    solve = jax.jit(lambda q, wx=None, wy=None: jadmm.solve_batched(
+        q, js, wx, wy))
+    cold = solve(jq)
     rng = np.random.default_rng(0)
     wx = np.asarray(cold.x) + 1e-3 * rng.normal(size=cold.x.shape)
     wy = np.array(cold.y)
-    jres = jadmm.solve_batched(jq, js, jnp.asarray(wx), jnp.asarray(wy))
+    jres = solve(jq, jnp.asarray(wx), jnp.asarray(wy))
     tres = tadmm.solve_batched(tq, ts, wx, wy, device="cpu")
     assert_same(jres, tres)
     assert int(tres.iterations.max()) <= int(np.asarray(cold.iterations).max())
@@ -261,7 +263,7 @@ def test_solve_batched_trajectory_matches_jax():
     the block-tridiagonal kernels' plain versions here)."""
     jq, tq = both_trajectory(*trajectory_batch())
     js, ts = settings_pair()
-    jres = jadmm.solve_batched(jq, js)
+    jres = jax.jit(lambda q: jadmm.solve_batched(q, js))(jq)
     tres = tadmm.solve_batched(tq, ts, device="cpu")
     assert_same(jres, tres)
     assert (to_np(tres.status) == ExitCode.kOptimal).all()
@@ -272,7 +274,7 @@ def test_solve_one_trajectory_matches_jax():
     one = {k: v[0] for k, v in arrays.items()}
     jq, tq = both_trajectory(static, one)
     js, ts = settings_pair()
-    jres = jadmm.solve(jq, js)
+    jres = jax.jit(lambda q: jadmm.solve(q, js))(jq)
     tres = tadmm.solve(tq, ts, device="cpu")
     assert int(tres.status) == int(jres.status) == ExitCode.kOptimal
     assert int(tres.iterations) == int(jres.iterations)

@@ -10,6 +10,7 @@ import shutil
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,6 +32,17 @@ torch.set_num_threads(1)
 W, N, B = 8, 3, 8
 FLAGS = (False, True)
 N_OBS = 1
+
+
+@functools.lru_cache(maxsize=None)
+def wp_batch(honest=True):
+    """``tests/test_admm_fused.py::build_wp_batch`` (W=8, N=3, B=128, f64)
+    built under ``jax.jit``: one compiled program instead of the eager
+    vmap, ~1 s instead of ~8 s on the CPU; its values equal the eager
+    build's within 2.3e-16."""
+    from test_admm_fused import build_wp_batch
+
+    return jax.jit(lambda: build_wp_batch(honest=honest))()
 
 
 def to_np(a):
@@ -119,21 +131,26 @@ def chunk_case(seed=0, n_iter=3, flags=FLAGS, n_obs=N_OBS, W=W, B=B):
     Cached: callers clone what they write to."""
     jqp, _ = both(seed, flags=flags, n_obs=n_obs, W=W, B=B)
     settings = dataclasses.replace(jadmm.Settings(), check_termination=n_iter)
-    jscaled, js = jlane_drv._ruiz_equilibrate_lane_jnp(jqp, 5)
     rng = np.random.default_rng(seed + 100)
     wx = rng.normal(size=(jqp.n, B))
     wy = 0.1 * rng.normal(size=(jqp.m, B))
-    st = jlane_drv.init_state_lane(
-        jscaled, settings, jnp.asarray(wx), jnp.asarray(wy), js
-    )
     done = np.zeros(B, bool)
     done[[1, 6]] = True
-    st = st.replace(done=jnp.asarray(done))
-    ref = st
-    for _ in range(n_iter):
-        ref = jlane_drv._iteration(jscaled, ref.replace(factor=None),
-                                   st.factor, settings)
-    tq = jlane_drv._termination_quantities(jqp, jscaled, js, ref)
+
+    @jax.jit  # one compiled program: the eager steps take ~15 s on the CPU
+    def reference(jqp, wx, wy, done):
+        jscaled, js = jlane_drv._ruiz_equilibrate_lane_jnp(jqp, 5)
+        st = jlane_drv.init_state_lane(jscaled, settings, wx, wy, js)
+        st = st.replace(done=done)
+        ref = st
+        for _ in range(n_iter):
+            ref = jlane_drv._iteration(jscaled, ref.replace(factor=None),
+                                       st.factor, settings)
+        tq = jlane_drv._termination_quantities(jqp, jscaled, js, ref)
+        return jscaled, js, st, ref, tq
+
+    jscaled, js, st, ref, tq = reference(
+        jqp, jnp.asarray(wx), jnp.asarray(wy), jnp.asarray(done))
 
     tscaled = convert.lane_qp_from_numpy(*convert.lane_qp_to_numpy(jscaled))
     ts = convert.scaling_from_numpy(*(to_np(a) for a in (js.D, js.E, js.c)))

@@ -13,12 +13,15 @@ and Anderson run on every path.  The four mechanism tests of
 ``_anderson_step`` are the JAX package's own (``tests/test_admm_lane.py``),
 run through both packages on the same inputs.  Last, the batched planner
 plans a float32 horizon above 1024 waypoints (one refinement step per KKT
-solve) as the JAX package does."""
+solve) as the JAX package does.  The lane sessions with each setting, the
+mechanism tests and the planner are in
+``test_torch_lane_settings_sessions.py``."""
 import dataclasses
 import functools
 import os
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,18 +30,14 @@ import torch
 from osqp_solver_tpu.gomp import trajectory_qp_lane as jlane
 from osqp_solver_tpu.ops import admm as jadmm
 from osqp_solver_tpu.ops import admm_lane as jdrv
-from osqp_solver_tpu.ops import session_lane as jsess
 from osqp_solver_tpu_torch import convert
 from osqp_solver_tpu_torch.gomp.trajectory_qp_lane import LaneTrajectoryQP
 from osqp_solver_tpu_torch.ops import admm as tadmm
 from osqp_solver_tpu_torch.ops import admm_lane as tdrv
-from osqp_solver_tpu_torch.ops import session_lane as tsess
-from osqp_solver_tpu_torch.ops.admm import ADMMState
 from osqp_solver_tpu_torch.ops.status import ExitCode
 
-from test_admm_fused import build_wp_batch
 from test_torch_blockp import with_block_p
-from test_torch_helpers import assert_close, to_np
+from test_torch_helpers import assert_close, to_np, wp_batch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import bench  # noqa: E402  (the JAX package's benchmark batches)
@@ -59,7 +58,7 @@ def _problems(kind):
     if kind == "box":
         jqp = bench.build_box_batch(B, 12, 6, jnp.float64)
     else:
-        static, arrays = convert.lane_qp_to_numpy(build_wp_batch(honest=True))
+        static, arrays = convert.lane_qp_to_numpy(wp_batch(honest=True))
         arrays = {k: v[..., :B] for k, v in arrays.items()}
         jqp = jlane.LaneTrajectoryQP(
             **static, **{k: jnp.asarray(v) for k, v in arrays.items()})
@@ -73,7 +72,8 @@ def _reference(kind, overrides):
     if key not in _REFS:
         js = dataclasses.replace(jadmm.Settings(), fused_chunk="off",
                                  **overrides)
-        _REFS[key] = jdrv.solve_batched_lane(_problems(kind)[0], js)
+        _REFS[key] = jax.jit(lambda q: jdrv.solve_batched_lane(q, js))(
+            _problems(kind)[0])
     return _REFS[key]
 
 
@@ -174,175 +174,3 @@ def test_anderson_matches_reference(overrides, form):
     got = _compare("balls", overrides, form)
     assert (to_np(got.status) == ExitCode.kOptimal).all()
     assert (tdrv.RHO_REFACTORS > before) == ("rho" in overrides)
-
-
-@pytest.mark.parametrize("overrides", [
-    dict(kkt_refine=1), dict(polish=True), AA,
-], ids=["kkt_refine", "polish", "anderson"])
-def test_lane_session_takes_the_setting(overrides):
-    """``setup_lane`` → ``solve_lane`` twice (the goal moved between) with
-    each setting, as the JAX package's sessions; polish's factor is counted
-    apart, and no ρ refactor or Ruiz runs per tick."""
-    jqp, tqp = _problems("box")
-    js = dataclasses.replace(jadmm.Settings(), fused_chunk="off", **overrides)
-    ts = dataclasses.replace(tadmm.Settings(), **overrides)
-    d = 1e-3 * np.arange(6, dtype=float)[:, None]
-
-    jsn = jsess.setup_lane(jqp, js)
-    jsn, jr0 = jsess.solve_lane(jsn, js)
-    jsn = jsess.update_bounds_lane(
-        jsn, pos_l=jsn.base.pos_l.at[-3].add(d),
-        pos_u=jsn.base.pos_u.at[-3].add(d))
-    _, jr1 = jsess.solve_lane(jsn, js)
-
-    pol, ref = tdrv.POLISH_FACTORS, tdrv.RHO_REFACTORS
-    sess = tsess.setup_lane(tqp, ts, device="cpu")
-    sess, r0 = tsess.solve_lane(sess, ts)
-    pos_l, pos_u = sess.base.pos_l.clone(), sess.base.pos_u.clone()
-    pos_l[-3] += torch.from_numpy(d)
-    pos_u[-3] += torch.from_numpy(d)
-    sess = tsess.update_bounds_lane(sess, pos_l=pos_l, pos_u=pos_u)
-    _, r1 = tsess.solve_lane(sess, ts)
-    _same(r0, jr0)
-    _same(r1, jr1)
-    assert (to_np(r1.status) == ExitCode.kOptimal).all()
-    assert tdrv.POLISH_FACTORS - pol == (2 if ts.polish else 0)
-    assert tdrv.RHO_REFACTORS == ref
-
-
-# ---------------------------------------------------------------------------
-# _anderson_step's mechanism: the JAX package's fixture and cases, the
-# same inputs through both packages.
-# ---------------------------------------------------------------------------
-
-
-def _aa_case(case):
-    """``(JAX out, port out, JAX in)`` of one step of the reference's
-    mechanism tests, on their fixture (``tests/test_admm_lane.py``)."""
-    from test_admm_lane import _aa_fixture, _prime_history
-
-    scaled, st, settings, v_out = _aa_fixture()
-    st = _prime_history(st, v_out)
-    reset = jnp.zeros_like(st.done)
-    if case == "rho_reset":
-        reset = jnp.ones_like(st.done)
-    elif case == "safeguard":
-        st = st.replace(aa_vin=st.aa_vin - 10.0)
-    else:
-        st = st.replace(aa_vin=st.aa_vin - 0.01)
-        if case == "done":
-            st = st.replace(done=jnp.zeros_like(st.done).at[1].set(True))
-    out = jdrv._anderson_step(scaled, st, settings, use_fused=False,
-                              reset_mask=reset)
-
-    t = lambda a: torch.from_numpy(np.array(a))
-    tscaled = convert.lane_qp_from_numpy(*convert.lane_qp_to_numpy(scaled))
-    fields = {f.name: getattr(st, f.name) for f in dataclasses.fields(
-        ADMMState) if f.name != "factor"}
-    tst = ADMMState(factor=None, **{
-        k: None if v is None else t(v) for k, v in fields.items()})
-    ts = dataclasses.replace(tadmm.Settings(), anderson=settings.anderson)
-    got = tdrv._anderson_step(tscaled, tst, ts, False, t(reset))
-    return out, got, st, tscaled
-
-
-def _same_step(got, out):
-    for name in ("x", "z", "y", "aa_g", "aa_f", "aa_vin", "aa_fnorm"):
-        assert_close(getattr(got, name), getattr(out, name), rtol=1e-10,
-                     atol=1e-12)
-    np.testing.assert_array_equal(to_np(got.aa_n), np.asarray(out.aa_n))
-
-
-@pytest.mark.parametrize("case", ["rho_reset", "safeguard"])
-def test_anderson_reset_mechanism(case):
-    """A reset (ρ adapted, or the residual grew past the safeguard): every
-    slot refilled with the current pair, the counter back to 1, the plain
-    iterate kept exactly."""
-    out, got, st, _ = _aa_case(case)
-    _same_step(got, out)
-    np.testing.assert_array_equal(to_np(got.aa_n), 1)
-    v_out = torch.cat([got.x, got.z + got.y / got.rho_vec])
-    for s in range(got.aa_g.shape[0]):
-        assert_close(got.aa_g[s], v_out, atol=1e-12)
-    assert_close(got.x, np.asarray(st.x), atol=1e-12)
-    assert_close(got.y, np.asarray(st.y), atol=1e-12)
-
-
-def test_anderson_accept_extrapolates_consistently():
-    """The accept path: the iterate moves, the counter grows, and z, y are
-    recovered consistently from w."""
-    out, got, st, scaled = _aa_case("accept")
-    _same_step(got, out)
-    np.testing.assert_array_equal(to_np(got.aa_n), 3)
-    assert float((got.x - torch.from_numpy(np.array(st.x))).abs().max()) > 1e-9
-    w = got.z + got.y / got.rho_vec
-    assert_close(got.z, torch.minimum(torch.maximum(w, scaled.l), scaled.u),
-                 atol=1e-12)
-    assert_close(got.y, got.rho_vec * (w - got.z), atol=1e-12)
-
-
-def test_anderson_done_problems_frozen():
-    """A done problem keeps its iterate, counter and safeguard norm; the
-    live ones move."""
-    out, got, st, _ = _aa_case("done")
-    _same_step(got, out)
-    x0 = torch.from_numpy(np.array(st.x))
-    assert_close(got.x[:, 1], x0[:, 1], atol=1e-15)
-    assert int(got.aa_n[1]) == int(st.aa_n[1])
-    assert float(got.aa_fnorm[1]) == float(st.aa_fnorm[1])
-    assert float((got.x[:, 0] - x0[:, 0]).abs().max()) > 1e-9
-
-
-# ---------------------------------------------------------------------------
-# The batched planner above 1024 waypoints in float32.
-# ---------------------------------------------------------------------------
-
-
-def test_run_batch_lane_plans_a_float32_horizon_above_1024(monkeypatch):
-    """``run_batch_lane`` at W=1025 in float32 (identity kinematics, N=3,
-    two queries): the bumped ``kkt_refine=1`` sends every lane solve to the
-    unfused path, two KKT solves per iteration; statuses and SCP rounds
-    equal the JAX package's, trajectories within float32 rounding."""
-    from osqp_solver_tpu import RobotBall as JBall
-    from osqp_solver_tpu import constraints as JC
-    from osqp_solver_tpu.gomp.planner import GOMPSolver as JSolver
-    from osqp_solver_tpu_torch import GOMPSolver, RobotBall
-
-    from test_torch_planner import _identity_fk_jac, _line_queries
-
-    N, Wl = 3, 1025
-    spec = dict(
-        max_waypoints=Wl, time_step=0.1,
-        pos_con=(np.full(N, -10.0), np.full(N, 10.0)),
-        vel_con=(np.full(N, -20.0), np.full(N, 20.0)),
-        acc_con=(np.full(N, -40.0), np.full(N, 40.0)),
-        con_3d=(np.full(3, -10.0), np.full(3, 10.0)), obstacles=[])
-    f32 = lambda pair: JC.Constraint(*(jnp.asarray(a, jnp.float32)
-                                       for a in pair))
-    jsolver = JSolver(
-        max_waypoints=Wl, time_step=0.1, pos_con=f32(spec["pos_con"]),
-        vel_con=f32(spec["vel_con"]), acc_con=f32(spec["acc_con"]),
-        con_3d=f32(spec["con_3d"]), obstacles=[], dtype=jnp.float32,
-        balls=[JBall(fk=lambda s: s, jacobian=lambda s: jnp.eye(
-            3, dtype=s.dtype), radius=0.05, is_gripper=True)])
-    tsolver = GOMPSolver(
-        balls=[RobotBall(radius=0.05, is_gripper=True,
-                         fk_jac_batched=_identity_fk_jac)],
-        **convert.gomp_solver_kwargs_from_numpy(spec, device="cpu",
-                                                dtype=torch.float32))
-    assert tadmm.with_auto_refine(tsolver.settings, Wl,
-                                  torch.float32).kkt_refine == 1
-    fused = []
-    use_fused = tdrv._use_fused
-    monkeypatch.setattr(tdrv, "_use_fused",
-                        lambda *a: fused.append(use_fused(*a)) or fused[-1])
-    starts, ends = _line_queries(B=2)
-    st_r, tr_r, it_r = jsolver.run_batch_lane(
-        starts.astype(np.float32), ends.astype(np.float32), waypoints=Wl)
-    st, tr, it = tsolver.run_batch_lane(starts, ends, waypoints=Wl)
-    np.testing.assert_array_equal(to_np(st), np.asarray(st_r))
-    np.testing.assert_array_equal(to_np(it), np.asarray(it_r))
-    assert (to_np(st) == 0).all()
-    np.testing.assert_allclose(to_np(tr), np.asarray(tr_r), rtol=0,
-                               atol=1e-4)
-    assert fused and not any(fused)

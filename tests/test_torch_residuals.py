@@ -1,25 +1,18 @@
 """PyTorch port vs JAX package: the unfused-termination path.
 
-The plain version of the streaming residual kernel against the JAX package's
-Pallas kernel in interpret mode (B=128, honest and box, each
-``TermQuantities`` field within 1e-10: same formulas in f64, other summation
-order), the chunk's delta-writing plain form against the JAX chunk kernel in
-interpret mode, the wrappers' argument checks, and the two CUDA sources'
+The streaming residual kernel's plain version against the fused
+accumulators, the wrappers' argument checks, and the two CUDA sources'
 arithmetic in host emulation (g++, double) against the plain versions at
-1e-9 for W = 4, 5 and 12 with frozen problems.  f64, CPU."""
+1e-9 for W = 4, 5 and 12 with frozen problems.  The plain versions against
+the JAX package's Pallas kernels in interpret mode are
+``test_torch_residuals_interpret.py``'s.  f64, CPU."""
 import dataclasses
 import functools
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from osqp_solver_tpu.ops import admm as jadmm
-from osqp_solver_tpu.ops import admm_fused as jfused
-from osqp_solver_tpu.ops import admm_lane as jlane_drv
-from osqp_solver_tpu.ops import residuals_pallas as jresid
-from osqp_solver_tpu_torch import convert
 from osqp_solver_tpu_torch.ops import admm as tadmm
 from osqp_solver_tpu_torch.ops import admm_fused as tfused
 from osqp_solver_tpu_torch.ops import admm_lane as tdrv
@@ -27,83 +20,13 @@ from osqp_solver_tpu_torch.ops import kkt_factor as tfactor
 from osqp_solver_tpu_torch.ops import residuals as tresid
 from osqp_solver_tpu_torch.ops import ruiz_kernel as truiz
 
-from test_admm_fused import build_wp_batch
 from test_torch_helpers import B, assert_close, both, host_lib, t_, to_np
 
 pytestmark = pytest.mark.torch_port
 
 
-# ------------------------------------------- against the JAX Pallas kernels
-
-
-@pytest.fixture(scope="module", params=[True, False], ids=["honest", "box"])
-def interpreted(request):
-    """One chunk of 3 iterations by the JAX chunk kernel (interpret mode,
-    B=128) from a cold start, its packed outputs, and the JAX residual
-    kernel's quantities on them; and the same problem in the port."""
-    settings = dataclasses.replace(jadmm.Settings(), check_termination=3)
-    lane = build_wp_batch(honest=request.param)
-    scaled, scaling = jlane_drv.ruiz_equilibrate_lane(lane, settings.scaling)
-    st = jlane_drv.init_state_lane(scaled, settings)
-    done = jnp.zeros((lane.batch,), bool).at[5].set(True).at[77].set(True)
-    x2, z2, y2, dx2, dy2 = jfused.fused_admm_chunk(
-        scaled, st.factor, st.x, st.z, st.y, st.rho_vec, done, settings,
-        interpret=True,
-    )
-    sp = jfused.pack_state(scaled, x2, z2, y2)
-    dp = jfused.pack_dxdy(scaled, dx2, dy2)
-    jpacks = jresid.build_residual_packs(scaled, scaling) + (scaling.cinv,)
-    ref = jresid.termination_quantities_kernel(
-        scaled, sp, dp, jfused.build_coef_pack(scaled), jpacks, interpret=True
-    )
-    tscaled = convert.lane_qp_from_numpy(*convert.lane_qp_to_numpy(scaled))
-    ts = convert.scaling_from_numpy(
-        *(to_np(a) for a in (scaling.D, scaling.E, scaling.c)))
-    tsettings = convert.settings_from_dict(dataclasses.asdict(settings))
-    return dict(ref=ref, sp=sp, dp=dp, st=st, done=done, tscaled=tscaled,
-                ts=ts, tsettings=tsettings)
-
-
 def _port_packs(tscaled, ts):
     return tresid.build_residual_packs(tscaled, ts) + (ts.cinv,)
-
-
-def test_residual_plain_matches_interpreted_kernel(interpreted):
-    c = interpreted
-    got = tresid.termination_quantities_kernel(
-        c["tscaled"], t_(c["sp"]), t_(c["dp"]),
-        tfused.build_coef_pack(c["tscaled"]), _port_packs(c["tscaled"], c["ts"]),
-    )
-    for name in c["ref"]._fields:
-        if name == "blew_up":
-            np.testing.assert_array_equal(to_np(got.blew_up),
-                                          np.asarray(c["ref"].blew_up))
-        else:
-            assert_close(getattr(got, name), getattr(c["ref"], name),
-                         rtol=1e-10, atol=1e-10)
-    assert tresid.termination_quantities_kernel.launches == 0
-
-
-def test_chunk_dxdy_plain_matches_interpreted_kernel(interpreted):
-    """Same state and same delta pack as the JAX chunk kernel without
-    ``term_packs`` (1e-9: two routes through a 3-iteration recurrence)."""
-    c = interpreted
-    tscaled, st = c["tscaled"], c["st"]
-    rho_vec = t_(st.rho_vec)
-    out, dxdy = tfused.fused_admm_chunk(
-        tscaled, rho_vec, t_(c["done"]), c["tsettings"],
-        coef=tfused.build_coef_pack(tscaled), lu=tfused.build_lu_pack(tscaled),
-        packed_factor=tfactor.factor_packed_lane(
-            tscaled, rho_vec, c["tsettings"].sigma),
-        state_pack=tfused.pack_state(tscaled, t_(st.x), t_(st.z), t_(st.y)),
-        emit_dxdy=True,
-    )
-    assert_close(out, c["sp"], rtol=1e-9, atol=1e-9)
-    assert_close(dxdy, c["dp"], rtol=1e-9, atol=1e-9)
-    assert (to_np(dxdy)[..., [5, 77]] == 0.0).all()  # frozen: exact zeros
-    dx, dy = tfused.unpack_dxdy(tscaled, dxdy)
-    assert_close(tfused.pack_dxdy(tscaled, dx, dy), dxdy)
-    assert tfused.fused_admm_chunk.launches_dxdy == 0
 
 
 # ------------------------------------------------------------ the wrappers

@@ -10,6 +10,7 @@ solves are held to JAX's ``solve_batched_lane`` in f64: equal statuses and
 iteration counts, solutions within 1e-9.  CPU, B=8.  At W=3 the honest
 class (0 to pi in three steps under its velocity limits) is primal
 infeasible in both packages."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -77,7 +78,8 @@ def test_three_waypoint_solve_matches_jax(kind, kernel_refuses):
     static, arrays = convert.lane_qp_to_numpy(tqp)
     jqp = LaneTrajectoryQP(**static, **{k: jnp.asarray(v)
                                         for k, v in arrays.items()})
-    ref = jdrv.solve_batched_lane(jqp, jadmm.Settings())
+    ref = jax.jit(lambda q: jdrv.solve_batched_lane(q, jadmm.Settings()))(
+        jqp)
     got = tdrv.solve_batched_lane(tqp, tadmm.Settings(), device="cpu")
     np.testing.assert_array_equal(to_np(got.status), np.asarray(ref.status))
     np.testing.assert_array_equal(to_np(got.iterations),

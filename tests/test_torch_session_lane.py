@@ -13,6 +13,7 @@ import os
 import sys
 import types
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -85,8 +86,8 @@ def _jax(key, fn):
 def _jax_solved():
     """A JAX session set up and solved once, and that solve's result."""
     jqp, _ = _problems("waypoint")
-    return _jax("solved", lambda: jsess.solve_lane(
-        jsess.setup_lane(jqp, S_JAX), S_JAX))
+    return _jax("solved", lambda: jax.jit(lambda q: jsess.solve_lane(
+        jsess.setup_lane(q, S_JAX), S_JAX))(jqp))
 
 
 def _shift_jax(base, d):
@@ -162,9 +163,9 @@ def test_mpc_scan_matches_manual_loop_and_reference(form):
     jqp, _ = _problems("waypoint")
 
     def ref_fn():
-        out = jsess.mpc_scan_lane(jsess.setup_lane(jqp, S_JAX),
-                                  jnp.asarray(DELTAS), _shift_jax, S_JAX,
-                                  emit="full")[1]
+        out = jax.jit(lambda q: jsess.mpc_scan_lane(
+            jsess.setup_lane(q, S_JAX), jnp.asarray(DELTAS), _shift_jax,
+            S_JAX, emit="full")[1])(jqp)
         return tuple(np.asarray(a) for a in out)
 
     st_j, it_j, x_j = _jax("scan", ref_fn)

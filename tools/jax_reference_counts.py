@@ -4,8 +4,10 @@
 ``trajectory_generic``, ``solve_block_p``, ``solve_w3``, ``solve_anderson``,
 ``planner_long`` and ``planner_dh`` phases hold the port to, the planner
 statistics its
-``planner_run`` phase prints beside its own, and the unpolished and polished
-statuses of ``solve_polish``'s batch.
+``planner_run`` and ``examples`` phases print beside their own, the
+unpolished and polished statuses of ``solve_polish``'s batch, and the
+block-P fleet at a CPU-sized batch in both packages
+(``mpc_fleet_block_p``: ``ROADMAP.md`` C2).
 
 The problems come from ``chip_smoke.py``'s own generators (numpy from a
 seed for the dense configurations and the block-P objective; the port's
@@ -227,13 +229,165 @@ def planner_dh():
             "wall_s": round(time.time() - t0, 1)}), flush=True)
 
 
+def mpc_fleet_block_p(batch=64):
+    """``chip_smoke.mpc_fleet_block_p``'s fleet at a CPU-sized batch (its
+    block-P batch, ``BLOCK_FLEET_TICKS`` ticks of the moving goal), float32,
+    at the fleet benchmark's stock settings (``chip_smoke.FLEET``: rho 0.05,
+    scaling 10) and at the settings the phase runs (``BLOCK_FLEET``), in
+    the JAX package and in the port on the CPU: how many (tick, problem)
+    pairs end optimal, the statuses, and the cold and warm iteration counts.
+    ``ROADMAP.md`` C2 asks whether the slow convergence at the stock
+    settings is the reference's."""
+    import torch
+
+    from osqp_solver_tpu.ops import session_lane as jsess
+    from osqp_solver_tpu_torch.ops import admm as tadmm
+    from osqp_solver_tpu_torch.ops import session_lane as tsess
+
+    bp = cs.block_p_batch(batch, "cpu")
+    jqp = jax_lane(bp)
+    T = cs.BLOCK_FLEET_TICKS
+    t = np.arange(T, dtype=np.float32)[:, None, None]
+    j = np.arange(cs.N, dtype=np.float32)[None, :, None]
+    deltas = (2e-4 * np.sin(0.3 * t + j)).astype(np.float32)
+
+    def jshift(base, d):
+        return base.replace(pos_l=base.pos_l.at[cs.GOAL].add(d),
+                            pos_u=base.pos_u.at[cs.GOAL].add(d))
+
+    def tshift(base, d):
+        pos_l, pos_u = base.pos_l.clone(), base.pos_u.clone()
+        pos_l[cs.GOAL] += d
+        pos_u[cs.GOAL] += d
+        return base.replace(pos_l=pos_l, pos_u=pos_u)
+
+    def stats(name, pkg, st, it, ct):
+        st, it = np.asarray(st), np.asarray(it)
+        print(json.dumps({
+            "config": f"mpc_fleet_block_p_{name}", "package": pkg,
+            "batch": batch, "ticks": T, "optimal": int((st == 0).sum()),
+            "total": int(st.size),
+            "statuses": {str(k): v for k, v in sorted(collections.Counter(
+                st.reshape(-1).tolist()).items())},
+            "tick0_p50": int(np.sort(it[0])[(batch - 1) // 2]),
+            "tick0_max": int(it[0].max()),
+            "warm_p50": int(np.sort(it[1:].reshape(-1))[
+                (it[1:].size - 1) // 2]),
+            "warm_max": int(it[1:].max()), "ct": ct}), flush=True)
+
+    for name, over in (("stock", cs.FLEET), ("block_fleet", cs.BLOCK_FLEET)):
+        sj = dataclasses.replace(admm.Settings(), **over, fused_chunk="off")
+        _, (st, it) = jax.jit(lambda q, d: jsess.mpc_scan_lane(
+            jsess.setup_lane(q, sj), d, jshift, sj))(jqp, jnp.asarray(deltas))
+        stats(name, "jax", st, it, sj.check_termination)
+        stt = dataclasses.replace(tadmm.Settings(), **over)
+        _, (st, it) = tsess.mpc_scan_lane(
+            tsess.setup_lane(bp, stt, device="cpu"), torch.from_numpy(deltas),
+            tshift, stt)
+        stats(name, "port_cpu", st.numpy(), it.numpy(), stt.check_termination)
+
+
+def examples():
+    """The statuses and horizons the JAX package's examples reach at their
+    default flags in float32 on the CPU, beside which ``chip_smoke.py``'s
+    ``examples`` phase records the port's on the card: the fleet planning
+    example (8 queries, W_max=30, its sphere), the grasp example (8 grasps,
+    W_max=30) and the DH example (the iiwa14, W_max=16, 3 segments)."""
+    import time
+
+    from osqp_solver_tpu import GOMPSolver, SphereObstacle
+    from osqp_solver_tpu import constraints as C
+    from osqp_solver_tpu.models import dh_robot, ur5e
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]
+                           / "examples"))
+    import grasp_example
+
+    INF, N = 1e30, 6
+    balls = [ur5e.make_ball("back6", 0.15),
+             ur5e.make_ball("tool", 0.05, is_gripper=True)]
+    common = dict(
+        time_step=0.1,
+        settings=dataclasses.replace(admm.Settings(), rho=0.04,
+                                     check_termination=3, scaling=3,
+                                     max_iter=300),
+        pos_con=C.in_range(N, -2 * np.pi, 2 * np.pi),
+        vel_con=C.in_range(N, -np.pi, np.pi),
+        acc_con=C.in_range(N, -800 * np.pi / 180, 800 * np.pi / 180),
+        con_3d=C.Constraint(lower=np.array([-INF, -0.4, -INF]),
+                            upper=np.full(3, INF)),
+        balls=balls, segments=10, dtype=jnp.float32)
+
+    def batch_record(name, solver, starts, ends, t0):
+        st, _, hz, rounds, iters = solver.run_batch_padded(
+            starts.astype(np.float32), ends.astype(np.float32))
+        print(json.dumps({
+            "config": f"examples_{name}",
+            "statuses": cs.encode_statuses(np.asarray(st)),
+            "horizons": [int(h) for h in np.asarray(hz)],
+            "scp_rounds": [int(r) for r in np.asarray(rounds)],
+            "admm_iters": [int(i) for i in np.asarray(iters)],
+            "wall_s": round(time.time() - t0, 1)}), flush=True)
+
+    # fleet_planning_example.py at its defaults
+    t0 = time.time()
+    rng = np.random.default_rng(0)
+    starts = 0.02 * rng.standard_normal((8, N))
+    end0 = np.zeros(N)
+    end0[0] = np.pi
+    ends = end0[None] + 0.02 * rng.standard_normal((8, N))
+    sphere = SphereObstacle.create([0.0, -0.28, -0.55], radius=0.12)
+    batch_record("fleet_planning", GOMPSolver(
+        max_waypoints=30, obstacles=[sphere], **common), starts, ends, t0)
+
+    # grasp_example.py at its defaults: the analytic IK's joint targets
+    t0 = time.time()
+    grasps = grasp_example.make_grasps(8, np.random.default_rng(7))
+    q_ends = []
+    for p, R in grasps:
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = R, p
+        sols, valid = ur5e.inverse_kinematics(jnp.asarray(T, jnp.float32))
+        sols = ur5e.wrap_to_pi(sols)
+        d2 = jnp.where(valid, jnp.sum(sols ** 2, axis=1), jnp.inf)
+        q_ends.append(np.asarray(sols[int(jnp.argmin(d2))]))
+    batch_record("grasp", GOMPSolver(max_waypoints=30, obstacles=[],
+                                     gripper_ik=ur5e.inverse_kinematics_position,
+                                     **common),
+                 np.zeros((8, N)), np.stack(q_ends), t0)
+
+    # dh_robot_example.py at its defaults, in float32
+    t0 = time.time()
+    robot = dh_robot.IIWA14
+    n = robot.n_joints
+    goal = robot.point_fk(jnp.full((n,), 0.5, jnp.float32))
+    q_end, ok = robot.position_ik(goal, q0=jnp.full((n,), 0.3, jnp.float32))
+    solver = GOMPSolver(
+        max_waypoints=16, time_step=0.1,
+        pos_con=C.in_range(n, -3.0, 3.0),
+        vel_con=C.in_range(n, -np.pi, np.pi),
+        acc_con=C.in_range(n, -4 * np.pi, 4 * np.pi),
+        con_3d=C.in_range(3, [-C.INF, -0.4, -C.INF], C.INF), obstacles=[],
+        balls=[robot.make_ball(link=n - 1, radius=0.12),
+               robot.make_ball(radius=0.05, is_gripper=True)],
+        segments=3, dtype=jnp.float32)
+    res = solver.run(np.zeros(n), np.asarray(q_end))
+    won = [s.waypoints for s in res.stats if s.status == 0]
+    print(json.dumps({
+        "config": "examples_dh_robot", "ik_converged": bool(ok),
+        "status": res.status.name, "horizon": min(won) if won else 0,
+        "stats": [[int(v) for v in s] for s in res.stats],
+        "wall_s": round(time.time() - t0, 1)}), flush=True)
+
+
 def main():
     want = set(sys.argv[1:]) or {"dense", "dense_session",
                                  "trajectory_config1",
                                  "trajectory_config4b", "solve_block_p",
                                  "solve_w3", "planner_run", "solve_anderson",
                                  "solve_polish", "planner_long",
-                                 "planner_dh"}
+                                 "planner_dh", "examples",
+                                 "mpc_fleet_block_p"}
     settings = admm.Settings()
     if "solve_anderson" in want:
         solve_anderson(settings)
@@ -243,6 +397,10 @@ def main():
         planner_long()
     if "planner_dh" in want:
         planner_dh()
+    if "examples" in want:
+        examples()
+    if "mpc_fleet_block_p" in want:
+        mpc_fleet_block_p()
     if "planner_run" in want:
         planner_run()
     if "solve_w3" in want:
