@@ -114,7 +114,22 @@ drives the port's entry points:
   (``builder_dense``).  The kernel table's launch counts are this path's
   where it launches a kernel, else the earlier phases' (``planner_dh``'s
   first; ``launches_by_path`` gives every path's; each row's ``wide``
-  gives its times above 16 joints).
+  gives its times above 16 joints);
+* ``parallel/``, this slice's main path: ``benchmarks/long_horizon.py``'s
+  QP (W=10,000, N=6, box rows, ``check_termination=25``) through
+  ``ops/admm.solve`` on the plain ``TrajectoryQP`` (the tridiagonal kernels
+  at batch 1, W=10,000) and on ``as_chunked(qp)`` (62 chunks: the interiors
+  as the kernels' batch), both kOptimal, iterations beside the JAX f32 CPU
+  run's, the kernels at W=10,000 held to float64 on the host and timed
+  beside the split's pieces (``horizon_long``); the sharded entry points
+  (``solve_batch_sharded`` on ``dense``'s batch, ``solve_horizon_sharded``
+  on that QP with 62 local chunks, ``run_batch_padded_sharded`` on
+  ``planner_full``'s queries) in a world of one rank over NCCL, held to the
+  one-process calls (``parallel_one``), and in two ranks spawned on the one
+  card over gloo (``--rank-worker``; the horizon as 2 ranks x 31 chunks,
+  collective payloads the same at W=5,000 and 10,000), held to
+  ``parallel_one``'s (``parallel_ranks``).  The tridiagonal, dense and lane
+  rows' launches are this path's where it launches them.
 
 It checks statuses, ADMM iteration counts, OSQP's residual criterion
 recomputed in float64 on the host, and that every kernel was really launched
@@ -215,7 +230,7 @@ PHASES = ("build,kernels,solve,solve_unfused_term,solve_stock,box,solve_w3,"
           "solve_block_p,solve_block_p_declared,mpc_fleet_block_p,"
           "planner_run,planner_batch,lane_sizes,solve_refine,planner_long,"
           "solve_polish,solve_anderson,lane_wide,dh_arms,planner_dh,"
-          "examples,builder_dense")
+          "examples,builder_dense,horizon_long,parallel_one,parallel_ranks")
 # The block-P fleet: fewer ticks than the vel-diag fleets, for time, at the
 # settings the block-P batch is solved at (BENCH) without the warm-up chunk:
 # at the fleet benchmark's stock ones (scaling 10, rho 0.05) its cold ticks
@@ -458,6 +473,21 @@ def trajectory_config1(device):
         (full(-10.0), full(10.0)), (full(-1.0), full(1.0)),
         (full(-2.0), full(2.0)))
     return qp.map_arrays(lambda a: a.float())
+
+
+# benchmarks/long_horizon.py: ONE W=10,000, N=6 box-only trajectory QP,
+# float32, Settings(check_termination=25); the chunked form at auto_chunks.
+HORIZON_W, HORIZON_SETTINGS = 10000, dict(check_termination=25)
+
+
+def long_horizon_qp(device, waypoints=HORIZON_W):
+    """``benchmarks/long_horizon.py``'s problem (start 0, end 1; position
+    ±10, velocity ±1, acceleration ±2), built in float64 and rounded to
+    float32."""
+    from osqp_solver_tpu_torch.parallel.multihost import build_horizon_problem
+
+    qp = build_horizon_problem(waypoints, N, torch.float64, "cpu")
+    return qp.map_arrays(lambda a: a.float().to(device))
 
 
 def trajectory_config4b(device):
@@ -5497,6 +5527,464 @@ def phase_builder_dense():
     return {k: counts[k] for k in ("dense_factor", "dense_solve")}
 
 
+# ------------------------------------------------------------- parallel/
+# This slice's main path: the horizon split of one long trajectory QP on the
+# card, and the sharded entry points over torch.distributed.
+
+# The JAX package's float32 CPU run of horizon_long's problem
+# (tools/jax_reference_counts.py long_horizon): iterations, both kOptimal.
+HORIZON_REF = dict(sequential=25, chunked=25)
+# x of the sequential and the chunked solve (and of the sharded solves
+# against the chunked one), max abs: the two KKT backends round differently
+# in float32 and both solutions sit in OSQP's 1e-3 tolerance class (the
+# reference's own multi-process check takes 2e-3 for the same comparison).
+HORIZON_X_TOL = 2e-3
+# The tridiagonal kernels at W=10,000, B=1 against the plain version in
+# float64 on the host, on the same float32 inputs: max abs error over
+# max |f64| (the factor as every tridiag row holds it; the solve over a
+# 10,000-step chain of the KKT at its first rho).
+TOL_HORIZON_FACTOR, TOL_HORIZON_SOLVE = TOL_TRIDIAG, 1e-3
+# Dense batch and planner: the sharded call against the one-process call on
+# the same device (max abs over x / trajectories).
+PAR_X_TOL = 1e-5
+
+
+def long_kernel_checks(qp, settings):
+    """The tridiagonal factor and solve alone at W=10,000, B=1 (the KKT of
+    the problem at its first rho) against the plain version in float64 on
+    the host, their plans, and their times beside the Schur split's pieces
+    (K interiors as the batch, the interface columns, the reduced system)."""
+    from osqp_solver_tpu_torch.ops.tridiag import (block_tridiag_factor,
+                                                   block_tridiag_solve)
+    from osqp_solver_tpu_torch.parallel import schur
+
+    q1 = qp.map_arrays(lambda a: a.unsqueeze(-1))
+    rho = _rho_vec(torch.full((1,), settings.rho, device="cuda"), q1.l, q1.u)
+    diag, lower = q1.kkt_blocks(rho, settings.sigma)
+    rhs = torch.randn(diag.shape[0], 2 * N, 1, device="cuda")
+    chol, gain = tridiag_kernel.factor_lane_major(diag, lower)
+    x = tridiag_kernel.solve_lane_major(chol, gain, rhs)
+    f64 = block_tridiag_factor(diag.double().cpu(), lower.double().cpu())
+    x64 = block_tridiag_solve(f64, rhs.double().cpu())
+    ferr = max(rel_err(chol.double().cpu(), f64.chol)[1],
+               rel_err(gain.double().cpu(), f64.gain)[1])
+    serr = rel_err(x.double().cpu(), x64)
+    lib = tridiag_kernel._lib(2 * N)
+    Wd = diag.shape[0]
+    B2 = 2 * N
+    sf = schur.schur_factor(diag, lower, HORIZON_K)
+    Wl, K = sf.chunks.Di.shape[0], sf.chunks.Di.shape[3]
+    ic, ig = sf.interior.chol.flatten(3), sf.interior.gain.flatten(3)
+    irhs = torch.randn(Wl, B2, K, device="cuda")
+    cols = 2 * B2 * K
+    cc = ic.unsqueeze(-1).expand(Wl, B2, B2, K, 2 * B2).reshape(
+        Wl, B2, B2, cols)
+    cg_ = ig.unsqueeze(-1).expand(Wl - 1, B2, B2, K, 2 * B2).reshape(
+        Wl - 1, B2, B2, cols)
+    crhs = torch.randn(Wl, B2, cols, device="cuda")
+    Di = sf.chunks.Di.flatten(3).contiguous()
+    Li = sf.chunks.Li.flatten(3).contiguous()
+    fb = 4  # float32
+
+    def bound(W_, B_, solve):
+        """Bytes each input read once and each output written once."""
+        if solve:
+            b = (W_ * B2 * B2 + (W_ - 1) * B2 * B2 + 2 * W_ * B2) * B_ * fb
+        else:
+            b = 2 * (W_ * B2 * B2 + (W_ - 1) * B2 * B2) * B_ * fb
+        return b / HBM_BYTES_PER_S * 1e3
+
+    times = {
+        "factor_W10000_B1": dict(
+            ms=time_ms(lambda: tridiag_kernel.factor_lane_major(diag, lower)),
+            bound_ms=bound(Wd, 1, False), W=Wd, B=1),
+        "solve_W10000_B1": dict(
+            ms=time_ms(lambda: tridiag_kernel.solve_lane_major(chol, gain,
+                                                               rhs)),
+            bound_ms=bound(Wd, 1, True), W=Wd, B=1),
+        "schur_interiors_factor": dict(
+            ms=time_ms(lambda: tridiag_kernel.factor_lane_major(Di, Li)),
+            bound_ms=bound(Wl, K, False), W=Wl, B=K),
+        "schur_interiors_solve": dict(
+            ms=time_ms(lambda: tridiag_kernel.solve_lane_major(ic, ig, irhs)),
+            bound_ms=bound(Wl, K, True), W=Wl, B=K),
+        "schur_interface_columns_solve": dict(
+            ms=time_ms(lambda: tridiag_kernel.solve_lane_major(cc, cg_, crhs)),
+            bound_ms=bound(Wl, cols, True), W=Wl, B=cols,
+            factor_copy_bytes=(Wl * B2 * B2 + (Wl - 1) * B2 * B2)
+            * cols * fb),  # the tiled factor, written once per factor
+        "schur_factor_whole": dict(
+            ms=time_ms(lambda: schur.schur_factor(diag, lower, K))),
+        "schur_solve_whole": dict(
+            ms=time_ms(lambda: schur.schur_solve_cached(sf, rhs))),
+        "sequential_solve_whole": dict(
+            ms=time_ms(lambda: tridiag_kernel.solve_lane_major(chol, gain,
+                                                               rhs))),
+    }
+    return dict(
+        factor_rel_err=ferr, solve_rel_err=serr[1], solve_abs_err=serr[0],
+        finite=bool(torch.isfinite(chol).all() and torch.isfinite(x).all()),
+        solve_plan=tridiag_kernel.plan(lib, Wd, 1),
+        factor_plan=tridiag_kernel.factor_plan(lib, 1),
+        interiors_solve_plan=tridiag_kernel.plan(lib, Wl, K),
+        columns_solve_plan=tridiag_kernel.plan(lib, Wl, cols),
+        times=times, chunks=K, interior_waypoints=Wl)
+
+
+HORIZON_K = 62  # auto_chunks(10,000)
+
+
+def phase_horizon_long():
+    """``benchmarks/long_horizon.py``'s problem through ``ops/admm.solve``:
+    the plain ``TrajectoryQP`` (the tridiagonal kernels at batch 1, W=10,000)
+    and ``as_chunked(qp)`` at ``auto_chunks`` (the K interiors as the
+    kernels' batch).  Returns the record, the launches of both solves
+    together, and the two results."""
+    from osqp_solver_tpu_torch.parallel.horizon import as_chunked, auto_chunks
+
+    settings = dataclasses.replace(Settings(), **HORIZON_SETTINGS)
+    qp = long_horizon_qp("cuda")
+    K = auto_chunks(HORIZON_W)
+    if K != HORIZON_K:
+        fail(f"horizon_long: auto_chunks({HORIZON_W}) = {K}, "
+             f"not {HORIZON_K}")
+    chunked = as_chunked(qp)
+    runs, ms = {}, {}
+    with PlainCalls() as plain:
+        for name, p in (("sequential", qp), ("chunked", chunked)):
+            reset_counts()
+            s0, r0 = gadmm.HOST_SYNCS, gadmm.RHO_REFACTORS
+            res = gadmm.solve(p, settings)  # the main path, once each
+            counts, syncs, refactors = generic_counts(s0, r0)
+            runs[name] = dict(res=res, counts=counts, syncs=syncs,
+                              refactors=refactors)
+        for name, p in (("sequential", qp), ("chunked", chunked)):
+            ms[name] = statistics.median(
+                host_ms(lambda: gadmm.solve(p, settings)) for _ in range(3))
+        kern = long_kernel_checks(qp, settings)
+    seq, ch = runs["sequential"], runs["chunked"]
+    err = (seq["res"].x - ch["res"].x).abs().max().item()
+    rec = dict(
+        waypoints=HORIZON_W, n_dim=N, chunks=K, settings=HORIZON_SETTINGS,
+        runs={k: dict(status=int(v["res"].status),
+                      iterations=int(v["res"].iterations),
+                      launches=v["counts"], host_syncs=v["syncs"],
+                      rho_refactors=v["refactors"])
+              for k, v in runs.items()},
+        jax_f32_iterations=HORIZON_REF, x_max_abs_diff=err,
+        x_tol=HORIZON_X_TOL, ms_per_solve=ms, plain_calls=dict(plain.calls),
+        kernels=kern)
+    emit("horizon_long", **rec)
+    for k, v in runs.items():
+        r = v["res"]
+        if int(r.status) != int(ExitCode.kOptimal):
+            fail(f"horizon_long: {k} solve status {int(r.status)}")
+        if not bool(torch.isfinite(r.x).all()) or list(r.x.shape) != [
+                2 * HORIZON_W * N]:
+            fail(f"horizon_long: {k} x not finite or of the wrong shape")
+        c = v["counts"]
+        if c["tridiag_factor"] < 1 or c["tridiag_solve"] < 1:
+            fail(f"horizon_long: {k} did not launch the tridiagonal kernels: "
+                 f"{c}")
+    if sum(plain.calls.values()):
+        fail(f"horizon_long: plain versions ran on the card: {plain.calls}")
+    if err > HORIZON_X_TOL:
+        fail(f"horizon_long: sequential and chunked x differ by {err:.2e}")
+    it_seq = int(seq["res"].iterations)
+    it_ch = int(ch["res"].iterations)
+    # launches: one factor (two: interiors + reduced) per factorisation; one
+    # solve (two) per iteration, the chunked factor one more (the columns)
+    f_seq, f_ch = 1 + seq["refactors"], 1 + ch["refactors"]
+    want = {"sequential": (f_seq, it_seq), "chunked": (2 * f_ch,
+                                                       f_ch + 2 * it_ch)}
+    got = {k: (v["counts"]["tridiag_factor"], v["counts"]["tridiag_solve"])
+           for k, v in runs.items()}
+    if got != want:
+        fail(f"horizon_long: launches {got}, expected {want}")
+    if not kern["finite"] or kern["factor_rel_err"] > TOL_HORIZON_FACTOR or \
+            kern["solve_rel_err"] > TOL_HORIZON_SOLVE:
+        fail(f"horizon_long: the tridiagonal kernels at W={HORIZON_W}, B=1: "
+             f"factor {kern['factor_rel_err']:.2e}, solve "
+             f"{kern['solve_rel_err']:.2e}")
+    total = {k: seq["counts"][k] + ch["counts"][k] for k in seq["counts"]}
+    return rec, total, {k: v["res"] for k, v in runs.items()}
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_calls(mesh_b, mesh_h, local_chunks, want_payload=False):
+    """The three sharded entry points of this slice on the card: the dense
+    batch (config 2's, 1024 QPs at n=64), the long horizon split over the
+    horizon axis with ``local_chunks`` per rank, and ``planner_full``'s
+    full search.  Returns the results, the launches, the plain calls, the
+    collective counts and the host times."""
+    from osqp_solver_tpu_torch.parallel import (_comm, solve_batch_sharded,
+                                                solve_horizon_sharded)
+
+    long_s = dataclasses.replace(Settings(), **HORIZON_SETTINGS)
+    qps = convert.dense_qp_from_numpy(*dense_problems(BATCH), device="cuda")
+    qp = long_horizon_qp("cuda")
+    solver = ur5e_solver(50, [])
+    starts, ends = fleet_queries(BATCH, np.random.default_rng(0))
+    out, comm, ms = {}, {}, {}
+    with PlainCallsDense() as plain:
+        reset_counts()
+        _comm.reset()
+        t0 = time.perf_counter()
+        out["dense"] = solve_batch_sharded(qps, mesh_b, Settings())
+        torch.cuda.synchronize()
+        ms["dense"] = (time.perf_counter() - t0) * 1e3
+        comm["dense"] = _comm.counts()
+        _comm.reset()
+        t0 = time.perf_counter()
+        out["horizon"] = solve_horizon_sharded(qp, mesh_h, long_s,
+                                               local_chunks=local_chunks)
+        torch.cuda.synchronize()
+        ms["horizon"] = (time.perf_counter() - t0) * 1e3
+        comm["horizon"] = _comm.counts()
+        _comm.reset()
+        t0 = time.perf_counter()
+        out["planner"] = solver.run_batch_padded_sharded(starts, ends, mesh_b)
+        torch.cuda.synchronize()
+        ms["planner"] = (time.perf_counter() - t0) * 1e3
+        comm["planner"] = _comm.counts()
+        counts = read_counts()
+        if want_payload:  # the per-call payloads at half the horizon
+            _comm.reset()
+            half = solve_horizon_sharded(
+                long_horizon_qp("cuda", HORIZON_W // 2), mesh_h, long_s,
+                local_chunks=local_chunks)
+            comm["horizon_half"] = _comm.counts()
+            out["horizon_half_iterations"] = int(half.iterations)
+    return out, counts, dict(plain.calls), comm, ms
+
+
+def _payload(c):
+    return {k: v["sizes"] for k, v in c.items() if k != "gather_result"}
+
+
+def phase_parallel_one(long_results):
+    """A world of one rank over NCCL on the card: the three sharded calls
+    against the one-process ones (``solve_batched``, ``horizon_long``'s
+    chunked solve, ``run_batch_padded``)."""
+    import torch.distributed as dist
+
+    from osqp_solver_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(batch=1, horizon=1)
+        out, counts, plain, comm, ms = parallel_calls(mesh, mesh, HORIZON_K)
+    finally:
+        dist.destroy_process_group()
+    ref_d = gadmm.solve_batched(convert.dense_qp_from_numpy(
+        *dense_problems(BATCH), device="cuda"), Settings())
+    solver = ur5e_solver(50, [])
+    starts, ends = fleet_queries(BATCH, np.random.default_rng(0))
+    ref_p = solver.run_batch_padded(starts, ends)
+    ref_h = long_results["chunked"]
+    cmp = compare_parallel(out, ref_d, ref_h, ref_p)
+    rec = dict(world=1, backend="nccl", launches=counts, plain_calls=plain,
+               collectives=comm, ms_per_call=ms, **cmp)
+    emit("parallel_one", **rec)
+    check_parallel("parallel_one", rec, counts, plain, strict_iters=True)
+    return counts, out
+
+
+def compare_parallel(out, ref_d, ref_h, ref_p):
+    d, h, p = out["dense"], out["horizon"], out["planner"]
+    return dict(
+        dense=dict(
+            optimal=int((d.status == 0).sum()),
+            statuses_equal=bool(torch.equal(d.status, ref_d.status)),
+            iterations_differ=int((d.iterations != ref_d.iterations).sum()),
+            x_max_abs_diff=(d.x - ref_d.x).abs().max().item()),
+        horizon=dict(
+            status=int(h.status), iterations=int(h.iterations),
+            ref_status=int(ref_h.status), ref_iterations=int(ref_h.iterations),
+            x_max_abs_diff=(h.x - ref_h.x).abs().max().item()),
+        planner=dict(
+            optimal=int((p[0] == 0).sum()),
+            statuses_equal=bool(torch.equal(p[0], ref_p[0])),
+            horizons_equal=bool(torch.equal(p[2], ref_p[2])),
+            scp_rounds_differ=int((p[3] != ref_p[3]).sum()),
+            admm_iters_differ=int((p[4] != ref_p[4]).sum()),
+            trajectory_max_abs_diff=(p[1] - ref_p[1]).abs().max().item()))
+
+
+def check_parallel(name, rec, counts, plain, strict_iters):
+    d, h, p = rec["dense"], rec["horizon"], rec["planner"]
+    if sum(plain.values()):
+        fail(f"{name}: plain versions ran on the card: {plain}")
+    need = ("dense_factor", "dense_solve", "tridiag_factor",
+            "tridiag_solve") + LANE_KERNELS
+    if min(counts[k] for k in need) < 1:
+        fail(f"{name}: a kernel of the path was never launched: {counts}")
+    if d["optimal"] != BATCH or not d["statuses_equal"]:
+        fail(f"{name}: dense {d}")
+    if h["status"] != 0 or h["status"] != h["ref_status"] or \
+            h["x_max_abs_diff"] > HORIZON_X_TOL:
+        fail(f"{name}: horizon {h}")
+    if not (p["statuses_equal"] and p["horizons_equal"]):
+        fail(f"{name}: planner {p}")
+    if strict_iters and (d["iterations_differ"] or p["admm_iters_differ"]
+                         or p["scp_rounds_differ"]
+                         or h["iterations"] != h["ref_iterations"]):
+        fail(f"{name}: iteration counts differ: {d} {h} {p}")
+    if strict_iters and (d["x_max_abs_diff"] > PAR_X_TOL
+                         or p["trajectory_max_abs_diff"] > PAR_X_TOL):
+        fail(f"{name}: solutions differ: {d} {p}")
+
+
+PAR_RANKS, PAR_LOCAL_CHUNKS = 2, 31
+
+
+def rank_worker(rank, world, master, out_dir):
+    """One rank of ``parallel_ranks`` (``chip_smoke.py --rank-worker``):
+    gloo on the one GPU; first the one-process calls on this rank's own
+    slice of the dense batch and of the queries (they also warm the
+    process), then the three sharded calls; results to ``out_dir``."""
+    import torch.distributed as dist
+
+    from osqp_solver_tpu_torch.parallel import make_mesh, multihost
+    from osqp_solver_tpu_torch.parallel.mesh import batch_slice
+
+    backend = multihost.initialize(master, world, rank, "cuda", timeout_s=240)
+    try:
+        mesh_b = make_mesh(batch=world, horizon=1)
+        mesh_h = make_mesh(batch=1, horizon=world)
+        sl = batch_slice(BATCH, mesh_b)
+        own_d = gadmm.solve_batched(convert.dense_qp_from_numpy(
+            *(a[sl] for a in dense_problems(BATCH)), device="cuda"),
+            Settings())
+        starts, ends = fleet_queries(BATCH, np.random.default_rng(0))
+        own_p = ur5e_solver(50, []).run_batch_padded(starts[sl], ends[sl])
+        out, counts, plain, comm, ms = parallel_calls(
+            mesh_b, mesh_h, PAR_LOCAL_CHUNKS, want_payload=True)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    d, h, p = out["dense"], out["horizon"], out["planner"]
+    # the sharded calls against the one-process calls on the same slice
+    slice_equal = dict(
+        dense=all(torch.equal(getattr(d, f)[sl], getattr(own_d, f))
+                  for f in ("x", "status", "iterations")),
+        planner=all(torch.equal(a[sl], b) for a, b in zip(p, own_p)))
+    np.savez(Path(out_dir) / f"rank{rank}.npz",
+             dense_x=d.x.cpu().numpy(), dense_status=d.status.cpu().numpy(),
+             dense_iters=d.iterations.cpu().numpy(),
+             horizon_x=h.x.cpu().numpy(),
+             **{f"planner_{i}": a.cpu().numpy() for i, a in enumerate(p)})
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(dict(
+        rank=rank, world=world, backend=backend, launches=counts,
+        plain_calls=plain, collectives=comm, ms_per_call=ms,
+        horizon_status=int(h.status), horizon_iterations=int(h.iterations),
+        horizon_half_iterations=out["horizon_half_iterations"],
+        slice_equal=slice_equal,
+        payload_same_at_half=_payload(comm["horizon"]) == _payload(
+            comm["horizon_half"]))))
+
+
+def phase_parallel_ranks(ref):
+    """Two ranks spawned as processes on the one H100 over gloo: the same
+    three calls (the horizon split into 2 ranks x 31 local chunks), each
+    rank's results held to ``parallel_one``'s (``ref``)."""
+    import tempfile
+
+    master = f"127.0.0.1:{_free_port()}"
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--rank-worker",
+             str(r), "--world-size", str(PAR_RANKS), "--master", master,
+             "--worker-dir", tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(PAR_RANKS)]
+        logs = []
+        try:
+            for pr in procs:
+                logs.append(pr.communicate(timeout=300)[0])
+        except subprocess.TimeoutExpired:
+            for pr in procs:
+                pr.kill()
+            fail("parallel_ranks: a rank did not finish in 300 s")
+        for r, pr in enumerate(procs):
+            if pr.returncode != 0:
+                fail(f"parallel_ranks: rank {r} exited {pr.returncode}:\n"
+                     f"{logs[r][-3000:]}")
+        ranks = []
+        for r in range(PAR_RANKS):
+            js = json.loads((Path(tmp) / f"rank{r}.json").read_text())
+            arr = dict(np.load(Path(tmp) / f"rank{r}.npz"))
+            ranks.append((js, arr))
+    rd, rh, rp = ref["dense"], ref["horizon"], ref["planner"]
+    per_rank = []
+    for js, arr in ranks:
+        st = torch.from_numpy(arr["dense_status"])
+        it = torch.from_numpy(arr["dense_iters"])
+        pst = torch.from_numpy(arr["planner_0"])
+        cmp = dict(
+            rank=js["rank"],
+            dense_statuses_equal=bool(torch.equal(st, rd.status.cpu())),
+            dense_iterations_differ=[int(i) for i in torch.nonzero(
+                it != rd.iterations.cpu()).flatten()],
+            dense_x_max_abs_diff=float(np.abs(
+                arr["dense_x"] - rd.x.cpu().numpy()).max()),
+            horizon_status=js["horizon_status"],
+            horizon_iterations=js["horizon_iterations"],
+            one_horizon_iterations=int(rh.iterations),
+            horizon_x_max_abs_diff=float(np.abs(
+                arr["horizon_x"] - rh.x.cpu().numpy()).max()),
+            planner_statuses_equal=bool(torch.equal(pst, rp[0].cpu())),
+            planner_horizons_differ=[int(i) for i in np.nonzero(
+                arr["planner_2"] != rp[2].cpu().numpy())[0]],
+            planner_admm_iters_differ=[int(i) for i in np.nonzero(
+                arr["planner_4"] != rp[4].cpu().numpy())[0]],
+            planner_trajectory_max_abs_diff=float(np.abs(
+                arr["planner_1"] - rp[1].cpu().numpy()).max()),
+            payload_same_at_half=js["payload_same_at_half"],
+            slice_equal=js["slice_equal"],
+            horizon_half_iterations=js["horizon_half_iterations"],
+            launches=js["launches"], plain_calls=js["plain_calls"],
+            collectives=js["collectives"], ms_per_call=js["ms_per_call"],
+            backend=js["backend"])
+        per_rank.append(cmp)
+    emit("parallel_ranks", ranks=PAR_RANKS,
+         local_chunks=PAR_LOCAL_CHUNKS, per_rank=per_rank)
+    for c in per_rank:
+        if c["backend"] != "gloo":
+            fail(f"parallel_ranks: rank {c['rank']} ran {c['backend']}")
+        if sum(c["plain_calls"].values()):
+            fail(f"parallel_ranks: plain versions ran on the card: {c}")
+        need = ("dense_factor", "dense_solve", "tridiag_factor",
+                "tridiag_solve") + LANE_KERNELS
+        if min(c["launches"][k] for k in need) < 1:
+            fail(f"parallel_ranks: rank {c['rank']} launched no time a "
+                 f"kernel of the path: {c['launches']}")
+        if not (c["dense_statuses_equal"] and c["planner_statuses_equal"]
+                and c["horizon_status"] == 0):
+            fail(f"parallel_ranks: statuses differ: {c}")
+        # A rank's half batch launches the kernels with other plans than the
+        # whole batch (the Ruiz kernel's runs, torch's reductions over the
+        # batch), so its float32 rounding differs and iteration counts and
+        # horizons may move (printed above); the sharded path itself must
+        # equal the one-process calls on the same slice bit for bit.
+        if not all(c["slice_equal"].values()):
+            fail(f"parallel_ranks: rank {c['rank']}'s shard differs from the "
+                 f"one-process calls on its slice: {c['slice_equal']}")
+        if c["horizon_x_max_abs_diff"] > HORIZON_X_TOL:
+            fail(f"parallel_ranks: horizon x differs: {c}")
+        if not c["payload_same_at_half"]:
+            fail(f"parallel_ranks: a collective payload grows with W: {c}")
+    return per_rank
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="all",
@@ -5506,6 +5994,12 @@ def main():
                     help="root of an earlier checkout whose tridiagonal "
                          "factor and solve and residual kernels run beside "
                          "these")
+    ap.add_argument("--rank-worker", type=int, default=None,
+                    help=argparse.SUPPRESS)  # one rank of parallel_ranks
+    ap.add_argument("--world-size", type=int, default=PAR_RANKS,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--master", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--worker-dir", default=None, help=argparse.SUPPRESS)
     opts = ap.parse_args()
     global OUT, REF_TREE
     OUT, REF_TREE = opts.out, opts.ref_tree
@@ -5513,6 +6007,10 @@ def main():
         print("chip_smoke: no CUDA device: torch.cuda.is_available() is "
               "false", file=sys.stderr)
         sys.exit(2)
+    if opts.rank_worker is not None:
+        rank_worker(opts.rank_worker, opts.world_size, opts.master,
+                    opts.worker_dir)
+        return
     full = opts.phases == "all"
     want = set(PHASES.split(",")) if full else set(opts.phases.split(","))
     t_start = time.time()
@@ -5541,7 +6039,8 @@ def main():
         for nx in (5, 0, 3):  # honest; box; planner_full
             if nx == 5 or (nx == 0 and "box" in want) or (
                     nx == 3 and want & {"planner_full", "planner_batch",
-                                        "examples"}):
+                                        "examples", "parallel_one",
+                                        "parallel_ranks"}):
                 sigs += [{"NDIM": N, "NX": nx},
                          {"NDIM": N, "NX": nx, "BLOCK_P": 0}]
         sigs.append(dict(honest_sig, BLOCK_P=1))
@@ -5631,6 +6130,21 @@ def main():
     for path in ("examples", "builder_dense"):
         launches.update({k: v for k, v in by_path.get(path, {}).items()
                          if v})
+    # This slice's main path: the long horizon on the card, sequential and
+    # split (the tridiagonal rows' launches), and the sharded entry points
+    # in a world of one rank and of two ranks on the one card.
+    long_times, long_results = None, None
+    if want & {"horizon_long", "parallel_one", "parallel_ranks"}:
+        rec, by_path["horizon_long"], long_results = phase_horizon_long()
+        long_times = rec["kernels"]["times"]
+    par_out = None
+    if want & {"parallel_one", "parallel_ranks"}:
+        by_path["parallel_one"], par_out = phase_parallel_one(long_results)
+    if "parallel_ranks" in want:
+        phase_parallel_ranks(par_out)
+    for path in ("horizon_long", "parallel_one"):
+        launches.update({k: v for k, v in by_path.get(path, {}).items()
+                         if v})
     # The repair above 16 joints: each kernel's wide form, timed per size.
     wide = {}
     if "lane_wide" in want:
@@ -5678,6 +6192,10 @@ def main():
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             **({"sizes": k["sizes"]} if "sizes" in k else {}),
             **({"wide": wide[k["name"]]} if k["name"] in wide else {}),
+            # the W=10,000 batch-1 and Schur times (horizon_long)
+            **({"long_horizon": {key: t for key, t in long_times.items()
+                                 if k["name"].split("_")[1] in key}}
+               if long_times and k["name"] in TRIDIAG_KERNELS else {}),
             "launches_by_path": {p_: c.get(k["name"], 0)
                                  for p_, c in by_path.items()},
         })

@@ -39,10 +39,14 @@ Queries enter and results leave batch-LEADING (``starts (B, N)``,
 trajectories ``(B, 2·W·N)``) as in the reference; inside, everything is
 batch-trailing.
 
-Not ported yet: the ``_sharded`` variants (they need ``parallel/``).
+The ``_sharded`` variants split the query batch over a mesh axis of
+:mod:`osqp_solver_tpu_torch.parallel` (one process per slot): each rank runs
+the single-process program on its slice, with no collective inside the SCP
+loop, and one ``all_gather`` per output returns the whole batch.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -569,6 +573,44 @@ class GOMPSolver:
         obs, _ = self._obstacles_arg(obstacles, starts.shape[1])
         return self._plan_batch_lane_program(W, max_scp)(starts, ends, obs)
 
+    def _sharded(self, run, starts, ends, mesh, axis, obstacles):
+        """``run(starts, ends, obstacles)`` on this rank's contiguous slice
+        of the queries (per-query obstacles slice with them, constructor
+        obstacles are every rank's), then one ``all_gather`` per output
+        over the mesh axis: what the single-process call returns."""
+        from ..parallel import _comm
+        from ..parallel.mesh import BATCH_AXIS, batch_slice
+
+        axis = BATCH_AXIS if axis is None else axis
+        B = len(starts)
+        sl = batch_slice(B, mesh, axis)
+        if obstacles is not None:
+            self._obstacles_arg(obstacles, B)
+            obstacles = [dataclasses.replace(o, **{
+                k: v[..., sl] for k, v in obstacle_leaves(o).items()
+                if isinstance(v, torch.Tensor) and v.dim()})
+                for o in obstacles]
+        outs = run(self._tensor(starts)[sl], self._tensor(ends)[sl],
+                   obstacles)
+        group = mesh.get_group(axis)
+        return tuple(_comm.all_gather(o, group, "gather_result").reshape(
+            (-1,) + tuple(o.shape[1:])) for o in outs)
+
+    def run_batch_lane_sharded(
+        self, starts, ends, waypoints: int, mesh, axis: Optional[str] = None,
+        max_scp: Optional[int] = None, obstacles=None,
+    ):
+        """:meth:`run_batch_lane` split over ``mesh[axis]`` (the batch axis
+        by default): each rank plans its contiguous slice of the queries,
+        with no collective inside the SCP loop; one ``all_gather`` per
+        output at the end.  ``starts``/``ends`` (and per-query
+        ``obstacles``) are the whole batch on every rank, which must divide
+        by the axis size.  Returns exactly what :meth:`run_batch_lane`
+        returns, on every rank."""
+        return self._sharded(
+            lambda s, e, o: self.run_batch_lane(s, e, waypoints, max_scp, o),
+            starts, ends, mesh, axis, obstacles)
+
     def _plan_batch_lane_program(self, W: int, max_scp: int):
         """The batched fixed-horizon program behind :meth:`run_batch_lane`:
         takes batch-trailing ``(starts, ends, obstacles)``."""
@@ -675,6 +717,21 @@ class GOMPSolver:
         return self._plan_batch_padded_program(max_scp, bool(warm_duals))(
             starts, ends, obs
         )
+
+    def run_batch_padded_sharded(
+        self, starts, ends, mesh, axis: Optional[str] = None,
+        max_scp: Optional[int] = None, warm_duals: bool = False,
+        obstacles=None,
+    ):
+        """:meth:`run_batch_padded` — the full time-scaling search — split
+        over ``mesh[axis]`` as :meth:`run_batch_lane_sharded` splits its
+        batch: each rank runs the whole 10-segment descent for its slice,
+        no collective inside.  Returns exactly what :meth:`run_batch_padded`
+        returns, on every rank."""
+        return self._sharded(
+            lambda s, e, o: self.run_batch_padded(s, e, max_scp, warm_duals,
+                                                  o),
+            starts, ends, mesh, axis, obstacles)
 
     def _plan_batch_padded_program(self, max_scp: int, warm_duals: bool):
         """The full-search program behind :meth:`run_batch_padded`: takes

@@ -347,6 +347,41 @@ def _norm0(v):
     return _max0(v.abs(), 0.0)
 
 
+# --- collective-aware reductions -------------------------------------------
+# A container whose rows and state are split over processes (the
+# horizon-sharded ``parallel.banded.ShardedBandedQP``) carries a
+# ``process_group`` (the reference's ``collective_axis``); every scalar
+# reduction of the solve then combines over that group, one
+# ``all_reduce`` (MAX or SUM) a quantity, as the reference's ``pmax`` /
+# ``psum``.  ``all_reduce`` leaves the same value on every rank, so every
+# rank takes the same branch (terminate, adapt ρ, certificates) and the
+# next collective cannot hang.  Without a group nothing changes.
+
+
+def _g_reduce(qp, r, op: str):
+    group = getattr(qp, "process_group", None)
+    if group is None:
+        return r
+    from ..parallel import _comm
+
+    return _comm.all_reduce(r, op, group)
+
+
+def _g_inf_norm(qp, v):
+    """Global per-problem inf-norm over the row axis."""
+    return _g_reduce(qp, _norm0(v), "max")
+
+
+def _g_max(qp, v, empty: float):
+    """Global per-problem max of a (possibly signed) vector."""
+    return _g_reduce(qp, _max0(v, empty), "max")
+
+
+def _g_sum(qp, v):
+    """Global per-problem sum over the row axis."""
+    return _g_reduce(qp, v.sum(dim=0), "sum")
+
+
 def kkt_factor(qp, rho_vec, sigma, settings: Settings):
     """Backend-dispatching KKT "factorization": the container's Cholesky,
     or the (ρ, σ) snapshot of the matrix-free CG backend."""
@@ -450,12 +485,14 @@ def _termination_quantities(
     Px = scaled.P_matvec(st.x)
     ATy = scaled.AT_matvec(st.y)
 
-    prim_res = _norm0(Einv * (Ax - st.z))
-    dual_res = cinv * _norm0(Dinv * (Px + scaled.q + ATy))
-    prim_norm = torch.maximum(_norm0(Einv * Ax), _norm0(Einv * st.z))
+    prim_res = _g_inf_norm(scaled, Einv * (Ax - st.z))
+    dual_res = cinv * _g_inf_norm(scaled, Dinv * (Px + scaled.q + ATy))
+    prim_norm = torch.maximum(_g_inf_norm(scaled, Einv * Ax),
+                              _g_inf_norm(scaled, Einv * st.z))
     dual_norm = cinv * torch.maximum(
-        torch.maximum(_norm0(Dinv * Px), _norm0(Dinv * ATy)),
-        _norm0(Dinv * scaled.q),
+        torch.maximum(_g_inf_norm(scaled, Dinv * Px),
+                      _g_inf_norm(scaled, Dinv * ATy)),
+        _g_inf_norm(scaled, Dinv * scaled.q),
     )
 
     dy_u = cinv * scaling.E * st.dy
@@ -468,27 +505,31 @@ def _termination_quantities(
     inf = torch.full_like(dy_u, float("inf"))
     dy_pos = dy_u.clamp(min=0.0)
     dy_neg = dy_u.clamp(max=0.0)
-    support = (
+    support = _g_sum(
+        base,
         torch.where(loose_u, zero, base_u * dy_pos)
-        + torch.where(loose_l, zero, base_l * dy_neg)
-    ).sum(dim=0)
+        + torch.where(loose_l, zero, base_l * dy_neg),
+    )
     A_dx = base.A_matvec(dx_u)
     return TermQuantities(
         prim_res=prim_res,
         dual_res=dual_res,
         prim_norm=prim_norm,
         dual_norm=dual_norm,
-        norm_dy=_norm0(dy_u),
-        norm_dx=_norm0(dx_u),
-        At_dy_max=_norm0(base.AT_matvec(dy_u)),
+        norm_dy=_g_inf_norm(base, dy_u),
+        norm_dx=_g_inf_norm(base, dx_u),
+        At_dy_max=_g_inf_norm(base, base.AT_matvec(dy_u)),
         support=support,
-        loose_dy_pos_max=_max0(torch.where(loose_u, dy_pos, zero), 0.0),
-        loose_dy_neg_max=_max0(torch.where(loose_l, -dy_neg, zero), 0.0),
-        P_dx_max=_norm0(base.P_matvec(dx_u)),
-        A_dx_max=_max0(torch.where(loose_u, -inf, A_dx), -float("inf")),
-        A_dx_min=-_max0(torch.where(loose_l, -inf, -A_dx), -float("inf")),
-        q_dot_dx=(base.q * dx_u).sum(dim=0),
-        blew_up=~torch.isfinite(st.x.sum(dim=0) + st.y.sum(dim=0)),
+        loose_dy_pos_max=_g_max(base, torch.where(loose_u, dy_pos, zero), 0.0),
+        loose_dy_neg_max=_g_max(base, torch.where(loose_l, -dy_neg, zero),
+                                0.0),
+        P_dx_max=_g_inf_norm(base, base.P_matvec(dx_u)),
+        A_dx_max=_g_max(base, torch.where(loose_u, -inf, A_dx),
+                        -float("inf")),
+        A_dx_min=-_g_max(base, torch.where(loose_l, -inf, -A_dx),
+                         -float("inf")),
+        q_dot_dx=_g_sum(base, base.q * dx_u),
+        blew_up=~torch.isfinite(_g_sum(base, st.x) + _g_sum(base, st.y)),
     )
 
 
@@ -772,9 +813,10 @@ def polish(base, scaled, scaling: Scaling, st: ADMMState,
     z = torch.where(active, z_target, Ax)
 
     # Unscaled residuals of the polished iterate.
-    prim = _norm0(scaling.Einv * (Ax - z))
-    dual = scaling.cinv * _norm0(
-        scaling.Dinv * (scaled.P_matvec(x) + scaled.q + scaled.AT_matvec(y))
+    prim = _g_inf_norm(scaled, scaling.Einv * (Ax - z))
+    dual = scaling.cinv * _g_inf_norm(
+        scaled,
+        scaling.Dinv * (scaled.P_matvec(x) + scaled.q + scaled.AT_matvec(y)),
     )
     better = (prim <= st.prim_res) & (dual <= st.dual_res) & (
         st.status == int(ExitCode.kOptimal)
@@ -802,7 +844,7 @@ def finalize(base, scaling: Scaling, st: ADMMState) -> SolveResult:
         st.status,
         torch.full_like(st.status, int(ExitCode.kMaxIterations)),
     )
-    obj = 0.5 * (x * base.P_matvec(x)).sum(dim=0) + (base.q * x).sum(dim=0)
+    obj = 0.5 * _g_sum(base, x * base.P_matvec(x)) + _g_sum(base, base.q * x)
     return SolveResult(
         x=x.T.contiguous(),
         y=y.T.contiguous(),

@@ -2,7 +2,8 @@
 """Iteration counts of the JAX package on the problems of ``chip_smoke.py``
 (float32, CPU): the references its ``dense``, ``dense_session``,
 ``trajectory_generic``, ``solve_block_p``, ``solve_w3``, ``solve_anderson``,
-``planner_long`` and ``planner_dh`` phases hold the port to, the planner
+``planner_long`` and ``planner_dh`` phases hold the port to, the iteration
+counts ``horizon_long`` prints beside its own (``long_horizon``), the planner
 statistics its
 ``planner_run`` and ``examples`` phases print beside their own, the
 unpolished and polished statuses of ``solve_polish``'s batch, and the
@@ -111,6 +112,21 @@ def planner_run():
             stats=[[int(v) for v in st] for st in res.stats],
             wall_s=round(time.time() - t0, 1))
     print(json.dumps({"config": "planner_run", **out}), flush=True)
+
+
+def long_horizon():
+    """``chip_smoke.horizon_long``'s problem (``benchmarks/long_horizon.py``:
+    W=10,000, N=6, box rows, float32, ``check_termination=25``) through
+    ``admm.solve``, sequential and ``as_chunked`` at ``auto_chunks``."""
+    from osqp_solver_tpu.parallel.horizon import as_chunked, auto_chunks
+
+    qp = jax_trajectory(cs.long_horizon_qp("cpu"))
+    s = dataclasses.replace(admm.Settings(), **cs.HORIZON_SETTINGS)
+    for name, p in (("sequential", qp), ("chunked", as_chunked(qp))):
+        r = jax.jit(lambda q: admm.solve(q, s))(p)
+        summary(f"long_horizon_{name}", r.iterations, s.check_termination,
+                r.status, waypoints=qp.waypoints,
+                chunks=auto_chunks(qp.waypoints) if name == "chunked" else 1)
 
 
 def jax_lane(qp):
@@ -387,8 +403,10 @@ def main():
                                  "solve_w3", "planner_run", "solve_anderson",
                                  "solve_polish", "planner_long",
                                  "planner_dh", "examples",
-                                 "mpc_fleet_block_p"}
+                                 "mpc_fleet_block_p", "long_horizon"}
     settings = admm.Settings()
+    if "long_horizon" in want:
+        long_horizon()
     if "solve_anderson" in want:
         solve_anderson(settings)
     if "solve_polish" in want:
