@@ -42,7 +42,10 @@ batch-trailing.
 The ``_sharded`` variants split the query batch over a mesh axis of
 :mod:`osqp_solver_tpu_torch.parallel` (one process per slot): each rank runs
 the single-process program on its slice, with no collective inside the SCP
-loop, and one ``all_gather`` per output returns the whole batch.
+loop, and one ``all_gather`` per output returns the whole batch.  Each
+rank's part is what the single-process program returns on that slice, bit
+for bit; in float32 a launch of another batch size can round otherwise than
+the single-process call on the whole batch.
 """
 from __future__ import annotations
 
@@ -577,7 +580,8 @@ class GOMPSolver:
         """``run(starts, ends, obstacles)`` on this rank's contiguous slice
         of the queries (per-query obstacles slice with them, constructor
         obstacles are every rank's), then one ``all_gather`` per output
-        over the mesh axis: what the single-process call returns."""
+        over the mesh axis.  Each rank's part equals ``run`` on its slice
+        bit for bit."""
         from ..parallel import _comm
         from ..parallel.mesh import BATCH_AXIS, batch_slice
 
@@ -605,8 +609,10 @@ class GOMPSolver:
         with no collective inside the SCP loop; one ``all_gather`` per
         output at the end.  ``starts``/``ends`` (and per-query
         ``obstacles``) are the whole batch on every rank, which must divide
-        by the axis size.  Returns exactly what :meth:`run_batch_lane`
-        returns, on every rank."""
+        by the axis size.  Returns, on every rank, the whole batch's
+        outputs: each slice is what :meth:`run_batch_lane` returns for
+        that slice alone (in float64 also what it returns for the whole
+        batch; in float32 another batch size can round otherwise)."""
         return self._sharded(
             lambda s, e, o: self.run_batch_lane(s, e, waypoints, max_scp, o),
             starts, ends, mesh, axis, obstacles)
@@ -726,8 +732,10 @@ class GOMPSolver:
         """:meth:`run_batch_padded` — the full time-scaling search — split
         over ``mesh[axis]`` as :meth:`run_batch_lane_sharded` splits its
         batch: each rank runs the whole 10-segment descent for its slice,
-        no collective inside.  Returns exactly what :meth:`run_batch_padded`
-        returns, on every rank."""
+        no collective inside.  Returns, on every rank, the whole batch's
+        outputs: each slice is what :meth:`run_batch_padded` returns for
+        that slice alone (in float64 also what it returns for the whole
+        batch; in float32 another batch size can round otherwise)."""
         return self._sharded(
             lambda s, e, o: self.run_batch_padded(s, e, max_scp, warm_duals,
                                                   o),

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..ops import tridiag_kernel
+from ..ops.qp import RowReductions
 from ..ops.tridiag import BlockTridiagFactor, block_tridiag_to_dense
 from .constraints import INF, INF_THRESHOLD
 from ..models.robot import ball_fk_jac
@@ -43,7 +44,7 @@ def _pad0(x, before: int, after: int):
 
 
 @dataclasses.dataclass(frozen=True)
-class TrajectoryQP:
+class TrajectoryQP(RowReductions):
     # --- static structure ---------------------------------------------------
     waypoints: int
     n_dim: int

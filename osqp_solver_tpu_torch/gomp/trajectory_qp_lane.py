@@ -15,6 +15,7 @@ from typing import Tuple
 import torch
 
 from ..ops import tridiag_kernel
+from ..ops.qp import RowReductions
 from .trajectory_qp import TrajectoryQP
 
 _INF = 1e30  # matches constraints.INF
@@ -38,7 +39,7 @@ class LaneFactor:
 
 
 @dataclasses.dataclass(frozen=True)
-class LaneTrajectoryQP:
+class LaneTrajectoryQP(RowReductions):
     # --- static structure ---------------------------------------------------
     waypoints: int
     n_dim: int

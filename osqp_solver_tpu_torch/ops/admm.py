@@ -347,39 +347,27 @@ def _norm0(v):
     return _max0(v.abs(), 0.0)
 
 
-# --- collective-aware reductions -------------------------------------------
-# A container whose rows and state are split over processes (the
-# horizon-sharded ``parallel.banded.ShardedBandedQP``) carries a
-# ``process_group`` (the reference's ``collective_axis``); every scalar
-# reduction of the solve then combines over that group, one
-# ``all_reduce`` (MAX or SUM) a quantity, as the reference's ``pmax`` /
-# ``psum``.  ``all_reduce`` leaves the same value on every rank, so every
-# rank takes the same branch (terminate, adapt ρ, certificates) and the
-# next collective cannot hang.  Without a group nothing changes.
-
-
-def _g_reduce(qp, r, op: str):
-    group = getattr(qp, "process_group", None)
-    if group is None:
-        return r
-    from ..parallel import _comm
-
-    return _comm.all_reduce(r, op, group)
+# --- global reductions -----------------------------------------------------
+# Every scalar reduction of the solve goes through the container's
+# ``reduce(r, op)`` (``op`` "max" or "sum"): the identity on a container
+# that holds all its rows, and one ``all_reduce`` a quantity on one whose
+# rows are split over processes (``parallel.banded.ShardedBandedQP``, the
+# reference's ``collective_axis``).
 
 
 def _g_inf_norm(qp, v):
     """Global per-problem inf-norm over the row axis."""
-    return _g_reduce(qp, _norm0(v), "max")
+    return qp.reduce(_norm0(v), "max")
 
 
 def _g_max(qp, v, empty: float):
     """Global per-problem max of a (possibly signed) vector."""
-    return _g_reduce(qp, _max0(v, empty), "max")
+    return qp.reduce(_max0(v, empty), "max")
 
 
 def _g_sum(qp, v):
     """Global per-problem sum over the row axis."""
-    return _g_reduce(qp, v.sum(dim=0), "sum")
+    return qp.reduce(v.sum(dim=0), "sum")
 
 
 def kkt_factor(qp, rho_vec, sigma, settings: Settings):

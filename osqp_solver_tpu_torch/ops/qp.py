@@ -17,6 +17,8 @@ Protocol (duck-typed; shared with the trajectory container
 - ``kkt_factor(rho_vec, sigma)`` → factor of the reduced KKT
   ``P + σI + Aᵀdiag(ρ)A``; ``kkt_solve(factor, rhs)`` → x
 - ``map_arrays(fn)`` → same type with ``fn`` applied to every array
+- ``reduce(r, op)``, ``row_mean(v)``: the solve's scalar reductions over
+  the rows (:class:`RowReductions`)
 
 The matvecs, ``scale_data`` and the KKT methods take one trailing batch dim
 (the solvers give an unbatched container a batch of one).
@@ -44,8 +46,23 @@ def _bmv(Mb, v):
     return torch.bmm(Mb, v.T.unsqueeze(-1)).squeeze(-1).T
 
 
+class RowReductions:
+    """The solve's per-problem reductions over a container's rows, for a
+    container that holds all of them: ``reduce(r, op)`` ("max" or "sum")
+    returns the partial ``r`` as it is, ``row_mean(v)`` is the mean over the
+    row axis.  A container whose rows are split over processes
+    (``parallel.banded.ShardedBandedQP``) overrides both to combine over its
+    group."""
+
+    def reduce(self, r, op: str):
+        return r
+
+    def row_mean(self, v):
+        return v.mean(dim=0)
+
+
 @dataclasses.dataclass(frozen=True)
-class DenseQP:
+class DenseQP(RowReductions):
     """min ½xᵀPx + qᵀx  s.t.  l ≤ Ax ≤ u, with dense ``P (n, n, *batch)``
     and ``A (m, n, *batch)``."""
 

@@ -54,12 +54,12 @@ def ruiz_equilibrate(qp, iters: int = 10):
     ``[[P, Aᵀ], [A, 0]]`` give ``δ = 1/sqrt(norm)`` updates for D and E, then
     the cost is normalized by ``γ = 1/max(mean(colnorm(P)), ‖q‖∞)``.
 
-    A container split over processes (``parallel.banded.ShardedBandedQP``)
-    carries a ``process_group`` and an ``n_valid_mask (n,)``: its row and
-    column norms stay local (the container's absmax methods exchange the
-    halos) and only the cost-normalisation scalars reduce over the group,
-    padded state slots masked out of the mean — the reference's
-    ``collective_axis`` / ``n_valid_mask``.
+    The cost-normalisation scalars go through the container's ``row_mean``
+    and ``reduce``: on a container split over processes
+    (``parallel.banded.ShardedBandedQP``) they combine over its group, padded
+    state slots masked out of the mean (the reference's ``collective_axis`` /
+    ``n_valid_mask``); the row and column norms stay local (its absmax
+    methods exchange the halos).
     """
     q = qp.q
     n, bs = q.shape[0], tuple(q.shape[1:])
@@ -68,27 +68,6 @@ def ruiz_equilibrate(qp, iters: int = 10):
     D = torch.ones((n,) + bs, **kw)
     E = torch.ones((m,) + bs, **kw)
     c = torch.ones(bs, **kw)
-
-    group = getattr(qp, "process_group", None)
-
-    def g_mean(v):
-        if group is None:
-            return v.mean(dim=0)
-        from ..parallel import _comm
-
-        mask = qp.n_valid_mask.reshape((-1,) + (1,) * len(bs))
-        s = torch.where(mask, v, torch.zeros_like(v)).sum(dim=0)
-        cnt = mask.to(v.dtype).sum(dim=0).expand_as(s)
-        return (_comm.all_reduce(s, "sum", group)
-                / _comm.all_reduce(cnt, "sum", group))
-
-    def g_absmax(v):
-        r = v.abs().amax(dim=0)
-        if group is None:
-            return r
-        from ..parallel import _comm
-
-        return _comm.all_reduce(r, "max", group)
 
     scaled = qp
     for _ in range(iters):
@@ -100,7 +79,8 @@ def ruiz_equilibrate(qp, iters: int = 10):
 
         p_cols = _limit(scaled.P_col_absmax())
         gamma = 1.0 / _limit(
-            torch.maximum(g_mean(p_cols), g_absmax(scaled.q))
+            torch.maximum(qp.row_mean(p_cols),
+                          qp.reduce(scaled.q.abs().amax(dim=0), "max"))
         )
         c = c * gamma
         scaled = qp.scale_data(D, E, c)

@@ -11,7 +11,9 @@ they are.  Several ranks on one GPU cannot share NCCL (it refuses two ranks
 on one device), so such a world runs gloo, which moves CPU tensors only for
 ``all_gather`` and point-to-point: there this helper stages each payload
 through the host and back.  The compute stays on the card; only the
-``O(K·B2)`` payloads cross.  On the CPU (gloo) tensors go as they are.
+``O(K·B2)`` payloads cross.  On the CPU (gloo) tensors go as they are.  A
+world of one rank runs the collectives too (NCCL or gloo), so the transport
+is the one a larger world uses.
 """
 from __future__ import annotations
 
@@ -54,8 +56,6 @@ def all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
     """``op`` ("max" or "sum") of ``t`` over ``group``: a new tensor, the
     same on every rank."""
     _count("all_reduce", t)
-    if dist.get_world_size(group) == 1:
-        return t.clone()
     out = t.detach().to("cpu" if _staged(t, group) else t.device,
                         copy=True).contiguous()
     dist.all_reduce(out, _OPS[op], group=group)
@@ -68,8 +68,6 @@ def all_gather(t: torch.Tensor, group, kind: str = "all_gather"
     leading axis; ``kind``: the name it is counted under."""
     _count(kind, t)
     k = dist.get_world_size(group)
-    if k == 1:
-        return t.unsqueeze(0).clone()
     src = t.detach().to("cpu" if _staged(t, group) else t.device).contiguous()
     out = [torch.empty_like(src) for _ in range(k)]
     dist.all_gather(out, src, group=group)

@@ -36,6 +36,7 @@ import torch
 
 from ..gomp.constraints import INF
 from ..ops import admm as admm_mod
+from ..ops.qp import RowReductions
 from . import _comm
 from .batch import gather_batch
 from .mesh import (BATCH_AXIS, HORIZON_AXIS, axis_index, axis_size,
@@ -61,7 +62,7 @@ def _shift_down(a):
 
 
 @dataclasses.dataclass(frozen=True)
-class BandedQP:
+class BandedQP(RowReductions):
     """Trajectory QP in per-waypoint row-block form (one process).
 
     State interleaved ``(W, B2, *batch)``; every constraint row belongs to a
@@ -373,6 +374,24 @@ class ShardedBandedQP(BandedQP):
         Ws, B2 = self.waypoints, self.block
         g = self.axis_index * Ws + torch.arange(Ws, device=self.q_wb.device)
         return (g < self.total_waypoints).repeat_interleave(B2)
+
+    # ----------------------------------------------------------- reductions
+    # Every scalar reduction of the solve combines over the group, one
+    # ``all_reduce`` a quantity (the reference's ``pmax``/``psum``).  It
+    # leaves the same value on every rank, so every rank takes the same
+    # branch (terminate, adapt ρ, certificates) and the next collective
+    # cannot hang.
+
+    def reduce(self, r, op: str):
+        return _comm.all_reduce(r, op, self.process_group)
+
+    def row_mean(self, v):
+        """Mean over the real state slots of every rank, padded ones
+        masked out."""
+        mask = self.n_valid_mask.reshape((-1,) + (1,) * (v.dim() - 1))
+        s = torch.where(mask, v, torch.zeros_like(v)).sum(dim=0)
+        cnt = mask.to(v.dtype).sum(dim=0).expand_as(s)
+        return self.reduce(s, "sum") / self.reduce(cnt, "sum")
 
     # ---------------------------------------------------------------- halos
 

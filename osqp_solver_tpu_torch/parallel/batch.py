@@ -43,7 +43,9 @@ def solve_batch_sharded(qps, mesh, settings: admm.Settings = admm.Settings(),
     collective inside the solve), then one ``all_gather`` per result field.
     The batch must divide by the axis size.  Returns the whole batch's
     :class:`~osqp_solver_tpu_torch.ops.admm.SolveResult` on every rank, on
-    the mesh's device."""
+    the mesh's device: each slice is what :func:`solve_batch` returns for
+    that slice alone (in float64 also what it returns for the whole batch;
+    in float32 another batch size can round otherwise)."""
     (B,) = qps.batch_shape
     sl = batch_slice(B, mesh, axis)
     mine = qps.map_arrays(lambda a: a[..., sl])

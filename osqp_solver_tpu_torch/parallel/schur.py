@@ -322,8 +322,10 @@ def _reduced_system(sepD, bs, C_right, C_left, C_off, r_right, r_left):
     *batch)``); every rank runs it on the same bytes.  → ``xs (K-1, B2,
     *batch)``."""
     K = sepD.shape[0]
-    Sdiag, Slower = _reduced_blocks(sepD, C_right, C_left, C_off)
     rS = bs[: K - 1] - r_right[: K - 1] - r_left[1:K]
+    if K == 1:  # one chunk: no separator to solve for
+        return rS
+    Sdiag, Slower = _reduced_blocks(sepD, C_right, C_left, C_off)
     return tridiag_solve(tridiag_factor(Sdiag, Slower), rS)
 
 

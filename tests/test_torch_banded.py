@@ -106,8 +106,9 @@ def test_banded_solve_matches_jax():
 
 
 def test_hooks_without_a_group_are_the_plain_reductions(monkeypatch):
-    """No ``process_group``: the solve is bit for bit the one whose
-    reductions are the plain per-problem expressions the hooks replaced."""
+    """A container that holds all its rows (``RowReductions``): the solve is
+    bit for bit the one whose reductions are the plain per-problem
+    expressions the hooks replaced."""
     tqp = both()[1]
     res = tadmm.solve(tqp, device="cpu")
     monkeypatch.setattr(tadmm, "_g_inf_norm", lambda qp, v: tadmm._norm0(v))
@@ -121,9 +122,12 @@ def test_hooks_without_a_group_are_the_plain_reductions(monkeypatch):
 
 @dataclasses.dataclass(frozen=True)
 class _GroupBanded(tbanded.BandedQP):
-    """A one-process banded container that carries a group."""
+    """A one-process banded container that carries a group and reduces
+    over it as the horizon-sharded container does."""
 
     process_group: object = None
+    reduce = tbanded.ShardedBandedQP.reduce
+    row_mean = tbanded.ShardedBandedQP.row_mean
 
     @property
     def n_valid_mask(self):

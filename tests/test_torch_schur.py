@@ -57,6 +57,15 @@ def test_partition_round_trip_and_pieces_match_jax():
     np.testing.assert_array_equal(to_np(merged), b)
 
 
+def test_one_chunk_is_the_sequential_solve():
+    """K=1 (a world of one rank): no separator, the split is the sequential
+    tridiagonal solve bit for bit (the reference's form indexes an empty
+    separator system there)."""
+    diag, lower, b = (torch.tensor(a) for a in spd_tridiag(11, 4, 0))
+    seq = tschur.tridiag_solve(tschur.tridiag_factor(diag, lower), b)
+    assert torch.equal(tschur.schur_solve_reference(diag, lower, b, 1), seq)
+
+
 @pytest.mark.parametrize("W,K", [(11, 2), (23, 4), (40, 8), (31, 3)])
 def test_split_solves_match_jax(W, K):
     """``schur_solve_reference`` and ``schur_factor`` + ``schur_solve_cached``
