@@ -7,9 +7,9 @@ Run it from the repository root on a machine with one NVIDIA Hopper GPU:
 
 It builds the hand-written kernels from ``osqp_solver_tpu_torch/csrc`` (six
 sources and the fast-math check; three layout signatures of the lane kernels, the Ruiz and residual
-kernels also in their block-P form, the tridiagonal one at B2=8 to 128,
-the lane sources also at N=4, 7, 9, 10, 12, 16, 17, 24, 32 and 64, and the
-dense one; all
+kernels also in their block-P form, the tridiagonal one at B2=8 to 512,
+the lane sources also at N=4, 7, 9, 10, 12, 16, 17, 24, 32, 40, 64, 100
+and 256, and the dense one; all
 compilers started together), holds each kernel — the
 chunk kernel in its accumulator, warm-up and delta-writing forms, each in
 the ``hrec`` and the ``gain`` factor form, the factor kernel with and
@@ -87,12 +87,13 @@ drives the port's entry points:
   ``anderson=4`` fused, with unfused termination, unfused and with ρ
   adaptation firing (``solve_anderson``, held to the JAX f32 run);
 * the lane kernels above 16 joints (``lane_wide``): their wide forms at
-  N=17, 24, 32 and 64 as ``lane_sizes`` holds them (B=256; at N=64 the
-  plans put the gain chunk's and the tridiagonal pair's rings in the
-  device-memory workspace), at N=32 also with their rings and windows
-  forced into the workspace (equal bits), the
-  block-P builds and solve at N=17 and 32, and the tridiagonal pair alone
-  at B2=34, 48, 64 and 96, on chip and in the workspace;
+  N=17, 24, 32, 40 and 64 (W=100, B=256), 100 (W=50, B=64) and 256 (W=20,
+  B=8) as ``lane_sizes`` holds them (groups of 64 to 512 threads; from
+  N=64 the plans put rings and windows in the device-memory workspace), at
+  N=32 also with their rings and windows forced into the workspace (equal
+  bits), the block-P builds and solve at N=17 and 32, and the tridiagonal
+  pair alone at B2=34, 48, 64, 96, 130, 200 and 512, on chip and in the
+  workspace;
 * generic DH arms: the presets' float32 kinematics and batched DLS IK
   against float64 on the host (``dh_arms``), and this slice's main path
   (``planner_dh``): the full search of ``benchmarks/planner_batch.py
@@ -132,8 +133,19 @@ drives the port's entry points:
   (``--rank-worker``; the horizon as 2 ranks x 31 chunks, collective
   payloads the same at W=5,000 and 10,000), each rank's half held to the
   one-process calls on that half and its statuses to ``parallel_one``'s
-  (``parallel_ranks``).  The tridiagonal, dense and lane
-  rows' launches are this path's where it launches them.
+  (``parallel_ranks``);
+* this slice's main path, the reference example's own size batched: the
+  honest class at W=802, B=512 through ``solve_batched_lane`` at
+  ``benchmarks/w802_lane.py``'s settings, with the termination fused and
+  not (``w802``: every problem optimal, counts equal between the two, the
+  first 16 problems' p50 beside the JAX f32 CPU run's, every kernel of the
+  path alone at that shape against float64, with its launch plan), and the
+  flagship full search of ``benchmarks/planner_batch.py --full --waypoints
+  802`` on 512 queries (``planner_w802``: counts held to the JAX package's
+  record of the same search and its first 8 queries to the JAX f32 CPU
+  run, every plan audited by exact FK).  The Ruiz, KKT factor, chunk and
+  residual rows' launches are this path's; the other rows' an earlier
+  path's.
 
 It checks statuses, ADMM iteration counts, OSQP's residual criterion
 recomputed in float64 on the host, and that every kernel was really launched
@@ -146,7 +158,9 @@ tar -x -C DIR``) also builds that tree's tridiagonal factor and solve and
 residual kernels and runs them on the same inputs, compared bit for bit and
 timed (the factor must equal that tree's bit for bit), and its N=6 lane
 kernels (Ruiz, the KKT factor in both forms, the chunk in four forms) and
-B2=18 and 20 tridiagonal pair, which must equal this tree's bit for bit.
+B2=18 and 20 tridiagonal pair, which must equal this tree's bit for bit;
+with ``lane_wide`` also its builds up to N=32, whose machine code
+(``cuobjdump -sass``) must equal this tree's.
 """
 from __future__ import annotations
 
@@ -157,6 +171,7 @@ import dataclasses
 import functools
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -217,6 +232,16 @@ DENSE_INNER = 20
 DENSE_LARGE = ((512, 8), (2048, 2))
 RESID_SUMS = ("support", "q_dot", "xsum", "ysum")
 PLANNER = dict(rho=0.04, check_termination=3, scaling=3)
+# The reference's own problem (solver-example.cpp:13: W_max=802), batched:
+# the honest class at W=802 through solve_batched_lane at
+# benchmarks/w802_lane.py's settings (w802), and the full search of
+# benchmarks/planner_batch.py --full --waypoints 802 --ct 3 --rho 0.02
+# --scaling 3 (planner_w802), B=512 each, float32.
+W802_W, W802_BATCH = 802, 512
+W802_SETTINGS = dict(check_termination=3, rho=0.02, adaptive_rho_interval=60)
+PLANNER_W802 = dict(PLANNER, rho=0.02)
+# The problems and queries tools/jax_reference_counts.py runs in JAX.
+W802_REF_PROBLEMS, PLANNER_W802_REF_QUERIES = 16, 8
 LANE_KERNELS = ("ruiz", "kkt_factor", "admm_chunk")
 # The block-P lane path: Ruiz and residuals in their block forms, the gain
 # chunk fed the packed block-tridiagonal factor.
@@ -234,7 +259,8 @@ PHASES = ("build,kernels,solve,solve_unfused_term,solve_stock,box,solve_w3,"
           "solve_block_p,solve_block_p_declared,mpc_fleet_block_p,"
           "planner_run,planner_batch,lane_sizes,solve_refine,planner_long,"
           "solve_polish,solve_anderson,lane_wide,dh_arms,planner_dh,"
-          "examples,builder_dense,horizon_long,parallel_one,parallel_ranks")
+          "examples,builder_dense,horizon_long,parallel_one,parallel_ranks,"
+          "w802,planner_w802")
 # The block-P fleet: fewer ticks than the vel-diag fleets, for time, at the
 # settings the block-P batch is solved at (BENCH) without the warm-up chunk:
 # at the fleet benchmark's stock ones (scaling 10, rho 0.05) its cold ticks
@@ -683,7 +709,31 @@ def ref_signatures(want=()):
             sz = {"NDIM": n, "NX": 5}
             out += [("ruiz", dict(sz, BLOCK_P=0)), ("kkt_factor", sz),
                     ("admm_chunk", sz)]
+    if "lane_wide" in want:  # the wide builds up to N=32: their machine code
+        for n in (s_ for s_ in WIDE_SIZES if s_ <= 32):
+            sz = {"NDIM": n, "NX": 5}
+            out += [("ruiz", dict(sz, BLOCK_P=0)), ("kkt_factor", sz),
+                    ("admm_chunk", sz), ("residuals", dict(sz, BLOCK_P=0)),
+                    ("tridiag", {"B2": 2 * n})]
     return out
+
+
+def sass_differs(a, b):
+    """Whether two libraries' device code differs: the functions and
+    instructions of ``cuobjdump -sass`` of each (found beside the nvcc
+    that built them, or on PATH), compared line for line.  Fails the run
+    where cuobjdump cannot be found."""
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        tool = shutil.which("cuobjdump")
+        if tool is None:
+            fail("build: --ref-tree compares machine code with cuobjdump, "
+                 "which is neither beside nvcc nor on PATH")
+    code = [[ln.strip() for ln in subprocess.run(
+        [str(tool), "-sass", str(p_)], capture_output=True, text=True,
+        check=True).stdout.splitlines() if "/*" in ln or "Function :" in ln]
+        for p_ in (a, b)]
+    return code[0] != code[1]
 
 
 def ref_csrc():
@@ -701,9 +751,15 @@ def phase_build(signatures, want=()):
     t0 = time.time()
     ref = [(n, s, _build.start_build(n, s, csrc=ref_csrc()))
            for n, s in (ref_signatures(want) if REF_TREE else [])]
-    built = _build.build_all(signatures)
+    # This tree's builds of every --ref-tree signature too: their machine
+    # code is compared below.
+    built = _build.build_all(list(signatures) + [s for _, s, _ in ref])
+    sass = {}
     for n, s, h in ref:
-        built[("ref_" + n, tuple(sorted(s.items())))] = _build.finish_build(h)
+        key = tuple(sorted(s.items()))
+        built[("ref_" + n, key)] = _build.finish_build(h)
+        tag = n + ":" + ",".join(f"{k}={v}" for k, v in key)
+        sass[tag] = sass_differs(built[("ref_" + n, key)], built[(n, key)])
     seconds = time.time() - t0
     report = {}
     for (name, sig), path in built.items():
@@ -715,7 +771,45 @@ def phase_build(signatures, want=()):
             else str(path),
             **{k[:48]: v for k, v in info.items()},
         }
-    emit("build", seconds=round(seconds, 2), libraries=report)
+    emit("build", seconds=round(seconds, 2), libraries=report,
+         **({"ref_tree_sass_differs": sass} if REF_TREE else {}))
+    if any(sass.values()):
+        fail(f"build: device code differs from --ref-tree's: "
+             f"{[k for k, v in sass.items() if v]}")
+
+
+def build_signatures(want):
+    """The layout signatures the phases of ``want`` launch: the honest class
+    and the sphere fleet (two balls, one obstacle), box-only, and the
+    obstacle-free planner (gripper rows only); the kernels that read P
+    (Ruiz, residuals) add the P form, BLOCK_P."""
+    honest_sig = {"NDIM": N, "NX": 5}
+    sigs = [{"B2": 2 * N}, {}] + [
+        {"B2": b2} for b2, _, _ in TRIDIAG_SIZES.values() if b2 != 2 * N]
+    if "lane_sizes" in want:
+        sigs += [s_ for n in LANE_SIZES for s_ in size_signatures(n)]
+    if "lane_wide" in want:
+        sigs += [s_ for n in WIDE_SIZES for s_ in size_signatures(n)]
+        sigs += [{"NDIM": n, "NX": 5, "BLOCK_P": 1}
+                 for n in WIDE_BLOCK_SIZES]
+        sigs += [{"B2": b2} for b2, _, _ in WIDE_TRIDIAG.values()]
+    if "planner_dh" in want:  # the iiwa14 and the SCARA, two balls
+        for n in (7, 4):
+            sigs += [{"NDIM": n, "NX": 3},
+                     {"NDIM": n, "NX": 3, "BLOCK_P": 0}, {"B2": 2 * n}]
+    if "examples" in want:  # the DH example's iiwa14 through run
+        sigs.append({"B2": 14})
+    if "parallel_one" in want:  # multihost's worker: N=3 planners
+        sigs += MULTIHOST_SIGNATURES
+    for nx in (5, 0, 3):  # honest; box; planner_full
+        if nx == 5 or (nx == 0 and "box" in want) or (
+                nx == 3 and want & {"planner_full", "planner_batch",
+                                    "examples", "parallel_one",
+                                    "parallel_ranks", "planner_w802"}):
+            sigs += [{"NDIM": N, "NX": nx},
+                     {"NDIM": N, "NX": nx, "BLOCK_P": 0}]
+    sigs.append(dict(honest_sig, BLOCK_P=1))
+    return sigs
 
 
 def main_path_problem(batch):
@@ -783,14 +877,19 @@ def lane_plan(name, W_, B):
 # launch's time includes the host's enqueue (ctypes and the plan), tens of
 # microseconds.
 ALONE_INNER = 20
+LONG_LAUNCH_MS = 5.0
 
 
 def alone_ms(make, *args, **kw):
     """Device time of one launch alone (``make`` gives the launch): ``(ms
     over ALONE_INNER launches back to back, ms of a single launch)``, the
-    second as the starting tree's kernels were first timed."""
+    second as the starting tree's kernels were first timed; a launch longer
+    than LONG_LAUNCH_MS is timed single only (both values)."""
     launch = make(*args, **kw)
-    return time_ms(launch, inner=ALONE_INNER), time_ms(launch)
+    single = time_ms(launch)
+    if single > LONG_LAUNCH_MS:  # back to back adds nothing; keep it short
+        return single, single
+    return time_ms(launch, inner=ALONE_INNER), single
 
 
 @functools.lru_cache(maxsize=None)
@@ -1391,6 +1490,16 @@ def chunk_plan(sig, B, mode, gain):
     return dict(zip(keys, list(out)))
 
 
+def chunk_workspace(sig, B, mode, gain, budget=0):
+    """The bytes of device-memory workspace a chunk launch of this build
+    asks for on this card (``admm_chunk_workspace_bytes``; 0: the ring on
+    chip)."""
+    fn = _build.library("admm_chunk", sig).admm_chunk_workspace_bytes
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    return int(fn(B, mode, int(gain), budget))
+
+
 def check_chunk_dxdy(scaled, scaled64, settings, rho_vec, done, state0, args,
                      ck, q_int, lu, NX, gk=None, name="admm_chunk_dxdy"):
     """The chunk's delta-writing form: state and deltas of 2 iterations
@@ -1659,7 +1768,7 @@ def ptxas_of(name, sig):
         sig = {}
     elif "BLOCK_P" in _build.KERNELS[source]:
         sig = dict(sig, BLOCK_P=int(name.endswith("_block")))
-    _, path = _build._target(source, sig, False)
+    _, path = _build._target(source, sig, None)
     rep = _build.ptxas_report(path)
     gain_only = name == "admm_chunk_gain"
     return {k[:40]: v for k, v in rep.items()
@@ -2084,7 +2193,7 @@ def tridiag_sizes(sizes=None, budget=0):
                    ops_tridiag_solve(Wd, B2, B))
         reps = dict(reps=3, warm=1)
         shape = dict(B2=B2, W=Wd, batch=B)
-        _, path = _build._target("tridiag", {"B2": B2}, False)
+        _, path = _build._target("tridiag", {"B2": B2}, None)
         ptx = _build.ptxas_report(path)
         f_ok = max(ce[1], ge[1]) <= TOL_TRIDIAG and upper_zero and not f_again
         s_ok = se[1] <= TOL_TRIDIAG and not s_again
@@ -2888,7 +2997,7 @@ def ur5e_solver(max_waypoints, obstacles, **settings):
     INF = 1e30
     return GOMPSolver(
         max_waypoints=max_waypoints, time_step=0.1,
-        settings=dataclasses.replace(Settings(), **PLANNER, **settings),
+        settings=dataclasses.replace(Settings(), **{**PLANNER, **settings}),
         pos_con=constraints.in_range(N, -2 * math.pi, 2 * math.pi),
         vel_con=constraints.in_range(N, -math.pi, math.pi),
         acc_con=constraints.in_range(N, -800 * math.pi / 180,
@@ -4044,16 +4153,29 @@ def phase_trajectory_generic():
 LANE_SIZES = (7, 9, 10, 12, 16)
 SIZE_SEED = 12
 # Above 16 joints (lane_wide): the wide forms (a group of 64 threads at
-# N=17-32, 128 at N=64, one problem a block) at B=256; at N=32 also with
-# their rings and windows forced into the device-memory workspace; at N=64
-# the plans put the tridiagonal pair's rings and the gain chunk's ring
-# there unforced (WIDE_UNFORCED); the tridiagonal pair alone up to B2=96,
-# on chip and in the workspace.
-WIDE_SIZES = (17, 24, 32, 64)
+# N=17-32, 128 at N=33-64, 256 at N=65-128 and 512 at N=129-256, one
+# problem a block) at W=100, B=256, and at N=100 and 256 at the sizes whose
+# f32 factor array and f64 plain versions fit beside each other on the card
+# (200^2 x 4 x 50 x 64 = 512 MB, 512^2 x 4 x 20 x 8 = 168 MB); N=40 is a
+# partial group of 128 (a humanoid's joint count), 100 one of 256, 256 a
+# full group of 512 at tridiag_kernel.MAX_B2.  At N=32 also with their
+# rings and windows forced into the device-memory workspace; from N=64 the
+# plans put rings and windows there unforced (WIDE_UNFORCED); the
+# tridiagonal pair alone up to B2=512, on chip and in the workspace.
+WIDE_SIZES = (17, 24, 32, 40, 64, 100, 256)
 WIDE_BATCH = 256
+WIDE_SHAPES = {n: (W, WIDE_BATCH) for n in WIDE_SIZES} | {
+    100: (50, 64), 256: (20, 8)}
 WORKSPACE_SIZES = (32,)
-WIDE_UNFORCED = {64: ("admm_chunk_gain", "tridiag_factor", "tridiag_solve")}
-WIDE_TRIDIAG = {f"B2_{b2}": (b2, W, WIDE_BATCH) for b2 in (34, 48, 64, 96)}
+WIDE_UNFORCED = {
+    64: ("admm_chunk_gain", "tridiag_factor", "tridiag_solve"),
+    100: ("admm_chunk", "admm_chunk_dxdy", "admm_chunk_gain",
+          "tridiag_factor", "tridiag_solve"),
+    256: ("kkt_factor", "admm_chunk", "admm_chunk_dxdy", "admm_chunk_gain",
+          "tridiag_factor", "tridiag_solve")}
+WIDE_TRIDIAG = {f"B2_{b2}": (b2, W, WIDE_BATCH)
+                for b2 in (34, 48, 64, 96)} | {
+    "B2_130": (130, 50, 64), "B2_200": (200, 50, 64), "B2_512": (512, 20, 8)}
 WIDE_TRIDIAG_WORKSPACE = {"B2_64_workspace": (64, W, WIDE_BATCH),
                           "B2_96_workspace": (96, W, WIDE_BATCH)}
 
@@ -4100,14 +4222,15 @@ def repeat_bits(launch, outs):
                if a is not None)
 
 
-def size_kernels(Nj, qp, settings, ref=True):
+def size_kernels(Nj, qp, settings, ref=True, warmup=False):
     """Every lane kernel of the path at ``Nj`` joints against its plain
     version run in f64 on the same f32 inputs, at the kernels phase's
     tolerances, each launch repeated (equal bits) and timed through its
-    wrapper (``ms``; the chunk: its 2 iterations), with the ptxas report of
-    each build: Ruiz; the KKT factor (both forms); the chunk (the
-    accumulator form, the delta form and the gain form, 2 iterations from
-    a state 10 iterations in, every fifth problem frozen); the residual
+    wrapper (``ms``; the chunk: its 2 iterations), with its launch plan and
+    the ptxas report of each build: Ruiz; the KKT factor (both forms); the
+    chunk (the accumulator form, the delta form and the gain form, and with
+    ``warmup`` the form that only advances the state, 2 iterations from a
+    state 10 iterations in, every fifth problem frozen); the residual
     kernel on the delta form's packs; the tridiagonal factor and solve on
     the batch's KKT blocks.  The builds are the batch's (its waypoints and
     rows); ``ref``: with --ref-tree, also that tree's kernels at N <= 16
@@ -4125,7 +4248,9 @@ def size_kernels(Nj, qp, settings, ref=True):
                            lambda: ruiz_kernel.ruiz_scalings_kernel(qp, it),
                            first),
                        ms=time_ms(lambda: ruiz_kernel.ruiz_scalings_kernel(
-                           qp, it)))
+                           qp, it)),
+                       plan=ruiz_kernel.plan(_build.library(
+                           "ruiz", dict(sig, BLOCK_P=0)), Wd, B))
     out["ruiz"]["ok"] = bool(rk <= TOL_RUIZ
                              and not out["ruiz"]["bits_differing_run_to_run"])
     slow = dict(reps=3, warm=1)  # the plain versions' times
@@ -4150,11 +4275,11 @@ def size_kernels(Nj, qp, settings, ref=True):
     cp, gp = kkt_factor.factor_packed_lane_plain(
         scaled, rho_vec, settings.sigma, emit_gain=True)
     torch.cuda.synchronize()
-    for name, got, plain, ref, g in (
+    for name, got, plain, want64, g in (
             ("kkt_factor", [ck], [cp], [c64], False),
             ("kkt_factor_gain", [cg, gg], [cp, gp], [c64, g64], True)):
-        e = max(rel_err(a.double(), r)[1] for a, r in zip(got, ref))
-        ep = max(rel_err(a.double(), r)[1] for a, r in zip(plain, ref))
+        e = max(rel_err(a.double(), r)[1] for a, r in zip(got, want64))
+        ep = max(rel_err(a.double(), r)[1] for a, r in zip(plain, want64))
         rep = repeat_bits(lambda g=g: fac(g), got)
         b_ms, b_by = bound(nbytes(coef, rho_vec, *kkt_factor.build_p_vel_packs(
             scaled), *got), ops_factor(Wd, Nj, NX, B))
@@ -4186,10 +4311,12 @@ def size_kernels(Nj, qp, settings, ref=True):
     sect = {"x": slice(0, B2), "z": slice(B2, B2 + Rp),
             "y": slice(B2 + Rp, B2 + 2 * Rp)}
     d64 = lambda t: None if t is None else t.double()  # noqa: E731
-    for name, pf, tp, dxdy in (
-            ("admm_chunk", (ck, None), term_packs, False),
-            ("admm_chunk_dxdy", (ck, None), None, True),
-            ("admm_chunk_gain", (cg, gg), term_packs, False)):
+    forms = [("admm_chunk", (ck, None), term_packs, False),
+             ("admm_chunk_dxdy", (ck, None), None, True),
+             ("admm_chunk_gain", (cg, gg), term_packs, False)]
+    if warmup:
+        forms.append(("admm_chunk_warmup", (ck, None), None, False))
+    for name, pf, tp, dxdy in forms:
         def launch(pf=pf, tp=tp, dxdy=dxdy):
             return admm_fused.fused_admm_chunk(
                 scaled, rho_vec, done, settings, state_pack=state0.clone(),
@@ -4202,29 +4329,55 @@ def size_kernels(Nj, qp, settings, ref=True):
             term_packs=None if tp is None else tuple(d64(t) for t in tp),
             emit_dxdy=dxdy, coef=coef.double(), lu=lu.double(),
             packed_factor=tuple(d64(t) for t in pf))
+        # The plain version in f32 on the same inputs: what f32 arithmetic
+        # gives beside the kernel's error.
+        s32, e32 = admm_fused.fused_admm_chunk_plain(
+            scaled, rho_vec, done, settings, state_pack=state0.clone(),
+            n_iter=2, term_packs=tp, emit_dxdy=dxdy, coef=coef, lu=lu,
+            packed_factor=pf)
         torch.cuda.synchronize()
-        errs = {k: rel_err(sk[:, sl].double(), s64[:, sl])[1]
-                for k, sl in sect.items()}
-        if dxdy:
-            scale = {k: s64[:, sl].abs().max().item() for k, sl in sect.items()}
-            errs["dx"] = rel_err(extra[:, :B2].double(), e64[:, :B2],
-                                 scale["x"])[1]
-            errs["dy"] = rel_err(extra[:, B2:B2 + Rp].double(),
-                                 e64[:, B2:B2 + Rp], scale["y"])[1]
-        else:
-            mags = {"xsum": s64[:, sect["x"]].abs().sum((0, 1)).max().item(),
-                    "ysum": s64[:, sect["y"]].abs().sum((0, 1)).max().item()}
-            for acc_name, row in _ACC.items():
-                errs["acc." + acc_name] = rel_err(
-                    extra[row].double(), e64[row], mags.get(acc_name))[1]
+
+        def errs_of(st, ex):
+            errs = {k: rel_err(st[:, sl].double(), s64[:, sl])[1]
+                    for k, sl in sect.items()}
+            if dxdy:
+                scale = {k: s64[:, sl].abs().max().item()
+                         for k, sl in sect.items()}
+                errs["dx"] = rel_err(ex[:, :B2].double(), e64[:, :B2],
+                                     scale["x"])[1]
+                errs["dy"] = rel_err(ex[:, B2:B2 + Rp].double(),
+                                     e64[:, B2:B2 + Rp], scale["y"])[1]
+            elif tp is not None:
+                # xsum / ysum against their sums of magnitudes; the loose
+                # rows' largest E dy against the largest of all rows
+                # (normEdy), as the infeasibility test compares them: in
+                # f64 they can be ~0, and any f32 sum leaves noise there.
+                edy = e64[_ACC["normEdy"]].abs().max().item()
+                mags = {"xsum": s64[:, sect["x"]].abs().sum((0, 1)).max()
+                        .item(),
+                        "ysum": s64[:, sect["y"]].abs().sum((0, 1)).max()
+                        .item(), "loose_pos": edy, "loose_neg": edy}
+                for acc_name, row in _ACC.items():
+                    errs["acc." + acc_name] = rel_err(
+                        ex[row].double(), e64[row], mags.get(acc_name))[1]
+            return errs
+        errs, plain_errs = errs_of(sk, extra), errs_of(s32, e32)
+        del s32, e32
         frozen = torch.equal(sk[..., done], state0[..., done])
         rep = repeat_bits(launch, (sk, extra))
         worst = max(errs.values())
         b_ms, b_by = bound(
             nbytes(*pf, coef, scaled.q_vec, lu, rho_vec, done, state0,
-                   *(tp or ()), state0, extra),
+                   *(tp or ()), state0, *([] if extra is None else [extra])),
             ops_chunk(Wd, Nj, NX, B, 2, tp is not None))
+        mode = 1 if tp is not None else 2 if dxdy else 0
+        gain = pf[1] is not None
         out[name] = dict(vs_f64=errs, max_vs_f64=worst, tol=TOL_CHUNK,
+                         plain_vs_f64=plain_errs,
+                         plain_max_vs_f64=max(plain_errs.values()),
+                         plan=dict(chunk_plan(sig, B, mode, gain),
+                                   workspace_bytes=chunk_workspace(
+                                       sig, B, mode, gain)),
                          frozen_problems_untouched=frozen,
                          bits_differing_run_to_run=rep,
                          ms=time_ms(launch),
@@ -4276,6 +4429,7 @@ def size_kernels(Nj, qp, settings, ref=True):
     out["residuals"] = dict(
         vs_f64=rerr, tol=TOL_RESID_MAX, tol_sums=TOL_RESID_SUM,
         bits_differing_run_to_run=rep, ms=time_ms(resid),
+        plan=residuals.plan(rlib, B),
         plain_ms=time_ms(lambda: residuals.termination_accumulators_plain(
             scaled, sp_k, dp_k, rowc, packs["varc"]), **slow),
         bound_ms=b_ms, bound_by=b_by,
@@ -4303,8 +4457,10 @@ def size_kernels(Nj, qp, settings, ref=True):
                ops_tridiag_factor(Wd, B2, B))
     sb = bound(tril_bytes(tc) + nbytes(tg, rhs, tx),
                ops_tridiag_solve(Wd, B2, B))
+    tlib = _build.library("tridiag", {"B2": B2})
     out["tridiag_factor"] = dict(vs_f64=fe, tol=TOL_TRIDIAG,
                                  bits_differing_run_to_run=frep,
+                                 plan=tridiag_kernel.factor_plan(tlib, B),
                                  plain_ms=time_ms(
                                      lambda: tridiag_kernel.
                                      factor_lane_major_plain(diag, lower),
@@ -4315,6 +4471,7 @@ def size_kernels(Nj, qp, settings, ref=True):
                                  ok=bool(fe <= TOL_TRIDIAG and not frep))
     out["tridiag_solve"] = dict(vs_f64=se, tol=TOL_TRIDIAG,
                                 bits_differing_run_to_run=srep,
+                                plan=tridiag_kernel.plan(tlib, Wd, B),
                                 plain_ms=time_ms(
                                     lambda: tridiag_kernel.
                                     solve_lane_major_plain(tc, tg, rhs),
@@ -4343,7 +4500,7 @@ def size_kernels(Nj, qp, settings, ref=True):
     for src, s_ in (("ruiz", dict(sig, BLOCK_P=0)), ("kkt_factor", sig),
                     ("admm_chunk", sig), ("residuals", dict(sig, BLOCK_P=0)),
                     ("tridiag", {"B2": B2})):
-        rep_ = _build.ptxas_report(_build._target(src, s_, False)[1])
+        rep_ = _build.ptxas_report(_build._target(src, s_, None)[1])
         ptx[src] = {k[:40]: {kk: v[kk] for kk in (
             "registers", "spill_store_bytes", "spill_load_bytes",
             "stack_bytes")} for k, v in rep_.items() if isinstance(v, dict)}
@@ -4421,15 +4578,13 @@ def unforced_workspace(Nj, Wd, B):
     KKT factor, the chunk in its accumulator, delta and gain forms, the
     residual kernel and the tridiagonal pair."""
     sig = {"NDIM": Nj, "NX": 5}
-    ws = _build.library("admm_chunk", sig).admm_chunk_workspace_bytes
-    ws.argtypes = [ctypes.c_int] * 4
-    ws.restype = ctypes.c_longlong
     tri = _build.library("tridiag", {"B2": 2 * Nj})
     return {
         "kkt_factor": kkt_factor.plan(_build.library("kkt_factor", sig), Wd,
                                       B)["workspace_bytes"],
-        "admm_chunk": ws(B, 1, 0, 0), "admm_chunk_dxdy": ws(B, 2, 0, 0),
-        "admm_chunk_gain": ws(B, 1, 1, 0),
+        "admm_chunk": chunk_workspace(sig, B, 1, False),
+        "admm_chunk_dxdy": chunk_workspace(sig, B, 2, False),
+        "admm_chunk_gain": chunk_workspace(sig, B, 1, True),
         "residuals": residuals.plan(_build.library(
             "residuals", dict(sig, BLOCK_P=0)), B)["workspace_bytes"],
         "tridiag_factor": tridiag_kernel.factor_plan(tri, B)[
@@ -4446,13 +4601,14 @@ SIZE_FORMS = {"hrec": {}, "hrec_term_off": dict(term_fused="off"),
 def phase_lane_sizes():
     """The lane path at N = 7, 9, 10, 12 and 16 joints (``size_batch``: W=100,
     B=1024, f32, the bench.py settings): ``lane_path_sizes``."""
-    return lane_path_sizes("lane_sizes", LANE_SIZES, BATCH)
+    return lane_path_sizes("lane_sizes", {n: (W, BATCH) for n in LANE_SIZES})
 
 
-def lane_path_sizes(phase, sizes, batch):
-    """The lane path at each joint count of ``sizes`` (``size_batch`` of
-    ``batch`` problems: W=100, f32, the bench.py settings): every kernel
-    against its plain version in f64 (``size_kernels``), then
+def lane_path_sizes(phase, shapes):
+    """The lane path at each joint count of ``shapes`` (``{N: (W, B)}``:
+    ``size_batch`` of B problems at W waypoints, f32, the bench.py
+    settings): every kernel against its plain version in f64
+    (``size_kernels``), then
     ``solve_batched_lane`` fused in the hrec form with fused and unfused
     termination (statuses and counts equal problem for problem), in the
     gain form, and on the unfused path; every form all optimal, the f64
@@ -4460,8 +4616,8 @@ def lane_path_sizes(phase, sizes, batch):
     plain version."""
     bench = dataclasses.replace(Settings(), **BENCH)
     recs = {}
-    for Nj in sizes:
-        qp = size_batch(Nj, batch=batch)
+    for Nj, (Wd, batch) in shapes.items():
+        qp = size_batch(Nj, batch=batch, Wd=Wd)
         kern, ptx = size_kernels(Nj, qp, bench)
         ref = kern.pop("ref_tree", None)
         work = kern.pop("workspace", None)
@@ -4489,21 +4645,22 @@ def lane_path_sizes(phase, sizes, batch):
                     iterations=int((a["iterations"] != b["iterations"]).sum()))
         for f in forms.values():
             f.pop("status"), f.pop("iterations")
-        recs[f"N{Nj}"] = dict(kernels=kern, ptxas=ptx, solves=forms,
-                              term_fused_vs_off_differ=same,
+        recs[f"N{Nj}"] = dict(W=Wd, batch=batch, kernels=kern, ptxas=ptx,
+                              solves=forms, term_fused_vs_off_differ=same,
                               workspace_unforced=unforced_workspace(
-                                  Nj, W, batch),
+                                  Nj, Wd, batch),
                               **({"ref_tree": ref} if ref else {}),
                               **({"workspace": work} if work else {}))
         del qp
         torch.cuda.empty_cache()
-    emit(phase, batch=batch, W=W, sizes=list(sizes), **recs)
+    emit(phase, sizes=list(shapes), **recs)
     need = {"hrec": ("ruiz", "kkt_factor", "admm_chunk"),
             "hrec_term_off": ("ruiz", "kkt_factor", "admm_chunk_dxdy",
                               "residuals"),
             "gain": ("ruiz", "kkt_factor_gain", "admm_chunk_gain"),
             "unfused": ("ruiz", "tridiag_factor", "tridiag_solve")}
     for key, rec in recs.items():
+        batch = rec["batch"]
         bad = [k for k, v in rec["kernels"].items() if not v["ok"]]
         if bad:
             fail(f"{phase} ({key}): kernel(s) outside tolerance of the "
@@ -4611,15 +4768,15 @@ def wide_block_checks(Nj, batch=WIDE_BATCH):
 
 
 def phase_lane_wide():
-    """The repair above 16 joints: the lane path at N = 17, 24, 32 and 64
-    (``lane_path_sizes`` at B=256: every kernel in every form against its
-    plain version in f64, each launch repeated bit for bit; the four solve
-    forms all optimal; at N=64 the gain chunk and the tridiagonal pair with
-    their rings in the workspace unforced), at N=32 the workspace
-    placements equal bit for bit to the on-chip ones, and the tridiagonal
-    pair alone at B2 = 34, 48, 64 and 96, on chip and (64, 96) in the
-    workspace."""
-    recs = lane_path_sizes("lane_wide", WIDE_SIZES, WIDE_BATCH)
+    """The lane kernels above 16 joints: the lane path at N = 17, 24, 32,
+    40, 64, 100 and 256 (``lane_path_sizes`` at WIDE_SHAPES: every kernel
+    in every form against its plain version in f64, each launch repeated
+    bit for bit; the four solve forms all optimal; from N=64 rings and
+    windows in the workspace unforced, as WIDE_UNFORCED says), at N=32 the
+    workspace placements equal bit for bit to the on-chip ones, and the
+    tridiagonal pair alone at B2 = 34, 48, 64, 96, 130, 200 and 512 where
+    the plans put them, and (64, 96) forced into the workspace."""
+    recs = lane_path_sizes("lane_wide", WIDE_SHAPES)
     tri = tridiag_sizes(WIDE_TRIDIAG)
     tri.update(tridiag_sizes(WIDE_TRIDIAG_WORKSPACE, budget=1))
     emit("lane_wide_tridiag", **tri)
@@ -4760,7 +4917,7 @@ def dh_solver(robot, max_waypoints=50, **settings):
     n = robot.n_joints
     return GOMPSolver(
         max_waypoints=max_waypoints, time_step=0.1,
-        settings=dataclasses.replace(Settings(), **PLANNER, **settings),
+        settings=dataclasses.replace(Settings(), **{**PLANNER, **settings}),
         pos_con=constraints.in_range(n, -2 * math.pi, 2 * math.pi),
         vel_con=constraints.in_range(n, -math.pi, math.pi),
         acc_con=constraints.in_range(n, -800 * math.pi / 180,
@@ -6065,6 +6222,219 @@ def phase_parallel_ranks(ref):
     return per_rank
 
 
+# ---------------------------------------------------------------------------
+# The reference's own problem batched (W=802): the honest class through the
+# lane driver (w802) and the full search (planner_w802).
+# ---------------------------------------------------------------------------
+# tools/jax_reference_counts.py w802: the JAX package in float32 on the CPU
+# on the first W802_REF_PROBLEMS problems of w802's batch: exit codes
+# (encode_statuses) and iteration counts (encode_iters) per problem.
+W802_REF = dict(statuses="0" * 16, code="88a8aaa8a8a8aaa8", p50=30)
+# tools/jax_reference_counts.py planner_w802: the same in the JAX search on
+# the first PLANNER_W802_REF_QUERIES queries: exit code, winning horizon
+# and SCP rounds per query.
+PLANNER_W802_REF = dict(statuses=[0] * 8, horizons=[320] * 8,
+                        rounds=[10, 11, 11, 10, 10, 11, 11, 10],
+                        admm_iters=[309, 318, 318, 309, 309, 318, 318, 309])
+# The JAX package's record of the same search on a TPU
+# (benchmarks/artifacts/r5/runbook/planner_full_w802_b512.json): the
+# counts the card's run is held to (not its times).
+PLANNER_W802_RECORD = dict(horizon_p50=320, scp_rounds_p50=10,
+                           admm_iters_p50=309)
+W802_ITERS_BAND = 0.1
+# The kernels of w802's path, each held alone at W=802, B=512.
+W802_KERNELS = ("ruiz", "kkt_factor", "admm_chunk", "admm_chunk_warmup",
+                "admm_chunk_dxdy", "residuals")
+W802_FORMS = {"term_fused": {}, "term_off": dict(term_fused="off")}
+
+
+def phase_w802():
+    """The honest class at the reference example's W=802, B=512, f32
+    (``honest_f32``: the numbers the JAX run gets), through
+    ``solve_batched_lane`` at ``benchmarks/w802_lane.py``'s settings with
+    the termination fused in the chunk and with ``term_fused="off"`` (the
+    delta-writing chunk and the residual kernel): every problem optimal in
+    both, statuses and counts equal problem for problem, the first
+    W802_REF_PROBLEMS' p50 within one chunk of the JAX f32 run's, the f64
+    criterion within 2 % on 16 problems, the path's kernels launched, no
+    plain version, one host read a chunk; the batch timed (median of 7).
+    Then each kernel of the path alone at this shape (``size_kernels``
+    with the warm-up form) against its plain version in f64, each launch
+    repeated bit for bit, with its launch plan."""
+    s0 = dataclasses.replace(Settings(), **W802_SETTINGS)
+    qp = honest_f32(W802_BATCH, W802_W, "cuda")
+    idx = torch.linspace(0, W802_BATCH - 1, 16).long()
+    recs, outs = {}, {}
+    for form, over in W802_FORMS.items():
+        s = dataclasses.replace(s0, **over)
+        res, c = solve_counts(qp, s)  # the path, once
+        times = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            admm_lane.solve_batched_lane(qp, s)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        ms = statistics.median(times) * 1e3
+        summ = iteration_summary(res, s)
+        it = res.iterations.cpu()
+        k = W802_REF_PROBLEMS
+        recs[form] = dict(
+            **summ, **c, f64_prim_dual_box=host_residual_check(qp, res, idx, s),
+            ms_per_batch=ms, qps_per_s=summ["optimal"] / (ms * 1e-3),
+            ms_all=[round(t * 1e3, 3) for t in times],
+            iterations_p50_first=int(it[:k].median()),
+            statuses_first=encode_statuses(res.status.cpu()[:k].numpy()),
+            code_first=encode_iters(it[:k].numpy(), s.check_termination),
+            shape_x=list(res.x.shape))
+        outs[form] = (res.status.cpu(), it)
+        del res
+    a, b = outs["term_fused"], outs["term_off"]
+    differ = dict(statuses=int((a[0] != b[0]).sum()),
+                  iterations=int((a[1] != b[1]).sum()))
+    kern, ptx = size_kernels(N, qp, s0, ref=False, warmup=True)
+    emit("w802", W=W802_W, batch=W802_BATCH, settings=W802_SETTINGS, **recs,
+         fused_vs_off_differ=differ, jax_f32_first=W802_REF, kernels=kern,
+         ptxas=ptx)
+    need = {"term_fused": LANE_KERNELS, "term_off": UNFUSED_KERNELS}
+    for form, rec in recs.items():
+        if rec["optimal"] != W802_BATCH or not rec["finite"] or rec[
+                "shape_x"] != [W802_BATCH, 2 * W802_W * N]:
+            fail(f"w802 ({form}): {rec['optimal']}/{W802_BATCH} optimal")
+        if max(rec["f64_prim_dual_box"][:2]) > 1.02 or rec[
+                "f64_prim_dual_box"][2] > 1e-4:
+            fail(f"w802 ({form}): float64 recomputation violates OSQP's "
+                 f"criterion {rec['f64_prim_dual_box']}")
+        if rec["plain_calls"] or min(rec["launches"][k] for k in need[form]) < 1:
+            fail(f"w802 ({form}): launches {rec['launches']}, plain versions "
+                 f"{rec['plain_calls']}")
+        if rec["host_syncs"] != rec["chunks"]:
+            fail(f"w802 ({form}): {rec['host_syncs']} host reads for "
+                 f"{rec['chunks']} chunks")
+        if abs(rec["iterations_p50_first"] - W802_REF["p50"]) > \
+                s0.check_termination:
+            fail(f"w802 ({form}): iterations p50 of the first "
+                 f"{W802_REF_PROBLEMS} {rec['iterations_p50_first']}, the "
+                 f"JAX f32 run's {W802_REF['p50']}")
+    if any(differ.values()):
+        fail(f"w802: fused and unfused termination differ: {differ}")
+    bad = [k for k, v in kern.items() if not v["ok"]]
+    if bad:
+        fail(f"w802: kernel(s) at W=802, B=512 outside tolerance of the f64 "
+             f"plain version or not equal run to run: {bad}")
+    launches = dict(recs["term_off"]["launches"])
+    launches.update({k: v for k, v in recs["term_fused"]["launches"].items()
+                     if k in LANE_KERNELS})
+    return launches, kern
+
+
+def phase_planner_w802():
+    """The flagship full search: ``run_batch_padded`` on W802_BATCH UR5e
+    queries of ``benchmarks/planner_batch.py --full --waypoints 802 --ct 3
+    --rho 0.02 --scaling 3`` (``ur5e_solver``, ``fleet_queries``; the rest
+    stock ``Settings()``: max_iter 4000, stall detection on), float32:
+    every query optimal, the horizon and SCP-round p50 as the JAX
+    package's record of the same search, admm_iters p50 within
+    W802_ITERS_BAND of it, the first PLANNER_W802_REF_QUERIES queries'
+    statuses and horizons as the JAX f32 CPU run's and their SCP rounds
+    within 2, the exact-FK audit, fused and unfused termination equal, the
+    lane kernels launched and no plain version, one planner read a round;
+    ms per batch and queries/s the median of 2 calls after the first."""
+    solver = ur5e_solver(W802_W, [], **PLANNER_W802)
+    starts, ends = fleet_queries(W802_BATCH, np.random.default_rng(0))
+    solves = count_solves(solver)
+    with PlainCalls() as plain:
+        out, counts, syncs = run_search(solver, starts, ends)  # the path
+    del solver._solve
+    ct = solver.settings.check_termination
+    rounds_run = len(solves)
+    chunks = sum(-(-int(it.max()) // ct) for it in solves)
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.run_batch_padded(starts, ends)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = statistics.median(times) * 1e3
+    summary = search_summary(out)
+    audit = audit_plans(solver, out[0], out[1], out[2])
+    solver.settings = dataclasses.replace(solver.settings, term_fused="off")
+    with PlainCalls() as plain_u:
+        out_u, counts_u, _ = run_search(solver, starts, ends)
+    differ = {name: int((a != b).sum()) for name, a, b in zip(
+        ("status", "trajectory", "horizon", "scp_rounds", "admm_iters"),
+        out, out_u) if name != "trajectory"}
+    k = PLANNER_W802_REF_QUERIES
+    st, hz, rounds = (t.cpu()[:k] for t in (out[0], out[2], out[3]))
+    first = dict(statuses=st.tolist(), horizons=hz.tolist(),
+                 rounds=rounds.tolist(), admm_iters=out[4].cpu()[:k].tolist())
+    rec = dict(W_max=W802_W, batch=W802_BATCH, settings=PLANNER_W802,
+               **summary, horizon_p50=pct(out[2], 50), ms_per_batch=ms,
+               queries_per_s=summary["optimal"] / (ms * 1e-3),
+               ms_all=[round(t * 1e3, 1) for t in times], **syncs,
+               batch_scp_rounds=rounds_run, solver_chunks=chunks,
+               launches=counts, plain_calls=dict(plain.calls),
+               unfused_launches=counts_u,
+               unfused_plain_calls=dict(plain_u.calls),
+               unfused_differs_in=differ, audit=audit, first=first,
+               jax_f32_first=PLANNER_W802_REF, record=PLANNER_W802_RECORD,
+               finite=bool(torch.isfinite(out[1]).all()),
+               shape_traj=list(out[1].shape))
+    emit("planner_w802", **rec)
+    if rec["optimal"] != W802_BATCH or not rec["finite"] or rec[
+            "shape_traj"] != [W802_BATCH, 2 * W802_W * N]:
+        fail(f"planner_w802: {rec['optimal']}/{W802_BATCH} optimal")
+    ref = PLANNER_W802_RECORD
+    if rec["horizon_p50"] != ref["horizon_p50"] or rec[
+            "scp_rounds_p50"] != ref["scp_rounds_p50"]:
+        fail(f"planner_w802: horizon p50 {rec['horizon_p50']}, SCP rounds "
+             f"p50 {rec['scp_rounds_p50']}, the record's {ref}")
+    if abs(rec["admm_iters_p50"] - ref["admm_iters_p50"]) > \
+            W802_ITERS_BAND * ref["admm_iters_p50"]:
+        fail(f"planner_w802: admm_iters p50 {rec['admm_iters_p50']} outside "
+             f"{W802_ITERS_BAND:.0%} of the record's {ref['admm_iters_p50']}")
+    jr = PLANNER_W802_REF
+    if (first["statuses"] != jr["statuses"]
+            or first["horizons"] != jr["horizons"]
+            or max(abs(a - b) for a, b in zip(first["rounds"],
+                                              jr["rounds"])) > 2):
+        fail(f"planner_w802: the first {k} queries {first}, the JAX f32 "
+             f"run's {jr}")
+    if audit["workspace_margin"] < -(ERROR + 1e-5):
+        fail(f"planner_w802: exact-FK audit: gripper ball leaves the "
+             f"workspace box by {-audit['workspace_margin']:.2e}")
+    if audit["velocity_mismatch"] > 0.2:
+        fail("planner_w802: velocities are not position differences over dt")
+    if any(differ.values()):
+        fail(f"planner_w802: term_fused='off' changed the search: {differ}")
+    if rec["plain_calls"] or rec["unfused_plain_calls"] or min(
+            counts[k_] for k_ in LANE_KERNELS) < 1 or min(
+            counts_u[k_] for k_ in UNFUSED_KERNELS) < 1:
+        fail(f"planner_w802: launches {counts} / {counts_u}, plain versions "
+             f"{rec['plain_calls']} / {rec['unfused_plain_calls']}")
+    if syncs["planner_host_syncs"] != rounds_run or \
+            syncs["solver_host_syncs"] != chunks:
+        fail(f"planner_w802: {syncs} host reads for {rounds_run} SCP rounds "
+             f"of the batch and {chunks} chunks of their solves")
+    return counts
+
+
+def count_solves(solver):
+    """Wrap ``solver._solve`` (one call a batch SCP round) so that it keeps
+    the iterations each call returned.  Returns that list; ``del
+    solver._solve`` takes the wrapper off."""
+    calls = []
+    inner = solver._solve
+
+    def counted(qp_t, settings, x, y):
+        res = inner(qp_t, settings, x, y)
+        calls.append(res.iterations)
+        return res
+    solver._solve = counted
+    return calls
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="all",
@@ -6096,37 +6466,8 @@ def main():
     t_start = time.time()
     torch.manual_seed(0)
     phase_device()
-    # Layout signatures: honest class and the sphere fleet (two balls, one
-    # obstacle), box-only, and the obstacle-free planner (gripper rows only).
-    # The kernels that read P (Ruiz, residuals) add the P form, BLOCK_P.
-    honest_sig = {"NDIM": N, "NX": 5}
     if "build" in want:
-        sigs = [{"B2": 2 * N}, {}] + [
-            {"B2": b2} for b2, _, _ in TRIDIAG_SIZES.values() if b2 != 2 * N]
-        if "lane_sizes" in want:
-            sigs += [s_ for n in LANE_SIZES for s_ in size_signatures(n)]
-        if "lane_wide" in want:
-            sigs += [s_ for n in WIDE_SIZES for s_ in size_signatures(n)]
-            sigs += [{"NDIM": n, "NX": 5, "BLOCK_P": 1}
-                     for n in WIDE_BLOCK_SIZES]
-            sigs += [{"B2": b2} for b2, _, _ in WIDE_TRIDIAG.values()]
-        if "planner_dh" in want:  # the iiwa14 and the SCARA, two balls
-            for n in (7, 4):
-                sigs += [{"NDIM": n, "NX": 3},
-                         {"NDIM": n, "NX": 3, "BLOCK_P": 0}, {"B2": 2 * n}]
-        if "examples" in want:  # the DH example's iiwa14 through run
-            sigs.append({"B2": 14})
-        if "parallel_one" in want:  # multihost's worker: N=3 planners
-            sigs += MULTIHOST_SIGNATURES
-        for nx in (5, 0, 3):  # honest; box; planner_full
-            if nx == 5 or (nx == 0 and "box" in want) or (
-                    nx == 3 and want & {"planner_full", "planner_batch",
-                                        "examples", "parallel_one",
-                                        "parallel_ranks"}):
-                sigs += [{"NDIM": N, "NX": nx},
-                         {"NDIM": N, "NX": nx, "BLOCK_P": 0}]
-        sigs.append(dict(honest_sig, BLOCK_P=1))
-        phase_build(sigs, want)
+        phase_build(build_signatures(want), want)
     kernels = phase_kernels() if "kernels" in want else []
     bench = dataclasses.replace(Settings(), **BENCH)
     launches = {}
@@ -6241,6 +6582,23 @@ def main():
                 wide.setdefault("tridiag_" + part, {})[key] = {
                     f: rec[part][f] for f in ("ms", "plain_ms", "bound_ms",
                                               "bound_by")}
+    # This slice's main path: the reference's own problem batched, through
+    # the lane driver and through the full search; their launches are the
+    # table's, and each row's time alone at W=802, B=512 beside it.
+    w802 = {}
+    if "w802" in want:
+        by_path["w802"], kern802 = phase_w802()
+        for name, k in kern802.items():
+            row = "admm_chunk" if name == "admm_chunk_warmup" else name
+            w802.setdefault(row, {})[
+                "warmup_form" if name != row else "main"] = {
+                f: k.get(f) for f in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "plan")}
+    if "planner_w802" in want:
+        by_path["planner_w802"] = phase_planner_w802()
+    for path in ("w802", "planner_w802"):
+        launches.update({k: v for k, v in by_path.get(path, {}).items()
+                         if v})
 
     csrc = "osqp_solver_tpu_torch/csrc/"
     ops = "osqp_solver_tpu/ops/"
@@ -6274,6 +6632,7 @@ def main():
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             **({"sizes": k["sizes"]} if "sizes" in k else {}),
             **({"wide": wide[k["name"]]} if k["name"] in wide else {}),
+            **({"w802": w802[k["name"]]} if k["name"] in w802 else {}),
             # the W=10,000 batch-1 and Schur times (horizon_long)
             **({"long_horizon": {key: t for key, t in long_times.items()
                                  if k["name"].split("_")[1] in key}}
@@ -6282,6 +6641,7 @@ def main():
                                  for p_, c in by_path.items()},
         })
     RECORDS["seconds_total"] = round(time.time() - t_start, 1)
+    RECORDS["kernel_table"] = table
     if opts.out:
         with open(opts.out, "w") as f:
             json.dump(RECORDS, f, indent=1)
@@ -6298,4 +6658,11 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    except Exception as exc:  # the records so far, then the traceback
+        if OUT:
+            with open(OUT, "w") as f:
+                json.dump(dict(RECORDS, failed=repr(exc)), f, indent=1,
+                          default=str)
+        raise

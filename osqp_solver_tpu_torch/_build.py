@@ -18,8 +18,10 @@ import every module of the package.
 mode (``-std=c++20 -pthread -DLANE_HOST_EMULATION -DLANE_REAL=double``: a
 cooperative launch runs each block's threads as fibers of the calling
 thread, switched at every barrier), which lets a test check a kernel's
-arithmetic, in double, without a GPU.
-The solver never takes that path.
+arithmetic, in double, without a GPU; :func:`float_library` builds them in
+float with the card's warp of 32: their plan functions plan as on a card of
+a given shared memory and SM count, and their kernels run the card's
+arithmetic in float.  The solver never takes either path.
 """
 from __future__ import annotations
 
@@ -71,25 +73,45 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _target(name: str, signature: dict, host: bool, csrc: Path = CSRC):
+# Host emulation's build modes: the defines that set them (``None``: the
+# card's build with nvcc).  In double (the tests' checks of a kernel's
+# arithmetic); :func:`float_library` adds the float mode.
+HOST = {"LANE_REAL": "double"}
+
+
+def _float_mode(smem: int, sms: int) -> dict:
+    """Host emulation in float with the card's warp of 32, planning as on a
+    card whose blocks may use ``smem`` bytes of shared memory and which has
+    ``sms`` SMs."""
+    return {"LANE_REAL": "float", "LANE_EMU_WARP": 32,
+            "LANE_EMU_SMEM": int(smem), "LANE_EMU_SMS": int(sms)}
+
+
+def _target(name: str, signature: dict, mode, csrc: Path = CSRC):
+    """The source and library path of one build (``mode``: as
+    :data:`HOST`)."""
     src = csrc / f"{name}.cu"
     h = hashlib.sha256()
     for f in sorted(csrc.glob("*.cu*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     sig = "_".join(f"{k}{v}" for k, v in sorted(signature.items()))
-    h.update(f"{sig}|{host}".encode())
-    tag = "host_" if host else ""
+    if mode is None or mode == HOST:
+        h.update(f"{sig}|{mode is not None}".encode())
+        tag = "" if mode is None else "host_"
+    else:
+        h.update(f"{sig}|{sorted(mode.items())}".encode())
+        tag = "float_"
     return src, build_dir() / f"{name}_{tag}{sig}_{h.hexdigest()[:12]}.so"
 
 
-def _command(src: Path, out: Path, signature: dict, host: bool):
+def _command(src: Path, out: Path, signature: dict, mode):
     defs = [f"-D{k}={v}" for k, v in sorted(signature.items())]
-    if host:
+    if mode is not None:
         return [
             "g++", "-x", "c++", "-std=c++20", "-pthread", "-O1", "-shared",
-            "-fPIC",
-            "-DLANE_HOST_EMULATION", "-DLANE_REAL=double",
+            "-fPIC", "-DLANE_HOST_EMULATION",
+            *[f"-D{k}={v}" for k, v in mode.items()],
             *defs, "-o", str(out), str(src),
         ]
     return [_nvcc(), *_NVCC_FLAGS, *defs, "-o", str(out), str(src)]
@@ -98,15 +120,20 @@ def _command(src: Path, out: Path, signature: dict, host: bool):
 def start_build(name: str, signature: dict, host: bool = False,
                 csrc: Path = CSRC):
     """Start one compiler process (or none if the library exists) on
-    ``csrc/<name>.cu`` (by default this package's sources).  Returns a
-    handle for :func:`finish_build`."""
-    src, out = _target(name, signature, host, Path(csrc))
+    ``csrc/<name>.cu`` (by default this package's sources), for the card
+    or, with ``host``, in host emulation in double.  Returns a handle for
+    :func:`finish_build`."""
+    return _start(name, signature, HOST if host else None, Path(csrc))
+
+
+def _start(name: str, signature: dict, mode, csrc: Path):
+    src, out = _target(name, signature, mode, csrc)
     if out.exists():
         return (name, out, None, 0.0)
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.Popen(
-        _command(src, tmp, signature, host),
+        _command(src, tmp, signature, mode),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     return (name, out, (proc, tmp), time.time())
@@ -123,8 +150,10 @@ def finish_build(handle) -> Path:
         raise RuntimeError(
             f"building {name} failed (exit {proc.returncode}):\n{log}"
         )
+    # The compiler's own time: its output's last write (builds started
+    # together are finished one after the other here).
     out.with_suffix(".log").write_text(
-        log + f"\nbuild_seconds {time.time() - t0:.2f}\n"
+        log + f"\nbuild_seconds {tmp.stat().st_mtime - t0:.2f}\n"
     )
     os.replace(tmp, out)
     return out
@@ -149,6 +178,26 @@ def library(name: str, signature: dict, host: bool = False):
     lib = _LIBS.get(key)
     if lib is None:
         path = finish_build(start_build(name, signature, host))
+        lib = _LIBS[key] = ctypes.CDLL(str(path))
+    return lib
+
+
+def start_float_build(name: str, signature: dict, smem: int, sms: int):
+    """:func:`start_build` of :func:`float_library`'s build."""
+    return _start(name, signature, _float_mode(smem, sms), CSRC)
+
+
+def float_library(name: str, signature: dict, smem: int, sms: int):
+    """``csrc/<name>.cu`` built with ``g++`` in float with the card's warp
+    of 32 (host emulation otherwise) for a card whose blocks may use
+    ``smem`` bytes of shared memory and which has ``sms`` SMs: its plans,
+    and the bytes in them, are that card's, and its kernels run the card's
+    arithmetic in float, each product and sum rounded on its own (no fused
+    multiply-add).  A launch has the emulated store (512 KB) alone."""
+    key = (name, tuple(sorted(signature.items())), "float", smem, sms)
+    lib = _LIBS.get(key)
+    if lib is None:
+        path = finish_build(start_float_build(name, signature, smem, sms))
         lib = _LIBS[key] = ctypes.CDLL(str(path))
     return lib
 
@@ -219,6 +268,12 @@ def workspace(nbytes: int, device):
 
 
 def check(err: int, what: str) -> None:
-    """Raise if a C entry point returned a non-zero ``cudaGetLastError``."""
+    """Raise if a C entry point returned a non-zero ``cudaGetLastError``, or
+    -1: its plan refused the launch (it does not fit the device's shared
+    memory, a workspace is missing, or a size is out of range)."""
+    if err == -1:
+        raise RuntimeError(f"{what}: refused by its launch plan (it does not "
+                           "fit the device's shared memory, a workspace is "
+                           "missing, or a size is out of range)")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")

@@ -298,32 +298,37 @@ __device__ __forceinline__ real group_solve(const Tile& ch, real v,
         // The columns across the group as below, lane j's element passed
         // through the slot (a place per column and sweep, written once a
         // step: one group barrier a column; the step's barrier separates
-        // the steps).
+        // the steps).  Each lane's element is carried in dot_t (double
+        // above N = 128, where the 2N updates in float left the delta form
+        // past its tolerance of float64).
         const int i = a.lane;
         const real cii = ch[LOW(i < B2 ? i : 0, i < B2 ? i : 0)];
         real* lo = a.slot + SL_XCH;
         real* up = lo + G;
+        dot_t vd = v;
         if (LOWER) {
 #pragma unroll 1
             for (int j = 0; j < B2; ++j) {
-                if (i == j) lo[j] = v / cii;
+                if (i == j) lo[j] = real(vd / cii);
                 lane_group_sync(a.g, G);
                 const real yj = lo[j];
-                if (i == j) v = yj;
-                else if (i > j && i < B2) v = v - ch[LOW(i, j)] * yj;
+                if (i == j) vd = yj;
+                else if (i > j && i < B2)
+                    vd = vd - dot_t(ch[LOW(i, j)]) * yj;
             }
         }
         if (UPPER) {
 #pragma unroll 1
             for (int k = B2 - 1; k >= 0; --k) {
-                if (i == k) up[k] = v / cii;
+                if (i == k) up[k] = real(vd / cii);
                 lane_group_sync(a.g, G);
                 const real xk = up[k];
-                if (i == k) v = xk;
-                else if (i < k) v = v - ch[LOW(k, i)] * xk;
+                if (i == k) vd = xk;
+                else if (i < k)
+                    vd = vd - dot_t(ch[LOW(k, i)]) * xk;
             }
         }
-        return v;
+        return real(vd);
     } else if constexpr (LANE_SOLVE) {
         const int i = a.lane;
         const real cii = ch[LOW(i < B2 ? i : 0, i < B2 ? i : 0)];
@@ -421,11 +426,11 @@ __device__ __forceinline__ void forward_pass(const Args& a) {
             // rhs_t - G_{t-1} w_{t-1}, G upper-triangular.
             if (t > 0 && i < B2) {
                 const Tile gn{sg + o_gain(false) * QS};
-                real acc = real(0);
-#pragma unroll
+                dot_t acc = dot_t(0);
+                LANE_UNROLL_N
                 for (int c = 0; c < B2; ++c)
-                    if (c >= i) acc = acc + gn[UP(i, c)] * hp[c];
-                v = v - acc;
+                    if (c >= i) acc = acc + dot_t(gn[UP(i, c)]) * hp[c];
+                v = v - real(acc);
             }
             v = group_solve<true, false>(ch, v, a);  // w_t
         } else {
@@ -507,11 +512,11 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
             real v = real(0);
             if (i < B2) {
                 const Tile gn{sg + o_gain(TERM) * QS};
-                real gx = real(0);
-#pragma unroll
+                dot_t gx = dot_t(0);
+                LANE_UNROLL_N
                 for (int c = 0; c < B2; ++c)
-                    if (c <= i) gx = gx + gn[UP(c, i)] * xn[c];
-                v = (t < a.W - 1) ? h - gx : h;
+                    if (c <= i) gx = gx + dot_t(gn[UP(c, i)]) * xn[c];
+                v = (t < a.W - 1) ? h - real(gx) : h;
             }
             xt = group_solve<false, true>(ch, v, a);
         } else {

@@ -309,7 +309,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     // ... of this lane (the Q problems of a warp's store are adjacent).
     const auto store_chol = [&](const real* cslot, int t) {
         real* out = cholp + (size_t)t * Tp * Bs + b;
-#pragma unroll
+        LANE_UNROLL_TRI
         for (int m = 0; m < (Tp + G - 1) / G; ++m) {
             const int e = l + m * G;
             if (e < Tp) out[(size_t)e * Bs] = e < T ? cslot[e * Q] : real(0);
@@ -332,23 +332,23 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
                 if constexpr (LANE_ROWS) return slot[k * Q];
                 else return Sr[k];
             };
-#pragma unroll
+            LANE_UNROLL_TRI
             for (int k = 0; k < T; ++k) S(k) = real(0);
             // Dense q-block J' rho J of the workspace / obstacle rows.
 #pragma unroll
             for (int k = 0; k < NX; ++k) {
                 const real rr = rho(t, Rp, R_X + k);
                 real f[N];
-#pragma unroll
+                LANE_UNROLL_TRI
                 for (int j = 0; j < N; ++j) f[j] = coef(t, CRp, C_X + k * N + j);
-#pragma unroll
+                LANE_UNROLL_TRI
                 for (int i = 0; i < N; ++i) {
                     const real fi = f[i] * rr;
-#pragma unroll
+                    LANE_UNROLL_TRI
                     for (int j = 0; j <= i; ++j) S(LOW(i, j)) += fi * f[j];
                 }
             }
-#pragma unroll
+            LANE_UNROLL_TRI
             for (int j = 0; j < N; ++j) {
                 const real rd = rho(t, Rp, R_DYN + j);
                 const real ra = rho(t, Rp, R_ACC + j);
@@ -530,7 +530,9 @@ static int launch_form(bool gain, const FactorPlan& p, void* stream,
 // launch needs (0: none; the wide form where no waypoint fits on chip): the
 // plan kkt_factor_launch makes on the current device.  budget <= 0: the
 // device's (the host-emulation tests pass a small budget to reach several
-// windows, or the workspace).
+// windows, or the workspace).  Returns -1 where not one waypoint fits the
+// shared memory of the budget or the device (kkt_factor_launch refuses it
+// too).
 extern "C" int kkt_factor_plan(int W, int B, int budget, long long* plan) {
     int dev_smem = 0, sms = 0;
     const int err = lane_device_limits(&dev_smem, &sms);
@@ -541,7 +543,7 @@ extern "C" int kkt_factor_plan(int W, int B, int budget, long long* plan) {
                             p.smem,   p.blocks, p.threads, budget,
                             p.work * p.blocks * (long long)sizeof(real)};
     for (int k = 0; k < 9; ++k) plan[k] = v[k];
-    return 0;
+    return p.TW == 0 || p.smem > dev_smem ? -1 : 0;
 }
 
 // gainp: null for the chol-only form (emit_gain=False).  budget: as

@@ -563,7 +563,8 @@ RUIZ_UNROLL
 // planned for: the plan ruiz_launch makes on the current device.  budget <=
 // 0: the device's; threads <= 0: the build's own cap (the host-emulation
 // tests pass fewer, and a small budget, to reach runs of several waypoints
-// and the placement in device memory).
+// and the placement in device memory).  Returns -1 where no plan fits the
+// device's shared memory (ruiz_launch refuses it too).
 extern "C" int ruiz_plan(int W, int B, int budget, int threads,
                          long long* plan) {
     int dev_smem = 0, sms = 0;
@@ -574,7 +575,7 @@ extern "C" int ruiz_plan(int W, int B, int budget, int threads,
     const long long v[9] = {p.G,      p.Q,       p.rpt, p.sm,  p.smem,
                             p.blocks, p.threads, p.np,  budget};
     for (int k = 0; k < 9; ++k) plan[k] = v[k];
-    return 0;
+    return p.G == 0 || p.smem > dev_smem ? -1 : 0;
 }
 
 // D (W, 2N, B), E (W, Rp, B), c (B,) are written whole.  budget, threads:

@@ -337,8 +337,8 @@ def check_kernel_limits(qp, device) -> None:
     launch its kernels: above :data:`MAX_KERNEL_JOINTS` joints a problem's
     group of threads and its producers outgrow a block.  Up to there every
     lane kernel launches (above 16 joints in its wide form; ``chip_smoke.py``
-    holds them on the card at N = 4-32 and 64).  The plain versions on the
-    CPU have no limit."""
+    holds them on the card at N = 4-32, 40, 64, 100 and 256: groups of up
+    to 512 threads).  The plain versions on the CPU have no limit."""
     if torch.device(device).type != "cuda":
         return
     if qp.n_dim > MAX_KERNEL_JOINTS:

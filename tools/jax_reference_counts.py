@@ -2,9 +2,11 @@
 """Iteration counts of the JAX package on the problems of ``chip_smoke.py``
 (float32, CPU): the references its ``dense``, ``dense_session``,
 ``trajectory_generic``, ``solve_block_p``, ``solve_w3``, ``solve_anderson``,
-``planner_long`` and ``planner_dh`` phases hold the port to, the iteration
-counts ``horizon_long`` prints beside its own (``long_horizon``), the planner
-statistics its
+``planner_long``, ``planner_dh``, ``w802`` and ``planner_w802`` phases hold
+the port to (and ``planner_w802_f64``: its query 1 in float64, which
+``tests/test_torch_planner_w802.py`` holds the port's float64 run to), the
+iteration counts ``horizon_long`` prints beside its own (``long_horizon``),
+the planner statistics its
 ``planner_run`` and ``examples`` phases print beside their own, the
 unpolished and polished statuses of ``solve_polish``'s batch, and the
 block-P fleet at a CPU-sized batch in both packages
@@ -21,10 +23,10 @@ on a machine with JAX:
 (all configurations without arguments; ``solve_block_p`` alone takes a few
 minutes, ``planner_run`` (the reference example at W_max=802: ``run_padded``,
 one compile, and ``run``, one compile per horizon) about ten, and
-``solve_anderson``, ``solve_polish``, ``planner_long`` and
-``planner_dh`` a few each).  Prints one JSON line per configuration; the ``code`` strings are
-the per-problem (per-step) counts in ``chip_smoke.encode_iters`` form, and
-``p50`` is the lower median, as ``torch.median`` takes it.
+``solve_anderson``, ``solve_polish``, ``planner_long``, ``planner_dh``,
+``w802`` and ``planner_w802`` a few each).  Prints one JSON line per
+configuration; the ``code`` strings are the per-problem (per-step) counts
+in ``chip_smoke.encode_iters`` form, and ``p50`` is the lower median, as ``torch.median`` takes it.
 """
 from __future__ import annotations
 
@@ -245,6 +247,69 @@ def planner_dh():
             "wall_s": round(time.time() - t0, 1)}), flush=True)
 
 
+def w802():
+    """``chip_smoke.w802``: the first ``chip_smoke.W802_REF_PROBLEMS``
+    problems of its batch (the honest class at W=802, float32) at its
+    settings (``benchmarks/w802_lane.py --ct 3 --rho 0.02``, adaptation
+    at 60): statuses and iteration counts per problem."""
+    jqp = jax_lane(cs.honest_f32(cs.W802_REF_PROBLEMS, cs.W802_W, "cpu"))
+    s = dataclasses.replace(admm.Settings(), **cs.W802_SETTINGS,
+                            fused_chunk="off")
+    r = jax.jit(lambda q: admm_lane.solve_batched_lane(q, s))(jqp)
+    summary("w802", r.iterations, s.check_termination, r.status,
+            s.termination_warmup % s.check_termination,
+            statuses=cs.encode_statuses(np.asarray(r.status)),
+            waypoints=cs.W802_W)
+
+
+def planner_w802(f64_queries=None):
+    """``chip_smoke.planner_w802``: the full search (``run_batch_padded``)
+    of ``benchmarks/planner_batch.py --full --waypoints 802 --ct 3 --rho
+    0.02 --scaling 3`` in the JAX package, float32, on the first
+    ``chip_smoke.PLANNER_W802_REF_QUERIES`` of its queries: statuses,
+    winning horizons, SCP rounds and ADMM iterations per query.  With
+    ``f64_queries``, in float64 on those queries instead (the figures
+    ``tests/test_torch_planner_w802.py`` holds the port's float64 run to;
+    x64 stays on for the rest of the process)."""
+    import time
+
+    from osqp_solver_tpu import constraints as C
+    from osqp_solver_tpu.gomp.planner import GOMPSolver
+    from osqp_solver_tpu.models import ur5e
+
+    if f64_queries is not None:
+        jax.config.update("jax_enable_x64", True)
+    dtype = jnp.float32 if f64_queries is None else jnp.float64
+    solver = GOMPSolver(
+        max_waypoints=cs.W802_W, time_step=0.1, segments=10,
+        settings=dataclasses.replace(admm.Settings(), **cs.PLANNER_W802),
+        pos_con=C.in_range(6, -2 * np.pi, 2 * np.pi),
+        vel_con=C.in_range(6, -np.pi, np.pi),
+        acc_con=C.in_range(6, -np.pi * 800 / 180, np.pi * 800 / 180),
+        con_3d=C.in_range(3, [-C.INF, -0.4, -C.INF], None),
+        obstacles=[],
+        balls=[ur5e.make_ball("back6", 0.15),
+               ur5e.make_ball("tool", 0.05, is_gripper=True)],
+        dtype=dtype,
+    )
+    starts, ends = cs.fleet_queries(cs.W802_BATCH, np.random.default_rng(0))
+    k = cs.PLANNER_W802_REF_QUERIES
+    pick = list(range(k)) if f64_queries is None else list(f64_queries)
+    cast = np.float32 if f64_queries is None else np.float64
+    t0 = time.time()
+    st, _, hz, rounds, iters = solver.run_batch_padded(
+        starts[pick].astype(cast), ends[pick].astype(cast))
+    print(json.dumps({
+        "config": "planner_w802" + ("" if f64_queries is None else "_f64"),
+        "queries": pick,
+        "optimal": int((np.asarray(st) == 0).sum()),
+        "statuses": [int(v) for v in np.asarray(st)],
+        "horizons": [int(v) for v in np.asarray(hz)],
+        "rounds": [int(v) for v in np.asarray(rounds)],
+        "admm_iters": [int(v) for v in np.asarray(iters)],
+        "wall_s": round(time.time() - t0, 1)}), flush=True)
+
+
 def mpc_fleet_block_p(batch=64):
     """``chip_smoke.mpc_fleet_block_p``'s fleet at a CPU-sized batch (its
     block-P batch, ``BLOCK_FLEET_TICKS`` ticks of the moving goal), float32,
@@ -403,8 +468,14 @@ def main():
                                  "solve_w3", "planner_run", "solve_anderson",
                                  "solve_polish", "planner_long",
                                  "planner_dh", "examples",
-                                 "mpc_fleet_block_p", "long_horizon"}
+                                 "mpc_fleet_block_p", "long_horizon",
+                                 "w802", "planner_w802",
+                                 "planner_w802_f64"}
     settings = admm.Settings()
+    if "w802" in want:
+        w802()
+    if "planner_w802" in want:
+        planner_w802()
     if "long_horizon" in want:
         long_horizon()
     if "solve_anderson" in want:
@@ -479,6 +550,9 @@ def main():
         _, (_, st4b, it4b) = jax.jit(lambda se, u: S.mpc_scan(
             se, u, shift_goal, s4b))(sess4b, jnp.asarray(cs.goal_deltas()))
         summary("trajectory_config4b", it4b, s4b.check_termination, st4b)
+
+    if "planner_w802_f64" in want:  # last: it turns x64 on
+        planner_w802(f64_queries=[1])
 
 
 if __name__ == "__main__":
