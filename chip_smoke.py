@@ -7,9 +7,9 @@ Run it from the repository root on a machine with one NVIDIA Hopper GPU:
 
 It builds the hand-written kernels from ``osqp_solver_tpu_torch/csrc`` (six
 sources and the fast-math check; three layout signatures of the lane kernels, the Ruiz and residual
-kernels also in their block-P form, the tridiagonal one at B2=8 to 512,
-the lane sources also at N=4, 7, 9, 10, 12, 16, 17, 24, 32, 40, 64, 100
-and 256, and the dense one; all
+kernels also in their block-P form, the tridiagonal one at B2=8 to 600,
+the lane sources also at N=4, 7, 9, 10, 12, 16, 17, 24, 32, 40, 64, 100,
+256 and 300, and the dense one; all
 compilers started together), holds each kernel — the
 chunk kernel in its accumulator, warm-up and delta-writing forms, each in
 the ``hrec`` and the ``gain`` factor form, the factor kernel with and
@@ -87,12 +87,15 @@ drives the port's entry points:
   ``anderson=4`` fused, with unfused termination, unfused and with ρ
   adaptation firing (``solve_anderson``, held to the JAX f32 run);
 * the lane kernels above 16 joints (``lane_wide``): their wide forms at
-  N=17, 24, 32, 40 and 64 (W=100, B=256), 100 (W=50, B=64) and 256 (W=20,
-  B=8) as ``lane_sizes`` holds them (groups of 64 to 512 threads; from
-  N=64 the plans put rings and windows in the device-memory workspace), at
-  N=32 also with their rings and windows forced into the workspace (equal
-  bits), the block-P builds and solve at N=17 and 32, and the tridiagonal
-  pair alone at B2=34, 48, 64, 96, 130, 200 and 512, on chip and in the
+  N=17, 24, 32, 40 and 64 (W=100, B=256), 100 (W=50, B=64), 256 (W=20,
+  B=8) and 300 (W=10, B=8) as ``lane_sizes`` holds them (groups of 64 to
+  512 threads, at N=300 each thread owning two columns; from N=64 the
+  plans put rings and windows in the device-memory workspace), at N=300
+  also a session's setup and one tick and a polished solve (this slice's
+  main path: its launches are the kernel table's), at N=32 also with
+  their rings and windows forced into the workspace (equal bits), the
+  block-P builds and solve at N=17 and 32, and the tridiagonal pair alone
+  at B2=34, 48, 64, 96, 130, 200, 512 and 600, on chip and in the
   workspace;
 * generic DH arms: the presets' float32 kinematics and batched DLS IK
   against float64 on the host (``dh_arms``), and this slice's main path
@@ -4153,29 +4156,36 @@ def phase_trajectory_generic():
 LANE_SIZES = (7, 9, 10, 12, 16)
 SIZE_SEED = 12
 # Above 16 joints (lane_wide): the wide forms (a group of 64 threads at
-# N=17-32, 128 at N=33-64, 256 at N=65-128 and 512 at N=129-256, one
-# problem a block) at W=100, B=256, and at N=100 and 256 at the sizes whose
-# f32 factor array and f64 plain versions fit beside each other on the card
-# (200^2 x 4 x 50 x 64 = 512 MB, 512^2 x 4 x 20 x 8 = 168 MB); N=40 is a
-# partial group of 128 (a humanoid's joint count), 100 one of 256, 256 a
-# full group of 512 at tridiag_kernel.MAX_B2.  At N=32 also with their
-# rings and windows forced into the device-memory workspace; from N=64 the
-# plans put rings and windows there unforced (WIDE_UNFORCED); the
-# tridiagonal pair alone up to B2=512, on chip and in the workspace.
-WIDE_SIZES = (17, 24, 32, 40, 64, 100, 256)
+# N=17-32, 128 at N=33-64, 256 at N=65-128 and 512 above, one problem a
+# block) at W=100, B=256, and at N=100, 256 and 300 at the sizes whose f32
+# factor array and f64 plain versions fit beside each other on the card
+# (200^2 x 4 x 50 x 64 = 512 MB, 512^2 x 4 x 20 x 8 = 168 MB, 600^2 x 4 x
+# 10 x 8 = 115 MB); N=40 is a partial group of 128 (a humanoid's joint
+# count), 100 one of 256, 256 a full group of 512, and at N=300 (several
+# arms planned as one QP) the 512 threads own the 600 columns, 88 of them
+# a second one.  At N=32 also with their rings and windows
+# forced into the device-memory workspace; from N=64 the plans put rings
+# and windows there unforced (WIDE_UNFORCED); the tridiagonal pair alone up
+# to B2=600, on chip and in the workspace.  At N=300 the lane path also
+# takes a session's setup and one tick, and a polished solve (COLS_SIZES).
+WIDE_SIZES = (17, 24, 32, 40, 64, 100, 256, 300)
 WIDE_BATCH = 256
 WIDE_SHAPES = {n: (W, WIDE_BATCH) for n in WIDE_SIZES} | {
-    100: (50, 64), 256: (20, 8)}
+    100: (50, 64), 256: (20, 8), 300: (10, 8)}
+COLS_SIZES = (300,)
 WORKSPACE_SIZES = (32,)
 WIDE_UNFORCED = {
     64: ("admm_chunk_gain", "tridiag_factor", "tridiag_solve"),
     100: ("admm_chunk", "admm_chunk_dxdy", "admm_chunk_gain",
           "tridiag_factor", "tridiag_solve"),
     256: ("kkt_factor", "admm_chunk", "admm_chunk_dxdy", "admm_chunk_gain",
-          "tridiag_factor", "tridiag_solve")}
+          "tridiag_factor", "tridiag_solve"),
+    300: ("kkt_factor", "admm_chunk", "admm_chunk_dxdy", "admm_chunk_gain",
+          "residuals", "tridiag_factor", "tridiag_solve")}
 WIDE_TRIDIAG = {f"B2_{b2}": (b2, W, WIDE_BATCH)
                 for b2 in (34, 48, 64, 96)} | {
-    "B2_130": (130, 50, 64), "B2_200": (200, 50, 64), "B2_512": (512, 20, 8)}
+    "B2_130": (130, 50, 64), "B2_200": (200, 50, 64), "B2_512": (512, 20, 8),
+    "B2_600": (600, 10, 8)}
 WIDE_TRIDIAG_WORKSPACE = {"B2_64_workspace": (64, W, WIDE_BATCH),
                           "B2_96_workspace": (96, W, WIDE_BATCH)}
 
@@ -4767,16 +4777,75 @@ def wide_block_checks(Nj, batch=WIDE_BATCH):
     return out
 
 
+def cols_path_extras(Nj, Wd, batch):
+    """The rest of the lane path at ``Nj`` joints (COLS_SIZES: each thread
+    owns several columns) on ``size_batch`` (``Wd`` waypoints, ``batch``
+    problems, f32, the bench.py settings): a session's setup and one tick
+    (``setup_lane`` then ``solve_lane``) and ``solve_batched_lane`` with
+    ``polish=True``; each all optimal, finite, the f64 criterion within 2 %
+    on 16 problems, its kernels launched and no plain version."""
+    bench = dataclasses.replace(Settings(), **BENCH)
+    polished = dataclasses.replace(bench, polish=True)
+    qp = size_batch(Nj, batch=batch, Wd=Wd)
+    runs = {
+        "session_tick": (lambda: solve_lane(setup_lane(qp, bench), bench)[1],
+                         bench, ("ruiz", "kkt_factor", "admm_chunk")),
+        "polish": (lambda: admm_lane.solve_batched_lane(qp, polished),
+                   polished, ("ruiz", "kkt_factor", "admm_chunk",
+                              "tridiag_factor", "tridiag_solve")),
+    }
+    out = {}
+    for name, (run, s, need) in runs.items():
+        reset_counts()
+        with PlainCalls() as plain:
+            res = run()  # the path, once
+            torch.cuda.synchronize()
+        st = res.status.cpu()
+        out[name] = dict(
+            optimal=int((st == 0).sum()),
+            iterations_p50=int(res.iterations.cpu().median()),
+            launches={k: v for k, v in read_counts().items() if v},
+            plain_calls=dict(plain.calls), need=need,
+            f64_prim_dual_box=host_residual_check(
+                qp, res, torch.linspace(0, batch - 1, 16).long(), s),
+            finite=bool(torch.isfinite(res.x).all()))
+    del qp
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_lane_wide():
     """The lane kernels above 16 joints: the lane path at N = 17, 24, 32,
-    40, 64, 100 and 256 (``lane_path_sizes`` at WIDE_SHAPES: every kernel
-    in every form against its plain version in f64, each launch repeated
-    bit for bit; the four solve forms all optimal; from N=64 rings and
-    windows in the workspace unforced, as WIDE_UNFORCED says), at N=32 the
-    workspace placements equal bit for bit to the on-chip ones, and the
-    tridiagonal pair alone at B2 = 34, 48, 64, 96, 130, 200 and 512 where
-    the plans put them, and (64, 96) forced into the workspace."""
+    40, 64, 100, 256 and 300 (``lane_path_sizes`` at WIDE_SHAPES: every
+    kernel in every form against its plain version in f64, each launch
+    repeated bit for bit; the four solve forms all optimal; from N=64 rings
+    and windows in the workspace unforced, as WIDE_UNFORCED says; at N=300
+    also a session tick and a polished solve, ``cols_path_extras``), at
+    N=32 the workspace placements equal bit for bit to the on-chip ones,
+    and the tridiagonal pair alone at B2 = 34, 48, 64, 96, 130, 200, 512
+    and 600 where the plans put them, and (64, 96) forced into the
+    workspace.  Returns the records and the launches of the N=300 path
+    (its four solve forms, the tick and the polished solve, each counted
+    from zero)."""
     recs = lane_path_sizes("lane_wide", WIDE_SHAPES)
+    extras = {f"N{n}": cols_path_extras(n, *WIDE_SHAPES[n])
+              for n in COLS_SIZES}
+    emit("lane_wide_cols", **extras)
+    path = collections.Counter()
+    for key, ext in extras.items():
+        batch = recs[key]["batch"]
+        for name, f in ext.items():
+            if (f["optimal"] != batch or not f["finite"]
+                    or max(f["f64_prim_dual_box"][:2]) > 1.02):
+                fail(f"lane_wide ({key}, {name}): {f['optimal']}/{batch} "
+                     f"optimal, f64 criterion {f['f64_prim_dual_box']}")
+            if f["plain_calls"] or min(f["launches"].get(k, 0)
+                                       for k in f["need"]) < 1:
+                fail(f"lane_wide ({key}, {name}): launches {f['launches']}, "
+                     f"plain versions {f['plain_calls']}")
+            path.update(f["launches"])
+        for f in recs[key]["solves"].values():
+            path.update(f["launches"])
     tri = tridiag_sizes(WIDE_TRIDIAG)
     tri.update(tridiag_sizes(WIDE_TRIDIAG_WORKSPACE, budget=1))
     emit("lane_wide_tridiag", **tri)
@@ -4807,7 +4876,7 @@ def phase_lane_wide():
         if min(plans[k] for k in names) <= 0:
             fail(f"lane_wide (N{n}): the plans were to put {names} in the "
                  f"device-memory workspace unforced: {plans}")
-    return recs, tri
+    return recs, tri, dict(path)
 
 
 # ---------------------------------------------------------------------------
@@ -6571,7 +6640,10 @@ def main():
     # The repair above 16 joints: each kernel's wide form, timed per size.
     wide = {}
     if "lane_wide" in want:
-        recs, tri = phase_lane_wide()
+        # This slice's main path: the lane path at N=300, each thread
+        # several columns; its launches are the table's (set below, after
+        # the later phases').
+        recs, tri, by_path["lane_wide_N300"] = phase_lane_wide()
         for key, rec in recs.items():
             for name, k in rec["kernels"].items():
                 wide.setdefault(name, {})[key] = {
@@ -6596,7 +6668,7 @@ def main():
                                       "bound_by", "plan")}
     if "planner_w802" in want:
         by_path["planner_w802"] = phase_planner_w802()
-    for path in ("w802", "planner_w802"):
+    for path in ("w802", "planner_w802", "lane_wide_N300"):
         launches.update({k: v for k, v in by_path.get(path, {}).items()
                          if v})
 

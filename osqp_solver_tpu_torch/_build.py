@@ -172,13 +172,24 @@ def build_all(signatures, names=tuple(KERNELS)):
     return {(n, s): finish_build(h) for n, s, h in handles}
 
 
+def _load(path: Path, signature: dict):
+    """Load a built library, noting whether its signature gives its lane
+    kernels their wide forms (2N or B2 above 32: see :func:`wide`)."""
+    lib = ctypes.CDLL(str(path))
+    size = (2 * signature["NDIM"] if "NDIM" in signature
+            else signature.get("B2"))
+    if size is not None:
+        lib._osqp_wide = int(size) > 32
+    return lib
+
+
 def library(name: str, signature: dict, host: bool = False):
     """The loaded ``ctypes`` library of one kernel, built on first use."""
     key = (name, tuple(sorted(signature.items())), host)
     lib = _LIBS.get(key)
     if lib is None:
         path = finish_build(start_build(name, signature, host))
-        lib = _LIBS[key] = ctypes.CDLL(str(path))
+        lib = _LIBS[key] = _load(path, signature)
     return lib
 
 
@@ -198,7 +209,7 @@ def float_library(name: str, signature: dict, smem: int, sms: int):
     lib = _LIBS.get(key)
     if lib is None:
         path = finish_build(start_float_build(name, signature, smem, sms))
-        lib = _LIBS[key] = ctypes.CDLL(str(path))
+        lib = _LIBS[key] = _load(path, signature)
     return lib
 
 
@@ -249,13 +260,32 @@ def stream(device):
 
 
 def wide(lib, group_of) -> bool:
-    """Whether ``lib`` is a wide build (a group of more than 32 threads a
-    problem, above 16 joints: its plans may ask for a device-memory
-    workspace), read once from ``group_of(lib)``, its plan's group."""
+    """Whether ``lib`` is a wide build (above 16 joints: a group of several
+    warps a problem, whose plans may ask for a device-memory workspace),
+    from the signature it was loaded for (:func:`library`), else read once
+    from ``group_of(lib)``, its plan's group (above 32 threads)."""
     w = getattr(lib, "_osqp_wide", None)
     if w is None:
         w = lib._osqp_wide = int(group_of(lib)) > 32
     return w
+
+
+# The most threads a problem's group takes (``LANE_GROUP_MAX`` of
+# ``csrc/lane_platform.cuh``): with as many producer threads a block's
+# 1,024; above it a thread owns several columns of its problem.
+GROUP_MAX = 512
+# The shared memory a block may use on an H100.  The refusals that come
+# before any build (:func:`.ops.admm_lane.check_kernel_limits`,
+# ``tridiag_kernel._lib``) hold a size to it; the plans that launch read
+# the device's own.
+CARD_SHARED_BYTES = 232448
+
+
+def group_size(n: int, least: int = 1) -> int:
+    """The group of threads of a problem of ``n`` columns, as
+    ``group_size`` of ``csrc/lane_platform.cuh`` sizes it: the smallest
+    power of two >= ``n``, at least ``least``, at most :data:`GROUP_MAX`."""
+    return min(max(least, 1 << max(n - 1, 0).bit_length()), GROUP_MAX)
 
 
 def workspace(nbytes: int, device):

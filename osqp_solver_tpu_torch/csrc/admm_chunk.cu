@@ -68,7 +68,12 @@
 // column's element through shared memory (one group barrier a column) and
 // the termination's maxima through the group's exchange; where the ring
 // does not fit in shared memory it lives in a device-memory workspace that
-// the wrapper allocates (DEV).
+// the wrapper allocates (DEV).  Above N = 256 (2N > 512) the group stays at
+// 512 threads (with its producers, a block's 1,024) and each thread owns
+// the columns lane, lane + 512, ... (COLS of them) of every per-variable
+// step, the rows as before; a column solve still takes one group barrier a
+// column, broadcast by the column's owner (the _cols functions below; with
+// one column a thread the code is the earlier one, function for function).
 // Bound: on paper bytes (each pack read once per pass); in practice each
 // problem's chain of dependent steps (the solves' 2N true divisions each, the
 // rows), with one or two blocks of 3 warps per SM: eight problems take about
@@ -78,10 +83,16 @@
 
 #include "lane_common.cuh"
 
-// Threads per problem, and problems per block at most.  WIDE: a group of
-// several warps, one problem a block.
-constexpr int G = pow2_at_least(B2) < 4 ? 4 : pow2_at_least(B2);
+// Threads per problem (the smallest power of two >= 2N, at least 4, at
+// most LANE_GROUP_MAX), the columns of the problem's 2N-vectors a thread
+// owns (j = lane, lane + G, ...: one up to 2N = 512) and the length of a
+// vector in the group's slot.  WIDE: a group of several warps, one problem
+// a block.
+constexpr int G = group_size(B2, 4);
+constexpr int COLS = group_cols(B2, G);
+constexpr int GC = G * COLS;
 constexpr bool WIDE = B2 > 32;
+static_assert(COLS == 1 || WIDE, "several columns a thread: wide forms only");
 // Problems per block at most (log2) and stages of the ring, as tuned on an
 // H100 (PERF.md records the other values timed).
 constexpr int QLOG_MAX = WIDE ? 0 : 2;
@@ -113,22 +124,22 @@ __host__ __device__ constexpr int stage_rows(bool term, bool gain) {
     return o_gain(term) + (gain ? T : 0);
 }
 
-// The slot of a group (shared memory after the ring): vectors of G values
+// The slot of a group (shared memory after the ring): vectors of GC values
 // and rows of a waypoint, two of each (waypoint parity), the support terms
 // of a waypoint's rows, the accumulators, and the right-hand side of a
 // solve.
-constexpr int SL_X = 0;             // fwd: h_t / w_t; bwd: x~_t
-constexpr int SL_XS = SL_X + 2 * G;   // x_sel_t (MODE_TERM)
-constexpr int SL_DX = SL_XS + 2 * G;  // dx_t (MODE_TERM)
-constexpr int SL_Y = SL_DX + 2 * G;   // y_sel of the Rp rows (MODE_TERM), 2x
+constexpr int SL_X = 0;              // fwd: h_t / w_t; bwd: x~_t
+constexpr int SL_XS = SL_X + 2 * GC;   // x_sel_t (MODE_TERM)
+constexpr int SL_DX = SL_XS + 2 * GC;  // dx_t (MODE_TERM)
+constexpr int SL_Y = SL_DX + 2 * GC;   // y_sel of the Rp rows (MODE_TERM), 2x
 constexpr int SL_DY = SL_Y + 2 * Rp;  // dy of the Rp rows (MODE_TERM), 2x
 constexpr int SL_SUP = SL_DY + 2 * Rp;  // support terms (MODE_TERM)
 constexpr int SL_ACC = SL_SUP + 2 * Rp;  // the accumulators (MODE_TERM)
 constexpr int SL_R = SL_ACC + NACC;   // the right-hand side of a solve
-// WIDE: the column solves' broadcasts (G values each for the lower and the
+// WIDE: the column solves' broadcasts (GC values each for the lower and the
 // upper sweep), the first G also the termination's exchange.
-constexpr int SL_XCH = SL_R + G;
-constexpr int SLOT = SL_XCH + (WIDE ? 2 * G : 0);
+constexpr int SL_XCH = SL_R + GC;
+constexpr int SLOT = SL_XCH + (WIDE ? 2 * GC : 0);
 static_assert(A_COUNT <= NACC && 4 <= G, "");
 
 enum { MODE_PLAIN = 0, MODE_TERM = 1, MODE_DXDY = 2 };
@@ -663,6 +674,403 @@ __device__ __forceinline__ void backward_pass(const Args& a) {
     }
 }
 
+// ---- several columns a thread (COLS > 1, above N = 256): forward_pass and
+// backward_pass with each per-variable quantity and carry held for every
+// column this thread owns (j = lane + c G), the constraint rows, the
+// waypoint sums and the termination's reductions as there.
+
+// The wide forms' column solve with several columns a thread (COLS > 1):
+// this thread's columns j = lane + c G in v[c], replaced by their elements
+// of the result.  Column j's element is passed by its owner (thread j % G)
+// through the slot (a place per column and sweep, written once a step: one
+// group barrier a column; the step's barrier separates the steps), each
+// carried in dot_t, as group_solve's wide form does for one column.
+template <bool LOWER, bool UPPER>
+__device__ __forceinline__ void group_solve_cols(const Tile& ch, real* v,
+                                                 const Args& a) {
+    real cii[COLS];
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+        const int i = a.lane + c * G;
+        cii[c] = ch[LOW(i < B2 ? i : 0, i < B2 ? i : 0)];
+    }
+    real* lo = a.slot + SL_XCH;
+    real* up = lo + GC;
+    dot_t vd[COLS];
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) vd[c] = v[c];
+    if (LOWER) {
+#pragma unroll 1
+        for (int j = 0; j < B2; ++j) {
+#pragma unroll
+            for (int c = 0; c < COLS; ++c)
+                if (a.lane + c * G == j) lo[j] = real(vd[c] / cii[c]);
+            lane_group_sync(a.g, G);
+            const real yj = lo[j];
+#pragma unroll
+            for (int c = 0; c < COLS; ++c) {
+                const int i = a.lane + c * G;
+                if (i == j) vd[c] = yj;
+                else if (i > j && i < B2)
+                    vd[c] = vd[c] - dot_t(ch[LOW(i, j)]) * yj;
+            }
+        }
+    }
+    if (UPPER) {
+#pragma unroll 1
+        for (int k = B2 - 1; k >= 0; --k) {
+#pragma unroll
+            for (int c = 0; c < COLS; ++c)
+                if (a.lane + c * G == k) up[k] = real(vd[c] / cii[c]);
+            lane_group_sync(a.g, G);
+            const real xk = up[k];
+#pragma unroll
+            for (int c = 0; c < COLS; ++c) {
+                const int i = a.lane + c * G;
+                if (i == k) vd[c] = xk;
+                else if (i < k) vd[c] = vd[c] - dot_t(ch[LOW(k, i)]) * xk;
+            }
+        }
+    }
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) v[c] = real(vd[c]);
+}
+
+template <bool GAIN>
+__device__ __forceinline__ void forward_pass_cols(const Args& a) {
+    // Carried from waypoint t-1, for each of this thread's columns i (a
+    // joint j of a q or a v variable): column j < N: c1_{t-1}[j], (rho z -
+    // y) of dyn row j, and Ml's (j,j), (j,N+j); column N+j: a0_{t-1}[j],
+    // (rho z - y) of acc row j, and Ml's (N+j,N+j).
+    real cc[COLS], vc[COLS], m0[COLS], m1[COLS];
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) cc[c] = vc[c] = m0[c] = m1[c] = real(0);
+    __syncthreads();  // the previous pass's state and slot writes
+    if (a.stager)
+        for (int t = 0; t < NSTAGE - 1; ++t) {
+            if (t < a.W) stage_issue<false, GAIN>(a, t);
+            else cp_async_commit();
+        }
+    for (int t = 0; t < a.W; ++t) {
+        const real* sg = stage_wait<false, GAIN>(a, t);
+        if (a.stager) {
+            if (t + NSTAGE - 1 < a.W)
+                stage_issue<false, GAIN>(a, t + NSTAGE - 1);
+            else
+                cp_async_commit();
+        }
+        if (a.idle) continue;
+        const Tile cf{sg + O_CF * QS}, rh{sg + O_RH * QS},
+            pl{sg + O_PL * QS}, ch{sg + O_CH * QS};
+        const Tile st{sg + O_ST * QS};
+        // v_r = rho_r z_r - y_r of row r.
+        auto vr = [&](int r) { return rh[r] * st[S_Z + r] - st[S_Y + r]; };
+        const real* hp = a.slot + SL_X + ((t + 1) & 1) * GC;  // h_{t-1}
+        real v[COLS], cc_n[COLS], vc_n[COLS];
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) {
+            const int i = a.lane + c * G;
+            const int j = i < N ? i : i - N;  // joint of the variable
+            v[c] = real(0);
+            cc_n[c] = real(0);
+            vc_n[c] = real(0);
+            if (i < N) {  // q row j of the A' gather
+                const real vd = vr(R_DYN + j);
+                real g = cf[C_C2 + j] * vd;
+                g = g + cc[c] * vc[c];
+                g = g + cf[C_POS + j] * vr(R_POS + j);
+#pragma unroll
+                for (int k = 0; k < NX; ++k)
+                    g = g + cf[C_X + k * N + j] * vr(R_X + k);
+                v[c] = a.sigma * st[S_X + j] - sg[(O_QW + j) * QS] + g;
+                cc_n[c] = cf[C_C1 + j];
+                vc_n[c] = vd;
+            } else if (i < B2) {  // v row j
+                const real va = vr(R_ACC + j);
+                real g = cf[C_C0 + j] * vr(R_DYN + j);
+                g = g + cf[C_VEL + j] * vr(R_VEL + j);
+                g = g + cf[C_A1 + j] * va;
+                g = g + cc[c] * vc[c];
+                v[c] = a.sigma * st[S_X + N + j] - sg[(O_QW + N + j) * QS] + g;
+                cc_n[c] = cf[C_A0 + j];
+                vc_n[c] = va;
+            }
+            if (GAIN) {
+                // rhs_t - G_{t-1} w_{t-1}, G upper-triangular.
+                if (t > 0 && i < B2) {
+                    const Tile gn{sg + o_gain(false) * QS};
+                    dot_t acc = dot_t(0);
+                    LANE_UNROLL_N
+                    for (int k = 0; k < B2; ++k)
+                        if (k >= i) acc = acc + dot_t(gn[UP(i, k)]) * hp[k];
+                    v[c] = v[c] - real(acc);
+                }
+            } else if (t > 0) {
+                // rhs_t - Ml_{t-1} h_{t-1}   (all-zero carry at t = 0).
+                if (i < N)
+                    v[c] = v[c] - (m0[c] * hp[j] + m1[c] * hp[N + j]);
+                else if (i < B2)
+                    v[c] = v[c] - m0[c] * hp[N + j];
+            }
+        }
+        group_solve_cols<true, !GAIN>(ch, v, a);  // gain: w_t; hrec: h_t
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) {
+            const int i = a.lane + c * G;
+            const int j = i < N ? i : i - N;
+            if (i < B2) {
+                if (a.valid) a.w[((size_t)t * B2 + i) * a.B + a.b] = v[c];
+                a.slot[SL_X + (t & 1) * GC + i] = v[c];
+            }
+            cc[c] = cc_n[c];
+            vc[c] = vc_n[c];
+            if (!GAIN) {  // Ml_t: (j,j) = qq, (j,N+j) = qv, (N+j,N+j) = vv
+                if (i < N) {
+                    const real rd = rh[R_DYN + j];
+                    m0[c] = rd * cf[C_C1 + j] * cf[C_C2 + j];
+                    m1[c] = rd * cf[C_C1 + j] * cf[C_C0 + j];
+                } else if (i < B2) {
+                    m0[c] = rh[R_ACC + j] * cf[C_A0 + j] * cf[C_A1 + j] +
+                            pl[j];
+                }
+            }
+        }
+    }
+}
+
+template <int MODE, bool GAIN>
+__device__ __forceinline__ void backward_pass_cols(const Args& a) {
+    constexpr bool TERM = MODE == MODE_TERM;
+    constexpr bool DXDY = MODE == MODE_DXDY;
+    const int lane = a.lane;
+    const real alpha = a.alpha;
+    real* sl = a.slot;
+
+    // TERM carries of each of this thread's columns (unused otherwise): the
+    // partials of waypoint t+1 and its q and Dinv rows.
+    real px_p[COLS], pdx_p[COLS], cw[COLS][NCW];
+    real q_n[COLS], dinv_n[COLS];
+#pragma unroll
+    for (int c = 0; c < COLS; ++c)
+        px_p[c] = pdx_p[c] = q_n[c] = dinv_n[c] = real(0);
+    Maxima m = maxima_start();
+
+    __syncthreads();  // the forward pass is done with the slot
+    // No waypoint W: x~, x_sel and dx of "t+1" are zero at t = W-1.
+    if (!a.idle) {
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) {
+            const int i = lane + c * G;
+            sl[SL_X + (a.W & 1) * GC + i] = real(0);
+            sl[SL_XS + (a.W & 1) * GC + i] = real(0);
+            sl[SL_DX + (a.W & 1) * GC + i] = real(0);
+        }
+    }
+    if (a.stager)
+        for (int t = a.W - 1; t > a.W - NSTAGE; --t) {
+            if (t >= 0) stage_issue<true, GAIN, TERM>(a, t);
+            else cp_async_commit();
+        }
+    for (int t = a.W - 1; t >= 0; --t) {
+        const real* sg = stage_wait<TERM, GAIN>(a, t);
+        if (a.stager) {
+            if (t - NSTAGE + 1 >= 0)
+                stage_issue<true, GAIN, TERM>(a, t - NSTAGE + 1);
+            else
+                cp_async_commit();
+        }
+        if (a.idle) continue;
+        const Tile cf{sg + O_CF * QS}, rh{sg + O_RH * QS},
+            pl{sg + O_PL * QS}, ch{sg + O_CH * QS};
+        const Tile stg{sg + O_ST * QS};
+        const int cur = t & 1, nxt = (t + 1) & 1;
+        const real* xn = sl + SL_X + nxt * GC;  // x~_{t+1}
+        real* st = a.state + ((size_t)t * SRp) * a.B + a.b;  // written here
+        real* dd = DXDY ? a.dxdy + ((size_t)t * DRp) * a.B + a.b : nullptr;
+
+        real h[COLS], xt[COLS];
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) {
+            const int i = lane + c * G;
+            const int j = i < N ? i : i - N;
+            h[c] = i < B2 ? sg[(O_QW + i) * QS] : real(0);
+            if (GAIN) {
+                // w_t - G_t' x~_{t+1};  (G'x)_i = sum_{k<=i} G[k][i] x_k.
+                xt[c] = real(0);
+                if (i < B2) {
+                    const Tile gn{sg + o_gain(TERM) * QS};
+                    dot_t gx = dot_t(0);
+                    LANE_UNROLL_N
+                    for (int k = 0; k < B2; ++k)
+                        if (k <= i) gx = gx + dot_t(gn[UP(k, i)]) * xn[k];
+                    xt[c] = (t < a.W - 1) ? h[c] - real(gx) : h[c];
+                }
+            } else {
+                // Ml_t' x~_{t+1}.
+                xt[c] = real(0);
+                if (i < N) {
+                    const real rd = rh[R_DYN + j];
+                    xt[c] = rd * cf[C_C1 + j] * cf[C_C2 + j] * xn[j];
+                } else if (i < B2) {
+                    const real rd = rh[R_DYN + j];
+                    const real qv = rd * cf[C_C1 + j] * cf[C_C0 + j];
+                    const real vv =
+                        rh[R_ACC + j] * cf[C_A0 + j] * cf[C_A1 + j] + pl[j];
+                    xt[c] = qv * xn[j] + vv * xn[N + j];
+                }
+            }
+        }
+        // gain: x~_t = C^{-T} (w_t - G_t' x~_{t+1});
+        // hrec: x~_t = h_t - C^{-T} C^{-1} (Ml_t' x~_{t+1}).
+        group_solve_cols<!GAIN, true>(ch, xt, a);
+        if (!GAIN) {
+#pragma unroll
+            for (int c = 0; c < COLS; ++c)
+                xt[c] = (t < a.W - 1) ? h[c] - xt[c] : h[c];
+        }
+
+        real x_sel[COLS], dx[COLS];
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) {
+            const int i = lane + c * G;
+            x_sel[c] = real(0);
+            dx[c] = real(0);
+            if (i < B2) {
+                const real x_old = stg[S_X + i];
+                const real x_new = alpha * xt[c] + (real(1) - alpha) * x_old;
+                x_sel[c] = a.frozen ? x_old : x_new;
+                dx[c] = a.frozen ? real(0) : x_new - x_old;
+                if (a.valid) {
+                    st[(size_t)(S_X + i) * a.B] = x_sel[c];
+                    if (DXDY) dd[(size_t)i * a.B] = dx[c];
+                }
+                sl[SL_X + cur * GC + i] = xt[c];
+                if (TERM) {
+                    sl[SL_XS + cur * GC + i] = x_sel[c];
+                    sl[SL_DX + cur * GC + i] = dx[c];
+                }
+            }
+        }
+        lane_group_sync(a.g, G);
+
+        const real* xc = sl + SL_X + cur * GC;
+        // Rows lane, lane + G, ... (unrolled: the rows of a lane overlap).
+#pragma unroll
+        for (int rr = 0; rr < (Rp + G - 1) / G; ++rr) {
+            const int r = lane + rr * G;
+            if (r >= Rp) break;
+            // Pad rows (r >= R): zero coefficients, (-INF, INF) bounds.
+            const real ztr = a_row(r, cf, xc, xn);
+            const real rho_r = rh[r];
+            const real z_old = stg[S_Z + r];
+            const real y_old = stg[S_Y + r];
+            const real lo = sg[(O_LU + r) * QS];
+            const real hi = sg[(O_LU + Rp + r) * QS];
+            const real z_tmp = alpha * ztr + (real(1) - alpha) * z_old;
+            const real z_new = rmin(rmax(z_tmp + y_old / rho_r, lo), hi);
+            const real y_new = y_old + rho_r * (z_tmp - z_new);
+            const real z_s = a.frozen ? z_old : z_new;
+            const real y_s = a.frozen ? y_old : y_new;
+            const real dy_r = a.frozen ? real(0) : y_new - y_old;
+            if (a.valid) {
+                st[(size_t)(S_Z + r) * a.B] = z_s;
+                st[(size_t)(S_Y + r) * a.B] = y_s;
+                if (DXDY) dd[(size_t)(B2 + r) * a.B] = dy_r;
+            }
+            if (TERM) {
+                sl[SL_Y + cur * Rp + r] = y_s;
+                sl[SL_DY + cur * Rp + r] = dy_r;
+                // A x_sel and A dx by the same A-row apply as the residual
+                // kernel, and the same expressions after it.
+                const real ax_sel = a_row(r, cf, sl + SL_XS + cur * GC,
+                                          sl + SL_XS + nxt * GC);
+                const real adx = a_row(r, cf, sl + SL_DX + cur * GC,
+                                       sl + SL_DX + nxt * GC);
+                reduce_row(ax_sel, adx, z_s, dy_r, sg[(O_EE + r) * QS],
+                           sg[(O_EE + Rp + r) * QS], lo, hi, m,
+                           sl + SL_SUP + 2 * r);
+            }
+        }
+        if (a.valid) {
+            for (int r = SR + lane; r < SRp; r += G)
+                st[(size_t)r * a.B] = real(0);
+            if (DXDY)
+                for (int r = DR + lane; r < DRp; r += G)
+                    dd[(size_t)r * a.B] = real(0);
+        }
+
+        if (TERM) {
+            lane_group_sync(a.g, G);  // y_sel, dy of every row
+            const real* ys = sl + SL_Y + cur * Rp;
+            const real* dys = sl + SL_DY + cur * Rp;
+            const real* xs = sl + SL_XS + cur * GC;
+            const real* dxs = sl + SL_DX + cur * GC;
+            // The sums of waypoint t, each on one lane, parked in the
+            // consumed h scratch of waypoint t.
+            if (lane < 4) {
+                const real s = waypoint_sum(lane, sl + SL_SUP, ys,
+                                            Tile{sg + O_VC * QS}, xs, dxs);
+                if (a.valid) a.w[((size_t)t * B2 + lane) * a.B + a.b] = s;
+            }
+#pragma unroll
+            for (int c = 0; c < COLS; ++c) {
+                const int i = lane + c * G;
+                const int j = i < N ? i : i - N;
+                if (i >= B2) continue;
+                // Variable space, waypoint t+1: its own-row gathers (its
+                // rows and coefficients kept from step t+1) and this
+                // waypoint's cross terms (c1/a0 rows, P-lower), formed in
+                // one expression each, as the residual kernel forms them.
+                if (t < a.W - 1) {
+                    const real* ysn = sl + SL_Y + nxt * Rp;
+                    const real* dysn = sl + SL_DY + nxt * Rp;
+                    const bool q = i < N;
+                    const real cq = q ? cf[C_C1 + j] : cf[C_A0 + j];
+                    const int r = q ? R_DYN + j : R_ACC + j;
+                    const real aty = at_gather(i, cw[c], ysn, cq, ys[r]);
+                    const real atdy = at_gather(i, cw[c], dysn, cq, dys[r]);
+                    real px = real(0), pdx = real(0);
+                    if (!q) {
+                        px = fma_rn(pl[j], x_sel[c], px_p[c]);
+                        pdx = fma_rn(pl[j], dx[c], pdx_p[c]);
+                    }
+                    reduce_var(q_n[c], dinv_n[c], aty, atdy, px, pdx, m);
+                }
+                // Own values of waypoint t.
+                q_n[c] = sg[(O_VC + i) * QS];
+                dinv_n[c] = sg[(O_VC + 2 * B2 + i) * QS];
+                m.ndx = rmax(m.ndx, rabs(sg[(O_VC + B2 + i) * QS] * dx[c]));
+                // Partials of waypoint t: its own-row coefficients, P terms.
+                own_coefs(i, cf, cw[c]);
+                if (i >= N) {
+                    const real pdj = sg[(O_PD + j) * QS];
+                    px_p[c] = fma_rn(pdj, x_sel[c],
+                                     mul_rn(pl[j], sl[SL_XS + nxt * GC + i]));
+                    pdx_p[c] = fma_rn(pdj, dx[c],
+                                      mul_rn(pl[j], sl[SL_DX + nxt * GC + i]));
+                }
+            }
+        }
+    }
+    if (a.idle) return;
+
+    if (TERM) {
+        // Epilogue: waypoint 0 has no t-1 cross terms.
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) {
+            const int i = lane + c * G;
+            if (i < B2)
+                reduce_var(q_n[c], dinv_n[c],
+                           at_gather(i, cw[c], sl + SL_Y, real(0), real(0)),
+                           at_gather(i, cw[c], sl + SL_DY, real(0), real(0)),
+                           px_p[c], pdx_p[c], m);
+        }
+        term_finish<G, WIDE>(lane, a.g, a.valid, a.W, m,
+                             a.w + (size_t)lane * a.B + a.b, (size_t)B2 * a.B,
+                             sl + SL_ACC, a.acc + a.b, a.B, sl + SL_XCH);
+    }
+}
+
 template <int MODE, bool GAIN>
 __global__ void __launch_bounds__(block_threads(QLOG_MAX), 1)
     admm_chunk_kernel(
@@ -694,12 +1102,22 @@ __global__ void __launch_bounds__(block_threads(QLOG_MAX), 1)
                  b0,    qlog,  g,     (int)(threadIdx.x % G), b,
                  x4 != 0, tid >= pbase, idle, tid - pbase, valid, valid && done[b] != real(0), ring, slot,
                  dev};
-    for (int it = 0; it < n_iter; ++it) {
-        forward_pass<GAIN>(a);
-        if (MODE != MODE_PLAIN && it == n_iter - 1)
-            backward_pass<MODE, GAIN>(a);
-        else
-            backward_pass<MODE_PLAIN, GAIN>(a);
+    if constexpr (COLS > 1) {
+        for (int it = 0; it < n_iter; ++it) {
+            forward_pass_cols<GAIN>(a);
+            if (MODE != MODE_PLAIN && it == n_iter - 1)
+                backward_pass_cols<MODE, GAIN>(a);
+            else
+                backward_pass_cols<MODE_PLAIN, GAIN>(a);
+        }
+    } else {
+        for (int it = 0; it < n_iter; ++it) {
+            forward_pass<GAIN>(a);
+            if (MODE != MODE_PLAIN && it == n_iter - 1)
+                backward_pass<MODE, GAIN>(a);
+            else
+                backward_pass<MODE_PLAIN, GAIN>(a);
+        }
     }
 }
 

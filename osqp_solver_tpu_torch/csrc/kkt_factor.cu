@@ -45,7 +45,10 @@
 // factor_wide_step: the Cholesky and row l of G_t in place, no lane
 // holding 2N values), and where even one waypoint's slot beside G_{t-1}
 // does not fit in shared memory the window lives in a device-memory
-// workspace that the wrapper allocates (DEV).
+// workspace that the wrapper allocates (DEV).  Above N = 256 the group
+// stays at 512 threads, and each owns rows lane, lane + 512, ... of the
+// step (COLS of them: factor_wide_cols_step); a pivot still takes one
+// barrier.
 // Two other designs were timed on the card and were no faster (PERF.md): the
 // Cholesky by columns across the group (lane i owning row i, a barrier a
 // pivot), and the whole Schur update in every lane's registers with one
@@ -56,10 +59,14 @@
 
 #include "lane_common.cuh"
 
-// Threads per problem, problems per block at most (log2), threads per block.
-// WIDE: a group of several warps, one problem a block.
-constexpr int G = pow2_at_least(B2);
+// Threads per problem (at most LANE_GROUP_MAX), the rows of a step a thread
+// owns in the wide form (l = lane, lane + G, ...: one up to 2N = 512),
+// problems per block at most (log2), threads per block.  WIDE: a group of
+// several warps, one problem a block.
+constexpr int G = group_size(B2);
+constexpr int COLS = group_cols(B2, G);
 constexpr bool WIDE = B2 > 32;
+static_assert(COLS == 1 || WIDE, "several rows a thread: wide form only");
 constexpr int QLOG_MAX = WIDE ? 0 : 3;
 constexpr int MAX_THREADS = G << QLOG_MAX;
 // Schur entries per lane.
@@ -266,6 +273,55 @@ __device__ __forceinline__ void factor_wide_step(real* slot, real* gq,
     }
 }
 
+// factor_wide_step with several rows a thread (COLS > 1): lane l owns rows
+// l, l + G, ... of the pivots' columns and of G_t.
+template <bool GAIN>
+__device__ __forceinline__ void factor_wide_cols_step(real* slot, real* gq,
+                                                 real* gainp, int t, int W,
+                                                 size_t Bs, int b, int l,
+                                                 bool valid) {
+    const auto C = [&](int i, int j) -> real& { return slot[LOW(i, j)]; };
+#pragma unroll 1
+    for (int jj = 0; jj < B2; ++jj) {
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) {
+            if (l + c * G == jj) {
+                real sdd = C(jj, jj);
+                for (int k = 0; k < jj; ++k) sdd -= C(jj, k) * C(jj, k);
+                C(jj, jj) = sqrt_rn(sdd);
+            }
+        }
+        __syncthreads();  // pivot jj and row jj whole
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) {
+            const int lc = l + c * G;
+            if (lc < B2 && lc > jj) {
+                real sij = C(lc, jj);
+                for (int k = 0; k < jj; ++k) sij -= C(lc, k) * C(jj, k);
+                C(lc, jj) = sij * rcp_rn(C(jj, jj));
+            }
+        }
+    }
+    __syncthreads();  // C_t whole
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+        const int lc = l + c * G;
+        if (lc >= B2) continue;
+        const real diag = lc < N ? slot[SL_ML + lc] : slot[SL_ML + N + lc];
+        const real qv = lc < N ? slot[SL_ML + N + lc] : real(0);
+        real* grow = gq + (UP(lc, lc) - lc);  // grow[j], j >= lc
+        real* gout = gainp + ((size_t)t * Tp + UP(lc, lc) - lc) * Bs + b;
+#pragma unroll 1
+        for (int j = lc; j < B2; ++j) {
+            real sij = j == lc ? diag : (j == lc + N ? qv : real(0));
+            for (int k = lc; k < j; ++k) sij -= grow[k] * C(j, k);
+            grow[j] = sij * rcp_rn(C(j, j));
+            if (GAIN && valid)
+                gout[(size_t)j * Bs] = t < W - 1 ? grow[j] : real(0);
+        }
+    }
+}
+
 // DEV (the wide form only): the window and G_{t-1} in the workspace work
 // (each block its own part), not in shared memory.
 template <bool GAIN, bool DEV = false>
@@ -424,7 +480,10 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
             if (tl > 0 && valid) store_chol(slot - SLOT * Q, t - 1);
 
             if constexpr (LANE_ROWS) {
-                if constexpr (WIDE)
+                if constexpr (COLS > 1)
+                    factor_wide_cols_step<GAIN>(slot, gq, gainp, t, W, Bs, b,
+                                                l, valid);
+                else if constexpr (WIDE)
                     factor_wide_step<GAIN>(slot, gq, gainp, t, W, Bs, b, l,
                                            valid);
                 else

@@ -52,7 +52,9 @@
 // holds one problem, as the chunk kernel's wide form: one value a tile row,
 // the copies in a loop, the maxima through the group's exchange in shared
 // memory, and the ring in a device-memory workspace where it does not fit
-// on chip (DEV).
+// on chip (DEV).  Above N = 256 the group stays at 512 threads and each
+// owns the variables lane, lane + 512, ... (COLS of them), as the chunk's
+// (residuals_kernel_cols; with one variable a thread, residuals_kernel).
 // Bound: every pack read once and 24 values a problem written (bytes); in
 // practice each problem's chain of W steps.  PERF.md records the times.
 #include <cstdint>
@@ -64,11 +66,16 @@
 #define BLOCK_P 0
 #endif
 
-// Threads per problem, problems per block at most (log2), stages of the
-// ring, producer threads, and the tile's row stride (one column a problem).
+// Threads per problem (at most LANE_GROUP_MAX), the variables a thread owns
+// (i = lane, lane + G, ...: one up to 2N = 512) and the length of a vector
+// in the slot, problems per block at most (log2), stages of the ring,
+// producer threads, and the tile's row stride (one column a problem).
 // WIDE: a group of several warps, one problem a block.
-constexpr int G = pow2_at_least(B2) < 4 ? 4 : pow2_at_least(B2);
+constexpr int G = group_size(B2, 4);
+constexpr int COLS = group_cols(B2, G);
+constexpr int GC = G * COLS;
 constexpr bool WIDE = B2 > 32;
+static_assert(COLS == 1 || WIDE, "several variables a thread: wide only");
 constexpr int QLOG_MAX = WIDE ? 0 : 2;
 constexpr int NSTAGE = 3;
 constexpr int PRODUCERS = group_producers(G);
@@ -90,12 +97,12 @@ constexpr int O_RC = O_DD + DR;       // E, Einv, l, u: 4 Rp rows
 constexpr int O_VC = O_RC + 4 * Rp;   // q, D, Dinv: 3 * 2N rows
 constexpr int STAGE_ROWS = O_VC + 3 * B2;
 
-// The slot of a group: x and dx (G values), y and dy rows (Rp values), two
+// The slot of a group: x and dx (GC values), y and dy rows (Rp values), two
 // of each (waypoint parity), the support terms of a waypoint's rows, and the
 // accumulators.
 constexpr int SL_XS = 0;
-constexpr int SL_DX = SL_XS + 2 * G;
-constexpr int SL_Y = SL_DX + 2 * G;
+constexpr int SL_DX = SL_XS + 2 * GC;
+constexpr int SL_Y = SL_DX + 2 * GC;
 constexpr int SL_DY = SL_Y + 2 * Rp;
 constexpr int SL_SUP = SL_DY + 2 * Rp;  // support terms, 2 a row
 constexpr int SL_ACC = SL_SUP + 2 * Rp;
@@ -325,6 +332,208 @@ __global__ void __launch_bounds__(block_threads(QLOG_MAX), 1)
                          sl + SL_XCH);
 }
 
+// residuals_kernel with several variables a thread (COLS > 1): each
+// per-variable quantity and carry held for every variable this thread owns
+// (i = lane + c G), the rows and the reductions as there.
+template <bool DEV = false>
+__global__ void __launch_bounds__(block_threads(QLOG_MAX), 1)
+    residuals_kernel_cols(const real* __restrict__ coef,
+                     const real* __restrict__ pd, const real* __restrict__ pl,
+                     const real* __restrict__ state,
+                     const real* __restrict__ dxdy,
+                     const real* __restrict__ rowc,
+                     const real* __restrict__ varc, real* sums, real* acc_out,
+                     int W, int B, int qlog, int x4, real* work) {
+    LANE_SMEM_DECL();
+    const int tid = threadIdx.x, pbase = producer_base(qlog);
+    const bool idle = tid >= (G << qlog), stager = tid >= pbase;
+    const int g = tid / G, lane = tid % G;
+    const int b0 = blockIdx.x << qlog, b = b0 + g;
+    const bool valid = !idle && b < B;
+    const Packs packs{coef, pd, pl, state, dxdy, rowc, varc};
+    const Stager s = make_stager(B, b0, qlog, tid - pbase, x4);
+    real* ring = DEV ? work + (size_t)blockIdx.x * RING : lane_smem;
+    real* sl = (DEV ? lane_smem : ring + RING) + g * SLOT;
+
+    // Carried from waypoint t+1, for each of this thread's variables: its
+    // maxima inputs q, Dinv, own-row A' coefficients, and its P partials
+    // (vel-diag: Pd v + Pl v_{+1} of a v row; BLOCK_P: rows of Pd x and
+    // Pl' x_{+1}, for x and dx).
+    Maxima m = maxima_start();
+    real cw[COLS][NCW], q_n[COLS], dinv_n[COLS];
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+#pragma unroll
+        for (int k = 0; k < NCW; ++k) cw[c][k] = real(0);
+        q_n[c] = dinv_n[c] = real(0);
+    }
+#if BLOCK_P
+    real dg_x[COLS], dg_dx[COLS], up_x[COLS], up_dx[COLS];
+#pragma unroll
+    for (int c = 0; c < COLS; ++c)
+        dg_x[c] = dg_dx[c] = up_x[c] = up_dx[c] = real(0);
+#else
+    real px_p[COLS], pdx_p[COLS];
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) px_p[c] = pdx_p[c] = real(0);
+#endif
+
+    // No waypoint W: x and dx of "t+1" are zero at t = W-1.
+    if (!idle) {
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) {
+            sl[SL_XS + (W & 1) * GC + lane + c * G] = real(0);
+            sl[SL_DX + (W & 1) * GC + lane + c * G] = real(0);
+        }
+    }
+    if (stager)
+        for (int t = W - 1; t > W - NSTAGE; --t) {
+            if (t >= 0) stage_issue<DEV>(packs, s, ring, t);
+            else cp_async_commit();
+        }
+    for (int t = W - 1; t >= 0; --t) {
+        // Waypoint t has landed (every step commits one group, empty past
+        // the horizon), the whole block's with the barrier, and nobody reads
+        // the stage the next issue overwrites any more.
+        cp_async_wait<NSTAGE - 2>();
+        __syncthreads();
+        const real* sg = ring + (t % NSTAGE) * STAGE_ROWS * QS + g;
+        if (stager) {
+            if (t - NSTAGE + 1 >= 0)
+                stage_issue<DEV>(packs, s, ring, t - NSTAGE + 1);
+            else cp_async_commit();
+        }
+        if (idle) continue;
+        const Tile cf{sg + O_CF * QS}, pdr{sg + O_PD * QS},
+            plr{sg + O_PL * QS}, st{sg + O_ST * QS}, dd{sg + O_DD * QS},
+            rc{sg + O_RC * QS}, vc{sg + O_VC * QS};
+        const int cur = t & 1, nxt = (t + 1) & 1;
+        const real* xs = sl + SL_XS + cur * GC;
+        const real* dxs = sl + SL_DX + cur * GC;
+        const real* xn = sl + SL_XS + nxt * GC;
+        const real* dxn = sl + SL_DX + nxt * GC;
+        const real* ys = sl + SL_Y + cur * Rp;
+        const real* dys = sl + SL_DY + cur * Rp;
+
+        real x[COLS], dx[COLS];
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) {
+            const int i = lane + c * G;
+            x[c] = real(0);
+            dx[c] = real(0);
+            if (i < B2) {
+                x[c] = st[S_X + i];
+                dx[c] = dd[i];
+                sl[SL_XS + cur * GC + i] = x[c];
+                sl[SL_DX + cur * GC + i] = dx[c];
+            }
+        }
+        lane_group_sync(g, G);
+
+        // Rows lane, lane + G, ... (pad rows r >= R: zero coefficients,
+        // (-INF, INF) bounds).
+#pragma unroll
+        for (int rr = 0; rr < (Rp + G - 1) / G; ++rr) {
+            const int r = lane + rr * G;
+            if (r >= Rp) break;
+            const real dy_r = dd[B2 + r];
+            sl[SL_Y + cur * Rp + r] = st[S_Y + r];
+            sl[SL_DY + cur * Rp + r] = dy_r;
+            reduce_row(a_row(r, cf, xs, xn), a_row(r, cf, dxs, dxn),
+                       st[S_Z + r], dy_r, rc[r], rc[Rp + r], rc[2 * Rp + r],
+                       rc[3 * Rp + r], m, sl + SL_SUP + 2 * r);
+        }
+        lane_group_sync(g, G);  // y, dy of every row
+
+        if (lane < 4) {
+            const real sum = waypoint_sum(lane, sl + SL_SUP, ys, vc, xs, dxs);
+            if (valid) sums[((size_t)t * NSUM + lane) * B + b] = sum;
+        }
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) {
+            const int i = lane + c * G;
+            const int j = i < N ? i : i - N;  // joint of the variable
+            if (i >= B2) continue;
+            // Variable i of waypoint t+1: its own-row gathers (its rows and
+            // coefficients kept from step t+1), the cross terms of the rows
+            // of t, and P.
+            if (t < W - 1) {
+                const bool q = i < N;
+                const real cq = q ? cf[C_C1 + j] : cf[C_A0 + j];
+                const int r = q ? R_DYN + j : R_ACC + j;
+                const real aty =
+                    at_gather(i, cw[c], sl + SL_Y + nxt * Rp, cq, ys[r]);
+                const real atdy =
+                    at_gather(i, cw[c], sl + SL_DY + nxt * Rp, cq, dys[r]);
+#if BLOCK_P
+                real sx = real(0), sdx = real(0);  // row i of Pl_t x_t, dx_t
+#pragma unroll
+                for (int k = 0; k < B2; ++k) {
+                    const real p = plr[i * B2 + k];
+                    sx = fma_rn(p, xs[k], sx);
+                    sdx = fma_rn(p, dxs[k], sdx);
+                }
+                const real px = (dg_x[c] + sx) + up_x[c];
+                const real pdx = (dg_dx[c] + sdx) + up_dx[c];
+#else
+                real px = real(0), pdx = real(0);
+                if (!q) {
+                    px = fma_rn(plr[j], x[c], px_p[c]);
+                    pdx = fma_rn(plr[j], dx[c], pdx_p[c]);
+                }
+#endif
+                reduce_var(q_n[c], dinv_n[c], aty, atdy, px, pdx, m);
+            }
+            // Own values and partials of waypoint t.
+            q_n[c] = vc[i];
+            dinv_n[c] = vc[2 * B2 + i];
+            m.ndx = rmax(m.ndx, rabs(vc[B2 + i] * dx[c]));
+            own_coefs(i, cf, cw[c]);
+#if BLOCK_P
+            dg_x[c] = dg_dx[c] = up_x[c] = up_dx[c] = real(0);
+#pragma unroll
+            for (int k = 0; k < B2; ++k) {
+                const real p = pdr[k <= i ? LOW(i, k) : LOW(k, i)];
+                dg_x[c] = fma_rn(p, xs[k], dg_x[c]);
+                dg_dx[c] = fma_rn(p, dxs[k], dg_dx[c]);
+            }
+#pragma unroll
+            for (int k = 0; k < B2; ++k) {  // zero pad block at t = W-1
+                const real p = plr[k * B2 + i];
+                up_x[c] = fma_rn(p, xn[k], up_x[c]);
+                up_dx[c] = fma_rn(p, dxn[k], up_dx[c]);
+            }
+#else
+            if (i >= N) {  // Pl is 0 at t = W-1
+                px_p[c] = fma_rn(pdr[j], x[c], mul_rn(plr[j], xn[i]));
+                pdx_p[c] = fma_rn(pdr[j], dx[c], mul_rn(plr[j], dxn[i]));
+            }
+#endif
+        }
+    }
+    if (idle) return;
+
+    // Waypoint 0 has no t-1 cross terms.
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+        const int i = lane + c * G;
+        if (i >= B2) continue;
+#if BLOCK_P
+        const real px = (dg_x[c] + real(0)) + up_x[c];
+        const real pdx = (dg_dx[c] + real(0)) + up_dx[c];
+#else
+        const real px = px_p[c], pdx = pdx_p[c];
+#endif
+        reduce_var(q_n[c], dinv_n[c],
+                   at_gather(i, cw[c], sl + SL_Y, real(0), real(0)),
+                   at_gather(i, cw[c], sl + SL_DY, real(0), real(0)), px, pdx,
+                   m);
+    }
+    term_finish<G, WIDE>(lane, g, valid, W, m, sums + (size_t)lane * B + b,
+                         (size_t)NSUM * B, sl + SL_ACC, acc_out + b, B,
+                         sl + SL_XCH);
+}
+
 struct ResidPlan {
     int qlog, Q, smem, blocks, threads;
     long long work;  // DEV: values of the device-memory workspace
@@ -366,8 +575,12 @@ extern "C" int residuals_plan(int B, long long* plan, int budget) {
 // wide builds compile that kernel).
 template <bool DEV, class... A>
 static int launch_resid(const ResidPlan& p, void* stream, A... args) {
-    return lane_launch_coop(&residuals_kernel<DEV>, p.blocks, p.threads, G,
-                            p.smem, stream, args...);
+    if constexpr (COLS > 1)
+        return lane_launch_coop(&residuals_kernel_cols<DEV>, p.blocks,
+                                p.threads, G, p.smem, stream, args...);
+    else
+        return lane_launch_coop(&residuals_kernel<DEV>, p.blocks, p.threads,
+                                G, p.smem, stream, args...);
 }
 
 // sums: a (W, 4, B) scratch, written and read back by the kernel.  work:

@@ -98,7 +98,10 @@
 // broadcast through shared memory (one group barrier a column).  Where a
 // kernel's three-stage ring does not fit in shared memory it lives in a
 // device-memory workspace that the wrapper allocates (DEV: the copies are
-// loads and stores, made visible by the step's barrier).
+// loads and stores, made visible by the step's barrier).  Above B2 = 512
+// the group stays at 512 threads and each owns the rows lane, lane + 512,
+// ... of a step (SCOLS of them), in both kernels (the _cols functions); a
+// pivot or a column still takes one barrier.
 // Bound: bytes on paper (each step's blocks read once a sweep); in practice
 // each problem's chain of 2W steps, each B2 divisions and the multiply-adds
 // between them.
@@ -119,12 +122,16 @@ __host__ __device__ constexpr int TRI(int i, int j) {
     return i * (i + 1) / 2 + j;
 }
 
-// A group of SG threads (the smallest power of two >= B2, at least 4) works
-// on one problem in both kernels.
+// A group of SG threads (the smallest power of two >= B2, at least 4, at
+// most LANE_GROUP_MAX) works on one problem in both kernels; a thread owns
+// rows lane, lane + SG, ... (SCOLS of them: one up to B2 = 512) of a step.
 // Above B2 = 32 (WIDE) the group is several warps and a block holds one
 // problem.
-constexpr int SG = pow2_at_least(B2) < 4 ? 4 : pow2_at_least(B2);
+constexpr int SG = group_size(B2, 4);
+constexpr int SCOLS = group_cols(B2, SG);
+constexpr int SGC = SG * SCOLS;
 constexpr bool WIDE = B2 > 32;
+static_assert(SCOLS == 1 || WIDE, "several rows a thread: wide forms only");
 
 // Above B2 = 20 both kernels split a step's rows among the group's lanes
 // (lane i owns row i) instead of working the whole B2 x B2 system in every
@@ -208,6 +215,65 @@ __device__ __forceinline__ int tri_row(int e) {
     return i;
 }
 
+// factor_wide_step with several rows a thread (SCOLS > 1): lane l owns rows
+// l, l + SG, ... (co and go: where row l of C_t and G_t go).
+__device__ __forceinline__ void factor_wide_cols_step(
+    real* sg, real* gq, real* co, real* go, int t, int W, size_t Bs, int l,
+    bool valid) {
+    if (l == 0) sg[F_BAD] = real(0);
+#pragma unroll 1
+    for (int j = 0; j < B2; ++j) {
+#pragma unroll
+        for (int c = 0; c < SCOLS; ++c) {
+            if (l + c * SG == j) {
+                real s = sg[TRI(j, j)];
+                for (int k = 0; k < j; ++k)
+                    s = fma_rn(-sg[TRI(j, k)], sg[TRI(j, k)], s);
+                if (!(s > real(0))) sg[F_BAD] = real(1);
+                sg[TRI(j, j)] = sqrt_rn(s);
+            }
+        }
+        __syncthreads();  // pivot j and row j whole
+#pragma unroll
+        for (int c = 0; c < SCOLS; ++c) {
+            const int lc = l + c * SG;
+            if (lc < B2 && lc > j) {
+                real v = sg[TRI(lc, j)];
+                for (int k = 0; k < j; ++k)
+                    v = fma_rn(-sg[TRI(lc, k)], sg[TRI(j, k)], v);
+                sg[TRI(lc, j)] = mul_rn(v, rcp_rn(sg[TRI(j, j)]));
+            }
+        }
+    }
+    __syncthreads();  // C_t whole
+    const real poison = sg[F_BAD] != real(0) ? real(NAN) : real(0);
+#pragma unroll
+    for (int c = 0; c < SCOLS; ++c) {
+        const int lc = l + c * SG;
+        if (lc >= B2) continue;
+        // Row lc of G_t = L_t C_t^{-T} into gq (G_{t-1}'s place, read by
+        // this step's Schur update before the last barrier) and out; row lc
+        // of C_t out.
+        real* gl = gq + lc * B2P;
+        real* goc = go + (size_t)c * SG * B2 * Bs;
+        real* coc = co + (size_t)c * SG * B2 * Bs;
+#pragma unroll 1
+        for (int j = 0; j < B2; ++j) {
+            real s = sg[F_L + lc * B2P + j];
+            for (int k = 0; k < j; ++k) s = fma_rn(-gl[k], sg[TRI(j, k)], s);
+            const real gj = mul_rn(s, rcp_rn(sg[TRI(j, j)])) - poison;
+            gl[j] = gj;
+            if (valid && t < W - 1) goc[(size_t)t * NF * Bs + j * Bs] = gj;
+        }
+        if (valid) {
+#pragma unroll 1
+            for (int j = 0; j < B2; ++j)
+                coc[(size_t)t * NF * Bs + j * Bs] =
+                    lc >= j ? sg[TRI(lc, j)] - poison : real(0);
+        }
+    }
+}
+
 // The wide form's step (WIDE), after the Schur update left S_t in the stage
 // (sg) and the block's barrier: factor_rows_step's arithmetic, in place in
 // shared memory (or the workspace) with every loop rolled, so that no lane
@@ -215,6 +281,10 @@ __device__ __forceinline__ int tri_row(int e) {
 __device__ __forceinline__ void factor_wide_step(
     real* sg, real* gq, real* co, real* go, int t, int W, size_t Bs, int l,
     bool row, bool valid) {
+    if constexpr (SCOLS > 1) {
+        factor_wide_cols_step(sg, gq, co, go, t, W, Bs, l, valid);
+        return;
+    }
     if (l == 0) sg[F_BAD] = real(0);
 #pragma unroll 1
     for (int j = 0; j < B2; ++j) {
@@ -376,11 +446,28 @@ __global__ void __launch_bounds__(SG << F_QLOG_MAX, 1)
                 const int i = tri_row(e);
                 stage_copy4<DEV>(sg + e, d + (i * B2 + e - TRI(i, 0)) * Bs);
             }
-            const real* lo = lower + ((size_t)uc * NF + lr * B2) * Bs + bl;
-            if (row && uc < W - 1) {
+            if constexpr (SCOLS > 1) {  // rows l, l + SG, ...
+#pragma unroll
+                for (int c = 0; c < SCOLS; ++c) {
+                    const int lc = l + c * SG;
+                    const real* lo = lower +
+                                     ((size_t)uc * NF + (lc < B2 ? lc : 0) *
+                                      B2) * Bs + bl;
+                    if (lc < B2 && uc < W - 1) {
 #pragma unroll 1
-                for (int j = 0; j < B2; ++j)
-                    stage_copy4<DEV>(sg + F_L + l * B2P + j, lo + j * Bs);
+                        for (int j = 0; j < B2; ++j)
+                            stage_copy4<DEV>(sg + F_L + lc * B2P + j,
+                                             lo + j * Bs);
+                    }
+                }
+            } else {
+                const real* lo =
+                    lower + ((size_t)uc * NF + lr * B2) * Bs + bl;
+                if (row && uc < W - 1) {
+#pragma unroll 1
+                    for (int j = 0; j < B2; ++j)
+                        stage_copy4<DEV>(sg + F_L + l * B2P + j, lo + j * Bs);
+                }
             }
             cp_async_commit();
             return;
@@ -525,10 +612,10 @@ __host__ __device__ constexpr int solve_threads(int qlog) {
     return solve_producer_base(qlog) + S_PRODUCERS;
 }
 // Shared values: the ring (DEV: in device memory instead), a slot of SG
-// values per group (WIDE: 2 SG, the broadcasts of a step), and (w on chip)
+// values per group (WIDE: 2 SGC, the broadcasts of a step), and (w on chip)
 // w_t of every step, [t][i][SQS].
 constexpr int S_RING = S_NSTAGE * S_ROWS * SQS;
-constexpr int S_SLOT = WIDE ? 2 * SG : SG;
+constexpr int S_SLOT = WIDE ? 2 * SGC : SG;
 __host__ __device__ constexpr long long solve_smem_bytes(int W, int qlog,
                                                          bool w_on_chip,
                                                          bool dev = false) {
@@ -734,6 +821,69 @@ __device__ __forceinline__ real solve_rows_wide(const real* sg,
     return y;
 }
 
+// solve_rows_wide with several rows a thread (SCOLS > 1): the previous
+// step's vector through xch[i] (each lane its elements), each column's
+// element through xch[SGC + j], written by the column's owner.  cv[k]: this
+// lane's element of row lane + k SG of the previous step's vector on entry
+// and of this step's on return.
+template <bool BWD, bool WSM>
+__device__ __forceinline__ void solve_rows_wide_cols(const real* sg,
+                                                const real* wsm_t, int lane,
+                                                int g, bool first, real* cv,
+                                                real* xch) {
+    const STile C{sg + S_C * SQS}, Gt{sg + S_G * SQS}, V{sg + S_V * SQS};
+    real cii[SCOLS], rli[SCOLS], acc[SCOLS];
+#pragma unroll
+    for (int k = 0; k < SCOLS; ++k) {
+        const int i = lane + k * SG;
+        const int r = i < B2 ? i : 0;  // rows past B2: row 0's, unused
+        cii[k] = C[TRI(r, r)];
+        rli[k] = rcp_rn(cii[k]);
+        acc[k] = real(0);
+    }
+    if (!first) {
+#pragma unroll
+        for (int k = 0; k < SCOLS; ++k) xch[lane + k * SG] = cv[k];
+        lane_group_sync(g, SG);
+#pragma unroll
+        for (int k = 0; k < SCOLS; ++k) {
+            const int i = lane + k * SG;
+            const int r = i < B2 ? i : 0;
+#pragma unroll 4
+            for (int j = 0; j < B2; ++j)
+                acc[k] = fma_rn(Gt[j * B2 + r], xch[j], acc[k]);
+        }
+    }
+    real* yx = xch + SGC;
+    real v[SCOLS], y[SCOLS];
+#pragma unroll
+    for (int k = 0; k < SCOLS; ++k) {
+        const int i = lane + k * SG;
+        const int r = i < B2 ? i : 0;
+        v[k] = (BWD && WSM ? wsm_t[r * SQS] : V[r]) - acc[k];
+        y[k] = real(0);
+    }
+#pragma unroll 1
+    for (int u = 0; u < B2; ++u) {
+        const int j = BWD ? B2 - 1 - u : u;
+#pragma unroll
+        for (int k = 0; k < SCOLS; ++k)
+            if (lane + k * SG == j) yx[j] = div_rn(v[k], cii[k], rli[k]);
+        lane_group_sync(g, SG);
+        const real yj = yx[j];
+#pragma unroll
+        for (int k = 0; k < SCOLS; ++k) {
+            const int i = lane + k * SG;
+            y[k] = i == j ? yj : y[k];
+            if (!BWD && i > j && i < B2)
+                v[k] = fma_rn(-C[TRI(i, j)], yj, v[k]);
+            if (BWD && i < j) v[k] = fma_rn(-C[TRI(j, i)], yj, v[k]);
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < SCOLS; ++k) cv[k] = y[k];
+}
+
 // One sweep, step u = 0..W-1 on t = u (forward) or W-1-u (backward):
 // forward w_t = C_t^{-1} (rhs_t - G_{t-1} w_{t-1}), into wsm (w on chip)
 // or x; backward x_t = C_t^{-T} (w_t - G_t' x_{t+1}), into x.  c[] holds
@@ -772,7 +922,10 @@ __device__ __forceinline__ void solve_sweep(
         if (idle) continue;
         const real* sg = ring + (t % S_NSTAGE) * S_ROWS * SQS + g;
         if constexpr (LANE_ROWS) {
-            if constexpr (WIDE)
+            if constexpr (SCOLS > 1)
+                solve_rows_wide_cols<BWD, WSM>(sg, wsm + t * B2 * SQS, i, g,
+                                               u == 0, c, slot);
+            else if constexpr (WIDE)
                 c[0] = solve_rows_wide<BWD, WSM>(sg, wsm + t * B2 * SQS, i,
                                                  g, u == 0, c[0], slot);
             else
@@ -783,6 +936,18 @@ __device__ __forceinline__ void solve_sweep(
                     wsm[(t * B2 + i) * SQS] = c[0];
                 else if (valid)
                     xb[(size_t)(t * B2 + i) * B] = c[0];
+            }
+            if constexpr (SCOLS > 1) {  // this lane's other rows
+#pragma unroll
+                for (int k = 1; k < SCOLS; ++k) {
+                    const int ik = i + k * SG;
+                    if (ik < B2) {
+                        if (!BWD && WSM)
+                            wsm[(t * B2 + ik) * SQS] = c[k];
+                        else if (valid)
+                            xb[(size_t)(t * B2 + ik) * B] = c[k];
+                    }
+                }
             }
         } else {
             load_step<BWD, WSM>(sg, wsm + t * B2 * SQS, i, o);
@@ -836,8 +1001,8 @@ __global__ void __launch_bounds__(solve_threads(S_QLOG_MAX), 1)
     real* xb = x + b;
 
     // w_{t-1} forward, x_{t+1} backward, in every lane (above B2 = 20 this
-    // lane's element).
-    constexpr int NC = LANE_ROWS ? 1 : B2;
+    // lane's elements).
+    constexpr int NC = LANE_ROWS ? SCOLS : B2;
     real c[NC];
 #pragma unroll
     for (int k = 0; k < NC; ++k) c[k] = real(0);

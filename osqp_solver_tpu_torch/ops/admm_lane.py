@@ -50,7 +50,6 @@ from .admm import (
     resolve_device,
 )
 from .ruiz import Scaling
-from .tridiag_kernel import MAX_B2
 
 # Device→host reads since import: one per chunk of the chunk loop, one per
 # guarded bounds update of a session (ops/session_lane.py).
@@ -261,7 +260,7 @@ def solve_batched_lane(
             "solve_batched_lane takes a LaneTrajectoryQP (convert a "
             "batch-leading container with trajectory_qp_lane.to_lane)"
         )
-    check_kernel_limits(qps, dev)
+    check_kernel_limits(qps, dev, settings)
     base = qps.to(dev)
     if settings.scaling > 0:
         scaled, scaling = ruiz_equilibrate_lane(base, settings.scaling)
@@ -324,29 +323,60 @@ def _use_fused(scaled, settings: Settings) -> bool:
     )
 
 
-# The most joints a lane solve takes on the card: a block holds a group of
-# pow2_at_least(2N) threads and, in the chunk, residual and tridiagonal
-# solve kernels, as many producer threads, and a block has at most 1,024:
-# the tridiagonal kernels' limit on B2 = 2N.
-MAX_KERNEL_JOINTS = MAX_B2 // 2
+def least_shared_bytes(qp, settings: Settings) -> dict:
+    """The fewest bytes of shared memory a block asks for, by kernel, of the
+    lane kernels that the solve of ``qp`` under ``settings`` runs, each with
+    every ring and window it can place in the device-memory workspace
+    placed there (the wide forms, above 16 joints; 0 below, where the
+    narrow forms' one placement fits the card): Ruiz at one warp of
+    per-thread slots (``csrc/ruiz.cu``), the chunk's and the residual
+    kernel's group slots (``SLOT`` of ``csrc/admm_chunk.cu`` and
+    ``csrc/residuals.cu``) on the fused path, the tridiagonal solve's
+    (:func:`.tridiag_kernel.least_shared_bytes`) on the unfused path and for
+    polish.  The KKT and tridiagonal factors' wide forms keep nothing on
+    chip.  Mirrors the sources' constants; their plans decide at launch."""
+    from .. import _build
+    from .ruiz_kernel import ruiz_kernel_supported
+    from .tridiag_kernel import least_shared_bytes as tridiag_bytes
+
+    B2 = 2 * qp.n_dim
+    if B2 <= 32:
+        return {}
+    G = _build.group_size(B2, 4)
+    GC = G * (-(-B2 // G))
+    Rp = qp.rows_per_waypoint_padded
+    need = {}
+    if settings.scaling > 0 and ruiz_kernel_supported(qp):
+        need["ruiz"] = 4 * (32 * B2 + 2)  # a warp's slots of 2N values
+    if _use_fused(qp, settings):
+        need["admm_chunk"] = 4 * (9 * GC + 6 * Rp + 24)
+        need["residuals"] = 4 * (4 * GC + 6 * Rp + 24 + G)
+    if not _use_fused(qp, settings) or settings.polish:
+        need["tridiag_solve"] = tridiag_bytes(B2)
+    return need
 
 
-def check_kernel_limits(qp, device) -> None:
-    """On a CUDA ``device``, raise ``NotImplementedError`` naming the limit,
-    before anything is built or moved, where the solve of ``qp`` cannot
-    launch its kernels: above :data:`MAX_KERNEL_JOINTS` joints a problem's
-    group of threads and its producers outgrow a block.  Up to there every
-    lane kernel launches (above 16 joints in its wide form; ``chip_smoke.py``
-    holds them on the card at N = 4-32, 40, 64, 100 and 256: groups of up
-    to 512 threads).  The plain versions on the CPU have no limit."""
+def check_kernel_limits(qp, device, settings: Settings) -> None:
+    """On a CUDA ``device``, raise ``NotImplementedError`` naming the
+    kernel, before anything is built or moved, where a lane kernel that the
+    solve of ``qp`` under ``settings`` runs cannot be placed: its smallest
+    launch (:func:`least_shared_bytes`) takes more shared memory than a
+    block of the card may use.  Every other joint count launches: above 16
+    joints the wide forms, above 256 a group of 512 threads, each owning
+    several columns (``chip_smoke.py`` holds them on the card at N = 4-32,
+    40, 64, 100, 256 and 300).  The plain versions on the CPU have no
+    limit."""
+    from .. import _build
+
     if torch.device(device).type != "cuda":
         return
-    if qp.n_dim > MAX_KERNEL_JOINTS:
-        raise NotImplementedError(
-            f"the lane kernels take at most {MAX_KERNEL_JOINTS} joints on "
-            f"the card (N={qp.n_dim}): a problem's group of threads, the "
-            "smallest power of two >= 2N, and as many producer threads must "
-            "fit the 1,024 threads of a block")
+    for name, need in least_shared_bytes(qp, settings).items():
+        if need > _build.CARD_SHARED_BYTES:
+            raise NotImplementedError(
+                f"the lane kernel {name} cannot be placed on the card at "
+                f"N={qp.n_dim}: its smallest launch takes {need} bytes of "
+                f"shared memory a block, the card "
+                f"{_build.CARD_SHARED_BYTES}")
 
 
 def _packed_factor(scaled, rho_vec, settings: Settings, coef=None):

@@ -79,7 +79,7 @@ def setup_lane(qps, settings: Settings = Settings(), device=None) -> LaneSession
     pin_matmul_precision()
     if not isinstance(qps, LaneTrajectoryQP):
         qps = to_lane(qps)
-    check_kernel_limits(qps, dev)
+    check_kernel_limits(qps, dev, settings)
     qps = qps.to(dev)
     if settings.scaling > 0:
         scaled, scaling = ruiz_equilibrate_lane(qps, settings.scaling)

@@ -28,8 +28,9 @@ an H100: bytes on paper (~0.03-0.06 ms at B=1024, W=100, B2=12), each
 problem's chain of steps in practice.  The block size ``B2`` is
 compile-time (one build per ``B2``).  Above B2=32 both kernels take their
 wide form (one problem a block, a group of several warps, shuffles through
-shared memory); where a ring does not fit on chip its plan asks for a
-device-memory workspace, which :func:`_launch` allocates.
+shared memory), above B2=512 with each of the group's 512 threads owning
+several rows of a step; where a ring does not fit on chip its plan asks
+for a device-memory workspace, which :func:`_launch` allocates.
 """
 from __future__ import annotations
 
@@ -52,19 +53,29 @@ def solve_lane_major_plain(chol, gain, rhs):
     return block_tridiag_solve(BlockTridiagFactor(chol, gain), rhs)
 
 
-# The largest block the kernels take: the solve's group of threads (the
-# smallest power of two >= B2) and as many producer threads fill the 1,024
-# threads of a block.
-MAX_B2 = 512
+def least_shared_bytes(B2):
+    """The fewest bytes of shared memory a block of the kernels asks for at
+    block size ``B2``: the solve's slot (2 values a row of its group's rows,
+    ``S_SLOT`` of ``csrc/tridiag.cu``) with its ring and ``w`` in device
+    memory; the factor's wide form keeps nothing on chip.  Up to B2 = 32
+    the narrow forms' one placement, which fits the card."""
+    if B2 <= 32:
+        return 0
+    G = _build.group_size(B2, 4)
+    return 4 * 2 * G * (-(-B2 // G))
 
 
 def _lib(B2):
-    """The library for block size ``B2`` (above 32 the wide form); above
-    :data:`MAX_B2` ``NotImplementedError`` before any build."""
-    if B2 > MAX_B2:
+    """The library for block size ``B2`` (above 32 the wide form, above 512
+    a thread owning several rows); where not even the solve's smallest
+    launch fits the card's shared memory, ``NotImplementedError`` before any
+    build."""
+    need = least_shared_bytes(B2)
+    if need > _build.CARD_SHARED_BYTES:
         raise NotImplementedError(
-            f"the CUDA tridiag kernels take B2 <= {MAX_B2}, got B2={B2}: a "
-            "problem's group of threads and its producers fill a block")
+            f"the CUDA tridiag kernels cannot place B2={B2} on the card: the "
+            f"solve's smallest launch takes {need} bytes of shared memory a "
+            f"block, the card {_build.CARD_SHARED_BYTES}")
     return _build.library("tridiag", {"B2": int(B2)})
 
 

@@ -1,7 +1,8 @@
 """PyTorch port vs JAX package: the generic batched ADMM path
 (``ops/admm.py``: ``solve_batched``, ``solve``, polish, ``kkt_refine``, the
-CG backend of ``ops/cg.py``) on the dense container, and on the trajectory
-container (``gomp/trajectory_qp.py``'s operator protocol).
+CG backend of ``ops/cg.py``) on the dense container; on the trajectory
+container it is ``test_torch_admm_trajectory.py``'s, with the helpers
+here.
 
 Every problem is made with numpy from a seed and handed to both packages.
 f64, CPU: statuses and ADMM iteration counts must be EQUAL, ``x``/``y``
@@ -168,7 +169,7 @@ def test_solve_one_problem_matches_jax(case, status):
     arrays = case()
     jq = jqp.dense_qp(*arrays)
     tq = convert.dense_qp_from_numpy(*arrays, device="cpu")
-    jres = jadmm.solve(jq)
+    jres = jax.jit(jadmm.solve)(jq)
     tres = tadmm.solve(tq, tadmm.Settings(), device="cpu")
     assert int(tres.status) == status == int(jres.status)
     assert int(tres.iterations) == int(jres.iterations)
@@ -215,15 +216,16 @@ def test_cg_solve_matches_jax():
     rng = np.random.default_rng(2)
     rho = rng.uniform(0.1, 2.0, (4, 11))
     b = rng.normal(size=(4, 9))
-    jr = jax.vmap(lambda qp, r, b: jcg.cg_solve(qp, r, 1e-6, b, tol=1e-10,
-                                                max_iter=40))(
+    # The JAX references under jax.jit: one program each, not op by op.
+    jr = jax.jit(jax.vmap(lambda qp, r, b: jcg.cg_solve(
+        qp, r, 1e-6, b, tol=1e-10, max_iter=40)))(
         jq, jnp.asarray(rho), jnp.asarray(b))
     tr = tcg.cg_solve(tq, torch.from_numpy(rho.T.copy()), 1e-6,
                       torch.from_numpy(b.T.copy()), tol=1e-10, max_iter=40)
     np.testing.assert_array_equal(to_np(tr.iterations),
                                   np.asarray(jr.iterations))
     assert_close(lead(tr.x), jr.x, rtol=1e-10, atol=1e-12)
-    jd = jax.vmap(lambda qp, r: jcg.kkt_diagonal(qp, r, 1e-6))(
+    jd = jax.jit(jax.vmap(lambda qp, r: jcg.kkt_diagonal(qp, r, 1e-6)))(
         jq, jnp.asarray(rho))
     assert_close(lead(tcg.kkt_diagonal(tq, torch.from_numpy(rho.T.copy()),
                                        1e-6)), jd, rtol=1e-12)
@@ -258,80 +260,15 @@ def both_trajectory(static, arrays):
     return jq, convert.trajectory_qp_from_numpy(static, arrays, device="cpu")
 
 
-def test_solve_batched_trajectory_matches_jax():
-    """W=10, N=6, B=4 on the trajectory container (its factor and solve:
-    the block-tridiagonal kernels' plain versions here)."""
-    jq, tq = both_trajectory(*trajectory_batch())
-    js, ts = settings_pair()
-    jres = jax.jit(lambda q: jadmm.solve_batched(q, js))(jq)
-    tres = tadmm.solve_batched(tq, ts, device="cpu")
-    assert_same(jres, tres)
-    assert (to_np(tres.status) == ExitCode.kOptimal).all()
-
-
-def test_solve_one_trajectory_matches_jax():
-    static, arrays = trajectory_batch(B=1, seed=1)
-    one = {k: v[0] for k, v in arrays.items()}
-    jq, tq = both_trajectory(static, one)
-    js, ts = settings_pair()
-    jres = jax.jit(lambda q: jadmm.solve(q, js))(jq)
-    tres = tadmm.solve(tq, ts, device="cpu")
-    assert int(tres.status) == int(jres.status) == ExitCode.kOptimal
-    assert int(tres.iterations) == int(jres.iterations)
-    assert_close(tres.x, jres.x, rtol=1e-8, atol=1e-8)
-
-
 def random_trajectory(B=3, W=6, N=3, seed=0):
     """Every array field of a two-ball, one-obstacle container random (the
     operators do not care about feasibility)."""
     rng = np.random.default_rng(seed)
-    j0 = jtq.empty_trajectory_qp(W, N, (False, True), 1, dtype=jnp.float64)
+    j0 = jax.eval_shape(lambda: jtq.empty_trajectory_qp(
+        W, N, (False, True), 1, dtype=jnp.float64))
     arrays = {k: rng.normal(size=(B,) + np.shape(getattr(j0, k)))
               for k in convert._ARRAY_FIELDS}
     arrays["P_diag"] = arrays["P_diag"] + np.swapaxes(arrays["P_diag"], -1, -2)
     static = dict(waypoints=W, n_dim=N, gripper_flags=(False, True),
                   n_obstacles=1, p_structure="block")
     return both_trajectory(static, arrays)
-
-
-def test_trajectory_operators_match_jax():
-    jq, tq = random_trajectory()
-    B = 3
-    rng = np.random.default_rng(1)
-    x, y = rng.normal(size=(B, jq.n)), rng.normal(size=(B, jq.m))
-    tx, ty = torch.from_numpy(x.T.copy()), torch.from_numpy(y.T.copy())
-    v = lambda f, *a: np.asarray(jax.vmap(f)(jq, *a))  # noqa: E731
-    assert (tq.n, tq.m) == (jq.n, jq.m)
-    for got, ref in (
-        (tq.A_matvec(tx), v(lambda q, x: q.A_matvec(x), jnp.asarray(x))),
-        (tq.AT_matvec(ty), v(lambda q, y: q.AT_matvec(y), jnp.asarray(y))),
-        (tq.P_matvec(tx), v(lambda q, x: q.P_matvec(x), jnp.asarray(x))),
-        (tq.A_col_absmax(), v(lambda q: q.A_col_absmax())),
-        (tq.A_row_absmax(), v(lambda q: q.A_row_absmax())),
-        (tq.P_col_absmax(), v(lambda q: q.P_col_absmax())),
-        (tq.l, v(lambda q: q.l)), (tq.u, v(lambda q: q.u)),
-    ):
-        assert_close(lead(got), ref, rtol=1e-12, atol=1e-12)
-    for got, ref in zip(tq.to_dense(), jax.vmap(lambda q: q.to_dense())(jq)):
-        assert_close(lead(got), ref, rtol=1e-12, atol=1e-12)
-    rho = rng.uniform(0.1, 2.0, (B, jq.m))
-    jd, jl = jax.vmap(lambda q, r: q.kkt_blocks(r, 1e-6))(jq, jnp.asarray(rho))
-    td, tl = tq.kkt_blocks(torch.from_numpy(rho.T.copy()), 1e-6)
-    assert_close(lead(td), jd, rtol=1e-12, atol=1e-12)
-    assert_close(lead(tl), jl, rtol=1e-12, atol=1e-12)
-
-
-def test_trajectory_scale_data_matches_jax():
-    jq, tq = random_trajectory(seed=2)
-    B = 3
-    rng = np.random.default_rng(3)
-    D = rng.uniform(0.5, 2.0, (B, jq.n))
-    E = rng.uniform(0.5, 2.0, (B, jq.m))
-    c = rng.uniform(0.5, 2.0, B)
-    js = jax.vmap(lambda q, D, E, c: q.scale_data(D, E, c))(
-        jq, jnp.asarray(D), jnp.asarray(E), jnp.asarray(c))
-    ts = tq.scale_data(*(torch.from_numpy(np.ascontiguousarray(a.T))
-                         for a in (D, E, c)))
-    for k in convert._ARRAY_FIELDS:
-        assert_close(lead(getattr(ts, k)), getattr(js, k), rtol=1e-12,
-                     atol=1e-12)

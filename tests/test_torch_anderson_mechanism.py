@@ -4,12 +4,15 @@ driver's Anderson step (``_anderson_step``), the JAX package's own
 past the safeguard, an accepted extrapolation, frozen done problems), run
 through both packages on the same inputs.  f64, CPU."""
 import dataclasses
+import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from osqp_solver_tpu.ops import admm as jadmm
 from osqp_solver_tpu.ops import admm_lane as jdrv
 from osqp_solver_tpu_torch import convert
 from osqp_solver_tpu_torch.ops import admm as tadmm
@@ -22,13 +25,27 @@ pytestmark = pytest.mark.torch_port
 torch.set_num_threads(1)
 
 
+@functools.lru_cache(maxsize=None)
+def _fixture():
+    """The reference's fixture (``tests/test_admm_lane.py::_aa_fixture``,
+    history primed by ``_prime_history``) built under ``jax.jit``: one
+    compiled program instead of its eager ops; the step itself too."""
+    from test_admm_lane import _aa_fixture, _prime_history
+
+    def build():
+        scaled, st, _, v_out = _aa_fixture()
+        return scaled, _prime_history(st, v_out)
+    scaled, st = jax.jit(build)()
+    settings = dataclasses.replace(jadmm.Settings(), anderson=3)
+    step = jax.jit(lambda sc, st, reset: jdrv._anderson_step(
+        sc, st, settings, use_fused=False, reset_mask=reset))
+    return scaled, st, settings, step
+
+
 def _aa_case(case):
     """``(JAX out, port out, JAX in)`` of one step of the reference's
     mechanism tests, on their fixture (``tests/test_admm_lane.py``)."""
-    from test_admm_lane import _aa_fixture, _prime_history
-
-    scaled, st, settings, v_out = _aa_fixture()
-    st = _prime_history(st, v_out)
+    scaled, st, settings, step = _fixture()
     reset = jnp.zeros_like(st.done)
     if case == "rho_reset":
         reset = jnp.ones_like(st.done)
@@ -38,8 +55,7 @@ def _aa_case(case):
         st = st.replace(aa_vin=st.aa_vin - 0.01)
         if case == "done":
             st = st.replace(done=jnp.zeros_like(st.done).at[1].set(True))
-    out = jdrv._anderson_step(scaled, st, settings, use_fused=False,
-                              reset_mask=reset)
+    out = step(scaled, st, reset)
 
     t = lambda a: torch.from_numpy(np.array(a))
     tscaled = convert.lane_qp_from_numpy(*convert.lane_qp_to_numpy(scaled))

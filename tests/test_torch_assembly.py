@@ -4,6 +4,7 @@ benchmark batch constructors, field by field (f64, CPU, 1e-10)."""
 import os
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -91,7 +92,10 @@ def test_horizontal_line(below):
     assert flags.any() and not flags.all()
 
 
+@jax.jit
 def _jax_problem(i, dtype=jnp.float64):
+    """The JAX package's boxed and linearized problems of shift ``i``, one
+    compiled program for every ``i`` instead of ~80 eager ops a call."""
     balls = (jur5e.make_ball("back6", 0.15),
              jur5e.make_ball("tool", 0.05, is_gripper=True))
     obstacles = [jgeom.HorizontalLine.create((0.0, 1.0), (0.35, 0.0, 0.15))]
@@ -141,7 +145,7 @@ def test_constructors_match_reference(batched):
 
 @pytest.mark.parametrize("build", ["build_honest_batch", "build_box_batch"])
 def test_benchmark_batches_match_reference(build):
-    ref = getattr(bench, build)(8, W, N, jnp.float64)
+    ref = jax.jit(lambda: getattr(bench, build)(8, W, N, jnp.float64))()
     got = getattr(thonest, build)(8, W, N, torch.float64, "cpu")
     s_ref, a_ref = convert.lane_qp_to_numpy(ref)
     s_got, a_got = convert.lane_qp_to_numpy(got)

@@ -35,9 +35,9 @@ TOL = dict(rtol=0.0, atol=1e-12)
 
 @functools.lru_cache(maxsize=None)
 def both(W=25, N=3):
-    """The trajectory QP and its banded form in both packages (built once
-    per size: the JAX side runs eagerly)."""
-    jqp = make_traj_qp(W=W, N=N)
+    """The trajectory QP and its banded form in both packages (the JAX side
+    under jax.jit: one program each, not op by op)."""
+    jqp = jax.jit(lambda: make_traj_qp(W=W, N=N))()
     tqp = convert.trajectory_qp_from_numpy(
         *convert.trajectory_qp_to_numpy(jqp), device="cpu")
     jb, jmap = jax.jit(jbanded.banded_from_trajectory)(jqp)
@@ -55,24 +55,34 @@ def test_banded_from_trajectory_and_operators_match_jax():
     rng = np.random.default_rng(0)
     x = rng.standard_normal(tb.n)
     y = rng.standard_normal(tb.m)
-    tx, ty = torch.tensor(x), torch.tensor(y)
-    assert_close(tb.A_matvec(tx), jb.A_matvec(jnp.asarray(x)), **TOL)
-    assert_close(tb.AT_matvec(ty), jb.AT_matvec(jnp.asarray(y)), **TOL)
-    assert_close(tb.P_matvec(tx), jb.P_matvec(jnp.asarray(x)), **TOL)
-    for name in ("A_col_absmax", "A_row_absmax", "P_col_absmax"):
-        assert_close(getattr(tb, name)(), getattr(jb, name)(), **TOL)
     rho = np.abs(rng.standard_normal(tb.m)) + 0.1
-    d, lo = tb.kkt_blocks(torch.tensor(rho), 1e-6)
-    jd, jl = jb.kkt_blocks(jnp.asarray(rho), 1e-6)
-    assert_close(d, jd, **TOL)
-    assert_close(lo[:-1], jl, **TOL)
     D = np.exp(0.3 * rng.standard_normal(tb.n))
     E = np.exp(0.3 * rng.standard_normal(tb.m))
+
+    @jax.jit
+    def reference(jb, x, y, rho, D, E):
+        """Every JAX operator below, one compiled program."""
+        return (jb.A_matvec(x), jb.AT_matvec(y), jb.P_matvec(x),
+                [getattr(jb, name)() for name in NORMS],
+                jb.kkt_blocks(rho, 1e-6), jb.scale_data(D, E, 0.7))
+    jax_out = reference(jb, *(jnp.asarray(a) for a in (x, y, rho, D, E)))
+    tx, ty = torch.tensor(x), torch.tensor(y)
+    for got, ref in zip((tb.A_matvec(tx), tb.AT_matvec(ty), tb.P_matvec(tx)),
+                        jax_out[:3]):
+        assert_close(got, ref, **TOL)
+    for name, ref in zip(NORMS, jax_out[3]):
+        assert_close(getattr(tb, name)(), ref, **TOL)
+    d, lo = tb.kkt_blocks(torch.tensor(rho), 1e-6)
+    jd, jl = jax_out[4]
+    assert_close(d, jd, **TOL)
+    assert_close(lo[:-1], jl, **TOL)
     ts = tb.scale_data(torch.tensor(D), torch.tensor(E),
                        torch.tensor(0.7, dtype=torch.float64))
-    js = jb.scale_data(jnp.asarray(D), jnp.asarray(E), 0.7)
     for name in ("P_diag", "P_lower", "q_wb", "A0", "A1", "l_wr", "u_wr"):
-        assert_close(getattr(ts, name), getattr(js, name), **TOL)
+        assert_close(getattr(ts, name), getattr(jax_out[5], name), **TOL)
+
+
+NORMS = ("A_col_absmax", "A_row_absmax", "P_col_absmax")
 
 
 def test_interleave_round_trip_matches_jax():

@@ -1,14 +1,23 @@
 """PyTorch port vs JAX package: the block-P kernel forms against the JAX
-package's Pallas kernels in interpret mode.
+package's Pallas kernels and their references.
 
 On ``test_torch_blockp.py``'s block-P batch (the GOMP smoothness term plus
 ``chip_smoke.block_p_terms``; B=128, the kernels' lane tile; W=8, N=3;
-f64): the plain versions of the Ruiz kernel, the residual kernel and the
-gain chunk against the JAX kernels in interpret mode, and the port's
-``pack_factor`` against the reference's."""
+f64): the plain version of the Ruiz kernel against the JAX Ruiz kernel in
+interpret mode (its one interpret-mode case here; the block branch), the
+port's ``pack_factor`` against the reference's, and the plain versions of
+the gain chunk and the residual kernel against the references the JAX
+package's own tests hold those kernels to in interpret mode (three
+unfused iterations: ``tests/test_admm_fused.py::
+test_block_p_structure_fused_driver`` holds the fused block-P solve, gain
+chunk and residual kernel interpreted, to the unfused one; the jnp
+termination quantities: ``tests/test_residuals_pallas.py::
+test_quantities_match_jnp``).  The vel-diag forms' interpret-mode cases
+are ``test_torch_residuals_interpret.py``'s."""
 import dataclasses
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +26,6 @@ import torch
 from osqp_solver_tpu.ops import admm as jadmm
 from osqp_solver_tpu.ops import admm_fused as jfused
 from osqp_solver_tpu.ops import admm_lane as jdrv
-from osqp_solver_tpu.ops import residuals_pallas as jresid
 from osqp_solver_tpu.ops.ruiz_pallas import ruiz_equilibrate_lane_kernel
 from osqp_solver_tpu_torch import convert
 from osqp_solver_tpu_torch.gomp.trajectory_qp_lane import LaneFactor
@@ -41,8 +49,10 @@ def _scaled():
     jqp, _ = _batch()
     settings = dataclasses.replace(jadmm.Settings(), check_termination=3,
                                    factor_form="gain")
-    scaled, scaling = jdrv._ruiz_equilibrate_lane_jnp(jqp, 3)
-    st = jdrv.init_state_lane(scaled, settings)
+    # The JAX glue under jax.jit: compiled once, not op by op.
+    scaled, scaling = jax.jit(
+        lambda q: jdrv._ruiz_equilibrate_lane_jnp(q, 3))(jqp)
+    st = jax.jit(lambda q: jdrv.init_state_lane(q, settings))(scaled)
     tscaled = convert.lane_qp_from_numpy(*convert.lane_qp_to_numpy(scaled))
     ts = convert.scaling_from_numpy(
         *(to_np(a) for a in (scaling.D, scaling.E, scaling.c)))
@@ -66,8 +76,12 @@ def test_block_p_pack_factor_matches_reference():
     and the whole route (each package's block-tridiagonal factor, then
     ``pack_factor``) within 1e-12."""
     settings, scaled, _, st, tsettings, tscaled, _ = _scaled()
-    jf = scaled.kkt_factor(st.rho_vec, settings.sigma)
-    jc, jg = jfused.pack_factor(scaled, jf)
+
+    @jax.jit
+    def reference(scaled, rho_vec):
+        jf = scaled.kkt_factor(rho_vec, settings.sigma)
+        return jf, jfused.pack_factor(scaled, jf)
+    jf, (jc, jg) = reference(scaled, st.rho_vec)
     tc, tg = tfused.pack_factor(tscaled, LaneFactor(chol=t_(jf.chol),
                                                     gain=t_(jf.gain)))
     np.testing.assert_array_equal(to_np(tc), np.asarray(jc))
@@ -82,17 +96,26 @@ def test_block_p_pack_factor_matches_reference():
 
 
 def test_block_p_gain_chunk_plain_matches_interpreted_kernel():
-    """The JAX chunk kernel in its gain form (the form block P takes) and
-    the port's plain chunk from the same state and the same packed factor:
-    state and deltas within 1e-9 (two routes through 3 iterations); a
-    frozen problem emits exact zeros."""
+    """The JAX package's reference of its chunk kernel on block P (three
+    unfused iterations, the form the interpreted fused solve is held to)
+    and the port's plain chunk, in its gain form, from the same state and
+    the same factor: state and deltas within 1e-9 (two routes through 3
+    iterations); a frozen problem emits exact zeros."""
     settings, scaled, _, st, tsettings, tscaled, _ = _scaled()
     done = jnp.zeros((B,), bool).at[9].set(True)
-    pf = jfused.pack_factor(scaled, scaled.kkt_factor(st.rho_vec,
-                                                      settings.sigma))
-    x2, z2, y2, dx2, dy2 = jfused.fused_admm_chunk(
-        scaled, None, st.x, st.z, st.y, st.rho_vec, done, settings,
-        packed_factor=pf, interpret=True)
+
+    @jax.jit
+    def reference(scaled, st):
+        factor = scaled.kkt_factor(st.rho_vec, settings.sigma)
+        it = st.replace(done=done)
+        for _ in range(settings.check_termination):
+            it = jdrv._iteration(scaled, it.replace(factor=None), factor,
+                                 settings)
+        return (jfused.pack_factor(scaled, factor),
+                jfused.pack_state(scaled, it.x, it.z, it.y),
+                jfused.pack_dxdy(scaled, jnp.where(done, 0.0, it.dx),
+                                 jnp.where(done, 0.0, it.dy)))
+    pf, ref_state, ref_dxdy = reference(scaled, st)
     out, dxdy = tfused.fused_admm_chunk(
         tscaled, t_(st.rho_vec), t_(done), tsettings,
         coef=tfused.build_coef_pack(tscaled),
@@ -100,31 +123,28 @@ def test_block_p_gain_chunk_plain_matches_interpreted_kernel():
         packed_factor=(t_(pf[0]), t_(pf[1])),
         state_pack=tfused.pack_state(tscaled, t_(st.x), t_(st.z), t_(st.y)),
         emit_dxdy=True)
-    assert_close(out, jfused.pack_state(scaled, x2, z2, y2), rtol=1e-9,
-                 atol=1e-9)
-    assert_close(dxdy, jfused.pack_dxdy(scaled, dx2, dy2), rtol=1e-9,
-                 atol=1e-9)
+    assert_close(out, ref_state, rtol=1e-9, atol=1e-9)
+    assert_close(dxdy, ref_dxdy, rtol=1e-9, atol=1e-9)
     assert (to_np(dxdy)[..., 9] == 0.0).all()
     assert tfused.fused_admm_chunk.launches_block == 0
 
 
 def test_block_p_residual_plain_matches_interpreted_kernel():
     """Every ``TermQuantities`` field of the port's plain pass against the
-    JAX residual kernel (block branch) on the same packed state and
-    deltas."""
+    JAX package's jnp termination quantities (the reference of its residual
+    kernel, block branch) on the same random state and deltas."""
     settings, scaled, scaling, st, _, tscaled, ts = _scaled()
+    jqp, _ = _batch()
     rng = np.random.default_rng(12)
     x = st.x + rng.normal(size=st.x.shape)
     z = st.z + rng.normal(size=st.z.shape)
     y = st.y + 0.1 * rng.normal(size=st.y.shape)
     dx, dy = rng.normal(size=st.x.shape), rng.normal(size=st.y.shape)
-    sp = jfused.pack_state(scaled, jnp.asarray(x), jnp.asarray(z),
-                           jnp.asarray(y))
-    dp = jfused.pack_dxdy(scaled, jnp.asarray(dx), jnp.asarray(dy))
-    ref = jresid.termination_quantities_kernel(
-        scaled, sp, dp, jfused.build_coef_pack(scaled),
-        jresid.build_residual_packs(scaled, scaling) + (scaling.cinv,),
-        interpret=True)
+    it = st.replace(x=jnp.asarray(x), z=jnp.asarray(z), y=jnp.asarray(y),
+                    dx=jnp.asarray(dx), dy=jnp.asarray(dy))
+    ref = jax.jit(jdrv._termination_quantities)(jqp, scaled, scaling, it)
+    sp = jfused.pack_state(scaled, it.x, it.z, it.y)
+    dp = jfused.pack_dxdy(scaled, it.dx, it.dy)
     got = tresid.termination_quantities_kernel(
         tscaled, t_(sp), t_(dp), tfused.build_coef_pack(tscaled),
         tresid.build_residual_packs(tscaled, ts) + (ts.cinv,))

@@ -7,6 +7,7 @@ package's sessions; and what ``pack_factor``'s upper gain triangle does to
 a coupling block with entries below its diagonal, the same in both
 packages (``ROADMAP.md`` queue C)."""
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -47,15 +48,23 @@ def _shift(base, d):
     return base.replace(pos_l=pos_l, pos_u=pos_u)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_sessions():
+    """The JAX sessions' ``(statuses, iterations, x)``: one program for
+    both of the port's ``fused_chunk`` cases."""
+    jqp, _ = _batch()
+    return jax.jit(lambda q: jsess.mpc_scan_lane(
+        jsess.setup_lane(q, S_JAX), jnp.asarray(DELTAS), _shift_jax, S_JAX,
+        emit="full")[1])(jqp)
+
+
 @pytest.mark.parametrize("fused_chunk", ["auto", "off"])
 def test_block_p_sessions_match_reference(fused_chunk):
     """``setup_lane`` → ``mpc_scan_lane`` over T ticks of a moving goal:
     (T, B) statuses and iterations equal to the JAX sessions', the last
     tick's x within 1e-7."""
-    jqp, tqp = _batch()
-    st_j, it_j, x_j = jax.jit(lambda q: jsess.mpc_scan_lane(
-        jsess.setup_lane(q, S_JAX), jnp.asarray(DELTAS), _shift_jax, S_JAX,
-        emit="full")[1])(jqp)
+    _, tqp = _batch()
+    st_j, it_j, x_j = _jax_sessions()
     s = _settings(fused_chunk=fused_chunk)
     _, (st, it, x) = tsess.mpc_scan_lane(
         tsess.setup_lane(tqp, s, device="cpu"), torch.from_numpy(DELTAS),

@@ -11,7 +11,8 @@ Beyond them: the UR5e balls of the reference example, ``HorizontalLine``
 collisions beside dummy rows, and a ``SphereObstacle``.  Then the structured
 container's exports (``layout``, ``row_map``, ``to_csr``), the tridiagonal
 helpers, the lane container's Ruiz norms, the UR5e Jacobians, and the
-builder's QP solved by both packages."""
+builder's QP solved by both packages.  The scenarios and the layouts run in
+``test_torch_builder_scenarios.py``, with this file's set-up."""
 import dataclasses
 import functools
 
@@ -26,7 +27,6 @@ from osqp_solver_tpu import RobotBall as JBall
 from osqp_solver_tpu import constraints as JC
 from osqp_solver_tpu.gomp import geometry as jgeo
 from osqp_solver_tpu.gomp import trajectory_qp as jtq
-from osqp_solver_tpu.gomp.layout import make_layout as jmake_layout
 from osqp_solver_tpu.gomp.trajectory import smoothness_objective as jsmooth
 from osqp_solver_tpu.models import ur5e as jur5e
 from osqp_solver_tpu.ops import admm as jadmm
@@ -35,7 +35,6 @@ from osqp_solver_tpu.ops.qp import DenseQP as JDenseQP
 from osqp_solver_tpu_torch import ConstraintBuilder as TBuilder
 from osqp_solver_tpu_torch import RobotBall as TBall
 from osqp_solver_tpu_torch import constraints as TC
-from osqp_solver_tpu_torch import make_layout as tmake_layout
 from osqp_solver_tpu_torch.gomp import geometry as tgeo
 from osqp_solver_tpu_torch.gomp import trajectory_qp as ttq
 from osqp_solver_tpu_torch.gomp.trajectory import smoothness_objective
@@ -45,7 +44,7 @@ from osqp_solver_tpu_torch.ops import tridiag as ttri
 from osqp_solver_tpu_torch.ops.qp import dense_qp
 from osqp_solver_tpu_torch.ops.status import ExitCode
 
-from test_torch_helpers import both, to_np
+from test_torch_helpers import both, jit_vmap, to_np
 
 pytestmark = pytest.mark.torch_port
 torch.set_num_threads(1)
@@ -152,57 +151,10 @@ def scenario(name):
     return jb, tb
 
 
-BUILDER_SCENARIOS = [
-    "linking_velocity_to_position", "joint_position", "velocity",
-    "acceleration", "all_constraint_kinds", "position3d_stateful_fk",
-    "position3d_identity_fk", "position3d_jac_pow2",
-    "ignore_velocity_trajectory", "radius_tightens_bounds",
-    "obstacle_rows_collision_and_dummy",
-]
-
-
 def assert_lau(jb, tb, tol=TOL):
     for a, b in zip(jb.build(), tb.build()):
         assert a.shape == b.shape
         np.testing.assert_allclose(b, a, rtol=tol, atol=tol)
-
-
-@pytest.mark.parametrize("name", BUILDER_SCENARIOS)
-def test_builder_scenario_matches_reference(name):
-    """Each assembling scenario of ``tests/test_builder.py``: the port's
-    ``(l, A, u)`` equal the JAX builder's."""
-    assert_lau(*scenario(name))
-
-
-LAYOUTS = [(3, 2, (), 0), (4, 2, (), 0), (10, 6, (False, True), 2),
-           (7, 3, (True,), 1), (5, 7, (True, False, True), 3),
-           (20, 6, (False, True), 0)]
-
-
-@pytest.mark.parametrize("W,N,flags,n_obs", LAYOUTS)
-def test_layout_matches_reference(W, N, flags, n_obs):
-    """``make_layout``'s offsets, row counts and indices equal JAX's exactly
-    (the mirrors of ``test_indices`` and
-    ``test_row_count_matches_reference_overallocation``)."""
-    j, t = jmake_layout(W, N, flags, n_obs), tmake_layout(W, N, flags, n_obs)
-    for attr in ("n_vars", "n_balls", "dynamics_offset", "n_dynamics_rows",
-                 "user_offset", "position_offset", "velocity_offset",
-                 "acceleration_offset", "workspace_offset",
-                 "n_used_workspace_rows", "n_allocated_workspace_rows",
-                 "n_rows"):
-        assert getattr(t, attr) == getattr(j, attr), attr
-    assert [t.nth_pos(i) for i in range(W)] == [j.nth_pos(i) for i in range(W)]
-    assert ([t.nth_velocity(i) for i in range(W - 1)]
-            == [j.nth_velocity(i) for i in range(W - 1)])
-    assert ([t.nth_acceleration(i) for i in range(W - 2)]
-            == [j.nth_acceleration(i) for i in range(W - 2)])
-    for b in range(len(flags)):
-        assert t.ball_offset(b) == j.ball_offset(b)
-        assert t.rows_per_waypoint(b) == j.rows_per_waypoint(b)
-        assert ([t.workspace_row(b, w, k) for w in range(W)
-                 for k in range(t.rows_per_waypoint(b))]
-                == [j.workspace_row(b, w, k) for w in range(W)
-                    for k in range(j.rows_per_waypoint(b))])
 
 
 # --- the reference example's problem, both packages --------------------------
@@ -354,11 +306,11 @@ def test_tridiag_helpers_match_reference():
             rtol=0, atol=0)
     trail = lambda a: torch.from_numpy(np.moveaxis(a, 0, -1))  # noqa: E731
     y = ttri.block_tridiag_matvec(trail(diag), trail(lower), trail(x))
-    ref = jax.vmap(jtri.block_tridiag_matvec)(diag, lower, x)
+    ref = jit_vmap(jtri.block_tridiag_matvec)(diag, lower, x)
     np.testing.assert_allclose(to_np(y), np.moveaxis(np.asarray(ref), 0, -1),
                                rtol=TOL, atol=TOL)
     M = ttri.block_tridiag_to_dense(trail(diag), trail(lower))
-    refM = jax.vmap(jtri.block_tridiag_to_dense)(diag, lower)
+    refM = jit_vmap(jtri.block_tridiag_to_dense)(diag, lower)
     np.testing.assert_array_equal(to_np(M), np.moveaxis(np.asarray(refM), 0,
                                                         -1))
 

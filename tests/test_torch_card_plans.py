@@ -5,17 +5,23 @@ build (``_build.float_library``), and asked for its plans as on an H100
 (232,448 bytes of shared memory a block may use, 132 SMs): at the shapes
 the card has already run (W=100, B=1024, N=6: the plans ``chip_smoke.py``
 records there), at the reference example's
-W=802 with B=512 (``chip_smoke.py w802``), and at N = 40, 100 and 256 joints
-at the shapes ``chip_smoke.py lane_wide`` runs them (groups of 128, 256 and
-512 threads).  ``chip_smoke.py`` records the card's own plans beside its
-checks.  A plan that does not fit the card's shared memory raises; none is
-launched clipped."""
+W=802 with B=512 (``chip_smoke.py w802``), and at N = 40, 100, 256 and 300
+joints at the shapes ``chip_smoke.py lane_wide`` runs them (groups of 128,
+256 and 512 threads; at N=300 the 512 threads own the 2N = 600 columns,
+88 of them two).
+The refusal before any build (``admm_lane.least_shared_bytes``) mirrors
+the smallest of these plans.  ``chip_smoke.py`` records the card's own
+plans beside its checks.  A plan that does not fit the card's shared
+memory raises; none is launched clipped."""
 import ctypes
 import shutil
+from types import SimpleNamespace
 
 import pytest
 
 from osqp_solver_tpu_torch import _build
+from osqp_solver_tpu_torch.ops import admm as tadmm
+from osqp_solver_tpu_torch.ops import admm_lane as tdrv
 from osqp_solver_tpu_torch.ops import kkt_factor as tfactor
 from osqp_solver_tpu_torch.ops import residuals as tresid
 from osqp_solver_tpu_torch.ops import ruiz_kernel as truiz
@@ -49,7 +55,7 @@ def _build_dir(tmp_path_factory):
     mp.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path_factory.mktemp("build")))
     handles = [_build.start_float_build(name, _sig(name, n), H100_SMEM,
                                         H100_SMS)
-               for n in (6, 40, 100, 256)
+               for n in (6, 40, 100, 256, 300)
                for name in ("ruiz", "kkt_factor", "admm_chunk", "residuals",
                             "tridiag")]
     handles += [_build.start_float_build(name, _sig(name, n), SMALL_SMEM,
@@ -175,14 +181,21 @@ WIDE = {
                        "admm_chunk_term_gain", "admm_chunk_dxdy",
                        "admm_chunk_dxdy_gain", "tridiag_factor",
                        "tridiag_solve"}),
+    # Two columns a thread; the residual kernel's ring (~188 KB) beside its
+    # slot no longer fits on chip either.
+    300: (10, 8, 512, {"kkt_factor", "admm_chunk_warmup",
+                       "admm_chunk_warmup_gain", "admm_chunk_term",
+                       "admm_chunk_term_gain", "admm_chunk_dxdy",
+                       "admm_chunk_dxdy_gain", "residuals",
+                       "tridiag_factor", "tridiag_solve"}),
 }
 
 
 @pytest.mark.parametrize("N", sorted(WIDE))
 def test_wide_plans(N):
     """Above 32 joints: one problem a block, a group of the smallest power
-    of two >= 2N threads (the streaming kernels and the solve with as many
-    producers: up to 1,024 threads a block at N=256), every footprint on
+    of two >= 2N threads, at most 512 (the streaming kernels and the solve
+    with as many producers: up to 1,024 threads a block), every footprint on
     chip within the card's shared memory, the rings and windows that do
     not fit in the workspace, unforced; Ruiz with its rows in device
     memory."""
@@ -229,3 +242,29 @@ def test_over_budget_plans_raise(N):
             "workspace_bytes"] > 0
         assert ttri.factor_plan(libs["tridiag"], 256)["workspace_bytes"] > 0
         assert ttri.plan(libs["tridiag"], 100, 256)["workspace_bytes"] > 0
+
+
+def test_refusal_floor_is_the_plans():
+    """At N=300 the shared memory that ``admm_lane.least_shared_bytes``
+    holds a size to before any build is what the plans take with every
+    ring and window in the workspace: the chunk's slot, the residual
+    kernel's (its ring in the workspace unforced), and the tridiagonal
+    solve's with ``w`` in ``x`` too (a budget below its ``w``)."""
+    W, B = WIDE[300][:2]
+    plans = _plans(300, W, B)
+    qp = SimpleNamespace(n_dim=300, waypoints=W, row_layout="waypoint",
+                         rows_per_waypoint_padded=-(-(4 * 300 + NX) // 8) * 8)
+    least = tdrv.least_shared_bytes(qp, tadmm.Settings(polish=True))
+    assert set(least) == {"ruiz", "admm_chunk", "residuals", "tridiag_solve"}
+    for k in ("admm_chunk_term", "admm_chunk_dxdy_gain"):
+        assert 4 * plans[k]["slot_values"] == least["admm_chunk"], k
+    assert plans["residuals"]["shared_bytes"] == least["residuals"]
+    tri = _lib("tridiag", 300)
+    p = ttri.plan(tri, W, B, least["tridiag_solve"])
+    assert (p["w_on_chip"], p["shared_bytes"]) == (0,
+                                                   least["tridiag_solve"])
+    assert ttri.least_shared_bytes(600) == least["tridiag_solve"]
+    ruiz = _lib("ruiz", 300)
+    assert truiz.plan(ruiz, W, B, least["ruiz"])["G"] > 0
+    with pytest.raises(RuntimeError, match="refused by its launch plan"):
+        truiz.plan(ruiz, W, B, least["ruiz"] - 4)  # one value less

@@ -2,9 +2,11 @@
 (``ops/dense_kernel.py``) and the dense container (``ops/qp.py``).
 
 The plain versions are held to ``pallas_dense.factor_lane_major`` /
-``solve_lane_major`` in interpret mode at the tolerances of
-``tests/test_pallas_dense.py``, and ``csrc/dense.cu`` compiled in host
-emulation (g++, double) to the plain versions at 1e-9.  The container's
+``solve_lane_major`` in interpret mode (at n=8, and for the NaN semantics
+of a failing column) or to the XLA path the JAX package's tests hold them
+to, at the tolerances of ``tests/test_pallas_dense.py``, and
+``csrc/dense.cu`` compiled in host emulation (g++, double) to the plain
+versions at 1e-9.  The container's
 operators, norms, scaling and Ruiz equilibration are held to the JAX
 package's at 1e-12.  f64 unless stated, CPU."""
 import jax
@@ -21,7 +23,9 @@ from osqp_solver_tpu_torch.ops import dense_kernel as tdk
 from osqp_solver_tpu_torch.ops import qp as tqp
 from osqp_solver_tpu_torch.ops import ruiz as truiz
 
-from test_torch_helpers import assert_close, host_lib_signature, to_np
+from test_torch_helpers import (
+    assert_close, host_lib_signature, jit_vmap, to_np,
+)
 
 pytestmark = pytest.mark.torch_port
 
@@ -46,20 +50,24 @@ def t_(a):
 @pytest.mark.parametrize("n,B", [(8, 3), (24, 5), (64, 2)])
 def test_plain_matches_pallas_interpret(n, B):
     """The shapes and tolerances of ``tests/test_pallas_dense.py``, in
-    float32 as there.  The factor runs in interpret mode at every shape;
-    the solve too, except at n=64 (where interpreting the unrolled kernel
-    costs ~150 s of one CPU): there it is held to the reference's XLA path
-    (``dense_chol_solve`` under ``vmap``), which its Pallas kernel
-    matches."""
+    float32 as there.  At n=8 the reference's Pallas factor and solve run
+    in interpret mode (their one interpret-mode case here); at n=24 and 64
+    the plain versions are held to the XLA path that
+    ``tests/test_pallas_dense.py::test_factor_kernel_matches_xla`` and
+    ``::test_solve_kernel_matches_xla`` hold the interpreted kernels to at
+    these shapes (``jnp.linalg.cholesky`` and ``jnp.linalg.solve`` under
+    ``vmap``)."""
     M, rhs = spd_batch(n, B, seed=n, dtype=np.float32)
-    jLt = jpd.factor_lane_major(jnp.asarray(M), interpret=True)
-    Lt = tdk.factor_lane_major(t_(M))
-    assert_close(Lt, jLt, rtol=2e-4, atol=2e-4)
-    if n < 64:
+    if n == 8:
+        jLt = jpd.factor_lane_major(jnp.asarray(M), interpret=True)
         jx = jpd.solve_lane_major(jLt, jnp.asarray(rhs), interpret=True)
     else:
-        jL = jnp.moveaxis(jLt, -1, 0).swapaxes(-1, -2)
-        jx = jax.vmap(jpd.dense_chol_solve)(jL, jnp.asarray(rhs.T)).T
+        Ms = jnp.moveaxis(jnp.asarray(M), -1, 0)
+        jLt = jnp.moveaxis(jax.vmap(jnp.linalg.cholesky)(Ms).swapaxes(-1, -2),
+                           0, -1)
+        jx = jax.vmap(jnp.linalg.solve)(Ms, jnp.asarray(rhs.T)).T
+    Lt = tdk.factor_lane_major(t_(M))
+    assert_close(Lt, jLt, rtol=2e-4, atol=2e-4)
     x = tdk.solve_lane_major(Lt, t_(rhs))
     assert_close(x, jx, rtol=2e-3, atol=2e-3)
     assert tdk.factor_lane_major.launches == 0
@@ -221,7 +229,7 @@ def test_dense_operators_norms_and_scaling_match_jax(batch_major):
     rng = np.random.default_rng(4)
     x, y = rng.normal(size=(B, n)), rng.normal(size=(B, m))
     tx, ty = t_(x.T), t_(y.T)
-    v = lambda f, *a: np.asarray(jax.vmap(f)(jq, *a))  # noqa: E731
+    v = lambda f, *a: np.asarray(jit_vmap(f)(jq, *a))  # noqa: E731
     for got, ref in (
         (tq.P_matvec(tx), v(lambda q, x: q.P_matvec(x), jnp.asarray(x))),
         (tq.A_matvec(tx), v(lambda q, x: q.A_matvec(x), jnp.asarray(x))),
@@ -234,14 +242,14 @@ def test_dense_operators_norms_and_scaling_match_jax(batch_major):
     D = rng.uniform(0.5, 2.0, (B, n))
     E = rng.uniform(0.5, 2.0, (B, m))
     c = rng.uniform(0.5, 2.0, B)
-    js = jax.vmap(lambda q, D, E, c: q.scale_data(D, E, c))(
+    js = jit_vmap(lambda q, D, E, c: q.scale_data(D, E, c))(
         jq, jnp.asarray(D), jnp.asarray(E), jnp.asarray(c))
     ts = tq.scale_data(t_(D.T), t_(E.T), t_(c))
     for k in ("P", "q", "A", "l", "u"):
         assert_close(lead(getattr(ts, k)), getattr(js, k), rtol=1e-12,
                      atol=1e-12)
     rho = rng.uniform(0.1, 3.0, (B, m))
-    jM = jax.vmap(lambda q, r: q.P + 1e-6 * jnp.eye(n) + q.A.T @ (
+    jM = jit_vmap(lambda q, r: q.P + 1e-6 * jnp.eye(n) + q.A.T @ (
         r[:, None] * q.A))(jq, jnp.asarray(rho))
     assert_close(lead(tq.kkt_matrix(t_(rho.T), 1e-6)), jM, rtol=1e-12,
                  atol=1e-12)
@@ -250,7 +258,7 @@ def test_dense_operators_norms_and_scaling_match_jax(batch_major):
 def test_ruiz_equilibrate_matches_jax():
     B, n, m = 4, 6, 8
     jq, tq = both_dense(random_dense(B, n, m, seed=5))
-    js, jsc = jax.vmap(lambda q: jruiz.ruiz_equilibrate(q, 10))(jq)
+    js, jsc = jit_vmap(lambda q: jruiz.ruiz_equilibrate(q, 10))(jq)
     ts, tsc = truiz.ruiz_equilibrate(tq, 10)
     for k in ("D", "E", "c"):
         assert_close(lead(getattr(tsc, k)), getattr(jsc, k), rtol=1e-12,

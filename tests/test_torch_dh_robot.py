@@ -23,7 +23,7 @@ from osqp_solver_tpu_torch.models import dh_robot as tdh
 from osqp_solver_tpu_torch.models.robot import RobotBall
 from osqp_solver_tpu_torch.utils.types import NoInverseKinematicSolution
 
-from test_torch_helpers import to_np
+from test_torch_helpers import jit_vmap, to_np
 
 pytestmark = pytest.mark.torch_port
 torch.set_num_threads(1)
@@ -109,8 +109,9 @@ def test_position_and_pose_ik_match_reference(name):
     if name == "SCARA":
         q_true[:, 2] = rng.uniform(0.02, 0.18, 3)
     q0 = q_true + 0.15
-    p = np.asarray(j.fk_jacobian_points(jnp.asarray(q_true))[0])
-    jq, jok = jax.vmap(lambda pp, qq: j.position_ik(pp, q0=qq))(
+    p = np.asarray(jax.jit(lambda q: j.fk_jacobian_points(q)[0])(
+        jnp.asarray(q_true)))
+    jq, jok = jit_vmap(lambda pp, qq: j.position_ik(pp, q0=qq))(
         jnp.asarray(p), jnp.asarray(q0))
     tq, tok = t.position_ik(torch.from_numpy(p), q0=torch.from_numpy(q0))
     _close(tq, jq, rtol=0.0, atol=1e-12)
@@ -162,12 +163,13 @@ def test_linearize_workspace_per_configuration_branch():
     jball = j.make_ball(link=6, radius=0.05, is_gripper=True)
     jball = type(jball)(fk=jball.fk, jacobian=jball.jacobian, radius=0.05,
                         is_gripper=True)
-    jqp = jtqp.empty_trajectory_qp(W, n, [True], 0)
     for name in ("ws_jac", "ws_l", "ws_u"):
         _close(getattr(got, name), to_np(getattr(soa, name)))
+    # The JAX package's, problem by problem, one compiled program.
+    reference = jax.jit(lambda x: jtqp.linearize_workspace(
+        jtqp.empty_trajectory_qp(W, n, [True], 0), [jball], [],
+        (con.lower, con.upper), x))
     for b in range(B):
-        ref = jtqp.linearize_workspace(jqp, [jball], [],
-                                       (con.lower, con.upper),
-                                       jnp.asarray(traj[:, b]))
+        ref = reference(jnp.asarray(traj[:, b]))
         for name in ("ws_jac", "ws_l", "ws_u"):
             _close(getattr(got, name)[..., b], getattr(ref, name))

@@ -21,7 +21,7 @@ from osqp_solver_tpu_torch.gomp import trajectory_qp as ttqp
 from osqp_solver_tpu_torch.gomp.trajectory_qp_lane import _ARRAY_FIELDS
 from osqp_solver_tpu_torch.models import ur5e as tur5e
 
-from test_torch_helpers import assert_close, to_np
+from test_torch_helpers import assert_close, jit_vmap, to_np
 
 pytestmark = pytest.mark.torch_port
 TOL = dict(rtol=1e-12, atol=1e-12)
@@ -80,8 +80,9 @@ def test_keepout_shared_matches_reference(kind, hop):
     movable = np.ones(W, bool)
     movable[[0, 4]] = False
     jobs, tobs = OBSTACLES[kind], _port(OBSTACLES[kind])
-    ref = _protocol(jobs, jnp.asarray(pts), jnp.asarray(jac), jnp.asarray(jq),
-                    jnp.asarray(movable), jgeom)
+    ref = jax.jit(lambda *a: _protocol(jobs, *a, jgeom))(
+        jnp.asarray(pts), jnp.asarray(jac), jnp.asarray(jq),
+        jnp.asarray(movable))
     got = _protocol(tobs, _t(pts), _t(jac), _t(jq), torch.from_numpy(movable),
                     tgeom)
     for name in ref:
@@ -123,8 +124,9 @@ def test_per_query_stack_matches_reference_vmap(kind):
     jac, jq = rng.normal(size=(B, W, 3, N)), rng.normal(size=(B, W, 3))
     movable = np.ones(W, bool)
     movable[[0, W - 3]] = False
-    ref_v = jax.vmap(lambda o, p: o.violates(p, R_BALL))(jstack, jnp.asarray(pts))
-    ref_rows = jax.vmap(
+    ref_v = jit_vmap(lambda o, p: o.violates(p, R_BALL))(jstack,
+                                                         jnp.asarray(pts))
+    ref_rows = jit_vmap(
         lambda o, p, j, q: jgeom.call_linearize_rows(
             o, p, j, q, R_BALL, movable=jnp.asarray(movable))
     )(jstack, jnp.asarray(pts), jnp.asarray(jac), jnp.asarray(jq))
@@ -210,7 +212,9 @@ def test_masked_constructors_match_reference(wa):
     jobs = [jgeom.HorizontalLine.create((0.0, 1.0), (0.35, 0.0, 0.15)),
             jgeom.SphereObstacle.create([0.3, 0.1, 0.4], radius=0.2, margin=0.3)]
     idx = [0.0, 1.0, 2.0]
-    refs = [_masked_reference(i, wa, jobs) for i in idx]
+    # One compiled program for the three references, not their eager ops.
+    reference = jax.jit(lambda i: _masked_reference(i, wa, jobs))
+    refs = [reference(i) for i in idx]
 
     def stack(k):
         return torch.tensor(np.stack([np.asarray(r[1][k]) for r in refs], -1))

@@ -45,6 +45,12 @@ def wp_batch(honest=True):
     return jax.jit(lambda: build_wp_batch(honest=honest))()
 
 
+def jit_vmap(f, **kw):
+    """``jax.vmap(f)`` under ``jax.jit``: a reference computed as one
+    compiled program instead of op by op (each eager op compiles its own)."""
+    return jax.jit(jax.vmap(f, **kw))
+
+
 def to_np(a):
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().numpy()
@@ -124,11 +130,16 @@ def t_(a):
     return torch.from_numpy(np.array(a))
 
 
-@functools.lru_cache(maxsize=None)
 def chunk_case(seed=0, n_iter=3, flags=FLAGS, n_obs=N_OBS, W=W, B=B):
     """A scaled problem, a non-trivial state, a mixed done mask — in both
     frameworks — and the reference's result of ``n_iter`` iterations.
-    Cached: callers clone what they write to."""
+    Cached by value (a default spelled out shares the case): callers clone
+    what they write to."""
+    return _chunk_case(seed, n_iter, tuple(flags), n_obs, W, B)
+
+
+@functools.lru_cache(maxsize=None)
+def _chunk_case(seed, n_iter, flags, n_obs, W, B):
     jqp, _ = both(seed, flags=flags, n_obs=n_obs, W=W, B=B)
     settings = dataclasses.replace(jadmm.Settings(), check_termination=n_iter)
     rng = np.random.default_rng(seed + 100)

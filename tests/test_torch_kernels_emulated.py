@@ -1,14 +1,13 @@
-"""The three lane kernels' CUDA sources (KKT factor, Ruiz, fused ADMM
-chunk) and the residual kernel's, compiled with g++ in host emulation
-(double) and held to their plain versions: odd batches, frozen problems,
-windows and placements a small shared-memory budget forces, and the chunk's
-termination accumulators against the delta form + residual kernel.  The
-plain versions against the JAX package are ``test_torch_kernels_plain.py``'s.
-f64, CPU."""
+"""The lane kernels' CUDA sources compiled with g++ in host emulation
+(double) and held to their plain versions: here the KKT factor (both forms:
+odd batches, windows a small shared-memory budget forces) and the chunk's
+termination accumulators against the delta form + residual kernel, with
+the chunk cases' set-up; Ruiz, the chunk's hrec form and its gain form are
+in ``test_torch_kernels_emulated_ruiz.py``, ``_chunk.py`` and ``_gain.py``.
+The plain versions against the JAX package are
+``test_torch_kernels_plain*.py``'s.  f64, CPU."""
 import dataclasses
 import functools
-import os
-import sys
 
 import numpy as np
 import pytest
@@ -19,17 +18,12 @@ from osqp_solver_tpu_torch.ops import admm_fused as tfused
 from osqp_solver_tpu_torch.ops import admm_lane as tlane_drv
 from osqp_solver_tpu_torch.ops import kkt_factor as tfactor
 from osqp_solver_tpu_torch.ops import residuals as tresid
-from osqp_solver_tpu_torch.ops import ruiz_kernel as truiz
 
 from test_torch_helpers import (
-    ODD_BATCH, RUIZ_CASES, RUIZ_PARAMS, assert_close, both,
-    chunk_case as _chunk_case, emulated_ruiz, host_lib as _host_lib,
+    B, ODD_BATCH, assert_close, both, host_lib as _host_lib,
     random_lane_problem, t_ as _t, to_np, torch_lane,
 )
 from test_torch_kernels_plain import _gain_args
-
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-import chip_smoke  # noqa: E402  (the block-P objective of the chip phases)
 
 pytestmark = pytest.mark.torch_port
 
@@ -83,33 +77,49 @@ def test_emulated_factor_kernel_matches_plain(flags, n_obs, case, tmp_path,
         assert_close(got, ref, rtol=1e-9, atol=1e-12)
 
 
-@pytest.mark.parametrize("iters,flags,n_obs,case", RUIZ_PARAMS)
-def test_emulated_ruiz_kernel_matches_plain(iters, flags, n_obs, case,
-                                            tmp_path, monkeypatch):
-    monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
-    kw = {k: v for k, v in RUIZ_CASES.get(case, {}).items()
-          if k in ("W", "B")}
-    _, tqp = both(flags=flags, n_obs=n_obs, **kw)
-    D, E, c = truiz._ruiz_scalings_plain(tqp, iters)
-    Dk, Ek, ck = emulated_ruiz(tqp, iters, case)
-    assert_close(Dk, D, rtol=1e-12)
-    assert_close(Ek, E, rtol=1e-12)
-    assert_close(ck, c, rtol=1e-12)
-
-
 # Cases of the emulated chunk kernel beyond the base batch of B problems
 # (one block of Q = 8): a batch that is not a multiple of Q (the last block
 # masked), and a done mask that freezes all problems but two.
 CHUNK_FLAGS = [((False, True), 1, "flags0-1"), ((), 0, "flags1-0")]
 
 
+@functools.lru_cache(maxsize=None)
+def _port_chunk_case(flags, n_obs, B):
+    """The port's half of :func:`test_torch_helpers.chunk_case` (seed 0,
+    three iterations), made by the port alone: the same numpy batch, warm
+    state and done mask, scaled (five Ruiz passes) and initialised by the
+    port's own functions.  The emulated kernels are held to the port's
+    plain versions, which ``chunk_case`` holds to the JAX package, so these
+    need no JAX reference (one compiled program each, ~15 s on the CPU).
+    Cached: callers clone what they write to."""
+    static, arrays = random_lane_problem(0, flags=flags, n_obs=n_obs, B=B)
+    tqp = torch_lane(static, arrays)
+    tsettings = dataclasses.replace(tadmm.Settings(), check_termination=3)
+    tscaled, ts = tlane_drv.ruiz_equilibrate_lane(tqp, 5)
+    rng = np.random.default_rng(100)
+    wx = rng.normal(size=(tqp.n, B))
+    wy = 0.1 * rng.normal(size=(tqp.m, B))
+    done = np.zeros(B, bool)
+    done[[1, 6]] = True
+    st = tlane_drv.init_state_lane(tscaled, tsettings, _t(wx), _t(wy), ts)
+    packs = tlane_drv.build_const_packs(tscaled, ts)
+    args = dict(
+        coef=packs["coef"], lu=tfused.build_lu_pack(tscaled),
+        packed_factor=tfactor.factor_packed_lane(
+            tscaled, st.rho_vec, tsettings.sigma, coef=packs["coef"]),
+        state_pack=tfused.pack_state(tscaled, st.x, st.z, st.y),
+        term_packs=(packs["EEinv"], packs["varc"], packs["Pdp"],
+                    packs["Plf"]),
+    )
+    return tscaled, ts, tsettings, st.rho_vec, _t(done), packs, args
+
+
 def _emulated_case(case, flags=(False, True), n_obs=1):
-    """The chunk case of ``case`` ("base", "odd_batch", "frozen"): the
-    arguments of :func:`test_torch_helpers.chunk_case`, with the batch or
-    the done mask changed."""
+    """The chunk case of ``case`` ("base", "odd_batch", "frozen"):
+    :func:`_port_chunk_case`, with the batch or the done mask changed."""
     if case == "odd_batch":
-        return _chunk_case(flags=flags, n_obs=n_obs, B=ODD_BATCH)[1]
-    c = _chunk_case(flags=flags, n_obs=n_obs)[1]
+        return _port_chunk_case(tuple(flags), n_obs, ODD_BATCH)
+    c = _port_chunk_case(tuple(flags), n_obs, B)
     if case == "frozen":
         done = torch.ones_like(c[4])
         done[[0, 5]] = False
@@ -142,33 +152,6 @@ def _emulated_chunk(tscaled, rho_vec, done, tsettings, args, mode,
     return state, acc if mode == "term" else dxdy
 
 
-@pytest.mark.parametrize("flags,n_obs,emit_term,case", [
-    pytest.param(f, n, e, "base", id=f"{fid}-{e}")
-    for f, n, fid in CHUNK_FLAGS for e in (True, False)
-] + [
-    pytest.param((False, True), 1, e, c, id=f"{c}-{e}")
-    for c in ("odd_batch", "frozen") for e in (True, False)
-])
-def test_emulated_chunk_kernel_matches_plain(flags, n_obs, emit_term, case,
-                                             tmp_path, monkeypatch):
-    """The hrec form of ``csrc/admm_chunk.cu`` (a group of threads per
-    problem, Q problems per block) against the plain version; frozen
-    problems keep their state bit for bit."""
-    monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
-    tscaled, ts, tsettings, rho_vec, done, packs, args = _emulated_case(
-        case, flags, n_obs)
-    if not emit_term:
-        args = dict(args, term_packs=None)
-    plain_state, plain_acc = tfused.fused_admm_chunk_plain(
-        tscaled, rho_vec, done, tsettings, **args)
-    state, acc = _emulated_chunk(tscaled, rho_vec, done, tsettings, args,
-                                 "term" if emit_term else "plain")
-    assert_close(state, plain_state, rtol=1e-9, atol=1e-9)
-    assert_close(state[..., done], args["state_pack"][..., done])
-    if emit_term:
-        assert_close(acc, plain_acc, rtol=1e-8, atol=1e-9)
-
-
 @pytest.mark.parametrize("flags,n_obs,case", FACTOR_PARAMS)
 def test_emulated_factor_kernel_gain_write_matches_plain(flags, n_obs, case,
                                                          tmp_path,
@@ -176,75 +159,6 @@ def test_emulated_factor_kernel_gain_write_matches_plain(flags, n_obs, case,
     monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
     for got, ref in _emulated_factor(case, flags, n_obs, 5, True):
         assert_close(got, ref, rtol=1e-9, atol=1e-12)
-
-
-@functools.lru_cache(maxsize=None)
-def _block_p_chunk_case():
-    """A block-P batch (``chip_smoke.block_p_terms`` added to its P),
-    scaled and factored by the port (``pack_factor`` of the block-
-    tridiagonal factor: the gain form), a warm state and problems 1 and 6
-    frozen: the arguments of the emulated gain ``dxdy`` chunk, as the
-    block-P path runs it."""
-    static, arrays = random_lane_problem(seed=4)
-    W_, N_, B_ = static["waypoints"], static["n_dim"], arrays["q_vec"].shape[1]
-    dPd, dPl = chip_smoke.block_p_terms(W_, N_, B_, seed=7, m_scale=0.5,
-                                        w=0.5, q_scale=1.0)
-    arrays = dict(arrays, P_diag=arrays["P_diag"] + dPd,
-                  P_lower=arrays["P_lower"] + dPl)
-    tqp = torch_lane(dict(static, p_structure="block"), arrays)
-    tsettings = dataclasses.replace(tadmm.Settings(), check_termination=3,
-                                    factor_form="gain")
-    tscaled, ts = tlane_drv.ruiz_equilibrate_lane(tqp, 3)
-    rng = np.random.default_rng(104)
-    st = tlane_drv.init_state_lane(
-        tscaled, tsettings, _t(rng.normal(size=(tqp.n, B_))),
-        _t(0.1 * rng.normal(size=(tqp.m, B_))), ts)
-    done = torch.zeros(B_, dtype=torch.bool)
-    done[[1, 6]] = True
-    args = dict(
-        coef=tfused.build_coef_pack(tscaled), lu=tfused.build_lu_pack(tscaled),
-        packed_factor=tlane_drv._packed_factor(tscaled, st.rho_vec, tsettings),
-        state_pack=tfused.pack_state(tscaled, st.x, st.z, st.y),
-        term_packs=None,
-    )
-    return tscaled, ts, tsettings, st.rho_vec, done, None, args
-
-
-@pytest.mark.parametrize("flags,n_obs,mode,case", [
-    pytest.param(f, n, m, "base", id=f"{fid}-{m}")
-    for f, n, fid in CHUNK_FLAGS for m in ("term", "plain", "dxdy")
-] + [
-    pytest.param((False, True), 1, m, c, id=f"{c}-{m}")
-    for c in ("odd_batch", "frozen") for m in ("term", "dxdy")
-] + [pytest.param((False, True), 1, "dxdy", "block_p", id="block_p-dxdy")])
-def test_emulated_chunk_kernel_gain_form_matches_plain(flags, n_obs, mode,
-                                                       case, tmp_path,
-                                                       monkeypatch):
-    """The gain form of each of the three modes of ``csrc/admm_chunk.cu``
-    (G_{t-1} streamed forward, G_t backward) against the plain version;
-    ``block_p``: a block-P batch through ``pack_factor``, the build the
-    block-P path reaches."""
-    monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
-    if case == "block_p":
-        tscaled, ts, tsettings, rho_vec, done, packs, args = (
-            _block_p_chunk_case())
-    else:
-        tscaled, ts, tsettings, rho_vec, done, packs, args = _emulated_case(
-            case, flags, n_obs)
-        args = _gain_args(tscaled, tsettings, rho_vec, args)
-    if mode != "term":
-        args["term_packs"] = None
-    plain_state, plain_extra = tfused.fused_admm_chunk_plain(
-        tscaled, rho_vec, done, tsettings, emit_dxdy=mode == "dxdy", **args)
-    state, extra = _emulated_chunk(tscaled, rho_vec, done, tsettings, args,
-                                   mode)
-    assert_close(state, plain_state, rtol=1e-9, atol=1e-9)
-    assert_close(state[..., done], args["state_pack"][..., done])
-    if mode == "term":
-        assert_close(extra, plain_extra, rtol=1e-8, atol=1e-9)
-    elif mode == "dxdy":
-        assert_close(extra, plain_extra, rtol=1e-9, atol=1e-9)
-        assert (to_np(extra)[..., to_np(done)] == 0.0).all()
 
 
 @pytest.mark.parametrize("form,case", [

@@ -1,7 +1,9 @@
-"""PyTorch port vs JAX package: the plain versions of the three kernels
-(KKT factor, Ruiz, fused ADMM chunk) against the reference's plain paths,
-and the wrappers' argument checks.  f64, CPU.  The CUDA sources'
-arithmetic in host emulation is in ``test_torch_kernels_emulated.py``."""
+"""PyTorch port vs JAX package: the plain versions of the KKT factor and
+Ruiz kernels against the reference's plain paths, and their wrappers'
+argument checks (the fused ADMM chunk's: ``test_torch_kernels_plain_
+chunk.py``).  f64, CPU.  The CUDA sources' arithmetic in host emulation is
+in ``test_torch_kernels_emulated*.py``."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,14 +12,12 @@ import torch
 from osqp_solver_tpu.ops import admm_fused as jfused
 from osqp_solver_tpu.ops import admm_lane as jlane_drv
 from osqp_solver_tpu_torch import convert
-from osqp_solver_tpu_torch.ops import admm_fused as tfused
 from osqp_solver_tpu_torch.ops import admm_lane as tlane_drv
 from osqp_solver_tpu_torch.ops import kkt_factor as tfactor
-from osqp_solver_tpu_torch.ops import residuals as tresid
 from osqp_solver_tpu_torch.ops import ruiz_kernel as truiz
 
 from test_torch_helpers import (
-    B, assert_close, both, chunk_case as _chunk_case, t_ as _t, to_np,
+    B, assert_close, both, t_ as _t, to_np,
 )
 
 pytestmark = pytest.mark.torch_port
@@ -26,11 +26,21 @@ pytestmark = pytest.mark.torch_port
 # ------------------------------------------------------------------ factor
 
 
+# The JAX references under jax.jit: one program each, not op by op.
+@jax.jit
+def _jax_pack_factor(jqp, rho):
+    return jfused.pack_factor(jqp, jqp.kkt_factor(rho, 1e-6))
+
+
+_jax_ruiz = jax.jit(jlane_drv._ruiz_equilibrate_lane_jnp,
+                    static_argnums=1)
+
+
 @pytest.mark.parametrize("flags,n_obs", [((False, True), 1), ((), 0)])
 def test_factor_plain_matches_reference(flags, n_obs):
     jqp, tqp = both(flags=flags, n_obs=n_obs)
     rho = np.random.default_rng(3).uniform(0.05, 5.0, (jqp.m, B))
-    ref = jfused.pack_factor(jqp, jqp.kkt_factor(jnp.asarray(rho), 1e-6))[0]
+    ref = _jax_pack_factor(jqp, jnp.asarray(rho))[0]
     cholp, gainp = tfactor.factor_packed_lane(tqp, _t(rho), 1e-6)
     assert gainp is None
     assert_close(cholp, ref, rtol=1e-10, atol=1e-13)
@@ -43,21 +53,13 @@ def test_factor_plain_gain_matches_reference(flags, n_obs):
     last waypoint's row zero (the reference's ``pack_factor``)."""
     jqp, tqp = both(flags=flags, n_obs=n_obs)
     rho = np.random.default_rng(4).uniform(0.05, 5.0, (jqp.m, B))
-    ref_c, ref_g = jfused.pack_factor(
-        jqp, jqp.kkt_factor(jnp.asarray(rho), 1e-6))
+    ref_c, ref_g = _jax_pack_factor(jqp, jnp.asarray(rho))
     cholp, gainp = tfactor.factor_packed_lane(tqp, _t(rho), 1e-6,
                                               emit_gain=True)
     assert_close(cholp, ref_c, rtol=1e-10, atol=1e-13)
     assert_close(gainp, ref_g, rtol=1e-10, atol=1e-13)
     assert (to_np(gainp)[-1] == 0.0).all()
     assert tfactor.factor_packed_lane.launches_gain == 0
-
-
-def _gain_args(tscaled, tsettings, rho_vec, args):
-    """The chunk case's arguments with the gain-form packed factor."""
-    gf = tfactor.factor_packed_lane(tscaled, rho_vec, tsettings.sigma,
-                                    coef=args["coef"], emit_gain=True)
-    return dict(args, packed_factor=gf)
 
 
 def test_factor_wrapper_refuses_bad_arguments():
@@ -78,7 +80,7 @@ def test_factor_wrapper_refuses_bad_arguments():
 @pytest.mark.parametrize("flags,n_obs", [((False, True), 1), ((), 0)])
 def test_ruiz_plain_matches_reference(iters, flags, n_obs):
     jqp, tqp = both(flags=flags, n_obs=n_obs)
-    jscaled, js = jlane_drv._ruiz_equilibrate_lane_jnp(jqp, iters)
+    jscaled, js = _jax_ruiz(jqp, iters)
     tscaled, ts = truiz.ruiz_equilibrate_lane_kernel(tqp, iters)
     for name in ("D", "E", "c", "Dinv", "Einv", "cinv"):
         assert_close(getattr(ts, name), getattr(js, name), rtol=1e-12)
@@ -89,7 +91,7 @@ def test_ruiz_plain_matches_reference(iters, flags, n_obs):
 
 def test_ruiz_type_layout_and_bad_arguments():
     jqp, tqp = both(row_layout="type")
-    _, js = jlane_drv._ruiz_equilibrate_lane_jnp(jqp, 3)
+    _, js = _jax_ruiz(jqp, 3)
     _, ts = tlane_drv.ruiz_equilibrate_lane(tqp, 3)
     assert_close(ts.E, js.E, rtol=1e-12)
     with pytest.raises(ValueError):
@@ -98,121 +100,12 @@ def test_ruiz_type_layout_and_bad_arguments():
         truiz.ruiz_equilibrate_lane_kernel(both()[1], 0)
 
 
-# ------------------------------------------------------------------- chunk
+# The chunk case's gain form (test_torch_kernels_plain_chunk.py and the
+# host-emulation files use it).
 
 
-@pytest.mark.parametrize("flags,n_obs", [((False, True), 1), ((), 0)])
-def test_chunk_plain_matches_reference(flags, n_obs):
-    (jscaled, ref, tq), (tscaled, ts, tsettings, rho_vec, done, packs, args) = (
-        _chunk_case(flags=flags, n_obs=n_obs))
-    before = args["state_pack"].clone()
-    out, acc = tfused.fused_admm_chunk(tscaled, rho_vec, done, tsettings, **args)
-    assert_close(args["state_pack"], before)  # CPU: input left untouched
-    x, z, y = tfused.unpack_state(tscaled, out)
-    tol = dict(rtol=1e-10, atol=1e-10)
-    assert_close(x, ref.x, **tol)
-    assert_close(z, ref.z, **tol)
-    assert_close(y, ref.y, **tol)
-    # Frozen problems kept their state bit for bit.
-    assert_close(out[..., [1, 6]], before[..., [1, 6]])
-    got = tresid.assemble_term_quantities(acc, ts.cinv, packs["norm_Dq"])
-    for name in tq._fields:
-        assert_close(getattr(got, name), getattr(tq, name),
-                     rtol=1e-9, atol=1e-9)
-    assert tfused.fused_admm_chunk.launches == 0
-
-
-def test_chunk_without_term_packs_advances_state_only():
-    _, (tscaled, ts, tsettings, rho_vec, done, packs, args) = _chunk_case()
-    with_acc, _ = tfused.fused_admm_chunk(tscaled, rho_vec, done, tsettings,
-                                          **args)
-    args = dict(args, term_packs=None)
-    out, acc = tfused.fused_admm_chunk(tscaled, rho_vec, done, tsettings,
-                                       n_iter=3, **args)
-    assert acc is None
-    assert_close(out, with_acc)
-
-
-@pytest.mark.parametrize("flags,n_obs", [((False, True), 1), ((), 0)])
-def test_chunk_emit_dxdy_matches_reference_deltas(flags, n_obs):
-    """The delta-writing form: same state, and the packed deltas are the
-    reference's ``dx``/``dy`` of the last iteration (zero where frozen)."""
-    (jscaled, ref, _), (tscaled, ts, tsettings, rho_vec, done, packs, args) = (
-        _chunk_case(flags=flags, n_obs=n_obs))
-    args = dict(args, term_packs=None)
-    out, dxdy = tfused.fused_admm_chunk(tscaled, rho_vec, done, tsettings,
-                                        emit_dxdy=True, **args)
-    plain_out, _ = tfused.fused_admm_chunk(tscaled, rho_vec, done, tsettings,
-                                           **args)
-    assert_close(out, plain_out)
-    dx, dy = tfused.unpack_dxdy(tscaled, dxdy)
-    assert_close(dx, ref.dx, rtol=1e-10, atol=1e-10)
-    assert_close(dy, ref.dy, rtol=1e-10, atol=1e-10)
-    assert dxdy.shape == (tscaled.waypoints, tfused.dxdy_rows(tscaled)[1], B)
-    assert (to_np(dxdy)[..., [1, 6]] == 0.0).all()
-    assert tfused.fused_admm_chunk.launches_dxdy == 0
-
-
-@pytest.mark.parametrize("mode", ["term", "plain", "dxdy"])
-def test_chunk_plain_gain_form_matches_reference(mode):
-    """The gain form of each mode: the streamed G_t gives the reference's
-    iterations (its unfused solve is the gain algebra), accumulators and
-    deltas; the state equals the hrec form's."""
-    (jscaled, ref, tq), (tscaled, ts, tsettings, rho_vec, done, packs, args) = (
-        _chunk_case())
-    gargs = _gain_args(tscaled, tsettings, rho_vec, args)
-    if mode != "term":
-        gargs["term_packs"] = args["term_packs"] = None
-    kw = dict(emit_dxdy=True) if mode == "dxdy" else {}
-    out, extra = tfused.fused_admm_chunk(tscaled, rho_vec, done, tsettings,
-                                         **gargs, **kw)
-    hrec_out, _ = tfused.fused_admm_chunk(tscaled, rho_vec, done, tsettings,
-                                          **args, **kw)
-    x, z, y = tfused.unpack_state(tscaled, out)
-    tol = dict(rtol=1e-10, atol=1e-10)
-    assert_close(x, ref.x, **tol)
-    assert_close(z, ref.z, **tol)
-    assert_close(y, ref.y, **tol)
-    assert_close(out, hrec_out, rtol=1e-10, atol=1e-10)
-    if mode == "term":
-        got = tresid.assemble_term_quantities(extra, ts.cinv, packs["norm_Dq"])
-        for name in tq._fields:
-            assert_close(getattr(got, name), getattr(tq, name),
-                         rtol=1e-9, atol=1e-9)
-    elif mode == "dxdy":
-        dx, dy = tfused.unpack_dxdy(tscaled, extra)
-        assert_close(dx, ref.dx, **tol)
-        assert_close(dy, ref.dy, **tol)
-    else:
-        assert extra is None
-    assert tfused.fused_admm_chunk.launches_gain == 0
-
-
-def test_chunk_wrapper_refuses_bad_arguments():
-    _, (tscaled, ts, tsettings, rho_vec, done, packs, args) = _chunk_case()
-    call = lambda **kw: tfused.fused_admm_chunk(  # noqa: E731
-        tscaled, rho_vec, done, tsettings, **dict(args, **kw))
-    with pytest.raises(ValueError):
-        call(state_pack=args["state_pack"][:, :-1].contiguous())
-    with pytest.raises(TypeError):
-        call(coef=args["coef"].float())
-    with pytest.raises(ValueError):
-        call(lu=args["lu"].transpose(0, 1).contiguous().transpose(0, 1))
-    with pytest.raises(ValueError):
-        call(n_iter=0)
-    with pytest.raises(ValueError):
-        tfused.fused_admm_chunk(tscaled, rho_vec, done[:-1], tsettings, **args)
-    # A block-P chunk runs only in the gain form and without term_packs (the
-    # reference asserts both): with no gain pack, or with the packs of the
-    # fused accumulators, it raises.
-    cholp = args["packed_factor"][0]
-    block = tscaled.replace(p_structure="block")
-    with pytest.raises(ValueError, match="gain form"):
-        tfused.fused_admm_chunk(block, rho_vec, done, tsettings, **args)
-    with pytest.raises(ValueError, match="gain form"):
-        tfused.fused_admm_chunk(
-            block, rho_vec, done, tsettings,
-            **dict(args, packed_factor=(cholp, cholp), term_packs=(
-                packs["EEinv"], packs["varc"], packs["Pdp"], packs["Plf"])))
-    with pytest.raises(ValueError):
-        call(packed_factor=(cholp, cholp[:-1].contiguous()))
+def _gain_args(tscaled, tsettings, rho_vec, args):
+    """The chunk case's arguments with the gain-form packed factor."""
+    gf = tfactor.factor_packed_lane(tscaled, rho_vec, tsettings.sigma,
+                                    coef=args["coef"], emit_gain=True)
+    return dict(args, packed_factor=gf)

@@ -56,7 +56,8 @@ _REFS = {}
 def _problems(kind):
     """``(jax batch, port batch)`` of one kind, the same numbers in both."""
     if kind == "box":
-        jqp = bench.build_box_batch(B, 12, 6, jnp.float64)
+        jqp = jax.jit(lambda: bench.build_box_batch(B, 12, 6,
+                                                    jnp.float64))()
     else:
         static, arrays = convert.lane_qp_to_numpy(wp_batch(honest=True))
         arrays = {k: v[..., :B] for k, v in arrays.items()}
@@ -68,10 +69,9 @@ def _problems(kind):
 
 
 def _reference(kind, overrides):
-    key = (kind, tuple(sorted(overrides.items())))
+    js = dataclasses.replace(jadmm.Settings(), fused_chunk="off", **overrides)
+    key = (kind, js)
     if key not in _REFS:
-        js = dataclasses.replace(jadmm.Settings(), fused_chunk="off",
-                                 **overrides)
         _REFS[key] = jax.jit(lambda q: jdrv.solve_batched_lane(q, js))(
             _problems(kind)[0])
     return _REFS[key]

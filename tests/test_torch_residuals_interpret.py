@@ -2,11 +2,19 @@
 JAX package's Pallas kernels in interpret mode.
 
 The plain version of the streaming residual kernel against the JAX
-package's residual kernel (B=128, honest and box, each ``TermQuantities``
-field within 1e-10: same formulas in f64, other summation order), and the
-chunk's delta-writing plain form against the JAX chunk kernel, both on one
-chunk of the JAX chunk kernel from a cold start.  The wrappers and the CUDA
-sources in host emulation are ``test_torch_residuals.py``'s.  f64, CPU."""
+package's residual kernel (B=128, each ``TermQuantities`` field within
+1e-10: same formulas in f64, other summation order), and the chunk's
+delta-writing plain form against the JAX chunk kernel, both on one chunk
+of 3 iterations from a cold start.  On the honest batch the JAX kernels run
+in interpret mode (the one interpret-mode case of each kernel's vel-diag
+form here); on the box batch their plain references run, which the JAX
+package's own tests hold the interpreted kernels to at this form: three
+unfused iterations (``tests/test_admm_fused.py::
+test_fused_chunk_matches_unfused_iterations[False-hrec]``, within 1e-9)
+and the jnp quantities (``tests/test_residuals_pallas.py::
+test_quantities_match_jnp[False]``, within 1e-9).  The wrappers and the
+CUDA sources in host emulation are ``test_torch_residuals.py``'s.  f64,
+CPU."""
 import dataclasses
 
 import jax
@@ -31,26 +39,47 @@ pytestmark = pytest.mark.torch_port
 
 @pytest.fixture(scope="module", params=[True, False], ids=["honest", "box"])
 def interpreted(request):
-    """One chunk of 3 iterations by the JAX chunk kernel (interpret mode,
-    B=128) from a cold start, its packed outputs, and the JAX residual
-    kernel's quantities on them; and the same problem in the port."""
+    """One chunk of 3 iterations from a cold start (problems 5 and 77
+    frozen), its packed outputs and the residual quantities on them: on
+    the honest batch by the JAX chunk and residual kernels in interpret
+    mode (B=128), on the box batch by their plain references (three
+    unfused iterations, the frozen problems' deltas zero as the kernel
+    emits them; the jnp quantities); and the same problem in the port."""
+    honest = request.param
     settings = dataclasses.replace(jadmm.Settings(), check_termination=3)
-    lane = wp_batch(honest=request.param)
+    lane = wp_batch(honest=honest)
     # The JAX glue under jax.jit: compiled once, not op by op.
     scaled, scaling = jax.jit(lambda q: jlane_drv.ruiz_equilibrate_lane(
         q, settings.scaling))(lane)
     st = jax.jit(lambda q: jlane_drv.init_state_lane(q, settings))(scaled)
     done = jnp.zeros((lane.batch,), bool).at[5].set(True).at[77].set(True)
-    x2, z2, y2, dx2, dy2 = jfused.fused_admm_chunk(
-        scaled, st.factor, st.x, st.z, st.y, st.rho_vec, done, settings,
-        interpret=True,
-    )
-    sp = jfused.pack_state(scaled, x2, z2, y2)
-    dp = jfused.pack_dxdy(scaled, dx2, dy2)
-    jpacks = jresid.build_residual_packs(scaled, scaling) + (scaling.cinv,)
-    ref = jresid.termination_quantities_kernel(
-        scaled, sp, dp, jfused.build_coef_pack(scaled), jpacks, interpret=True
-    )
+    if honest:
+        x2, z2, y2, dx2, dy2 = jfused.fused_admm_chunk(
+            scaled, st.factor, st.x, st.z, st.y, st.rho_vec, done, settings,
+            interpret=True,
+        )
+        sp = jfused.pack_state(scaled, x2, z2, y2)
+        dp = jfused.pack_dxdy(scaled, dx2, dy2)
+        jpacks = jresid.build_residual_packs(scaled, scaling) + (
+            scaling.cinv,)
+        ref = jresid.termination_quantities_kernel(
+            scaled, sp, dp, jfused.build_coef_pack(scaled), jpacks,
+            interpret=True,
+        )
+    else:
+        @jax.jit
+        def plain(lane, scaled, scaling, st):
+            it = st.replace(done=done)
+            for _ in range(settings.check_termination):
+                it = jlane_drv._iteration(scaled, it.replace(factor=None),
+                                          st.factor, settings)
+            it = it.replace(dx=jnp.where(done, 0.0, it.dx),
+                            dy=jnp.where(done, 0.0, it.dy))
+            return (jfused.pack_state(scaled, it.x, it.z, it.y),
+                    jfused.pack_dxdy(scaled, it.dx, it.dy),
+                    jlane_drv._termination_quantities(lane, scaled, scaling,
+                                                      it))
+        sp, dp, ref = plain(lane, scaled, scaling, st)
     tscaled = convert.lane_qp_from_numpy(*convert.lane_qp_to_numpy(scaled))
     ts = convert.scaling_from_numpy(
         *(to_np(a) for a in (scaling.D, scaling.E, scaling.c)))
@@ -77,7 +106,8 @@ def test_residual_plain_matches_interpreted_kernel(interpreted):
 
 def test_chunk_dxdy_plain_matches_interpreted_kernel(interpreted):
     """Same state and same delta pack as the JAX chunk kernel without
-    ``term_packs`` (1e-9: two routes through a 3-iteration recurrence)."""
+    ``term_packs`` (honest), or its reference (box) (1e-9: two routes
+    through a 3-iteration recurrence)."""
     c = interpreted
     tscaled, st = c["tscaled"], c["st"]
     rho_vec = t_(st.rho_vec)

@@ -4,7 +4,9 @@ guarded and unguarded, ``mpc_scan``) on BASELINE config 4's dense QP and on
 a W=10 trajectory QP.  f64, CPU: statuses and ADMM iteration counts EQUAL
 to the JAX package's ``ops/session.py``, solutions within 1e-8."""
 import dataclasses
+import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -41,6 +43,14 @@ def shift_box(base, s):
     return base.replace(l=-1.0 + s, u=1.0 + s)
 
 
+@functools.lru_cache(maxsize=None)
+def jax_calls(js):
+    """The JAX package's ``setup`` and ``solve`` under ``jax.jit`` for the
+    settings ``js``: one program each, not op by op."""
+    return (jax.jit(lambda q: jsess.setup(q, js)),
+            jax.jit(lambda se: jsess.solve(se, js)))
+
+
 def assert_same(jres, tres, tol=1e-8):
     np.testing.assert_array_equal(to_np(tres.status), np.asarray(jres.status))
     np.testing.assert_array_equal(to_np(tres.iterations),
@@ -54,19 +64,21 @@ def test_setup_solve_update_match_jax():
     factor recomputed) and another re-solve: each result equal."""
     jq, tq = both_config4()
     js, ts = settings_pair()
-    jse, tse = jsess.setup(jq, js), tsess.setup(tq, ts, device="cpu")
+    jsetup, jsolve = jax_calls(js)
+    jse = jsetup(jq)
+    tse = tsess.setup(tq, ts, device="cpu")
     for _ in range(2):
-        jse, jres = jsess.solve(jse, js)
+        jse, jres = jsolve(jse)
         tse, tres = tsess.solve(tse, ts)
         assert_same(jres, tres)
     rng = np.random.default_rng(0)
     q = rng.normal(size=8)
     A = np.eye(8) + 0.1 * rng.normal(size=(8, 8))
-    jse = jsess.update(jse, jq.replace(q=jnp.asarray(q), A=jnp.asarray(A)),
-                       settings=js)
+    jse = jax.jit(lambda se, q: jsess.update(se, q, settings=js))(
+        jse, jq.replace(q=jnp.asarray(q), A=jnp.asarray(A)))
     tse = tsess.update(tse, tq.replace(q=torch.from_numpy(q),
                                        A=torch.from_numpy(A)), settings=ts)
-    jse, jres = jsess.solve(jse, js)
+    jse, jres = jsolve(jse)
     tse, tres = tsess.solve(tse, ts)
     assert_same(jres, tres)
     assert int(tres.status) == ExitCode.kOptimal
@@ -81,8 +93,9 @@ def test_update_bounds_matches_jax(guard):
     packages re-solve alike either way)."""
     jq, tq = both_config4()
     js, ts = settings_pair()
-    jse, tse = jsess.setup(jq, js), tsess.setup(tq, ts, device="cpu")
-    jse, _ = jsess.solve(jse, js)
+    jsetup, jsolve = jax_calls(js)
+    jse, tse = jsetup(jq), tsess.setup(tq, ts, device="cpu")
+    jse, _ = jsolve(jse)
     tse, _ = tsess.solve(tse, ts)
     l1, u1 = -0.9 * np.ones(8), 1.1 * np.ones(8)
     l2, u2 = l1.copy(), u1.copy()
@@ -95,7 +108,7 @@ def test_update_bounds_matches_jax(guard):
         tse = tsess.update_bounds(tse, guard, ts, l=l, u=u)
         assert tadmm.HOST_SYNCS - s0 == int(guard)
         assert (tse.factor is before) == (not (guard and flips))
-        jse, jres = jsess.solve(jse, js)
+        jse, jres = jsolve(jse)
         tse, tres = tsess.solve(tse, ts)
         assert_same(jres, tres)
 
@@ -107,7 +120,7 @@ def test_mpc_scan_matches_jax():
     jq, tq = both_config4()
     js, ts = settings_pair()
     shifts = np.linspace(0.0, 0.3, 40)[:, None] * np.ones(8)
-    jse = jsess.setup(jq, js)
+    jse = jax_calls(js)[0](jq)
     _, (jx, jst, jit) = jsess.mpc_scan(jse, jnp.asarray(shifts), shift_box, js)
     tse = tsess.setup(tq, ts, device="cpu")
     s0 = tadmm.HOST_SYNCS
@@ -140,8 +153,8 @@ def test_trajectory_session_matches_jax():
         pos_u[goal] += d
         return base.replace(pos_l=pos_l, pos_u=pos_u)
 
-    _, (jx, jst, jit) = jsess.mpc_scan(jsess.setup(jq, js),
-                                       jnp.asarray(deltas), jshift, js)
+    _, (jx, jst, jit) = jax.jit(lambda q, d: jsess.mpc_scan(
+        jsess.setup(q, js), d, jshift, js))(jq, jnp.asarray(deltas))
     _, (tx, tst, tit) = tsess.mpc_scan(tsess.setup(tq, ts, device="cpu"),
                                        torch.from_numpy(deltas), tshift, ts)
     np.testing.assert_array_equal(to_np(tst), np.asarray(jst))

@@ -7,11 +7,11 @@ path (``fused_chunk="off"``), and the ``"type"`` row layout — and must give
 equal statuses and ADMM iteration counts, solutions within 1e-7.  f64,
 honest class, W=20, B=8.  The JAX runs (all in the waypoint layout: the
 row order changes no count) are cached per module: each is made once and
-compared with every form."""
+compared with every form.  The device rule and the path choice are
+``test_torch_session_lane_api.py``'s."""
 import dataclasses
 import os
 import sys
-import types
 
 import jax
 import jax.numpy as jnp
@@ -70,7 +70,8 @@ def _layout(form):
 def _problems(layout):
     """The honest batch in both frameworks, in one row layout."""
     if "qp" not in _CACHE:
-        jqp = bench.build_honest_batch(B, W, N, jnp.float64)
+        jqp = jax.jit(lambda: bench.build_honest_batch(B, W, N,
+                                                       jnp.float64))()
         _CACHE["qp"] = (jqp, convert.lane_qp_from_numpy(
             *convert.lane_qp_to_numpy(jqp)))
     jqp, tqp = _CACHE["qp"]
@@ -206,11 +207,12 @@ def test_guard_refactors_exactly_when_a_row_flips(form):
     flip = 50.0
 
     def ref_fn():
-        js = _jax_solved()[0]
-        pos_u = js.base.pos_u.at[GOAL, :, 0].add(flip)
-        js = jsess.update_bounds_lane(js, guard_reclassification=True,
-                                      settings=S_JAX, pos_u=pos_u)
-        return jsess.solve_lane(js, S_JAX)[1]
+        def flipped(se):  # the guarded update and its solve, one program
+            pos_u = se.base.pos_u.at[GOAL, :, 0].add(flip)
+            se = jsess.update_bounds_lane(se, guard_reclassification=True,
+                                          settings=S_JAX, pos_u=pos_u)
+            return jsess.solve_lane(se, S_JAX)[1]
+        return jax.jit(flipped)(_jax_solved()[0])
 
     ref = _jax("guard", ref_fn)
     s = _settings(form)
@@ -245,24 +247,25 @@ def test_jax_session_continued_by_port(kind):
     carry the JAX factor packed as the fused path consumes it, and the JAX
     package's kernel packs as the cache."""
     def ref_fn():
+        def shifted(se):  # the update and its solve, one program
+            b = _shift_jax(se.base, DELTAS[1])
+            se = jsess.update_bounds_lane(se, pos_l=b.pos_l, pos_u=b.pos_u)
+            return jsess.solve_lane(se, S_JAX)[1]
         js = _jax_solved()[0]
-        data = convert.lane_session_to_numpy(js)
-        shifted = _shift_jax(js.base, DELTAS[1])
-        js2 = jsess.update_bounds_lane(js, pos_l=shifted.pos_l,
-                                       pos_u=shifted.pos_u)
-        return js, data, jsess.solve_lane(js2, S_JAX)[1]
+        return js, convert.lane_session_to_numpy(js), jax.jit(shifted)(js)
 
     js, data, ref = _jax("carry", ref_fn)
     assert data["factor"][0] == "blocks" and data["cache"] is None
     form = {"blocks": "unfused", "packed_hrec": "hrec",
             "packed_gain": "gain"}[kind]
     if kind != "blocks":
-        cholp, gainp = jfused.pack_factor(js.scaled, js.factor)
+        (cholp, gainp), cache = _jax("packs", lambda: jax.jit(
+            lambda se: (jfused.pack_factor(se.scaled, se.factor),
+                        jdrv.build_const_packs(se.scaled, se.scaling)))(js))
         data = dict(data, factor=(
             "packed", np.asarray(cholp),
             None if form == "hrec" else np.asarray(gainp)),
-            cache={k: np.asarray(v) for k, v in
-                   jdrv.build_const_packs(js.scaled, js.scaling).items()})
+            cache={k: np.asarray(v) for k, v in cache.items()})
     sess = convert.lane_session_from_numpy(data, device="cpu")
     assert_close(sess.rho_bar, js.rho_bar)
     assert_close(sess.warm_x, js.warm_x)
@@ -277,48 +280,3 @@ def test_jax_session_continued_by_port(kind):
     with pytest.raises(ValueError):
         convert.lane_session_from_numpy(dict(data, factor=("dense", 0, 0)),
                                         device="cpu")
-
-
-def test_setup_lane_default_device_is_cuda_and_raises_without_one():
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present: the default device works")
-    _, tqp = _problems("waypoint")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        tsess.setup_lane(tqp, _settings("hrec"))
-
-
-def test_lane_session_from_numpy_default_device_is_cuda():
-    """A carried-over session follows the entry points' device rule: its
-    solves run where its tensors lie, so without ``device=`` it is put on
-    CUDA, and without a card that raises."""
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present: the default device works")
-    _, tqp = _problems("waypoint")
-    sess = tsess.setup_lane(tqp, _settings("hrec"), device="cpu")
-    data = convert.lane_session_to_numpy(sess)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        convert.lane_session_from_numpy(data)
-    back = convert.lane_session_from_numpy(data, device="cpu")
-    assert back.warm_x.device.type == "cpu"
-    assert_close(back.rho_bar, sess.rho_bar)
-
-
-@pytest.mark.parametrize("row_layout,p_structure,fused_chunk,fused", [
-    ("waypoint", "vel_diag", "auto", True),
-    ("waypoint", "vel_diag", "off", False),
-    ("type", "vel_diag", "auto", False),
-    ("type", "block", "on", False),
-])
-def test_path_choice_on_cuda(row_layout, p_structure, fused_chunk, fused):
-    """Which path a CUDA batch takes (decided from the container alone, so
-    it is checked here without a card): the packed chunk for a
-    waypoint-layout batch, the unfused path for ``"off"`` and for the
-    ``"type"`` layout; a waypoint-layout block-P batch is fused as a
-    vel-diag one is (the reference's ``fused_chunk_supported``)."""
-    qp = types.SimpleNamespace(device=torch.device("cuda"),
-                               row_layout=row_layout, p_structure=p_structure)
-    s = dataclasses.replace(tadmm.Settings(), fused_chunk=fused_chunk)
-    assert tdrv._use_fused(qp, s) == fused
-    block = types.SimpleNamespace(device=torch.device("cuda"),
-                                  row_layout="waypoint", p_structure="block")
-    assert tdrv._use_fused(block, s) == (fused_chunk != "off")

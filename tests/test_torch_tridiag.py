@@ -2,9 +2,10 @@
 solve (``ops/tridiag_kernel.py``).  The plain versions are held to
 ``pallas_tridiag.factor_lane_major`` / ``solve_lane_major`` in interpret
 mode, and ``csrc/tridiag.cu`` compiled in host emulation (g++, double) to
-the plain versions, the factor and the solve at the edges of their launch
-plans.  f64, CPU."""
-import jax
+the plain versions: here the NaN pivots and the plans (the solve's and the
+factor's main cases are ``test_torch_tridiag_emulated.py``'s, B2 = 18-32
+``test_torch_tridiag_wide.py``'s), and the refusals before any build.
+f64, CPU."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,7 +16,9 @@ from osqp_solver_tpu.ops import tridiag as jref
 from osqp_solver_tpu_torch import _build
 from osqp_solver_tpu_torch.ops import tridiag_kernel as ttri
 
-from test_torch_helpers import assert_close, host_lib_signature, to_np
+from test_torch_helpers import (
+    assert_close, host_lib_signature, jit_vmap, to_np,
+)
 
 pytestmark = pytest.mark.torch_port
 
@@ -49,7 +52,7 @@ def test_plain_matches_pallas_interpret(W, B2, B):
         jchol, jgain = jtri.factor_lane_major(
             jnp.asarray(diag), jnp.asarray(lower), interpret=True)
     else:
-        jf = jax.vmap(jref.block_tridiag_factor, in_axes=-1, out_axes=-1)(
+        jf = jit_vmap(jref.block_tridiag_factor, in_axes=-1, out_axes=-1)(
             jnp.asarray(diag), jnp.asarray(lower))
         jchol, jgain = jf.chol, jf.gain
     chol, gain = ttri.factor_lane_major(t_(diag), t_(lower))
@@ -80,36 +83,6 @@ def _emulated(diag, lower, rhs, budget=0):
 # with one), one problem (a block with three empty columns), and w_t kept
 # in x between the sweeps (a budget of one byte), with one and with several
 # steps.
-SOLVE_PARAMS = [
-    pytest.param(W, B2, 37, 0, id=f"{W}-{B2}")
-    for B2 in (12, 14) for W in (1, 2, 5)
-] + [
-    pytest.param(5, 12, 1, 0, id="B1"),
-    pytest.param(2, 12, 1, 0, id="B1-W2"),
-    pytest.param(1, 12, 37, 1, id="w_in_x-1"),
-    pytest.param(2, 14, 37, 1, id="w_in_x-2"),
-    pytest.param(5, 12, 37, 1, id="w_in_x-5"),
-]
-
-
-@pytest.mark.parametrize("W,B2,B,budget", SOLVE_PARAMS)
-def test_emulated_kernels_match_plain(W, B2, B, budget, tmp_path,
-                                      monkeypatch):
-    monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
-    diag, lower, rhs = (t_(a) for a in spd_batch(W, B2, B, seed=W + B2))
-    p = ttri.plan(host_lib_signature("tridiag", {"B2": B2}), W, B, budget)
-    assert (p["G"], p["w_on_chip"]) == (16, int(budget == 0))
-    assert p["blocks"] == -(-B // p["Q"])
-    chol, gain, x = _emulated(diag, lower, rhs, budget)
-    pchol, pgain = ttri.factor_lane_major_plain(diag, lower)
-    assert_close(chol, pchol, rtol=1e-9, atol=1e-12)
-    assert_close(gain, pgain, rtol=1e-9, atol=1e-12)
-    iu = torch.triu_indices(B2, B2, offset=1)
-    assert (chol[:, iu[0], iu[1]] == 0).all()  # upper triangle written zero
-    assert_close(x, ttri.solve_lane_major_plain(pchol, pgain, rhs),
-                 rtol=1e-9, atol=1e-12)
-
-
 def _non_spd_block_gives_nan(t_bad):
     """A block that is not positive definite at waypoint ``t_bad`` of one
     problem: that problem's factor is NaN from there on — in the kernel and
@@ -159,31 +132,6 @@ def test_emulated_non_spd_block_at_the_ends_gives_nan(t_bad, tmp_path,
 # (B = 37: five blocks of 8 problems, the last with 5), one problem (a block
 # with seven empty columns), one waypoint (no gain), two, and B2 = 14 (a
 # group of 16 threads with 14 rows).
-FACTOR_PARAMS = [
-    pytest.param(5, 12, 37, id="B37"),
-    pytest.param(5, 12, 1, id="B1"),
-    pytest.param(1, 12, 37, id="W1"),
-    pytest.param(2, 12, 37, id="W2"),
-    pytest.param(5, 14, 37, id="B2_14"),
-    pytest.param(2, 14, 1, id="B2_14-W2-B1"),
-]
-
-
-@pytest.mark.parametrize("W,B2,B", FACTOR_PARAMS)
-def test_emulated_factor_matches_plain(W, B2, B, tmp_path, monkeypatch):
-    monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
-    diag, lower, _ = (t_(a) for a in spd_batch(W, B2, B, seed=10 * W + B2))
-    lib = host_lib_signature("tridiag", {"B2": B2})
-    chol = torch.full_like(diag, float("nan"))
-    gain = torch.full_like(lower, float("nan"))
-    ttri._launch(lib, "factor", diag, lower, chol, gain)
-    pchol, pgain = ttri.factor_lane_major_plain(diag, lower)
-    assert_close(chol, pchol, rtol=1e-9, atol=1e-12)
-    assert_close(gain, pgain, rtol=1e-9, atol=1e-12)
-    iu = torch.triu_indices(B2, B2, offset=1)
-    assert (chol[:, iu[0], iu[1]] == 0).all()  # upper triangle written zero
-
-
 @pytest.mark.parametrize("B2,B", [(12, 37), (12, 1), (14, 1024)])
 def test_emulated_factor_plan(B2, B, tmp_path, monkeypatch):
     """The factor's plan: a group of 16 threads per problem, up to 8
@@ -217,53 +165,26 @@ def test_wrappers_refuse_bad_arguments():
 # and a group of threads is a whole warp (32 threads): N = 9 and 10, a
 # batch whose last block is partly empty, one problem, and the solve's w_t
 # on chip and in x.
-WIDE_PARAMS = [
-    pytest.param(5, 18, 13, 0, id="B2_18"),
-    pytest.param(3, 18, 1, 1, id="B2_18-B1-w_in_x"),
-    pytest.param(4, 20, 13, 1, id="B2_20-w_in_x"),
-    pytest.param(2, 20, 1, 0, id="B2_20-W2-B1"),
-    # Above B2 = 20 (N = 12 and 16) a step's rows are split among the
-    # group's lanes in both kernels.
-    pytest.param(4, 24, 2, 0, id="B2_24"),
-    pytest.param(4, 32, 2, 1, id="B2_32-w_in_x"),
-]
-
-
-@pytest.mark.parametrize("W,B2,B,budget", WIDE_PARAMS)
-def test_emulated_kernels_above_8_joints_match_plain(W, B2, B, budget,
-                                                     tmp_path, monkeypatch):
-    monkeypatch.setenv("OSQP_TORCH_BUILD_DIR", str(tmp_path))
-    diag, lower, rhs = (t_(a) for a in spd_batch(W, B2, B, seed=W + B2 + B))
-    lib = host_lib_signature("tridiag", {"B2": B2})
-    p = ttri.plan(lib, W, B, budget)
-    assert (p["G"], p["w_on_chip"]) == (32, int(budget == 0))
-    fp = ttri.factor_plan(lib, B)
-    assert (fp["G"], fp["Q"]) == (32, 8)
-    assert fp["blocks"] == -(-B // fp["Q"])
-    chol, gain, x = _emulated(diag, lower, rhs, budget)
-    pchol, pgain = ttri.factor_lane_major_plain(diag, lower)
-    assert_close(chol, pchol, rtol=1e-9, atol=1e-12)
-    assert_close(gain, pgain, rtol=1e-9, atol=1e-12)
-    iu = torch.triu_indices(B2, B2, offset=1)
-    assert (chol[:, iu[0], iu[1]] == 0).all()
-    assert_close(x, ttri.solve_lane_major_plain(pchol, pgain, rhs),
-                 rtol=1e-9, atol=1e-12)
-
-
-def test_block_size_above_32_is_refused_before_any_build(monkeypatch):
-    """Above B2 = 32 the kernels build in their wide form up to
-    ``MAX_B2`` (512: the solve's group and its producers fill a block);
-    past it the block size is refused by name before any build."""
+def test_tridiag_refuses_what_the_card_cannot_place_before_any_build(
+        monkeypatch):
+    """Above B2 = 32 the kernels build in their wide form, above 512 with
+    each thread owning several rows of a step: B2 = 514 and 1000 start a
+    build as every size from 20 does.  A block size whose solve cannot be
+    placed even with its ring and ``w`` in device memory (the group's slot,
+    two values a row, past the card's shared memory: above B2 = 28672) is
+    refused by name before any build."""
     def no_build(*a, **kw):
         raise AssertionError("a build was started")
 
     monkeypatch.setattr(_build, "library", no_build)
     monkeypatch.setattr(_build, "start_build", no_build)
-    for B2 in (514, 1000):
+    assert (ttri.least_shared_bytes(28672) <= _build.CARD_SHARED_BYTES
+            < ttri.least_shared_bytes(28673))
+    for B2 in (28673, 30000):
         with pytest.raises(NotImplementedError,
-                           match=rf"tridiag.*B2 <= 512, got B2={B2}"):
+                           match=rf"tridiag.*cannot place B2={B2}"):
             ttri._lib(B2)
-    for B2 in (20, 22, 32, 34, 40, 96, 512):  # built, wide above 32
+    for B2 in (20, 22, 32, 34, 40, 96, 512, 514, 1000):  # built
         with pytest.raises(AssertionError, match="a build was started"):
             ttri._lib(B2)
 
@@ -282,14 +203,16 @@ def test_build_all_starts_one_compiler_per_target(monkeypatch):
                              ("tridiag", (("B2", 20),))]
 
 
-def test_lane_driver_above_10_joints_is_refused_before_any_build(
+def test_lane_driver_refuses_what_the_card_cannot_place_before_any_build(
         monkeypatch):
-    """On a CUDA device every lane kernel takes any joint count up to
-    ``admm_lane.MAX_KERNEL_JOINTS`` (256: a problem's group of threads and
-    its producers fill a block) on every path: N = 11, 16, 17, 24 and 32
-    pass the check, and N = 257 is refused by name of that limit by the
-    solve and the session, before any build and before the batch moves.
-    Here the device is only named: nothing reaches it."""
+    """On a CUDA device every lane kernel takes any joint count whose
+    smallest launch fits the card's shared memory, on every path: N = 11,
+    16, 17, 24, 32, 257, 300 and 907 pass the check (above 256 a thread
+    owns several columns).  Past it the solve and the session refuse by the
+    kernel's name, before any build and before the batch moves: from N = 908
+    (W=4) the Ruiz kernel's slots (a warp of threads, 2N values each, and
+    two partial sums) do not fit.  Here the device is only named: nothing
+    reaches it."""
     from osqp_solver_tpu_torch.ops import admm_lane, session_lane
     from osqp_solver_tpu_torch.ops.admm import Settings
 
@@ -303,13 +226,17 @@ def test_lane_driver_above_10_joints_is_refused_before_any_build(
     cuda = torch.device("cuda")
     monkeypatch.setattr(admm_lane, "resolve_device", lambda d: cuda)
     monkeypatch.setattr(session_lane, "resolve_device", lambda d: cuda)
-    for n in (11, 16, 17, 24, 32):
+    forms = (Settings(), Settings(fused_chunk="off"), Settings(polish=True))
+    for n in (11, 16, 17, 24, 32, 257, 300, 907):
         qp = torch_lane(*random_lane_problem(W=4, N=n, B=1))
-        admm_lane.check_kernel_limits(qp, cuda)
-    big = torch_lane(*random_lane_problem(W=2, N=257, B=1))
-    for s in (Settings(), Settings(fused_chunk="off"), Settings(polish=True)):
-        with pytest.raises(NotImplementedError, match=r"at most 256 joints"):
+        for s in forms:
+            admm_lane.check_kernel_limits(qp, cuda, s)
+    big = torch_lane(*random_lane_problem(W=4, N=908, B=1))
+    for s in forms:
+        with pytest.raises(NotImplementedError,
+                           match=r"ruiz cannot be placed on the card at "
+                                 r"N=908"):
             admm_lane.solve_batched_lane(big, s)
-    with pytest.raises(NotImplementedError, match=r"N=257"):
+    with pytest.raises(NotImplementedError, match=r"ruiz.*N=908"):
         session_lane.setup_lane(big, Settings())
-    admm_lane.check_kernel_limits(big, torch.device("cpu"))
+    admm_lane.check_kernel_limits(big, torch.device("cpu"), Settings())

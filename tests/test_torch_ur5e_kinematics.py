@@ -19,7 +19,7 @@ from osqp_solver_tpu_torch.models import ur5e as tur5e
 from osqp_solver_tpu_torch.utils import trajectory_io as tio
 from osqp_solver_tpu_torch.utils import types as ttypes
 
-from test_torch_helpers import assert_close, to_np
+from test_torch_helpers import assert_close, jit_vmap, to_np
 
 pytestmark = pytest.mark.torch_port
 FK_TOL = dict(rtol=0.0, atol=1e-12)
@@ -35,7 +35,7 @@ def configs(n=16, seed=0):
 ])
 def test_fk_family_matches_reference(name):
     q = configs()
-    ref = jax.vmap(getattr(jur5e, name))(jnp.asarray(q))
+    ref = jit_vmap(getattr(jur5e, name))(jnp.asarray(q))
     got = getattr(tur5e, name)(torch.from_numpy(q))
     assert tuple(got.shape) == tuple(ref.shape)
     assert_close(got, ref, **FK_TOL)
@@ -47,7 +47,7 @@ def test_fk_family_matches_reference(name):
 def test_dh_and_link_transform_match_reference():
     th = configs(5)[:, 0]
     for i in range(6):
-        ref = jax.vmap(lambda t: jur5e.link_transform(i, t))(jnp.asarray(th))
+        ref = jit_vmap(lambda t: jur5e.link_transform(i, t))(jnp.asarray(th))
         assert_close(tur5e.link_transform(i, torch.from_numpy(th)), ref,
                      **FK_TOL)
     ref = jur5e._dh(jnp.asarray(0.3), 0.1, -0.2, 0.7)
@@ -65,7 +65,7 @@ def test_soa_fk_agrees_with_the_matrix_chain():
 
 def _poses():
     """Tool poses of seeded configurations, plus one out of reach."""
-    T = jax.vmap(jur5e.tool_pose)(jnp.asarray(configs(12, seed=1)))
+    T = jit_vmap(jur5e.tool_pose)(jnp.asarray(configs(12, seed=1)))
     far = np.eye(4)
     far[:3, 3] = [2.0, 0.0, 0.3]
     return np.concatenate([np.asarray(T), far[None]])
@@ -89,7 +89,11 @@ def test_inverse_kinematics_branches_match_reference():
     assert float(err[ok].max()) < 1e-9
 
 
-def test_inverse_kinematics_position_checked_and_wrap():
+def test_inverse_kinematics_position_checked_and_wrap(monkeypatch):
+    # The JAX package's checked IK calls its position IK eagerly (~150
+    # programs, one an op); here under jax.jit (one program).
+    monkeypatch.setattr(jur5e, "inverse_kinematics_position",
+                        jax.jit(jur5e.inverse_kinematics_position))
     rng = np.random.default_rng(2)
     p = np.stack([np.array([0.4, -0.2, 0.3]) + 0.05 * rng.standard_normal(3)
                   for _ in range(6)] + [np.array([3.0, 0.0, 0.0])])

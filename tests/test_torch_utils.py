@@ -200,7 +200,8 @@ def test_oracle_agrees_with_the_port_status_for_status():
     # tensors are taken as they are
     assert oracle.solve(*(torch.tensor(a) for a in arrays)).status == 0
     tqp = convert.trajectory_qp_from_numpy(
-        *convert.trajectory_qp_to_numpy(_small_trajectory_qp()), device="cpu")
+        *convert.trajectory_qp_to_numpy(jax.jit(_small_trajectory_qp)()),
+        device="cpu")
     P_csr, q_int, A_csr, lo, up, kb, perm = tqp.to_csr()
     res_c = oracle.solve_sparse(P_csr, q_int, A_csr, lo, up, kb)
     res_t = tadmm.solve(tqp, device="cpu")
