@@ -94,9 +94,12 @@ drives the port's entry points:
   also a session's setup and one tick and a polished solve (this slice's
   main path: its launches are the kernel table's), at N=32 also with
   their rings and windows forced into the workspace (equal bits), the
-  block-P builds and solve at N=17 and 32, and the tridiagonal pair alone
+  block-P builds and solve at N=17 and 32, the tridiagonal pair alone
   at B2=34, 48, 64, 96, 130, 200, 512 and 600, on chip and in the
-  workspace;
+  workspace, and at one problem (B2=80, W=100 and B2=512, W=20) with the
+  KKT factor at one problem (N=40, W=100 and N=256, W=20), the two
+  factors' library yardstick beside each (``torch.linalg.cholesky`` of the
+  dense matrices; the solve's ``torch.cholesky_solve``);
 * generic DH arms: the presets' float32 kinematics and batched DLS IK
   against float64 on the host (``dh_arms``), and this slice's main path
   (``planner_dh``): the full search of ``benchmarks/planner_batch.py
@@ -163,7 +166,10 @@ timed (the factor must equal that tree's bit for bit), and its N=6 lane
 kernels (Ruiz, the KKT factor in both forms, the chunk in four forms) and
 B2=18 and 20 tridiagonal pair, which must equal this tree's bit for bit;
 with ``lane_wide`` also its builds up to N=32, whose machine code
-(``cuobjdump -sass``) must equal this tree's.
+(``cuobjdump -sass``) must equal this tree's (the wide builds of the two
+factors, redesigned: their tridiagonal solve kernels alone), and its wide
+KKT and tridiagonal factors timed beside this tree's on the same inputs
+(``ref_ms``).
 """
 from __future__ import annotations
 
@@ -715,28 +721,65 @@ def ref_signatures(want=()):
     if "lane_wide" in want:  # the wide builds up to N=32: their machine code
         for n in (s_ for s_ in WIDE_SIZES if s_ <= 32):
             sz = {"NDIM": n, "NX": 5}
-            out += [("ruiz", dict(sz, BLOCK_P=0)), ("kkt_factor", sz),
-                    ("admm_chunk", sz), ("residuals", dict(sz, BLOCK_P=0)),
-                    ("tridiag", {"B2": 2 * n})]
+            out += [("ruiz", dict(sz, BLOCK_P=0)), ("admm_chunk", sz),
+                    ("residuals", dict(sz, BLOCK_P=0))]
+        # The two factors' wide builds, timed beside this tree's (their
+        # wide forms were redesigned: no machine code to compare).
+        out += [("kkt_factor", {"NDIM": n, "NX": 5}) for n in WIDE_SIZES]
+        out += [("tridiag", {"B2": b2}) for b2 in sorted(
+            {2 * n for n in WIDE_SIZES} | {b2 for b2, _, _ in
+                                            WIDE_TRIDIAG.values()})]
     return out
 
 
-def sass_differs(a, b):
-    """Whether two libraries' device code differs: the functions and
-    instructions of ``cuobjdump -sass`` of each (found beside the nvcc
-    that built them, or on PATH), compared line for line.  Fails the run
-    where cuobjdump cannot be found."""
+def same_code_expected(name, sig):
+    """Whether a --ref-tree build must compile to this tree's machine code:
+    every build but the wide forms (2N or B2 above 32) of the KKT factor
+    and the tridiagonal pair, whose factors were redesigned (the latter's
+    solve kernels must still be equal)."""
+    size = 2 * sig["NDIM"] if "NDIM" in sig else sig.get("B2", 0)
+    return not (name in ("kkt_factor", "tridiag") and size > 32)
+
+
+def sass_lines(path):
+    """The functions and instructions of ``cuobjdump -sass`` of a library
+    (found beside the nvcc that built it, or on PATH), each line's runs of
+    spaces made one (the listing pads its columns to the widest
+    instruction of the whole library, so a kernel added beside another
+    moves the other's columns).  Fails the run where cuobjdump cannot be
+    found."""
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     if not tool.exists():
         tool = shutil.which("cuobjdump")
         if tool is None:
             fail("build: --ref-tree compares machine code with cuobjdump, "
                  "which is neither beside nvcc nor on PATH")
-    code = [[ln.strip() for ln in subprocess.run(
-        [str(tool), "-sass", str(p_)], capture_output=True, text=True,
+    return [" ".join(ln.split()) for ln in subprocess.run(
+        [str(tool), "-sass", str(path)], capture_output=True, text=True,
         check=True).stdout.splitlines() if "/*" in ln or "Function :" in ln]
-        for p_ in (a, b)]
+
+
+def sass_differs(a, b, only=None):
+    """Whether two libraries' device code differs, line for line; ``only``:
+    the functions whose names hold that text alone (each library's must be
+    there)."""
+    code = [sass_lines(p_) for p_ in (a, b)]
+    if only is not None:
+        code = [[ln for fn, lines in sorted(sass_functions(c).items())
+                 if only in fn for ln in lines] for c in code]
+        if not code[0]:
+            return True
     return code[0] != code[1]
+
+
+def sass_functions(lines):
+    """``sass_lines`` split by function: ``{name: its lines}``."""
+    out, name = {}, None
+    for ln in lines:
+        if "Function :" in ln:
+            name = ln.split("Function :", 1)[1].strip()
+        out.setdefault(name, []).append(ln)
+    return out
 
 
 def ref_csrc():
@@ -762,7 +805,11 @@ def phase_build(signatures, want=()):
         key = tuple(sorted(s.items()))
         built[("ref_" + n, key)] = _build.finish_build(h)
         tag = n + ":" + ",".join(f"{k}={v}" for k, v in key)
-        sass[tag] = sass_differs(built[("ref_" + n, key)], built[(n, key)])
+        if same_code_expected(n, s) or n == "tridiag":
+            # The wide tridiagonal builds: their solve kernels alone.
+            sass[tag] = sass_differs(
+                built[("ref_" + n, key)], built[(n, key)],
+                None if same_code_expected(n, s) else "tridiag_solve")
     seconds = time.time() - t0
     report = {}
     for (name, sig), path in built.items():
@@ -2201,6 +2248,14 @@ def tridiag_sizes(sizes=None, budget=0):
         f_ok = max(ce[1], ge[1]) <= TOL_TRIDIAG and upper_zero and not f_again
         s_ok = se[1] <= TOL_TRIDIAG and not s_again
         ref = {}
+        yard = library_yardstick(diag, lower, rhs) if B2 > 32 else {}
+        if REF_TREE and B2 > 32 and not budget:
+            # The earlier tree's wide factor on the same inputs, timed.
+            rl = ref_library("tridiag", (("B2", B2),))
+            rc, rg = torch.empty_like(ck), torch.empty_like(gk)
+            ref = dict(factor=dict(ref_ms=time_ms(
+                lambda: tridiag_kernel._launch(rl, "factor", diag, lower,
+                                               rc, rg), **reps)))
         if REF_TREE and B2 <= 32 and Wd == W:
             # The parent's forms up to B2 = 32 are kept: equal bits there.
             cr, gr = torch.empty_like(ck), torch.empty_like(gk)
@@ -2229,8 +2284,13 @@ def tridiag_sizes(sizes=None, budget=0):
                     alone_ms(factor_alone_tridiag, diag, lower)[0]),
                 plain_ms=time_ms(lambda: tridiag_kernel.factor_lane_major_plain(
                     diag, lower), **reps),
-                bound_ms=fb[0], bound_by=fb[1], library_ms=None,
+                bound_ms=fb[0], bound_by=fb[1],
+                library_ms=yard.get("library_ms"),
+                library_batch=yard.get("library_batch"),
+                library_error=yard.get("library_error"),
                 plan=tridiag_kernel.factor_plan(lib, B, budget),
+                device_launches=tridiag_kernel.factor_device_launches(
+                    tridiag_kernel.factor_plan(lib, B, budget), Wd),
                 ptxas={k[:40]: v for k, v in ptx.items()
                        if k.startswith("tridiag_factor_kernel")},
                 **ref.get("factor", {}), ok=bool(f_ok)),
@@ -2241,7 +2301,10 @@ def tridiag_sizes(sizes=None, budget=0):
                     if budget else alone_ms(solve_alone, ck, gk, rhs)[0]),
                 plain_ms=time_ms(lambda: tridiag_kernel.solve_lane_major_plain(
                     ck, gk, rhs), **reps),
-                bound_ms=sb[0], bound_by=sb[1], library_ms=None,
+                bound_ms=sb[0], bound_by=sb[1],
+                library_ms=yard.get("library_solve_ms"),
+                library_batch=yard.get("library_batch"),
+                library_error=yard.get("library_error"),
                 plan=tridiag_kernel.plan(lib, Wd, B, budget),
                 ptxas={k[:40]: v for k, v in ptx.items()
                        if k.startswith("tridiag_solve_kernel")},
@@ -4185,7 +4248,7 @@ WIDE_UNFORCED = {
 WIDE_TRIDIAG = {f"B2_{b2}": (b2, W, WIDE_BATCH)
                 for b2 in (34, 48, 64, 96)} | {
     "B2_130": (130, 50, 64), "B2_200": (200, 50, 64), "B2_512": (512, 20, 8),
-    "B2_600": (600, 10, 8)}
+    "B2_600": (600, 10, 8), "B2_80_B1": (80, W, 1), "B2_512_B1": (512, 20, 1)}
 WIDE_TRIDIAG_WORKSPACE = {"B2_64_workspace": (64, W, WIDE_BATCH),
                           "B2_96_workspace": (96, W, WIDE_BATCH)}
 
@@ -4232,6 +4295,131 @@ def repeat_bits(launch, outs):
                if a is not None)
 
 
+# The dense yardstick's f32 matrices take at most this many bytes: above
+# it the batch of the library call is cut (``library_batch``).
+LIBRARY_BYTES = 4 << 30
+
+
+def library_yardstick(diag, lower, rhs):
+    """The library times beside the wide tridiagonal and KKT factors and the
+    tridiagonal solve: ``torch.linalg.cholesky`` of the dense ``(B, W*B2,
+    W*B2)`` f32 matrices of the block-tridiagonal batch (the same factor),
+    and ``torch.cholesky_solve`` on that factor, the batch cut to the first
+    ``library_batch`` problems where the matrices pass LIBRARY_BYTES.  A
+    library call the card refuses leaves its time None and its error in
+    ``library_error``."""
+    Wd, B2, _, B = diag.shape
+    n = Wd * B2
+    b = int(min(B, max(1, LIBRARY_BYTES // (4 * n * n))))
+    M = dense_kkt(diag[..., :b], lower[..., :b])
+    out = dict(library_ms=None, library_solve_ms=None, library_batch=b)
+    try:
+        out["library_ms"] = time_ms(lambda: torch.linalg.cholesky(M),
+                                    reps=3, warm=1)
+        L = torch.linalg.cholesky(M)
+        del M
+        r = rhs[..., :b].permute(2, 0, 1).reshape(b, n, 1).contiguous()
+        out["library_solve_ms"] = time_ms(
+            lambda: torch.cholesky_solve(r, L), reps=3, warm=1)
+    except RuntimeError as exc:  # a refused library call is no kernel fault
+        out["library_error"] = str(exc).splitlines()[0]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def kkt_factor_records(scaled, scaled64, rho_vec, settings, coef, Nj):
+    """The KKT factor in both forms (``kkt_factor``, ``kkt_factor_gain``) on
+    ``scaled``'s packs against its plain version run in f64, each launch
+    repeated (equal bits), timed through its wrapper beside its plain
+    version and its bound, with its plan; with --ref-tree above 16 joints
+    also that tree's kernel on the same packs (``ref_ms``).  Returns
+    ``((cholp, cholp of the gain form, gainp), records)``."""
+    Wd, B = scaled.waypoints, scaled.batch
+    sig = admm_fused.layout_signature(scaled)
+    NX = sig["NX"]
+    fac = lambda g: kkt_factor.factor_packed_lane(  # noqa: E731
+        scaled, rho_vec, settings.sigma, coef=coef, emit_gain=g)
+    ck, _ = fac(False)
+    cg, gg = fac(True)
+    c64, g64 = kkt_factor.factor_packed_lane_plain(
+        scaled64, rho_vec.double(), settings.sigma, emit_gain=True)
+    cp, gp = kkt_factor.factor_packed_lane_plain(
+        scaled, rho_vec, settings.sigma, emit_gain=True)
+    torch.cuda.synchronize()
+    out = {}
+    for name, got, plain, want64, g in (
+            ("kkt_factor", [ck], [cp], [c64], False),
+            ("kkt_factor_gain", [cg, gg], [cp, gp], [c64, g64], True)):
+        e = max(rel_err(a.double(), r)[1] for a, r in zip(got, want64))
+        ep = max(rel_err(a.double(), r)[1] for a, r in zip(plain, want64))
+        rep = repeat_bits(lambda g=g: fac(g), got)
+        b_ms, b_by = bound(nbytes(coef, rho_vec, *kkt_factor.build_p_vel_packs(
+            scaled), *got), ops_factor(Wd, Nj, NX, B))
+        out[name] = dict(vs_f64=e, plain_vs_f64=ep, tol=TOL_FACTOR,
+                         bits_differing_run_to_run=rep,
+                         ms=time_ms(lambda g=g: fac(g)),
+                         plain_ms=time_ms(
+                             lambda g=g: kkt_factor.factor_packed_lane_plain(
+                                 scaled, rho_vec, settings.sigma,
+                                 emit_gain=g), reps=3, warm=1),
+                         bound_ms=b_ms, bound_by=b_by,
+                         plan=kkt_factor.plan(_build.library(
+                             "kkt_factor", sig), Wd, B),
+                         ok=bool(e <= TOL_FACTOR and not rep))
+        out[name]["device_launches"] = kkt_factor.device_launches(
+            out[name]["plan"], Wd)
+        if REF_TREE and Nj > 16:
+            # Both trees' launches alone on the same packs (the wrapper's
+            # packing apart).
+            Pd, Pl = kkt_factor.build_p_vel_packs(scaled)
+            rho3 = rho_vec.reshape(Wd, -1, B).contiguous()
+            o = [torch.empty_like(ck) for _ in range(1 + g)]
+            for key, lb in (("launch_ms", _build.library("kkt_factor", sig)),
+                            ("ref_ms", ref_library(
+                                "kkt_factor", tuple(sorted(sig.items()))))):
+                out[name][key] = time_ms(
+                    lambda g=g, o=o, lb=lb: kkt_factor._launch_factor(
+                        lb, coef, rho3, Pd, Pl, o[0], settings.sigma,
+                        o[1] if g else None))
+    return (ck, cg, gg), out
+
+
+# The two factors alone at one problem above 16 joints: the single-query
+# run's shape at N=40 (W=100) and N=256 (W=20).
+WIDE_B1 = {40: W, 256: 20}
+
+
+def factors_b1():
+    """The KKT factor (both forms) and the tridiagonal factor at one
+    problem (WIDE_B1, ``size_batch`` with B=1, f32, the bench.py
+    settings), each against its plain version in f64, repeated bit for
+    bit, timed beside its plain version, its bound and the library
+    yardstick (``kkt_factor_records``, ``library_yardstick``)."""
+    bench = dataclasses.replace(Settings(), **BENCH)
+    out = {}
+    for Nj, Wd in WIDE_B1.items():
+        qp = size_batch(Nj, batch=1, Wd=Wd)
+        scaled, scaling = admm_lane.ruiz_equilibrate_lane(qp, bench.scaling)
+        packs = admm_lane.build_const_packs(scaled, scaling)
+        rho_vec = _rho_vec(torch.full((1,), bench.rho, device="cuda"),
+                           scaled.l, scaled.u)
+        _, rec = kkt_factor_records(scaled, cast(scaled, torch.float64),
+                                    rho_vec, bench, packs["coef"], Nj)
+        diag, lower = (t.contiguous() for t in scaled.kkt_blocks(
+            rho_vec, bench.sigma))
+        rhs = torch.randn((Wd, 2 * Nj, 1), device="cuda")
+        yard = library_yardstick(diag, lower, rhs)
+        for r in rec.values():
+            r.update(library_ms=yard["library_ms"],
+                     library_batch=yard["library_batch"],
+                     library_error=yard.get("library_error"))
+        out[f"N{Nj}_W{Wd}_B1"] = rec
+        del qp, scaled, packs
+        torch.cuda.empty_cache()
+    return out
+
+
 def size_kernels(Nj, qp, settings, ref=True, warmup=False):
     """Every lane kernel of the path at ``Nj`` joints against its plain
     version run in f64 on the same f32 inputs, at the kernels phase's
@@ -4276,34 +4464,9 @@ def size_kernels(Nj, qp, settings, ref=True, warmup=False):
     rho_vec = _rho_vec(torch.full((B,), settings.rho, device="cuda"),
                        scaled.l, scaled.u)
     # KKT factor, both forms.
-    fac = lambda g: kkt_factor.factor_packed_lane(  # noqa: E731
-        scaled, rho_vec, settings.sigma, coef=coef, emit_gain=g)
-    ck, _ = fac(False)
-    cg, gg = fac(True)
-    c64, g64 = kkt_factor.factor_packed_lane_plain(
-        scaled64, rho_vec.double(), settings.sigma, emit_gain=True)
-    cp, gp = kkt_factor.factor_packed_lane_plain(
-        scaled, rho_vec, settings.sigma, emit_gain=True)
-    torch.cuda.synchronize()
-    for name, got, plain, want64, g in (
-            ("kkt_factor", [ck], [cp], [c64], False),
-            ("kkt_factor_gain", [cg, gg], [cp, gp], [c64, g64], True)):
-        e = max(rel_err(a.double(), r)[1] for a, r in zip(got, want64))
-        ep = max(rel_err(a.double(), r)[1] for a, r in zip(plain, want64))
-        rep = repeat_bits(lambda g=g: fac(g), got)
-        b_ms, b_by = bound(nbytes(coef, rho_vec, *kkt_factor.build_p_vel_packs(
-            scaled), *got), ops_factor(Wd, Nj, NX, B))
-        out[name] = dict(vs_f64=e, plain_vs_f64=ep, tol=TOL_FACTOR,
-                         bits_differing_run_to_run=rep,
-                         ms=time_ms(lambda g=g: fac(g)),
-                         plain_ms=time_ms(
-                             lambda g=g: kkt_factor.factor_packed_lane_plain(
-                                 scaled, rho_vec, settings.sigma,
-                                 emit_gain=g), **slow),
-                         bound_ms=b_ms, bound_by=b_by,
-                         plan=kkt_factor.plan(_build.library(
-                             "kkt_factor", sig), Wd, B),
-                         ok=bool(e <= TOL_FACTOR and not rep))
+    (ck, cg, gg), recs = kkt_factor_records(scaled, scaled64, rho_vec,
+                                            settings, coef, Nj)
+    out.update(recs)
     # The chunk kernel from a warm state, every fifth problem frozen.
     st = admm_lane.init_state_lane(
         scaled, settings, None, None, scaling,
@@ -4468,6 +4631,17 @@ def size_kernels(Nj, qp, settings, ref=True, warmup=False):
     sb = bound(tril_bytes(tc) + nbytes(tg, rhs, tx),
                ops_tridiag_solve(Wd, B2, B))
     tlib = _build.library("tridiag", {"B2": B2})
+    if B2 > 32:  # the wide forms: the library yardstick and --ref-tree's
+        yard = library_yardstick(diag, lower, rhs)
+        for name in ("kkt_factor", "kkt_factor_gain"):
+            out[name].update(library_ms=yard["library_ms"],
+                             library_batch=yard["library_batch"],
+                     library_error=yard.get("library_error"))
+        if REF_TREE:
+            rl = ref_library("tridiag", (("B2", B2),))
+            rc, rg = torch.empty_like(tc), torch.empty_like(tg)
+            ref_f = dict(ref_ms=time_ms(lambda: tridiag_kernel._launch(
+                rl, "factor", diag, lower, rc, rg)))
     out["tridiag_factor"] = dict(vs_f64=fe, tol=TOL_TRIDIAG,
                                  bits_differing_run_to_run=frep,
                                  plan=tridiag_kernel.factor_plan(tlib, B),
@@ -4478,6 +4652,10 @@ def size_kernels(Nj, qp, settings, ref=True, warmup=False):
                                  bound_ms=fb[0], bound_by=fb[1],
                                  ms=time_ms(lambda: tridiag_kernel.
                                             factor_lane_major(diag, lower)),
+                                 **({"library_ms": yard["library_ms"],
+                                     "library_batch": yard["library_batch"]}
+                                    if B2 > 32 else {}),
+                                 **(ref_f if B2 > 32 and REF_TREE else {}),
                                  ok=bool(fe <= TOL_TRIDIAG and not frep))
     out["tridiag_solve"] = dict(vs_f64=se, tol=TOL_TRIDIAG,
                                 bits_differing_run_to_run=srep,
@@ -4489,6 +4667,9 @@ def size_kernels(Nj, qp, settings, ref=True, warmup=False):
                                 bound_ms=sb[0], bound_by=sb[1],
                                 ms=time_ms(lambda: tridiag_kernel.
                                            solve_lane_major(tc, tg, rhs)),
+                                **({"library_ms": yard["library_solve_ms"],
+                                    "library_batch": yard["library_batch"]}
+                                   if B2 > 32 else {}),
                                 ok=bool(se <= TOL_TRIDIAG and not srep))
     if Nj in WORKSPACE_SIZES:
         out["workspace"] = workspace_bits(
@@ -4849,6 +5030,13 @@ def phase_lane_wide():
     tri = tridiag_sizes(WIDE_TRIDIAG)
     tri.update(tridiag_sizes(WIDE_TRIDIAG_WORKSPACE, budget=1))
     emit("lane_wide_tridiag", **tri)
+    b1 = factors_b1()
+    emit("lane_wide_factors_b1", **b1)
+    bad = [f"{key}:{k}" for key, rec in b1.items() for k, v in rec.items()
+           if not v["ok"]]
+    if bad:
+        fail(f"lane_wide: the KKT factor at one problem outside tolerance "
+             f"of f64 or not equal run to run: {bad}")
     blocks = {f"N{n}": wide_block_checks(n) for n in WIDE_BLOCK_SIZES}
     emit("lane_wide_block_p", batch=WIDE_BATCH, **blocks)
     need = ("ruiz_block", "tridiag_factor", "admm_chunk_block",
@@ -6644,16 +6832,16 @@ def main():
         # several columns; its launches are the table's (set below, after
         # the later phases').
         recs, tri, by_path["lane_wide_N300"] = phase_lane_wide()
+        fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                  "library_batch", "launch_ms", "ref_ms", "device_launches")
         for key, rec in recs.items():
             for name, k in rec["kernels"].items():
                 wide.setdefault(name, {})[key] = {
-                    f: k.get(f) for f in ("ms", "plain_ms", "bound_ms",
-                                          "bound_by")}
+                    f: k[f] for f in fields if f in k}
         for key, rec in tri.items():
             for part in ("factor", "solve"):
                 wide.setdefault("tridiag_" + part, {})[key] = {
-                    f: rec[part][f] for f in ("ms", "plain_ms", "bound_ms",
-                                              "bound_by")}
+                    f: rec[part][f] for f in fields if f in rec[part]}
     # This slice's main path: the reference's own problem batched, through
     # the lane driver and through the full search; their launches are the
     # table's, and each row's time alone at W=802, B=512 beside it.

@@ -38,17 +38,16 @@
 // of the step (factor_rows_step: the Cholesky by columns across the group,
 // a barrier a pivot, in place in the slot; row i of G_t from there).
 // Above N = 16 (WIDE: 2N > 32) the group spans several warps (64 threads at
-// N = 17-32), and a block holds one problem.  The LANE_ROWS step is already
-// one of block barriers and shared memory; the wide form rolls its loops
-// (schur_wide: the entries walked in a loop, (i, j) worked out from the
-// entry's index, no table, each sum written as soon as it is formed;
-// factor_wide_step: the Cholesky and row l of G_t in place, no lane
-// holding 2N values), and where even one waypoint's slot beside G_{t-1}
-// does not fit in shared memory the window lives in a device-memory
-// workspace that the wrapper allocates (DEV).  Above N = 256 the group
-// stays at 512 threads, and each owns rows lane, lane + 512, ... of the
-// step (COLS of them: factor_wide_cols_step); a pivot still takes one
-// barrier.
+// N = 17-32, at most 512), and a block holds one problem: the blocked step
+// of wide_chol.cuh (kkt_factor_wide_kernel).  Each step stages the
+// waypoint's coefficients that the assembly reads, assembles M_t's lower
+// triangle in C's place of the working matrix [G | C] (every thread a few
+// entries), factors it panel by panel (G_{t-1} upper triangular: the sums
+// over G start at the panel), and forms G_t = Ml_t C_t^{-T} panel by panel
+// in G_{t-1}'s place (upper triangular: panel J's rows below it are zero
+// and skipped).  Where the matrix does not fit in shared memory it and the
+// staged coefficients live in a device-memory workspace that the wrapper
+// allocates (DEV); the arithmetic is the same in both placements.
 // Two other designs were timed on the card and were no faster (PERF.md): the
 // Cholesky by columns across the group (lane i owning row i, a barrier a
 // pivot), and the whole Schur update in every lane's registers with one
@@ -58,15 +57,13 @@
 #include <type_traits>
 
 #include "lane_common.cuh"
+#include "wide_chol.cuh"
 
-// Threads per problem (at most LANE_GROUP_MAX), the rows of a step a thread
-// owns in the wide form (l = lane, lane + G, ...: one up to 2N = 512),
-// problems per block at most (log2), threads per block.  WIDE: a group of
-// several warps, one problem a block.
+// Threads per problem (at most LANE_GROUP_MAX), problems per block at most
+// (log2), threads per block.  WIDE: a group of several warps, one problem
+// a block.
 constexpr int G = group_size(B2);
-constexpr int COLS = group_cols(B2, G);
 constexpr bool WIDE = B2 > 32;
-static_assert(COLS == 1 || WIDE, "several rows a thread: wide form only");
 constexpr int QLOG_MAX = WIDE ? 0 : 3;
 constexpr int MAX_THREADS = G << QLOG_MAX;
 // Schur entries per lane.
@@ -103,21 +100,53 @@ constexpr bool LANE_ROWS = B2 > 20;
 struct FactorPlan {
     int Q, qlog, TW, windows, smem, blocks, threads;
     long long work;  // DEV: values of the device-memory workspace
+    int cl = 1;      // WIDE: blocks a problem (above 1: the split form)
 };
 
-// The wide form's window in device memory (DEV): waypoints a window.
-constexpr int DEV_TW = 8;
-
-// Row i of entry e of a packed lower triangle (e < T): the float root,
-// corrected to the exact row.
-__device__ __forceinline__ int tri_row(int e) {
-    int i = (int)((sqrtf(8.0f * (float)e + 1.0f) - 1.0f) * 0.5f);
-    while (i > 0 && LOW(i, 0) > e) --i;
-    while (i + 1 < B2 && LOW(i + 1, 0) <= e) ++i;
-    return i;
-}
+// The wide form (WIDE): rows of the working matrix (2N in whole panels),
+// panels, a row of [G | C] (whole 16-byte pieces, rows 1 apart in distinct
+// banks) and the matrix's values; the staged coefficients of a waypoint:
+// the dense rows' N coefficients each and their rho, the diagonal terms
+// of the q and v blocks and the q-v coupling, and Ml's three diagonals;
+// the head of the shared memory: the diagonal block's pivot reciprocals.
+constexpr int WP = wc_pad(B2);
+constexpr int WNP = WP / WC_NB;
+constexpr int WLD = 2 * WP + 4;
+constexpr long long W_M = (long long)WP * WLD;
+constexpr int WS_F = 0, WS_RX = NX * N, WS_DQ = WS_RX + NX, WS_CQ = WS_DQ + N,
+              WS_DV = WS_CQ + N, WS_MQ = WS_DV + N, WS_MQV = WS_MQ + N,
+              WS_MV = WS_MQV + N;
+constexpr int W_ST = (WS_MV + N + 3) / 4 * 4;
+constexpr int W_HEAD = 64;
+// The split form's copy of a diagonal block (in shared memory, and in the
+// workspace past the stage as the product left it).
+constexpr int W_TLD = WC_NB + 4;
+constexpr int W_TS = WC_NB * W_TLD;
+// The products read all their initial values before their first store in
+// groups of 256 threads or more: on an H100 16.3 ms against 17.0 at N=256
+// (W=20, B=8) so, and at N=40 (W=100, B=256) 6.3 against 6.1.
+constexpr bool W_INIT_FIRST = G >= 256;
 
 static FactorPlan factor_plan_for(int W, int B, int budget, int sms) {
+    if (WIDE) {
+        // One problem a block, each step assembling its own waypoint; the
+        // matrix and the stage in shared memory where they fit in budget,
+        // else in device memory; where the batch leaves SMs idle, 4 of
+        // them or more a problem, the split form: cl blocks a problem (up
+        // to one a panel of rows), one launch a phase.  (On an H100 at
+        // N=100, W=50: 2 blocks a problem 20.7 ms against 17.1 for one at
+        // B=64, 4 blocks 13.5 against 16.2 at B=32.)
+        int cl = B > 0 ? sms / B : 1;
+        if (cl > WNP) cl = WNP;
+        const int sz = (int)sizeof(real);
+        if (cl >= 4 && (W_HEAD + W_TS) * sz <= budget)
+            return FactorPlan{1, 0, 1, W, (W_HEAD + W_TS) * sz, B * cl, G,
+                              W_M + W_ST + W_TS, cl};
+        const long long chip = (W_HEAD + W_M + W_ST) * (long long)sz;
+        if (chip <= budget)
+            return FactorPlan{1, 0, 1, W, (int)chip, B, G, 0};
+        return FactorPlan{1, 0, 1, W, W_HEAD * sz, B, G, W_M + W_ST};
+    }
     int qlog = QLOG_MAX;
     // Q problems a block while the blocks still cover 7/8 of the SMs.
     while (qlog > 0 && 8LL * ((B + (1 << qlog) - 1) >> qlog) < 7LL * sms)
@@ -135,13 +164,6 @@ static FactorPlan factor_plan_for(int W, int B, int budget, int sms) {
                    ((long long)SLOT * Q);
     if (tw > W) tw = W;
     FactorPlan p{};
-    if (tw < 1 && WIDE) {
-        // Not one waypoint on chip: the window and G_{t-1} in device memory.
-        const int windows = (W + DEV_TW - 1) / DEV_TW;
-        const int TW = (W + windows - 1) / windows;
-        return FactorPlan{Q, qlog, TW, windows, 0, blocks, G * Q,
-                          (long long)TW * SLOT * Q + fixed};
-    }
     if (tw < 1) return p;
     const int windows = (int)((W + tw - 1) / tw);
     const int TW = (W + windows - 1) / windows;
@@ -217,113 +239,8 @@ __device__ __forceinline__ void factor_rows_step(real* slot, real* gq,
     }
 }
 
-// The Schur update of the wide form: entries e = l, l + G, ... of the
-// packed triangle, k ascending from i as the table form sums them.
-__device__ __forceinline__ void schur_wide(real* slot, const real* gq, int Q,
-                                           int l) {
-#pragma unroll 1
-    for (int e = l; e < T; e += G) {
-        const int i = tri_row(e), j = e - LOW(i, 0);
-        const real* gi = gq + (UP(i, i) - i);
-        const real* gj = gq + (UP(j, j) - j);
-        real acc = real(0);
-#pragma unroll 4
-        for (int k = i; k < B2; ++k) acc = acc + gi[k] * gj[k];
-        slot[e * Q] = slot[e * Q] - acc;
-    }
-}
-
-// The wide form's step (WIDE, one problem a block): factor_rows_step's
-// arithmetic in place in the slot with every loop rolled (no lane holds 2N
-// values), row l of G_t formed in G_{t-1}'s place.
-template <bool GAIN>
-__device__ __forceinline__ void factor_wide_step(real* slot, real* gq,
-                                                 real* gainp, int t, int W,
-                                                 size_t Bs, int b, int l,
-                                                 bool valid) {
-    const bool row = l < B2;
-    const auto C = [&](int i, int j) -> real& { return slot[LOW(i, j)]; };
-#pragma unroll 1
-    for (int jj = 0; jj < B2; ++jj) {
-        if (l == jj) {
-            real sdd = C(jj, jj);
-            for (int k = 0; k < jj; ++k) sdd -= C(jj, k) * C(jj, k);
-            C(jj, jj) = sqrt_rn(sdd);
-        }
-        __syncthreads();  // pivot jj and row jj whole
-        if (row && l > jj) {
-            real sij = C(l, jj);
-            for (int k = 0; k < jj; ++k) sij -= C(l, k) * C(jj, k);
-            C(l, jj) = sij * rcp_rn(C(jj, jj));
-        }
-    }
-    __syncthreads();  // C_t whole
-    if (!row) return;
-    const real diag = l < N ? slot[SL_ML + l] : slot[SL_ML + N + l];
-    const real qv = l < N ? slot[SL_ML + N + l] : real(0);
-    real* grow = gq + (UP(l, l) - l);  // grow[j], j >= l
-    real* gout = gainp + ((size_t)t * Tp + UP(l, l) - l) * Bs + b;
-#pragma unroll 1
-    for (int j = l; j < B2; ++j) {
-        real sij = j == l ? diag : (j == l + N ? qv : real(0));
-        for (int k = l; k < j; ++k) sij -= grow[k] * C(j, k);
-        grow[j] = sij * rcp_rn(C(j, j));
-        if (GAIN && valid)
-            gout[(size_t)j * Bs] = t < W - 1 ? grow[j] : real(0);
-    }
-}
-
-// factor_wide_step with several rows a thread (COLS > 1): lane l owns rows
-// l, l + G, ... of the pivots' columns and of G_t.
-template <bool GAIN>
-__device__ __forceinline__ void factor_wide_cols_step(real* slot, real* gq,
-                                                 real* gainp, int t, int W,
-                                                 size_t Bs, int b, int l,
-                                                 bool valid) {
-    const auto C = [&](int i, int j) -> real& { return slot[LOW(i, j)]; };
-#pragma unroll 1
-    for (int jj = 0; jj < B2; ++jj) {
-#pragma unroll
-        for (int c = 0; c < COLS; ++c) {
-            if (l + c * G == jj) {
-                real sdd = C(jj, jj);
-                for (int k = 0; k < jj; ++k) sdd -= C(jj, k) * C(jj, k);
-                C(jj, jj) = sqrt_rn(sdd);
-            }
-        }
-        __syncthreads();  // pivot jj and row jj whole
-#pragma unroll
-        for (int c = 0; c < COLS; ++c) {
-            const int lc = l + c * G;
-            if (lc < B2 && lc > jj) {
-                real sij = C(lc, jj);
-                for (int k = 0; k < jj; ++k) sij -= C(lc, k) * C(jj, k);
-                C(lc, jj) = sij * rcp_rn(C(jj, jj));
-            }
-        }
-    }
-    __syncthreads();  // C_t whole
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) {
-        const int lc = l + c * G;
-        if (lc >= B2) continue;
-        const real diag = lc < N ? slot[SL_ML + lc] : slot[SL_ML + N + lc];
-        const real qv = lc < N ? slot[SL_ML + N + lc] : real(0);
-        real* grow = gq + (UP(lc, lc) - lc);  // grow[j], j >= lc
-        real* gout = gainp + ((size_t)t * Tp + UP(lc, lc) - lc) * Bs + b;
-#pragma unroll 1
-        for (int j = lc; j < B2; ++j) {
-            real sij = j == lc ? diag : (j == lc + N ? qv : real(0));
-            for (int k = lc; k < j; ++k) sij -= grow[k] * C(j, k);
-            grow[j] = sij * rcp_rn(C(j, j));
-            if (GAIN && valid)
-                gout[(size_t)j * Bs] = t < W - 1 ? grow[j] : real(0);
-        }
-    }
-}
-
-// DEV (the wide form only): the window and G_{t-1} in the workspace work
-// (each block its own part), not in shared memory.
+// DEV: never (the narrow forms' window is on chip; the parameter and work
+// keep the kernel's signature).
 template <bool GAIN, bool DEV = false>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
     kkt_factor_kernel(const real* __restrict__ coef_,
@@ -349,9 +266,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     // term, so that every lane runs NE entries without a branch.  Fields
     // (ent_field): i, the offsets of rows i and j of the packed upper G and
     // the slot row.
-    ent_t ent[WIDE ? 1 : NE];
+    ent_t ent[NE];
 #pragma unroll
-    for (int m = 0; m < (WIDE ? 0 : NE); ++m) {
+    for (int m = 0; m < NE; ++m) {
         const int e = l + m * G;
         int i = 0;
         while (i + 1 < B2 && LOW(i + 1, 0) <= e) ++i;
@@ -365,7 +282,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     // ... of this lane (the Q problems of a warp's store are adjacent).
     const auto store_chol = [&](const real* cslot, int t) {
         real* out = cholp + (size_t)t * Tp * Bs + b;
-        LANE_UNROLL_TRI
+#pragma unroll
         for (int m = 0; m < (Tp + G - 1) / G; ++m) {
             const int e = l + m * G;
             if (e < Tp) out[(size_t)e * Bs] = e < T ? cslot[e * Q] : real(0);
@@ -388,23 +305,23 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
                 if constexpr (LANE_ROWS) return slot[k * Q];
                 else return Sr[k];
             };
-            LANE_UNROLL_TRI
+#pragma unroll
             for (int k = 0; k < T; ++k) S(k) = real(0);
             // Dense q-block J' rho J of the workspace / obstacle rows.
 #pragma unroll
             for (int k = 0; k < NX; ++k) {
                 const real rr = rho(t, Rp, R_X + k);
                 real f[N];
-                LANE_UNROLL_TRI
+#pragma unroll
                 for (int j = 0; j < N; ++j) f[j] = coef(t, CRp, C_X + k * N + j);
-                LANE_UNROLL_TRI
+#pragma unroll
                 for (int i = 0; i < N; ++i) {
                     const real fi = f[i] * rr;
-                    LANE_UNROLL_TRI
+#pragma unroll
                     for (int j = 0; j <= i; ++j) S(LOW(i, j)) += fi * f[j];
                 }
             }
-            LANE_UNROLL_TRI
+#pragma unroll
             for (int j = 0; j < N; ++j) {
                 const real rd = rho(t, Rp, R_DYN + j);
                 const real ra = rho(t, Rp, R_ACC + j);
@@ -451,10 +368,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
             // loaded (k < i reads other entries of G) and the slot written
             // after all the sums, so that no load waits behind a predicate
             // or a store; each sum takes k >= i.
-            if constexpr (WIDE) schur_wide(slot, gq, Q, l);
-            real acc[WIDE ? 1 : NE];
+            real acc[NE];
 #pragma unroll
-            for (int m = 0; m < (WIDE ? 0 : NE); ++m) {
+            for (int m = 0; m < NE; ++m) {
                 const int i = ent_field(ent[m], 0);
                 const real* gi = gq + ent_field(ent[m], 1);
                 const real* gj = gq + ent_field(ent[m], 2);
@@ -470,7 +386,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
                     acc[m] = k >= i ? acc[m] + a[k] * c[k] : acc[m];
             }
 #pragma unroll
-            for (int m = 0; m < (WIDE ? 0 : NE); ++m) {
+            for (int m = 0; m < NE; ++m) {
                 real* e = slot + ent_field(ent[m], 3) * Q;
                 *e = *e - acc[m];
             }
@@ -480,15 +396,8 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
             if (tl > 0 && valid) store_chol(slot - SLOT * Q, t - 1);
 
             if constexpr (LANE_ROWS) {
-                if constexpr (COLS > 1)
-                    factor_wide_cols_step<GAIN>(slot, gq, gainp, t, W, Bs, b,
-                                                l, valid);
-                else if constexpr (WIDE)
-                    factor_wide_step<GAIN>(slot, gq, gainp, t, W, Bs, b, l,
-                                           valid);
-                else
-                    factor_rows_step<GAIN>(slot, gq, gainp, t, W, Bs, b, Q, l,
-                                           valid);
+                factor_rows_step<GAIN>(slot, gq, gainp, t, W, Bs, b, Q, l,
+                                       valid);
                 if (GAIN && valid) {
                     for (int e = T + l; e < Tp; e += G)
                         gainp[((size_t)t * Tp + e) * Bs + b] = real(0);
@@ -570,24 +479,395 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     }
 }
 
-// The launch in either form (gain), DEV: the window in the workspace (a
-// template, so that only the wide builds compile that kernel).
+// The wide form (WIDE): M = [G | C], rows of WLD values (wide_chol.cuh),
+// and the stage of the waypoint's coefficients, a problem's values in
+// shared memory or (DEV) in the workspace.  A step in phases: the stage,
+// M_t's lower triangle in C's place, C_t panel by panel (the panel's
+// product, its diagonal block factored, the rows below solved against it
+// and C_t's panel out to cholp row t), then G_t = Ml_t C_t^{-T} panel by
+// panel in G_{t-1}'s place, out to gainp row t as it is formed
+// (emit_gain; the last waypoint's row zero).  Where G_{t-1}'s entries in
+// a product are zero (G upper triangular) its sums skip them: over G from
+// the panel's first column, and panel J of G_t only for the rows above the
+// panel's end (those below zero).  One block a problem runs every phase in
+// one launch (kkt_factor_wide_kernel); the split form
+// (kkt_factor_split_kernel) runs each phase as a launch of cl blocks a
+// problem, each its chunk of the rows, every block factoring the diagonal
+// block in a copy of its own (Ts, from the product's tb; the first writes
+// it into M).
+template <bool GAIN>
+struct KktWide {
+    Pack coef, rho, pd, pl;
+    real* cholp;
+    real* gainp;
+    real* M;     // the working matrix
+    real* st;    // the stage
+    real* head;  // the diagonal block's pivot reciprocals, a spare flag
+    real* Ts;    // the split form's copy of the diagonal block (else null)
+    real* tb;    // the split form's diagonal block as the product left it
+    int W, b, tid;
+    size_t Bs;
+    real sigma;
+
+    // The coefficients of waypoint t that the assembly and Ml_t read.
+    __device__ void stage(int t) const {
+#pragma unroll 1
+        for (int e = tid; e < NX * N; e += G)
+            st[WS_F + e] = coef(t, CRp, C_X + e);
+        for (int k = tid; k < NX; k += G) st[WS_RX + k] = rho(t, Rp, R_X + k);
+#pragma unroll 1
+        for (int j = tid; j < N; j += G) {
+            const real rd = rho(t, Rp, R_DYN + j);
+            const real ra = rho(t, Rp, R_ACC + j);
+            const real c0 = coef(t, CRp, C_C0 + j);
+            const real c1 = coef(t, CRp, C_C1 + j);
+            const real c2 = coef(t, CRp, C_C2 + j);
+            const real a0 = coef(t, CRp, C_A0 + j);
+            const real a1 = coef(t, CRp, C_A1 + j);
+            const real po = coef(t, CRp, C_POS + j);
+            const real ve = coef(t, CRp, C_VEL + j);
+            // The coupling rows of waypoint t-1 (zero at t = 0).
+            const int tp = t > 0 ? t - 1 : 0;
+            const real c1p = coef(tp, CRp, C_C1 + j);
+            const real a0p = coef(tp, CRp, C_A0 + j);
+            const real rdp = rho(tp, Rp, R_DYN + j);
+            const real rap = rho(tp, Rp, R_ACC + j);
+            const real c1sq = t > 0 ? rdp * c1p * c1p : real(0);
+            const real a0sq = t > 0 ? rap * a0p * a0p : real(0);
+            st[WS_DQ + j] =
+                rho(t, Rp, R_POS + j) * po * po + rd * c2 * c2 + c1sq;
+            st[WS_CQ + j] = rd * c2 * c0;
+            st[WS_DV + j] = rd * c0 * c0 + rho(t, Rp, R_VEL + j) * ve * ve +
+                            a0sq + ra * a1 * a1 + pd(t, PNp, j) + sigma;
+            st[WS_MQ + j] = rd * c1 * c2;
+            st[WS_MQV + j] = rd * c1 * c0;
+            st[WS_MV + j] = ra * a0 * a1 + pl(t, PNp, j);
+        }
+    }
+    // Entry (r, c <= r) of M_t (the identity past 2N): the dense rows'
+    // J' rho J on the q block, the stencil's diagonals, the q-v coupling.
+    __device__ real m_at(int r, int c) const {
+        if (r >= B2) return r == c ? real(1) : real(0);
+        if (r < N) {
+            real s = real(0);
+#pragma unroll
+            for (int k = 0; k < NX; ++k)
+                s = fma_rn(mul_rn(st[WS_F + k * N + r], st[WS_RX + k]),
+                           st[WS_F + k * N + c], s);
+            return c == r ? s + st[WS_DQ + r] + sigma : s;
+        }
+        return c == r - N ? st[WS_CQ + r - N]
+               : c == r   ? st[WS_DV + r - N]
+                          : real(0);
+    }
+    // Entry (r, c) of Ml_t: (j, j) qq, (j, N + j) qv, (N + j, N + j) vv.
+    __device__ real ml_at(int r, int c) const {
+        if (r >= B2 || c >= B2) return real(0);
+        if (r == c) return r < N ? st[WS_MQ + r] : st[WS_MV + r - N];
+        return r < N && c == r + N ? st[WS_MQV + r] : real(0);
+    }
+    // M_t's lower triangle in C's place, chunk c of its rows.
+    __device__ void assemble(int c, int cl) const {
+        int a, e;
+        wc_chunk(0, WP, c, cl, a, e);
+#pragma unroll 1
+        for (int k = a * WP + tid; k < e * WP; k += G) {
+            const int r = k / WP, cc = k % WP;
+            if (cc <= r) M[r * WLD + WP + cc] = m_at(r, cc);
+        }
+    }
+    // Panel p of C_t, chunk c of its rows: M_t's less [G_{t-1} from column
+    // p0 | C_t so far] of the rows times the panel rows', in place.
+    __device__ void product(int p, int c, int cl) const {
+        const int p0 = p * WC_NB;
+        int a, e;
+        wc_chunk(p0, WP, c, cl, a, e);
+        real* Cp = M + WP + p0;
+        // The split form's diagonal block apart, so that no block's
+        // write-back of it races another's read.
+        const int split = Ts != nullptr ? p0 + WC_NB : 0;
+        wc_panel_product<G, WLD, WP, W_INIT_FIRST>(
+            M, p0, p0, p0, a, e, WP, tid,
+            [&](int r, int k) { return Cp[r * WLD + k]; },
+            [&](int r, int k, real v) {
+                if (r < split)
+                    tb[(r - p0) * W_TLD + k] = v;
+                else
+                    Cp[r * WLD + k] = v;
+            });
+    }
+    // Panel p's diagonal block factored by the first warp: in place, or
+    // (split) from tb into Ts, the first block writing it into M.
+    __device__ void tile(int p, int c) const {
+        const int p0 = p * WC_NB;
+        const int npiv = B2 - p0 < WC_NB ? B2 - p0 : WC_NB;
+        wc_block_factor<WLD, W_TLD>(M + p0 * WLD + WP + p0, Ts, tb, tid,
+                                    head, head + WC_NB, head + WC_NB, npiv,
+                                    c == 0);
+    }
+    // Chunk c of panel p's rows below its diagonal block solved against
+    // it, and their entries of the panel out to cholp row t; the first
+    // chunk also the block's rows (their lower part), and at the last
+    // panel the pad entries.
+    template <int TLD>
+    __device__ void solve_on(const real* Tb, int t, int p, int c,
+                             int cl) const {
+        const int p0 = p * WC_NB;
+        real* co = cholp + (size_t)t * Tp * Bs + b;
+        int a, e;
+        wc_chunk(p0 + WC_NB, WP, c, cl, a, e);
+        wc_row_solve<G, WLD, TLD>(
+            M, a, e, WP + p0, Tb, head, real(0), B2 - p0, tid,
+            [&](int r, int j, real v) {
+                if (r < B2 && p0 + j < B2)
+                    co[(size_t)LOW(r, p0 + j) * Bs] = v;
+            });
+        if (c != 0) return;
+        for (int k = tid; k < WC_NB * WC_NB; k += G) {
+            const int i = k / WC_NB, j = k % WC_NB;
+            if (j <= i && p0 + i < B2)
+                co[(size_t)LOW(p0 + i, p0 + j) * Bs] = Tb[i * TLD + j];
+        }
+        if (p == WNP - 1)
+            for (int k = T + tid; k < Tp; k += G) co[(size_t)k * Bs] = real(0);
+    }
+    __device__ void solve(int t, int p, int c, int cl) const {
+        if (Ts != nullptr)
+            solve_on<W_TLD>(Ts, t, p, c, cl);
+        else
+            solve_on<WLD>(M + p * WC_NB * WLD + WP + p * WC_NB, t, p, c,
+                          cl);
+    }
+    // The gain pack's row t zero (the last waypoint), chunk c of it; and
+    // any row's pad entries.
+    __device__ void gain_zeros(int t, int c, int cl) const {
+        if (!GAIN) return;
+        real* go = gainp + (size_t)t * Tp * Bs + b;
+        int a, e;
+        wc_chunk(t == W - 1 ? 0 : T, Tp, c, cl, a, e);
+        for (int k = a + tid; k < e; k += G) go[(size_t)k * Bs] = real(0);
+    }
+    // Panel J of G_t, chunk c of the rows (the same chunk at every J, so
+    // that a block's rows of G_t so far are its own): those above the
+    // panel's end are Ml_t's less G_t so far times C_t's panel rows, then
+    // each solved against C_t's diagonal block, out as formed; those below
+    // it, zero.
+    __device__ void gain_panel(int t, int J, int c, int cl) const {
+        const int j0 = J * WC_NB, rend = j0 + WC_NB;
+        const real* blk = M + j0 * WLD + WP + j0;
+        if (tid < WC_NB) head[tid] = rcp_rn(blk[tid * WLD + tid]);
+        if (Ts != nullptr)
+            for (int k = 4 * tid; k < WC_NB * WC_NB; k += 4 * G)
+                copy4(Ts + (k / WC_NB) * W_TLD + k % WC_NB,
+                      blk + (k / WC_NB) * WLD + k % WC_NB);
+        real* Gp = M + j0;
+        int a, e;
+        wc_chunk(0, WP, c, cl, a, e);
+        const int mid = e < rend ? e : a > rend ? a : rend;
+#pragma unroll 1
+        for (int k = mid * WC_NB + tid; k < e * WC_NB; k += G)
+            Gp[(k / WC_NB) * WLD + k % WC_NB] = real(0);
+        e = mid;
+        wc_panel_product<G, WLD, WP, W_INIT_FIRST>(
+            M, 0, j0, WP, a, e, j0, tid,
+            [&](int r, int k) { return ml_at(r, j0 + k); },
+            [&](int r, int k, real v) { Gp[r * WLD + k] = v; });
+        __syncthreads();
+        real* go = gainp + (size_t)t * Tp * Bs + b;
+        const auto out = [&](int r, int j, real v) {
+            const int cc = j0 + j;
+            if (GAIN && cc >= r && cc < B2)
+                go[(size_t)(UP(r, r) - r + cc) * Bs] = v;
+        };
+        if (Ts != nullptr)
+            wc_row_solve<G, WLD, W_TLD>(M, a, e, j0, Ts, head, real(0),
+                                        B2 - j0, tid, out);
+        else
+            wc_row_solve<G, WLD, WLD>(M, a, e, j0, blk, head, real(0),
+                                      B2 - j0, tid, out);
+    }
+};
+
+// One block a problem: every phase of every step in one launch.  DEV: M
+// and the stage in the workspace work.
+template <bool GAIN, bool DEV = false>
+__global__ void __launch_bounds__(G, 1)
+    kkt_factor_wide_kernel(const real* __restrict__ coef_,
+                           const real* __restrict__ rho_,
+                           const real* __restrict__ pd_,
+                           const real* __restrict__ pl_,
+                           real* __restrict__ cholp, real* __restrict__ gainp,
+                           int W, int B, real sigma, int qlog, int TW,
+                           real* work) {
+    LANE_SMEM_DECL();
+    (void)qlog;
+    (void)TW;
+    const int tid = threadIdx.x, b = blockIdx.x;
+    const size_t Bs = (size_t)B;
+    real* M = DEV ? work + (size_t)b * (W_M + W_ST) : lane_smem + W_HEAD;
+    const KktWide<GAIN> f{{coef_, Bs, b}, {rho_, Bs, b}, {pd_, Bs, b},
+                          {pl_, Bs, b},   cholp,         gainp,
+                          M,              M + W_M,       lane_smem,
+                          nullptr,        nullptr,       W,
+                          b,              tid,           Bs,
+                          sigma};
+#pragma unroll 1
+    for (int e = tid; e < WP * WP; e += G)
+        M[(e / WP) * WLD + e % WP] = real(0);  // G_{-1} = 0
+    for (int t = 0; t < W; ++t) {
+        f.stage(t);
+        __syncthreads();  // the stage whole; G_{t-1} whole
+        f.assemble(0, 1);
+        __syncthreads();
+#pragma unroll 1
+        for (int p = 0; p < WNP; ++p) {
+            f.product(p, 0, 1);
+            __syncthreads();
+            if (tid < 32) f.tile(p, 0);
+            __syncthreads();
+            f.solve(t, p, 0, 1);
+            __syncthreads();
+        }
+        f.gain_zeros(t, 0, 1);
+        if (t == W - 1) break;
+#pragma unroll 1
+        for (int J = 0; J < WNP; ++J) {
+            f.gain_panel(t, J, 0, 1);
+            __syncthreads();
+        }
+    }
+}
+
+// The split form's phases, one a launch of cl blocks a problem (block
+// b * cl + c takes chunk c of problem b's rows; a kernel a phase, so that
+// each takes the registers of its own work); M and the stage in the
+// workspace work.  KW_GAIN forms every panel of G_t for the block's rows
+// (they depend on those rows and C_t alone), after the gain pack's zeros
+// (the first block; at the last step only those).
+enum { KW_INIT, KW_STAGE, KW_ASSEMBLE, KW_PRODUCT, KW_TILE_SOLVE, KW_GAIN };
+
+template <bool GAIN, int PHASE>
+__global__ void __launch_bounds__(G, 1)
+    kkt_factor_split_kernel(const real* __restrict__ coef_,
+                            const real* __restrict__ rho_,
+                            const real* __restrict__ pd_,
+                            const real* __restrict__ pl_,
+                            real* __restrict__ cholp,
+                            real* __restrict__ gainp, int W, int B,
+                            real sigma, real* work, int cl, int t, int p) {
+    LANE_SMEM_DECL();
+    const int tid = threadIdx.x, b = blockIdx.x / cl, c = blockIdx.x % cl;
+    const size_t Bs = (size_t)B;
+    real* M = work + (size_t)b * (W_M + W_ST + W_TS);
+    const KktWide<GAIN> f{{coef_, Bs, b},     {rho_, Bs, b},
+                          {pd_, Bs, b},       {pl_, Bs, b},
+                          cholp,              gainp,
+                          M,                  M + W_M,
+                          lane_smem,          lane_smem + W_HEAD,
+                          M + W_M + W_ST,     W,
+                          b,                  tid,
+                          Bs,                 sigma};
+    if constexpr (PHASE == KW_INIT) {  // G_{-1} = 0
+        int a, e;
+        wc_chunk(0, WP, c, cl, a, e);
+#pragma unroll 1
+        for (int k = a * WP + tid; k < e * WP; k += G)
+            M[(k / WP) * WLD + k % WP] = real(0);
+    } else if constexpr (PHASE == KW_STAGE) {
+        f.stage(t);
+    } else if constexpr (PHASE == KW_ASSEMBLE) {
+        f.assemble(c, cl);
+    } else if constexpr (PHASE == KW_PRODUCT) {
+        f.product(p, c, cl);
+    } else if constexpr (PHASE == KW_TILE_SOLVE) {
+        if (tid < 32) f.tile(p, c);
+        __syncthreads();
+        f.solve(t, p, c, cl);
+    } else {
+        if (c == 0) f.gain_zeros(t, 0, 1);
+        if (t == W - 1) return;
+#pragma unroll 1
+        for (int J = 0; J < WNP; ++J) {
+            f.gain_panel(t, J, c, cl);
+            __syncthreads();
+        }
+    }
+}
+
+// The launch in either form (gain), DEV: the wide form's matrix in the
+// workspace (a template, so that a build compiles its own form's kernels
+// only).
+// The split form (WIDE, p.cl blocks a problem): each phase of each step a
+// launch (the stage, the assembly, the product and the diagonal block's
+// phase of every panel of C_t, then every panel of G_t in one), a phase's
+// blocks a problem fewer where its rows are fewer (one for every panel of
+// them, at least one).
+template <bool GAIN>
+static int launch_split(const FactorPlan& p, void* stream, const real* coef,
+                        const real* rho, const real* pd, const real* pl,
+                        real* cholp, real* gainp, int W, int B, real sigma,
+                        real* work) {
+    if constexpr (WIDE) {
+        const auto run = [&](auto kernel, int t, int q, int rows) {
+            int cl = rows / WC_NB;
+            cl = cl < 1 ? 1 : cl > p.cl ? p.cl : cl;
+            return lane_launch_coop(kernel, B * cl, p.threads, p.threads,
+                                    p.smem, stream, coef, rho, pd, pl, cholp,
+                                    gainp, W, B, sigma, work, cl, t, q);
+        };
+        int err = run(&kkt_factor_split_kernel<GAIN, KW_INIT>, 0, 0, WP);
+        for (int t = 0; t < W && err == 0; ++t) {
+            err = run(&kkt_factor_split_kernel<GAIN, KW_STAGE>, t, 0, 0);
+            if (err == 0)
+                err = run(&kkt_factor_split_kernel<GAIN, KW_ASSEMBLE>, t, 0,
+                          WP);
+            for (int q = 0; q < WNP && err == 0; ++q) {
+                err = run(&kkt_factor_split_kernel<GAIN, KW_PRODUCT>, t, q,
+                          WP - q * WC_NB);
+                if (err == 0)
+                    err = run(&kkt_factor_split_kernel<GAIN, KW_TILE_SOLVE>,
+                              t, q, WP - (q + 1) * WC_NB);
+            }
+            if (err == 0)
+                err = run(&kkt_factor_split_kernel<GAIN, KW_GAIN>, t, 0, WP);
+        }
+        return err;
+    } else {
+        (void)p, (void)stream, (void)coef, (void)rho, (void)pd, (void)pl;
+        (void)cholp, (void)gainp, (void)W, (void)B, (void)sigma, (void)work;
+        return -1;
+    }
+}
+
 template <bool DEV, class... A>
 static int launch_form(bool gain, const FactorPlan& p, void* stream,
                        A... args) {
-    const int smem = DEV ? 0 : p.smem;
-    if (gain)
-        return lane_launch_coop(&kkt_factor_kernel<true, DEV>, p.blocks,
+    const int smem = DEV && !WIDE ? 0 : p.smem;
+    if constexpr (WIDE) {
+        if (gain)
+            return lane_launch_coop(&kkt_factor_wide_kernel<true, DEV>,
+                                    p.blocks, p.threads, p.threads, smem,
+                                    stream, args...);
+        return lane_launch_coop(&kkt_factor_wide_kernel<false, DEV>, p.blocks,
                                 p.threads, p.threads, smem, stream, args...);
-    return lane_launch_coop(&kkt_factor_kernel<false, DEV>, p.blocks,
-                            p.threads, p.threads, smem, stream, args...);
+    } else {
+        if (gain)
+            return lane_launch_coop(&kkt_factor_kernel<true, DEV>, p.blocks,
+                                    p.threads, p.threads, smem, stream,
+                                    args...);
+        return lane_launch_coop(&kkt_factor_kernel<false, DEV>, p.blocks,
+                                p.threads, p.threads, smem, stream, args...);
+    }
 }
 
-// plan[0..8] = threads per problem G, problems per block Q, waypoints per
+// plan[0..10] = threads per problem G, problems per block Q, waypoints per
 // window TW, windows, shared bytes, blocks, threads per block, the shared
-// bytes planned for, and the bytes of the device-memory workspace the
-// launch needs (0: none; the wide form where no waypoint fits on chip): the
-// plan kkt_factor_launch makes on the current device.  budget <= 0: the
+// bytes planned for, the bytes of the device-memory workspace the launch
+// needs (0: none; the wide form where no waypoint fits on chip), blocks a
+// problem (above 1: the wide form split, one launch a phase), and the
+// split form's launches a step (launch_split: a call makes 1 + W times as
+// many; 0: one launch a call): the plan kkt_factor_launch makes on the
+// current device.  budget <= 0: the
 // device's (the host-emulation tests pass a small budget to reach several
 // windows, or the workspace).  Returns -1 where not one waypoint fits the
 // shared memory of the budget or the device (kkt_factor_launch refuses it
@@ -598,10 +878,12 @@ extern "C" int kkt_factor_plan(int W, int B, int budget, long long* plan) {
     if (err != 0) return err;
     if (budget <= 0) budget = dev_smem;
     const FactorPlan p = factor_plan_for(W, B, budget, sms);
-    const long long v[9] = {G,        p.Q,      p.TW,      p.windows,
-                            p.smem,   p.blocks, p.threads, budget,
-                            p.work * p.blocks * (long long)sizeof(real)};
-    for (int k = 0; k < 9; ++k) plan[k] = v[k];
+    const long long v[11] = {G,        p.Q,      p.TW,      p.windows,
+                             p.smem,   p.blocks, p.threads, budget,
+                             p.work * (p.blocks / p.cl) *
+                                 (long long)sizeof(real),
+                             p.cl,     p.cl > 1 ? 3 + 2 * WNP : 0};
+    for (int k = 0; k < 11; ++k) plan[k] = v[k];
     return p.TW == 0 || p.smem > dev_smem ? -1 : 0;
 }
 
@@ -624,6 +906,13 @@ extern "C" int kkt_factor_launch(const void* coef, const void* rho,
     (const real*)coef, (const real*)rho, (const real*)pd, (const real*)pl,    \
         (real*)cholp, (real*)gainp, W, B, (real)sigma, p.qlog, p.TW,          \
         (real*)work
+    if (p.cl > 1) {
+        const auto split = gainp != nullptr ? &launch_split<true>
+                                            : &launch_split<false>;
+        return split(p, stream, (const real*)coef, (const real*)rho,
+                     (const real*)pd, (const real*)pl, (real*)cholp,
+                     (real*)gainp, W, B, (real)sigma, (real*)work);
+    }
     if (p.work > 0)
         return launch_form<WIDE>(gainp != nullptr, p, stream,
                                  LANE_FACTOR_ARGS);

@@ -90,18 +90,20 @@
 //     x, from where the producer stages it back.  Nothing on a step's chain
 //     reads device memory.
 // Above B2 = 32 (WIDE) the group spans several warps and a block holds one
-// problem, in both kernels.  The factor takes the LANE_ROWS step with every
-// loop rolled: its Schur entries worked out from their index (no table),
-// the Cholesky and G_t's rows in place in shared memory (nothing of B2
-// values in registers).  The solve takes the LANE_ROWS form with the tile
-// one value a row, the previous step's vector and each column's element
-// broadcast through shared memory (one group barrier a column).  Where a
-// kernel's three-stage ring does not fit in shared memory it lives in a
-// device-memory workspace that the wrapper allocates (DEV: the copies are
-// loads and stores, made visible by the step's barrier).  Above B2 = 512
-// the group stays at 512 threads and each owns the rows lane, lane + 512,
-// ... of a step (SCOLS of them), in both kernels (the _cols functions); a
-// pivot or a column still takes one barrier.
+// problem, in both kernels.  The factor takes the blocked step of
+// wide_chol.cuh (tridiag_factor_wide_kernel): its working matrix [G | C]
+// and, one phase ahead, D_t's lower triangle and L_t copied with cp.async
+// in shared memory, or where they do not fit the matrix alone in a
+// device-memory workspace that the wrapper allocates (DEV: D_t and L_t
+// read where the products use them).  The solve takes the LANE_ROWS form
+// with the tile one value a row, the previous step's vector and each
+// column's element broadcast through shared memory (one group barrier a
+// column); where its three-stage ring does not fit in shared memory it
+// lives in the workspace (DEV: the copies are loads and stores, made
+// visible by the step's barrier).  Above B2 = 512 the group stays at 512
+// threads: the solve's threads each own the rows lane, lane + 512, ... of
+// a step (SCOLS of them, solve_rows_wide_cols; a column still takes one
+// barrier), the factor's take more rows of its panels.
 // Bound: bytes on paper (each step's blocks read once a sweep); in practice
 // each problem's chain of 2W steps, each B2 divisions and the multiply-adds
 // between them.
@@ -110,6 +112,7 @@
 #include <type_traits>
 
 #include "lane_platform.cuh"
+#include "wide_chol.cuh"
 
 #ifndef B2
 #error "compile with -DB2=<block size>"
@@ -145,7 +148,7 @@ constexpr bool LANE_ROWS = B2 > 20;
 // ---- the factor.
 // Problems per block at most (log2), stages of the ring, Schur entries per
 // lane, and a row of a block padded to whole 16-byte loads.
-constexpr int F_QLOG_MAX = WIDE ? 0 : 3;
+constexpr int F_QLOG_MAX = 3;
 constexpr int F_NSTAGE = 3;
 constexpr int NE = (NT + SG - 1) / SG;
 constexpr int B2P = (B2 + 3) / 4 * 4;
@@ -159,14 +162,13 @@ constexpr int B2P = (B2 + 3) / 4 * 4;
 __host__ __device__ constexpr int odd_quads(int n) {
     return n % 8 == 0 ? n + 4 : n;
 }
-// WIDE: the triangle, the flag, and the rows of L_t and G_{t-1} of the B2
-// lanes that own a row only.
-constexpr int F_L = WIDE ? (NT + 4) / 4 * 4 : NE * SG;
+constexpr int F_L = NE * SG;
 // LANE_ROWS: the first spare entry past the triangle (F_L > NT at every
 // B2 above 20) holds the step's "some pivot not positive" flag.
 constexpr int F_BAD = NT;
-static_assert(!LANE_ROWS || F_L > NT, "a spare entry for the pivot flag");
-constexpr int F_ROWS = WIDE ? B2 : SG;
+static_assert(!LANE_ROWS || WIDE || F_L > NT,
+              "a spare entry for the pivot flag");
+constexpr int F_ROWS = SG;
 constexpr int F_FR = odd_quads(F_L + F_ROWS * B2P);
 constexpr int F_GS = odd_quads(F_ROWS * B2P);
 // A lane's table of Schur entries packs four offsets into one word: a byte
@@ -189,21 +191,61 @@ __host__ __device__ constexpr long long factor_smem_bytes(int qlog) {
            (long long)sizeof(real);
 }
 
+// ---- the wide factor (WIDE): wide_chol.cuh's blocked step.  Rows of the
+// working matrix (B2 in whole panels), panels, a row of [G | C] and of the
+// prefetched D_t and L_t (whole 16-byte pieces, an odd number of them past
+// a multiple of 8 so that rows 1 apart fall in distinct banks), and the
+// values of each; the head of the shared memory (the diagonal block's
+// pivot reciprocals, the step's "some pivot not positive" flag), a copy of
+// the diagonal block (the split form), and the workspace's values a
+// problem past its matrix (the split form's diagonal block as its product
+// left it, and its flag).
+constexpr int WP = wc_pad(B2);
+constexpr int WNP = WP / WC_NB;
+constexpr int WLD = 2 * WP + 4;
+constexpr int WLDP = WP + 4;
+constexpr long long W_M = (long long)WP * WLD;
+constexpr long long W_PF = 2LL * WP * WLDP;
+constexpr int W_HEAD = 64;
+constexpr int W_TLD = WC_NB + 4;
+constexpr int W_TS = WC_NB * W_TLD;
+constexpr int W_TAIL = W_TS + 4;
+// The products read all their initial values (D_t's, L_t's) before their
+// first store in groups of up to 128 threads: on an H100 one block a
+// problem in the workspace took 19.3 ms against 41.0 at B2=96 (W=100,
+// B=256) so, and the split form at B2=512 (W=20, B=8) 22.6 against 17.1.
+constexpr bool W_INIT_FIRST = SG <= 128;
+
 struct FactorPlan {
     int qlog, Q, smem, blocks, threads;
     long long work;  // DEV: values of the device-memory workspace
+    int cl;          // WIDE: blocks a problem (above 1: the split form)
 };
 
-// Problems per block as the chunk kernel plans them; WIDE: the ring and
-// G_{t-1} in device memory where they do not fit in budget (bytes).
+// Problems per block as the chunk kernel plans them.  WIDE: one problem a
+// block, the matrix and the prefetched blocks in shared memory where they
+// fit in budget (bytes), else the matrix in device memory; where the batch
+// leaves SMs idle and the matrix has rows for it (4 panels or more), the
+// split form: cl blocks a problem (up to one a panel of rows), one launch
+// a phase, the matrix in device memory.  (On an H100, W=50, B=64: 2
+// blocks a problem 12.6 ms against 11.4 for one at B2=130, 25.4 against
+// 27.5 at B2=200; from 4 blocks the split form faster at every size.)
 static FactorPlan factor_plan_for(int B, int sms, int budget) {
+    if (WIDE) {
+        int cl = B > 0 ? sms / B : 1;
+        if (cl > WNP) cl = WNP;
+        const int sz = (int)sizeof(real);
+        if (cl >= 2 && WNP >= 4 && (W_HEAD + W_TS) * sz <= budget)
+            return FactorPlan{0, 1, (W_HEAD + W_TS) * sz, B * cl, SG,
+                              (W_M + W_TAIL) * B, cl};
+        const long long chip = (W_HEAD + W_M + W_PF) * (long long)sz;
+        if (chip <= budget) return FactorPlan{0, 1, (int)chip, B, SG, 0, 1};
+        return FactorPlan{0, 1, W_HEAD * sz, B, SG, W_M * B, 1};
+    }
     const int qlog = group_qlog(B, sms, F_QLOG_MAX), Q = 1 << qlog;
     const int blocks = (B + Q - 1) / Q;
-    if (WIDE && factor_smem_bytes(qlog) > budget)
-        return FactorPlan{qlog, Q, 0, blocks, SG << qlog,
-                          ((long long)F_NSTAGE * F_FR + F_GS) * blocks};
     return FactorPlan{qlog, Q, (int)factor_smem_bytes(qlog), blocks,
-                      SG << qlog, 0};
+                      SG << qlog, 0, 1};
 }
 
 // Row i of entry e of the packed lower triangle (e < NT): the float root,
@@ -213,117 +255,6 @@ __device__ __forceinline__ int tri_row(int e) {
     while (i > 0 && TRI(i, 0) > e) --i;
     while (i + 1 < B2 && TRI(i + 1, 0) <= e) ++i;
     return i;
-}
-
-// factor_wide_step with several rows a thread (SCOLS > 1): lane l owns rows
-// l, l + SG, ... (co and go: where row l of C_t and G_t go).
-__device__ __forceinline__ void factor_wide_cols_step(
-    real* sg, real* gq, real* co, real* go, int t, int W, size_t Bs, int l,
-    bool valid) {
-    if (l == 0) sg[F_BAD] = real(0);
-#pragma unroll 1
-    for (int j = 0; j < B2; ++j) {
-#pragma unroll
-        for (int c = 0; c < SCOLS; ++c) {
-            if (l + c * SG == j) {
-                real s = sg[TRI(j, j)];
-                for (int k = 0; k < j; ++k)
-                    s = fma_rn(-sg[TRI(j, k)], sg[TRI(j, k)], s);
-                if (!(s > real(0))) sg[F_BAD] = real(1);
-                sg[TRI(j, j)] = sqrt_rn(s);
-            }
-        }
-        __syncthreads();  // pivot j and row j whole
-#pragma unroll
-        for (int c = 0; c < SCOLS; ++c) {
-            const int lc = l + c * SG;
-            if (lc < B2 && lc > j) {
-                real v = sg[TRI(lc, j)];
-                for (int k = 0; k < j; ++k)
-                    v = fma_rn(-sg[TRI(lc, k)], sg[TRI(j, k)], v);
-                sg[TRI(lc, j)] = mul_rn(v, rcp_rn(sg[TRI(j, j)]));
-            }
-        }
-    }
-    __syncthreads();  // C_t whole
-    const real poison = sg[F_BAD] != real(0) ? real(NAN) : real(0);
-#pragma unroll
-    for (int c = 0; c < SCOLS; ++c) {
-        const int lc = l + c * SG;
-        if (lc >= B2) continue;
-        // Row lc of G_t = L_t C_t^{-T} into gq (G_{t-1}'s place, read by
-        // this step's Schur update before the last barrier) and out; row lc
-        // of C_t out.
-        real* gl = gq + lc * B2P;
-        real* goc = go + (size_t)c * SG * B2 * Bs;
-        real* coc = co + (size_t)c * SG * B2 * Bs;
-#pragma unroll 1
-        for (int j = 0; j < B2; ++j) {
-            real s = sg[F_L + lc * B2P + j];
-            for (int k = 0; k < j; ++k) s = fma_rn(-gl[k], sg[TRI(j, k)], s);
-            const real gj = mul_rn(s, rcp_rn(sg[TRI(j, j)])) - poison;
-            gl[j] = gj;
-            if (valid && t < W - 1) goc[(size_t)t * NF * Bs + j * Bs] = gj;
-        }
-        if (valid) {
-#pragma unroll 1
-            for (int j = 0; j < B2; ++j)
-                coc[(size_t)t * NF * Bs + j * Bs] =
-                    lc >= j ? sg[TRI(lc, j)] - poison : real(0);
-        }
-    }
-}
-
-// The wide form's step (WIDE), after the Schur update left S_t in the stage
-// (sg) and the block's barrier: factor_rows_step's arithmetic, in place in
-// shared memory (or the workspace) with every loop rolled, so that no lane
-// holds B2 values.  Lanes past B2 take part in the barriers alone.
-__device__ __forceinline__ void factor_wide_step(
-    real* sg, real* gq, real* co, real* go, int t, int W, size_t Bs, int l,
-    bool row, bool valid) {
-    if constexpr (SCOLS > 1) {
-        factor_wide_cols_step(sg, gq, co, go, t, W, Bs, l, valid);
-        return;
-    }
-    if (l == 0) sg[F_BAD] = real(0);
-#pragma unroll 1
-    for (int j = 0; j < B2; ++j) {
-        if (l == j) {
-            real s = sg[TRI(j, j)];
-            for (int k = 0; k < j; ++k)
-                s = fma_rn(-sg[TRI(j, k)], sg[TRI(j, k)], s);
-            if (!(s > real(0))) sg[F_BAD] = real(1);
-            sg[TRI(j, j)] = sqrt_rn(s);
-        }
-        __syncthreads();  // pivot j and row j whole
-        if (row && l > j) {
-            real v = sg[TRI(l, j)];
-            for (int k = 0; k < j; ++k)
-                v = fma_rn(-sg[TRI(l, k)], sg[TRI(j, k)], v);
-            sg[TRI(l, j)] = mul_rn(v, rcp_rn(sg[TRI(j, j)]));
-        }
-    }
-    __syncthreads();  // C_t whole
-    const real poison = sg[F_BAD] != real(0) ? real(NAN) : real(0);
-    if (!row) return;
-    // Row l of G_t = L_t C_t^{-T} into gq (G_{t-1}'s place, read by this
-    // step's Schur update before the last barrier) and out; row l of C_t
-    // out.
-    real* gl = gq + l * B2P;
-#pragma unroll 1
-    for (int j = 0; j < B2; ++j) {
-        real s = sg[F_L + l * B2P + j];
-        for (int k = 0; k < j; ++k) s = fma_rn(-gl[k], sg[TRI(j, k)], s);
-        const real gj = mul_rn(s, rcp_rn(sg[TRI(j, j)])) - poison;
-        gl[j] = gj;
-        if (valid && t < W - 1) go[(size_t)t * NF * Bs + j * Bs] = gj;
-    }
-    if (valid) {
-#pragma unroll 1
-        for (int j = 0; j < B2; ++j)
-            co[(size_t)t * NF * Bs + j * Bs] =
-                l >= j ? sg[TRI(l, j)] - poison : real(0);
-    }
 }
 
 // One step of the factor above B2 = 20, after the Schur update left S_t in
@@ -388,8 +319,8 @@ __device__ __forceinline__ void factor_rows_step(
                  l >= j ? a[j] - poison : real(0), row && valid);
 }
 
-// DEV (WIDE only): the ring and G_{t-1} in the workspace work, each block
-// its part.
+// DEV: never (the narrow forms' ring is on chip; the parameter and work
+// keep the kernel's signature).
 template <bool DEV = false>
 __global__ void __launch_bounds__(SG << F_QLOG_MAX, 1)
     tridiag_factor_kernel(const real* __restrict__ diag,
@@ -415,9 +346,9 @@ __global__ void __launch_bounds__(SG << F_QLOG_MAX, 1)
     // each its four fields of ent_field (the entries past NT update spare
     // values with row B2-1's terms, so that every lane runs NE entries
     // without a branch).
-    ent_t ent[WIDE ? 1 : NE];
+    ent_t ent[NE];
 #pragma unroll
-    for (int m = 0; m < (WIDE ? 0 : NE); ++m) {
+    for (int m = 0; m < NE; ++m) {
         const int e = l + m * SG;
         int i = 0;
         while (i + 1 < B2 && TRI(i + 1, 0) <= e) ++i;
@@ -438,40 +369,6 @@ __global__ void __launch_bounds__(SG << F_QLOG_MAX, 1)
         real* sg = ring + (u % F_NSTAGE) * F_FR * Q;
         const int uc = u < W ? u : W - 1;
         const real* d = diag + (size_t)uc * NF * Bs + bl;
-        if constexpr (WIDE) {
-            // Entries l, l + SG, ... of D_u and, lane i < B2 below the last
-            // step, row i of L_u, in loops.
-#pragma unroll 1
-            for (int e = l; e < NT; e += SG) {
-                const int i = tri_row(e);
-                stage_copy4<DEV>(sg + e, d + (i * B2 + e - TRI(i, 0)) * Bs);
-            }
-            if constexpr (SCOLS > 1) {  // rows l, l + SG, ...
-#pragma unroll
-                for (int c = 0; c < SCOLS; ++c) {
-                    const int lc = l + c * SG;
-                    const real* lo = lower +
-                                     ((size_t)uc * NF + (lc < B2 ? lc : 0) *
-                                      B2) * Bs + bl;
-                    if (lc < B2 && uc < W - 1) {
-#pragma unroll 1
-                        for (int j = 0; j < B2; ++j)
-                            stage_copy4<DEV>(sg + F_L + lc * B2P + j,
-                                             lo + j * Bs);
-                    }
-                }
-            } else {
-                const real* lo =
-                    lower + ((size_t)uc * NF + lr * B2) * Bs + bl;
-                if (row && uc < W - 1) {
-#pragma unroll 1
-                    for (int j = 0; j < B2; ++j)
-                        stage_copy4<DEV>(sg + F_L + l * B2P + j, lo + j * Bs);
-                }
-            }
-            cp_async_commit();
-            return;
-        }
 #pragma unroll
         for (int m = 0; m < NE; ++m)
             cp_async4_if(sg + ent_field(ent[m], 3),
@@ -491,20 +388,7 @@ __global__ void __launch_bounds__(SG << F_QLOG_MAX, 1)
         // barrier.
         issue(t + F_NSTAGE - 1);
         cp_async_wait<F_NSTAGE - 1>();  // this lane's copies of step t
-        if (WIDE && t > 0) {
-            // S_t = D_t - G_{t-1} G_{t-1}', this lane's entries, k
-            // ascending, each written as soon as it is formed.
-#pragma unroll 1
-            for (int e = l; e < NT; e += SG) {
-                const int i = tri_row(e), j = e - TRI(i, 0);
-                const real* gi = gq + i * B2P;
-                const real* gj = gq + j * B2P;
-                real a = sg[e];
-#pragma unroll 4
-                for (int k = 0; k < B2; ++k) a = fma_rn(-gi[k], gj[k], a);
-                sg[e] = a;
-            }
-        } else if (t > 0) {
+        if (t > 0) {
             // S_t = D_t - G_{t-1} G_{t-1}', this lane's entries, k ascending.
             real acc[NE];
 #pragma unroll
@@ -525,9 +409,7 @@ __global__ void __launch_bounds__(SG << F_QLOG_MAX, 1)
         }
         __syncthreads();  // S_t whole
 
-        if constexpr (WIDE) {
-            factor_wide_step(sg, gq, co, go, t, W, Bs, l, row, valid);
-        } else if constexpr (LANE_ROWS) {
+        if constexpr (LANE_ROWS) {
             factor_rows_step(sg, gq, co, go, t, W, Bs, l, lr, row, valid);
         } else {
             // Cholesky of the whole S_t in this lane's registers, column by
@@ -589,6 +471,286 @@ __global__ void __launch_bounds__(SG << F_QLOG_MAX, 1)
             }
         }
         __syncthreads();  // G_t whole
+    }
+}
+
+// The wide form (WIDE): M = [G | C], rows of WLD values (wide_chol.cuh),
+// a problem's values in shared memory or (DEV) in the workspace.  A step
+// in phases: C_t panel by panel (the panel's product, its diagonal block
+// factored, the rows below solved against it and C_t's panel out), C_t
+// NaN where a pivot was not positive, then G_t = L_t C_t^{-T} panel by
+// panel in G_{t-1}'s place (the product, every row solved against C_t's
+// diagonal block, out as it is formed).  One block a problem runs them
+// all in one launch (tridiag_factor_wide_kernel), with D_t's lower
+// triangle and L_t copied with cp.async one phase ahead where M is on
+// chip (D_{t+1} while G_t is formed, L_{t+1} while C_{t+1} is); the split
+// form (tridiag_factor_split_kernel) runs each phase as a launch of cl
+// blocks a problem, each its chunk of the rows, every block factoring
+// the diagonal block in a copy of its own (Ts, from the product's tb; the
+// first writes it into M).
+template <bool DEV>
+struct TriWide {
+    const real* diag;
+    const real* lower;
+    real* chol;
+    real* gain;
+    real* M;     // the working matrix
+    real* Dp;    // !DEV: D_t's lower triangle, copied ahead
+    real* Lp;    // !DEV: L_t
+    real* head;  // the diagonal block's pivot reciprocals
+    real* flag;  // the step's "some pivot not positive"
+    real* Ts;    // the split form's copy of the diagonal block (else null)
+    real* tb;    // the split form's diagonal block as the product left it
+    int b, tid;
+    size_t Bs;
+
+    __device__ real at(const real* a, int t, int r, int c) const {
+        return a[((size_t)(t * B2 + r) * B2 + c) * Bs + b];
+    }
+    // D_t (the identity past B2) and L_t (zero past B2).
+    __device__ real d_at(int t, int r, int c) const {
+        if constexpr (DEV)
+            return r < B2 && c < B2 ? at(diag, t, r, c)
+                                    : r == c ? real(1) : real(0);
+        else
+            return Dp[r * WLDP + c];
+    }
+    __device__ real l_at(int t, int r, int c) const {
+        if constexpr (DEV)
+            return r < B2 && c < B2 ? at(lower, t, r, c) : real(0);
+        else
+            return Lp[r * WLDP + c];
+    }
+    // Panel p of C_t, chunk c of its rows: D_t's less [G_{t-1} | C_t so
+    // far] of the rows times the panel rows'.
+    __device__ void product(int t, int p, int c, int cl) const {
+        const int p0 = p * WC_NB;
+        int a, e;
+        wc_chunk(p0, WP, c, cl, a, e);
+        real* Cp = M + WP + p0;
+        // The split form's diagonal block apart, so that no block's
+        // write-back of it races another's read.
+        const int split = Ts != nullptr ? p0 + WC_NB : 0;
+        wc_panel_product<SG, WLD, WP, W_INIT_FIRST>(
+            M, 0, p0, 0, a, e, WP + p0, tid,
+            [&](int r, int k) { return d_at(t, r, p0 + k); },
+            [&](int r, int k, real v) {
+                if (r < split)
+                    tb[(r - p0) * W_TLD + k] = v;
+                else
+                    Cp[r * WLD + k] = v;
+            });
+    }
+    // Panel p's diagonal block factored by the first warp: in place, or
+    // (split) from tb into Ts, the first block writing it into M.
+    __device__ void tile(int p, int c) const {
+        const int p0 = p * WC_NB;
+        const int npiv = B2 - p0 < WC_NB ? B2 - p0 : WC_NB;
+        wc_block_factor<WLD, W_TLD>(M + p0 * WLD + WP + p0, Ts, tb, tid,
+                                    head, flag, head + WC_NB, npiv,
+                                    c == 0);
+    }
+    // Chunk c of panel p's rows below its diagonal block solved against
+    // it, and C_t's entries of the panel out for those rows; the first
+    // chunk also the block's rows, their upper part zero to B2.
+    template <int TLD>
+    __device__ void solve_on(const real* Tb, int t, int p, int c,
+                             int cl) const {
+        const int p0 = p * WC_NB;
+        int a, e;
+        wc_chunk(p0 + WC_NB, WP, c, cl, a, e);
+        wc_row_solve<SG, WLD, TLD>(
+            M, a, e, WP + p0, Tb, head, real(0), B2 - p0, tid,
+            [&](int r, int j, real v) {
+                if (r < B2 && p0 + j < B2)
+                    chol[((size_t)(t * B2 + r) * B2 + p0 + j) * Bs + b] = v;
+            });
+        if (c != 0) return;
+        const int rows = B2 - p0 < WC_NB ? B2 - p0 : WC_NB;
+#pragma unroll 1
+        for (int k = tid; k < rows * (B2 - p0); k += SG) {
+            const int i = k / (B2 - p0), j = k % (B2 - p0);
+            chol[((size_t)(t * B2 + p0 + i) * B2 + p0 + j) * Bs + b] =
+                j <= i ? Tb[i * TLD + j] : real(0);
+        }
+    }
+    __device__ void solve(int t, int p, int c, int cl) const {
+        if (Ts != nullptr)
+            solve_on<W_TLD>(Ts, t, p, c, cl);
+        else
+            solve_on<WLD>(M + p * WC_NB * WLD + WP + p * WC_NB, t, p, c,
+                          cl);
+    }
+    // C_t's lower triangle NaN, chunk c of its rows, where a pivot was not
+    // positive (the whole block, as a failed dense Cholesky).
+    __device__ void poison(int t, int c, int cl) const {
+        if (*flag == real(0)) return;
+        int a, e;
+        wc_chunk(0, B2, c, cl, a, e);
+#pragma unroll 1
+        for (int k = a * B2 + tid; k < e * B2; k += SG)
+            if (k % B2 <= k / B2)
+                chol[((size_t)t * B2 * B2 + k) * Bs + b] = real(NAN);
+    }
+    // Panel J of G_t, chunk c of its rows: L_t's less G_t so far times
+    // C_t's panel rows, then each row solved against C_t's diagonal block
+    // (NaN where C_t is), out as formed.
+    __device__ void gain_panel(int t, int J, int c, int cl) const {
+        const int j0 = J * WC_NB;
+        const real poison_v = *flag != real(0) ? real(NAN) : real(0);
+        const real* blk = M + j0 * WLD + WP + j0;
+        if (tid < WC_NB) head[tid] = rcp_rn(blk[tid * WLD + tid]);
+        if (Ts != nullptr)
+            for (int k = 4 * tid; k < WC_NB * WC_NB; k += 4 * SG)
+                copy4(Ts + (k / WC_NB) * W_TLD + k % WC_NB,
+                      blk + (k / WC_NB) * WLD + k % WC_NB);
+        int a, e;
+        wc_chunk(0, WP, c, cl, a, e);
+        wc_panel_product<SG, WLD, WP, W_INIT_FIRST>(
+            M, 0, j0, WP, a, e, j0, tid,
+            [&](int r, int k) { return l_at(t, r, j0 + k); },
+            [&](int r, int k, real v) { M[r * WLD + j0 + k] = v; });
+        __syncthreads();
+        const auto out = [&](int r, int j, real v) {
+            if (r < B2 && j0 + j < B2)
+                gain[((size_t)(t * B2 + r) * B2 + j0 + j) * Bs + b] = v;
+        };
+        if (Ts != nullptr)
+            wc_row_solve<SG, WLD, W_TLD>(M, a, e, j0, Ts, head, poison_v,
+                                         B2 - j0, tid, out);
+        else
+            wc_row_solve<SG, WLD, WLD>(M, a, e, j0, blk, head, poison_v,
+                                       B2 - j0, tid, out);
+    }
+};
+
+// One block a problem: every phase of every step in one launch.  DEV: M in
+// the workspace work.
+template <bool DEV = false>
+__global__ void __launch_bounds__(SG, 1)
+    tridiag_factor_wide_kernel(const real* __restrict__ diag,
+                               const real* __restrict__ lower,
+                               real* __restrict__ chol,
+                               real* __restrict__ gain, int W, int B,
+                               int qlog, real* work) {
+    LANE_SMEM_DECL();
+    (void)qlog;
+    const int tid = threadIdx.x, b = blockIdx.x;
+    const size_t Bs = (size_t)B;
+    real* M = DEV ? work + (size_t)b * W_M : lane_smem + W_HEAD;
+    const TriWide<DEV> f{diag, lower, chol, gain, M, M + W_M,
+                         M + W_M + (size_t)WP * WLDP, lane_smem,
+                         lane_smem + WC_NB, nullptr, nullptr, b, tid, Bs};
+    // G_{-1} = 0, and the pads of the prefetched blocks, which no copy
+    // overwrites.
+#pragma unroll 1
+    for (int e = tid; e < WP * WP; e += SG) {
+        const int r = e / WP, c = e % WP;
+        M[r * WLD + c] = real(0);
+        if (!DEV && (r >= B2 || c >= B2)) {
+            f.Dp[r * WLDP + c] = r == c ? real(1) : real(0);
+            f.Lp[r * WLDP + c] = real(0);
+        }
+    }
+    // This thread's copies of D_u (its lower triangle) and of L_u, one
+    // commit group each (empty past the horizon, and DEV).
+    const auto copy_d = [&](int u) {
+        if (!DEV && u < W) {
+#pragma unroll 1
+            for (int e = tid; e < NT; e += SG) {
+                const int i = tri_row(e), j = e - TRI(i, 0);
+                cp_async4(f.Dp + i * WLDP + j,
+                          diag + ((size_t)(u * B2 + i) * B2 + j) * Bs + b);
+            }
+        }
+        cp_async_commit();
+    };
+    const auto copy_l = [&](int u) {
+        if (!DEV && u < W - 1) {
+#pragma unroll 1
+            for (int e = tid; e < NF; e += SG) {
+                const int i = e / B2, j = e % B2;
+                cp_async4(f.Lp + i * WLDP + j,
+                          lower + ((size_t)(u * B2 + i) * B2 + j) * Bs + b);
+            }
+        }
+        cp_async_commit();
+    };
+    copy_d(0);
+    copy_l(0);
+    for (int t = 0; t < W; ++t) {
+        cp_async_wait<1>();  // this thread's copies of D_t
+        if (tid == 0) *f.flag = real(0);
+        __syncthreads();  // D_t whole, G_{t-1} whole, the flag reset
+#pragma unroll 1
+        for (int p = 0; p < WNP; ++p) {
+            f.product(t, p, 0, 1);
+            __syncthreads();
+            if (tid < 32) f.tile(p, 0);
+            __syncthreads();
+            f.solve(t, p, 0, 1);
+            __syncthreads();
+        }
+        f.poison(t, 0, 1);
+        if (t == W - 1) break;
+        copy_d(t + 1);
+        cp_async_wait<1>();  // this thread's copies of L_t
+        __syncthreads();     // L_t whole
+#pragma unroll 1
+        for (int J = 0; J < WNP; ++J) {
+            f.gain_panel(t, J, 0, 1);
+            __syncthreads();
+        }
+        copy_l(t + 1);
+    }
+    cp_async_wait<0>();
+}
+
+// The split form's phases, one a launch of cl blocks a problem (block
+// b * cl + c takes chunk c of problem b's rows; a kernel a phase, so that
+// each takes the registers of its own work); M and the flag in the
+// workspace work.  TW_GAIN forms every panel of G_t for the block's rows
+// (they depend on those rows and C_t alone), after C_t's NaN where a pivot
+// was not positive; at the last step only the NaN.
+enum { TW_INIT, TW_PRODUCT, TW_TILE_SOLVE, TW_GAIN };
+
+template <int PHASE>
+__global__ void __launch_bounds__(SG, 1)
+    tridiag_factor_split_kernel(const real* __restrict__ diag,
+                                const real* __restrict__ lower,
+                                real* __restrict__ chol,
+                                real* __restrict__ gain, int W, int B,
+                                real* work, int cl, int t, int p) {
+    LANE_SMEM_DECL();
+    const int tid = threadIdx.x, b = blockIdx.x / cl, c = blockIdx.x % cl;
+    real* M = work + (size_t)b * (W_M + W_TAIL);
+    const TriWide<true> f{diag,      lower,   chol,
+                          gain,      M,       nullptr,
+                          nullptr,   lane_smem, M + W_M + W_TS,
+                          lane_smem + W_HEAD, M + W_M, b,
+                          tid,       (size_t)B};
+    if constexpr (PHASE == TW_INIT) {  // G_{-1} = 0, the flag reset
+        int a, e;
+        wc_chunk(0, WP, c, cl, a, e);
+#pragma unroll 1
+        for (int k = a * WP + tid; k < e * WP; k += SG)
+            M[(k / WP) * WLD + k % WP] = real(0);
+        if (c == 0 && tid == 0) *f.flag = real(0);
+    } else if constexpr (PHASE == TW_PRODUCT) {
+        if (p == 0 && c == 0 && tid == 0) *f.flag = real(0);
+        f.product(t, p, c, cl);
+    } else if constexpr (PHASE == TW_TILE_SOLVE) {
+        if (tid < 32) f.tile(p, c);
+        __syncthreads();
+        f.solve(t, p, c, cl);
+    } else {
+        f.poison(t, c, cl);
+        if (t == W - 1) return;
+#pragma unroll 1
+        for (int J = 0; J < WNP; ++J) {
+            f.gain_panel(t, J, c, cl);
+            __syncthreads();
+        }
     }
 }
 
@@ -1028,26 +1190,71 @@ static int factor_plan(int B, int budget, FactorPlan* p) {
     return p->smem > dev_smem ? -1 : 0;
 }
 
-// plan[0..7] = threads per problem, problems per block Q, stages, shared
-// bytes, blocks, threads per block, bytes per staging copy, and the bytes
-// of the device-memory workspace (0: the ring on chip): the plan
-// tridiag_factor_launch makes.
+// plan[0..9] = threads per problem, problems per block Q, stages, shared
+// bytes, blocks, threads per block, bytes per staging copy, the bytes of
+// the device-memory workspace (0: the ring on chip), blocks a problem
+// (above 1: the wide form split, one launch a phase), and the split
+// form's launches a step (launch_split: a call makes 1 + W times as many;
+// 0: one launch a call): the plan tridiag_factor_launch makes.
 extern "C" int tridiag_factor_plan(int B, int budget, long long* plan) {
     FactorPlan p{};
     const int err = factor_plan(B, budget, &p);
-    const long long v[8] = {SG,       p.Q,       F_NSTAGE, p.smem,
-                            p.blocks, p.threads, (long long)sizeof(real),
-                            p.work * (long long)sizeof(real)};
-    for (int k = 0; k < 8; ++k) plan[k] = v[k];
+    const long long v[10] = {SG,       p.Q,       F_NSTAGE, p.smem,
+                             p.blocks, p.threads, (long long)sizeof(real),
+                             p.work * (long long)sizeof(real), p.cl,
+                             p.cl > 1 ? 2 * WNP + 1 : 0};
+    for (int k = 0; k < 10; ++k) plan[k] = v[k];
     return err;
 }
 
-// The factor's launch, DEV: the ring in the workspace (a template, so that
-// only the wide builds compile that kernel).
+// The factor's launch, DEV: the wide form's matrix in the workspace (a
+// template, so that a build compiles its own form's kernels only).
 template <bool DEV, class... A>
 static int launch_factor(const FactorPlan& p, void* stream, A... args) {
-    return lane_launch_coop(&tridiag_factor_kernel<DEV>, p.blocks, p.threads,
-                            p.threads, p.smem, stream, args...);
+    if constexpr (WIDE)
+        return lane_launch_coop(&tridiag_factor_wide_kernel<DEV>, p.blocks,
+                                p.threads, p.threads, p.smem, stream,
+                                args...);
+    else
+        return lane_launch_coop(&tridiag_factor_kernel<DEV>, p.blocks,
+                                p.threads, p.threads, p.smem, stream,
+                                args...);
+}
+
+// The split form (WIDE, p.cl blocks a problem): each phase of each step a
+// launch (the product and the diagonal block's phase of every panel of
+// C_t, then every panel of G_t in one), a phase's blocks a problem fewer
+// where its rows are fewer (one for every panel of them, at least one).
+template <bool DEV>
+static int launch_split(const FactorPlan& p, void* stream, const real* diag,
+                        const real* lower, real* chol, real* gain, int W,
+                        int B, real* work) {
+    if constexpr (WIDE) {
+        const auto run = [&](auto kernel, int t, int pp, int rows) {
+            int cl = rows / WC_NB;
+            cl = cl < 1 ? 1 : cl > p.cl ? p.cl : cl;
+            return lane_launch_coop(kernel, B * cl, p.threads, p.threads,
+                                    p.smem, stream, diag, lower, chol, gain,
+                                    W, B, work, cl, t, pp);
+        };
+        int err = run(&tridiag_factor_split_kernel<TW_INIT>, 0, 0, WP);
+        for (int t = 0; t < W && err == 0; ++t) {
+            for (int q = 0; q < WNP && err == 0; ++q) {
+                err = run(&tridiag_factor_split_kernel<TW_PRODUCT>, t, q,
+                          WP - q * WC_NB);
+                if (err == 0)
+                    err = run(&tridiag_factor_split_kernel<TW_TILE_SOLVE>, t,
+                              q, WP - (q + 1) * WC_NB);
+            }
+            if (err == 0)
+                err = run(&tridiag_factor_split_kernel<TW_GAIN>, t, 0, WP);
+        }
+        return err;
+    } else {
+        (void)p, (void)stream, (void)diag, (void)lower, (void)chol;
+        (void)gain, (void)W, (void)B, (void)work;
+        return -1;
+    }
 }
 
 // budget, work: as tridiag_factor_plan, and its workspace (null where it
@@ -1063,6 +1270,10 @@ extern "C" int tridiag_factor_launch(const void* diag, const void* lower,
 #define LANE_FACTOR_ARGS                                                      \
     (const real*)diag, (const real*)lower, (real*)chol, (real*)gain, W, B,    \
         p.qlog, (real*)work
+    if (p.cl > 1)
+        return launch_split<WIDE>(p, stream, (const real*)diag,
+                                  (const real*)lower, (real*)chol,
+                                  (real*)gain, W, B, (real*)work);
     if (p.work > 0) return launch_factor<WIDE>(p, stream, LANE_FACTOR_ARGS);
     return launch_factor<false>(p, stream, LANE_FACTOR_ARGS);
 #undef LANE_FACTOR_ARGS

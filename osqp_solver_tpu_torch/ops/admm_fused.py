@@ -210,6 +210,13 @@ def unpack_state(qp, st):
 # (``admm_fused.py:257-260``) and in this port alike.
 
 
+def _tri_pad(B2):
+    """Rows of a packed triangle of a B2 x B2 block, padded to 8: the
+    packs' ``Tp`` (what :func:`_tri_maps` returns last, without its maps,
+    which take ~0.1 s to build at B2=600)."""
+    return _pad8(B2 * (B2 + 1) // 2)
+
+
 def _tri_maps(B2):
     low = {}
     k = 0
@@ -223,7 +230,7 @@ def _tri_maps(B2):
         for j in range(i, B2):
             up[(i, j)] = k
             k += 1
-    return low, up, _pad8(len(low))
+    return low, up, _tri_pad(B2)
 
 
 def pack_factor(qp, factor):
@@ -443,7 +450,7 @@ def fused_admm_chunk(
     Rp = scaled.rows_per_waypoint_padded
     _, SRp = state_rows(scaled)
     _, _, _, CRp = _coef_layout(scaled)
-    _, _, Tp = _tri_maps(2 * N)
+    Tp = _tri_pad(2 * N)
     PNp = _pad8(N)
     VCp = _pad8(6 * N)
     n_iter = settings.check_termination if n_iter is None else int(n_iter)

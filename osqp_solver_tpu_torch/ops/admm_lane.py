@@ -333,8 +333,10 @@ def least_shared_bytes(qp, settings: Settings) -> dict:
     kernel's group slots (``SLOT`` of ``csrc/admm_chunk.cu`` and
     ``csrc/residuals.cu``) on the fused path, the tridiagonal solve's
     (:func:`.tridiag_kernel.least_shared_bytes`) on the unfused path and for
-    polish.  The KKT and tridiagonal factors' wide forms keep nothing on
-    chip.  Mirrors the sources' constants; their plans decide at launch."""
+    polish.  The KKT and tridiagonal factors' wide forms keep 64 values on
+    chip (``W_HEAD``) with their working matrices in the workspace, which
+    binds nowhere.  Mirrors the sources' constants; their plans decide at
+    launch."""
     from .. import _build
     from .ruiz_kernel import ruiz_kernel_supported
     from .tridiag_kernel import least_shared_bytes as tridiag_bytes

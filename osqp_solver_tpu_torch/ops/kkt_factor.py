@@ -17,9 +17,12 @@ assembled at once, off the step chain, into shared memory; on the chain
 the group's lanes share the Schur update, each lane factors the whole
 block in its registers and lane ``i`` forms row ``i`` of ``G_t``.  The
 problems per block and the window are planned at each launch
-(:func:`plan`); above 16 joints one problem a block and a group of
-several warps, the window in a device-memory workspace (allocated here)
-where not even one waypoint fits on chip.  Bound on an H100: each
+(:func:`plan`).  Above 16 joints one problem a block and a group of
+several warps, each step assembling its own waypoint into a working matrix
+``[G | C]`` and factoring it by the blocked panels of
+``csrc/wide_chol.cuh`` (register-tiled products, a warp per diagonal
+block, a thread per row below); the matrix lives in a device-memory
+workspace (allocated here) where it does not fit on chip.  Bound on an H100: each
 problem's chain of W dependent 12×12 steps — latency, not bandwidth (it
 reads coef+ρ+Pd+Pl and writes Tp rows once) and not FLOP rate.
 """
@@ -76,21 +79,33 @@ def _configure(lib):
 
 
 PLAN_KEYS = ("G", "Q", "window", "windows", "shared_bytes", "blocks",
-             "threads_per_block", "budget", "workspace_bytes")
+             "threads_per_block", "budget", "workspace_bytes",
+             "blocks_per_problem", "launches_a_step")
 
 
 def plan(lib, W, B, budget=0):
     """The launch plan of ``csrc/kkt_factor.cu`` for ``W`` waypoints and a
     batch of ``B`` on the current device, as :func:`_launch_factor` makes
     it: threads per problem, problems per block, waypoints per assembled
-    window, windows, shared bytes, blocks, threads per block, the shared
-    bytes planned for (``budget`` 0: the device's) and the bytes of the
-    device-memory workspace it needs (above 16 joints, where not even one
-    waypoint's slot fits on chip; else 0)."""
+    window (above 16 joints: 1, each step assembling its own), windows,
+    shared bytes, blocks, threads per block, the shared bytes planned for
+    (``budget`` 0: the device's), the bytes of the device-memory
+    workspace it needs (above 16 joints, where the working matrix does not
+    fit on chip or the form is split; else 0), the blocks a problem
+    (above 1: the wide form split, each phase of a step a launch of that
+    many blocks a problem, where the batch leaves SMs idle) and the split
+    form's launches a step (0: one launch a call; :func:`device_launches`)."""
     lib = _configure(lib)
     out = (ctypes.c_longlong * len(PLAN_KEYS))()
     _build.check(lib.kkt_factor_plan(W, B, budget, out), "kkt_factor_plan")
     return dict(zip(PLAN_KEYS, out))
+
+
+def device_launches(plan_, W):
+    """The CUDA launches that one call of the factor makes under ``plan_``
+    (:func:`plan`) for ``W`` waypoints: 1, or the split form's 1 + W times
+    its launches a step."""
+    return 1 + W * plan_["launches_a_step"]
 
 
 def _launch_factor(lib, coef, rho3, Pd, Pl, cholp, sigma, gainp=None,
@@ -122,7 +137,7 @@ def factor_packed_lane(scaled, rho_vec, sigma, coef=None, emit_gain=False):
     reassociation.
     """
     from .admm_fused import (
-        _coef_layout, _tri_maps, build_coef_pack, layout_signature,
+        _coef_layout, _tri_pad, build_coef_pack, layout_signature,
     )
 
     W, N, B = scaled.waypoints, scaled.n_dim, scaled.batch
@@ -146,7 +161,7 @@ def factor_packed_lane(scaled, rho_vec, sigma, coef=None, emit_gain=False):
             f"the CUDA factor kernel takes float32, got {rho_vec.dtype}"
         )
     _, _, _, CRp = _coef_layout(scaled)
-    _, _, Tp = _tri_maps(2 * N)
+    Tp = _tri_pad(2 * N)
     if coef is None:
         coef = build_coef_pack(scaled)
     if tuple(coef.shape) != (W, CRp, B) or not coef.is_contiguous():

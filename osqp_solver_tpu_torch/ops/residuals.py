@@ -296,7 +296,7 @@ def termination_quantities_kernel(scaled, state_pack, dxdy_pack, coef, packs):
     version runs.
     """
     from .admm_fused import (
-        _check_pack, _coef_layout, _tri_maps, dxdy_rows, p_signature,
+        _check_pack, _coef_layout, _tri_pad, dxdy_rows, p_signature,
         state_rows,
     )
 
@@ -326,7 +326,7 @@ def termination_quantities_kernel(scaled, state_pack, dxdy_pack, coef, packs):
     sig = p_signature(scaled)
     if sig["BLOCK_P"]:
         B2 = 2 * N
-        _check_pack("Pdp", Pdp, (W, _tri_maps(B2)[2], B), state_pack)
+        _check_pack("Pdp", Pdp, (W, _tri_pad(B2), B), state_pack)
         _check_pack("Plf", Plf, (W, B2 * B2, B), state_pack)
     else:
         PNp = -(-N // 8) * 8

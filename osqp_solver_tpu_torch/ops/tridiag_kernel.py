@@ -27,10 +27,16 @@ where it fits, else in ``x``.  Bound on
 an H100: bytes on paper (~0.03-0.06 ms at B=1024, W=100, B2=12), each
 problem's chain of steps in practice.  The block size ``B2`` is
 compile-time (one build per ``B2``).  Above B2=32 both kernels take their
-wide form (one problem a block, a group of several warps, shuffles through
-shared memory), above B2=512 with each of the group's 512 threads owning
-several rows of a step; where a ring does not fit on chip its plan asks
-for a device-memory workspace, which :func:`_launch` allocates.
+wide form, one problem a block of a group of several warps.  The factor's
+is blocked (``csrc/wide_chol.cuh``): left-looking panels of 32 columns,
+each a register-tiled product, its diagonal block factored by one warp in
+registers, the rows below solved a thread a row, and ``G_t`` by column
+panels the same way, in a working matrix ``[G | C]`` with ``D_t`` and
+``L_t`` copied a phase ahead.  The solve's shuffles go through shared
+memory, above B2=512 each of the group's 512 threads owning several rows
+of a step.  Where the factor's matrix or the solve's ring does not fit on
+chip its plan asks for a device-memory workspace, which :func:`_launch`
+allocates.
 """
 from __future__ import annotations
 
@@ -57,8 +63,9 @@ def least_shared_bytes(B2):
     """The fewest bytes of shared memory a block of the kernels asks for at
     block size ``B2``: the solve's slot (2 values a row of its group's rows,
     ``S_SLOT`` of ``csrc/tridiag.cu``) with its ring and ``w`` in device
-    memory; the factor's wide form keeps nothing on chip.  Up to B2 = 32
-    the narrow forms' one placement, which fits the card."""
+    memory; the factor's wide form keeps 64 values on chip (``W_HEAD``)
+    with its matrix in device memory, never more than the solve's slot.
+    Up to B2 = 32 the narrow forms' one placement, which fits the card."""
     if B2 <= 32:
         return 0
     G = _build.group_size(B2, 4)
@@ -121,21 +128,34 @@ def plan(lib, W, B, budget=0):
 
 
 FACTOR_PLAN_KEYS = ("G", "Q", "stages", "shared_bytes", "blocks",
-                    "threads_per_block", "copy_bytes", "workspace_bytes")
+                    "threads_per_block", "copy_bytes", "workspace_bytes",
+                    "blocks_per_problem", "launches_a_step")
 
 
 def factor_plan(lib, B, budget=0):
     """The factor kernel's launch plan for a batch of ``B`` on the current
     device, as :func:`_launch` makes it: threads per problem, problems per
-    block, ring stages, shared bytes, blocks, threads per block, the bytes
-    of a staging copy and of the device-memory workspace (above B2=32,
-    where the ring does not fit in ``budget``; else 0); ``budget``: the
-    shared bytes a block may use (0: the device's)."""
+    block, ring stages (the narrow forms'), shared bytes, blocks, threads
+    per block, the bytes of a staging copy and of the device-memory
+    workspace (above B2=32, where the working matrix and the blocks copied
+    ahead do not fit in ``budget``, or the form is split; else 0), the
+    blocks a problem (above 1: the wide form split, each phase of a step a
+    launch of that many blocks a problem, where the batch leaves SMs idle)
+    and the split form's launches a step (0: one launch a call;
+    :func:`factor_device_launches`); ``budget``: the shared bytes a block
+    may use (0: the device's)."""
     lib = _configure(lib)
     out = (ctypes.c_longlong * len(FACTOR_PLAN_KEYS))()
     _build.check(lib.tridiag_factor_plan(B, int(budget), out),
                  "tridiag_factor_plan")
     return dict(zip(FACTOR_PLAN_KEYS, out))
+
+
+def factor_device_launches(plan_, W):
+    """The CUDA launches that one call of the factor makes under ``plan_``
+    (:func:`factor_plan`) for ``W`` steps: 1, or the split form's 1 + W
+    times its launches a step."""
+    return 1 + W * plan_["launches_a_step"]
 
 
 def _launch(lib, name, a, b, c, d, budget=0):

@@ -170,9 +170,13 @@ def test_w802_streaming_plans(w802_plans):
 
 
 # N: (W, B, group of threads, the plans with a device-memory workspace).
+# The KKT factor's wide form keeps its working matrix (2N rounded up to
+# whole panels of 32, [G | C] rows) on chip up to 2N = 160: at N=100 its
+# 224 x 452 values take the workspace.
 WIDE = {
     40: (100, 256, 128, set()),
-    100: (50, 64, 256, {"admm_chunk_warmup", "admm_chunk_warmup_gain",
+    100: (50, 64, 256, {"kkt_factor", "admm_chunk_warmup",
+                        "admm_chunk_warmup_gain",
                         "admm_chunk_term", "admm_chunk_term_gain",
                         "admm_chunk_dxdy", "admm_chunk_dxdy_gain",
                         "tridiag_factor", "tridiag_solve"}),
@@ -191,9 +195,18 @@ WIDE = {
 }
 
 
+# The two factors' blocks a problem (the KKT factor's, the tridiagonal
+# factor's): where the batch leaves SMs idle, the split form (one launch a
+# phase), up to one block a panel of 32 rows of the working matrix (N=100:
+# 224 rows, 132 SMs / 64 problems = 2; 256: 512; 300: 608, 132 SMs / 8
+# problems), the KKT factor's from 4 blocks a problem only.
+SPLIT = {40: (1, 1), 100: (1, 2), 256: (16, 16), 300: (16, 16)}
+
+
 @pytest.mark.parametrize("N", sorted(WIDE))
 def test_wide_plans(N):
-    """Above 32 joints: one problem a block, a group of the smallest power
+    """Above 32 joints: one problem a block (the factors: SPLIT's blocks a
+    problem), a group of the smallest power
     of two >= 2N threads, at most 512 (the streaming kernels and the solve
     with as many producers: up to 1,024 threads a block), every footprint on
     chip within the card's shared memory, the rings and windows that do
@@ -205,7 +218,10 @@ def test_wide_plans(N):
         if k == "ruiz":
             assert p["shared_bytes"] <= H100_SMEM
             continue
-        assert p["blocks"] == B, k
+        split = (SPLIT[N][0] if k == "kkt_factor" else
+                 SPLIT[N][1] if k == "tridiag_factor" else 1)
+        assert p.get("blocks_per_problem", 1) == split, k
+        assert p["blocks"] == B * split, k
         assert (p["workspace_bytes"] > 0) == (k in off_chip), k
         # The chunk's plan gives the ring's bytes on chip; where they do
         # not fit, the launch takes the workspace and its slots alone.

@@ -37,7 +37,8 @@ WIDE = [17, 24, 64]
 # in the device-memory workspace.
 PLACES = {"chip": 0, "dev": 1}
 # Block sizes whose rings go to the workspace unforced in double (the
-# three-stage ring of 128-wide blocks is above the emulated 512 KB).
+# solve's three-stage ring of 128-wide blocks, and the factor's working
+# matrix beside the copied D_t and L_t, are above the emulated 512 KB).
 UNFORCED_DEV = {128}
 
 

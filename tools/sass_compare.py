@@ -14,11 +14,16 @@ Builds the Ruiz, KKT-factor, chunk and residual sources at every layout
 signature of ``chip_smoke.py``'s phases up to ``--max-joints`` joints and
 the tridiagonal pair up to ``--max-b2``, from both trees, all compilers
 started together, and compares each pair's ``cuobjdump -sass`` listing
-(``chip_smoke.sass_differs``).  Each build that differs is built again
-from this tree into another directory and compared with its first build,
+(``chip_smoke.sass_differs``).  The wide builds (2N or B2 above 32) of
+the KKT factor and of the tridiagonal pair, whose factors were redesigned
+(``chip_smoke.same_code_expected``), are compared in their solve kernels
+alone (the tridiagonal pair's ``tridiag_solve_kernel`` functions) or not
+at all (the KKT factor's).  Each build that differs is built again from
+this tree into another directory and compared with its first build,
 which tells a change of the code from a compiler that is not
 deterministic.  Prints one JSON line: the builds compared, those that
-differ, and the second builds' verdicts; exits 1 where any differs.
+differ, those left out, and the second builds' verdicts; exits 1 where
+any differs.
 """
 from __future__ import annotations
 
@@ -58,18 +63,29 @@ def main():
     ref = [(n, s, _build.start_build(n, dict(s), csrc=cs.ref_csrc()))
            for n, s in wanted]
     built = _build.build_all([dict(s) for _, s in wanted], LANE)
-    differ = [(n, s) for n, s, h in ref if cs.sass_differs(
-        _build.finish_build(h), built[(n, s)])]
+
+    def only(n, s):  # the functions compared (None: all)
+        if cs.same_code_expected(n, dict(s)):
+            return None
+        return "tridiag_solve" if n == "tridiag" else False
+
+    skipped = [tag(n, s) for n, s in wanted if only(n, s) is False]
+    differ = [(n, s) for n, s, h in ref if only(n, s) is not False
+              and cs.sass_differs(_build.finish_build(h), built[(n, s)],
+                                  only(n, s))]
     again = {}
     if differ:
         os.environ["OSQP_TORCH_BUILD_DIR"] = str(_build.build_dir()) + "_again"
         handles = [(n, s, _build.start_build(n, dict(s))) for n, s in differ]
         again = {tag(n, s): cs.sass_differs(_build.finish_build(h),
-                                            built[(n, s)])
+                                            built[(n, s)], only(n, s))
                  for n, s, h in handles}
     rec = dict(seconds=round(time.time() - t0, 1), builds=len(wanted),
                max_joints=opts.max_joints, max_b2=opts.max_b2,
                differ=[tag(n, s) for n, s in differ],
+               solve_kernels_only=[tag(n, s) for n, s in wanted
+                                   if only(n, s)],
+               not_compared=skipped,
                second_build_differs_from_first=again,
                card=cs.nvidia_smi())
     if opts.out:
